@@ -2,8 +2,9 @@
 subset of `elasticsearch_tpu/index/mapping.py`).
 
 `dense_vector` takes dims, similarity, and `index_options` with `type`
-`flat` or `int8_flat`, `rescore` and `rescore_oversample`; `_source.enabled`
-is honoured. Every other field type raises the reference's mapper-parsing
+(`flat`, `int8_flat`, `int4_flat`, `ivf`, `int8_ivf`, `int4_ivf`), `nlist`,
+`nprobe`, `rescore` and `rescore_oversample`; `_source.enabled` is
+honoured. Every other field type raises the reference's mapper-parsing
 error. Unmapped document fields stay in `_source` and are not indexed.
 """
 
@@ -32,15 +33,20 @@ class KeywordFieldMapper(FieldMapper):
 
 class DenseVectorFieldMapper(FieldMapper):
     """`dense_vector`: dims (required), similarity (cosine|dot_product|
-    l2_norm|max_inner_product, default cosine), index_options.type (the
-    storage encoding: flat = the store's bf16, int8_flat = int8),
-    index_options.rescore (int8: keep the residual level and re-rank the
-    kernel's top candidates) and rescore_oversample (sizes that window:
-    32 candidates per unit)."""
+    l2_norm|max_inner_product, default cosine), index_options.type — the
+    quantization-ladder rung (flat = the store's bf16, int8_flat, int4_flat
+    packed nibbles) on the exhaustive engine, or the same rung on the
+    partitioned `tpu_ivf` engine (ivf, int8_ivf, int4_ivf), overriding
+    `index.knn.engine`; index_options.nlist / nprobe (per-field IVF
+    overrides); index_options.rescore (int8: keep the residual level and
+    re-rank the kernel's top candidates; int4, on by default: exact f32
+    rescore of the coarse window) and rescore_oversample (sizes those
+    windows). The binary rungs are not ported."""
 
     type_name = "dense_vector"
 
-    INDEX_OPTIONS_TYPES = ("flat", "int8_flat")
+    INDEX_OPTIONS_TYPES = ("flat", "int8_flat", "int4_flat",
+                           "ivf", "int8_ivf", "int4_ivf")
 
     def __init__(self, name, params=None):
         super().__init__(name, params)
@@ -59,16 +65,24 @@ class DenseVectorFieldMapper(FieldMapper):
             raise MapperParsingError(
                 f"[{name}] unknown index_options type [{otype}]; expected "
                 f"one of {list(self.INDEX_OPTIONS_TYPES)}")
-        v = opts.get("rescore_oversample")
-        if v is not None:
+        # the packed rung's bit layout needs even dims: reject at mapping
+        # time, not at first refresh
+        if otype in ("int4_flat", "int4_ivf") and self.dims % 2:
+            raise MapperParsingError(
+                f"[{name}] index_options type [{otype}] requires even "
+                f"[dims], got [{self.dims}]")
+        for opt_key in ("nlist", "nprobe", "rescore_oversample"):
+            v = opts.get(opt_key)
+            if v is None or (opt_key == "nprobe" and v == "auto"):
+                continue  # "auto" is meaningful only for nprobe
             try:
                 ok = int(v) >= 1
             except (TypeError, ValueError):
                 ok = False
             if not ok:
                 raise MapperParsingError(
-                    f"[{name}] index_options [rescore_oversample] must be "
-                    f"an integer >= 1, got [{v}]")
+                    f"[{name}] index_options [{opt_key}] must be an "
+                    f"integer >= 1, got [{v}]")
 
     def coerce(self, value) -> np.ndarray:
         if isinstance(value, np.ndarray):

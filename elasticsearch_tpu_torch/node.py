@@ -1,7 +1,7 @@
 """One node holding single-shard indices (port of the kNN slice of
-`elasticsearch_tpu/node.py`): index create, document writes, `_bulk`,
-refresh, realtime GET and `_search { knn }`, with the reference's response
-shapes."""
+`elasticsearch_tpu/node.py`): index create (with the `index.knn.*` engine
+settings), document writes, `_bulk`, refresh, realtime GET and
+`_search { knn }`, with the reference's response shapes."""
 
 from __future__ import annotations
 
@@ -23,15 +23,74 @@ from elasticsearch_tpu_torch.vectors.store import VectorStoreShard
 _SHARDS_OK = {"total": 1, "successful": 1, "failed": 0}
 
 
+def flat_settings(settings: Optional[dict]) -> Dict[str, object]:
+    """Index settings as one flat dict under the `index.` namespace, as the
+    reference normalizes them: bodies mix bare keys (`knn.engine`), dotted
+    keys (`index.knn.engine`) and nested objects (`{"index": {"knn": ...}}`)
+    freely."""
+    flat: Dict[str, object] = {}
+
+    def put(prefix: str, obj: dict) -> None:
+        for k, v in obj.items():
+            if isinstance(v, dict):
+                put(f"{prefix}{k}.", v)
+            else:
+                flat[f"{prefix}{k}"] = v
+
+    for k, v in (settings or {}).items():
+        if k == "index" and isinstance(v, dict):
+            put("index.", v)
+        elif k.startswith("index."):
+            put("", {k: v})
+        else:
+            put("index.", {k: v})
+    return flat
+
+
+def validate_knn_settings(settings: Dict[str, object]):
+    """Validate + normalize the flat `index.knn.*` engine settings; returns
+    (engine, nlist, nprobe), with the reference's 400 errors (port of
+    `elasticsearch_tpu/indices/service.py::validate_knn_settings`)."""
+    engine = str(settings.get("index.knn.engine", "tpu"))
+    if engine not in ("tpu", "tpu_ivf"):
+        raise IllegalArgumentError(
+            f"unknown [index.knn.engine] value [{engine}]; "
+            f"expected one of [tpu, tpu_ivf]")
+    nlist = settings.get("index.knn.nlist")
+    if nlist is not None:
+        try:
+            nlist = int(nlist)
+        except (TypeError, ValueError):
+            nlist = 0
+        if nlist < 1:
+            raise IllegalArgumentError(
+                f"[index.knn.nlist] must be an integer >= 1, got "
+                f"[{settings.get('index.knn.nlist')}]")
+    nprobe = settings.get("index.knn.nprobe", "auto")
+    if nprobe != "auto":
+        try:
+            nprobe = int(nprobe)
+        except (TypeError, ValueError):
+            nprobe = 0
+        if nprobe < 1:
+            raise IllegalArgumentError(
+                f"[index.knn.nprobe] must be an integer >= 1 or "
+                f"\"auto\", got [{settings.get('index.knn.nprobe')}]")
+    return engine, nlist, nprobe
+
+
 class IndexService:
     """One single-shard index: mapping, engine and device vector store."""
 
-    def __init__(self, name: str, mapping: Optional[dict], device):
+    def __init__(self, name: str, mapping: Optional[dict], device,
+                 knn_engine: str = "tpu", knn_nlist=None, knn_nprobe="auto"):
         self.name = name
         self.uuid = uuid.uuid4().hex[:22]
         self.mapper_service = MapperService(mapping)
         self.engine = Engine(self.mapper_service)
-        self.store = VectorStoreShard(device=device)
+        self.store = VectorStoreShard(device=device, knn_engine=knn_engine,
+                                      knn_nlist=knn_nlist,
+                                      knn_nprobe=knn_nprobe)
         self.engine.add_refresh_listener(
             lambda reader: self.store.sync(
                 reader, self.mapper_service.vector_fields()))
@@ -50,10 +109,8 @@ class Node:
         body = body or {}
         if name != name.lower() or name.startswith(("_", "-", "+")):
             raise IllegalArgumentError(f"invalid index name [{name}]")
-        settings = body.get("settings") or {}
-        shards = settings.get("number_of_shards",
-                              (settings.get("index") or {})
-                              .get("number_of_shards", 1))
+        settings = flat_settings(body.get("settings"))
+        shards = settings.get("index.number_of_shards", 1)
         if int(shards) != 1:
             raise IllegalArgumentError(
                 "this build serves single-shard indices only: "
@@ -63,8 +120,10 @@ class Node:
                 svc = self.indices[name]
                 raise ResourceAlreadyExistsError(
                     f"index [{name}/{svc.uuid}] already exists", index=name)
-            self.indices[name] = IndexService(name, body.get("mappings"),
-                                              self.device)
+            engine, nlist, nprobe = validate_knn_settings(settings)
+            self.indices[name] = IndexService(
+                name, body.get("mappings"), self.device, knn_engine=engine,
+                knn_nlist=nlist, knn_nprobe=nprobe)
         return {"acknowledged": True, "shards_acknowledged": True,
                 "index": name}
 

@@ -23,6 +23,7 @@ from elasticsearch_tpu_torch.ops import similarity as sim
 from elasticsearch_tpu_torch.ops import topk as topk_ops
 from elasticsearch_tpu_torch.ops.quantization import quantize_int8_np
 from elasticsearch_tpu_torch.ops.similarity import NEG_INF
+from elasticsearch_tpu_torch.quant import codec as quant_codec
 
 LANE = 128          # corpus rows pad to a multiple of this ...
 BINNED_TILE = 8192  # ... or of the binned kernel's tile on CUDA
@@ -32,9 +33,11 @@ BINNED_TILE = 8192  # ... or of the binned kernel's tile on CUDA
 class Corpus:
     """Device-resident searchable vector block.
 
-    matrix:    [N_pad, D] f32 / bf16 / int8 storage
+    matrix:    [N_pad, D] f32 / bf16 / int8 storage, or [N_pad, D/2]
+               uint8 packed int4 nibbles
     sq_norms:  [N_pad] f32 — ||row||^2 (post-normalization for cosine)
-    scales:    [N_pad] f32 — int8 per-row scales (all-ones when unquantized)
+    scales:    [N_pad] f32 — int8/int4 per-row scales (all-ones when
+               unquantized)
     num_valid: rows beyond this are padding and never match
     residual / residual_scales: optional second int8 level
       (row ≈ matrix*scales + residual*residual_scales); only the rescore
@@ -71,17 +74,20 @@ def build_corpus(vectors: np.ndarray, metric: str = sim.COSINE,
                  dtype: str = "bf16", pad_to: Optional[int] = None,
                  residual: bool = True, device="cuda") -> Corpus:
     """Build the device corpus from raw host vectors, byte-identical to the
-    reference's `build_corpus` for the f32, bf16 and int8 encodings.
+    reference's `build_corpus` for the f32, bf16, int8 and int4 encodings.
 
-    Cosine rows are L2-normalized here, once. int8 quantization runs on the
-    host in numpy, chunked; `residual` keeps the second int8 level."""
-    if dtype not in ("f32", "bf16", "int8"):
+    Cosine rows are L2-normalized here, once. int8 and int4 quantization run
+    on the host in numpy, chunked; `residual` keeps the second int8 level.
+    The packed int4 rung never rides the binned kernel, so it keeps the
+    lane padding."""
+    if dtype not in ("f32", "bf16", "int8", "int4"):
         raise ValueError(f"unsupported corpus dtype [{dtype}]")
     device = torch.device(device)
     vectors = np.asarray(vectors, dtype=np.float32)
     n, d = vectors.shape
-    n_pad = (pad_to if pad_to is not None
-             else pad_rows(max(n, 1), preferred_pad_multiple(n, metric, device)))
+    pad_mult = (LANE if dtype in quant_codec.PACKED_ENCODINGS
+                else preferred_pad_multiple(n, metric, device))
+    n_pad = pad_to if pad_to is not None else pad_rows(max(n, 1), pad_mult)
     if n_pad < n:
         raise ValueError(f"pad_to {n_pad} < corpus size {n}")
 
@@ -95,7 +101,11 @@ def build_corpus(vectors: np.ndarray, metric: str = sim.COSINE,
                                 .astype(np.float32)).to(device)
 
     res = res_scales = None
-    if dtype == "int8":
+    if dtype in quant_codec.PACKED_ENCODINGS:
+        enc = quant_codec.get(dtype).encode_np(padded)
+        matrix = torch.from_numpy(enc.data).to(device)
+        scales = torch.from_numpy(enc.scales).to(device)
+    elif dtype == "int8":
         q8, scales_np = quantize_int8_np(padded)
         matrix = torch.from_numpy(q8).to(device)
         scales = torch.from_numpy(scales_np).to(device)
@@ -136,7 +146,7 @@ def corpus_from_numpy(arrays: dict, device="cuda") -> Corpus:
     mat = np.asarray(arrays["matrix"])
     if mat.dtype.itemsize == 2 and mat.dtype != np.float16:
         matrix = tensor(mat.view(np.int16)).view(torch.bfloat16)
-    elif mat.dtype in (np.float32, np.int8):
+    elif mat.dtype in (np.float32, np.int8, np.uint8):
         matrix = tensor(mat)
     else:
         raise ValueError(f"unsupported corpus matrix dtype [{mat.dtype}]")
@@ -152,14 +162,64 @@ def corpus_from_numpy(arrays: dict, device="cuda") -> Corpus:
                          else tensor(np.asarray(res_s, dtype=np.float32))))
 
 
+def corpus_from_encoded(data: np.ndarray, scales: np.ndarray,
+                        vectors: np.ndarray, metric: str = sim.COSINE,
+                        dtype: str = "int4", pad_to: Optional[int] = None,
+                        device="cuda") -> Corpus:
+    """Build a packed-encoding corpus from ALREADY-ENCODED rows. `vectors`
+    is the raw f32 matrix (for sq-norms); padding rows take the codec's
+    encode-of-zeros, so the matrix and scales are byte-identical to
+    `build_corpus(vectors, dtype=dtype)`. Cosine rows are normalized
+    before encoding, so their sq-norm is exactly 1 for any non-zero row."""
+    device = torch.device(device)
+    codec = quant_codec.get(dtype)
+    vectors = np.asarray(vectors, dtype=np.float32)
+    n, d = vectors.shape
+    n_pad = pad_to if pad_to is not None else pad_rows(max(n, 1), LANE)
+    if n_pad < n:
+        raise ValueError(f"pad_to {n_pad} < corpus size {n}")
+    sq_np = np.zeros((n_pad,), dtype=np.float32)
+    chunk = max(1, (64 << 20) // max(d * 4, 1))
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        block_sq = np.einsum("nd,nd->n", vectors[lo:hi], vectors[lo:hi])
+        if metric == sim.COSINE:
+            sq_np[lo:hi] = (block_sq > 0).astype(np.float32)
+        else:
+            sq_np[lo:hi] = block_sq
+    w = codec.packed_width(d)
+    pad_enc = codec.encode_np(np.zeros((1, d), dtype=np.float32))
+    full_data = np.empty((n_pad, w), dtype=codec.packed_np_dtype)
+    full_scales = np.empty((n_pad,), dtype=np.float32)
+    full_data[:n] = np.asarray(data).reshape(n, w)
+    full_scales[:n] = scales
+    full_data[n:] = pad_enc.data[0]
+    full_scales[n:] = pad_enc.scales[0]
+    return Corpus(matrix=torch.from_numpy(full_data).to(device),
+                  sq_norms=torch.from_numpy(sq_np).to(device),
+                  scales=torch.from_numpy(full_scales).to(device),
+                  num_valid=int(n))
+
+
 def _block_scores(queries, matrix, sq_norms, scales, metric: str,
                   precision: str):
-    """Raw similarity for one corpus block, int8 de-scaled after the
-    matmul. Queries arrive metric-prepped (cosine queries are unit)."""
+    """Raw similarity for one corpus block, int8 and int4 de-scaled after
+    the matmul. Queries arrive metric-prepped (cosine queries are unit)."""
     if matrix.dtype == torch.int8:
         # int8 values are exact in bf16: the matmul sees the stored levels
         mat = matrix.to(torch.float32 if precision == "f32" else torch.bfloat16)
         dots = sim._matmul(queries, mat, precision) * scales[None, :]
+        if metric == sim.L2_NORM:
+            return sim.l2_raw_from_dots(dots, queries, sq_norms)
+        return dots
+    if matrix.dtype == torch.uint8:
+        # int4 packed nibbles: two half-width matmuls on the (even, odd)
+        # level planes, de-scaled after
+        mm = torch.float32 if precision == "f32" else torch.bfloat16
+        lo, hi = quant_codec.int4_planes(matrix, mm)
+        q_even, q_odd = quant_codec.split_query_planes(queries)
+        dots = (sim._matmul(q_even, lo, precision)
+                + sim._matmul(q_odd, hi, precision)) * scales[None, :]
         if metric == sim.L2_NORM:
             return sim.l2_raw_from_dots(dots, queries, sq_norms)
         return dots
@@ -184,12 +244,14 @@ def knn_search_auto(queries: torch.Tensor, corpus: Corpus, k: int,
     corpus, k <= 64 and bf16 precision take the binned kernel (with the
     rescore of its top candidates when the corpus carries the residual
     level); everything else is exact. A kernel that fails raises: there is
-    no fallback from the binned route."""
+    no fallback from the binned route. The packed int4 rung always takes
+    the exact path, as in the reference."""
     from elasticsearch_tpu_torch.ops import knn_binned as binned
 
     n_pad = corpus.matrix.shape[0]
     if (filter_mask is None
             and metric in (sim.COSINE, sim.DOT_PRODUCT, sim.MAX_INNER_PRODUCT)
+            and corpus.matrix.dtype != torch.uint8
             and n_pad % binned.BLOCK_N == 0
             and k <= 64
             and precision == "bf16"):

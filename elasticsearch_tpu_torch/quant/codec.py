@@ -1,14 +1,16 @@
-"""Vector codecs: the f32, bf16 and int8 rungs of the reference's ladder.
+"""Vector codecs: the f32, bf16, int8 and int4 rungs of the reference's
+ladder.
 
-A copy of the encoders of `elasticsearch_tpu/quant/codec.py` that this slice
+A copy of the encoders of `elasticsearch_tpu/quant/codec.py` that the port
 serves, with the host (numpy) encoders byte-identical to the reference's
-and a torch twin of its in-trace query quantizer. The int4 and binary rungs
-are not ported yet (see ROADMAP.md).
+and torch twins of its in-trace helpers (the int8 query quantizer and the
+int4 plane unpack). The binary rung is not ported yet (see ROADMAP.md).
 
     encoding   device matrix          per-row aux      bytes/row @768d
     f32        f32 [N, D]             —                3072
     bf16       bf16 [N, D]            —                1536
     int8       int8 [N, D]            scale f32        768 (+4)
+    int4       uint8 [N, D/2]         scale f32        384 (+4)   packed nibbles
 """
 
 from __future__ import annotations
@@ -28,6 +30,11 @@ class Encoded(NamedTuple):
 
     data: np.ndarray     # [n, D] rows (f32 / bf16 bits as uint16 / int8)
     scales: np.ndarray   # [n] f32 per-row aux (ones when unused)
+
+
+# encodings whose device matrix is bit-packed (scored via the packed
+# planes, served two-phase with exact rescore by default)
+PACKED_ENCODINGS = ("int4",)
 
 
 class _F32Codec:
@@ -71,7 +78,39 @@ class _Int8Codec:
         return Encoded(q8, scales)
 
 
-CODECS = {c.name: c for c in (_F32Codec(), _BF16Codec(), _Int8Codec())}
+class _Int4Codec:
+    """Packed-nibble symmetric int4: scale = max|row|/7, two dims per
+    byte (even dim in the low nibble, odd in the high), levels in
+    [-7, 7] stored offset-by-8 so every nibble is a valid level."""
+
+    name = "int4"
+    packed_np_dtype = np.uint8
+
+    def packed_width(self, dims: int) -> int:
+        if dims % 2:
+            raise ValueError(f"int4 encoding requires even dims, got {dims}")
+        return dims // 2
+
+    def encode_np(self, rows: np.ndarray) -> Encoded:
+        rows = np.asarray(rows, dtype=np.float32)
+        n, d = rows.shape
+        w = self.packed_width(d)
+        packed = np.empty((n, w), dtype=np.uint8)
+        scales = np.empty((n,), dtype=np.float32)
+        chunk = max(1, _CHUNK_BYTES // max(d * 4, 1))
+        for lo in range(0, n, chunk):
+            hi = lo + chunk
+            block = rows[lo:hi]
+            s = np.maximum(np.abs(block).max(axis=-1), 1e-30) / 7.0
+            scales[lo:hi] = s
+            q = np.clip(np.round(block / s[:, None]), -7, 7).astype(np.int8)
+            packed[lo:hi] = ((q[:, 0::2] + 8).astype(np.uint8)
+                             | ((q[:, 1::2] + 8).astype(np.uint8) << 4))
+        return Encoded(packed, scales)
+
+
+CODECS = {c.name: c for c in (_F32Codec(), _BF16Codec(), _Int8Codec(),
+                              _Int4Codec())}
 
 
 def get(name: str):
@@ -91,3 +130,36 @@ def quantize_queries_int8(queries: torch.Tensor):
     qscale = torch.clamp(qmax, min=1e-30) / 127.0
     q8 = torch.clamp(torch.round(queries / qscale), -127, 127).to(torch.int8)
     return q8, qscale
+
+
+def int4_planes(packed: torch.Tensor, dtype=None):
+    """Unpack a packed-nibble matrix [..., W] uint8 into its (even, odd)
+    level planes [..., W] (values in [-8, 7]; encoders only emit [-7, 7]),
+    twin of the reference's `int4_planes_jnp`. With `dtype` the planes are
+    cast for the matmul."""
+    lo = (packed & 0x0F).to(torch.int32) - 8
+    hi = (packed >> 4).to(torch.int32) - 8
+    if dtype is not None:
+        lo, hi = lo.to(dtype), hi.to(dtype)
+    return lo, hi
+
+
+def split_query_planes(queries: torch.Tensor):
+    """Match a query batch [Q, D] to the int4 plane layout: (even dims
+    [Q, D/2], odd dims [Q, D/2]), contiguous."""
+    return queries[:, 0::2].contiguous(), queries[:, 1::2].contiguous()
+
+
+def int4_blocked_dots(queries: torch.Tensor, blocks: torch.Tensor,
+                      dtype) -> torch.Tensor:
+    """Un-descaled int4 dots for IVF probe tiles: queries [Q, D] f32,
+    blocks [Q, C, W] packed uint8 → [Q, C] f32 (twin of the reference's
+    `int4_blocked_dots_jnp`; callers multiply the per-row scales in).
+    Operands are rounded to `dtype`, then widened: the products of bf16
+    values are exact in f32, so the f32 einsum is "bf16 operands, f32
+    accumulate"."""
+    lo, hi = int4_planes(blocks, dtype)
+    qe, qo = split_query_planes(queries)
+    f32 = torch.float32
+    return (torch.einsum("qd,qcd->qc", qe.to(dtype).to(f32), lo.to(f32))
+            + torch.einsum("qd,qcd->qc", qo.to(dtype).to(f32), hi.to(f32)))

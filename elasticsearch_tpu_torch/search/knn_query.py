@@ -44,7 +44,8 @@ class KnnQuery:
         if store is None:
             raise IllegalArgumentError(
                 f"[knn] no vector store attached for field [{self.field}]")
-        rows, raw = store.search(self.field, self.query_vector, self.k)
+        rows, raw = store.search(self.field, self.query_vector, self.k,
+                                 num_candidates=self.num_candidates)
         scores = np.asarray(sim.to_es_score(raw, metric)) * self.boost
         order = np.argsort(rows, kind="stable")
         return rows[order].astype(np.int64), scores[order].astype(np.float32)

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, on a
-CUDA card. Every test here is marked `gpu` and skips without a card. This
+"""The hand-written CUDA kernels (binned kNN, fused IVF probes) against
+their plain PyTorch versions, on a CUDA card. Every test here is marked `gpu` and skips without a card. This
 file imports neither `jax` nor the JAX package, so on a machine without
 JAX it runs alone:
 
@@ -11,9 +11,11 @@ import pytest
 import torch
 
 from elasticsearch_tpu_torch.ops import dispatch
+from elasticsearch_tpu_torch.ops import ivf_fused as fused
 from elasticsearch_tpu_torch.ops import knn
 from elasticsearch_tpu_torch.ops import knn_binned as kb
 from elasticsearch_tpu_torch.ops import similarity as sim
+from elasticsearch_tpu_torch.ops.knn_ivf import IVFPartitions
 
 QUANTUM = 2.0 ** -15   # one packing quantum at shifted scores in [4, 8)
 
@@ -80,3 +82,96 @@ def test_search_auto_on_cuda_launches_kernel_and_matches_cpu(cuda, dtype):
     s2, i2 = knn.knn_search_auto(qs, on_cpu, 10, metric=sim.COSINE)
     np.testing.assert_allclose(s.cpu().numpy(), s2.numpy(), atol=1e-4)
     assert (i.cpu() == i2).float().mean() > 0.9
+
+
+def _random_partitions(g, dev, dtype, nlist, cap, d):
+    """Random tiles of `dtype` with about a third of each partition's tail
+    slots empty (scale 0, row -1)."""
+    w = d // 2 if dtype == torch.uint8 else d
+    if dtype in (torch.int8, torch.uint8):
+        lo, hi = (-127, 128) if dtype == torch.int8 else (0, 256)
+        parts = torch.randint(lo, hi, (nlist, cap, w), generator=g,
+                              device=dev, dtype=torch.int32).to(dtype)
+        scales = torch.rand(nlist, cap, generator=g, device=dev) / 50 + 1e-3
+    else:
+        parts = torch.randn(nlist, cap, w, generator=g, device=dev).to(dtype)
+        scales = torch.ones(nlist, cap, device=dev)
+    fill = torch.randint(2 * cap // 3, cap + 1, (nlist, 1), generator=g,
+                         device=dev)
+    valid = torch.arange(cap, device=dev)[None, :] < fill
+    rows = torch.where(valid, torch.arange(nlist * cap, device=dev,
+                                           dtype=torch.int32).view(nlist, cap),
+                       torch.full((nlist, cap), -1, dtype=torch.int32,
+                                  device=dev))
+    zeros = torch.zeros(nlist, cap, device=dev)
+    return IVFPartitions(
+        centroids=torch.zeros(nlist, d, device=dev),
+        centroid_sq=torch.zeros(nlist, device=dev), parts=parts,
+        part_scales=torch.where(valid, scales, zeros), part_sq=zeros,
+        part_rows=rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8,
+                                   torch.uint8])
+@pytest.mark.parametrize("d", [64, 100])
+@pytest.mark.parametrize("nq", [1, 9])
+def test_ivf_fused_kernels_match_plain_version(cuda, dtype, d, nq):
+    """Both fused kernels on every tile type: NEG_INF at the same slots,
+    the rest within 1e-5 of the largest |score| (f32 sum order). d = 100
+    gives rows whose bytes are not a multiple of 16 (the scalar path) for
+    every tile type but f32."""
+    g = torch.Generator(device=cuda).manual_seed(d + nq)
+    nlist, cap = 12, 150
+    ivf = _random_partitions(g, cuda, dtype, nlist, cap, d)
+    q = torch.randn(nq, d, generator=g, device=cuda)
+    ids = torch.randint(0, nlist, (nq, 4), generator=g, device=cuda,
+                        dtype=torch.int32)
+    name = fused.KERNEL_INT4 if dtype == torch.uint8 else fused.KERNEL_DENSE
+    before = dispatch.launches().get(name, 0)
+    got = fused.probe_board(q, ivf, ids)
+    torch.cuda.synchronize()
+    assert dispatch.launches().get(name, 0) == before + 1
+    want = fused.probe_board_reference(q, ivf, ids)
+    neg = want <= -1e37
+    assert neg.any() and torch.equal(got <= -1e37, neg)
+    assert (got[neg] == want[neg]).all()
+    tol = 1e-5 * max(1.0, float(want[~neg].abs().max()))
+    assert float((got[~neg] - want[~neg]).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("options", [{"type": "ivf"}, {"type": "int8_ivf"},
+                                     {"type": "int4_ivf"}])
+def test_ivf_store_on_cuda_launches_kernel_and_matches_cpu(cuda, options):
+    """One layout (exported by the CPU store, restored into the CUDA one)
+    searched on both: the same rows where scores are clear of ties, and one
+    fused launch per search on the card."""
+    from elasticsearch_tpu_torch.index import mapping, segment
+    from elasticsearch_tpu_torch.vectors.store import VectorStoreShard
+
+    rng = np.random.default_rng(7)
+    vecs = rng.standard_normal((4000, 64)).astype(np.float32)
+    seg = segment.Segment(0, 0, [str(i) for i in range(4000)], [None] * 4000,
+                          {"v": (vecs, np.ones(4000, dtype=bool))})
+    reader = segment.ShardReader([segment.SegmentView(seg)])
+    fields = mapping.MapperService({"properties": {"v": {
+        "type": "dense_vector", "dims": 64,
+        "index_options": dict(options, nlist=32, nprobe=8)}}}).vector_fields()
+    on_cpu = VectorStoreShard(device="cpu")
+    on_cpu.sync(reader, fields)
+    on_gpu = VectorStoreShard(device=cuda)
+    on_gpu.restore_ivf_layout(on_cpu.export_ivf_layout())
+    on_gpu.sync(reader, fields)
+    name = (fused.KERNEL_INT4 if options["type"] == "int4_ivf"
+            else fused.KERNEL_DENSE)
+    agree = []
+    for q in rng.standard_normal((5, 64)).astype(np.float32):
+        before = dispatch.launches().get(name, 0)
+        rows, raw = on_gpu.search("v", q, 10)
+        assert dispatch.launches().get(name, 0) == before + 1
+        want_rows, want_raw = on_cpu.search("v", q, 10)
+        np.testing.assert_allclose(raw, want_raw, atol=1e-4)
+        agree.append(np.mean(rows == want_rows))
+    assert np.mean(agree) > 0.9
+    assert on_gpu.knn_stats["fused_probe_searches"] == 5

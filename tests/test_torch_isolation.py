@@ -1,7 +1,8 @@
 """The port stands alone: every module of `elasticsearch_tpu_torch` and
 `chip_smoke.py` import with `jax` and `elasticsearch_tpu` blocked; entry
 points refuse to run on the CPU unless asked; and a kernel wrapper given
-CUDA tensors launches its kernel or raises, never the plain version."""
+CUDA tensors (the binned kNN kernels, the fused IVF probe kernels) launches
+its kernel or raises, never the plain version."""
 
 import os
 import pkgutil
@@ -13,7 +14,9 @@ import torch
 
 import elasticsearch_tpu_torch
 from elasticsearch_tpu_torch.ops import dispatch
+from elasticsearch_tpu_torch.ops import ivf_fused
 from elasticsearch_tpu_torch.ops import knn_binned as kb
+from elasticsearch_tpu_torch.ops.knn_ivf import IVFPartitions
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -29,6 +32,8 @@ def _modules():
 def test_port_imports_without_jax_or_reference():
     names = _modules() + ["chip_smoke"]
     assert "elasticsearch_tpu_torch.ops.knn_binned" in names
+    assert "elasticsearch_tpu_torch.ops.ivf_fused" in names
+    assert "elasticsearch_tpu_torch.ann.router" in names
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'elasticsearch_tpu'):\n"
@@ -99,6 +104,13 @@ class _FakeCuda:
     def data_ptr(self):
         return 4096
 
+    def element_size(self):
+        return self.dtype.itemsize
+
+    def __getitem__(self, key):
+        # the int4 query planes: [:, 0::2] and [:, 1::2]
+        return _FakeCuda((self.shape[0], self.shape[1] // 2), self.dtype)
+
     def to(self, *args, **kwargs):
         return self
 
@@ -115,6 +127,7 @@ class _FakeLib:
         return self.code
 
     knn_binned_bf16 = knn_binned_int8 = _launch
+    ivf_fused_dense = ivf_fused_int4 = _launch
 
     def cuda_error_string(self, code):
         return b"an injected launch failure"
@@ -178,3 +191,59 @@ def test_cuda_wrapper_rejects_bad_shapes_and_mixed_devices():
     with pytest.raises(ValueError, match="per-query/per-row"):
         kb.binned_packed_bf16(q, _FakeCuda((kb.BLOCK_N, 32), torch.bfloat16),
                               _FakeCuda((1, 100), f32), False)
+
+
+def _fake_ivf(dtype, nlist=8, cap=24, w=32):
+    f32 = torch.float32
+    return IVFPartitions(
+        centroids=_FakeCuda((nlist, w), f32), centroid_sq=_FakeCuda((nlist,), f32),
+        parts=_FakeCuda((nlist, cap, w), dtype),
+        part_scales=_FakeCuda((nlist, cap), f32),
+        part_sq=_FakeCuda((nlist, cap), f32),
+        part_rows=_FakeCuda((nlist, cap), torch.int32))
+
+
+@pytest.mark.parametrize("code", [0, 1])
+def test_ivf_fused_wrappers_launch_or_raise_never_plain(monkeypatch, code):
+    def no_plain(*a, **k):
+        raise AssertionError("plain version ran for a CUDA tensor")
+
+    lib = _FakeLib(code)
+    monkeypatch.setattr(ivf_fused, "probe_board_reference", no_plain)
+    monkeypatch.setattr(ivf_fused, "_lib", lambda: lib)
+    monkeypatch.setattr(ivf_fused.torch, "empty",
+                        lambda shape, dtype, device: _FakeCuda(shape, dtype))
+    monkeypatch.setattr(ivf_fused.torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    cases = [(ivf_fused.KERNEL_DENSE, dt, 32)
+             for dt in (torch.float32, torch.bfloat16, torch.int8)]
+    cases.append((ivf_fused.KERNEL_INT4, torch.uint8, 16))
+    for name, dtype, w in cases:
+        ivf = _fake_ivf(dtype, w=w)
+        q = _FakeCuda((5, 32), torch.float32)
+        ids = _FakeCuda((5, 4), torch.int32)
+        before = dispatch.launches().get(name, 0)
+        if code:
+            with pytest.raises(RuntimeError, match="injected launch failure"):
+                ivf_fused.probe_board(q, ivf, ids)
+            assert dispatch.launches().get(name, 0) == before
+        else:
+            out = ivf_fused.probe_board(q, ivf, ids)
+            assert out.shape == (5, 4, 24)
+            assert dispatch.launches().get(name, 0) == before + 1
+    assert lib.calls == len(cases)
+
+
+def test_ivf_fused_wrapper_rejects_bad_inputs():
+    q = _FakeCuda((5, 32), torch.float32)
+    ids = _FakeCuda((5, 4), torch.int32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ivf_fused.probe_board(torch.zeros(5, 32), _fake_ivf(torch.bfloat16),
+                              ids)
+    with pytest.raises(TypeError):
+        ivf_fused.probe_board(q, _fake_ivf(torch.bfloat16),
+                              _FakeCuda((5, 4), torch.int64))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ivf_fused.probe_board(q, _fake_ivf(torch.bfloat16, w=48), ids)
+    with pytest.raises(TypeError, match="no fused kernel"):
+        ivf_fused.probe_board(q, _fake_ivf(torch.float16), ids)

@@ -32,6 +32,7 @@ def _raw(body, ndjson=False):
 
 class RefClient:
     def __init__(self, node):
+        self.node = node
         self.rc = RefController()
         ref_register(self.rc, node)
 
@@ -42,6 +43,7 @@ class RefClient:
 
 class PortClient:
     def __init__(self, node):
+        self.node = node
         self.rc = RestController()
         register_all(self.rc, node)
 
@@ -170,3 +172,149 @@ def test_source_disabled_and_http_round_trip():
         assert "_source" not in req("GET", "/s/_doc/a")[1]
     finally:
         server.stop()
+
+
+# ---------------------------------------------------------------- tpu_ivf
+#
+# IVF indices over HTTP-shaped requests: the reference node trains its
+# layout at refresh; its store's `export_ivf_layout` is staged into the
+# port's store before the port's refresh, so both serve from the same
+# partitions and an explicit `index.knn.nprobe`.
+
+IVF_INDICES = {
+    f"{t}-{sim}": {"type": "dense_vector", "dims": D, "similarity": sim,
+                   "index_options": {"type": t}}
+    for t in ("ivf", "int8_ivf", "int4_ivf")
+    for sim in ("cosine", "dot_product", "l2_norm")
+}
+IVF_SETTINGS = {"number_of_shards": 1, "number_of_replicas": 0,
+                "index.knn.nlist": 16, "index": {"knn": {"nprobe": 2}}}
+
+
+def _ref_store(ref, name):
+    return ref.node.indices.indices[name].shards[0].vector_store
+
+
+def _load_ivf_pair(clients, name, field, vecs):
+    ref, port = clients
+    create = {"settings": IVF_SETTINGS,
+              "mappings": {"properties": {"v": field}}}
+    bulk = []
+    for i, v in enumerate(vecs):
+        bulk += [{"index": {"_id": f"doc{i}"}}, {"v": v.tolist()}]
+    assert ref.req("PUT", f"/{name}", create)[0] == 200
+    assert not ref.req("POST", f"/{name}/_bulk", bulk, ndjson=True)[1]["errors"]
+    assert ref.req("POST", f"/{name}/_refresh")[0] == 200
+    layouts = _ref_store(ref, name).export_ivf_layout()
+    assert set(layouts) == {"v"}
+    assert port.req("PUT", f"/{name}", create)[0] == 200
+    store = port.node.index(name).store
+    store.restore_ivf_layout(layouts)
+    assert not port.req("POST", f"/{name}/_bulk", bulk,
+                        ndjson=True)[1]["errors"]
+    assert port.req("POST", f"/{name}/_refresh")[0] == 200
+    assert store.knn_stats["ivf_restores"] == 1
+    assert store.knn_stats["ivf_trains"] == 0
+    return _ref_store(ref, name), store
+
+
+def _same_hits(want, got):
+    wh, gh = want["hits"]["hits"], got["hits"]["hits"]
+    assert len(gh) == len(wh)
+    ws = np.array([h["_score"] for h in wh])
+    gs = np.array([h["_score"] for h in gh])
+    np.testing.assert_allclose(gs, ws, atol=1e-4)
+    gap = np.minimum(np.abs(np.diff(ws, prepend=np.inf)),
+                     np.abs(np.diff(ws, append=-np.inf)))
+    for j in np.nonzero(gap > 1e-4)[0]:
+        assert gh[j]["_id"] == wh[j]["_id"]
+
+
+def _clustered_docs(seed, n=700):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((10, D)).astype(np.float32)
+    vecs = (centers[rng.integers(0, 10, n)]
+            + 0.4 * rng.standard_normal((n, D))).astype(np.float32)
+    return rng, vecs
+
+
+@pytest.mark.parametrize("name", sorted(IVF_INDICES))
+def test_ivf_knn_search_matches_reference_node(clients, name):
+    rng, vecs = _clustered_docs(sum(map(ord, name)))
+    ref_store_, store = _load_ivf_pair(clients, name, IVF_INDICES[name], vecs)
+    ref, port = clients
+    for q in vecs[rng.integers(0, len(vecs), 3)] + 0.2 * rng.standard_normal(
+            (3, D)):
+        body = {"knn": {"field": "v", "query_vector": q.tolist(), "k": 10,
+                        "num_candidates": 20}, "size": 10}
+        s1, want = ref.req("POST", f"/{name}/_search", body)
+        s2, got = port.req("POST", f"/{name}/_search", body)
+        assert s1 == s2 == 200
+        _same_hits(want, got)
+        assert store.last_knn_phases["nprobe"] == \
+            ref_store_.last_knn_phases["nprobe"] == 2
+    stats = store.knn_stats
+    assert stats["ivf_searches"] == 3 and stats["fallback_searches"] == 0
+    assert stats["fused_probe_searches"] == (0 if "l2" in name else 3)
+
+
+def test_num_candidates_widens_nprobe_like_reference(clients):
+    """num_candidates beyond nprobe x cap widens probing to the next pow-2
+    rung, as the reference's router does; the port's kNN query used to
+    drop it, probing 2 partitions where the reference probed 8."""
+    name = "widen"
+    field = {"type": "dense_vector", "dims": D, "similarity": "cosine",
+             "index_options": {"type": "ivf"}}
+    rng, vecs = _clustered_docs(77)
+    ref_store_, store = _load_ivf_pair(clients, name, field, vecs)
+    cap = store.field("v").router.index.cap
+    ref, port = clients
+    q = vecs[5] + 0.3 * rng.standard_normal(D)
+    nprobes = []
+    for nc in (10, 2 * cap + 1, 5 * cap):
+        body = {"knn": {"field": "v", "query_vector": q.tolist(), "k": 10,
+                        "num_candidates": nc}}
+        want = ref.req("POST", f"/{name}/_search", body)[1]
+        got = port.req("POST", f"/{name}/_search", body)[1]
+        _same_hits(want, got)
+        assert store.last_knn_phases["nprobe"] == \
+            ref_store_.last_knn_phases["nprobe"]
+        nprobes.append(store.last_knn_phases["nprobe"])
+    assert nprobes == [2, 4, 8]
+
+
+def test_knn_settings_validation_matches_reference(clients):
+    ref, port = clients
+    for i, (settings, props) in enumerate((
+            ({"index.knn.engine": "hnsw"}, None),
+            ({"index": {"knn": {"nlist": 0}}}, None),
+            ({"knn.nlist": "many"}, None),
+            ({"index.knn.nprobe": -1}, None),
+            ({"index": {"knn": {"nprobe": "most"}}}, None),
+            (None, {"type": "int4_flat"}),
+            (None, {"type": "int4_ivf", "nlist": 0}),
+            (None, {"type": "ivf", "nprobe": "x"}),
+            (None, {"type": "hnsw"}))):
+        field = {"type": "dense_vector", "dims": 5 if props else 4}
+        if props:
+            field["index_options"] = props
+        body = {"mappings": {"properties": {"v": field}}}
+        if settings:
+            body["settings"] = settings
+        s1, want = ref.req("PUT", f"/bad{i}", body)
+        s2, got = port.req("PUT", f"/bad{i}", body)
+        assert s1 == s2 == 400, (settings, props, want, got)
+        assert got["error"]["type"] == want["error"]["type"]
+        if props is None or props["type"] != "hnsw":
+            # the unknown-type message lists the rungs each package serves
+            assert got["error"]["reason"] == want["error"]["reason"]
+    for settings in ({"index.knn.engine": "tpu_ivf", "index.knn.nprobe": 8},
+                     {"index": {"knn": {"engine": "tpu",
+                                        "nprobe": "auto"}}}):
+        body = {"settings": settings, "mappings": {"properties": {
+            "v": {"type": "dense_vector", "dims": 4}}}}
+        assert port.req("PUT", "/good", body)[0] == 200
+        store = port.node.index("good").store
+        assert store.knn_engine == settings.get(
+            "index.knn.engine", "tpu")
+        port.node.indices.pop("good")
