@@ -6,9 +6,17 @@ counterpart is found at the same relative path. The port imports `torch`
 and numpy, never `jax` and never `elasticsearch_tpu`: where it needs code of
 the reference it keeps its own copy.
 
-The slice served here is `_search { "knn": ... }` end to end: REST server →
-engine → vector store → `ops.knn.knn_search_auto`, whose accelerator route
-is the hand-written Hopper binned kernel (`csrc/knn_binned.cu`).
+The slices served here, end to end from the REST server:
+- `_search { "knn": ... }`: engine → vector store → `ops.knn.knn_search_auto`,
+  whose accelerator route is the hand-written binned kernel
+  (`csrc/knn_binned.cu`);
+- the `tpu_ivf` engine (`ivf`, `int8_ivf`, `int4_ivf`): the IVF router and
+  the fused probe kernels (`csrc/ivf_fused.cu`);
+- late interaction: `rank_vectors` fields searched by a `late_interaction`
+  sub-search inside a hybrid `rank: {rrf}` `_search` beside a `knn` leg
+  (`search/hybrid_plan.py` → `vectors/late_interaction.py`: a coarse search
+  over pooled centroids, then the MaxSim kernels of `csrc/maxsim.cu`), and
+  a plain `query: {late_interaction}` through the exact host walker.
 """
 
 from __future__ import annotations

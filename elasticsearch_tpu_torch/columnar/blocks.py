@@ -1,0 +1,116 @@
+"""Per-segment token blocks of `rank_vectors` fields (port of the token
+part of `elasticsearch_tpu/columnar/blocks.py`).
+
+A `TokenVectorBlock` is one segment's live token matrices of one field,
+metric-prepped and codec-encoded through `quant/tokens.py`, with the pooled
+per-doc centroids the coarse phase indexes. Blocks are immutable and keyed
+by `fingerprint(view, variant)`, which changes whenever the segment's live
+set does, so a refresh re-encodes only new or changed segments. The owner
+of the cache is the late-interaction field (`vectors/late_interaction.py`);
+there is no process-wide block store in the port.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+
+from elasticsearch_tpu_torch.quant import tokens as quant_tokens
+
+# tokens prepped and encoded per pass: bounds the f32 temporaries of a
+# ten-million-token segment (encoding is row-wise, so chunking is exact)
+_CHUNK_TOKENS = 1 << 20
+
+
+def fingerprint(view, extra: Tuple = ()) -> tuple:
+    """(seg_id, num_docs, live_count) + extra: changes when a segment's
+    live content would (within one engine a live count only shrinks)."""
+    seg = view.segment
+    return (seg.seg_id, seg.num_docs, int(view.live.sum())) + tuple(extra)
+
+
+class TokenVectorBlock:
+    """One segment's live `rank_vectors` token matrices, codec-encoded
+    ragged: ``data`` [total_tokens, W] packed token rows (lane-padded
+    width), ``scales`` [total_tokens] per-token codec aux, ``counts`` [n]
+    tokens per doc, ``pooled`` [n, dims] f32 coarse centroids, ``rows`` [n]
+    engine global row ids. Only docs carrying at least one token appear."""
+
+    __slots__ = ("fingerprint", "data", "scales", "counts", "pooled",
+                 "rows", "dims", "nbytes")
+
+    def __init__(self, fp: tuple, data, scales, counts, pooled, rows,
+                 dims: int):
+        self.fingerprint = fp
+        self.data = data
+        self.scales = scales
+        self.counts = counts
+        self.pooled = pooled
+        self.rows = rows
+        self.dims = dims
+        self.nbytes = (data.nbytes + scales.nbytes + counts.nbytes
+                       + pooled.nbytes + rows.nbytes)
+
+    @property
+    def n_rows(self) -> int:
+        return len(self.rows)
+
+
+def _live_tokens(toks: np.ndarray, offsets: np.ndarray,
+                 keep: np.ndarray) -> np.ndarray:
+    """The token rows of docs `keep` (ascending), in doc order; the
+    segment's own matrix when every doc holding tokens is kept."""
+    starts, ends = offsets[keep], offsets[keep + 1]
+    if int((ends - starts).sum()) == len(toks):
+        return toks
+    counts = ends - starts
+    idx = np.repeat(starts - np.cumsum(counts) + counts, counts) \
+        + np.arange(int(counts.sum()))
+    return toks[idx]
+
+
+def extract_token_vector_block(view, field: str, variant: tuple
+                               ) -> Optional[TokenVectorBlock]:
+    """Gather, metric-prep and codec-encode one segment's live token
+    matrices. variant = (encoding, metric, dims); None when the segment
+    carries no such field."""
+    encoding, metric, dims = variant
+    seg = view.segment
+    entry = seg.tokens.get(field)
+    if entry is None:
+        return None
+    toks, offsets, present = entry
+    fp = fingerprint(view, (variant,))
+    keep = np.nonzero(view.live & present)[0]
+    if not len(keep):
+        return TokenVectorBlock(
+            fp,
+            np.zeros((0, quant_tokens.packed_width(encoding, dims)),
+                     dtype=np.uint8),
+            np.zeros(0, dtype=np.float32),
+            np.zeros(0, dtype=np.int32),
+            np.zeros((0, dims), dtype=np.float32),
+            np.zeros(0, dtype=np.int64), dims)
+    counts = (offsets[keep + 1] - offsets[keep]).astype(np.int32)
+    live = _live_tokens(toks, offsets, keep)
+    doc_ends = np.cumsum(counts, dtype=np.int64)
+    data_parts, scale_parts, pooled = [], [], []
+    d0 = t0 = 0
+    while d0 < len(keep):
+        # whole docs, about _CHUNK_TOKENS tokens per pass
+        d1 = max(int(np.searchsorted(doc_ends, t0 + _CHUNK_TOKENS,
+                                     side="right")), d0 + 1)
+        t1 = int(doc_ends[d1 - 1])
+        prepped = quant_tokens.prep_tokens(live[t0:t1], metric)
+        lo = 0
+        for c in counts[d0:d1]:
+            pooled.append(quant_tokens.pool_doc(prepped[lo:lo + c], metric))
+            lo += int(c)
+        data, scales = quant_tokens.encode_tokens(prepped, encoding, dims)
+        data_parts.append(data)
+        scale_parts.append(scales)
+        d0, t0 = d1, t1
+    return TokenVectorBlock(
+        fp, np.concatenate(data_parts), np.concatenate(scale_parts), counts,
+        np.stack(pooled), keep.astype(np.int64) + seg.base, dims)

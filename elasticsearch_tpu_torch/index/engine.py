@@ -53,8 +53,10 @@ class _Buffer:
         self.sources: List[Optional[dict]] = []
         # field -> [(local rows [m], vectors [m, d])]
         self.blocks: Dict[str, list] = {}
+        # field -> [(local rows [m], tokens [T, d], counts [m] >= 1)]
+        self.token_blocks: Dict[str, list] = {}
 
-    def add(self, ids, sources, vectors) -> int:
+    def add(self, ids, sources, vectors, tokens) -> int:
         start = len(self.ids)
         self.ids.extend(ids)
         self.sources.extend(sources)
@@ -62,6 +64,9 @@ class _Buffer:
         for field, (mask, block) in vectors.items():
             self.blocks.setdefault(field, []).append(
                 (locals_ if mask is None else locals_[mask], block))
+        for field, (mask, toks, counts) in tokens.items():
+            self.token_blocks.setdefault(field, []).append(
+                (locals_[mask], toks, counts))
         return start
 
     def source(self, local: int) -> dict:
@@ -71,7 +76,29 @@ class _Buffer:
                 hit = np.nonzero(rows == local)[0]
                 if len(hit):
                     src[field] = block[hit[0]].tolist()
+        for field, parts in self.token_blocks.items():
+            for rows, toks, counts in parts:
+                hit = np.nonzero(rows == local)[0]
+                if len(hit):
+                    lo = int(counts[:hit[0]].sum())
+                    src[field] = toks[lo:lo + int(counts[hit[0]])].tolist()
         return src
+
+    def _seal_tokens(self, n: int) -> Dict[str, tuple]:
+        """Per field: the ragged token matrix in local-doc order with its
+        offsets and presence (parts arrive in ascending local rows)."""
+        out = {}
+        for field, parts in self.token_blocks.items():
+            counts = np.zeros(n, dtype=np.int64)
+            for rows, _toks, cnt in parts:
+                counts[rows] = cnt
+            offsets = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum(counts, out=offsets[1:])
+            toks = (np.ascontiguousarray(parts[0][1], dtype=np.float32)
+                    if len(parts) == 1 else
+                    np.concatenate([t for _r, t, _c in parts]))
+            out[field] = (toks, offsets, counts > 0)
+        return out
 
     def seal(self, dims: Dict[str, int]) -> Segment:
         n = len(self.ids)
@@ -87,7 +114,8 @@ class _Buffer:
                     mat[rows] = block
                     present[rows] = True
             vectors[field] = (mat, present)
-        return Segment(self.seg_id, self.base, self.ids, self.sources, vectors)
+        return Segment(self.seg_id, self.base, self.ids, self.sources, vectors,
+                       self._seal_tokens(n))
 
 
 class Engine:
@@ -111,16 +139,24 @@ class Engine:
 
     def index_many(self, ids: List[str], sources: Optional[List[dict]] = None,
                    vectors: Optional[Dict[str, np.ndarray]] = None,
+                   token_vectors: Optional[Dict[str, tuple]] = None,
                    op_type: str = "index") -> List[EngineResult]:
         """Index a batch. `sources[i]` is document i's `_source` (dense_vector
-        values may be lists or numpy rows); `vectors` may instead supply a
-        field's values for the whole batch as one [n, dims] array. The
-        batch is validated before any document is applied."""
+        values may be lists or numpy rows, rank_vectors values lists of
+        token vectors); `vectors` may instead supply a field's values for
+        the whole batch as one [n, dims] array, and `token_vectors` a
+        rank_vectors field's as (tokens [T, dims], counts [n]): document i
+        owns the next counts[i] rows, and a count of 0 leaves the document
+        without the field. The batch is validated before any document is
+        applied."""
         n = len(ids)
         sources = [None] * n if sources is None else list(sources)
         if len(sources) != n:
             raise ValueError("ids and sources differ in length")
         mappers = self.mapper_service.vector_fields()
+        token_mappers = self.mapper_service.token_fields()
+        token_columns = {f: self._token_column(f, token_mappers, value, n)
+                         for f, value in (token_vectors or {}).items()}
         columns = {}
         for field, block in (vectors or {}).items():
             mapper = mappers.get(field)
@@ -137,7 +173,9 @@ class Engine:
                     f"[{field}] vector contains non-finite values")
             columns[field] = (None, block)
         stored = []
-        per_field: Dict[str, list] = {f: [] for f in mappers if f not in columns}
+        per_field: Dict[str, list] = {
+            f: [] for f in (*mappers, *token_mappers)
+            if f not in columns and f not in token_columns}
         for i, src in enumerate(sources):
             if src is None:
                 stored.append(None)
@@ -146,11 +184,18 @@ class Engine:
             for field, vec in parsed.items():
                 if field in per_field:
                     per_field[field].append((i, vec))
-            stored.append({k: v for k, v in src.items() if k not in mappers})
+            stored.append({k: v for k, v in src.items()
+                           if k not in mappers and k not in token_mappers})
         for field, items in per_field.items():
-            if items:
-                mask = np.zeros(n, dtype=bool)
-                mask[[i for i, _ in items]] = True
+            if not items:
+                continue
+            mask = np.zeros(n, dtype=bool)
+            mask[[i for i, _ in items]] = True
+            if field in token_mappers:
+                token_columns[field] = (
+                    mask, np.concatenate([v for _, v in items]),
+                    np.asarray([len(v) for _, v in items], dtype=np.int64))
+            else:
                 columns[field] = (mask, np.stack([v for _, v in items]))
 
         with self._lock:
@@ -164,7 +209,7 @@ class Engine:
             if self._buffer is None:
                 self._buffer = _Buffer(self._next_seg_id, self._next_row)
                 self._next_seg_id += 1
-            start = self._buffer.add(list(ids), stored, columns)
+            start = self._buffer.add(list(ids), stored, columns, token_columns)
             self._next_row += n
             out = []
             for i, doc_id in enumerate(ids):
@@ -180,6 +225,33 @@ class Engine:
                     doc_id, seq_no, PRIMARY_TERM, version,
                     "created" if existing is None else "updated", row))
             return out
+
+    @staticmethod
+    def _token_column(field: str, token_mappers, value, n: int) -> tuple:
+        """Validate one rank_vectors field given for a whole batch as
+        (tokens [T, dims], counts [n]); returns (mask of the documents that
+        hold it, their tokens, their counts)."""
+        mapper = token_mappers.get(field)
+        if mapper is None:
+            raise MapperParsingError(
+                f"[{field}] is not a mapped rank_vectors field")
+        tokens, counts = value
+        counts = np.asarray(counts)
+        if counts.shape != (n,) or counts.dtype.kind not in "iu" \
+                or (counts < 0).any():
+            raise MapperParsingError(
+                f"[{field}] token counts must be {n} integers >= 0")
+        counts = counts.astype(np.int64)
+        tokens = np.ascontiguousarray(tokens, dtype=np.float32)
+        if tokens.shape != (int(counts.sum()), mapper.dims):
+            raise MapperParsingError(
+                f"[{field}] token block has shape {tokens.shape}, counts "
+                f"require [{int(counts.sum())}, {mapper.dims}]")
+        if not np.isfinite(tokens).all():
+            raise MapperParsingError(
+                f"[{field}] rank_vectors contains non-finite values")
+        mask = counts > 0
+        return mask, tokens, counts[mask]
 
     def _tombstone(self, row: int) -> None:
         for seg in self.segments:

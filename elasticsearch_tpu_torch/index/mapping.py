@@ -1,11 +1,13 @@
-"""Field mappers for the kNN slice (port of the `dense_vector` and `keyword`
-subset of `elasticsearch_tpu/index/mapping.py`).
+"""Field mappers for the served slices (port of the `dense_vector`,
+`rank_vectors` and `keyword` subset of `elasticsearch_tpu/index/mapping.py`).
 
 `dense_vector` takes dims, similarity, and `index_options` with `type`
 (`flat`, `int8_flat`, `int4_flat`, `ivf`, `int8_ivf`, `int4_ivf`), `nlist`,
-`nprobe`, `rescore` and `rescore_oversample`; `_source.enabled` is
-honoured. Every other field type raises the reference's mapper-parsing
-error. Unmapped document fields stay in `_source` and are not indexed.
+`nprobe`, `rescore` and `rescore_oversample`; `rank_vectors` (late
+interaction) takes dims, similarity and the token-block storage knobs;
+`_source.enabled` is honoured. Every other field type raises the
+reference's mapper-parsing error. Unmapped document fields stay in
+`_source` and are not indexed.
 """
 
 from __future__ import annotations
@@ -103,8 +105,87 @@ class DenseVectorFieldMapper(FieldMapper):
         return arr
 
 
+class RankVectorsFieldMapper(FieldMapper):
+    """`rank_vectors` (the late-interaction field): each doc holds a ragged
+    list of token vectors, scored by MaxSim against a multi-token query.
+
+    params: dims (required), similarity (cosine|dot_product, default
+    cosine), index_options.encoding — the token-block storage rung
+    (f32|bf16|int8|int4, default int8), index_options.oversample — the
+    coarse pooled-centroid window multiplier (default 4),
+    index_options.coarse — storage rung of the pooled centroid matrix
+    (f32|bf16|int8|int4, default f32; `binary` is not ported). Each is read
+    from `index_options` or from the top level."""
+
+    type_name = "rank_vectors"
+
+    ENCODINGS = ("f32", "bf16", "int8", "int4")
+    COARSE = ("f32", "bf16", "int8", "int4", "binary")
+
+    def __init__(self, name, params=None):
+        super().__init__(name, params)
+        self.dims = self.params.get("dims")
+        if self.dims is None:
+            raise MapperParsingError(f"[{name}] rank_vectors requires [dims]")
+        self.dims = int(self.dims)
+        self.similarity = self.params.get("similarity", "cosine")
+        if self.similarity not in ("cosine", "dot_product"):
+            raise MapperParsingError(
+                f"[{name}] unknown similarity [{self.similarity}] for "
+                "rank_vectors; expected cosine or dot_product")
+        opts = self.params.get("index_options") or {}
+        self.encoding = opts.get("encoding",
+                                 self.params.get("encoding", "int8"))
+        if self.encoding not in self.ENCODINGS:
+            raise MapperParsingError(
+                f"[{name}] unknown index_options encoding "
+                f"[{self.encoding}]; expected one of {list(self.ENCODINGS)}")
+        if self.encoding == "int4" and self.dims % 2:
+            raise MapperParsingError(
+                f"[{name}] index_options encoding [int4] requires even "
+                f"[dims], got [{self.dims}]")
+        self.coarse = opts.get("coarse", self.params.get("coarse", "f32"))
+        if self.coarse not in self.COARSE:
+            raise MapperParsingError(
+                f"[{name}] unknown index_options coarse [{self.coarse}]; "
+                f"expected one of {list(self.COARSE)}")
+        if self.coarse == "binary":
+            raise MapperParsingError(
+                f"[{name}] index_options coarse [binary] is not supported "
+                "by this build: the binary rung is not ported")
+        oversample = opts.get("oversample",
+                              self.params.get("oversample", 4))
+        try:
+            ok = int(oversample) >= 1
+        except (TypeError, ValueError):
+            ok = False
+        if not ok:
+            raise MapperParsingError(
+                f"[{name}] index_options [oversample] must be an integer "
+                f">= 1, got [{oversample}]")
+        self.oversample = int(oversample)
+
+    def coerce(self, value) -> np.ndarray:
+        if not isinstance(value, (list, tuple)) or not value:
+            raise MapperParsingError(
+                f"[{self.name}] rank_vectors value must be a non-empty "
+                "array of vectors")
+        arr = np.asarray(value, dtype=np.float32)
+        if arr.ndim == 1:
+            arr = arr.reshape(1, -1)
+        if arr.ndim != 2 or arr.shape[1] != self.dims:
+            raise MapperParsingError(
+                f"[{self.name}] rank_vectors rows must have [{self.dims}] "
+                "dimensions")
+        if not np.isfinite(arr).all():
+            raise MapperParsingError(
+                f"[{self.name}] rank_vectors contains non-finite values")
+        return arr
+
+
 FIELD_TYPES = {m.type_name: m for m in (KeywordFieldMapper,
-                                        DenseVectorFieldMapper)}
+                                        DenseVectorFieldMapper,
+                                        RankVectorsFieldMapper)}
 
 
 def build_mapper(name: str, definition: dict) -> FieldMapper:
@@ -156,13 +237,19 @@ class MapperService:
         return {p: m for p, m in self._mappers.items()
                 if isinstance(m, DenseVectorFieldMapper)}
 
+    def token_fields(self) -> Dict[str, RankVectorsFieldMapper]:
+        return {p: m for p, m in self._mappers.items()
+                if isinstance(m, RankVectorsFieldMapper)}
+
     def parse_vectors(self, source: dict) -> Dict[str, Any]:
-        """The document's dense_vector values as f32 rows, validated."""
+        """The document's dense_vector values as f32 rows and its
+        rank_vectors values as f32 [n_tokens, dims] matrices, validated."""
         if not isinstance(source, dict):
             raise MapperParsingError("document source must be an object")
         out = {}
-        for field, mapper in self.vector_fields().items():
-            value = source.get(field)
-            if value is not None:
-                out[field] = mapper.coerce(value)
+        for fields in (self.vector_fields(), self.token_fields()):
+            for field, mapper in fields.items():
+                value = source.get(field)
+                if value is not None:
+                    out[field] = mapper.coerce(value)
         return out

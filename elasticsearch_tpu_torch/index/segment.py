@@ -2,11 +2,13 @@
 `elasticsearch_tpu/index/segment.py`).
 
 A segment holds its documents' `_id`s, their stored `_source` (without the
-dense_vector values) and one contiguous [num_docs, dims] f32 block per
-vector field with a presence mask — the shape the device corpus ingests at
-refresh. Vectors stay numpy blocks: a million 768-d vectors as Python float
-lists in `_source` would take tens of GB of host memory, so `_source` is
-re-assembled from the block when a hit or a GET renders it.
+dense_vector and rank_vectors values), one contiguous [num_docs, dims] f32
+block per vector field with a presence mask — the shape the device corpus
+ingests at refresh — and, per `rank_vectors` field, one ragged f32
+[total_tokens, dims] token matrix with per-doc offsets and presence.
+Vectors stay numpy blocks: a million 768-d vectors (or ten million tokens)
+as Python float lists in `_source` would take tens of GB of host memory, so
+`_source` is re-assembled from the blocks when a hit or a GET renders it.
 """
 
 from __future__ import annotations
@@ -20,23 +22,32 @@ import numpy as np
 class Segment:
     """Immutable sealed segment."""
 
-    __slots__ = ("seg_id", "base", "num_docs", "ids", "sources", "vectors")
+    __slots__ = ("seg_id", "base", "num_docs", "ids", "sources", "vectors",
+                 "tokens")
 
     def __init__(self, seg_id: int, base: int, ids: List[str],
                  sources: List[Optional[dict]],
-                 vectors: Dict[str, Tuple[np.ndarray, np.ndarray]]):
+                 vectors: Dict[str, Tuple[np.ndarray, np.ndarray]],
+                 tokens: Optional[Dict[str, Tuple[np.ndarray, np.ndarray,
+                                                  np.ndarray]]] = None):
         self.seg_id = seg_id
         self.base = base                # global row id of local doc 0
         self.num_docs = len(ids)
         self.ids = ids                  # local doc -> _id
         self.sources = sources          # local doc -> source minus vectors
         self.vectors = vectors          # field -> (matrix [n,d] f32, present bool[n])
+        # field -> (tokens [T, d] f32, offsets [n+1] int64, present bool[n]):
+        # doc i's tokens are rows offsets[i]:offsets[i+1]
+        self.tokens = tokens or {}
 
     def source(self, local: int) -> dict:
         src = dict(self.sources[local] or {})
         for field, (mat, present) in self.vectors.items():
             if present[local]:
                 src[field] = mat[local].tolist()
+        for field, (toks, offsets, present) in self.tokens.items():
+            if present[local]:
+                src[field] = toks[offsets[local]:offsets[local + 1]].tolist()
         return src
 
 

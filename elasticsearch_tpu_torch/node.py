@@ -1,7 +1,8 @@
-"""One node holding single-shard indices (port of the kNN slice of
+"""One node holding single-shard indices (port of the served slices of
 `elasticsearch_tpu/node.py`): index create (with the `index.knn.*` engine
-settings), document writes, `_bulk`, refresh, realtime GET and
-`_search { knn }`, with the reference's response shapes."""
+settings), document writes, `_bulk`, refresh, realtime GET, `_search { knn }`,
+`_search { query: { late_interaction } }` and hybrid `rank: {rrf}` searches
+(one `HybridExecutor` per index), with the reference's response shapes."""
 
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from elasticsearch_tpu_torch.common.errors import (
 )
 from elasticsearch_tpu_torch.index.engine import Engine
 from elasticsearch_tpu_torch.index.mapping import MapperService
+from elasticsearch_tpu_torch.search.hybrid_plan import HybridExecutor
 from elasticsearch_tpu_torch.search.service import SearchContext, execute_search
 from elasticsearch_tpu_torch.vectors.store import VectorStoreShard
 
@@ -102,6 +104,9 @@ class Node:
         self.node_name = node_name
         self.node_id = uuid.uuid4().hex[:22]
         self.indices: Dict[str, IndexService] = {}
+        # index name -> its hybrid executor (plan cache + late-interaction
+        # store), made at the index's first hybrid search
+        self._hybrid: Dict[str, HybridExecutor] = {}
         self._lock = threading.Lock()
 
     # -------------------------------------------------------------- indices
@@ -247,9 +252,25 @@ class Node:
         return {"_shards": dict(_SHARDS_OK)}
 
     # --------------------------------------------------------------- search
+    def _hybrid_executor(self, svc: IndexService) -> HybridExecutor:
+        with self._lock:
+            ex = self._hybrid.get(svc.name)
+            if ex is None:
+                ex = self._hybrid[svc.name] = HybridExecutor(svc, self.device)
+            return ex
+
+    def _search_rrf(self, svc: IndexService, body: dict) -> dict:
+        """Reciprocal-rank fusion of the body's sub-searches through the
+        index's hybrid executor (plan cache, one dispatch per leg group,
+        RRF, fetch of the final window)."""
+        return self._hybrid_executor(svc).submit(body)
+
     def search(self, index: str, body: Optional[dict]) -> dict:
         start = time.perf_counter()
         svc = self.index(index)
+        rank = (body or {}).get("rank")
+        if isinstance(rank, dict) and "rrf" in rank:
+            return self._search_rrf(svc, body)
         ctx = SearchContext(svc.engine.acquire_searcher(), svc.mapper_service,
                             svc.store)
         hits = execute_search(ctx, body or {}, svc.name)

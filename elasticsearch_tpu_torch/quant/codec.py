@@ -4,7 +4,10 @@ ladder.
 A copy of the encoders of `elasticsearch_tpu/quant/codec.py` that the port
 serves, with the host (numpy) encoders byte-identical to the reference's
 and torch twins of its in-trace helpers (the int8 query quantizer and the
-int4 plane unpack). The binary rung is not ported yet (see ROADMAP.md).
+int4 plane unpack), each with its packed geometry (`packed_width`,
+`row_bytes`) and host decoder (`decode_np`) as the token packer
+(`quant/tokens.py`) uses them. The binary rung is not ported yet (see
+ROADMAP.md).
 
     encoding   device matrix          per-row aux      bytes/row @768d
     f32        f32 [N, D]             —                3072
@@ -37,30 +40,53 @@ class Encoded(NamedTuple):
 PACKED_ENCODINGS = ("int4",)
 
 
-class _F32Codec:
+class _Codec:
+    """Geometry shared by the rungs: packed columns and bytes per row."""
+
+    name = ""
+    packed_np_dtype = np.float32
+
+    def packed_width(self, dims: int) -> int:
+        return dims
+
+    def row_bytes(self, dims: int) -> int:
+        return self.packed_width(dims) * np.dtype(self.packed_np_dtype).itemsize
+
+
+class _F32Codec(_Codec):
     name = "f32"
 
     def encode_np(self, rows: np.ndarray) -> Encoded:
         rows = np.asarray(rows, dtype=np.float32)
         return Encoded(rows, np.ones(len(rows), dtype=np.float32))
 
+    def decode_np(self, data, scales) -> np.ndarray:
+        return np.asarray(data, dtype=np.float32)
 
-class _BF16Codec:
+
+class _BF16Codec(_Codec):
     """bf16 by round-to-nearest-even; the data is the raw bf16 bit pattern
     as uint16 (numpy has no bfloat16 type)."""
 
     name = "bf16"
+    packed_np_dtype = np.uint16
 
     def encode_np(self, rows: np.ndarray) -> Encoded:
         rows = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.float32))
         bits = rows.to(torch.bfloat16).view(torch.int16).numpy()
         return Encoded(bits.view(np.uint16), np.ones(len(bits), dtype=np.float32))
 
+    def decode_np(self, data, scales) -> np.ndarray:
+        # a bf16 value is the high half of its f32: widening is exact
+        bits = np.ascontiguousarray(data).view(np.uint16).astype(np.uint32)
+        return (bits << 16).view(np.float32)
 
-class _Int8Codec:
+
+class _Int8Codec(_Codec):
     """Per-row symmetric int8: scale = max|row|/127 (1e-30 floor)."""
 
     name = "int8"
+    packed_np_dtype = np.int8
 
     def encode_np(self, rows: np.ndarray) -> Encoded:
         rows = np.asarray(rows, dtype=np.float32)
@@ -77,8 +103,11 @@ class _Int8Codec:
                                 -127, 127).astype(np.int8)
         return Encoded(q8, scales)
 
+    def decode_np(self, data, scales) -> np.ndarray:
+        return data.astype(np.float32) * np.asarray(scales)[:, None]
 
-class _Int4Codec:
+
+class _Int4Codec(_Codec):
     """Packed-nibble symmetric int4: scale = max|row|/7, two dims per
     byte (even dim in the low nibble, odd in the high), levels in
     [-7, 7] stored offset-by-8 so every nibble is a valid level."""
@@ -107,6 +136,16 @@ class _Int4Codec:
             packed[lo:hi] = ((q[:, 0::2] + 8).astype(np.uint8)
                              | ((q[:, 1::2] + 8).astype(np.uint8) << 4))
         return Encoded(packed, scales)
+
+    def decode_np(self, data, scales) -> np.ndarray:
+        data = np.asarray(data)
+        lo = (data & 0x0F).astype(np.int8) - 8
+        hi = (data >> 4).astype(np.int8) - 8
+        n, w = data.shape
+        out = np.empty((n, 2 * w), dtype=np.float32)
+        out[:, 0::2] = lo
+        out[:, 1::2] = hi
+        return out * np.asarray(scales)[:, None]
 
 
 CODECS = {c.name: c for c in (_F32Codec(), _BF16Codec(), _Int8Codec(),

@@ -1,0 +1,321 @@
+"""Hybrid `rank: {rrf}` search: one plan, one dispatch per leg, RRF,
+fetch (port of the `knn` and `late_interaction` legs of
+`elasticsearch_tpu/search/hybrid_plan.py`).
+
+  plan    normalize → classify sub-searches into legs:
+            knn  — `knn` on a dense_vector field → the vector store
+                   (`vectors/store.py`, the binned kernel on the card)
+            maxsim — `late_interaction` on a rank_vectors field → the
+                   late-interaction store (`vectors/late_interaction.py`,
+                   the MaxSim kernels on the card), whatever the query's
+                   token count
+  score   one store dispatch per leg
+  fuse    reciprocal-rank fusion; f64 accumulation in leg order
+  hydrate fetch only the final `from + size` window
+
+Every request compiles its own plan: compiling is a few mapping lookups,
+and PyTorch runs eagerly, so there is no compiled program to reuse. A
+sub-search that the reference would send to its generic query phase
+(match, term, bool, sparse, a filtered kNN, ...) is refused with a 400
+naming it: the lexical, sparse and generic legs, the combining batcher and
+the device request cache are not ported.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, List, Tuple
+
+import numpy as np
+
+from elasticsearch_tpu_torch.common.errors import (
+    IllegalArgumentError, ParsingError,
+)
+from elasticsearch_tpu_torch.index.mapping import (
+    DenseVectorFieldMapper, RankVectorsFieldMapper,
+)
+from elasticsearch_tpu_torch.ops import similarity as sim
+from elasticsearch_tpu_torch.vectors.late_interaction import (
+    LateInteractionShard,
+)
+
+DEFAULT_RANK_CONSTANT = 60
+DEFAULT_WINDOW = 100
+_BODY_KEYS = {"rank", "sub_searches", "query", "knn", "size", "from",
+              "_source"}
+
+
+class KnnTemplate:
+    """Compile-time half of a kNN leg: k/num_candidates/boost/metric are
+    resolved from the mapping; the query VECTOR is bound from the body."""
+
+    __slots__ = ("field", "dims", "k", "num_candidates", "boost", "metric")
+
+    def __init__(self, field, dims, k, num_candidates, boost, metric):
+        self.field = field
+        self.dims = dims
+        self.k = k
+        self.num_candidates = num_candidates
+        self.boost = boost
+        self.metric = metric
+
+    def bind(self, spec):
+        qv = np.asarray(spec["query_vector"], dtype=np.float32)
+        if qv.ndim != 1 or qv.shape[0] != self.dims:
+            raise IllegalArgumentError(
+                f"[knn] query vector has {qv.shape[-1] if qv.ndim else 0} "
+                f"dims, field [{self.field}] expects {self.dims}")
+        return KnnLeg(self.field, qv, self.k, self.num_candidates,
+                      self.boost, self.metric)
+
+
+class MaxSimTemplate:
+    """Compile-time half of a late-interaction leg: field/k/boost are
+    resolved at compile; the query TOKEN VECTORS are bound from the body."""
+
+    __slots__ = ("field", "dims", "k", "boost")
+
+    def __init__(self, field: str, dims: int, k: int, boost: float):
+        self.field = field
+        self.dims = dims
+        self.k = k
+        self.boost = boost
+
+    def bind(self, qspec: dict):
+        spec = qspec["late_interaction"]
+        qt = np.asarray(spec["query_tokens"], dtype=np.float32)
+        if qt.ndim == 1:
+            qt = qt.reshape(1, -1)
+        if qt.ndim != 2 or qt.shape[1] != self.dims:
+            raise IllegalArgumentError(
+                f"[late_interaction] query tokens have "
+                f"{qt.shape[-1] if qt.ndim else 0} dims, field "
+                f"[{self.field}] expects {self.dims}")
+        return MaxSimLeg(self.field, qt, self.k, self.boost)
+
+
+class KnnLeg:
+    __slots__ = ("field", "query_vector", "k", "num_candidates", "boost",
+                 "metric")
+
+    def __init__(self, field: str, query_vector, k: int,
+                 num_candidates: int, boost: float, metric: str):
+        self.field = field
+        self.query_vector = np.asarray(query_vector, dtype=np.float32)
+        self.k = k
+        self.num_candidates = num_candidates
+        self.boost = boost
+        self.metric = metric
+
+
+class MaxSimLeg:
+    __slots__ = ("field", "query_tokens", "k", "boost")
+
+    def __init__(self, field: str, query_tokens, k: int, boost: float):
+        self.field = field
+        self.query_tokens = query_tokens
+        self.k = k
+        self.boost = boost
+
+
+class HybridPlan:
+    """Compiled structure of a hybrid body: leg templates + fusion
+    parameters. Per-query VALUES are not part of the plan; `bind` extracts
+    them from the body."""
+
+    __slots__ = ("legs", "rank_constant", "window", "size", "frm",
+                 "source_spec")
+
+    def __init__(self, legs, rank_constant, window, size, frm, source_spec):
+        self.legs = legs
+        self.rank_constant = rank_constant
+        self.window = window
+        self.size = size
+        self.frm = frm
+        self.source_spec = source_spec
+
+    def bind(self, body: dict) -> List[Any]:
+        """The executable legs of `body` against the templates."""
+        bound: List[Any] = []
+        for template, q in zip(self.legs, _sub_queries_of(body)):
+            if isinstance(template, KnnTemplate):
+                bound.append(template.bind(q["knn"]))
+            else:
+                bound.append(template.bind(q))
+        return bound
+
+
+def _sub_queries_of(body: dict) -> List[dict]:
+    subs: List[dict] = []
+    if body.get("sub_searches"):
+        subs = [s.get("query", {"match_all": {}})
+                for s in body["sub_searches"]]
+    else:
+        if body.get("query") is not None:
+            subs.append(body["query"])
+        if body.get("knn") is not None:
+            knn = body["knn"]
+            if isinstance(knn, list):
+                subs.extend({"knn": spec} for spec in knn)
+            else:
+                subs.append({"knn": knn})
+    return subs
+
+
+def _not_ported(kind: str, why: str) -> IllegalArgumentError:
+    return IllegalArgumentError(
+        f"[rrf] sub-search [{kind}] is not supported by this build: {why}; "
+        f"only [knn] on dense_vector and [late_interaction] on rank_vectors "
+        f"fields are ported")
+
+
+def compile_plan(body: dict, mapper_service) -> HybridPlan:
+    """Parse + classify ONE hybrid body into an executable plan."""
+    for key in body:
+        if key not in _BODY_KEYS:
+            raise ParsingError(
+                f"unknown key [{key}] for a search request body "
+                f"(SearchSourceBuilder)")
+    rrf = (body.get("rank") or {}).get("rrf") or {}
+    rank_constant = int(rrf.get("rank_constant", DEFAULT_RANK_CONSTANT))
+    window = int(rrf.get("rank_window_size",
+                         rrf.get("window_size", DEFAULT_WINDOW)))
+    size = int(body.get("size", 10))
+    frm = int(body.get("from", 0) or 0)
+    if frm < 0:
+        raise IllegalArgumentError("[from] parameter cannot be negative")
+    if size < 0:
+        raise IllegalArgumentError(
+            f"[size] parameter cannot be negative, found [{size}]")
+    subs = _sub_queries_of(body)
+    if len(subs) < 2:
+        raise IllegalArgumentError(
+            "[rrf] requires at least 2 ranked lists (sub_searches, or "
+            "query + knn)")
+    legs: List[Any] = []
+    for q in subs:
+        if not isinstance(q, dict) or len(q) != 1:
+            raise ParsingError("[rrf] each sub-search must hold one query")
+        ((kind, spec),) = q.items()
+        field = spec.get("field") if isinstance(spec, dict) else None
+        mapper = mapper_service.get(field) if isinstance(field, str) else None
+        if kind == "knn":
+            if not isinstance(mapper, DenseVectorFieldMapper):
+                raise _not_ported(kind, f"[{field}] is not a dense_vector "
+                                        f"field")
+            if spec.get("filter") is not None:
+                raise _not_ported(kind, "filtered kNN is not ported")
+            # the reference's leg semantics: k defaults to 10 (not
+            # num_candidates), and num_candidates clamps up to k
+            k = int(spec.get("k", 10))
+            nc = max(int(spec.get("num_candidates", spec.get("k", 10))), k)
+            if k < 1:
+                raise IllegalArgumentError("[k] must be greater than 0")
+            from elasticsearch_tpu_torch.vectors.store import _METRIC_MAP
+            legs.append(KnnTemplate(field, mapper.dims, k, nc,
+                                    float(spec.get("boost", 1.0)),
+                                    _METRIC_MAP[mapper.similarity]))
+        elif kind == "late_interaction":
+            if not isinstance(mapper, RankVectorsFieldMapper):
+                raise _not_ported(kind, f"[{field}] is not a rank_vectors "
+                                        f"field")
+            legs.append(MaxSimTemplate(field, mapper.dims,
+                                       int(spec.get("k", 10)),
+                                       float(spec.get("boost", 1.0))))
+        else:
+            raise _not_ported(kind, "its leg runs the generic query phase, "
+                                    "which is not ported")
+    return HybridPlan(legs, rank_constant, window, size, frm,
+                      body.get("_source"))
+
+
+def fuse_rrf(leg_rows: List[np.ndarray], rank_constant: int
+             ) -> Tuple[np.ndarray, np.ndarray]:
+    """RRF over ranked row lists → (unique rows ascending, f64 scores).
+    Per row, contributions add one leg at a time in leg order."""
+    non_empty = [r for r in leg_rows if len(r)]
+    if not non_empty:
+        return (np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.float64))
+    uniq = np.unique(np.concatenate(non_empty))
+    scores = np.zeros(len(uniq), dtype=np.float64)
+    for rows in leg_rows:
+        if not len(rows):
+            continue
+        idx = np.searchsorted(uniq, rows)
+        np.add.at(scores, idx,
+                  1.0 / (rank_constant + np.arange(1, len(rows) + 1,
+                                                   dtype=np.float64)))
+    return uniq, scores
+
+
+def _ranked(scores: np.ndarray, k: int) -> np.ndarray:
+    """Indices of the k best scores by (score desc, index asc)."""
+    return np.lexsort((np.arange(len(scores)), -scores))[:k]
+
+
+class HybridExecutor:
+    """Per-index hybrid serving path: plan, leg dispatch, fusion and
+    fetch, run synchronously for each request: the reference's combining
+    batcher, which groups legs across requests, is not ported."""
+
+    def __init__(self, svc, device):
+        self.svc = svc
+        self.late = LateInteractionShard(device=device)
+        self._lock = threading.Lock()
+        self.stats = {"searches": 0, "plan_nanos": 0, "score_nanos": 0, "fuse_nanos": 0,
+                      "hydrate_nanos": 0}
+
+    def _bump(self, **deltas) -> None:
+        with self._lock:
+            for key, v in deltas.items():
+                self.stats[key] += v
+
+    def submit(self, body: dict) -> dict:
+        from elasticsearch_tpu_torch.search.service import render_hits
+        start = time.perf_counter()
+        reader = self.svc.engine.acquire_searcher()
+        t0 = time.perf_counter_ns()
+        plan = compile_plan(body, self.svc.mapper_service)
+        legs = plan.bind(body)
+        t1 = time.perf_counter_ns()
+        leg_rows = self.score_legs(reader, plan, legs)
+        t2 = time.perf_counter_ns()
+        rows, scores = fuse_rrf(leg_rows, plan.rank_constant)
+        top = np.lexsort((rows, -scores))[plan.frm:plan.frm + plan.size]
+        t3 = time.perf_counter_ns()
+        hits = render_hits(reader, self.svc.mapper_service, self.svc.name,
+                           rows[top], scores[top], plan.source_spec)
+        self._bump(searches=1, plan_nanos=t1 - t0, score_nanos=t2 - t1,
+                   fuse_nanos=t3 - t2,
+                   hydrate_nanos=time.perf_counter_ns() - t3)
+        return {
+            "took": int((time.perf_counter() - start) * 1000),
+            "timed_out": False,
+            "_shards": {"total": 1, "successful": 1, "skipped": 0,
+                        "failed": 0},
+            "hits": {"total": {"value": int(len(rows)), "relation": "eq"},
+                     "max_score": hits[0]["_score"] if hits else None,
+                     "hits": hits}}
+
+    def score_legs(self, reader, plan: HybridPlan, legs: List[Any]
+                   ) -> List[np.ndarray]:
+        """Each bound leg's ranked rows, cut to the plan's window: one
+        store dispatch a leg."""
+        out: List[np.ndarray] = []
+        for leg in legs:
+            if isinstance(leg, MaxSimLeg):
+                mapper = self.svc.mapper_service.get(leg.field)
+                ((rows, _scores),) = self.late.search_batch(
+                    reader, mapper, [(leg.query_tokens, leg.boost)], leg.k)
+                out.append(rows[:plan.window])
+                continue
+            ((rows, raw),) = self.svc.store.search_many(
+                leg.field, [leg.query_vector], leg.k,
+                num_candidates=leg.num_candidates)
+            scores = np.asarray(sim.to_es_score(raw, leg.metric)) * leg.boost
+            order = np.argsort(rows, kind="stable")
+            rows = rows[order].astype(np.int64)
+            scores = scores[order].astype(np.float32)
+            out.append(rows[_ranked(scores, plan.window)])
+        return out

@@ -1,9 +1,12 @@
-"""Per-shard search: parse the body, run the kNN query, assemble hits (port
-of the kNN slice of `elasticsearch_tpu/search/service.py`).
+"""Per-shard search: parse the body, run the query, assemble hits (port of
+the served slices of `elasticsearch_tpu/search/service.py`).
 
-The slice accepts `{knn: {field, query_vector, k, num_candidates, boost},
-size, from, _source}`. Any other body key is rejected with the reference's
-unknown-key parsing error (400).
+The port accepts `{knn: {field, query_vector, k, num_candidates, boost},
+size, from, _source}` and `{query: {late_interaction: {field, query_tokens,
+boost}}, size, from, _source}` (the exact host walker, as the reference's
+query phase runs it). Any other body key, or another query kind, is
+rejected with a 400. Hybrid `rank: {rrf}` bodies go to
+`search/hybrid_plan.py`, which renders its hits with `render_hits`.
 """
 
 from __future__ import annotations
@@ -19,10 +22,11 @@ from elasticsearch_tpu_torch.common.errors import (
 from elasticsearch_tpu_torch.index.mapping import MapperService
 from elasticsearch_tpu_torch.index.segment import ShardReader
 from elasticsearch_tpu_torch.search.knn_query import KnnQuery
+from elasticsearch_tpu_torch.search.queries_ext import LateInteractionQuery
 
 DEFAULT_SIZE = 10
 MAX_RESULT_WINDOW = 10_000
-_SEARCH_BODY_KEYS = {"knn", "size", "from", "_source"}
+_SEARCH_BODY_KEYS = {"knn", "query", "size", "from", "_source"}
 _KNN_KEYS = {"field", "query_vector", "k", "num_candidates", "boost"}
 
 
@@ -34,11 +38,6 @@ class SearchContext:
 
 
 def parse_knn(body: dict) -> KnnQuery:
-    for key in body:
-        if key not in _SEARCH_BODY_KEYS:
-            raise ParsingError(
-                f"unknown key [{key}] for a search request body "
-                f"(SearchSourceBuilder)")
     spec = body.get("knn")
     if not isinstance(spec, dict):
         raise ParsingError("[knn] must be an object with [field] and "
@@ -60,9 +59,31 @@ def parse_knn(body: dict) -> KnnQuery:
                     boost=float(spec.get("boost", 1.0)))
 
 
+def _execute_query(ctx: SearchContext, body: dict):
+    """(rows ascending, f32 scores) of the body's one query."""
+    for key in body:
+        if key not in _SEARCH_BODY_KEYS:
+            raise ParsingError(
+                f"unknown key [{key}] for a search request body "
+                f"(SearchSourceBuilder)")
+    if "query" not in body:
+        return parse_knn(body).execute(ctx)
+    if "knn" in body:
+        raise ParsingError("this build serves [knn] and [query] together "
+                           "only as a hybrid [rank: {rrf: {}}] body")
+    q = body["query"]
+    if not isinstance(q, dict) or len(q) != 1:
+        raise ParsingError("[query] must hold exactly one query")
+    ((kind, spec),) = q.items()
+    if kind != "late_interaction":
+        raise ParsingError(f"[{kind}] query is not supported by this build: "
+                           f"only [late_interaction] queries are ported")
+    return LateInteractionQuery.parse(spec).execute(ctx.reader,
+                                                    ctx.mapper_service)
+
+
 def execute_search(ctx: SearchContext, body: dict, index_name: str) -> dict:
     """Query + fetch for one single-shard index: the `hits` section."""
-    query = parse_knn(body)
     frm = int(body.get("from", 0) or 0)
     size = int(body["size"]) if body.get("size") is not None else DEFAULT_SIZE
     if frm < 0:
@@ -74,27 +95,36 @@ def execute_search(ctx: SearchContext, body: dict, index_name: str) -> dict:
         raise IllegalArgumentError(
             f"Result window is too large, from + size must be less than or "
             f"equal to: [{MAX_RESULT_WINDOW}] but was [{frm + size}].")
-    rows, scores = query.execute(ctx)
+    rows, scores = _execute_query(ctx, body)
     # score desc, ties by row asc (rows arrive ascending)
     order = np.argsort(-scores, kind="stable")
     rows, scores = rows[order], scores[order]
     total = len(rows)
     max_score = float(scores[0]) if total else None
-    want_source = body.get("_source", True) is not False \
-        and ctx.mapper_service.source_enabled
-    includes = _source_includes(body.get("_source"))
+    hits = render_hits(ctx.reader, ctx.mapper_service, index_name,
+                       rows[frm:frm + size], scores[frm:frm + size],
+                       body.get("_source"))
+    return {"total": {"value": total, "relation": "eq"},
+            "max_score": max_score, "hits": hits}
+
+
+def render_hits(reader: ShardReader, mapper_service: MapperService,
+                index_name: str, rows, scores, source_spec) -> List[dict]:
+    """The fetch phase: one hit per row, in order, with its `_source` when
+    the body and the mapping allow it."""
+    want_source = source_spec is not False and mapper_service.source_enabled
+    includes = _source_includes(source_spec)
     hits: List[dict] = []
-    for row, score in zip(rows[frm:frm + size], scores[frm:frm + size]):
-        hit = {"_index": index_name, "_id": ctx.reader.get_id(int(row)),
+    for row, score in zip(rows, scores):
+        hit = {"_index": index_name, "_id": reader.get_id(int(row)),
                "_score": float(score)}
         if want_source:
-            src = ctx.reader.get_source(int(row))
+            src = reader.get_source(int(row))
             if includes is not None:
                 src = {k: v for k, v in src.items() if k in includes}
             hit["_source"] = src
         hits.append(hit)
-    return {"total": {"value": total, "relation": "eq"},
-            "max_score": max_score, "hits": hits}
+    return hits
 
 
 def _source_includes(spec) -> Optional[set]:

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels (binned kNN, fused IVF probes) against
-their plain PyTorch versions, on a CUDA card. Every test here is marked `gpu` and skips without a card. This
+"""The hand-written CUDA kernels (binned kNN, fused IVF probes, MaxSim)
+against their plain PyTorch versions, on a CUDA card. Every test here is marked `gpu` and skips without a card. This
 file imports neither `jax` nor the JAX package, so on a machine without
 JAX it runs alone:
 
@@ -14,6 +14,7 @@ from elasticsearch_tpu_torch.ops import dispatch
 from elasticsearch_tpu_torch.ops import ivf_fused as fused
 from elasticsearch_tpu_torch.ops import knn
 from elasticsearch_tpu_torch.ops import knn_binned as kb
+from elasticsearch_tpu_torch.ops import maxsim
 from elasticsearch_tpu_torch.ops import similarity as sim
 from elasticsearch_tpu_torch.ops.knn_ivf import IVFPartitions
 
@@ -175,3 +176,121 @@ def test_ivf_store_on_cuda_launches_kernel_and_matches_cpu(cuda, options):
         agree.append(np.mean(rows == want_rows))
     assert np.mean(agree) > 0.9
     assert on_gpu.knn_stats["fused_probe_searches"] == 5
+
+
+def _random_token_tile(g, dev, dtype, n, n_pad, cap, w):
+    """A [n_pad, cap, w] tile of n ragged docs (1..cap valid slots each,
+    scale 0 on the rest and on rows n..n_pad, the padding rows)."""
+    counts = torch.randint(1, cap + 1, (n,), generator=g, device=dev)
+    valid = torch.zeros(n_pad, cap, dtype=torch.bool, device=dev)
+    valid[:n] = torch.arange(cap, device=dev)[None, :] < counts[:, None]
+    if dtype in (torch.int8, torch.uint8):
+        lo, hi = (-127, 128) if dtype == torch.int8 else (0, 256)
+        toks = torch.randint(lo, hi, (n_pad, cap, w), generator=g,
+                             device=dev, dtype=torch.int32).to(dtype)
+        scales = torch.rand(n_pad, cap, generator=g, device=dev) / 100 + 1e-3
+    else:
+        toks = (torch.randn(n_pad, cap, w, generator=g, device=dev)
+                / w ** 0.5).to(dtype)
+        scales = torch.ones(n_pad, cap, device=dev)
+    return toks, torch.where(valid, scales, torch.zeros_like(scales))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8,
+                                   torch.uint8])
+@pytest.mark.parametrize("tq,cap", [(8, 8), (32, 256), (128, 100)])
+@pytest.mark.parametrize("nq", [1, 19])
+def test_maxsim_kernels_match_plain_version(cuda, dtype, tq, cap, nq):
+    """Both MaxSim kernels on every tile type: candidates on the padding
+    row score <= -1e38 in both, the rest agree within 1e-5 of the largest
+    |score| (bf16 x bf16 products are exact; f32 sum order differs)."""
+    g = torch.Generator(device=cuda).manual_seed(tq + cap + nq)
+    n, n_pad, d = 300, 512, 128
+    w = d // 2 if dtype == torch.uint8 else d
+    toks, scales = _random_token_tile(g, cuda, dtype, n, n_pad, cap, w)
+    q = torch.randn(nq, tq, d, generator=g, device=cuda)
+    q[:, tq // 2 + 1:] = 0                 # zero-padded query token rows
+    ids = torch.randint(0, n, (nq, 40), generator=g, device=cuda,
+                        dtype=torch.int32)
+    ids[:, -3:] = n                        # the padding row
+    name = maxsim.KERNEL_INT4 if dtype == torch.uint8 else maxsim.KERNEL_DENSE
+    before = dispatch.launches().get(name, 0)
+    got = maxsim.maxsim_rescore(ids, q, toks, scales)
+    torch.cuda.synchronize()
+    assert dispatch.launches().get(name, 0) == before + 1
+    want = maxsim.maxsim_reference(ids, q, toks, scales)
+    neg = want <= -1e38
+    assert torch.equal(got <= -1e38, neg) and bool(neg[:, -3:].all())
+    assert int(neg.sum()) == 3 * nq
+    tol = 1e-5 * max(1.0, float(want[~neg].abs().max()))
+    assert float((got[~neg] - want[~neg]).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8,
+                                   torch.uint8])
+@pytest.mark.parametrize("tq,d", [(128, 768), (128, 1024), (300, 128),
+                                  (256, 768)])
+def test_maxsim_kernels_wide_queries_and_dims(cuda, dtype, tq, d):
+    """Query and width beyond one staged block: more than 128 query rows
+    (row groups) and 768-1024 dims (feature slabs) launch and agree with
+    the plain version within 1e-5 of the largest |score|."""
+    g = torch.Generator(device=cuda).manual_seed(tq + d)
+    n, n_pad, cap = 200, 256, 100
+    w = d // 2 if dtype == torch.uint8 else d
+    toks, scales = _random_token_tile(g, cuda, dtype, n, n_pad, cap, w)
+    q = torch.randn(3, tq, d, generator=g, device=cuda)
+    q[:, tq - 5:] = 0                      # zero-padded query token rows
+    ids = torch.randint(0, n, (3, 24), generator=g, device=cuda,
+                        dtype=torch.int32)
+    ids[:, -2:] = n                        # the padding row
+    name = maxsim.KERNEL_INT4 if dtype == torch.uint8 else maxsim.KERNEL_DENSE
+    before = dispatch.launches().get(name, 0)
+    got = maxsim.maxsim_rescore(ids, q, toks, scales)
+    torch.cuda.synchronize()
+    assert dispatch.launches().get(name, 0) == before + 1
+    want = maxsim.maxsim_reference(ids, q, toks, scales)
+    neg = want <= -1e38
+    assert torch.equal(got <= -1e38, neg) and int(neg.sum()) == 6
+    tol = 1e-5 * max(1.0, float(want[~neg].abs().max()))
+    assert float((got[~neg] - want[~neg]).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("encoding", ["bf16", "int8", "int4"])
+def test_late_interaction_on_cuda_launches_kernel_and_matches_cpu(
+        cuda, encoding):
+    """One reader synced into a CUDA and a CPU late-interaction store: the
+    same tile bytes, the same rows where scores are clear of ties, and one
+    MaxSim launch per search on the card."""
+    from elasticsearch_tpu_torch.index.engine import Engine
+    from elasticsearch_tpu_torch.index.mapping import MapperService
+    from elasticsearch_tpu_torch.vectors.late_interaction import (
+        LateInteractionShard)
+
+    rng = np.random.default_rng(9)
+    ms = MapperService({"properties": {"c": {
+        "type": "rank_vectors", "dims": 96, "encoding": encoding}}})
+    eng = Engine(ms)
+    counts = rng.integers(3, 40, 3000)
+    eng.index_many([str(i) for i in range(3000)], token_vectors={"c": (
+        rng.standard_normal((int(counts.sum()), 96)).astype(np.float32),
+        counts)})
+    reader = eng.refresh()
+    on_gpu = LateInteractionShard(device=cuda)
+    on_cpu = LateInteractionShard(device="cpu")
+    lf = on_gpu.field(reader, ms.get("c"))
+    lf_cpu = on_cpu.field(reader, ms.get("c"))
+    assert torch.equal(lf.tile.cpu(), lf_cpu.tile)
+    name = maxsim.KERNEL_INT4 if encoding == "int4" else maxsim.KERNEL_DENSE
+    for _ in range(3):
+        qt = rng.standard_normal((32, 96)).astype(np.float32)
+        before = dispatch.launches().get(name, 0)
+        (rows, scores), = on_gpu.search_batch(reader, ms.get("c"),
+                                              [(qt, 1.0)], 10)
+        assert dispatch.launches().get(name, 0) == before + 1
+        (want_rows, want_scores), = on_cpu.search_batch(
+            reader, ms.get("c"), [(qt, 1.0)], 10)
+        np.testing.assert_allclose(scores, want_scores, rtol=1e-5)
+        assert np.mean(rows == want_rows) > 0.9

@@ -1,8 +1,8 @@
 """The port stands alone: every module of `elasticsearch_tpu_torch` and
 `chip_smoke.py` import with `jax` and `elasticsearch_tpu` blocked; entry
 points refuse to run on the CPU unless asked; and a kernel wrapper given
-CUDA tensors (the binned kNN kernels, the fused IVF probe kernels) launches
-its kernel or raises, never the plain version."""
+CUDA tensors (the binned kNN kernels, the fused IVF probe kernels, the
+MaxSim kernels) launches its kernel or raises, never the plain version."""
 
 import os
 import pkgutil
@@ -16,6 +16,7 @@ import elasticsearch_tpu_torch
 from elasticsearch_tpu_torch.ops import dispatch
 from elasticsearch_tpu_torch.ops import ivf_fused
 from elasticsearch_tpu_torch.ops import knn_binned as kb
+from elasticsearch_tpu_torch.ops import maxsim
 from elasticsearch_tpu_torch.ops.knn_ivf import IVFPartitions
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -34,6 +35,10 @@ def test_port_imports_without_jax_or_reference():
     assert "elasticsearch_tpu_torch.ops.knn_binned" in names
     assert "elasticsearch_tpu_torch.ops.ivf_fused" in names
     assert "elasticsearch_tpu_torch.ann.router" in names
+    for name in ("ops.maxsim", "quant.tokens", "columnar.blocks",
+                 "vectors.late_interaction", "search.queries_ext",
+                 "search.hybrid_plan"):
+        assert f"elasticsearch_tpu_torch.{name}" in names
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'elasticsearch_tpu'):\n"
@@ -128,6 +133,7 @@ class _FakeLib:
 
     knn_binned_bf16 = knn_binned_int8 = _launch
     ivf_fused_dense = ivf_fused_int4 = _launch
+    maxsim_dense = maxsim_int4 = _launch
 
     def cuda_error_string(self, code):
         return b"an injected launch failure"
@@ -247,3 +253,58 @@ def test_ivf_fused_wrapper_rejects_bad_inputs():
         ivf_fused.probe_board(q, _fake_ivf(torch.bfloat16, w=48), ids)
     with pytest.raises(TypeError, match="no fused kernel"):
         ivf_fused.probe_board(q, _fake_ivf(torch.float16), ids)
+
+
+def _fake_maxsim(dtype, nq=5, nw=4, tq=8, w=32, n_pad=64, cap=16):
+    """(ids, query tokens, token tile, scales) standing in on a card."""
+    qw = 2 * w if dtype == torch.uint8 else w
+    return (_FakeCuda((nq, nw), torch.int32),
+            _FakeCuda((nq, tq, qw), torch.float32),
+            _FakeCuda((n_pad, cap, w), dtype),
+            _FakeCuda((n_pad, cap), torch.float32))
+
+
+@pytest.mark.parametrize("code", [0, 1])
+def test_maxsim_wrappers_launch_or_raise_never_plain(monkeypatch, code):
+    def no_plain(*a, **k):
+        raise AssertionError("plain version ran for a CUDA tensor")
+
+    lib = _FakeLib(code)
+    monkeypatch.setattr(maxsim, "maxsim_reference", no_plain)
+    monkeypatch.setattr(maxsim, "_lib", lambda: lib)
+    monkeypatch.setattr(maxsim.torch, "empty",
+                        lambda shape, dtype, device: _FakeCuda(shape, dtype))
+    monkeypatch.setattr(maxsim.torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    cases = [(maxsim.KERNEL_DENSE, dt)
+             for dt in (torch.float32, torch.bfloat16, torch.int8)]
+    cases.append((maxsim.KERNEL_INT4, torch.uint8))
+    for name, dtype in cases:
+        before = dispatch.launches().get(name, 0)
+        if code:
+            with pytest.raises(RuntimeError, match="injected launch failure"):
+                maxsim.maxsim_rescore(*_fake_maxsim(dtype))
+            assert dispatch.launches().get(name, 0) == before
+        else:
+            out = maxsim.maxsim_rescore(*_fake_maxsim(dtype))
+            assert out.shape == (5, 4)
+            assert dispatch.launches().get(name, 0) == before + 1
+    assert lib.calls == len(cases)
+
+
+def test_maxsim_wrapper_rejects_bad_inputs():
+    ids, q, toks, scales = _fake_maxsim(torch.int8)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        maxsim.maxsim_rescore(ids, torch.zeros(5, 8, 32), toks, scales)
+    with pytest.raises(TypeError):
+        maxsim.maxsim_rescore(_FakeCuda((5, 4), torch.int64), q, toks, scales)
+    with pytest.raises(TypeError, match="no MaxSim kernel"):
+        maxsim.maxsim_rescore(*_fake_maxsim(torch.float16))
+    for bad in (_fake_maxsim(torch.int8, w=24),
+                (ids, _FakeCuda((5, 8, 64), torch.float32), toks, scales),
+                (ids, q, toks, _FakeCuda((64, 8), torch.float32)),
+                (_FakeCuda((4, 4), torch.int32), q, toks, scales),
+                (ids, _FakeCuda((5, 8, 32), torch.float32),
+                 _FakeCuda((64, 16, 32), torch.uint8), scales)):
+        with pytest.raises(ValueError, match="shape mismatch"):
+            maxsim.maxsim_rescore(*bad)
