@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed 1234] [--n-sift 1000000] [--n-cohere 1000000]
                           [--n-gist 1000000] [--n-cohere-ivf 1000000]
-                          [--n-colbert 131071]
+                          [--n-colbert 131071] [--binned-only]
 
 Phases, one line each; any failure raises and the exit code is not 0:
 
@@ -10,18 +10,25 @@ Phases, one line each; any failure raises and the exit code is not 0:
   build        compiles the hand-written kernels from `elasticsearch_tpu_torch/csrc`
                (one nvcc per source, all started together)
   kernels      each binned kernel against its plain PyTorch version on the card
-               (bf16 Q=256 N=1,048,576 D=128, cosine and clamped; int8 Q=256
-               N=1,048,576 D=768), then CUDA-event times beside the bound and
-               beside one PyTorch matmul of the same product; then each fused
-               IVF probe kernel against its plain version (nlist 1024, cap
-               1472, nprobe 32, Q=256 and Q=1; bf16 D=960, int8 D=768, int4
-               D=768, and D=100 rows on the scalar path), timed beside the
-               bound of its distinct tiles and beside the port's scan route
+               (int8 bit-identical, bf16 within one packing quantum) at the
+               served shapes: bf16 N=1,048,576 D=128 at Q=256 (cosine and
+               clamped) and Q=1, the hybrid knn leg (Q=1, 131,072 x 768), the
+               dot index (Q=16, 16,384 x 128 clamped), int8 N=1,048,576
+               D=768 at Q=256 and Q=1; each timed per launch and in a burst
+               of 50 (CUDA events) beside its bound and one PyTorch call of
+               the same product; then each fused IVF probe kernel against
+               its plain version (nlist 1024, cap 1472, nprobe 32, Q=256 and
+               Q=1; bf16 D=960, int8 D=768, int4 D=768, and D=100 rows on the
+               scalar path), timed beside the bound of its distinct tiles
+               and beside the port's scan route; then both MaxSim kernels
+               against their plain versions at the ColBERTv2 shape, timed
+               beside the staged gather form
   serve_sift   the port's REST server in-process: a cosine dims=128 index,
                2,000 docs over `_bulk`, then the shard loaded to 1,000,000
                SIFT-shaped docs through `Engine.index_many`, refresh, and 64
                `_search {knn, k: 10}` requests over HTTP: recall@10 against
-               exact f32 numpy and the bf16 kernel's launch count; then a
+               exact f32 numpy and the bf16 kernel's launch count (every
+               launch on its tma variant); then a
                dot_product index (16,384 docs) through the clamped variant
   serve_cohere the same for a 768-d cosine `int8_flat` index with
                `rescore: true` and `_source` disabled (int8 kernel + re-rank)
@@ -89,6 +96,23 @@ def nvidia_smi_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+def burst_ms(fn, n: int = 50, warmup: int = 3) -> float:
+    """CUDA-event time of `n` back-to-back calls, over `n`: a short
+    kernel's device time, which a per-launch event pair blurs with the
+    host's submission (the host queues ahead while the card runs)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Median of per-launch CUDA-event times."""
     for _ in range(warmup):
@@ -125,111 +149,133 @@ def phase_env() -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build(names=("knn_binned", "ivf_fused", "maxsim")) -> None:
     from elasticsearch_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    reports = _build.build(["knn_binned", "ivf_fused", "maxsim"])
+    reports = _build.build(list(names))
     usage = [ln.strip() for rep in reports.values() for ln in rep.splitlines()
              if "registers" in ln or "spill" in ln]
     log("build", seconds=f"{time.perf_counter() - t0:.1f}",
         ptxas=repr(" | ".join(usage)))
 
 
-def phase_kernels(seed: int, dev) -> dict:
-    """Each kernel against its plain version at the main path's shapes."""
+def _binned_case(kernel: str, case: str, run, plain, exact: bool,
+                 nbytes: int, ops: int, ops_per_s: float, library=None,
+                 time_plain: bool = False) -> dict:
+    """One binned kernel at one shape: the kernel against its plain version
+    (int8 `torch.equal`, bf16 within one packing quantum of the decoded
+    scores), then its per-launch and burst times beside the bound, the
+    plain version's time (when `time_plain`) and one PyTorch call's."""
+    from elasticsearch_tpu_torch.ops import knn_binned as kb
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    if exact and not torch.equal(got, want):
+        raise AssertionError(f"{kernel} {case}: differs from its plain version "
+                             f"in {int((got != want).sum())} packed values")
+    err = float(((got & kb.MASK).view(torch.float32)
+                 - (want & kb.MASK).view(torch.float32)).abs().max())
+    if not err <= BF16_QUANTUM:
+        raise AssertionError(f"{kernel} {case}: max |decoded diff| {err} "
+                             f"exceeds one quantum {BF16_QUANTUM}")
+    del got, want
+    f = {"max_abs_err": err, "ms": time_ms(run), "burst_ms": burst_ms(run)}
+    f["bound_ms"], f["bound_by"] = bound_ms(nbytes, ops, ops_per_s)
+    f["plain_ms"] = (time_ms(plain, iters=5, warmup=1) if time_plain
+                     else None)
+    f["library_ms"] = time_ms(library) if library else None
+    f["library_burst_ms"] = burst_ms(library) if library else None
+    log("kernels", kernel=kernel, case=case,
+        **{k: (f"{v:.6g}" if isinstance(v, float) else v)
+           for k, v in f.items()})
+    return f
+
+
+def phase_binned_kernels(seed: int, dev) -> dict:
+    """Both binned kernels against their plain version at the served
+    shapes: bf16 1,048,576 x 128 at Q=256 (cosine and clamped) and Q=1,
+    the hybrid knn leg (bf16 131,072 x 768, Q=1), the dot index (bf16
+    16,384 x 128 clamped, Q=16), int8 1,048,576 x 768 at Q=256 and Q=1."""
     from elasticsearch_tpu_torch.ops import knn_binned as kb
     g = torch.Generator(device=dev).manual_seed(seed)
-    nq, n_pad = 256, 1 << 20
-    num_valid = n_pad - 1000          # a padded tail that must never win
-    valid, tpat = kb._tile_patterns(n_pad, num_valid, dev)
-    out = {}
 
-    def decoded(p):
-        return (p & kb.MASK).view(torch.float32)
+    def unit(n, d, scale=1.0):
+        x = torch.randn(n, d, generator=g, device=dev)
+        return (x / x.norm(dim=1, keepdim=True) * scale).to(torch.bfloat16)
 
-    # bf16: unit rows (cosine), and rows scaled so clamping is exercised
-    d = 128
-    q = torch.randn(nq, d, generator=g, device=dev)
-    c = torch.randn(n_pad, d, generator=g, device=dev)
-    q = (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16)
-    c = (c / c.norm(dim=1, keepdim=True)).to(torch.bfloat16)
-    fields = {}
-    for variant, clamp, cc in (("cosine", False, c),
-                               ("clamped", True, (c.float() * 8).to(torch.bfloat16))):
-        got = kb.binned_packed_bf16(q, cc, valid, clamp=clamp)
-        want = kb.binned_packed_reference(q, cc, valid, tpat, clamp=clamp)
-        torch.cuda.synchronize()
-        err = float((decoded(got) - decoded(want)).abs().max())
-        same = float((got == want).float().mean())
-        if not err <= BF16_QUANTUM:
-            raise AssertionError(f"bf16 {variant}: max |decoded diff| {err} "
-                                 f"exceeds one quantum {BF16_QUANTUM}")
-        fields[f"{variant}_max_abs_err"] = err
-        fields[f"{variant}_identical"] = f"{same:.6f}"
-        fields[f"{variant}_ms"] = time_ms(
-            lambda: kb.binned_packed_bf16(q, cc, valid, clamp=clamp))
-    q1 = q[:1].contiguous()
-    fields["cosine_q1_ms"] = time_ms(
-        lambda: kb.binned_packed_bf16(q1, c, valid, clamp=False))
-    plain_ms = time_ms(lambda: kb.binned_packed_reference(q, c, valid, tpat),
-                       iters=5, warmup=1)
-    lib_ms = time_ms(lambda: torch.matmul(q, c.T))
-    nbytes = q.numel() * 2 + c.numel() * 2 + n_pad * 4 + nq * (n_pad // 64) * 4
-    b_ms, b_by = bound_ms(nbytes, 2 * nq * n_pad * d, BF16_OPS_PER_S)
-    out[kb.KERNEL_BF16] = {
-        "name": kb.KERNEL_BF16, "route": "cuda",
-        "source": "elasticsearch_tpu_torch/csrc/knn_binned.cu",
-        "replaces": "elasticsearch_tpu/ops/pallas_knn_binned.py:76",
-        "max_abs_err": max(fields["cosine_max_abs_err"],
-                           fields["clamped_max_abs_err"]),
-        "ms": fields["cosine_ms"], "plain_ms": plain_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": lib_ms}
-    log("kernels", kernel=kb.KERNEL_BF16, Q=nq, N=n_pad, D=d,
-        **{k: (f"{v:.6g}" if isinstance(v, float) else v)
-           for k, v in fields.items()},
-        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b_ms:.4f}", bound_by=b_by,
-        matmul_ms=f"{lib_ms:.4f}")
+    def bf16_case(case, q, c, num_valid, clamp, time_plain=False):
+        n_pad, d = c.shape
+        valid, tpat = kb._tile_patterns(n_pad, num_valid, dev)
+        nq = q.shape[0]
+        nbytes = (q.numel() + c.numel()) * 2 + n_pad * 4 \
+            + nq * (n_pad // 64) * 4
+        return _binned_case(
+            kb.KERNEL_BF16, case,
+            lambda: kb.binned_packed_bf16(q, c, valid, clamp=clamp),
+            lambda: kb.binned_packed_reference(q, c, valid, tpat,
+                                               clamp=clamp),
+            False, nbytes, 2 * nq * n_pad * d, BF16_OPS_PER_S,
+            library=lambda: torch.matmul(q, c.T), time_plain=time_plain)
+
+    n_pad = 1 << 20
+    cases = {}
+    q, c = unit(256, 128), unit(n_pad, 128)
+    cases["bf16_q256"] = bf16_case("Q=256 N=1048576 D=128 cosine", q, c,
+                                   n_pad - 1000, False, time_plain=True)
+    cases["bf16_q1"] = bf16_case("Q=1 N=1048576 D=128 cosine",
+                                 q[:1].contiguous(), c, n_pad - 1000, False)
+    c = (c.float() * 8).to(torch.bfloat16)
+    cases["bf16_q256_clamped"] = bf16_case(
+        "Q=256 N=1048576 D=128 clamped", q, c, n_pad - 1000, True)
     del q, c
+    # the hybrid index's knn leg (131,071 docs) and the dot index (16,384)
+    cases["bf16_leg"] = bf16_case("Q=1 N=131072 D=768 cosine", unit(1, 768),
+                                  unit(1 << 17, 768), (1 << 17) - 1, False)
+    cases["bf16_dot"] = bf16_case("Q=16 N=16384 D=128 clamped",
+                                  unit(16, 128), unit(1 << 14, 128, 8.0),
+                                  1 << 14, True)
+    torch.cuda.empty_cache()
 
-    # int8 at the Cohere width
+    # int8 at the Cohere width; the scales put the dequantized scores
+    # around [-3, 3], so the clip at both ends and the padding's zero
+    # weight are all exercised
     d = 768
-    q8 = torch.randint(-127, 128, (nq, d), generator=g, device=dev,
+    valid, tpat = kb._tile_patterns(n_pad, n_pad - 1000, dev)
+    q8 = torch.randint(-127, 128, (256, d), generator=g, device=dev,
                        dtype=torch.int32).to(torch.int8)
     c8 = torch.randint(-127, 128, (n_pad, d), generator=g, device=dev,
                        dtype=torch.int32).to(torch.int8)
-    qscale = (torch.rand(nq, 1, generator=g, device=dev) + 0.5) / 127.0 / 3.0
-    # scales put the dequantized scores around [-3, 3], so the clip at
-    # both ends and the padding's zero weight are all exercised
+    qscale = (torch.rand(256, 1, generator=g, device=dev) + 0.5) / 127.0 / 3.0
     rsv = ((torch.rand(1, n_pad, generator=g, device=dev) + 0.5)
            / 127.0 / 3.0) * valid
-    got = kb.binned_packed_int8(q8, c8, qscale, rsv)
-    want = kb.binned_packed_reference(q8, c8, rsv, tpat, qscale=qscale)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        bad = int((got != want).sum())
-        raise AssertionError(f"int8 kernel differs from its plain version "
-                             f"in {bad} packed values")
-    err = float((decoded(got) - decoded(want)).abs().max())
-    k_ms = time_ms(lambda: kb.binned_packed_int8(q8, c8, qscale, rsv))
-    q1_ms = time_ms(lambda: kb.binned_packed_int8(
-        q8[:1].contiguous(), c8, qscale[:1].contiguous(), rsv))
-    plain_ms = time_ms(lambda: kb.binned_packed_reference(
-        q8, c8, rsv, tpat, qscale=qscale), iters=5, warmup=1)
-    lib_ms = time_ms(lambda: torch._int_mm(q8, c8.T))
-    nbytes = (q8.numel() + c8.numel() + nq * 4 + n_pad * 4
-              + nq * (n_pad // 64) * 4)
-    b_ms, b_by = bound_ms(nbytes, 2 * nq * n_pad * d, INT8_OPS_PER_S)
-    out[kb.KERNEL_INT8] = {
-        "name": kb.KERNEL_INT8, "route": "cuda",
-        "source": "elasticsearch_tpu_torch/csrc/knn_binned.cu",
-        "replaces": "elasticsearch_tpu/ops/pallas_knn_binned.py:93",
-        "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-    log("kernels", kernel=kb.KERNEL_INT8, Q=nq, N=n_pad, D=d,
-        bit_identical=True, ms=f"{k_ms:.4f}", q1_ms=f"{q1_ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}",
-        bound_ms=f"{b_ms:.4f}", bound_by=b_by,
-        int_mm_ms=f"{lib_ms:.4f}")
+    for key, nq in (("int8_q256", 256), ("int8_q1", 1)):
+        qn, qs = q8[:nq].contiguous(), qscale[:nq].contiguous()
+        nbytes = qn.numel() + c8.numel() + nq * 4 + n_pad * 4 \
+            + nq * (n_pad // 64) * 4
+        # torch._int_mm takes more than 16 rows: no library call at Q=1
+        cases[key] = _binned_case(
+            kb.KERNEL_INT8, f"Q={nq} N=1048576 D=768",
+            lambda: kb.binned_packed_int8(qn, c8, qs, rsv),
+            lambda: kb.binned_packed_reference(qn, c8, rsv, tpat, qscale=qs),
+            True, nbytes, 2 * nq * n_pad * d, INT8_OPS_PER_S,
+            library=(lambda: torch._int_mm(qn, c8.T)) if nq > 16 else None,
+            time_plain=nq == 256)
+    del q8, c8
+    torch.cuda.empty_cache()
+
+    out = {}
+    for name, main, replaces in (
+            (kb.KERNEL_BF16, "bf16_q256", "pallas_knn_binned.py:76"),
+            (kb.KERNEL_INT8, "int8_q256", "pallas_knn_binned.py:93")):
+        c = cases[main]
+        out[name] = {
+            "name": name, "route": "cuda",
+            "source": "elasticsearch_tpu_torch/csrc/knn_binned.cu",
+            "replaces": f"elasticsearch_tpu/ops/{replaces}",
+            "max_abs_err": max(f["max_abs_err"] for k, f in cases.items()
+                               if k.startswith(main[:4])),
+            "ms": c["ms"], "burst_ms": c["burst_ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
     return out
 
 
@@ -619,9 +665,11 @@ def serve_index(client, node, name, mapping, vectors, queries, metric,
     warm-up search, then answer every query over HTTP, then once more
     straight through the store (no HTTP, no JSON) after the launch counts
     were read. `kernel` is the one kernel each request must launch once,
-    or None for a route that launches none. Returns (recall@k, HTTP p50
-    ms, store p50 ms, ingest s, launches, hits of the HTTP requests)."""
+    or None for a route that launches none; a binned kernel's launches
+    must all take its tma variant. Returns (recall@k, HTTP p50 ms, store
+    p50 ms, ingest s, launches, hits of the HTTP requests)."""
     from elasticsearch_tpu_torch.ops import dispatch
+    from elasticsearch_tpu_torch.ops import knn_binned as kb
     client.ok("PUT", f"/{name}", {
         "settings": dict(settings or {}, number_of_shards=1),
         "mappings": mapping})
@@ -672,6 +720,7 @@ def serve_index(client, node, name, mapping, vectors, queries, metric,
                 or len(got[-1]) != k:
             raise AssertionError(f"bad hits: {resp['hits']}")
     launches = dispatch.launches()
+    variants = dispatch.variant_launches()
     stats = {key: v - stats0[key] for key, v in store.knn_stats.items()}
     store_lat = []
     for qv in queries:
@@ -682,6 +731,11 @@ def serve_index(client, node, name, mapping, vectors, queries, metric,
     if {n: c for n, c in launches.items() if c} != want:
         raise AssertionError(f"launches {launches} for {len(queries)} "
                              f"requests; expected {want}")
+    # every binned launch of a served request takes the tma variant
+    want = {f"{kernel}/{kb.VARIANT_TMA}": len(queries)} \
+        if kernel in (kb.KERNEL_BF16, kb.KERNEL_INT8) else {}
+    if {n: c for n, c in variants.items() if c} != want:
+        raise AssertionError(f"variant launches {variants}; expected {want}")
     truth = exact_top(vectors, queries, k, metric)
     recall = float(np.mean([len(set(g) & set(t.tolist())) / k
                             for g, t in zip(got, truth)]))
@@ -1070,12 +1124,17 @@ def serve_colbert_index(client, node, name, encoding, oversample, data,
         lat.append((time.perf_counter() - t) * 1e3)
         responses.append(resp["hits"])
     launches = dispatch.launches()
+    variants = dispatch.variant_launches()
     kernel = maxsim.KERNEL_INT4 if encoding == "int4" else \
         maxsim.KERNEL_DENSE
     want = {kernel: len(q_emb), kb.KERNEL_BF16: len(q_emb)}
     if {k: c for k, c in launches.items() if c} != want:
         raise AssertionError(f"{name}: launches {launches} for "
                              f"{len(q_emb)} requests; expected {want}")
+    want = {f"{kb.KERNEL_BF16}/{kb.VARIANT_TMA}": len(q_emb)}
+    if {k: c for k, c in variants.items() if c} != want:
+        raise AssertionError(f"{name}: variant launches {variants}; "
+                             f"expected {want}")
     late = {k: v - late0[k] for k, v in ex.late.stats.items()}
     # the executor's stages (plan + bind, both legs, RRF, fetch) per request
     stages = {k: (ex.stats[k] - ex0[k]) / len(q_emb) / 1e6
@@ -1196,6 +1255,10 @@ def main(argv=None) -> int:
     ap.add_argument("--n-gist", type=int, default=1_000_000)
     ap.add_argument("--n-cohere-ivf", type=int, default=1_000_000)
     ap.add_argument("--n-colbert", type=int, default=131_071)
+    ap.add_argument("--binned-only", action="store_true",
+                    help="build and measure only the binned kernels (no "
+                         "serving phases, no final ok line): the numbers "
+                         "of PERF.md's parent-vs-change comparisons")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1203,8 +1266,14 @@ def main(argv=None) -> int:
     import elasticsearch_tpu_torch  # noqa: F401  (fails outside the repo)
 
     smi = phase_env()
+    if args.binned_only:
+        phase_build(["knn_binned"])
+        kernels = phase_binned_kernels(args.seed, torch.device("cuda"))
+        print(json.dumps({"kernels": list(kernels.values())}))
+        print(smi)
+        return 0
     phase_build()
-    kernels = phase_kernels(args.seed, torch.device("cuda"))
+    kernels = phase_binned_kernels(args.seed, torch.device("cuda"))
     kernels.update(phase_ivf_kernels(args.seed, torch.device("cuda")))
     kernels.update(phase_maxsim_kernels(args.seed, torch.device("cuda")))
     launches = phase_serve(args.seed, args.n_sift, args.n_cohere)

@@ -7,7 +7,8 @@ later PR that captures CUDA graphs per bucket finds a closed shape grid.
 
 `LAUNCHES` counts launches of each hand-written kernel; a wrapper adds one
 where it launches its kernel and nowhere else, so a run shows which route
-it took.
+it took. A kernel with more than one variant also counts each launch under
+`"<kernel>/<variant>"` in `VARIANT_LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -67,12 +68,16 @@ def in_k_grid(k: int, limit: Optional[int] = None) -> bool:
 
 
 LAUNCHES: Dict[str, int] = {}
+VARIANT_LAUNCHES: Dict[str, int] = {}
 _LAUNCH_LOCK = threading.Lock()
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, variant: Optional[str] = None) -> None:
     with _LAUNCH_LOCK:
         LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+        if variant is not None:
+            key = f"{name}/{variant}"
+            VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
 
 
 def launches() -> Dict[str, int]:
@@ -80,6 +85,12 @@ def launches() -> Dict[str, int]:
         return dict(LAUNCHES)
 
 
+def variant_launches() -> Dict[str, int]:
+    with _LAUNCH_LOCK:
+        return dict(VARIANT_LAUNCHES)
+
+
 def reset_launches() -> None:
     with _LAUNCH_LOCK:
         LAUNCHES.clear()
+        VARIANT_LAUNCHES.clear()

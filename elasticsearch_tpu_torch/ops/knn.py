@@ -13,7 +13,7 @@ searches over tile-padded corpora to the hand-written binned kernel
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -42,6 +42,9 @@ class Corpus:
     residual / residual_scales: optional second int8 level
       (row ≈ matrix*scales + residual*residual_scales); only the rescore
       of `binned_knn_search_rescored_packed` reads it.
+    row_weight: the binned kernel's per-row weight [1, N_pad] f32,
+      computed from the fields above at this corpus's first binned search
+      (`knn_binned.corpus_row_weight`) and kept; a corpus is never edited in place.
     """
 
     matrix: torch.Tensor
@@ -50,6 +53,8 @@ class Corpus:
     num_valid: int
     residual: Optional[torch.Tensor] = None
     residual_scales: Optional[torch.Tensor] = None
+    row_weight: Optional[torch.Tensor] = field(default=None, init=False,
+                                               repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:

@@ -16,12 +16,16 @@ Kernels (`csrc/knn_binned.cu`): `knn_binned_bf16` (bf16 operands, f32
 accumulate; scores clamped to ±3 unless cosine) and `knn_binned_int8`
 (s8×s8→s32 with the per-query and per-row dequant scales). Each wrapper
 launches its kernel for a CUDA tensor, or raises; it runs the plain PyTorch
-version (`binned_packed_reference`) only for tensors on the CPU.
+version (`binned_packed_reference`) only for tensors on the CPU. Both come
+in two variants, picked by `launch_plan` from the shape: `tma` (TMA ring +
+wgmma, rows whose byte width is a multiple of 16) and `wmma` (the rest).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -44,6 +48,69 @@ CLAMP = 3.0
 KERNEL_BF16 = "knn_binned_bf16"
 KERNEL_INT8 = "knn_binned_int8"
 _TILES_PER_STEP = 16   # plain version: tiles scored per matmul
+
+# launch plan (mirrors the constants of csrc/knn_binned.cu)
+VARIANT_TMA = "tma"
+VARIANT_WMMA = "wmma"
+CHUNKS = BLOCK_N // BINS_PER_TILE      # 64 chunks of 128 rows a tile
+TMA_QN = (8, 16, 32, 64, 128)          # query-group widths (wgmma N)
+WMMA_QB = 64                           # query rows a wmma block
+STAGES = 4                             # corpus slabs in flight
+SLAB_BYTES = 128
+MAX_SMEM = 232448                      # 227 KB a block
+# ~2 blocks per SM of the H100's 132: 256 blocks is 1.94 a SM
+MIN_BLOCKS = 256
+
+
+class LaunchPlan(NamedTuple):
+    """How one binned launch is cut: `variant`, query rows a block (`qn`),
+    query groups, chunk ranges a tile (`split`, a divisor of 64), whether
+    the query group is staged once in shared memory, and the grid
+    (groups, tiles, split)."""
+    variant: str
+    qn: int
+    groups: int
+    split: int
+    staged: bool
+    grid: Tuple[int, int, int]
+
+
+def _tma_smem_bytes(qn: int, ks: int, staged: bool) -> int:
+    """Shared memory of one tma block (csrc `tma_smem_bytes`): alignment
+    slack, the corpus ring, the query slabs (all of them, or one a stage),
+    the per-row weights a stage, the query scales and the barriers."""
+    return (1024 + STAGES * BINS_PER_TILE * SLAB_BYTES
+            + (ks if staged else STAGES) * qn * SLAB_BYTES
+            + STAGES * BINS_PER_TILE * 4 + qn * 4 + (2 * STAGES + 1) * 8)
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(nq: int, n_pad: int, d: int, itemsize: int) -> LaunchPlan:
+    """The launch of `nq` queries against an [n_pad, d] corpus of
+    `itemsize`-byte elements. Rows whose byte width is not a multiple of 16
+    take the wmma variant (TMA needs 16-byte strides). The rest take the
+    tma one: query groups of at most 128 rows, then the smallest split of
+    each tile's 64 chunks (and, past 64, narrower query groups) that gives
+    at least MIN_BLOCKS blocks. With a split, the C entry point fills the
+    output with INT32_MIN before the blocks combine into it. Memoized: a
+    request pays the lookup, not the search."""
+    tiles = n_pad // BLOCK_N
+    if (d * itemsize) % 16:
+        groups = -(-nq // WMMA_QB)
+        return LaunchPlan(VARIANT_WMMA, WMMA_QB, groups, 1, False,
+                          (groups, tiles, 1))
+    groups = -(-nq // TMA_QN[-1])
+    qn = next(n for n in TMA_QN if n * groups >= nq)
+    split = 1
+    while groups * tiles * split < MIN_BLOCKS and split < CHUNKS:
+        split *= 2
+    while groups * tiles * split < MIN_BLOCKS and qn > TMA_QN[0]:
+        qn //= 2
+        groups = -(-nq // qn)
+    ks = -(-d * itemsize // SLAB_BYTES)
+    staged = _tma_smem_bytes(qn, ks, True) <= MAX_SMEM
+    return LaunchPlan(VARIANT_TMA, qn, groups, split, staged,
+                      (groups, tiles, split))
 
 
 # --------------------------------------------------------------- plain version
@@ -111,9 +178,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("knn_binned")
     if not getattr(lib, "_typed", False):
         p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.knn_binned_bf16.argtypes = [p, p, p, p, i, n, i, i, p]
+        plan = [i] * 5
+        lib.knn_binned_bf16.argtypes = [p, p, p, p, i, n, i, i, *plan, p]
         lib.knn_binned_bf16.restype = ctypes.c_int
-        lib.knn_binned_int8.argtypes = [p, p, p, p, p, i, n, i, p]
+        lib.knn_binned_int8.argtypes = [p, p, p, p, p, i, n, i, *plan, p]
         lib.knn_binned_int8.restype = ctypes.c_int
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
@@ -153,6 +221,21 @@ def _check_inputs(q, matrix, dtype, per_query=(), per_row=()):
             if t.numel() != n:
                 raise ValueError(f"expected {n} per-query/per-row values, "
                                  f"got {t.numel()}")
+    for t in per_row:   # bulk-copied in 512-byte runs
+        if t.data_ptr() % 16:
+            raise ValueError("per-row weights must be 16-byte aligned")
+
+
+def _launch(q: torch.Tensor, matrix: torch.Tensor):
+    """(plan, its C arguments, the output)."""
+    nq, d = q.shape
+    n_pad = matrix.shape[0]
+    plan = launch_plan(nq, n_pad, d, q.element_size())
+    out = torch.empty((nq, n_pad // BIN_SIZE), dtype=torch.int32,
+                      device=q.device)
+    args = (int(plan.variant == VARIANT_TMA), plan.qn, plan.groups,
+            plan.split, int(plan.staged))
+    return plan, args, out
 
 
 def binned_packed_bf16(q: torch.Tensor, matrix: torch.Tensor,
@@ -166,15 +249,14 @@ def binned_packed_bf16(q: torch.Tensor, matrix: torch.Tensor,
     valid = valid.to(torch.float32).contiguous()
     _check_inputs(q, matrix, torch.bfloat16, per_row=(valid,))
     nq, d = q.shape
-    n_pad = matrix.shape[0]
-    out = torch.empty((nq, n_pad // BIN_SIZE), dtype=torch.int32,
-                      device=q.device)
+    plan, args, out = _launch(q, matrix)
     lib = _lib()
     code = lib.knn_binned_bf16(
         q.data_ptr(), matrix.data_ptr(), valid.data_ptr(), out.data_ptr(),
-        nq, n_pad, d, int(clamp), torch.cuda.current_stream(q.device).cuda_stream)
+        nq, matrix.shape[0], d, int(clamp), *args,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _check(lib, code, KERNEL_BF16)
-    dispatch.count_launch(KERNEL_BF16)
+    dispatch.count_launch(KERNEL_BF16, plan.variant)
     return out
 
 
@@ -193,20 +275,31 @@ def binned_packed_int8(q8: torch.Tensor, matrix: torch.Tensor,
     _check_inputs(q8, matrix, torch.int8, per_query=(qscale,),
                   per_row=(row_scale_valid,))
     nq, d = q8.shape
-    n_pad = matrix.shape[0]
-    out = torch.empty((nq, n_pad // BIN_SIZE), dtype=torch.int32,
-                      device=q8.device)
+    plan, args, out = _launch(q8, matrix)
     lib = _lib()
     code = lib.knn_binned_int8(
         q8.data_ptr(), matrix.data_ptr(), qscale.data_ptr(),
-        row_scale_valid.data_ptr(), out.data_ptr(), nq, n_pad, d,
-        torch.cuda.current_stream(q8.device).cuda_stream)
+        row_scale_valid.data_ptr(), out.data_ptr(), nq, matrix.shape[0], d,
+        *args, torch.cuda.current_stream(q8.device).cuda_stream)
     _check(lib, code, KERNEL_INT8)
-    dispatch.count_launch(KERNEL_INT8)
+    dispatch.count_launch(KERNEL_INT8, plan.variant)
     return out
 
 
 # ------------------------------------------------------------ search entries
+
+def corpus_row_weight(corpus: Corpus) -> torch.Tensor:
+    """The kernel's per-row weight [1, N_pad] f32, made at the corpus's
+    first binned search and kept on it: validity, times the row scale for
+    int8."""
+    if corpus.row_weight is None:
+        n_pad = corpus.matrix.shape[0]
+        valid, _ = _tile_patterns(n_pad, corpus.num_valid, corpus.device)
+        if corpus.matrix.dtype == torch.int8:
+            valid = corpus.scales.reshape(1, n_pad) * valid
+        corpus.row_weight = valid.contiguous()
+    return corpus.row_weight
+
 
 def _binned_packed(queries: torch.Tensor, corpus: Corpus, metric: str):
     """(packed [Q, N_pad/64] int32, prepped f32 queries [Q, D])."""
@@ -214,15 +307,14 @@ def _binned_packed(queries: torch.Tensor, corpus: Corpus, metric: str):
     if n_pad % BLOCK_N != 0:
         raise ValueError(f"corpus rows {n_pad} not divisible by {BLOCK_N}")
     q = _prep_queries(queries.to(corpus.device), metric)
-    valid, _ = _tile_patterns(n_pad, corpus.num_valid, corpus.device)
     if corpus.matrix.dtype == torch.int8:
         # symmetric per-query quantization; dequant inside the kernel
         q8, qscale = quantize_queries_int8(q)
-        row_scale_valid = corpus.scales.reshape(1, n_pad) * valid
         return binned_packed_int8(q8, corpus.matrix, qscale,
-                                  row_scale_valid), q
+                                  corpus_row_weight(corpus)), q
     return binned_packed_bf16(q.to(torch.bfloat16),
-                              corpus.matrix.to(torch.bfloat16), valid,
+                              corpus.matrix.to(torch.bfloat16),
+                              corpus_row_weight(corpus),
                               clamp=metric != sim.COSINE), q
 
 

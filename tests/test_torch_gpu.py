@@ -33,13 +33,17 @@ def _decoded(p):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nq", [1, 70])
-@pytest.mark.parametrize("d", [32, 48, 100])
-def test_kernels_match_plain_version(cuda, nq, d):
-    """Ragged K edges (d = 100), query counts off the 64-row block, and a
-    padded tail of invalid rows."""
-    g = torch.Generator(device=cuda).manual_seed(d + nq)
-    n_pad = 2 * kb.BLOCK_N
+@pytest.mark.parametrize("tiles", [1, 2, 16])
+@pytest.mark.parametrize("nq", [1, 8, 9, 64, 70, 129, 256, 300])
+@pytest.mark.parametrize("d", [32, 48, 100, 128, 768, 960])
+def test_kernels_match_plain_version(cuda, tiles, nq, d):
+    """Every query count around the group widths (8, 64, 128), one to 16
+    tiles (so every chunk split from 1 to 64), served widths and ragged
+    ones (d = 100 takes the wmma variant, the rest the tma one), and a
+    padded tail of invalid rows. int8 is bit-identical to the plain
+    version, bf16 within one packing quantum."""
+    g = torch.Generator(device=cuda).manual_seed(d + nq + tiles)
+    n_pad = tiles * kb.BLOCK_N
     valid, tpat = kb._tile_patterns(n_pad, n_pad - 300, cuda)
     q = torch.randn(nq, d, generator=g, device=cuda)
     c = torch.randn(n_pad, d, generator=g, device=cuda)
@@ -49,7 +53,12 @@ def test_kernels_match_plain_version(cuda, nq, d):
     c = c / c.norm(dim=1, keepdim=True)
     for clamp, c in ((False, c.to(torch.bfloat16)),
                      (True, (c * 8).to(torch.bfloat16))):
+        variant = kb.launch_plan(nq, n_pad, d, 2).variant
+        assert variant == (kb.VARIANT_WMMA if d == 100 else kb.VARIANT_TMA)
+        key = f"{kb.KERNEL_BF16}/{variant}"
+        before = dispatch.variant_launches().get(key, 0)
         got = kb.binned_packed_bf16(q, c, valid, clamp)
+        assert dispatch.variant_launches().get(key, 0) == before + 1
         want = kb.binned_packed_reference(q, c, valid, tpat, clamp=clamp)
         err = float((_decoded(got) - _decoded(want)).abs().max())
         assert err <= QUANTUM, (clamp, err)
@@ -59,7 +68,12 @@ def test_kernels_match_plain_version(cuda, nq, d):
                        dtype=torch.int32).to(torch.int8)
     qs = torch.rand(nq, 1, generator=g, device=cuda) / 127 / 3
     rsv = torch.rand(1, n_pad, generator=g, device=cuda) / 127 / 3 * valid
+    variant = kb.launch_plan(nq, n_pad, d, 1).variant
+    assert variant == (kb.VARIANT_WMMA if d == 100 else kb.VARIANT_TMA)
+    key = f"{kb.KERNEL_INT8}/{variant}"
+    before = dispatch.variant_launches().get(key, 0)
     got = kb.binned_packed_int8(q8, c8, qs, rsv)
+    assert dispatch.variant_launches().get(key, 0) == before + 1
     want = kb.binned_packed_reference(q8, c8, rsv, tpat, qscale=qs)
     assert torch.equal(got, want), int((got != want).sum())
 
