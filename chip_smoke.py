@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed 1234] [--n-sift 1000000] [--n-cohere 1000000]
                           [--n-gist 1000000] [--n-cohere-ivf 1000000]
-                          [--n-colbert 131071] [--binned-only]
+                          [--n-colbert 131071] [--binned-only | --ivf-only]
 
 Phases, one line each; any failure raises and the exit code is not 0:
 
@@ -18,11 +18,15 @@ Phases, one line each; any failure raises and the exit code is not 0:
                of 50 (CUDA events) beside its bound and one PyTorch call of
                the same product; then each fused IVF probe kernel against
                its plain version (nlist 1024, cap 1472, nprobe 32, Q=256 and
-               Q=1; bf16 D=960, int8 D=768, int4 D=768, and D=100 rows on the
-               scalar path), timed beside the bound of its distinct tiles
-               and beside the port's scan route; then both MaxSim kernels
-               against their plain versions at the ColBERTv2 shape, timed
-               beside the staged gather form
+               Q=1; bf16 D=960, int8 D=768, int4 D=768, at Q=256 also with
+               skewed and with out-of-range probe ids; D=100 rows and f32
+               tiles on the simt variant, D=48 on the grouped one), the
+               grouped variant's probe plan against its plain version, each
+               timed per launch and in a burst beside the bound of its
+               distinct tiles, the port's scan route and (dense tiles) one
+               bf16 `torch.matmul` over every tile row; then both MaxSim
+               kernels against their plain versions at the ColBERTv2
+               shape, timed likewise beside the staged gather form
   serve_sift   the port's REST server in-process: a cosine dims=128 index,
                2,000 docs over `_bulk`, then the shard loaded to 1,000,000
                SIFT-shaped docs through `Engine.index_many`, refresh, and 64
@@ -55,7 +59,13 @@ Phases, one line each; any failure raises and the exit code is not 0:
                legs
 Each IVF index answers one warm-up search first (the `nprobe: auto` tuner
 runs there), then the timed requests; every request must take the fused
-route with no exhaustive fallback.
+route with no exhaustive fallback, every `ivf_fused_dense` launch its
+grouped variant. Then one `store.search_many` of the same queries, a batch
+of 64 through the router's real probes, must return the same hits.
+
+`--binned-only` and `--ivf-only` run env, build and one kernel phase
+(no serving, no ok line): the numbers of PERF.md's parent-vs-change
+comparisons, where a parent commit's package runs this script too.
 
 The next-to-last lines are a JSON object with every kernel's numbers and the
 card's `nvidia-smi` name and power limit; the last line is
@@ -96,15 +106,21 @@ def nvidia_smi_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+HOLD_CYCLES = 50_000_000        # ~25 ms of the card's clock
+
+
 def burst_ms(fn, n: int = 50, warmup: int = 3) -> float:
     """CUDA-event time of `n` back-to-back calls, over `n`: a short
     kernel's device time, which a per-launch event pair blurs with the
-    host's submission (the host queues ahead while the card runs)."""
+    host's submission. A sleep kernel holds the card while the host queues
+    the n calls, so the events time the card alone, not the host's pace
+    (unless the host needs more than ~25 ms for them)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(n):
         fn()
@@ -153,8 +169,13 @@ def phase_build(names=("knn_binned", "ivf_fused", "maxsim")) -> None:
     from elasticsearch_tpu_torch.ops import _build
     t0 = time.perf_counter()
     reports = _build.build(list(names))
-    usage = [ln.strip() for rep in reports.values() for ln in rep.splitlines()
-             if "registers" in ln or "spill" in ln]
+    # ptxas: each entry function's (mangled) name, registers and spills
+    usage, fn = [], ""
+    for ln in (ln for rep in reports.values() for ln in rep.splitlines()):
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif "registers" in ln or "spill" in ln:
+            usage.append(f"{fn}: {ln.split(':', 1)[-1].strip()}")
     log("build", seconds=f"{time.perf_counter() - t0:.1f}",
         ptxas=repr(" | ".join(usage)))
 
@@ -309,39 +330,129 @@ def _ivf_partitions(g, dev, dtype, nlist: int, cap: int, d: int):
         part_sq=torch.zeros(nlist, cap, device=dev), part_rows=rows)
 
 
+def _ivf_check(label, got, want) -> float:
+    """NEG_INF slots identical, the rest within 1e-5 of the largest
+    |score|; returns the max |diff|."""
+    neg = want <= -1e37
+    if not torch.equal(got <= -1e37, neg) or \
+            not bool((got[neg] == want[neg]).all()):
+        raise AssertionError(f"ivf {label}: NEG_INF slots differ from the "
+                             f"plain version")
+    if bool(neg.all()):
+        return 0.0
+    err = float((got[~neg] - want[~neg]).abs().max())
+    tol = 1e-5 * max(1.0, float(want[~neg].abs().max()))
+    if not err <= tol:
+        raise AssertionError(f"ivf {label}: max |diff| {err} exceeds {tol}")
+    return err
+
+
+def _ivf_expected(fused, q, ivf, ids):
+    """The plain version's board over the in-range probe ids, and -3e38
+    across the rows of out-of-range ones (the kernels' rule; the plain
+    version would index with them)."""
+    nlist = ivf.parts.shape[0]
+    bad = (ids < 0) | (ids >= nlist)
+    want = fused.probe_board_reference(q, ivf, ids.clamp(0, nlist - 1))
+    return torch.where(bad[:, :, None], torch.full_like(want, -3.0e38), want)
+
+
+def _plan_check(fused, ids, nlist: int) -> int:
+    """The plan kernel against `probe_plan_reference`: the same items, and
+    within each partition the same entries (as a set: the kernel scatters
+    with atomics). Returns the number of items."""
+    entries, items = fused.probe_plan(ids, nlist)
+    want_e, want_i, _ = fused.probe_plan_reference(ids.cpu(), nlist)
+    flat = ids.reshape(-1).long().cpu()
+    n = flat.numel()
+
+    def by_partition(e):
+        e = e.long().cpu()
+        return torch.sort(flat[e] * n + e).values
+
+    if not torch.equal(items.cpu(), want_i) or \
+            not torch.equal(by_partition(entries), by_partition(want_e)):
+        raise AssertionError(f"probe plan of {tuple(ids.shape)} ids over "
+                             f"{nlist} partitions differs from its plain "
+                             f"version")
+    return len(want_i)
+
+
+def _plan_burst_ms(fused, ids, nlist: int) -> float:
+    """Burst time of the grouped variant's plan kernel alone (one block)."""
+    n = ids.numel()
+    bound = fused.item_bound(1, n, nlist)
+    scratch = fused._plan_scratch(n, bound, ids.device)
+    lib = fused._lib()
+    stream = torch.cuda.current_stream(ids.device).cuda_stream
+    return burst_ms(lambda: lib.ivf_probe_plan(
+        ids.data_ptr(), scratch.data_ptr(), None, n, nlist, 1, bound, stream))
+
+
+def _skewed_ids(g, dev, nq, nprobe, nlist, hot=(5, 17, 200)):
+    """Every query probes the same few partitions, then random ones: each
+    hot partition has nq entries (more than one item past N_MAX)."""
+    ids = torch.randint(0, nlist, (nq, nprobe), generator=g, device=dev,
+                        dtype=torch.int32)
+    ids[:, :len(hot)] = torch.tensor(hot, dtype=torch.int32, device=dev)
+    return ids
+
+
+def _bad_ids(g, dev, nq, nprobe, nlist):
+    """Random ids with out-of-range ones (-1, nlist, 2^30) mixed in."""
+    ids = torch.randint(0, nlist, (nq, nprobe), generator=g, device=dev,
+                        dtype=torch.int32)
+    bad = torch.tensor([-1, nlist, 1 << 30], dtype=torch.int32, device=dev)
+    pick = torch.rand(nq, nprobe, generator=g, device=dev) < 0.1
+    return torch.where(pick, bad[torch.randint(0, 3, (nq, nprobe),
+                                                generator=g, device=dev)],
+                       ids)
+
+
 def _ivf_case(g, dev, dtype, d, nlist=1024, cap=1472, nprobe=32,
               queries=(256, 1), timed=True):
     """One tile type at one width: the kernel against its plain version at
     each query count (NEG_INF slots identical, the rest within 1e-5 of the
-    largest |score|), then, when `timed`, CUDA-event times beside the
-    plain version, the scan route and the bound of the distinct tiles."""
+    largest |score|), then, at the first query count, skewed probes (a few
+    partitions probed by every query) and out-of-range probe ids, untimed;
+    then, when `timed`, CUDA-event times per launch and in a burst beside
+    the plain version, the scan route, one bf16 `torch.matmul` of the
+    queries against every tile row (dense tiles) and the bound of the
+    distinct tiles. Where the package has the grouped variant's probe
+    plan, the plan kernel is held against its plain version too."""
     from elasticsearch_tpu_torch.ops import ivf_fused as fused
     from elasticsearch_tpu_torch.ops import knn_ivf
     ivf = _ivf_partitions(g, dev, dtype, nlist, cap, d)
     out = {"max_abs_err": 0.0}
+    has_plan = hasattr(fused, "probe_plan")    # absent in the first port
     for nq in queries:
         q = torch.randn(nq, d, generator=g, device=dev)
         q = q / q.norm(dim=1, keepdim=True)
         ids = torch.randint(0, nlist, (nq, nprobe), generator=g, device=dev,
                             dtype=torch.int32)
-        got = fused.probe_board(q, ivf, ids)
-        want = fused.probe_board_reference(q, ivf, ids)
-        torch.cuda.synchronize()
-        neg = want <= -1e37
-        if not torch.equal(got <= -1e37, neg) or \
-                not bool((got[neg] == want[neg]).all()):
-            raise AssertionError(f"ivf {dtype} D={d} Q={nq}: NEG_INF slots "
-                                 f"differ from the plain version")
-        err = float((got[~neg] - want[~neg]).abs().max())
-        tol = 1e-5 * max(1.0, float(want[~neg].abs().max()))
-        if not err <= tol:
-            raise AssertionError(f"ivf {dtype} D={d} Q={nq}: max |diff| "
-                                 f"{err} exceeds {tol}")
-        out["max_abs_err"] = max(out["max_abs_err"], err)
-        del got, want, neg
+        cases = [(f"{dtype} D={d} Q={nq}", ids)]
+        if nq == queries[0]:
+            cases += [(f"{dtype} D={d} Q={nq} skewed",
+                       _skewed_ids(g, dev, nq, nprobe, nlist)),
+                      (f"{dtype} D={d} Q={nq} out-of-range",
+                       _bad_ids(g, dev, nq, nprobe, nlist))]
+        for label, case_ids in cases:
+            got = fused.probe_board(q, ivf, case_ids)
+            want = _ivf_expected(fused, q, ivf, case_ids)
+            torch.cuda.synchronize()
+            out["max_abs_err"] = max(out["max_abs_err"],
+                                     _ivf_check(label, got, want))
+            del got, want
+            if has_plan and dtype != torch.uint8 and nq > 1:
+                out[f"items_{label.split()[-1]}"] = _plan_check(
+                    fused, case_ids, nlist)
         if not timed:
             continue
-        out[f"q{nq}_ms"] = time_ms(lambda: fused.probe_board(q, ivf, ids))
+        if has_plan and dtype != torch.uint8 and nq > 1:
+            out["plan_burst_ms"] = _plan_burst_ms(fused, ids, nlist)
+        run = lambda: fused.probe_board(q, ivf, ids)  # noqa: E731
+        out[f"q{nq}_ms"] = time_ms(run)
+        out[f"q{nq}_burst_ms"] = burst_ms(run)
         if nq == queries[0]:
             out["plain_ms"] = time_ms(
                 lambda: fused.probe_board_reference(q, ivf, ids),
@@ -349,6 +460,17 @@ def _ivf_case(g, dev, dtype, d, nlist=1024, cap=1472, nprobe=32,
             out["scan_ms"] = time_ms(
                 lambda: knn_ivf.score_probes(q, ivf, ids, 10), iters=3,
                 warmup=1)
+            if dtype != torch.uint8:
+                # one PyTorch call over every tile row, the same products
+                # (int8 tiles: on a bf16 copy widened outside the timing)
+                flat = ivf.parts.view(-1, d)
+                flat = flat if dtype == torch.bfloat16 else \
+                    flat.to(torch.bfloat16)
+                qb = q.to(torch.bfloat16)
+                out["library_ms"] = time_ms(lambda: torch.matmul(qb, flat.T))
+                out["library_burst_ms"] = burst_ms(
+                    lambda: torch.matmul(qb, flat.T), n=10)
+                del flat
             tiles = int(torch.unique(ids).numel())
             tile_bytes = cap * ivf.parts.shape[2] * ivf.parts.element_size()
             nbytes = (tiles * (tile_bytes + cap * 4) + q.numel() * 4
@@ -361,36 +483,72 @@ def _ivf_case(g, dev, dtype, d, nlist=1024, cap=1472, nprobe=32,
     return out
 
 
+def _expect_variant(fused, label, dtype, d) -> None:
+    """Every dense launch since the last reset took the variant its plan
+    names: grouped for bf16 and int8 rows of a multiple of 16 bytes, simt
+    for the rest (packages with one variant count none)."""
+    from elasticsearch_tpu_torch.ops import dispatch
+    if dtype == torch.uint8 or not hasattr(fused, "VARIANT_GROUPED"):
+        return
+    grouped = dtype in (torch.bfloat16, torch.int8) \
+        and (d * dtype.itemsize) % 16 == 0
+    want = fused.VARIANT_GROUPED if grouped else fused.VARIANT_SIMT
+    got = {k: c for k, c in dispatch.variant_launches().items() if c}
+    if set(got) != {f"{fused.KERNEL_DENSE}/{want}"}:
+        raise AssertionError(f"ivf {label}: variant launches {got}, "
+                             f"expected only {want}")
+
+
 def phase_ivf_kernels(seed: int, dev) -> dict:
     """Both fused IVF probe kernels against their plain versions at the
-    main path's layout (1M rows at slack 1.5: nlist 1024, cap 1472)."""
+    main path's layout (1M rows at slack 1.5: nlist 1024, cap 1472), and
+    the launches of each `ivf_fused_dense` variant."""
+    from elasticsearch_tpu_torch.ops import dispatch
     from elasticsearch_tpu_torch.ops import ivf_fused as fused
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     cases = {}
     for label, dtype, d in (("bf16_960", torch.bfloat16, 960),
                             ("int8_768", torch.int8, 768),
                             ("int4_768", torch.uint8, 768)):
+        dispatch.reset_launches()
         cases[label] = _ivf_case(g, dev, dtype, d)
         log("kernels", kernel=(fused.KERNEL_INT4 if dtype == torch.uint8
                                else fused.KERNEL_DENSE), case=label,
             nlist=1024, cap=1472, nprobe=32,
             **{k: (f"{v:.6g}" if isinstance(v, float) else v)
                for k, v in cases[label].items()},
-            library="scan route (knn_ivf.score_probes: per-slot gather + "
-                    "einsum + top-k merge; no single PyTorch call fuses "
-                    "gather and score)")
-    # rows whose bytes are not a multiple of 16 take the scalar path
-    for label, dtype in (("f32_100", torch.float32),
-                         ("bf16_100", torch.bfloat16),
-                         ("int8_100", torch.int8),
-                         ("int4_100", torch.uint8)):
-        cases[label] = _ivf_case(g, dev, dtype, 100, nlist=64, cap=200,
+            variants=json.dumps(dispatch.variant_launches()),
+            scan="the port's scan route (knn_ivf.score_probes: per-slot "
+                 "gather + einsum + top-k merge)",
+            library=("none (no PyTorch call gathers and scores nibbles)"
+                     if dtype == torch.uint8 else
+                     "torch.matmul of the bf16 queries against every tile "
+                     "row" + ("" if dtype == torch.bfloat16 else
+                              " (a bf16 copy of the int8 tiles, widened "
+                              "outside the timing)")))
+        _expect_variant(fused, label, dtype, d)
+    # rows whose bytes are not a multiple of 16 take the simt variant's
+    # scalar path, f32 tiles the simt variant; d = 48 at cap 200 exercises
+    # a partial 128-byte step and a ragged last chunk on the grouped one
+    for label, dtype, d in (("f32_100", torch.float32, 100),
+                            ("bf16_100", torch.bfloat16, 100),
+                            ("int8_100", torch.int8, 100),
+                            ("int4_100", torch.uint8, 100),
+                            ("f32_64", torch.float32, 64),
+                            ("bf16_48", torch.bfloat16, 48),
+                            ("int8_48", torch.int8, 48)):
+        dispatch.reset_launches()
+        cases[label] = _ivf_case(g, dev, dtype, d, nlist=64, cap=200,
                                  nprobe=8, queries=(37, 1), timed=False)
-        log("kernels", case=label, max_abs_err=cases[label]["max_abs_err"])
+        log("kernels", case=label, max_abs_err=cases[label]["max_abs_err"],
+            variants=json.dumps(dispatch.variant_launches()))
+        _expect_variant(fused, label, dtype, d)
     out = {}
     for name, main, extra in (
             (fused.KERNEL_DENSE, "bf16_960", ("int8_768", "f32_100",
-                                              "bf16_100", "int8_100")),
+                                              "bf16_100", "int8_100",
+                                              "f32_64", "bf16_48",
+                                              "int8_48")),
             (fused.KERNEL_INT4, "int4_768", ("int4_100",))):
         c = cases[main]
         out[name] = {
@@ -401,9 +559,10 @@ def phase_ivf_kernels(seed: int, dev) -> dict:
                          "elasticsearch_tpu/ops/pallas_ivf_fused.py:98"),
             "max_abs_err": max(cases[x]["max_abs_err"]
                                for x in (main, *extra)),
-            "ms": c["q256_ms"], "plain_ms": c["plain_ms"],
-            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-            "library_ms": c["scan_ms"]}
+            "ms": c["q256_ms"], "burst_ms": c["q256_burst_ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c.get("library_ms"),
+            "scan_ms": c["scan_ms"]}
     return out
 
 
@@ -492,8 +651,9 @@ def _maxsim_case(g, dev, dtype, counts, n_pad, cap, tq, queries, w=64,
         del got, want
         if not timed:
             continue
-        out[f"q{nq}_ms"] = time_ms(
-            lambda: maxsim.maxsim_rescore(ids, q, toks, scales))
+        run = lambda: maxsim.maxsim_rescore(ids, q, toks, scales)  # noqa: E731
+        out[f"q{nq}_ms"] = time_ms(run)
+        out[f"q{nq}_burst_ms"] = burst_ms(run)
         if nq != queries[0]:
             continue
         out["plain_ms"] = time_ms(
@@ -559,7 +719,8 @@ def phase_maxsim_kernels(seed: int, dev) -> dict:
                          if name == maxsim.KERNEL_DENSE else
                          "elasticsearch_tpu/ops/pallas_maxsim.py:83"),
             "max_abs_err": max(errs), "ms": c["q256_ms"],
-            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "burst_ms": c["q256_burst_ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["staged_ms"]}
     return out
 
@@ -731,16 +892,24 @@ def serve_index(client, node, name, mapping, vectors, queries, metric,
     if {n: c for n, c in launches.items() if c} != want:
         raise AssertionError(f"launches {launches} for {len(queries)} "
                              f"requests; expected {want}")
-    # every binned launch of a served request takes the tma variant
-    want = {f"{kernel}/{kb.VARIANT_TMA}": len(queries)} \
-        if kernel in (kb.KERNEL_BF16, kb.KERNEL_INT8) else {}
-    if {n: c for n, c in variants.items() if c} != want:
-        raise AssertionError(f"variant launches {variants}; expected {want}")
+    _expect_served_variant(kernel, variants, len(queries))
     truth = exact_top(vectors, queries, k, metric)
     recall = float(np.mean([len(set(g) & set(t.tolist())) / k
                             for g, t in zip(got, truth)]))
     return (recall, statistics.median(lat), statistics.median(store_lat),
-            ingest_s, launches, {"hits": got, "stats": stats})
+            ingest_s, launches, {"hits": got, "stats": stats, "truth": truth})
+
+
+def _expect_served_variant(kernel, variants, n: int) -> None:
+    """Every binned launch of served requests takes the tma variant, every
+    fused dense IVF launch the grouped one."""
+    from elasticsearch_tpu_torch.ops import ivf_fused as fused
+    from elasticsearch_tpu_torch.ops import knn_binned as kb
+    variant = {kb.KERNEL_BF16: kb.VARIANT_TMA, kb.KERNEL_INT8: kb.VARIANT_TMA,
+               fused.KERNEL_DENSE: fused.VARIANT_GROUPED}.get(kernel)
+    want = {f"{kernel}/{variant}": n} if variant else {}
+    if {name: c for name, c in variants.items() if c} != want:
+        raise AssertionError(f"variant launches {variants}; expected {want}")
 
 
 def phase_serve(seed: int, n_sift: int, n_cohere: int,
@@ -835,8 +1004,11 @@ def serve_ivf(client, node, timer, name, field, vectors, queries, metric,
     """One IVF index through `serve_index` (500 docs over `_bulk` first, so
     the small shard stays exhaustive and the full refresh trains once),
     then the IVF checks: every timed request took the IVF route (the fused
-    route when `kernel` is set) with no fallback. Returns (recall, the
-    store's field, the HTTP hits, the fields to log)."""
+    route when `kernel` is set) with no fallback, and one
+    `store.search_many` of the same queries launches `kernel` once and
+    gives the same hits. Returns (recall, the store's field, the HTTP hits,
+    the fields to log)."""
+    from elasticsearch_tpu_torch.ops import dispatch
     timer.reset()
     on_card = node.device.type == "cuda"
     if on_card:
@@ -847,7 +1019,28 @@ def serve_ivf(client, node, timer, name, field, vectors, queries, metric,
         client, node, name, mapping, vectors, queries, metric, kernel,
         first=500, settings=settings, warmup=True)
     stats, n = extra["stats"], len(queries)
-    fc = node.index(name).store.field("vec")
+    store = node.index(name).store
+    fc = store.field("vec")
+    # the same queries as one batch through the store: the router's real
+    # (clustered) probes at Q > 1, the same hits as the requests one by one
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    batch = store.search_many("vec", list(queries), 10)   # lands on the host
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    batch_hits = [[int(r) for r in rows] for rows, _ in batch]
+    batch_recall = float(np.mean([len(set(b) & set(t.tolist())) / 10
+                                  for b, t in zip(batch_hits,
+                                                  extra["truth"])]))
+    if [set(b) for b in batch_hits] != [set(h) for h in extra["hits"]] \
+            or batch_recall != recall:
+        raise AssertionError(f"{name}: the batch of {n} gives other hits "
+                             f"than the requests one by one (recall "
+                             f"{batch_recall} against {recall})")
+    batch_launches = {k: c for k, c in dispatch.launches().items() if c}
+    if batch_launches != ({kernel: 1} if kernel else {}):
+        raise AssertionError(f"{name}: batch launches {batch_launches}")
+    _expect_served_variant(kernel, dispatch.variant_launches(),
+                           1 if kernel else 0)
     want = {"ivf_searches": n, "fallback_searches": 0,
             "fused_probe_searches": n if kernel else 0}
     if {key: stats[key] for key in want} != want or fc.router is None:
@@ -864,7 +1057,10 @@ def serve_ivf(client, node, timer, name, field, vectors, queries, metric,
                   ivf_place_s=f"{timer.seconds['place']:.2f}",
                   ivf_upload_s=f"{timer.seconds['upload']:.2f}",
                   p50_ms=f"{p50:.3f}", store_p50_ms=f"{store_p50:.3f}",
-                  recall_at_10=recall, launches=json.dumps(launches))
+                  recall_at_10=recall, launches=json.dumps(launches),
+                  batch_queries=n, batch_ms=f"{batch_ms:.3f}",
+                  batch_recall_at_10=batch_recall,
+                  batch_variants=json.dumps(dispatch.variant_launches()))
     # the router's phase times (after a device sync each), mean per request
     for phase in ("route", "score", "merge", "rescore"):
         fields[f"{phase}_ms"] = f"{stats[phase + '_nanos'] / n / 1e6:.4f}"
@@ -1259,6 +1455,9 @@ def main(argv=None) -> int:
                     help="build and measure only the binned kernels (no "
                          "serving phases, no final ok line): the numbers "
                          "of PERF.md's parent-vs-change comparisons")
+    ap.add_argument("--ivf-only", action="store_true",
+                    help="build and measure only the fused IVF kernels, "
+                         "likewise")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1266,12 +1465,16 @@ def main(argv=None) -> int:
     import elasticsearch_tpu_torch  # noqa: F401  (fails outside the repo)
 
     smi = phase_env()
-    if args.binned_only:
-        phase_build(["knn_binned"])
-        kernels = phase_binned_kernels(args.seed, torch.device("cuda"))
-        print(json.dumps({"kernels": list(kernels.values())}))
-        print(smi)
-        return 0
+    for only, name, phase in ((args.binned_only, "knn_binned",
+                               phase_binned_kernels),
+                              (args.ivf_only, "ivf_fused",
+                               phase_ivf_kernels)):
+        if only:
+            phase_build([name])
+            kernels = phase(args.seed, torch.device("cuda"))
+            print(json.dumps({"kernels": list(kernels.values())}))
+            print(smi)
+            return 0
     phase_build()
     kernels = phase_binned_kernels(args.seed, torch.device("cuda"))
     kernels.update(phase_ivf_kernels(args.seed, torch.device("cuda")))

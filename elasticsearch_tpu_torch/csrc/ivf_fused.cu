@@ -15,38 +15,66 @@
 // The query is rounded to bf16, and f32 tiles are rounded to bf16 inside
 // the kernel, as the TPU kernel's `astype(bfloat16)` does; int8 and int4
 // levels are exact in bf16. Each bf16 x bf16 product is exact in f32, so
-// only the order of the f32 sum differs from the plain version.
+// only the order of the f32 sum differs from the plain version. A probe id
+// outside [0, nlist) reads nothing and gets -3e38 across its board row.
 //
-// Layout. The TPU kernel prefetches the probe ids as scalars and lets the
-// BlockSpec index map pick each (query, probe) tile out of `parts`. Here a
-// block reads its own ids[q, j] and computes the tile's offset from it: no
-// [Q, nprobe, cap, D] gather ever exists in device memory, which is the
-// point of the kernel. Grid: x = a chunk of 64 rows of the tile (so enough
-// blocks are in flight at Q = 1), y = probe slot, z = query. A block stages
-// its query in shared memory; each of its 8 warps walks rows of the chunk,
-// the lanes reading 16-byte vectors (4 f32, 8 bf16, 16 int8, or 16 packed
-// bytes = 32 nibbles), up to 4 vectors in flight per lane, accumulating in
-// f32 and reducing with warp shuffles; lane 0 applies scale and mask and
-// writes one board value per row. On the vector path the staged query is
-// transposed to [element of vector][vector], so the 32 lanes of a warp,
-// which work on 32 consecutive vectors, read 32 consecutive words of
-// shared memory (no bank conflicts). A row whose bytes are not a multiple of
-// 16 takes scalar loads for the whole row (the vector path needs every row
-// to start 16-byte aligned); the wrapper passes which path applies. A probe
-// id outside [0, nlist) reads nothing and writes -3e38 for the whole chunk.
+// What bounds them on the H100: bytes. The least bytes are each distinct
+// probed tile read once, plus the board written once. At Q = 256, nprobe
+// 32 over 1024 partitions with random probes, ~1023 of the 1024 tiles are
+// probed, each by ~8 (query, probe) entries: 2.9 GB of distinct bf16 tiles
+// (0.880 ms at 3.35 TB/s), against ~23 GB if every entry reads its tile.
+// Even 8 queries a tile are only ~8 operations a byte, far below the ~295
+// where the tensor cores would set the limit.
 //
-// What bounds it on the H100. It does 2 operations per tile element it
-// reads (far below the ~295 operations per byte where the tensor cores
-// would be the limit), so it is bound by bytes. The least bytes: each
-// distinct probed tile read once, plus the board written once; at Q = 256
-// with random probes that is nearly all of `parts`. This first version
-// reads a tile once per (query, probe) that names it and relies on L2 for
-// any reuse; grouping the queries that share a partition, cp.async / TMA
-// staging and tensor cores at large Q are later work.
+// ivf_fused_dense has two variants; the caller's launch plan
+// (ops/ivf_fused.py::launch_plan) picks one and passes it in:
+//
+// grouped  bf16 and int8 tiles whose row bytes are a multiple of 16 (every
+//       served layout). The loop is inverted: each probed tile is read once
+//       for all the entries (q, j) that probe it. A probe plan groups the
+//       entries by partition, on the device and with no host sync: one
+//       block counting-sorts them (histogram, scan, scatter in shared
+//       memory) into `entries`, and cuts each partition's run into items
+//       (p, first, count <= N_MAX). The host sizes the grid by the bound
+//       min(nlist, n) + n / N_MAX on the number of items; a block past
+//       n_items exits at once. A single query (Q = 1) needs no plan: each
+//       entry is its own item (the router's probes of one query are
+//       distinct partitions), and the board kernel is the only launch.
+//       Grid: (item, row span of span_chunks chunks of 128 rows). A block
+//       stages its item's queries once in shared memory, bf16-rounded, in
+//       the order of the mma B fragments; each of its 8 warps owns 16 rows
+//       of a chunk and streams them straight into A-fragment registers,
+//       16 bytes a lane (two pieces a row a 128-byte step, one step ahead),
+//       then runs mma.sync.m16n8k16 (bf16 in, f32 accumulate) against each
+//       8-query column tile. The K order inside a step is permuted so that
+//       a lane's 16-byte piece is exactly its fragment: the same permutation
+//       on A and B leaves every dot product unchanged. bf16 rows are their
+//       own fragments; int8 rows widen to bf16 exactly with a byte permute
+//       and one f32 add a value. The epilogue scales, masks and stores
+//       each (row, entry) straight to its board slot (32-byte runs).
+//       Registers are capped at 80 so 3 blocks (24 warps) share an SM,
+//       which keeps ~100 KB of row loads in flight an SM; at Q = 1 the
+//       direct grid (nprobe x 12 spans of one chunk) then runs in one wave.
+// simt  f32 tiles and rows whose byte width is not a multiple of 16 (and
+//       layouts whose query fragments, or whose plan histogram, would not
+//       fit in shared memory):
+//       the first port, unchanged. Grid: x = a chunk of 64 rows of the
+//       tile, y = probe slot, z = query; each warp walks rows, the lanes
+//       reading 16-byte vectors (scalar loads for ragged rows) against the
+//       staged query, with a warp-shuffle reduction. It reads a tile once
+//       per (query, probe) that names it.
+//
+// ivf_fused_int4 is the first port's kernel, in the simt shape of the
+// dense one: a block reads its own ids[q, j], no [Q, nprobe, cap, D]
+// gather ever exists in device memory, and the even and odd query planes
+// are staged transposed so the 32 lanes of a warp read 32 consecutive
+// words of shared memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -285,6 +313,370 @@ cudaError_t launch_dense(const void* q, const void* ids, const void* parts,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------- grouped variant
+
+constexpr int G_THREADS = 256;        // 8 warps, 16 rows of a chunk each
+constexpr int G_ROWS = 128;           // rows a chunk
+constexpr int N_MAX = 32;             // entries (query columns) an item
+constexpr int NT_MAX = N_MAX / 8;     // 8-wide mma column tiles an item
+constexpr int STEP_BYTES = 128;       // row bytes a warp loads a step
+constexpr int PLAN_THREADS = 1024;    // the plan is one block
+constexpr int PLAN_MAX_NLIST = 32768; // its histogram lives in shared memory
+constexpr int MAX_SMEM = 232448;      // 227 KB a block
+
+// 16 bytes of a tile row: read once, so kept out of L1; L2 fetches the
+// whole 128-byte step of the row at the first of its 8 pieces
+__device__ __forceinline__ uint4 ldg_stream(const uint8_t* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::128B.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// c += A (16 x 16, row) * B (16 x 8, col): bf16 operands, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The four int8 levels of w as two bf16x2 words (levels 0,1 -> lo; 2,3 ->
+// hi), exactly: x + 128 goes into the low byte of 2^23, one f32 subtract
+// gives x, and an integer of at most 8 significant bits is its own bf16.
+__device__ __forceinline__ void widen_int8(uint32_t w, uint32_t& lo,
+                                           uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const uint32_t m = 0x4B000000u;
+  const float f0 = __uint_as_float(__byte_perm(u, m, 0x7440)) - 8388736.0f;
+  const float f1 = __uint_as_float(__byte_perm(u, m, 0x7441)) - 8388736.0f;
+  const float f2 = __uint_as_float(__byte_perm(u, m, 0x7442)) - 8388736.0f;
+  const float f3 = __uint_as_float(__byte_perm(u, m, 0x7443)) - 8388736.0f;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The probe plan, one block. Entries e = q * nprobe + j are counted by
+// partition (shared-memory histogram), scanned, cut into items of at most
+// N_MAX entries (p, first, count) in partition order, then scattered into
+// `entries` by partition (the order inside a partition is whatever the
+// atomics give: every board value is one row times one query, whatever
+// its column). Entries whose id lies outside [0, nlist) are set apart, and
+// their board rows get -3e38 here when `out` is given.
+__global__ void __launch_bounds__(PLAN_THREADS) ivf_plan_kernel(
+    const int32_t* __restrict__ probe_ids, int n, int nlist, int cap,
+    int32_t* __restrict__ entries, int4* __restrict__ items,
+    int32_t* __restrict__ n_items, float* __restrict__ out) {
+  extern __shared__ int cnt[];                   // [nlist]
+  __shared__ int sums[2][PLAN_THREADS / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int p = tid; p < nlist; p += PLAN_THREADS) cnt[p] = 0;
+  __syncthreads();
+  for (int base = warp * 32; base < n; base += PLAN_THREADS) {
+    const int e = base + lane;
+    const int p = e < n ? probe_ids[e] : 0;
+    const bool valid = p >= 0 && p < nlist;
+    if (e < n && valid) atomicAdd(&cnt[p], 1);
+    unsigned bad = __ballot_sync(0xffffffffu, e < n && !valid);
+    while (bad != 0u && out != nullptr) {
+      float* row = out + (long long)(base + __ffs(bad) - 1) * cap;
+      for (int c = lane; c < cap; c += 32) row[c] = NEG;
+      bad &= bad - 1u;
+    }
+  }
+  __syncthreads();
+  // each thread owns a run of partitions; a block scan of (entries, items)
+  const int per = (nlist + PLAN_THREADS - 1) / PLAN_THREADS;
+  const int lo = min(nlist, tid * per), hi = min(nlist, lo + per);
+  int sc = 0, si = 0;
+  for (int p = lo; p < hi; ++p) {
+    sc += cnt[p];
+    si += (cnt[p] + N_MAX - 1) / N_MAX;
+  }
+  int ic = sc, ii = si;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int a = __shfl_up_sync(0xffffffffu, ic, o);
+    const int b = __shfl_up_sync(0xffffffffu, ii, o);
+    if (lane >= o) {
+      ic += a;
+      ii += b;
+    }
+  }
+  if (lane == 31) {
+    sums[0][warp] = ic;
+    sums[1][warp] = ii;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int va = sums[0][lane], vb = sums[1][lane];
+    int a = va, b = vb;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(0xffffffffu, a, o);
+      const int y = __shfl_up_sync(0xffffffffu, b, o);
+      if (lane >= o) {
+        a += x;
+        b += y;
+      }
+    }
+    sums[0][lane] = a - va;
+    sums[1][lane] = b - vb;
+  }
+  __syncthreads();
+  int off = sums[0][warp] + ic - sc, it = sums[1][warp] + ii - si;
+  for (int p = lo; p < hi; ++p) {
+    const int c = cnt[p];
+    cnt[p] = off;                    // the scatter's cursor
+    for (int f = 0; f < c; f += N_MAX)
+      items[it++] = make_int4(p, off + f, min(N_MAX, c - f), 0);
+    off += c;
+  }
+  if (tid == PLAN_THREADS - 1) *n_items = it;
+  __syncthreads();
+  for (int e = tid; e < n; e += PLAN_THREADS) {
+    const int p = probe_ids[e];
+    if (p >= 0 && p < nlist) entries[atomicAdd(&cnt[p], 1)] = e;
+  }
+}
+
+// The grouped board kernel. Block (x, y) scores item x (in `direct` mode,
+// entry x alone) against rows [y * span_chunks * 128, ...) of its tile.
+// K order: a 128-byte step of a row holds 8E elements (E = 8 bf16 or 16
+// int8 a 16-byte piece); lane (g, t) of a warp loads piece t and piece
+// 4 + t of rows g and g + 8, and its k16 slice h of piece pp is elements
+// 4h..4h+3 of that piece: the first two take the fragment's k = 2t, 2t+1,
+// the last two k = 2t+8, 2t+9. The query fragments are staged with the
+// same map, so each lane reads its B fragment as one 8-byte word.
+template <int DT>
+__global__ void __launch_bounds__(G_THREADS, 3) ivf_grouped_kernel(
+    const float* __restrict__ q, const int32_t* __restrict__ probe_ids,
+    const uint8_t* __restrict__ parts, const float* __restrict__ scales,
+    float* __restrict__ out, const int4* __restrict__ items,
+    const int32_t* __restrict__ n_items, const int32_t* __restrict__ entries,
+    int nprobe, int nlist, int cap, int d, int direct, int span_chunks) {
+  constexpr int E = DT == DT_BF16 ? 8 : 16;   // elements a 16-byte piece
+  constexpr int KPS = E / 2;                  // k16 slices a step
+  extern __shared__ __align__(16) uint8_t smem[];
+  int* ents = reinterpret_cast<int*>(smem);                          // [N_MAX]
+  uint2* frag = reinterpret_cast<uint2*>(smem + N_MAX * sizeof(int));
+  const int x = blockIdx.x;
+  int pid, first, count;
+  if (direct) {
+    pid = probe_ids[x];
+    first = x;
+    count = 1;
+  } else {
+    if (x >= *n_items) return;
+    const int4 item = items[x];
+    pid = item.x;
+    first = item.y;
+    count = item.z;
+  }
+  const int r_begin = blockIdx.y * span_chunks * G_ROWS;
+  const int r_end = min(cap, r_begin + span_chunks * G_ROWS);
+  if (pid < 0 || pid >= nlist) {    // direct mode only: the plan sets these apart
+    float* orow = out + (long long)first * cap;
+    for (int r = r_begin + threadIdx.x; r < r_end; r += G_THREADS)
+      orow[r] = NEG;
+    return;
+  }
+  const long long row_bytes = (long long)d * (DT == DT_BF16 ? 2 : 1);
+  const int nsteps = (int)((row_bytes + STEP_BYTES - 1) / STEP_BYTES);
+  const int ks_total = nsteps * KPS;
+  const int nt_count = (count + 7) >> 3;
+  if (threadIdx.x < count)
+    ents[threadIdx.x] = direct ? first : entries[first + threadIdx.x];
+  __syncthreads();
+  // the item's queries, bf16-rounded, as B fragments [nt][k16 slice][lane]
+  // (zero past the item's count and past d)
+  const int groups = nsteps * 2 * E;            // 4-element groups a row
+  for (int i = threadIdx.x; i < nt_count * 8 * groups; i += G_THREADS) {
+    const int n = i / groups, d0 = 4 * (i - n * groups);
+    const int e = d0 % (8 * E);
+    const int pp = e / (4 * E), t = (e % (4 * E)) / E, h = (e % E) / 4;
+    const int ks = (d0 / (8 * E)) * KPS + pp * (E / 4) + h;
+    uint2 v = make_uint2(0u, 0u);
+    if (n < count && d0 < d) {
+      const float4 f = *reinterpret_cast<const float4*>(
+          q + (long long)(ents[n] / nprobe) * d + d0);
+      v = make_uint2(bf16x2(f.x, f.y), bf16x2(f.z, f.w));
+    }
+    frag[((n >> 3) * ks_total + ks) * 32 + (n & 7) * 4 + t] = v;
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint8_t* tile = parts + (long long)pid * cap * row_bytes;
+  const float* tscale = scales + (long long)pid * cap;
+  const int nchunks = (r_end - r_begin + G_ROWS - 1) / G_ROWS;
+  const int total = nchunks * nsteps;
+  // the lane's piece of row r (rows past cap read the last row: they are
+  // never stored)
+  auto piece = [&](int c, int half) {
+    const int r = min(r_begin + c * G_ROWS + warp * 16 + g + 8 * half,
+                      cap - 1);
+    return tile + (long long)r * row_bytes + 16 * t;
+  };
+  // step s of chunk c: pieces [row g p0, row g p1, row g+8 p0, row g+8 p1]
+  auto load = [&](uint4 (&buf)[4], int c, int s) {
+    const uint8_t* ra = piece(c, 0);
+    const uint8_t* rb = piece(c, 1);
+#pragma unroll
+    for (int pp = 0; pp < 2; ++pp) {
+      const long long off = (long long)s * STEP_BYTES + 64 * pp;
+      if (off + 16 * t < row_bytes) {
+        buf[pp] = ldg_stream(ra + off);
+        buf[2 + pp] = ldg_stream(rb + off);
+      } else {
+        buf[pp] = buf[2 + pp] = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  };
+
+  float acc[NT_MAX][4];
+#pragma unroll
+  for (int nt = 0; nt < NT_MAX; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.0f;
+  uint4 cur[4], nxt[4] = {};
+  float sa = 0.0f, sb = 0.0f;
+  int c = 0, s = 0;
+  load(cur, 0, 0);
+  for (int i = 0; i < total; ++i) {
+    int cn = c, sn = s + 1;
+    if (sn == nsteps) {
+      sn = 0;
+      ++cn;
+    }
+    if (i + 1 < total) load(nxt, cn, sn);
+    if (s == 0) {                     // the rows' scales, used at the epilogue
+      const int ra = r_begin + c * G_ROWS + warp * 16 + g;
+      sa = ra < cap ? __ldg(tscale + ra) : 0.0f;
+      sb = ra + 8 < cap ? __ldg(tscale + ra + 8) : 0.0f;
+    }
+#pragma unroll
+    for (int r = 0; r < KPS; ++r) {
+      const int pp = r / (E / 4), h = r % (E / 4);
+      uint32_t a0, a1, a2, a3;
+      if constexpr (DT == DT_BF16) {
+        a0 = word(cur[pp], 2 * h);
+        a2 = word(cur[pp], 2 * h + 1);
+        a1 = word(cur[2 + pp], 2 * h);
+        a3 = word(cur[2 + pp], 2 * h + 1);
+      } else {
+        widen_int8(word(cur[pp], h), a0, a2);
+        widen_int8(word(cur[2 + pp], h), a1, a3);
+      }
+      const uint2* fb = frag + (s * KPS + r) * 32 + lane;
+#pragma unroll
+      for (int nt = 0; nt < NT_MAX; ++nt) {
+        if (nt < nt_count) {
+          const uint2 b = fb[nt * ks_total * 32];
+          mma_bf16(acc[nt], a0, a1, a2, a3, b.x, b.y);
+        }
+      }
+    }
+    if (s == nsteps - 1) {            // epilogue of chunk c
+      const int ra = r_begin + c * G_ROWS + warp * 16 + g, rb = ra + 8;
+#pragma unroll
+      for (int nt = 0; nt < NT_MAX; ++nt) {
+        if (nt >= nt_count) continue;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int n = nt * 8 + 2 * t + j;
+          if (n >= count) continue;
+          float* orow = out + (long long)ents[n] * cap;
+          if (ra < r_end) orow[ra] = sa > 0.0f ? acc[nt][j] * sa : NEG;
+          if (rb < r_end) orow[rb] = sb > 0.0f ? acc[nt][2 + j] * sb : NEG;
+        }
+#pragma unroll
+        for (int i2 = 0; i2 < 4; ++i2) acc[nt][i2] = 0.0f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) cur[k] = nxt[k];
+    c = cn;
+    s = sn;
+  }
+}
+
+// shared memory of a grouped block: the item's entry ids and its query
+// fragments (one column tile in direct mode)
+size_t grouped_smem(int d, int dtype, int direct) {
+  const long long bytes = (long long)d * (dtype == DT_BF16 ? 2 : 1);
+  const long long steps = (bytes + STEP_BYTES - 1) / STEP_BYTES;
+  const long long kps = dtype == DT_BF16 ? 4 : 8;
+  return N_MAX * sizeof(int) +
+         (size_t)((direct ? 1 : NT_MAX) * steps * kps * 32 * sizeof(uint2));
+}
+
+// scratch (int32, 16-byte aligned): items [item_bound][4] | n_items [4] |
+// entries [n]
+cudaError_t launch_plan_kernel(const void* probe_ids, void* scratch,
+                               void* out, int n, int nlist, int cap,
+                               int item_bound, cudaStream_t s) {
+  int32_t* base = static_cast<int32_t*>(scratch);
+  int32_t* n_items = base + 4LL * item_bound;
+  const size_t smem = (size_t)nlist * sizeof(int);
+  cudaError_t err = prepare(ivf_plan_kernel, smem);
+  if (err != cudaSuccess) return err;
+  ivf_plan_kernel<<<1, PLAN_THREADS, smem, s>>>(
+      static_cast<const int32_t*>(probe_ids), n, nlist, cap, n_items + 4,
+      reinterpret_cast<int4*>(base), n_items, static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+bool plan_shape_ok(long long n, int nlist, int item_bound, void* scratch) {
+  return n > 0 && n <= (1LL << 30) && nlist > 0 && nlist <= PLAN_MAX_NLIST &&
+         item_bound >= std::min<long long>(nlist, n) + n / N_MAX &&
+         item_bound <= (1 << 28) && scratch != nullptr &&
+         reinterpret_cast<uintptr_t>(scratch) % 16 == 0;
+}
+
+template <int DT>
+cudaError_t launch_grouped(const void* q, const void* ids, const void* parts,
+                           const void* scales, void* out, void* scratch,
+                           int nprobe, int nlist, int cap, int d, int direct,
+                           int item_bound, int split, int span_chunks,
+                           size_t smem, long long n, cudaStream_t s) {
+  cudaError_t err;
+  const int32_t* base = static_cast<const int32_t*>(scratch);
+  if (!direct) {
+    err = launch_plan_kernel(ids, scratch, out, (int)n, nlist, cap,
+                             item_bound, s);
+    if (err != cudaSuccess) return err;
+  }
+  err = prepare(ivf_grouped_kernel<DT>, smem);
+  if (err != cudaSuccess) return err;
+  const int32_t* n_items = direct ? nullptr : base + 4LL * item_bound;
+  ivf_grouped_kernel<DT><<<dim3((unsigned)item_bound, (unsigned)split),
+                           G_THREADS, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const int32_t*>(ids),
+      static_cast<const uint8_t*>(parts), static_cast<const float*>(scales),
+      static_cast<float*>(out),
+      direct ? nullptr : reinterpret_cast<const int4*>(base), n_items,
+      direct ? nullptr : n_items + 4, nprobe, nlist, cap, d, direct,
+      span_chunks);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -293,6 +685,7 @@ const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// The simt variant of ivf_fused_dense.
 // dtype: 0 = f32, 1 = bf16, 2 = int8 tiles
 int ivf_fused_dense(const void* q, const void* probe_ids, const void* parts,
                     const void* scales, void* out, int nq, int nprobe,
@@ -313,6 +706,53 @@ int ivf_fused_dense(const void* q, const void* probe_ids, const void* parts,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The grouped variant of ivf_fused_dense (bf16 = 1 or int8 = 2 tiles whose
+// row bytes are a multiple of 16), with the caller's launch plan: `direct`
+// (each entry its own item, no plan kernel), the item bound (the grid's x)
+// and the row spans (split spans of span_chunks 128-row chunks). Rejects a
+// plan that does not cover the shape. `scratch` (int32, 16-byte aligned,
+// 4 * item_bound + 4 + nq * nprobe values) holds the probe plan; unused in
+// direct mode.
+int ivf_fused_dense_grouped(const void* q, const void* probe_ids,
+                            const void* parts, const void* scales, void* out,
+                            void* scratch, int nq, int nprobe, int nlist,
+                            int cap, int d, int dtype, int direct,
+                            int item_bound, int split, int span_chunks,
+                            void* stream) {
+  if (!shapes_ok(nq, nprobe, nlist, cap, d)) return cudaErrorInvalidValue;
+  if (dtype != DT_BF16 && dtype != DT_INT8) return cudaErrorInvalidValue;
+  if (((long long)d * (dtype == DT_BF16 ? 2 : 1)) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const long long n = (long long)nq * nprobe;
+  if (direct ? (item_bound < n || item_bound > (1 << 28))
+             : !plan_shape_ok(n, nlist, item_bound, scratch))
+    return cudaErrorInvalidValue;
+  const long long span_rows = (long long)span_chunks * G_ROWS;
+  if (split < 1 || split > 65535 || span_chunks < 1 ||
+      split * span_rows < cap || (split - 1) * span_rows >= cap)
+    return cudaErrorInvalidValue;
+  const size_t smem = grouped_smem(d, dtype, direct);
+  if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_BF16)
+    return launch_grouped<DT_BF16>(q, probe_ids, parts, scales, out, scratch,
+                                   nprobe, nlist, cap, d, direct, item_bound,
+                                   split, span_chunks, smem, n, s);
+  return launch_grouped<DT_INT8>(q, probe_ids, parts, scales, out, scratch,
+                                 nprobe, nlist, cap, d, direct, item_bound,
+                                 split, span_chunks, smem, n, s);
+}
+
+// The probe plan alone (the grouped variant's first launch), for holding
+// it against its plain version; `out` may be null (no -3e38 rows written).
+int ivf_probe_plan(const void* probe_ids, void* scratch, void* out, int n,
+                   int nlist, int cap, int item_bound, void* stream) {
+  if (!plan_shape_ok(n, nlist, item_bound, scratch) || cap < 1)
+    return cudaErrorInvalidValue;
+  return launch_plan_kernel(probe_ids, scratch, out, n, nlist, cap,
+                            item_bound, static_cast<cudaStream_t>(stream));
 }
 
 int ivf_fused_int4(const void* qe, const void* qo, const void* probe_ids,

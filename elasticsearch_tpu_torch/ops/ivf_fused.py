@@ -17,11 +17,21 @@ launches its kernel for CUDA tensors, or raises; it runs the plain PyTorch
 version (`probe_board_reference`) only for tensors on the CPU, so the CPU
 tests follow the card's route. Eligibility alone decides the route: the
 dot-like metrics at bf16 precision on any of the four tile types.
+
+`ivf_fused_dense` comes in two variants, picked by `launch_plan` from the
+shape: `grouped` (bf16 and int8 tiles whose row bytes are a multiple of
+16: each probed tile is read once for every (query, probe) entry that
+names it, grouped by a probe plan built on the card, and scored with
+tensor-core mma) and `simt` (f32 tiles and ragged rows: one block per
+(row chunk, probe, query)). `probe_plan_reference` is the plain version of
+the probe plan.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -38,6 +48,81 @@ KERNEL_INT4 = "ivf_fused_int4"
 
 # tile dtype -> the dense kernel's dtype code
 _DENSE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+# launch plan of ivf_fused_dense (mirrors the constants of csrc/ivf_fused.cu)
+VARIANT_GROUPED = "grouped"
+VARIANT_SIMT = "simt"
+N_MAX = 32                   # entries (query columns) a work item
+CHUNK_ROWS = 128             # grouped: tile rows a chunk (8 warps x 16)
+STEP_BYTES = 128             # grouped: row bytes a warp loads a step
+SIMT_ROWS = 64               # simt: tile rows a block
+PLAN_MAX_NLIST = 32768       # the plan kernel's histogram in shared memory
+MAX_SMEM = 232448            # 227 KB a block
+# blocks the grouped grid holds at least (~2.6 waves of 3 blocks on each
+# of the H100's 132 SMs), counting only the items it surely has
+MIN_BLOCKS = 1024
+
+
+class LaunchPlan(NamedTuple):
+    """How one `ivf_fused_dense` launch is cut: `variant`; for `grouped`,
+    whether each entry is its own item (`direct`: one query, no plan
+    kernel), the bound on work items (the grid's x), the row spans a tile
+    (`split`, each of `span_chunks` 128-row chunks), the grid and the board
+    kernel's shared memory (simt: the staged f32 query)."""
+    variant: str
+    direct: bool
+    item_bound: int
+    split: int
+    span_chunks: int
+    grid: Tuple[int, ...]
+    smem_bytes: int
+
+
+def _grouped_smem(d: int, itemsize: int, direct: bool) -> int:
+    """Shared memory of a grouped block (csrc `grouped_smem`): the item's
+    entry ids and its query fragments, 8 bytes a lane a k16 slice a column
+    tile (4 slices a 128-byte step for bf16, 8 for int8)."""
+    steps = -(-d * itemsize // STEP_BYTES)
+    kps = 4 if itemsize == 2 else 8
+    tiles = 1 if direct else N_MAX // 8
+    return N_MAX * 4 + tiles * steps * kps * 32 * 8
+
+
+def item_bound(nq: int, nprobe: int, nlist: int) -> int:
+    """The most work items a probe plan can hold: a distinct probed
+    partition gives one item, and each further N_MAX of its entries one
+    more."""
+    n = nq * nprobe
+    return min(nlist, n) + n // N_MAX
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(nq: int, nprobe: int, nlist: int, cap: int, d: int,
+                dtype: torch.dtype) -> LaunchPlan:
+    """The `ivf_fused_dense` launch of nq x nprobe probes into [nlist, cap,
+    d] tiles of `dtype`. bf16 and int8 rows whose byte width is a multiple
+    of 16 take `grouped` when its query fragments fit in shared memory (d
+    up to 3,584) and, past one query, when the plan's histogram does (nlist
+    up to 32,768); everything else takes `simt`. A single query needs no
+    plan: each probe is its own item. The rows of a tile are cut into the
+    fewest spans that give MIN_BLOCKS blocks over the items the grid surely
+    holds (n / N_MAX, or n when direct). Memoized: a request pays the
+    lookup, not the search."""
+    n = nq * nprobe
+    itemsize = dtype.itemsize
+    direct = nq == 1
+    if dtype not in (torch.bfloat16, torch.int8) or (d * itemsize) % 16 \
+            or _grouped_smem(d, itemsize, direct) > MAX_SMEM \
+            or (not direct and nlist > PLAN_MAX_NLIST):
+        return LaunchPlan(VARIANT_SIMT, False, 0, 0, 0,
+                          (-(-cap // SIMT_ROWS), nprobe, nq), d * 4)
+    bound = n if direct else item_bound(nq, nprobe, nlist)
+    least = n if direct else -(-n // N_MAX)
+    chunks = -(-cap // CHUNK_ROWS)
+    span = max(1, chunks // -(-MIN_BLOCKS // least))
+    split = -(-chunks // span)
+    return LaunchPlan(VARIANT_GROUPED, direct, bound, split, span,
+                      (bound, split), _grouped_smem(d, itemsize, direct))
 
 
 def fused_eligible(parts_dtype, metric: str, precision: str = "bf16") -> bool:
@@ -74,6 +159,31 @@ def probe_board_reference(queries: torch.Tensor, ivf: IVFPartitions,
     return torch.stack(slots, dim=1)
 
 
+def probe_plan_reference(probe_ids: torch.Tensor, nlist: int):
+    """Plain PyTorch version of the probe plan: the entries e = q * nprobe
+    + j of probe_ids [Q, nprobe] grouped by partition. Returns (entries
+    [n_valid] int32, sorted by partition, then entry; items [n_items, 3]
+    int32 of (partition, first, count): each partition's run cut into
+    pieces of at most N_MAX, in partition order; invalid [m] int32, the
+    entries whose id lies outside [0, nlist), set apart)."""
+    ids = probe_ids.reshape(-1).to(torch.int64)
+    dev = ids.device
+    ok = (ids >= 0) & (ids < nlist)
+    valid = torch.nonzero(ok).flatten()
+    entries = valid[torch.argsort(ids[valid], stable=True)]
+    counts = torch.bincount(ids[valid], minlength=nlist)
+    offsets = torch.cumsum(counts, 0) - counts
+    per = (counts + N_MAX - 1) // N_MAX
+    part = torch.repeat_interleave(torch.arange(nlist, device=dev), per)
+    piece = torch.arange(len(part), device=dev) - torch.repeat_interleave(
+        torch.cumsum(per, 0) - per, per)
+    first = offsets[part] + piece * N_MAX
+    count = torch.clamp(counts[part] - piece * N_MAX, max=N_MAX)
+    items = torch.stack([part, first, count], dim=1)
+    return (entries.to(torch.int32), items.to(torch.int32),
+            torch.nonzero(~ok).flatten().to(torch.int32))
+
+
 # -------------------------------------------------------------- CUDA wrappers
 
 def _lib() -> ctypes.CDLL:
@@ -82,6 +192,11 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ivf_fused_dense.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.ivf_fused_dense.restype = ctypes.c_int
+        lib.ivf_fused_dense_grouped.argtypes = [p, p, p, p, p, p,
+                                                *[i] * 10, p]
+        lib.ivf_fused_dense_grouped.restype = ctypes.c_int
+        lib.ivf_probe_plan.argtypes = [p, p, p, i, i, i, i, p]
+        lib.ivf_probe_plan.restype = ctypes.c_int
         lib.ivf_fused_int4.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.ivf_fused_int4.restype = ctypes.c_int
         lib.cuda_error_string.argtypes = [ctypes.c_int]
@@ -121,13 +236,43 @@ def _check_inputs(query_planes, ivf: IVFPartitions, probe_ids) -> None:
         raise ValueError("partition tiles must be 16-byte aligned")
 
 
-def _launch(name: str, fn, *args) -> None:
-    code = fn(*args)
+def _check(code: int, name: str) -> None:
     if code != 0:
-        lib = _lib()
         raise RuntimeError(f"{name} launch failed: "
-                           f"{lib.cuda_error_string(code).decode()}")
-    dispatch.count_launch(name)
+                           f"{_lib().cuda_error_string(code).decode()}")
+
+
+def _launch(name: str, fn, *args, variant=None) -> None:
+    _check(fn(*args), name)
+    dispatch.count_launch(name, variant)
+
+
+def _plan_scratch(n: int, bound: int, device) -> torch.Tensor:
+    """One int32 buffer for the probe plan: items [bound, 4] (16-byte rows),
+    n_items [4], entries [n]."""
+    return torch.empty((4 * bound + 4 + n,), dtype=torch.int32, device=device)
+
+
+def probe_plan(probe_ids: torch.Tensor, nlist: int):
+    """The grouped variant's probe plan for probe_ids [Q, nprobe] int32: the
+    plan kernel on CUDA (then a sync, to cut the outputs to size), the
+    plain version on the CPU. Returns (entries, items) as
+    `probe_plan_reference` does; a CUDA plan's entries are in atomic order
+    within each partition."""
+    if probe_ids.device.type == "cpu":
+        return probe_plan_reference(probe_ids, nlist)[:2]
+    ids = probe_ids.to(torch.int32).contiguous()
+    n = ids.numel()
+    bound = item_bound(1, n, nlist)
+    scratch = _plan_scratch(n, bound, ids.device)
+    _check(_lib().ivf_probe_plan(
+        ids.data_ptr(), scratch.data_ptr(), None, n, nlist, 1, bound,
+        torch.cuda.current_stream(ids.device).cuda_stream),
+        "ivf_probe_plan")
+    n_items = int(scratch[4 * bound])
+    items = scratch[:4 * bound].view(bound, 4)[:n_items, :3]
+    n_valid = int(items[:, 2].sum())
+    return scratch[4 * bound + 4:][:n_valid], items
 
 
 def probe_board(queries: torch.Tensor, ivf: IVFPartitions,
@@ -159,11 +304,26 @@ def probe_board(queries: torch.Tensor, ivf: IVFPartitions,
                 ivf.part_scales.data_ptr(), out.data_ptr(),
                 nq, nprobe, nlist, cap, w, int(w % 16 == 0), stream)
         return out
-    row_bytes = w * ivf.parts.element_size()
-    _launch(KERNEL_DENSE, lib.ivf_fused_dense,
+    plan = launch_plan(nq, nprobe, nlist, cap, w, ivf.parts.dtype)
+    if plan.variant == VARIANT_SIMT:
+        row_bytes = w * ivf.parts.element_size()
+        _launch(KERNEL_DENSE, lib.ivf_fused_dense,
+                q.data_ptr(), probe_ids.data_ptr(), ivf.parts.data_ptr(),
+                ivf.part_scales.data_ptr(), out.data_ptr(),
+                nq, nprobe, nlist, cap, w, code, int(row_bytes % 16 == 0),
+                stream, variant=VARIANT_SIMT)
+        return out
+    if q.data_ptr() % 16:            # the kernel reads query rows as float4
+        q = q.clone()
+    scratch = None if plan.direct else _plan_scratch(
+        nq * nprobe, plan.item_bound, out.device)
+    _launch(KERNEL_DENSE, lib.ivf_fused_dense_grouped,
             q.data_ptr(), probe_ids.data_ptr(), ivf.parts.data_ptr(),
             ivf.part_scales.data_ptr(), out.data_ptr(),
-            nq, nprobe, nlist, cap, w, code, int(row_bytes % 16 == 0), stream)
+            None if scratch is None else scratch.data_ptr(),
+            nq, nprobe, nlist, cap, w, code, int(plan.direct),
+            plan.item_bound, plan.split, plan.span_chunks, stream,
+            variant=VARIANT_GROUPED)
     return out
 
 

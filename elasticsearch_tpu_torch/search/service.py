@@ -48,12 +48,10 @@ def parse_knn(body: dict) -> KnnQuery:
     if "field" not in spec or "query_vector" not in spec:
         raise ParsingError("[knn] requires [field] and [query_vector]")
     k = int(spec.get("k", spec.get("num_candidates", 10)))
-    num_candidates = int(spec.get("num_candidates", k))
     if k < 1:
         raise IllegalArgumentError("[k] must be greater than 0")
-    if num_candidates < k:
-        raise IllegalArgumentError(
-            "[num_candidates] cannot be less than [k]")
+    # the reference's KnnQuery raises num_candidates to k
+    num_candidates = max(int(spec.get("num_candidates", k)), k)
     return KnnQuery(field=spec["field"], query_vector=spec["query_vector"],
                     k=k, num_candidates=num_candidates,
                     boost=float(spec.get("boost", 1.0)))

@@ -155,6 +155,147 @@ def test_ivf_fused_kernels_match_plain_version(cuda, dtype, d, nq):
     assert float((got[~neg] - want[~neg]).abs().max()) <= tol
 
 
+def _expected_board(q, ivf, ids):
+    """The plain version over the in-range probe ids, NEG_INF across the
+    rows of out-of-range ones (the kernels' rule)."""
+    nlist = ivf.parts.shape[0]
+    bad = (ids < 0) | (ids >= nlist)
+    want = fused.probe_board_reference(q, ivf, ids.clamp(0, nlist - 1))
+    return torch.where(bad[:, :, None], torch.full_like(want, -3.0e38), want)
+
+
+def _check_board(got, want):
+    neg = want <= -1e37
+    assert torch.equal(got <= -1e37, neg)
+    assert (got[neg] == want[neg]).all()
+    if not bool(neg.all()):
+        tol = 1e-5 * max(1.0, float(want[~neg].abs().max()))
+        assert float((got[~neg] - want[~neg]).abs().max()) <= tol
+
+
+def _grouped_launch(q, ivf, ids):
+    """probe_board, asserting it took the grouped variant once."""
+    key = f"{fused.KERNEL_DENSE}/{fused.VARIANT_GROUPED}"
+    before = dispatch.variant_launches().get(key, 0)
+    got = fused.probe_board(q, ivf, ids)
+    torch.cuda.synchronize()
+    assert dispatch.variant_launches().get(key, 0) == before + 1
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("d", [64, 768, 960])
+@pytest.mark.parametrize("nprobe", [1, 4, 32])
+@pytest.mark.parametrize("nq", [1, 9, 300])
+def test_ivf_grouped_matches_plain_version(cuda, dtype, d, nprobe, nq):
+    """The grouped variant of ivf_fused_dense at cap 300 (two full 128-row
+    chunks and a ragged one): NEG_INF at the same slots, the rest within
+    1e-5 of the largest |score|; at Q=300, nprobe 32 each of the 40
+    partitions is probed ~240 times (8 items of at most 32 entries)."""
+    g = torch.Generator(device=cuda).manual_seed(d + nq + nprobe)
+    nlist, cap = 40, 300
+    ivf = _random_partitions(g, cuda, dtype, nlist, cap, d)
+    q = torch.randn(nq, d, generator=g, device=cuda)
+    ids = torch.randint(0, nlist, (nq, nprobe), generator=g, device=cuda,
+                        dtype=torch.int32)
+    _check_board(_grouped_launch(q, ivf, ids), _expected_board(q, ivf, ids))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("case", ["skewed", "duplicates", "out_of_range",
+                                  "all_out_of_range"])
+@pytest.mark.parametrize("nq", [1, 70])
+def test_ivf_grouped_hard_probe_ids(cuda, dtype, case, nq):
+    """Every query probing the same partitions (one partition with 70
+    entries: three items), one partition named several times by one
+    query, and ids outside [0, nlist) (-1, nlist, 2^30; their rows all
+    NEG_INF, on the plan path and the direct one)."""
+    g = torch.Generator(device=cuda).manual_seed(len(case) + nq)
+    nlist, cap, nprobe, d = 12, 200, 8, 96
+    ivf = _random_partitions(g, cuda, dtype, nlist, cap, d)
+    q = torch.randn(nq, d, generator=g, device=cuda)
+    ids = torch.randint(0, nlist, (nq, nprobe), generator=g, device=cuda,
+                        dtype=torch.int32)
+    if case == "skewed":
+        ids[:, :3] = torch.tensor([2, 5, 11], dtype=torch.int32)
+    elif case == "duplicates":
+        ids[:, 1:5] = ids[:, :1]
+    else:
+        bad = torch.tensor([-1, nlist, 1 << 30], dtype=torch.int32,
+                           device=cuda)
+        pick = torch.arange(nq * nprobe, device=cuda).view(nq, nprobe) % 3
+        if case == "all_out_of_range":
+            ids = bad[pick]
+        else:
+            ids[:, ::3] = bad[pick[:, ::3]]
+    _check_board(_grouped_launch(q, ivf, ids), _expected_board(q, ivf, ids))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d,variant", [
+    (torch.bfloat16, 64, "grouped"), (torch.int8, 64, "grouped"),
+    (torch.float32, 64, "simt"), (torch.bfloat16, 100, "simt"),
+    (torch.int8, 100, "simt"), (torch.float32, 100, "simt")])
+@pytest.mark.parametrize("nq", [1, 9])
+def test_ivf_dense_counts_its_variant(cuda, dtype, d, variant, nq):
+    """Each ivf_fused_dense launch counts once under the variant its plan
+    names, and ivf_fused_int4 under none."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    ivf = _random_partitions(g, cuda, dtype, 12, 150, d)
+    ids = torch.randint(0, 12, (nq, 4), generator=g, device=cuda,
+                        dtype=torch.int32)
+    dispatch.reset_launches()
+    fused.probe_board(torch.randn(nq, d, device=cuda), ivf, ids)
+    assert dispatch.launches() == {fused.KERNEL_DENSE: 1}
+    assert dispatch.variant_launches() == {
+        f"{fused.KERNEL_DENSE}/{variant}": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,nprobe,nlist,hot", [
+    (1, 1, 1, False), (9, 4, 12, False), (70, 8, 12, True),
+    (256, 32, 1024, False), (256, 32, 1024, True), (300, 7, 32768, False),
+    (3000, 64, 100, True)])
+def test_ivf_probe_plan_matches_plain_version(cuda, nq, nprobe, nlist, hot):
+    """The plan kernel against probe_plan_reference: the same items, and
+    the same entries within each partition (as sets: the kernel scatters
+    with atomics); out-of-range ids set apart."""
+    g = torch.Generator(device=cuda).manual_seed(nq + nlist)
+    ids = torch.randint(0, nlist, (nq, nprobe), generator=g, device=cuda,
+                        dtype=torch.int32)
+    if hot:
+        ids[:, 0] = nlist // 2
+        ids[::5, -1] = -1
+    entries, items = fused.probe_plan(ids, nlist)
+    want_e, want_i, _ = fused.probe_plan_reference(ids.cpu(), nlist)
+    assert torch.equal(items.cpu(), want_i)
+    flat, n = ids.reshape(-1).long().cpu(), ids.numel()
+
+    def by_partition(e):
+        e = e.long().cpu()
+        return torch.sort(flat[e] * n + e).values
+
+    assert torch.equal(by_partition(entries), by_partition(want_e))
+
+
+@pytest.mark.gpu
+def test_ivf_grouped_rejected_plan_raises(cuda, monkeypatch):
+    """A CUDA launch whose plan does not cover the shape raises: the C
+    entry rejects it, and nothing falls back to simt or the plain
+    version."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    ivf = _random_partitions(g, cuda, torch.bfloat16, 12, 150, 64)
+    ids = torch.randint(0, 12, (9, 4), generator=g, device=cuda,
+                        dtype=torch.int32)
+    plan = fused.launch_plan(9, 4, 12, 150, 64, torch.bfloat16)
+    short = plan._replace(item_bound=plan.item_bound - 1)
+    monkeypatch.setattr(fused, "launch_plan", lambda *a: short)
+    with pytest.raises(RuntimeError, match="ivf_fused_dense launch failed"):
+        fused.probe_board(torch.randn(9, 64, device=cuda), ivf, ids)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("options", [{"type": "ivf"}, {"type": "int8_ivf"},
                                      {"type": "int4_ivf"}])

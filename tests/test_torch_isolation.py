@@ -132,7 +132,7 @@ class _FakeLib:
         return self.code
 
     knn_binned_bf16 = knn_binned_int8 = _launch
-    ivf_fused_dense = ivf_fused_int4 = _launch
+    ivf_fused_dense = ivf_fused_dense_grouped = ivf_fused_int4 = _launch
     maxsim_dense = maxsim_int4 = _launch
 
     def cuda_error_string(self, code):
@@ -234,9 +234,17 @@ def test_ivf_fused_wrappers_launch_or_raise_never_plain(monkeypatch, code):
                 ivf_fused.probe_board(q, ivf, ids)
             assert dispatch.launches().get(name, 0) == before
         else:
+            variants = dispatch.variant_launches()
             out = ivf_fused.probe_board(q, ivf, ids)
             assert out.shape == (5, 4, 24)
             assert dispatch.launches().get(name, 0) == before + 1
+            if name == ivf_fused.KERNEL_DENSE:
+                # f32 tiles keep the simt kernel, bf16 and int8 go grouped
+                key = f"{name}/" + (ivf_fused.VARIANT_SIMT
+                                    if dtype == torch.float32
+                                    else ivf_fused.VARIANT_GROUPED)
+                assert dispatch.variant_launches().get(key, 0) \
+                    == variants.get(key, 0) + 1
     assert lib.calls == len(cases)
 
 

@@ -283,6 +283,25 @@ def test_num_candidates_widens_nprobe_like_reference(clients):
     assert nprobes == [2, 4, 8]
 
 
+def test_num_candidates_below_k_clamps_like_reference(clients):
+    """num_candidates < k is not an error: the reference's KnnQuery raises
+    it to k, and both packages answer 200 with the same hits."""
+    name = "clamp"
+    field = {"type": "dense_vector", "dims": D, "similarity": "cosine",
+             "index_options": {"type": "ivf"}}
+    rng, vecs = _clustered_docs(91)
+    _load_ivf_pair(clients, name, field, vecs)
+    ref, port = clients
+    q = vecs[11] + 0.3 * rng.standard_normal(D)
+    body = {"knn": {"field": "v", "query_vector": q.tolist(), "k": 10,
+                    "num_candidates": 5}}
+    s1, want = ref.req("POST", f"/{name}/_search", body)
+    s2, got = port.req("POST", f"/{name}/_search", body)
+    assert s1 == s2 == 200
+    assert len(got["hits"]["hits"]) == 10
+    _same_hits(want, got)
+
+
 def test_knn_settings_validation_matches_reference(clients):
     ref, port = clients
     for i, (settings, props) in enumerate((
