@@ -20,13 +20,15 @@ Phases, one line each; any failure raises and the exit code is not 0:
                its plain version (nlist 1024, cap 1472, nprobe 32, Q=256 and
                Q=1; bf16 D=960, int8 D=768, int4 D=768, at Q=256 also with
                skewed and with out-of-range probe ids; D=100 rows and f32
-               tiles on the simt variant, D=48 on the grouped one), the
-               grouped variant's probe plan against its plain version, each
-               timed per launch and in a burst beside the bound of its
-               distinct tiles, the port's scan route and (dense tiles) one
-               bf16 `torch.matmul` over every tile row; then both MaxSim
-               kernels against their plain versions at the ColBERTv2
-               shape, timed likewise beside the staged gather form
+               tiles on the simt variants, bf16 and int8 D=48 and int4
+               D=64 and D=288 on the grouped ones), the grouped variants'
+               probe plan against its plain version, each timed per launch
+               and in a burst beside the bound of its distinct tiles, the
+               port's scan route and one bf16 `torch.matmul` over every
+               tile row (int8 values or int4 levels on a bf16 copy); then
+               both MaxSim kernels against their plain versions at the
+               ColBERTv2 shape, timed likewise beside the staged gather
+               form
   serve_sift   the port's REST server in-process: a cosine dims=128 index,
                2,000 docs over `_bulk`, then the shard loaded to 1,000,000
                SIFT-shaped docs through `Engine.index_many`, refresh, and 64
@@ -59,9 +61,10 @@ Phases, one line each; any failure raises and the exit code is not 0:
                legs
 Each IVF index answers one warm-up search first (the `nprobe: auto` tuner
 runs there), then the timed requests; every request must take the fused
-route with no exhaustive fallback, every `ivf_fused_dense` launch its
-grouped variant. Then one `store.search_many` of the same queries, a batch
-of 64 through the router's real probes, must return the same hits.
+route with no exhaustive fallback, every `ivf_fused_dense` and
+`ivf_fused_int4` launch its grouped variant. Then one `store.search_many`
+of the same queries, a batch of 64 through the router's real probes, must
+return the same hits.
 
 `--binned-only` and `--ivf-only` run env, build and one kernel phase
 (no serving, no ok line): the numbers of PERF.md's parent-vs-change
@@ -378,6 +381,16 @@ def _plan_check(fused, ids, nlist: int) -> int:
     return len(want_i)
 
 
+def _bf16_rows(parts, d: int):
+    """Every tile row as bf16 [nlist * cap, d]: int8 values, or int4
+    levels in dim order (the codec's even and odd planes interleaved)."""
+    from elasticsearch_tpu_torch.quant import codec as quant_codec
+    if parts.dtype != torch.uint8:
+        return parts.view(-1, d).to(torch.bfloat16)
+    lo, hi = quant_codec.int4_planes(parts.view(-1, d // 2), torch.bfloat16)
+    return torch.stack([lo, hi], dim=-1).view(-1, d)
+
+
 def _plan_burst_ms(fused, ids, nlist: int) -> float:
     """Burst time of the grouped variant's plan kernel alone (one block)."""
     n = ids.numel()
@@ -417,7 +430,7 @@ def _ivf_case(g, dev, dtype, d, nlist=1024, cap=1472, nprobe=32,
     partitions probed by every query) and out-of-range probe ids, untimed;
     then, when `timed`, CUDA-event times per launch and in a burst beside
     the plain version, the scan route, one bf16 `torch.matmul` of the
-    queries against every tile row (dense tiles) and the bound of the
+    queries against every tile row and the bound of the
     distinct tiles. Where the package has the grouped variant's probe
     plan, the plan kernel is held against its plain version too."""
     from elasticsearch_tpu_torch.ops import ivf_fused as fused
@@ -443,12 +456,12 @@ def _ivf_case(g, dev, dtype, d, nlist=1024, cap=1472, nprobe=32,
             out["max_abs_err"] = max(out["max_abs_err"],
                                      _ivf_check(label, got, want))
             del got, want
-            if has_plan and dtype != torch.uint8 and nq > 1:
+            if has_plan and nq > 1:
                 out[f"items_{label.split()[-1]}"] = _plan_check(
                     fused, case_ids, nlist)
         if not timed:
             continue
-        if has_plan and dtype != torch.uint8 and nq > 1:
+        if has_plan and nq > 1:
             out["plan_burst_ms"] = _plan_burst_ms(fused, ids, nlist)
         run = lambda: fused.probe_board(q, ivf, ids)  # noqa: E731
         out[f"q{nq}_ms"] = time_ms(run)
@@ -460,17 +473,14 @@ def _ivf_case(g, dev, dtype, d, nlist=1024, cap=1472, nprobe=32,
             out["scan_ms"] = time_ms(
                 lambda: knn_ivf.score_probes(q, ivf, ids, 10), iters=3,
                 warmup=1)
-            if dtype != torch.uint8:
-                # one PyTorch call over every tile row, the same products
-                # (int8 tiles: on a bf16 copy widened outside the timing)
-                flat = ivf.parts.view(-1, d)
-                flat = flat if dtype == torch.bfloat16 else \
-                    flat.to(torch.bfloat16)
-                qb = q.to(torch.bfloat16)
-                out["library_ms"] = time_ms(lambda: torch.matmul(qb, flat.T))
-                out["library_burst_ms"] = burst_ms(
-                    lambda: torch.matmul(qb, flat.T), n=10)
-                del flat
+            # one PyTorch call over every tile row, the same products (int8
+            # and int4 tiles: on a bf16 copy widened outside the timing)
+            flat = _bf16_rows(ivf.parts, d)
+            qb = q.to(torch.bfloat16)
+            out["library_ms"] = time_ms(lambda: torch.matmul(qb, flat.T))
+            out["library_burst_ms"] = burst_ms(
+                lambda: torch.matmul(qb, flat.T), n=10)
+            del flat
             tiles = int(torch.unique(ids).numel())
             tile_bytes = cap * ivf.parts.shape[2] * ivf.parts.element_size()
             nbytes = (tiles * (tile_bytes + cap * 4) + q.numel() * 4
@@ -484,17 +494,21 @@ def _ivf_case(g, dev, dtype, d, nlist=1024, cap=1472, nprobe=32,
 
 
 def _expect_variant(fused, label, dtype, d) -> None:
-    """Every dense launch since the last reset took the variant its plan
-    names: grouped for bf16 and int8 rows of a multiple of 16 bytes, simt
-    for the rest (packages with one variant count none)."""
+    """Every launch since the last reset took the variant its plan names:
+    grouped for bf16, int8 and int4 rows of a multiple of 16 bytes, simt
+    for the rest (packages without a kernel's variants count none: the
+    first port, and int4 before its grouped variant)."""
     from elasticsearch_tpu_torch.ops import dispatch
-    if dtype == torch.uint8 or not hasattr(fused, "VARIANT_GROUPED"):
+    int4 = dtype == torch.uint8
+    if not hasattr(fused, "VARIANT_GROUPED") or \
+            (int4 and not hasattr(fused, "int4_k_order")):
         return
-    grouped = dtype in (torch.bfloat16, torch.int8) \
-        and (d * dtype.itemsize) % 16 == 0
+    row_bytes = d // 2 if int4 else d * dtype.itemsize
+    grouped = dtype != torch.float32 and row_bytes % 16 == 0
     want = fused.VARIANT_GROUPED if grouped else fused.VARIANT_SIMT
+    kernel = fused.KERNEL_INT4 if int4 else fused.KERNEL_DENSE
     got = {k: c for k, c in dispatch.variant_launches().items() if c}
-    if set(got) != {f"{fused.KERNEL_DENSE}/{want}"}:
+    if set(got) != {f"{kernel}/{want}"}:
         raise AssertionError(f"ivf {label}: variant launches {got}, "
                              f"expected only {want}")
 
@@ -502,7 +516,7 @@ def _expect_variant(fused, label, dtype, d) -> None:
 def phase_ivf_kernels(seed: int, dev) -> dict:
     """Both fused IVF probe kernels against their plain versions at the
     main path's layout (1M rows at slack 1.5: nlist 1024, cap 1472), and
-    the launches of each `ivf_fused_dense` variant."""
+    the launches of each kernel's variants."""
     from elasticsearch_tpu_torch.ops import dispatch
     from elasticsearch_tpu_torch.ops import ivf_fused as fused
     g = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -520,23 +534,24 @@ def phase_ivf_kernels(seed: int, dev) -> dict:
             variants=json.dumps(dispatch.variant_launches()),
             scan="the port's scan route (knn_ivf.score_probes: per-slot "
                  "gather + einsum + top-k merge)",
-            library=("none (no PyTorch call gathers and scores nibbles)"
-                     if dtype == torch.uint8 else
-                     "torch.matmul of the bf16 queries against every tile "
-                     "row" + ("" if dtype == torch.bfloat16 else
-                              " (a bf16 copy of the int8 tiles, widened "
-                              "outside the timing)")))
+            library="torch.matmul of the bf16 queries against every tile "
+                    "row" + ("" if dtype == torch.bfloat16 else
+                             " (a bf16 copy of the tiles' levels, widened "
+                             "outside the timing)"))
         _expect_variant(fused, label, dtype, d)
-    # rows whose bytes are not a multiple of 16 take the simt variant's
-    # scalar path, f32 tiles the simt variant; d = 48 at cap 200 exercises
-    # a partial 128-byte step and a ragged last chunk on the grouped one
+    # rows whose bytes are not a multiple of 16 take the simt variants'
+    # scalar paths, f32 tiles the simt variant; bf16 and int8 d = 48 and
+    # int4 d = 64 (32 bytes) and d = 288 (144 bytes) at cap 200 exercise a
+    # partial 128-byte step and a ragged last chunk on the grouped ones
     for label, dtype, d in (("f32_100", torch.float32, 100),
                             ("bf16_100", torch.bfloat16, 100),
                             ("int8_100", torch.int8, 100),
                             ("int4_100", torch.uint8, 100),
                             ("f32_64", torch.float32, 64),
                             ("bf16_48", torch.bfloat16, 48),
-                            ("int8_48", torch.int8, 48)):
+                            ("int8_48", torch.int8, 48),
+                            ("int4_64", torch.uint8, 64),
+                            ("int4_288", torch.uint8, 288)):
         dispatch.reset_launches()
         cases[label] = _ivf_case(g, dev, dtype, d, nlist=64, cap=200,
                                  nprobe=8, queries=(37, 1), timed=False)
@@ -549,7 +564,8 @@ def phase_ivf_kernels(seed: int, dev) -> dict:
                                               "bf16_100", "int8_100",
                                               "f32_64", "bf16_48",
                                               "int8_48")),
-            (fused.KERNEL_INT4, "int4_768", ("int4_100",))):
+            (fused.KERNEL_INT4, "int4_768", ("int4_100", "int4_64",
+                                             "int4_288"))):
         c = cases[main]
         out[name] = {
             "name": name, "route": "cuda",
@@ -561,7 +577,7 @@ def phase_ivf_kernels(seed: int, dev) -> dict:
                                for x in (main, *extra)),
             "ms": c["q256_ms"], "burst_ms": c["q256_burst_ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": c.get("library_ms"),
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "scan_ms": c["scan_ms"]}
     return out
 
@@ -902,11 +918,12 @@ def serve_index(client, node, name, mapping, vectors, queries, metric,
 
 def _expect_served_variant(kernel, variants, n: int) -> None:
     """Every binned launch of served requests takes the tma variant, every
-    fused dense IVF launch the grouped one."""
+    fused IVF launch (dense and int4) the grouped one."""
     from elasticsearch_tpu_torch.ops import ivf_fused as fused
     from elasticsearch_tpu_torch.ops import knn_binned as kb
     variant = {kb.KERNEL_BF16: kb.VARIANT_TMA, kb.KERNEL_INT8: kb.VARIANT_TMA,
-               fused.KERNEL_DENSE: fused.VARIANT_GROUPED}.get(kernel)
+               fused.KERNEL_DENSE: fused.VARIANT_GROUPED,
+               fused.KERNEL_INT4: fused.VARIANT_GROUPED}.get(kernel)
     want = {f"{kernel}/{variant}": n} if variant else {}
     if {name: c for name, c in variants.items() if c} != want:
         raise AssertionError(f"variant launches {variants}; expected {want}")

@@ -23,20 +23,21 @@
 // 32 over 1024 partitions with random probes, ~1023 of the 1024 tiles are
 // probed, each by ~8 (query, probe) entries: 2.9 GB of distinct bf16 tiles
 // (0.880 ms at 3.35 TB/s), against ~23 GB if every entry reads its tile.
-// Even 8 queries a tile are only ~8 operations a byte, far below the ~295
+// Even 8 queries a tile are only ~8 operations a byte (int4: ~32, two
+// values a byte; 0.58 GB of distinct tiles at D = 768), far below the ~295
 // where the tensor cores would set the limit.
 //
-// ivf_fused_dense has two variants; the caller's launch plan
+// Both kernels have two variants; the caller's launch plan
 // (ops/ivf_fused.py::launch_plan) picks one and passes it in:
 //
-// grouped  bf16 and int8 tiles whose row bytes are a multiple of 16 (every
-//       served layout). The loop is inverted: each probed tile is read once
-//       for all the entries (q, j) that probe it. A probe plan groups the
-//       entries by partition, on the device and with no host sync: one
-//       block counting-sorts them (histogram, scan, scatter in shared
-//       memory) into `entries`, and cuts each partition's run into items
-//       (p, first, count <= N_MAX). The host sizes the grid by the bound
-//       min(nlist, n) + n / N_MAX on the number of items; a block past
+// grouped  bf16, int8 and int4 tiles whose row bytes are a multiple of 16
+//       (every served layout). The loop is inverted: each probed tile is
+//       read once for all the entries (q, j) that probe it. A probe plan
+//       groups the entries by partition, on the device and with no host
+//       sync: one block counting-sorts them (histogram, scan, scatter in
+//       shared memory) into `entries`, and cuts each partition's run into
+//       items (p, first, count <= N_MAX). The host sizes the grid by the
+//       bound min(nlist, n) + n / N_MAX on the number of items; a block past
 //       n_items exits at once. A single query (Q = 1) needs no plan: each
 //       entry is its own item (the router's probes of one query are
 //       distinct partitions), and the board kernel is the only launch.
@@ -50,25 +51,24 @@
 //       a lane's 16-byte piece is exactly its fragment: the same permutation
 //       on A and B leaves every dot product unchanged. bf16 rows are their
 //       own fragments; int8 rows widen to bf16 exactly with a byte permute
-//       and one f32 add a value. The epilogue scales, masks and stores
-//       each (row, entry) straight to its board slot (32-byte runs).
+//       and one f32 add a value; int4 rows with one lop3 and one bf16x2
+//       subtract per two values (K order: `int4_k_order` in
+//       ops/ivf_fused.py). The epilogue scales, masks and stores each
+//       (row, entry) straight to its board slot (32-byte runs).
 //       Registers are capped at 80 so 3 blocks (24 warps) share an SM,
-//       which keeps ~100 KB of row loads in flight an SM; at Q = 1 the
+//       which keeps ~100 KB of row loads in flight an SM (int4 ran 7%
+//       slower at 2 blocks, 101 registers); at Q = 1 the
 //       direct grid (nprobe x 12 spans of one chunk) then runs in one wave.
 // simt  f32 tiles and rows whose byte width is not a multiple of 16 (and
 //       layouts whose query fragments, or whose plan histogram, would not
-//       fit in shared memory):
-//       the first port, unchanged. Grid: x = a chunk of 64 rows of the
-//       tile, y = probe slot, z = query; each warp walks rows, the lanes
-//       reading 16-byte vectors (scalar loads for ragged rows) against the
-//       staged query, with a warp-shuffle reduction. It reads a tile once
-//       per (query, probe) that names it.
-//
-// ivf_fused_int4 is the first port's kernel, in the simt shape of the
-// dense one: a block reads its own ids[q, j], no [Q, nprobe, cap, D]
-// gather ever exists in device memory, and the even and odd query planes
-// are staged transposed so the 32 lanes of a warp read 32 consecutive
-// words of shared memory.
+//       fit in shared memory): the first port's kernels, unchanged. Grid:
+//       x = a chunk of 64 rows of the tile, y = probe slot, z = query;
+//       each warp walks rows, the lanes reading 16-byte vectors (scalar
+//       loads for ragged rows) against the staged query, with a
+//       warp-shuffle reduction. It reads a tile once per (query, probe)
+//       that names it. The int4 one takes the even and odd query planes,
+//       staged transposed so the 32 lanes of a warp read 32 consecutive
+//       words of shared memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -84,7 +84,7 @@ constexpr int ROWS_PER_BLOCK = 64;
 constexpr int UNROLL = 4;            // 16-byte vectors in flight per lane
 constexpr float NEG = -3.0e38f;      // the NEG_INF sentinel of the board
 
-enum { DT_F32 = 0, DT_BF16 = 1, DT_INT8 = 2 };
+enum { DT_F32 = 0, DT_BF16 = 1, DT_INT8 = 2, DT_INT4 = 3 };
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -325,6 +325,11 @@ constexpr int PLAN_THREADS = 1024;    // the plan is one block
 constexpr int PLAN_MAX_NLIST = 32768; // its histogram lives in shared memory
 constexpr int MAX_SMEM = 232448;      // 227 KB a block
 
+// a grouped row's bytes: d values of the tile type (int4: two a byte)
+__host__ __device__ constexpr long long grouped_row_bytes(long long d, int dt) {
+  return dt == DT_BF16 ? 2 * d : dt == DT_INT8 ? d : d / 2;
+}
+
 // 16 bytes of a tile row: read once, so kept out of L1; L2 fetches the
 // whole 128-byte step of the row at the first of its 8 pieces
 __device__ __forceinline__ uint4 ldg_stream(const uint8_t* p) {
@@ -364,6 +369,18 @@ __device__ __forceinline__ void widen_int8(uint32_t w, uint32_t& lo,
   const float f3 = __uint_as_float(__byte_perm(u, m, 0x7443)) - 8388736.0f;
   lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
   hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+// Two int4 levels of a word as one bf16x2, exactly: the nibbles at bits
+// 0-3 and 16-19 of x go into the low mantissa bits of 128 (bf16 has unit
+// spacing on [128, 256)), then one bf16x2 subtract of 136 gives n - 8.
+__device__ __forceinline__ uint32_t int4_pair(uint32_t x) {
+  const uint32_t v = (x & 0x000F000Fu) | 0x43004300u;
+  const uint32_t bias = 0x43084308u;                  // bf16x2 (136, 136)
+  const __nv_bfloat162 r =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+              *reinterpret_cast<const __nv_bfloat162*>(&bias));
+  return *reinterpret_cast<const uint32_t*>(&r);
 }
 
 __device__ __forceinline__ uint32_t bf16x2(float a, float b) {
@@ -457,12 +474,22 @@ __global__ void __launch_bounds__(PLAN_THREADS) ivf_plan_kernel(
 
 // The grouped board kernel. Block (x, y) scores item x (in `direct` mode,
 // entry x alone) against rows [y * span_chunks * 128, ...) of its tile.
-// K order: a 128-byte step of a row holds 8E elements (E = 8 bf16 or 16
-// int8 a 16-byte piece); lane (g, t) of a warp loads piece t and piece
-// 4 + t of rows g and g + 8, and its k16 slice h of piece pp is elements
-// 4h..4h+3 of that piece: the first two take the fragment's k = 2t, 2t+1,
-// the last two k = 2t+8, 2t+9. The query fragments are staged with the
-// same map, so each lane reads its B fragment as one 8-byte word.
+// K order: a 128-byte step of a row holds 8E values (E = 8 bf16, 16 int8
+// or 32 int4 a 16-byte piece), KPS = E / 2 k16 slices; lane (g, t) of a
+// warp loads piece t and piece 4 + t of rows g and g + 8, and slice h of
+// piece pp (pp = 0, 1; h < E / 4) comes from that piece:
+//   bf16, int8  values 4h..4h+3: the first two take the fragment's k = 2t,
+//               2t+1, the last two k = 2t+8, 2t+9;
+//   int4        word i = h / 2 holds dims 8i..8i+7 (nibble j is dim j, the
+//               codec's byte layout), and c = h % 2 picks dims (2c, 2c+4)
+//               for k = 2t, 2t+1 and (2c+1, 2c+5) for k = 2t+8, 2t+9: the
+//               pairs one widening gives.
+// The query fragments are staged with the same map, so each lane reads its
+// B fragment as one 8-byte word, and every dot product is unchanged. They
+// are zero past the item's count and past d. For int4 that zero is what
+// keeps a partial 128-byte step right: a zero-filled byte past the end of
+// a row widens to level -8, not 0, and only its zero query value cancels
+// it.
 template <int DT>
 __global__ void __launch_bounds__(G_THREADS, 3) ivf_grouped_kernel(
     const float* __restrict__ q, const int32_t* __restrict__ probe_ids,
@@ -470,7 +497,7 @@ __global__ void __launch_bounds__(G_THREADS, 3) ivf_grouped_kernel(
     float* __restrict__ out, const int4* __restrict__ items,
     const int32_t* __restrict__ n_items, const int32_t* __restrict__ entries,
     int nprobe, int nlist, int cap, int d, int direct, int span_chunks) {
-  constexpr int E = DT == DT_BF16 ? 8 : 16;   // elements a 16-byte piece
+  constexpr int E = DT == DT_BF16 ? 8 : DT == DT_INT8 ? 16 : 32;
   constexpr int KPS = E / 2;                  // k16 slices a step
   extern __shared__ __align__(16) uint8_t smem[];
   int* ents = reinterpret_cast<int*>(smem);                          // [N_MAX]
@@ -496,26 +523,36 @@ __global__ void __launch_bounds__(G_THREADS, 3) ivf_grouped_kernel(
       orow[r] = NEG;
     return;
   }
-  const long long row_bytes = (long long)d * (DT == DT_BF16 ? 2 : 1);
+  const long long row_bytes = grouped_row_bytes(d, DT);
   const int nsteps = (int)((row_bytes + STEP_BYTES - 1) / STEP_BYTES);
   const int ks_total = nsteps * KPS;
   const int nt_count = (count + 7) >> 3;
   if (threadIdx.x < count)
     ents[threadIdx.x] = direct ? first : entries[first + threadIdx.x];
   __syncthreads();
-  // the item's queries, bf16-rounded, as B fragments [nt][k16 slice][lane]
-  // (zero past the item's count and past d)
-  const int groups = nsteps * 2 * E;            // 4-element groups a row
+  // the item's queries, bf16-rounded, as B fragments [nt][k16 slice][lane]:
+  // group i of a query row is one lane's 8 bytes of one slice; d0 is the
+  // first dim of its 4 (bf16, int8) or of its word's 8 (int4)
+  const int groups = ks_total * 4;
   for (int i = threadIdx.x; i < nt_count * 8 * groups; i += G_THREADS) {
-    const int n = i / groups, d0 = 4 * (i - n * groups);
+    const int n = i / groups, gi = i - n * groups;
+    const int d0 = DT == DT_INT4 ? 8 * (gi >> 1) : 4 * gi;
     const int e = d0 % (8 * E);
-    const int pp = e / (4 * E), t = (e % (4 * E)) / E, h = (e % E) / 4;
+    const int pp = e / (4 * E), t = (e % (4 * E)) / E;
+    const int h = DT == DT_INT4 ? 2 * ((e % E) / 8) + (gi & 1) : (e % E) / 4;
     const int ks = (d0 / (8 * E)) * KPS + pp * (E / 4) + h;
     uint2 v = make_uint2(0u, 0u);
     if (n < count && d0 < d) {
-      const float4 f = *reinterpret_cast<const float4*>(
-          q + (long long)(ents[n] / nprobe) * d + d0);
-      v = make_uint2(bf16x2(f.x, f.y), bf16x2(f.z, f.w));
+      const float* qr = q + (long long)(ents[n] / nprobe) * d + d0;
+      if constexpr (DT == DT_INT4) {
+        const int c = 2 * (gi & 1);
+        const float2 lo = *reinterpret_cast<const float2*>(qr + c);
+        const float2 hi = *reinterpret_cast<const float2*>(qr + c + 4);
+        v = make_uint2(bf16x2(lo.x, hi.x), bf16x2(lo.y, hi.y));
+      } else {
+        const float4 f = *reinterpret_cast<const float4*>(qr);
+        v = make_uint2(bf16x2(f.x, f.y), bf16x2(f.z, f.w));
+      }
     }
     frag[((n >> 3) * ks_total + ks) * 32 + (n & 7) * 4 + t] = v;
   }
@@ -580,9 +617,17 @@ __global__ void __launch_bounds__(G_THREADS, 3) ivf_grouped_kernel(
         a2 = word(cur[pp], 2 * h + 1);
         a1 = word(cur[2 + pp], 2 * h);
         a3 = word(cur[2 + pp], 2 * h + 1);
-      } else {
+      } else if constexpr (DT == DT_INT8) {
         widen_int8(word(cur[pp], h), a0, a2);
         widen_int8(word(cur[2 + pp], h), a1, a3);
+      } else {
+        const int sh = 8 * (h & 1);
+        const uint32_t wa = word(cur[pp], h >> 1) >> sh;
+        const uint32_t wb = word(cur[2 + pp], h >> 1) >> sh;
+        a0 = int4_pair(wa);
+        a2 = int4_pair(wa >> 4);
+        a1 = int4_pair(wb);
+        a3 = int4_pair(wb >> 4);
       }
       const uint2* fb = frag + (s * KPS + r) * 32 + lane;
 #pragma unroll
@@ -620,9 +665,9 @@ __global__ void __launch_bounds__(G_THREADS, 3) ivf_grouped_kernel(
 // shared memory of a grouped block: the item's entry ids and its query
 // fragments (one column tile in direct mode)
 size_t grouped_smem(int d, int dtype, int direct) {
-  const long long bytes = (long long)d * (dtype == DT_BF16 ? 2 : 1);
-  const long long steps = (bytes + STEP_BYTES - 1) / STEP_BYTES;
-  const long long kps = dtype == DT_BF16 ? 4 : 8;
+  const long long steps =
+      (grouped_row_bytes(d, dtype) + STEP_BYTES - 1) / STEP_BYTES;
+  const long long kps = dtype == DT_BF16 ? 4 : dtype == DT_INT8 ? 8 : 16;
   return N_MAX * sizeof(int) +
          (size_t)((direct ? 1 : NT_MAX) * steps * kps * 32 * sizeof(uint2));
 }
@@ -677,6 +722,37 @@ cudaError_t launch_grouped(const void* q, const void* ids, const void* parts,
   return cudaGetLastError();
 }
 
+// Both grouped entries: rejects a plan that does not cover the shape, then
+// launches the plan kernel (unless direct) and the board kernel.
+int grouped_entry(const void* q, const void* probe_ids, const void* parts,
+                  const void* scales, void* out, void* scratch, int nq,
+                  int nprobe, int nlist, int cap, int d, int dtype,
+                  int direct, int item_bound, int split, int span_chunks,
+                  void* stream) {
+  if (!shapes_ok(nq, nprobe, nlist, cap, d)) return cudaErrorInvalidValue;
+  if (dtype != DT_BF16 && dtype != DT_INT8 && dtype != DT_INT4)
+    return cudaErrorInvalidValue;
+  if ((dtype == DT_INT4 && d % 2 != 0) ||
+      grouped_row_bytes(d, dtype) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const long long n = (long long)nq * nprobe;
+  if (direct ? (item_bound < n || item_bound > (1 << 28))
+             : !plan_shape_ok(n, nlist, item_bound, scratch))
+    return cudaErrorInvalidValue;
+  const long long span_rows = (long long)span_chunks * G_ROWS;
+  if (split < 1 || split > 65535 || span_chunks < 1 ||
+      split * span_rows < cap || (split - 1) * span_rows >= cap)
+    return cudaErrorInvalidValue;
+  const size_t smem = grouped_smem(d, dtype, direct);
+  if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto launch = dtype == DT_BF16   ? &launch_grouped<DT_BF16>
+                : dtype == DT_INT8 ? &launch_grouped<DT_INT8>
+                                   : &launch_grouped<DT_INT4>;
+  return launch(q, probe_ids, parts, scales, out, scratch, nprobe, nlist, cap,
+                d, direct, item_bound, split, span_chunks, smem, n, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -721,28 +797,24 @@ int ivf_fused_dense_grouped(const void* q, const void* probe_ids,
                             int cap, int d, int dtype, int direct,
                             int item_bound, int split, int span_chunks,
                             void* stream) {
-  if (!shapes_ok(nq, nprobe, nlist, cap, d)) return cudaErrorInvalidValue;
-  if (dtype != DT_BF16 && dtype != DT_INT8) return cudaErrorInvalidValue;
-  if (((long long)d * (dtype == DT_BF16 ? 2 : 1)) % 16 != 0)
-    return cudaErrorInvalidValue;
-  const long long n = (long long)nq * nprobe;
-  if (direct ? (item_bound < n || item_bound > (1 << 28))
-             : !plan_shape_ok(n, nlist, item_bound, scratch))
-    return cudaErrorInvalidValue;
-  const long long span_rows = (long long)span_chunks * G_ROWS;
-  if (split < 1 || split > 65535 || span_chunks < 1 ||
-      split * span_rows < cap || (split - 1) * span_rows >= cap)
-    return cudaErrorInvalidValue;
-  const size_t smem = grouped_smem(d, dtype, direct);
-  if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_BF16)
-    return launch_grouped<DT_BF16>(q, probe_ids, parts, scales, out, scratch,
-                                   nprobe, nlist, cap, d, direct, item_bound,
-                                   split, span_chunks, smem, n, s);
-  return launch_grouped<DT_INT8>(q, probe_ids, parts, scales, out, scratch,
-                                 nprobe, nlist, cap, d, direct, item_bound,
-                                 split, span_chunks, smem, n, s);
+  if (dtype == DT_INT4) return cudaErrorInvalidValue;
+  return grouped_entry(q, probe_ids, parts, scales, out, scratch, nq, nprobe,
+                       nlist, cap, d, dtype, direct, item_bound, split,
+                       span_chunks, stream);
+}
+
+// The grouped variant of ivf_fused_int4: the same as
+// ivf_fused_dense_grouped, for packed-nibble tiles of d / 2 bytes a row
+// (d, the query's dims, a multiple of 32) and the f32 query [nq, d] itself
+// (no even/odd planes).
+int ivf_fused_int4_grouped(const void* q, const void* probe_ids,
+                           const void* parts, const void* scales, void* out,
+                           void* scratch, int nq, int nprobe, int nlist,
+                           int cap, int d, int direct, int item_bound,
+                           int split, int span_chunks, void* stream) {
+  return grouped_entry(q, probe_ids, parts, scales, out, scratch, nq, nprobe,
+                       nlist, cap, d, DT_INT4, direct, item_bound, split,
+                       span_chunks, stream);
 }
 
 // The probe plan alone (the grouped variant's first launch), for holding
@@ -755,6 +827,8 @@ int ivf_probe_plan(const void* probe_ids, void* scratch, void* out, int n,
                             item_bound, static_cast<cudaStream_t>(stream));
 }
 
+// The simt variant of ivf_fused_int4: the even and odd query planes
+// [nq, w] f32 against tiles of w bytes a row.
 int ivf_fused_int4(const void* qe, const void* qo, const void* probe_ids,
                    const void* parts, const void* scales, void* out, int nq,
                    int nprobe, int nlist, int cap, int w, int vec_ok,

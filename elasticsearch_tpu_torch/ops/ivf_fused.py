@@ -11,20 +11,23 @@ of padding slots and one top-k finish the search.
 
 Kernels (`csrc/ivf_fused.cu`): `ivf_fused_dense` (f32, bf16 and int8
 tiles, bf16 operands, f32 accumulate, × per-row scale) and
-`ivf_fused_int4` (packed nibbles against the even/odd query planes). Slots
+`ivf_fused_int4` (packed nibbles: widened to bf16 levels against the
+query itself, or, on its simt variant, scored against the even/odd query
+planes). Slots
 whose scale is ≤ 0 (every padding slot) score NEG_INF. Each wrapper
 launches its kernel for CUDA tensors, or raises; it runs the plain PyTorch
 version (`probe_board_reference`) only for tensors on the CPU, so the CPU
 tests follow the card's route. Eligibility alone decides the route: the
 dot-like metrics at bf16 precision on any of the four tile types.
 
-`ivf_fused_dense` comes in two variants, picked by `launch_plan` from the
-shape: `grouped` (bf16 and int8 tiles whose row bytes are a multiple of
-16: each probed tile is read once for every (query, probe) entry that
-names it, grouped by a probe plan built on the card, and scored with
-tensor-core mma) and `simt` (f32 tiles and ragged rows: one block per
-(row chunk, probe, query)). `probe_plan_reference` is the plain version of
-the probe plan.
+Both kernels come in two variants, picked by `launch_plan` from the
+shape: `grouped` (bf16, int8 and int4 tiles whose row bytes are a
+multiple of 16: each probed tile is read once for every (query, probe)
+entry that names it, grouped by a probe plan built on the card, and
+scored with tensor-core mma) and `simt` (f32 tiles and ragged rows: one
+block per (row chunk, probe, query)). `probe_plan_reference` is the plain
+version of the probe plan, `int4_k_order` the grouped int4 kernel's
+fragment layout.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ KERNEL_INT4 = "ivf_fused_int4"
 # tile dtype -> the dense kernel's dtype code
 _DENSE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-# launch plan of ivf_fused_dense (mirrors the constants of csrc/ivf_fused.cu)
+# launch plan of both kernels (mirrors the constants of csrc/ivf_fused.cu)
 VARIANT_GROUPED = "grouped"
 VARIANT_SIMT = "simt"
 N_MAX = 32                   # entries (query columns) a work item
@@ -64,11 +67,12 @@ MIN_BLOCKS = 1024
 
 
 class LaunchPlan(NamedTuple):
-    """How one `ivf_fused_dense` launch is cut: `variant`; for `grouped`,
+    """How one fused launch is cut: `variant`; for `grouped`,
     whether each entry is its own item (`direct`: one query, no plan
     kernel), the bound on work items (the grid's x), the row spans a tile
     (`split`, each of `span_chunks` 128-row chunks), the grid and the board
-    kernel's shared memory (simt: the staged f32 query)."""
+    kernel's shared memory (simt: the staged f32 query, or the int4
+    kernel's two planes)."""
     variant: str
     direct: bool
     item_bound: int
@@ -78,12 +82,19 @@ class LaunchPlan(NamedTuple):
     smem_bytes: int
 
 
-def _grouped_smem(d: int, itemsize: int, direct: bool) -> int:
+def row_bytes(d: int, dtype: torch.dtype) -> int:
+    """The bytes of one tile row of d dims (int4, uint8: two dims a
+    byte)."""
+    return d // 2 if dtype == torch.uint8 else d * dtype.itemsize
+
+
+def _grouped_smem(d: int, dtype: torch.dtype, direct: bool) -> int:
     """Shared memory of a grouped block (csrc `grouped_smem`): the item's
     entry ids and its query fragments, 8 bytes a lane a k16 slice a column
-    tile (4 slices a 128-byte step for bf16, 8 for int8)."""
-    steps = -(-d * itemsize // STEP_BYTES)
-    kps = 4 if itemsize == 2 else 8
+    tile (a 128-byte step holds 4 slices of bf16, 8 of int8, 16 of
+    int4)."""
+    steps = -(-row_bytes(d, dtype) // STEP_BYTES)
+    kps = {torch.bfloat16: 4, torch.int8: 8, torch.uint8: 16}[dtype]
     tiles = 1 if direct else N_MAX // 8
     return N_MAX * 4 + tiles * steps * kps * 32 * 8
 
@@ -99,20 +110,22 @@ def item_bound(nq: int, nprobe: int, nlist: int) -> int:
 @functools.lru_cache(maxsize=1024)
 def launch_plan(nq: int, nprobe: int, nlist: int, cap: int, d: int,
                 dtype: torch.dtype) -> LaunchPlan:
-    """The `ivf_fused_dense` launch of nq x nprobe probes into [nlist, cap,
-    d] tiles of `dtype`. bf16 and int8 rows whose byte width is a multiple
-    of 16 take `grouped` when its query fragments fit in shared memory (d
-    up to 3,584) and, past one query, when the plan's histogram does (nlist
-    up to 32,768); everything else takes `simt`. A single query needs no
+    """The fused launch of nq x nprobe probes of d-dim queries into nlist
+    tiles of cap rows of `dtype` (uint8: packed int4, d / 2 bytes a row;
+    `ivf_fused_int4`, else `ivf_fused_dense`). bf16, int8 and int4 rows
+    whose byte width is a multiple of 16 take `grouped` when its query
+    fragments fit in shared memory (bf16 d up to 3,584) and, past one
+    query, when the plan's histogram does (nlist up to 32,768); everything
+    else takes `simt`. A single query needs no
     plan: each probe is its own item. The rows of a tile are cut into the
     fewest spans that give MIN_BLOCKS blocks over the items the grid surely
     holds (n / N_MAX, or n when direct). Memoized: a request pays the
     lookup, not the search."""
     n = nq * nprobe
-    itemsize = dtype.itemsize
     direct = nq == 1
-    if dtype not in (torch.bfloat16, torch.int8) or (d * itemsize) % 16 \
-            or _grouped_smem(d, itemsize, direct) > MAX_SMEM \
+    if dtype not in (torch.bfloat16, torch.int8, torch.uint8) \
+            or d % 2 or row_bytes(d, dtype) % 16 \
+            or _grouped_smem(d, dtype, direct) > MAX_SMEM \
             or (not direct and nlist > PLAN_MAX_NLIST):
         return LaunchPlan(VARIANT_SIMT, False, 0, 0, 0,
                           (-(-cap // SIMT_ROWS), nprobe, nq), d * 4)
@@ -122,7 +135,28 @@ def launch_plan(nq: int, nprobe: int, nlist: int, cap: int, d: int,
     span = max(1, chunks // -(-MIN_BLOCKS // least))
     split = -(-chunks // span)
     return LaunchPlan(VARIANT_GROUPED, direct, bound, split, span,
-                      (bound, split), _grouped_smem(d, itemsize, direct))
+                      (bound, split), _grouped_smem(d, dtype, direct))
+
+
+def int4_k_order() -> torch.Tensor:
+    """The grouped int4 kernel's K order in one 128-byte step (256 dims),
+    as its query staging lays out the B fragments: [16 k16 slices, 4 lanes
+    t, 2 registers, 2 halves] -> the dim of the step. Register 0 holds the
+    fragment's k = 2t, 2t+1 (A: a0 of row g, a1 of row g + 8; B: b0),
+    register 1 k = 2t+8, 2t+9 (a2, a3; b1). Lane t reads pieces t and 4 + t
+    (pp = 0, 1; 32 dims each), and slice 8 pp + 2i + c comes from word i of
+    its piece: dims (2c, 2c+4) in register 0 and (2c+1, 2c+5) in register
+    1, the pairs that one widening of the word shifted by 8c (and by 8c +
+    4) gives."""
+    e = 32                                    # int4 values a 16-byte piece
+    order = torch.empty((16, 4, 2, 2), dtype=torch.int64)
+    for gi in range(16 * 4):                  # the csrc staging loop's groups
+        d0, c = 8 * (gi >> 1), gi & 1
+        pp, t = d0 // (4 * e), (d0 % (4 * e)) // e
+        ks = pp * (e // 4) + 2 * ((d0 % e) // 8) + c
+        a = d0 + 2 * c
+        order[ks, t] = torch.tensor([[a, a + 4], [a + 1, a + 5]])
+    return order
 
 
 def fused_eligible(parts_dtype, metric: str, precision: str = "bf16") -> bool:
@@ -195,6 +229,9 @@ def _lib() -> ctypes.CDLL:
         lib.ivf_fused_dense_grouped.argtypes = [p, p, p, p, p, p,
                                                 *[i] * 10, p]
         lib.ivf_fused_dense_grouped.restype = ctypes.c_int
+        lib.ivf_fused_int4_grouped.argtypes = [p, p, p, p, p, p,
+                                               *[i] * 9, p]
+        lib.ivf_fused_int4_grouped.restype = ctypes.c_int
         lib.ivf_probe_plan.argtypes = [p, p, p, i, i, i, i, p]
         lib.ivf_probe_plan.restype = ctypes.c_int
         lib.ivf_fused_int4.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
@@ -205,9 +242,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_inputs(query_planes, ivf: IVFPartitions, probe_ids) -> None:
+def _check_inputs(query_planes, ivf: IVFPartitions, probe_ids,
+                  width: int) -> None:
     """Raise on anything the kernels do not take: they read every pointer
-    at the sizes given here."""
+    at the sizes given here (each query plane [Q, width])."""
     parts, scales = ivf.parts, ivf.part_scales
     tensors = (*query_planes, probe_ids, parts, scales)
     dev = parts.device
@@ -221,7 +259,7 @@ def _check_inputs(query_planes, ivf: IVFPartitions, probe_ids) -> None:
     nq = probe_ids.shape[0] if probe_ids.dim() == 2 else -1
     if parts.dim() != 3 or scales.shape != parts.shape[:2] \
             or probe_ids.dim() != 2 or nq < 1 or probe_ids.shape[1] < 1 \
-            or any(t.dim() != 2 or t.shape != (nq, parts.shape[2])
+            or any(t.dim() != 2 or t.shape != (nq, width)
                    for t in query_planes):
         raise ValueError(
             f"shape mismatch: queries {[tuple(t.shape) for t in query_planes]}"
@@ -280,7 +318,8 @@ def probe_board(queries: torch.Tensor, ivf: IVFPartitions,
     """The [Q, nprobe, cap] f32 board of metric-prepped queries [Q, D]
     against the tiles named by probe_ids [Q, nprobe] int32: the
     `ivf_fused_int4` kernel for packed int4 tiles, `ivf_fused_dense` for
-    f32/bf16/int8 tiles on CUDA; the plain version on the CPU."""
+    f32/bf16/int8 tiles on CUDA, each in the variant `launch_plan` names;
+    the plain version on the CPU."""
     if queries.device.type == "cpu" and ivf.parts.device.type == "cpu":
         return probe_board_reference(queries, ivf, probe_ids)
     nlist, cap, w = ivf.parts.shape
@@ -291,39 +330,46 @@ def probe_board(queries: torch.Tensor, ivf: IVFPartitions,
     code = _DENSE_CODES.get(ivf.parts.dtype)
     if code is None and not int4:
         raise TypeError(f"no fused kernel for {ivf.parts.dtype} tiles")
-    planes = quant_codec.split_query_planes(q) if int4 else (q,)
-    _check_inputs(planes, ivf, probe_ids)
+    d = 2 * w if int4 else w                  # the queries' dims
+    plan = launch_plan(nq, nprobe, nlist, cap, d, ivf.parts.dtype)
+    simt = plan.variant == VARIANT_SIMT
+    if int4 and simt:                         # the even and odd planes [Q, w]
+        planes, width = quant_codec.split_query_planes(q), w
+    else:
+        planes, width = (q,), d
+    _check_inputs(planes, ivf, probe_ids, width)
     out = torch.empty((nq, nprobe, cap), dtype=torch.float32,
                       device=ivf.parts.device)
     lib = _lib()
     stream = torch.cuda.current_stream(ivf.parts.device).cuda_stream
-    if int4:
-        _launch(KERNEL_INT4, lib.ivf_fused_int4,
-                planes[0].data_ptr(), planes[1].data_ptr(),
-                probe_ids.data_ptr(), ivf.parts.data_ptr(),
-                ivf.part_scales.data_ptr(), out.data_ptr(),
-                nq, nprobe, nlist, cap, w, int(w % 16 == 0), stream)
-        return out
-    plan = launch_plan(nq, nprobe, nlist, cap, w, ivf.parts.dtype)
-    if plan.variant == VARIANT_SIMT:
-        row_bytes = w * ivf.parts.element_size()
-        _launch(KERNEL_DENSE, lib.ivf_fused_dense,
-                q.data_ptr(), probe_ids.data_ptr(), ivf.parts.data_ptr(),
-                ivf.part_scales.data_ptr(), out.data_ptr(),
-                nq, nprobe, nlist, cap, w, code, int(row_bytes % 16 == 0),
-                stream, variant=VARIANT_SIMT)
+    board = (probe_ids.data_ptr(), ivf.parts.data_ptr(),
+             ivf.part_scales.data_ptr(), out.data_ptr())
+    if simt:
+        vec_ok = int(row_bytes(d, ivf.parts.dtype) % 16 == 0)
+        if int4:
+            _launch(KERNEL_INT4, lib.ivf_fused_int4, planes[0].data_ptr(),
+                    planes[1].data_ptr(), *board, nq, nprobe, nlist, cap, w,
+                    vec_ok, stream, variant=VARIANT_SIMT)
+        else:
+            _launch(KERNEL_DENSE, lib.ivf_fused_dense, q.data_ptr(), *board,
+                    nq, nprobe, nlist, cap, d, code, vec_ok, stream,
+                    variant=VARIANT_SIMT)
         return out
     if q.data_ptr() % 16:            # the kernel reads query rows as float4
         q = q.clone()
     scratch = None if plan.direct else _plan_scratch(
         nq * nprobe, plan.item_bound, out.device)
-    _launch(KERNEL_DENSE, lib.ivf_fused_dense_grouped,
-            q.data_ptr(), probe_ids.data_ptr(), ivf.parts.data_ptr(),
-            ivf.part_scales.data_ptr(), out.data_ptr(),
+    cut = (int(plan.direct), plan.item_bound, plan.split, plan.span_chunks,
+           stream)
+    args = (q.data_ptr(), *board,
             None if scratch is None else scratch.data_ptr(),
-            nq, nprobe, nlist, cap, w, code, int(plan.direct),
-            plan.item_bound, plan.split, plan.span_chunks, stream,
-            variant=VARIANT_GROUPED)
+            nq, nprobe, nlist, cap, d)
+    if int4:
+        _launch(KERNEL_INT4, lib.ivf_fused_int4_grouped, *args, *cut,
+                variant=VARIANT_GROUPED)
+    else:
+        _launch(KERNEL_DENSE, lib.ivf_fused_dense_grouped, *args, code,
+                *cut, variant=VARIANT_GROUPED)
     return out
 
 

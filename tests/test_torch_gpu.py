@@ -173,9 +173,13 @@ def _check_board(got, want):
         assert float((got[~neg] - want[~neg]).abs().max()) <= tol
 
 
+def _kernel(dtype):
+    return fused.KERNEL_INT4 if dtype == torch.uint8 else fused.KERNEL_DENSE
+
+
 def _grouped_launch(q, ivf, ids):
     """probe_board, asserting it took the grouped variant once."""
-    key = f"{fused.KERNEL_DENSE}/{fused.VARIANT_GROUPED}"
+    key = f"{_kernel(ivf.parts.dtype)}/{fused.VARIANT_GROUPED}"
     before = dispatch.variant_launches().get(key, 0)
     got = fused.probe_board(q, ivf, ids)
     torch.cuda.synchronize()
@@ -184,15 +188,18 @@ def _grouped_launch(q, ivf, ids):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
-@pytest.mark.parametrize("d", [64, 768, 960])
+@pytest.mark.parametrize("dtype,d", [
+    *[(dt, d) for dt in (torch.bfloat16, torch.int8) for d in (64, 768, 960)],
+    *[(torch.uint8, d) for d in (32, 64, 96, 288, 768)]])
 @pytest.mark.parametrize("nprobe", [1, 4, 32])
 @pytest.mark.parametrize("nq", [1, 9, 300])
 def test_ivf_grouped_matches_plain_version(cuda, dtype, d, nprobe, nq):
-    """The grouped variant of ivf_fused_dense at cap 300 (two full 128-row
-    chunks and a ragged one): NEG_INF at the same slots, the rest within
-    1e-5 of the largest |score|; at Q=300, nprobe 32 each of the 40
-    partitions is probed ~240 times (8 items of at most 32 entries)."""
+    """The grouped variants of ivf_fused_dense and ivf_fused_int4 at cap
+    300 (two full 128-row chunks and a ragged one): NEG_INF at the same
+    slots, the rest within 1e-5 of the largest |score|; at Q=300, nprobe 32
+    each of the 40 partitions is probed ~240 times (8 items of at most 32
+    entries). int4 D=32, 64, 96 and 288 (16-144 bytes) end in a partial
+    128-byte step, whose zero-filled bytes widen to level -8."""
     g = torch.Generator(device=cuda).manual_seed(d + nq + nprobe)
     nlist, cap = 40, 300
     ivf = _random_partitions(g, cuda, dtype, nlist, cap, d)
@@ -203,7 +210,7 @@ def test_ivf_grouped_matches_plain_version(cuda, dtype, d, nprobe, nq):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.uint8])
 @pytest.mark.parametrize("case", ["skewed", "duplicates", "out_of_range",
                                   "all_out_of_range"])
 @pytest.mark.parametrize("nq", [1, 70])
@@ -237,20 +244,20 @@ def test_ivf_grouped_hard_probe_ids(cuda, dtype, case, nq):
 @pytest.mark.parametrize("dtype,d,variant", [
     (torch.bfloat16, 64, "grouped"), (torch.int8, 64, "grouped"),
     (torch.float32, 64, "simt"), (torch.bfloat16, 100, "simt"),
-    (torch.int8, 100, "simt"), (torch.float32, 100, "simt")])
+    (torch.int8, 100, "simt"), (torch.float32, 100, "simt"),
+    (torch.uint8, 64, "grouped"), (torch.uint8, 100, "simt")])
 @pytest.mark.parametrize("nq", [1, 9])
 def test_ivf_dense_counts_its_variant(cuda, dtype, d, variant, nq):
-    """Each ivf_fused_dense launch counts once under the variant its plan
-    names, and ivf_fused_int4 under none."""
+    """Each ivf_fused_dense and ivf_fused_int4 launch counts once, under
+    the variant its plan names (int4 D=100: 50-byte rows, simt)."""
     g = torch.Generator(device=cuda).manual_seed(d)
     ivf = _random_partitions(g, cuda, dtype, 12, 150, d)
     ids = torch.randint(0, 12, (nq, 4), generator=g, device=cuda,
                         dtype=torch.int32)
     dispatch.reset_launches()
     fused.probe_board(torch.randn(nq, d, device=cuda), ivf, ids)
-    assert dispatch.launches() == {fused.KERNEL_DENSE: 1}
-    assert dispatch.variant_launches() == {
-        f"{fused.KERNEL_DENSE}/{variant}": 1}
+    assert dispatch.launches() == {_kernel(dtype): 1}
+    assert dispatch.variant_launches() == {f"{_kernel(dtype)}/{variant}": 1}
 
 
 @pytest.mark.gpu
@@ -281,18 +288,20 @@ def test_ivf_probe_plan_matches_plain_version(cuda, nq, nprobe, nlist, hot):
 
 
 @pytest.mark.gpu
-def test_ivf_grouped_rejected_plan_raises(cuda, monkeypatch):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.uint8])
+def test_ivf_grouped_rejected_plan_raises(cuda, monkeypatch, dtype):
     """A CUDA launch whose plan does not cover the shape raises: the C
     entry rejects it, and nothing falls back to simt or the plain
     version."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    ivf = _random_partitions(g, cuda, torch.bfloat16, 12, 150, 64)
+    ivf = _random_partitions(g, cuda, dtype, 12, 150, 64)
     ids = torch.randint(0, 12, (9, 4), generator=g, device=cuda,
                         dtype=torch.int32)
-    plan = fused.launch_plan(9, 4, 12, 150, 64, torch.bfloat16)
+    plan = fused.launch_plan(9, 4, 12, 150, 64, dtype)
     short = plan._replace(item_bound=plan.item_bound - 1)
     monkeypatch.setattr(fused, "launch_plan", lambda *a: short)
-    with pytest.raises(RuntimeError, match="ivf_fused_dense launch failed"):
+    with pytest.raises(RuntimeError,
+                       match=f"{_kernel(dtype)} launch failed"):
         fused.probe_board(torch.randn(9, 64, device=cuda), ivf, ids)
 
 

@@ -132,7 +132,8 @@ class _FakeLib:
         return self.code
 
     knn_binned_bf16 = knn_binned_int8 = _launch
-    ivf_fused_dense = ivf_fused_dense_grouped = ivf_fused_int4 = _launch
+    ivf_fused_dense = ivf_fused_dense_grouped = _launch
+    ivf_fused_int4 = ivf_fused_int4_grouped = _launch
     maxsim_dense = maxsim_int4 = _launch
 
     def cuda_error_string(self, code):
@@ -221,12 +222,18 @@ def test_ivf_fused_wrappers_launch_or_raise_never_plain(monkeypatch, code):
                         lambda shape, dtype, device: _FakeCuda(shape, dtype))
     monkeypatch.setattr(ivf_fused.torch.cuda, "current_stream",
                         lambda device=None: type("S", (), {"cuda_stream": 0}))
-    cases = [(ivf_fused.KERNEL_DENSE, dt, 32)
-             for dt in (torch.float32, torch.bfloat16, torch.int8)]
-    cases.append((ivf_fused.KERNEL_INT4, torch.uint8, 16))
-    for name, dtype, w in cases:
+    simt, grouped = ivf_fused.VARIANT_SIMT, ivf_fused.VARIANT_GROUPED
+    # (kernel, tiles, row width, query dims, the variant counted): f32
+    # tiles keep the simt kernel, bf16, int8 and int4 rows of a multiple of
+    # 16 bytes go grouped, ragged int4 rows (50 bytes) stay simt
+    cases = [(ivf_fused.KERNEL_DENSE, torch.float32, 32, 32, simt),
+             (ivf_fused.KERNEL_DENSE, torch.bfloat16, 32, 32, grouped),
+             (ivf_fused.KERNEL_DENSE, torch.int8, 32, 32, grouped),
+             (ivf_fused.KERNEL_INT4, torch.uint8, 16, 32, grouped),
+             (ivf_fused.KERNEL_INT4, torch.uint8, 50, 100, simt)]
+    for name, dtype, w, d, variant in cases:
         ivf = _fake_ivf(dtype, w=w)
-        q = _FakeCuda((5, 32), torch.float32)
+        q = _FakeCuda((5, d), torch.float32)
         ids = _FakeCuda((5, 4), torch.int32)
         before = dispatch.launches().get(name, 0)
         if code:
@@ -238,13 +245,9 @@ def test_ivf_fused_wrappers_launch_or_raise_never_plain(monkeypatch, code):
             out = ivf_fused.probe_board(q, ivf, ids)
             assert out.shape == (5, 4, 24)
             assert dispatch.launches().get(name, 0) == before + 1
-            if name == ivf_fused.KERNEL_DENSE:
-                # f32 tiles keep the simt kernel, bf16 and int8 go grouped
-                key = f"{name}/" + (ivf_fused.VARIANT_SIMT
-                                    if dtype == torch.float32
-                                    else ivf_fused.VARIANT_GROUPED)
-                assert dispatch.variant_launches().get(key, 0) \
-                    == variants.get(key, 0) + 1
+            key = f"{name}/{variant}"
+            assert dispatch.variant_launches().get(key, 0) \
+                == variants.get(key, 0) + 1
     assert lib.calls == len(cases)
 
 

@@ -1,11 +1,13 @@
-"""The fused dense IVF kernel's launch plan and probe plan
+"""The fused IVF kernels' launch plan and probe plan
 (`ops/ivf_fused.py::launch_plan`, `probe_plan_reference`), which the CUDA
 entry points take as given: which variant a shape takes, how many work
 items the grid must hold, how a tile's rows are cut into spans, and how
 the (query, probe) entries are grouped by partition into items of at most
-N_MAX. All of it runs on the CPU; the kernels themselves (the plan kernel
-among them) are held against their plain versions on the card by
-`tests/test_torch_gpu.py` and `chip_smoke.py`."""
+N_MAX; and the grouped int4 kernel's fragment layout (`int4_k_order`)
+against an emulation of its nibble widening. All of it runs on the CPU;
+the kernels themselves (the plan kernel among them) are held against
+their plain versions on the card by `tests/test_torch_gpu.py` and
+`chip_smoke.py`."""
 
 import numpy as np
 import pytest
@@ -17,16 +19,21 @@ from elasticsearch_tpu_torch.ops import dispatch
 from elasticsearch_tpu_torch.ops import ivf_fused as fused
 from elasticsearch_tpu_torch.ops.knn_ivf import IVFPartitions
 from elasticsearch_tpu_torch.ops.similarity import NEG_INF
+from elasticsearch_tpu_torch.quant import codec
 
-BF16, INT8, F32 = torch.bfloat16, torch.int8, torch.float32
+BF16, INT8, F32, UINT8 = torch.bfloat16, torch.int8, torch.float32, \
+    torch.uint8
 
 # (Q, nprobe, nlist, cap, D, tiles) of the served paths: gist `ivf` (bf16
-# 960) and cohere `int8_ivf` (768) at batch 1 with the tuned nprobe, the
-# batched store call (64 queries) and the kernel phase's Q=256, nprobe 32
+# 960), cohere `int8_ivf` and `int4_ivf` (768; uint8 tiles of 384 packed
+# bytes) at batch 1 with the tuned nprobe, the batched store call (64
+# queries) and the kernel phase's Q=256, nprobe 32
 SERVED = [(1, 8, 1024, 1472, 960, BF16), (1, 32, 1024, 1472, 960, BF16),
           (64, 8, 1024, 1472, 960, BF16), (256, 32, 1024, 1472, 960, BF16),
           (1, 16, 1024, 1472, 768, INT8), (64, 16, 1024, 1472, 768, INT8),
-          (256, 32, 1024, 1472, 768, INT8)]
+          (256, 32, 1024, 1472, 768, INT8), (1, 16, 1024, 1472, 768, UINT8),
+          (64, 16, 1024, 1472, 768, UINT8),
+          (256, 32, 1024, 1472, 768, UINT8)]
 
 
 def _chunks(cap):
@@ -57,16 +64,30 @@ def test_q256_cuts_tiles_into_four_spans():
     assert 3 * plan.smem_bytes <= 228 * 1024
 
 
+def test_int4_stages_as_many_fragments_as_int8():
+    """D=768 int4 rows (384 bytes, 3 steps of 16 k16 slices) stage the same
+    query fragments as D=768 int8 rows (768 bytes, 6 steps of 8): 49,280
+    bytes at four column tiles, the same grid."""
+    int4 = fused.launch_plan(256, 32, 1024, 1472, 768, UINT8)
+    int8 = fused.launch_plan(256, 32, 1024, 1472, 768, INT8)
+    assert int4.smem_bytes == 32 * 4 + 4 * 3 * 16 * 32 * 8 == 49280
+    assert int4 == int8
+    assert fused.row_bytes(768, UINT8) == 384
+
+
 @pytest.mark.parametrize("d,dtype,variant", [
     (8, BF16, "grouped"), (48, BF16, "grouped"), (64, BF16, "grouped"),
     (768, BF16, "grouped"), (960, BF16, "grouped"), (100, BF16, "simt"),
     (4, BF16, "simt"), (16, INT8, "grouped"), (48, INT8, "grouped"),
     (768, INT8, "grouped"), (100, INT8, "simt"), (24, INT8, "simt"),
-    (64, F32, "simt"), (960, F32, "simt")])
+    (64, F32, "simt"), (960, F32, "simt"), (32, UINT8, "grouped"),
+    (64, UINT8, "grouped"), (96, UINT8, "grouped"), (288, UINT8, "grouped"),
+    (768, UINT8, "grouped"), (100, UINT8, "simt"), (4, UINT8, "simt")])
 @pytest.mark.parametrize("nq", [1, 9, 300])
 def test_variant_follows_dtype_and_row_width(d, dtype, variant, nq):
-    """bf16 and int8 rows of a multiple of 16 bytes take grouped; ragged
-    rows and f32 tiles keep the first port's simt kernel."""
+    """bf16, int8 and int4 rows of a multiple of 16 bytes take grouped (d
+    counts dims: an int4 row holds d / 2 bytes); ragged rows and f32 tiles
+    keep the first port's simt kernels."""
     plan = fused.launch_plan(nq, 4, 12, 150, d, dtype)
     assert plan.variant == variant
     if variant == fused.VARIANT_SIMT:
@@ -158,9 +179,11 @@ def test_item_bound_is_reached():
 
 
 def _partitions(rng, dtype, nlist, cap, d):
-    if dtype == INT8:
-        parts = torch.from_numpy(rng.integers(-127, 128, (nlist, cap, d))
-                                 .astype(np.int8))
+    if dtype in (INT8, UINT8):
+        lo, hi, w, np_dtype = (-127, 128, d, np.int8) if dtype == INT8 \
+            else (0, 256, d // 2, np.uint8)
+        parts = torch.from_numpy(rng.integers(lo, hi, (nlist, cap, w))
+                                 .astype(np_dtype))
         scales = torch.from_numpy(rng.random((nlist, cap)).astype(
             np.float32)) / 50 + 1e-3
     else:
@@ -185,13 +208,23 @@ def expected_board(q, ivf, ids):
     return torch.where(bad[:, :, None], torch.full_like(want, NEG_INF), want)
 
 
+def _tile_rows(tile):
+    """A tile's rows as f32 [rows, D]: bf16-rounded values, or int4
+    levels (the codec's planes, even dims low nibble) in dim order."""
+    if tile.dtype == UINT8:
+        lo, hi = codec.int4_planes(tile)
+        return torch.stack([lo, hi], dim=-1).reshape(len(tile), -1).to(F32)
+    return tile.to(torch.bfloat16).to(F32)
+
+
 def _grouped_board(q, ivf, ids):
     """The board assembled the way the grouped kernel cuts it: the plan's
     items, each against every row span of its tile (bf16 operands, f32
     sums), invalid entries' rows NEG_INF, every slot written once."""
     nq, nprobe = ids.shape
-    nlist, cap, d = ivf.parts.shape
+    nlist, cap, d = ivf.parts.shape[0], ivf.parts.shape[1], q.shape[1]
     plan = fused.launch_plan(nq, nprobe, nlist, cap, d, ivf.parts.dtype)
+    assert plan.variant == fused.VARIANT_GROUPED
     entries, items, invalid = fused.probe_plan_reference(ids, nlist)
     board = torch.full((nq * nprobe, cap), float("nan"))
     board[invalid.long()] = NEG_INF
@@ -202,7 +235,7 @@ def _grouped_board(q, ivf, ids):
         for y in range(plan.split):
             r0, r1 = y * span, min(cap, (y + 1) * span)
             assert board[ents, r0:r1].isnan().all()
-            tile = ivf.parts[p, r0:r1].to(torch.bfloat16).to(torch.float32)
+            tile = _tile_rows(ivf.parts[p, r0:r1])
             s = qb[ents // nprobe] @ tile.T
             scale = ivf.part_scales[p, r0:r1]
             board[ents, r0:r1] = torch.where(scale > 0, s * scale,
@@ -211,7 +244,8 @@ def _grouped_board(q, ivf, ids):
     return board.view(nq, nprobe, cap)
 
 
-@pytest.mark.parametrize("dtype,d", [(BF16, 64), (INT8, 48), (BF16, 960)])
+@pytest.mark.parametrize("dtype,d", [(BF16, 64), (INT8, 48), (BF16, 960),
+                                     (UINT8, 64), (UINT8, 288)])
 @pytest.mark.parametrize("nq,hot,bad", [(1, 0, 0.0), (9, 0, 0.0),
                                         (70, 2, 0.0), (40, 1, 0.2)])
 def test_grouped_cut_gives_the_plain_board(dtype, d, nq, hot, bad):
@@ -220,7 +254,8 @@ def test_grouped_cut_gives_the_plain_board(dtype, d, nq, hot, bad):
     same slots, the rest within f32 sum order. Hot partitions (probed by
     every query, more than N_MAX entries at Q=70) split into several
     items; out-of-range ids and duplicate ids within a query are their
-    own entries."""
+    own entries. int4 rows score their codec levels; D=288 (144 bytes)
+    ends in a partial 128-byte step."""
     rng = np.random.default_rng(nq + d)
     nlist, cap, nprobe = 7, 300, 6
     ivf = _partitions(rng, dtype, nlist, cap, d)
@@ -246,3 +281,89 @@ def test_cpu_wrapper_counts_no_launch():
     entries, items = fused.probe_plan(ids, 5)
     want_e, want_i, _ = fused.probe_plan_reference(ids, 5)
     assert torch.equal(entries, want_e) and torch.equal(items, want_i)
+
+
+# ------------------------------------------------- the int4 fragment layout
+
+def _bf16_bits(bits):
+    """bf16 bit patterns (uint32 < 2^16) as f32 values."""
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def _widen(x):
+    """The kernel's `int4_pair`: the nibbles at bits 0-3 and 16-19 of x
+    into a bf16x2 of 128 + n (a lop3 with 0x000F000F and 0x43004300), then
+    a bf16x2 subtract of 136, rounded to bf16. Returns (low, high)."""
+    v = (x & np.uint32(0x000F000F)) | np.uint32(0x43004300)
+    out = []
+    for half in (v & np.uint32(0xFFFF), v >> np.uint32(16)):
+        diff = torch.from_numpy(_bf16_bits(half) - np.float32(136.0))
+        rounded = diff.to(torch.bfloat16).to(F32).numpy()
+        assert (rounded == diff.numpy()).all()      # exact: no rounding
+        out.append(rounded)
+    return out
+
+
+def _a_fragments(step):
+    """An emulation of the kernel's loads and widening for one 128-byte
+    step of rows [n, 128] uint8: [n, 16 slices, 4 lanes t, 2 registers, 2
+    halves] levels. Lane t holds pieces t (pp = 0) and 4 + t (pp = 1);
+    slice r takes word (r % 8) // 2 of piece pp = r // 8, shifted by 8 for
+    odd r; register 0 is the shifted word's widening, register 1 that of
+    the word shifted 4 more."""
+    words = step.view(np.uint32)            # little-endian, [n, 32]
+    out = np.empty((len(step), 16, 4, 2, 2), dtype=np.float32)
+    for r in range(16):
+        pp, h = r // 8, r % 8
+        for t in range(4):
+            u = words[:, 4 * (4 * pp + t) + h // 2] >> np.uint32(8 * (h & 1))
+            for reg, x in enumerate((u, u >> np.uint32(4))):
+                out[:, r, t, reg] = np.stack(_widen(x), axis=-1)
+    return out
+
+
+def _steps():
+    """Rows of one 128-byte step that hold every byte value (0..255 over
+    two rows, and shuffles of them), plus random rows."""
+    rng = np.random.default_rng(11)
+    every = np.arange(256, dtype=np.uint8)
+    rows = [every.reshape(2, 128)]
+    rows += [rng.permutation(every).reshape(2, 128) for _ in range(3)]
+    rows.append(rng.integers(0, 256, (8, 128)).astype(np.uint8))
+    return np.ascontiguousarray(np.concatenate(rows))
+
+
+def _levels(step):
+    """The codec's levels of rows [n, 128] uint8, in dim order [n, 256]."""
+    lo, hi = codec.int4_planes(torch.from_numpy(step))
+    return torch.stack([lo, hi], dim=-1).reshape(len(step), -1).numpy()
+
+
+@pytest.mark.parametrize("check", ["permutation", "widening", "dot"])
+def test_int4_k_order(check):
+    """The grouped int4 kernel's K order in one 128-byte step: a
+    permutation of the step's 256 dims; the emulated lop3 / bf16x2
+    widening of every byte value gives, at each (slice, lane, register,
+    half), the codec's level of the dim the order names there (so A, as
+    loaded and widened, and B, as staged, meet at the same dims); and the
+    dot product summed over the permuted fragments equals the straight
+    one."""
+    order = fused.int4_k_order()
+    assert order.shape == (16, 4, 2, 2)
+    if check == "permutation":
+        assert sorted(order.flatten().tolist()) == list(range(256))
+        return
+    step = _steps()
+    levels = _levels(step)
+    got = _a_fragments(step)
+    if check == "widening":
+        assert (got == levels[:, order.numpy()]).all()
+        return
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((7, 256)).astype(np.float32)
+    qb = torch.from_numpy(q).to(torch.bfloat16).to(F32).numpy()
+    frag_q = qb[:, order.numpy()]                   # the staged B values
+    permuted = np.einsum("qskrh,nskrh->qn", frag_q.astype(np.float64),
+                         got.astype(np.float64))
+    straight = qb.astype(np.float64) @ levels.T.astype(np.float64)
+    np.testing.assert_allclose(permuted, straight, rtol=1e-12, atol=1e-9)
