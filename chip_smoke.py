@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py [--seed 1234] [--n-sift 1000000] [--n-cohere 1000000]
                           [--n-gist 1000000] [--n-cohere-ivf 1000000]
-                          [--n-colbert 131071] [--binned-only | --ivf-only]
+                          [--n-colbert 131071]
+                          [--binned-only | --ivf-only | --maxsim-only]
 
 Phases, one line each; any failure raises and the exit code is not 0:
 
@@ -27,8 +28,15 @@ Phases, one line each; any failure raises and the exit code is not 0:
                port's scan route and one bf16 `torch.matmul` over every
                tile row (int8 values or int4 levels on a bf16 copy); then
                both MaxSim kernels against their plain versions at the
-               ColBERTv2 shape, timed likewise beside the staged gather
-               form
+               ColBERTv2 shape (N_pad 131,072, cap 256, D 128, W 64, Tq 32;
+               Q=256 and Q=1; f32, bf16, int8 and int4 tiles), every launch
+               on the variant its shape names (`warp` for bf16, int8 and
+               int4 at Tq <= 32, `wmma` for f32 and Tq 128), with small
+               caps, Tq 8 and 128, docs with a zero-scale slot inside
+               their span, docs with no valid slot, candidate ids outside
+               [0, N_pad) and cap 100; timed likewise beside one
+               `torch.bmm` of the bf16 queries over a pre-staged bf16 copy
+               of the candidate tiles and the staged gather form
   serve_sift   the port's REST server in-process: a cosine dims=128 index,
                2,000 docs over `_bulk`, then the shard loaded to 1,000,000
                SIFT-shaped docs through `Engine.index_many`, refresh, and 64
@@ -53,7 +61,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
                `Engine.index_many(vectors=, token_vectors=)`, then 64
                `rank: {rrf}` requests over HTTP with a knn and a
                late_interaction sub-search: one `knn_binned_bf16` and one
-               `maxsim_dense` (or `maxsim_int4`) launch a request, the int8
+               `maxsim_dense` (or `maxsim_int4`) launch a request (on the
+               `tma` and `warp` variants), the int8
                MaxSim leg's recall@10 >= 0.95 against exact f32 MaxSim over
                the raw tokens (int4, at the reference's oversample 8, is
                logged against that gate and held to >= 0.90), and every
@@ -66,9 +75,10 @@ route with no exhaustive fallback, every `ivf_fused_dense` and
 of the same queries, a batch of 64 through the router's real probes, must
 return the same hits.
 
-`--binned-only` and `--ivf-only` run env, build and one kernel phase
-(no serving, no ok line): the numbers of PERF.md's parent-vs-change
-comparisons, where a parent commit's package runs this script too.
+`--binned-only`, `--ivf-only` and `--maxsim-only` run env, build and one
+kernel phase (no serving, no ok line): the numbers of PERF.md's
+parent-vs-change comparisons, where a parent commit's package runs this
+script too (the checks of variants it lacks are skipped).
 
 The next-to-last lines are a JSON object with every kernel's numbers and the
 card's `nvidia-smi` name and power limit; the last line is
@@ -641,12 +651,54 @@ def _maxsim_check(label, got, want) -> float:
     return err
 
 
+def _expect_maxsim_variant(label, dtype, tq, n) -> None:
+    """The n launches since the last reset took the variant their shape
+    names at D = 128: `warp` for bf16, int8 and int4 tiles at Tq <= 32,
+    `wmma` for f32 tiles and wider queries (a package without the variants
+    counts none)."""
+    from elasticsearch_tpu_torch.ops import dispatch
+    from elasticsearch_tpu_torch.ops import maxsim
+    if not hasattr(maxsim, "VARIANT_WARP"):
+        return
+    warp = dtype != torch.float32 and tq <= 32
+    want = maxsim.VARIANT_WARP if warp else maxsim.VARIANT_WMMA
+    kernel = (maxsim.KERNEL_INT4 if dtype == torch.uint8
+              else maxsim.KERNEL_DENSE)
+    got = {k: c for k, c in dispatch.variant_launches().items() if c}
+    if got != {f"{kernel}/{want}": n}:
+        raise AssertionError(f"maxsim {label}: variant launches {got}, "
+                             f"expected {n} on {want}")
+
+
+def _bmm_library(ids, q, toks):
+    """One `torch.bmm` of the bf16 queries [Q, Tq, D] over a bf16 copy of
+    the [Q, W * cap, D] candidate tiles (int8 values, int4 levels in dim
+    order), staged outside the timing: the MaxSim board's matrix product
+    without its gather, scale, mask, max and sum. Per-launch and burst
+    ms."""
+    from elasticsearch_tpu_torch.quant import codec as quant_codec
+    bf16 = torch.bfloat16
+    t = toks[ids.long()]                             # [Q, W, cap, Wt]
+    if toks.dtype == torch.uint8:
+        lo, hi = quant_codec.int4_planes(t, bf16)
+        t = torch.stack([lo, hi], dim=-1)
+        del lo, hi
+    staged = t.to(bf16).reshape(q.shape[0], -1, q.shape[2])
+    del t
+    qb = q.to(bf16)
+    run = lambda: torch.bmm(qb, staged.transpose(1, 2))  # noqa: E731
+    return time_ms(run), burst_ms(run, n=10)
+
+
 def _maxsim_case(g, dev, dtype, counts, n_pad, cap, tq, queries, w=64,
                  d=128, timed=False):
     """One tile type: the kernel against its plain version at each query
-    count (a few candidates on the padding row); when `timed`, CUDA-event
-    times at the first query count beside the plain version, the staged
-    gather form and the bound of the distinct candidates' valid rows."""
+    count (a few candidates on the padding row), on the variant its shape
+    names; when `timed`, CUDA-event times at the first query count beside
+    the plain version, one `torch.bmm` over the staged candidate tiles, the
+    staged gather form and the bound of the distinct candidates' valid
+    rows."""
+    from elasticsearch_tpu_torch.ops import dispatch
     from elasticsearch_tpu_torch.ops import maxsim
     n = len(counts)
     toks, scales = _token_tile(g, dev, dtype, counts, n_pad, cap, d)
@@ -657,13 +709,16 @@ def _maxsim_case(g, dev, dtype, counts, n_pad, cap, tq, queries, w=64,
         ids = torch.randint(0, n, (nq, w), generator=g, device=dev,
                             dtype=torch.int32)
         ids[0, :4] = n                   # the all-zero padding row
+        label = f"{dtype} cap={cap} Tq={tq} Q={nq}"
+        dispatch.reset_launches()
         got = maxsim.maxsim_rescore(ids, q, toks, scales)
+        _expect_maxsim_variant(label, dtype, tq, 1)
         want = maxsim.maxsim_reference(ids, q, toks, scales)
         torch.cuda.synchronize()
         if not bool((got[0, :4] <= -1e38).all()):
             raise AssertionError("maxsim: padding candidates above -1e38")
         out["max_abs_err"] = max(out["max_abs_err"], _maxsim_check(
-            f"{dtype} cap={cap} Tq={tq} Q={nq}", got, want))
+            label, got, want))
         del got, want
         if not timed:
             continue
@@ -677,6 +732,9 @@ def _maxsim_case(g, dev, dtype, counts, n_pad, cap, tq, queries, w=64,
             iters=3, warmup=1)
         out["staged_ms"] = time_ms(
             lambda: staged_maxsim(ids, q, toks, scales), iters=5, warmup=1)
+        out["library_ms"], out["library_burst_ms"] = _bmm_library(ids, q,
+                                                                  toks)
+        torch.cuda.empty_cache()
         docs = torch.unique(ids[ids < n].long())
         valid = int(counts[docs].sum())
         row_bytes = toks.shape[2] * toks.element_size()
@@ -692,9 +750,59 @@ def _maxsim_case(g, dev, dtype, counts, n_pad, cap, tq, queries, w=64,
     return out
 
 
+def _maxsim_hard_case(g, dev, dtype, cap: int) -> float:
+    """The spans the warp variant must get right, against the plain version
+    at Tq 32, D 128, 4,096 tile rows of `cap` slots (3,000 docs of 1..cap
+    tokens): docs with a zero-scale slot inside their span (still masked),
+    docs with no valid slot, and candidate ids outside [0, N_pad), which
+    the plain version cannot index: those must score <= -1e38 (checked
+    directly), the rest of their rows match the plain version with the
+    padding row in their place. Returns the max |diff|."""
+    from elasticsearch_tpu_torch.ops import dispatch
+    from elasticsearch_tpu_torch.ops import maxsim
+    n, n_pad = 3000, 4096
+    counts = torch.randint(1, cap + 1, (n,), generator=g, device=dev)
+    toks, scales = _token_tile(g, dev, dtype, counts, n_pad, cap, 128)
+    holes = torch.arange(600, device=dev)
+    slot = (torch.rand(600, generator=g, device=dev)
+            * (counts[:600] - 1).float()).long()
+    scales[holes, slot] = 0.0            # a hole inside the span (< count - 1)
+    scales[600:700] = 0.0                # docs with no valid slot
+    bad = torch.tensor([-1, n_pad, n_pad + 7, 2 ** 31 - 1, -2 ** 31],
+                       dtype=torch.int32, device=dev)
+    err = 0.0
+    for nq in (37, 1):
+        q = torch.randn(nq, 32, 128, generator=g, device=dev)
+        q = q / q.norm(dim=2, keepdim=True)
+        ids = torch.randint(0, 700, (nq, 64), generator=g, device=dev,
+                            dtype=torch.int32)
+        ids[:, ::4] = torch.randint(0, n, (nq, 16), generator=g, device=dev,
+                                    dtype=torch.int32)
+        ids[:, 2] = 600 + torch.arange(nq, device=dev) % 100   # empty docs
+        ids[0, 1:2] = bad[:1]
+        ids[0, 3:7] = bad[1:]
+        ids[-1, 50:55] = bad
+        oob = (ids < 0) | (ids >= n_pad)
+        label = f"{dtype} hard cap={cap} Q={nq}"
+        dispatch.reset_launches()
+        got = maxsim.maxsim_rescore(ids, q, toks, scales)
+        _expect_maxsim_variant(label, dtype, 32, 1)
+        want = maxsim.maxsim_reference(
+            torch.where(oob, torch.full_like(ids, n), ids), q, toks, scales)
+        torch.cuda.synchronize()
+        if not bool((got[oob] <= -1e38).all()):
+            raise AssertionError(f"maxsim {label}: out-of-range ids above "
+                                 f"-1e38")
+        err = max(err, _maxsim_check(label, got, want))
+    del toks, scales
+    torch.cuda.empty_cache()
+    return err
+
+
 def phase_maxsim_kernels(seed: int, dev) -> dict:
     """Both MaxSim kernels against their plain versions at the served
-    ColBERTv2 shape: N_pad 131,072, cap 256, D 128, W 64, Tq 32."""
+    ColBERTv2 shape: N_pad 131,072, cap 256, D 128, W 64, Tq 32; then the
+    small, wide and hard cases."""
     from elasticsearch_tpu_torch.ops import maxsim
     g = torch.Generator(device=dev).manual_seed(seed + 4)
     counts = torch.from_numpy(colbert_counts(
@@ -709,9 +817,12 @@ def phase_maxsim_kernels(seed: int, dev) -> dict:
             n_pad=1 << 17, cap=256, D=128, W=64, Tq=32,
             **{k: (f"{v:.6g}" if isinstance(v, float) else v)
                for k, v in cases[label].items()},
-            library="staged gather (toks[ids] + bf16 einsum + mask + amax "
-                    "+ sum; no single PyTorch call fuses gather and MaxSim)")
-    # small cap, the shortest and the widest query
+            library="torch.bmm of the bf16 queries over a pre-staged bf16 "
+                    "copy of the [Q, W*cap, D] candidate tiles (staging "
+                    "untimed)",
+            staged="staged gather (toks[ids] + bf16 einsum + mask + amax "
+                   "+ sum)")
+    # small cap, the shortest and the widest query; the hard spans
     small = torch.randint(1, 9, (3000,), generator=g, device=dev)
     for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16),
                          ("int8", torch.int8), ("int4", torch.uint8)):
@@ -720,6 +831,11 @@ def phase_maxsim_kernels(seed: int, dev) -> dict:
             key = f"{label}_cap{cap}_tq{tq}"
             cases[key] = _maxsim_case(g, dev, dtype, cnt, 4096, cap, tq,
                                       (37, 1))
+            log("kernels", case=key, max_abs_err=cases[key]["max_abs_err"])
+        for cap in (100, 256):
+            key = f"{label}_hard_cap{cap}"
+            cases[key] = {"max_abs_err": _maxsim_hard_case(g, dev, dtype,
+                                                           cap)}
             log("kernels", case=key, max_abs_err=cases[key]["max_abs_err"])
     out = {}
     for name, main, extra in (
@@ -737,7 +853,8 @@ def phase_maxsim_kernels(seed: int, dev) -> dict:
             "max_abs_err": max(errs), "ms": c["q256_ms"],
             "burst_ms": c["q256_burst_ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": c["staged_ms"]}
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "staged_ms": c["staged_ms"]}
     return out
 
 
@@ -1344,7 +1461,8 @@ def serve_colbert_index(client, node, name, encoding, oversample, data,
     if {k: c for k, c in launches.items() if c} != want:
         raise AssertionError(f"{name}: launches {launches} for "
                              f"{len(q_emb)} requests; expected {want}")
-    want = {f"{kb.KERNEL_BF16}/{kb.VARIANT_TMA}": len(q_emb)}
+    want = {f"{kb.KERNEL_BF16}/{kb.VARIANT_TMA}": len(q_emb),
+            f"{kernel}/{maxsim.VARIANT_WARP}": len(q_emb)}
     if {k: c for k, c in variants.items() if c} != want:
         raise AssertionError(f"{name}: variant launches {variants}; "
                              f"expected {want}")
@@ -1475,6 +1593,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ivf-only", action="store_true",
                     help="build and measure only the fused IVF kernels, "
                          "likewise")
+    ap.add_argument("--maxsim-only", action="store_true",
+                    help="build and measure only the MaxSim kernels, "
+                         "likewise")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1485,7 +1606,9 @@ def main(argv=None) -> int:
     for only, name, phase in ((args.binned_only, "knn_binned",
                                phase_binned_kernels),
                               (args.ivf_only, "ivf_fused",
-                               phase_ivf_kernels)):
+                               phase_ivf_kernels),
+                              (args.maxsim_only, "maxsim",
+                               phase_maxsim_kernels)):
         if only:
             phase_build([name])
             kernels = phase(args.seed, torch.device("cuda"))

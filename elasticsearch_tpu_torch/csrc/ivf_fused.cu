@@ -52,9 +52,10 @@
 //       on A and B leaves every dot product unchanged. bf16 rows are their
 //       own fragments; int8 rows widen to bf16 exactly with a byte permute
 //       and one f32 add a value; int4 rows with one lop3 and one bf16x2
-//       subtract per two values (K order: `int4_k_order` in
-//       ops/ivf_fused.py). The epilogue scales, masks and stores each
-//       (row, entry) straight to its board slot (32-byte runs).
+//       subtract per two values (K order: csrc/mma_frag.cuh and, for
+//       int4, `int4_k_order` in ops/ivf_fused.py). The epilogue scales,
+//       masks and stores each (row, entry) straight to its board slot
+//       (32-byte runs).
 //       Registers are capped at 80 so 3 blocks (24 warps) share an SM,
 //       which keeps ~100 KB of row loads in flight an SM (int4 ran 7%
 //       slower at 2 blocks, 101 registers); at Q = 1 the
@@ -76,6 +77,8 @@
 
 #include <algorithm>
 
+#include "mma_frag.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -83,8 +86,6 @@ constexpr int WARPS = THREADS / 32;
 constexpr int ROWS_PER_BLOCK = 64;
 constexpr int UNROLL = 4;            // 16-byte vectors in flight per lane
 constexpr float NEG = -3.0e38f;      // the NEG_INF sentinel of the board
-
-enum { DT_F32 = 0, DT_BF16 = 1, DT_INT8 = 2, DT_INT4 = 3 };
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -96,10 +97,6 @@ __device__ __forceinline__ float bf16_lo(uint32_t w) {
 }
 __device__ __forceinline__ float bf16_hi(uint32_t w) {
   return __uint_as_float(w & 0xFFFF0000u);
-}
-
-__device__ __forceinline__ float int8_at(uint32_t w, int byte) {
-  return static_cast<float>(static_cast<int8_t>((w >> (8 * byte)) & 0xFFu));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -320,7 +317,6 @@ constexpr int G_THREADS = 256;        // 8 warps, 16 rows of a chunk each
 constexpr int G_ROWS = 128;           // rows a chunk
 constexpr int N_MAX = 32;             // entries (query columns) an item
 constexpr int NT_MAX = N_MAX / 8;     // 8-wide mma column tiles an item
-constexpr int STEP_BYTES = 128;       // row bytes a warp loads a step
 constexpr int PLAN_THREADS = 1024;    // the plan is one block
 constexpr int PLAN_MAX_NLIST = 32768; // its histogram lives in shared memory
 constexpr int MAX_SMEM = 232448;      // 227 KB a block
@@ -328,64 +324,6 @@ constexpr int MAX_SMEM = 232448;      // 227 KB a block
 // a grouped row's bytes: d values of the tile type (int4: two a byte)
 __host__ __device__ constexpr long long grouped_row_bytes(long long d, int dt) {
   return dt == DT_BF16 ? 2 * d : dt == DT_INT8 ? d : d / 2;
-}
-
-// 16 bytes of a tile row: read once, so kept out of L1; L2 fetches the
-// whole 128-byte step of the row at the first of its 8 pieces
-__device__ __forceinline__ uint4 ldg_stream(const uint8_t* p) {
-  uint4 v;
-  asm("ld.global.nc.L1::no_allocate.L2::128B.v4.u32 {%0, %1, %2, %3}, [%4];"
-      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-      : "l"(p));
-  return v;
-}
-
-__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// c += A (16 x 16, row) * B (16 x 8, col): bf16 operands, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// The four int8 levels of w as two bf16x2 words (levels 0,1 -> lo; 2,3 ->
-// hi), exactly: x + 128 goes into the low byte of 2^23, one f32 subtract
-// gives x, and an integer of at most 8 significant bits is its own bf16.
-__device__ __forceinline__ void widen_int8(uint32_t w, uint32_t& lo,
-                                           uint32_t& hi) {
-  const uint32_t u = w ^ 0x80808080u;
-  const uint32_t m = 0x4B000000u;
-  const float f0 = __uint_as_float(__byte_perm(u, m, 0x7440)) - 8388736.0f;
-  const float f1 = __uint_as_float(__byte_perm(u, m, 0x7441)) - 8388736.0f;
-  const float f2 = __uint_as_float(__byte_perm(u, m, 0x7442)) - 8388736.0f;
-  const float f3 = __uint_as_float(__byte_perm(u, m, 0x7443)) - 8388736.0f;
-  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
-}
-
-// Two int4 levels of a word as one bf16x2, exactly: the nibbles at bits
-// 0-3 and 16-19 of x go into the low mantissa bits of 128 (bf16 has unit
-// spacing on [128, 256)), then one bf16x2 subtract of 136 gives n - 8.
-__device__ __forceinline__ uint32_t int4_pair(uint32_t x) {
-  const uint32_t v = (x & 0x000F000Fu) | 0x43004300u;
-  const uint32_t bias = 0x43084308u;                  // bf16x2 (136, 136)
-  const __nv_bfloat162 r =
-      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
-              *reinterpret_cast<const __nv_bfloat162*>(&bias));
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
-__device__ __forceinline__ uint32_t bf16x2(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // The probe plan, one block. Entries e = q * nprobe + j are counted by
@@ -474,22 +412,10 @@ __global__ void __launch_bounds__(PLAN_THREADS) ivf_plan_kernel(
 
 // The grouped board kernel. Block (x, y) scores item x (in `direct` mode,
 // entry x alone) against rows [y * span_chunks * 128, ...) of its tile.
-// K order: a 128-byte step of a row holds 8E values (E = 8 bf16, 16 int8
-// or 32 int4 a 16-byte piece), KPS = E / 2 k16 slices; lane (g, t) of a
-// warp loads piece t and piece 4 + t of rows g and g + 8, and slice h of
-// piece pp (pp = 0, 1; h < E / 4) comes from that piece:
-//   bf16, int8  values 4h..4h+3: the first two take the fragment's k = 2t,
-//               2t+1, the last two k = 2t+8, 2t+9;
-//   int4        word i = h / 2 holds dims 8i..8i+7 (nibble j is dim j, the
-//               codec's byte layout), and c = h % 2 picks dims (2c, 2c+4)
-//               for k = 2t, 2t+1 and (2c+1, 2c+5) for k = 2t+8, 2t+9: the
-//               pairs one widening gives.
-// The query fragments are staged with the same map, so each lane reads its
-// B fragment as one 8-byte word, and every dot product is unchanged. They
-// are zero past the item's count and past d. For int4 that zero is what
-// keeps a partial 128-byte step right: a zero-filled byte past the end of
-// a row widens to level -8, not 0, and only its zero query value cancels
-// it.
+// K order: mma_frag.cuh. The query fragments are zero past the item's
+// count and past d. For int4 that zero is what keeps a partial 128-byte
+// step right: a zero-filled byte past the end of a row widens to level -8,
+// not 0, and only its zero query value cancels it.
 template <int DT>
 __global__ void __launch_bounds__(G_THREADS, 3) ivf_grouped_kernel(
     const float* __restrict__ q, const int32_t* __restrict__ probe_ids,
@@ -497,8 +423,7 @@ __global__ void __launch_bounds__(G_THREADS, 3) ivf_grouped_kernel(
     float* __restrict__ out, const int4* __restrict__ items,
     const int32_t* __restrict__ n_items, const int32_t* __restrict__ entries,
     int nprobe, int nlist, int cap, int d, int direct, int span_chunks) {
-  constexpr int E = DT == DT_BF16 ? 8 : DT == DT_INT8 ? 16 : 32;
-  constexpr int KPS = E / 2;                  // k16 slices a step
+  constexpr int KPS = piece_values(DT) / 2;   // k16 slices a step
   extern __shared__ __align__(16) uint8_t smem[];
   int* ents = reinterpret_cast<int*>(smem);                          // [N_MAX]
   uint2* frag = reinterpret_cast<uint2*>(smem + N_MAX * sizeof(int));
@@ -536,24 +461,12 @@ __global__ void __launch_bounds__(G_THREADS, 3) ivf_grouped_kernel(
   const int groups = ks_total * 4;
   for (int i = threadIdx.x; i < nt_count * 8 * groups; i += G_THREADS) {
     const int n = i / groups, gi = i - n * groups;
-    const int d0 = DT == DT_INT4 ? 8 * (gi >> 1) : 4 * gi;
-    const int e = d0 % (8 * E);
-    const int pp = e / (4 * E), t = (e % (4 * E)) / E;
-    const int h = DT == DT_INT4 ? 2 * ((e % E) / 8) + (gi & 1) : (e % E) / 4;
-    const int ks = (d0 / (8 * E)) * KPS + pp * (E / 4) + h;
-    uint2 v = make_uint2(0u, 0u);
-    if (n < count && d0 < d) {
-      const float* qr = q + (long long)(ents[n] / nprobe) * d + d0;
-      if constexpr (DT == DT_INT4) {
-        const int c = 2 * (gi & 1);
-        const float2 lo = *reinterpret_cast<const float2*>(qr + c);
-        const float2 hi = *reinterpret_cast<const float2*>(qr + c + 4);
-        v = make_uint2(bf16x2(lo.x, hi.x), bf16x2(lo.y, hi.y));
-      } else {
-        const float4 f = *reinterpret_cast<const float4*>(qr);
-        v = make_uint2(bf16x2(f.x, f.y), bf16x2(f.z, f.w));
-      }
-    }
+    int t, d0;
+    const int ks = group_slot<DT>(gi, t, d0);
+    const uint2 v =
+        n < count && d0 < d
+            ? b_group<DT>(q + (long long)(ents[n] / nprobe) * d + d0, gi)
+            : make_uint2(0u, 0u);
     frag[((n >> 3) * ks_total + ks) * 32 + (n & 7) * 4 + t] = v;
   }
   __syncthreads();
@@ -610,25 +523,8 @@ __global__ void __launch_bounds__(G_THREADS, 3) ivf_grouped_kernel(
     }
 #pragma unroll
     for (int r = 0; r < KPS; ++r) {
-      const int pp = r / (E / 4), h = r % (E / 4);
       uint32_t a0, a1, a2, a3;
-      if constexpr (DT == DT_BF16) {
-        a0 = word(cur[pp], 2 * h);
-        a2 = word(cur[pp], 2 * h + 1);
-        a1 = word(cur[2 + pp], 2 * h);
-        a3 = word(cur[2 + pp], 2 * h + 1);
-      } else if constexpr (DT == DT_INT8) {
-        widen_int8(word(cur[pp], h), a0, a2);
-        widen_int8(word(cur[2 + pp], h), a1, a3);
-      } else {
-        const int sh = 8 * (h & 1);
-        const uint32_t wa = word(cur[pp], h >> 1) >> sh;
-        const uint32_t wb = word(cur[2 + pp], h >> 1) >> sh;
-        a0 = int4_pair(wa);
-        a2 = int4_pair(wa >> 4);
-        a1 = int4_pair(wb);
-        a3 = int4_pair(wb >> 4);
-      }
+      a_slice<DT>(cur, r, a0, a1, a2, a3);
       const uint2* fb = frag + (s * KPS + r) * 32 + lane;
 #pragma unroll
       for (int nt = 0; nt < NT_MAX; ++nt) {

@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 for `sm_90a` into `build/kernels/` at the root of the checkout, at first
 use, then loaded with ctypes. The library's file name carries a hash of
-its source, so an edited source never loads a stale build. Nothing here
-runs at import: the CPU tests import every module on a machine without
-`nvcc`.
+its source and of every header in `csrc/` (`*.cuh`, which the sources
+include), so an edited source or header never loads a stale build.
+Nothing here runs at import: the CPU tests import every module on a
+machine without `nvcc`.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ def nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -40,9 +40,11 @@ import torch
 
 from elasticsearch_tpu_torch.ops import _build
 from elasticsearch_tpu_torch.ops import dispatch
+from elasticsearch_tpu_torch.ops import mma_frag
 from elasticsearch_tpu_torch.ops import similarity as sim
 from elasticsearch_tpu_torch.ops import topk as topk_ops
 from elasticsearch_tpu_torch.ops.knn_ivf import IVFPartitions, check_nprobe
+from elasticsearch_tpu_torch.ops.mma_frag import STEP_BYTES
 from elasticsearch_tpu_torch.ops.similarity import NEG_INF
 from elasticsearch_tpu_torch.quant import codec as quant_codec
 
@@ -57,7 +59,6 @@ VARIANT_GROUPED = "grouped"
 VARIANT_SIMT = "simt"
 N_MAX = 32                   # entries (query columns) a work item
 CHUNK_ROWS = 128             # grouped: tile rows a chunk (8 warps x 16)
-STEP_BYTES = 128             # grouped: row bytes a warp loads a step
 SIMT_ROWS = 64               # simt: tile rows a block
 PLAN_MAX_NLIST = 32768       # the plan kernel's histogram in shared memory
 MAX_SMEM = 232448            # 227 KB a block
@@ -141,22 +142,11 @@ def launch_plan(nq: int, nprobe: int, nlist: int, cap: int, d: int,
 def int4_k_order() -> torch.Tensor:
     """The grouped int4 kernel's K order in one 128-byte step (256 dims),
     as its query staging lays out the B fragments: [16 k16 slices, 4 lanes
-    t, 2 registers, 2 halves] -> the dim of the step. Register 0 holds the
-    fragment's k = 2t, 2t+1 (A: a0 of row g, a1 of row g + 8; B: b0),
-    register 1 k = 2t+8, 2t+9 (a2, a3; b1). Lane t reads pieces t and 4 + t
-    (pp = 0, 1; 32 dims each), and slice 8 pp + 2i + c comes from word i of
-    its piece: dims (2c, 2c+4) in register 0 and (2c+1, 2c+5) in register
-    1, the pairs that one widening of the word shifted by 8c (and by 8c +
-    4) gives."""
-    e = 32                                    # int4 values a 16-byte piece
-    order = torch.empty((16, 4, 2, 2), dtype=torch.int64)
-    for gi in range(16 * 4):                  # the csrc staging loop's groups
-        d0, c = 8 * (gi >> 1), gi & 1
-        pp, t = d0 // (4 * e), (d0 % (4 * e)) // e
-        ks = pp * (e // 4) + 2 * ((d0 % e) // 8) + c
-        a = d0 + 2 * c
-        order[ks, t] = torch.tensor([[a, a + 4], [a + 1, a + 5]])
-    return order
+    t, 2 registers, 2 halves] -> the dim of the step (`mma_frag`'s layout,
+    shared with the warp MaxSim kernels). Register 0 holds the fragment's
+    k = 2t, 2t+1 (A: a0 of row g, a1 of row g + 8; B: b0), register 1 k =
+    2t+8, 2t+9 (a2, a3; b1)."""
+    return mma_frag.fragment_k_order(STEP_BYTES, torch.uint8)
 
 
 def fused_eligible(parts_dtype, metric: str, precision: str = "bf16") -> bool:

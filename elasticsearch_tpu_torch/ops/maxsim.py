@@ -12,22 +12,31 @@ memory: the [Q, W] MaxSim board is the only new array.
 
 Kernels (`csrc/maxsim.cu`): `maxsim_dense` (f32, bf16 and int8 token tiles:
 bf16 operands, f32 accumulate, × per-token scale) and `maxsim_int4`
-(packed nibbles against the even/odd query planes), for any query token
-count and tile width. Token slots whose
-scale is 0 (cap padding and whole padding docs) score NEG_INF before the
-max; zero-padded query token rows add exactly 0.0 to a doc with any valid
-token. The wrapper launches a kernel for CUDA tensors, or raises; it runs
-the plain PyTorch version (`maxsim_reference`) only for tensors on the CPU.
+(packed nibbles), for any query token count and tile width. Token slots
+whose scale is 0 (cap padding and whole padding docs) score NEG_INF before
+the max; zero-padded query token rows add exactly 0.0 to a doc with any
+valid token. The wrapper launches a kernel for CUDA tensors, or raises; it
+runs the plain PyTorch version (`maxsim_reference`) only for tensors on the
+CPU.
+
+Both kernels come in two variants, picked by `launch_plan` from the shape:
+`warp` (bf16, int8 and int4 tiles at Tq <= 32: one warp a candidate, only
+the rows up to its last valid slot read, through a per-warp cp.async ring
+into tensor-core fragments in the K order of `ops/mma_frag.py`) and `wmma`
+(f32 tiles and wider queries: the first port's kernel).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from elasticsearch_tpu_torch.ops import _build
 from elasticsearch_tpu_torch.ops import dispatch
+from elasticsearch_tpu_torch.ops import mma_frag
 from elasticsearch_tpu_torch.ops.similarity import NEG_INF
 from elasticsearch_tpu_torch.quant import codec as quant_codec
 
@@ -36,6 +45,99 @@ KERNEL_INT4 = "maxsim_int4"
 
 # tile dtype -> the dense kernel's dtype code
 _DENSE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+# launch plan of both kernels (mirrors the constants of csrc/maxsim.cu)
+VARIANT_WARP = "warp"
+VARIANT_WMMA = "wmma"
+_VARIANT_CODES = {VARIANT_WMMA: 0, VARIANT_WARP: 1}
+WARP_WARPS = 4               # warp: warps a block
+WARP_TQ_MAX = 32             # warp: query tokens (4 column tiles of 8)
+WARP_MAX_CPW = 32            # warp: candidates a warp (one id a lane)
+WARP_MAX_FRAG = 65536        # warp: the query fragments of a block
+WARP_STAGES = 4              # warp: units in a warp's cp.async ring
+# warp: warps the grid aims at (~31 an SM over the H100's 132 SMs); past
+# that, each warp takes more candidates
+TARGET_WARPS = 4096
+WMMA_CAPC = 64               # wmma: doc token slots a staged chunk
+WMMA_QG_MAX = 128            # wmma: query rows a group
+WMMA_PAD = 8                 # wmma: bf16 padding of a staged row
+MAX_SMEM = 232448            # 227 KB a block
+
+
+class LaunchPlan(NamedTuple):
+    """How one MaxSim launch is cut: `variant`, candidates a block (`cpb`:
+    warp, 4 warps each taking every 4th; wmma, one block walking them), the
+    grid (candidate runs, queries) and the block's shared memory (warp: the
+    query's B fragments and the warps' load rings; wmma: query and chunk
+    planes, boards, maxima)."""
+    variant: str
+    cpb: int
+    grid: Tuple[int, int]
+    smem_bytes: int
+
+
+def _warp_frag(w: int, dtype: torch.dtype) -> int:
+    """The warp block's query fragments: 4 column tiles x live slices x 32
+    lanes x 8 bytes."""
+    return 4 * mma_frag.live_slices(w, dtype) * 32 * 8
+
+
+def _warp_smem(w: int, dtype: torch.dtype) -> int:
+    """The warp block's shared memory (csrc `warp_smem`): the query
+    fragments, each warp's ring of WARP_STAGES units of 2 KB and its
+    candidates' spans."""
+    return (_warp_frag(w, dtype) + WARP_WARPS * WARP_STAGES * 2048
+            + WARP_WARPS * WARP_MAX_CPW * 4)
+
+
+def _wmma_smem(tq: int, w: int, dtype: torch.dtype) -> int:
+    """The wmma block's shared memory (csrc `wmma_shape`): the whole plane
+    width in one slab if it fits in 227 KB, else the widest slab that
+    does."""
+    np_ = 2 if dtype == torch.uint8 else 1
+    qg = min(-(-tq // 16) * 16, WMMA_QG_MAX)
+
+    def smem(ks, slabs):
+        board = np_ * qg * 16 if slabs else 256
+        return (np_ * (qg + WMMA_CAPC) * (ks + WMMA_PAD) * 2 + 4 * board * 4
+                + WMMA_CAPC * 4 + 4 * qg * 4)
+
+    ks, cand = w, 512
+    if smem(ks, False) > MAX_SMEM:
+        while smem(ks, True) > MAX_SMEM:
+            if cand < ks:
+                ks = cand
+            cand //= 2
+    return smem(ks, ks < w)
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(nq: int, nw: int, tq: int, cap: int, w: int,
+                dtype: torch.dtype) -> LaunchPlan:
+    """The MaxSim launch of nq queries of tq tokens, nw candidates each,
+    against [N_pad, cap, w] token tiles of `dtype` (uint8: packed int4, w
+    bytes a row; `maxsim_int4`, else `maxsim_dense`). bf16, int8 and int4
+    tiles take `warp` at tq <= 32 while the query fragments fit in 64 KB
+    (bf16 D up to 1,024 dims); f32 tiles and wider queries take `wmma`. Warp:
+    each warp takes ceil(nq * nw / TARGET_WARPS) candidates (at most 32),
+    so a Q=1 window of 64 spreads over 16 blocks, one candidate a warp.
+    The token cap bounds neither variant (the warp reads each candidate's
+    span; the wmma kernel streams its chunks). Memoized: a request pays
+    the lookup, not the search."""
+    if min(nq, nw, tq, cap, w) < 1:
+        raise ValueError(f"no MaxSim launch for nq={nq} nw={nw} tq={tq} "
+                         f"cap={cap} w={w}")
+    if dtype in (torch.bfloat16, torch.int8, torch.uint8) \
+            and tq <= WARP_TQ_MAX and w % 16 == 0 \
+            and _warp_frag(w, dtype) <= WARP_MAX_FRAG:
+        cpw = min(WARP_MAX_CPW, max(1, -(-(nq * nw) // TARGET_WARPS)))
+        cpb = WARP_WARPS * cpw
+        return LaunchPlan(VARIANT_WARP, cpb, (-(-nw // cpb), nq),
+                          _warp_smem(w, dtype))
+    cpb = max(1, min(8, nq * nw // 2048))
+    return LaunchPlan(VARIANT_WMMA, cpb, (-(-nw // cpb), nq),
+                      _wmma_smem(tq, w, dtype))
+
 
 
 # --------------------------------------------------------------- plain version
@@ -76,9 +178,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("maxsim")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.maxsim_dense.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+        ll = ctypes.c_longlong
+        lib.maxsim_dense.argtypes = [p] * 5 + [i] * 9 + [ll, p]
         lib.maxsim_dense.restype = ctypes.c_int
-        lib.maxsim_int4.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.maxsim_int4.argtypes = [p] * 5 + [i] * 8 + [ll, p]
         lib.maxsim_int4.restype = ctypes.c_int
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
@@ -88,10 +191,9 @@ def _lib() -> ctypes.CDLL:
 
 def _check_inputs(ids, q, toks, scales) -> None:
     """Raise on anything the kernels do not take: they read every pointer
-    at the sizes given here. (Any Tq and width fit a block's shared memory:
-    the kernel takes query rows in groups and the width in slabs. More than
-    65535 queries in one launch are refused by the launch itself, which
-    returns an error code.)"""
+    at the sizes given here. (Any Tq and width fit one of the two variants.
+    More than 65535 queries in one launch are refused by the launch itself,
+    which returns an error code.)"""
     tensors = (ids, q, toks, scales)
     dev = toks.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -124,7 +226,8 @@ def maxsim_rescore(ids: torch.Tensor, q_tokens: torch.Tensor,
                    toks: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """Rescore candidate docs `ids` [Q, W] int32 against the resident token
     tile: `maxsim_int4` for packed int4 tiles, `maxsim_dense` for f32/bf16/
-    int8 tiles on CUDA; the plain version on the CPU.
+    int8 tiles on CUDA, each in the variant `launch_plan` names; the plain
+    version on the CPU.
 
     q_tokens [Q, Tq, D] f32 must be metric-prepped and zero-padded to the
     tile's lane width; toks/scales are the field's [N_pad, cap, W] tile and
@@ -136,18 +239,22 @@ def maxsim_rescore(ids: torch.Tensor, q_tokens: torch.Tensor,
     n_pad, cap, w = toks.shape
     nq, nw = ids.shape
     tq = q_tokens.shape[1]
+    plan = launch_plan(nq, nw, tq, cap, w, toks.dtype)
+    if q_tokens.data_ptr() % 16:       # the warp kernel reads float4 rows
+        q_tokens = q_tokens.clone()
     out = torch.empty((nq, nw), dtype=torch.float32, device=toks.device)
     lib = _lib()
     stream = torch.cuda.current_stream(toks.device).cuda_stream
     args = (ids.data_ptr(), q_tokens.data_ptr(), toks.data_ptr(),
             scales.data_ptr(), out.data_ptr(), nq, nw, tq, n_pad, cap, w)
+    cut = (_VARIANT_CODES[plan.variant], plan.cpb, plan.smem_bytes, stream)
     if toks.dtype == torch.uint8:
-        name, code = KERNEL_INT4, lib.maxsim_int4(*args, stream)
+        name, code = KERNEL_INT4, lib.maxsim_int4(*args, *cut)
     else:
         name, code = KERNEL_DENSE, lib.maxsim_dense(
-            *args, _DENSE_CODES[toks.dtype], stream)
+            *args, _DENSE_CODES[toks.dtype], *cut)
     if code != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.cuda_error_string(code).decode()}")
-    dispatch.count_launch(name)
+    dispatch.count_launch(name, plan.variant)
     return out

@@ -421,6 +421,125 @@ def test_maxsim_kernels_wide_queries_and_dims(cuda, dtype, tq, d):
     assert float((got[~neg] - want[~neg]).abs().max()) <= tol
 
 
+def _maxsim_kernel(dtype):
+    return maxsim.KERNEL_INT4 if dtype == torch.uint8 else maxsim.KERNEL_DENSE
+
+
+def _check_maxsim(got, want):
+    neg = want <= -1e38
+    assert torch.equal(got <= -1e38, neg)
+    tol = 1e-5 * max(1.0, float(want[~neg].abs().max()))
+    assert float((got[~neg] - want[~neg]).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8,
+                                   torch.uint8])
+@pytest.mark.parametrize("tq", [1, 8, 20, 32, 33, 128])
+def test_maxsim_counts_its_variant(cuda, dtype, tq):
+    """Each launch counts once, under the variant its plan names: warp for
+    bf16, int8 and int4 tiles at Tq <= 32, wmma for f32 tiles and wider
+    queries; both agree with the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(tq)
+    w = 64 if dtype == torch.uint8 else 128
+    toks, scales = _random_token_tile(g, cuda, dtype, 200, 256, 64, w)
+    q = torch.randn(5, tq, 128, generator=g, device=cuda)
+    ids = torch.randint(0, 201, (5, 24), generator=g, device=cuda,
+                        dtype=torch.int32)
+    dispatch.reset_launches()
+    got = maxsim.maxsim_rescore(ids, q, toks, scales)
+    torch.cuda.synchronize()
+    variant = maxsim.VARIANT_WARP if dtype != torch.float32 and tq <= 32 \
+        else maxsim.VARIANT_WMMA
+    assert maxsim.launch_plan(5, 24, tq, 64, w, dtype).variant == variant
+    assert dispatch.launches() == {_maxsim_kernel(dtype): 1}
+    assert dispatch.variant_launches() == {
+        f"{_maxsim_kernel(dtype)}/{variant}": 1}
+    _check_maxsim(got, maxsim.maxsim_reference(ids, q, toks, scales))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.uint8])
+@pytest.mark.parametrize("cap", [20, 100, 256, 300])
+@pytest.mark.parametrize("nq", [1, 19, 300])
+def test_maxsim_warp_hard_spans(cuda, dtype, cap, nq):
+    """The warp variant's span: docs with a zero-scale slot inside their
+    span (still masked), docs with no valid slot, and ids outside [0,
+    N_pad) score as the padding row (<= -1e38; the plain version gets the
+    padding row in their place); caps that are not a multiple of 16, and
+    past the 256 scales a warp prefetches."""
+    g = torch.Generator(device=cuda).manual_seed(cap + nq)
+    n, n_pad = 300, 512
+    w = 64 if dtype == torch.uint8 else 128
+    toks, scales = _random_token_tile(g, cuda, dtype, n, n_pad, cap, w)
+    counts = (scales > 0).sum(1)
+    holes = torch.nonzero(counts[:100] > 1).flatten()
+    slot = (torch.rand(len(holes), generator=g, device=cuda)
+            * (counts[holes] - 1).float()).long()
+    scales[holes, slot] = 0.0
+    scales[100:120] = 0.0
+    q = torch.randn(nq, 32, 128, generator=g, device=cuda)
+    q[:, 20:] = 0                          # zero-padded query token rows
+    ids = torch.randint(0, n, (nq, 40), generator=g, device=cuda,
+                        dtype=torch.int32)
+    ids[:, 1] = 100 + torch.arange(nq, device=cuda) % 20
+    ids[0, 2:7] = torch.tensor([-1, n_pad, n_pad + 3, 2 ** 31 - 1, -2 ** 31],
+                               dtype=torch.int32, device=cuda)
+    oob = (ids < 0) | (ids >= n_pad)
+    dispatch.reset_launches()
+    got = maxsim.maxsim_rescore(ids, q, toks, scales)
+    torch.cuda.synchronize()
+    assert dispatch.variant_launches() == {
+        f"{_maxsim_kernel(dtype)}/{maxsim.VARIANT_WARP}": 1}
+    want = maxsim.maxsim_reference(
+        torch.where(oob, torch.full_like(ids, n), ids), q, toks, scales)
+    assert bool((got[oob] <= -1e38).all()) and bool((got[:, 1] <= -1e38).all())
+    _check_maxsim(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.uint8])
+@pytest.mark.parametrize("d", [32, 64, 96, 160, 256, 768, 1024])
+def test_maxsim_warp_row_widths(cuda, dtype, d):
+    """The warp variant on every row width it takes: rows of a partial
+    128-byte step (int8 D=32: 32 bytes; int4 D=96: 48, D=160: 80), whole
+    steps and many of them, up to 64 KB of query fragments."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    w = d // 2 if dtype == torch.uint8 else d
+    toks, scales = _random_token_tile(g, cuda, dtype, 150, 256, 40, w)
+    q = torch.randn(7, 32, d, generator=g, device=cuda)
+    ids = torch.randint(0, 151, (7, 30), generator=g, device=cuda,
+                        dtype=torch.int32)
+    dispatch.reset_launches()
+    got = maxsim.maxsim_rescore(ids, q, toks, scales)
+    torch.cuda.synchronize()
+    assert dispatch.variant_launches() == {
+        f"{_maxsim_kernel(dtype)}/{maxsim.VARIANT_WARP}": 1}
+    _check_maxsim(got, maxsim.maxsim_reference(ids, q, toks, scales))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int8, torch.uint8, torch.float32])
+def test_maxsim_rejected_plan_raises(cuda, monkeypatch, dtype):
+    """A CUDA launch whose plan does not cover the shape raises: the C
+    entry rejects shared memory other than its variant's own, and a warp
+    plan for f32 tiles; nothing falls back."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    w = 64 if dtype == torch.uint8 else 128
+    toks, scales = _random_token_tile(g, cuda, dtype, 50, 64, 32, w)
+    ids = torch.randint(0, 50, (3, 8), generator=g, device=cuda,
+                        dtype=torch.int32)
+    plan = maxsim.launch_plan(3, 8, 32, 32, w, dtype)
+    bad = (plan._replace(variant=maxsim.VARIANT_WARP, smem_bytes=8192)
+           if dtype == torch.float32 else
+           plan._replace(smem_bytes=plan.smem_bytes - 8))
+    monkeypatch.setattr(maxsim, "launch_plan", lambda *a: bad)
+    with pytest.raises(RuntimeError,
+                       match=f"{_maxsim_kernel(dtype)} launch failed"):
+        maxsim.maxsim_rescore(ids, torch.randn(3, 32, 128, device=cuda),
+                              toks, scales)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("encoding", ["bf16", "int8", "int4"])
 def test_late_interaction_on_cuda_launches_kernel_and_matches_cpu(

@@ -125,16 +125,27 @@ class _FakeCuda:
 
 class _FakeLib:
     def __init__(self, code):
-        self.code, self.calls = code, 0
+        self.code, self.calls, self.last = code, 0, None
 
     def _launch(self, *args):
         self.calls += 1
+        self.last = args
         return self.code
+
+    def _arity(n, launch=_launch):
+        """An entry that takes exactly the C signature's n arguments."""
+        def entry(self, *args):
+            assert len(args) == n, f"{len(args)} arguments, the C entry {n}"
+            return launch(self, *args)
+        return entry
 
     knn_binned_bf16 = knn_binned_int8 = _launch
     ivf_fused_dense = ivf_fused_dense_grouped = _launch
     ivf_fused_int4 = ivf_fused_int4_grouped = _launch
-    maxsim_dense = maxsim_int4 = _launch
+    # (ids, q, toks, scales, out, nq, nw, tq, n_pad, cap, w, [dtype,]
+    # variant, cpb, smem, stream)
+    maxsim_dense = _arity(16)
+    maxsim_int4 = _arity(15)
 
     def cuda_error_string(self, code):
         return b"an injected launch failure"
@@ -287,11 +298,18 @@ def test_maxsim_wrappers_launch_or_raise_never_plain(monkeypatch, code):
                         lambda shape, dtype, device: _FakeCuda(shape, dtype))
     monkeypatch.setattr(maxsim.torch.cuda, "current_stream",
                         lambda device=None: type("S", (), {"cuda_stream": 0}))
-    cases = [(maxsim.KERNEL_DENSE, dt)
-             for dt in (torch.float32, torch.bfloat16, torch.int8)]
-    cases.append((maxsim.KERNEL_INT4, torch.uint8))
-    for name, dtype in cases:
+    # f32 tiles keep the wmma kernel; bf16, int8 and int4 tiles at Tq 8
+    # take warp, and the entry gets the plan's variant code, candidates a
+    # block and shared memory
+    warp, wmma = maxsim.VARIANT_WARP, maxsim.VARIANT_WMMA
+    cases = [(maxsim.KERNEL_DENSE, torch.float32, wmma, 0),
+             (maxsim.KERNEL_DENSE, torch.bfloat16, warp, 1),
+             (maxsim.KERNEL_DENSE, torch.int8, warp, 1),
+             (maxsim.KERNEL_INT4, torch.uint8, warp, 1)]
+    for name, dtype, variant, vcode in cases:
         before = dispatch.launches().get(name, 0)
+        key = f"{name}/{variant}"
+        variants = dispatch.variant_launches()
         if code:
             with pytest.raises(RuntimeError, match="injected launch failure"):
                 maxsim.maxsim_rescore(*_fake_maxsim(dtype))
@@ -300,6 +318,11 @@ def test_maxsim_wrappers_launch_or_raise_never_plain(monkeypatch, code):
             out = maxsim.maxsim_rescore(*_fake_maxsim(dtype))
             assert out.shape == (5, 4)
             assert dispatch.launches().get(name, 0) == before + 1
+            assert dispatch.variant_launches().get(key, 0) \
+                == variants.get(key, 0) + 1
+        plan = maxsim.launch_plan(5, 4, 8, 16, 32, dtype)
+        assert plan.variant == variant
+        assert lib.last[-4:-1] == (vcode, plan.cpb, plan.smem_bytes)
     assert lib.calls == len(cases)
 
 
