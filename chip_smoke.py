@@ -75,6 +75,31 @@ route with no exhaustive fallback, every `ivf_fused_dense` and
 of the same queries, a batch of 64 through the router's real probes, must
 return the same hits.
 
+  serve_concurrent  closed-loop HTTP clients (a thread and a connection
+               each, in a child process) against indices the phases above
+               built, right after their sequential requests: sift (the bf16
+               binned kernel) and cohere `int8_ivf`
+               (`ivf_fused_dense/grouped`) at C = 1, 8 and 32, 256 requests
+               a level drawn from the phase's 64 queries; colbert int8 (the
+               bf16 binned leg and `maxsim_dense/warp`) at C = 1 and 8, 128
+               bodies. sift and `int8_ivf` then take two open-loop
+               levels: 256 requests at Poisson arrival times (gaps from
+               the seed) at 0.5 and 0.9 of the C = 32 level's QPS, sent
+               by up to 64 connections, each timed from its arrival.
+               Each level logs QPS, p50, p99, the combining
+               batcher's counters (batches, requests, mean and max batch,
+               top-ups, pipelined batches, its stage times), launches per
+               request by kernel and variant, and 429s, and fails when a
+               response differs from the same
+               query's batch-1 answer beyond the phase's score tolerance
+               (a difference confined to tied scores is counted and
+               logged as `ties`), a recall@10 falls below the sequential
+               one, a hybrid response differs from host RRF of its legs,
+               any request is refused or fails, or the largest batch at
+               C = 32 is 1 (the batcher did not coalesce). The colbert
+               level also checks that the 64 bodies' legs run as one batch
+               give the batch-1 RRF answers and the MaxSim recall.
+
 `--binned-only`, `--ivf-only` and `--maxsim-only` run env, build and one
 kernel phase (no serving, no ok line): the numbers of PERF.md's
 parent-vs-change comparisons, where a parent commit's package runs this
@@ -860,6 +885,7 @@ def phase_maxsim_kernels(seed: int, dev) -> dict:
 
 class Client:
     def __init__(self, port: int):
+        self.port = port
         self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
 
     def req(self, method, path, body=None, ndjson=False):
@@ -961,7 +987,8 @@ def serve_index(client, node, name, mapping, vectors, queries, metric,
     were read. `kernel` is the one kernel each request must launch once,
     or None for a route that launches none; a binned kernel's launches
     must all take its tma variant. Returns (recall@k, HTTP p50 ms, store
-    p50 ms, ingest s, launches, hits of the HTTP requests)."""
+    p50 ms, ingest s, launches, and the HTTP requests' hits, scores and
+    exact top-k)."""
     from elasticsearch_tpu_torch.ops import dispatch
     from elasticsearch_tpu_torch.ops import knn_binned as kb
     client.ok("PUT", f"/{name}", {
@@ -1002,14 +1029,13 @@ def serve_index(client, node, name, mapping, vectors, queries, metric,
     store = node.index(name).store
     dispatch.reset_launches()
     stats0 = dict(store.knn_stats)
-    lat, got = [], []
+    lat, got, got_scores = [], [], []
     for qv in queries:
-        body = {"knn": {"field": field, "query_vector": qv.tolist(), "k": k,
-                        "num_candidates": 100}, "size": k}
         t = time.perf_counter()
-        resp = client.ok("POST", f"/{name}/_search", body)
+        resp = client.ok("POST", f"/{name}/_search", knn_body(field, qv, k))
         lat.append((time.perf_counter() - t) * 1e3)
         got.append([int(h["_id"]) for h in resp["hits"]["hits"]])
+        got_scores.append([h["_score"] for h in resp["hits"]["hits"]])
         if not all(np.isfinite(h["_score"]) for h in resp["hits"]["hits"]) \
                 or len(got[-1]) != k:
             raise AssertionError(f"bad hits: {resp['hits']}")
@@ -1030,7 +1056,14 @@ def serve_index(client, node, name, mapping, vectors, queries, metric,
     recall = float(np.mean([len(set(g) & set(t.tolist())) / k
                             for g, t in zip(got, truth)]))
     return (recall, statistics.median(lat), statistics.median(store_lat),
-            ingest_s, launches, {"hits": got, "stats": stats, "truth": truth})
+            ingest_s, launches, {"hits": got, "scores": got_scores,
+                                 "stats": stats, "truth": truth})
+
+
+def knn_body(field: str, qv: np.ndarray, k: int = 10) -> dict:
+    """The `_search {knn}` body of the serve phases' requests."""
+    return {"knn": {"field": field, "query_vector": qv.tolist(), "k": k,
+                    "num_candidates": 100}, "size": k}
 
 
 def _expect_served_variant(kernel, variants, n: int) -> None:
@@ -1044,6 +1077,254 @@ def _expect_served_variant(kernel, variants, n: int) -> None:
     want = {f"{kernel}/{variant}": n} if variant else {}
     if {name: c for name, c in variants.items() if c} != want:
         raise AssertionError(f"variant launches {variants}; expected {want}")
+
+
+CONCURRENT_REQUESTS = 256
+# connections of an open-loop level: enough that a request finds one free
+OPEN_LOOP_CLIENTS = 64
+
+
+# the HTTP clients, run in a child process so that they do not share the
+# server's interpreter lock: argv port, path, clients, n, rate, seed; stdin
+# the request bodies as a JSON list of JSON strings; stdout {"wall": s,
+# "out": [[status, response text, ms], ...] by request, "errors": [...]}.
+# rate 0 is a closed loop; rate > 0 schedules request j at a Poisson
+# arrival time (exponential gaps at `rate` a second from `seed`) and times
+# it from then, so a request that waited for a free client counts the wait
+_CLIENTS = r"""
+import http.client, json, random, sys, threading, time
+port, path, clients, n = (int(sys.argv[1]), sys.argv[2], int(sys.argv[3]),
+                          int(sys.argv[4]))
+rate, seed = float(sys.argv[5]), int(sys.argv[6])
+raw = [b.encode() for b in json.load(sys.stdin)]
+tickets, lock = iter(range(n)), threading.Lock()
+out, errors = [None] * n, []
+start = threading.Barrier(clients + 1)
+gaps = random.Random(seed)
+arrival, at = [], 0.0
+for _ in range(n):
+    at += gaps.expovariate(rate) if rate > 0 else 0.0
+    arrival.append(at)
+t0 = [0.0]
+
+def client():
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        start.wait()
+        while True:
+            with lock:
+                j = next(tickets, None)
+            if j is None:
+                return
+            t = time.perf_counter()
+            if rate > 0:
+                time.sleep(max(t0[0] + arrival[j] - t, 0.0))
+                t = t0[0] + arrival[j]
+            conn.request("POST", path, body=raw[j % len(raw)],
+                         headers={"content-type": "application/json"})
+            resp = conn.getresponse()
+            data = resp.read()
+            out[j] = [resp.status, data.decode(),
+                      (time.perf_counter() - t) * 1e3]
+    except Exception as e:
+        errors.append(repr(e))
+    finally:
+        conn.close()
+
+threads = [threading.Thread(target=client) for _ in range(clients)]
+for t in threads:
+    t.start()
+t0[0] = time.perf_counter() + 0.01
+start.wait()
+for t in threads:
+    t.join()
+json.dump({"wall": time.perf_counter() - t0[0], "out": out,
+           "errors": errors}, sys.stdout)
+"""
+
+
+def run_clients(port: int, path: str, bodies, clients: int, n: int,
+                rate: float = 0.0, seed: int = 0):
+    """`clients` HTTP clients, a thread and a keep-alive connection each in
+    one child process, send `n` POSTs to `path` between them: request j
+    carries bodies[j % len(bodies)]. At `rate` 0 the loop is closed (a
+    client sends its next request when its last one is answered); else
+    request j is sent at its Poisson arrival time (`rate` a second, gaps
+    from `seed`) by the first free client. Returns (requests a second,
+    [(status, payload, ms)] by request)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLIENTS, str(port), path, str(clients),
+         str(n), repr(float(rate)), str(seed)], input=json.dumps([json.dumps(b) for b in bodies]),
+        capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"{path}: clients exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    res = json.loads(proc.stdout)
+    if res["errors"] or any(o is None for o in res["out"]):
+        raise AssertionError(f"{path}: client errors {res['errors'][:3]}")
+    return n / res["wall"], [(status, json.loads(text), ms)
+                             for status, text, ms in res["out"]]
+
+
+class BatchSizes:
+    """The size of every batch a dispatch stage is given: wraps the
+    attribute `attr` of `obj` (whose positional argument `arg` is the
+    batch) until `close`."""
+
+    def __init__(self, obj, attr: str, arg: int):
+        self.sizes = []
+        self._obj, self._attr = obj, attr
+        self._orig = fn = getattr(obj, attr)
+
+        def run(*a, **kw):
+            self.sizes.append(len(a[arg]))
+            return fn(*a, **kw)
+
+        setattr(obj, attr, run)
+
+    def close(self):
+        setattr(self._obj, self._attr, self._orig)
+
+
+def against_batch1(label, got_ids, got_scores, want_ids, want_scores,
+                   tol: float) -> int:
+    """0 when a response equals its query's batch-1 answer, 1 when it
+    differs only among hits whose scores tie within `tol` (the order of
+    tied hits, or which of the hits tied at rank k made the cut); raises
+    otherwise. Scores are compared rank by rank."""
+    if len(got_ids) != len(want_ids) or any(
+            abs(a - b) > tol for a, b in zip(got_scores, want_scores)):
+        raise AssertionError(f"{label}: scores {got_scores} against batch "
+                             f"1's {want_scores} (tolerance {tol})")
+    if got_ids == want_ids:
+        return 0
+    k = len(want_ids)
+    for p, (g, w) in enumerate(zip(got_ids, want_ids)):
+        if g != w and p != k - 1 and not any(
+                abs(want_scores[q] - want_scores[p]) <= tol
+                for q in range(k) if q != p):
+            raise AssertionError(f"{label}: hit {p} is {g}, batch 1 had {w} "
+                                 f"with no tied score ({want_scores})")
+    return 1
+
+
+def knn_against_batch1(label: str, extra: dict, tol):
+    """check(query, payload) of a kNN response against the sequential
+    phase's answer to that query; `tol(scores)` is the score tolerance."""
+    def check(qi, payload):
+        hits = payload["hits"]["hits"]
+        want = extra["scores"][qi]
+        return against_batch1(f"{label} query {qi}",
+                              [int(h["_id"]) for h in hits],
+                              [h["_score"] for h in hits],
+                              extra["hits"][qi], want, tol(want))
+    return check
+
+
+def serve_concurrent(index: str, port: int, path: str, bodies, levels,
+                     n: int, check, sched, sizes, variants,
+                     truth=None, recall=None, coalesce_at=None,
+                     open_loop=()) -> dict:
+    """Levels of HTTP clients against one served index: for each C in
+    `levels`, C closed-loop clients send `n` requests (`run_clients`);
+    then for each fraction f in `open_loop`, `n` requests arrive open-loop
+    (Poisson, from the seed) at f times the QPS of the last closed level,
+    sent by up to OPEN_LOOP_CLIENTS connections. Every response
+    must be a 200 that passes `check(query, payload)` (which returns 1 for
+    a response that differs from batch 1 only among tied scores), every
+    launch must be one of `variants` (kernel/variant names), recall@10
+    against `truth` must not fall below `recall`, and at C >= coalesce_at
+    the largest batch must exceed 1. `sched()` reads the batcher's
+    counters and `sizes` = (object, attribute, argument) names the
+    dispatch stage whose batches are measured. Logs a line a level and
+    returns the launches of all levels by kernel."""
+    from elasticsearch_tpu_torch.ops import dispatch
+    total, closed_qps = {}, 0.0
+    runs = [(clients, 0.0) for clients in levels] + [
+        (OPEN_LOOP_CLIENTS, f) for f in open_loop]
+    for clients, frac in runs:
+        rate = frac * closed_qps
+        batch_sizes = BatchSizes(*sizes)
+        before = sched()
+        dispatch.reset_launches()
+        try:
+            qps, out = run_clients(port, path, bodies, clients, n, rate,
+                                   seed=len(bodies) + clients)
+        finally:
+            batch_sizes.close()
+        if not rate:
+            closed_qps = qps
+        launches = {k: c for k, c in dispatch.launches().items() if c}
+        by_variant = {k: c for k, c in dispatch.variant_launches().items()
+                      if c}
+        after = sched()
+        label = (f"serve_concurrent {index} "
+                 + (f"open {rate:.1f}/s" if rate else f"C={clients}"))
+        refused = sum(1 for status, _, _ in out if status == 429)
+        failed = [(j, o[0], o[1]) for j, o in enumerate(out) if o[0] != 200]
+        if failed:
+            raise AssertionError(f"{label}: {len(failed)} requests failed "
+                                 f"({refused} 429s); first {failed[0]}")
+        if set(by_variant) - set(variants):
+            raise AssertionError(f"{label}: launches {by_variant}, "
+                                 f"expected only {sorted(variants)}")
+        ties = sum(check(j % len(bodies), payload)
+                   for j, (_, payload, _) in enumerate(out))
+        ms = np.array([o[2] for o in out])
+        delta = {key: after[key] - before.get(key, 0) for key in after}
+        count = {f"sched_{key}": delta[key]
+                 for key in ("batches", "requests", "topups",
+                             "pipelined_batches", "overlap_hits")}
+        # the batcher's stages: queue wait a request, dispatch (under the
+        # run lock) and finalize a batch, host clock
+        per = max(delta["batches"], 1)
+        count.update(
+            queue_wait_ms=f"{delta['queue_wait_nanos'] / max(n, 1) / 1e6:.3f}",
+            dispatch_ms_per_batch=f"{delta['dispatch_nanos'] / per / 1e6:.3f}",
+            finalize_ms_per_batch=f"{delta['finalize_nanos'] / per / 1e6:.3f}")
+        fields = dict(
+            index=index, clients=clients, requests=n,
+            loop="open" if rate else "closed", arrival_rate=f"{rate:.1f}",
+            qps=f"{qps:.1f}",
+            p50_ms=f"{np.percentile(ms, 50):.3f}",
+            p99_ms=f"{np.percentile(ms, 99):.3f}", **count,
+            mean_batch=f"{len(batch_sizes.sizes) and np.mean(batch_sizes.sizes):.2f}",
+            max_batch=max(batch_sizes.sizes),
+            launches_per_request=json.dumps(
+                {k: round(c / n, 4) for k, c in launches.items()}),
+            variants_per_request=json.dumps(
+                {k: round(c / n, 4) for k, c in by_variant.items()}),
+            rejected_429=refused, ties=ties)
+        if truth is not None:
+            got = float(np.mean([
+                len({int(h["_id"]) for h in payload["hits"]["hits"]}
+                    & set(truth[j % len(bodies)].tolist())) / 10
+                for j, (_, payload, _) in enumerate(out)]))
+            fields["recall_at_10"] = got
+            if got < recall:
+                raise AssertionError(f"{label}: recall@10 {got} < the "
+                                     f"sequential {recall}")
+        log("serve_concurrent", **fields)
+        if coalesce_at is not None and not rate and clients >= coalesce_at \
+                and max(batch_sizes.sizes) <= 1:
+            raise AssertionError(f"{label}: no batch above 1 request: the "
+                                 f"batcher did not coalesce")
+        for k, c in launches.items():
+            total[k] = total.get(k, 0) + c
+    return total
+
+
+def store_concurrent(name: str, port: int, store, queries, extra: dict,
+                     recall: float, tol, variants) -> dict:
+    """serve_concurrent over a kNN index at C = 1, 8 and 32, then open
+    loop at 0.5 and 0.9 of the C = 32 level's QPS."""
+    return serve_concurrent(
+        name, port, f"/{name}/_search",
+        [knn_body("vec", qv) for qv in queries], (1, 8, 32),
+        CONCURRENT_REQUESTS, knn_against_batch1(name, extra, tol),
+        store.scheduler_stats, (store, "_dispatch_many", 3), variants,
+        truth=extra["truth"], recall=recall, coalesce_at=32,
+        open_loop=(0.5, 0.9))
 
 
 def phase_serve(seed: int, n_sift: int, n_cohere: int,
@@ -1060,7 +1341,7 @@ def phase_serve(seed: int, n_sift: int, n_cohere: int,
         vecs = clustered(rng, n_sift, 128)
         queries = vecs[rng.integers(0, n_sift, 64)] \
             + 0.3 * rng.standard_normal((64, 128)).astype(np.float32)
-        recall, p50, store_p50, ingest, launches, _ = serve_index(
+        recall, p50, store_p50, ingest, launches, extra = serve_index(
             client, node, "sift",
             {"properties": {"vec": {"type": "dense_vector", "dims": 128,
                                     "similarity": "cosine"}}},
@@ -1072,6 +1353,14 @@ def phase_serve(seed: int, n_sift: int, n_cohere: int,
             ingest_s=f"{ingest:.2f}", p50_ms=f"{p50:.3f}",
             store_p50_ms=f"{store_p50:.3f}",
             recall_at_10=recall, launches=json.dumps(launches))
+        # concurrent clients: scores to the binned kernel's check, one
+        # packing quantum of the raw score (half of it in `_score`, which
+        # is (1 + cosine) / 2)
+        conc = store_concurrent(
+            "sift", server.port, node.index("sift").store, queries, extra,
+            recall, lambda _: BF16_QUANTUM / 2,
+            {f"{kb.KERNEL_BF16}/{kb.VARIANT_TMA}"})
+        total[kb.KERNEL_BF16] += conc.get(kb.KERNEL_BF16, 0)
         del vecs
 
         # dot_product through the clamped variant of the bf16 kernel
@@ -1140,8 +1429,9 @@ def serve_ivf(client, node, timer, name, field, vectors, queries, metric,
     then the IVF checks: every timed request took the IVF route (the fused
     route when `kernel` is set) with no fallback, and one
     `store.search_many` of the same queries launches `kernel` once and
-    gives the same hits. Returns (recall, the store's field, the HTTP hits,
-    the fields to log)."""
+    gives the same hits. Returns (recall, the store's field, the HTTP
+    requests' hits, scores and exact top-k, the fields to log, the
+    launches)."""
     from elasticsearch_tpu_torch.ops import dispatch
     timer.reset()
     on_card = node.device.type == "cuda"
@@ -1204,7 +1494,7 @@ def serve_ivf(client, node, timer, name, field, vectors, queries, metric,
         fields["device_peak_gb"] = f"{torch.cuda.max_memory_allocated() / 1e9:.2f}"
     fields["host_peak_rss_gb"] = \
         f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.2f}"
-    return recall, fc, extra["hits"], fields, launches
+    return recall, fc, extra, fields, launches
 
 
 def drop_index(node, name: str) -> None:
@@ -1275,12 +1565,13 @@ def phase_serve_ivf(seed: int, n_gist: int, n_cohere: int,
         for otype, kernel, gate in (("int8_ivf", fused.KERNEL_DENSE, 0.90),
                                     ("int4_ivf", fused.KERNEL_INT4, 0.95)):
             name = f"cohere_{otype}"
-            recall, fc, hits, fields, launches = serve_ivf(
+            recall, fc, extra, fields, launches = serve_ivf(
                 client, node, timer, name, {
                     "type": "dense_vector", "dims": 768,
                     "similarity": "cosine",
                     "index_options": {"type": otype}},
                 cvecs, cq, "cosine", kernel)
+            hits = extra["hits"]
             total[kernel] += launches.get(kernel, 0)
             if otype == "int8_ivf":
                 # routing recall: the tuned probing against the same index
@@ -1297,6 +1588,14 @@ def phase_serve_ivf(seed: int, n_gist: int, n_cohere: int,
             log("serve_cohere_ivf", index=otype, **fields)
             if recall < gate:
                 raise AssertionError(f"{name} recall@10 {recall} < {gate}")
+            if otype == "int8_ivf":
+                # concurrent clients: the grouped probe plan at Q > 1 from
+                # request traffic; scores to the fused kernel's check
+                conc = store_concurrent(
+                    name, server.port, node.index(name).store, cq, extra,
+                    recall, lambda sc: 1e-5 * max(1.0, max(map(abs, sc))),
+                    {f"{kernel}/{fused.VARIANT_GROUPED}"})
+                total[kernel] += conc.get(kernel, 0)
             drop_index(node, name)
     finally:
         timer.close()
@@ -1390,13 +1689,15 @@ def _hybrid_body(q_emb, q_tok, source=False):
 
 
 def serve_colbert_index(client, node, name, encoding, oversample, data,
-                        top, first=300):
+                        top, first=300, levels=()):
     """One hybrid index: create, `_bulk` `first` docs and check one search,
     load the rest through `Engine.index_many`, refresh, one warm-up search
     (it builds the token tile), then the timed requests over HTTP, each
     checked against its legs and host RRF; `top` holds the oracle's top-10
-    docs of each query. Returns the MaxSim leg's recall@10, the fields to
-    log and the launches of the timed requests."""
+    docs of each query. Then, for each C in `levels`, the concurrent
+    clients of `serve_concurrent` (128 bodies a level). Returns the MaxSim
+    leg's recall@10, the fields to log and the launches of the timed and
+    concurrent requests."""
     from elasticsearch_tpu_torch.ops import dispatch
     from elasticsearch_tpu_torch.ops import knn_binned as kb
     from elasticsearch_tpu_torch.ops import maxsim
@@ -1478,16 +1779,19 @@ def serve_colbert_index(client, node, name, encoding, oversample, data,
     mappings = node.index(name).mapper_service
     mapper = mappings.get("colv")
     leg_lat, leg_rows, hit_total, compile_ns = [], [], 0, 0
+    host = []     # host RRF of each query's legs: (ids, scores, total)
     for qi, (qe, qt) in enumerate(zip(q_emb, q_tokens)):
         body = _hybrid_body(qe, qt)
         t = time.perf_counter_ns()
         plan = compile_plan(body, mappings)
         compile_ns += time.perf_counter_ns() - t
-        rows, scores = _host_rrf(ex.score_legs(reader, plan, plan.bind(body)))
+        rows, scores = _host_rrf(
+            ex.score_legs(reader, [plan], [plan.bind(body)])[0])
+        host.append(([reader.get_id(r) for r in rows[:10]], scores[:10],
+                     len(rows)))
         got = responses[qi]
-        if [h["_id"] for h in got["hits"]] != \
-                [reader.get_id(r) for r in rows[:10]] \
-                or [h["_score"] for h in got["hits"]] != scores[:10] \
+        if [h["_id"] for h in got["hits"]] != host[qi][0] \
+                or [h["_score"] for h in got["hits"]] != host[qi][1] \
                 or got["total"]["value"] != len(rows):
             raise AssertionError(f"{name}: request {qi} differs from host "
                                  f"RRF of its legs")
@@ -1535,7 +1839,64 @@ def serve_colbert_index(client, node, name, encoding, oversample, data,
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f}"
     fields["host_peak_rss_gb"] = \
         f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.2f}"
+    if levels:
+        launches = dict(launches)
+        conc = colbert_concurrent(client, node, name, ex, q_emb, q_tokens,
+                                  host, top, recall, levels)
+        for kname, c in conc.items():
+            launches[kname] = launches.get(kname, 0) + c
     return recall, fields, launches
+
+
+def colbert_concurrent(client, node, name, ex, q_emb, q_tokens, host, top,
+                       recall, levels) -> dict:
+    """serve_concurrent over a hybrid index: each response against its
+    query's batch-1 answer, which equals host RRF of its legs (checked by
+    the caller), so RRF scores compare exactly; then the 64 bodies' legs
+    run as one batch must give the same RRF answers and no lower MaxSim
+    recall@10. Returns the launches of the levels."""
+    from elasticsearch_tpu_torch.ops import knn_binned as kb
+    from elasticsearch_tpu_torch.ops import maxsim
+    from elasticsearch_tpu_torch.search.hybrid_plan import compile_plan
+    bodies = [_hybrid_body(qe, qt) for qe, qt in zip(q_emb, q_tokens)]
+
+    def check(qi, payload):
+        hits = payload["hits"]
+        if hits["total"]["value"] != host[qi][2]:
+            raise AssertionError(f"{name} query {qi}: total "
+                                 f"{hits['total']} against {host[qi][2]}")
+        return against_batch1(f"{name} query {qi}",
+                              [h["_id"] for h in hits["hits"]],
+                              [h["_score"] for h in hits["hits"]],
+                              host[qi][0], host[qi][1], 0.0)
+
+    conc = serve_concurrent(
+        name, client.port, f"/{name}/_search", bodies, levels,
+        2 * len(bodies), check, lambda: dict(ex.batcher.sched),
+        (ex.batcher, "_dispatch_fn", 0),
+        {f"{kb.KERNEL_BF16}/{kb.VARIANT_TMA}",
+         f"{maxsim.KERNEL_DENSE}/{maxsim.VARIANT_WARP}"})
+    # the legs of all 64 bodies as one batch (Q = 64 in both stores)
+    reader = node.index(name).engine.acquire_searcher()
+    plans = [compile_plan(b, node.index(name).mapper_service)
+             for b in bodies]
+    legs = ex.score_legs(reader, plans, [p.bind(b)
+                                         for p, b in zip(plans, bodies)])
+    ties = 0
+    for qi, body_legs in enumerate(legs):
+        rows, scores = _host_rrf(body_legs)
+        ties += against_batch1(f"{name} batched legs, query {qi}",
+                               [reader.get_id(r) for r in rows[:10]],
+                               scores[:10], host[qi][0], host[qi][1], 0.0)
+    batched = float(np.mean([
+        len(set(body_legs[1][:10].tolist()) & set(t.tolist())) / 10
+        for body_legs, t in zip(legs, top)]))
+    log("serve_concurrent", index=name, batched_legs=len(bodies),
+        ties=ties, maxsim_recall_at_10=batched)
+    if batched < recall:
+        raise AssertionError(f"{name}: MaxSim recall@10 of the batched legs "
+                             f"{batched} < the sequential {recall}")
+    return conc
 
 
 def phase_serve_colbert(seed: int, n: int, device: str = "cuda") -> dict:
@@ -1564,7 +1925,8 @@ def phase_serve_colbert(seed: int, n: int, device: str = "cuda") -> dict:
                                             ("int4", 8, 0.90)):
             name = f"colbert_{encoding}"
             recall, fields, launches = serve_colbert_index(
-                client, node, name, encoding, oversample, data, top)
+                client, node, name, encoding, oversample, data, top,
+                levels=(1, 8) if encoding == "int8" else ())
             for kname, c in launches.items():
                 total[kname] = total.get(kname, 0) + c
             log("serve_colbert", index=name, meets_0_95=recall >= 0.95,

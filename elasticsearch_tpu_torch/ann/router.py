@@ -71,6 +71,15 @@ class IVFRouter:
         self.device = torch.device(device)
         self._tuned_nprobe: Optional[int] = None
 
+    def with_index(self, index: IVFIndex) -> "IVFRouter":
+        """A new router serving `index` with this router's settings and its
+        tuned nprobe carried over (an append leaves the layout's geometry
+        as it was)."""
+        new = IVFRouter(index, nprobe=self.nprobe_setting,
+                        device=self.device)
+        new._tuned_nprobe = self._tuned_nprobe
+        return new
+
     # ---------------------------------------------------------- nprobe
 
     def effective_nprobe(self, k: int) -> int:

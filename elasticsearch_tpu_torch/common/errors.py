@@ -1,8 +1,9 @@
 """Status-carrying exceptions rendered by the REST layer.
 
-A copy of the subset of `elasticsearch_tpu/common/errors.py` this slice
-raises: the same class names, so the same snake-cased `error.type` strings
-and HTTP statuses reach clients.
+A copy of the subset of `elasticsearch_tpu/common/errors.py` (and of
+`EsRejectedExecutionError` from `elasticsearch_tpu/common/threadpool.py`)
+that the port raises: the same class names, so the same snake-cased
+`error.type` strings and HTTP statuses reach clients.
 """
 
 from __future__ import annotations
@@ -76,3 +77,18 @@ class VersionConflictError(SearchEngineError):
     def error_type(self) -> str:
         # the engine-layer name the REST layer exposes
         return "version_conflict_engine_exception"
+
+
+class TaskCancelledError(SearchEngineError):
+    status = 400
+
+
+class EsRejectedExecutionError(SearchEngineError):
+    """Queue full, or a request shed at its deadline: the caller gets
+    backpressure (HTTP 429)."""
+
+    status = 429
+
+    def to_dict(self):
+        return {"type": "es_rejected_execution_exception",
+                "reason": str(self)}

@@ -57,6 +57,18 @@ def bucket_k(k: int, limit: Optional[int] = None) -> int:
     return kb
 
 
+def bucket_headroom(n: int, max_batch: Optional[int] = None) -> int:
+    """Free rows left in `n` requests' query bucket: the continuous
+    batcher's top-up budget. A batch of n runs padded to
+    `bucket_queries(n)` rows either way, so late arrivals up to this many
+    ride it at no extra padding work. `max_batch` clamps to a caller's
+    batch ceiling."""
+    bucket = bucket_queries(n)
+    if max_batch is not None:
+        bucket = min(bucket, int(max_batch))
+    return max(bucket - n, 0)
+
+
 def is_query_bucket(n: int) -> bool:
     return n >= 1 and n == bucket_queries(n)
 

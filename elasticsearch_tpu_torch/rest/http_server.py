@@ -50,13 +50,19 @@ def _make_handler(controller: RestController):
     return Handler
 
 
+class _Server(ThreadingHTTPServer):
+    # the listen backlog: the standard library's 5 resets connections when
+    # tens of clients connect at once (the reference's asyncio server
+    # listens with 100)
+    request_queue_size = 128
+
+
 class HttpServer:
     """Serves `controller` on (host, port); port 0 picks a free port."""
 
     def __init__(self, controller: RestController, host: str = "127.0.0.1",
                  port: int = 9200):
-        self._httpd = ThreadingHTTPServer((host, port),
-                                          _make_handler(controller))
+        self._httpd = _Server((host, port), _make_handler(controller))
         self._httpd.daemon_threads = True
         self.host = host
         self.port = self._httpd.server_address[1]

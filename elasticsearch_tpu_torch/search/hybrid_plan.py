@@ -9,23 +9,25 @@ fetch (port of the `knn` and `late_interaction` legs of
                    late-interaction store (`vectors/late_interaction.py`,
                    the MaxSim kernels on the card), whatever the query's
                    token count
-  score   one store dispatch per leg
+  score   one store dispatch per leg group of a batch
   fuse    reciprocal-rank fusion; f64 accumulation in leg order
   hydrate fetch only the final `from + size` window
 
-Every request compiles its own plan: compiling is a few mapping lookups,
-and PyTorch runs eagerly, so there is no compiled program to reuse. A
+Bodies reach `HybridExecutor` through a `BoundedBatcher`
+(`serving/batcher.py`), so concurrent bodies share their legs' dispatches.
+Every body compiles its own plan: compiling is a few mapping lookups, and
+PyTorch runs eagerly, so there is no compiled program to reuse. A
 sub-search that the reference would send to its generic query phase
 (match, term, bool, sparse, a filtered kNN, ...) is refused with a 400
-naming it: the lexical, sparse and generic legs, the combining batcher and
-the device request cache are not ported.
+naming it: the lexical, sparse and generic legs and the device request
+cache are not ported.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Any, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -36,6 +38,7 @@ from elasticsearch_tpu_torch.index.mapping import (
     DenseVectorFieldMapper, RankVectorsFieldMapper,
 )
 from elasticsearch_tpu_torch.ops import similarity as sim
+from elasticsearch_tpu_torch.serving.batcher import BoundedBatcher
 from elasticsearch_tpu_torch.vectors.late_interaction import (
     LateInteractionShard,
 )
@@ -255,16 +258,40 @@ def _ranked(scores: np.ndarray, k: int) -> np.ndarray:
 
 
 class HybridExecutor:
-    """Per-index hybrid serving path: plan, leg dispatch, fusion and
-    fetch, run synchronously for each request: the reference's combining
-    batcher, which groups legs across requests, is not ported."""
+    """Per-index hybrid serving path behind a bounded combining queue.
 
-    def __init__(self, svc, device):
+    Whole hybrid bodies coalesce: the first thread in becomes the runner
+    and executes every body that accumulated while the previous batch was
+    in flight, with one MaxSim dispatch per (rank_vectors field, k) and one
+    kNN dispatch per (dense_vector field, k, num_candidates) for the whole
+    batch. Admission control (queue depth + deadline) sheds overload as
+    HTTP 429 instead of queueing into the tail.
+
+    The runner holds the batcher's run lock for `_dispatch_batch` (plan +
+    bind, the MaxSim legs, which complete there, and the kNN launches);
+    the kNN boards' wait, RRF and fetch run in `_finalize_batch` outside
+    it, overlapping the next batch's dispatch. A poisoned batch is retried
+    one body at a time through both stages back to back.
+    """
+
+    def __init__(self, svc, device, max_batch: int = 64,
+                 max_queue_depth: int = 256,
+                 deadline_ms: Optional[float] = 10_000.0):
         self.svc = svc
         self.late = LateInteractionShard(device=device)
+        # the admission policy (batch ceiling, queue depth, deadline) is
+        # the reference's `search.hybrid.*` defaults; top-up and 2 batches
+        # in flight are the batcher's defaults
+        self.batcher = BoundedBatcher(
+            self._dispatch_batch, self._finalize_batch, max_batch=max_batch,
+            max_queue_depth=max_queue_depth, deadline_ms=deadline_ms)
+        # finalize stages of different batches run concurrently at
+        # async_depth > 1, so every stats write takes the lock
         self._lock = threading.Lock()
-        self.stats = {"searches": 0, "plan_nanos": 0, "score_nanos": 0, "fuse_nanos": 0,
-                      "hydrate_nanos": 0}
+        self.stats = {"searches": 0, "batches": 0, "max_batch_seen": 0,
+                      "plan_nanos": 0, "score_nanos": 0, "fuse_nanos": 0,
+                      "hydrate_nanos": 0, "queue_wait_nanos": 0,
+                      "dispatch_nanos": 0, "sync_nanos": 0}
 
     def _bump(self, **deltas) -> None:
         with self._lock:
@@ -272,50 +299,128 @@ class HybridExecutor:
                 self.stats[key] += v
 
     def submit(self, body: dict) -> dict:
-        from elasticsearch_tpu_torch.search.service import render_hits
+        return self.batcher.submit(body)
+
+    # ------------------------------------------------------------- batch
+    def _dispatch_batch(self, bodies: List[dict]) -> dict:
+        """Dispatch stage (under the batcher's run lock): compile and bind
+        every body, run the MaxSim legs, launch the kNN legs. Returns the
+        handle `_finalize_batch` lands."""
         start = time.perf_counter()
         reader = self.svc.engine.acquire_searcher()
+        meta = self.batcher.batch_meta()
         t0 = time.perf_counter_ns()
-        plan = compile_plan(body, self.svc.mapper_service)
-        legs = plan.bind(body)
+        plans = [compile_plan(body, self.svc.mapper_service)
+                 for body in bodies]
+        bound = [plan.bind(body) for plan, body in zip(plans, bodies)]
         t1 = time.perf_counter_ns()
-        leg_rows = self.score_legs(reader, plan, legs)
-        t2 = time.perf_counter_ns()
-        rows, scores = fuse_rrf(leg_rows, plan.rank_constant)
-        top = np.lexsort((rows, -scores))[plan.frm:plan.frm + plan.size]
-        t3 = time.perf_counter_ns()
-        hits = render_hits(reader, self.svc.mapper_service, self.svc.name,
-                           rows[top], scores[top], plan.source_spec)
-        self._bump(searches=1, plan_nanos=t1 - t0, score_nanos=t2 - t1,
-                   fuse_nanos=t3 - t2,
-                   hydrate_nanos=time.perf_counter_ns() - t3)
-        return {
-            "took": int((time.perf_counter() - start) * 1000),
-            "timed_out": False,
-            "_shards": {"total": 1, "successful": 1, "skipped": 0,
-                        "failed": 0},
-            "hits": {"total": {"value": int(len(rows)), "relation": "eq"},
-                     "max_score": hits[0]["_score"] if hits else None,
-                     "hits": hits}}
+        leg_results, pending = self._score_legs_async(reader, plans, bound)
+        dispatch_nanos = time.perf_counter_ns() - t1
+        self._bump(searches=len(bodies), batches=1, plan_nanos=t1 - t0,
+                   dispatch_nanos=dispatch_nanos,
+                   queue_wait_nanos=meta.get("queue_wait_max_nanos", 0))
+        with self._lock:
+            self.stats["max_batch_seen"] = max(self.stats["max_batch_seen"],
+                                               len(bodies))
+        return {"start": start, "reader": reader, "plans": plans,
+                "leg_results": leg_results, "pending": pending,
+                "dispatch_nanos": dispatch_nanos}
 
-    def score_legs(self, reader, plan: HybridPlan, legs: List[Any]
-                   ) -> List[np.ndarray]:
-        """Each bound leg's ranked rows, cut to the plan's window: one
-        store dispatch a leg."""
-        out: List[np.ndarray] = []
-        for leg in legs:
-            if isinstance(leg, MaxSimLeg):
-                mapper = self.svc.mapper_service.get(leg.field)
-                ((rows, _scores),) = self.late.search_batch(
-                    reader, mapper, [(leg.query_tokens, leg.boost)], leg.k)
-                out.append(rows[:plan.window])
-                continue
-            ((rows, raw),) = self.svc.store.search_many(
-                leg.field, [leg.query_vector], leg.k,
-                num_candidates=leg.num_candidates)
-            scores = np.asarray(sim.to_es_score(raw, leg.metric)) * leg.boost
-            order = np.argsort(rows, kind="stable")
-            rows = rows[order].astype(np.int64)
-            scores = scores[order].astype(np.float32)
-            out.append(rows[_ranked(scores, plan.window)])
+    def _finalize_batch(self, handle: dict) -> List[dict]:
+        """Finalize stage (outside the run lock): land the kNN boards, fuse
+        RRF and fetch the final window of each body."""
+        from elasticsearch_tpu_torch.search.service import render_hits
+        reader, plans = handle["reader"], handle["plans"]
+        leg_results = handle["leg_results"]
+        t0 = time.perf_counter_ns()
+        self._land_knn_legs(handle["pending"], plans, leg_results)
+        t1 = time.perf_counter_ns()
+        fused = []
+        for bi, plan in enumerate(plans):
+            rows, scores = fuse_rrf([leg_results[(bi, li)]
+                                     for li in range(len(plan.legs))],
+                                    plan.rank_constant)
+            top = np.lexsort((rows, -scores))[plan.frm:plan.frm + plan.size]
+            fused.append((rows, scores, top))
+        t2 = time.perf_counter_ns()
+        out = []
+        for plan, (rows, scores, top) in zip(plans, fused):
+            hits = render_hits(reader, self.svc.mapper_service,
+                               self.svc.name, rows[top], scores[top],
+                               plan.source_spec)
+            out.append({
+                "took": int((time.perf_counter() - handle["start"]) * 1000),
+                "timed_out": False,
+                "_shards": {"total": 1, "successful": 1, "skipped": 0,
+                            "failed": 0},
+                "hits": {"total": {"value": int(len(rows)),
+                                   "relation": "eq"},
+                         "max_score": hits[0]["_score"] if hits else None,
+                         "hits": hits}})
+        # score = launch + device wait, the figure of the unbatched path
+        self._bump(sync_nanos=t1 - t0,
+                   score_nanos=handle["dispatch_nanos"] + t1 - t0,
+                   fuse_nanos=t2 - t1,
+                   hydrate_nanos=time.perf_counter_ns() - t2)
         return out
+
+    # -------------------------------------------------------------- legs
+    def score_legs(self, reader, plans: List[HybridPlan],
+                   bound: List[List[Any]]) -> List[List[np.ndarray]]:
+        """Each body's legs, ranked and cut to its plan's window, run as
+        one batch: the fusion's inputs, for checks that recompute RRF."""
+        leg_results, pending = self._score_legs_async(reader, plans, bound)
+        self._land_knn_legs(pending, plans, leg_results)
+        return [[leg_results[(bi, li)] for li in range(len(legs))]
+                for bi, legs in enumerate(bound)]
+
+    def _score_legs_async(self, reader, plans: List[HybridPlan],
+                          bound: List[List[Any]]):
+        """Group the batch's bound legs so each store sees one dispatch:
+        MaxSim legs per (field, k), complete here (the rescore's inputs
+        are its own coarse phase's ids, so no board is left in flight);
+        kNN legs per (field, k, num_candidates), launched un-landed
+        (`search_many_async`). Returns ({(body, leg): ranked rows}, the
+        pending kNN groups)."""
+        leg_results: Dict[Tuple[int, int], np.ndarray] = {}
+        maxsim_groups: Dict[tuple, list] = {}
+        knn_groups: Dict[tuple, list] = {}
+        for bi, legs in enumerate(bound):
+            for li, leg in enumerate(legs):
+                if isinstance(leg, MaxSimLeg):
+                    maxsim_groups.setdefault((leg.field, leg.k), []).append(
+                        (bi, li, leg))
+                else:
+                    knn_groups.setdefault(
+                        (leg.field, leg.k, leg.num_candidates), []).append(
+                        (bi, li, leg))
+        for (field, k), entries in maxsim_groups.items():
+            mapper = self.svc.mapper_service.get(field)
+            results = self.late.search_batch(
+                reader, mapper, [(leg.query_tokens, leg.boost)
+                                 for _bi, _li, leg in entries], k)
+            for (bi, li, _leg), (rows, _scores) in zip(entries, results):
+                leg_results[(bi, li)] = rows[:plans[bi].window]
+        pending = []
+        for (field, k, num_candidates), entries in knn_groups.items():
+            handle = self.svc.store.search_many_async(
+                field, [leg.query_vector for _bi, _li, leg in entries], k,
+                num_candidates=num_candidates)
+            pending.append((entries, handle))
+        return leg_results, pending
+
+    def _land_knn_legs(self, pending, plans: List[HybridPlan],
+                       leg_results: Dict[Tuple[int, int], np.ndarray]
+                       ) -> None:
+        """Land each kNN group's boards, then each leg as `KnnQuery` scores
+        it, cut to the plan's window by (score desc, row asc)."""
+        for entries, handle in pending:
+            batch_out = self.svc.store.finalize_many(handle)
+            for (bi, li, leg), (rows, raw) in zip(entries, batch_out):
+                scores = (np.asarray(sim.to_es_score(raw, leg.metric))
+                          * leg.boost)
+                order = np.argsort(rows, kind="stable")
+                rows = rows[order].astype(np.int64)
+                scores = scores[order].astype(np.float32)
+                leg_results[(bi, li)] = rows[_ranked(scores,
+                                                     plans[bi].window)]

@@ -18,9 +18,16 @@ The packed int4 rung serves two-phase: a coarse top-(k·oversample) on
 the packed tiles, then an exact f32 rescore of that window from the host
 rows the field was built from (`quant/rescore.py`).
 
-Left out, as ROADMAP.md lists: the combining batcher, generational
-segments, the mesh, the semantic cache, the host mirror, filtered kNN and
-the binary rung.
+`search` coalesces concurrent requests through a per-(field, version, k,
+precision, num_candidates) `CombiningBatcher` (`serving/batcher.py`): one
+dispatch a batch, pipelined so the exhaustive route's launch runs under the
+batcher's run lock and its device→host wait in the finalize stage outside
+it. A refresh retires a rebuilt field's batchers; requests already queued
+in one are served against the corpus it closed over.
+
+Left out, as ROADMAP.md lists: generational segments, the mesh, the
+semantic cache, the host mirror and its cost router, filtered kNN and the
+binary rung.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from elasticsearch_tpu_torch.ops import dispatch
 from elasticsearch_tpu_torch.ops import knn as knn_ops
 from elasticsearch_tpu_torch.ops import similarity as sim
 from elasticsearch_tpu_torch.quant import rescore as quant_rescore
+from elasticsearch_tpu_torch.serving.batcher import CombiningBatcher
 
 # below this many rows the exhaustive scan beats IVF routing overhead;
 # tpu_ivf fields smaller than this quietly serve exhaustive
@@ -100,6 +108,35 @@ def _pad_batch(queries: np.ndarray, n_real: int) -> np.ndarray:
     return queries
 
 
+def _to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Queries onto `device` with no host wait: a copy from pageable memory
+    would block until the card had run everything queued before it (the
+    previous batch's kernels), so it goes through pinned memory."""
+    t = torch.from_numpy(batch)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def _to_host_async(*tensors: torch.Tensor):
+    """Enqueue device→host copies into pinned memory and record an event
+    behind them. Waiting on the event waits for this batch's work only: a
+    `.cpu()` in finalize would also wait for kernels another runner queued
+    on the stream after this batch. Returns (host tensors, event or None
+    on the CPU)."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        return tensors, None
+    host = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        host.append(h)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(dev))
+    return tuple(host), ready
+
+
 class VectorStoreShard:
     def __init__(self, dtype: str = "bf16", device="cuda",
                  knn_engine: str = "tpu", knn_nlist=None,
@@ -122,7 +159,13 @@ class VectorStoreShard:
             "rescore_searches": 0, "rescore_window_rows": 0,
             "rescore_promoted": 0, "rescore_nanos": 0,
             "route_nanos": 0, "score_nanos": 0, "merge_nanos": 0}
-        self.last_knn_phases: dict = {}
+        # key -> (the FieldCorpus the batcher serves, the batcher)
+        self._batchers: Dict[tuple, Tuple[FieldCorpus, CombiningBatcher]] = {}
+        self._batchers_lock = threading.Lock()
+        # scheduler counters of batchers retired at refresh
+        self._sched_retired: Dict[str, int] = {}
+        # per-thread phases of the last search (`last_knn_phases`)
+        self._tls = threading.local()
 
     def _field_engine(self, mapper: DenseVectorFieldMapper) -> str:
         """Effective engine for one field: explicit index_options beat the
@@ -212,6 +255,7 @@ class VectorStoreShard:
             with self._lock:
                 self._fields[field] = fc
                 self._field_plans[field] = plan
+            self._retire_field(field)
 
     def _ivf_router(self, field, mapper, cached, full, row_map, metric,
                     dtype):
@@ -230,11 +274,14 @@ class VectorStoreShard:
                 and np.array_equal(row_map[:old_n], cached.row_map)):
             # append-only refresh (new sealed segments, no deletes): place
             # only the delta rows, keeping the trained centroids and the
-            # tuned nprobe until drift forces a retrain
-            old.index.add(full[old_n:],
-                          np.arange(old_n, len(row_map), dtype=np.int32))
-            if not old.index.needs_retrain:
-                return old
+            # tuned nprobe until drift forces a retrain. The rows go into a
+            # copy of the layout: requests still queued against the
+            # previous snapshot read the old one
+            index = old.index.clone()
+            index.add(full[old_n:],
+                      np.arange(old_n, len(row_map), dtype=np.int32))
+            if not index.needs_retrain:
+                return old.with_index(index)
         opts = mapper.params.get("index_options") or {}
         nlist = opts.get("nlist", self.knn_nlist)
         ivf = None
@@ -255,26 +302,171 @@ class VectorStoreShard:
     def field(self, name: str) -> Optional[FieldCorpus]:
         return self._fields.get(name)
 
+    @property
+    def last_knn_phases(self) -> dict:
+        """Phases of the last search made on the CALLING thread (engine,
+        fallback reason, IVF route/score/merge times, rescore window).
+        Each request carries its batch's phases back to its own thread, so
+        concurrent requests never read each other's."""
+        return getattr(self._tls, "phases", {})
+
+    # ------------------------------------------------------- batchers
+    def _retire_field(self, field: str) -> None:
+        """Drop the batchers of a rebuilt field's earlier builds, folding
+        their scheduler counters into the retired total. Entries still
+        queued in one are served by its own runners against the corpus it
+        closed over. A batcher already made for the current build stays."""
+        with self._batchers_lock:
+            current = self._fields.get(field)
+            for key in [key for key, (fc, _) in self._batchers.items()
+                        if key[0] == field and fc is not current]:
+                self._retire_sched(self._batchers.pop(key)[1])
+
+    def _retire_sched(self, batcher: CombiningBatcher) -> None:
+        """Fold a dropped batcher's scheduler counters into the retired
+        total (caller holds `_batchers_lock`). As in the reference, what
+        it counts after this (requests that were queued in it) is not
+        added."""
+        for key, val in batcher.sched.items():
+            self._sched_retired[key] = self._sched_retired.get(key, 0) + val
+
+    def scheduler_stats(self) -> Dict[str, int]:
+        """Combining-batcher counters summed over this shard's kNN
+        batchers, live and retired: batches, requests, top-ups, pipelined
+        batches, sheds, overlap hits, queue-wait / dispatch / finalize
+        time."""
+        out = dict(self._sched_retired)
+        with self._batchers_lock:
+            batchers = [b for _, b in self._batchers.values()]
+        for b in batchers:
+            for key, val in b.sched.items():
+                out[key] = out.get(key, 0) + val
+        return out
+
+    def pending_requests(self, field: str) -> int:
+        """Searches queued, not yet claimed by a runner, across the
+        field's batchers."""
+        with self._batchers_lock:
+            return sum(b.pending() for key, (_, b) in self._batchers.items()
+                       if key[0] == field)
+
+    def queued_requests(self) -> int:
+        """Searches queued across all of this shard's batchers
+        (`CombiningBatcher.load()`)."""
+        with self._batchers_lock:
+            return sum(b.load()["pending"]
+                       for _, b in self._batchers.values())
+
+    def _batcher(self, field: str, fc: FieldCorpus, k: int, precision: str,
+                 num_candidates: Optional[int]) -> CombiningBatcher:
+        key = (field, fc.version, k, precision, num_candidates)
+        with self._batchers_lock:
+            cached = self._batchers.get(key)
+            if cached is not None and cached[0] is fc:
+                return cached[1]
+
+            def dispatch_fn(queries):
+                return self._dispatch_many(fc, k, precision, queries,
+                                           num_candidates)
+
+            def finalize_fn(handle):
+                results, phases = self._finalize(handle)
+                return [(res, dict(phases)) for res in results]
+
+            # pipelined: the runner holds the run lock only for the launch;
+            # the device→host wait and the row-map join of batch N overlap
+            # batch N+1's launch
+            batcher = CombiningBatcher(dispatch_fn, finalize_fn)
+            if self._fields.get(field) is not fc:
+                # a refresh replaced the field after this request read it:
+                # serve the request through a batcher nothing keeps, so no
+                # cached batcher holds the old corpus
+                return batcher
+            if cached is not None:   # an earlier build under the same key
+                self._retire_sched(cached[1])
+            if len(self._batchers) > 64:  # stale (field, k) variants
+                for _, stale in self._batchers.values():
+                    self._retire_sched(stale)
+                self._batchers.clear()
+            self._batchers[key] = (fc, batcher)
+            return batcher
+
+    # --------------------------------------------------------- search
     def search(self, field: str, query_vector: np.ndarray, k: int,
                precision: str = "bf16",
                num_candidates: Optional[int] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k search. Returns (global_rows [m], raw_scores [m]), m <= k
-        (padding slots removed)."""
-        return self.search_many(field, [query_vector], k,
-                                precision=precision,
-                                num_candidates=num_candidates)[0]
+        (padding slots removed). Concurrent callers coalesce through a
+        per-(field, version, k, precision, num_candidates) combining
+        batcher into one dispatch."""
+        fc = self._fields.get(field)
+        if fc is None or fc.corpus is None:
+            self._tls.phases = {}
+            return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.float32)
+        batcher = self._batcher(field, fc, k, precision, num_candidates)
+        result, phases = batcher.submit(
+            np.asarray(query_vector, dtype=np.float32))
+        self._tls.phases = phases
+        return result
 
     def search_many(self, field: str, queries: List[np.ndarray], k: int,
                     precision: str = "bf16",
                     num_candidates: Optional[int] = None) -> list:
-        """Score a batch of query vectors in one dispatch: through the IVF
-        router when the field has one and no fallback reason applies,
-        else the exhaustive route; packed rungs then rescore exactly."""
+        """Score a batch of query vectors in one dispatch, on the calling
+        thread: for a caller that already holds a batch (the hybrid
+        executor's runner), past the batcher."""
+        results, phases = self._finalize(self.search_many_async(
+            field, queries, k, precision=precision,
+            num_candidates=num_candidates))
+        self._tls.phases = phases
+        return results
+
+    def search_many_async(self, field: str, queries: List[np.ndarray],
+                          k: int, precision: str = "bf16",
+                          num_candidates: Optional[int] = None):
+        """Launch a batch's kNN without waiting for it: an opaque handle
+        that `finalize_many` lands. The exhaustive route returns the boards
+        still in flight; the IVF route (its router waits for the card
+        between its phases) and empty fields complete here."""
         fc = self._fields.get(field)
         if fc is None or fc.corpus is None:
-            return [(np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.float32))
-                    for _ in queries]
+            return ("done", [(np.zeros(0, dtype=np.int64),
+                              np.zeros(0, dtype=np.float32))
+                             for _ in queries], {})
+        return self._dispatch_many(fc, k, precision, queries,
+                                   num_candidates)
+
+    def finalize_many(self, handle) -> list:
+        """Land a `search_many_async` handle: wait for its boards (this
+        batch's copies only), rescore packed rungs, join the row map."""
+        return self._finalize(handle)[0]
+
+    def _finalize(self, handle) -> Tuple[list, dict]:
+        kind, payload, phases = handle
+        if kind == "done":
+            return payload, phases
+        fc, scores, ids, ready, k_eff, n_valid, n_real, rescore_ctx = payload
+        if ready is not None:
+            ready.synchronize()
+        scores = scores.numpy()[:, :k_eff]
+        ids = ids.numpy()[:, :k_eff]
+        if rescore_ctx is not None:
+            # phase two: exact f32 re-rank of the coarse window (the host
+            # gather + score runs here, outside the run lock)
+            scores, ids, phases["rescore"] = self._apply_rescore(
+                rescore_ctx, scores, ids, n_real)
+        return (self._land_results(fc, scores, ids, _FLOOR, n_valid, n_real),
+                phases)
+
+    def _dispatch_many(self, fc: FieldCorpus, k: int, precision: str,
+                       queries: List[np.ndarray],
+                       num_candidates: Optional[int]):
+        """Dispatch stage of one batch: through the IVF router when the
+        field has one and no fallback reason applies (completes here),
+        else the exhaustive route, launched with no host wait: the queries
+        go up from pinned memory and the boards come back into pinned
+        memory behind an event. Returns (kind, payload, phases)."""
         n_valid = len(fc.row_map)
         n_real = len(queries)
         n_pad = fc.corpus.matrix.shape[0]
@@ -287,29 +479,27 @@ class VectorStoreShard:
                  else quant_rescore.coarse_window(
                      k_req, fc.rescore_oversample, limit=n_pad))
         self._bump(searches=1)
-        self.last_knn_phases = {}
+        phases: dict = {}
         if fc.router is not None:
             reason = fc.router.should_fallback(k_eff, False, precision)
             if reason is None:
-                return self._execute_ivf(fc, k_eff, n_valid, batch, n_real,
-                                         num_candidates, rescore_ctx)
+                results, phases = self._execute_ivf(
+                    fc, k_eff, n_valid, batch, n_real, num_candidates,
+                    rescore_ctx)
+                return ("done", results, phases)
             self._bump(fallback_searches=1)
-            self.last_knn_phases = {"engine": "tpu_exhaustive",
-                                    "fallback_reason": reason}
+            phases = {"engine": "tpu_exhaustive", "fallback_reason": reason}
         padded = _pad_batch(batch, n_real)
         # k rounds up the bucket ladder; the extra columns slice away below
         # (top-k prefixes are exact)
         k_b = dispatch.bucket_k(k_eff, limit=n_pad)
         s, i = knn_ops.knn_search_auto(
-            torch.from_numpy(padded).to(self.device), fc.corpus, k=k_b,
+            _to_device(padded, self.device), fc.corpus, k=k_b,
             metric=fc.metric, precision=precision,
             rescore_candidates=fc.rescore_candidates)
-        scores = s[:, :k_eff].cpu().numpy()
-        ids = i[:, :k_eff].cpu().numpy()
-        if rescore_ctx is not None:
-            scores, ids = self._apply_rescore(rescore_ctx, scores, ids,
-                                              n_real)
-        return self._land_results(fc, scores, ids, _FLOOR, n_valid, n_real)
+        (s, i), ready = _to_host_async(s[:n_real, :k_eff], i[:n_real, :k_eff])
+        return ("pending", (fc, s, i, ready, k_eff, n_valid, n_real,
+                            rescore_ctx), phases)
 
     @staticmethod
     def _rescore_ctx(fc: FieldCorpus, queries: np.ndarray,
@@ -327,7 +517,8 @@ class VectorStoreShard:
     def _apply_rescore(self, ctx: dict, scores: np.ndarray,
                        ids: np.ndarray, n_real: int):
         """Run the exact-rescore phase over coarse boards (flat device row
-        ids) and fold the window stats into knn_stats / last_knn_phases."""
+        ids), fold the window stats into knn_stats, and return them as the
+        batch's `rescore` phase."""
         t0 = time.perf_counter_ns()
         out_s, out_i, stats = quant_rescore.rescore_boards(
             ctx["queries"][:n_real], scores[:n_real], ids[:n_real],
@@ -336,19 +527,17 @@ class VectorStoreShard:
         self._bump(rescore_searches=1,
                    rescore_window_rows=stats["window"] * n_real,
                    rescore_promoted=stats["promoted"], rescore_nanos=nanos)
-        phases = dict(self.last_knn_phases or {})
-        phases["rescore"] = {"window": stats["window"],
-                             "promoted": stats["promoted"],
-                             "rescore_nanos": nanos}
-        self.last_knn_phases = phases
-        return out_s, out_i
+        return out_s, out_i, {"window": stats["window"],
+                              "promoted": stats["promoted"],
+                              "rescore_nanos": nanos}
 
     def _execute_ivf(self, fc: FieldCorpus, k_eff: int, n_valid: int,
                      queries: np.ndarray, n_real: int,
                      num_candidates: Optional[int],
-                     rescore_ctx: Optional[dict]) -> list:
+                     rescore_ctx: Optional[dict]):
         """Serve one batch through the tpu_ivf router (packed encodings
-        rescore the coarse window exactly before landing)."""
+        rescore the coarse window exactly before landing). Returns
+        (results, phases)."""
         padded = _pad_batch(queries, n_real)
         k_b = dispatch.bucket_k(k_eff, limit=n_valid)
         scores, rows, phases = fc.router.search(
@@ -356,9 +545,8 @@ class VectorStoreShard:
         scores, rows = scores[:, :k_eff], rows[:, :k_eff]
         phases = dict(phases)
         if rescore_ctx is not None:
-            scores, rows = self._apply_rescore(rescore_ctx, scores, rows,
-                                               n_real)
-            phases["rescore"] = self.last_knn_phases["rescore"]
+            scores, rows, phases["rescore"] = self._apply_rescore(
+                rescore_ctx, scores, rows, n_real)
         t0 = time.perf_counter_ns()
         out = self._land_results(fc, scores, rows, _FLOOR, n_valid, n_real)
         phases["merge_nanos"] += time.perf_counter_ns() - t0
@@ -366,8 +554,7 @@ class VectorStoreShard:
                    fused_probe_searches=int(phases["fused_probe"]),
                    **{ph: phases[ph] for ph in ("route_nanos", "score_nanos",
                                                 "merge_nanos")})
-        self.last_knn_phases = phases
-        return out
+        return out, phases
 
     @staticmethod
     def _land_results(fc, scores: np.ndarray, ids: np.ndarray,

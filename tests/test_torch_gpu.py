@@ -342,6 +342,65 @@ def test_ivf_store_on_cuda_launches_kernel_and_matches_cpu(cuda, options):
     assert on_gpu.knn_stats["fused_probe_searches"] == 5
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("options", [None, {"type": "int8_flat",
+                                            "rescore": True},
+                                     {"type": "int4_flat"}])
+def test_store_pipelined_route_on_cuda(cuda, options):
+    """The exhaustive route's dispatch stage leaves its boards in flight:
+    pinned host copies behind an event, landed by `finalize_many` as
+    `search_many` lands them; 8 threads through the combining batcher get
+    the batch's answers (the same rows where scores are clear of ties)."""
+    import threading
+    from elasticsearch_tpu_torch.index import mapping, segment
+    from elasticsearch_tpu_torch.vectors.store import VectorStoreShard
+
+    rng = np.random.default_rng(11)
+    n, d = 20000, 128
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    seg = segment.Segment(0, 0, [str(i) for i in range(n)], [None] * n,
+                          {"v": (vecs, np.ones(n, dtype=bool))})
+    reader = segment.ShardReader([segment.SegmentView(seg)])
+    field = {"type": "dense_vector", "dims": d}
+    if options:
+        field["index_options"] = options
+    store = VectorStoreShard(device=cuda)
+    store.sync(reader, mapping.MapperService(
+        {"properties": {"v": field}}).vector_fields())
+    queries = list(rng.standard_normal((8, d)).astype(np.float32))
+    handle = store.search_many_async("v", queries, 10)
+    kind, payload, _phases = handle
+    assert kind == "pending"
+    assert payload[1].is_pinned() and payload[2].is_pinned()
+    assert isinstance(payload[3], torch.cuda.Event)
+    got = store.finalize_many(handle)
+    want = store.search_many("v", queries, 10)
+    for (gr, gs), (wr, ws) in zip(got, want):
+        np.testing.assert_array_equal(gr, wr)
+        np.testing.assert_array_equal(gs, ws)
+    results = [None] * 8
+    barrier = threading.Barrier(8)
+
+    def run(i):
+        barrier.wait(10)
+        results[i] = store.search("v", queries[i], 10)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+        assert not t.is_alive()
+    for (rows, raw), (wr, ws) in zip(results, want):
+        np.testing.assert_allclose(raw, ws, atol=1e-4)
+        clear = np.minimum(np.abs(np.diff(ws, prepend=np.inf)),
+                           np.abs(np.diff(ws, append=-np.inf))) > 1e-4
+        np.testing.assert_array_equal(rows[clear], wr[clear])
+    sched = store.scheduler_stats()
+    assert sched["requests"] == 8 and sched["pipelined_batches"] >= 1
+    assert store.queued_requests() == 0
+
+
 def _random_token_tile(g, dev, dtype, n, n_pad, cap, w):
     """A [n_pad, cap, w] tile of n ragged docs (1..cap valid slots each,
     scale 0 on the rest and on rows n..n_pad, the padding rows)."""

@@ -208,3 +208,103 @@ def test_unported_sub_search_is_a_400(nodes, sub):
         "tag": "t1"}}})
     assert status == 400 and "[match] query is not supported" \
         in resp["error"]["reason"]
+
+
+def _concurrently(port, calls, monkeypatch):
+    """Run each call on its own thread through the index's hybrid batcher,
+    the first one's dispatch held until the rest have queued behind it,
+    so they form one batch. Returns their results or errors."""
+    import threading
+    import time
+    ex = port._hybrid_executor(port.index("h"))
+    inner = ex.batcher._dispatch_fn
+    started, gate = threading.Event(), threading.Event()
+
+    def held(bodies):
+        if not started.is_set():
+            started.set()
+            assert gate.wait(10)
+        return inner(bodies)
+
+    monkeypatch.setattr(ex.batcher, "_dispatch_fn", held)
+    out = [None] * len(calls)
+
+    def run(i):
+        try:
+            out[i] = calls[i]()
+        except Exception as e:  # noqa: BLE001 - returned to the test
+            out[i] = e
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(calls))]
+    threads[0].start()
+    assert started.wait(10)
+    for t in threads[1:]:
+        t.start()
+    deadline = time.monotonic() + 10
+    while ex.batcher.pending() < len(calls) - 1:
+        assert time.monotonic() < deadline
+        time.sleep(0.002)
+    gate.set()
+    for t in threads:
+        t.join(10)
+        assert not t.is_alive()
+    return out
+
+
+def test_concurrent_submit_equals_sequential_one_dispatch_a_leg(
+        nodes, monkeypatch):
+    """8 concurrent bodies give the sequential answers (and the
+    reference's); the 7 that coalesced ran one knn and one MaxSim
+    dispatch between them."""
+    ref_req, port_req, port, emb, cols = nodes
+    bodies = [_hybrid(emb, cols, i, k=8) for i in range(30, 38)]
+    sequential = [port_req("POST", "/h/_search", b) for b in bodies]
+    ex = port._hybrid_executor(port.index("h"))
+    store = port.index("h").store
+    calls = {"knn": 0, "maxsim": 0}
+
+    def counted(kind, fn):
+        def run(*args, **kwargs):
+            calls[kind] += 1
+            return fn(*args, **kwargs)
+        return run
+
+    monkeypatch.setattr(store, "search_many_async",
+                        counted("knn", store.search_many_async))
+    monkeypatch.setattr(ex.late, "search_batch",
+                        counted("maxsim", ex.late.search_batch))
+    stats0 = dict(ex.stats)
+    got = _concurrently(port, [
+        (lambda b=b: port_req("POST", "/h/_search", b)) for b in bodies],
+        monkeypatch)
+    for body, (s0, want), (s1, resp) in zip(bodies, sequential, got):
+        assert s0 == s1 == 200
+        _same(want, resp)
+        _same(ref_req("POST", "/h/_search", body)[1], resp)
+    assert calls == {"knn": 2, "maxsim": 2}
+    assert ex.stats["batches"] - stats0["batches"] == 2
+    assert ex.stats["searches"] - stats0["searches"] == 8
+    assert ex.stats["max_batch_seen"] >= 7
+    for key in ("queue_wait_nanos", "dispatch_nanos", "sync_nanos"):
+        assert ex.stats[key] > stats0[key]
+
+
+def test_poisoned_body_fails_alone_in_a_batch(nodes, monkeypatch):
+    """A body whose knn vector has the wrong dims fails the batch it
+    coalesced into; the serial retry gives it its 400 and the others
+    their answers."""
+    _ref_req, port_req, port, emb, cols = nodes
+    bodies = [_hybrid(emb, cols, i) for i in (40, 41, 42)]
+    bad = _hybrid(emb, cols, 43)
+    bad["sub_searches"][0]["query"]["knn"]["query_vector"] = [0.5] * 3
+    sequential = [port_req("POST", "/h/_search", b) for b in bodies]
+    got = _concurrently(port, [
+        (lambda b=b: port_req("POST", "/h/_search", b))
+        for b in [bodies[0], bad] + bodies[1:]], monkeypatch)
+    status, resp = got[1]
+    assert status == 400
+    assert resp["error"]["type"] == "illegal_argument_exception"
+    for (s0, want), (s1, resp) in zip(sequential, [got[0]] + got[2:]):
+        assert s0 == s1 == 200
+        _same(want, resp)

@@ -337,3 +337,156 @@ def test_knn_settings_validation_matches_reference(clients):
         assert store.knn_engine == settings.get(
             "index.knn.engine", "tpu")
         port.node.indices.pop("good")
+
+
+def test_hybrid_queue_at_depth_1_answers_429_like_reference(clients):
+    """With one request in the runner's held dispatch and one queued, a
+    third hybrid request finds the queue full at depth 1: a 429 with the
+    reference's error body; the other two are served."""
+    import threading
+    import time
+    from elasticsearch_tpu.search.hybrid_plan import (
+        HybridExecutor as RefHybridExecutor)
+    from elasticsearch_tpu_torch.search.hybrid_plan import HybridExecutor
+    ref, port = clients
+    rng = np.random.default_rng(61)
+    create = {"settings": {"number_of_shards": 1, "number_of_replicas": 0},
+              "mappings": {"properties": {
+                  "emb": {"type": "dense_vector", "dims": D,
+                          "similarity": "cosine"},
+                  "colv": {"type": "rank_vectors", "dims": 8}}}}
+    bulk = []
+    for i in range(40):
+        bulk += [{"index": {"_id": str(i)}},
+                 {"emb": rng.standard_normal(D).tolist(),
+                  "colv": rng.standard_normal((3, 8)).tolist()}]
+    body = {"rank": {"rrf": {}}, "size": 5, "sub_searches": [
+        {"query": {"knn": {"field": "emb",
+                           "query_vector": rng.standard_normal(D).tolist(),
+                           "k": 5}}},
+        {"query": {"late_interaction": {
+            "field": "colv",
+            "query_tokens": rng.standard_normal((2, 8)).tolist()}}}]}
+    executors = {
+        "ref": lambda svc: RefHybridExecutor(
+            ref.node, svc, max_batch=2, max_queue_depth=1,
+            deadline_ms=None),
+        "port": lambda svc: HybridExecutor(
+            svc, "cpu", max_batch=2, max_queue_depth=1, deadline_ms=None)}
+    seen = {}
+    for name, client in (("ref", ref), ("port", port)):
+        assert client.req("PUT", "/h", create)[0] == 200
+        assert not client.req("POST", "/h/_bulk", bulk, ndjson=True)[1][
+            "errors"]
+        assert client.req("POST", "/h/_refresh")[0] == 200
+        svc = (client.node.indices.indices if name == "ref"
+               else client.node.indices)["h"]
+        ex = executors[name](svc)
+        inner = ex.batcher._dispatch_fn
+        started, gate = threading.Event(), threading.Event()
+
+        def held(bodies, inner=inner, started=started, gate=gate):
+            started.set()
+            assert gate.wait(10)
+            return inner(bodies)
+
+        ex.batcher._dispatch_fn = held
+        client.node._hybrid["h"] = ex
+        statuses = []
+        first = threading.Thread(target=lambda: statuses.append(
+            client.req("POST", "/h/_search", body)[0]))
+        first.start()
+        assert started.wait(10)
+        queued = threading.Thread(target=lambda: statuses.append(
+            client.req("POST", "/h/_search", body)[0]))
+        queued.start()
+        deadline = time.monotonic() + 10
+        while ex.batcher.pending() < 1:
+            assert time.monotonic() < deadline
+            time.sleep(0.002)
+        status, resp = client.req("POST", "/h/_search", body)
+        gate.set()
+        for t in (first, queued):
+            t.join(10)
+            assert not t.is_alive()
+        seen[name] = (status, resp["status"], resp["error"]["type"],
+                      resp["error"]["root_cause"][0]["type"], statuses,
+                      ex.batcher.stats["rejected_depth"])
+    assert seen["port"] == seen["ref"]
+    assert seen["port"] == (429, 429, "es_rejected_execution_exception",
+                            "es_rejected_execution_exception", [200, 200],
+                            1)
+
+
+def test_32_http_clients_at_once_get_the_sequential_answers():
+    """32 clients connect at once (the listen backlog holds them) and send
+    4 knn searches each on keep-alive connections: every answer is the
+    one the same query got alone (ids where scores are clear of ties: a
+    batch runs at another query bucket than a single query), and the
+    store served them in fewer batches than requests."""
+    import threading
+    node, server = build_server(device="cpu", port=0)
+    server.start()
+    rng = np.random.default_rng(67)
+    vecs = rng.standard_normal((500, D)).astype(np.float32)
+    queries = rng.standard_normal((16, D)).astype(np.float32)
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=30)
+
+        def req(conn, method, path, body=None, ndjson=False):
+            conn.request(method, path, body=_raw(body, ndjson),
+                         headers={"content-type": "application/json"})
+            resp = conn.getresponse()
+            return resp.status, json.loads(resp.read())
+
+        assert req(conn, "PUT", "/c", {"mappings": {"properties": {
+            "v": {"type": "dense_vector", "dims": D}}}})[0] == 200
+        bulk = []
+        for i, v in enumerate(vecs):
+            bulk += [{"index": {"_id": str(i)}}, {"v": v.tolist()}]
+        assert not req(conn, "POST", "/c/_bulk", bulk, ndjson=True)[1][
+            "errors"]
+        req(conn, "POST", "/c/_refresh")
+
+        def body(qi):
+            return {"knn": {"field": "v", "query_vector": queries[qi].tolist(),
+                            "k": 5}}
+
+        alone = [req(conn, "POST", "/c/_search", body(qi))[1]
+                 for qi in range(16)]
+        conn.close()
+        store = node.index("c").store
+        sched0 = store.scheduler_stats()
+        barrier = threading.Barrier(32)
+        got, errors = {}, []
+
+        def client(c):
+            try:
+                mine = http.client.HTTPConnection("127.0.0.1", server.port,
+                                                  timeout=30)
+                barrier.wait(10)
+                for r in range(4):
+                    qi = (c + r) % 16
+                    status, resp = req(mine, "POST", "/c/_search", body(qi))
+                    got[(c, r)] = (qi, status, resp)
+                mine.close()
+            except Exception as e:  # noqa: BLE001 - asserted below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(32)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+            assert not t.is_alive()
+        assert not errors and len(got) == 128
+        for qi, status, resp in got.values():
+            assert status == 200
+            _same_hits(alone[qi], resp)
+        sched = store.scheduler_stats()
+        assert sched["requests"] - sched0["requests"] == 128
+        assert sched["batches"] - sched0["batches"] < 128
+    finally:
+        server.stop()

@@ -9,6 +9,7 @@ through refresh, and re-syncs only when the segment set changed."""
 
 import numpy as np
 import pytest
+import torch
 
 from elasticsearch_tpu.index import mapping as ref_mapping
 from elasticsearch_tpu.index import segment as ref_segment
@@ -222,8 +223,16 @@ def test_append_only_refresh_keeps_the_router():
     engine.index_many([str(i) for i in range(600, 700)],
                       vectors={"v": vecs[600:]})
     reader = engine.refresh()
-    assert store.field("v").router is router        # placed, not retrained
-    assert router.index.total == 700 and store.knn_stats["ivf_trains"] == 1
+    # placed into a copy of the layout, not retrained: same centroids and
+    # tuned nprobe, and the previous snapshot's router still holds 600 rows
+    new = store.field("v").router
+    assert new is not router and new.index is not router.index
+    np.testing.assert_array_equal(new.index.centroids,
+                                  router.index.centroids)
+    assert new._tuned_nprobe == router._tuned_nprobe
+    assert router.index.total == 600 and new.index.total == 700
+    assert store.knn_stats["ivf_trains"] == 1
+    router = new
     rows, _ = store.search("v", vecs[650], 1)
     assert reader.get_id(int(rows[0])) == "650"
     # a delete re-bases rows: only a fresh layout is sound
@@ -238,3 +247,283 @@ def test_ivf_store_requires_a_gpu_unless_asked_for_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         VectorStoreShard(knn_engine="tpu_ivf")
+
+
+# ------------------------------------------------------------ concurrency
+#
+# `search` coalesces concurrent callers through the combining batcher. The
+# first caller's dispatch is held on an event until the others have queued
+# behind it, so they form one batch of 7 (bucket 8) deterministically.
+
+def _hold_first_dispatch(store):
+    """Wrap the store's dispatch stage: the first call waits for `gate`.
+    Returns (started, gate)."""
+    import threading
+    orig = store._dispatch_many
+    started, gate = threading.Event(), threading.Event()
+
+    def held(*args, **kwargs):
+        if not started.is_set():
+            started.set()
+            assert gate.wait(10)
+        return orig(*args, **kwargs)
+
+    store._dispatch_many = held
+    return started, gate
+
+
+def _run_concurrently(store, field, calls, first_alone=True):
+    """Run each zero-argument call on its own thread, the first alone in
+    a held dispatch until the rest are queued. Returns their results."""
+    import threading
+    import time
+    started, gate = _hold_first_dispatch(store)
+    results = [None] * len(calls)
+
+    def run(i):
+        results[i] = calls[i]()
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(calls))]
+    threads[0].start()
+    assert started.wait(10)
+    for t in threads[1:]:
+        t.start()
+    deadline = time.monotonic() + 10
+    while store.pending_requests(field) < len(calls) - 1:
+        assert time.monotonic() < deadline
+        time.sleep(0.002)
+    gate.set()
+    for t in threads:
+        t.join(10)
+        assert not t.is_alive()
+    return results
+
+
+def _assert_same_hits(got, want):
+    (got_rows, got_raw), (want_rows, want_raw) = got, want
+    assert len(got_rows) == len(want_rows) == K
+    np.testing.assert_allclose(got_raw, want_raw, atol=2e-5 * max(
+        1.0, float(np.abs(want_raw).max())))
+    gap = np.minimum(np.abs(np.diff(want_raw, prepend=np.inf)),
+                     np.abs(np.diff(want_raw, append=-np.inf)))
+    clear = gap > 1e-4
+    np.testing.assert_array_equal(got_rows[clear], want_rows[clear])
+
+
+@pytest.mark.parametrize("options", [None, {"type": "int8_ivf", "nlist": 16,
+                                            "nprobe": 4},
+                                     {"type": "int4_ivf", "nlist": 16,
+                                      "nprobe": 4}])
+def test_concurrent_searches_coalesce_and_match_reference(options):
+    """8 threads: the same hits as the reference store's `search` for each
+    query, on a flat and on IVF fields (the layout carried over), from 2
+    dispatches (1, then 7 coalesced)."""
+    rng = np.random.default_rng(41)
+    centers = rng.standard_normal((12, D)).astype(np.float32)
+    blocks = [(centers[rng.integers(0, 12, n)] + 0.4 * rng.standard_normal(
+        (n, D))).astype(np.float32) for n in (500, 300)]
+    ref_reader, reader = _readers(blocks, {0: {5}})
+    field = {"type": "dense_vector", "dims": D, "similarity": "cosine"}
+    if options:
+        field["index_options"] = options
+    props = {"properties": {"v": field}}
+    ref = ref_store.VectorStoreShard()
+    ref.sync(ref_reader, ref_mapping.MapperService(props).vector_fields())
+    port = VectorStoreShard(device="cpu")
+    port.restore_ivf_layout(ref.export_ivf_layout())
+    port.sync(reader, mapping.MapperService(props).vector_fields())
+    assert (port.field("v").router is not None) is (options is not None)
+    queries = (blocks[0][rng.integers(0, 500, 8)]
+               + 0.2 * rng.standard_normal((8, D))).astype(np.float32)
+    got = _run_concurrently(port, "v", [
+        (lambda q=q: port.search("v", q, K)) for q in queries])
+    for q, res in zip(queries, got):
+        _assert_same_hits(res, ref.search("v", q, K))
+    sched = port.scheduler_stats()
+    assert (sched["batches"], sched["requests"]) == (2, 8)
+    assert sched["pipelined_batches"] == 2
+    assert port.knn_stats["searches"] == 2
+    assert port.queued_requests() == 0
+
+
+@pytest.mark.parametrize("options", [None, {"type": "int4_flat"},
+                                     {"type": "int8_ivf", "nlist": 16,
+                                      "nprobe": 4}])
+def test_search_many_async_then_finalize_equals_search_many(options):
+    rng = np.random.default_rng(43)
+    blocks = [rng.standard_normal((700, D)).astype(np.float32)]
+    _, reader = _readers(blocks, {})
+    field = {"type": "dense_vector", "dims": D}
+    if options:
+        field["index_options"] = options
+    store = VectorStoreShard(device="cpu")
+    store.sync(reader, mapping.MapperService(
+        {"properties": {"v": field}}).vector_fields())
+    queries = list(rng.standard_normal((5, D)).astype(np.float32))
+    want = store.search_many("v", queries, K, num_candidates=50)
+    handle = store.search_many_async("v", queries, K, num_candidates=50)
+    got = store.finalize_many(handle)
+    assert len(got) == len(want) == 5
+    for (gr, gs), (wr, ws) in zip(got, want):
+        np.testing.assert_array_equal(gr, wr)
+        np.testing.assert_array_equal(gs, ws)
+    # a batch of 5 runs at the bucket of 8, a single query at bucket 1: the
+    # product's summation order may differ in the last bits there, so the
+    # batch-1 answers are held to the parity rule (rows where gaps exceed
+    # 1e-4, raw scores within 2e-5)
+    for q, res in zip(queries, want):
+        _assert_same_hits(store.search("v", q, K, num_candidates=50), res)
+
+
+def test_sync_between_submits_serves_each_request_its_snapshot():
+    """A request queued in a batcher that a refresh retires is served
+    against the corpus that batcher closed over; a request after the
+    refresh sees the new one. Retired counters are kept."""
+    import threading
+    rng = np.random.default_rng(47)
+    old = [rng.standard_normal((200, D)).astype(np.float32)]
+    new = [-old[0], rng.standard_normal((50, D)).astype(np.float32)]
+    props = mapping.MapperService({"properties": {"v": {
+        "type": "dense_vector", "dims": D}}}).vector_fields()
+    _, old_reader = _readers(old, {})
+    _, new_reader = _readers(new, {})
+    queries = rng.standard_normal((3, D)).astype(np.float32)
+    oracles = []
+    for reader in (old_reader, new_reader):
+        oracle = VectorStoreShard(device="cpu")
+        oracle.sync(reader, props)
+        oracles.append([oracle.search("v", q, K) for q in queries])
+
+    store = VectorStoreShard(device="cpu")
+    store.sync(old_reader, props)
+    started, gate = _hold_first_dispatch(store)
+    results = {}
+
+    def run(i):
+        results[i] = store.search("v", queries[i], K)
+
+    first = threading.Thread(target=run, args=(0,))
+    first.start()
+    assert started.wait(10)
+    queued = threading.Thread(target=run, args=(1,))
+    queued.start()
+    while store.pending_requests("v") < 1:
+        queued.join(0.002)
+    store.sync(new_reader, props)             # retires the old batcher
+    assert store.pending_requests("v") == 0   # ... which is out of the map
+    run(2)                                    # the new snapshot, at once
+    gate.set()
+    for t in (first, queued):
+        t.join(10)
+        assert not t.is_alive()
+    for i, snapshot in ((0, 0), (1, 0), (2, 1)):
+        for got, want in zip(results[i], oracles[snapshot][i]):
+            np.testing.assert_array_equal(got, want)
+    # the old batcher's counters folded into the total when it retired
+    # (one batch then, in flight); as in the reference, the batch it ran
+    # after its retirement is not counted
+    sched = store.scheduler_stats()
+    assert (sched["batches"], sched["requests"]) == (2, 2)
+
+
+def test_each_thread_reads_its_own_phases():
+    """`last_knn_phases` is per thread: a request on an int4_ivf field
+    keeps its route and rescore phases while another thread's flat search
+    lands in between."""
+    import threading
+    rng = np.random.default_rng(53)
+    n = 700
+    vecs = {f: rng.standard_normal((n, D)).astype(np.float32)
+            for f in ("v", "w")}
+    seg = segment.Segment(0, 0, [f"d{i}" for i in range(n)], [None] * n,
+                          {f: (m, np.ones(n, dtype=bool))
+                           for f, m in vecs.items()})
+    reader = segment.ShardReader([segment.SegmentView(seg, None)])
+    store = VectorStoreShard(device="cpu")
+    store.sync(reader, mapping.MapperService({"properties": {
+        "v": {"type": "dense_vector", "dims": D,
+              "index_options": {"type": "int4_ivf", "nlist": 8}},
+        "w": {"type": "dense_vector", "dims": D}}}).vector_fields())
+    ivf_done, flat_done = threading.Event(), threading.Event()
+    seen = {}
+
+    def ivf_request():
+        store.search("v", vecs["v"][3], K)
+        ivf_done.set()
+        assert flat_done.wait(10)
+        seen["ivf"] = store.last_knn_phases
+
+    def flat_request():
+        assert ivf_done.wait(10)
+        store.search("w", vecs["w"][3], K)
+        seen["flat"] = store.last_knn_phases
+        flat_done.set()
+
+    threads = [threading.Thread(target=f) for f in (ivf_request,
+                                                    flat_request)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(10)
+        assert not t.is_alive()
+    assert seen["flat"] == {}
+    assert seen["ivf"]["engine"] == "tpu_ivf"
+    assert seen["ivf"]["rescore"]["window"] >= K
+    assert store.last_knn_phases == {}       # this thread searched nothing
+
+
+def test_refresh_race_keeps_no_stale_batcher():
+    """A request that read the field before a refresh swapped it is served
+    through a batcher nothing keeps (no cached batcher holds the old
+    corpus), and retiring the field again keeps the current build's
+    batcher."""
+    rng = np.random.default_rng(59)
+    old = [rng.standard_normal((200, D)).astype(np.float32)]
+    new = old + [rng.standard_normal((50, D)).astype(np.float32)]
+    props = mapping.MapperService({"properties": {"v": {
+        "type": "dense_vector", "dims": D}}}).vector_fields()
+    _, old_reader = _readers(old, {})
+    _, new_reader = _readers(new, {})
+    store = VectorStoreShard(device="cpu")
+    store.sync(old_reader, props)
+    old_fc = store.field("v")
+    store.sync(new_reader, props)
+    q = rng.standard_normal(D).astype(np.float32)
+    stale = store._batcher("v", old_fc, K, "bf16", None)
+    assert all(b is not stale for _, b in store._batchers.values())
+    rows, _ = stale.submit(q)[0]
+    assert rows.max() < 200                       # the old snapshot's rows
+    store.search("v", q, K)
+    (fc, current), = store._batchers.values()
+    assert fc is store.field("v")
+    store._retire_field("v")
+    assert list(store._batchers.values()) == [(fc, current)]
+
+
+@pytest.mark.parametrize("retire", [True, False])
+def test_plan_change_at_the_same_version_replaces_the_batcher(retire):
+    """A mapping change that rebuilds the field without a new segment set
+    (same version, so the same batcher key) serves the new encoding, also
+    when a search lands between the swap and the retirement (`retire`
+    False holds the retirement back)."""
+    rng = np.random.default_rng(61)
+    blocks = [rng.standard_normal((300, D)).astype(np.float32)]
+    _, reader = _readers(blocks, {})
+    store = VectorStoreShard(device="cpu")
+    q = blocks[0][7]
+    for options, dtype in ((None, torch.bfloat16),
+                           ({"type": "int8_flat"}, torch.int8)):
+        field = {"type": "dense_vector", "dims": D}
+        if options:
+            field["index_options"] = options
+            if not retire:
+                store._retire_field = lambda field: None
+        store.sync(reader, mapping.MapperService(
+            {"properties": {"v": field}}).vector_fields())
+        assert store.field("v").corpus.matrix.dtype == dtype
+        rows, _ = store.search("v", q, K)
+        assert rows[0] == 7
+        (fc, _), = store._batchers.values()
+        assert fc is store.field("v")
+    assert store.scheduler_stats()["batches"] == 2
