@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed 1234] [--n-sift 1000000] [--n-cohere 1000000]
                           [--n-gist 1000000] [--n-cohere-ivf 1000000]
-                          [--n-colbert 131071]
+                          [--n-colbert 131071] [--n-laion 1000000]
                           [--binned-only | --ivf-only | --maxsim-only]
 
 Phases, one line each; any failure raises and the exit code is not 0:
@@ -68,12 +68,30 @@ Phases, one line each; any failure raises and the exit code is not 0:
                logged against that gate and held to >= 0.90), and every
                response equal to RRF recomputed on the host from the two
                legs
+  serve_filtered  BASELINE config 5, filtered kNN: a 512-d cosine `flat`
+               index of 1,000,000 clustered rows with LAION's metadata
+               columns (nsfw keyword, width integer, aesthetic float,
+               watermark boolean) from the seed; 64 `_search {knn: {...,
+               filter}}` requests over HTTP for each of five filters
+               (about 90%, 7%, 1%, 1% and fewer than k rows): recall@10 >=
+               0.95 against exact f32 numpy over the passing rows, every
+               hit inside its filter (from the generated columns), hits and
+               total min(k, passing rows), no binned launch; 16 `knn` +
+               `query` and 16 two-element `knn` lists equal to the
+               should-sum of their legs recomputed on the host, one binned
+               launch a leg; the exact route (`knn.exact` with a [Q, N]
+               mask, Q = 1 and 32) timed beside its bound and one bf16
+               `torch.mm`, and the card's peak memory over a filtered batch
+               of 32; serve_concurrent at C = 1 and 8 over a mix of the
+               filters and unfiltered bodies
 Each IVF index answers one warm-up search first (the `nprobe: auto` tuner
 runs there), then the timed requests; every request must take the fused
 route with no exhaustive fallback, every `ivf_fused_dense` and
 `ivf_fused_int4` launch its grouped variant. Then one `store.search_many`
 of the same queries, a batch of 64 through the router's real probes, must
-return the same hits.
+return the same hits. The `int8_ivf` index then answers one filtered
+request, which must fall back to the exhaustive corpus
+(`fallback_reason: filtered`), launch no kernel and keep inside its filter.
 
   serve_concurrent  closed-loop HTTP clients (a thread and a connection
                each, in a child process) against indices the phases above
@@ -99,6 +117,11 @@ return the same hits.
                C = 32 is 1 (the batcher did not coalesce). The colbert
                level also checks that the 64 bodies' legs run as one batch
                give the batch-1 RRF answers and the MaxSim recall.
+               serve_filtered takes C = 1 and 8 likewise: a filtered
+               answer is held to its batch-1 answer within the exact
+               route's tolerance, an unfiltered one within one packing
+               quantum (a batch holding a filter scores it exactly), and
+               the largest batch at C = 8 must exceed 1.
 
 `--binned-only`, `--ivf-only` and `--maxsim-only` run env, build and one
 kernel phase (no serving, no ok line): the numbers of PERF.md's
@@ -1497,6 +1520,41 @@ def serve_ivf(client, node, timer, name, field, vectors, queries, metric,
     return recall, fc, extra, fields, launches
 
 
+def ivf_filtered_fallback(client, node, name: str, qv: np.ndarray,
+                          n: int) -> None:
+    """One filtered `_search` on an IVF index (an `ids` filter of every
+    97th doc): the router falls back to the exhaustive corpus, whose exact
+    route launches no kernel; the hits lie inside the filter, and the
+    request's phases say `fallback_reason: filtered`."""
+    from elasticsearch_tpu_torch.ops import dispatch
+    store = node.index(name).store
+    keep = set(range(0, n, 97))
+    body = {"knn": {"field": "vec", "query_vector": qv.tolist(), "k": 10,
+                    "num_candidates": 100,
+                    "filter": {"ids": {"values": [str(i) for i in
+                                                  sorted(keep)]}}},
+            "size": 10}
+    stats0 = dict(store.knn_stats)
+    dispatch.reset_launches()
+    t = time.perf_counter()
+    ids, _ = _hits(client.ok("POST", f"/{name}/_search", body))
+    ms = (time.perf_counter() - t) * 1e3
+    launched = {k: c for k, c in dispatch.launches().items() if c}
+    delta = {k: store.knn_stats[k] - stats0[k]
+             for k in ("ivf_searches", "fallback_searches")}
+    # the same body in this thread, whose phases the store keeps for it
+    node.search(name, body)
+    reason = store.last_knn_phases.get("fallback_reason")
+    if len(ids) != 10 or not keep.issuperset(ids) or launched \
+            or delta != {"ivf_searches": 0, "fallback_searches": 1} \
+            or reason != "filtered":
+        raise AssertionError(f"{name} filtered request: hits {ids}, "
+                             f"launches {launched}, stats {delta}, "
+                             f"fallback_reason {reason}")
+    log("serve_cohere_ivf", index=name, filtered_request_ms=f"{ms:.3f}",
+        fallback_reason=reason, filter_rows=len(keep))
+
+
 def drop_index(node, name: str) -> None:
     node.indices.pop(name)
     node._hybrid.pop(name, None)      # its executor holds the token tile
@@ -1596,6 +1654,8 @@ def phase_serve_ivf(seed: int, n_gist: int, n_cohere: int,
                     recall, lambda sc: 1e-5 * max(1.0, max(map(abs, sc))),
                     {f"{kernel}/{fused.VARIANT_GROUPED}"})
                 total[kernel] += conc.get(kernel, 0)
+                ivf_filtered_fallback(client, node, name, cq[0],
+                                      len(cvecs))
             drop_index(node, name)
     finally:
         timer.close()
@@ -1940,6 +2000,392 @@ def phase_serve_colbert(seed: int, n: int, device: str = "cuda") -> dict:
     return total
 
 
+# ------------------------------------------------------------ serve_filtered
+
+LAION_SOURCE = ["nsfw", "width", "aesthetic", "watermark"]
+NSFW_TAGS = np.array(["UNLIKELY", "UNSURE", "NSFW"])
+
+
+def laion_columns(seed: int, n: int) -> dict:
+    """LAION-5B's metadata columns for n docs, from the seed: NSFW
+    (UNLIKELY / UNSURE / NSFW at 0.90 / 0.07 / 0.03, as codes 0-2), WIDTH
+    (log-normal, median 512), AESTHETIC_SCORE (normal around 5 in [0, 10],
+    float32) and pwatermark > 0.5 (true for about 0.1)."""
+    rng = np.random.default_rng([seed, 5])
+    return {"nsfw": rng.choice(3, n, p=[0.90, 0.07, 0.03]),
+            "width": np.maximum(rng.lognormal(np.log(512), 0.6, n),
+                                1).astype(np.int64),
+            "aesthetic": np.clip(rng.normal(5.0, 1.0, n), 0,
+                                 10).astype(np.float32),
+            "watermark": rng.random(n) < 0.1}
+
+
+def laion_source(cols: dict, i: int) -> dict:
+    return {"nsfw": str(NSFW_TAGS[cols["nsfw"][i]]),
+            "width": int(cols["width"][i]),
+            "aesthetic": float(cols["aesthetic"][i]),
+            "watermark": bool(cols["watermark"][i])}
+
+
+# (name, filter, the docs it lets through, from the generated columns):
+# about 90%, 7%, 1% and 1% of the rows (the fourth's clauses are
+# independent here, so it keeps ~0.1 x 0.1 of them), then one that keeps
+# fewer than k rows
+LAION_FILTERS = (
+    ("nsfw_unlikely", {"term": {"nsfw": "UNLIKELY"}},
+     lambda c: c["nsfw"] == 0),
+    ("aesthetic_gte_6_5", {"range": {"aesthetic": {"gte": 6.5}}},
+     lambda c: c["aesthetic"] >= 6.5),
+    ("unsure_wide", {"bool": {"filter": [
+        {"term": {"nsfw": "UNSURE"}}, {"range": {"width": {"gte": 1024}}}]}},
+     lambda c: (c["nsfw"] == 1) & (c["width"] >= 1024)),
+    ("flagged_watermarked", {"bool": {
+        "filter": [{"terms": {"nsfw": ["UNSURE", "NSFW"]}},
+                   {"term": {"watermark": True}}],
+        "must_not": [{"range": {"aesthetic": {"lt": 3}}}]}},
+     lambda c: (c["nsfw"] >= 1) & c["watermark"] & ~(c["aesthetic"] < 3)),
+    ("under_k", {"bool": {"filter": [
+        {"term": {"nsfw": "NSFW"}}, {"term": {"watermark": True}},
+        {"range": {"aesthetic": {"gte": 7.8}}}]}},
+     lambda c: (c["nsfw"] == 2) & c["watermark"] & (c["aesthetic"] >= 7.8)),
+)
+
+
+def laion_body(qv: np.ndarray, filt=None, k: int = 10) -> dict:
+    spec = {"field": "vec", "query_vector": qv.tolist(), "k": k,
+            "num_candidates": 100}
+    if filt is not None:
+        spec["filter"] = filt
+    return {"knn": spec, "size": k, "_source": LAION_SOURCE}
+
+
+def _hits(payload):
+    hits = payload["hits"]["hits"]
+    return [int(h["_id"]) for h in hits], [h["_score"] for h in hits]
+
+
+def should_sum(legs):
+    """The reference's bool.should of legs recomputed on the host: each
+    leg a {doc: score} map; a doc's score is the float32 sum of its legs'
+    scores in leg order; the top 10 by (score desc, doc asc); the total
+    counted to 10,000 (relation gte beyond it). Returns (ids, scores,
+    total)."""
+    acc = {}
+    for leg in legs:
+        for doc, sc in leg.items():
+            acc[doc] = np.float32(acc.get(doc, np.float32(0.0))
+                                  + np.float32(sc))
+    ranked = sorted(acc.items(), key=lambda kv: (-kv[1], kv[0]))[:10]
+    total = ({"value": len(acc), "relation": "eq"} if len(acc) <= 10_000
+             else {"value": 10_000, "relation": "gte"})
+    return [d for d, _ in ranked], [float(v) for _, v in ranked], total
+
+
+def _bf16_matmul_f32(q, c):
+    """One bf16 product with f32 output (and its name): `torch.mm(out_dtype=)`
+    where this PyTorch has it, else a bf16 product widened after."""
+    try:
+        return torch.mm(q, c.T, out_dtype=torch.float32), \
+            "torch.mm(bf16, bf16, out_dtype=float32)"
+    except (TypeError, RuntimeError):
+        return torch.mm(q, c.T).float(), "torch.mm(bf16, bf16).float()"
+
+
+def exact_route_row(store, fc, masks, queries, dev) -> dict:
+    """`knn.exact` (`ops/knn.py::knn_search`, the filtered route) on the
+    served corpus with a [Q, N] mask at Q = 1 and 32: per launch and burst
+    times, its bound (the bf16 corpus, the mask, the queries and the
+    boards each moved once; 2 Q N D bf16 operations), one bf16
+    `torch.mm` with f32 output of the same product, and the card's peak
+    memory over one filtered batch of 32 through the store."""
+    from elasticsearch_tpu_torch.ops import knn as knn_ops
+    from elasticsearch_tpu_torch.vectors.store import filter_mask
+    n_pad, d = fc.corpus.matrix.shape
+    out = {}
+    for nq in (1, 32):
+        q = torch.from_numpy(queries[:nq]).to(dev)
+        mask = filter_mask(fc, masks[:nq], nq, n_pad).to(dev)
+
+        def run(q=q, mask=mask):
+            return knn_ops.knn_search(q, fc.corpus, 10, metric=fc.metric,
+                                      filter_mask=mask)
+        ms, burst = time_ms(run, iters=10), burst_ms(run, n=10)
+        qb = q.to(torch.bfloat16)
+        library = _bf16_matmul_f32(qb, fc.corpus.matrix)[1]
+        lib = time_ms(lambda: _bf16_matmul_f32(qb, fc.corpus.matrix),
+                      iters=10)
+        nbytes = n_pad * d * 2 + nq * n_pad + nq * d * 4 + nq * 10 * 12
+        bound, by = bound_ms(nbytes, 2 * nq * n_pad * d, BF16_OPS_PER_S)
+        out[nq] = dict(ms=ms, burst_ms=burst, bound_ms=bound, bound_by=by,
+                       library_ms=lib)
+        out["library"] = library
+    # one filtered batch of 32 through the store, from an idle card
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    store.search_many("vec", list(queries[:32]), 10,
+                      filter_rows=masks[:32])
+    torch.cuda.synchronize()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["batch_extra_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    return out
+
+
+def phase_serve_filtered(seed: int, n: int, device: str = "cuda") -> dict:
+    """serve_filtered: BASELINE config 5 (filtered kNN, LAION 512-d CLIP
+    embeddings), cut from 5M to `n` (1M) rows for host memory and the
+    run's time. A cosine `flat` (bf16) index of 512-d clustered rows (as
+    `bench.py` makes them) with LAION's metadata columns beside each
+    vector (`laion_columns`): 2,000 docs over `_bulk`, the rest through
+    `Engine.index_many(sources=, vectors=)`.
+
+    For each filter of LAION_FILTERS, 64 `_search {knn: {..., filter},
+    k: 10}` requests over HTTP: recall@10 >= 0.95 against exact f32 numpy
+    over the rows the filter lets through; every hit inside the filter
+    (checked on the generated columns); hits and total min(k, passing
+    rows); no binned launch. Logged a filter: HTTP p50, store p50, the
+    filter's host evaluation, the mask build, and the exact route on the
+    card (CUDA events). Then 64 unfiltered requests (the batch-1 answers
+    of what follows), 16 `knn` + `query: {term: {nsfw: NSFW}}` and 16
+    two-element `knn` lists, each equal to the should-sum of its legs
+    recomputed on the host and launching the bf16 binned kernel once a
+    leg; the exact route's kernel row (`exact_route_row`); and
+    serve_concurrent at C = 1 and 8 over a mix of the filters and
+    unfiltered bodies, every answer equal to its batch-1 answer (filtered
+    within the exact route's tolerance, unfiltered within one packing
+    quantum, as a mixed batch scores them exactly) and a largest batch
+    above 1 at C = 8. Returns the binned launches."""
+    from elasticsearch_tpu_torch.ops import dispatch
+    from elasticsearch_tpu_torch.ops import knn as knn_ops
+    from elasticsearch_tpu_torch.ops import knn_binned as kb
+    from elasticsearch_tpu_torch.search.queries import (
+        SearchContext, parse_query)
+    from elasticsearch_tpu_torch.server import build_server
+    from elasticsearch_tpu_torch.vectors.store import filter_mask
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 4)
+    vecs = clustered32(rng, n, 512)
+    queries = vecs[rng.integers(0, n, 64)] + 0.3 * rng.standard_normal(
+        (64, 512), dtype=np.float32)
+    cols = laion_columns(seed, n)
+    sources = [laion_source(cols, i) for i in range(n)]
+    log("serve_filtered", data_s=f"{time.perf_counter() - t0:.2f}", docs=n)
+    node, server = build_server(device=device, port=0)
+    server.start()
+    total = {kb.KERNEL_BF16: 0}
+    try:
+        client = Client(server.port)
+        client.ok("PUT", "/laion", {
+            "settings": {"number_of_shards": 1},
+            "mappings": {"properties": {
+                "vec": {"type": "dense_vector", "dims": 512,
+                        "similarity": "cosine"},
+                "nsfw": {"type": "keyword"}, "width": {"type": "integer"},
+                "aesthetic": {"type": "float"},
+                "watermark": {"type": "boolean"}}}})
+        first = min(2000, n)
+        ops = []
+        for i in range(first):
+            ops += [{"index": {"_id": str(i)}},
+                    dict(sources[i], vec=vecs[i].tolist())]
+        if client.ok("POST", "/laion/_bulk", ops, ndjson=True)["errors"]:
+            raise AssertionError("serve_filtered: bulk errors")
+        t0 = time.perf_counter()
+        svc = node.index("laion")
+        if n > first:
+            svc.engine.index_many([str(i) for i in range(first, n)],
+                                  sources[first:],
+                                  vectors={"vec": vecs[first:]})
+        client.ok("POST", "/laion/_refresh")
+        ingest_s = time.perf_counter() - t0
+        del sources
+        store = svc.store
+        fc = store.field("vec")
+        n_pad = fc.corpus.matrix.shape[0]
+        reader = svc.engine.acquire_searcher()
+        ctx = SearchContext(reader, svc.mapper_service, store, svc.settings)
+        log("serve_filtered", ingest_s=f"{ingest_s:.2f}",
+            host_peak_rss_gb=f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.2f}")
+
+        answers, filter_rows = {}, {}
+        for name, filt, passes in LAION_FILTERS:
+            filter_lat = []
+            for _ in range(5):
+                t = time.perf_counter()
+                rows = parse_query(filt).execute(ctx).rows
+                filter_lat.append((time.perf_counter() - t) * 1e3)
+            want_rows = np.nonzero(passes(cols))[0]
+            if not np.array_equal(rows, want_rows):
+                raise AssertionError(f"serve_filtered {name}: the filter "
+                                     f"kept {len(rows)} rows, the columns "
+                                     f"say {len(want_rows)}")
+            filter_rows[name] = rows
+            passing = np.zeros(n, dtype=bool)
+            passing[rows] = True
+            expect = min(10, len(rows))
+            dispatch.reset_launches()
+            stats0 = dict(store.knn_stats)
+            lat, got, got_scores = [], [], []
+            for qv in queries:
+                t = time.perf_counter()
+                resp = client.ok("POST", "/laion/_search",
+                                 laion_body(qv, filt))
+                lat.append((time.perf_counter() - t) * 1e3)
+                ids, scores = _hits(resp)
+                if len(ids) != expect or resp["hits"]["total"] != {
+                        "value": expect, "relation": "eq"} \
+                        or not all(np.isfinite(scores)):
+                    raise AssertionError(f"serve_filtered {name}: "
+                                         f"{resp['hits']}, expected "
+                                         f"{expect} hits")
+                if not passing[ids].all():
+                    raise AssertionError(f"serve_filtered {name}: hits "
+                                         f"{ids} outside the filter")
+                got.append(ids)
+                got_scores.append(scores)
+            launched = {k: c for k, c in dispatch.launches().items() if c}
+            if launched:
+                raise AssertionError(f"serve_filtered {name}: filtered "
+                                     f"requests launched {launched}")
+            exact_n = store.knn_stats["searches"] - stats0["searches"]
+            answers[name] = (got, got_scores)
+            if len(rows) > expect:
+                truth = rows[exact_top(vecs[rows], queries, expect,
+                                       "cosine")]
+            else:        # every passing row is a true neighbour
+                truth = [rows] * len(queries)
+            recall = float(np.mean([len(set(g) & set(t.tolist()))
+                                    / max(expect, 1)
+                                    for g, t in zip(got, truth)])) \
+                if expect else 1.0
+            if recall < 0.95:
+                raise AssertionError(f"serve_filtered {name} recall@10 "
+                                     f"{recall} < 0.95")
+            store_lat = []
+            for qv in queries:
+                t = time.perf_counter()
+                store.search("vec", qv, 10, filter_rows=rows, reader=reader)
+                store_lat.append((time.perf_counter() - t) * 1e3)
+            mask_lat = []
+            for _ in range(5):
+                t = time.perf_counter()
+                host_mask = filter_mask(fc, [rows], 1, n_pad)
+                mask_lat.append((time.perf_counter() - t) * 1e3)
+            mask = host_mask.to(dev)
+            q_dev = torch.from_numpy(queries[:1]).to(dev)
+            route_ms = time_ms(lambda: knn_ops.knn_search(
+                q_dev, fc.corpus, 10, metric=fc.metric, filter_mask=mask),
+                iters=10)
+            log("serve_filtered", filter=name, selectivity=len(rows) / n,
+                passing_rows=len(rows), requests=len(queries),
+                p50_ms=f"{statistics.median(lat):.3f}",
+                store_p50_ms=f"{statistics.median(store_lat):.3f}",
+                filter_ms=f"{statistics.median(filter_lat):.3f}",
+                mask_ms=f"{statistics.median(mask_lat):.3f}",
+                exact_route_ms=f"{route_ms:.3f}", recall_at_10=recall,
+                store_searches=exact_n, binned_launches=0)
+
+        # unfiltered: the batch-1 answers the combinations and the
+        # concurrent levels are held to; one binned launch a request
+        dispatch.reset_launches()
+        plain, lat = [], []
+        for qv in queries:
+            t = time.perf_counter()
+            plain.append(_hits(client.ok("POST", "/laion/_search",
+                                         laion_body(qv))))
+            lat.append((time.perf_counter() - t) * 1e3)
+        launched = {k: c for k, c in dispatch.launches().items() if c}
+        if launched != {kb.KERNEL_BF16: len(queries)}:
+            raise AssertionError(f"serve_filtered unfiltered: launches "
+                                 f"{launched}")
+        total[kb.KERNEL_BF16] += len(queries)
+        nsfw_docs = {int(i): 1.0 for i in np.nonzero(cols["nsfw"] == 2)[0]}
+        dispatch.reset_launches()
+        combos = []
+        for j in range(16):
+            legs = [dict(zip(*plain[j]))]
+            body = {"knn": laion_body(queries[j])["knn"], "size": 10,
+                    "query": {"term": {"nsfw": "NSFW"}},
+                    "_source": LAION_SOURCE}
+            combos.append((f"knn+query {j}", body, [nsfw_docs] + legs))
+            a, b = (j + 16) % 64, (j + 17) % 64
+            body = {"knn": [laion_body(queries[a])["knn"],
+                            laion_body(queries[b])["knn"]], "size": 10,
+                    "_source": LAION_SOURCE}
+            combos.append((f"knn list {j}", body,
+                           [dict(zip(*plain[a])), dict(zip(*plain[b]))]))
+        combo_lat = []
+        for label, body, legs in combos:
+            t = time.perf_counter()
+            resp = client.ok("POST", "/laion/_search", body)
+            combo_lat.append((time.perf_counter() - t) * 1e3)
+            ids, scores = _hits(resp)
+            want_ids, want_scores, want_total = should_sum(legs)
+            if ids != want_ids or resp["hits"]["total"] != want_total \
+                    or any(abs(a - b) > 1e-6
+                           for a, b in zip(scores, want_scores)):
+                raise AssertionError(
+                    f"serve_filtered {label}: {ids} {scores} "
+                    f"{resp['hits']['total']}; the host's should-sum "
+                    f"{want_ids} {want_scores} {want_total}")
+        launched = {k: c for k, c in dispatch.launches().items() if c}
+        if launched != {kb.KERNEL_BF16: 48}:
+            raise AssertionError(f"serve_filtered knn + query and knn "
+                                 f"lists: launches {launched}, expected 48")
+        total[kb.KERNEL_BF16] += 48
+        log("serve_filtered", unfiltered_p50_ms=f"{statistics.median(lat):.3f}",
+            combined_requests=len(combos),
+            combined_p50_ms=f"{statistics.median(combo_lat):.3f}",
+            combined_binned_launches=48)
+
+        # the exact route's kernel row: masks of the five filters in turn
+        masks = [filter_rows[LAION_FILTERS[i % len(LAION_FILTERS)][0]]
+                 for i in range(64)]
+        row = exact_route_row(store, fc, masks, queries, dev)
+        log("exact_route", shape=f"N={n_pad} D=512 bf16 [Q,N] mask",
+            **{f"q{nq}_{key}": (f"{v:.4f}" if isinstance(v, float) else v)
+               for nq in (1, 32) for key, v in row[nq].items()},
+            peak_gb=f"{row['peak_gb']:.2f}",
+            batch_extra_gb=f"{row['batch_extra_gb']:.2f}",
+            library=repr(row["library"]))
+
+        # concurrent clients: a mix of the filters and unfiltered bodies
+        plan = [(qi, qi % (len(LAION_FILTERS) + 1)) for qi in range(64)]
+        bodies = [laion_body(queries[qi],
+                             LAION_FILTERS[fi - 1][1] if fi else None)
+                  for qi, fi in plan]
+
+        def check(j, payload):
+            qi, fi = plan[j]
+            ids, scores = _hits(payload)
+            want_ids, want_scores = (
+                plain[qi] if fi == 0
+                else (answers[LAION_FILTERS[fi - 1][0]][0][qi],
+                      answers[LAION_FILTERS[fi - 1][0]][1][qi]))
+            # an unfiltered request batched with a filtered one is scored
+            # exactly: one packing quantum from its binned batch-1 answer
+            tol = BF16_QUANTUM / 2 + 1e-6 if fi == 0 else 1e-5
+            return against_batch1(f"serve_filtered concurrent body {j}",
+                                  ids, scores, want_ids, want_scores, tol)
+
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        conc = serve_concurrent(
+            "laion", server.port, "/laion/_search", bodies, (1, 8),
+            CONCURRENT_REQUESTS, check, store.scheduler_stats,
+            (store, "_dispatch_many", 3),
+            {f"{kb.KERNEL_BF16}/{kb.VARIANT_TMA}"}, coalesce_at=8)
+        total[kb.KERNEL_BF16] += conc.get(kb.KERNEL_BF16, 0)
+        if dev.type == "cuda":
+            log("serve_filtered", concurrent_device_peak_gb=
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        drop_index(node, "laion")
+    finally:
+        server.stop()
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1234)
@@ -1948,6 +2394,7 @@ def main(argv=None) -> int:
     ap.add_argument("--n-gist", type=int, default=1_000_000)
     ap.add_argument("--n-cohere-ivf", type=int, default=1_000_000)
     ap.add_argument("--n-colbert", type=int, default=131_071)
+    ap.add_argument("--n-laion", type=int, default=1_000_000)
     ap.add_argument("--binned-only", action="store_true",
                     help="build and measure only the binned kernels (no "
                          "serving phases, no final ok line): the numbers "
@@ -1984,9 +2431,10 @@ def main(argv=None) -> int:
     launches = phase_serve(args.seed, args.n_sift, args.n_cohere)
     launches.update(phase_serve_ivf(args.seed, args.n_gist,
                                     args.n_cohere_ivf))
-    for name, count in phase_serve_colbert(args.seed,
-                                           args.n_colbert).items():
-        launches[name] = launches.get(name, 0) + count
+    for phase in (phase_serve_colbert(args.seed, args.n_colbert),
+                  phase_serve_filtered(args.seed, args.n_laion)):
+        for name, count in phase.items():
+            launches[name] = launches.get(name, 0) + count
     for name, entry in kernels.items():
         entry["launches"] = launches[name]
     print(json.dumps({"kernels": list(kernels.values())}))

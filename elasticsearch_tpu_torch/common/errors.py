@@ -54,6 +54,13 @@ class MapperParsingError(SearchEngineError):
     status = 400
 
 
+class QueryShardError(SearchEngineError):
+    """A query cannot run against this shard's mappings (e.g. `exists` on
+    [_source])."""
+
+    status = 400
+
+
 class ResourceNotFoundError(SearchEngineError):
     status = 404
 

@@ -1,4 +1,4 @@
-"""In-memory shard engine (port of the kNN slice of
+"""In-memory shard engine (port of the kNN and filter slice of
 `elasticsearch_tpu/index/engine.py`).
 
 Indexing appends to a buffer; `refresh` seals the buffer into an immutable
@@ -6,6 +6,8 @@ segment, tombstones replaced rows, and hands the new reader to refresh
 listeners (the vector store syncs there). Vectors travel as numpy blocks:
 `index_many` takes a whole batch, optionally with its vectors as one
 [n, dims] array per field, which is how a million-document shard loads.
+Keyword, numeric and boolean values are parsed from each `_source`; the
+seal builds their postings and doc-values columns with numpy.
 
 This slice has no translog and no flush: nothing survives the process.
 """
@@ -13,7 +15,7 @@ This slice has no translog and no flush: nothing survives the process.
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -22,7 +24,7 @@ from elasticsearch_tpu_torch.common.errors import (
 )
 from elasticsearch_tpu_torch.index.mapping import MapperService
 from elasticsearch_tpu_torch.index.segment import (
-    Segment, SegmentView, ShardReader,
+    DocValuesColumn, FieldPostings, Segment, SegmentView, ShardReader,
 )
 
 PRIMARY_TERM = 1
@@ -55,8 +57,13 @@ class _Buffer:
         self.blocks: Dict[str, list] = {}
         # field -> [(local rows [m], tokens [T, d], counts [m] >= 1)]
         self.token_blocks: Dict[str, list] = {}
+        # field -> ([local doc a term], [term]) and ([local doc], [value])
+        self.terms: Dict[str, Tuple[list, list]] = {}
+        self.doc_values: Dict[str, Tuple[list, list]] = {}
 
-    def add(self, ids, sources, vectors, tokens) -> int:
+    def add(self, ids, sources, vectors, tokens, terms, doc_values) -> int:
+        """Append a batch. `terms` and `doc_values` map a field to
+        (batch positions, values), one entry a term or a doc value."""
         start = len(self.ids)
         self.ids.extend(ids)
         self.sources.extend(sources)
@@ -67,6 +74,12 @@ class _Buffer:
         for field, (mask, toks, counts) in tokens.items():
             self.token_blocks.setdefault(field, []).append(
                 (locals_[mask], toks, counts))
+        for into, cols in ((self.terms, terms),
+                           (self.doc_values, doc_values)):
+            for field, (pos, values) in cols.items():
+                docs, vals = into.setdefault(field, ([], []))
+                docs.extend(p + start for p in pos)
+                vals.extend(values)
         return start
 
     def source(self, local: int) -> dict:
@@ -114,8 +127,12 @@ class _Buffer:
                     mat[rows] = block
                     present[rows] = True
             vectors[field] = (mat, present)
+        postings = {f: FieldPostings.build(np.asarray(docs), terms)
+                    for f, (docs, terms) in self.terms.items()}
+        doc_values = {f: DocValuesColumn.build(n, np.asarray(docs), vals)
+                      for f, (docs, vals) in self.doc_values.items()}
         return Segment(self.seg_id, self.base, self.ids, self.sources, vectors,
-                       self._seal_tokens(n))
+                       self._seal_tokens(n), postings, doc_values)
 
 
 class Engine:
@@ -176,14 +193,24 @@ class Engine:
         per_field: Dict[str, list] = {
             f: [] for f in (*mappers, *token_mappers)
             if f not in columns and f not in token_columns}
+        terms: Dict[str, Tuple[list, list]] = {}
+        doc_values: Dict[str, Tuple[list, list]] = {}
         for i, src in enumerate(sources):
             if src is None:
                 stored.append(None)
                 continue
-            parsed = self.mapper_service.parse_vectors(src)
-            for field, vec in parsed.items():
+            parsed = self.mapper_service.parse_document(src)
+            for field, vec in parsed.vectors.items():
                 if field in per_field:
                     per_field[field].append((i, vec))
+            for field, ts in parsed.terms.items():
+                pos, vals = terms.setdefault(field, ([], []))
+                pos.extend([i] * len(ts))
+                vals.extend(ts)
+            for field, dv in parsed.doc_values.items():
+                pos, vals = doc_values.setdefault(field, ([], []))
+                pos.append(i)
+                vals.append(dv)
             stored.append({k: v for k, v in src.items()
                            if k not in mappers and k not in token_mappers})
         for field, items in per_field.items():
@@ -209,7 +236,8 @@ class Engine:
             if self._buffer is None:
                 self._buffer = _Buffer(self._next_seg_id, self._next_row)
                 self._next_seg_id += 1
-            start = self._buffer.add(list(ids), stored, columns, token_columns)
+            start = self._buffer.add(list(ids), stored, columns, token_columns,
+                                     terms, doc_values)
             self._next_row += n
             out = []
             for i, doc_id in enumerate(ids):

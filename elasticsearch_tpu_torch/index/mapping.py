@@ -1,18 +1,25 @@
 """Field mappers for the served slices (port of the `dense_vector`,
-`rank_vectors` and `keyword` subset of `elasticsearch_tpu/index/mapping.py`).
+`rank_vectors`, `keyword`, numeric and `boolean` subset of
+`elasticsearch_tpu/index/mapping.py`).
 
 `dense_vector` takes dims, similarity, and `index_options` with `type`
 (`flat`, `int8_flat`, `int4_flat`, `ivf`, `int8_ivf`, `int4_ivf`), `nlist`,
 `nprobe`, `rescore` and `rescore_oversample`; `rank_vectors` (late
 interaction) takes dims, similarity and the token-block storage knobs;
-`_source.enabled` is honoured. Every other field type raises the
-reference's mapper-parsing error. Unmapped document fields stay in
-`_source` and are not indexed.
+`keyword` (with `ignore_above`), `long`, `integer`, `short`, `byte`,
+`double`, `float`, `half_float`, `scaled_float` and `boolean` fields give
+each value its index terms (the filter queries' postings) and its doc
+value (the range queries' column), coerced and rejected as the reference
+does; `ignore_malformed` drops a bad value and records the field in
+`_ignored`. `_source.enabled` is honoured. Every other field type raises
+the reference's mapper-parsing error. Unmapped document fields stay in
+`_source` and are not indexed (there is no dynamic mapping).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import math
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -29,8 +36,115 @@ class FieldMapper:
         self.params = dict(params or {})
 
 
+    def index_terms(self, value: Any) -> List[str]:
+        """The value's terms in the field's postings; none by default."""
+        return []
+
+    def doc_value(self, value: Any) -> Any:
+        """The value's doc-values form, or None (no column)."""
+        return None
+
+
 class KeywordFieldMapper(FieldMapper):
     type_name = "keyword"
+
+    def __init__(self, name, params=None):
+        super().__init__(name, params)
+        self.ignore_above = self.params.get("ignore_above")
+
+    def index_terms(self, value):
+        s = str(value)
+        if self.ignore_above is not None and len(s) > self.ignore_above:
+            return []
+        return [s]
+
+    def doc_value(self, value):
+        return str(value)
+
+
+class _NumericMapper(FieldMapper):
+    py_type = float
+
+    def coerce(self, value: Any):
+        if isinstance(value, bool):
+            raise MapperParsingError(
+                f"failed to parse field [{self.name}] of type "
+                f"[{self.type_name}]: boolean")
+        try:
+            v = self.py_type(value)
+        except (TypeError, ValueError):
+            raise MapperParsingError(
+                f"failed to parse field [{self.name}] of type "
+                f"[{self.type_name}] value [{value}]")
+        if isinstance(v, float) and (math.isnan(v) or math.isinf(v)):
+            raise MapperParsingError(
+                f"[{self.name}] non-finite value [{value}]")
+        return v
+
+    def index_terms(self, value):
+        return [repr(self.coerce(value))]
+
+    def doc_value(self, value):
+        return self.coerce(value)
+
+
+class LongFieldMapper(_NumericMapper):
+    type_name = "long"
+    py_type = int
+
+
+class IntegerFieldMapper(LongFieldMapper):
+    type_name = "integer"
+
+
+class ShortFieldMapper(LongFieldMapper):
+    type_name = "short"
+
+
+class ByteFieldMapper(LongFieldMapper):
+    type_name = "byte"
+
+
+class DoubleFieldMapper(_NumericMapper):
+    type_name = "double"
+    py_type = float
+
+
+class FloatFieldMapper(DoubleFieldMapper):
+    type_name = "float"
+
+
+class HalfFloatFieldMapper(DoubleFieldMapper):
+    type_name = "half_float"
+
+
+class ScaledFloatFieldMapper(_NumericMapper):
+    type_name = "scaled_float"
+    py_type = float
+
+    def doc_value(self, value):
+        factor = self.params.get("scaling_factor", 100)
+        return round(self.coerce(value) * factor) / factor
+
+
+class BooleanFieldMapper(FieldMapper):
+    type_name = "boolean"
+
+    def coerce(self, value):
+        if isinstance(value, bool):
+            return value
+        if value in ("true", "True"):
+            return True
+        if value in ("false", "False", ""):
+            return False
+        raise MapperParsingError(
+            f"failed to parse boolean field [{self.name}] value [{value}]")
+
+    def index_terms(self, value):
+        return ["T" if self.coerce(value) else "F"]
+
+    def doc_value(self, value):
+        return self.coerce(value)
 
 
 class DenseVectorFieldMapper(FieldMapper):
@@ -183,9 +297,11 @@ class RankVectorsFieldMapper(FieldMapper):
         return arr
 
 
-FIELD_TYPES = {m.type_name: m for m in (KeywordFieldMapper,
-                                        DenseVectorFieldMapper,
-                                        RankVectorsFieldMapper)}
+FIELD_TYPES = {m.type_name: m for m in (
+    KeywordFieldMapper, LongFieldMapper, IntegerFieldMapper,
+    ShortFieldMapper, ByteFieldMapper, DoubleFieldMapper, FloatFieldMapper,
+    HalfFloatFieldMapper, ScaledFloatFieldMapper, BooleanFieldMapper,
+    DenseVectorFieldMapper, RankVectorsFieldMapper)}
 
 
 def build_mapper(name: str, definition: dict) -> FieldMapper:
@@ -241,15 +357,64 @@ class MapperService:
         return {p: m for p, m in self._mappers.items()
                 if isinstance(m, RankVectorsFieldMapper)}
 
-    def parse_vectors(self, source: dict) -> Dict[str, Any]:
-        """The document's dense_vector values as f32 rows and its
-        rank_vectors values as f32 [n_tokens, dims] matrices, validated."""
+    def parse_document(self, source: dict) -> "ParsedFields":
+        """The document's mapped values, validated: dense_vector values as
+        f32 rows, rank_vectors values as f32 [n_tokens, dims] matrices, and
+        every other mapped field's index terms and doc value (a list holds
+        several values; one value stays a scalar), as the reference's
+        `DocumentParser` makes them."""
         if not isinstance(source, dict):
             raise MapperParsingError("document source must be an object")
-        out = {}
-        for fields in (self.vector_fields(), self.token_fields()):
-            for field, mapper in fields.items():
-                value = source.get(field)
-                if value is not None:
-                    out[field] = mapper.coerce(value)
-        return out
+        parsed = ParsedFields()
+        for field, value in source.items():
+            mapper = self._mappers.get(field)
+            if mapper is None or value is None:
+                continue
+            if isinstance(mapper, (DenseVectorFieldMapper,
+                                   RankVectorsFieldMapper)):
+                parsed.vectors[field] = mapper.coerce(value)
+                continue
+            for v in (value if isinstance(value, list) else [value]):
+                if v is not None:
+                    self._index_one(field, mapper, v, parsed)
+        return parsed
+
+    @staticmethod
+    def _index_one(field: str, mapper: FieldMapper, v: Any,
+                   parsed: "ParsedFields") -> None:
+        try:
+            terms = mapper.index_terms(v)
+            dv = mapper.doc_value(v)
+        except MapperParsingError:
+            # ignore_malformed: drop the unparseable value, keep the doc;
+            # the field lands in the searchable `_ignored` metadata field
+            if not mapper.params.get("ignore_malformed"):
+                raise
+            ignored = parsed.doc_values.setdefault("_ignored", [])
+            if field not in ignored:
+                ignored.append(field)
+                parsed.terms.setdefault("_ignored", []).append(field)
+            return
+        if terms:
+            parsed.terms.setdefault(field, []).extend(terms)
+        if dv is not None:
+            existing = parsed.doc_values.get(field)
+            if existing is None:
+                parsed.doc_values[field] = dv
+            elif isinstance(existing, list):
+                existing.append(dv)
+            else:
+                parsed.doc_values[field] = [existing, dv]
+
+
+class ParsedFields:
+    """One document's mapped values: field -> vector (or token matrix),
+    field -> index terms (duplicates kept, for term frequencies), field ->
+    doc value (a scalar, or a list for a multi-valued field)."""
+
+    __slots__ = ("vectors", "terms", "doc_values")
+
+    def __init__(self):
+        self.vectors: Dict[str, np.ndarray] = {}
+        self.terms: Dict[str, List[str]] = {}
+        self.doc_values: Dict[str, Any] = {}

@@ -1,5 +1,5 @@
-"""Sealed segments and point-in-time readers (port of the kNN slice of
-`elasticsearch_tpu/index/segment.py`).
+"""Sealed segments and point-in-time readers (port of the kNN and filter
+slice of `elasticsearch_tpu/index/segment.py`).
 
 A segment holds its documents' `_id`s, their stored `_source` (without the
 dense_vector and rank_vectors values), one contiguous [num_docs, dims] f32
@@ -9,27 +9,131 @@ ingests at refresh — and, per `rank_vectors` field, one ragged f32
 Vectors stay numpy blocks: a million 768-d vectors (or ten million tokens)
 as Python float lists in `_source` would take tens of GB of host memory, so
 `_source` is re-assembled from the blocks when a hit or a GET renders it.
+
+Keyword, numeric and boolean fields keep term postings (ascending local
+doc ids and term frequencies) and a doc-values column (the values, and
+for numerics a float64 view with a presence mask), which the filter
+queries (`search/queries.py`) read.
 """
 
 from __future__ import annotations
 
 import bisect
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+
+
+class DocValuesColumn:
+    """Per-doc values of one field within one segment: `values` (object
+    array, None = missing) and, when the field's first value is a number,
+    a float64 `numeric` view (a multi-valued doc contributes its first
+    value) with its `present` mask; else `numeric` is None and `present`
+    marks the docs holding a value."""
+
+    __slots__ = ("values", "numeric", "present")
+
+    def __init__(self, values: np.ndarray, numeric: Optional[np.ndarray],
+                 present: np.ndarray):
+        self.values = values
+        self.numeric = numeric
+        self.present = present
+
+    @classmethod
+    def build(cls, n: int, locals_: np.ndarray,
+              values: List[Any]) -> "DocValuesColumn":
+        """The column of `n` docs where doc locals_[j] holds values[j]
+        (locals_ ascending), equal to the reference's per-value
+        constructor but filled with numpy."""
+        col = np.empty(n, dtype=object)
+        col[locals_] = np.fromiter(values, dtype=object, count=len(values))
+        present = np.zeros(n, dtype=bool)
+        present[locals_] = True
+        first = values[0] if values else None
+        if not (isinstance(first, (int, float))
+                and not isinstance(first, bool)):
+            return cls(col, None, present)
+        multi = [j for j, v in enumerate(values) if isinstance(v, list)]
+        if multi:
+            values = list(values)
+            for j in multi:
+                values[j] = values[j][0]
+        numeric = np.zeros(n, dtype=np.float64)
+        numeric[locals_] = np.asarray(values, dtype=np.float64)
+        return cls(col, numeric, present)
+
+    def get(self, local_doc: int) -> Any:
+        return self.values[local_doc]
+
+
+class Postings:
+    """Term postings within one segment: ascending local doc ids + freqs."""
+
+    __slots__ = ("doc_ids", "freqs")
+
+    def __init__(self, doc_ids: np.ndarray, freqs: np.ndarray):
+        self.doc_ids = doc_ids
+        self.freqs = freqs
+
+    @property
+    def doc_freq(self) -> int:
+        return len(self.doc_ids)
+
+
+class FieldPostings:
+    """Every term's postings of one field in one segment, in CSR form:
+    `terms` sorted, term j's doc ids and freqs at starts[j]:starts[j + 1].
+    A float field has about one term a document; one array a field, not
+    a Postings object a term, keeps a million of them cheap to build and
+    hold."""
+
+    __slots__ = ("terms", "starts", "doc_ids", "freqs")
+
+    def __init__(self, terms: np.ndarray, starts: np.ndarray,
+                 doc_ids: np.ndarray, freqs: np.ndarray):
+        self.terms = terms
+        self.starts = starts
+        self.doc_ids = doc_ids
+        self.freqs = freqs
+
+    @classmethod
+    def build(cls, locals_: np.ndarray, terms: List[str]) -> "FieldPostings":
+        """From parallel (local doc, term) pairs, a doc's repeated term
+        counted in its frequency."""
+        t = np.asarray(terms, dtype=str)
+        docs = np.asarray(locals_, dtype=np.int32)
+        order = np.lexsort((docs, t))
+        t, docs = t[order], docs[order]
+        new_term = np.ones(len(t), dtype=bool)
+        new_term[1:] = t[1:] != t[:-1]
+        new_pair = new_term.copy()
+        new_pair[1:] |= docs[1:] != docs[:-1]
+        pair_at = np.nonzero(new_pair)[0]
+        freqs = np.diff(np.append(pair_at, len(t))).astype(np.int32)
+        starts = np.append(np.nonzero(new_term[pair_at])[0], len(pair_at))
+        return cls(t[new_term], starts.astype(np.int64), docs[pair_at], freqs)
+
+    def get(self, term: str) -> Optional[Postings]:
+        j = int(np.searchsorted(self.terms, term))
+        if j >= len(self.terms) or self.terms[j] != term:
+            return None
+        lo, hi = self.starts[j], self.starts[j + 1]
+        return Postings(self.doc_ids[lo:hi], self.freqs[lo:hi])
 
 
 class Segment:
     """Immutable sealed segment."""
 
     __slots__ = ("seg_id", "base", "num_docs", "ids", "sources", "vectors",
-                 "tokens")
+                 "tokens", "postings", "doc_values")
 
     def __init__(self, seg_id: int, base: int, ids: List[str],
                  sources: List[Optional[dict]],
                  vectors: Dict[str, Tuple[np.ndarray, np.ndarray]],
                  tokens: Optional[Dict[str, Tuple[np.ndarray, np.ndarray,
-                                                  np.ndarray]]] = None):
+                                                  np.ndarray]]] = None,
+                 postings: Optional[Dict[str, FieldPostings]] = None,
+                 doc_values: Optional[Dict[str, DocValuesColumn]] = None):
         self.seg_id = seg_id
         self.base = base                # global row id of local doc 0
         self.num_docs = len(ids)
@@ -39,6 +143,12 @@ class Segment:
         # field -> (tokens [T, d] f32, offsets [n+1] int64, present bool[n]):
         # doc i's tokens are rows offsets[i]:offsets[i+1]
         self.tokens = tokens or {}
+        self.postings = postings or {}        # field -> FieldPostings
+        self.doc_values = doc_values or {}    # field -> DocValuesColumn
+
+    def get_postings(self, field: str, term: str) -> Optional[Postings]:
+        f = self.postings.get(field)
+        return f.get(term) if f else None
 
     def source(self, local: int) -> dict:
         src = dict(self.sources[local] or {})
@@ -54,7 +164,7 @@ class Segment:
 class SegmentView:
     """A segment plus its tombstones at one point in time."""
 
-    __slots__ = ("segment", "live")
+    __slots__ = ("segment", "live", "all_live")
 
     def __init__(self, segment: Segment, deleted=None):
         self.segment = segment
@@ -62,6 +172,7 @@ class SegmentView:
         if deleted:
             live[np.fromiter(deleted, dtype=np.int64)] = False
         self.live = live
+        self.all_live = not deleted
 
 
 class ShardReader:
@@ -87,6 +198,22 @@ class ShardReader:
     def get_source(self, row: int) -> dict:
         seg, local = self._locate(row)
         return seg.source(local)
+
+    def live_global_rows(self) -> np.ndarray:
+        """Every live document's global row, ascending."""
+        parts = [np.nonzero(v.live)[0] + v.segment.base for v in self.views]
+        if not parts:
+            return np.zeros(0, dtype=np.int64)
+        return np.concatenate(parts).astype(np.int64)
+
+    def docs_with_field_count(self, field: str) -> int:
+        """Live documents holding a doc value of `field`."""
+        total = 0
+        for v in self.views:
+            dv = v.segment.doc_values.get(field)
+            if dv is not None:
+                total += int((v.live & dv.present).sum())
+        return total
 
     def vector_rows(self, field: str) -> Tuple[np.ndarray, np.ndarray]:
         """(matrix [m, d] f32, row_map [m] global rows) of the live documents

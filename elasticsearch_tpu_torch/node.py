@@ -1,8 +1,9 @@
 """One node holding single-shard indices (port of the served slices of
 `elasticsearch_tpu/node.py`): index create (with the `index.knn.*` engine
-settings), document writes, `_bulk`, refresh, realtime GET, `_search { knn }`,
-`_search { query: { late_interaction } }` and hybrid `rank: {rrf}` searches
-(one `HybridExecutor` per index), with the reference's response shapes."""
+settings), document writes, `_bulk`, refresh, realtime GET, `_search` with
+`knn` (one spec or a list, each with an optional filter) and / or a
+`query` of the ported kinds, and hybrid `rank: {rrf}` searches (one
+`HybridExecutor` per index), with the reference's response shapes."""
 
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from elasticsearch_tpu_torch.common.errors import (
 from elasticsearch_tpu_torch.index.engine import Engine
 from elasticsearch_tpu_torch.index.mapping import MapperService
 from elasticsearch_tpu_torch.search.hybrid_plan import HybridExecutor
-from elasticsearch_tpu_torch.search.service import SearchContext, execute_search
+from elasticsearch_tpu_torch.search.queries import SearchContext
+from elasticsearch_tpu_torch.search.service import execute_search
 from elasticsearch_tpu_torch.vectors.store import VectorStoreShard
 
 _SHARDS_OK = {"total": 1, "successful": 1, "failed": 0}
@@ -85,8 +87,10 @@ class IndexService:
     """One single-shard index: mapping, engine and device vector store."""
 
     def __init__(self, name: str, mapping: Optional[dict], device,
-                 knn_engine: str = "tpu", knn_nlist=None, knn_nprobe="auto"):
+                 knn_engine: str = "tpu", knn_nlist=None, knn_nprobe="auto",
+                 settings: Optional[Dict[str, object]] = None):
         self.name = name
+        self.settings = dict(settings or {})   # flat `index.*` settings
         self.uuid = uuid.uuid4().hex[:22]
         self.mapper_service = MapperService(mapping)
         self.engine = Engine(self.mapper_service)
@@ -128,7 +132,7 @@ class Node:
             engine, nlist, nprobe = validate_knn_settings(settings)
             self.indices[name] = IndexService(
                 name, body.get("mappings"), self.device, knn_engine=engine,
-                knn_nlist=nlist, knn_nprobe=nprobe)
+                knn_nlist=nlist, knn_nprobe=nprobe, settings=settings)
         return {"acknowledged": True, "shards_acknowledged": True,
                 "index": name}
 
@@ -213,7 +217,7 @@ class Node:
                     raise IllegalArgumentError(
                         "the bulk request must be terminated by a newline")
                 svc = self._index_or_autocreate(name)
-                svc.mapper_service.parse_vectors(source)
+                svc.mapper_service.parse_document(source)
                 doc_id = meta.get("_id")
                 if doc_id is None:
                     doc_id, op = uuid.uuid4().hex[:20], "create"
@@ -272,7 +276,7 @@ class Node:
         if isinstance(rank, dict) and "rrf" in rank:
             return self._search_rrf(svc, body)
         ctx = SearchContext(svc.engine.acquire_searcher(), svc.mapper_service,
-                            svc.store)
+                            svc.store, svc.settings)
         hits = execute_search(ctx, body or {}, svc.name)
         return {"took": int((time.perf_counter() - start) * 1000),
                 "timed_out": False,

@@ -4,7 +4,9 @@ fetch (port of the `knn` and `late_interaction` legs of
 
   plan    normalize → classify sub-searches into legs:
             knn  — `knn` on a dense_vector field → the vector store
-                   (`vectors/store.py`, the binned kernel on the card)
+                   (`vectors/store.py`, the binned kernel on the card;
+                   a filtered leg's filter runs on the host and its rows
+                   send the leg's batch to the exact route)
             maxsim — `late_interaction` on a rank_vectors field → the
                    late-interaction store (`vectors/late_interaction.py`,
                    the MaxSim kernels on the card), whatever the query's
@@ -18,9 +20,10 @@ Bodies reach `HybridExecutor` through a `BoundedBatcher`
 Every body compiles its own plan: compiling is a few mapping lookups, and
 PyTorch runs eagerly, so there is no compiled program to reuse. A
 sub-search that the reference would send to its generic query phase
-(match, term, bool, sparse, a filtered kNN, ...) is refused with a 400
-naming it: the lexical, sparse and generic legs and the device request
-cache are not ported.
+(match, term, bool, sparse, ...) is refused with a 400 naming it, and so
+is a kNN leg whose filter is of a kind `search/queries.py` does not
+parse: the lexical, sparse and generic legs and the device request cache
+are not ported.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from elasticsearch_tpu_torch.index.mapping import (
     DenseVectorFieldMapper, RankVectorsFieldMapper,
 )
 from elasticsearch_tpu_torch.ops import similarity as sim
+from elasticsearch_tpu_torch.search.queries import SearchContext, parse_query
 from elasticsearch_tpu_torch.serving.batcher import BoundedBatcher
 from elasticsearch_tpu_torch.vectors.late_interaction import (
     LateInteractionShard,
@@ -50,16 +54,20 @@ _BODY_KEYS = {"rank", "sub_searches", "query", "knn", "size", "from",
 
 
 class KnnTemplate:
-    """Compile-time half of a kNN leg: k/num_candidates/boost/metric are
-    resolved from the mapping; the query VECTOR is bound from the body."""
+    """Compile-time half of a kNN leg: k/num_candidates/filter/boost/metric
+    are resolved from the mapping and the spec (the filter parsed); the
+    query VECTOR is bound from the body."""
 
-    __slots__ = ("field", "dims", "k", "num_candidates", "boost", "metric")
+    __slots__ = ("field", "dims", "k", "num_candidates", "filter_query",
+                 "boost", "metric")
 
-    def __init__(self, field, dims, k, num_candidates, boost, metric):
+    def __init__(self, field, dims, k, num_candidates, filter_query, boost,
+                 metric):
         self.field = field
         self.dims = dims
         self.k = k
         self.num_candidates = num_candidates
+        self.filter_query = filter_query
         self.boost = boost
         self.metric = metric
 
@@ -70,7 +78,7 @@ class KnnTemplate:
                 f"[knn] query vector has {qv.shape[-1] if qv.ndim else 0} "
                 f"dims, field [{self.field}] expects {self.dims}")
         return KnnLeg(self.field, qv, self.k, self.num_candidates,
-                      self.boost, self.metric)
+                      self.filter_query, self.boost, self.metric)
 
 
 class MaxSimTemplate:
@@ -99,15 +107,17 @@ class MaxSimTemplate:
 
 
 class KnnLeg:
-    __slots__ = ("field", "query_vector", "k", "num_candidates", "boost",
-                 "metric")
+    __slots__ = ("field", "query_vector", "k", "num_candidates",
+                 "filter_query", "boost", "metric")
 
     def __init__(self, field: str, query_vector, k: int,
-                 num_candidates: int, boost: float, metric: str):
+                 num_candidates: int, filter_query, boost: float,
+                 metric: str):
         self.field = field
         self.query_vector = np.asarray(query_vector, dtype=np.float32)
         self.k = k
         self.num_candidates = num_candidates
+        self.filter_query = filter_query
         self.boost = boost
         self.metric = metric
 
@@ -207,8 +217,12 @@ def compile_plan(body: dict, mapper_service) -> HybridPlan:
             if not isinstance(mapper, DenseVectorFieldMapper):
                 raise _not_ported(kind, f"[{field}] is not a dense_vector "
                                         f"field")
+            filter_query = None
             if spec.get("filter") is not None:
-                raise _not_ported(kind, "filtered kNN is not ported")
+                try:
+                    filter_query = parse_query(spec["filter"])
+                except ParsingError as e:
+                    raise _not_ported(kind, f"its filter: {e.message}")
             # the reference's leg semantics: k defaults to 10 (not
             # num_candidates), and num_candidates clamps up to k
             k = int(spec.get("k", 10))
@@ -216,7 +230,7 @@ def compile_plan(body: dict, mapper_service) -> HybridPlan:
             if k < 1:
                 raise IllegalArgumentError("[k] must be greater than 0")
             from elasticsearch_tpu_torch.vectors.store import _METRIC_MAP
-            legs.append(KnnTemplate(field, mapper.dims, k, nc,
+            legs.append(KnnTemplate(field, mapper.dims, k, nc, filter_query,
                                     float(spec.get("boost", 1.0)),
                                     _METRIC_MAP[mapper.similarity]))
         elif kind == "late_interaction":
@@ -402,10 +416,18 @@ class HybridExecutor:
             for (bi, li, _leg), (rows, _scores) in zip(entries, results):
                 leg_results[(bi, li)] = rows[:plans[bi].window]
         pending = []
+        ctx = SearchContext(reader, self.svc.mapper_service, self.svc.store,
+                            self.svc.settings)
         for (field, k, num_candidates), entries in knn_groups.items():
+            # each leg's filter runs on the host, on the batch's reader;
+            # filtered and unfiltered legs share the group's dispatch
+            filters = [None if leg.filter_query is None
+                       else leg.filter_query.execute(ctx).rows
+                       for _bi, _li, leg in entries]
             handle = self.svc.store.search_many_async(
                 field, [leg.query_vector for _bi, _li, leg in entries], k,
-                num_candidates=num_candidates)
+                num_candidates=num_candidates, filter_rows=filters,
+                reader=reader)
             pending.append((entries, handle))
         return leg_results, pending
 

@@ -2,26 +2,33 @@
 `elasticsearch_tpu/search/knn_query.py`).
 
 The query dispatches to the shard's device vector store and converts raw
-similarities to the `_search` knn `_score` convention. There is no host
-fallback: without a store attached it raises.
+similarities to the `_search` knn `_score` convention. An optional filter
+query runs first on the host; its rows go to the store, which masks
+everything else out of the exact route. There is no host fallback:
+without a store attached it raises.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
 from elasticsearch_tpu_torch.common.errors import IllegalArgumentError
 from elasticsearch_tpu_torch.index.mapping import DenseVectorFieldMapper
 from elasticsearch_tpu_torch.ops import similarity as sim
+from elasticsearch_tpu_torch.search.queries import DocSet, Query
 
 
-class KnnQuery:
+class KnnQuery(Query):
     def __init__(self, field: str, query_vector, k: int = 10,
-                 num_candidates: int = 10, boost: float = 1.0):
+                 num_candidates: int = 10,
+                 filter_query: Optional[Query] = None, boost: float = 1.0):
         self.field = field
         self.query_vector = np.asarray(query_vector, dtype=np.float32)
         self.k = k
         self.num_candidates = max(num_candidates, k)
+        self.filter_query = filter_query
         self.boost = boost
 
     def _metric(self, ctx) -> str:
@@ -37,15 +44,22 @@ class KnnQuery:
         from elasticsearch_tpu_torch.vectors.store import _METRIC_MAP
         return _METRIC_MAP[mapper.similarity]
 
-    def execute(self, ctx):
-        """(rows [m] ascending, scores [m]) of the top-k hits."""
+    def execute(self, ctx) -> DocSet:
+        """The top-k hits (among the filter's rows), rows ascending."""
         metric = self._metric(ctx)
+        filter_rows = None
+        if self.filter_query is not None:
+            filter_rows = self.filter_query.execute(ctx).rows
         store = ctx.vector_store
         if store is None:
             raise IllegalArgumentError(
                 f"[knn] no vector store attached for field [{self.field}]")
+        # the store serves the snapshot of the reader the filter ran on
         rows, raw = store.search(self.field, self.query_vector, self.k,
-                                 num_candidates=self.num_candidates)
+                                 filter_rows=filter_rows,
+                                 num_candidates=self.num_candidates,
+                                 reader=ctx.reader)
         scores = np.asarray(sim.to_es_score(raw, metric)) * self.boost
         order = np.argsort(rows, kind="stable")
-        return rows[order].astype(np.int64), scores[order].astype(np.float32)
+        return DocSet(rows[order].astype(np.int64),
+                      scores[order].astype(np.float32))

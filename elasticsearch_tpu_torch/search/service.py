@@ -1,18 +1,20 @@
 """Per-shard search: parse the body, run the query, assemble hits (port of
 the served slices of `elasticsearch_tpu/search/service.py`).
 
-The port accepts `{knn: {field, query_vector, k, num_candidates, boost},
-size, from, _source}` and `{query: {late_interaction: {field, query_tokens,
-boost}}, size, from, _source}` (the exact host walker, as the reference's
-query phase runs it). Any other body key, or another query kind, is
-rejected with a 400. Hybrid `rank: {rrf}` bodies go to
-`search/hybrid_plan.py`, which renders its hits with `render_hits`.
+The port accepts `{knn, query, size, from, _source, track_total_hits}`.
+`knn` is one spec or a list of specs (`field`, `query_vector`, `k`,
+`num_candidates`, `filter`, `boost`); `query` is any query
+`search/queries.py` parses (term-level filters, `bool`, the host
+`late_interaction` walker). Several knn specs, or knn beside a query,
+combine as `bool.should` of them, as in the reference; no query and no
+knn is `match_all`. Any other body key is rejected with a 400. Hybrid
+`rank: {rrf}` bodies go to `search/hybrid_plan.py`, which renders its hits
+with `render_hits`.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, List, Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -22,23 +24,21 @@ from elasticsearch_tpu_torch.common.errors import (
 from elasticsearch_tpu_torch.index.mapping import MapperService
 from elasticsearch_tpu_torch.index.segment import ShardReader
 from elasticsearch_tpu_torch.search.knn_query import KnnQuery
-from elasticsearch_tpu_torch.search.queries_ext import LateInteractionQuery
+from elasticsearch_tpu_torch.search.queries import (
+    BoolQuery, MatchAllQuery, Query, SearchContext, parse_query,
+)
 
 DEFAULT_SIZE = 10
 MAX_RESULT_WINDOW = 10_000
-_SEARCH_BODY_KEYS = {"knn", "query", "size", "from", "_source"}
-_KNN_KEYS = {"field", "query_vector", "k", "num_candidates", "boost"}
+TRACK_TOTAL_HITS_DEFAULT = 10_000
+_SEARCH_BODY_KEYS = {"knn", "query", "size", "from", "_source",
+                     "track_total_hits"}
+_KNN_KEYS = {"field", "query_vector", "k", "num_candidates", "filter",
+             "boost"}
 
 
-@dataclass
-class SearchContext:
-    reader: ShardReader
-    mapper_service: MapperService
-    vector_store: Any = None
-
-
-def parse_knn(body: dict) -> KnnQuery:
-    spec = body.get("knn")
+def parse_knn(spec) -> KnnQuery:
+    """One `knn` spec of a body → a KnnQuery (its filter parsed)."""
     if not isinstance(spec, dict):
         raise ParsingError("[knn] must be an object with [field] and "
                            "[query_vector]")
@@ -54,30 +54,31 @@ def parse_knn(body: dict) -> KnnQuery:
     num_candidates = max(int(spec.get("num_candidates", k)), k)
     return KnnQuery(field=spec["field"], query_vector=spec["query_vector"],
                     k=k, num_candidates=num_candidates,
+                    filter_query=(parse_query(spec["filter"])
+                                  if spec.get("filter") else None),
                     boost=float(spec.get("boost", 1.0)))
 
 
-def _execute_query(ctx: SearchContext, body: dict):
-    """(rows ascending, f32 scores) of the body's one query."""
+def _body_query(body: dict) -> Query:
+    """The body's query: `query`, its `knn` specs, or both as should
+    clauses of one bool."""
     for key in body:
         if key not in _SEARCH_BODY_KEYS:
             raise ParsingError(
                 f"unknown key [{key}] for a search request body "
                 f"(SearchSourceBuilder)")
-    if "query" not in body:
-        return parse_knn(body).execute(ctx)
-    if "knn" in body:
-        raise ParsingError("this build serves [knn] and [query] together "
-                           "only as a hybrid [rank: {rrf: {}}] body")
-    q = body["query"]
-    if not isinstance(q, dict) or len(q) != 1:
-        raise ParsingError("[query] must hold exactly one query")
-    ((kind, spec),) = q.items()
-    if kind != "late_interaction":
-        raise ParsingError(f"[{kind}] query is not supported by this build: "
-                           f"only [late_interaction] queries are ported")
-    return LateInteractionQuery.parse(spec).execute(ctx.reader,
-                                                    ctx.mapper_service)
+    query = (parse_query(body["query"]) if body.get("query") is not None
+             else MatchAllQuery())
+    knn = body.get("knn")
+    if knn is None:
+        return query
+    knn_queries: List[Query] = [
+        parse_knn(spec) for spec in (knn if isinstance(knn, list)
+                                     else [knn])]
+    if body.get("query") is None:
+        return knn_queries[0] if len(knn_queries) == 1 \
+            else BoolQuery(should=knn_queries)
+    return BoolQuery(should=[query] + knn_queries)
 
 
 def execute_search(ctx: SearchContext, body: dict, index_name: str) -> dict:
@@ -93,16 +94,22 @@ def execute_search(ctx: SearchContext, body: dict, index_name: str) -> dict:
         raise IllegalArgumentError(
             f"Result window is too large, from + size must be less than or "
             f"equal to: [{MAX_RESULT_WINDOW}] but was [{frm + size}].")
-    rows, scores = _execute_query(ctx, body)
+    result = _body_query(body).execute(ctx).with_scores()
+    rows, scores = result.rows, result.scores
+    total, relation = len(rows), "eq"
+    track = body.get("track_total_hits", TRACK_TOTAL_HITS_DEFAULT)
+    if track is not True:
+        limit = TRACK_TOTAL_HITS_DEFAULT if track is False else int(track)
+        if total > limit:
+            total, relation = limit, "gte"
+    max_score = float(scores.max()) if len(scores) else None
     # score desc, ties by row asc (rows arrive ascending)
-    order = np.argsort(-scores, kind="stable")
+    order = np.argsort(-scores, kind="stable")[:frm + size]
     rows, scores = rows[order], scores[order]
-    total = len(rows)
-    max_score = float(scores[0]) if total else None
     hits = render_hits(ctx.reader, ctx.mapper_service, index_name,
                        rows[frm:frm + size], scores[frm:frm + size],
                        body.get("_source"))
-    return {"total": {"value": total, "relation": "eq"},
+    return {"total": {"value": total, "relation": relation},
             "max_score": max_score, "hits": hits}
 
 

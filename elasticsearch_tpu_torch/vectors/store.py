@@ -25,16 +25,24 @@ batcher's run lock and its device→host wait in the finalize stage outside
 it. A refresh retires a rebuilt field's batchers; requests already queued
 in one are served against the corpus it closed over.
 
+A request may carry `filter_rows`, the sorted engine rows its filter
+query let through. Filtered and unfiltered requests share batches; a
+batch holding any filter takes the exact route with a [B, N] row mask
+(every valid row for a request without a filter), and an IVF field falls
+back to its exhaustive corpus for it (`fallback_reason: filtered`). A
+request names the reader its filter ran on, and is served from the
+corpus synced for that reader.
+
 Left out, as ROADMAP.md lists: generational segments, the mesh, the
-semantic cache, the host mirror and its cost router, filtered kNN and the
-binary rung.
+semantic cache, the host mirror and its cost router, and the binary rung.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+import weakref
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -76,7 +84,7 @@ class FieldCorpus:
 
     __slots__ = ("corpus", "row_map", "metric", "dims", "version",
                  "encoding", "rescore", "rescore_oversample",
-                 "rescore_candidates", "router", "source")
+                 "rescore_candidates", "router", "source", "_row_index")
 
     def __init__(self, corpus, row_map: np.ndarray, metric: str, dims: int,
                  version: tuple, encoding: str = "bf16",
@@ -95,6 +103,43 @@ class FieldCorpus:
         self.rescore_candidates = rescore_candidates
         self.router = router          # ann.IVFRouter (tpu_ivf) or None
         self.source = source
+        self._row_index = None
+
+    def row_index(self) -> np.ndarray:
+        """Engine global row -> device row (-1: not in this corpus), made
+        at the first filtered request."""
+        if self._row_index is None:
+            n = int(self.row_map[-1]) + 1 if len(self.row_map) else 0
+            index = np.full(n, -1, dtype=np.int32)
+            index[self.row_map] = np.arange(len(self.row_map),
+                                            dtype=np.int32)
+            self._row_index = index
+        return self._row_index
+
+
+def filter_mask(fc: FieldCorpus, filters: Sequence[Optional[np.ndarray]],
+                b_pad: int, n_pad: int) -> torch.Tensor:
+    """[b_pad, n_pad] bool host mask of a batch: row i keeps every valid
+    device row when filters[i] is None, else the device rows of the engine
+    rows in filters[i] (`np.isin(fc.row_map, filters[i])`, by a scatter
+    through `row_index` instead of a search over the whole row map). Pad
+    rows and pad queries keep nothing. For a corpus on the card it is
+    built in pinned memory, so its upload does not wait on the host."""
+    n_valid = len(fc.row_map)
+    index = fc.row_index()
+    out = torch.zeros((b_pad, n_pad), dtype=torch.bool,
+                      pin_memory=fc.corpus.device.type == "cuda")
+    mask = out.numpy()
+    for i, rows in enumerate(filters):
+        if rows is None:
+            mask[i, :n_valid] = True
+            continue
+        rows = np.asarray(rows, dtype=np.int64)
+        # rows are sorted: the ones inside the index are one slice
+        dev = index[rows[np.searchsorted(rows, 0):
+                         np.searchsorted(rows, len(index))]]
+        mask[i, dev[dev >= 0]] = True
+    return out
 
 
 def _pad_batch(queries: np.ndarray, n_real: int) -> np.ndarray:
@@ -166,6 +211,9 @@ class VectorStoreShard:
         self._sched_retired: Dict[str, int] = {}
         # per-thread phases of the last search (`last_knn_phases`)
         self._tls = threading.local()
+        # reader -> the fields synced for it: a filtered request is served
+        # from the corpus of the reader its filter ran on
+        self._snapshots = weakref.WeakKeyDictionary()
 
     def _field_engine(self, mapper: DenseVectorFieldMapper) -> str:
         """Effective engine for one field: explicit index_options beat the
@@ -256,6 +304,8 @@ class VectorStoreShard:
                 self._fields[field] = fc
                 self._field_plans[field] = plan
             self._retire_field(field)
+        with self._lock:
+            self._snapshots[reader] = dict(self._fields)
 
     def _ivf_router(self, field, mapper, cached, full, row_map, metric,
                     dtype):
@@ -300,6 +350,16 @@ class VectorStoreShard:
                          device=self.device)
 
     def field(self, name: str) -> Optional[FieldCorpus]:
+        return self._fields.get(name)
+
+    def _field_for(self, name: str, reader) -> Optional[FieldCorpus]:
+        """The corpus synced for `reader` (the latest when the reader is
+        None or was never synced)."""
+        if reader is not None:
+            with self._lock:
+                snap = self._snapshots.get(reader)
+            if snap is not None:
+                return snap.get(name)
         return self._fields.get(name)
 
     @property
@@ -365,8 +425,8 @@ class VectorStoreShard:
             if cached is not None and cached[0] is fc:
                 return cached[1]
 
-            def dispatch_fn(queries):
-                return self._dispatch_many(fc, k, precision, queries,
+            def dispatch_fn(requests):
+                return self._dispatch_many(fc, k, precision, requests,
                                            num_candidates)
 
             def finalize_fn(handle):
@@ -393,48 +453,59 @@ class VectorStoreShard:
 
     # --------------------------------------------------------- search
     def search(self, field: str, query_vector: np.ndarray, k: int,
+               filter_rows: Optional[np.ndarray] = None,
                precision: str = "bf16",
-               num_candidates: Optional[int] = None
-               ) -> Tuple[np.ndarray, np.ndarray]:
+               num_candidates: Optional[int] = None,
+               reader=None) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k search. Returns (global_rows [m], raw_scores [m]), m <= k
-        (padding slots removed). Concurrent callers coalesce through a
-        per-(field, version, k, precision, num_candidates) combining
-        batcher into one dispatch."""
-        fc = self._fields.get(field)
+        (padding and filtered-out slots removed). `filter_rows`: the sorted
+        engine rows allowed to match, from a filter query run on `reader`.
+        Concurrent callers coalesce through a per-(field, version, k,
+        precision, num_candidates) combining batcher into one dispatch."""
+        fc = self._field_for(field, reader)
         if fc is None or fc.corpus is None:
             self._tls.phases = {}
             return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.float32)
         batcher = self._batcher(field, fc, k, precision, num_candidates)
         result, phases = batcher.submit(
-            np.asarray(query_vector, dtype=np.float32))
+            (np.asarray(query_vector, dtype=np.float32), filter_rows))
         self._tls.phases = phases
         return result
 
     def search_many(self, field: str, queries: List[np.ndarray], k: int,
                     precision: str = "bf16",
-                    num_candidates: Optional[int] = None) -> list:
+                    num_candidates: Optional[int] = None,
+                    filter_rows: Optional[Sequence] = None,
+                    reader=None) -> list:
         """Score a batch of query vectors in one dispatch, on the calling
         thread: for a caller that already holds a batch (the hybrid
-        executor's runner), past the batcher."""
+        executor's runner), past the batcher. `filter_rows[i]` (or None)
+        filters query i."""
         results, phases = self._finalize(self.search_many_async(
             field, queries, k, precision=precision,
-            num_candidates=num_candidates))
+            num_candidates=num_candidates, filter_rows=filter_rows,
+            reader=reader))
         self._tls.phases = phases
         return results
 
     def search_many_async(self, field: str, queries: List[np.ndarray],
                           k: int, precision: str = "bf16",
-                          num_candidates: Optional[int] = None):
+                          num_candidates: Optional[int] = None,
+                          filter_rows: Optional[Sequence] = None,
+                          reader=None):
         """Launch a batch's kNN without waiting for it: an opaque handle
         that `finalize_many` lands. The exhaustive route returns the boards
         still in flight; the IVF route (its router waits for the card
         between its phases) and empty fields complete here."""
-        fc = self._fields.get(field)
+        fc = self._field_for(field, reader)
         if fc is None or fc.corpus is None:
             return ("done", [(np.zeros(0, dtype=np.int64),
                               np.zeros(0, dtype=np.float32))
                              for _ in queries], {})
-        return self._dispatch_many(fc, k, precision, queries,
+        filters = filter_rows if filter_rows is not None \
+            else [None] * len(queries)
+        return self._dispatch_many(fc, k, precision,
+                                   list(zip(queries, filters)),
                                    num_candidates)
 
     def finalize_many(self, handle) -> list:
@@ -460,17 +531,22 @@ class VectorStoreShard:
                 phases)
 
     def _dispatch_many(self, fc: FieldCorpus, k: int, precision: str,
-                       queries: List[np.ndarray],
+                       requests: List[tuple],
                        num_candidates: Optional[int]):
-        """Dispatch stage of one batch: through the IVF router when the
-        field has one and no fallback reason applies (completes here),
-        else the exhaustive route, launched with no host wait: the queries
-        go up from pinned memory and the boards come back into pinned
-        memory behind an event. Returns (kind, payload, phases)."""
+        """Dispatch stage of one batch of (query vector, filter rows)
+        requests: through the IVF router when the field has one and no
+        fallback reason applies (completes here), else the exhaustive
+        route, launched with no host wait: the queries (and a filtered
+        batch's mask) go up from pinned memory and the boards come back
+        into pinned memory behind an event. Returns (kind, payload,
+        phases)."""
         n_valid = len(fc.row_map)
-        n_real = len(queries)
+        n_real = len(requests)
         n_pad = fc.corpus.matrix.shape[0]
-        batch = np.stack([np.asarray(q, dtype=np.float32) for q in queries])
+        batch = np.stack([np.asarray(q, dtype=np.float32)
+                          for q, _ in requests])
+        filters = [fr for _, fr in requests]
+        any_filter = any(fr is not None for fr in filters)
         # two-phase plan: k widens to the coarse window BEFORE the bucket
         # ladder
         k_req = min(k, n_pad)
@@ -481,7 +557,7 @@ class VectorStoreShard:
         self._bump(searches=1)
         phases: dict = {}
         if fc.router is not None:
-            reason = fc.router.should_fallback(k_eff, False, precision)
+            reason = fc.router.should_fallback(k_eff, any_filter, precision)
             if reason is None:
                 results, phases = self._execute_ivf(
                     fc, k_eff, n_valid, batch, n_real, num_candidates,
@@ -490,12 +566,20 @@ class VectorStoreShard:
             self._bump(fallback_searches=1)
             phases = {"engine": "tpu_exhaustive", "fallback_reason": reason}
         padded = _pad_batch(batch, n_real)
+        mask = None
+        if any_filter:
+            # a filtered batch takes the exact route, its unfiltered
+            # requests too
+            t0 = time.perf_counter_ns()
+            mask = filter_mask(fc, filters, len(padded), n_pad).to(
+                self.device, non_blocking=True)
+            phases["mask_nanos"] = time.perf_counter_ns() - t0
         # k rounds up the bucket ladder; the extra columns slice away below
         # (top-k prefixes are exact)
         k_b = dispatch.bucket_k(k_eff, limit=n_pad)
         s, i = knn_ops.knn_search_auto(
             _to_device(padded, self.device), fc.corpus, k=k_b,
-            metric=fc.metric, precision=precision,
+            metric=fc.metric, filter_mask=mask, precision=precision,
             rescore_candidates=fc.rescore_candidates)
         (s, i), ready = _to_host_async(s[:n_real, :k_eff], i[:n_real, :k_eff])
         return ("pending", (fc, s, i, ready, k_eff, n_valid, n_real,

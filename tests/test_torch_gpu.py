@@ -401,6 +401,79 @@ def test_store_pipelined_route_on_cuda(cuda, options):
     assert store.queued_requests() == 0
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_size", [None, 4096])
+def test_exact_route_with_a_per_query_mask_on_cuda(cuda, block_size):
+    """`knn_search` with a [Q, N] mask on the card, single-block and
+    blocked, against the same call on the CPU."""
+    from elasticsearch_tpu_torch.ops import knn as knn_ops
+    rng = np.random.default_rng(13)
+    vecs = rng.standard_normal((16384, 64)).astype(np.float32)
+    q = torch.from_numpy(rng.standard_normal((5, 64)).astype(np.float32))
+    mask = torch.from_numpy(rng.random((5, 16384)) < 0.05)
+    mask[3] = False
+    got = knn_ops.knn_search(
+        q.to(cuda), knn_ops.build_corpus(vecs, device=cuda), 10,
+        filter_mask=mask.to(cuda), block_size=block_size)
+    want = knn_ops.knn_search(q, knn_ops.build_corpus(vecs, device="cpu"),
+                              10, filter_mask=mask, block_size=block_size)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
+                               atol=2e-5)
+    ids = got[1].cpu().numpy()
+    ok = got[0].cpu().numpy() > -1e37
+    assert not ok[3].any()
+    assert all(mask[i, ids[i][ok[i]]].all() for i in range(5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("options", [None, {"type": "int8_flat",
+                                            "rescore": True},
+                                     {"type": "int4_flat"}])
+def test_filtered_batch_through_the_store_on_cuda(cuda, options):
+    """A batch mixing filtered and unfiltered requests on the card: the
+    mask goes up from pinned memory, no binned kernel launches, and the
+    hits equal the CPU store's (same rows where scores are clear of ties),
+    every filtered hit inside its filter."""
+    from elasticsearch_tpu_torch.index import mapping, segment
+    from elasticsearch_tpu_torch.vectors.store import VectorStoreShard
+
+    rng = np.random.default_rng(17)
+    n, d = 20000, 128
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    seg = segment.Segment(0, 0, [str(i) for i in range(n)], [None] * n,
+                          {"v": (vecs, np.ones(n, dtype=bool))})
+    reader = segment.ShardReader([segment.SegmentView(seg)])
+    field = {"type": "dense_vector", "dims": d}
+    if options:
+        field["index_options"] = options
+    fields = mapping.MapperService({"properties": {"v": field}}) \
+        .vector_fields()
+    on_cpu, on_gpu = VectorStoreShard(device="cpu"), \
+        VectorStoreShard(device=cuda)
+    on_cpu.sync(reader, fields)
+    on_gpu.sync(reader, fields)
+    queries = list(rng.standard_normal((6, d)).astype(np.float32))
+    filters = [None, np.sort(rng.choice(n, 900, replace=False)),
+               np.sort(rng.choice(n, 4, replace=False)), None,
+               np.zeros(0, dtype=np.int64),
+               np.arange(0, n, 3, dtype=np.int64)]
+    dispatch.reset_launches()
+    handle = on_gpu.search_many_async("v", queries, 10, filter_rows=filters)
+    assert handle[0] == "pending" and handle[1][1].is_pinned()
+    got = on_gpu.finalize_many(handle)
+    assert not any(dispatch.launches().values())
+    want = on_cpu.search_many("v", queries, 10, filter_rows=filters)
+    for fr, (rows, raw), (wr, ws) in zip(filters, got, want):
+        assert len(rows) == len(wr) == (10 if fr is None
+                                        else min(10, len(fr)))
+        np.testing.assert_allclose(raw, ws, atol=1e-4)
+        clear = np.minimum(np.abs(np.diff(ws, prepend=np.inf)),
+                           np.abs(np.diff(ws, append=-np.inf))) > 1e-4
+        np.testing.assert_array_equal(rows[clear], wr[clear])
+        if fr is not None:
+            assert np.isin(rows, fr).all()
+
+
 def _random_token_tile(g, dev, dtype, n, n_pad, cap, w):
     """A [n_pad, cap, w] tile of n ragged docs (1..cap valid slots each,
     scale 0 on the rest and on rows n..n_pad, the padding rows)."""

@@ -37,7 +37,9 @@ def test_port_imports_without_jax_or_reference():
     assert "elasticsearch_tpu_torch.ann.router" in names
     for name in ("ops.maxsim", "quant.tokens", "columnar.blocks",
                  "vectors.late_interaction", "search.queries_ext",
-                 "search.hybrid_plan", "serving.batcher"):
+                 "search.hybrid_plan", "serving.batcher", "search.queries",
+                 "search.knn_query", "search.service", "index.mapping",
+                 "index.segment", "index.engine", "vectors.store"):
         assert f"elasticsearch_tpu_torch.{name}" in names
     code = (
         "import sys\n"

@@ -492,7 +492,7 @@ def test_refresh_race_keeps_no_stale_batcher():
     q = rng.standard_normal(D).astype(np.float32)
     stale = store._batcher("v", old_fc, K, "bf16", None)
     assert all(b is not stale for _, b in store._batchers.values())
-    rows, _ = stale.submit(q)[0]
+    rows, _ = stale.submit((q, None))[0]         # (vector, filter rows)
     assert rows.max() < 200                       # the old snapshot's rows
     store.search("v", q, K)
     (fc, current), = store._batchers.values()
