@@ -3,6 +3,7 @@
     python3 chip_smoke.py [--seed 1234] [--n-sift 1000000] [--n-cohere 1000000]
                           [--n-gist 1000000] [--n-cohere-ivf 1000000]
                           [--n-colbert 131071] [--n-laion 1000000]
+                          [--n-sharded 6000000]
                           [--binned-only | --ivf-only | --maxsim-only]
 
 Phases, one line each; any failure raises and the exit code is not 0:
@@ -38,8 +39,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
                `torch.bmm` of the bf16 queries over a pre-staged bf16 copy
                of the candidate tiles and the staged gather form
   serve_sift   the port's REST server in-process: a cosine dims=128 index,
-               2,000 docs over `_bulk`, then the shard loaded to 1,000,000
-               SIFT-shaped docs through `Engine.index_many`, refresh, and 64
+               2,000 docs over `_bulk`, then loaded to 1,000,000 SIFT-shaped
+               docs through `IndexService.index_many`, refresh, and 64
                `_search {knn, k: 10}` requests over HTTP: recall@10 against
                exact f32 numpy and the bf16 kernel's launch count (every
                launch on its tma variant); then a
@@ -122,11 +123,30 @@ request, which must fall back to the exhaustive corpus
                route's tolerance, an unfiltered one within one packing
                quantum (a batch holding a filter scores it exactly), and
                the largest batch at C = 8 must exceed 1.
+  serve_sharded  BASELINE config 4 at its 8 shards: `number_of_shards: 8`,
+               768-d cosine `int8_ivf` rows, ~64 a cluster in each shard as
+               serve_cohere_ivf's are in its one, made on the card in
+               chunks; 1,000 docs over `_bulk`, the rest through
+               `IndexService.index_many` (each id to its murmur3 shard),
+               one refresh. The routing hash gives Murmur3HashFunctionTests'
+               values, 32 sampled ids lie in the shards the reference names
+               (written into this script), and every shard holds as many
+               docs as ids hash to it; 64 `_search {knn}` requests over
+               HTTP: recall@10 >= 0.90 against exact f32 numpy over the
+               whole corpus, routing recall >= 0.95, no shard probing more
+               than half its lists, `ivf_fused_dense/grouped` once a shard
+               a request and no other launch, `_shards.total` 8;
+               a filtered request (1/64 of the docs, on every shard) inside
+               its filter at recall@10 >= 0.95; 16 GETs by routing;
+               serve_concurrent at C = 1 and 8, one launch a shard a
+               batch. Logged beside the one-shard `int8_ivf` index of
+               serve_cohere_ivf and the card's name and power limit.
 
 `--binned-only`, `--ivf-only` and `--maxsim-only` run env, build and one
 kernel phase (no serving, no ok line): the numbers of PERF.md's
 parent-vs-change comparisons, where a parent commit's package runs this
 script too (the checks of variants it lacks are skipped).
+`--sharded-only` runs env, build and serve_sharded (no ok line).
 
 The next-to-last lines are a JSON object with every kernel's numbers and the
 card's `nvidia-smi` name and power limit; the last line is
@@ -1004,10 +1024,10 @@ class IvfBuildTimer:
 def serve_index(client, node, name, mapping, vectors, queries, metric,
                 kernel, k=10, first=2000, settings=None, warmup=False):
     """Create, bulk-load `first` docs over HTTP and check one search, load
-    the rest through `Engine.index_many`, refresh, optionally answer one
-    warm-up search, then answer every query over HTTP, then once more
-    straight through the store (no HTTP, no JSON) after the launch counts
-    were read. `kernel` is the one kernel each request must launch once,
+    the rest through `IndexService.index_many`, refresh, optionally answer
+    one warm-up search, then answer every query over HTTP, then once more
+    straight through the index's kNN store (no HTTP, no JSON) after the
+    launch counts were read. `kernel` is the one kernel each request must launch once,
     or None for a route that launches none; a binned kernel's launches
     must all take its tma variant. Returns (recall@k, HTTP p50 ms, store
     p50 ms, ingest s, launches, and the HTTP requests' hits, scores and
@@ -1038,7 +1058,7 @@ def serve_index(client, node, name, mapping, vectors, queries, metric,
 
     t0 = time.perf_counter()
     if n > first:
-        node.index(name).engine.index_many(
+        node.index(name).index_many(
             [str(i) for i in range(first, n)], vectors={field: vectors[first:]})
     client.ok("POST", f"/{name}/_refresh")
     ingest_s = time.perf_counter() - t0
@@ -1050,6 +1070,7 @@ def serve_index(client, node, name, mapping, vectors, queries, metric,
         log("warmup", index=name, seconds=f"{time.perf_counter() - t0:.3f}")
 
     store = node.index(name).store
+    multi = node.index(name).vector_store
     dispatch.reset_launches()
     stats0 = dict(store.knn_stats)
     lat, got, got_scores = [], [], []
@@ -1068,7 +1089,7 @@ def serve_index(client, node, name, mapping, vectors, queries, metric,
     store_lat = []
     for qv in queries:
         t = time.perf_counter()
-        store.search(field, qv, k)        # lands results on the host
+        multi.search(field, qv, k)        # lands results on the host
         store_lat.append((time.perf_counter() - t) * 1e3)
     want = {} if kernel is None else {kernel: len(queries)}
     if {n: c for n, c in launches.items() if c} != want:
@@ -1337,15 +1358,17 @@ def serve_concurrent(index: str, port: int, path: str, bodies, levels,
     return total
 
 
-def store_concurrent(name: str, port: int, store, queries, extra: dict,
+def store_concurrent(name: str, port: int, svc, queries, extra: dict,
                      recall: float, tol, variants) -> dict:
-    """serve_concurrent over a kNN index at C = 1, 8 and 32, then open
-    loop at 0.5 and 0.9 of the C = 32 level's QPS."""
+    """serve_concurrent over a one-shard kNN index `svc` at C = 1, 8 and
+    32, then open loop at 0.5 and 0.9 of the C = 32 level's QPS: the
+    index's batcher counters, the batches its shard store dispatches."""
     return serve_concurrent(
         name, port, f"/{name}/_search",
         [knn_body("vec", qv) for qv in queries], (1, 8, 32),
         CONCURRENT_REQUESTS, knn_against_batch1(name, extra, tol),
-        store.scheduler_stats, (store, "_dispatch_many", 3), variants,
+        svc.vector_store.scheduler_stats, (svc.store, "_dispatch_many", 3),
+        variants,
         truth=extra["truth"], recall=recall, coalesce_at=32,
         open_loop=(0.5, 0.9))
 
@@ -1380,7 +1403,7 @@ def phase_serve(seed: int, n_sift: int, n_cohere: int,
         # packing quantum of the raw score (half of it in `_score`, which
         # is (1 + cosine) / 2)
         conc = store_concurrent(
-            "sift", server.port, node.index("sift").store, queries, extra,
+            "sift", server.port, node.index("sift"), queries, extra,
             recall, lambda _: BF16_QUANTUM / 2,
             {f"{kb.KERNEL_BF16}/{kb.VARIANT_TMA}"})
         total[kb.KERNEL_BF16] += conc.get(kb.KERNEL_BF16, 0)
@@ -1542,9 +1565,10 @@ def ivf_filtered_fallback(client, node, name: str, qv: np.ndarray,
     launched = {k: c for k, c in dispatch.launches().items() if c}
     delta = {k: store.knn_stats[k] - stats0[k]
              for k in ("ivf_searches", "fallback_searches")}
-    # the same body in this thread, whose phases the store keeps for it
+    # the same body in this thread, whose phases the index keeps for it
     node.search(name, body)
-    reason = store.last_knn_phases.get("fallback_reason")
+    reason = node.index(name).vector_store.last_knn_phases.get(
+        "fallback_reason")
     if len(ids) != 10 or not keep.issuperset(ids) or launched \
             or delta != {"ivf_searches": 0, "fallback_searches": 1} \
             or reason != "filtered":
@@ -1563,8 +1587,9 @@ def drop_index(node, name: str) -> None:
 
 
 def phase_serve_ivf(seed: int, n_gist: int, n_cohere: int,
-                    device: str = "cuda") -> dict:
-    """serve_gist and serve_cohere_ivf: the tpu_ivf engine over HTTP."""
+                    device: str = "cuda", report=None) -> dict:
+    """serve_gist and serve_cohere_ivf: the tpu_ivf engine over HTTP. The
+    one-shard `int8_ivf` index's p50s and recalls go into `report`."""
     from elasticsearch_tpu_torch.ops import ivf_fused as fused
     from elasticsearch_tpu_torch.server import build_server
     node, server = build_server(device=device, port=0)
@@ -1644,13 +1669,17 @@ def phase_serve_ivf(seed: int, n_gist: int, n_cohere: int,
                     raise AssertionError(f"{name} routing recall {routing} "
                                          f"< 0.95")
             log("serve_cohere_ivf", index=otype, **fields)
+            if otype == "int8_ivf" and report is not None:
+                report.update({key: fields[key] for key in (
+                    "docs", "p50_ms", "store_p50_ms", "recall_at_10",
+                    "routing_recall_at_10")})
             if recall < gate:
                 raise AssertionError(f"{name} recall@10 {recall} < {gate}")
             if otype == "int8_ivf":
                 # concurrent clients: the grouped probe plan at Q > 1 from
                 # request traffic; scores to the fused kernel's check
                 conc = store_concurrent(
-                    name, server.port, node.index(name).store, cq, extra,
+                    name, server.port, node.index(name), cq, extra,
                     recall, lambda sc: 1e-5 * max(1.0, max(map(abs, sc))),
                     {f"{kernel}/{fused.VARIANT_GROUPED}"})
                 total[kernel] += conc.get(kernel, 0)
@@ -1751,8 +1780,9 @@ def _hybrid_body(q_emb, q_tok, source=False):
 def serve_colbert_index(client, node, name, encoding, oversample, data,
                         top, first=300, levels=()):
     """One hybrid index: create, `_bulk` `first` docs and check one search,
-    load the rest through `Engine.index_many`, refresh, one warm-up search
-    (it builds the token tile), then the timed requests over HTTP, each
+    load the rest through its one shard's `Engine.index_many` (token arrays
+    go to an engine: the routed `IndexService.index_many` takes only dense
+    vectors), refresh, one warm-up search (it builds the token tile), then the timed requests over HTTP, each
     checked against its legs and host RRF; `top` holds the oracle's top-10
     docs of each query. Then, for each C in `levels`, the concurrent
     clients of `serve_concurrent` (128 bodies a level). Returns the MaxSim
@@ -2137,7 +2167,7 @@ def phase_serve_filtered(seed: int, n: int, device: str = "cuda") -> dict:
     run's time. A cosine `flat` (bf16) index of 512-d clustered rows (as
     `bench.py` makes them) with LAION's metadata columns beside each
     vector (`laion_columns`): 2,000 docs over `_bulk`, the rest through
-    `Engine.index_many(sources=, vectors=)`.
+    `IndexService.index_many(sources=, vectors=)`.
 
     For each filter of LAION_FILTERS, 64 `_search {knn: {..., filter},
     k: 10}` requests over HTTP: recall@10 >= 0.95 against exact f32 numpy
@@ -2194,9 +2224,8 @@ def phase_serve_filtered(seed: int, n: int, device: str = "cuda") -> dict:
         t0 = time.perf_counter()
         svc = node.index("laion")
         if n > first:
-            svc.engine.index_many([str(i) for i in range(first, n)],
-                                  sources[first:],
-                                  vectors={"vec": vecs[first:]})
+            svc.index_many([str(i) for i in range(first, n)],
+                           sources[first:], vectors={"vec": vecs[first:]})
         client.ok("POST", "/laion/_refresh")
         ingest_s = time.perf_counter() - t0
         del sources
@@ -2373,7 +2402,7 @@ def phase_serve_filtered(seed: int, n: int, device: str = "cuda") -> dict:
             torch.cuda.reset_peak_memory_stats()
         conc = serve_concurrent(
             "laion", server.port, "/laion/_search", bodies, (1, 8),
-            CONCURRENT_REQUESTS, check, store.scheduler_stats,
+            CONCURRENT_REQUESTS, check, svc.vector_store.scheduler_stats,
             (store, "_dispatch_many", 3),
             {f"{kb.KERNEL_BF16}/{kb.VARIANT_TMA}"}, coalesce_at=8)
         total[kb.KERNEL_BF16] += conc.get(kb.KERNEL_BF16, 0)
@@ -2382,6 +2411,372 @@ def phase_serve_filtered(seed: int, n: int, device: str = "cuda") -> dict:
                 f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
         drop_index(node, "laion")
     finally:
+        server.stop()
+    return total
+
+
+class RunningTop:
+    """Exact f32 top-k of a query batch over row chunks seen one at a time
+    (cosine: rows and queries L2-normalized), so the recall oracle never
+    holds the whole corpus; `update(block, first_row, keep)` takes the
+    rows first_row.. of the corpus, `keep` masking rows out."""
+
+    def __init__(self, queries: np.ndarray, k: int):
+        self.q = queries / np.linalg.norm(queries, axis=1, keepdims=True)
+        self.k = k
+        self.scores = np.full((len(queries), k), -np.inf, dtype=np.float32)
+        self.rows = np.full((len(queries), k), -1, dtype=np.int64)
+
+    def update(self, block: np.ndarray, first_row: int, keep=None) -> None:
+        rows = np.arange(first_row, first_row + len(block), dtype=np.int64)
+        if keep is not None:
+            block, rows = block[keep], rows[keep]
+        if not len(rows):
+            return
+        s = self.q @ (block / np.linalg.norm(block, axis=1,
+                                             keepdims=True)).T
+        k = min(self.k, len(rows))
+        top = np.argpartition(-s, k - 1, axis=1)[:, :k]
+        s2 = np.concatenate([self.scores, np.take_along_axis(s, top, 1)], 1)
+        r2 = np.concatenate([self.rows, rows[top]], 1)
+        sel = np.argsort(-s2, axis=1, kind="stable")[:, :self.k]
+        self.scores = np.take_along_axis(s2, sel, 1)
+        self.rows = np.take_along_axis(r2, sel, 1)
+
+
+SHARDS = 8
+SHARDED_CHUNK = 1 << 18
+# Murmur3HashFunctionTests.java's known values of the routing hash
+KNOWN_MURMUR3 = {
+    "hell": 0x5A0CB7C3, "hello": 0xD7C31989, "hello w": 0x22AB2984,
+    "hello wo": 0xDF0CA123, "hello wor": 0xE7744D61,
+    "The quick brown fox jumps over the lazy dog": 0xE07DB09C,
+    "The quick brown fox jumps over the lazy cog": 0x4E63D2AD,
+}
+# the shard of 8 that the reference (`elasticsearch_tpu/cluster/routing.py`)
+# gives these `_id`s of serve_sharded's corpus and these routing values
+REF_SHARD_OF_8 = {
+    "0": 0, "1": 3, "2": 3, "3": 2, "4": 3, "5": 7, "6": 1, "7": 6, "8": 2,
+    "9": 2, "10": 7, "11": 3, "12": 6, "13": 5, "14": 2, "15": 3,
+    "1000": 3, "124457": 6, "247914": 1, "371371": 7, "494828": 0,
+    "618285": 3, "741742": 2, "865199": 5, "988656": 5, "1112113": 7,
+    "1235570": 4, "1359027": 0, "1482484": 6, "1605941": 2, "1729398": 3,
+    "1852855": 2,
+    "user0": 2, "user1": 4, "user2": 5, "user3": 4, "user4": 4,
+}
+# BASELINE config 4 is Cohere-Wiki-10M: cut to 6M for the host's memory
+# (~7.7 GB a million rows stay resident: the engine's f32 rows and the IVF
+# host mirror) and the run's time (PERF.md section 4)
+N_SHARDED = 6_000_000
+
+
+def sharded_chunks(seed: int, n: int, dev):
+    """Cohere-shaped 768-d rows, ~64 a cluster in each shard (the
+    cohere_ivf phase's shape at one shard, so ~64 * SHARDS a cluster over
+    the corpus: a shard's own top 10 then lies in the query's cluster, as
+    at one shard), made on `dev` from `seed` and yielded to the host as
+    (first row, [m, 768] block) chunks of SHARDED_CHUNK rows, so no copy
+    of the whole corpus is ever held beside the index."""
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    n_centers = max(n // (64 * SHARDS), 1)
+    centers = torch.randn(n_centers, 768, generator=g, device=dev) * 2.0
+    for lo in range(0, n, SHARDED_CHUNK):
+        m = min(SHARDED_CHUNK, n - lo)
+        assign = torch.randint(0, n_centers, (m,), generator=g, device=dev)
+        yield lo, (centers[assign] + torch.randn(
+            m, 768, generator=g, device=dev)).cpu().numpy()
+
+
+def sharded_grp(i: np.ndarray) -> list:
+    """The filter column: `grp: a` on every 64th doc, `b` 32 docs later,
+    no field elsewhere."""
+    return [{"grp": "a"} if j % 64 == 0 else {"grp": "b"} if j % 64 == 32
+            else None for j in i.tolist()]
+
+
+def phase_serve_sharded(seed: int, n: int, device: str = "cuda",
+                        smi: str = "", one_shard=None) -> dict:
+    """serve_sharded: BASELINE config 4 (Cohere-Wiki 768-d, int8 quantized
+    kNN, 8 shards), cut from 10M to `n` rows (N_SHARDED). An
+    8-shard `int8_ivf` index on the card: 1,000 docs over `_bulk`, the
+    rest through `IndexService.index_many` (each id to its shard by
+    murmur3, as `_bulk` routes it), one refresh. Gates: the routing hash
+    gives KNOWN_MURMUR3, the ids of REF_SHARD_OF_8 lie in the reference's
+    shards, every shard holds as many docs as ids hash to it; 64
+    sequential `_search {knn}` requests over HTTP reach recall@10 >= 0.90
+    against exact f32 numpy over the whole corpus and routing recall >=
+    0.95 (against every shard probed in full), no shard's tuned nprobe
+    above half its nlist (else the cell measures a scan), each launching `ivf_fused_dense/grouped` once a shard and no
+    other kernel, with `_shards.total` 8; a filtered request (`grp: a`,
+    1/64 of the docs, on every shard) keeps its hits inside the filter at
+    recall@10 >= 0.95 against exact f32 over the passing rows; 16
+    `GET _doc/{id}?routing=` find documents indexed with that routing;
+    closed-loop clients at C = 1 and 8 get their batch-1 answers (ties
+    counted), no 429 and no error, one launch a shard a batch. Logs
+    ingest, HTTP and store p50, QPS and p99 a level, each shard's router
+    phases and launches a request, beside the one-shard `int8_ivf` index
+    of serve_cohere_ivf (`one_shard`) and the card. Returns the launches."""
+    from elasticsearch_tpu_torch.cluster.routing import (
+        hash_routing, shard_ids_for)
+    from elasticsearch_tpu_torch.ops import dispatch
+    from elasticsearch_tpu_torch.ops import ivf_fused as fused
+    from elasticsearch_tpu_torch.server import build_server
+    dev = torch.device(device)
+    name, kernel = "cohere8", fused.KERNEL_DENSE
+    card = json.dumps(smi)
+    node, server = build_server(device=device, port=0)
+    server.start()
+    timer = IvfBuildTimer()
+    total = {kernel: 0}
+    try:
+        client = Client(server.port)
+        client.ok("PUT", f"/{name}", {
+            "settings": {"number_of_shards": SHARDS,
+                         "index.knn.engine": "tpu_ivf"},
+            "mappings": {"_source": {"enabled": False}, "properties": {
+                "vec": {"type": "dense_vector", "dims": 768,
+                        "similarity": "cosine",
+                        "index_options": {"type": "int8_ivf"}},
+                "grp": {"type": "keyword"}}}})
+        svc = node.index(name)
+        first = min(1000, n)
+        clock = {"data": 0.0, "truth": 0.0, "ingest": 0.0}
+        oracle = {}
+
+        def on_chunk(lo, block):
+            t = time.perf_counter()
+            ids = np.arange(lo, lo + len(block))
+            oracle["all"].update(block, lo)
+            oracle["grp_a"].update(block, lo, ids % 64 == 0)
+            clock["truth"] += time.perf_counter() - t
+            t = time.perf_counter()
+            cut = max(first - lo, 0)
+            if cut:
+                ops = []
+                for i, src in zip(range(lo, lo + cut),
+                                  sharded_grp(ids[:cut])):
+                    ops += [{"index": {"_id": str(i)}},
+                            dict(src or {}, vec=block[i - lo].tolist())]
+                if client.ok("POST", f"/{name}/_bulk", ops,
+                              ndjson=True)["errors"]:
+                    raise AssertionError("serve_sharded: bulk errors")
+                client.ok("POST", f"/{name}/_refresh")
+            if len(block) > cut:
+                svc.index_many([str(i) for i in ids[cut:].tolist()],
+                               sources=sharded_grp(ids[cut:]),
+                               vectors={"vec": block[cut:]})
+            clock["ingest"] += time.perf_counter() - t
+
+        # the 64 queries: rows of the first chunk (random draws like any
+        # others) plus 0.3 noise; the oracles then see every chunk
+        chunks = sharded_chunks(seed, n, dev)
+        t0 = time.perf_counter()
+        lo, block = next(chunks)
+        rng = np.random.default_rng(seed + 5)
+        queries = block[rng.integers(0, len(block), 64)] \
+            + 0.3 * rng.standard_normal((64, 768), dtype=np.float32)
+        oracle["all"] = RunningTop(queries, 10)
+        oracle["grp_a"] = RunningTop(queries[:1], 10)
+        while block is not None:
+            clock["data"] += time.perf_counter() - t0
+            on_chunk(lo, block)
+            t0 = time.perf_counter()
+            lo, block = next(chunks, (None, None))
+        del block
+        t = time.perf_counter()
+        client.ok("POST", f"/{name}/_refresh")
+        clock["ingest"] += time.perf_counter() - t
+        truth, truth_a = oracle["all"].rows, oracle["grp_a"].rows[0]
+
+        # routing: the port's murmur3 gives Murmur3HashFunctionTests' values;
+        # each sampled id lies in the shard the reference names, and in no
+        # other; each shard holds as many docs as ids hash to it
+        hashes = {t: hash_routing(t) & 0xFFFFFFFF for t in KNOWN_MURMUR3}
+        if hashes != KNOWN_MURMUR3:
+            raise AssertionError(f"serve_sharded murmur3 {hashes}")
+        for doc_id, want_shard in REF_SHARD_OF_8.items():
+            held = [s.shard_id for s in svc.shards
+                    if doc_id in s.engine.version_map]
+            if doc_id.isdigit() and int(doc_id) < n and held != [want_shard]:
+                raise AssertionError(f"serve_sharded: doc {doc_id} in "
+                                     f"shards {held}, the reference's is "
+                                     f"{want_shard}")
+        want = np.bincount(shard_ids_for([str(i) for i in range(n)],
+                                         SHARDS), minlength=SHARDS)
+        got = [s.engine.acquire_searcher().num_docs for s in svc.shards]
+        if got != want.tolist():
+            raise AssertionError(f"serve_sharded: shard doc counts {got}, "
+                                 f"murmur3 gives {want.tolist()}")
+        t = time.perf_counter()
+        client.ok("POST", f"/{name}/_search", knn_body("vec", queries[0]))
+        warmup_s = time.perf_counter() - t
+
+        stores = [s.vector_store for s in svc.shards]
+        stats0 = [dict(st.knn_stats) for st in stores]
+        dispatch.reset_launches()
+        lat, hits, scores = [], [], []
+        for qv in queries:
+            t = time.perf_counter()
+            resp = client.ok("POST", f"/{name}/_search", knn_body("vec", qv))
+            lat.append((time.perf_counter() - t) * 1e3)
+            if resp["_shards"]["total"] != SHARDS \
+                    or resp["_shards"]["successful"] != SHARDS:
+                raise AssertionError(f"serve_sharded _shards "
+                                     f"{resp['_shards']}")
+            ids, sc = _hits(resp)
+            if len(ids) != 10 or not all(map(np.isfinite, sc)):
+                raise AssertionError(f"serve_sharded bad hits {resp['hits']}")
+            hits.append(ids)
+            scores.append(sc)
+        launches = {k: c for k, c in dispatch.launches().items() if c}
+        variants = {k: c for k, c in dispatch.variant_launches().items()
+                    if c}
+        want_launches = len(queries) * SHARDS
+        if launches != {kernel: want_launches} or variants != {
+                f"{kernel}/{fused.VARIANT_GROUPED}": want_launches}:
+            raise AssertionError(f"serve_sharded launches {launches} "
+                                 f"{variants}; expected {want_launches} "
+                                 f"grouped {kernel}")
+        total[kernel] += want_launches
+        deltas = [{k: st.knn_stats[k] - s0[k] for k in s0}
+                  for st, s0 in zip(stores, stats0)]
+        for d in deltas:
+            if (d["ivf_searches"], d["fallback_searches"],
+                    d["fused_probe_searches"]) != (64, 0, 64):
+                raise AssertionError(f"serve_sharded shard stats {d}")
+        recall = float(np.mean([len(set(h) & set(t.tolist())) / 10
+                                for h, t in zip(hits, truth)]))
+
+        # routing recall: the tuned probing against every shard probed in
+        # full, merged across shards
+        reader = svc.combined_reader()
+        from elasticsearch_tpu_torch.indices.service import SHARD_ROW_SPACE
+        full_s, full_r = [], []
+        for shard, st in zip(svc.shards, stores):
+            fc = st.field("vec")
+            sc, rows, _ = fc.router.search(queries, 10,
+                                           nprobe=fc.router.index.nlist)
+            valid = rows >= 0
+            g = np.where(valid, fc.row_map[np.where(valid, rows, 0)]
+                         + shard.shard_id * SHARD_ROW_SPACE, -1)
+            full_s.append(np.where(valid, sc, -np.inf))
+            full_r.append(g)
+        full_s, full_r = np.concatenate(full_s, 1), np.concatenate(full_r, 1)
+        order = np.argsort(-full_s, axis=1, kind="stable")[:, :10]
+        full = [{int(reader.get_id(int(r))) for r in row if r >= 0}
+                for row in np.take_along_axis(full_r, order, 1)]
+        routing_recall = float(np.mean([len(set(h) & f) / 10
+                                        for h, f in zip(hits, full)]))
+
+        # the tuned probe count of each shard: a shard probing more than
+        # half its lists is close to a scan, and the cell would not measure
+        # IVF over shards
+        nprobes = [st.field("vec").router.effective_nprobe(10)
+                   for st in stores]
+        nlists = [st.field("vec").router.index.nlist for st in stores]
+        multi = svc.vector_store
+        store_lat = []
+        for qv in queries:
+            t = time.perf_counter()
+            multi.search("vec", qv, 10)
+            store_lat.append((time.perf_counter() - t) * 1e3)
+        fc0 = stores[0].field("vec")
+        fields = dict(
+            docs=n, shards=SHARDS, dims=768, requests=len(queries),
+            shard_docs=json.dumps(got), nlist=json.dumps(
+                [st.field("vec").router.index.nlist for st in stores]),
+            nprobe=json.dumps(nprobes),
+            cap=fc0.router.index.cap,
+            data_s=f"{clock['data']:.2f}", truth_s=f"{clock['truth']:.2f}",
+            ingest_s=f"{clock['ingest']:.2f}",
+            ingest_s_per_million=f"{clock['ingest'] / n * 1e6:.2f}",
+            ivf_train_s=f"{timer.seconds['train']:.2f}",
+            ivf_place_s=f"{timer.seconds['place']:.2f}",
+            ivf_upload_s=f"{timer.seconds['upload']:.2f}",
+            warmup_s=f"{warmup_s:.3f}",
+            p50_ms=f"{statistics.median(lat):.3f}",
+            store_p50_ms=f"{statistics.median(store_lat):.3f}",
+            recall_at_10=recall, routing_recall_at_10=routing_recall,
+            launches_per_request=want_launches / len(queries),
+            launches=json.dumps(launches))
+        # each shard's router phases (after a device sync each), a request
+        for phase in ("route", "score", "merge"):
+            fields[f"shard_{phase}_ms"] = json.dumps(
+                [round(d[f"{phase}_nanos"] / 64 / 1e6, 4) for d in deltas])
+        if dev.type == "cuda":
+            fields["device_peak_gb"] = \
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        fields["host_peak_rss_gb"] = (f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.2f}")
+        for key, v in (one_shard or {}).items():
+            fields[f"one_shard_{key}"] = v
+        log("serve_sharded", **fields, card=card)
+        if recall < 0.90 or routing_recall < 0.95:
+            raise AssertionError(f"serve_sharded recall@10 {recall} (gate "
+                                 f"0.90), routing {routing_recall} (0.95)")
+        if any(2 * p > nl for p, nl in zip(nprobes, nlists)):
+            raise AssertionError(f"serve_sharded nprobe {nprobes} of nlist "
+                                 f"{nlists}: a shard scans over half its "
+                                 f"lists")
+
+        # one filtered request: grp a passes rows on every shard
+        body = {"knn": {"field": "vec", "query_vector": queries[0].tolist(),
+                        "k": 10, "num_candidates": 100,
+                        "filter": {"term": {"grp": "a"}}}, "size": 10}
+        dispatch.reset_launches()
+        t = time.perf_counter()
+        ids, _ = _hits(client.ok("POST", f"/{name}/_search", body))
+        filtered_ms = (time.perf_counter() - t) * 1e3
+        launched = {k: c for k, c in dispatch.launches().items() if c}
+        node.search(name, body)     # this thread's phases, shard by shard
+        reasons = {st.last_knn_phases.get("fallback_reason")
+                   for st in stores}
+        f_recall = len(set(ids) & set(truth_a.tolist())) / 10
+        log("serve_sharded", filtered_request_ms=f"{filtered_ms:.3f}",
+            filter_rows=len(range(0, n, 64)), recall_at_10=f_recall,
+            fallback_reasons=json.dumps(sorted(map(str, reasons))),
+            card=card)
+        if len(ids) != 10 or any(i % 64 for i in ids) or f_recall < 0.95 \
+                or launched or reasons != {"filtered"}:
+            raise AssertionError(f"serve_sharded filtered: hits {ids}, "
+                                 f"recall {f_recall}, launches {launched}, "
+                                 f"fallback {reasons}")
+
+        # GET by routing: documents indexed with a routing value
+        for j in range(16):
+            route = f"user{j % 5}"
+            client.ok("PUT", f"/{name}/_doc/routed{j}?routing={route}",
+                      {"grp": "routed"})
+            doc = client.ok("GET", f"/{name}/_doc/routed{j}?routing={route}")
+            shard = svc.shards[REF_SHARD_OF_8[route]]
+            if not doc["found"] or doc.get("_routing") != route \
+                    or f"routed{j}" not in shard.engine.version_map:
+                raise AssertionError(f"serve_sharded GET routed{j}: {doc}")
+        log("serve_sharded", get_by_routing=16, card=card)
+
+        # concurrent clients: the index's batcher coalesces them, one
+        # launch a shard a batch
+        extra = {"hits": hits, "scores": scores, "truth": truth}
+        before = multi.scheduler_stats()
+        conc = serve_concurrent(
+            name, server.port, f"/{name}/_search",
+            [knn_body("vec", qv) for qv in queries], (1, 8),
+            CONCURRENT_REQUESTS, knn_against_batch1(
+                name, extra, lambda sc: 1e-5 * max(1.0, max(map(abs, sc)))),
+            multi.scheduler_stats, (multi, "_dispatch_batch", 0),
+            {f"{kernel}/{fused.VARIANT_GROUPED}"}, truth=truth,
+            recall=recall)
+        batches = multi.scheduler_stats()["batches"] - before.get(
+            "batches", 0)
+        if conc.get(kernel, 0) != SHARDS * batches:
+            raise AssertionError(f"serve_sharded concurrent: {conc} "
+                                 f"launches for {batches} batches of "
+                                 f"{SHARDS} shards")
+        total[kernel] += conc.get(kernel, 0)
+        log("serve_sharded", concurrent_batches=batches,
+            launches_per_batch=SHARDS, card=card)
+        drop_index(node, name)
+    finally:
+        timer.close()
         server.stop()
     return total
 
@@ -2395,6 +2790,7 @@ def main(argv=None) -> int:
     ap.add_argument("--n-cohere-ivf", type=int, default=1_000_000)
     ap.add_argument("--n-colbert", type=int, default=131_071)
     ap.add_argument("--n-laion", type=int, default=1_000_000)
+    ap.add_argument("--n-sharded", type=int, default=N_SHARDED)
     ap.add_argument("--binned-only", action="store_true",
                     help="build and measure only the binned kernels (no "
                          "serving phases, no final ok line): the numbers "
@@ -2405,6 +2801,10 @@ def main(argv=None) -> int:
     ap.add_argument("--maxsim-only", action="store_true",
                     help="build and measure only the MaxSim kernels, "
                          "likewise")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="build and run only serve_sharded (no final ok "
+                         "line): its ingest, memory and latency at "
+                         "--n-sharded rows")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2425,14 +2825,20 @@ def main(argv=None) -> int:
             print(smi)
             return 0
     phase_build()
+    if args.sharded_only:
+        phase_serve_sharded(args.seed, args.n_sharded, smi=smi)
+        return 0
     kernels = phase_binned_kernels(args.seed, torch.device("cuda"))
     kernels.update(phase_ivf_kernels(args.seed, torch.device("cuda")))
     kernels.update(phase_maxsim_kernels(args.seed, torch.device("cuda")))
     launches = phase_serve(args.seed, args.n_sift, args.n_cohere)
+    one_shard = {}
     launches.update(phase_serve_ivf(args.seed, args.n_gist,
-                                    args.n_cohere_ivf))
+                                    args.n_cohere_ivf, report=one_shard))
     for phase in (phase_serve_colbert(args.seed, args.n_colbert),
-                  phase_serve_filtered(args.seed, args.n_laion)):
+                  phase_serve_filtered(args.seed, args.n_laion),
+                  phase_serve_sharded(args.seed, args.n_sharded, smi=smi,
+                                      one_shard=one_shard)):
         for name, count in phase.items():
             launches[name] = launches.get(name, 0) + count
     for name, entry in kernels.items():

@@ -7,7 +7,11 @@ listeners (the vector store syncs there). Vectors travel as numpy blocks:
 `index_many` takes a whole batch, optionally with its vectors as one
 [n, dims] array per field, which is how a million-document shard loads.
 Keyword, numeric and boolean values are parsed from each `_source`; the
-seal builds their postings and doc-values columns with numpy.
+seal builds their postings and doc-values columns with numpy. A document's
+`_source` is kept as it was sent; vectors given as arrays (a numpy row in
+a source, or `vectors=` / `token_vectors=`) have no JSON to keep and are
+rendered from their blocks. A document's routing value, when it has one,
+is kept beside its `_id`.
 
 This slice has no translog and no flush: nothing survives the process.
 """
@@ -53,6 +57,7 @@ class _Buffer:
         self.base = base
         self.ids: List[str] = []
         self.sources: List[Optional[dict]] = []
+        self.routings: List[Optional[str]] = []
         # field -> [(local rows [m], vectors [m, d])]
         self.blocks: Dict[str, list] = {}
         # field -> [(local rows [m], tokens [T, d], counts [m] >= 1)]
@@ -61,12 +66,14 @@ class _Buffer:
         self.terms: Dict[str, Tuple[list, list]] = {}
         self.doc_values: Dict[str, Tuple[list, list]] = {}
 
-    def add(self, ids, sources, vectors, tokens, terms, doc_values) -> int:
+    def add(self, ids, sources, routings, vectors, tokens, terms,
+            doc_values) -> int:
         """Append a batch. `terms` and `doc_values` map a field to
         (batch positions, values), one entry a term or a doc value."""
         start = len(self.ids)
         self.ids.extend(ids)
         self.sources.extend(sources)
+        self.routings.extend(routings)
         locals_ = np.arange(start, start + len(ids), dtype=np.int64)
         for field, (mask, block) in vectors.items():
             self.blocks.setdefault(field, []).append(
@@ -85,11 +92,15 @@ class _Buffer:
     def source(self, local: int) -> dict:
         src = dict(self.sources[local] or {})
         for field, parts in self.blocks.items():
+            if field in src:
+                continue
             for rows, block in parts:
                 hit = np.nonzero(rows == local)[0]
                 if len(hit):
                     src[field] = block[hit[0]].tolist()
         for field, parts in self.token_blocks.items():
+            if field in src:
+                continue
             for rows, toks, counts in parts:
                 hit = np.nonzero(rows == local)[0]
                 if len(hit):
@@ -131,8 +142,10 @@ class _Buffer:
                     for f, (docs, terms) in self.terms.items()}
         doc_values = {f: DocValuesColumn.build(n, np.asarray(docs), vals)
                       for f, (docs, vals) in self.doc_values.items()}
+        routings = (self.routings if any(r is not None for r in self.routings)
+                    else None)
         return Segment(self.seg_id, self.base, self.ids, self.sources, vectors,
-                       self._seal_tokens(n), postings, doc_values)
+                       self._seal_tokens(n), postings, doc_values, routings)
 
 
 class Engine:
@@ -150,26 +163,30 @@ class Engine:
         self._refresh_listeners: List[Callable[[ShardReader], None]] = []
 
     # ---------------------------------------------------------------- writes
-    def index(self, doc_id: str, source: dict,
-              op_type: str = "index") -> EngineResult:
-        return self.index_many([doc_id], [source], op_type=op_type)[0]
+    def index(self, doc_id: str, source: dict, op_type: str = "index",
+              routing: Optional[str] = None) -> EngineResult:
+        return self.index_many([doc_id], [source], op_type=op_type,
+                               routings=[routing])[0]
 
     def index_many(self, ids: List[str], sources: Optional[List[dict]] = None,
                    vectors: Optional[Dict[str, np.ndarray]] = None,
                    token_vectors: Optional[Dict[str, tuple]] = None,
-                   op_type: str = "index") -> List[EngineResult]:
+                   op_type: str = "index",
+                   routings: Optional[List[Optional[str]]] = None
+                   ) -> List[EngineResult]:
         """Index a batch. `sources[i]` is document i's `_source` (dense_vector
         values may be lists or numpy rows, rank_vectors values lists of
         token vectors); `vectors` may instead supply a field's values for
         the whole batch as one [n, dims] array, and `token_vectors` a
         rank_vectors field's as (tokens [T, dims], counts [n]): document i
         owns the next counts[i] rows, and a count of 0 leaves the document
-        without the field. The batch is validated before any document is
-        applied."""
+        without the field. `routings[i]` is document i's routing value (or
+        None). The batch is validated before any document is applied."""
         n = len(ids)
         sources = [None] * n if sources is None else list(sources)
-        if len(sources) != n:
-            raise ValueError("ids and sources differ in length")
+        routings = [None] * n if routings is None else list(routings)
+        if len(sources) != n or len(routings) != n:
+            raise ValueError("ids, sources and routings differ in length")
         mappers = self.mapper_service.vector_fields()
         token_mappers = self.mapper_service.token_fields()
         token_columns = {f: self._token_column(f, token_mappers, value, n)
@@ -211,8 +228,11 @@ class Engine:
                 pos, vals = doc_values.setdefault(field, ([], []))
                 pos.append(i)
                 vals.append(dv)
+            # the source as sent; a vector given as an array has no JSON
+            # form, and renders from its block
             stored.append({k: v for k, v in src.items()
-                           if k not in mappers and k not in token_mappers})
+                           if not (isinstance(v, np.ndarray)
+                                   and (k in mappers or k in token_mappers))})
         for field, items in per_field.items():
             if not items:
                 continue
@@ -236,8 +256,8 @@ class Engine:
             if self._buffer is None:
                 self._buffer = _Buffer(self._next_seg_id, self._next_row)
                 self._next_seg_id += 1
-            start = self._buffer.add(list(ids), stored, columns, token_columns,
-                                     terms, doc_values)
+            start = self._buffer.add(list(ids), stored, routings, columns,
+                                     token_columns, terms, doc_values)
             self._next_row += n
             out = []
             for i, doc_id in enumerate(ids):
@@ -299,11 +319,16 @@ class Engine:
             buf = self._buffer
             if buf is not None and vv.row >= buf.base:
                 src = buf.source(vv.row - buf.base)
+                routing = buf.routings[vv.row - buf.base]
             else:
-                src = ShardReader([SegmentView(s) for s in self.segments]) \
-                    .get_source(vv.row)
-            return {"_version": vv.version, "_seq_no": vv.seq_no,
-                    "_primary_term": PRIMARY_TERM, "_source": src}
+                sealed = ShardReader([SegmentView(s) for s in self.segments])
+                src = sealed.get_source(vv.row)
+                routing = sealed.get_routing(vv.row)
+            out = {"_version": vv.version, "_seq_no": vv.seq_no,
+                   "_primary_term": PRIMARY_TERM, "_source": src}
+            if routing is not None:
+                out["_routing"] = routing
+            return out
 
     def refresh(self) -> ShardReader:
         """Seal the indexing buffer; make recent writes searchable."""

@@ -370,9 +370,18 @@ class MapperService:
             mapper = self._mappers.get(field)
             if mapper is None or value is None:
                 continue
-            if isinstance(mapper, (DenseVectorFieldMapper,
-                                   RankVectorsFieldMapper)):
+            if isinstance(mapper, DenseVectorFieldMapper):
                 parsed.vectors[field] = mapper.coerce(value)
+                continue
+            if isinstance(mapper, RankVectorsFieldMapper):
+                # multi-valued, as the reference's DocumentParser reads it:
+                # each element is one token row ([] indexes no token)
+                rows = [mapper.coerce(v) for v in
+                        (value if isinstance(value, list) else [value])
+                        if v is not None]
+                if rows:
+                    parsed.vectors[field] = (rows[0] if len(rows) == 1
+                                             else np.concatenate(rows))
                 continue
             for v in (value if isinstance(value, list) else [value]):
                 if v is not None:

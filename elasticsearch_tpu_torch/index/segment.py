@@ -1,14 +1,18 @@
 """Sealed segments and point-in-time readers (port of the kNN and filter
 slice of `elasticsearch_tpu/index/segment.py`).
 
-A segment holds its documents' `_id`s, their stored `_source` (without the
-dense_vector and rank_vectors values), one contiguous [num_docs, dims] f32
+A segment holds its documents' `_id`s, their stored `_source` (as sent,
+less the vectors given as arrays), one contiguous [num_docs, dims] f32
 block per vector field with a presence mask — the shape the device corpus
 ingests at refresh — and, per `rank_vectors` field, one ragged f32
 [total_tokens, dims] token matrix with per-doc offsets and presence.
-Vectors stay numpy blocks: a million 768-d vectors (or ten million tokens)
-as Python float lists in `_source` would take tens of GB of host memory, so
-`_source` is re-assembled from the blocks when a hit or a GET renders it.
+Vectors loaded as arrays stay numpy blocks: a million 768-d vectors (or
+ten million tokens) as Python float lists in `_source` would take tens of
+GB of host memory, so such a document's `_source` renders them from the
+blocks when a hit or a GET reads it.
+
+Rows are int64 throughout: a multi-shard index's combined reader rebases
+each shard's segments by shard_id * 2^40 (`indices/service.py`).
 
 Keyword, numeric and boolean fields keep term postings (ascending local
 doc ids and term frequencies) and a doc-values column (the values, and
@@ -125,7 +129,7 @@ class Segment:
     """Immutable sealed segment."""
 
     __slots__ = ("seg_id", "base", "num_docs", "ids", "sources", "vectors",
-                 "tokens", "postings", "doc_values")
+                 "tokens", "postings", "doc_values", "routings")
 
     def __init__(self, seg_id: int, base: int, ids: List[str],
                  sources: List[Optional[dict]],
@@ -133,18 +137,21 @@ class Segment:
                  tokens: Optional[Dict[str, Tuple[np.ndarray, np.ndarray,
                                                   np.ndarray]]] = None,
                  postings: Optional[Dict[str, FieldPostings]] = None,
-                 doc_values: Optional[Dict[str, DocValuesColumn]] = None):
+                 doc_values: Optional[Dict[str, DocValuesColumn]] = None,
+                 routings: Optional[List[Optional[str]]] = None):
         self.seg_id = seg_id
         self.base = base                # global row id of local doc 0
         self.num_docs = len(ids)
         self.ids = ids                  # local doc -> _id
-        self.sources = sources          # local doc -> source minus vectors
+        self.sources = sources          # local doc -> source minus array vectors
         self.vectors = vectors          # field -> (matrix [n,d] f32, present bool[n])
         # field -> (tokens [T, d] f32, offsets [n+1] int64, present bool[n]):
         # doc i's tokens are rows offsets[i]:offsets[i+1]
         self.tokens = tokens or {}
         self.postings = postings or {}        # field -> FieldPostings
         self.doc_values = doc_values or {}    # field -> DocValuesColumn
+        # local doc -> its routing value; None when no doc has one
+        self.routings = routings
 
     def get_postings(self, field: str, term: str) -> Optional[Postings]:
         f = self.postings.get(field)
@@ -153,10 +160,10 @@ class Segment:
     def source(self, local: int) -> dict:
         src = dict(self.sources[local] or {})
         for field, (mat, present) in self.vectors.items():
-            if present[local]:
+            if present[local] and field not in src:
                 src[field] = mat[local].tolist()
         for field, (toks, offsets, present) in self.tokens.items():
-            if present[local]:
+            if present[local] and field not in src:
                 src[field] = toks[offsets[local]:offsets[local + 1]].tolist()
         return src
 
@@ -198,6 +205,10 @@ class ShardReader:
     def get_source(self, row: int) -> dict:
         seg, local = self._locate(row)
         return seg.source(local)
+
+    def get_routing(self, row: int) -> Optional[str]:
+        seg, local = self._locate(row)
+        return None if seg.routings is None else seg.routings[local]
 
     def live_global_rows(self) -> np.ndarray:
         """Every live document's global row, ascending."""

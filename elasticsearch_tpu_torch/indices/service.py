@@ -1,0 +1,220 @@
+"""The index service: one index's mapping and shards (port of the shard
+holding part of `elasticsearch_tpu/indices/service.py`).
+
+An index has `index.number_of_shards` shards (1 to 1024) on the one card.
+Each shard owns an `Engine` and a `VectorStoreShard`, synced at every
+refresh of its engine. A document goes to shard `murmur3(routing or _id)
+floorMod number_of_shards` (`cluster/routing.py`). A search reads one
+combined reader whose rows are rebased by shard: shard s owns the rows
+[s * SHARD_ROW_SPACE, (s + 1) * SHARD_ROW_SPACE), so a row names its shard
+and its row in that shard's engine.
+
+Left out, as ROADMAP.md lists: aliases, close / open, settings updates,
+templates, and the shard-failure retry (`exclude_shards`).
+"""
+
+from __future__ import annotations
+
+import copy
+import uuid
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from elasticsearch_tpu_torch.cluster.routing import shard_id_for, shard_ids_for
+from elasticsearch_tpu_torch.common.errors import IllegalArgumentError
+from elasticsearch_tpu_torch.index.engine import Engine, EngineResult
+from elasticsearch_tpu_torch.index.mapping import MapperService
+from elasticsearch_tpu_torch.index.segment import SegmentView, ShardReader
+from elasticsearch_tpu_torch.vectors.store import VectorStoreShard
+
+# Rebased multi-shard row space: shard s contributes rows in
+# [s * SHARD_ROW_SPACE, (s+1) * SHARD_ROW_SPACE).
+SHARD_ROW_SPACE = 1 << 40
+MAX_SHARDS = 1024
+
+
+def flat_settings(settings: Optional[dict]) -> Dict[str, object]:
+    """Index settings as one flat dict under the `index.` namespace, as the
+    reference normalizes them: bodies mix bare keys (`knn.engine`), dotted
+    keys (`index.knn.engine`) and nested objects (`{"index": {"knn": ...}}`)
+    freely."""
+    flat: Dict[str, object] = {}
+
+    def put(prefix: str, obj: dict) -> None:
+        for k, v in obj.items():
+            if isinstance(v, dict):
+                put(f"{prefix}{k}.", v)
+            else:
+                flat[f"{prefix}{k}"] = v
+
+    for k, v in (settings or {}).items():
+        if k == "index" and isinstance(v, dict):
+            put("index.", v)
+        elif k.startswith("index."):
+            put("", {k: v})
+        else:
+            put("index.", {k: v})
+    return flat
+
+
+def validate_knn_settings(settings: Dict[str, object]):
+    """Validate + normalize the flat `index.knn.*` engine settings; returns
+    (engine, nlist, nprobe), with the reference's 400 errors."""
+    engine = str(settings.get("index.knn.engine", "tpu"))
+    if engine not in ("tpu", "tpu_ivf"):
+        raise IllegalArgumentError(
+            f"unknown [index.knn.engine] value [{engine}]; "
+            f"expected one of [tpu, tpu_ivf]")
+    nlist = settings.get("index.knn.nlist")
+    if nlist is not None:
+        try:
+            nlist = int(nlist)
+        except (TypeError, ValueError):
+            nlist = 0
+        if nlist < 1:
+            raise IllegalArgumentError(
+                f"[index.knn.nlist] must be an integer >= 1, got "
+                f"[{settings.get('index.knn.nlist')}]")
+    nprobe = settings.get("index.knn.nprobe", "auto")
+    if nprobe != "auto":
+        try:
+            nprobe = int(nprobe)
+        except (TypeError, ValueError):
+            nprobe = 0
+        if nprobe < 1:
+            raise IllegalArgumentError(
+                f"[index.knn.nprobe] must be an integer >= 1 or "
+                f"\"auto\", got [{settings.get('index.knn.nprobe')}]")
+    return engine, nlist, nprobe
+
+
+class IndexShardHandle:
+    """One shard: its engine and its device vector store, which syncs from
+    every reader the engine's refresh makes."""
+
+    def __init__(self, shard_id: int, mapper_service: MapperService, device,
+                 knn_engine: str = "tpu", knn_nlist=None, knn_nprobe="auto"):
+        self.shard_id = shard_id
+        self.mapper_service = mapper_service
+        self.engine = Engine(mapper_service)
+        self.vector_store = VectorStoreShard(
+            device=device, knn_engine=knn_engine, knn_nlist=knn_nlist,
+            knn_nprobe=knn_nprobe)
+        self.engine.add_refresh_listener(self._sync_vectors)
+
+    def _sync_vectors(self, reader: ShardReader) -> None:
+        self.vector_store.sync(reader, self.mapper_service.vector_fields())
+
+
+class IndexService:
+    """One index: mapping, settings and `number_of_shards` shards."""
+
+    def __init__(self, name: str, mapping: Optional[dict], device,
+                 settings: Optional[Dict[str, object]] = None):
+        self.name = name
+        self.settings = dict(settings or {})   # flat `index.*` settings
+        self.uuid = uuid.uuid4().hex[:22]
+        self.num_shards = int(self.settings.get("index.number_of_shards", 1))
+        if not 1 <= self.num_shards <= MAX_SHARDS:
+            raise IllegalArgumentError(
+                f"index [{name}]: number_of_shards must be in "
+                f"[1, {MAX_SHARDS}], got {self.num_shards}")
+        knn_engine, knn_nlist, knn_nprobe = validate_knn_settings(
+            self.settings)
+        self.mapper_service = MapperService(mapping)
+        self.shards: List[IndexShardHandle] = [
+            IndexShardHandle(s, self.mapper_service, device,
+                             knn_engine=knn_engine, knn_nlist=knn_nlist,
+                             knn_nprobe=knn_nprobe)
+            for s in range(self.num_shards)]
+        self._combined = None    # (shard readers, their combined reader)
+        # the index's scatter-gather kNN store over its shards (the node's
+        # `_MultiShardVectorStore`, set when the node creates the index)
+        self.vector_store = None
+
+    def _single(self) -> IndexShardHandle:
+        if self.num_shards != 1:
+            raise ValueError(
+                f"index [{self.name}] has {self.num_shards} shards; "
+                f"address one through [shards]")
+        return self.shards[0]
+
+    @property
+    def engine(self) -> Engine:
+        """The engine of a single-shard index."""
+        return self._single().engine
+
+    @property
+    def store(self) -> VectorStoreShard:
+        """The vector store of a single-shard index."""
+        return self._single().vector_store
+
+    def route(self, doc_id: str,
+              routing: Optional[str] = None) -> IndexShardHandle:
+        key = routing if routing is not None else doc_id
+        return self.shards[shard_id_for(key, self.num_shards)]
+
+    def index_many(self, ids: List[str], sources=None,
+                   vectors=None) -> List[EngineResult]:
+        """`Engine.index_many` over the shards: each document goes to the
+        shard its `_id` hashes to, as `_bulk` sends it, with its rows of
+        `vectors` ([n, dims] arrays). Results come back in the batch's
+        order."""
+        ids = list(ids)
+        sources = None if sources is None else list(sources)
+        target = shard_ids_for(ids, self.num_shards)
+        out: List[Optional[EngineResult]] = [None] * len(ids)
+        for s in np.unique(target).tolist():
+            pos = np.nonzero(target == s)[0]
+            whole = len(pos) == len(ids)
+            at = pos.tolist()
+            res = self.shards[s].engine.index_many(
+                ids if whole else [ids[i] for i in at],
+                sources=sources if sources is None or whole
+                else [sources[i] for i in at],
+                vectors=None if vectors is None else {
+                    f: block if whole else block[pos]
+                    for f, block in vectors.items()})
+            for i, r in zip(at, res):
+                out[i] = r
+        return out
+
+    def refresh(self) -> None:
+        for s in self.shards:
+            s.engine.refresh()
+
+    def doc_count(self) -> int:
+        return sum(s.engine.acquire_searcher().num_docs for s in self.shards)
+
+    def combined_reader(self) -> ShardReader:
+        """A reader over every shard, each shard's segments copied at
+        `base + shard_id * SHARD_ROW_SPACE`. Memoized on the shards'
+        readers: searches between refreshes share one reader (and the
+        per-reader caches on it). `shard_readers` names the shard readers
+        it was made from, so a store serves each shard from the snapshot
+        the search's filters ran on."""
+        readers = tuple(s.engine.acquire_searcher() for s in self.shards)
+        cached = self._combined
+        if cached is not None and len(cached[0]) == len(readers) and all(
+                a is b for a, b in zip(cached[0], readers)):
+            return cached[1]
+        views = []
+        for s, reader in zip(self.shards, readers):
+            offset = s.shard_id * SHARD_ROW_SPACE
+            for view in reader.views:
+                if not offset:
+                    views.append(view)
+                    continue
+                seg = copy.copy(view.segment)
+                seg.base = view.segment.base + offset
+                v2 = SegmentView.__new__(SegmentView)
+                v2.segment, v2.live, v2.all_live = seg, view.live, view.all_live
+                views.append(v2)
+        combined = ShardReader(views)
+        combined.shard_readers = readers
+        self._combined = (readers, combined)
+        return combined
+
+    def shard_of_row(self, row: int) -> IndexShardHandle:
+        return self.shards[int(row) // SHARD_ROW_SPACE]

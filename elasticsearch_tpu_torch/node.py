@@ -1,105 +1,189 @@
-"""One node holding single-shard indices (port of the served slices of
-`elasticsearch_tpu/node.py`): index create (with the `index.knn.*` engine
-settings), document writes, `_bulk`, refresh, realtime GET, `_search` with
-`knn` (one spec or a list, each with an optional filter) and / or a
-`query` of the ported kinds, and hybrid `rank: {rrf}` searches (one
-`HybridExecutor` per index), with the reference's response shapes."""
+"""One node holding indices of 1 to 1024 shards on one card (port of the
+served slices of `elasticsearch_tpu/node.py`): index create (with
+`number_of_shards` and the `index.knn.*` engine settings), document writes
+and realtime GET routed to a shard by `routing` or `_id`, `_bulk`, refresh,
+`_search` with `knn` (one spec or a list, each with an optional filter)
+and / or a `query` of the ported kinds over every shard, and hybrid
+`rank: {rrf}` searches (one `HybridExecutor` per index), with the
+reference's response shapes."""
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 import uuid
 from typing import Dict, List, Optional
 
+import numpy as np
+
 from elasticsearch_tpu_torch import resolve_device
+from elasticsearch_tpu_torch.cluster.routing import shard_ids_for
 from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentError, IndexNotFoundError, ResourceAlreadyExistsError,
     SearchEngineError,
 )
-from elasticsearch_tpu_torch.index.engine import Engine
-from elasticsearch_tpu_torch.index.mapping import MapperService
+from elasticsearch_tpu_torch.indices.service import (  # noqa: F401
+    SHARD_ROW_SPACE, IndexService, flat_settings, validate_knn_settings,
+)
 from elasticsearch_tpu_torch.search.hybrid_plan import HybridExecutor
 from elasticsearch_tpu_torch.search.queries import SearchContext
 from elasticsearch_tpu_torch.search.service import execute_search
-from elasticsearch_tpu_torch.vectors.store import VectorStoreShard
+from elasticsearch_tpu_torch.serving.batcher import CombiningBatcher
 
 _SHARDS_OK = {"total": 1, "successful": 1, "failed": 0}
 
 
-def flat_settings(settings: Optional[dict]) -> Dict[str, object]:
-    """Index settings as one flat dict under the `index.` namespace, as the
-    reference normalizes them: bodies mix bare keys (`knn.engine`), dotted
-    keys (`index.knn.engine`) and nested objects (`{"index": {"knn": ...}}`)
-    freely."""
-    flat: Dict[str, object] = {}
+class _MultiShardVectorStore:
+    """Scatter-gather kNN over an index's shards (the host-coordinated path
+    of the reference's `_MultiShardVectorStore`): each shard's store
+    searches its own rows, and a stable host merge of the concatenation in
+    shard order takes the top k, so ties break by shard. Filter rows and
+    hit rows live in the combined reader's space; each shard's store sees
+    its own rows only (`filter_rows` split by range, less the offset).
 
-    def put(prefix: str, obj: dict) -> None:
-        for k, v in obj.items():
-            if isinstance(v, dict):
-                put(f"{prefix}{k}.", v)
-            else:
-                flat[f"{prefix}{k}"] = v
+    Concurrent `search` calls coalesce in the index's one combining
+    batcher, and a batch launches each of its (field, k, precision,
+    num_candidates, reader) groups on every shard (`search_many_async`)
+    before any lands: one launch a shard a group, and one runner at a time
+    drives the card, where requests walking the shards' batchers on their
+    own threads would stall on each other's device waits.
 
-    for k, v in (settings or {}).items():
-        if k == "index" and isinstance(v, dict):
-            put("index.", v)
-        elif k.startswith("index."):
-            put("", {k: v})
-        else:
-            put("index.", {k: v})
-    return flat
+    Left out, as ROADMAP.md lists: the mesh path (one program over a device
+    mesh), the cost model's host route, and `_ShardScopedStore` (the retry
+    after a shard fails)."""
 
+    def __init__(self, svc: IndexService):
+        self.svc = svc
+        # looked up at each batch, so a wrapper set on the instance
+        # (a probe of the batch sizes) sees every dispatch
+        self._batcher = CombiningBatcher(
+            lambda requests: self._dispatch_batch(requests),
+            lambda handle: self._finalize_batch(handle))
+        # per-thread phases of the last search (`last_knn_phases`)
+        self._tls = threading.local()
 
-def validate_knn_settings(settings: Dict[str, object]):
-    """Validate + normalize the flat `index.knn.*` engine settings; returns
-    (engine, nlist, nprobe), with the reference's 400 errors (port of
-    `elasticsearch_tpu/indices/service.py::validate_knn_settings`)."""
-    engine = str(settings.get("index.knn.engine", "tpu"))
-    if engine not in ("tpu", "tpu_ivf"):
-        raise IllegalArgumentError(
-            f"unknown [index.knn.engine] value [{engine}]; "
-            f"expected one of [tpu, tpu_ivf]")
-    nlist = settings.get("index.knn.nlist")
-    if nlist is not None:
-        try:
-            nlist = int(nlist)
-        except (TypeError, ValueError):
-            nlist = 0
-        if nlist < 1:
-            raise IllegalArgumentError(
-                f"[index.knn.nlist] must be an integer >= 1, got "
-                f"[{settings.get('index.knn.nlist')}]")
-    nprobe = settings.get("index.knn.nprobe", "auto")
-    if nprobe != "auto":
-        try:
-            nprobe = int(nprobe)
-        except (TypeError, ValueError):
-            nprobe = 0
-        if nprobe < 1:
-            raise IllegalArgumentError(
-                f"[index.knn.nprobe] must be an integer >= 1 or "
-                f"\"auto\", got [{settings.get('index.knn.nprobe')}]")
-    return engine, nlist, nprobe
+    def field(self, name: str):
+        for shard in self.svc.shards:
+            fc = shard.vector_store.field(name)
+            if fc is not None:
+                return fc
+        return None
 
+    @staticmethod
+    def _shard_rows(rows, offset: int):
+        """The rows of a sorted combined-space array that fall in the shard
+        at `offset`, as that shard's rows."""
+        if rows is None:
+            return None
+        rows = np.asarray(rows, dtype=np.int64)
+        lo, hi = np.searchsorted(rows, [offset, offset + SHARD_ROW_SPACE])
+        return rows[lo:hi] - offset
 
-class IndexService:
-    """One single-shard index: mapping, engine and device vector store."""
+    def _parts(self, reader):
+        """(shard, its row offset, its reader) for each shard; the shard
+        readers are the ones `reader` (a combined reader) was made from."""
+        shard_readers = getattr(reader, "shard_readers", None)
+        for shard in self.svc.shards:
+            yield (shard, shard.shard_id * SHARD_ROW_SPACE,
+                   None if shard_readers is None
+                   else shard_readers[shard.shard_id])
 
-    def __init__(self, name: str, mapping: Optional[dict], device,
-                 knn_engine: str = "tpu", knn_nlist=None, knn_nprobe="auto",
-                 settings: Optional[Dict[str, object]] = None):
-        self.name = name
-        self.settings = dict(settings or {})   # flat `index.*` settings
-        self.uuid = uuid.uuid4().hex[:22]
-        self.mapper_service = MapperService(mapping)
-        self.engine = Engine(self.mapper_service)
-        self.store = VectorStoreShard(device=device, knn_engine=knn_engine,
-                                      knn_nlist=knn_nlist,
-                                      knn_nprobe=knn_nprobe)
-        self.engine.add_refresh_listener(
-            lambda reader: self.store.sync(
-                reader, self.mapper_service.vector_fields()))
+    def search(self, field: str, query_vector, k: int, filter_rows=None,
+               precision: str = "bf16", num_candidates=None, reader=None):
+        """Top-k over every shard: (rows, raw scores) in the combined
+        space."""
+        result, self._tls.phases = self._batcher.submit((
+            (field, k, precision, num_candidates),
+            np.asarray(query_vector, dtype=np.float32), filter_rows, reader))
+        return result
+
+    def _dispatch_batch(self, requests: list):
+        """Dispatch stage of a batch of (key, vector, filter rows, reader)
+        requests: each group of one key and one reader launched on every
+        shard."""
+        groups: Dict[tuple, tuple] = {}
+        for i, (key, _, _, reader) in enumerate(requests):
+            groups.setdefault((key, id(reader)), (key, reader, []))[2] \
+                .append(i)
+        return len(requests), [
+            (idx, self.search_many_async(
+                field, [requests[i][1] for i in idx], k, precision=precision,
+                num_candidates=num_candidates,
+                filter_rows=[requests[i][2] for i in idx], reader=reader))
+            for (field, k, precision, num_candidates), reader, idx
+            in groups.values()]
+
+    def _finalize_batch(self, handle) -> list:
+        n, groups = handle
+        out: List[Optional[tuple]] = [None] * n
+        for idx, h in groups:
+            results, phases = self._land(h)
+            for i, res in zip(idx, results):
+                out[i] = (res, dict(phases))
+        return out
+
+    def scheduler_stats(self) -> Dict[str, int]:
+        """The index batcher's counters."""
+        return dict(self._batcher.sched)
+
+    def search_many(self, field: str, queries, k: int,
+                    precision: str = "bf16", num_candidates=None,
+                    filter_rows=None, reader=None) -> list:
+        results, self._tls.phases = self._land(self.search_many_async(
+            field, queries, k, precision=precision,
+            num_candidates=num_candidates, filter_rows=filter_rows,
+            reader=reader))
+        return results
+
+    def search_many_async(self, field: str, queries, k: int,
+                          precision: str = "bf16", num_candidates=None,
+                          filter_rows=None, reader=None):
+        """Launch the batch on every shard before landing any: an exhaustive
+        shard's boards stay in flight while the next shard launches (an IVF
+        shard completes at its launch)."""
+        handles = []
+        for shard, offset, shard_reader in self._parts(reader):
+            frows = None if filter_rows is None else [
+                self._shard_rows(fr, offset) for fr in filter_rows]
+            handles.append((shard, offset, shard.vector_store
+                            .search_many_async(
+                                field, queries, k, precision=precision,
+                                num_candidates=num_candidates,
+                                filter_rows=frows, reader=shard_reader)))
+        return len(queries), k, handles
+
+    def finalize_many(self, handle) -> list:
+        return self._land(handle)[0]
+
+    def _land(self, handle):
+        """Land every shard's part of a batch and merge each query's hits;
+        returns (results, the first shard's phases)."""
+        n, k, handles = handle
+        per_shard, phases = [], None
+        for shard, offset, h in handles:
+            per_shard.append([(rows + offset, scores) for rows, scores in
+                              shard.vector_store.finalize_many(h)])
+            if phases is None:
+                phases = shard.vector_store.last_knn_phases
+        return [self._merge([ps[qi] for ps in per_shard], k)
+                for qi in range(n)], phases or {}
+
+    @staticmethod
+    def _merge(results, k: int):
+        if len(results) == 1:       # one shard: its store's answer as is
+            return results[0]
+        rows = np.concatenate([r for r, _ in results])
+        scores = np.concatenate([s for _, s in results])
+        # global top-k with shard-order tie-break (stable sort over concat)
+        order = np.argsort(-scores, kind="stable")[:k]
+        return rows[order], scores[order]
+
+    @property
+    def last_knn_phases(self) -> dict:
+        """The first shard's phases of the last search made on the calling
+        thread."""
+        return getattr(self._tls, "phases", {})
 
 
 class Node:
@@ -119,20 +203,15 @@ class Node:
         if name != name.lower() or name.startswith(("_", "-", "+")):
             raise IllegalArgumentError(f"invalid index name [{name}]")
         settings = flat_settings(body.get("settings"))
-        shards = settings.get("index.number_of_shards", 1)
-        if int(shards) != 1:
-            raise IllegalArgumentError(
-                "this build serves single-shard indices only: "
-                f"[number_of_shards] must be 1, got [{shards}]")
         with self._lock:
             if name in self.indices:
                 svc = self.indices[name]
                 raise ResourceAlreadyExistsError(
                     f"index [{name}/{svc.uuid}] already exists", index=name)
-            engine, nlist, nprobe = validate_knn_settings(settings)
-            self.indices[name] = IndexService(
-                name, body.get("mappings"), self.device, knn_engine=engine,
-                knn_nlist=nlist, knn_nprobe=nprobe, settings=settings)
+            svc = IndexService(name, body.get("mappings"), self.device,
+                               settings=settings)
+            svc.vector_store = _MultiShardVectorStore(svc)
+            self.indices[name] = svc
         return {"acknowledged": True, "shards_acknowledged": True,
                 "index": name}
 
@@ -159,21 +238,26 @@ class Node:
                 "_primary_term": res.primary_term}
 
     def index_doc(self, index: str, doc_id: Optional[str], body: dict,
-                  op_type: str = "index",
-                  refresh: Optional[str] = None) -> dict:
+                  op_type: str = "index", refresh: Optional[str] = None,
+                  routing: Optional[str] = None) -> dict:
         svc = self._index_or_autocreate(index)
         if doc_id is None:
             doc_id, op_type = uuid.uuid4().hex[:20], "create"
-        res = svc.engine.index(str(doc_id), body, op_type=op_type)
+        shard = svc.route(str(doc_id), routing)
+        res = shard.engine.index(str(doc_id), body, op_type=op_type,
+                                 routing=routing)
         out = self._write_response(svc, res)
         if refresh in ("true", ""):
-            svc.engine.refresh()
+            # a doc-level refresh refreshes only the target shard: the
+            # other shards' unrefreshed writes stay invisible
+            shard.engine.refresh()
             out["forced_refresh"] = True
         return out
 
-    def get_doc(self, index: str, doc_id: str) -> dict:
+    def get_doc(self, index: str, doc_id: str,
+                routing: Optional[str] = None) -> dict:
         svc = self.index(index)
-        doc = svc.engine.get(doc_id)
+        doc = svc.route(doc_id, routing).engine.get(doc_id)
         if doc is None:
             return {"_index": svc.name, "_id": doc_id, "found": False}
         out = {"_index": svc.name, "_id": doc_id,
@@ -181,16 +265,20 @@ class Node:
                "_primary_term": doc["_primary_term"], "found": True}
         if svc.mapper_service.source_enabled:
             out["_source"] = doc["_source"]
+        if doc.get("_routing") is not None:
+            out["_routing"] = doc["_routing"]
         return out
 
     def bulk(self, ops: List[dict], default_index: Optional[str] = None,
              refresh: Optional[str] = None) -> dict:
-        """`index` and `create` actions. Each document is validated on its
-        own (a bad one fails its item only); the valid documents of each
-        run of one index and action go to the engine in one `index_many`."""
+        """`index` and `create` actions, each with an optional `routing`.
+        Each document is validated on its own (a bad one fails its item
+        only); the valid documents of one index are routed in one
+        `shard_ids_for` call, and each run of one action among a shard's
+        documents goes to that shard's engine in one `index_many`."""
         start = time.perf_counter()
         items: List[Optional[dict]] = []
-        groups: Dict[tuple, list] = {}
+        valid: Dict[str, list] = {}
         i = 0
         while i < len(ops):
             action = ops[i]
@@ -205,6 +293,12 @@ class Node:
                 raise IllegalArgumentError(
                     f"Malformed action/metadata line [{i + 1}], expected "
                     f"one of [create, index] but found [{op}]")
+            for dep in ("_version", "_routing", "_parent", "fields",
+                        "_version_type", "_retry_on_conflict"):
+                if dep in meta:
+                    raise IllegalArgumentError(
+                        f"Action/metadata line [{i + 1}] contains an "
+                        f"unknown parameter [{dep}]")
             source = ops[i + 1] if i + 1 < len(ops) else None
             i += 2
             name = meta.get("_index", default_index)
@@ -221,39 +315,57 @@ class Node:
                 doc_id = meta.get("_id")
                 if doc_id is None:
                     doc_id, op = uuid.uuid4().hex[:20], "create"
-                groups.setdefault((name, op), []).append(
-                    (slot, str(doc_id), source))
+                routing = meta.get("routing")
+                routing = None if routing is None else str(routing)
+                valid.setdefault(name, []).append(
+                    (op, slot, str(doc_id), source, routing))
             except SearchEngineError as e:
                 items[slot] = {op: {"_index": name, "_id": meta.get("_id"),
                                     "status": e.status, "error": e.to_dict()}}
-        for (name, op), docs in groups.items():
+        runs: List[tuple] = []
+        for name, docs in valid.items():
+            shards = shard_ids_for(
+                [d[2] if d[4] is None else d[4] for d in docs],
+                self.indices[name].num_shards)
+            by_shard: Dict[int, list] = {}
+            for doc, shard in zip(docs, shards.tolist()):
+                by_shard.setdefault(shard, []).append(doc)
+            # a shard applies its documents in the request's order (its
+            # seq_nos follow it), one `index_many` a run of one action
+            for shard, mine in by_shard.items():
+                for op, run in itertools.groupby(mine, key=lambda d: d[0]):
+                    runs.append((name, op, shard,
+                                 [tuple(d[1:]) for d in run]))
+        for name, op, shard, docs in runs:
             svc = self.indices[name]
             status = 201
             try:
-                results = svc.engine.index_many(
-                    [d for _, d, _ in docs], [s for _, _, s in docs],
-                    op_type=op)
+                results = svc.shards[shard].engine.index_many(
+                    [d[1] for d in docs], [d[2] for d in docs],
+                    op_type=op, routings=[d[3] for d in docs])
             except SearchEngineError as e:
-                for slot, doc_id, _ in docs:
+                for slot, doc_id, _, _ in docs:
                     items[slot] = {op: {"_index": name, "_id": doc_id,
                                         "status": e.status,
                                         "error": e.to_dict()}}
                 continue
-            for (slot, _, _), res in zip(docs, results):
+            for (slot, _, _, _), res in zip(docs, results):
                 resp = self._write_response(svc, res)
                 resp["status"] = status if res.result == "created" else 200
                 items[slot] = {op: resp}
         if refresh in ("true", ""):
-            for name, _ in groups:
-                self.indices[name].engine.refresh()
+            for name in {run[0] for run in runs}:
+                self.indices[name].refresh()
         return {"took": int((time.perf_counter() - start) * 1000),
                 "errors": any("error" in next(iter(it.values()))
                               for it in items),
                 "items": items}
 
     def refresh(self, index: str) -> dict:
-        self.index(index).engine.refresh()
-        return {"_shards": dict(_SHARDS_OK)}
+        svc = self.index(index)
+        svc.refresh()
+        n = svc.num_shards
+        return {"_shards": {"total": n, "successful": n, "failed": 0}}
 
     # --------------------------------------------------------------- search
     def _hybrid_executor(self, svc: IndexService) -> HybridExecutor:
@@ -275,11 +387,12 @@ class Node:
         rank = (body or {}).get("rank")
         if isinstance(rank, dict) and "rrf" in rank:
             return self._search_rrf(svc, body)
-        ctx = SearchContext(svc.engine.acquire_searcher(), svc.mapper_service,
-                            svc.store, svc.settings)
+        ctx = SearchContext(svc.combined_reader(), svc.mapper_service,
+                            svc.vector_store, svc.settings)
         hits = execute_search(ctx, body or {}, svc.name)
+        n = svc.num_shards
         return {"took": int((time.perf_counter() - start) * 1000),
                 "timed_out": False,
-                "_shards": {"total": 1, "successful": 1, "skipped": 0,
+                "_shards": {"total": n, "successful": n, "skipped": 0,
                             "failed": 0},
                 "hits": hits}

@@ -3,7 +3,9 @@
 
 Routes: GET /, PUT /{index}, PUT|POST /{index}/_doc/{id},
 POST|PUT /{index}/_bulk, POST /{index}/_refresh, GET|POST /{index}/_search
-and GET /{index}/_doc/{id}.
+and GET /{index}/_doc/{id}. The document routes take the `routing` query
+parameter, and `_bulk` a `routing` in each action's metadata; `_search`
+searches every shard whatever its `routing`, as the reference does.
 """
 
 from __future__ import annotations
@@ -33,11 +35,13 @@ def register_all(rc: RestController, node: Node) -> None:
         resp = node.index_doc(req.params["index"], req.params["id"],
                               req.json() or {},
                               op_type=req.param("op_type", "index"),
-                              refresh=req.param("refresh"))
+                              refresh=req.param("refresh"),
+                              routing=req.param("routing"))
         return (201 if resp["result"] == "created" else 200), resp
 
     def get_doc(req):
-        resp = node.get_doc(req.params["index"], req.params["id"])
+        resp = node.get_doc(req.params["index"], req.params["id"],
+                            routing=req.param("routing"))
         return (200 if resp["found"] else 404), resp
 
     def bulk(req):

@@ -292,6 +292,9 @@ class HybridExecutor:
                  max_queue_depth: int = 256,
                  deadline_ms: Optional[float] = 10_000.0):
         self.svc = svc
+        # kNN legs search every shard's store (`svc.vector_store`); the
+        # late-interaction store syncs from the combined reader (rows
+        # rebased by shard)
         self.late = LateInteractionShard(device=device)
         # the admission policy (batch ceiling, queue depth, deadline) is
         # the reference's `search.hybrid.*` defaults; top-up and 2 batches
@@ -321,7 +324,7 @@ class HybridExecutor:
         every body, run the MaxSim legs, launch the kNN legs. Returns the
         handle `_finalize_batch` lands."""
         start = time.perf_counter()
-        reader = self.svc.engine.acquire_searcher()
+        reader = self.svc.combined_reader()
         meta = self.batcher.batch_meta()
         t0 = time.perf_counter_ns()
         plans = [compile_plan(body, self.svc.mapper_service)
@@ -365,8 +368,9 @@ class HybridExecutor:
             out.append({
                 "took": int((time.perf_counter() - handle["start"]) * 1000),
                 "timed_out": False,
-                "_shards": {"total": 1, "successful": 1, "skipped": 0,
-                            "failed": 0},
+                "_shards": {"total": self.svc.num_shards,
+                            "successful": self.svc.num_shards,
+                            "skipped": 0, "failed": 0},
                 "hits": {"total": {"value": int(len(rows)),
                                    "relation": "eq"},
                          "max_score": hits[0]["_score"] if hits else None,
@@ -416,15 +420,15 @@ class HybridExecutor:
             for (bi, li, _leg), (rows, _scores) in zip(entries, results):
                 leg_results[(bi, li)] = rows[:plans[bi].window]
         pending = []
-        ctx = SearchContext(reader, self.svc.mapper_service, self.svc.store,
-                            self.svc.settings)
+        ctx = SearchContext(reader, self.svc.mapper_service,
+                            self.svc.vector_store, self.svc.settings)
         for (field, k, num_candidates), entries in knn_groups.items():
             # each leg's filter runs on the host, on the batch's reader;
             # filtered and unfiltered legs share the group's dispatch
             filters = [None if leg.filter_query is None
                        else leg.filter_query.execute(ctx).rows
                        for _bi, _li, leg in entries]
-            handle = self.svc.store.search_many_async(
+            handle = self.svc.vector_store.search_many_async(
                 field, [leg.query_vector for _bi, _li, leg in entries], k,
                 num_candidates=num_candidates, filter_rows=filters,
                 reader=reader)
@@ -437,7 +441,7 @@ class HybridExecutor:
         """Land each kNN group's boards, then each leg as `KnnQuery` scores
         it, cut to the plan's window by (score desc, row asc)."""
         for entries, handle in pending:
-            batch_out = self.svc.store.finalize_many(handle)
+            batch_out = self.svc.vector_store.finalize_many(handle)
             for (bi, li, leg), (rows, raw) in zip(entries, batch_out):
                 scores = (np.asarray(sim.to_es_score(raw, leg.metric))
                           * leg.boost)

@@ -123,6 +123,9 @@ def render_hits(reader: ShardReader, mapper_service: MapperService,
     for row, score in zip(rows, scores):
         hit = {"_index": index_name, "_id": reader.get_id(int(row)),
                "_score": float(score)}
+        routing = reader.get_routing(int(row))
+        if routing is not None:
+            hit["_routing"] = routing
         if want_source:
             src = reader.get_source(int(row))
             if includes is not None:

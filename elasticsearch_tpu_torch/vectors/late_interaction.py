@@ -131,13 +131,17 @@ class LateInteractionField:
         Segments whose fingerprint is cached are not re-encoded. Callers
         serialise syncs (the shard's lock); searches may run meanwhile on
         the snapshot published before."""
-        version = tuple(columnar.fingerprint(v) for v in reader.views)
+        # a combined reader repeats seg_ids across shards: the base (the
+        # shard's row offset) tells their segments apart
+        version = tuple((columnar.fingerprint(v), v.segment.base)
+                        for v in reader.views)
         if version == self.version:
             return False
         blocks, cache = [], {}
         n_cached = n_extracted = 0
         for view in reader.views:
-            fp = columnar.fingerprint(view, (self.variant,))
+            fp = (columnar.fingerprint(view, (self.variant,)),
+                  view.segment.base)
             blk = self._blocks.get(fp)
             if blk is not None or fp in self._blocks:
                 n_cached += 1

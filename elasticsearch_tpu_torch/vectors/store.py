@@ -510,8 +510,10 @@ class VectorStoreShard:
 
     def finalize_many(self, handle) -> list:
         """Land a `search_many_async` handle: wait for its boards (this
-        batch's copies only), rescore packed rungs, join the row map."""
-        return self._finalize(handle)[0]
+        batch's copies only), rescore packed rungs, join the row map. Its
+        phases become the calling thread's `last_knn_phases`."""
+        results, self._tls.phases = self._finalize(handle)
+        return results
 
     def _finalize(self, handle) -> Tuple[list, dict]:
         kind, payload, phases = handle

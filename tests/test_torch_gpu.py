@@ -343,6 +343,59 @@ def test_ivf_store_on_cuda_launches_kernel_and_matches_cpu(cuda, options):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("options", [{"type": "flat"}, {"type": "int8_ivf"}])
+def test_sharded_index_on_cuda_launches_each_shard_and_matches_cpu(
+        cuda, options, monkeypatch):
+    """A 3-shard index loaded alike on a CPU node and a CUDA node (each
+    shard's IVF layout carried from the CPU): every search launches its
+    kernel once a shard on the card, and the merged hits match the CPU's
+    where scores are clear of ties. Every corpus pads to the binned tile,
+    as one of 8,192 rows or more does on the card, so the flat shards of
+    both nodes take the binned route (its plain version on the CPU)."""
+    from elasticsearch_tpu_torch.node import Node
+
+    monkeypatch.setattr(knn, "preferred_pad_multiple",
+                        lambda n, metric, device: knn.BINNED_TILE)
+
+    rng = np.random.default_rng(5)
+    n = 6000
+    vecs = rng.standard_normal((n, 64)).astype(np.float32)
+    body = {"settings": {"number_of_shards": 3, "index.knn.nlist": 16,
+                         "index.knn.nprobe": 4},
+            "mappings": {"properties": {"v": {
+                "type": "dense_vector", "dims": 64, "similarity": "cosine",
+                "index_options": options}}}}
+    nodes = []
+    for device in ("cpu", cuda):
+        node = Node(device=device)
+        node.create_index("s", body)
+        if nodes:
+            for cpu_shard, shard in zip(nodes[0].index("s").shards,
+                                        node.index("s").shards):
+                shard.vector_store.restore_ivf_layout(
+                    cpu_shard.vector_store.export_ivf_layout())
+        node.index("s").index_many([str(i) for i in range(n)],
+                                   vectors={"v": vecs})
+        node.refresh("s")
+        nodes.append(node)
+    name = (kb.KERNEL_BF16 if options["type"] == "flat"
+            else fused.KERNEL_DENSE)
+    agree = []
+    for q in rng.standard_normal((5, 64)).astype(np.float32):
+        body = {"knn": {"field": "v", "query_vector": q.tolist(), "k": 10,
+                        "num_candidates": 50}, "size": 10}
+        before = dispatch.launches().get(name, 0)
+        got = nodes[1].search("s", body)["hits"]["hits"]
+        assert dispatch.launches().get(name, 0) == before + 3
+        want = nodes[0].search("s", body)["hits"]["hits"]
+        np.testing.assert_allclose([h["_score"] for h in got],
+                                   [h["_score"] for h in want], atol=1e-3)
+        agree.append(np.mean([a["_id"] == b["_id"]
+                              for a, b in zip(got, want)]))
+    assert np.mean(agree) > 0.9
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("options", [None, {"type": "int8_flat",
                                             "rescore": True},
                                      {"type": "int4_flat"}])

@@ -39,7 +39,8 @@ def test_port_imports_without_jax_or_reference():
                  "vectors.late_interaction", "search.queries_ext",
                  "search.hybrid_plan", "serving.batcher", "search.queries",
                  "search.knn_query", "search.service", "index.mapping",
-                 "index.segment", "index.engine", "vectors.store"):
+                 "index.segment", "index.engine", "vectors.store",
+                 "cluster.routing", "indices.service"):
         assert f"elasticsearch_tpu_torch.{name}" in names
     code = (
         "import sys\n"

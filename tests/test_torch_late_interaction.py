@@ -278,9 +278,13 @@ def test_mapper_defaults_and_refusals():
             "index_options": {"coarse": "binary"}}}})
     eng = Engine(MapperService({"properties": {"c": {
         "type": "rank_vectors", "dims": 8}}}))
-    for bad in ([[1.0] * 5], [], [[float("nan")] * 8], "x"):
+    for bad in ([[1.0] * 5], [[float("nan")] * 8], "x", [1.0] * 8,
+                [[1.0] * 8, [1.0] * 3]):
         with pytest.raises(MapperParsingError):
             eng.index("x", {"c": bad})
+    # an empty list is a document without tokens, as in the reference
+    eng.index("empty", {"c": []})
+    assert eng.get("empty")["_source"] == {"c": []}
     toks = np.ones((5, 8), np.float32)
     for tokens, counts in ((toks, [2, 2]), (toks, [3, 3, -1]),
                            (np.ones((5, 7), np.float32), [2, 3, 0]),

@@ -456,7 +456,7 @@ def test_32_http_clients_at_once_get_the_sequential_answers():
         alone = [req(conn, "POST", "/c/_search", body(qi))[1]
                  for qi in range(16)]
         conn.close()
-        store = node.index("c").store
+        store = node.index("c").vector_store
         sched0 = store.scheduler_stats()
         barrier = threading.Barrier(32)
         got, errors = {}, []
