@@ -3,14 +3,16 @@
     python3 chip_smoke.py [--seed 1234] [--n-sift 1000000] [--n-cohere 1000000]
                           [--n-gist 1000000] [--n-cohere-ivf 1000000]
                           [--n-colbert 131071] [--n-laion 1000000]
-                          [--n-sharded 6000000]
-                          [--binned-only | --ivf-only | --maxsim-only]
+                          [--n-sharded 3000000] [--n-msmarco 1000000]
+                          [--binned-only | --ivf-only | --maxsim-only |
+                           --sharded-only | --hybrid-only]
 
 Phases, one line each; any failure raises and the exit code is not 0:
 
   env          the card (name, power limit), torch and nvcc versions
   build        compiles the hand-written kernels from `elasticsearch_tpu_torch/csrc`
-               (one nvcc per source, all started together)
+               (one nvcc per source, all started together), then the
+               host library `csrc/es_native.cc` (g++)
   kernels      each binned kernel against its plain PyTorch version on the card
                (int8 bit-identical, bf16 within one packing quantum) at the
                served shapes: bf16 N=1,048,576 D=128 at Q=256 (cosine and
@@ -37,7 +39,13 @@ Phases, one line each; any failure raises and the exit code is not 0:
                their span, docs with no valid slot, candidate ids outside
                [0, N_pad) and cap 100; timed likewise beside one
                `torch.bmm` of the bf16 queries over a pre-staged bf16 copy
-               of the candidate tiles and the staged gather form
+               of the candidate tiles and the staged gather form; then
+               `bm25_board` against its plain version, boards bit for
+               bit, on a synthetic Zipf layout over 1,048,576 docs (f32,
+               bf16 and int8 impacts; Q = 32 with a repeated word, an
+               out-of-vocabulary word, a query with no tile, required 2
+               and 3, and Q = 1), timed beside its bound, the plain
+               version and one `index_put_` pair
   serve_sift   the port's REST server in-process: a cosine dims=128 index,
                2,000 docs over `_bulk`, then loaded to 1,000,000 SIFT-shaped
                docs through `IndexService.index_many`, refresh, and 64
@@ -85,6 +93,18 @@ Phases, one line each; any failure raises and the exit code is not 0:
                `torch.mm`, and the card's peak memory over a filtered batch
                of 32; serve_concurrent at C = 1 and 8 over a mix of the
                filters and unfiltered bodies
+  serve_hybrid  BASELINE config 3, hybrid BM25 + kNN by RRF: one shard
+               of MS MARCO-shaped passages (a Zipf vocabulary of 200,000
+               words, 20-92 words a passage, cut from 8,841,823 to
+               --n-msmarco) with a 768-d cosine `flat` embedding each;
+               64 queries (6 words of a source passage, its embedding plus
+               noise): each lexical leg's window byte-identical to the same
+               `match` through `_search`, its top 10 against a float64
+               BM25 of the generated tokens, kNN recall@10 >= 0.95, every
+               hybrid response (both body forms, `operator: and`, a
+               generic `range` leg, text that analyzes to nothing) equal
+               to host RRF of its legs, one `bm25_board` launch set a
+               request and at C = 1 and 8 one a batch
 Each IVF index answers one warm-up search first (the `nprobe: auto` tuner
 runs there), then the timed requests; every request must take the fused
 route with no exhaustive fallback, every `ivf_fused_dense` and
@@ -146,7 +166,9 @@ request, which must fall back to the exhaustive corpus
 kernel phase (no serving, no ok line): the numbers of PERF.md's
 parent-vs-change comparisons, where a parent commit's package runs this
 script too (the checks of variants it lacks are skipped).
-`--sharded-only` runs env, build and serve_sharded (no ok line).
+`--sharded-only` runs env, build and serve_sharded (no ok line);
+`--hybrid-only` runs env, build, the bm25_board checks and serve_hybrid
+(no ok line).
 
 The next-to-last lines are a JSON object with every kernel's numbers and the
 card's `nvidia-smi` name and power limit; the last line is
@@ -165,6 +187,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -246,10 +270,12 @@ def phase_env() -> str:
     return smi
 
 
-def phase_build(names=("knn_binned", "ivf_fused", "maxsim")) -> None:
+def phase_build(names=("knn_binned", "ivf_fused", "maxsim", "bm25")) -> None:
+    from elasticsearch_tpu_torch import native
     from elasticsearch_tpu_torch.ops import _build
     t0 = time.perf_counter()
     reports = _build.build(list(names))
+    native.build()
     # ptxas: each entry function's (mangled) name, registers and spills
     usage, fn = [], ""
     for ln in (ln for rep in reports.values() for ln in rep.splitlines()):
@@ -2464,10 +2490,10 @@ REF_SHARD_OF_8 = {
     "1852855": 2,
     "user0": 2, "user1": 4, "user2": 5, "user3": 4, "user4": 4,
 }
-# BASELINE config 4 is Cohere-Wiki-10M: cut to 6M for the host's memory
-# (~7.7 GB a million rows stay resident: the engine's f32 rows and the IVF
-# host mirror) and the run's time (PERF.md section 4)
-N_SHARDED = 6_000_000
+# BASELINE config 4 is Cohere-Wiki-10M: cut to 3M for the run's time, which
+# serve_hybrid shares (PERF.md section 4; ~10 GB of host memory a million
+# rows)
+N_SHARDED = 3_000_000
 
 
 def sharded_chunks(seed: int, n: int, dev):
@@ -2781,6 +2807,573 @@ def phase_serve_sharded(seed: int, n: int, device: str = "cuda",
     return total
 
 
+# ------------------------------------------------------------ bm25 kernel
+
+# MS MARCO passage-ranking shape: 8,841,823 passages of about 56 words
+# (collection.tsv) and dev queries of about 6; a Zipf (s = 1.0) vocabulary
+# of 200,000 words stands in for the text. Cut to 1M passages for the
+# host's memory (PERF.md section 4).
+MSMARCO_VOCAB = 200_000
+MSMARCO_WORDS = (20, 93)       # passage words, uniform: a mean of 56
+MSMARCO_QUERY_WORDS = 6
+N_MSMARCO = 1_000_000
+MSMARCO_CHUNK = 1 << 16
+BM25_WINDOW = 100               # the RRF leg's window (rank_window_size)
+
+
+def zipf_cdf(v: int = MSMARCO_VOCAB, s: float = 1.0) -> np.ndarray:
+    p = 1.0 / np.arange(1, v + 1, dtype=np.float64) ** s
+    return np.cumsum(p / p.sum())
+
+
+def _bm25_field(g, dev, dtype: str, n_slots: int, ranks, rng):
+    """A LexicalField over a synthetic impact layout: Zipf rank r's word
+    `w<r>` in about n_slots * (1 - exp(-56 p_r)) random docs (its share
+    of 56-word passages), impacts uniform in [0.05, 8); the tiles of every
+    rank in `ranks` (each term's run padded to whole 128-lane tiles, as
+    `LexicalField._install_tiles` lays them out)."""
+    from elasticsearch_tpu_torch.ops import bm25
+    p = np.diff(np.concatenate([[0.0], zipf_cdf()]))
+    spans, slot_parts, tile = {}, [], 0
+    for r in sorted(set(int(x) for x in ranks)):
+        df = max(int(round(n_slots * -np.expm1(-56.0 * p[r]))), 1)
+        slots = torch.randperm(n_slots, generator=g, device=dev)[:df]
+        nt = -(-df // bm25.TILE)
+        pad = torch.full((nt * bm25.TILE,), -1, dtype=torch.int32, device=dev)
+        pad[:df] = torch.sort(slots).values.to(torch.int32)
+        slot_parts.append(pad)
+        spans[f"w{r}"] = (tile, nt)
+        tile += nt
+    slots = torch.cat(slot_parts).reshape(-1, bm25.TILE)
+    lf = bm25.LexicalField("body", dtype, device=dev)
+    lf.n_slots, lf.row_map = n_slots, np.arange(n_slots, dtype=np.int64)
+    lf.term_tiles, lf.version = spans, ("synthetic", dtype)
+    lf.tile_slots = slots.cpu().numpy()
+    lf.tile_impacts = np.where(
+        lf.tile_slots >= 0,
+        rng.uniform(0.05, 8.0, lf.tile_slots.shape), 0.0).astype(np.float32)
+    lf.nnz = int((lf.tile_slots >= 0).sum())
+    return lf
+
+
+def _bm25_queries(rng, nq: int):
+    """nq queries of 6 Zipf-drawn words: query 0 repeats a word, query 1
+    adds an out-of-vocabulary one, query 2 has no word in the vocabulary,
+    queries 3 and 4 require 2 and 3 matches."""
+    cdf = zipf_cdf()
+    ranks = np.searchsorted(cdf, rng.random((nq, MSMARCO_QUERY_WORDS)))
+    ranks = np.minimum(ranks, MSMARCO_VOCAB - 1)
+    queries = [[f"w{r}" for r in row] for row in ranks]
+    queries[0].append(queries[0][1])
+    if nq > 2:
+        queries[1].insert(2, "oovword")
+        queries[2] = ["oovword", "unseen"]
+    required = np.ones(nq, dtype=np.int32)
+    required[3], required[4] = 2, 3
+    return [(q, 1.0 + 0.5 * (i % 3)) for i, q in enumerate(queries)], \
+        required, ranks
+
+
+def _bm25_case(lf, queries, required, label: str, timed: bool) -> dict:
+    """bm25_board against its plain version on the card (boards bit for
+    bit, then the masked top-k); with `timed`, CUDA-event ms of a launch
+    set and a burst, the plain version's and one index_put_ pair's."""
+    from elasticsearch_tpu_torch.ops import bm25, dispatch
+    dev = lf.device
+    slots_d, imp_d, sc_d = lf._device_arrays()
+    items, starts = lf.plan_positions(queries)
+    items_d = torch.from_numpy(items).to(dev)
+    n_pad = dispatch.bucket_queries(len(queries))
+    w = 1
+    while w < lf.n_slots:
+        w *= 2
+
+    def boards():
+        return (torch.zeros((n_pad, w + 1), dtype=torch.float32, device=dev),
+                torch.zeros((n_pad, w + 1), dtype=torch.int32, device=dev))
+
+    got, want = boards(), boards()
+    bm25.bm25_board(*got, items_d, starts, slots_d, imp_d, sc_d)
+    bm25.bm25_board_reference(*want, items_d, starts, slots_d, imp_d, sc_d)
+    req = torch.ones(n_pad, dtype=torch.int32, device=dev)
+    req[:len(queries)] = torch.from_numpy(required).to(dev)
+    top_got = bm25.board_top_k(*got, req, BM25_WINDOW)
+    top_want = bm25.board_top_k(*want, req, BM25_WINDOW)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(got[1], want[1])
+            and torch.equal(top_got[0].view(torch.int32),
+                            top_want[0].view(torch.int32))
+            and torch.equal(top_got[1], top_want[1])):
+        bad = int((got[0].view(torch.int32) != want[0].view(torch.int32))
+                  .sum())
+        raise AssertionError(f"bm25_board {label}: differs from its plain "
+                             f"version ({bad} score cells)")
+    if lf.dtype == "f32":
+        # the host twin over the f32 impacts: the same rows and f32 bits
+        host = lf.search_batch(queries, BM25_WINDOW, required=required,
+                               route="host")
+        board = lf.search_batch(queries, BM25_WINDOW, required=required)
+        for (hr, hs), (br, bs) in zip(host, board):
+            if not (np.array_equal(hr, br)
+                    and np.array_equal(hs.view(np.int32),
+                                       bs.view(np.int32))):
+                raise AssertionError(f"bm25_board {label}: the board route "
+                                     f"differs from the host twin")
+    empty = [i for i, (q, _) in enumerate(queries)
+             if all(t not in lf.term_tiles for t in q)]
+    if any(bool(torch.isfinite(top_got[0][i]).any()) for i in empty):
+        raise AssertionError(f"bm25_board {label}: a query with no tile "
+                             f"has a finite score")
+    f = {"max_abs_err": 0.0, "queries": len(queries),
+         "positions": len(starts) - 1, "items": items.shape[1]}
+    if not timed:
+        return f
+    tiles = items[1].astype(np.int64)
+    postings = int((lf.tile_slots[tiles] >= 0).sum())
+    lane_bytes = 4 + imp_d.element_size()
+    kernel_bytes = items.shape[1] * (bm25.TILE * lane_bytes + 12) \
+        + postings * 16
+    board_bytes = kernel_bytes + 2 * n_pad * (w + 1) * 8
+    s, c = boards()
+
+    def run():
+        bm25.bm25_board(s, c, items_d, starts, slots_d, imp_d, sc_d)
+
+    # the index_put_ formulation: every valid lane's (query, slot, value)
+    # flattened once, then one accumulating index_put_ a board
+    slot_all = slots_d[items_d[1].long()].long()
+    valid = slot_all >= 0
+    vals = imp_d[items_d[1].long()].to(torch.float32)
+    if sc_d is not None:
+        vals = vals * sc_d[items_d[1].long()][:, None]
+    vals = (vals * items_d[2].view(torch.float32)[:, None])[valid]
+    q_flat = items_d[0].long()[:, None].expand_as(slot_all)[valid]
+    s_flat = slot_all[valid]
+    ones = torch.ones_like(s_flat, dtype=torch.int32)
+
+    def library():
+        s.index_put_((q_flat, s_flat), vals, accumulate=True)
+        c.index_put_((q_flat, s_flat), ones, accumulate=True)
+
+    def whole():
+        b = boards()
+        bm25.bm25_board(*b, items_d, starts, slots_d, imp_d, sc_d)
+        return bm25.board_top_k(*b, req, BM25_WINDOW)
+
+    f.update(ms=time_ms(run), burst_ms=burst_ms(run),
+             plain_ms=time_ms(lambda: bm25.bm25_board_reference(
+                 s, c, items_d, starts, slots_d, imp_d, sc_d),
+                 iters=5, warmup=1),
+             library_ms=time_ms(library), board_ms=time_ms(whole),
+             postings=postings)
+    f["bound_ms"], f["bound_by"] = bound_ms(kernel_bytes, 0, 1.0)
+    f["board_bound_ms"] = bound_ms(board_bytes, 0, 1.0)[0]
+    return f
+
+
+def phase_bm25_kernel(seed: int, dev) -> dict:
+    """bm25_board against its plain version on the card, bit for bit, on
+    a synthetic Zipf layout over 1,048,576 docs (serve_hybrid's board
+    width): f32, bf16 and int8 impacts, each at Q = 32 (a repeated word,
+    an out-of-vocabulary word, a query with no tile, required 2 and 3)
+    and Q = 1, timed beside the bound (the tiles' lanes read, 16 B a
+    posting on the boards; with the boards' zeroing and the top-k's read
+    of them for `board_bound_ms`), the plain version and one
+    index_put_ pair."""
+    from elasticsearch_tpu_torch.ops import bm25
+    rng = np.random.default_rng(seed + 7)
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    queries, required, ranks = _bm25_queries(rng, 32)
+    n_slots = 1 << 20
+    base = _bm25_field(g, dev, "f32", n_slots, ranks.reshape(-1), rng)
+    cases = {}
+    for dtype in ("f32", "bf16", "int8"):
+        lf = bm25.LexicalField("body", dtype, device=dev)
+        for key in ("n_slots", "row_map", "term_tiles", "tile_slots",
+                    "tile_impacts", "nnz"):
+            setattr(lf, key, getattr(base, key))
+        lf.version = ("synthetic", dtype)
+        for label, qs, req in ((f"{dtype}_q32", queries, required),
+                               (f"{dtype}_q1", queries[5:6], required[5:6])):
+            cases[label] = _bm25_case(lf, qs, req, label, timed=True)
+            log("kernels", kernel=bm25.KERNEL, case=label, n_slots=n_slots,
+                tiles=len(base.tile_slots),
+                **{k: (f"{v:.6g}" if isinstance(v, float) else v)
+                   for k, v in cases[label].items()},
+                library="torch index_put_(accumulate=True) of the flattened "
+                        "valid lanes, scores then counts",
+                board="zero the boards + launch set + mask + top-100")
+        del lf
+    c = cases["f32_q32"]
+    return {bm25.KERNEL: {
+        "name": bm25.KERNEL, "route": "cuda",
+        "source": "elasticsearch_tpu_torch/csrc/bm25.cu",
+        "replaces": "elasticsearch_tpu/ops/bm25.py:493",
+        "max_abs_err": max(x["max_abs_err"] for x in cases.values()),
+        "ms": c["ms"], "burst_ms": c["burst_ms"], "plain_ms": c["plain_ms"],
+        "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+        "library_ms": c["library_ms"], "board_ms": c["board_ms"],
+        "board_bound_ms": c["board_bound_ms"]}}
+
+
+# ------------------------------------------------------------ serve_hybrid
+
+def msmarco_chunks(seed: int, n: int, dev):
+    """MS MARCO-shaped passages from `seed`: yields (first doc, token ids
+    [T] int32 on `dev`, per-doc word counts) chunks of MSMARCO_CHUNK docs,
+    the words Zipf-drawn (s = 1.0) over MSMARCO_VOCAB, as `w<rank>`."""
+    rng = np.random.default_rng(seed + 8)
+    g = torch.Generator(device=dev).manual_seed(seed + 8)
+    cdf = torch.from_numpy(zipf_cdf()).to(dev)
+    for lo in range(0, n, MSMARCO_CHUNK):
+        m = min(MSMARCO_CHUNK, n - lo)
+        lengths = rng.integers(*MSMARCO_WORDS, size=m)
+        u = torch.rand(int(lengths.sum()), generator=g, device=dev,
+                       dtype=torch.float64)
+        toks = torch.searchsorted(cdf, u).clamp_max(MSMARCO_VOCAB - 1)
+        yield lo, toks.to(torch.int32), lengths
+
+
+WORDS = np.array([f"w{r}" for r in range(MSMARCO_VOCAB)], dtype=object)
+
+
+def passage_texts(toks: np.ndarray, lengths: np.ndarray) -> list:
+    ends = np.cumsum(lengths)
+    return [" ".join(WORDS[toks[e - n:e]]) for e, n in zip(ends, lengths)]
+
+
+def hybrid_body(text, qv: np.ndarray, form: str = "query",
+                operator: Optional[str] = None, generic=None) -> dict:
+    """BASELINE config 3's body: `match` on `body` + `knn` on `emb`,
+    fused by RRF; as `query` + `knn` or as `sub_searches` (with an
+    optional third, generic, sub-search)."""
+    match = {"match": {"body": text if operator is None
+                       else {"query": text, "operator": operator}}}
+    knn = {"field": "emb", "query_vector": qv.tolist(), "k": 10,
+           "num_candidates": 100}
+    if form == "query":
+        return {"query": match, "knn": knn, "rank": {"rrf": {}},
+                "size": 10, "_source": False}
+    subs = [{"query": match}, {"query": {"knn": knn}}]
+    if generic is not None:
+        subs.append({"query": generic})
+    return {"sub_searches": subs, "rank": {"rrf": {}}, "size": 10,
+            "_source": False}
+
+
+def bm25_f64_top(tokens, doc_of, lengths_d, terms, k: int):
+    """The independent oracle: float64 BM25 (k1 1.2, b 0.75) of one
+    query's terms (each occurrence a clause) over the generated token ids
+    on the card; returns (top-k docs by (score desc, doc asc), the scores
+    of every doc)."""
+    n = len(lengths_d)
+    avg = float(lengths_d.sum()) / n
+    score = torch.zeros(n, dtype=torch.float64, device=lengths_d.device)
+    norm = 1.2 * (0.25 + 0.75 * lengths_d / avg)
+    for t in terms:
+        if not t.startswith("w") or not t[1:].isdigit():
+            continue
+        f = torch.bincount(doc_of[tokens == int(t[1:])],
+                           minlength=n).to(torch.float64)
+        df = int((f > 0).sum())
+        if not df:
+            continue
+        idf = np.log(1.0 + (n - df + 0.5) / (df + 0.5))
+        score += idf * 2.2 * f / (f + norm)
+    order = torch.argsort(-score, stable=True)[:k]
+    keep = score[order] > 0
+    return order[keep].cpu().numpy(), score
+
+
+def phase_serve_hybrid(seed: int, n: int, device: str = "cuda") -> dict:
+    """serve_hybrid: BASELINE config 3 (MS MARCO passage, hybrid BM25 +
+    kNN by RRF, 768-d), cut from 8,841,823 to `n` passages. One shard:
+    `body` text (standard analyzer), `emb` 768-d cosine `flat` (the bf16
+    binned kernel), `len` integer; 1,000 passages over `_bulk`, the rest
+    through `IndexService.index_many`, one refresh, the lexical layout
+    built (`LexicalField.sync`). 64 queries of 6 words of a source passage
+    and its embedding plus noise. Gates: each lexical leg's ranked window
+    (100) byte-identical in rows and f32 scores to the same `match` sent
+    alone as `query` through `_search` (the host path; `operator: and`
+    too); its top 10 against an independent float64 BM25 over the same
+    tokens (a difference only among tied or 1-ulp scores at the cut); the
+    kNN leg's recall@10 >= 0.95 against exact f32 numpy; every hybrid
+    response (query + knn and sub_searches forms, `operator: and`, a
+    generic `range` leg, text that analyzes to nothing) equal to host RRF
+    of its legs; one bm25_board launch set a request, and at C = 1 and 8
+    one a batch. Returns the launches."""
+    from elasticsearch_tpu_torch.ops import bm25, dispatch
+    from elasticsearch_tpu_torch.ops import knn_binned as kb
+    from elasticsearch_tpu_torch.search.hybrid_plan import compile_plan
+    from elasticsearch_tpu_torch.server import build_server
+    dev = torch.device(device)
+    name = "msmarco"
+    rng = np.random.default_rng(seed + 9)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    node, server = build_server(device=device, port=0)
+    server.start()
+    total = {bm25.KERNEL: 0, kb.KERNEL_BF16: 0}
+    try:
+        client = Client(server.port)
+        client.ok("PUT", f"/{name}", {
+            "settings": {"number_of_shards": 1},
+            "mappings": {"properties": {
+                "body": {"type": "text", "analyzer": "standard"},
+                "emb": {"type": "dense_vector", "dims": 768,
+                        "similarity": "cosine",
+                        "index_options": {"type": "flat"}},
+                "len": {"type": "integer"}}}})
+        svc = node.index(name)
+        emb = clustered(rng, n, 768)
+        tok_parts, len_parts, clock = [], [], {"data": 0.0, "ingest": 0.0}
+        src_texts = {}
+        first = min(1000, n)
+        for lo, toks, lengths in msmarco_chunks(seed, n, dev):
+            t = time.perf_counter()
+            host_toks = toks.cpu().numpy()
+            texts = passage_texts(host_toks, lengths)
+            tok_parts.append(toks)
+            len_parts.append(lengths)
+            for i in range(lo, lo + len(texts)):
+                if i % (n // 64 + 1) == 7 or i == 7:
+                    src_texts[i] = texts[i - lo]
+            clock["data"] += time.perf_counter() - t
+            t = time.perf_counter()
+            sources = [{"body": txt, "len": int(ln)}
+                       for txt, ln in zip(texts, lengths)]
+            cut = max(first - lo, 0)
+            if cut:
+                ops = []
+                for i in range(lo, lo + cut):
+                    ops += [{"index": {"_id": str(i)}},
+                            dict(sources[i - lo], emb=emb[i].tolist())]
+                if client.ok("POST", f"/{name}/_bulk", ops,
+                             ndjson=True)["errors"]:
+                    raise AssertionError("serve_hybrid: bulk errors")
+                client.ok("POST", f"/{name}/_refresh")
+                probe = src_texts[7].split()
+                hits = client.ok("POST", f"/{name}/_search", {
+                    "query": {"match": {"body": {
+                        "query": " ".join(probe[:8]), "operator": "and"}}},
+                    "size": first, "_source": False})["hits"]["hits"]
+                if not hits or "7" not in {h["_id"] for h in hits}:
+                    raise AssertionError(f"small-index match: {hits}")
+            if len(texts) > cut:
+                svc.index_many([str(i) for i in range(lo + cut,
+                                                      lo + len(texts))],
+                               sources[cut:],
+                               vectors={"emb": emb[lo + cut:lo + len(texts)]})
+            clock["ingest"] += time.perf_counter() - t
+        t = time.perf_counter()
+        client.ok("POST", f"/{name}/_refresh")
+        clock["ingest"] += time.perf_counter() - t
+        tokens = torch.cat(tok_parts)
+        del tok_parts
+        lengths = np.concatenate(len_parts)
+        doc_of = torch.repeat_interleave(
+            torch.arange(n, device=dev, dtype=torch.int32),
+            torch.from_numpy(lengths).to(dev))
+        lengths_d = torch.from_numpy(lengths).to(dev).to(torch.float64)
+
+        ex = node._hybrid_executor(svc)
+        reader = svc.combined_reader()
+        t = time.perf_counter()
+        lf = ex.lexical.field(reader, "body")
+        build_s = time.perf_counter() - t
+
+        # queries: 6 words of a source passage, its embedding + noise
+        srcs = sorted(src_texts)[:64]
+        q_text = [" ".join(rng.choice(src_texts[i].split(),
+                                      MSMARCO_QUERY_WORDS, replace=False))
+                  for i in srcs]
+        q_emb = emb[srcs] + 0.3 * rng.standard_normal(
+            (len(srcs), 768)).astype(np.float32)
+        truth = exact_top(emb, q_emb, 10, "cosine")
+        mapper = svc.mapper_service.get("body")
+
+        # the host path: `match` alone through `_search`
+        dispatch.reset_launches()
+        match_lat, host_hits = [], []
+        for text in q_text:
+            t = time.perf_counter()
+            resp = client.ok("POST", f"/{name}/_search", {
+                "query": {"match": {"body": text}}, "size": BM25_WINDOW,
+                "_source": False})
+            match_lat.append((time.perf_counter() - t) * 1e3)
+            host_hits.append(resp["hits"]["hits"])
+        if any(dispatch.launches().values()):
+            raise AssertionError(f"serve_hybrid: the host match launched "
+                                 f"{dispatch.launches()}")
+
+        # the lexical leg: byte-identical to the host path; the f64 oracle
+        leg_lat, ties, ulp_cuts = [], 0, 0
+        for qi, text in enumerate(q_text):
+            terms = mapper.search_analyzer.terms(text)
+            t = time.perf_counter()
+            (rows, scores), = ex.lexical.search_batch(
+                reader, "body", [(terms, 1.0)], BM25_WINDOW)
+            leg_lat.append((time.perf_counter() - t) * 1e3)
+            want = host_hits[qi]
+            if [reader.get_id(int(r)) for r in rows] \
+                    != [h["_id"] for h in want] or not np.array_equal(
+                        scores.view(np.int32),
+                        np.asarray([h["_score"] for h in want],
+                                   dtype=np.float32).view(np.int32)):
+                raise AssertionError(f"serve_hybrid query {qi}: the "
+                                     f"lexical leg differs from `_search`")
+            ties += int((np.diff(scores) == 0).sum())
+            top64, s64 = bm25_f64_top(tokens, doc_of, lengths_d, terms, 10)
+            mine = rows[:10]
+            tenth = float(s64[int(top64[-1])])
+            for doc in set(mine.tolist()) ^ set(top64.tolist()):
+                if abs(float(s64[doc]) - tenth) > 2e-6 * tenth:
+                    raise AssertionError(
+                        f"serve_hybrid query {qi}: doc {doc} "
+                        f"(f64 {float(s64[doc])}) against the f64 top 10's "
+                        f"cut {tenth}")
+                ulp_cuts += 1
+            err = np.abs(scores[:10].astype(np.float64)
+                         - s64[torch.from_numpy(mine).to(dev)].cpu().numpy())
+            if (err > 1e-5 * np.abs(scores[:10])).any():
+                raise AssertionError(f"serve_hybrid query {qi}: f32 scores "
+                                     f"{scores[:10]} off the f64 oracle")
+
+        # `operator: and`: the leg against `_search` likewise
+        for qi, text in enumerate(q_text[:16]):
+            terms = mapper.search_analyzer.terms(text)
+            (rows, scores), = ex.lexical.search_batch(
+                reader, "body", [(terms, 1.0)], BM25_WINDOW,
+                required=[len(terms)])
+            want = client.ok("POST", f"/{name}/_search", {
+                "query": {"match": {"body": {"query": text,
+                                             "operator": "and"}}},
+                "size": BM25_WINDOW, "_source": False})["hits"]["hits"]
+            if [reader.get_id(int(r)) for r in rows] \
+                    != [h["_id"] for h in want] or not np.array_equal(
+                        scores.view(np.int32),
+                        np.asarray([h["_score"] for h in want],
+                                   dtype=np.float32).view(np.int32)):
+                raise AssertionError(f"serve_hybrid and-query {qi}: the "
+                                     f"lexical leg differs from `_search`")
+
+        # hybrid requests over HTTP, each against host RRF of its legs
+        bodies = [hybrid_body(t, qv) for t, qv in zip(q_text, q_emb)]
+        client.ok("POST", f"/{name}/_search", bodies[0])    # warm-up
+        ex0 = dict(ex.stats)
+        dispatch.reset_launches()
+        lat, responses = [], []
+        for body in bodies:
+            t = time.perf_counter()
+            responses.append(client.ok("POST", f"/{name}/_search",
+                                       body)["hits"])
+            lat.append((time.perf_counter() - t) * 1e3)
+        launches = {k: c for k, c in dispatch.launches().items() if c}
+        want = {bm25.KERNEL: len(bodies), kb.KERNEL_BF16: len(bodies)}
+        if launches != want:
+            raise AssertionError(f"serve_hybrid: launches {launches} for "
+                                 f"{len(bodies)} requests; expected {want}")
+        for key, c in launches.items():
+            total[key] += c
+        stages = {k: (ex.stats[k] - ex0[k]) / len(bodies) / 1e6
+                  for k in ("plan_nanos", "score_nanos", "fuse_nanos",
+                            "hydrate_nanos")}
+        extra = [hybrid_body(q_text[i], q_emb[i], form="sub_searches")
+                 for i in range(8)]
+        extra += [hybrid_body(q_text[8], q_emb[8], operator="and"),
+                  hybrid_body(q_text[9], q_emb[9], form="sub_searches",
+                              generic={"range": {"len": {"gte": 56}}}),
+                  hybrid_body("!!! ?? ...", q_emb[10])]
+        host, knn_rows = [], []
+        for bi, body in enumerate(bodies + extra):
+            got = responses[bi] if bi < len(bodies) else \
+                client.ok("POST", f"/{name}/_search", body)["hits"]
+            plan = compile_plan(body, svc.mapper_service)
+            legs = ex.score_legs(reader, [plan], [plan.bind(body)])[0]
+            rows, scores = _host_rrf(legs)
+            want_ids = [reader.get_id(r) for r in rows[:10]]
+            if [h["_id"] for h in got["hits"]] != want_ids \
+                    or [h["_score"] for h in got["hits"]] != scores[:10] \
+                    or got["total"]["value"] != len(rows):
+                raise AssertionError(f"serve_hybrid body {bi}: differs from "
+                                     f"host RRF of its legs")
+            if bi < len(bodies):
+                host.append((want_ids, scores[:10], len(rows)))
+                knn_rows.append(legs[1][:10])
+        if len(legs[0]):
+            raise AssertionError("serve_hybrid: text that analyzes to "
+                                 "nothing gave lexical hits")
+        recall = float(np.mean([
+            len({int(reader.get_id(int(r))) for r in rows}
+                & set(t.tolist())) / 10
+            for rows, t in zip(knn_rows, truth)]))
+        if recall < 0.95:
+            raise AssertionError(f"serve_hybrid kNN leg recall@10 {recall} "
+                                 f"< 0.95")
+
+        # every body's legs as one batch: one board for the batch
+        dispatch.reset_launches()
+        plans = [compile_plan(b, svc.mapper_service) for b in bodies]
+        ex.score_legs(reader, plans, [p.bind(b)
+                                      for p, b in zip(plans, bodies)])
+        batched = dispatch.launches().get(bm25.KERNEL, 0)
+        if batched != 1:
+            raise AssertionError(f"serve_hybrid: {batched} bm25_board launch "
+                                 f"sets for one batch of {len(bodies)}")
+        fields = dict(
+            docs=n, vocab=MSMARCO_VOCAB, tokens=int(lengths.sum()),
+            data_s=f"{clock['data']:.2f}", ingest_s=f"{clock['ingest']:.2f}",
+            lexical_build_s=f"{build_s:.2f}", tiles=len(lf.tile_slots),
+            postings=lf.nnz, tile_gb=f"{lf.nbytes() / 1e9:.3f}",
+            requests=len(bodies),
+            match_p50_ms=f"{statistics.median(match_lat):.3f}",
+            hybrid_p50_ms=f"{statistics.median(lat):.3f}",
+            lexical_leg_p50_ms=f"{statistics.median(leg_lat):.3f}",
+            recall_at_10=recall, window_ties=ties, f64_cut_ulps=ulp_cuts,
+            launches_per_request=json.dumps(
+                {k: c / len(bodies) for k, c in launches.items()}))
+        for stage, ms in stages.items():
+            fields[f"{stage.split('_')[0]}_stage_ms"] = f"{ms:.4f}"
+        if dev.type == "cuda":
+            fields["device_peak_gb"] = \
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        fields["host_peak_rss_gb"] = (f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.2f}")
+        log("serve_hybrid", **fields)
+        del tokens, doc_of
+
+        # concurrent clients: batch-1 answers exactly, one board a batch
+        def check(qi, payload):
+            hits = payload["hits"]
+            if hits["total"]["value"] != host[qi][2]:
+                raise AssertionError(f"{name} query {qi}: total "
+                                     f"{hits['total']} against {host[qi][2]}")
+            return against_batch1(f"{name} query {qi}",
+                                  [h["_id"] for h in hits["hits"]],
+                                  [h["_score"] for h in hits["hits"]],
+                                  host[qi][0], host[qi][1], 0.0)
+
+        batches0 = ex.batcher.sched["batches"]
+        conc = serve_concurrent(
+            name, server.port, f"/{name}/_search", bodies, (1, 8),
+            2 * len(bodies), check, lambda: dict(ex.batcher.sched),
+            (ex.batcher, "_dispatch_fn", 0),
+            {f"{kb.KERNEL_BF16}/{kb.VARIANT_TMA}"})
+        batches = ex.batcher.sched["batches"] - batches0
+        if conc.get(bm25.KERNEL, 0) != batches:
+            raise AssertionError(f"serve_hybrid concurrent: "
+                                 f"{conc.get(bm25.KERNEL, 0)} bm25_board "
+                                 f"launch sets for {batches} batches")
+        for key, c in conc.items():
+            total[key] = total.get(key, 0) + c
+        log("serve_hybrid", concurrent_batches=batches,
+            bm25_launch_sets=conc.get(bm25.KERNEL, 0))
+        drop_index(node, name)
+    finally:
+        server.stop()
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1234)
@@ -2805,6 +3398,11 @@ def main(argv=None) -> int:
                     help="build and run only serve_sharded (no final ok "
                          "line): its ingest, memory and latency at "
                          "--n-sharded rows")
+    ap.add_argument("--n-msmarco", type=int, default=N_MSMARCO)
+    ap.add_argument("--hybrid-only", action="store_true",
+                    help="build, check bm25_board and run only "
+                         "serve_hybrid at --n-msmarco passages (no final "
+                         "ok line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2828,9 +3426,18 @@ def main(argv=None) -> int:
     if args.sharded_only:
         phase_serve_sharded(args.seed, args.n_sharded, smi=smi)
         return 0
+    if args.hybrid_only:
+        kernels = phase_bm25_kernel(args.seed, torch.device("cuda"))
+        launches = phase_serve_hybrid(args.seed, args.n_msmarco)
+        for name, entry in kernels.items():
+            entry["launches"] = launches[name]
+        print(json.dumps({"kernels": list(kernels.values())}))
+        print(smi)
+        return 0
     kernels = phase_binned_kernels(args.seed, torch.device("cuda"))
     kernels.update(phase_ivf_kernels(args.seed, torch.device("cuda")))
     kernels.update(phase_maxsim_kernels(args.seed, torch.device("cuda")))
+    kernels.update(phase_bm25_kernel(args.seed, torch.device("cuda")))
     launches = phase_serve(args.seed, args.n_sift, args.n_cohere)
     one_shard = {}
     launches.update(phase_serve_ivf(args.seed, args.n_gist,
@@ -2838,7 +3445,8 @@ def main(argv=None) -> int:
     for phase in (phase_serve_colbert(args.seed, args.n_colbert),
                   phase_serve_filtered(args.seed, args.n_laion),
                   phase_serve_sharded(args.seed, args.n_sharded, smi=smi,
-                                      one_shard=one_shard)):
+                                      one_shard=one_shard),
+                  phase_serve_hybrid(args.seed, args.n_msmarco)):
         for name, count in phase.items():
             launches[name] = launches.get(name, 0) + count
     for name, entry in kernels.items():

@@ -16,7 +16,11 @@ The slices served here, end to end from the REST server:
   sub-search inside a hybrid `rank: {rrf}` `_search` beside a `knn` leg
   (`search/hybrid_plan.py` → `vectors/late_interaction.py`: a coarse search
   over pooled centroids, then the MaxSim kernels of `csrc/maxsim.cu`), and
-  a plain `query: {late_interaction}` through the exact host walker.
+  a plain `query: {late_interaction}` through the exact host walker;
+- BM25 text search: `text` fields (`index/analysis.py`) and the text
+  queries of `search/queries.py` on the host (`native/`), and hybrid
+  `rank: {rrf}` bodies whose `match` / `term` legs score in one BM25 board
+  a batch on the card (`ops/bm25.py` → `csrc/bm25.cu`), beside a kNN leg.
 """
 
 from __future__ import annotations

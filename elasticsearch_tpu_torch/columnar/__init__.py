@@ -1,1 +1,1 @@
-"""Port of the token blocks of `elasticsearch_tpu/columnar`."""
+"""Port of the token and postings blocks of `elasticsearch_tpu/columnar`."""

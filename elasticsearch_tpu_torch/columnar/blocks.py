@@ -1,5 +1,11 @@
-"""Per-segment token blocks of `rank_vectors` fields (port of the token
-part of `elasticsearch_tpu/columnar/blocks.py`).
+"""Per-segment token blocks of `rank_vectors` fields and postings blocks
+of text fields (port of the token and postings parts of
+`elasticsearch_tpu/columnar/blocks.py`).
+
+A `PostingsBlock` is one segment's live postings of one text field in
+dense live-slot space (live docs renumbered 0..n_live-1 in ascending
+local order), the input of the BM25 impact layout (`ops/bm25.py`), kept
+in CSR form: one array a field, not an array pair a term.
 
 A `TokenVectorBlock` is one segment's live token matrices of one field,
 metric-prepped and codec-encoded through `quant/tokens.py`, with the pooled
@@ -114,3 +120,53 @@ def extract_token_vector_block(view, field: str, variant: tuple
     return TokenVectorBlock(
         fp, np.concatenate(data_parts), np.concatenate(scale_parts), counts,
         np.stack(pooled), keep.astype(np.int64) + seg.base, dims)
+
+
+class PostingsBlock:
+    """One segment's live postings of one text field: `terms` sorted,
+    term j's live slots (ascending) and freqs at starts[j]:starts[j + 1],
+    `lengths` [n_live] f32 field lengths. Terms without a live posting are
+    left out."""
+
+    __slots__ = ("fingerprint", "terms", "starts", "slots", "freqs",
+                 "lengths", "n_live", "nbytes")
+
+    def __init__(self, fp: tuple, terms, starts, slots, freqs, lengths,
+                 n_live: int):
+        self.fingerprint = fp
+        self.terms = terms
+        self.starts = starts
+        self.slots = slots
+        self.freqs = freqs
+        self.lengths = lengths
+        self.n_live = n_live
+        self.nbytes = (starts.nbytes + slots.nbytes + freqs.nbytes
+                       + lengths.nbytes)
+
+
+def extract_postings_block(view, field: str) -> PostingsBlock:
+    """The live postings of `field` in one segment view, renumbered to
+    live slots (the reference's `SegmentView.live_postings`)."""
+    seg = view.segment
+    live = view.live
+    n_live = int(live.sum())
+    slot_of = np.cumsum(live, dtype=np.int64) - 1
+    fl = seg.field_lengths.get(field)
+    lengths = (fl[live].astype(np.float32) if fl is not None
+               else np.zeros(n_live, dtype=np.float32))
+    fp = seg.postings.get(field)
+    if fp is None:
+        return PostingsBlock(fingerprint(view), np.zeros(0, dtype=str),
+                             np.zeros(1, dtype=np.int64),
+                             np.zeros(0, dtype=np.int32),
+                             np.zeros(0, dtype=np.int32), lengths, n_live)
+    keep = live[fp.doc_ids]
+    per_term = np.add.reduceat(keep.astype(np.int64), fp.starts[:-1]) \
+        if len(fp.doc_ids) else np.zeros(len(fp.terms), dtype=np.int64)
+    has = per_term > 0
+    starts = np.zeros(int(has.sum()) + 1, dtype=np.int64)
+    np.cumsum(per_term[has], out=starts[1:])
+    return PostingsBlock(
+        fingerprint(view), fp.terms[has], starts,
+        slot_of[fp.doc_ids[keep]].astype(np.int32), fp.freqs[keep],
+        lengths, n_live)

@@ -7,7 +7,11 @@ listeners (the vector store syncs there). Vectors travel as numpy blocks:
 `index_many` takes a whole batch, optionally with its vectors as one
 [n, dims] array per field, which is how a million-document shard loads.
 Keyword, numeric and boolean values are parsed from each `_source`; the
-seal builds their postings and doc-values columns with numpy. A document's
+seal builds their postings and doc-values columns with numpy. Text values
+are analyzed (`TextFieldMapper.analyze_positions`); their tokens enter
+the buffer as integer codes of a per-field vocabulary with their
+positions, and the seal builds the positional postings and the field
+lengths from those arrays. A document's
 `_source` is kept as it was sent; vectors given as arrays (a numpy row in
 a source, or `vectors=` / `token_vectors=`) have no JSON to keep and are
 rendered from their blocks. A document's routing value, when it has one,
@@ -18,6 +22,7 @@ This slice has no translog and no flush: nothing survives the process.
 
 from __future__ import annotations
 
+import itertools
 import threading
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -65,6 +70,31 @@ class _Buffer:
         # field -> ([local doc a term], [term]) and ([local doc], [value])
         self.terms: Dict[str, Tuple[list, list]] = {}
         self.doc_values: Dict[str, Tuple[list, list]] = {}
+        # text field -> its vocabulary (term -> code), its token arrays
+        # [(local docs, codes, positions)] and its [(local docs, lengths)]
+        self.vocab: Dict[str, Dict[str, int]] = {}
+        self.text: Dict[str, list] = {}
+        self.lengths: Dict[str, list] = {}
+
+    def add_text(self, start: int, text: Dict[str, tuple]) -> None:
+        """Append a batch's text fields: field -> (batch positions of the
+        docs, their term lists, their position lists, their lengths)."""
+        for field, (pos, terms, positions, lengths) in text.items():
+            vocab = self.vocab.setdefault(field, {})
+            counts = np.fromiter(map(len, terms), dtype=np.int64,
+                                 count=len(terms))
+            docs = np.repeat(np.asarray(pos, dtype=np.int64) + start, counts)
+            flat = list(itertools.chain.from_iterable(terms))
+            for t in dict.fromkeys(flat):       # the batch's words, once
+                vocab.setdefault(t, len(vocab))
+            codes = np.fromiter(map(vocab.__getitem__, flat), dtype=np.int32,
+                                count=len(flat))
+            flat_pos = np.fromiter(itertools.chain.from_iterable(positions),
+                                   dtype=np.int32, count=len(flat))
+            self.text.setdefault(field, []).append((docs, codes, flat_pos))
+            self.lengths.setdefault(field, []).append(
+                (np.asarray(pos, dtype=np.int64) + start,
+                 np.asarray(lengths, dtype=np.int32)))
 
     def add(self, ids, sources, routings, vectors, tokens, terms,
             doc_values) -> int:
@@ -140,12 +170,24 @@ class _Buffer:
             vectors[field] = (mat, present)
         postings = {f: FieldPostings.build(np.asarray(docs), terms)
                     for f, (docs, terms) in self.terms.items()}
+        for field, parts in self.text.items():
+            postings[field] = FieldPostings.build_text(
+                *(np.concatenate([p[i] for p in parts]) for i in range(2)),
+                list(self.vocab[field]),
+                np.concatenate([p[2] for p in parts]))
+        field_lengths = {}
+        for field, parts in self.lengths.items():
+            fl = np.zeros(n, dtype=np.int32)
+            for docs, lengths in parts:
+                fl[docs] = lengths
+            field_lengths[field] = fl
         doc_values = {f: DocValuesColumn.build(n, np.asarray(docs), vals)
                       for f, (docs, vals) in self.doc_values.items()}
         routings = (self.routings if any(r is not None for r in self.routings)
                     else None)
         return Segment(self.seg_id, self.base, self.ids, self.sources, vectors,
-                       self._seal_tokens(n), postings, doc_values, routings)
+                       self._seal_tokens(n), postings, doc_values, routings,
+                       field_lengths)
 
 
 class Engine:
@@ -212,6 +254,7 @@ class Engine:
             if f not in columns and f not in token_columns}
         terms: Dict[str, Tuple[list, list]] = {}
         doc_values: Dict[str, Tuple[list, list]] = {}
+        text: Dict[str, Tuple[list, list, list, list]] = {}
         for i, src in enumerate(sources):
             if src is None:
                 stored.append(None)
@@ -220,6 +263,12 @@ class Engine:
             for field, vec in parsed.vectors.items():
                 if field in per_field:
                     per_field[field].append((i, vec))
+            for field, length in parsed.field_lengths.items():
+                pos, ts, ps, lens = text.setdefault(field, ([], [], [], []))
+                pos.append(i)
+                ts.append(parsed.terms.pop(field, []))
+                ps.append(parsed.term_positions[field])
+                lens.append(length)
             for field, ts in parsed.terms.items():
                 pos, vals = terms.setdefault(field, ([], []))
                 pos.extend([i] * len(ts))
@@ -258,6 +307,7 @@ class Engine:
                 self._next_seg_id += 1
             start = self._buffer.add(list(ids), stored, routings, columns,
                                      token_columns, terms, doc_values)
+            self._buffer.add_text(start, text)
             self._next_row += n
             out = []
             for i, doc_id in enumerate(ids):
@@ -273,6 +323,15 @@ class Engine:
                     doc_id, seq_no, PRIMARY_TERM, version,
                     "created" if existing is None else "updated", row))
             return out
+
+    def fail_seq_no(self) -> int:
+        """Take one seq_no and apply nothing: a document that fails to
+        parse after the primary gave it its seq_no, as in the reference
+        (its engine assigns the seq_no before it parses)."""
+        with self._lock:
+            seq_no = self._next_seq_no
+            self._next_seq_no += 1
+            return seq_no
 
     @staticmethod
     def _token_column(field: str, token_mappers, value, n: int) -> tuple:

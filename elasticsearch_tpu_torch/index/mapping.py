@@ -1,6 +1,11 @@
 """Field mappers for the served slices (port of the `dense_vector`,
-`rank_vectors`, `keyword`, numeric and `boolean` subset of
+`rank_vectors`, `text`, `keyword`, numeric and `boolean` subset of
 `elasticsearch_tpu/index/mapping.py`).
+
+`text` takes `analyzer` and `search_analyzer` (the built-in, language and
+the index's own `index.analysis.*` analyzers, through the index's
+`AnalysisRegistry`); its values index analyzed terms with their positions
+and the field's length a document, and it keeps no doc values.
 
 `dense_vector` takes dims, similarity, and `index_options` with `type`
 (`flat`, `int8_flat`, `int4_flat`, `ivf`, `int8_ivf`, `int4_ivf`), `nlist`,
@@ -26,6 +31,7 @@ import numpy as np
 from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentError, MapperParsingError,
 )
+from elasticsearch_tpu_torch.index.analysis import AnalysisRegistry
 
 
 class FieldMapper:
@@ -60,6 +66,29 @@ class KeywordFieldMapper(FieldMapper):
 
     def doc_value(self, value):
         return str(value)
+
+
+class TextFieldMapper(FieldMapper):
+    type_name = "text"
+
+    def __init__(self, name, params=None,
+                 registry: Optional[AnalysisRegistry] = None):
+        super().__init__(name, params)
+        if registry is None:
+            from elasticsearch_tpu_torch.index import analysis
+            registry = analysis.DEFAULT_REGISTRY
+        self.analyzer = registry.get(self.params.get("analyzer", "standard"))
+        self.search_analyzer = registry.get(self.params.get(
+            "search_analyzer", self.params.get("analyzer", "standard")))
+
+    def analyze(self, value) -> List[str]:
+        return self.analyzer.terms(str(value))
+
+    def analyze_positions(self, value):
+        return self.analyzer.analyze(str(value))
+
+    def index_terms(self, value):
+        return self.analyze(value)
 
 
 class _NumericMapper(FieldMapper):
@@ -298,13 +327,14 @@ class RankVectorsFieldMapper(FieldMapper):
 
 
 FIELD_TYPES = {m.type_name: m for m in (
-    KeywordFieldMapper, LongFieldMapper, IntegerFieldMapper,
+    TextFieldMapper, KeywordFieldMapper, LongFieldMapper, IntegerFieldMapper,
     ShortFieldMapper, ByteFieldMapper, DoubleFieldMapper, FloatFieldMapper,
     HalfFloatFieldMapper, ScaledFloatFieldMapper, BooleanFieldMapper,
     DenseVectorFieldMapper, RankVectorsFieldMapper)}
 
 
-def build_mapper(name: str, definition: dict) -> FieldMapper:
+def build_mapper(name: str, definition: dict,
+                 registry: Optional[AnalysisRegistry] = None) -> FieldMapper:
     if name.rpartition(".")[2] == "":
         raise IllegalArgumentError("field name cannot be an empty string")
     t = definition.get("type")
@@ -314,15 +344,21 @@ def build_mapper(name: str, definition: dict) -> FieldMapper:
     if cls is None:
         raise MapperParsingError(
             f"No handler for type [{t}] declared on field [{name}]")
-    return cls(name, {k: v for k, v in definition.items() if k != "type"})
+    params = {k: v for k, v in definition.items() if k != "type"}
+    if cls is TextFieldMapper:
+        return cls(name, params, registry=registry)
+    return cls(name, params)
 
 
 class MapperService:
     """The (additive-only) mapping of one index."""
 
-    def __init__(self, mapping: Optional[dict] = None):
+    def __init__(self, mapping: Optional[dict] = None,
+                 registry: Optional[AnalysisRegistry] = None):
         self._mappers: Dict[str, FieldMapper] = {}
         self.source_enabled = True
+        # the index's analyzers (`AnalysisRegistry.from_index_settings`)
+        self.registry = registry
         if mapping:
             self.merge(mapping)
 
@@ -338,7 +374,7 @@ class MapperService:
             if not isinstance(definition, dict):
                 raise MapperParsingError(
                     f"invalid mapping definition for [{name}]")
-            mapper = build_mapper(name, definition)
+            mapper = build_mapper(name, definition, self.registry)
             existing = self._mappers.get(name)
             if existing is not None and existing.type_name != mapper.type_name:
                 raise IllegalArgumentError(
@@ -348,6 +384,9 @@ class MapperService:
 
     def get(self, path: str) -> Optional[FieldMapper]:
         return self._mappers.get(path)
+
+    def all_mappers(self):
+        return list(self._mappers.items())
 
     def vector_fields(self) -> Dict[str, DenseVectorFieldMapper]:
         return {p: m for p, m in self._mappers.items()
@@ -360,9 +399,10 @@ class MapperService:
     def parse_document(self, source: dict) -> "ParsedFields":
         """The document's mapped values, validated: dense_vector values as
         f32 rows, rank_vectors values as f32 [n_tokens, dims] matrices, and
-        every other mapped field's index terms and doc value (a list holds
-        several values; one value stays a scalar), as the reference's
-        `DocumentParser` makes them."""
+        text values as analyzed terms with their positions and the field's
+        length, and every other mapped field's index terms and doc value (a
+        list holds several values; one value stays a scalar), as the
+        reference's `DocumentParser` makes them."""
         if not isinstance(source, dict):
             raise MapperParsingError("document source must be an object")
         parsed = ParsedFields()
@@ -391,6 +431,16 @@ class MapperService:
     @staticmethod
     def _index_one(field: str, mapper: FieldMapper, v: Any,
                    parsed: "ParsedFields") -> None:
+        if isinstance(mapper, TextFieldMapper):
+            # a later value of a multi-valued field continues the
+            # positions where the one before ended
+            tokens = mapper.analyze_positions(v)
+            base = parsed.field_lengths.get(field, 0)
+            parsed.terms.setdefault(field, []).extend([t[0] for t in tokens])
+            parsed.term_positions.setdefault(field, []).extend(
+                [base + t[1] for t in tokens])
+            parsed.field_lengths[field] = base + len(tokens)
+            return
         try:
             terms = mapper.index_terms(v)
             dv = mapper.doc_value(v)
@@ -419,11 +469,16 @@ class MapperService:
 class ParsedFields:
     """One document's mapped values: field -> vector (or token matrix),
     field -> index terms (duplicates kept, for term frequencies), field ->
-    doc value (a scalar, or a list for a multi-valued field)."""
+    doc value (a scalar, or a list for a multi-valued field); for text
+    fields, field -> each term's position (parallel to its terms) and
+    field -> token count."""
 
-    __slots__ = ("vectors", "terms", "doc_values")
+    __slots__ = ("vectors", "terms", "doc_values", "term_positions",
+                 "field_lengths")
 
     def __init__(self):
         self.vectors: Dict[str, np.ndarray] = {}
         self.terms: Dict[str, List[str]] = {}
         self.doc_values: Dict[str, Any] = {}
+        self.term_positions: Dict[str, List[int]] = {}
+        self.field_lengths: Dict[str, int] = {}

@@ -17,7 +17,10 @@ each shard's segments by shard_id * 2^40 (`indices/service.py`).
 Keyword, numeric and boolean fields keep term postings (ascending local
 doc ids and term frequencies) and a doc-values column (the values, and
 for numerics a float64 view with a presence mask), which the filter
-queries (`search/queries.py`) read.
+queries (`search/queries.py`) read. Text fields keep term postings with
+each occurrence's position, and each document's field length (its token
+count) with the segment's total, which BM25 (`search/queries.py`,
+`ops/bm25.py`) reads through the reader's statistics.
 """
 
 from __future__ import annotations
@@ -71,17 +74,28 @@ class DocValuesColumn:
 
 
 class Postings:
-    """Term postings within one segment: ascending local doc ids + freqs."""
+    """Term postings within one segment: ascending local doc ids + freqs,
+    and for a text field each doc's positions: doc i's are
+    pos[pos_starts[i]:pos_starts[i + 1]] (`positions` is None without)."""
 
-    __slots__ = ("doc_ids", "freqs")
+    __slots__ = ("doc_ids", "freqs", "positions")
 
-    def __init__(self, doc_ids: np.ndarray, freqs: np.ndarray):
+    def __init__(self, doc_ids: np.ndarray, freqs: np.ndarray,
+                 positions: Optional[Tuple[np.ndarray, np.ndarray]] = None):
         self.doc_ids = doc_ids
         self.freqs = freqs
+        self.positions = positions
 
     @property
     def doc_freq(self) -> int:
         return len(self.doc_ids)
+
+    def doc_positions(self, i: int) -> Optional[List[int]]:
+        """The positions of the term in the i-th doc of the list."""
+        if self.positions is None:
+            return None
+        pos, starts = self.positions
+        return pos[starts[i]:starts[i + 1]].tolist()
 
 
 class FieldPostings:
@@ -91,14 +105,20 @@ class FieldPostings:
     a Postings object a term, keeps a million of them cheap to build and
     hold."""
 
-    __slots__ = ("terms", "starts", "doc_ids", "freqs")
+    __slots__ = ("terms", "starts", "doc_ids", "freqs", "pos", "pos_starts")
 
     def __init__(self, terms: np.ndarray, starts: np.ndarray,
-                 doc_ids: np.ndarray, freqs: np.ndarray):
+                 doc_ids: np.ndarray, freqs: np.ndarray,
+                 pos: Optional[np.ndarray] = None,
+                 pos_starts: Optional[np.ndarray] = None):
         self.terms = terms
         self.starts = starts
         self.doc_ids = doc_ids
         self.freqs = freqs
+        # text fields: posting j's positions are pos[pos_starts[j]:
+        # pos_starts[j + 1]], in the order the analyzer gave them
+        self.pos = pos
+        self.pos_starts = pos_starts
 
     @classmethod
     def build(cls, locals_: np.ndarray, terms: List[str]) -> "FieldPostings":
@@ -117,19 +137,53 @@ class FieldPostings:
         starts = np.append(np.nonzero(new_term[pair_at])[0], len(pair_at))
         return cls(t[new_term], starts.astype(np.int64), docs[pair_at], freqs)
 
+    @classmethod
+    def build_text(cls, locals_: np.ndarray, codes: np.ndarray,
+                   vocab: List[str], positions: np.ndarray
+                   ) -> "FieldPostings":
+        """From parallel (local doc, term code, position) token
+        occurrences, code c naming vocab[c]: the postings with each
+        (term, doc)'s positions in occurrence order. Only the vocabulary
+        is sorted as strings; the tokens sort by integer keys."""
+        words = np.asarray(vocab, dtype=str)
+        word_order = np.argsort(words, kind="stable")
+        rank = np.empty(len(words), dtype=np.int64)
+        rank[word_order] = np.arange(len(words))
+        key = (rank[np.asarray(codes, dtype=np.int64)] << 32) \
+            | np.asarray(locals_, dtype=np.int64)
+        order = np.argsort(key, kind="stable")
+        key = key[order]
+        new_pair = np.ones(len(key), dtype=bool)
+        new_pair[1:] = key[1:] != key[:-1]
+        pair_at = np.nonzero(new_pair)[0]
+        pair_key = key[pair_at]
+        pair_rank = pair_key >> 32
+        new_term = np.ones(len(pair_at), dtype=bool)
+        new_term[1:] = pair_rank[1:] != pair_rank[:-1]
+        freqs = np.diff(np.append(pair_at, len(key))).astype(np.int32)
+        starts = np.append(np.nonzero(new_term)[0], len(pair_at))
+        return cls(words[word_order[pair_rank[new_term]]],
+                   starts.astype(np.int64),
+                   (pair_key & 0xFFFFFFFF).astype(np.int32), freqs,
+                   np.asarray(positions, dtype=np.int32)[order],
+                   np.append(pair_at, len(key)).astype(np.int64))
+
     def get(self, term: str) -> Optional[Postings]:
         j = int(np.searchsorted(self.terms, term))
         if j >= len(self.terms) or self.terms[j] != term:
             return None
         lo, hi = self.starts[j], self.starts[j + 1]
-        return Postings(self.doc_ids[lo:hi], self.freqs[lo:hi])
+        positions = None if self.pos is None else \
+            (self.pos, self.pos_starts[lo:hi + 1])
+        return Postings(self.doc_ids[lo:hi], self.freqs[lo:hi], positions)
 
 
 class Segment:
     """Immutable sealed segment."""
 
     __slots__ = ("seg_id", "base", "num_docs", "ids", "sources", "vectors",
-                 "tokens", "postings", "doc_values", "routings")
+                 "tokens", "postings", "doc_values", "routings",
+                 "field_lengths", "total_terms")
 
     def __init__(self, seg_id: int, base: int, ids: List[str],
                  sources: List[Optional[dict]],
@@ -138,7 +192,8 @@ class Segment:
                                                   np.ndarray]]] = None,
                  postings: Optional[Dict[str, FieldPostings]] = None,
                  doc_values: Optional[Dict[str, DocValuesColumn]] = None,
-                 routings: Optional[List[Optional[str]]] = None):
+                 routings: Optional[List[Optional[str]]] = None,
+                 field_lengths: Optional[Dict[str, np.ndarray]] = None):
         self.seg_id = seg_id
         self.base = base                # global row id of local doc 0
         self.num_docs = len(ids)
@@ -152,6 +207,10 @@ class Segment:
         self.doc_values = doc_values or {}    # field -> DocValuesColumn
         # local doc -> its routing value; None when no doc has one
         self.routings = routings
+        # text field -> int32 [num_docs] token counts, and their sum
+        self.field_lengths = field_lengths or {}
+        self.total_terms = {f: int(fl.sum())
+                            for f, fl in self.field_lengths.items()}
 
     def get_postings(self, field: str, term: str) -> Optional[Postings]:
         f = self.postings.get(field)
@@ -218,13 +277,38 @@ class ShardReader:
         return np.concatenate(parts).astype(np.int64)
 
     def docs_with_field_count(self, field: str) -> int:
-        """Live documents holding a doc value of `field`."""
+        """Live documents holding `field`: a text field's with a token,
+        another field's with a doc value."""
         total = 0
         for v in self.views:
+            fl = v.segment.field_lengths.get(field)
+            if fl is not None:
+                total += int((v.live & (fl > 0)).sum())
+                continue
             dv = v.segment.doc_values.get(field)
             if dv is not None:
                 total += int((v.live & dv.present).sum())
         return total
+
+    def doc_freq(self, field: str, term: str) -> int:
+        """Live documents holding `term` in `field`."""
+        total = 0
+        for v in self.views:
+            p = v.segment.get_postings(field, term)
+            if p is not None:
+                total += int(v.live[p.doc_ids].sum())
+        return total
+
+    def total_term_count(self, field: str) -> int:
+        """Tokens of `field` over the segments, deleted documents
+        included, as the reference counts them."""
+        return sum(v.segment.total_terms.get(field, 0) for v in self.views)
+
+    def avg_field_length(self, field: str) -> float:
+        docs = self.docs_with_field_count(field)
+        if docs == 0:
+            return 0.0
+        return self.total_term_count(field) / docs
 
     def vector_rows(self, field: str) -> Tuple[np.ndarray, np.ndarray]:
         """(matrix [m, d] f32, row_map [m] global rows) of the live documents

@@ -23,6 +23,7 @@ import numpy as np
 
 from elasticsearch_tpu_torch.cluster.routing import shard_id_for, shard_ids_for
 from elasticsearch_tpu_torch.common.errors import IllegalArgumentError
+from elasticsearch_tpu_torch.index.analysis import AnalysisRegistry
 from elasticsearch_tpu_torch.index.engine import Engine, EngineResult
 from elasticsearch_tpu_torch.index.mapping import MapperService
 from elasticsearch_tpu_torch.index.segment import SegmentView, ShardReader
@@ -122,7 +123,10 @@ class IndexService:
                 f"[1, {MAX_SHARDS}], got {self.num_shards}")
         knn_engine, knn_nlist, knn_nprobe = validate_knn_settings(
             self.settings)
-        self.mapper_service = MapperService(mapping)
+        # the index's analyzers: the built-ins and its `index.analysis.*`
+        self.mapper_service = MapperService(
+            mapping, registry=AnalysisRegistry.from_index_settings(
+                self.settings))
         self.shards: List[IndexShardHandle] = [
             IndexShardHandle(s, self.mapper_service, device,
                              knn_engine=knn_engine, knn_nlist=knn_nlist,

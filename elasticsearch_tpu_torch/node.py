@@ -3,8 +3,10 @@ served slices of `elasticsearch_tpu/node.py`): index create (with
 `number_of_shards` and the `index.knn.*` engine settings), document writes
 and realtime GET routed to a shard by `routing` or `_id`, `_bulk`, refresh,
 `_search` with `knn` (one spec or a list, each with an optional filter)
-and / or a `query` of the ported kinds over every shard, and hybrid
-`rank: {rrf}` searches (one `HybridExecutor` per index), with the
+and / or a `query` of the ported kinds (filters and BM25 text queries)
+over every shard, and hybrid `rank: {rrf}` searches (one `HybridExecutor`
+per index, whose BM25 and late-interaction stores read the index's
+combined reader, so BM25 scores with corpus-wide statistics), with the
 reference's response shapes."""
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ from elasticsearch_tpu_torch.search.service import execute_search
 from elasticsearch_tpu_torch.serving.batcher import CombiningBatcher
 
 _SHARDS_OK = {"total": 1, "successful": 1, "failed": 0}
+# a `_bulk` item whose document failed to parse: it takes a seq_no only
+_PARSE_FAILED = "parse_failed"
 
 
 class _MultiShardVectorStore:
@@ -273,7 +277,8 @@ class Node:
              refresh: Optional[str] = None) -> dict:
         """`index` and `create` actions, each with an optional `routing`.
         Each document is validated on its own (a bad one fails its item
-        only); the valid documents of one index are routed in one
+        only, and takes a seq_no on its shard in the request's order, as
+        in the reference); the valid documents of one index are routed in one
         `shard_ids_for` call, and each run of one action among a shard's
         documents goes to that shard's engine in one `index_many`."""
         start = time.perf_counter()
@@ -311,14 +316,23 @@ class Node:
                     raise IllegalArgumentError(
                         "the bulk request must be terminated by a newline")
                 svc = self._index_or_autocreate(name)
-                svc.mapper_service.parse_document(source)
                 doc_id = meta.get("_id")
-                if doc_id is None:
-                    doc_id, op = uuid.uuid4().hex[:20], "create"
+                doc_id = uuid.uuid4().hex[:20] if doc_id is None \
+                    else str(doc_id)
                 routing = meta.get("routing")
                 routing = None if routing is None else str(routing)
+                try:
+                    svc.mapper_service.parse_document(source)
+                except SearchEngineError:
+                    # the primary gives a document its seq_no before it
+                    # parses it: a failed parse still takes one
+                    valid.setdefault(name, []).append(
+                        (_PARSE_FAILED, slot, doc_id, None, routing))
+                    raise
+                if meta.get("_id") is None:
+                    op = "create"
                 valid.setdefault(name, []).append(
-                    (op, slot, str(doc_id), source, routing))
+                    (op, slot, doc_id, source, routing))
             except SearchEngineError as e:
                 items[slot] = {op: {"_index": name, "_id": meta.get("_id"),
                                     "status": e.status, "error": e.to_dict()}}
@@ -338,6 +352,10 @@ class Node:
                                  [tuple(d[1:]) for d in run]))
         for name, op, shard, docs in runs:
             svc = self.indices[name]
+            if op == _PARSE_FAILED:
+                for _ in docs:
+                    svc.shards[shard].engine.fail_seq_no()
+                continue
             status = 201
             try:
                 results = svc.shards[shard].engine.index_many(

@@ -1,8 +1,12 @@
 """Hybrid `rank: {rrf}` search: one plan, one dispatch per leg, RRF,
-fetch (port of the `knn` and `late_interaction` legs of
+fetch (port of the `knn`, `late_interaction`, lexical and generic legs of
 `elasticsearch_tpu/search/hybrid_plan.py`).
 
   plan    normalize → classify sub-searches into legs:
+            lexical — `match` / `term` on a text field, no fuzziness →
+                   the BM25 board (`ops/bm25.py`, `csrc/bm25.cu` on the
+                   card), one launch set a text field a batch; a `match`
+                   whose text analyzes to nothing is an empty leg
             knn  — `knn` on a dense_vector field → the vector store
                    (`vectors/store.py`, the binned kernel on the card;
                    a filtered leg's filter runs on the host and its rows
@@ -11,6 +15,8 @@ fetch (port of the `knn` and `late_interaction` legs of
                    late-interaction store (`vectors/late_interaction.py`,
                    the MaxSim kernels on the card), whatever the query's
                    token count
+            generic — any other query kind `search/queries.py` parses →
+                   the host query phase, body by body
   score   one store dispatch per leg group of a batch
   fuse    reciprocal-rank fusion; f64 accumulation in leg order
   hydrate fetch only the final `from + size` window
@@ -34,14 +40,18 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from elasticsearch_tpu_torch import native
 from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentError, ParsingError,
 )
 from elasticsearch_tpu_torch.index.mapping import (
-    DenseVectorFieldMapper, RankVectorsFieldMapper,
+    DenseVectorFieldMapper, RankVectorsFieldMapper, TextFieldMapper,
 )
 from elasticsearch_tpu_torch.ops import similarity as sim
-from elasticsearch_tpu_torch.search.queries import SearchContext, parse_query
+from elasticsearch_tpu_torch.ops.bm25 import LexicalShard
+from elasticsearch_tpu_torch.search.queries import (
+    SearchContext, parse_query, resolve_msm,
+)
 from elasticsearch_tpu_torch.serving.batcher import BoundedBatcher
 from elasticsearch_tpu_torch.vectors.late_interaction import (
     LateInteractionShard,
@@ -51,6 +61,67 @@ DEFAULT_RANK_CONSTANT = 60
 DEFAULT_WINDOW = 100
 _BODY_KEYS = {"rank", "sub_searches", "query", "knn", "size", "from",
               "_source"}
+
+
+class LexicalLeg:
+    """`match` / `term` sub-search on a text field, lowered to the BM25
+    board."""
+
+    __slots__ = ("field", "terms", "required", "boost")
+
+    def __init__(self, field: str, terms: List[str], required: int,
+                 boost: float):
+        self.field = field
+        self.terms = terms
+        self.required = required
+        self.boost = boost
+
+
+class EmptyLeg:
+    """A leg whose analysis produced nothing searchable (match text that
+    analyzes to no term): an empty ranked list, as the host query phase
+    returns for it."""
+
+    __slots__ = ()
+
+
+class LexicalTemplate:
+    """Compile-time half of a lexical leg: everything but the query TEXT,
+    which is bound from each body."""
+
+    __slots__ = ("field", "kind", "operator", "msm", "boost")
+
+    def __init__(self, field: str, kind: str, operator: str, msm,
+                 boost: float):
+        self.field = field
+        self.kind = kind          # "match" | "term"
+        self.operator = operator
+        self.msm = msm
+        self.boost = boost
+
+    def bind(self, qspec, mapper_service):
+        if self.kind == "term":
+            text = qspec.get("value") if isinstance(qspec, dict) else qspec
+            return LexicalLeg(self.field, [str(text)], 1, self.boost)
+        text = qspec.get("query") if isinstance(qspec, dict) else qspec
+        terms = mapper_service.get(self.field).search_analyzer.terms(
+            str(text))
+        if not terms:
+            return EmptyLeg()
+        required = len(terms) if self.operator == "and" \
+            else resolve_msm(self.msm, len(terms))
+        return LexicalLeg(self.field, terms, required, self.boost)
+
+
+class GenericLeg:
+    """Any other sub-search, parsed when its body's plan compiles (every
+    body compiles its own): run through the host query phase (inside the
+    batch's runner, fused and fetched with the rest)."""
+
+    __slots__ = ("query",)
+
+    def __init__(self, query):
+        self.query = query
 
 
 class KnnTemplate:
@@ -135,25 +206,33 @@ class MaxSimLeg:
 class HybridPlan:
     """Compiled structure of a hybrid body: leg templates + fusion
     parameters. Per-query VALUES are not part of the plan; `bind` extracts
-    them from the body."""
+    them from the body (a lexical leg's text analyzed by the mapping the
+    plan was compiled against)."""
 
     __slots__ = ("legs", "rank_constant", "window", "size", "frm",
-                 "source_spec")
+                 "source_spec", "mapper_service")
 
-    def __init__(self, legs, rank_constant, window, size, frm, source_spec):
+    def __init__(self, legs, rank_constant, window, size, frm, source_spec,
+                 mapper_service):
         self.legs = legs
         self.rank_constant = rank_constant
         self.window = window
         self.size = size
         self.frm = frm
         self.source_spec = source_spec
+        self.mapper_service = mapper_service
 
     def bind(self, body: dict) -> List[Any]:
         """The executable legs of `body` against the templates."""
         bound: List[Any] = []
         for template, q in zip(self.legs, _sub_queries_of(body)):
-            if isinstance(template, KnnTemplate):
+            if isinstance(template, LexicalTemplate):
+                bound.append(template.bind(q[template.kind][template.field],
+                                           self.mapper_service))
+            elif isinstance(template, KnnTemplate):
                 bound.append(template.bind(q["knn"]))
+            elif isinstance(template, GenericLeg):
+                bound.append(template)
             else:
                 bound.append(template.bind(q))
         return bound
@@ -179,8 +258,31 @@ def _sub_queries_of(body: dict) -> List[dict]:
 def _not_ported(kind: str, why: str) -> IllegalArgumentError:
     return IllegalArgumentError(
         f"[rrf] sub-search [{kind}] is not supported by this build: {why}; "
-        f"only [knn] on dense_vector and [late_interaction] on rank_vectors "
-        f"fields are ported")
+        f"[knn] on dense_vector and [late_interaction] on rank_vectors "
+        f"fields, and the query kinds the query phase parses, are ported")
+
+
+def _compile_lexical(kind: str, qspec, mapper_service
+                     ) -> Optional[LexicalTemplate]:
+    """Lower a match / term sub-search to a lexical template when it
+    scores exactly as the host path would (a text field, no fuzziness);
+    purely structural, as the reference classifies it."""
+    if not isinstance(qspec, dict) or len(qspec) != 1:
+        return None
+    ((field, v),) = qspec.items()
+    if not isinstance(mapper_service.get(field), TextFieldMapper):
+        return None
+    if kind == "term":
+        boost = float(v.get("boost", 1.0)) if isinstance(v, dict) else 1.0
+        return LexicalTemplate(field, "term", "or", None, boost)
+    if isinstance(v, dict):
+        if v.get("fuzziness") is not None:
+            return None
+        return LexicalTemplate(field, "match",
+                               str(v.get("operator", "or")).lower(),
+                               v.get("minimum_should_match"),
+                               float(v.get("boost", 1.0)))
+    return LexicalTemplate(field, "match", "or", None, 1.0)
 
 
 def compile_plan(body: dict, mapper_service) -> HybridPlan:
@@ -241,10 +343,16 @@ def compile_plan(body: dict, mapper_service) -> HybridPlan:
                                        int(spec.get("k", 10)),
                                        float(spec.get("boost", 1.0))))
         else:
-            raise _not_ported(kind, "its leg runs the generic query phase, "
-                                    "which is not ported")
+            leg = (_compile_lexical(kind, spec, mapper_service)
+                   if kind in ("match", "term") else None)
+            if leg is None:
+                try:
+                    leg = GenericLeg(parse_query(q))
+                except ParsingError as e:
+                    raise _not_ported(kind, e.message)
+            legs.append(leg)
     return HybridPlan(legs, rank_constant, window, size, frm,
-                      body.get("_source"))
+                      body.get("_source"), mapper_service)
 
 
 def fuse_rrf(leg_rows: List[np.ndarray], rank_constant: int
@@ -276,13 +384,15 @@ class HybridExecutor:
 
     Whole hybrid bodies coalesce: the first thread in becomes the runner
     and executes every body that accumulated while the previous batch was
-    in flight, with one MaxSim dispatch per (rank_vectors field, k) and one
-    kNN dispatch per (dense_vector field, k, num_candidates) for the whole
-    batch. Admission control (queue depth + deadline) sheds overload as
-    HTTP 429 instead of queueing into the tail.
+    in flight, with one BM25 board per text field, one MaxSim dispatch per
+    (rank_vectors field, k) and one kNN dispatch per (dense_vector field,
+    k, num_candidates) for the whole batch. Admission control (queue depth
+    + deadline) sheds overload as HTTP 429 instead of queueing into the
+    tail.
 
     The runner holds the batcher's run lock for `_dispatch_batch` (plan +
-    bind, the MaxSim legs, which complete there, and the kNN launches);
+    bind, the generic, lexical and MaxSim legs, which complete there, and
+    the kNN launches);
     the kNN boards' wait, RRF and fetch run in `_finalize_batch` outside
     it, overlapping the next batch's dispatch. A poisoned batch is retried
     one body at a time through both stages back to back.
@@ -293,8 +403,15 @@ class HybridExecutor:
                  deadline_ms: Optional[float] = 10_000.0):
         self.svc = svc
         # kNN legs search every shard's store (`svc.vector_store`); the
-        # late-interaction store syncs from the combined reader (rows
-        # rebased by shard)
+        # lexical and late-interaction stores sync from the combined
+        # reader (rows rebased by shard), so BM25 reads corpus-wide
+        # statistics
+        dtype = str(svc.settings.get("index.lexical.impact_dtype", "f32"))
+        if dtype not in ("f32", "bf16", "int8"):
+            raise IllegalArgumentError(
+                f"unknown [index.lexical.impact_dtype] value [{dtype}]; "
+                f"expected one of [f32, bf16, int8]")
+        self.lexical = LexicalShard(dtype=dtype, device=device)
         self.late = LateInteractionShard(device=device)
         # the admission policy (batch ceiling, queue depth, deadline) is
         # the reference's `search.hybrid.*` defaults; top-up and 2 batches
@@ -395,23 +512,46 @@ class HybridExecutor:
     def _score_legs_async(self, reader, plans: List[HybridPlan],
                           bound: List[List[Any]]):
         """Group the batch's bound legs so each store sees one dispatch:
-        MaxSim legs per (field, k), complete here (the rescore's inputs
-        are its own coarse phase's ids, so no board is left in flight);
-        kNN legs per (field, k, num_candidates), launched un-landed
-        (`search_many_async`). Returns ({(body, leg): ranked rows}, the
-        pending kNN groups)."""
+        lexical legs per text field (one board), MaxSim legs per (field,
+        k), both complete here (the MaxSim rescore's inputs are its own
+        coarse phase's ids, so no board is left in flight); kNN legs per
+        (field, k, num_candidates), launched un-landed
+        (`search_many_async`); generic legs run the host query phase one
+        by one. Returns ({(body, leg): ranked rows}, the pending kNN
+        groups)."""
         leg_results: Dict[Tuple[int, int], np.ndarray] = {}
+        lex_groups: Dict[str, list] = {}
         maxsim_groups: Dict[tuple, list] = {}
         knn_groups: Dict[tuple, list] = {}
+        ctx = SearchContext(reader, self.svc.mapper_service,
+                            self.svc.vector_store, self.svc.settings)
         for bi, legs in enumerate(bound):
             for li, leg in enumerate(legs):
-                if isinstance(leg, MaxSimLeg):
+                if isinstance(leg, EmptyLeg):
+                    leg_results[(bi, li)] = np.zeros(0, dtype=np.int64)
+                elif isinstance(leg, GenericLeg):
+                    result = leg.query.execute(ctx).with_scores()
+                    top = native.topk(result.scores,
+                                      min(plans[bi].window, len(result.rows)))
+                    leg_results[(bi, li)] = result.rows[top]
+                elif isinstance(leg, LexicalLeg):
+                    lex_groups.setdefault(leg.field, []).append(
+                        (bi, li, leg))
+                elif isinstance(leg, MaxSimLeg):
                     maxsim_groups.setdefault((leg.field, leg.k), []).append(
                         (bi, li, leg))
                 else:
                     knn_groups.setdefault(
                         (leg.field, leg.k, leg.num_candidates), []).append(
                         (bi, li, leg))
+        for field, entries in lex_groups.items():
+            window = max(plans[bi].window for bi, _li, _leg in entries)
+            results = self.lexical.search_batch(
+                reader, field,
+                [(leg.terms, leg.boost) for _bi, _li, leg in entries],
+                window, required=[leg.required for _bi, _li, leg in entries])
+            for (bi, li, _leg), (rows, _scores) in zip(entries, results):
+                leg_results[(bi, li)] = rows[:plans[bi].window]
         for (field, k), entries in maxsim_groups.items():
             mapper = self.svc.mapper_service.get(field)
             results = self.late.search_batch(
@@ -420,8 +560,6 @@ class HybridExecutor:
             for (bi, li, _leg), (rows, _scores) in zip(entries, results):
                 leg_results[(bi, li)] = rows[:plans[bi].window]
         pending = []
-        ctx = SearchContext(reader, self.svc.mapper_service,
-                            self.svc.vector_store, self.svc.settings)
         for (field, k, num_candidates), entries in knn_groups.items():
             # each leg's filter runs on the host, on the batch's reader;
             # filtered and unfiltered legs share the group's dispatch

@@ -1,4 +1,4 @@
-"""Filter queries over a ShardReader (port of the filter subset of
+"""Queries over a ShardReader (port of the filter and text subset of
 `elasticsearch_tpu/search/queries.py`).
 
 Every query evaluates vectorized on the host:
@@ -6,34 +6,52 @@ Every query evaluates vectorized on the host:
     execute(ctx) -> DocSet(rows: int64[] ascending, scores: float32[] | None)
 
 Boolean composition is set algebra on sorted row arrays with score
-summing, with the reference's query/filter-context semantics (filter and
-must_not clauses never score). Term-level queries on keyword, numeric and
-boolean fields score their constant boost; they read the segments' term
-postings, and numeric ranges read the float64 doc-values column.
+summing (`native.intersect_sorted` / `native.union_sum`), with the
+reference's query/filter-context semantics (filter and must_not clauses
+never score). Term-level queries on keyword, numeric and boolean fields
+score their constant boost; they read the segments' term postings, and
+numeric ranges read the float64 doc-values column. Text queries score
+BM25 (k1 = 1.2, b = 0.75) as the reference does:
 
-Ported kinds: `match_all`, `match_none`, `term`, `terms`, `range`,
+    idf   = ln(1 + (N - df + 0.5) / (df + 0.5))
+    tf    = f / (f + k1 * (1 - b + b * len / avg_len))
+    score = boost * idf * (k1 + 1) * tf
+
+through `native.bm25_score`, over the reader's corpus statistics (a
+multi-shard index's combined reader gives corpus-wide ones).
+
+Ported kinds: `match_all`, `match_none`, `term` and `terms` (BM25 on a
+text field), `match` (`operator`, `minimum_should_match`, `boost`),
+`match_phrase` (`slop`), `multi_match` (`best_fields`, `most_fields`,
+`cross_fields`, `phrase`, `phrase_prefix`, scored as the reference scores
+them: the best or the sum of per-field `match` scores), `range`,
 `exists`, `ids`, `constant_score`, `bool`, and the port's
-`late_interaction` walker. Any other kind is a 400. The node query cache
-of filter-context rows is not ported: a filter clause runs every time,
-which gives the same rows.
+`late_interaction` walker. `fuzziness`, the `bool_prefix` type and any
+other kind are a 400. The node query cache of filter-context rows is not
+ported: a filter clause runs every time, which gives the same rows.
 """
 
 from __future__ import annotations
 
 import difflib
+import fnmatch
+import math
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
 
+from elasticsearch_tpu_torch import native
 from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentError, ParsingError, QueryShardError,
 )
 from elasticsearch_tpu_torch.index.mapping import (
-    BooleanFieldMapper, MapperService, _NumericMapper,
+    BooleanFieldMapper, MapperService, TextFieldMapper, _NumericMapper,
 )
 from elasticsearch_tpu_torch.index.segment import ShardReader
 
 DEFAULT_MAX_TERMS_COUNT = 65536
+BM25_K1 = 1.2
+BM25_B = 0.75
 
 
 class DocSet:
@@ -84,43 +102,11 @@ class Query:
         raise NotImplementedError
 
 
-# --------------------------------------------------------- sorted-set algebra
-# numpy forms of the reference's native streaming merges
-
-def intersect_sorted(a: np.ndarray, b: np.ndarray
-                     ) -> Tuple[np.ndarray, np.ndarray]:
-    """Positions (ia, ib) where two sorted unique int64 arrays meet: the
-    `np.intersect1d(..., return_indices=True)` result, by a binary search
-    of the shorter array's values in the longer one (no sort)."""
-    if len(a) > len(b):
-        ib, ia = intersect_sorted(b, a)
-        return ia, ib
-    if not len(a) or not len(b):
-        empty = np.zeros(0, dtype=np.int64)
-        return empty, empty
-    at = np.minimum(np.searchsorted(b, a), len(b) - 1)
-    hit = b[at] == a
-    return np.nonzero(hit)[0], at[hit]
-
-
 def in_sorted(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """`np.isin(a, b)` for sorted unique int64 arrays."""
     out = np.zeros(len(a), dtype=bool)
-    out[intersect_sorted(a, b)[0]] = True
+    out[native.intersect_sorted(a, b)[0]] = True
     return out
-
-
-def union_sum(a: np.ndarray, sa: Optional[np.ndarray], b: np.ndarray,
-              sb: Optional[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
-    """Union of sorted unique int64 row arrays, summing aligned scores on
-    rows present in both (bool-should accumulation)."""
-    rows = np.union1d(a, b)
-    scores = np.zeros(len(rows), dtype=np.float32)
-    if sa is not None and len(a):
-        scores[np.searchsorted(rows, a)] += sa
-    if sb is not None and len(b):
-        scores[np.searchsorted(rows, b)] += sb
-    return rows, scores
 
 
 # -------------------------------------------------------------- leaf queries
@@ -155,20 +141,55 @@ def _id_rows(ctx: SearchContext, ids) -> np.ndarray:
     return np.asarray(rows, dtype=np.int64)
 
 
-def _term_rows(ctx: SearchContext, field: str, term: str) -> np.ndarray:
-    """Live rows holding `term` in `field`, ascending."""
-    parts = []
+def _term_postings(ctx: SearchContext, field: str, term: str
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """(live rows, freqs) of `term` in `field`, ascending."""
+    rows_parts, freq_parts = [], []
     for view in ctx.reader.views:
-        fp = view.segment.postings.get(field)
-        p = fp.get(term) if fp is not None else None
+        p = view.segment.get_postings(field, term)
         if p is None:
             continue
-        ids = p.doc_ids if view.all_live \
-            else p.doc_ids[view.live[p.doc_ids]]
-        parts.append(np.add(ids, view.segment.base, dtype=np.int64))
-    if not parts:
-        return np.zeros(0, dtype=np.int64)
-    return np.concatenate(parts)
+        if view.all_live:
+            ids, freqs = p.doc_ids, p.freqs
+        else:
+            live = view.live[p.doc_ids]
+            ids, freqs = p.doc_ids[live], p.freqs[live]
+        rows_parts.append(np.add(ids, view.segment.base, dtype=np.int64))
+        freq_parts.append(freqs)
+    if not rows_parts:
+        return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int32)
+    return np.concatenate(rows_parts), np.concatenate(freq_parts)
+
+
+def _sorted_postings(ctx: SearchContext, field: str, term: str):
+    rows, freqs = _term_postings(ctx, field, term)
+    order = np.argsort(rows, kind="stable")
+    return rows[order], freqs[order]
+
+
+def _field_lengths_for(ctx: SearchContext, field: str,
+                       rows: np.ndarray) -> np.ndarray:
+    out = np.zeros(len(rows), dtype=np.float32)
+    for view in ctx.reader.views:
+        seg = view.segment
+        fl = seg.field_lengths.get(field)
+        if fl is None:
+            continue
+        in_seg = (rows >= seg.base) & (rows < seg.base + seg.num_docs)
+        out[in_seg] = fl[rows[in_seg] - seg.base]
+    return out
+
+
+def bm25_scores(ctx: SearchContext, field: str, rows: np.ndarray,
+                freqs: np.ndarray, boost: float = 1.0) -> np.ndarray:
+    """BM25 of one term's postings (`rows` its live rows, ascending)."""
+    n = max(ctx.reader.docs_with_field_count(field), 1)
+    df = len(rows)
+    idf = math.log(1.0 + (n - df + 0.5) / (df + 0.5))
+    avg_len = ctx.reader.avg_field_length(field) or 1.0
+    lengths = _field_lengths_for(ctx, field, rows)
+    return native.bm25_score(freqs, lengths, idf, avg_len,
+                             BM25_K1, BM25_B, boost)
 
 
 def _index_term_for(mapper, value: Any) -> Optional[str]:
@@ -191,12 +212,18 @@ class TermQuery(Query):
     def execute(self, ctx: SearchContext) -> DocSet:
         if self.field == "_id":
             return _constant(_id_rows(ctx, [self.value]), self.boost)
-        term = _index_term_for(ctx.mapper_service.get(self.field),
-                               self.value)
+        mapper = ctx.mapper_service.get(self.field)
+        if isinstance(mapper, TextFieldMapper):
+            # a term on a text field matches its token as given, BM25
+            rows, freqs = _sorted_postings(ctx, self.field, str(self.value))
+            return DocSet(rows, bm25_scores(ctx, self.field, rows, freqs,
+                                            self.boost))
+        term = _index_term_for(mapper, self.value)
         if term is None:
             return DocSet.empty()
         # non-text fields score the constant boost, not BM25
-        return _constant(_term_rows(ctx, self.field, term), self.boost)
+        return _constant(_term_postings(ctx, self.field, term)[0],
+                         self.boost)
 
 
 class TermsQuery(Query):
@@ -219,12 +246,169 @@ class TermsQuery(Query):
         mapper = ctx.mapper_service.get(self.field)
         parts = []
         for v in self.values:
-            term = _index_term_for(mapper, v)
+            term = str(v) if isinstance(mapper, TextFieldMapper) \
+                else _index_term_for(mapper, v)
             if term is not None:
-                parts.append(_term_rows(ctx, self.field, term))
+                parts.append(_term_postings(ctx, self.field, term)[0])
         if not parts:
             return DocSet.empty()
         return _constant(np.unique(np.concatenate(parts)), self.boost)
+
+
+class MatchQuery(Query):
+    """`match`: the text analyzed by the field's search analyzer, one
+    BM25 clause a term (a repeated term counts twice), combined as
+    `bool.should` with `operator: and` requiring every clause, else
+    `minimum_should_match` (default 1). On a non-text field the value is
+    its one index term."""
+
+    def __init__(self, field: str, text: Any, operator: str = "or",
+                 minimum_should_match=None, boost: float = 1.0):
+        self.field = field
+        self.text = text
+        self.operator = str(operator).lower()
+        self.minimum_should_match = minimum_should_match
+        self.boost = boost
+
+    def _analyzed_terms(self, ctx: SearchContext) -> List[str]:
+        mapper = ctx.mapper_service.get(self.field)
+        if isinstance(mapper, TextFieldMapper):
+            return mapper.search_analyzer.terms(str(self.text))
+        term = str(self.text) if mapper is None \
+            else _index_term_for(mapper, self.text)
+        return [term] if term is not None else []
+
+    def execute(self, ctx: SearchContext) -> DocSet:
+        terms = self._analyzed_terms(ctx)
+        if not terms:
+            return DocSet.empty()
+        clause_sets = []
+        for t in terms:
+            rows, freqs = _sorted_postings(ctx, self.field, t)
+            clause_sets.append(DocSet(rows, bm25_scores(
+                ctx, self.field, rows, freqs, self.boost)))
+        if self.operator == "and":
+            required = len(clause_sets)
+        else:
+            required = resolve_msm(self.minimum_should_match,
+                                   len(clause_sets))
+        return _combine_should(clause_sets, required)
+
+
+class MatchPhraseQuery(Query):
+    """`match_phrase`: docs holding every analyzed term with each next
+    term 1 to 1 + slop positions after the one before, scored as the sum
+    of the terms' BM25 (the reference's approximation of Lucene's phrase
+    score). On a non-text field it is a `term` query."""
+
+    def __init__(self, field: str, text: str, slop: int = 0,
+                 boost: float = 1.0):
+        self.field = field
+        self.text = text
+        self.slop = slop
+        self.boost = boost
+
+    def execute(self, ctx: SearchContext) -> DocSet:
+        mapper = ctx.mapper_service.get(self.field)
+        if not isinstance(mapper, TextFieldMapper):
+            return TermQuery(self.field, self.text, self.boost).execute(ctx)
+        terms = mapper.search_analyzer.terms(str(self.text))
+        if not terms:
+            return DocSet.empty()
+        rows_out = []
+        for view in ctx.reader.views:
+            seg = view.segment
+            plists = [seg.get_postings(self.field, t) for t in terms]
+            if any(p is None for p in plists):
+                continue
+            # candidates: docs holding every term
+            cand = plists[0].doc_ids
+            for p in plists[1:]:
+                cand = np.intersect1d(cand, p.doc_ids, assume_unique=True)
+            for local in cand:
+                if not view.live[local]:
+                    continue
+                pos_sets = []
+                for p in plists:
+                    pl = p.doc_positions(int(np.searchsorted(p.doc_ids,
+                                                             local)))
+                    if pl is None:
+                        break
+                    pos_sets.append(set(pl))
+                else:
+                    if _phrase_match(pos_sets, self.slop):
+                        rows_out.append(seg.base + int(local))
+        if not rows_out:
+            return DocSet.empty()
+        rows = np.asarray(sorted(rows_out), dtype=np.int64)
+        total = np.zeros(len(rows), dtype=np.float32)
+        for t in terms:
+            trows, tfreqs = _sorted_postings(ctx, self.field, t)
+            ts = bm25_scores(ctx, self.field, trows, tfreqs, self.boost)
+            idx = np.clip(np.searchsorted(trows, rows), 0, len(trows) - 1)
+            hit = trows[idx] == rows
+            total[hit] += ts[idx][hit]
+        return DocSet(rows, total)
+
+
+def _phrase_match(pos_sets: List[set], slop: int) -> bool:
+    return any(_phrase_from(pos_sets, 1, start, slop)
+               for start in pos_sets[0])
+
+
+def _phrase_from(pos_sets, i, prev, slop) -> bool:
+    if i == len(pos_sets):
+        return True
+    for p in pos_sets[i]:
+        if 0 < p - prev <= 1 + slop and _phrase_from(pos_sets, i + 1, p,
+                                                     slop):
+            return True
+    return False
+
+
+class MultiMatchQuery(Query):
+    """`multi_match`: one `match` a field (`field^boost` and wildcard
+    field patterns over the text and keyword fields), the best field's
+    score for `best_fields`, else their sum, as the reference scores
+    every other type."""
+
+    def __init__(self, query: str, fields: List[str],
+                 mm_type: str = "best_fields", operator: str = "or",
+                 boost: float = 1.0):
+        self.query = query
+        self.fields = fields
+        self.mm_type = mm_type
+        self.operator = operator
+        self.boost = boost
+
+    def execute(self, ctx: SearchContext) -> DocSet:
+        def split_boost(f):
+            if "^" in f:
+                name, b = f.split("^", 1)
+                return name, float(b)
+            return f, 1.0
+
+        resolved: List[str] = []
+        for f in self.fields:
+            name, _b = split_boost(f)
+            if "*" in name:
+                suffix = f[len(name):]
+                for path, m in ctx.mapper_service.all_mappers():
+                    if m.type_name in ("text", "keyword") \
+                            and fnmatch.fnmatch(path, name):
+                        resolved.append(path + suffix)
+            else:
+                resolved.append(f)
+        sets = []
+        for f in resolved:
+            name, fboost = split_boost(f)
+            sets.append(MatchQuery(name, self.query, operator=self.operator,
+                                   boost=self.boost * fboost).execute(ctx))
+        if not sets:
+            return DocSet.empty()
+        if self.mm_type == "best_fields":
+            return _combine_max(sets)
+        return _combine_should(sets, 1)
 
 
 def _str_in_range(v, gte, gt, lte, lt) -> bool:
@@ -420,7 +604,7 @@ def _combine_should(sets: List[DocSet], minimum_match: int) -> DocSet:
     if minimum_match <= 1:
         rows, scores = sets[0].rows, sets[0].scores
         for s in sets[1:]:
-            rows, scores = union_sum(rows, scores, s.rows, s.scores)
+            rows, scores = native.union_sum(rows, scores, s.rows, s.scores)
         return DocSet(rows, scores if scores is not None
                       else np.zeros(len(rows), dtype=np.float32))
     rows = np.unique(np.concatenate([s.rows for s in sets]))
@@ -434,6 +618,18 @@ def _combine_should(sets: List[DocSet], minimum_match: int) -> DocSet:
         np.add.at(counts, idx, 1)
     keep = counts >= minimum_match
     return DocSet(rows[keep], scores[keep])
+
+
+def _combine_max(sets: List[DocSet]) -> DocSet:
+    rows = np.unique(np.concatenate([s.rows for s in sets]))
+    scores = np.zeros(len(rows), dtype=np.float32)
+    for s in sets:
+        if len(s.rows) == 0:
+            continue
+        idx = np.searchsorted(rows, s.rows)
+        np.maximum.at(scores, idx,
+                      s.scores if s.scores is not None else 0.0)
+    return DocSet(rows, scores)
 
 
 class BoolQuery(Query):
@@ -461,7 +657,7 @@ class BoolQuery(Query):
             if rows is None:
                 rows, scores = s.rows, s.scores.copy()
             else:
-                i1, i2 = intersect_sorted(rows, s.rows)
+                i1, i2 = native.intersect_sorted(rows, s.rows)
                 rows = rows[i1]
                 scores = scores[i1] + s.scores[i2]
 
@@ -471,7 +667,7 @@ class BoolQuery(Query):
                 rows = f_rows
                 scores = np.zeros(len(rows), dtype=np.float32)
             else:
-                i1, _ = intersect_sorted(rows, f_rows)
+                i1, _ = native.intersect_sorted(rows, f_rows)
                 rows = rows[i1]
                 scores = scores[i1]
 
@@ -492,7 +688,7 @@ class BoolQuery(Query):
                     hit = should_set.rows[idx] == rows
                     scores[hit] += should_set.scores[idx][hit]
             else:
-                i1, i2 = intersect_sorted(rows, should_set.rows)
+                i1, i2 = native.intersect_sorted(rows, should_set.rows)
                 rows = rows[i1]
                 scores = scores[i1] + should_set.scores[i2]
 
@@ -510,9 +706,9 @@ class BoolQuery(Query):
 
 # ------------------------------------------------------------------ parser
 
-PORTED_KINDS = ("match_all", "match_none", "term", "terms", "range",
-                "exists", "ids", "constant_score", "bool",
-                "late_interaction")
+PORTED_KINDS = ("match_all", "match_none", "term", "terms", "match",
+                "match_phrase", "multi_match", "range", "exists", "ids",
+                "constant_score", "bool", "late_interaction")
 
 # every kind the reference's parser knows (its did-you-mean list)
 _KNOWN_KINDS = (
@@ -560,6 +756,35 @@ def parse_query(body: Optional[dict]) -> Query:
         if not isinstance(values, list):
             raise ParsingError("[terms] query requires an array of values")
         return TermsQuery(field, values, boost)
+    if kind == "match":
+        field, v = _single(spec, "match")
+        if not isinstance(v, dict):
+            return MatchQuery(field, v)
+        if v.get("fuzziness") is not None:
+            raise ParsingError("[match] query option [fuzziness] is not "
+                               "supported by this build")
+        return MatchQuery(field, v.get("query"), v.get("operator", "or"),
+                          v.get("minimum_should_match"),
+                          float(v.get("boost", 1.0)))
+    if kind == "match_phrase":
+        field, v = _single(spec, "match_phrase")
+        if isinstance(v, dict):
+            return MatchPhraseQuery(field, v.get("query"),
+                                    int(v.get("slop", 0)),
+                                    float(v.get("boost", 1.0)))
+        return MatchPhraseQuery(field, v)
+    if kind == "multi_match":
+        mmt = spec.get("type", "best_fields")
+        if spec.get("slop") is not None and mmt in ("bool_prefix",
+                                                    "cross_fields"):
+            raise ParsingError(f"[slop] not allowed for type [{mmt}]")
+        if mmt == "bool_prefix" or spec.get("fuzziness") is not None:
+            what = ("type [bool_prefix]" if mmt == "bool_prefix"
+                    else "option [fuzziness]")
+            raise ParsingError(f"[multi_match] query {what} is not "
+                               f"supported by this build")
+        return MultiMatchQuery(spec.get("query"), spec.get("fields", []),
+                               mmt, spec.get("operator", "or"))
     if kind == "range":
         field, v = _single(spec, "range")
         return RangeQuery(field, gte=v.get("gte", v.get("from")),

@@ -4,8 +4,9 @@ the served slices of `elasticsearch_tpu/search/service.py`).
 The port accepts `{knn, query, size, from, _source, track_total_hits}`.
 `knn` is one spec or a list of specs (`field`, `query_vector`, `k`,
 `num_candidates`, `filter`, `boost`); `query` is any query
-`search/queries.py` parses (term-level filters, `bool`, the host
-`late_interaction` walker). Several knn specs, or knn beside a query,
+`search/queries.py` parses (term-level filters, the BM25 text queries,
+`bool`, the host `late_interaction` walker). Hits rank by (score desc, row
+asc) through `native.topk`, as the reference ranks them. Several knn specs, or knn beside a query,
 combine as `bool.should` of them, as in the reference; no query and no
 knn is `match_all`. Any other body key is rejected with a 400. Hybrid
 `rank: {rrf}` bodies go to `search/hybrid_plan.py`, which renders its hits
@@ -16,8 +17,7 @@ from __future__ import annotations
 
 from typing import List, Optional
 
-import numpy as np
-
+from elasticsearch_tpu_torch import native
 from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentError, ParsingError,
 )
@@ -104,7 +104,7 @@ def execute_search(ctx: SearchContext, body: dict, index_name: str) -> dict:
             total, relation = limit, "gte"
     max_score = float(scores.max()) if len(scores) else None
     # score desc, ties by row asc (rows arrive ascending)
-    order = np.argsort(-scores, kind="stable")[:frm + size]
+    order = native.topk(scores, min(frm + size, len(rows)))
     rows, scores = rows[order], scores[order]
     hits = render_hits(ctx.reader, ctx.mapper_service, index_name,
                        rows[frm:frm + size], scores[frm:frm + size],

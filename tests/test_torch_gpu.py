@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels (binned kNN, fused IVF probes, MaxSim)
+"""The hand-written CUDA kernels (binned kNN, fused IVF probes, MaxSim, the
+BM25 board)
 against their plain PyTorch versions, on a CUDA card. Every test here is marked `gpu` and skips without a card. This
 file imports neither `jax` nor the JAX package, so on a machine without
 JAX it runs alone:
@@ -762,3 +763,83 @@ def test_late_interaction_on_cuda_launches_kernel_and_matches_cpu(
             reader, ms.get("c"), [(qt, 1.0)], 10)
         np.testing.assert_allclose(scores, want_scores, rtol=1e-5)
         assert np.mean(rows == want_rows) > 0.9
+
+
+def _bm25_field(device, dtype, n_docs, seed):
+    """A LexicalField over an engine of `n_docs` Zipf-worded text docs
+    (two segments, a tombstone), on `device`."""
+    from elasticsearch_tpu_torch.index.engine import Engine
+    from elasticsearch_tpu_torch.index.mapping import MapperService
+    from elasticsearch_tpu_torch.ops import bm25
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, 401)
+    p /= p.sum()
+    docs = [{"body": " ".join(f"w{r}" for r in rng.choice(
+        400, int(rng.integers(1, 60)), p=p))} for _ in range(n_docs)]
+    engine = Engine(MapperService({"properties": {"body": {"type": "text"}}}))
+    half = n_docs // 2
+    engine.index_many([str(i) for i in range(half)], docs[:half])
+    engine.refresh()
+    engine.index_many([str(i) for i in range(half, n_docs)], docs[half:])
+    engine.index("3", docs[4])
+    lf = bm25.LexicalField("body", dtype, device=device)
+    lf.sync(engine.refresh())
+    return lf
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("nq", [1, 9, 40])
+def test_bm25_board_matches_plain_version(cuda, dtype, nq):
+    """bm25_board on the card against its plain version on the same CUDA
+    tensors, boards bit for bit, with repeated and out-of-vocabulary
+    words, a query with no tile and boosts; then the whole board route
+    against the CPU's, rows and f32 bits, one launch set a batch."""
+    from elasticsearch_tpu_torch.ops import bm25
+    lf = _bm25_field(cuda, dtype, 3000, nq)
+    cpu = _bm25_field("cpu", dtype, 3000, nq)
+    rng = np.random.default_rng(nq)
+    queries = [([f"w{r}" for r in rng.integers(0, 60, 5)], 1.0 + i % 3)
+               for i in range(nq)]
+    queries[0][0].append(queries[0][0][0])
+    if nq > 2:
+        queries[1][0].append("oov")
+        queries[2] = (["oov"], 1.0)
+    items, starts = lf.plan_positions(queries)
+    slots, imp, scales = lf._device_arrays()
+    items_d = torch.from_numpy(items).to(cuda)
+    boards = [[torch.zeros((nq, (1 << 12) + 1), dtype=t, device=cuda)
+               for t in (torch.float32, torch.int32)] for _ in range(2)]
+    before = dispatch.launches().get(bm25.KERNEL, 0)
+    bm25.bm25_board(*boards[0], items_d, starts, slots, imp, scales)
+    assert dispatch.launches().get(bm25.KERNEL, 0) == before + 1
+    bm25.bm25_board_reference(*boards[1], items_d, starts, slots, imp,
+                              scales)
+    assert torch.equal(boards[0][0].view(torch.int32),
+                       boards[1][0].view(torch.int32))
+    assert torch.equal(boards[0][1], boards[1][1])
+    required = [1 + i % 3 for i in range(nq)]
+    got = lf.search_batch(queries, 50, required=required)
+    want = cpu.search_batch(queries, 50, required=required)
+    for (gr, gs), (wr, ws) in zip(got, want):
+        assert np.array_equal(gr, wr)
+        assert np.array_equal(gs.view(np.int32), ws.view(np.int32))
+
+
+@pytest.mark.gpu
+def test_bm25_board_raises_on_bad_inputs(cuda):
+    """On CUDA tensors the wrapper launches or raises: it never runs the
+    plain version there."""
+    from elasticsearch_tpu_torch.ops import bm25
+    lf = _bm25_field(cuda, "int8", 500, 3)
+    slots, imp, scales = lf._device_arrays()
+    items, starts = lf.plan_positions([(["w1", "w2"], 1.0)])
+    items_d = torch.from_numpy(items).to(cuda)
+    s = torch.zeros((1, 513), device=cuda)
+    c = torch.zeros((1, 513), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="tile scales"):
+        bm25.bm25_board(s, c, items_d, starts, slots, imp, None)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        bm25.bm25_board(s, c, items_d.cpu(), starts, slots, imp, scales)
+    with pytest.raises(ValueError, match="starts"):
+        bm25.bm25_board(s, c, items_d, starts[:-1], slots, imp, scales)

@@ -2,7 +2,8 @@
 `chip_smoke.py` import with `jax` and `elasticsearch_tpu` blocked; entry
 points refuse to run on the CPU unless asked; and a kernel wrapper given
 CUDA tensors (the binned kNN kernels, the fused IVF probe kernels, the
-MaxSim kernels) launches its kernel or raises, never the plain version."""
+MaxSim kernels, the BM25 board) launches its kernel or raises, never the
+plain version."""
 
 import os
 import pkgutil
@@ -40,7 +41,8 @@ def test_port_imports_without_jax_or_reference():
                  "search.hybrid_plan", "serving.batcher", "search.queries",
                  "search.knn_query", "search.service", "index.mapping",
                  "index.segment", "index.engine", "vectors.store",
-                 "cluster.routing", "indices.service"):
+                 "cluster.routing", "indices.service", "native", "ops.bm25",
+                 "index.analysis", "index.analysis_lang"):
         assert f"elasticsearch_tpu_torch.{name}" in names
     code = (
         "import sys\n"
@@ -149,6 +151,9 @@ class _FakeLib:
     # variant, cpb, smem, stream)
     maxsim_dense = _arity(16)
     maxsim_int4 = _arity(15)
+    # (scores, counts, w1, items, n_items, starts, n_pos, tile_slots,
+    # tile_impacts, tile_scales, dtype, stream)
+    bm25_board = _arity(12)
 
     def cuda_error_string(self, code):
         return b"an injected launch failure"
@@ -188,6 +193,58 @@ def test_cuda_wrappers_launch_or_raise_never_plain(monkeypatch, code):
             assert out.shape == (8, n // kb.BIN_SIZE)
             assert dispatch.launches().get(name, 0) == before + 1
     assert lib.calls == 2
+
+
+@pytest.mark.parametrize("code", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_bm25_board_launches_or_raises_never_plain(monkeypatch, code, dtype):
+    """On CUDA tensors `bm25_board` calls its C entry once for the launch
+    set (counted once) or raises its error, and never runs the plain
+    version; bad inputs raise before any launch."""
+    import numpy as np
+
+    from elasticsearch_tpu_torch.ops import bm25
+
+    def no_plain(*a, **k):
+        raise AssertionError("plain version ran for a CUDA tensor")
+
+    lib = _FakeLib(code)
+    monkeypatch.setattr(bm25, "bm25_board_reference", no_plain)
+    monkeypatch.setattr(bm25, "_lib", lambda: lib)
+    monkeypatch.setattr(bm25.torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    boards = (_FakeCuda((8, 1025), torch.float32),
+              _FakeCuda((8, 1025), torch.int32))
+    items = _FakeCuda((3, 40), torch.int32)
+    starts = np.array([0, 30, 40], dtype=np.int32)
+    tiles = (_FakeCuda((12, 128), torch.int32), _FakeCuda((12, 128), dtype))
+    scales = _FakeCuda((12,), torch.float32) if dtype == torch.int8 \
+        else None
+    before = dispatch.launches().get(bm25.KERNEL, 0)
+    if code:
+        with pytest.raises(RuntimeError, match="injected launch failure"):
+            bm25.bm25_board(*boards, items, starts, *tiles, scales)
+        assert dispatch.launches().get(bm25.KERNEL, 0) == before
+    else:
+        bm25.bm25_board(*boards, items, starts, *tiles, scales)
+        assert dispatch.launches().get(bm25.KERNEL, 0) == before + 1
+        assert lib.last[2] == 1025 and lib.last[4] == 40 \
+            and lib.last[6] == 2
+    assert lib.calls == 1
+    for bad, match in (
+            ((boards[0], torch.zeros(8, 1025, dtype=torch.int32)),
+             "one CUDA device"),
+            ((boards[0], _FakeCuda((8, 1025), torch.float32)), "boards"),
+            ((_FakeCuda((8, 1024), torch.float32), boards[1]), "shape")):
+        with pytest.raises((ValueError, TypeError), match=match):
+            bm25.bm25_board(*bad, items, starts, *tiles, scales)
+    with pytest.raises(ValueError, match="starts"):
+        bm25.bm25_board(*boards, items, starts[:2], *tiles, scales)
+    with pytest.raises(ValueError, match="scales"):
+        bm25.bm25_board(*boards, items, starts, *tiles,
+                        None if scales is not None
+                        else _FakeCuda((12,), torch.float32))
+    assert lib.calls == 1
 
 
 def test_cuda_wrapper_rejects_bad_shapes_and_mixed_devices():

@@ -292,11 +292,11 @@ def test_errors_match_reference(nodes, case):
 
 def test_unported_query_kind_is_a_400(nodes):
     _ref_req, port_req = nodes
-    status, resp = port_req("POST", "/q/_search", {"query": {"match": {
-        "kw": "red"}}})
+    status, resp = port_req("POST", "/q/_search", {"query": {"prefix": {
+        "kw": "re"}}})
     assert status == 400
     assert resp["error"]["type"] == "parsing_exception"
-    assert "[match] query is not supported" in resp["error"]["reason"]
+    assert "[prefix] query is not supported" in resp["error"]["reason"]
     status, resp = port_req("PUT", "/t2", {"mappings": {"properties": {
         "x": {"type": "date"}}}})
     assert status == 400

@@ -612,6 +612,36 @@ def test_bulk_over_two_indices_routes_each_index_in_one_call(
                 == sorted(ref_shard.engine.version_map)
 
 
+@pytest.mark.parametrize("bad", [
+    {"width": "wide"},                      # an unparseable integer
+    {"v": [1.0] * (D - 1)},                 # a vector of the wrong dims
+])
+def test_bulk_item_that_fails_to_parse_takes_a_seq_no(pair, bad):
+    """A `_bulk` over a 3-shard index with one document that fails to
+    parse in the middle: the bad item takes a seq_no on the shard it
+    routes to, as the reference's primary gives it one before it parses,
+    so every item's `_seq_no`, `status` and `result` equal the
+    reference's."""
+    name = "bad" + str(len(bad["v"]) if "v" in bad else 0)
+    pair.ok("PUT", f"/{name}", {"settings": {"number_of_shards": 3},
+                                "mappings": _mapping()})
+    _rng, _vecs, docs = _docs(17, 30)
+    bulk = []
+    for i in range(30):
+        doc = dict(docs[i], **bad) if i == 14 else docs[i]
+        bulk += [{"index": {"_id": f"s{i}"}}, doc]
+    (s1, r1), (s2, r2) = pair.both("POST", f"/{name}/_bulk", bulk,
+                                   ndjson=True)
+    assert s1 == s2 == 200 and r1["errors"] and r2["errors"]
+    for a, b in zip(r1["items"], r2["items"]):
+        (op_a, va), = a.items()
+        (op_b, vb), = b.items()
+        assert op_a == op_b
+        for key in ("status", "result", "_seq_no", "_id"):
+            assert va.get(key) == vb.get(key), (key, va, vb)
+    assert "error" in r2["items"][14]["index"]
+
+
 def test_doc_refresh_makes_only_its_shard_searchable(pair):
     """A document written with `?refresh=true` refreshes its own shard: the
     other shards' unrefreshed documents stay out of searches."""
