@@ -3,9 +3,10 @@
     python3 chip_smoke.py [--seed 1234] [--n-sift 1000000] [--n-cohere 1000000]
                           [--n-gist 1000000] [--n-cohere-ivf 1000000]
                           [--n-colbert 131071] [--n-laion 1000000]
-                          [--n-sharded 3000000] [--n-msmarco 1000000]
+                          [--n-sharded 1000000] [--n-msmarco 1000000]
+                          [--n-sparse 1000000]
                           [--binned-only | --ivf-only | --maxsim-only |
-                           --sharded-only | --hybrid-only]
+                           --sharded-only | --hybrid-only | --sparse-only]
 
 Phases, one line each; any failure raises and the exit code is not 0:
 
@@ -45,7 +46,12 @@ Phases, one line each; any failure raises and the exit code is not 0:
                bf16 and int8 impacts; Q = 32 with a repeated word, an
                out-of-vocabulary word, a query with no tile, required 2
                and 3, and Q = 1), timed beside its bound, the plain
-               version and one `index_put_` pair
+               version and one `index_put_` pair; then the same on the
+               learned-sparse layout (30,522 Zipf-popular token ids, about
+               120 a doc, weights in (0, 3]; Q = 32 of 20-120 tokens, Q = 1,
+               and Q = 1 of 300 tokens; one launch a token position, each
+               item with its token's boost), counted under the `sparse`
+               variant
   serve_sift   the port's REST server in-process: a cosine dims=128 index,
                2,000 docs over `_bulk`, then loaded to 1,000,000 SIFT-shaped
                docs through `IndexService.index_many`, refresh, and 64
@@ -105,6 +111,22 @@ Phases, one line each; any failure raises and the exit code is not 0:
                generic `range` leg, text that analyzes to nothing) equal
                to host RRF of its legs, one `bm25_board` launch set a
                request and at C = 1 and 8 one a batch
+  serve_sparse  learned-sparse retrieval: MS MARCO passage expanded by a
+               BERT-wordpiece learned-sparse model (SPLADE, ELSER; 30,522
+               token ids, 64-256 tokens a passage, Zipf popularity), cut
+               from 8,841,823 to --n-sparse passages, one shard: `tokens`
+               rank_features and `emb` 768-d cosine `flat`; 64 hybrid
+               `rank: {rrf}` requests (a `sparse_vector`, 16 as
+               `weighted_tokens`, and a `knn` sub-search; 20-120 query
+               tokens) and 8 of 257-300 tokens: each sparse leg's window
+               byte-identical to the host twin, its top 10 against a
+               float64 sparse dot (scipy CSR) over the generated arrays,
+               bf16 and int8 recall@10 against it, kNN recall@10 >= 0.95,
+               every response equal to host RRF of its legs, one
+               `bm25_board` launch set (variant `sparse`) a request and at
+               C = 1 and 8 one a batch; then the plain `query:
+               {sparse_vector}` host walker on an index of the first
+               50,000 passages, byte-identical to the board's window there
 Each IVF index answers one warm-up search first (the `nprobe: auto` tuner
 runs there), then the timed requests; every request must take the fused
 route with no exhaustive fallback, every `ivf_fused_dense` and
@@ -168,7 +190,8 @@ parent-vs-change comparisons, where a parent commit's package runs this
 script too (the checks of variants it lacks are skipped).
 `--sharded-only` runs env, build and serve_sharded (no ok line);
 `--hybrid-only` runs env, build, the bm25_board checks and serve_hybrid
-(no ok line).
+(no ok line); `--sparse-only` the same with serve_sparse. Each phase's
+wall seconds print as a `[timing]` line.
 
 The next-to-last lines are a JSON object with every kernel's numbers and the
 card's `nvidia-smi` name and power limit; the last line is
@@ -2490,10 +2513,10 @@ REF_SHARD_OF_8 = {
     "1852855": 2,
     "user0": 2, "user1": 4, "user2": 5, "user3": 4, "user4": 4,
 }
-# BASELINE config 4 is Cohere-Wiki-10M: cut to 3M for the run's time, which
-# serve_hybrid shares (PERF.md section 4; ~10 GB of host memory a million
-# rows)
-N_SHARDED = 3_000_000
+# BASELINE config 4 is Cohere-Wiki-10M: cut to 1M for the run's time, which
+# serve_hybrid and serve_sparse share (PERF.md section 4; ~10 GB of host
+# memory a million rows)
+N_SHARDED = 1_000_000
 
 
 def sharded_chunks(seed: int, n: int, dev):
@@ -2965,7 +2988,8 @@ def _bm25_case(lf, queries, required, label: str, timed: bool) -> dict:
              plain_ms=time_ms(lambda: bm25.bm25_board_reference(
                  s, c, items_d, starts, slots_d, imp_d, sc_d),
                  iters=5, warmup=1),
-             library_ms=time_ms(library), board_ms=time_ms(whole),
+             library_ms=time_ms(library, iters=5, warmup=1),
+             board_ms=time_ms(whole),
              postings=postings)
     f["bound_ms"], f["bound_by"] = bound_ms(kernel_bytes, 0, 1.0)
     f["board_bound_ms"] = bound_ms(board_bytes, 0, 1.0)[0]
@@ -3005,16 +3029,168 @@ def phase_bm25_kernel(seed: int, dev) -> dict:
                         "valid lanes, scores then counts",
                 board="zero the boards + launch set + mask + top-100")
         del lf
-    c = cases["f32_q32"]
+    del base
+    sparse_cases = sparse_board_cases(seed, dev)
+    c, sc = cases["f32_q32"], sparse_cases["sparse_f32_q32"]
     return {bm25.KERNEL: {
         "name": bm25.KERNEL, "route": "cuda",
         "source": "elasticsearch_tpu_torch/csrc/bm25.cu",
         "replaces": "elasticsearch_tpu/ops/bm25.py:493",
-        "max_abs_err": max(x["max_abs_err"] for x in cases.values()),
+        "max_abs_err": max(x["max_abs_err"] for x in
+                           (*cases.values(), *sparse_cases.values())),
         "ms": c["ms"], "burst_ms": c["burst_ms"], "plain_ms": c["plain_ms"],
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
         "library_ms": c["library_ms"], "board_ms": c["board_ms"],
-        "board_bound_ms": c["board_bound_ms"]}}
+        "board_bound_ms": c["board_bound_ms"],
+        # the learned-sparse shape (ops/sparse.py; replaces sparse.topk,
+        # elasticsearch_tpu/ops/sparse.py:187), Q = 32, f32 weights
+        "sparse_positions": sc["positions"], "sparse_ms": sc["ms"],
+        "sparse_burst_ms": sc["burst_ms"], "sparse_plain_ms": sc["plain_ms"],
+        "sparse_bound_ms": sc["bound_ms"],
+        "sparse_library_ms": sc["library_ms"],
+        "sparse_board_ms": sc["board_ms"],
+        "sparse_board_bound_ms": sc["board_bound_ms"]}}
+
+
+# ------------------------------------------------------- learned sparse
+
+# The reference's learned-sparse deployment: MS MARCO passage (8,841,823
+# passages) expanded by a BERT-wordpiece learned-sparse model (SPLADE,
+# Elastic's ELSER): 30,522 token ids, 64-256 nonzero tokens a passage
+# (mean ~120), positive f32 weights in (0, 3], token popularity Zipf over
+# the ids; queries of 20-120 tokens (a source passage's tokens and
+# expansion tokens). Cut to 1M passages as serve_hybrid is (PERF.md
+# section 4).
+SPARSE_VOCAB = 30_522
+SPARSE_DOC_TOKENS = (64, 256)
+SPARSE_MEAN_TOKENS = 120
+SPARSE_QUERY_TOKENS = (20, 121)
+SPARSE_WIDE_TOKENS = (257, 301)     # the reference's walker takes these
+SPARSE_SOURCE_SHARE = 0.7           # a query's tokens from its passage
+N_SPARSE = 1_000_000
+N_SPARSE_WALKER = 50_000
+SPARSE_CHUNK = 1 << 12
+SPARSE_TOKENS = np.array([f"t{i}" for i in range(SPARSE_VOCAB)],
+                         dtype=object)
+
+
+def sparse_popularity() -> tuple:
+    """(p, inclusion): Zipf (s = 1.0) token probabilities over the ids, and
+    the share of passages holding each token when a passage draws
+    SPARSE_MEAN_TOKENS distinct tokens by p (1 - exp(-lam p), lam set so
+    the shares sum to the mean)."""
+    p = np.diff(np.concatenate([[0.0], zipf_cdf(SPARSE_VOCAB)]))
+    lo, hi = float(SPARSE_MEAN_TOKENS), 1e9
+    for _ in range(100):
+        lam = (lo + hi) / 2
+        if (-np.expm1(-lam * p)).sum() < SPARSE_MEAN_TOKENS:
+            lo = lam
+        else:
+            hi = lam
+    return p, -np.expm1(-lo * p)
+
+
+def sparse_weights(g, n: int, dev) -> torch.Tensor:
+    """n positive f32 weights in (0, 3]."""
+    return 3.0 * (1.0 - torch.rand(n, generator=g, device=dev))
+
+
+def sparse_query(rng, source: np.ndarray, n_tok: int, p) -> dict:
+    """A query of n_tok tokens: SPARSE_SOURCE_SHARE of them (at most the
+    passage's) from its source passage's tokens, the rest expansion
+    tokens drawn by popularity from outside the passage; f32 weights in
+    (0, 3], in that order."""
+    n_src = min(int(round(SPARSE_SOURCE_SHARE * n_tok)), len(source))
+    src = rng.choice(source, n_src, replace=False)
+    q = np.zeros(SPARSE_VOCAB)
+    q[source] = 1.0
+    pe = np.where(q > 0, 0.0, p)
+    extra = rng.choice(SPARSE_VOCAB, n_tok - n_src, replace=False,
+                       p=pe / pe.sum())
+    toks = np.concatenate([src, extra])
+    w = (3.0 * (1.0 - rng.random(len(toks)))).astype(np.float32)
+    return dict(zip(SPARSE_TOKENS[toks].tolist(), w.tolist()))
+
+
+def _sparse_field(g, dev, n_slots: int, tokens, rng):
+    """A SparseField over a synthetic learned-sparse layout: token t in
+    about n_slots * inclusion[t] random docs, weights in (0, 3]; the tiles
+    of every token in `tokens` (each run padded to whole 128-lane tiles,
+    as `LexicalField._install_tiles` lays them out)."""
+    from elasticsearch_tpu_torch.ops import bm25, sparse
+    _p, incl = sparse_popularity()
+    spans, slot_parts, tile = {}, [], 0
+    for t in sorted(set(int(x) for x in tokens)):
+        df = max(int(round(n_slots * incl[t])), 1)
+        slots = torch.randperm(n_slots, generator=g, device=dev)[:df]
+        nt = -(-df // bm25.TILE)
+        pad = torch.full((nt * bm25.TILE,), -1, dtype=torch.int32, device=dev)
+        pad[:df] = torch.sort(slots).values.to(torch.int32)
+        slot_parts.append(pad)
+        spans[f"t{t}"] = (tile, nt)
+        tile += nt
+    sf = sparse.SparseField("tokens", "f32", device=dev)
+    sf.n_slots, sf.row_map = n_slots, np.arange(n_slots, dtype=np.int64)
+    sf.term_tiles, sf.version = spans, ("synthetic", "f32")
+    sf.tile_slots = torch.cat(slot_parts).reshape(-1, bm25.TILE).cpu().numpy()
+    sf.tile_impacts = np.where(
+        sf.tile_slots >= 0,
+        (3.0 * (1.0 - rng.random(sf.tile_slots.shape))), 0.0
+    ).astype(np.float32)
+    sf.nnz = int((sf.tile_slots >= 0).sum())
+    return sf
+
+
+def sparse_board_cases(seed: int, dev, n_slots: int = 1 << 20) -> dict:
+    """bm25_board on the learned-sparse layout over 1,048,576 docs (the
+    board width of serve_sparse): 32 queries of 20-120 tokens, each
+    token's items with its own boost, Q = 1, and Q = 1 of 300 tokens (as
+    wide as the reference sends to its walker); f32, bf16 and int8
+    weights; the boards bit for bit against the plain version and, at
+    f32, the board route against the host twin; timed as the BM25 cases,
+    one launch a token position of the widest query."""
+    from elasticsearch_tpu_torch.ops import bm25, sparse
+    rng = np.random.default_rng(seed + 10)
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    p, incl = sparse_popularity()
+    queries = []
+    for i in range(33):
+        n_tok = (300 if i == 32 else int(rng.integers(*SPARSE_QUERY_TOKENS)))
+        source = rng.choice(SPARSE_VOCAB, int(rng.integers(
+            *SPARSE_DOC_TOKENS)), replace=False, p=incl / incl.sum())
+        queries.append((sparse_query(rng, source, n_tok, p),
+                        1.0 + 0.5 * (i % 3)))
+    tokens = [int(t[1:]) for q, _b in queries for t in q]
+    base = _sparse_field(g, dev, n_slots, tokens, rng)
+    required = np.ones(len(queries), dtype=np.int32)
+    cases = {}
+    for dtype in ("f32", "bf16", "int8"):
+        sf = sparse.SparseField("tokens", dtype, device=dev)
+        for key in ("n_slots", "row_map", "term_tiles", "tile_slots",
+                    "tile_impacts", "nnz"):
+            setattr(sf, key, getattr(base, key))
+        sf.version = ("synthetic", dtype)
+        for label, qs in ((f"sparse_{dtype}_q32", queries[:32]),
+                          (f"sparse_{dtype}_q1", queries[5:6]),
+                          (f"sparse_{dtype}_wide_q1", queries[32:])):
+            f = _bm25_case(sf, qs, required[:len(qs)], label, timed=True)
+            widest = max(sum(t in sf.term_tiles for t in q) for q, _b in qs)
+            if f["positions"] != widest:
+                raise AssertionError(f"{label}: {f['positions']} launches a "
+                                     f"set for a widest query of {widest} "
+                                     f"tokens")
+            f["tokens_per_query"] = float(np.mean([len(q) for q, _ in qs]))
+            f["postings_per_query"] = f["postings"] / len(qs)
+            cases[label] = f
+            log("kernels", kernel=bm25.KERNEL, variant=sparse.VARIANT,
+                case=label, n_slots=n_slots, tiles=len(base.tile_slots),
+                **{k: (f"{v:.6g}" if isinstance(v, float) else v)
+                   for k, v in f.items()},
+                library="torch index_put_(accumulate=True) of the flattened "
+                        "valid lanes, scores then counts",
+                board="zero the boards + launch set + mask + top-100")
+        del sf
+    return cases
 
 
 # ------------------------------------------------------------ serve_hybrid
@@ -3374,6 +3550,441 @@ def phase_serve_hybrid(seed: int, n: int, device: str = "cuda") -> dict:
     return total
 
 
+def sparse_chunks(seed: int, n: int, dev):
+    """Learned-sparse passages from `seed`: yields (first doc, token ids [T]
+    int32 and weights [T] f32 on `dev`, tokens a passage [m] int64) chunks
+    of SPARSE_CHUNK passages. A passage draws its SPARSE_DOC_TOKENS-bounded
+    count (64 + an exponential of mean 56, cut at 256) of distinct tokens
+    by Zipf popularity (Gumbel top-k over the ids), each with a weight in
+    (0, 3]."""
+    rng = np.random.default_rng(seed + 11)
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    p, _incl = sparse_popularity()
+    logp = torch.from_numpy(np.log(p)).to(device=dev, dtype=torch.float32)
+    lo_k, hi_k = SPARSE_DOC_TOKENS
+    for lo in range(0, n, SPARSE_CHUNK):
+        m = min(SPARSE_CHUNK, n - lo)
+        counts = np.clip(lo_k + np.round(rng.exponential(
+            SPARSE_MEAN_TOKENS - lo_k, m)), lo_k, hi_k).astype(np.int64)
+        u = torch.rand((m, SPARSE_VOCAB), generator=g, device=dev)
+        keys = logp[None, :] - torch.log(-torch.log(u))
+        del u
+        top = torch.topk(keys, hi_k, dim=1).indices
+        del keys
+        take = torch.arange(hi_k, device=dev)[None, :] \
+            < torch.from_numpy(counts).to(dev)[:, None]
+        toks = top[take].to(torch.int32)
+        yield lo, toks, sparse_weights(g, len(toks), dev), counts
+
+
+def sparse_body(tokens: dict, qv: np.ndarray, form: str = "sparse_vector"
+                ) -> dict:
+    """The learned-sparse hybrid body: a `sparse_vector` (or
+    `weighted_tokens`) sub-search on `tokens` and a `knn` one on `emb`,
+    fused by RRF."""
+    leg = ({"sparse_vector": {"field": "tokens", "query_vector": tokens}}
+           if form == "sparse_vector" else
+           {"weighted_tokens": {"tokens": {"tokens": tokens}}})
+    return {"sub_searches": [{"query": leg}, {"query": {"knn": {
+        "field": "emb", "query_vector": qv.tolist(), "k": 10,
+        "num_candidates": 100}}}], "rank": {"rrf": {}}, "size": 10,
+        "_source": False}
+
+
+def _same_window(label: str, got, want) -> None:
+    """Rows and f32 bits equal: ((rows, scores), (rows, scores))."""
+    (gr, gs), (wr, ws) = got, want
+    if not (np.array_equal(gr, wr) and np.array_equal(
+            np.asarray(gs, dtype=np.float32).view(np.int32),
+            np.asarray(ws, dtype=np.float32).view(np.int32))):
+        raise AssertionError(f"{label}: windows differ")
+
+
+def phase_serve_sparse(seed: int, n: int, n_walker: int = N_SPARSE_WALKER,
+                       device: str = "cuda") -> dict:
+    """serve_sparse: learned-sparse retrieval over MS MARCO passage expanded
+    by a BERT-wordpiece model (SPLADE, ELSER), hybrid with kNN by RRF, cut
+    from 8,841,823 to `n` passages. One shard: `tokens` rank_features and
+    `emb` 768-d cosine `flat` (the bf16 binned kernel); 1,000 passages
+    over `_bulk`, the rest through `IndexService.index_many`, one refresh
+    (the seal), the layout built (`SparseField.sync`). 64 queries of
+    20-120 tokens (16 in the `weighted_tokens` form) and 8 of 257-300,
+    each with its source passage's embedding plus noise. Gates: each
+    sparse leg's window byte-identical to the host twin (`_score_host`);
+    its top 10 against a float64 sparse dot over the generator's arrays
+    (scipy CSR), a difference only among tied or 1-ulp scores at the cut;
+    bf16 and int8 weights' recall@10 against it logged; the kNN leg's
+    recall@10 >= 0.95; every response equal to host RRF of its legs (an
+    empty token map too); one `bm25_board` launch set (variant `sparse`)
+    and one binned launch a request, and at C = 1 and 8 one set a batch.
+    Then the plain `query: {sparse_vector}` host walker on an index of
+    the first `n_walker` passages, its hits byte-identical to the board's
+    window there. Returns the launches."""
+    import scipy.sparse
+
+    from elasticsearch_tpu_torch.ops import bm25, dispatch, sparse
+    from elasticsearch_tpu_torch.ops import knn_binned as kb
+    from elasticsearch_tpu_torch.search.hybrid_plan import compile_plan
+    from elasticsearch_tpu_torch.server import build_server
+    dev = torch.device(device)
+    name, walk_name = "splade", "splade_walker"
+    rng = np.random.default_rng(seed + 12)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    node, server = build_server(device=device, port=0)
+    server.start()
+    total = {bm25.KERNEL: 0, kb.KERNEL_BF16: 0}
+    sparse_key = f"{bm25.KERNEL}/{sparse.VARIANT}"
+    try:
+        client = Client(server.port)
+        client.ok("PUT", f"/{name}", {
+            "settings": {"number_of_shards": 1},
+            "mappings": {"properties": {
+                "tokens": {"type": "rank_features"},
+                "emb": {"type": "dense_vector", "dims": 768,
+                        "similarity": "cosine",
+                        "index_options": {"type": "flat"}}}}})
+        svc = node.index(name)
+        emb = clustered(rng, n, 768)
+        tok_parts, w_parts, count_parts = [], [], []
+        clock = {"data": 0.0, "ingest": 0.0}
+        sources_of, walker_maps = {}, []
+        n_query = 64
+        first = min(1000, n)
+        for lo, toks, weights, counts in sparse_chunks(seed, n, dev):
+            t = time.perf_counter()
+            host_t = toks.cpu().numpy()
+            names = SPARSE_TOKENS[host_t].tolist()
+            wl = weights.cpu().numpy().tolist()
+            ends = np.cumsum(counts).tolist()
+            maps = [dict(zip(names[e - c:e], wl[e - c:e]))
+                    for e, c in zip(ends, counts.tolist())]
+            for i in range(lo, lo + len(maps)):
+                if i % (n // n_query + 1) == 7 or i % (n // 8 + 1) == 11:
+                    e, c = ends[i - lo], int(counts[i - lo])
+                    sources_of[i] = host_t[e - c:e].astype(np.int64)
+            if lo < n_walker:
+                walker_maps.extend(maps[:n_walker - lo])
+            tok_parts.append(toks)
+            w_parts.append(weights)
+            count_parts.append(counts)
+            clock["data"] += time.perf_counter() - t
+            t = time.perf_counter()
+            sources = [{"tokens": fm} for fm in maps]
+            cut = max(first - lo, 0)
+            if cut:
+                ops = []
+                for i in range(lo, lo + cut):
+                    ops += [{"index": {"_id": str(i)}},
+                            dict(sources[i - lo], emb=emb[i].tolist())]
+                if client.ok("POST", f"/{name}/_bulk", ops,
+                             ndjson=True)["errors"]:
+                    raise AssertionError("serve_sparse: bulk errors")
+                client.ok("POST", f"/{name}/_refresh")
+                probe = dict(list(maps[7 - lo].items())[:5])
+                hits = client.ok("POST", f"/{name}/_search", {
+                    "query": {"sparse_vector": {
+                        "field": "tokens", "query_vector": probe}},
+                    "size": first, "_source": False})["hits"]["hits"]
+                if "7" not in {h["_id"] for h in hits}:
+                    raise AssertionError(f"small-index sparse_vector: {hits}")
+            if len(maps) > cut:
+                svc.index_many([str(i) for i in range(lo + cut,
+                                                      lo + len(maps))],
+                               sources[cut:],
+                               vectors={"emb": emb[lo + cut:lo + len(maps)]})
+            clock["ingest"] += time.perf_counter() - t
+            del maps, sources
+        t = time.perf_counter()
+        client.ok("POST", f"/{name}/_refresh")
+        seal_s = time.perf_counter() - t
+        counts_all = np.concatenate(count_parts)
+
+        ex = node._hybrid_executor(svc)
+        reader = svc.combined_reader()
+        t = time.perf_counter()
+        sf = ex.sparse.field(reader, "tokens")
+        build_s = time.perf_counter() - t
+        if sf.nnz != int(counts_all.sum()):
+            raise AssertionError(f"serve_sparse: {sf.nnz} postings laid out "
+                                 f"for {int(counts_all.sum())} generated")
+        # postings a token holds: its valid lanes
+        lane_cum = np.concatenate([[0], np.cumsum(
+            (sf.tile_slots >= 0).sum(axis=1))])
+
+        def postings(tokens):
+            return sum(int(lane_cum[f + nt] - lane_cum[f]) for f, nt in
+                       (sf.term_tiles[t] for t in tokens
+                        if t in sf.term_tiles))
+
+        # queries: 64 of 20-120 tokens, 8 of 257-300, from source passages
+        p, _incl = sparse_popularity()
+        srcs = sorted(i for i in sources_of if i % (n // n_query + 1) == 7)
+        srcs = srcs[:n_query]
+        wide_srcs = sorted(i for i in sources_of
+                           if i % (n // 8 + 1) == 11)[:8]
+        q_tokens = [sparse_query(rng, sources_of[i], int(rng.integers(
+            *SPARSE_QUERY_TOKENS)), p) for i in srcs]
+        q_tokens += [sparse_query(rng, sources_of[i], int(rng.integers(
+            *SPARSE_WIDE_TOKENS)), p) for i in wide_srcs]
+        n_main = len(srcs)
+        q_src = srcs + wide_srcs
+        q_emb = emb[q_src] + 0.3 * rng.standard_normal(
+            (len(q_src), 768)).astype(np.float32)
+        truth = exact_top(emb, q_emb, 10, "cosine")
+        forms = ["weighted_tokens" if qi % 4 == 3 and qi < n_main
+                 else "sparse_vector" for qi in range(len(q_tokens))]
+
+        # the float64 oracle: the generator's arrays as a scipy CSR matrix
+        t = time.perf_counter()
+        indptr = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(counts_all, out=indptr[1:])
+        x = scipy.sparse.csr_matrix(
+            (torch.cat(w_parts).cpu().numpy().astype(np.float64),
+             torch.cat(tok_parts).cpu().numpy(), indptr),
+            shape=(n, SPARSE_VOCAB))
+        del tok_parts, w_parts
+        qd = np.zeros((SPARSE_VOCAB, len(q_tokens)))
+        for qi, toks in enumerate(q_tokens):
+            for tname, w in toks.items():
+                qd[int(tname[1:]), qi] = float(np.float32(w))
+        s64_all = np.asarray(x @ qd)
+        del x
+        oracle_s = time.perf_counter() - t
+        f64_top = []
+        for qi in range(len(q_tokens)):
+            # top 10 by (score desc, doc asc), from the best 64
+            s64 = s64_all[:, qi]
+            cand = np.argpartition(-s64, min(64, n - 1))[:64]
+            f64_top.append(cand[np.lexsort((cand, -s64[cand]))][:10])
+
+        # each sparse leg: byte-identical to the host twin; against f64
+        leg_lat, ties, ulp_cuts, read = [], 0, 0, []
+        legs_f32 = []
+        for qi, toks in enumerate(q_tokens):
+            t = time.perf_counter()
+            (rows, scores), = ex.sparse.search_batch(
+                reader, "tokens", [(toks, 1.0)], BM25_WINDOW)
+            leg_lat.append((time.perf_counter() - t) * 1e3)
+            _same_window(f"serve_sparse query {qi}: board against the "
+                         f"host twin", (rows, scores),
+                         sf.search_batch([(toks, 1.0)], BM25_WINDOW,
+                                         route="host")[0])
+            read.append(postings(toks))
+            ties += int((np.diff(scores) == 0).sum())
+            docs = np.asarray([int(reader.get_id(int(r))) for r in rows])
+            legs_f32.append(docs[:10])
+            s64 = s64_all[:, qi]
+            top64 = f64_top[qi]
+            top64 = top64[s64[top64] > 0]
+            tenth = float(s64[top64[-1]])
+            for doc in set(docs[:10].tolist()) ^ set(top64.tolist()):
+                if abs(float(s64[doc]) - tenth) > 2e-6 * tenth:
+                    raise AssertionError(
+                        f"serve_sparse query {qi}: doc {doc} (f64 "
+                        f"{float(s64[doc])}) against the f64 top 10's cut "
+                        f"{tenth}")
+                ulp_cuts += 1
+            err = np.abs(scores[:10].astype(np.float64) - s64[docs[:10]])
+            if (err > 1e-5 * np.abs(scores[:10])).any():
+                raise AssertionError(f"serve_sparse query {qi}: f32 scores "
+                                     f"{scores[:10]} off the f64 oracle")
+        recall = {"f32": float(np.mean([
+            len(set(a.tolist()) & set(b.tolist())) / 10
+            for a, b in zip(legs_f32, f64_top)]))}
+        tile_gb = {"f32": sf.nbytes() / 1e9}
+        for dtype in ("bf16", "int8"):
+            qf = sparse.SparseField("tokens", dtype, device=dev)
+            for key in ("n_slots", "row_map", "term_tiles", "tile_slots",
+                        "tile_impacts", "nnz", "version"):
+                setattr(qf, key, getattr(sf, key))
+            got = qf.search_batch([(q, 1.0) for q in q_tokens], 10)
+            recall[dtype] = float(np.mean([
+                len({int(reader.get_id(int(r))) for r in rows}
+                    & set(want.tolist())) / 10
+                for (rows, _s), want in zip(got, f64_top)]))
+            tile_gb[dtype] = qf.nbytes() / 1e9
+            del qf, got
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        del s64_all
+
+        # hybrid requests over HTTP, each against host RRF of its legs
+        bodies = [sparse_body(toks, qv, form)
+                  for toks, qv, form in zip(q_tokens, q_emb, forms)]
+        client.ok("POST", f"/{name}/_search", bodies[0])    # warm-up
+        ex0 = dict(ex.stats)
+        dispatch.reset_launches()
+        lat, responses = [], []
+        for body in bodies:
+            t = time.perf_counter()
+            responses.append(client.ok("POST", f"/{name}/_search",
+                                       body)["hits"])
+            lat.append((time.perf_counter() - t) * 1e3)
+        launches = {k: c for k, c in dispatch.launches().items() if c}
+        want = {bm25.KERNEL: len(bodies), kb.KERNEL_BF16: len(bodies)}
+        if launches != want or dispatch.variant_launches().get(
+                sparse_key, 0) != len(bodies):
+            raise AssertionError(f"serve_sparse: launches {launches} "
+                                 f"({dispatch.variant_launches()}) for "
+                                 f"{len(bodies)} requests; expected {want}")
+        for key, c in launches.items():
+            total[key] += c
+        stages = {k: (ex.stats[k] - ex0[k]) / len(bodies) / 1e6
+                  for k in ("plan_nanos", "score_nanos", "fuse_nanos",
+                            "hydrate_nanos")}
+        extra = [sparse_body({}, q_emb[0]),
+                 sparse_body({}, q_emb[1], "weighted_tokens")]
+        host, knn_rows = [], []
+        for bi, body in enumerate(bodies + extra):
+            got = responses[bi] if bi < len(bodies) else \
+                client.ok("POST", f"/{name}/_search", body)["hits"]
+            plan = compile_plan(body, svc.mapper_service)
+            legs = ex.score_legs(reader, [plan], [plan.bind(body)])[0]
+            rows, scores = _host_rrf(legs)
+            want_ids = [reader.get_id(r) for r in rows[:10]]
+            if [h["_id"] for h in got["hits"]] != want_ids \
+                    or [h["_score"] for h in got["hits"]] != scores[:10] \
+                    or got["total"]["value"] != len(rows):
+                raise AssertionError(f"serve_sparse body {bi}: differs from "
+                                     f"host RRF of its legs")
+            if bi < len(bodies):
+                host.append((want_ids, scores[:10], len(rows)))
+                knn_rows.append(legs[1][:10])
+            elif len(legs[0]):
+                raise AssertionError("serve_sparse: an empty token map gave "
+                                     "sparse hits")
+        knn_recall = float(np.mean([
+            len({int(reader.get_id(int(r))) for r in rows}
+                & set(tr.tolist())) / 10
+            for rows, tr in zip(knn_rows, truth)]))
+        if knn_recall < 0.95:
+            raise AssertionError(f"serve_sparse kNN leg recall@10 "
+                                 f"{knn_recall} < 0.95")
+
+        # every body's legs as one batch: one board launch set
+        dispatch.reset_launches()
+        plans = [compile_plan(b, svc.mapper_service) for b in bodies]
+        ex.score_legs(reader, plans, [pl.bind(b)
+                                      for pl, b in zip(plans, bodies)])
+        if dispatch.launches().get(bm25.KERNEL, 0) != 1 \
+                or dispatch.variant_launches().get(sparse_key, 0) != 1:
+            raise AssertionError(f"serve_sparse: {dispatch.launches()} for "
+                                 f"one batch of {len(bodies)}")
+        positions = [sum(t in sf.term_tiles for t in q) for q in q_tokens]
+        fields = dict(
+            docs=n, vocab=SPARSE_VOCAB, postings=sf.nnz,
+            tokens_per_passage=f"{counts_all.mean():.2f}",
+            tiles=len(sf.tile_slots),
+            tile_gb=json.dumps({k: round(v, 3) for k, v in tile_gb.items()}),
+            data_s=f"{clock['data']:.2f}", ingest_s=f"{clock['ingest']:.2f}",
+            seal_s=f"{seal_s:.2f}", sparse_build_s=f"{build_s:.2f}",
+            oracle_s=f"{oracle_s:.2f}", requests=len(bodies),
+            query_tokens_mean=f"{np.mean([len(q) for q in q_tokens[:n_main]]):.1f}",
+            wide_tokens_mean=f"{np.mean([len(q) for q in q_tokens[n_main:]]):.1f}",
+            launches_per_set_mean=f"{np.mean(positions):.1f}",
+            launches_per_set_max=max(positions),
+            postings_per_query_mean=f"{np.mean(read):.0f}",
+            shared_tokens_per_passage=f"{np.mean(read) / n:.3f}",
+            hybrid_p50_ms=f"{statistics.median(lat):.3f}",
+            sparse_leg_p50_ms=f"{statistics.median(leg_lat):.3f}",
+            recall_at_10_vs_f64=json.dumps(recall),
+            knn_recall_at_10=knn_recall, window_ties=ties,
+            f64_cut_ulps=ulp_cuts,
+            launches_per_request=json.dumps(
+                {k: c / len(bodies) for k, c in launches.items()}))
+        for stage, ms in stages.items():
+            fields[f"{stage.split('_')[0]}_stage_ms"] = f"{ms:.4f}"
+        if dev.type == "cuda":
+            fields["device_peak_gb"] = \
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        fields["host_peak_rss_gb"] = f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.2f}"
+        log("serve_sparse", **fields)
+
+        # concurrent clients: batch-1 answers exactly, one set a batch
+        def check(qi, payload):
+            hits = payload["hits"]
+            if hits["total"]["value"] != host[qi][2]:
+                raise AssertionError(f"{name} query {qi}: total "
+                                     f"{hits['total']} against {host[qi][2]}")
+            return against_batch1(f"{name} query {qi}",
+                                  [h["_id"] for h in hits["hits"]],
+                                  [h["_score"] for h in hits["hits"]],
+                                  host[qi][0], host[qi][1], 0.0)
+
+        batches0 = ex.batcher.sched["batches"]
+        conc = serve_concurrent(
+            name, server.port, f"/{name}/_search", bodies[:n_main], (1, 8),
+            2 * n_main, check, lambda: dict(ex.batcher.sched),
+            (ex.batcher, "_dispatch_fn", 0),
+            {f"{kb.KERNEL_BF16}/{kb.VARIANT_TMA}", sparse_key})
+        batches = ex.batcher.sched["batches"] - batches0
+        if conc.get(bm25.KERNEL, 0) != batches:
+            raise AssertionError(f"serve_sparse concurrent: "
+                                 f"{conc.get(bm25.KERNEL, 0)} bm25_board "
+                                 f"launch sets for {batches} batches")
+        for key, c in conc.items():
+            total[key] = total.get(key, 0) + c
+        log("serve_sparse", concurrent_batches=batches,
+            sparse_launch_sets=conc.get(bm25.KERNEL, 0))
+        drop_index(node, name)
+        del emb
+
+        # the plain `query: {sparse_vector}` host walker, at n_walker
+        client.ok("PUT", f"/{walk_name}", {
+            "settings": {"number_of_shards": 1},
+            "mappings": {"properties": {
+                "tokens": {"type": "rank_features"}}}})
+        wsvc = node.index(walk_name)
+        wsvc.index_many([str(i) for i in range(len(walker_maps))],
+                        [{"tokens": fm} for fm in walker_maps])
+        client.ok("POST", f"/{walk_name}/_refresh")
+        wex = node._hybrid_executor(wsvc)
+        wreader = wsvc.combined_reader()
+        dispatch.reset_launches()
+        walk_lat, hits_of = [], []
+        for qi, toks in enumerate(q_tokens):
+            q = ({"sparse_vector": {"field": "tokens", "query_vector": toks}}
+                 if forms[qi] == "sparse_vector" else
+                 {"weighted_tokens": {"tokens": {"tokens": toks}}})
+            t = time.perf_counter()
+            hits_of.append(client.ok("POST", f"/{walk_name}/_search", {
+                "query": q, "size": BM25_WINDOW,
+                "_source": False})["hits"]["hits"])
+            walk_lat.append((time.perf_counter() - t) * 1e3)
+        if any(dispatch.launches().values()):
+            raise AssertionError(f"serve_sparse: the host walker launched "
+                                 f"{dispatch.launches()}")
+        wboard_lat = []
+        for qi, toks in enumerate(q_tokens):
+            t = time.perf_counter()
+            (rows, scores), = wex.sparse.search_batch(
+                wreader, "tokens", [(toks, 1.0)], BM25_WINDOW)
+            wboard_lat.append((time.perf_counter() - t) * 1e3)
+            hits = hits_of[qi]
+            _same_window(f"serve_sparse walker query {qi}: the board",
+                         ([wreader.get_id(int(r)) for r in rows], scores),
+                         ([h["_id"] for h in hits],
+                          [h["_score"] for h in hits]))
+        log("serve_sparse", walker_docs=len(walker_maps),
+            walker_queries=len(q_tokens),
+            walker_p50_ms=f"{statistics.median(walk_lat):.3f}",
+            walker_board_leg_p50_ms=f"{statistics.median(wboard_lat):.3f}")
+        drop_index(node, walk_name)
+    finally:
+        server.stop()
+    return total
+
+
+def timed(label: str, phase, *args, **kwargs):
+    """Run one phase and log its wall seconds."""
+    t = time.perf_counter()
+    out = phase(*args, **kwargs)
+    log("timing", step=label, seconds=f"{time.perf_counter() - t:.1f}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1234)
@@ -3403,6 +4014,11 @@ def main(argv=None) -> int:
                     help="build, check bm25_board and run only "
                          "serve_hybrid at --n-msmarco passages (no final "
                          "ok line)")
+    ap.add_argument("--n-sparse", type=int, default=N_SPARSE)
+    ap.add_argument("--sparse-only", action="store_true",
+                    help="build, check bm25_board (the BM25 and the "
+                         "learned-sparse cases) and run only serve_sparse "
+                         "at --n-sparse passages (no final ok line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3426,31 +4042,46 @@ def main(argv=None) -> int:
     if args.sharded_only:
         phase_serve_sharded(args.seed, args.n_sharded, smi=smi)
         return 0
-    if args.hybrid_only:
-        kernels = phase_bm25_kernel(args.seed, torch.device("cuda"))
-        launches = phase_serve_hybrid(args.seed, args.n_msmarco)
-        for name, entry in kernels.items():
-            entry["launches"] = launches[name]
-        print(json.dumps({"kernels": list(kernels.values())}))
-        print(smi)
-        return 0
-    kernels = phase_binned_kernels(args.seed, torch.device("cuda"))
-    kernels.update(phase_ivf_kernels(args.seed, torch.device("cuda")))
-    kernels.update(phase_maxsim_kernels(args.seed, torch.device("cuda")))
-    kernels.update(phase_bm25_kernel(args.seed, torch.device("cuda")))
-    launches = phase_serve(args.seed, args.n_sift, args.n_cohere)
+    for only, phase, n in ((args.hybrid_only, phase_serve_hybrid,
+                            args.n_msmarco),
+                           (args.sparse_only, phase_serve_sparse,
+                            args.n_sparse)):
+        if only:
+            kernels = phase_bm25_kernel(args.seed, torch.device("cuda"))
+            launches = phase(args.seed, n)
+            for name, entry in kernels.items():
+                entry["launches"] = launches[name]
+            print(json.dumps({"kernels": list(kernels.values())}))
+            print(smi)
+            return 0
+    cuda = torch.device("cuda")
+    kernels = timed("kernels_binned", phase_binned_kernels, args.seed, cuda)
+    kernels.update(timed("kernels_ivf", phase_ivf_kernels, args.seed, cuda))
+    kernels.update(timed("kernels_maxsim", phase_maxsim_kernels, args.seed,
+                         cuda))
+    kernels.update(timed("kernels_bm25", phase_bm25_kernel, args.seed, cuda))
+    launches = timed("serve_sift_cohere", phase_serve, args.seed,
+                     args.n_sift, args.n_cohere)
     one_shard = {}
-    launches.update(phase_serve_ivf(args.seed, args.n_gist,
-                                    args.n_cohere_ivf, report=one_shard))
-    for phase in (phase_serve_colbert(args.seed, args.n_colbert),
-                  phase_serve_filtered(args.seed, args.n_laion),
-                  phase_serve_sharded(args.seed, args.n_sharded, smi=smi,
-                                      one_shard=one_shard),
-                  phase_serve_hybrid(args.seed, args.n_msmarco)):
+    launches.update(timed("serve_ivf", phase_serve_ivf, args.seed,
+                          args.n_gist, args.n_cohere_ivf, report=one_shard))
+    phases = [timed("serve_colbert", phase_serve_colbert, args.seed,
+                    args.n_colbert),
+              timed("serve_filtered", phase_serve_filtered, args.seed,
+                    args.n_laion),
+              timed("serve_sharded", phase_serve_sharded, args.seed,
+                    args.n_sharded, smi=smi, one_shard=one_shard),
+              timed("serve_hybrid", phase_serve_hybrid, args.seed,
+                    args.n_msmarco)]
+    sparse_launches = timed("serve_sparse", phase_serve_sparse, args.seed,
+                            args.n_sparse)
+    for phase in phases + [sparse_launches]:
         for name, count in phase.items():
             launches[name] = launches.get(name, 0) + count
     for name, entry in kernels.items():
         entry["launches"] = launches[name]
+    from elasticsearch_tpu_torch.ops import bm25
+    kernels[bm25.KERNEL]["sparse_launches"] = sparse_launches[bm25.KERNEL]
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

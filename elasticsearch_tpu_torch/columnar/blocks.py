@@ -1,11 +1,15 @@
-"""Per-segment token blocks of `rank_vectors` fields and postings blocks
-of text fields (port of the token and postings parts of
+"""Per-segment token blocks of `rank_vectors` fields, postings blocks of
+text fields and learned-sparse postings blocks of feature-map fields (port
+of the token, postings and sparse parts of
 `elasticsearch_tpu/columnar/blocks.py`).
 
 A `PostingsBlock` is one segment's live postings of one text field in
 dense live-slot space (live docs renumbered 0..n_live-1 in ascending
 local order), the input of the BM25 impact layout (`ops/bm25.py`), kept
-in CSR form: one array a field, not an array pair a term.
+in CSR form: one array a field, not an array pair a term. A
+`SparsePostingsBlock` is the same for one `rank_features` (or
+`sparse_vector`) field, the stored f32 weights in place of the freqs: the
+input of the learned-sparse layout (`ops/sparse.py`).
 
 A `TokenVectorBlock` is one segment's live token matrices of one field,
 metric-prepped and codec-encoded through `quant/tokens.py`, with the pooled
@@ -18,10 +22,11 @@ there is no process-wide block store in the port.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from elasticsearch_tpu_torch.index.segment import FeatureMapColumn
 from elasticsearch_tpu_torch.quant import tokens as quant_tokens
 
 # tokens prepped and encoded per pass: bounds the f32 temporaries of a
@@ -170,3 +175,59 @@ def extract_postings_block(view, field: str) -> PostingsBlock:
         fingerprint(view), fp.terms[has], starts,
         slot_of[fp.doc_ids[keep]].astype(np.int32), fp.freqs[keep],
         lengths, n_live)
+
+
+class SparsePostingsBlock:
+    """One segment's live feature maps inverted to feature-major runs in
+    dense live-slot space: `terms` (the features) sorted, feature j's live
+    slots (ascending) and stored f32 weights at starts[j]:starts[j + 1].
+    `n_live` spans every live doc of the segment (a doc without the field
+    is in no run), so the slot space is the lexical layout's. Features
+    without a live posting are left out."""
+
+    __slots__ = ("fingerprint", "terms", "starts", "slots", "weights",
+                 "n_live", "nbytes")
+
+    def __init__(self, fp: tuple, terms, starts, slots, weights,
+                 n_live: int):
+        self.fingerprint = fp
+        self.terms = terms
+        self.starts = starts
+        self.slots = slots
+        self.weights = weights
+        self.n_live = n_live
+        self.nbytes = starts.nbytes + slots.nbytes + weights.nbytes
+
+    @property
+    def features(self) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+        """feature -> (live slots ascending int32, f32 weights): the
+        reference block's form."""
+        return {t: (self.slots[lo:hi], self.weights[lo:hi])
+                for t, lo, hi in zip(self.terms.tolist(),
+                                     self.starts[:-1].tolist(),
+                                     self.starts[1:].tolist())}
+
+
+def extract_sparse_postings_block(view, field: str) -> SparsePostingsBlock:
+    """The live feature maps of `field` in one segment view, renumbered to
+    live slots (the reference's `extract_sparse_postings_block`, from the
+    column's feature-major arrays instead of a walk over its dicts)."""
+    live = view.live
+    n_live = int(live.sum())
+    col = view.segment.doc_values.get(field)
+    if not isinstance(col, FeatureMapColumn):
+        return SparsePostingsBlock(fingerprint(view), np.zeros(0, dtype=str),
+                                   np.zeros(1, dtype=np.int64),
+                                   np.zeros(0, dtype=np.int32),
+                                   np.zeros(0, dtype=np.float32), n_live)
+    names, starts, docs, weights = col.by_feature()
+    keep = live[docs]
+    per_term = np.add.reduceat(keep.astype(np.int64), starts[:-1]) \
+        if len(docs) else np.zeros(len(names), dtype=np.int64)
+    has = per_term > 0
+    live_starts = np.zeros(int(has.sum()) + 1, dtype=np.int64)
+    np.cumsum(per_term[has], out=live_starts[1:])
+    slot_of = np.cumsum(live, dtype=np.int64) - 1
+    return SparsePostingsBlock(
+        fingerprint(view), names[has], live_starts,
+        slot_of[docs[keep]].astype(np.int32), weights[keep], n_live)

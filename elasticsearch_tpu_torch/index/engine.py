@@ -11,7 +11,10 @@ seal builds their postings and doc-values columns with numpy. Text values
 are analyzed (`TextFieldMapper.analyze_positions`); their tokens enter
 the buffer as integer codes of a per-field vocabulary with their
 positions, and the seal builds the positional postings and the field
-lengths from those arrays. A document's
+lengths from those arrays. Feature maps (`rank_features`, `sparse_vector`)
+enter the buffer likewise, as integer codes of a per-field feature
+vocabulary with their f64 weights, and seal into a `FeatureMapColumn`
+without walking a dict. A document's
 `_source` is kept as it was sent; vectors given as arrays (a numpy row in
 a source, or `vectors=` / `token_vectors=`) have no JSON to keep and are
 rendered from their blocks. A document's routing value, when it has one,
@@ -33,7 +36,8 @@ from elasticsearch_tpu_torch.common.errors import (
 )
 from elasticsearch_tpu_torch.index.mapping import MapperService
 from elasticsearch_tpu_torch.index.segment import (
-    DocValuesColumn, FieldPostings, Segment, SegmentView, ShardReader,
+    DocValuesColumn, FeatureMapColumn, FieldPostings, Segment, SegmentView,
+    ShardReader,
 )
 
 PRIMARY_TERM = 1
@@ -75,6 +79,10 @@ class _Buffer:
         self.vocab: Dict[str, Dict[str, int]] = {}
         self.text: Dict[str, list] = {}
         self.lengths: Dict[str, list] = {}
+        # feature-map field -> its feature vocabulary (name -> code) and
+        # its arrays [(local docs, features a doc, codes, f64 weights)]
+        self.feature_vocab: Dict[str, Dict[str, int]] = {}
+        self.features: Dict[str, list] = {}
 
     def add_text(self, start: int, text: Dict[str, tuple]) -> None:
         """Append a batch's text fields: field -> (batch positions of the
@@ -95,6 +103,23 @@ class _Buffer:
             self.lengths.setdefault(field, []).append(
                 (np.asarray(pos, dtype=np.int64) + start,
                  np.asarray(lengths, dtype=np.int32)))
+
+    def add_features(self, start: int, features: Dict[str, tuple]) -> None:
+        """Append a batch's feature maps: field -> (batch positions of the
+        docs, their key lists, their weight lists)."""
+        for field, (pos, keys, weights) in features.items():
+            vocab = self.feature_vocab.setdefault(field, {})
+            counts = np.fromiter(map(len, keys), dtype=np.int64,
+                                 count=len(keys))
+            flat = list(itertools.chain.from_iterable(keys))
+            for t in dict.fromkeys(flat):       # the batch's features, once
+                vocab.setdefault(t, len(vocab))
+            codes = np.fromiter(map(vocab.__getitem__, flat), dtype=np.int32,
+                                count=len(flat))
+            w = np.fromiter(itertools.chain.from_iterable(weights),
+                            dtype=np.float64, count=len(flat))
+            self.features.setdefault(field, []).append(
+                (np.asarray(pos, dtype=np.int64) + start, counts, codes, w))
 
     def add(self, ids, sources, routings, vectors, tokens, terms,
             doc_values) -> int:
@@ -154,6 +179,28 @@ class _Buffer:
             out[field] = (toks, offsets, counts > 0)
         return out
 
+    def _seal_features(self, n: int, field: str,
+                       parts: list) -> FeatureMapColumn:
+        """One feature-map field's column: the batches' code and weight
+        arrays in local-doc order (parts arrive in ascending local docs),
+        and its docs holding a list of maps as plain values."""
+        counts = np.zeros(n, dtype=np.int64)
+        present = np.zeros(n, dtype=bool)
+        for docs, cnt, _codes, _w in parts:
+            counts[docs] = cnt
+            present[docs] = True
+        offsets = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        other = {}
+        if field in self.doc_values:
+            docs, vals = self.doc_values[field]
+            other = dict(zip(docs, vals))
+            present[docs] = True
+        return FeatureMapColumn(
+            np.asarray(list(self.feature_vocab[field]), dtype=str), offsets,
+            np.concatenate([p[2] for p in parts]),
+            np.concatenate([p[3] for p in parts]), present, other)
+
     def seal(self, dims: Dict[str, int]) -> Segment:
         n = len(self.ids)
         vectors = {}
@@ -182,7 +229,10 @@ class _Buffer:
                 fl[docs] = lengths
             field_lengths[field] = fl
         doc_values = {f: DocValuesColumn.build(n, np.asarray(docs), vals)
-                      for f, (docs, vals) in self.doc_values.items()}
+                      for f, (docs, vals) in self.doc_values.items()
+                      if f not in self.features}
+        for field, parts in self.features.items():
+            doc_values[field] = self._seal_features(n, field, parts)
         routings = (self.routings if any(r is not None for r in self.routings)
                     else None)
         return Segment(self.seg_id, self.base, self.ids, self.sources, vectors,
@@ -255,6 +305,7 @@ class Engine:
         terms: Dict[str, Tuple[list, list]] = {}
         doc_values: Dict[str, Tuple[list, list]] = {}
         text: Dict[str, Tuple[list, list, list, list]] = {}
+        features: Dict[str, Tuple[list, list, list]] = {}
         for i, src in enumerate(sources):
             if src is None:
                 stored.append(None)
@@ -269,6 +320,11 @@ class Engine:
                 ts.append(parsed.terms.pop(field, []))
                 ps.append(parsed.term_positions[field])
                 lens.append(length)
+            for field, (keys, weights) in parsed.features.items():
+                pos, ks, ws = features.setdefault(field, ([], [], []))
+                pos.append(i)
+                ks.append(keys)
+                ws.append(weights)
             for field, ts in parsed.terms.items():
                 pos, vals = terms.setdefault(field, ([], []))
                 pos.extend([i] * len(ts))
@@ -308,6 +364,7 @@ class Engine:
             start = self._buffer.add(list(ids), stored, routings, columns,
                                      token_columns, terms, doc_values)
             self._buffer.add_text(start, text)
+            self._buffer.add_features(start, features)
             self._next_row += n
             out = []
             for i, doc_id in enumerate(ids):

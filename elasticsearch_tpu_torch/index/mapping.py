@@ -16,7 +16,13 @@ interaction) takes dims, similarity and the token-block storage knobs;
 each value its index terms (the filter queries' postings) and its doc
 value (the range queries' column), coerced and rejected as the reference
 does; `ignore_malformed` drops a bad value and records the field in
-`_ignored`. `_source.enabled` is honoured. Every other field type raises
+`_ignored`. `rank_feature` (a positive float, `positive_score_impact`)
+keeps its value as a doc value; `rank_features` and the legacy
+`sparse_vector` keep a feature -> weight map (an object, keys as strings,
+weights coerced with `float`), which `parse_document` hands to the engine
+as its keys and weights for the segment's feature-map column (a list of
+maps stays a plain doc value, as the reference keeps it). `_source.enabled`
+is honoured. Every other field type raises
 the reference's mapper-parsing error. Unmapped document fields stay in
 `_source` and are not indexed (there is no dynamic mapping).
 """
@@ -176,6 +182,49 @@ class BooleanFieldMapper(FieldMapper):
         return self.coerce(value)
 
 
+class RankFeatureFieldMapper(FieldMapper):
+    """`rank_feature`: a positive float consumed by `rank_feature`
+    queries; negative values are refused unless `positive_score_impact`
+    is false."""
+
+    type_name = "rank_feature"
+
+    def coerce(self, value) -> float:
+        v = float(value)
+        if v < 0 and self.params.get("positive_score_impact", True) \
+                is not False:
+            raise MapperParsingError(
+                f"[{self.name}] rank_feature fields only support positive "
+                f"values, got [{value}]")
+        return v
+
+    def doc_value(self, value):
+        return self.coerce(value)
+
+
+class RankFeaturesFieldMapper(FieldMapper):
+    """`rank_features`: a sparse map feature -> weight (the learned-sparse
+    field `ops/sparse.py` scores)."""
+
+    type_name = "rank_features"
+
+    def coerce(self, value) -> dict:
+        if not isinstance(value, dict):
+            raise MapperParsingError(
+                f"[{self.name}] {self.type_name} value must be an object")
+        return {str(k): float(v) for k, v in value.items()}
+
+    def doc_value(self, value):
+        return self.coerce(value)
+
+
+class SparseVectorFieldMapper(RankFeaturesFieldMapper):
+    """`sparse_vector` (the legacy map type): a map dimension -> weight,
+    stored and scored as `rank_features` is."""
+
+    type_name = "sparse_vector"
+
+
 class DenseVectorFieldMapper(FieldMapper):
     """`dense_vector`: dims (required), similarity (cosine|dot_product|
     l2_norm|max_inner_product, default cosine), index_options.type — the
@@ -330,7 +379,8 @@ FIELD_TYPES = {m.type_name: m for m in (
     TextFieldMapper, KeywordFieldMapper, LongFieldMapper, IntegerFieldMapper,
     ShortFieldMapper, ByteFieldMapper, DoubleFieldMapper, FloatFieldMapper,
     HalfFloatFieldMapper, ScaledFloatFieldMapper, BooleanFieldMapper,
-    DenseVectorFieldMapper, RankVectorsFieldMapper)}
+    DenseVectorFieldMapper, RankVectorsFieldMapper, RankFeatureFieldMapper,
+    RankFeaturesFieldMapper, SparseVectorFieldMapper)}
 
 
 def build_mapper(name: str, definition: dict,
@@ -400,9 +450,10 @@ class MapperService:
         """The document's mapped values, validated: dense_vector values as
         f32 rows, rank_vectors values as f32 [n_tokens, dims] matrices, and
         text values as analyzed terms with their positions and the field's
-        length, and every other mapped field's index terms and doc value (a
-        list holds several values; one value stays a scalar), as the
-        reference's `DocumentParser` makes them."""
+        length, a feature map (`rank_features`, `sparse_vector`) as its
+        keys and coerced weights, and every other mapped field's index
+        terms and doc value (a list holds several values; one value stays a
+        scalar), as the reference's `DocumentParser` makes them."""
         if not isinstance(source, dict):
             raise MapperParsingError("document source must be an object")
         parsed = ParsedFields()
@@ -426,6 +477,10 @@ class MapperService:
             for v in (value if isinstance(value, list) else [value]):
                 if v is not None:
                     self._index_one(field, mapper, v, parsed)
+            if isinstance(mapper, RankFeaturesFieldMapper) \
+                    and isinstance(parsed.doc_values.get(field), dict):
+                fmap = parsed.doc_values.pop(field)
+                parsed.features[field] = (list(fmap), list(fmap.values()))
         return parsed
 
     @staticmethod
@@ -471,10 +526,11 @@ class ParsedFields:
     field -> index terms (duplicates kept, for term frequencies), field ->
     doc value (a scalar, or a list for a multi-valued field); for text
     fields, field -> each term's position (parallel to its terms) and
-    field -> token count."""
+    field -> token count; for a feature-map field holding one map, field ->
+    (its keys, its weights as floats), in the map's order."""
 
     __slots__ = ("vectors", "terms", "doc_values", "term_positions",
-                 "field_lengths")
+                 "field_lengths", "features")
 
     def __init__(self):
         self.vectors: Dict[str, np.ndarray] = {}
@@ -482,3 +538,4 @@ class ParsedFields:
         self.doc_values: Dict[str, Any] = {}
         self.term_positions: Dict[str, List[int]] = {}
         self.field_lengths: Dict[str, int] = {}
+        self.features: Dict[str, tuple] = {}

@@ -20,7 +20,11 @@ for numerics a float64 view with a presence mask), which the filter
 queries (`search/queries.py`) read. Text fields keep term postings with
 each occurrence's position, and each document's field length (its token
 count) with the segment's total, which BM25 (`search/queries.py`,
-`ops/bm25.py`) reads through the reader's statistics.
+`ops/bm25.py`) reads through the reader's statistics. Feature-map fields
+(`rank_features`, `sparse_vector`) keep a `FeatureMapColumn` in the
+segment's doc values: integer feature codes and f64 weights, which the
+learned-sparse layout (`ops/sparse.py`) and the `sparse_vector` walker
+(`search/queries_ext.py`) read feature-major.
 """
 
 from __future__ import annotations
@@ -71,6 +75,82 @@ class DocValuesColumn:
 
     def get(self, local_doc: int) -> Any:
         return self.values[local_doc]
+
+
+class FeatureMapColumn:
+    """Per-doc feature maps (`rank_features`, `sparse_vector`) of one field
+    within one segment, kept as integer codes: doc i's map holds the
+    features names[codes[offsets[i]:offsets[i + 1]]] with the weights at
+    the same places, in the map's own order, as f64 (`float(v)` of the
+    value sent). A doc whose value is a list of maps keeps it in `other`,
+    as a plain doc value. `values[i]` (and `get(i)`) gives doc i's value as
+    the reference's column holds it: its map as a dict, its list, or
+    None; `numeric` is None, `present` marks the docs holding a value.
+
+    `by_feature()` is the feature-major form the learned-sparse layout and
+    the `sparse_vector` walker read: made with one integer sort on first
+    use and kept, since a segment never changes."""
+
+    __slots__ = ("names", "offsets", "codes", "weights", "present",
+                 "other", "_by_feature")
+
+    numeric = None
+
+    def __init__(self, names: np.ndarray, offsets: np.ndarray,
+                 codes: np.ndarray, weights: np.ndarray, present: np.ndarray,
+                 other: Dict[int, Any]):
+        self.names = names              # code -> feature name
+        self.offsets = offsets          # int64 [num_docs + 1]
+        self.codes = codes              # int32 [postings]
+        self.weights = weights          # float64 [postings]
+        self.present = present
+        self.other = other
+        self._by_feature = None
+
+    @property
+    def values(self) -> "FeatureMapColumn":
+        return self
+
+    def __getitem__(self, local_doc) -> Any:
+        local_doc = int(local_doc)
+        if local_doc in self.other:
+            return self.other[local_doc]
+        if not self.present[local_doc]:
+            return None
+        lo, hi = self.offsets[local_doc], self.offsets[local_doc + 1]
+        return dict(zip(self.names[self.codes[lo:hi]].tolist(),
+                        self.weights[lo:hi].tolist()))
+
+    def get(self, local_doc: int) -> Any:
+        return self[local_doc]
+
+    def by_feature(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                  np.ndarray]:
+        """(features sorted [F], starts int64 [F + 1], docs int32, weights
+        f32): feature j's docs (ascending) and weights at
+        starts[j]:starts[j + 1]; the weights rounded to f32 once, as the
+        reference's `np.asarray(weights, float32)` rounds them."""
+        if self._by_feature is None:
+            order_names = np.argsort(self.names, kind="stable")
+            rank = np.empty(len(self.names), dtype=np.int32)
+            rank[order_names] = np.arange(len(self.names), dtype=np.int32)
+            post_rank = rank[self.codes]
+            # the postings are doc-major, so a stable sort by feature keeps
+            # each feature's docs ascending (a radix sort on 16-bit keys,
+            # which a wordpiece vocabulary fits)
+            order = np.argsort(post_rank.astype(np.uint16)
+                               if len(self.names) <= 1 << 16 else post_rank,
+                               kind="stable")
+            counts = np.bincount(post_rank, minlength=len(self.names))
+            starts = np.zeros(len(self.names) + 1, dtype=np.int64)
+            np.cumsum(counts, out=starts[1:])
+            doc_of = np.repeat(np.arange(len(self.offsets) - 1,
+                                         dtype=np.int32),
+                               np.diff(self.offsets))
+            self._by_feature = (self.names[order_names], starts,
+                                doc_of[order],
+                                self.weights[order].astype(np.float32))
+        return self._by_feature
 
 
 class Postings:
@@ -268,6 +348,13 @@ class ShardReader:
     def get_routing(self, row: int) -> Optional[str]:
         seg, local = self._locate(row)
         return None if seg.routings is None else seg.routings[local]
+
+    def get_doc_value(self, field: str, row: int) -> Any:
+        """The doc value of `field` at a global row, as its column holds
+        it (None when the doc has none)."""
+        seg, local = self._locate(row)
+        col = seg.doc_values.get(field)
+        return col.get(local) if col is not None else None
 
     def live_global_rows(self) -> np.ndarray:
         """Every live document's global row, ascending."""

@@ -34,7 +34,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -155,15 +155,17 @@ def _check_inputs(scores, counts, items, starts, tile_slots, tile_impacts,
 def bm25_board(scores: torch.Tensor, counts: torch.Tensor,
                items: torch.Tensor, starts: np.ndarray,
                tile_slots: torch.Tensor, tile_impacts: torch.Tensor,
-               tile_scales: Optional[torch.Tensor] = None) -> None:
+               tile_scales: Optional[torch.Tensor] = None,
+               variant: Optional[str] = None) -> None:
     """Add a batch's impacts into zeroed boards, in place: `scores` [Q,
     W + 1] f32 and `counts` [Q, W + 1] int32. `items` [3, I] int32 holds
     each work item's (query, tile, boost as f32 bits), grouped by term
     position: items starts[j]:starts[j + 1] (`starts`, host int32 [P + 1])
     are the tiles of every query's j-th term. On CUDA tensors the kernel
     runs, one launch a term position on the current stream (one launch
-    set, counted once); on CPU tensors its plain version; anything else
-    raises."""
+    set, counted once, also under `variant` when given: the learned-sparse
+    layout counts as `sparse`); on CPU tensors its plain version; anything
+    else raises."""
     tensors = [scores, counts, items, tile_slots, tile_impacts]
     if tile_scales is not None:
         tensors.append(tile_scales)
@@ -186,7 +188,7 @@ def bm25_board(scores: torch.Tensor, counts: torch.Tensor,
     if code != 0:
         raise RuntimeError(f"{KERNEL} launch failed: "
                            f"{lib.cuda_error_string(code).decode()}")
-    dispatch.count_launch(KERNEL)
+    dispatch.count_launch(KERNEL, variant)
 
 
 def board_top_k(scores: torch.Tensor, counts: torch.Tensor,
@@ -206,7 +208,12 @@ class LexicalField:
     """One text field's tile-padded impact layout over a reader snapshot.
 
     Host arrays are the source of truth (and the host scoring twin); the
-    device copies upload on the first board search of a version."""
+    device copies upload on the first board search of a version.
+    `ops/sparse.py::SparseField` retargets the layout and the board at
+    learned-sparse weights by overriding `sync` and `_term_boosts`."""
+
+    # counted beside the kernel's launches (`bm25_board(variant=)`)
+    VARIANT: Optional[str] = None
 
     def __init__(self, field: str, dtype: str = "f32", device="cuda"):
         if dtype not in _IMPACT_BYTES:
@@ -225,7 +232,7 @@ class LexicalField:
         self.nnz = 0
         self.columnar_refresh: dict = {}
         # per-segment postings blocks, keyed by fingerprint and base
-        self._blocks: Dict[tuple, columnar.PostingsBlock] = {}
+        self._blocks: Dict[tuple, object] = {}
         self._device = None             # (slots, impacts, scales) tensors
         self._device_version: tuple = ()
 
@@ -233,38 +240,11 @@ class LexicalField:
     def sync(self, reader) -> bool:
         """(Re)build from a reader snapshot; True if rebuilt. Segments
         whose postings block is kept are not extracted again."""
-        # a combined reader repeats seg_ids across shards: the base (the
-        # shard's row offset) tells their segments apart
-        version = tuple((columnar.fingerprint(v), v.segment.base)
-                        for v in reader.views)
+        version = self._version_of(reader)
         if version == self.version:
             return False
-        blocks, cache = [], {}
-        n_cached = n_extracted = 0
-        for view in reader.views:
-            key = (columnar.fingerprint(view), view.segment.base)
-            blk = self._blocks.get(key)
-            if blk is None:
-                blk = columnar.extract_postings_block(view, self.field)
-                n_extracted += 1
-            else:
-                n_cached += 1
-            cache[key] = blk
-            blocks.append(blk)
-        self._blocks = cache
-        self.columnar_refresh = {
-            "blocks": n_cached + n_extracted, "cached": n_cached,
-            "extracted": n_extracted,
-            "mode": ("cached" if not n_extracted else
-                     "delta" if n_cached else "full")}
-
-        # dense slot space: segment-major, ascending local order, so the
-        # row map ascends and slot tie-breaks are row tie-breaks
-        self.n_slots = sum(b.n_live for b in blocks)
-        rows = [np.nonzero(v.live)[0].astype(np.int64) + v.segment.base
-                for v in reader.views]
-        self.row_map = (np.concatenate(rows) if rows
-                        else np.zeros(0, dtype=np.int64))
+        blocks = self._sync_blocks(reader, version,
+                                   columnar.extract_postings_block)
         lengths = (np.concatenate([b.lengths for b in blocks]) if blocks
                    else np.zeros(0, dtype=np.float32))
         terms, dfs, slot_flat, freq_flat = self._merge(blocks)
@@ -294,17 +274,56 @@ class LexicalField:
         return True
 
     @staticmethod
-    def _merge(blocks):
+    def _version_of(reader) -> tuple:
+        # a combined reader repeats seg_ids across shards: the base (the
+        # shard's row offset) tells their segments apart
+        return tuple((columnar.fingerprint(v), v.segment.base)
+                     for v in reader.views)
+
+    def _sync_blocks(self, reader, version: tuple, extract) -> list:
+        """The reader's per-segment blocks (`extract(view, field)` for the
+        segments not kept from the last build, keyed as `version` names
+        them), and its slot space."""
+        blocks, cache = [], {}
+        n_cached = n_extracted = 0
+        for view, key in zip(reader.views, version):
+            blk = self._blocks.get(key)
+            if blk is None:
+                blk = extract(view, self.field)
+                n_extracted += 1
+            else:
+                n_cached += 1
+            cache[key] = blk
+            blocks.append(blk)
+        self._blocks = cache
+        self.columnar_refresh = {
+            "blocks": n_cached + n_extracted, "cached": n_cached,
+            "extracted": n_extracted,
+            "mode": ("cached" if not n_extracted else
+                     "delta" if n_cached else "full")}
+        # dense slot space: segment-major, ascending local order, so the
+        # row map ascends and slot tie-breaks are row tie-breaks
+        self.n_slots = sum(b.n_live for b in blocks)
+        rows = [np.nonzero(v.live)[0].astype(np.int64) + v.segment.base
+                for v in reader.views]
+        self.row_map = (np.concatenate(rows) if rows
+                        else np.zeros(0, dtype=np.int64))
+        return blocks
+
+    @staticmethod
+    def _merge(blocks, values: str = "freqs"):
         """Terms (sorted) with their df and their postings, term-major,
         segment order within a term, slots ascending: (terms list, dfs
-        int64, slots int32, freqs int32) in the dense slot space."""
+        int64, slots int32, each block's `values` array in the same
+        order) in the dense slot space."""
         if not blocks:
             return ([], np.zeros(0, dtype=np.int64),
                     np.zeros(0, dtype=np.int32), np.zeros(0, dtype=np.int32))
         bases = np.cumsum([0] + [b.n_live for b in blocks[:-1]])
         if len(blocks) == 1:
             b = blocks[0]
-            return (b.terms.tolist(), np.diff(b.starts), b.slots, b.freqs)
+            return (b.terms.tolist(), np.diff(b.starts), b.slots,
+                    getattr(b, values))
         words, inv = np.unique(np.concatenate([b.terms for b in blocks]),
                                return_inverse=True)
         ranks, at = [], 0
@@ -316,9 +335,9 @@ class LexicalField:
         order = np.argsort(rank, kind="stable")
         slots = np.concatenate([b.slots + np.int32(base)
                                 for b, base in zip(blocks, bases)])
-        freqs = np.concatenate([b.freqs for b in blocks])
+        vals = np.concatenate([getattr(b, values) for b in blocks])
         dfs = np.bincount(rank, minlength=len(words)).astype(np.int64)
-        return words.tolist(), dfs, slots[order], freqs[order]
+        return words.tolist(), dfs, slots[order], vals[order]
 
     def _install_tiles(self, terms, dfs, ptr, slot_flat, impact_flat):
         """Tile-pad the term-major flat (slot, impact) runs: each term's
@@ -368,63 +387,79 @@ class LexicalField:
         self._device_version = self.version
         return self._device
 
-    def plan_queries(self, queries: Sequence[Tuple[Sequence[str], float]]
-                     ) -> Tuple[np.ndarray, np.ndarray, int]:
-        """Resolve (terms, boost) per query to padded tile id / boost
-        matrices (the host twin's plan): every tile of every resolved
-        term, in query-term order; out-of-vocabulary terms add none."""
-        per_q: List[List[Tuple[int, float]]] = []
-        for terms, boost in queries:
-            tiles: List[Tuple[int, float]] = []
-            for t in terms:
-                span = self.term_tiles.get(t)
-                if span is None:
-                    continue
-                first, nt = span
-                tiles.extend((first + j, boost) for j in range(nt))
-            per_q.append(tiles)
-        m = _pow2(max(max((len(t) for t in per_q), default=1), 1))
+    @staticmethod
+    def _term_boosts(query):
+        """A query's (term, the boost its tiles carry) pairs in order: a
+        lexical query is (terms, boost), each term carrying the boost."""
+        terms, boost = query
+        return ((t, boost) for t in terms)
+
+    def plan_queries(self, queries) -> Tuple[np.ndarray, np.ndarray, int]:
+        """Resolve each query's terms to padded tile id / boost matrices
+        (the host twin's plan): every tile of every resolved term, in
+        query-term order; out-of-vocabulary terms add none."""
+        per_q = []
+        for query in queries:
+            spans = [(span[0], span[1], boost)
+                     for t, boost in self._term_boosts(query)
+                     if (span := self.term_tiles.get(t)) is not None]
+            if not spans:
+                per_q.append((np.zeros(0, dtype=np.int64),
+                              np.zeros(0, dtype=np.float32)))
+                continue
+            first, nt, boost = (np.asarray(c) for c in zip(*spans))
+            nt = nt.astype(np.int64)
+            run_start = np.repeat(np.cumsum(nt) - nt, nt)
+            per_q.append((np.repeat(first.astype(np.int64), nt)
+                          + (np.arange(int(nt.sum())) - run_start),
+                          np.repeat(boost.astype(np.float32), nt)))
+        m = _pow2(max(max((len(t) for t, _b in per_q), default=1), 1))
         tile_ids = np.full((len(per_q), m), -1, dtype=np.int32)
         boosts = np.zeros((len(per_q), m), dtype=np.float32)
-        for qi, tiles in enumerate(per_q):
-            for j, (tid, b) in enumerate(tiles):
-                tile_ids[qi, j] = tid
-                boosts[qi, j] = b
+        for qi, (tiles, b) in enumerate(per_q):
+            tile_ids[qi, :len(tiles)] = tiles
+            boosts[qi, :len(tiles)] = b
         return tile_ids, boosts, m
 
-    def plan_positions(self, queries: Sequence[Tuple[Sequence[str], float]]
-                       ) -> Tuple[np.ndarray, np.ndarray]:
+    def plan_positions(self, queries) -> Tuple[np.ndarray, np.ndarray]:
         """The board's work items, grouped by term position: (items [3, I]
         int32 of (query, tile, boost bits), starts [P + 1] int32), items
         starts[j]:starts[j + 1] holding the tiles of every query's j-th
-        in-vocabulary term (a repeated term is one position each time)."""
-        spans: List[List[Tuple[int, int, int, float]]] = []
-        for qi, (terms, boost) in enumerate(queries):
+        in-vocabulary term (a repeated term is one position each time),
+        each with that term's boost."""
+        q_of, first, n_tiles, boost, pos = [], [], [], [], []
+        for qi, query in enumerate(queries):
             j = 0
-            for t in terms:
+            for t, b in self._term_boosts(query):
                 span = self.term_tiles.get(t)
                 if span is None:
                     continue
-                if j == len(spans):
-                    spans.append([])
-                spans[j].append((qi, span[0], span[1], boost))
+                q_of.append(qi)
+                first.append(span[0])
+                n_tiles.append(span[1])
+                boost.append(b)
+                pos.append(j)
                 j += 1
-        parts, starts = [], [0]
-        for pos in spans:
-            q, first, nt, boost = (np.asarray(c) for c in zip(*pos))
-            nt = nt.astype(np.int64)
-            n = int(nt.sum())
-            run_start = np.repeat(np.cumsum(nt) - nt, nt)
-            tile = np.repeat(first.astype(np.int64), nt) \
-                + (np.arange(n) - run_start)
-            parts.append(np.stack([
-                np.repeat(q.astype(np.int32), nt), tile.astype(np.int32),
-                np.repeat(boost.astype(np.float32), nt).view(np.int32)]))
-            starts.append(starts[-1] + n)
-        items = (np.concatenate(parts, axis=1) if parts
-                 else np.zeros((3, 0), dtype=np.int32))
-        return (np.ascontiguousarray(items, dtype=np.int32),
-                np.asarray(starts, dtype=np.int32))
+        if not q_of:
+            return (np.zeros((3, 0), dtype=np.int32),
+                    np.zeros(1, dtype=np.int32))
+        # position-major, queries ascending within a position (a stable
+        # sort of the query-major list)
+        pos = np.asarray(pos, dtype=np.int64)
+        order = np.argsort(pos, kind="stable")
+        nt = np.asarray(n_tiles, dtype=np.int64)[order]
+        run_start = np.repeat(np.cumsum(nt) - nt, nt)
+        tile = np.repeat(np.asarray(first, dtype=np.int64)[order], nt) \
+            + (np.arange(int(nt.sum())) - run_start)
+        items = np.stack([
+            np.repeat(np.asarray(q_of, dtype=np.int32)[order], nt),
+            tile.astype(np.int32),
+            np.repeat(np.asarray(boost, dtype=np.float32)[order],
+                      nt).view(np.int32)])
+        per_pos = np.bincount(pos, weights=n_tiles).astype(np.int64)
+        starts = np.zeros(len(per_pos) + 1, dtype=np.int32)
+        np.cumsum(per_pos, out=starts[1:])
+        return np.ascontiguousarray(items), starts
 
     def _score_host(self, tile_ids, boosts, required, k):
         """Numpy twin of the board over the f32 impacts: the same
@@ -434,14 +469,21 @@ class LexicalField:
         for qi in range(nq):
             scores = np.zeros(self.n_slots, dtype=np.float32)
             counts = np.zeros(self.n_slots, dtype=np.int32)
-            for tid, b in zip(tile_ids[qi], boosts[qi]):
-                if tid < 0:
-                    continue
-                s = self.tile_slots[tid]
-                valid = s >= 0
-                sv = s[valid]
-                scores[sv] += self.tile_impacts[tid][valid] * np.float32(b)
-                counts[sv] += 1
+            real = tile_ids[qi] >= 0
+            tids = tile_ids[qi][real]
+            slots = self.tile_slots[tids]
+            valid = slots >= 0
+            sv = slots[valid]
+            vals = (self.tile_impacts[tids]
+                    * boosts[qi][real][:, None])[valid]
+            # tile by tile in plan order; a run of lanes whose slots
+            # strictly ascend holds no slot twice, so one add a run is
+            # the per-tile adds in the same order
+            cuts = np.nonzero(sv[1:] <= sv[:-1])[0] + 1
+            for lo, hi in zip(np.concatenate([[0], cuts]),
+                              np.concatenate([cuts, [len(sv)]])):
+                scores[sv[lo:hi]] += vals[lo:hi]
+                counts[sv[lo:hi]] += 1
             req = int(required[qi])
             elig = np.nonzero(counts >= max(req, 1))[0]
             kk = min(k, len(elig))
@@ -469,7 +511,7 @@ class LexicalField:
         req = np.ones(n_pad, dtype=np.int32)
         req[:n_real] = required
         bm25_board(scores, counts, torch.from_numpy(items).to(dev), starts,
-                   slots_d, impacts_d, scales_d)
+                   slots_d, impacts_d, scales_d, variant=self.VARIANT)
         vals, slot_idx = board_top_k(scores, counts,
                                      torch.from_numpy(req).to(dev), k_b)
         vals = vals[:n_real, :k_req].cpu().numpy()
@@ -508,6 +550,8 @@ class LexicalShard:
     lazily on first lexical use (most refreshes never serve a lexical
     leg, and the build is a full postings pass)."""
 
+    FIELD_CLS = LexicalField
+
     def __init__(self, dtype: str = "f32", device="cuda"):
         self.dtype = dtype
         self.device = resolve_device(device)
@@ -518,7 +562,8 @@ class LexicalShard:
         with self._lock:
             lf = self._fields.get(name)
             if lf is None:
-                lf = LexicalField(name, dtype=self.dtype, device=self.device)
+                lf = self.FIELD_CLS(name, dtype=self.dtype,
+                                    device=self.device)
                 self._fields[name] = lf
             lf.sync(reader)
             return lf

@@ -1,12 +1,17 @@
 """Hybrid `rank: {rrf}` search: one plan, one dispatch per leg, RRF,
-fetch (port of the `knn`, `late_interaction`, lexical and generic legs of
-`elasticsearch_tpu/search/hybrid_plan.py`).
+fetch (port of the `knn`, `late_interaction`, lexical, learned-sparse and
+generic legs of `elasticsearch_tpu/search/hybrid_plan.py`).
 
   plan    normalize → classify sub-searches into legs:
             lexical — `match` / `term` on a text field, no fuzziness →
                    the BM25 board (`ops/bm25.py`, `csrc/bm25.cu` on the
                    card), one launch set a text field a batch; a `match`
                    whose text analyzes to nothing is an empty leg
+            sparse — `sparse_vector` / `weighted_tokens` on a
+                   `rank_features` or `sparse_vector` field → the same
+                   board over the learned-sparse layout (`ops/sparse.py`),
+                   one launch set a field a batch, whatever the query's
+                   token count; an empty token map is an empty leg
             knn  — `knn` on a dense_vector field → the vector store
                    (`vectors/store.py`, the binned kernel on the card;
                    a filtered leg's filter runs on the host and its rows
@@ -15,7 +20,8 @@ fetch (port of the `knn`, `late_interaction`, lexical and generic legs of
                    late-interaction store (`vectors/late_interaction.py`,
                    the MaxSim kernels on the card), whatever the query's
                    token count
-            generic — any other query kind `search/queries.py` parses →
+            generic — any other query kind `search/queries.py` parses
+                   (a sparse kind on a field without feature maps too) →
                    the host query phase, body by body
   score   one store dispatch per leg group of a batch
   fuse    reciprocal-rank fusion; f64 accumulation in leg order
@@ -25,11 +31,9 @@ Bodies reach `HybridExecutor` through a `BoundedBatcher`
 (`serving/batcher.py`), so concurrent bodies share their legs' dispatches.
 Every body compiles its own plan: compiling is a few mapping lookups, and
 PyTorch runs eagerly, so there is no compiled program to reuse. A
-sub-search that the reference would send to its generic query phase
-(match, term, bool, sparse, ...) is refused with a 400 naming it, and so
-is a kNN leg whose filter is of a kind `search/queries.py` does not
-parse: the lexical, sparse and generic legs and the device request cache
-are not ported.
+sub-search of a kind `search/queries.py` does not parse is refused with a
+400 naming it, and so is a kNN leg whose filter is of such a kind; the
+device request cache is not ported.
 """
 
 from __future__ import annotations
@@ -45,10 +49,12 @@ from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentError, ParsingError,
 )
 from elasticsearch_tpu_torch.index.mapping import (
-    DenseVectorFieldMapper, RankVectorsFieldMapper, TextFieldMapper,
+    DenseVectorFieldMapper, RankFeaturesFieldMapper, RankVectorsFieldMapper,
+    TextFieldMapper,
 )
 from elasticsearch_tpu_torch.ops import similarity as sim
 from elasticsearch_tpu_torch.ops.bm25 import LexicalShard
+from elasticsearch_tpu_torch.ops.sparse import SparseShard
 from elasticsearch_tpu_torch.search.queries import (
     SearchContext, parse_query, resolve_msm,
 )
@@ -111,6 +117,38 @@ class LexicalTemplate:
         required = len(terms) if self.operator == "and" \
             else resolve_msm(self.msm, len(terms))
         return LexicalLeg(self.field, terms, required, self.boost)
+
+
+class SparseTemplate:
+    """Compile-time half of a learned-sparse leg (`sparse_vector` /
+    `weighted_tokens` on a feature-map field): field and boost; the query's
+    TOKEN MAP is bound from each body."""
+
+    __slots__ = ("field", "kind", "boost")
+
+    def __init__(self, field: str, kind: str, boost: float):
+        self.field = field
+        self.kind = kind          # "sparse_vector" | "weighted_tokens"
+        self.boost = boost
+
+    def bind(self, qspec: dict):
+        spec = qspec[self.kind]
+        if self.kind == "sparse_vector":
+            tokens = spec.get("query_vector") or {}
+        else:
+            tokens = (spec[self.field] or {}).get("tokens") or {}
+        if not tokens:
+            return EmptyLeg()
+        return SparseLeg(self.field, tokens, self.boost)
+
+
+class SparseLeg:
+    __slots__ = ("field", "tokens", "boost")
+
+    def __init__(self, field: str, tokens: Dict[str, float], boost: float):
+        self.field = field
+        self.tokens = tokens
+        self.boost = boost
 
 
 class GenericLeg:
@@ -285,6 +323,28 @@ def _compile_lexical(kind: str, qspec, mapper_service
     return LexicalTemplate(field, "match", "or", None, 1.0)
 
 
+def _compile_sparse(kind: str, qspec, mapper_service
+                    ) -> Optional[SparseTemplate]:
+    """Lower a sparse_vector / weighted_tokens sub-search to a sparse
+    template when its field holds feature maps (`rank_features` or
+    `sparse_vector`); purely structural, as the reference classifies
+    it."""
+    if not isinstance(qspec, dict):
+        return None
+    if kind == "sparse_vector":
+        field = qspec.get("field")
+        boost = float(qspec.get("boost", 1.0))
+    else:
+        if len(qspec) != 1:
+            return None
+        ((field, v),) = qspec.items()
+        boost = float(v.get("boost", 1.0)) if isinstance(v, dict) else 1.0
+    if not field or not isinstance(mapper_service.get(field),
+                                   RankFeaturesFieldMapper):
+        return None
+    return SparseTemplate(field, kind, boost)
+
+
 def compile_plan(body: dict, mapper_service) -> HybridPlan:
     """Parse + classify ONE hybrid body into an executable plan."""
     for key in body:
@@ -344,7 +404,9 @@ def compile_plan(body: dict, mapper_service) -> HybridPlan:
                                        float(spec.get("boost", 1.0))))
         else:
             leg = (_compile_lexical(kind, spec, mapper_service)
-                   if kind in ("match", "term") else None)
+                   if kind in ("match", "term") else
+                   _compile_sparse(kind, spec, mapper_service)
+                   if kind in ("sparse_vector", "weighted_tokens") else None)
             if leg is None:
                 try:
                     leg = GenericLeg(parse_query(q))
@@ -384,15 +446,15 @@ class HybridExecutor:
 
     Whole hybrid bodies coalesce: the first thread in becomes the runner
     and executes every body that accumulated while the previous batch was
-    in flight, with one BM25 board per text field, one MaxSim dispatch per
-    (rank_vectors field, k) and one kNN dispatch per (dense_vector field,
-    k, num_candidates) for the whole batch. Admission control (queue depth
-    + deadline) sheds overload as HTTP 429 instead of queueing into the
-    tail.
+    in flight, with one BM25 board per text field and per feature-map
+    field, one MaxSim dispatch per (rank_vectors field, k) and one kNN
+    dispatch per (dense_vector field, k, num_candidates) for the whole
+    batch. Admission control (queue depth + deadline) sheds overload as
+    HTTP 429 instead of queueing into the tail.
 
     The runner holds the batcher's run lock for `_dispatch_batch` (plan +
-    bind, the generic, lexical and MaxSim legs, which complete there, and
-    the kNN launches);
+    bind, the generic, lexical, sparse and MaxSim legs, which complete
+    there, and the kNN launches);
     the kNN boards' wait, RRF and fetch run in `_finalize_batch` outside
     it, overlapping the next batch's dispatch. A poisoned batch is retried
     one body at a time through both stages back to back.
@@ -406,12 +468,15 @@ class HybridExecutor:
         # lexical and late-interaction stores sync from the combined
         # reader (rows rebased by shard), so BM25 reads corpus-wide
         # statistics
-        dtype = str(svc.settings.get("index.lexical.impact_dtype", "f32"))
-        if dtype not in ("f32", "bf16", "int8"):
-            raise IllegalArgumentError(
-                f"unknown [index.lexical.impact_dtype] value [{dtype}]; "
-                f"expected one of [f32, bf16, int8]")
-        self.lexical = LexicalShard(dtype=dtype, device=device)
+        def impact_dtype(key: str) -> str:
+            # the reference lays out any value but bf16 and int8 as f32
+            dtype = str(svc.settings.get(key, "f32"))
+            return dtype if dtype in ("bf16", "int8") else "f32"
+
+        self.lexical = LexicalShard(
+            dtype=impact_dtype("index.lexical.impact_dtype"), device=device)
+        self.sparse = SparseShard(
+            dtype=impact_dtype("index.sparse.impact_dtype"), device=device)
         self.late = LateInteractionShard(device=device)
         # the admission policy (batch ceiling, queue depth, deadline) is
         # the reference's `search.hybrid.*` defaults; top-up and 2 batches
@@ -512,7 +577,8 @@ class HybridExecutor:
     def _score_legs_async(self, reader, plans: List[HybridPlan],
                           bound: List[List[Any]]):
         """Group the batch's bound legs so each store sees one dispatch:
-        lexical legs per text field (one board), MaxSim legs per (field,
+        lexical legs per text field and sparse legs per feature-map field
+        (one board each), MaxSim legs per (field,
         k), both complete here (the MaxSim rescore's inputs are its own
         coarse phase's ids, so no board is left in flight); kNN legs per
         (field, k, num_candidates), launched un-landed
@@ -521,6 +587,7 @@ class HybridExecutor:
         groups)."""
         leg_results: Dict[Tuple[int, int], np.ndarray] = {}
         lex_groups: Dict[str, list] = {}
+        sparse_groups: Dict[str, list] = {}
         maxsim_groups: Dict[tuple, list] = {}
         knn_groups: Dict[tuple, list] = {}
         ctx = SearchContext(reader, self.svc.mapper_service,
@@ -537,6 +604,9 @@ class HybridExecutor:
                 elif isinstance(leg, LexicalLeg):
                     lex_groups.setdefault(leg.field, []).append(
                         (bi, li, leg))
+                elif isinstance(leg, SparseLeg):
+                    sparse_groups.setdefault(leg.field, []).append(
+                        (bi, li, leg))
                 elif isinstance(leg, MaxSimLeg):
                     maxsim_groups.setdefault((leg.field, leg.k), []).append(
                         (bi, li, leg))
@@ -550,6 +620,14 @@ class HybridExecutor:
                 reader, field,
                 [(leg.terms, leg.boost) for _bi, _li, leg in entries],
                 window, required=[leg.required for _bi, _li, leg in entries])
+            for (bi, li, _leg), (rows, _scores) in zip(entries, results):
+                leg_results[(bi, li)] = rows[:plans[bi].window]
+        for field, entries in sparse_groups.items():
+            window = max(plans[bi].window for bi, _li, _leg in entries)
+            results = self.sparse.search_batch(
+                reader, field,
+                [(leg.tokens, leg.boost) for _bi, _li, leg in entries],
+                window)
             for (bi, li, _leg), (rows, _scores) in zip(entries, results):
                 leg_results[(bi, li)] = rows[:plans[bi].window]
         for (field, k), entries in maxsim_groups.items():

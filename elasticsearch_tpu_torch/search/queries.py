@@ -25,8 +25,10 @@ text field), `match` (`operator`, `minimum_should_match`, `boost`),
 `match_phrase` (`slop`), `multi_match` (`best_fields`, `most_fields`,
 `cross_fields`, `phrase`, `phrase_prefix`, scored as the reference scores
 them: the best or the sum of per-field `match` scores), `range`,
-`exists`, `ids`, `constant_score`, `bool`, and the port's
-`late_interaction` walker. `fuzziness`, the `bool_prefix` type and any
+`exists`, `ids`, `constant_score`, `bool`, and the host walkers of
+`search/queries_ext.py`: `late_interaction`, `sparse_vector` /
+`weighted_tokens` (the learned-sparse dot product) and `rank_feature`.
+`fuzziness`, the `bool_prefix` type and any
 other kind are a 400. The node query cache of filter-context rows is not
 ported: a filter clause runs every time, which gives the same rows.
 """
@@ -708,7 +710,8 @@ class BoolQuery(Query):
 
 PORTED_KINDS = ("match_all", "match_none", "term", "terms", "match",
                 "match_phrase", "multi_match", "range", "exists", "ids",
-                "constant_score", "bool", "late_interaction")
+                "constant_score", "bool", "late_interaction", "rank_feature",
+                "sparse_vector", "weighted_tokens")
 
 # every kind the reference's parser knows (its did-you-mean list)
 _KNOWN_KINDS = (
@@ -812,6 +815,21 @@ def parse_query(body: Optional[dict]) -> Query:
                                   float(spec.get("boost", 1.0)))
     if kind == "late_interaction":
         return LateInteractionFilterQuery(spec)
+    if kind in ("rank_feature", "sparse_vector", "weighted_tokens"):
+        from elasticsearch_tpu_torch.search import queries_ext
+        if kind == "rank_feature":
+            return queries_ext.RankFeatureQuery(
+                spec["field"], saturation=spec.get("saturation"),
+                log=spec.get("log"), sigmoid=spec.get("sigmoid"),
+                linear=spec.get("linear"),
+                boost=float(spec.get("boost", 1.0)))
+        if kind == "sparse_vector":
+            return queries_ext.WeightedTokensQuery(
+                spec["field"], dict(spec.get("query_vector") or {}),
+                float(spec.get("boost", 1.0)))
+        field, v = _single(spec, kind)
+        return queries_ext.WeightedTokensQuery(
+            field, dict(v.get("tokens") or {}), float(v.get("boost", 1.0)))
     if kind in _KNOWN_KINDS:
         raise ParsingError(
             f"[{kind}] query is not supported by this build: only "

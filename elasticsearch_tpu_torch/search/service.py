@@ -5,8 +5,11 @@ The port accepts `{knn, query, size, from, _source, track_total_hits}`.
 `knn` is one spec or a list of specs (`field`, `query_vector`, `k`,
 `num_candidates`, `filter`, `boost`); `query` is any query
 `search/queries.py` parses (term-level filters, the BM25 text queries,
-`bool`, the host `late_interaction` walker). Hits rank by (score desc, row
-asc) through `native.topk`, as the reference ranks them. Several knn specs, or knn beside a query,
+`bool`, the host walkers of `late_interaction`, `sparse_vector` /
+`weighted_tokens` and `rank_feature`). Hits rank by (score desc, row asc)
+through `native.topk`, as the reference ranks them; `_source` takes a
+field, a list of fields or patterns, or `{includes, excludes}`, filtered
+as the reference filters it. Several knn specs, or knn beside a query,
 combine as `bool.should` of them, as in the reference; no query and no
 knn is `match_all`. Any other body key is rejected with a 400. Hybrid
 `rank: {rrf}` bodies go to `search/hybrid_plan.py`, which renders its hits
@@ -15,7 +18,8 @@ with `render_hits`.
 
 from __future__ import annotations
 
-from typing import List, Optional
+import fnmatch
+from typing import List, Tuple
 
 from elasticsearch_tpu_torch import native
 from elasticsearch_tpu_torch.common.errors import (
@@ -116,9 +120,10 @@ def execute_search(ctx: SearchContext, body: dict, index_name: str) -> dict:
 def render_hits(reader: ShardReader, mapper_service: MapperService,
                 index_name: str, rows, scores, source_spec) -> List[dict]:
     """The fetch phase: one hit per row, in order, with its `_source` when
-    the body and the mapping allow it."""
+    the body and the mapping allow it, filtered by the body's `_source`
+    includes and excludes."""
     want_source = source_spec is not False and mapper_service.source_enabled
-    includes = _source_includes(source_spec)
+    includes, excludes = _source_patterns(source_spec)
     hits: List[dict] = []
     for row, score in zip(rows, scores):
         hit = {"_index": index_name, "_id": reader.get_id(int(row)),
@@ -127,20 +132,61 @@ def render_hits(reader: ShardReader, mapper_service: MapperService,
         if routing is not None:
             hit["_routing"] = routing
         if want_source:
-            src = reader.get_source(int(row))
-            if includes is not None:
-                src = {k: v for k, v in src.items() if k in includes}
-            hit["_source"] = src
+            hit["_source"] = filter_source(reader.get_source(int(row)),
+                                           includes, excludes)
         hits.append(hit)
     return hits
 
 
-def _source_includes(spec) -> Optional[set]:
+def _source_patterns(spec) -> Tuple[List[str], List[str]]:
+    """The `_source` spec's (includes, excludes): a field name or pattern,
+    a list of them, or an object of `includes` / `excludes`."""
     if spec is None or isinstance(spec, bool):
-        return None
+        return [], []
     if isinstance(spec, str):
-        return {spec}
+        return [spec], []
     if isinstance(spec, list):
-        return set(spec)
-    raise ParsingError("[_source] must be a boolean, a field name or a "
-                       "list of field names")
+        return spec, []
+    if isinstance(spec, dict):
+        out = []
+        for key in ("includes", "excludes"):
+            v = spec.get(key, spec.get(key[:-1], [])) or []
+            out.append([v] if isinstance(v, str) else v)
+        return out[0], out[1]
+    raise ParsingError("[_source] must be a boolean, a field name, a list "
+                       "of field names or an object of includes and "
+                       "excludes")
+
+
+def filter_source(source: dict, includes, excludes) -> dict:
+    """The reference's source filter: every leaf path (objects flattened
+    with dots) kept when it matches an include (a glob, or a prefix
+    before a dot) and no exclude, the objects rebuilt around the kept
+    leaves, so an object left empty goes."""
+    if not includes and not excludes:
+        return source
+
+    def flatten(obj, prefix=""):
+        for k, v in obj.items():
+            path = f"{prefix}{k}"
+            if isinstance(v, dict):
+                yield from flatten(v, path + ".")
+            else:
+                yield path, v
+
+    def matches(path, patterns):
+        return any(fnmatch.fnmatch(path, p) or path.startswith(p + ".")
+                   for p in patterns)
+
+    out: dict = {}
+    for path, v in flatten(source):
+        if includes and not matches(path, includes):
+            continue
+        if excludes and matches(path, excludes):
+            continue
+        node = out
+        parts = path.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return out

@@ -843,3 +843,129 @@ def test_bm25_board_raises_on_bad_inputs(cuda):
         bm25.bm25_board(s, c, items_d.cpu(), starts, slots, imp, scales)
     with pytest.raises(ValueError, match="starts"):
         bm25.bm25_board(s, c, items_d, starts[:-1], slots, imp, scales)
+
+
+def _sparse_field(device, dtype, n_docs, seed):
+    """A SparseField over an engine of `n_docs` learned-sparse maps (30-120
+    Zipf-drawn tokens of 3,000, weights in (0, 3]; two segments, a
+    tombstone), on `device`."""
+    from elasticsearch_tpu_torch.index.engine import Engine
+    from elasticsearch_tpu_torch.index.mapping import MapperService
+    from elasticsearch_tpu_torch.ops import sparse
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, 3001)
+    p /= p.sum()
+    docs = []
+    for _ in range(n_docs):
+        toks = rng.choice(3000, int(rng.integers(30, 121)), replace=False,
+                          p=p)
+        w = np.maximum(rng.uniform(0, 3, len(toks)).astype(np.float32), 1e-3)
+        docs.append({"tokens": {f"t{t}": float(x) for t, x in zip(toks, w)}})
+    engine = Engine(MapperService({"properties": {
+        "tokens": {"type": "rank_features"}}}))
+    half = n_docs // 2
+    engine.index_many([str(i) for i in range(half)], docs[:half])
+    engine.refresh()
+    engine.index_many([str(i) for i in range(half, n_docs)], docs[half:])
+    engine.index("3", docs[4])
+    sf = sparse.SparseField("tokens", dtype, device=device)
+    sf.sync(engine.refresh())
+    return sf
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("nq", [1, 9, 40])
+def test_bm25_board_sparse_layout_matches_plain_version(cuda, dtype, nq):
+    """bm25_board on the learned-sparse layout (20-120 tokens a query and
+    one of 300: as many launches a set as the widest query has tokens in
+    the vocabulary, every item its token's own boost) against its plain
+    version on the same CUDA tensors, bit for bit, counted under the
+    `sparse` variant; then the whole board route against the CPU's."""
+    from elasticsearch_tpu_torch.ops import bm25, sparse
+    sf = _sparse_field(cuda, dtype, 4000, nq)
+    cpu = _sparse_field("cpu", dtype, 4000, nq)
+    rng = np.random.default_rng(nq)
+    queries = [({f"t{t}": float(rng.uniform(0.1, 2.0)) for t in
+                 rng.choice(3200, int(rng.integers(20, 121)),
+                            replace=False)}, 1.0 + 0.5 * (i % 3))
+               for i in range(nq)]
+    queries[-1] = ({f"t{t}": 1.0 for t in range(300)}, 0.75)
+    items, starts = sf.plan_positions(queries)
+    assert len(starts) - 1 == max(sum(t in sf.term_tiles for t in q)
+                                  for q, _b in queries)
+    slots, imp, scales = sf._device_arrays()
+    items_d = torch.from_numpy(items).to(cuda)
+    boards = [[torch.zeros((nq, (1 << 12) + 1), dtype=t, device=cuda)
+               for t in (torch.float32, torch.int32)] for _ in range(2)]
+    key = f"{bm25.KERNEL}/{sparse.VARIANT}"
+    before = dispatch.variant_launches().get(key, 0)
+    bm25.bm25_board(*boards[0], items_d, starts, slots, imp, scales,
+                    variant=sparse.VARIANT)
+    assert dispatch.variant_launches().get(key, 0) == before + 1
+    bm25.bm25_board_reference(*boards[1], items_d, starts, slots, imp,
+                              scales)
+    assert torch.equal(boards[0][0].view(torch.int32),
+                       boards[1][0].view(torch.int32))
+    assert torch.equal(boards[0][1], boards[1][1])
+    before = dispatch.variant_launches().get(key, 0)
+    got = sf.search_batch(queries, 100)
+    assert dispatch.variant_launches().get(key, 0) == before + 1
+    for (gr, gs), (wr, ws) in zip(got, cpu.search_batch(queries, 100)):
+        assert np.array_equal(gr, wr)
+        assert np.array_equal(gs.view(np.int32), ws.view(np.int32))
+
+
+@pytest.mark.gpu
+def test_sparse_hybrid_body_on_cuda_launches_the_board(cuda):
+    """`rank: {rrf}` bodies with `sparse_vector` and `weighted_tokens`
+    sub-searches (40, 120 and 300 tokens), on a CUDA node and a CPU node
+    loaded alike: one sparse board launch set a request on the card (the
+    two legs of a body share it), and the CPU node's hits; beside a `knn`
+    leg, one set too."""
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.ops import bm25, sparse
+    rng = np.random.default_rng(9)
+    n, d = 3000, 32
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    docs = [{"tokens": {f"t{t}": float(rng.uniform(0.01, 3.0))
+                        for t in rng.choice(800, 60, replace=False)},
+             "emb": vecs[i].tolist()} for i in range(n)]
+    body = {"mappings": {"properties": {
+        "tokens": {"type": "rank_features"},
+        "emb": {"type": "dense_vector", "dims": d}}}}
+    nodes = []
+    for device in ("cpu", cuda):
+        node = Node(device=device)
+        node.create_index("s", body)
+        node.index("s").index_many([str(i) for i in range(n)], docs)
+        node.refresh("s")
+        nodes.append(node)
+    key = f"{bm25.KERNEL}/{sparse.VARIANT}"
+
+    def tokens(width):
+        return {f"t{t}": float(rng.uniform(0.1, 2.0))
+                for t in rng.choice(900, width, replace=False)}
+
+    for width in (40, 120, 300):
+        req = {"sub_searches": [
+            {"query": {"sparse_vector": {"field": "tokens",
+                                         "query_vector": tokens(width)}}},
+            {"query": {"weighted_tokens": {"tokens": {
+                "tokens": tokens(width), "boost": 1.5}}}}],
+            "rank": {"rrf": {}}, "size": 10}
+        before = dispatch.variant_launches().get(key, 0)
+        got = nodes[1].search("s", req)["hits"]["hits"]
+        assert dispatch.variant_launches().get(key, 0) == before + 1
+        want = nodes[0].search("s", req)["hits"]["hits"]
+        assert [h["_id"] for h in got] == [h["_id"] for h in want]
+        assert [h["_score"] for h in got] == [h["_score"] for h in want]
+    req = {"sub_searches": [
+        {"query": {"sparse_vector": {"field": "tokens",
+                                     "query_vector": tokens(80)}}},
+        {"query": {"knn": {"field": "emb", "query_vector": vecs[0].tolist(),
+                           "k": 10, "num_candidates": 50}}}],
+        "rank": {"rrf": {}}, "size": 10}
+    before = dispatch.variant_launches().get(key, 0)
+    nodes[1].search("s", req)
+    assert dispatch.variant_launches().get(key, 0) == before + 1

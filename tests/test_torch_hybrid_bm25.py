@@ -3,7 +3,8 @@ through the port's REST layer on the CPU against the reference `Node`, on
 the same PUT, `_bulk`, `_refresh` and `_search` sequence, at 1 and 3
 shards: `query` + `knn` and `sub_searches` forms, `operator: and`,
 minimum_should_match, a `term` lexical leg, a generic `range` leg, text
-that analyzes to nothing, pagination and rank parameters. RRF depends
+that analyzes to nothing, a `sparse_vector` on the text field (a generic
+leg with no hits), pagination and rank parameters. RRF depends
 only on each leg's ranks, so the fused `_score`s must be equal as f64,
 the hit `_id`s equal, and `hits.total` equal. Concurrent bodies that form
 one batch give their sequential answers with one BM25 board a text field
@@ -146,6 +147,8 @@ CASES = {
         "filter": {"range": {"n": {"lt": 70}}}}}),
     "generic_phrase": lambda e: _subs(e, 15, {"match_phrase": {
         "body": {"query": "w0 w1", "slop": 1}}}),
+    "sparse_on_text": lambda e: _subs(e, 20, {"sparse_vector": {
+        "field": "body", "query_vector": {"w1": 1.0}}}),
     "page": lambda e: _body(e, 16, size=5, **{"from": 3}),
     "deep": lambda e: _body(e, 17, size=60),
     "rank_params": lambda e: dict(_body(e, 18), rank={"rrf": {
@@ -166,11 +169,10 @@ def test_hybrid_bm25_matches_reference_node(nodes, case):
 
 def test_unparsed_sub_search_is_a_400(nodes):
     _ref_req, port_req, _port, emb = nodes
-    body = _subs(emb, 1, {"sparse_vector": {
-        "field": "body", "query_vector": {"w1": 1.0}}})
+    body = _subs(emb, 1, {"prefix": {"body": "w1"}})
     status, resp = port_req("POST", "/hb/_search", body)
     assert status == 400
-    assert "sub-search [sparse_vector] is not supported" \
+    assert "sub-search [prefix] is not supported" \
         in resp["error"]["reason"]
 
 

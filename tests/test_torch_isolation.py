@@ -2,8 +2,8 @@
 `chip_smoke.py` import with `jax` and `elasticsearch_tpu` blocked; entry
 points refuse to run on the CPU unless asked; and a kernel wrapper given
 CUDA tensors (the binned kNN kernels, the fused IVF probe kernels, the
-MaxSim kernels, the BM25 board) launches its kernel or raises, never the
-plain version."""
+MaxSim kernels, the BM25 board, also on the learned-sparse layout) launches
+its kernel or raises, never the plain version."""
 
 import os
 import pkgutil
@@ -42,7 +42,7 @@ def test_port_imports_without_jax_or_reference():
                  "search.knn_query", "search.service", "index.mapping",
                  "index.segment", "index.engine", "vectors.store",
                  "cluster.routing", "indices.service", "native", "ops.bm25",
-                 "index.analysis", "index.analysis_lang"):
+                 "index.analysis", "index.analysis_lang", "ops.sparse"):
         assert f"elasticsearch_tpu_torch.{name}" in names
     code = (
         "import sys\n"
@@ -230,7 +230,20 @@ def test_bm25_board_launches_or_raises_never_plain(monkeypatch, code, dtype):
         assert dispatch.launches().get(bm25.KERNEL, 0) == before + 1
         assert lib.last[2] == 1025 and lib.last[4] == 40 \
             and lib.last[6] == 2
-    assert lib.calls == 1
+    # the learned-sparse layout's call, counted under its variant too
+    key = f"{bm25.KERNEL}/sparse"
+    sparse_before = dispatch.variant_launches().get(key, 0)
+    if code:
+        with pytest.raises(RuntimeError, match="injected launch failure"):
+            bm25.bm25_board(*boards, items, starts, *tiles, scales,
+                            variant="sparse")
+    else:
+        bm25.bm25_board(*boards, items, starts, *tiles, scales,
+                        variant="sparse")
+        assert dispatch.launches().get(bm25.KERNEL, 0) == before + 2
+    assert dispatch.variant_launches().get(key, 0) \
+        == sparse_before + (0 if code else 1)
+    assert lib.calls == 2
     for bad, match in (
             ((boards[0], torch.zeros(8, 1025, dtype=torch.int32)),
              "one CUDA device"),
@@ -244,7 +257,7 @@ def test_bm25_board_launches_or_raises_never_plain(monkeypatch, code, dtype):
         bm25.bm25_board(*boards, items, starts, *tiles,
                         None if scales is not None
                         else _FakeCuda((12,), torch.float32))
-    assert lib.calls == 1
+    assert lib.calls == 2
 
 
 def test_cuda_wrapper_rejects_bad_shapes_and_mixed_devices():
