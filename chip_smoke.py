@@ -3,8 +3,8 @@
     python3 chip_smoke.py [--seed 1234] [--n-sift 1000000] [--n-cohere 1000000]
                           [--n-gist 1000000] [--n-cohere-ivf 1000000]
                           [--n-colbert 131071] [--n-laion 1000000]
-                          [--n-sharded 1000000] [--n-msmarco 1000000]
-                          [--n-sparse 1000000]
+                          [--n-sharded 1000000] [--n-msmarco 262144]
+                          [--n-sparse 262144]
                           [--binned-only | --ivf-only | --maxsim-only |
                            --sharded-only | --hybrid-only | --sparse-only]
 
@@ -41,17 +41,20 @@ Phases, one line each; any failure raises and the exit code is not 0:
                [0, N_pad) and cap 100; timed likewise beside one
                `torch.bmm` of the bf16 queries over a pre-staged bf16 copy
                of the candidate tiles and the staged gather form; then
-               `bm25_board` against its plain version, boards bit for
-               bit, on a synthetic Zipf layout over 1,048,576 docs (f32,
-               bf16 and int8 impacts; Q = 32 with a repeated word, an
-               out-of-vocabulary word, a query with no tile, required 2
-               and 3, and Q = 1), timed beside its bound, the plain
-               version and one `index_put_` pair; then the same on the
-               learned-sparse layout (30,522 Zipf-popular token ids, about
-               120 a doc, weights in (0, 3]; Q = 32 of 20-120 tokens, Q = 1,
-               and Q = 1 of 300 tokens; one launch a token position, each
-               item with its token's boost), counted under the `sparse`
-               variant
+               `bm25_board` (a score-and-select kernel and a merge
+               kernel, one call a batch) against its plain version,
+               windows bit for bit, on a synthetic Zipf layout over
+               --n-msmarco docs (f32, bf16 and int8 impacts; Q = 32 with a
+               repeated word, an out-of-vocabulary word, a query with no
+               tile, required 2 and 3, and Q = 1), timed beside its bound,
+               the plain version, an `index_put_` pair + `torch.topk` and
+               the board route; forced ranges of 64 and 2,048 slots on
+               16,384 docs (the window of 100 past the first); then
+               the same on the learned-sparse layout over --n-sparse
+               docs (30,522
+               Zipf-popular token ids, about 120 a doc, weights in (0, 3];
+               Q = 32 of 20-120 tokens, Q = 1, and Q = 1 of 300 tokens,
+               each entry with its token's boost)
   serve_sift   the port's REST server in-process: a cosine dims=128 index,
                2,000 docs over `_bulk`, then loaded to 1,000,000 SIFT-shaped
                docs through `IndexService.index_many`, refresh, and 64
@@ -109,8 +112,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
                BM25 of the generated tokens, kNN recall@10 >= 0.95, every
                hybrid response (both body forms, `operator: and`, a
                generic `range` leg, text that analyzes to nothing) equal
-               to host RRF of its legs, one `bm25_board` launch set a
-               request and at C = 1 and 8 one a batch
+               to host RRF of its legs, one `bm25_board` call a request
+               and at C = 1 and 8 one a batch
   serve_sparse  learned-sparse retrieval: MS MARCO passage expanded by a
                BERT-wordpiece learned-sparse model (SPLADE, ELSER; 30,522
                token ids, 64-256 tokens a passage, Zipf popularity), cut
@@ -123,7 +126,7 @@ Phases, one line each; any failure raises and the exit code is not 0:
                float64 sparse dot (scipy CSR) over the generated arrays,
                bf16 and int8 recall@10 against it, kNN recall@10 >= 0.95,
                every response equal to host RRF of its legs, one
-               `bm25_board` launch set (variant `sparse`) a request and at
+               `bm25_board` call (variant `sparse`) a request and at
                C = 1 and 8 one a batch; then the plain `query:
                {sparse_vector}` host walker on an index of the first
                50,000 passages, byte-identical to the board's window there
@@ -205,6 +208,7 @@ import argparse
 import gc
 import http.client
 import json
+import math
 import resource
 import statistics
 import subprocess
@@ -272,6 +276,27 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_profile(fn, names, n: int) -> dict:
+    """`torch.profiler`'s record of `n` calls of `fn`: for each kernel name
+    (a substring of the device kernel's symbol), (launches, device ms)
+    a call. A kernel the trace does not show gets (0, 0.0)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {name: [0, 0.0] for name in names}
+    for e in prof.key_averages():
+        for name in names:
+            if name in e.key:
+                us = getattr(e, "device_time_total", 0) \
+                    or getattr(e, "cuda_time_total", 0)
+                out[name][0] += e.count
+                out[name][1] += us / 1e3
+    return {name: (c / n, ms / n) for name, (c, ms) in out.items()}
 
 
 def bound_ms(nbytes: int, ops: int, ops_per_s: float):
@@ -2834,12 +2859,13 @@ def phase_serve_sharded(seed: int, n: int, device: str = "cuda",
 
 # MS MARCO passage-ranking shape: 8,841,823 passages of about 56 words
 # (collection.tsv) and dev queries of about 6; a Zipf (s = 1.0) vocabulary
-# of 200,000 words stands in for the text. Cut to 1M passages for the
-# host's memory (PERF.md section 4).
+# of 200,000 words stands in for the text. Cut to 262,144 passages for
+# the run's time: ingest on the host takes ~170 us a passage (PERF.md
+# section 4). The bm25_board kernel cases run on a layout of as many docs.
 MSMARCO_VOCAB = 200_000
 MSMARCO_WORDS = (20, 93)       # passage words, uniform: a mean of 56
 MSMARCO_QUERY_WORDS = 6
-N_MSMARCO = 1_000_000
+N_MSMARCO = 1 << 18
 MSMARCO_CHUNK = 1 << 16
 BM25_WINDOW = 100               # the RRF leg's window (rank_window_size)
 
@@ -2872,6 +2898,7 @@ def _bm25_field(g, dev, dtype: str, n_slots: int, ranks, rng):
     lf.n_slots, lf.row_map = n_slots, np.arange(n_slots, dtype=np.int64)
     lf.term_tiles, lf.version = spans, ("synthetic", dtype)
     lf.tile_slots = slots.cpu().numpy()
+    lf.tile_first = np.ascontiguousarray(lf.tile_slots[:, 0])
     lf.tile_impacts = np.where(
         lf.tile_slots >= 0,
         rng.uniform(0.05, 8.0, lf.tile_slots.shape), 0.0).astype(np.float32)
@@ -2897,42 +2924,65 @@ def _bm25_queries(rng, nq: int):
         required, ranks
 
 
-def _bm25_case(lf, queries, required, label: str, timed: bool) -> dict:
-    """bm25_board against its plain version on the card (boards bit for
-    bit, then the masked top-k); with `timed`, CUDA-event ms of a launch
-    set and a burst, the plain version's and one index_put_ pair's."""
-    from elasticsearch_tpu_torch.ops import bm25, dispatch
+def _bm25_args(lf, queries, required):
+    """`bm25_board`'s arguments up to k for a batch, on the field's card."""
+    from elasticsearch_tpu_torch.ops import bm25
     dev = lf.device
-    slots_d, imp_d, sc_d = lf._device_arrays()
-    items, starts = lf.plan_positions(queries)
-    items_d = torch.from_numpy(items).to(dev)
-    n_pad = dispatch.bucket_queries(len(queries))
-    w = 1
-    while w < lf.n_slots:
-        w *= 2
+    pos_starts, runs = lf.plan_positions(queries)
+    bm25.check_plan(pos_starts, runs, len(lf.tile_slots))
+    return (torch.from_numpy(pos_starts).to(dev), torch.from_numpy(runs).to(dev),
+            torch.from_numpy(np.asarray(required, dtype=np.int32)).to(dev),
+            lf._device_tile_first(), *lf._device_arrays())
 
-    def boards():
-        return (torch.zeros((n_pad, w + 1), dtype=torch.float32, device=dev),
-                torch.zeros((n_pad, w + 1), dtype=torch.int32, device=dev))
 
-    got, want = boards(), boards()
-    bm25.bm25_board(*got, items_d, starts, slots_d, imp_d, sc_d)
-    bm25.bm25_board_reference(*want, items_d, starts, slots_d, imp_d, sc_d)
-    req = torch.ones(n_pad, dtype=torch.int32, device=dev)
-    req[:len(queries)] = torch.from_numpy(required).to(dev)
-    top_got = bm25.board_top_k(*got, req, BM25_WINDOW)
-    top_want = bm25.board_top_k(*want, req, BM25_WINDOW)
-    torch.cuda.synchronize()
+def _same_board_window(got, want, label: str) -> None:
+    """The window bit for bit: f32 bits of the finite prefix and its slots,
+    -inf and -1 past it."""
     if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
             and torch.equal(got[1], want[1])
-            and torch.equal(top_got[0].view(torch.int32),
-                            top_want[0].view(torch.int32))
-            and torch.equal(top_got[1], top_want[1])):
-        bad = int((got[0].view(torch.int32) != want[0].view(torch.int32))
-                  .sum())
+            and bool(((got[1] == -1) == torch.isneginf(got[0])).all())):
+        bad = int((got[1] != want[1]).sum())
         raise AssertionError(f"bm25_board {label}: differs from its plain "
-                             f"version ({bad} score cells)")
-    if lf.dtype == "f32":
+                             f"version ({bad} window slots)")
+
+
+# the device symbols of bm25_board's two kernels (csrc/bm25.cu): kernel A,
+# kernel B
+BM25_KERNEL_SYMBOLS = ("board_select_kernel", "merge_kernel")
+
+
+def _bm25_case(lf, queries, required, label: str, timed: bool,
+               range_slots=None) -> dict:
+    """bm25_board (its two kernels) against its plain version on the card,
+    the window bit for bit, one call counted; at f32 the board route
+    against the host twin; with `timed`, CUDA-event ms of a call and a
+    burst, the plain version's, the yardstick's (one index_put_ pair into
+    zeroed [Q, n_slots + 1] boards, the mask and one torch.topk: the
+    route's library cost) and the board route's (plan upload, the call,
+    the window's copy), beside the bound (the batch's distinct tiles read
+    once, the plan read and the window written). On the card the library
+    counts the kernels a call launches (it must be 2), and `torch.profiler`
+    gives each kernel's device time where its trace shows it (None
+    where it shows no device kernel)."""
+    from elasticsearch_tpu_torch.ops import bm25, dispatch
+    dev = lf.device
+    args = _bm25_args(lf, queries, required)
+    k = min(BM25_WINDOW, lf.n_slots)
+    before = dispatch.launches().get(bm25.KERNEL, 0)
+    kernels_before = bm25.kernel_launches() if dev.type == "cuda" else 0
+    got = bm25.bm25_board(*args, k, lf.n_slots, range_slots=range_slots)
+    if dev.type == "cuda":
+        # the kernels the library launched for this one call
+        launched = bm25.kernel_launches() - kernels_before
+        if dispatch.launches().get(bm25.KERNEL, 0) != before + 1:
+            raise AssertionError(f"bm25_board {label}: not one call a batch")
+        if launched != 2:
+            raise AssertionError(f"bm25_board {label}: {launched} kernel "
+                                 f"launches a call, not 2")
+    want = bm25.bm25_board_reference(*args, k, lf.n_slots)
+    torch.cuda.synchronize()
+    _same_board_window(got, want, label)
+    if lf.dtype == "f32" and range_slots is None:
         # the host twin over the f32 impacts: the same rows and f32 bits
         host = lf.search_batch(queries, BM25_WINDOW, required=required,
                                route="host")
@@ -2945,77 +2995,114 @@ def _bm25_case(lf, queries, required, label: str, timed: bool) -> dict:
                                      f"differs from the host twin")
     empty = [i for i, (q, _) in enumerate(queries)
              if all(t not in lf.term_tiles for t in q)]
-    if any(bool(torch.isfinite(top_got[0][i]).any()) for i in empty):
+    if any(bool(torch.isfinite(got[0][i]).any()) for i in empty):
         raise AssertionError(f"bm25_board {label}: a query with no tile "
                              f"has a finite score")
+    pos_starts, runs = (a.cpu().numpy() for a in args[:2])
     f = {"max_abs_err": 0.0, "queries": len(queries),
-         "positions": len(starts) - 1, "items": items.shape[1]}
-    if not timed:
-        return f
-    tiles = items[1].astype(np.int64)
-    postings = int((lf.tile_slots[tiles] >= 0).sum())
-    lane_bytes = 4 + imp_d.element_size()
-    kernel_bytes = items.shape[1] * (bm25.TILE * lane_bytes + 12) \
-        + postings * 16
-    board_bytes = kernel_bytes + 2 * n_pad * (w + 1) * 8
-    s, c = boards()
+         "positions": runs.shape[1]}
+    if dev.type == "cuda":
+        f["launches_per_batch"] = launched
 
     def run():
-        bm25.bm25_board(s, c, items_d, starts, slots_d, imp_d, sc_d)
+        return bm25.bm25_board(*args, k, lf.n_slots, range_slots=range_slots)
 
-    # the index_put_ formulation: every valid lane's (query, slot, value)
-    # flattened once, then one accumulating index_put_ a board
-    slot_all = slots_d[items_d[1].long()].long()
-    valid = slot_all >= 0
-    vals = imp_d[items_d[1].long()].to(torch.float32)
-    if sc_d is not None:
-        vals = vals * sc_d[items_d[1].long()][:, None]
-    vals = (vals * items_d[2].view(torch.float32)[:, None])[valid]
-    q_flat = items_d[0].long()[:, None].expand_as(slot_all)[valid]
-    s_flat = slot_all[valid]
+    if dev.type == "cuda":
+        plan = bm25.launch_plan(
+            len(queries), lf.n_slots, k, range_slots,
+            sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+        f.update(range_slots=plan.range_slots, n_ranges=plan.n_ranges)
+        f["smem_a_bytes"], f["smem_b_bytes"] = bm25.kernel_smem(plan)
+    if not timed:
+        return f
+    if dev.type == "cuda":
+        prof = kernel_profile(run, BM25_KERNEL_SYMBOLS, 10)
+        f["kernel_a_ms"], f["kernel_b_ms"] = (
+            prof[n][1] if prof[n][0] == 1 else None
+            for n in BM25_KERNEL_SYMBOLS)
+    first, nt = runs[0].astype(np.int64), runs[1].astype(np.int64)
+    pair_tiles = np.repeat(first, nt) + (np.arange(int(nt.sum()))
+                                         - np.repeat(np.cumsum(nt) - nt, nt))
+    distinct = len(np.unique(pair_tiles))
+    postings = int((lf.tile_slots[pair_tiles] >= 0).sum())
+    lane_bytes = 4 + args[5].element_size()
+    tile_bytes = bm25.TILE * lane_bytes + (4 if args[6] is not None else 0)
+    io_bytes = 4 * (len(pos_starts) + runs.size + len(queries)) \
+        + 8 * len(queries) * k
+    # the guide's rule: each distinct tile read once, the plan, the window
+    bound_bytes = distinct * tile_bytes + io_bytes
+    # for scale: every (query, tile) pair read, no board traffic; and the
+    # bytes of a design with its boards in device memory (every pair, 16 B
+    # a posting on the boards)
+    pair_bytes = len(pair_tiles) * tile_bytes + io_bytes
+    boards_bytes = len(pair_tiles) * (bm25.TILE * lane_bytes + 12) \
+        + postings * 16
+
+    # the yardstick: every valid lane's (query, slot, value) flattened once
+    items = list(bm25._position_items(args[0], args[1]))
+    q_all = torch.cat([q for q, _t, _b in items])
+    slots, vals = bm25._tile_values(
+        torch.cat([t for _q, t, _b in items]),
+        torch.cat([b for _q, _t, b in items]), *args[4:])
+    valid = slots >= 0
+    q_flat = q_all[:, None].expand_as(slots)[valid]
+    s_flat, v_flat = slots[valid], vals[valid]
     ones = torch.ones_like(s_flat, dtype=torch.int32)
+    need = torch.clamp(args[2], min=1)[:, None]
+    nq, n = len(queries), lf.n_slots
 
     def library():
-        s.index_put_((q_flat, s_flat), vals, accumulate=True)
+        s = torch.zeros((nq, n + 1), dtype=torch.float32, device=dev)
+        c = torch.zeros((nq, n + 1), dtype=torch.int32, device=dev)
+        s.index_put_((q_flat, s_flat), v_flat, accumulate=True)
         c.index_put_((q_flat, s_flat), ones, accumulate=True)
+        return torch.topk(torch.where(c[:, :n] >= need, s[:, :n],
+                                      torch.full_like(s[:, :n], -math.inf)),
+                          k)
 
-    def whole():
-        b = boards()
-        bm25.bm25_board(*b, items_d, starts, slots_d, imp_d, sc_d)
-        return bm25.board_top_k(*b, req, BM25_WINDOW)
+    host_plan = np.concatenate([pos_starts, runs.reshape(-1),
+                                np.asarray(required, dtype=np.int32)])
+    n_runs = runs.shape[1]
+
+    def route():
+        p = torch.from_numpy(host_plan).to(dev)
+        v, s = bm25.bm25_board(
+            p[:nq + 1], p[nq + 1:nq + 1 + 3 * n_runs].view(3, n_runs),
+            p[nq + 1 + 3 * n_runs:], *args[3:], k, n)
+        return torch.stack([v.view(torch.int32), s]).cpu()
 
     f.update(ms=time_ms(run), burst_ms=burst_ms(run),
              plain_ms=time_ms(lambda: bm25.bm25_board_reference(
-                 s, c, items_d, starts, slots_d, imp_d, sc_d),
-                 iters=5, warmup=1),
+                 *args, k, n), iters=5, warmup=1),
              library_ms=time_ms(library, iters=5, warmup=1),
-             board_ms=time_ms(whole),
-             postings=postings)
-    f["bound_ms"], f["bound_by"] = bound_ms(kernel_bytes, 0, 1.0)
-    f["board_bound_ms"] = bound_ms(board_bytes, 0, 1.0)[0]
+             route_ms=time_ms(route), pairs=len(pair_tiles),
+             distinct_tiles=distinct, postings=postings)
+    f["bound_ms"], f["bound_by"] = bound_ms(bound_bytes, 0, 1.0)
+    f["pairs_bound_ms"] = bound_ms(pair_bytes, 0, 1.0)[0]
+    f["boards_bound_ms"] = bound_ms(boards_bytes, 0, 1.0)[0]
     return f
 
 
-def phase_bm25_kernel(seed: int, dev) -> dict:
-    """bm25_board against its plain version on the card, bit for bit, on
-    a synthetic Zipf layout over 1,048,576 docs (serve_hybrid's board
+def phase_bm25_kernel(seed: int, dev, n_slots: int, n_sparse: int) -> dict:
+    """bm25_board against its plain version on the card, windows bit for
+    bit, on a synthetic Zipf layout over `n_slots` docs (serve_hybrid's
     width): f32, bf16 and int8 impacts, each at Q = 32 (a repeated word,
     an out-of-vocabulary word, a query with no tile, required 2 and 3)
-    and Q = 1, timed beside the bound (the tiles' lanes read, 16 B a
-    posting on the boards; with the boards' zeroing and the top-k's read
-    of them for `board_bound_ms`), the plain version and one
-    index_put_ pair."""
+    and Q = 1, timed beside the bound (the distinct tiles read once, the
+    plan and the window), the plain version and the yardstick (an
+    index_put_ pair, the mask, torch.topk); then forced ranges of 64 and
+    2,048 slots on a field of 16,384 docs (k = 100 past the first); then
+    the learned-sparse cases over `n_sparse` docs."""
     from elasticsearch_tpu_torch.ops import bm25
     rng = np.random.default_rng(seed + 7)
     g = torch.Generator(device=dev).manual_seed(seed + 7)
     queries, required, ranks = _bm25_queries(rng, 32)
-    n_slots = 1 << 20
     base = _bm25_field(g, dev, "f32", n_slots, ranks.reshape(-1), rng)
     cases = {}
     for dtype in ("f32", "bf16", "int8"):
         lf = bm25.LexicalField("body", dtype, device=dev)
         for key in ("n_slots", "row_map", "term_tiles", "tile_slots",
-                    "tile_impacts", "nnz"):
+                    "tile_impacts", "tile_first", "nnz"):
             setattr(lf, key, getattr(base, key))
         lf.version = ("synthetic", dtype)
         for label, qs, req in ((f"{dtype}_q32", queries, required),
@@ -3025,12 +3112,19 @@ def phase_bm25_kernel(seed: int, dev) -> dict:
                 tiles=len(base.tile_slots),
                 **{k: (f"{v:.6g}" if isinstance(v, float) else v)
                    for k, v in cases[label].items()},
-                library="torch index_put_(accumulate=True) of the flattened "
-                        "valid lanes, scores then counts",
-                board="zero the boards + launch set + mask + top-100")
+                library="zeroed boards + torch index_put_(accumulate=True) "
+                        "of the flattened valid lanes, scores and counts + "
+                        "mask + torch.topk",
+                route="plan upload + bm25_board + window copy")
         del lf
     del base
-    sparse_cases = sparse_board_cases(seed, dev)
+    small = _bm25_field(g, dev, "f32", 1 << 14, ranks.reshape(-1), rng)
+    for r in (64, 2048):     # k = 100 past a range of 64 slots
+        f = _bm25_case(small, queries, required, f"small_r{r}", timed=False,
+                       range_slots=r)
+        log("kernels", kernel=bm25.KERNEL, case=f"small_r{r}", n_slots=1 << 14,
+            window=min(BM25_WINDOW, 1 << 14), **f)
+    sparse_cases = sparse_board_cases(seed, dev, n_sparse)
     c, sc = cases["f32_q32"], sparse_cases["sparse_f32_q32"]
     return {bm25.KERNEL: {
         "name": bm25.KERNEL, "route": "cuda",
@@ -3040,16 +3134,17 @@ def phase_bm25_kernel(seed: int, dev) -> dict:
                            (*cases.values(), *sparse_cases.values())),
         "ms": c["ms"], "burst_ms": c["burst_ms"], "plain_ms": c["plain_ms"],
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-        "library_ms": c["library_ms"], "board_ms": c["board_ms"],
-        "board_bound_ms": c["board_bound_ms"],
+        "library_ms": c["library_ms"], "route_ms": c["route_ms"],
+        "launches_per_batch": c["launches_per_batch"],
         # the learned-sparse shape (ops/sparse.py; replaces sparse.topk,
         # elasticsearch_tpu/ops/sparse.py:187), Q = 32, f32 weights
-        "sparse_positions": sc["positions"], "sparse_ms": sc["ms"],
+        "sparse_positions": sc["positions"],
+        "sparse_launches_per_batch": sc["launches_per_batch"],
+        "sparse_ms": sc["ms"],
         "sparse_burst_ms": sc["burst_ms"], "sparse_plain_ms": sc["plain_ms"],
         "sparse_bound_ms": sc["bound_ms"],
         "sparse_library_ms": sc["library_ms"],
-        "sparse_board_ms": sc["board_ms"],
-        "sparse_board_bound_ms": sc["board_bound_ms"]}}
+        "sparse_route_ms": sc["route_ms"]}}
 
 
 # ------------------------------------------------------- learned sparse
@@ -3059,7 +3154,7 @@ def phase_bm25_kernel(seed: int, dev) -> dict:
 # Elastic's ELSER): 30,522 token ids, 64-256 nonzero tokens a passage
 # (mean ~120), positive f32 weights in (0, 3], token popularity Zipf over
 # the ids; queries of 20-120 tokens (a source passage's tokens and
-# expansion tokens). Cut to 1M passages as serve_hybrid is (PERF.md
+# expansion tokens). Cut to 262,144 passages as serve_hybrid is (PERF.md
 # section 4).
 SPARSE_VOCAB = 30_522
 SPARSE_DOC_TOKENS = (64, 256)
@@ -3067,7 +3162,7 @@ SPARSE_MEAN_TOKENS = 120
 SPARSE_QUERY_TOKENS = (20, 121)
 SPARSE_WIDE_TOKENS = (257, 301)     # the reference's walker takes these
 SPARSE_SOURCE_SHARE = 0.7           # a query's tokens from its passage
-N_SPARSE = 1_000_000
+N_SPARSE = 1 << 18
 N_SPARSE_WALKER = 50_000
 SPARSE_CHUNK = 1 << 12
 SPARSE_TOKENS = np.array([f"t{i}" for i in range(SPARSE_VOCAB)],
@@ -3133,6 +3228,7 @@ def _sparse_field(g, dev, n_slots: int, tokens, rng):
     sf.n_slots, sf.row_map = n_slots, np.arange(n_slots, dtype=np.int64)
     sf.term_tiles, sf.version = spans, ("synthetic", "f32")
     sf.tile_slots = torch.cat(slot_parts).reshape(-1, bm25.TILE).cpu().numpy()
+    sf.tile_first = np.ascontiguousarray(sf.tile_slots[:, 0])
     sf.tile_impacts = np.where(
         sf.tile_slots >= 0,
         (3.0 * (1.0 - rng.random(sf.tile_slots.shape))), 0.0
@@ -3141,15 +3237,9 @@ def _sparse_field(g, dev, n_slots: int, tokens, rng):
     return sf
 
 
-def sparse_board_cases(seed: int, dev, n_slots: int = 1 << 20) -> dict:
-    """bm25_board on the learned-sparse layout over 1,048,576 docs (the
-    board width of serve_sparse): 32 queries of 20-120 tokens, each
-    token's items with its own boost, Q = 1, and Q = 1 of 300 tokens (as
-    wide as the reference sends to its walker); f32, bf16 and int8
-    weights; the boards bit for bit against the plain version and, at
-    f32, the board route against the host twin; timed as the BM25 cases,
-    one launch a token position of the widest query."""
-    from elasticsearch_tpu_torch.ops import bm25, sparse
+def sparse_board_inputs(seed: int, dev, n_slots: int):
+    """The learned-sparse kernel cases' f32 field and 33 queries: 32 of
+    20-120 tokens, then one of 300."""
     rng = np.random.default_rng(seed + 10)
     g = torch.Generator(device=dev).manual_seed(seed + 10)
     p, incl = sparse_popularity()
@@ -3161,24 +3251,31 @@ def sparse_board_cases(seed: int, dev, n_slots: int = 1 << 20) -> dict:
         queries.append((sparse_query(rng, source, n_tok, p),
                         1.0 + 0.5 * (i % 3)))
     tokens = [int(t[1:]) for q, _b in queries for t in q]
-    base = _sparse_field(g, dev, n_slots, tokens, rng)
+    return _sparse_field(g, dev, n_slots, tokens, rng), queries
+
+
+def sparse_board_cases(seed: int, dev, n_slots: int = N_SPARSE) -> dict:
+    """bm25_board on the learned-sparse layout over `n_slots` docs (the
+    board width of serve_sparse): 32 queries of 20-120 tokens, each
+    token's entry with its own boost, Q = 1, and Q = 1 of 300 tokens (as
+    wide as the reference sends to its walker); f32, bf16 and int8
+    weights; the windows bit for bit against the plain version and, at
+    f32, the board route against the host twin; timed as the BM25 cases,
+    one call (two launches) a batch whatever the token count."""
+    from elasticsearch_tpu_torch.ops import bm25, sparse
+    base, queries = sparse_board_inputs(seed, dev, n_slots)
     required = np.ones(len(queries), dtype=np.int32)
     cases = {}
     for dtype in ("f32", "bf16", "int8"):
         sf = sparse.SparseField("tokens", dtype, device=dev)
         for key in ("n_slots", "row_map", "term_tiles", "tile_slots",
-                    "tile_impacts", "nnz"):
+                    "tile_impacts", "tile_first", "nnz"):
             setattr(sf, key, getattr(base, key))
         sf.version = ("synthetic", dtype)
         for label, qs in ((f"sparse_{dtype}_q32", queries[:32]),
                           (f"sparse_{dtype}_q1", queries[5:6]),
                           (f"sparse_{dtype}_wide_q1", queries[32:])):
             f = _bm25_case(sf, qs, required[:len(qs)], label, timed=True)
-            widest = max(sum(t in sf.term_tiles for t in q) for q, _b in qs)
-            if f["positions"] != widest:
-                raise AssertionError(f"{label}: {f['positions']} launches a "
-                                     f"set for a widest query of {widest} "
-                                     f"tokens")
             f["tokens_per_query"] = float(np.mean([len(q) for q, _ in qs]))
             f["postings_per_query"] = f["postings"] / len(qs)
             cases[label] = f
@@ -3186,9 +3283,10 @@ def sparse_board_cases(seed: int, dev, n_slots: int = 1 << 20) -> dict:
                 case=label, n_slots=n_slots, tiles=len(base.tile_slots),
                 **{k: (f"{v:.6g}" if isinstance(v, float) else v)
                    for k, v in f.items()},
-                library="torch index_put_(accumulate=True) of the flattened "
-                        "valid lanes, scores then counts",
-                board="zero the boards + launch set + mask + top-100")
+                library="zeroed boards + torch index_put_(accumulate=True) "
+                        "of the flattened valid lanes, scores and counts + "
+                        "mask + torch.topk",
+                route="plan upload + bm25_board + window copy")
         del sf
     return cases
 
@@ -3277,7 +3375,7 @@ def phase_serve_hybrid(seed: int, n: int, device: str = "cuda") -> dict:
     kNN leg's recall@10 >= 0.95 against exact f32 numpy; every hybrid
     response (query + knn and sub_searches forms, `operator: and`, a
     generic `range` leg, text that analyzes to nothing) equal to host RRF
-    of its legs; one bm25_board launch set a request, and at C = 1 and 8
+    of its legs; one bm25_board call a request, and at C = 1 and 8
     one a batch. Returns the launches."""
     from elasticsearch_tpu_torch.ops import bm25, dispatch
     from elasticsearch_tpu_torch.ops import knn_binned as kb
@@ -3439,6 +3537,7 @@ def phase_serve_hybrid(seed: int, n: int, device: str = "cuda") -> dict:
         client.ok("POST", f"/{name}/_search", bodies[0])    # warm-up
         ex0 = dict(ex.stats)
         dispatch.reset_launches()
+        kernels0 = bm25.kernel_launches() if device == "cuda" else 0
         lat, responses = [], []
         for body in bodies:
             t = time.perf_counter()
@@ -3450,6 +3549,15 @@ def phase_serve_hybrid(seed: int, n: int, device: str = "cuda") -> dict:
         if launches != want:
             raise AssertionError(f"serve_hybrid: launches {launches} for "
                                  f"{len(bodies)} requests; expected {want}")
+        if device == "cuda":
+            # the board kernels the library launched: two a call
+            board_kernels = bm25.kernel_launches() - kernels0
+            if board_kernels != 2 * launches[bm25.KERNEL]:
+                raise AssertionError(f"serve_hybrid: {board_kernels} board "
+                                     f"kernel launches for "
+                                     f"{launches[bm25.KERNEL]} calls")
+            log("serve_hybrid", board_kernel_launches=board_kernels,
+                board_calls=launches[bm25.KERNEL])
         for key, c in launches.items():
             total[key] += c
         stages = {k: (ex.stats[k] - ex0[k]) / len(bodies) / 1e6
@@ -3539,11 +3647,11 @@ def phase_serve_hybrid(seed: int, n: int, device: str = "cuda") -> dict:
         if conc.get(bm25.KERNEL, 0) != batches:
             raise AssertionError(f"serve_hybrid concurrent: "
                                  f"{conc.get(bm25.KERNEL, 0)} bm25_board "
-                                 f"launch sets for {batches} batches")
+                                 f"calls for {batches} batches")
         for key, c in conc.items():
             total[key] = total.get(key, 0) + c
         log("serve_hybrid", concurrent_batches=batches,
-            bm25_launch_sets=conc.get(bm25.KERNEL, 0))
+            bm25_calls=conc.get(bm25.KERNEL, 0))
         drop_index(node, name)
     finally:
         server.stop()
@@ -3615,7 +3723,7 @@ def phase_serve_sparse(seed: int, n: int, n_walker: int = N_SPARSE_WALKER,
     (scipy CSR), a difference only among tied or 1-ulp scores at the cut;
     bf16 and int8 weights' recall@10 against it logged; the kNN leg's
     recall@10 >= 0.95; every response equal to host RRF of its legs (an
-    empty token map too); one `bm25_board` launch set (variant `sparse`)
+    empty token map too); one `bm25_board` call (variant `sparse`)
     and one binned launch a request, and at C = 1 and 8 one set a batch.
     Then the plain `query: {sparse_vector}` host walker on an index of
     the first `n_walker` passages, its hits byte-identical to the board's
@@ -3796,7 +3904,7 @@ def phase_serve_sparse(seed: int, n: int, n_walker: int = N_SPARSE_WALKER,
         for dtype in ("bf16", "int8"):
             qf = sparse.SparseField("tokens", dtype, device=dev)
             for key in ("n_slots", "row_map", "term_tiles", "tile_slots",
-                        "tile_impacts", "nnz", "version"):
+                        "tile_impacts", "tile_first", "nnz", "version"):
                 setattr(qf, key, getattr(sf, key))
             got = qf.search_batch([(q, 1.0) for q in q_tokens], 10)
             recall[dtype] = float(np.mean([
@@ -3816,6 +3924,7 @@ def phase_serve_sparse(seed: int, n: int, n_walker: int = N_SPARSE_WALKER,
         client.ok("POST", f"/{name}/_search", bodies[0])    # warm-up
         ex0 = dict(ex.stats)
         dispatch.reset_launches()
+        kernels0 = bm25.kernel_launches() if device == "cuda" else 0
         lat, responses = [], []
         for body in bodies:
             t = time.perf_counter()
@@ -3829,6 +3938,15 @@ def phase_serve_sparse(seed: int, n: int, n_walker: int = N_SPARSE_WALKER,
             raise AssertionError(f"serve_sparse: launches {launches} "
                                  f"({dispatch.variant_launches()}) for "
                                  f"{len(bodies)} requests; expected {want}")
+        if device == "cuda":
+            # the board kernels the library launched: two a call
+            board_kernels = bm25.kernel_launches() - kernels0
+            if board_kernels != 2 * launches[bm25.KERNEL]:
+                raise AssertionError(f"serve_sparse: {board_kernels} board "
+                                     f"kernel launches for "
+                                     f"{launches[bm25.KERNEL]} calls")
+            log("serve_sparse", board_kernel_launches=board_kernels,
+                board_calls=launches[bm25.KERNEL])
         for key, c in launches.items():
             total[key] += c
         stages = {k: (ex.stats[k] - ex0[k]) / len(bodies) / 1e6
@@ -3863,7 +3981,7 @@ def phase_serve_sparse(seed: int, n: int, n_walker: int = N_SPARSE_WALKER,
             raise AssertionError(f"serve_sparse kNN leg recall@10 "
                                  f"{knn_recall} < 0.95")
 
-        # every body's legs as one batch: one board launch set
+        # every body's legs as one batch: one board call
         dispatch.reset_launches()
         plans = [compile_plan(b, svc.mapper_service) for b in bodies]
         ex.score_legs(reader, plans, [pl.bind(b)
@@ -3883,8 +4001,8 @@ def phase_serve_sparse(seed: int, n: int, n_walker: int = N_SPARSE_WALKER,
             oracle_s=f"{oracle_s:.2f}", requests=len(bodies),
             query_tokens_mean=f"{np.mean([len(q) for q in q_tokens[:n_main]]):.1f}",
             wide_tokens_mean=f"{np.mean([len(q) for q in q_tokens[n_main:]]):.1f}",
-            launches_per_set_mean=f"{np.mean(positions):.1f}",
-            launches_per_set_max=max(positions),
+            positions_per_query_mean=f"{np.mean(positions):.1f}",
+            positions_per_query_max=max(positions),
             postings_per_query_mean=f"{np.mean(read):.0f}",
             shared_tokens_per_passage=f"{np.mean(read) / n:.3f}",
             hybrid_p50_ms=f"{statistics.median(lat):.3f}",
@@ -3923,11 +4041,11 @@ def phase_serve_sparse(seed: int, n: int, n_walker: int = N_SPARSE_WALKER,
         if conc.get(bm25.KERNEL, 0) != batches:
             raise AssertionError(f"serve_sparse concurrent: "
                                  f"{conc.get(bm25.KERNEL, 0)} bm25_board "
-                                 f"launch sets for {batches} batches")
+                                 f"calls for {batches} batches")
         for key, c in conc.items():
             total[key] = total.get(key, 0) + c
         log("serve_sparse", concurrent_batches=batches,
-            sparse_launch_sets=conc.get(bm25.KERNEL, 0))
+            sparse_calls=conc.get(bm25.KERNEL, 0))
         drop_index(node, name)
         del emb
 
@@ -4047,7 +4165,8 @@ def main(argv=None) -> int:
                            (args.sparse_only, phase_serve_sparse,
                             args.n_sparse)):
         if only:
-            kernels = phase_bm25_kernel(args.seed, torch.device("cuda"))
+            kernels = phase_bm25_kernel(args.seed, torch.device("cuda"),
+                                        args.n_msmarco, args.n_sparse)
             launches = phase(args.seed, n)
             for name, entry in kernels.items():
                 entry["launches"] = launches[name]
@@ -4059,7 +4178,8 @@ def main(argv=None) -> int:
     kernels.update(timed("kernels_ivf", phase_ivf_kernels, args.seed, cuda))
     kernels.update(timed("kernels_maxsim", phase_maxsim_kernels, args.seed,
                          cuda))
-    kernels.update(timed("kernels_bm25", phase_bm25_kernel, args.seed, cuda))
+    kernels.update(timed("kernels_bm25", phase_bm25_kernel, args.seed, cuda,
+                         args.n_msmarco, args.n_sparse))
     launches = timed("serve_sift_cohere", phase_serve, args.seed,
                      args.n_sift, args.n_cohere)
     one_shard = {}

@@ -11,15 +11,17 @@ score board (port of `elasticsearch_tpu/ops/bm25.py`).
   extractions (`columnar/blocks.py::PostingsBlock`) are kept by segment
   fingerprint, so an append-only refresh extracts only the new segments.
 
-* search: one board a batch (`bm25_board`, `csrc/bm25.cu`): each query's
-  term tiles add their impacts into a [Q, W + 1] score board and a count
-  board (W = pow2(live docs); lane W is the padding lane), term position
-  by term position, so every slot adds in query-term order and the f32
-  sums equal the reference's bit for bit. The slots whose count is below
-  the query's required matches (operator `and`, `minimum_should_match`)
-  mask to -inf, and `ops/topk.py::top_k` cuts the ranked window, ties to
-  the lower slot (slots ascend with the global row), as `native.topk`
-  breaks them.
+* search: one `bm25_board` call a batch (`csrc/bm25.cu`, two kernels).
+  The plan is one entry a (query, term position): the term's tile run and
+  boost, in query-term order. Kernel A gives each (slot range, query) a
+  block whose score and count boards live in shared memory; it adds each
+  position's tiles in order, so every slot adds in query-term order and
+  the f32 sums equal the reference's bit for bit, masks the slots whose
+  count is below the query's required matches (operator `and`,
+  `minimum_should_match`) and keeps its range's top k. Kernel B merges a
+  query's ranges into its window, ranked by (score desc, slot asc): ties
+  to the lower slot (slots ascend with the global row), as
+  `native.topk` and `ops/topk.py::top_k` break them.
 
 Routes: `search_batch(route="host")` runs `_score_host`, the numpy twin of
 the board over the f32 impacts; any other route runs the board, whose
@@ -32,9 +34,10 @@ field whose tensors are on the card always takes the board.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,128 +70,364 @@ def _pow2(n: int) -> int:
 
 # ------------------------------------------------------------------ kernel
 
+# The kernels' launch shape (`csrc/bm25.cu`): a block a (slot range,
+# query) scores and selects, a block a query merges.
+RANGE_DEFAULT = 8192            # slots a range: a 64 KB board, 3 blocks an SM
+RANGE_MIN = 1024
+RANGE_MAX = 16384               # the kernel's shared-memory limit
+SORT_SMEM_MAX = 1 << 17         # the merge sorts up to 16,384 keys in shared
+                                # memory, more in global scratch
+# `csrc/bm25.cu`'s shared-memory layout, for the logs (the C entry sizes
+# and checks its own): a histogram + misc head, kernel A's boards (8 B a
+# slot) and position windows, kernel B's digit histogram and key list
+_HEAD_BYTES = 256 * 4 + 32 * 4
+_POS_CHUNK = 512
+_HIST_BINS = 4096
+_B_LIST = 2048
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+class BoardPlan(NamedTuple):
+    range_slots: int    # R: the slots a kernel-A block owns
+    n_ranges: int       # ceil(n_slots / R)
+    k_range: int        # k' = min(k, R): candidates a range
+    n_cand: int         # n_ranges * k': candidates a query
+    sort_n: int         # pow2(k): the merge's sort width
+    sort_in_smem: bool  # the merge sorts in shared memory (else in global
+                        # scratch)
+
+
+def launch_plan(nq: int, n_slots: int, k: int,
+                range_slots: Optional[int] = None, *,
+                sms: Optional[int] = None) -> BoardPlan:
+    """The kernels' range decomposition for a batch of `nq` queries over
+    `n_slots` slots and a window of k. R halves from RANGE_DEFAULT until
+    nq * ceil(n_slots / R) blocks fill the card's `sms` SMs (Q = 1 too),
+    but not below RANGE_MIN, nor above the field (rounded up to 32);
+    `range_slots` forces it (a multiple of 32 up to RANGE_MAX), and then
+    `sms` is not needed."""
+    if range_slots is None:
+        if sms is None or sms < 1:
+            raise ValueError("launch_plan needs the card's SM count or "
+                             "range_slots")
+        r = RANGE_DEFAULT
+        while r > RANGE_MIN and nq * -(-n_slots // r) < sms:
+            r //= 2
+        r = min(r, max(32, -(-n_slots // 32) * 32))
+    else:
+        r = int(range_slots)
+        if r < 32 or r > RANGE_MAX or r % 32:
+            raise ValueError(f"range_slots must be a multiple of 32 in "
+                             f"[32, {RANGE_MAX}], got {r}")
+    n_ranges = -(-n_slots // r)
+    k_range = min(k, r)
+    n_cand = n_ranges * k_range
+    sort_n = _pow2(k)
+    return BoardPlan(r, n_ranges, k_range, n_cand, sort_n,
+                     8 * sort_n <= SORT_SMEM_MAX)
+
+
+def range_windows(tile_first: np.ndarray, runs: np.ndarray, lo: int,
+                  hi: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Each plan entry's window of tiles touching the slots [lo, hi), as
+    kernel A finds it: from the last tile of the term's run whose first
+    slot is <= lo (else the run's first tile) up to, not including, the
+    first tile whose first slot is >= hi. `tile_first` ascends within a
+    run, so every posting in [lo, hi) lies in its window. Returns (first
+    tile [P], tile count [P]) int64."""
+    first = runs[0].astype(np.int64)
+    end = first + runs[1].astype(np.int64)
+    start = np.empty(len(first), dtype=np.int64)
+    stop = np.empty(len(first), dtype=np.int64)
+    for j, (a, b) in enumerate(zip(first.tolist(), end.tolist())):
+        run = tile_first[a:b]
+        start[j] = max(a + int(np.searchsorted(run, lo, "right")) - 1, a)
+        stop[j] = a + int(np.searchsorted(run, hi, "left"))
+    return start, np.maximum(stop - start, 0)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("bm25")
     if not getattr(lib, "_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.bm25_board.argtypes = [p, p, ll, p, ll, p, i, p, p, p, i, ll]
+        lib.bm25_board.argtypes = [p, p, ll, p, i, p, p, p, p, i, ll, i, i,
+                                   p, i, p, p, p, ll]
         lib.bm25_board.restype = ctypes.c_int
+        lib.bm25_kernel_launches.argtypes = []
+        lib.bm25_kernel_launches.restype = ctypes.c_longlong
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
 
-def bm25_board_reference(scores: torch.Tensor, counts: torch.Tensor,
-                         items: torch.Tensor, starts: np.ndarray,
+def kernel_smem(plan: BoardPlan) -> Tuple[int, int]:
+    """The two kernels' dynamic shared memory bytes for `plan`, as the C
+    entry sizes them (for the logs: ptxas reports no dynamic size)."""
+    return (_HEAD_BYTES + 8 * plan.range_slots + 12 * _POS_CHUNK,
+            _HEAD_BYTES + 4 * _HIST_BINS + 8 * _B_LIST
+            + (8 * plan.sort_n if plan.sort_in_smem else 0))
+
+
+def kernel_launches() -> int:
+    """The kernels `csrc/bm25.cu` has launched in this process, counted by
+    the library as the runtime accepts each launch (two a `bm25_board`
+    call); a measurement, apart from `dispatch`'s count of calls."""
+    return int(_lib().bm25_kernel_launches())
+
+
+def check_plan(pos_starts: np.ndarray, runs: np.ndarray,
+               n_tiles: int) -> None:
+    """Raise on a plan the kernels would read out of bounds: `pos_starts`
+    must start at 0, ascend and end at runs.shape[1], and every entry's
+    tiles lie in [0, n_tiles). Runs on the host copy before its upload:
+    the CUDA wrapper checks only shapes, since reading the values on the
+    card would wait for it."""
+    ps = np.asarray(pos_starts, dtype=np.int64)
+    rn = np.asarray(runs, dtype=np.int64)
+    if ps.ndim != 1 or len(ps) < 2 or rn.ndim != 2 or rn.shape[0] != 3:
+        raise ValueError(f"plan shapes: pos_starts {ps.shape}, runs "
+                         f"{rn.shape}")
+    if ps[0] != 0 or (np.diff(ps) < 0).any() or ps[-1] != rn.shape[1]:
+        raise ValueError("pos_starts must ascend from 0 to the plan's "
+                         "entries")
+    if (rn[0] < 0).any() or (rn[1] < 0).any() \
+            or (rn[0] + rn[1] > n_tiles).any():
+        raise ValueError(f"a plan entry's tiles lie outside [0, {n_tiles})")
+
+
+def _position_items(pos_starts: torch.Tensor, runs: torch.Tensor):
+    """The per-query plan expanded to per-position work items: yields,
+    for j = 0, 1, ..., (query [n], tile [n], boost [n]) of the tiles of
+    every query's j-th entry."""
+    dev = runs.device
+    ps = pos_starts.long()
+    per_q = ps[1:] - ps[:-1]
+    if runs.shape[1] == 0:
+        return
+    q_of = torch.repeat_interleave(torch.arange(len(per_q), device=dev),
+                                   per_q)
+    j_of = torch.arange(runs.shape[1], device=dev) - ps[q_of]
+    boost = runs[2].contiguous().view(torch.float32)
+    for j in range(int(per_q.max())):
+        e = torch.nonzero(j_of == j).squeeze(1)
+        nt = runs[1][e].long()
+        run_start = torch.repeat_interleave(torch.cumsum(nt, 0) - nt, nt)
+        tiles = torch.repeat_interleave(runs[0][e].long(), nt) \
+            + (torch.arange(int(nt.sum()), device=dev) - run_start)
+        yield (torch.repeat_interleave(q_of[e], nt), tiles,
+               torch.repeat_interleave(boost[e], nt))
+
+
+def _tile_values(tiles, boost, tile_slots, tile_impacts, tile_scales):
+    """(slots [n, TILE] int64, (imp [* scale]) * boost [n, TILE] f32) of
+    the tiles, formed in the kernel's order."""
+    slots = tile_slots[tiles].long()
+    imp = tile_impacts[tiles].to(torch.float32)
+    if tile_scales is not None:
+        imp = imp * tile_scales[tiles][:, None]
+    return slots, imp * boost[:, None]
+
+
+def bm25_board_reference(pos_starts: torch.Tensor, runs: torch.Tensor,
+                         required: torch.Tensor, tile_first: torch.Tensor,
                          tile_slots: torch.Tensor, tile_impacts: torch.Tensor,
-                         tile_scales: Optional[torch.Tensor]) -> None:
-    """The plain PyTorch version of `bm25_board`, in place: term position
-    by term position, gather its items' tiles, form (imp [* scale]) *
-    boost in that order, and add with `index_put_(accumulate=True)`. The
-    indices of one position are unique but for the padding lane, which
-    gets only zeros, so each add is exact and in the kernel's order."""
-    w = scores.shape[1] - 1
-    q_all, tile_all = items[0].long(), items[1].long()
-    boost_all = items[2].view(torch.float32)
-    for j in range(len(starts) - 1):
-        lo, hi = int(starts[j]), int(starts[j + 1])
-        if hi <= lo:
-            continue
-        tiles = tile_all[lo:hi]
-        slots = tile_slots[tiles].long()                      # [n, TILE]
-        imp = tile_impacts[tiles].to(torch.float32)
-        if tile_scales is not None:
-            imp = imp * tile_scales[tiles][:, None]
-        imp = imp * boost_all[lo:hi][:, None]
+                         tile_scales: Optional[torch.Tensor], k: int,
+                         n_slots: int):
+    """The plain PyTorch version of `bm25_board`: a [Q, n_slots + 1] score
+    and count board (lane n_slots the padding lane), filled position by
+    position (every query's j-th entry) with `index_put_(accumulate=True)`,
+    whose indices within one position are unique but for the padding lane,
+    which gets only zeros, so each add is exact and in the kernel's order;
+    then `board_top_k`, and slot -1 where the score is -inf. `tile_first`
+    is not needed here."""
+    nq = pos_starts.shape[0] - 1
+    dev = tile_slots.device
+    scores = torch.zeros((nq, n_slots + 1), dtype=torch.float32, device=dev)
+    counts = torch.zeros((nq, n_slots + 1), dtype=torch.int32, device=dev)
+    for q, tiles, boost in _position_items(pos_starts, runs):
+        slots, vals = _tile_values(tiles, boost, tile_slots, tile_impacts,
+                                   tile_scales)
         valid = slots >= 0
-        tgt = torch.where(valid, slots, torch.full_like(slots, w))
-        q = q_all[lo:hi][:, None].expand_as(tgt)
-        scores.index_put_((q, tgt), torch.where(valid, imp,
-                                                torch.zeros_like(imp)),
+        tgt = torch.where(valid, slots, torch.full_like(slots, n_slots))
+        q = q[:, None].expand_as(tgt)
+        scores.index_put_((q, tgt), torch.where(valid, vals,
+                                                torch.zeros_like(vals)),
                           accumulate=True)
-        counts.index_put_((q, tgt), valid.to(counts.dtype), accumulate=True)
+        counts.index_put_((q, tgt), valid.to(torch.int32), accumulate=True)
+    vals, idx = board_top_k(scores, counts, required, k)
+    return vals, torch.where(vals > -math.inf, idx,
+                             torch.full_like(idx, -1)).to(torch.int32)
 
 
-def _check_inputs(scores, counts, items, starts, tile_slots, tile_impacts,
-                  tile_scales) -> None:
-    """Raise on anything the kernel does not take: it reads every pointer
+def bm25_board_ranged_reference(pos_starts: torch.Tensor, runs: torch.Tensor,
+                                required: torch.Tensor,
+                                tile_first: torch.Tensor,
+                                tile_slots: torch.Tensor,
+                                tile_impacts: torch.Tensor,
+                                tile_scales: Optional[torch.Tensor], k: int,
+                                n_slots: int,
+                                range_slots: Optional[int] = None, *,
+                                sms: Optional[int] = None):
+    """The plain version of the kernels' decomposition: `launch_plan`'s
+    ranges (for `sms` SMs, or `range_slots` forced), each scored on its
+    own board over `range_windows`'s tiles, its top k' taken, the
+    candidates merged into the top k; the same window as
+    `bm25_board_reference`."""
+    nq = pos_starts.shape[0] - 1
+    plan = launch_plan(nq, n_slots, k, range_slots, sms=sms)
+    ps = pos_starts.tolist()
+    first_h, runs_h = tile_first.cpu().numpy(), runs.cpu().numpy()
+    boost = runs[2].contiguous().view(torch.float32)
+    req = required.tolist()
+    dev = tile_slots.device
+    out_v, out_s = [], []
+    for q in range(nq):
+        cv, cs = [], []
+        for r in range(plan.n_ranges):
+            lo = r * plan.range_slots
+            width = min(plan.range_slots, n_slots - lo)
+            start, count = range_windows(first_h, runs_h[:, ps[q]:ps[q + 1]],
+                                         lo, lo + width)
+            scores = torch.zeros(width + 1, dtype=torch.float32, device=dev)
+            counts = torch.zeros(width + 1, dtype=torch.int32, device=dev)
+            for j in range(len(start)):
+                if not count[j]:
+                    continue
+                tiles = torch.arange(int(start[j]), int(start[j] + count[j]),
+                                     device=dev)
+                slots, vals = _tile_values(
+                    tiles, boost[ps[q] + j].expand(len(tiles)), tile_slots,
+                    tile_impacts, tile_scales)
+                inr = (slots >= lo) & (slots < lo + width)
+                tgt = torch.where(inr, slots - lo,
+                                  torch.full_like(slots, width))
+                scores.index_put_((tgt,), torch.where(
+                    inr, vals, torch.zeros_like(vals)), accumulate=True)
+                counts.index_put_((tgt,), inr.to(torch.int32),
+                                  accumulate=True)
+            masked = torch.where(counts[:width] >= max(req[q], 1),
+                                 scores[:width],
+                                 torch.full_like(scores[:width], -math.inf))
+            v, i = top_k(masked, min(plan.k_range, width))
+            cv.append(v)
+            cs.append(i + lo)
+        v, i = top_k(torch.cat(cv), k)
+        out_v.append(v)
+        out_s.append(torch.where(v > -math.inf, torch.cat(cs)[i],
+                                 torch.full_like(i, -1)))
+    return (torch.stack(out_v),
+            torch.stack(out_s).to(torch.int32))
+
+
+def _check_inputs(pos_starts, runs, required, tile_first, tile_slots,
+                  tile_impacts, tile_scales, k, n_slots) -> None:
+    """Raise on anything the kernels do not take: they read every pointer
     at the sizes given here."""
-    tensors = [scores, counts, items, tile_slots, tile_impacts]
+    tensors = [pos_starts, runs, required, tile_first, tile_slots,
+               tile_impacts]
     if tile_scales is not None:
         tensors.append(tile_scales)
-    dev = scores.device
+    dev = tile_slots.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("kernel inputs must lie on one CUDA device")
-    if scores.dtype != torch.float32 or counts.dtype != torch.int32 \
-            or items.dtype != torch.int32 or tile_slots.dtype != torch.int32:
-        raise TypeError("boards must be f32 / int32, items and tile slots "
-                        "int32")
+    if any(t.dtype != torch.int32 for t in tensors[:5]):
+        raise TypeError("the plan, required and the tile slots must be int32")
     if tile_impacts.dtype not in _DTYPE_CODES:
         raise TypeError(f"no bm25_board kernel for {tile_impacts.dtype} "
                         f"impacts")
     if (tile_impacts.dtype == torch.int8) != (tile_scales is not None):
         raise ValueError("int8 impacts need their tile scales, and only "
                          "they take scales")
+    n_tiles = tile_slots.shape[0] if tile_slots.dim() == 2 else -1
     if tile_scales is not None and (tile_scales.dtype != torch.float32
                                     or tuple(tile_scales.shape)
-                                    != (tile_slots.shape[0],)):
+                                    != (n_tiles,)):
         raise ValueError("tile scales must be f32 [T]")
-    if scores.shape != counts.shape or scores.dim() != 2 \
+    nq = pos_starts.shape[0] - 1 if pos_starts.dim() == 1 else -1
+    if nq < 1 or tuple(required.shape) != (nq,) \
+            or runs.dim() != 2 or runs.shape[0] != 3 \
             or tile_slots.dim() != 2 or tile_slots.shape[1] != TILE \
             or tile_impacts.shape != tile_slots.shape \
-            or items.dim() != 2 or items.shape[0] != 3:
+            or tuple(tile_first.shape) != (n_tiles,):
         raise ValueError(
-            f"shape mismatch: boards {tuple(scores.shape)} / "
-            f"{tuple(counts.shape)}, items {tuple(items.shape)}, tiles "
-            f"{tuple(tile_slots.shape)} / {tuple(tile_impacts.shape)}")
-    if starts.dtype != np.int32 or starts.ndim != 1 or len(starts) < 1 \
-            or int(starts[-1]) != items.shape[1] \
-            or (np.diff(starts) < 0).any():
-        raise ValueError("starts must be ascending int32 [n_pos + 1] "
-                         "ending at the item count")
+            f"shape mismatch: pos_starts {tuple(pos_starts.shape)}, runs "
+            f"{tuple(runs.shape)}, required {tuple(required.shape)}, tiles "
+            f"{tuple(tile_first.shape)} / {tuple(tile_slots.shape)} / "
+            f"{tuple(tile_impacts.shape)}")
+    if not 1 <= n_slots < 2 ** 31 or not 1 <= k <= n_slots:
+        raise ValueError(f"need 1 <= k <= n_slots < 2^31, got k {k}, "
+                         f"n_slots {n_slots}")
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
+    if tile_slots.data_ptr() % 16 or tile_impacts.data_ptr() % 16:
+        raise ValueError("tile slots and impacts must be 16-byte aligned")
 
 
-def bm25_board(scores: torch.Tensor, counts: torch.Tensor,
-               items: torch.Tensor, starts: np.ndarray,
+def bm25_board(pos_starts: torch.Tensor, runs: torch.Tensor,
+               required: torch.Tensor, tile_first: torch.Tensor,
                tile_slots: torch.Tensor, tile_impacts: torch.Tensor,
-               tile_scales: Optional[torch.Tensor] = None,
-               variant: Optional[str] = None) -> None:
-    """Add a batch's impacts into zeroed boards, in place: `scores` [Q,
-    W + 1] f32 and `counts` [Q, W + 1] int32. `items` [3, I] int32 holds
-    each work item's (query, tile, boost as f32 bits), grouped by term
-    position: items starts[j]:starts[j + 1] (`starts`, host int32 [P + 1])
-    are the tiles of every query's j-th term. On CUDA tensors the kernel
-    runs, one launch a term position on the current stream (one launch
-    set, counted once, also under `variant` when given: the learned-sparse
-    layout counts as `sparse`); on CPU tensors its plain version; anything
-    else raises."""
-    tensors = [scores, counts, items, tile_slots, tile_impacts]
+               tile_scales: Optional[torch.Tensor], k: int, n_slots: int,
+               variant: Optional[str] = None,
+               range_slots: Optional[int] = None):
+    """A batch's windows: (vals [Q, k] f32, slots [Q, k] int32), each
+    query's slots counted at least max(required, 1) times, ranked by
+    (score desc, slot asc), -inf / -1 past the matched count.
+
+    The plan (`LexicalField.plan_positions`): `pos_starts` [Q + 1] int32,
+    query q's entries runs[:, pos_starts[q]:pos_starts[q + 1]] of `runs`
+    [3, P] int32 (first tile, tile count, boost as f32 bits), in query-term
+    order; `required` [Q] int32. The field: `tile_first` [T], `tile_slots`
+    [T, TILE] int32, `tile_impacts` [T, TILE] f32 / bf16 / int8 with
+    `tile_scales` [T] f32 for int8. On CUDA tensors the two kernels of
+    `csrc/bm25.cu` run on the current stream (one call counted, also under
+    `variant` when given: the learned-sparse layout counts as `sparse`),
+    over `launch_plan`'s ranges for the card's SMs (`range_slots` forces
+    R); on CPU tensors the plain version; anything else raises. The
+    plan's values are checked by `check_plan` on the CPU; on the card the
+    caller checks its host copy before the upload (`_score_device`)."""
+    tensors = [pos_starts, runs, required, tile_first, tile_slots,
+               tile_impacts]
     if tile_scales is not None:
         tensors.append(tile_scales)
     if all(t.device.type == "cpu" for t in tensors):
-        bm25_board_reference(scores, counts, items, starts, tile_slots,
-                             tile_impacts, tile_scales)
-        return
-    starts = np.ascontiguousarray(starts)
-    _check_inputs(scores, counts, items, starts, tile_slots, tile_impacts,
-                  tile_scales)
+        check_plan(pos_starts.numpy(), runs.numpy(), tile_slots.shape[0])
+        return bm25_board_reference(pos_starts, runs, required, tile_first,
+                                    tile_slots, tile_impacts, tile_scales,
+                                    k, n_slots)
+    _check_inputs(pos_starts, runs, required, tile_first, tile_slots,
+                  tile_impacts, tile_scales, k, n_slots)
+    nq = pos_starts.shape[0] - 1
+    dev = tile_slots.device
+    plan = launch_plan(nq, n_slots, k, range_slots,
+                       sms=_sm_count(dev.index if dev.index is not None
+                                     else torch.cuda.current_device()))
+    vals = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    slots = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    cand = torch.empty((nq, plan.n_cand), dtype=torch.int64, device=dev)
+    sort = None if plan.sort_in_smem else torch.empty(
+        (nq, plan.sort_n), dtype=torch.int64, device=dev)
     lib = _lib()
-    stream = torch.cuda.current_stream(scores.device).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.bm25_board(
-        scores.data_ptr(), counts.data_ptr(), scores.shape[1],
-        items.data_ptr(), items.shape[1],
-        starts.ctypes.data_as(ctypes.c_void_p), len(starts) - 1,
+        pos_starts.data_ptr(), runs.data_ptr(), runs.shape[1],
+        required.data_ptr(), nq, tile_first.data_ptr(),
         tile_slots.data_ptr(), tile_impacts.data_ptr(),
         None if tile_scales is None else tile_scales.data_ptr(),
-        _DTYPE_CODES[tile_impacts.dtype], stream)
+        _DTYPE_CODES[tile_impacts.dtype], n_slots, plan.range_slots, k,
+        cand.data_ptr(), int(plan.sort_in_smem),
+        None if sort is None else sort.data_ptr(), vals.data_ptr(),
+        slots.data_ptr(), stream)
     if code != 0:
         raise RuntimeError(f"{KERNEL} launch failed: "
                            f"{lib.cuda_error_string(code).decode()}")
     dispatch.count_launch(KERNEL, variant)
+    return vals, slots
 
 
 def board_top_k(scores: torch.Tensor, counts: torch.Tensor,
@@ -228,12 +467,13 @@ class LexicalField:
         # tile-padded CSR (term-major): [n_tiles, TILE]
         self.tile_slots = np.full((0, TILE), -1, dtype=np.int32)
         self.tile_impacts = np.zeros((0, TILE), dtype=np.float32)
+        self.tile_first = np.zeros(0, dtype=np.int32)   # each tile's lane 0
         self.term_tiles: Dict[str, Tuple[int, int]] = {}  # term -> (first, n)
         self.nnz = 0
         self.columnar_refresh: dict = {}
         # per-segment postings blocks, keyed by fingerprint and base
         self._blocks: Dict[tuple, object] = {}
-        self._device = None             # (slots, impacts, scales) tensors
+        self._device = None     # (slots, impacts, scales, first) tensors
         self._device_version: tuple = ()
 
     # ------------------------------------------------------------- build
@@ -360,6 +600,9 @@ class LexicalField:
                            if nt}
         self.tile_slots = tile_slots
         self.tile_impacts = tile_impacts
+        # a run starts on a new tile and pads only at its end, so lane 0 of
+        # a run's tile is valid, and the first slots ascend within a run
+        self.tile_first = np.ascontiguousarray(tile_slots[:, 0])
 
     # ------------------------------------------------------------ search
     def nbytes(self) -> int:
@@ -367,6 +610,13 @@ class LexicalField:
                 + self.tile_impacts.size * _IMPACT_BYTES[self.dtype])
 
     def _device_arrays(self):
+        """The tiles on the card: (slots, impacts, scales or None)."""
+        return self._upload()[:3]
+
+    def _device_tile_first(self) -> torch.Tensor:
+        return self._upload()[3]
+
+    def _upload(self):
         if self._device is not None and self._device_version == self.version:
             return self._device
         dev = self.device
@@ -383,7 +633,8 @@ class LexicalField:
             scales = torch.from_numpy(enc.scales).to(dev)
         else:
             impacts = torch.from_numpy(self.tile_impacts).to(dev)
-        self._device = (slots, impacts, scales)
+        first = torch.from_numpy(self.tile_first).to(dev)
+        self._device = (slots, impacts, scales, first)
         self._device_version = self.version
         return self._device
 
@@ -422,44 +673,26 @@ class LexicalField:
         return tile_ids, boosts, m
 
     def plan_positions(self, queries) -> Tuple[np.ndarray, np.ndarray]:
-        """The board's work items, grouped by term position: (items [3, I]
-        int32 of (query, tile, boost bits), starts [P + 1] int32), items
-        starts[j]:starts[j + 1] holding the tiles of every query's j-th
-        in-vocabulary term (a repeated term is one position each time),
-        each with that term's boost."""
-        q_of, first, n_tiles, boost, pos = [], [], [], [], []
-        for qi, query in enumerate(queries):
-            j = 0
+        """The board's plan, one entry a (query, term position): (pos_starts
+        [Q + 1] int32, runs [3, P] int32), query q's entries runs[:,
+        pos_starts[q]:pos_starts[q + 1]] being its in-vocabulary terms in
+        query-term order (a repeated term once each time) as (first tile,
+        tile count, the term's boost as f32 bits)."""
+        starts, first, n_tiles, boost = [0], [], [], []
+        for query in queries:
             for t, b in self._term_boosts(query):
                 span = self.term_tiles.get(t)
                 if span is None:
                     continue
-                q_of.append(qi)
                 first.append(span[0])
                 n_tiles.append(span[1])
                 boost.append(b)
-                pos.append(j)
-                j += 1
-        if not q_of:
-            return (np.zeros((3, 0), dtype=np.int32),
-                    np.zeros(1, dtype=np.int32))
-        # position-major, queries ascending within a position (a stable
-        # sort of the query-major list)
-        pos = np.asarray(pos, dtype=np.int64)
-        order = np.argsort(pos, kind="stable")
-        nt = np.asarray(n_tiles, dtype=np.int64)[order]
-        run_start = np.repeat(np.cumsum(nt) - nt, nt)
-        tile = np.repeat(np.asarray(first, dtype=np.int64)[order], nt) \
-            + (np.arange(int(nt.sum())) - run_start)
-        items = np.stack([
-            np.repeat(np.asarray(q_of, dtype=np.int32)[order], nt),
-            tile.astype(np.int32),
-            np.repeat(np.asarray(boost, dtype=np.float32)[order],
-                      nt).view(np.int32)])
-        per_pos = np.bincount(pos, weights=n_tiles).astype(np.int64)
-        starts = np.zeros(len(per_pos) + 1, dtype=np.int32)
-        np.cumsum(per_pos, out=starts[1:])
-        return np.ascontiguousarray(items), starts
+            starts.append(len(first))
+        runs = np.empty((3, len(first)), dtype=np.int32)
+        runs[0] = first
+        runs[1] = n_tiles
+        runs[2] = np.asarray(boost, dtype=np.float32).view(np.int32)
+        return np.asarray(starts, dtype=np.int32), runs
 
     def _score_host(self, tile_ids, boosts, required, k):
         """Numpy twin of the board over the f32 impacts: the same
@@ -494,34 +727,27 @@ class LexicalField:
         return out
 
     def _score_device(self, queries, required, k):
-        """The board route: one `bm25_board` launch set for the batch,
-        padded to its query bucket, then the masked top k."""
-        n_real = len(queries)
-        n_pad = dispatch.bucket_queries(n_real)
+        """The board route: the plan up in one copy, one `bm25_board` call
+        for the batch (its two kernels on the card), the [Q, k] window down
+        in one copy."""
+        nq = len(queries)
         slots_d, impacts_d, scales_d = self._device_arrays()
-        # board width pads to a pow2 of the live docs; pad slots keep
-        # count 0, so the required-mask turns them to -inf
-        w = _pow2(max(self.n_slots, 1))
-        k_req = min(k, max(self.n_slots, 1))
-        k_b = dispatch.bucket_k(k_req, limit=w)
-        items, starts = self.plan_positions(queries)
-        dev = self.device
-        scores = torch.zeros((n_pad, w + 1), dtype=torch.float32, device=dev)
-        counts = torch.zeros((n_pad, w + 1), dtype=torch.int32, device=dev)
-        req = np.ones(n_pad, dtype=np.int32)
-        req[:n_real] = required
-        bm25_board(scores, counts, torch.from_numpy(items).to(dev), starts,
-                   slots_d, impacts_d, scales_d, variant=self.VARIANT)
-        vals, slot_idx = board_top_k(scores, counts,
-                                     torch.from_numpy(req).to(dev), k_b)
-        vals = vals[:n_real, :k_req].cpu().numpy()
-        slot_idx = slot_idx[:n_real, :k_req].cpu().numpy()
+        k_req = min(k, self.n_slots)
+        pos_starts, runs = self.plan_positions(queries)
+        check_plan(pos_starts, runs, len(self.tile_slots))
+        n_runs = runs.shape[1]
+        plan = torch.from_numpy(np.concatenate(
+            [pos_starts, runs.reshape(-1), required])).to(self.device)
+        vals, slot_idx = bm25_board(
+            plan[:nq + 1], plan[nq + 1:nq + 1 + 3 * n_runs].view(3, n_runs),
+            plan[nq + 1 + 3 * n_runs:], self._device_tile_first(), slots_d,
+            impacts_d, scales_d, k_req, self.n_slots, variant=self.VARIANT)
+        window = torch.stack([vals.view(torch.int32), slot_idx]).cpu().numpy()
         out = []
-        for qi in range(n_real):
-            v, si = vals[qi], slot_idx[qi]
-            keep = v > -np.inf
-            out.append((self.row_map[si[keep]],
-                        v[keep].astype(np.float32)))
+        for qi in range(nq):
+            keep = window[1, qi] >= 0
+            out.append((self.row_map[window[1, qi][keep]],
+                        window[0, qi][keep].view(np.float32)))
         return out
 
     def search_batch(self, queries, window: int, required=None,
@@ -531,8 +757,9 @@ class LexicalField:
 
         required: per-query minimum matched clauses (operator `and` /
         minimum_should_match), default 1. route: "host" for the numpy
-        twin, else the board."""
-        if self.n_slots == 0 or not self.term_tiles:
+        twin, else the board. A window of 0 is empty on either route."""
+        if self.n_slots == 0 or not self.term_tiles or not queries \
+                or window < 1:
             return [(np.zeros(0, dtype=np.int64),
                      np.zeros(0, dtype=np.float32)) for _ in queries]
         if required is None:

@@ -7,8 +7,7 @@ later PR that captures CUDA graphs per bucket finds a closed shape grid.
 
 `LAUNCHES` counts launches of each hand-written kernel; a wrapper adds one
 where it launches its kernel and nowhere else, so a run shows which route
-it took (`bm25_board` counts one a launch set: one launch a term position
-of its batch). A kernel with more than one variant also counts each launch under
+it took (`bm25_board` counts one a batch: its two launches). A kernel with more than one variant also counts each launch under
 `"<kernel>/<variant>"` in `VARIANT_LAUNCHES`.
 """
 

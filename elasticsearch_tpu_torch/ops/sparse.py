@@ -17,16 +17,16 @@ two ends:
 
 * search: a query is ({token: weight}, boost); each token's tiles carry
   the boost f32(f32(weight) * f32(boost)), so the kernel's impact * boost
-  is stored weight * query weight. Position j of the board's plan holds
-  each query's j-th in-vocabulary token, in the query map's order, so
-  every slot adds in that order, which is the order of the host walker
+  is stored weight * query weight. A query's plan entries are its
+  in-vocabulary tokens in the query map's order, so every slot adds in
+  that order, which is the order of the host walker
   (`search/queries_ext.py::WeightedTokensQuery`), and the f32 sums are
   its bits. Required matches are 1: any shared token matches.
 
-The board launches count under `bm25_board` with the variant `sparse`.
-A query of any width takes the board: the reference caps a device query
-at 256 tokens because it compiles a grid of shapes, and the port compiles
-none.
+The board calls count under `bm25_board` with the variant `sparse`. A
+query of any width takes the board in one call (two launches): the
+reference caps a device query at 256 tokens because it compiles a grid
+of shapes, and the port compiles none.
 """
 
 from __future__ import annotations

@@ -5,12 +5,12 @@ generic legs of `elasticsearch_tpu/search/hybrid_plan.py`).
   plan    normalize → classify sub-searches into legs:
             lexical — `match` / `term` on a text field, no fuzziness →
                    the BM25 board (`ops/bm25.py`, `csrc/bm25.cu` on the
-                   card), one launch set a text field a batch; a `match`
+                   card), one board call a text field a batch; a `match`
                    whose text analyzes to nothing is an empty leg
             sparse — `sparse_vector` / `weighted_tokens` on a
                    `rank_features` or `sparse_vector` field → the same
                    board over the learned-sparse layout (`ops/sparse.py`),
-                   one launch set a field a batch, whatever the query's
+                   one board call a field a batch, whatever the query's
                    token count; an empty token map is an empty leg
             knn  — `knn` on a dense_vector field → the vector store
                    (`vectors/store.py`, the binned kernel on the card;

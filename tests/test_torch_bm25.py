@@ -166,22 +166,193 @@ def test_append_only_refresh_extracts_only_new_segments(readers):
 
 
 def test_plan_positions_holds_the_plan_queries_tiles(readers):
-    """The board's term-position plan names the host twin's tiles: each
-    query's j-th in-vocabulary word's tiles at position j."""
+    """The board's plan, one entry a (query, term position), names the host
+    twin's tiles: query q's entries are its in-vocabulary words in query
+    order (a repeated word each time), and their tile runs, expanded, are
+    its `plan_queries` tiles with their boosts."""
     _ref, port = _fields("f32", readers[2])
     tile_ids, boosts, _m = port.plan_queries(QUERIES)
-    items, starts = port.plan_positions(QUERIES)
-    assert starts[0] == 0 and starts[-1] == items.shape[1]
-    for qi in range(len(QUERIES)):
-        mine = items[:, items[0] == qi]
+    pos_starts, runs = port.plan_positions(QUERIES)
+    assert pos_starts.dtype == runs.dtype == np.int32
+    assert pos_starts[0] == 0 and pos_starts[-1] == runs.shape[1]
+    for qi, (words, _boost) in enumerate(QUERIES):
+        mine = runs[:, pos_starts[qi]:pos_starts[qi + 1]]
+        assert [tuple(e) for e in mine[:2].T.tolist()] == [
+            port.term_tiles[w] for w in words if w in port.term_tiles]
         want = tile_ids[qi][tile_ids[qi] >= 0]
-        assert mine[1].tolist() == want.tolist()
-        assert np.array_equal(mine[2].view(np.float32),
+        assert [t for f, n in mine[:2].T.tolist()
+                for t in range(f, f + n)] == want.tolist()
+        assert np.array_equal(np.repeat(mine[2].view(np.float32), mine[1]),
                               boosts[qi][:len(want)])
-    # a query's tiles of one word share a position; words ascend
-    for j in range(len(starts) - 1):
-        q = items[0, starts[j]:starts[j + 1]]
-        assert (np.diff(q) >= 0).all()
+
+
+@pytest.mark.parametrize("snap", [0, 1, 2])
+def test_tile_first_is_lane_0_and_ascends_in_each_run(readers, snap):
+    """`tile_first` is each tile's lane 0, valid in every run's tile and
+    strictly ascending within a run, the order the kernel's window search
+    needs; it goes to the card with the tiles."""
+    _ref, port = _fields("f32", readers[snap])
+    assert np.array_equal(port.tile_first, port.tile_slots[:, 0])
+    assert np.array_equal(port._device_tile_first().numpy(), port.tile_first)
+    for first, nt in port.term_tiles.values():
+        run = port.tile_first[first:first + nt]
+        assert (run >= 0).all() and (np.diff(run) > 0).all()
+
+
+def _board_args(field, queries, required):
+    """`bm25_board`'s arguments up to k for a batch, on the CPU."""
+    pos_starts, runs = field.plan_positions(queries)
+    return (torch.from_numpy(pos_starts), torch.from_numpy(runs),
+            torch.from_numpy(np.asarray(required, dtype=np.int32)),
+            field._device_tile_first(), *field._device_arrays())
+
+
+def _same_window(got, want):
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("range_slots", [32, 96, 256])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_ranged_plain_version_is_the_plain_version(readers, dtype,
+                                                   range_slots):
+    """The kernels' decomposition in plain PyTorch (ranges of
+    `range_slots`, each term's tile window in a range from `tile_first`,
+    a range's top k', the merge) gives the plain version's window, score
+    bits and slots, -inf / -1 past the matches: terms span several
+    ranges, and k runs past one range, to every slot."""
+    _ref, port = _fields(dtype, readers[2])
+    n = port.n_slots
+    assert n > 3 * range_slots
+    for required in ([1] * len(QUERIES), [2, 2, 1, 3, 1, 2]):
+        args = _board_args(port, QUERIES, required)
+        for k in (7, range_slots + 5, n):
+            want = bm25.bm25_board_reference(*args, k, n)
+            assert want[1].dtype == torch.int32 and want[0].shape == (6, k)
+            _same_window(bm25.bm25_board_ranged_reference(
+                *args, k, n, range_slots=range_slots), want)
+            assert bool((want[1] == -1).eq(want[0] == -np.inf).all())
+
+
+def test_range_windows_hold_every_posting_in_range(readers):
+    """Each entry's window holds every posting of its term whose slot lies
+    in the range, and no tile past the range's end."""
+    _ref, port = _fields("f32", readers[2])
+    _ps, runs = port.plan_positions(QUERIES)
+    for lo, hi in ((0, 64), (64, 200), (300, 301), (0, port.n_slots),
+                   (port.n_slots - 40, port.n_slots)):
+        start, count = bm25.range_windows(port.tile_first, runs, lo, hi)
+        for j in range(runs.shape[1]):
+            first, nt = runs[0, j], runs[1, j]
+            slots = port.tile_slots[first:first + nt]
+            tile = np.nonzero(((slots >= lo) & (slots < hi)).any(1))[0]
+            win = np.arange(start[j], start[j] + count[j]) - first
+            assert set(tile.tolist()) <= set(win.tolist())
+            assert (port.tile_first[start[j]:start[j] + count[j]] < hi).all()
+
+
+def test_launch_plan_fills_the_sms_and_bounds_the_ranges():
+    """R halves from 8,192 until Q * ceil(n_slots / R) fills the card's
+    SMs (132 on the H100 SXM, 114 on the PCIe card), not below 1,024 nor
+    past the field; k' = min(k, R); the merge sorts in global scratch
+    only past 16,384 keys; without `range_slots` the SM count is
+    required."""
+    p = bm25.launch_plan(32, 1 << 20, 100, sms=132)
+    assert (p.range_slots, p.n_ranges, p.k_range, p.n_cand) \
+        == (8192, 128, 100, 12800)
+    assert p.sort_in_smem and p.sort_n == 128
+    p = bm25.launch_plan(1, 1 << 20, 100, sms=132)
+    assert (p.range_slots, p.n_ranges) == (4096, 256)
+    assert bm25.launch_plan(1, 1 << 20, 100, sms=114).range_slots == 8192
+    assert bm25.launch_plan(1, 1 << 20, 100, sms=200).range_slots == 4096
+    assert bm25.launch_plan(1, 1 << 20, 16384, sms=132).sort_in_smem
+    assert bm25.launch_plan(1, 3000, 10, sms=132).range_slots == 1024
+    assert bm25.launch_plan(1, 100, 10, sms=132).range_slots == 128
+    p = bm25.launch_plan(4, 5000, 20000, range_slots=64)
+    assert (p.n_ranges, p.k_range, p.sort_n, p.sort_in_smem) \
+        == (79, 64, 32768, False)
+    for bad in (16, 100, 1 << 15):
+        with pytest.raises(ValueError, match="range_slots"):
+            bm25.launch_plan(1, 5000, 10, range_slots=bad)
+    for sms in (None, 0):
+        with pytest.raises(ValueError, match="SM count"):
+            bm25.launch_plan(1, 5000, 10, sms=sms)
+
+
+def test_kernel_smem_fits_the_card_at_every_plan():
+    """The kernels' shared memory as the C entry sizes it: kernel A's
+    boards (8 B a slot) grow with R, kernel B's sort buffer with k until
+    it moves to global scratch; both stay within the H100's 227 KB a
+    block."""
+    a, b = bm25.kernel_smem(bm25.launch_plan(32, 1 << 20, 100, sms=132))
+    assert (a, b) == (1152 + 8 * 8192 + 12 * 512,
+                      1152 + 4 * 4096 + 8 * 2048 + 8 * 128)
+    for k in (1, 100, 16384, 16385, 1 << 20):
+        for r in (32, 8192, bm25.RANGE_MAX):
+            a, b = bm25.kernel_smem(bm25.launch_plan(1, 1 << 20, k,
+                                                     range_slots=r))
+            assert max(a, b) <= 232448
+
+
+@pytest.mark.parametrize("bad", ["not_from_0", "descends", "short",
+                                 "past_the_tiles", "negative"])
+def test_check_plan_refuses_out_of_bounds_plans(readers, bad):
+    """A plan the kernels would read out of bounds is refused on the host
+    (before its upload) and by the CPU wrapper; the field's own plans
+    pass."""
+    _ref, port = _fields("f32", readers[2])
+    n_tiles = len(port.tile_slots)
+    pos_starts, runs = port.plan_positions(QUERIES)
+    bm25.check_plan(pos_starts, runs, n_tiles)
+    pos_starts, runs = pos_starts.copy(), runs.copy()
+    if bad == "not_from_0":
+        pos_starts[0] = 1
+    elif bad == "descends":
+        pos_starts[2], pos_starts[3] = pos_starts[3], pos_starts[2] - 1
+    elif bad == "short":
+        pos_starts[-1] -= 1
+    elif bad == "past_the_tiles":
+        runs[1, -1] = n_tiles - runs[0, -1] + 1
+    else:
+        runs[0, 0] = -1
+    with pytest.raises(ValueError):
+        bm25.check_plan(pos_starts, runs, n_tiles)
+    with pytest.raises(ValueError):
+        bm25.bm25_board(torch.from_numpy(pos_starts), torch.from_numpy(runs),
+                        torch.ones(len(QUERIES), dtype=torch.int32),
+                        port._device_tile_first(), *port._device_arrays(),
+                        10, port.n_slots)
+
+
+@pytest.mark.parametrize("route", ["device", "host"])
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_window_zero_is_empty_as_in_the_reference(readers, dtype, route):
+    """`rank_window_size: 0` gives every query an empty window on both
+    routes, as the reference's do; the board is not called."""
+    ref, port = _fields(dtype, readers[2])
+    want = ref.search_batch(QUERIES, 0, route=route)
+    assert all(len(rows) == 0 for rows, _ in want)
+    got = port.search_batch(QUERIES, 0, route=route)
+    assert len(got) == len(QUERIES)
+    _same(got, want)
+    for rows, scores in got:
+        assert rows.dtype == np.int64 and scores.dtype == np.float32
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_ranged_board_route_matches_reference(readers, dtype, monkeypatch):
+    """The board route through the ranged plain version at ranges of 64
+    slots, windows past one range and `operator: and`, against the
+    reference's `bm25.topk` program on the CPU: the same rows and f32
+    bits."""
+    ref, port = _fields(dtype, readers[2])
+    monkeypatch.setattr(bm25, "bm25_board", lambda *a, variant=None: (
+        bm25.bm25_board_ranged_reference(*a, range_slots=64)))
+    for required in (None, [len(t) for t, _ in QUERIES], [2, 2, 1, 3, 1, 2]):
+        for window in (10, 150, 1000):
+            _same(port.search_batch(QUERIES, window, required=required),
+                  ref.search_batch(QUERIES, window, required=required,
+                                   route="device"))
 
 
 def test_board_counts_one_launch_set_only_on_cuda(readers):

@@ -787,14 +787,31 @@ def _bm25_field(device, dtype, n_docs, seed):
     return lf
 
 
+def _board_args(field, queries, required, dev):
+    """`bm25_board`'s arguments up to k for a batch, on `dev`."""
+    pos_starts, runs = field.plan_positions(queries)
+    return (torch.from_numpy(pos_starts).to(dev),
+            torch.from_numpy(runs).to(dev),
+            torch.as_tensor(np.asarray(required, dtype=np.int32), device=dev),
+            field._device_tile_first(), *field._device_arrays())
+
+
+def _same_window(got, want):
+    """f32 bits and slots: the finite prefix, then -inf / -1."""
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+    assert bool(((got[1] == -1) == (got[0] == -float("inf"))).all())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("nq", [1, 9, 40])
 def test_bm25_board_matches_plain_version(cuda, dtype, nq):
     """bm25_board on the card against its plain version on the same CUDA
-    tensors, boards bit for bit, with repeated and out-of-vocabulary
-    words, a query with no tile and boosts; then the whole board route
-    against the CPU's, rows and f32 bits, one launch set a batch."""
+    tensors, windows bit for bit at k = 1, 50 and every slot, with
+    repeated and out-of-vocabulary words, a query with no tile, boosts and
+    required 1-3; one call (two launches) a batch; then the whole board
+    route against the CPU's, rows and f32 bits."""
     from elasticsearch_tpu_torch.ops import bm25
     lf = _bm25_field(cuda, dtype, 3000, nq)
     cpu = _bm25_field("cpu", dtype, 3000, nq)
@@ -805,20 +822,13 @@ def test_bm25_board_matches_plain_version(cuda, dtype, nq):
     if nq > 2:
         queries[1][0].append("oov")
         queries[2] = (["oov"], 1.0)
-    items, starts = lf.plan_positions(queries)
-    slots, imp, scales = lf._device_arrays()
-    items_d = torch.from_numpy(items).to(cuda)
-    boards = [[torch.zeros((nq, (1 << 12) + 1), dtype=t, device=cuda)
-               for t in (torch.float32, torch.int32)] for _ in range(2)]
-    before = dispatch.launches().get(bm25.KERNEL, 0)
-    bm25.bm25_board(*boards[0], items_d, starts, slots, imp, scales)
-    assert dispatch.launches().get(bm25.KERNEL, 0) == before + 1
-    bm25.bm25_board_reference(*boards[1], items_d, starts, slots, imp,
-                              scales)
-    assert torch.equal(boards[0][0].view(torch.int32),
-                       boards[1][0].view(torch.int32))
-    assert torch.equal(boards[0][1], boards[1][1])
     required = [1 + i % 3 for i in range(nq)]
+    args = _board_args(lf, queries, required, cuda)
+    for k in (1, 50, lf.n_slots):
+        before = dispatch.launches().get(bm25.KERNEL, 0)
+        got = bm25.bm25_board(*args, k, lf.n_slots)
+        assert dispatch.launches().get(bm25.KERNEL, 0) == before + 1
+        _same_window(got, bm25.bm25_board_reference(*args, k, lf.n_slots))
     got = lf.search_batch(queries, 50, required=required)
     want = cpu.search_batch(queries, 50, required=required)
     for (gr, gs), (wr, ws) in zip(got, want):
@@ -827,22 +837,81 @@ def test_bm25_board_matches_plain_version(cuda, dtype, nq):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("range_slots", [32, 256, 1024])
+def test_bm25_board_small_ranges_match_plain_version(cuda, dtype,
+                                                     range_slots):
+    """Forced small ranges on a small field: terms span many ranges, k runs
+    past a range (so a range's select keeps every match and the merge
+    sorts past shared memory at k = every slot), many tied impacts, and a
+    query of 700 words (past the kernel's 512 positions held at once):
+    the plain version's and the ranged plain version's window."""
+    from elasticsearch_tpu_torch.ops import bm25
+    lf = _bm25_field(cuda, dtype, 3000, 5)
+    rng = np.random.default_rng(range_slots)
+    queries = [([f"w{r}" for r in rng.integers(0, 80, 6)], 1.5),
+               (["w0"], 1.0), (["w1", "w0", "w2"], 0.5),
+               ([f"w{r}" for r in rng.integers(0, 300, 700)], 1.0)]
+    for required in ([1, 1, 1, 1], [2, 1, 3, 40]):
+        args = _board_args(lf, queries, required, cuda)
+        for k in (7, range_slots + 3, lf.n_slots):
+            got = bm25.bm25_board(*args, k, lf.n_slots,
+                                  range_slots=range_slots)
+            want = bm25.bm25_board_reference(*args, k, lf.n_slots)
+            _same_window(got, want)
+            if k < lf.n_slots and range_slots == 1024:
+                _same_window(got, bm25.bm25_board_ranged_reference(
+                    *args, k, lf.n_slots, range_slots=range_slots))
+
+
+@pytest.mark.gpu
 def test_bm25_board_raises_on_bad_inputs(cuda):
     """On CUDA tensors the wrapper launches or raises: it never runs the
     plain version there."""
     from elasticsearch_tpu_torch.ops import bm25
     lf = _bm25_field(cuda, "int8", 500, 3)
-    slots, imp, scales = lf._device_arrays()
-    items, starts = lf.plan_positions([(["w1", "w2"], 1.0)])
-    items_d = torch.from_numpy(items).to(cuda)
-    s = torch.zeros((1, 513), device=cuda)
-    c = torch.zeros((1, 513), dtype=torch.int32, device=cuda)
+    ps, runs, req, first, slots, imp, scales = _board_args(
+        lf, [(["w1", "w2"], 1.0)], [1], cuda)
     with pytest.raises(ValueError, match="tile scales"):
-        bm25.bm25_board(s, c, items_d, starts, slots, imp, None)
+        bm25.bm25_board(ps, runs, req, first, slots, imp, None, 10,
+                        lf.n_slots)
     with pytest.raises(ValueError, match="one CUDA device"):
-        bm25.bm25_board(s, c, items_d.cpu(), starts, slots, imp, scales)
-    with pytest.raises(ValueError, match="starts"):
-        bm25.bm25_board(s, c, items_d, starts[:-1], slots, imp, scales)
+        bm25.bm25_board(ps, runs.cpu(), req, first, slots, imp, scales, 10,
+                        lf.n_slots)
+    with pytest.raises(ValueError, match="shape"):
+        bm25.bm25_board(ps, runs[:2], req, first, slots, imp, scales, 10,
+                        lf.n_slots)
+    with pytest.raises(ValueError, match="k"):
+        bm25.bm25_board(ps, runs, req, first, slots, imp, scales,
+                        lf.n_slots + 1, lf.n_slots)
+    with pytest.raises(ValueError, match="range_slots"):
+        bm25.bm25_board(ps, runs, req, first, slots, imp, scales, 10,
+                        lf.n_slots, range_slots=48)
+    # a plan the kernels would read out of bounds is refused on its host
+    # copy, before the upload
+    host_ps, host_runs = ps.cpu().numpy(), runs.cpu().numpy()
+    bm25.check_plan(host_ps, host_runs, len(lf.tile_slots))
+    for bad_ps, bad_runs in ((host_ps[::-1].copy(), host_runs),
+                             (host_ps + 1, host_runs),
+                             (host_ps, host_runs + [[len(lf.tile_slots)],
+                                                    [0], [0]])):
+        with pytest.raises(ValueError, match="plan|pos_starts"):
+            bm25.check_plan(bad_ps, bad_runs, len(lf.tile_slots))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_bm25_window_zero_is_empty_on_the_card(cuda, dtype):
+    """`rank_window_size: 0` gives every query an empty window on the card
+    as on the host route, and calls no kernel."""
+    from elasticsearch_tpu_torch.ops import bm25, dispatch
+    lf = _bm25_field(cuda, dtype, 500, 3)
+    queries = [(["w1", "w2"], 1.0), (["w0"], 2.0)]
+    before = dispatch.launches().get(bm25.KERNEL, 0)
+    for route in ("device", "host"):
+        out = lf.search_batch(queries, 0, route=route)
+        assert [(len(r), len(s)) for r, s in out] == [(0, 0), (0, 0)]
+    assert dispatch.launches().get(bm25.KERNEL, 0) == before
 
 
 def _sparse_field(device, dtype, n_docs, seed):
@@ -878,10 +947,10 @@ def _sparse_field(device, dtype, n_docs, seed):
 @pytest.mark.parametrize("nq", [1, 9, 40])
 def test_bm25_board_sparse_layout_matches_plain_version(cuda, dtype, nq):
     """bm25_board on the learned-sparse layout (20-120 tokens a query and
-    one of 300: as many launches a set as the widest query has tokens in
-    the vocabulary, every item its token's own boost) against its plain
-    version on the same CUDA tensors, bit for bit, counted under the
-    `sparse` variant; then the whole board route against the CPU's."""
+    one of 300, every entry its token's own boost) against its plain
+    version on the same CUDA tensors, windows bit for bit, one call a
+    batch counted under the `sparse` variant; then the whole board route
+    against the CPU's."""
     from elasticsearch_tpu_torch.ops import bm25, sparse
     sf = _sparse_field(cuda, dtype, 4000, nq)
     cpu = _sparse_field("cpu", dtype, 4000, nq)
@@ -891,23 +960,13 @@ def test_bm25_board_sparse_layout_matches_plain_version(cuda, dtype, nq):
                             replace=False)}, 1.0 + 0.5 * (i % 3))
                for i in range(nq)]
     queries[-1] = ({f"t{t}": 1.0 for t in range(300)}, 0.75)
-    items, starts = sf.plan_positions(queries)
-    assert len(starts) - 1 == max(sum(t in sf.term_tiles for t in q)
-                                  for q, _b in queries)
-    slots, imp, scales = sf._device_arrays()
-    items_d = torch.from_numpy(items).to(cuda)
-    boards = [[torch.zeros((nq, (1 << 12) + 1), dtype=t, device=cuda)
-               for t in (torch.float32, torch.int32)] for _ in range(2)]
+    args = _board_args(sf, queries, [1] * nq, cuda)
     key = f"{bm25.KERNEL}/{sparse.VARIANT}"
-    before = dispatch.variant_launches().get(key, 0)
-    bm25.bm25_board(*boards[0], items_d, starts, slots, imp, scales,
-                    variant=sparse.VARIANT)
-    assert dispatch.variant_launches().get(key, 0) == before + 1
-    bm25.bm25_board_reference(*boards[1], items_d, starts, slots, imp,
-                              scales)
-    assert torch.equal(boards[0][0].view(torch.int32),
-                       boards[1][0].view(torch.int32))
-    assert torch.equal(boards[0][1], boards[1][1])
+    for k in (100, 1000):
+        before = dispatch.variant_launches().get(key, 0)
+        got = bm25.bm25_board(*args, k, sf.n_slots, variant=sparse.VARIANT)
+        assert dispatch.variant_launches().get(key, 0) == before + 1
+        _same_window(got, bm25.bm25_board_reference(*args, k, sf.n_slots))
     before = dispatch.variant_launches().get(key, 0)
     got = sf.search_batch(queries, 100)
     assert dispatch.variant_launches().get(key, 0) == before + 1
@@ -920,9 +979,9 @@ def test_bm25_board_sparse_layout_matches_plain_version(cuda, dtype, nq):
 def test_sparse_hybrid_body_on_cuda_launches_the_board(cuda):
     """`rank: {rrf}` bodies with `sparse_vector` and `weighted_tokens`
     sub-searches (40, 120 and 300 tokens), on a CUDA node and a CPU node
-    loaded alike: one sparse board launch set a request on the card (the
-    two legs of a body share it), and the CPU node's hits; beside a `knn`
-    leg, one set too."""
+    loaded alike: one sparse board call a request on the card (the two
+    legs of a body share it), and the CPU node's hits; beside a `knn` leg,
+    one call too."""
     from elasticsearch_tpu_torch.node import Node
     from elasticsearch_tpu_torch.ops import bm25, sparse
     rng = np.random.default_rng(9)

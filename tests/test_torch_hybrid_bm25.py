@@ -224,8 +224,8 @@ def test_concurrent_bodies_share_one_board_a_text_field(nodes, monkeypatch):
     want = [port_req("POST", "/hb/_search", b)[1] for b in bodies]
     boards = []
     board = bm25.bm25_board
-    monkeypatch.setattr(bm25, "bm25_board", lambda s, *a, **k: (
-        boards.append(s.shape[0]), board(s, *a, **k)))
+    monkeypatch.setattr(bm25, "bm25_board", lambda ps, *a, **k: (
+        boards.append(ps.shape[0] - 1), board(ps, *a, **k))[1])
     ex = port._hybrid_executor(port.index("hb"))
     batches = ex.stats["batches"]
     got = _concurrently(port, [

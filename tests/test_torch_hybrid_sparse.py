@@ -229,13 +229,14 @@ def test_sparse_legs_take_the_board_at_any_width(nodes, monkeypatch):
     _ref_req, port_req, _port, emb = nodes
     seen = []
     board = bm25.bm25_board
-    monkeypatch.setattr(bm25, "bm25_board", lambda s, *a, **k: (
-        seen.append((s.shape[0], k.get("variant"))), board(s, *a, **k)))
-    # (case, the boards' query rows and variants): a body's two sparse
-    # legs on one field share one board
+    monkeypatch.setattr(bm25, "bm25_board", lambda ps, *a, **k: (
+        seen.append((ps.shape[0] - 1, k.get("variant"))),
+        board(ps, *a, **k))[1])
+    # (case, the boards' queries and variants): a body's two sparse legs
+    # on one field share one board
     for case, boards in (
             ("wide_300", [(1, sparse.VARIANT)]),
-            ("two_sparse_and_match", [(1, None), (8, sparse.VARIANT)]),
+            ("two_sparse_and_match", [(1, None), (2, sparse.VARIANT)]),
             ("text_field_is_generic", []), ("empty_map", [])):
         seen.clear()
         status, _resp = port_req("POST", "/sp/_search", HYBRID[case](emb))
@@ -393,8 +394,8 @@ def test_concurrent_bodies_share_one_board_a_feature_field(nodes,
     want = [port_req("POST", "/sp/_search", b)[1] for b in bodies]
     boards = []
     board = bm25.bm25_board
-    monkeypatch.setattr(bm25, "bm25_board", lambda s, *a, **k: (
-        boards.append(s.shape[0]), board(s, *a, **k)))
+    monkeypatch.setattr(bm25, "bm25_board", lambda ps, *a, **k: (
+        boards.append(ps.shape[0] - 1), board(ps, *a, **k))[1])
     ex = port._hybrid_executor(port.index("sp"))
     batches = ex.stats["batches"]
     got = _concurrently(port, "sp", [

@@ -151,9 +151,10 @@ class _FakeLib:
     # variant, cpb, smem, stream)
     maxsim_dense = _arity(16)
     maxsim_int4 = _arity(15)
-    # (scores, counts, w1, items, n_items, starts, n_pos, tile_slots,
-    # tile_impacts, tile_scales, dtype, stream)
-    bm25_board = _arity(12)
+    # (pos_starts, runs, n_runs, required, nq, tile_first, tile_slots,
+    # tile_impacts, tile_scales, dtype, n_slots, range_slots, k, cand,
+    # sort_in_smem, sort_scratch, vals, slots, stream)
+    bm25_board = _arity(19)
 
     def cuda_error_string(self, code):
         return b"an injected launch failure"
@@ -198,11 +199,10 @@ def test_cuda_wrappers_launch_or_raise_never_plain(monkeypatch, code):
 @pytest.mark.parametrize("code", [0, 1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 def test_bm25_board_launches_or_raises_never_plain(monkeypatch, code, dtype):
-    """On CUDA tensors `bm25_board` calls its C entry once for the launch
-    set (counted once) or raises its error, and never runs the plain
-    version; bad inputs raise before any launch."""
-    import numpy as np
-
+    """On CUDA tensors `bm25_board` calls its C entry once a batch (its two
+    kernels, counted once) with `launch_plan`'s ranges, or raises its
+    error, and never runs a plain version; bad inputs raise before any
+    launch."""
     from elasticsearch_tpu_torch.ops import bm25
 
     def no_plain(*a, **k):
@@ -210,54 +210,70 @@ def test_bm25_board_launches_or_raises_never_plain(monkeypatch, code, dtype):
 
     lib = _FakeLib(code)
     monkeypatch.setattr(bm25, "bm25_board_reference", no_plain)
+    monkeypatch.setattr(bm25, "bm25_board_ranged_reference", no_plain)
     monkeypatch.setattr(bm25, "_lib", lambda: lib)
+    monkeypatch.setattr(bm25.torch, "empty",
+                        lambda shape, dtype, device: _FakeCuda(shape, dtype))
     monkeypatch.setattr(bm25.torch.cuda, "current_stream",
                         lambda device=None: type("S", (), {"cuda_stream": 0}))
-    boards = (_FakeCuda((8, 1025), torch.float32),
-              _FakeCuda((8, 1025), torch.int32))
-    items = _FakeCuda((3, 40), torch.int32)
-    starts = np.array([0, 30, 40], dtype=np.int32)
-    tiles = (_FakeCuda((12, 128), torch.int32), _FakeCuda((12, 128), dtype))
+    sms = {0: 132}       # the card's SM count, as the wrapper reads it
+    monkeypatch.setattr(bm25, "_sm_count", lambda index: sms[index])
+    plan = (_FakeCuda((9,), torch.int32), _FakeCuda((3, 40), torch.int32),
+            _FakeCuda((8,), torch.int32))
+    tiles = (_FakeCuda((12,), torch.int32), _FakeCuda((12, 128), torch.int32),
+             _FakeCuda((12, 128), dtype))
     scales = _FakeCuda((12,), torch.float32) if dtype == torch.int8 \
         else None
     before = dispatch.launches().get(bm25.KERNEL, 0)
     if code:
         with pytest.raises(RuntimeError, match="injected launch failure"):
-            bm25.bm25_board(*boards, items, starts, *tiles, scales)
+            bm25.bm25_board(*plan, *tiles, scales, 100, 5000)
         assert dispatch.launches().get(bm25.KERNEL, 0) == before
     else:
-        bm25.bm25_board(*boards, items, starts, *tiles, scales)
+        vals, slots = bm25.bm25_board(*plan, *tiles, scales, 100, 5000)
+        assert (vals.shape, vals.dtype, slots.shape, slots.dtype) \
+            == ((8, 100), torch.float32, (8, 100), torch.int32)
         assert dispatch.launches().get(bm25.KERNEL, 0) == before + 1
-        assert lib.last[2] == 1025 and lib.last[4] == 40 \
-            and lib.last[6] == 2
+        # (.., n_runs, .., nq, .., n_slots, range_slots, k, ..)
+        assert (lib.last[2], lib.last[4], lib.last[10], lib.last[11],
+                lib.last[12]) == (40, 8, 5000, 1024, 100)
     # the learned-sparse layout's call, counted under its variant too
     key = f"{bm25.KERNEL}/sparse"
     sparse_before = dispatch.variant_launches().get(key, 0)
     if code:
         with pytest.raises(RuntimeError, match="injected launch failure"):
-            bm25.bm25_board(*boards, items, starts, *tiles, scales,
-                            variant="sparse")
+            bm25.bm25_board(*plan, *tiles, scales, 100, 5000,
+                            variant="sparse", range_slots=256)
     else:
-        bm25.bm25_board(*boards, items, starts, *tiles, scales,
-                        variant="sparse")
+        bm25.bm25_board(*plan, *tiles, scales, 100, 5000, variant="sparse",
+                        range_slots=256)
         assert dispatch.launches().get(bm25.KERNEL, 0) == before + 2
+        assert lib.last[11] == 256
     assert dispatch.variant_launches().get(key, 0) \
         == sparse_before + (0 if code else 1)
     assert lib.calls == 2
     for bad, match in (
-            ((boards[0], torch.zeros(8, 1025, dtype=torch.int32)),
+            ((plan[0], plan[1], torch.ones(8, dtype=torch.int32)),
              "one CUDA device"),
-            ((boards[0], _FakeCuda((8, 1025), torch.float32)), "boards"),
-            ((_FakeCuda((8, 1024), torch.float32), boards[1]), "shape")):
+            ((plan[0], _FakeCuda((3, 40), torch.int64), plan[2]), "int32"),
+            ((plan[0], plan[1], _FakeCuda((7,), torch.int32)), "shape")):
         with pytest.raises((ValueError, TypeError), match=match):
-            bm25.bm25_board(*bad, items, starts, *tiles, scales)
-    with pytest.raises(ValueError, match="starts"):
-        bm25.bm25_board(*boards, items, starts[:2], *tiles, scales)
+            bm25.bm25_board(*bad, *tiles, scales, 100, 5000)
+    with pytest.raises(ValueError, match="k"):
+        bm25.bm25_board(*plan, *tiles, scales, 5001, 5000)
     with pytest.raises(ValueError, match="scales"):
-        bm25.bm25_board(*boards, items, starts, *tiles,
+        bm25.bm25_board(*plan, *tiles,
                         None if scales is not None
-                        else _FakeCuda((12,), torch.float32))
+                        else _FakeCuda((12,), torch.float32), 100, 5000)
+    with pytest.raises(ValueError, match="range_slots"):
+        bm25.bm25_board(*plan, *tiles, scales, 100, 5000, range_slots=100)
     assert lib.calls == 2
+    if not code:
+        # R follows the card's SM count: 8 SMs are filled by one range a
+        # query, so R covers the field
+        sms[0] = 8
+        bm25.bm25_board(*plan, *tiles, scales, 100, 5000)
+        assert lib.last[11] == 5024
 
 
 def test_cuda_wrapper_rejects_bad_shapes_and_mixed_devices():

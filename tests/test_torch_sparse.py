@@ -321,28 +321,70 @@ def test_append_and_update_refreshes_rebuild_as_the_reference():
 
 
 def test_plan_positions_carry_each_tokens_boost(readers):
-    """Position j holds each query's j-th in-vocabulary token, every item
-    with its token's f32(f32(weight) * f32(boost)) bits: the host twin's
-    tiles and boosts, regrouped."""
+    """Query q's plan entries are its in-vocabulary tokens in the map's
+    order, each with its token's f32(f32(weight) * f32(boost)) bits: the
+    host twin's tiles and boosts, one entry a token."""
     _ref, port = _fields("f32", readers[2])
     tile_ids, boosts, _m = port.plan_queries(QUERIES)
-    items, starts = port.plan_positions(QUERIES)
-    assert starts[0] == 0 and starts[-1] == items.shape[1]
-    in_vocab = [[t for t in q if t in port.term_tiles] for q, _b in QUERIES]
-    assert len(starts) - 1 == max(map(len, in_vocab))
+    pos_starts, runs = port.plan_positions(QUERIES)
+    assert pos_starts[0] == 0 and pos_starts[-1] == runs.shape[1]
     for qi, (tokens, boost) in enumerate(QUERIES):
-        mine = items[:, items[0] == qi]
+        mine = runs[:, pos_starts[qi]:pos_starts[qi + 1]]
+        in_vocab = [t for t in tokens if t in port.term_tiles]
+        assert [tuple(e) for e in mine[:2].T.tolist()] \
+            == [port.term_tiles[t] for t in in_vocab]
         want = tile_ids[qi][tile_ids[qi] >= 0]
-        assert mine[1].tolist() == want.tolist()
-        assert np.array_equal(mine[2].view(np.float32),
+        assert [t for f, n in mine[:2].T.tolist()
+                for t in range(f, f + n)] == want.tolist()
+        assert np.array_equal(np.repeat(mine[2].view(np.float32), mine[1]),
                               boosts[qi][:len(want)])
-        for j, t in enumerate(in_vocab[qi]):
-            at = items[:, starts[j]:starts[j + 1]]
-            first, nt = port.term_tiles[t]
-            mine = at[:, at[0] == qi]
-            assert mine[1].tolist() == list(range(first, first + nt))
+        for j, t in enumerate(in_vocab):
             b = np.float32(np.float32(tokens[t]) * np.float32(boost))
-            assert (mine[2] == b.view(np.int32)).all()
+            assert mine[2, j] == b.view(np.int32)
+
+
+@pytest.mark.parametrize("field", ["feats", "legacy"])
+def test_sparse_tile_first_is_lane_0_and_ascends(readers, field):
+    _ref, port = _fields("int8", readers[2], field)
+    assert np.array_equal(port.tile_first, port.tile_slots[:, 0])
+    for first, nt in port.term_tiles.values():
+        run = port.tile_first[first:first + nt]
+        assert (run >= 0).all() and (np.diff(run) > 0).all()
+
+
+@pytest.mark.parametrize("range_slots", [32, 160])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_sparse_ranged_plain_version_is_the_plain_version(readers, dtype,
+                                                          range_slots):
+    """On the learned-sparse layout (a boost a token, up to 250 tokens a
+    query) the kernels' range decomposition in plain PyTorch gives the
+    plain version's window, bit for bit, k past one range."""
+    _ref, port = _fields(dtype, readers[2])
+    pos_starts, runs = port.plan_positions(QUERIES)
+    args = (torch.from_numpy(pos_starts), torch.from_numpy(runs),
+            torch.ones(len(QUERIES), dtype=torch.int32),
+            port._device_tile_first(), *port._device_arrays())
+    for k in (10, 2 * range_slots + 1):
+        want = bm25.bm25_board_reference(*args, k, port.n_slots)
+        got = bm25.bm25_board_ranged_reference(*args, k, port.n_slots,
+                                               range_slots=range_slots)
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32))
+        assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_sparse_ranged_board_route_matches_reference(readers, dtype,
+                                                     monkeypatch):
+    """The sparse board route through the ranged plain version (ranges of
+    64 slots, windows past one range) against the reference's
+    `sparse.topk` program on the CPU: the same rows and f32 bits."""
+    ref, port = _fields(dtype, readers[2])
+    monkeypatch.setattr(bm25, "bm25_board", lambda *a, variant=None: (
+        bm25.bm25_board_ranged_reference(*a, range_slots=64)))
+    for window in (10, 300):
+        _same(port.search_batch(QUERIES, window),
+              ref.search_batch(QUERIES, window, route="device"))
 
 
 def test_board_counts_no_launch_on_the_cpu(readers, monkeypatch):
@@ -353,7 +395,7 @@ def test_board_counts_no_launch_on_the_cpu(readers, monkeypatch):
     seen = []
     board = bm25.bm25_board
     monkeypatch.setattr(bm25, "bm25_board", lambda *a, **k: (
-        seen.append(k.get("variant")), board(*a, **k)))
+        seen.append(k.get("variant")), board(*a, **k))[1])
     dispatch.reset_launches()
     port.search_batch(QUERIES, 10)
     assert seen == [sparse.VARIANT]
