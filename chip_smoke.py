@@ -101,7 +101,16 @@ Phases, one line each; any failure raises and the exit code is not 0:
                mask, Q = 1 and 32) timed beside its bound and one bf16
                `torch.mm`, and the card's peak memory over a filtered batch
                of 32; serve_concurrent at C = 1 and 8 over a mix of the
-               filters and unfiltered bodies
+               filters and unfiltered bodies. The node query cache (a
+               `bool`'s `filter` clauses) is on throughout, so the
+               `filter=` lines' p50 and the concurrent mix time those
+               clauses warm. A `cache` line a filter: the first 16
+               queries cold (`_cache/clear` before each, untimed) against
+               the same 16 as they came in the warm pass, HTTP p50, the
+               filter's host time uncached and cached on one reader and
+               its share of the p50, the cache's hits and misses over the
+               64 (each cached clause missing at most once, the cached
+               filter faster)
   serve_hybrid  BASELINE config 3, hybrid BM25 + kNN by RRF: one shard
                of MS MARCO-shaped passages (a Zipf vocabulary of 200,000
                words, 20-92 words a passage, cut from 8,841,823 to
@@ -113,7 +122,11 @@ Phases, one line each; any failure raises and the exit code is not 0:
                hybrid response (both body forms, `operator: and`, a
                generic `range` leg, text that analyzes to nothing) equal
                to host RRF of its legs, one `bm25_board` call a request
-               and at C = 1 and 8 one a batch
+               and at C = 1 and 8 one a batch; then a repeat pass with the
+               device rung of the request cache on: 64 cold requests (64
+               misses, a board and a binned launch each), then the same 64
+               warm (64 hits, no launch, no board kernel, the cold
+               response but `took` 0), its `cache` line giving both p50s
   serve_sparse  learned-sparse retrieval: MS MARCO passage expanded by a
                BERT-wordpiece learned-sparse model (SPLADE, ELSER; 30,522
                token ids, 64-256 tokens a passage, Zipf popularity), cut
@@ -130,7 +143,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
                C = 1 and 8 one a batch; then the plain `query:
                {sparse_vector}` host walker on an index of the first
                50,000 passages, byte-identical to the board's window there
-Each IVF index answers one warm-up search first (the `nprobe: auto` tuner
+Every serve phase's node runs with `search.request_cache.device_paths`
+false (SERVE_SETTINGS): they send bodies more than once, and each must
+reach the card. Each IVF index answers one warm-up search first (the `nprobe: auto` tuner
 runs there), then the timed requests; every request must take the fused
 route with no exhaustive fallback, every `ivf_fused_dense` and
 `ivf_fused_int4` launch its grouped variant. Then one `store.search_many`
@@ -1198,6 +1213,12 @@ def _expect_served_variant(kernel, variants, n: int) -> None:
 
 
 CONCURRENT_REQUESTS = 256
+# the serve phases measure the device path, and most send a body more than
+# once (serve_concurrent's levels reuse their bodies): their nodes run with
+# the device rung of the request cache off, so every request reaches the
+# card; serve_hybrid turns it on for its repeat pass
+SERVE_SETTINGS = {"search.request_cache.device_paths": "false"}
+COLD_REQUESTS = 16      # serve_filtered's cold requests a filter
 # connections of an open-loop level: enough that a request finds one free
 OPEN_LOOP_CLIENTS = 64
 
@@ -1451,7 +1472,8 @@ def phase_serve(seed: int, n_sift: int, n_cohere: int,
                 device: str = "cuda") -> dict:
     from elasticsearch_tpu_torch.ops import knn_binned as kb
     from elasticsearch_tpu_torch.server import build_server
-    node, server = build_server(device=device, port=0)
+    node, server = build_server(device=device, port=0,
+                                settings=SERVE_SETTINGS)
     server.start()
     total = {kb.KERNEL_BF16: 0, kb.KERNEL_INT8: 0}
     try:
@@ -1666,7 +1688,8 @@ def phase_serve_ivf(seed: int, n_gist: int, n_cohere: int,
     one-shard `int8_ivf` index's p50s and recalls go into `report`."""
     from elasticsearch_tpu_torch.ops import ivf_fused as fused
     from elasticsearch_tpu_torch.server import build_server
-    node, server = build_server(device=device, port=0)
+    node, server = build_server(device=device, port=0,
+                                settings=SERVE_SETTINGS)
     server.start()
     timer = IvfBuildTimer()
     total = {fused.KERNEL_DENSE: 0, fused.KERNEL_INT4: 0}
@@ -2080,7 +2103,8 @@ def phase_serve_colbert(seed: int, n: int, device: str = "cuda") -> dict:
     top = exact_maxsim_top(data[0], data[1], data[3], 10, dev)
     log("serve_colbert", data_s=f"{time.perf_counter() - t0:.2f}",
         docs=n, tokens=len(data[0]))
-    node, server = build_server(device=device, port=0)
+    node, server = build_server(device=device, port=0,
+                                settings=SERVE_SETTINGS)
     server.start()
     total = {kb.KERNEL_BF16: 0, maxsim.KERNEL_DENSE: 0, maxsim.KERNEL_INT4: 0}
     try:
@@ -2235,6 +2259,67 @@ def exact_route_row(store, fc, masks, queries, dev) -> dict:
     return out
 
 
+def filter_cache_line(client, node, svc, store, name, filt, queries,
+                      warm_lat, got, got_scores, qc_hits, qc_misses) -> None:
+    """serve_filtered's `cache` line for one filter: the node query cache
+    caches each clause of a `bool`'s `filter` list (not its `must_not`,
+    not a top-level filter). Warm: the phase's requests of the filter as
+    they came (the first one fills the cache; a clause an earlier filter
+    shares is already there); each cached clause must have missed at most
+    once and hit on every other request. Cold: the first COLD_REQUESTS
+    queries again, `_cache/clear` (untimed) before each, each answer equal
+    to its warm one; both p50s are over those COLD_REQUESTS queries. The
+    filter's host evaluation on the combined reader the requests search,
+    uncached and through the node's cache, and its share of each p50, on
+    the host's clock."""
+    from elasticsearch_tpu_torch.search.queries import (
+        SearchContext, parse_query)
+    clauses = len(filt["bool"].get("filter", [])) if "bool" in filt else 0
+    if qc_hits + qc_misses != len(queries) * clauses \
+            or qc_misses > clauses:
+        raise AssertionError(f"serve_filtered {name}: query cache "
+                             f"{qc_hits} hits, {qc_misses} misses over "
+                             f"{len(queries)} requests of {clauses} cached "
+                             f"clauses")
+    cold_lat = []
+    for qi, qv in enumerate(queries[:COLD_REQUESTS]):
+        node.clear_cache(svc.name)
+        t = time.perf_counter()
+        resp = client.ok("POST", f"/{svc.name}/_search",
+                         laion_body(qv, filt))
+        cold_lat.append((time.perf_counter() - t) * 1e3)
+        if _hits(resp) != (got[qi], got_scores[qi]):
+            raise AssertionError(f"serve_filtered {name} cold request "
+                                 f"{qi}: {_hits(resp)} against the warm "
+                                 f"{got[qi]} {got_scores[qi]}")
+    reader = svc.combined_reader()
+    filter_lat = {}
+    for label, cache in (("cold", None), ("warm", node.caches.query)):
+        ctx = SearchContext(reader, svc.mapper_service, store, svc.settings,
+                            query_cache=cache)
+        parse_query(filt).execute(ctx)       # fill the cache
+        filter_lat[label] = []
+        for _ in range(5):
+            t = time.perf_counter()
+            parse_query(filt).execute(ctx)
+            filter_lat[label].append((time.perf_counter() - t) * 1e3)
+    warm_lat = warm_lat[:COLD_REQUESTS]
+    cold_p50, warm_p50 = (statistics.median(cold_lat),
+                          statistics.median(warm_lat))
+    cold_f, warm_f = (statistics.median(filter_lat["cold"]),
+                      statistics.median(filter_lat["warm"]))
+    if clauses and not warm_f < cold_f:
+        raise AssertionError(f"serve_filtered {name}: the cached filter "
+                             f"took {warm_f:.3f} ms, uncached {cold_f:.3f}")
+    log("serve_filtered", cache=name, cached_clauses=clauses,
+        cold_requests=len(cold_lat), warm_requests=len(warm_lat),
+        cold_p50_ms=f"{cold_p50:.3f}", warm_p50_ms=f"{warm_p50:.3f}",
+        cold_filter_ms=f"{cold_f:.3f}", warm_filter_ms=f"{warm_f:.3f}",
+        cold_filter_share=f"{cold_f / cold_p50:.3f}",
+        warm_filter_share=f"{warm_f / warm_p50:.3f}",
+        query_cache_hits=qc_hits, query_cache_misses=qc_misses)
+
+
 def phase_serve_filtered(seed: int, n: int, device: str = "cuda") -> dict:
     """serve_filtered: BASELINE config 5 (filtered kNN, LAION 512-d CLIP
     embeddings), cut from 5M to `n` (1M) rows for host memory and the
@@ -2247,11 +2332,13 @@ def phase_serve_filtered(seed: int, n: int, device: str = "cuda") -> dict:
     k: 10}` requests over HTTP: recall@10 >= 0.95 against exact f32 numpy
     over the rows the filter lets through; every hit inside the filter
     (checked on the generated columns); hits and total min(k, passing
-    rows); no binned launch. Logged a filter: HTTP p50, store p50, the
-    filter's host evaluation, the mask build, and the exact route on the
-    card (CUDA events). Then 64 unfiltered requests (the batch-1 answers
-    of what follows), 16 `knn` + `query: {term: {nsfw: NSFW}}` and 16
-    two-element `knn` lists, each equal to the should-sum of its legs
+    rows); no binned launch. Logged a filter: HTTP p50 (with the node
+    query cache on, so a `bool`'s `filter` clauses run warm after the
+    first request), store p50, the filter's host evaluation (no cache),
+    the mask build, and the exact route on the card (CUDA events); then
+    its `cache` line (`filter_cache_line`). Then 64 unfiltered requests
+    (the batch-1 answers of what follows), 16 `knn` + `query: {term:
+    {nsfw: NSFW}}` and 16 two-element `knn` lists, each equal to the should-sum of its legs
     recomputed on the host and launching the bf16 binned kernel once a
     leg; the exact route's kernel row (`exact_route_row`); and
     serve_concurrent at C = 1 and 8 over a mix of the filters and
@@ -2275,7 +2362,8 @@ def phase_serve_filtered(seed: int, n: int, device: str = "cuda") -> dict:
     cols = laion_columns(seed, n)
     sources = [laion_source(cols, i) for i in range(n)]
     log("serve_filtered", data_s=f"{time.perf_counter() - t0:.2f}", docs=n)
-    node, server = build_server(device=device, port=0)
+    node, server = build_server(device=device, port=0,
+                                settings=SERVE_SETTINGS)
     server.start()
     total = {kb.KERNEL_BF16: 0}
     try:
@@ -2329,6 +2417,7 @@ def phase_serve_filtered(seed: int, n: int, device: str = "cuda") -> dict:
             expect = min(10, len(rows))
             dispatch.reset_launches()
             stats0 = dict(store.knn_stats)
+            qc0 = (node.caches.query.hits, node.caches.query.misses)
             lat, got, got_scores = [], [], []
             for qv in queries:
                 t = time.perf_counter()
@@ -2347,6 +2436,8 @@ def phase_serve_filtered(seed: int, n: int, device: str = "cuda") -> dict:
                                          f"{ids} outside the filter")
                 got.append(ids)
                 got_scores.append(scores)
+            qc_hits = node.caches.query.hits - qc0[0]
+            qc_misses = node.caches.query.misses - qc0[1]
             launched = {k: c for k, c in dispatch.launches().items() if c}
             if launched:
                 raise AssertionError(f"serve_filtered {name}: filtered "
@@ -2388,6 +2479,8 @@ def phase_serve_filtered(seed: int, n: int, device: str = "cuda") -> dict:
                 mask_ms=f"{statistics.median(mask_lat):.3f}",
                 exact_route_ms=f"{route_ms:.3f}", recall_at_10=recall,
                 store_searches=exact_n, binned_launches=0)
+            filter_cache_line(client, node, svc, store, name, filt, queries,
+                              lat, got, got_scores, qc_hits, qc_misses)
 
         # unfiltered: the batch-1 answers the combinations and the
         # concurrent levels are held to; one binned launch a request
@@ -2598,7 +2691,8 @@ def phase_serve_sharded(seed: int, n: int, device: str = "cuda",
     dev = torch.device(device)
     name, kernel = "cohere8", fused.KERNEL_DENSE
     card = json.dumps(smi)
-    node, server = build_server(device=device, port=0)
+    node, server = build_server(device=device, port=0,
+                                settings=SERVE_SETTINGS)
     server.start()
     timer = IvfBuildTimer()
     total = {kernel: 0}
@@ -3386,7 +3480,8 @@ def phase_serve_hybrid(seed: int, n: int, device: str = "cuda") -> dict:
     rng = np.random.default_rng(seed + 9)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    node, server = build_server(device=device, port=0)
+    node, server = build_server(device=device, port=0,
+                                settings=SERVE_SETTINGS)
     server.start()
     total = {bm25.KERNEL: 0, kb.KERNEL_BF16: 0}
     try:
@@ -3652,10 +3747,74 @@ def phase_serve_hybrid(seed: int, n: int, device: str = "cuda") -> dict:
             total[key] = total.get(key, 0) + c
         log("serve_hybrid", concurrent_batches=batches,
             bm25_calls=conc.get(bm25.KERNEL, 0))
+        for key, c in hybrid_repeat_pass(client, node, name, bodies,
+                                         responses, device).items():
+            total[key] += c
         drop_index(node, name)
     finally:
         server.stop()
     return total
+
+
+def hybrid_repeat_pass(client, node, name: str, bodies, responses,
+                       device: str) -> dict:
+    """serve_hybrid's repeat pass, with the node's device rung of the
+    request cache turned on: a cold pass over the bodies (each a miss
+    that runs the path, one `bm25_board` and one binned launch a body,
+    and stores its answer; its hits those of the phase's first pass),
+    then a warm one (each a device-rung hit: no `bm25_board` and no
+    binned launch, no board kernel, `took` 0, the cold response
+    otherwise). Returns the cold pass's launches."""
+    from elasticsearch_tpu_torch.ops import bm25, dispatch
+    from elasticsearch_tpu_torch.ops import knn_binned as kb
+    cache = node.caches.device_request
+    node.settings["search.request_cache.device_paths"] = "true"
+    passes = {}
+    try:
+        for label in ("cold", "warm"):
+            hits0, misses0 = cache.hits, cache.misses
+            dispatch.reset_launches()
+            kernels0 = bm25.kernel_launches() if device == "cuda" else 0
+            lat, out = [], []
+            for body in bodies:
+                t = time.perf_counter()
+                out.append(client.ok("POST", f"/{name}/_search", body))
+                lat.append((time.perf_counter() - t) * 1e3)
+            passes[label] = dict(
+                lat=lat, out=out,
+                launches={k: c for k, c in dispatch.launches().items() if c},
+                hits=cache.hits - hits0, misses=cache.misses - misses0,
+                board_kernels=(bm25.kernel_launches() - kernels0
+                               if device == "cuda" else 0))
+    finally:
+        node.settings["search.request_cache.device_paths"] = "false"
+    cold, warm = passes["cold"], passes["warm"]
+    n = len(bodies)
+    if (cold["hits"], cold["misses"]) != (0, n) or cold["launches"] != {
+            bm25.KERNEL: n, kb.KERNEL_BF16: n}:
+        raise AssertionError(f"serve_hybrid cold pass: {cold['hits']} hits, "
+                             f"{cold['misses']} misses, launches "
+                             f"{cold['launches']}")
+    if (warm["hits"], warm["misses"]) != (n, 0) or warm["launches"] \
+            or warm["board_kernels"]:
+        raise AssertionError(f"serve_hybrid warm pass: {warm['hits']} hits, "
+                             f"{warm['misses']} misses, launches "
+                             f"{warm['launches']}, board kernels "
+                             f"{warm['board_kernels']}")
+    for i, (a, b) in enumerate(zip(cold["out"], warm["out"])):
+        if a["hits"] != responses[i] or b["took"] != 0 or {
+                k: v for k, v in a.items() if k != "took"} != {
+                k: v for k, v in b.items() if k != "took"}:
+            raise AssertionError(f"serve_hybrid repeat pass body {i}: the "
+                                 f"cached response differs")
+    log("serve_hybrid", cache="device_request", requests=n,
+        cold_p50_ms=f"{statistics.median(cold['lat']):.3f}",
+        warm_p50_ms=f"{statistics.median(warm['lat']):.3f}",
+        device_request_hits=warm["hits"],
+        device_request_misses=cold["misses"],
+        warm_launches=json.dumps(warm["launches"]),
+        warm_board_kernels=warm["board_kernels"])
+    return cold["launches"]
 
 
 def sparse_chunks(seed: int, n: int, dev):
@@ -3739,7 +3898,8 @@ def phase_serve_sparse(seed: int, n: int, n_walker: int = N_SPARSE_WALKER,
     rng = np.random.default_rng(seed + 12)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    node, server = build_server(device=device, port=0)
+    node, server = build_server(device=device, port=0,
+                                settings=SERVE_SETTINGS)
     server.start()
     total = {bm25.KERNEL: 0, kb.KERNEL_BF16: 0}
     sparse_key = f"{bm25.KERNEL}/{sparse.VARIANT}"

@@ -30,6 +30,7 @@ learned-sparse layout (`ops/sparse.py`) and the `sparse_vector` walker
 from __future__ import annotations
 
 import bisect
+import itertools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -321,12 +322,18 @@ class SegmentView:
         self.all_live = not deleted
 
 
+_reader_gen = itertools.count(1)
+
+
 class ShardReader:
-    """Point-in-time view over sealed segments (an IndexSearcher analog)."""
+    """Point-in-time view over sealed segments (an IndexSearcher analog).
+    `gen` names the view, process-wide: the node query cache keys on it,
+    so a refresh that made a new reader misses."""
 
     def __init__(self, views: List[SegmentView]):
         self.views = views
         self._bases = [v.segment.base for v in views]
+        self.gen = next(_reader_gen)
 
     @property
     def num_docs(self) -> int:

@@ -195,7 +195,8 @@ class IndexService:
         """A reader over every shard, each shard's segments copied at
         `base + shard_id * SHARD_ROW_SPACE`. Memoized on the shards'
         readers: searches between refreshes share one reader (and the
-        per-reader caches on it). `shard_readers` names the shard readers
+        per-reader caches on it), and so one `gen`, which keys the node
+        query cache until a refresh changes a shard's reader. `shard_readers` names the shard readers
         it was made from, so a store serves each shard from the snapshot
         the search's filters ran on."""
         readers = tuple(s.engine.acquire_searcher() for s in self.shards)

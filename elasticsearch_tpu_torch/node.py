@@ -7,11 +7,23 @@ and / or a `query` of the ported kinds (filters and BM25 text queries)
 over every shard, and hybrid `rank: {rrf}` searches (one `HybridExecutor`
 per index, whose BM25 and late-interaction stores read the index's
 combined reader, so BM25 scores with corpus-wide statistics), with the
-reference's response shapes."""
+reference's response shapes.
+
+The node's search caches (`search/caches.py::NodeCaches`) sit in front of
+the query phase, in the reference's order: the can_match pre-filter when
+the request names `pre_filter_shard_size`, then the device rung of the
+shard request cache for a kNN-bearing or hybrid body (on unless the node
+setting `search.request_cache.device_paths` is false), else its host rung
+for a `size: 0` or opted-in body; the node query cache serves every
+search context's `bool` filter clauses. `_cache/clear` and the `query_cache` /
+`request_cache` index stats read them."""
 
 from __future__ import annotations
 
+import copy
+import difflib
 import itertools
+import json
 import threading
 import time
 import uuid
@@ -28,12 +40,24 @@ from elasticsearch_tpu_torch.common.errors import (
 from elasticsearch_tpu_torch.indices.service import (  # noqa: F401
     SHARD_ROW_SPACE, IndexService, flat_settings, validate_knn_settings,
 )
+from elasticsearch_tpu_torch.search.caches import (
+    NodeCaches, can_match, reader_fingerprint,
+)
 from elasticsearch_tpu_torch.search.hybrid_plan import HybridExecutor
 from elasticsearch_tpu_torch.search.queries import SearchContext
-from elasticsearch_tpu_torch.search.service import execute_search
+from elasticsearch_tpu_torch.search.service import (
+    execute_fetch_phase, execute_query_phase,
+)
 from elasticsearch_tpu_torch.serving.batcher import CombiningBatcher
 
 _SHARDS_OK = {"total": 1, "successful": 1, "failed": 0}
+# the index stats metrics of the reference (`RestIndicesStatsAction`);
+# the port serves the two cache sections
+_STATS_METRICS = (
+    "docs", "store", "indexing", "get", "search", "merge", "refresh",
+    "flush", "warmer", "query_cache", "fielddata", "completion",
+    "segments", "translog", "request_cache", "recovery", "bulk")
+_PORTED_STATS = ("query_cache", "request_cache")
 # a `_bulk` item whose document failed to parse: it takes a seq_no only
 _PARSE_FAILED = "parse_failed"
 
@@ -191,10 +215,15 @@ class _MultiShardVectorStore:
 
 
 class Node:
-    def __init__(self, device="cuda", node_name: str = "node-0"):
+    def __init__(self, device="cuda", node_name: str = "node-0",
+                 settings: Optional[dict] = None):
         self.device = resolve_device(device)
         self.node_name = node_name
         self.node_id = uuid.uuid4().hex[:22]
+        # node settings (flat keys); read at each use, as the reference
+        # reads its node settings
+        self.settings: Dict[str, object] = dict(settings or {})
+        self.caches = NodeCaches()
         self.indices: Dict[str, IndexService] = {}
         # index name -> its hybrid executor (plan cache + late-interaction
         # store), made at the index's first hybrid search
@@ -390,27 +419,171 @@ class Node:
         with self._lock:
             ex = self._hybrid.get(svc.name)
             if ex is None:
-                ex = self._hybrid[svc.name] = HybridExecutor(svc, self.device)
+                ex = self._hybrid[svc.name] = HybridExecutor(
+                    svc, self.device, query_cache=self.caches.query)
             return ex
+
+    def _device_request_cache_enabled(self) -> bool:
+        """`search.request_cache.device_paths` (default on): the device
+        rung of the shard request cache, for kNN query phases and hybrid
+        responses. The reference's dynamic cluster setting of the same
+        name waits for `_cluster/settings`."""
+        v = self.settings.get("search.request_cache.device_paths")
+        return v is None or str(v).lower() != "false"
+
+    def _request_cache_for(self, body: dict, hybrid: bool = False):
+        """The rung of the shard request cache a body goes through, or
+        None. The device rung claims every body whose query phase runs on
+        the card (kNN-bearing or hybrid), so the host rung keeps `size: 0`
+        and opted-in bodies; a hybrid body never takes the host rung."""
+        if self._device_request_cache_enabled() \
+                and self.caches.device_request.device_cacheable(body):
+            return self.caches.device_request
+        if not hybrid and self.caches.request.cacheable_tracked(body):
+            return self.caches.request
+        return None
+
+    @staticmethod
+    def _request_cache_key(cache, svc: IndexService, reader,
+                           body: dict) -> tuple:
+        """The index's name, its uuid (a recreated index of the same name
+        reuses segment ids) and its settings, the reader's content
+        fingerprint (a refresh that changed a shard misses), and the
+        body."""
+        settings = json.dumps(svc.settings, sort_keys=True, default=str)
+        return cache.key((svc.name, svc.uuid, settings),
+                         reader_fingerprint(reader), body)
 
     def _search_rrf(self, svc: IndexService, body: dict) -> dict:
         """Reciprocal-rank fusion of the body's sub-searches through the
-        index's hybrid executor (plan cache, one dispatch per leg group,
-        RRF, fetch of the final window)."""
-        return self._hybrid_executor(svc).submit(body)
+        index's hybrid executor (one dispatch per leg group, RRF, fetch of
+        the final window), behind the device rung of the request cache: a
+        body the rung holds is answered with a copy of its stored
+        response, `took` 0, with no batch slot and no launch; a miss
+        stores a copy of its response without `took`. The reference
+        serves a `profile` body uncached; the port answers `profile` with
+        a 400, so that bypass has no caller yet."""
+        ex = self._hybrid_executor(svc)
+        cache = self._request_cache_for(body, hybrid=True)
+        if cache is None:
+            return ex.submit(body)
+        key = self._request_cache_key(cache, svc, svc.combined_reader(), body)
+        cached = cache.get(key)
+        if cached is not None:
+            resp = copy.deepcopy(cached)
+            resp["took"] = 0
+            return resp
+        resp = ex.submit(body)
+        cache.put(key, copy.deepcopy(
+            {k: v for k, v in resp.items() if k != "took"}))
+        return resp
 
-    def search(self, index: str, body: Optional[dict]) -> dict:
+    def search(self, index: str, body: Optional[dict],
+               pre_filter_shard_size: Optional[int] = None) -> dict:
+        """`_search` on one index. With `pre_filter_shard_size` (the URL
+        parameter) a body with a query first runs can_match, and an index
+        it proves empty is skipped whole: its shards count as `skipped`
+        and no query phase runs. The query phase's result comes from the
+        shard request cache when it holds the body; the fetch runs every
+        time."""
         start = time.perf_counter()
         svc = self.index(index)
-        rank = (body or {}).get("rank")
+        body = body or {}
+        rank = body.get("rank")
         if isinstance(rank, dict) and "rrf" in rank:
             return self._search_rrf(svc, body)
-        ctx = SearchContext(svc.combined_reader(), svc.mapper_service,
-                            svc.vector_store, svc.settings)
-        hits = execute_search(ctx, body or {}, svc.name)
+        reader = svc.combined_reader()
         n = svc.num_shards
+        skipped = 0
+        if pre_filter_shard_size is not None \
+                and body.get("query") is not None \
+                and not can_match(reader, body):
+            skipped = n
+            hits = {"total": {"value": 0, "relation": "eq"},
+                    "max_score": None, "hits": []}
+        else:
+            hits = self._query_then_fetch(svc, reader, body)
         return {"took": int((time.perf_counter() - start) * 1000),
                 "timed_out": False,
-                "_shards": {"total": n, "successful": n, "skipped": 0,
+                "_shards": {"total": n, "successful": n, "skipped": skipped,
                             "failed": 0},
                 "hits": hits}
+
+    def _query_then_fetch(self, svc: IndexService, reader, body: dict) -> dict:
+        """The query phase through the request cache's rung for the body
+        (`_request_cache_for`), then the fetch."""
+        cache = self._request_cache_for(body)
+        key = result = None
+        if cache is not None:
+            key = self._request_cache_key(cache, svc, reader, body)
+            result = cache.get(key)
+        if result is None:
+            ctx = SearchContext(reader, svc.mapper_service, svc.vector_store,
+                                svc.settings, query_cache=self.caches.query)
+            result = execute_query_phase(ctx, body)
+            if key is not None:
+                cache.put(key, result)
+        return execute_fetch_phase(reader, svc.mapper_service, svc.name, body,
+                                   result)
+
+    # ---------------------------------------------------------------- caches
+    def _resolve(self, name: Optional[str]) -> List[IndexService]:
+        """The indices a stats or cache request names: every index for
+        None or `_all`, else each of a comma-separated list."""
+        if name is None or name in ("_all", "*"):
+            return list(self.indices.values())
+        return [self.index(part.strip()) for part in name.split(",")
+                if part.strip()]
+
+    def clear_cache(self, name: Optional[str] = None) -> dict:
+        """`POST [/{index}]/_cache/clear`: drop the host rung of the
+        request cache and the query cache, node-wide, as the reference
+        does; the device rung stays (its entries are keyed on the reader's
+        content, so none can be stale)."""
+        services = self._resolve(name)
+        self.caches.request.clear()
+        self.caches.query.clear()
+        n = sum(len(svc.shards) for svc in services)
+        return {"_shards": {"total": n, "successful": n, "failed": 0}}
+
+    def index_stats(self, name: Optional[str], metrics: List[str]) -> dict:
+        """`GET [/{index}]/_stats/{metric}` for the `query_cache` and
+        `request_cache` metrics, in the reference's shape: each index's
+        sections read 0, and `_all` carries the node's caches (the request
+        cache summing both rungs). `_shards.total` counts each shard's
+        configured copies, `index.number_of_replicas` (default 1) beside
+        the primary, as the reference counts them. Any other metric is a
+        400 until the rest of the stats are ported."""
+        keep = set()
+        for m in metrics:
+            if m in _PORTED_STATS:
+                keep.add(m)
+            elif m in _STATS_METRICS or m in ("_all", "*"):
+                raise IllegalArgumentError(
+                    f"[_stats/{m}] is not supported by this build: only "
+                    f"[{', '.join(_PORTED_STATS)}] are ported")
+            else:
+                close = difflib.get_close_matches(m, _STATS_METRICS, n=1)
+                hint = f" -> did you mean [{close[0]}]?" if close else ""
+                raise IllegalArgumentError(
+                    f"request [/_stats/{m}] contains unrecognized "
+                    f"metric: [{m}]{hint}")
+        services = self._resolve(name)
+        sections = {m: {"memory_size_in_bytes": 0, "hit_count": 0,
+                        "miss_count": 0, "evictions": 0}
+                    for m in _PORTED_STATS if m in keep}
+        node = self.caches.stats()
+        agg = {m: node[m] for m in sections} if services else {}
+        indices = {}
+        total = successful = 0
+        for svc in services:
+            replicas = int(svc.settings.get("index.number_of_replicas", 1))
+            total += svc.num_shards * (1 + replicas)
+            successful += svc.num_shards
+            indices[svc.name] = {"uuid": svc.uuid,
+                                 "primaries": copy.deepcopy(sections),
+                                 "total": copy.deepcopy(sections)}
+        return {"_shards": {"total": total, "successful": successful,
+                            "failed": 0},
+                "_all": {"primaries": agg, "total": copy.deepcopy(agg)},
+                "indices": indices}

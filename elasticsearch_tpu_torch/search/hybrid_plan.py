@@ -32,8 +32,9 @@ Bodies reach `HybridExecutor` through a `BoundedBatcher`
 Every body compiles its own plan: compiling is a few mapping lookups, and
 PyTorch runs eagerly, so there is no compiled program to reuse. A
 sub-search of a kind `search/queries.py` does not parse is refused with a
-400 naming it, and so is a kNN leg whose filter is of such a kind; the
-device request cache is not ported.
+400 naming it, and so is a kNN leg whose filter is of such a kind.
+The device rung of the shard request cache sits in front of the executor,
+in `node.py::Node._search_rrf`.
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ from elasticsearch_tpu_torch.vectors.late_interaction import (
 DEFAULT_RANK_CONSTANT = 60
 DEFAULT_WINDOW = 100
 _BODY_KEYS = {"rank", "sub_searches", "query", "knn", "size", "from",
-              "_source"}
+              "_source", "request_cache"}
 
 
 class LexicalLeg:
@@ -462,8 +463,11 @@ class HybridExecutor:
 
     def __init__(self, svc, device, max_batch: int = 64,
                  max_queue_depth: int = 256,
-                 deadline_ms: Optional[float] = 10_000.0):
+                 deadline_ms: Optional[float] = 10_000.0, query_cache=None):
         self.svc = svc
+        # the node query cache (`search/caches.py::QueryCache`) for the
+        # `bool` filter clauses of the generic legs and the kNN filters
+        self.query_cache = query_cache
         # kNN legs search every shard's store (`svc.vector_store`); the
         # lexical and late-interaction stores sync from the combined
         # reader (rows rebased by shard), so BM25 reads corpus-wide
@@ -591,7 +595,8 @@ class HybridExecutor:
         maxsim_groups: Dict[tuple, list] = {}
         knn_groups: Dict[tuple, list] = {}
         ctx = SearchContext(reader, self.svc.mapper_service,
-                            self.svc.vector_store, self.svc.settings)
+                            self.svc.vector_store, self.svc.settings,
+                            query_cache=self.query_cache)
         for bi, legs in enumerate(bound):
             for li, leg in enumerate(legs):
                 if isinstance(leg, EmptyLeg):

@@ -63,3 +63,13 @@ class KnnQuery(Query):
         order = np.argsort(rows, kind="stable")
         return DocSet(rows[order].astype(np.int64),
                       scores[order].astype(np.float32))
+
+    def to_dict(self):
+        d = {"field": self.field, "query_vector": self.query_vector.tolist(),
+             "k": self.k, "num_candidates": self.num_candidates}
+        if self.filter_query is not None:
+            d["filter"] = self.filter_query.to_dict()
+        return {"knn": d}
+
+    def key_is_exact(self) -> bool:
+        return self.filter_query is None or self.filter_query.key_is_exact()

@@ -29,14 +29,24 @@ them: the best or the sum of per-field `match` scores), `range`,
 `search/queries_ext.py`: `late_interaction`, `sparse_vector` /
 `weighted_tokens` (the learned-sparse dot product) and `rank_feature`.
 `fuzziness`, the `bool_prefix` type and any
-other kind are a 400. The node query cache of filter-context rows is not
-ported: a filter clause runs every time, which gives the same rows.
+other kind are a 400.
+
+A `bool`'s `filter` clauses run through the node query cache
+(`search/caches.py::QueryCache`), keyed on the reader's `gen` and the
+clause's canonical form, `json.dumps(q.to_dict(), sort_keys=True,
+default=str)`: every query class gives the reference's `to_dict`, so
+equivalent sources share one entry, as they do there. The reference's
+form leaves out `match`'s `minimum_should_match` and `multi_match`'s
+`operator`; a clause that sets them (`key_is_exact` false) is evaluated
+every time rather than served another clause's rows.
 """
 
 from __future__ import annotations
 
 import difflib
 import fnmatch
+import itertools
+import json
 import math
 from typing import Any, List, Optional, Tuple
 
@@ -83,14 +93,17 @@ def _constant(rows: np.ndarray, boost: float) -> DocSet:
 
 class SearchContext:
     """Per-shard execution context: the point-in-time reader, the mapping,
-    the device vector store (kNN) and the flat index settings."""
+    the device vector store (kNN), the flat index settings and the node
+    query cache (None caches nothing)."""
 
     def __init__(self, reader: ShardReader, mapper_service: MapperService,
-                 vector_store=None, index_settings: Optional[dict] = None):
+                 vector_store=None, index_settings: Optional[dict] = None,
+                 query_cache=None):
         self.reader = reader
         self.mapper_service = mapper_service
         self.vector_store = vector_store
         self.index_settings = index_settings or {}
+        self.query_cache = query_cache
         self._all_rows: Optional[np.ndarray] = None
 
     def all_rows(self) -> np.ndarray:
@@ -102,6 +115,15 @@ class SearchContext:
 class Query:
     def execute(self, ctx: SearchContext) -> DocSet:
         raise NotImplementedError
+
+    def to_dict(self) -> dict:
+        raise NotImplementedError
+
+    def key_is_exact(self) -> bool:
+        """Whether `to_dict` holds every option that changes the rows. The
+        reference's form leaves some out, and the query cache keys on it,
+        so a clause whose form is lossy is evaluated, never cached."""
+        return True
 
 
 def in_sorted(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -120,10 +142,16 @@ class MatchAllQuery(Query):
     def execute(self, ctx: SearchContext) -> DocSet:
         return _constant(ctx.all_rows(), self.boost)
 
+    def to_dict(self):
+        return {"match_all": {}}
+
 
 class MatchNoneQuery(Query):
     def execute(self, ctx: SearchContext) -> DocSet:
         return DocSet.empty()
+
+    def to_dict(self):
+        return {"match_none": {}}
 
 
 def _id_rows(ctx: SearchContext, ids) -> np.ndarray:
@@ -227,6 +255,10 @@ class TermQuery(Query):
         return _constant(_term_postings(ctx, self.field, term)[0],
                          self.boost)
 
+    def to_dict(self):
+        return {"term": {self.field: {"value": self.value,
+                                      "boost": self.boost}}}
+
 
 class TermsQuery(Query):
     def __init__(self, field: str, values: List[Any], boost: float = 1.0):
@@ -255,6 +287,9 @@ class TermsQuery(Query):
         if not parts:
             return DocSet.empty()
         return _constant(np.unique(np.concatenate(parts)), self.boost)
+
+    def to_dict(self):
+        return {"terms": {self.field: self.values}}
 
 
 class MatchQuery(Query):
@@ -295,6 +330,14 @@ class MatchQuery(Query):
             required = resolve_msm(self.minimum_should_match,
                                    len(clause_sets))
         return _combine_should(clause_sets, required)
+
+    def to_dict(self):
+        return {"match": {self.field: {"query": self.text,
+                                       "operator": self.operator}}}
+
+    def key_is_exact(self) -> bool:
+        # the form leaves out minimum_should_match, which `and` overrides
+        return self.minimum_should_match is None or self.operator == "and"
 
 
 class MatchPhraseQuery(Query):
@@ -351,6 +394,10 @@ class MatchPhraseQuery(Query):
             hit = trows[idx] == rows
             total[hit] += ts[idx][hit]
         return DocSet(rows, total)
+
+    def to_dict(self):
+        return {"match_phrase": {self.field: {"query": self.text,
+                                              "slop": self.slop}}}
 
 
 def _phrase_match(pos_sets: List[set], slop: int) -> bool:
@@ -411,6 +458,14 @@ class MultiMatchQuery(Query):
         if self.mm_type == "best_fields":
             return _combine_max(sets)
         return _combine_should(sets, 1)
+
+    def to_dict(self):
+        return {"multi_match": {"query": self.query, "fields": self.fields,
+                                "type": self.mm_type}}
+
+    def key_is_exact(self) -> bool:
+        # the form leaves out the operator
+        return str(self.operator).lower() != "and"
 
 
 def _str_in_range(v, gte, gt, lte, lt) -> bool:
@@ -485,6 +540,14 @@ class RangeQuery(Query):
             return DocSet.empty()
         return _constant(np.sort(np.concatenate(parts)), self.boost)
 
+    def to_dict(self):
+        body = {}
+        for k in ("gte", "gt", "lte", "lt"):
+            v = getattr(self, k)
+            if v is not None:
+                body[k] = v
+        return {"range": {self.field: body}}
+
 
 class ExistsQuery(Query):
     _META_ALWAYS = {"_id", "_index", "_type", "_seq_no", "_primary_term",
@@ -539,6 +602,9 @@ class ExistsQuery(Query):
                 hits.append(int(row))
         return np.asarray(hits, dtype=np.int64)
 
+    def to_dict(self):
+        return {"exists": {"field": self.field}}
+
 
 class IdsQuery(Query):
     def __init__(self, values: List[str], boost: float = 1.0):
@@ -549,6 +615,9 @@ class IdsQuery(Query):
         return _constant(_id_rows(ctx, set(map(str, self.values))),
                          self.boost)
 
+    def to_dict(self):
+        return {"ids": {"values": self.values}}
+
 
 class ConstantScoreQuery(Query):
     def __init__(self, filter_query: Query, boost: float = 1.0):
@@ -557,6 +626,13 @@ class ConstantScoreQuery(Query):
 
     def execute(self, ctx: SearchContext) -> DocSet:
         return _constant(self.filter_query.execute(ctx).rows, self.boost)
+
+    def to_dict(self):
+        return {"constant_score": {"filter": self.filter_query.to_dict(),
+                                   "boost": self.boost}}
+
+    def key_is_exact(self) -> bool:
+        return self.filter_query.key_is_exact()
 
 
 class LateInteractionFilterQuery(Query):
@@ -571,6 +647,9 @@ class LateInteractionFilterQuery(Query):
     def execute(self, ctx: SearchContext) -> DocSet:
         rows, scores = self.inner.execute(ctx.reader, ctx.mapper_service)
         return DocSet(rows, scores)
+
+    def to_dict(self):
+        return self.inner.to_dict()
 
 
 # --------------------------------------------------------- bool composition
@@ -634,6 +713,29 @@ def _combine_max(sets: List[DocSet]) -> DocSet:
     return DocSet(rows, scores)
 
 
+def _cached_filter_rows(ctx: SearchContext, q: Query) -> np.ndarray:
+    """A filter clause's rows through the node query cache: filters never
+    score, so the rows are the whole result. Nothing caches without a
+    cache, without a reader `gen`, or when the clause has no `to_dict`,
+    as in the reference; nor, unlike the reference, when its `to_dict`
+    leaves out an option that changes the rows (`key_is_exact`)."""
+    cache = ctx.query_cache
+    if cache is None or not q.key_is_exact():
+        return q.execute(ctx).rows
+    try:
+        source = json.dumps(q.to_dict(), sort_keys=True, default=str)
+    except Exception:
+        return q.execute(ctx).rows
+    gen = getattr(ctx.reader, "gen", None)
+    if gen is None:
+        return q.execute(ctx).rows
+    rows = cache.get_rows(gen, source)
+    if rows is None:
+        rows = q.execute(ctx).rows
+        cache.put_rows(gen, source, rows)
+    return rows
+
+
 class BoolQuery(Query):
     """must / filter / should / must_not with the reference's semantics:
     filter and must_not never score; should adds to the score;
@@ -664,7 +766,7 @@ class BoolQuery(Query):
                 scores = scores[i1] + s.scores[i2]
 
         for q in self.filter:
-            f_rows = q.execute(ctx).rows
+            f_rows = _cached_filter_rows(ctx, q)
             if rows is None:
                 rows = f_rows
                 scores = np.zeros(len(rows), dtype=np.float32)
@@ -704,6 +806,24 @@ class BoolQuery(Query):
             rows, scores = rows[keep], scores[keep]
 
         return DocSet(rows, scores * self.boost)
+
+    def to_dict(self):
+        out = {}
+        if self.must:
+            out["must"] = [q.to_dict() for q in self.must]
+        if self.filter:
+            out["filter"] = [q.to_dict() for q in self.filter]
+        if self.should:
+            out["should"] = [q.to_dict() for q in self.should]
+        if self.must_not:
+            out["must_not"] = [q.to_dict() for q in self.must_not]
+        if self.minimum_should_match is not None:
+            out["minimum_should_match"] = self.minimum_should_match
+        return {"bool": out}
+
+    def key_is_exact(self) -> bool:
+        return all(q.key_is_exact() for q in itertools.chain(
+            self.must, self.filter, self.should, self.must_not))
 
 
 # ------------------------------------------------------------------ parser

@@ -103,6 +103,11 @@ class LateInteractionQuery:
         return (np.asarray(rows, dtype=np.int64),
                 np.asarray(scores, dtype=np.float32))
 
+    def to_dict(self):
+        return {"late_interaction": {
+            "field": self.field,
+            "query_tokens": self.query_tokens.tolist()}}
+
 
 
 class RankFeatureQuery(Query):
@@ -181,6 +186,9 @@ class RankFeatureQuery(Query):
             score = v / (v + pivot)
         return DocSet(rows, (self.boost * score).astype(np.float32))
 
+    def to_dict(self):
+        return {"rank_feature": {"field": self.field}}
+
 
 class WeightedTokensQuery(Query):
     """`sparse_vector` / `weighted_tokens`: score = the sum over the
@@ -224,3 +232,7 @@ class WeightedTokensQuery(Query):
         if not rows:
             return DocSet.empty()
         return DocSet(np.concatenate(rows), np.concatenate(scores))
+
+    def to_dict(self):
+        return {"sparse_vector": {"field": self.field,
+                                  "query_vector": dict(self.tokens)}}

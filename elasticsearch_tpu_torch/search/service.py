@@ -1,7 +1,9 @@
 """Per-shard search: parse the body, run the query, assemble hits (port of
 the served slices of `elasticsearch_tpu/search/service.py`).
 
-The port accepts `{knn, query, size, from, _source, track_total_hits}`.
+The port accepts `{knn, query, size, from, _source, track_total_hits,
+request_cache}` (`request_cache` is the shard request cache's
+per-request opt-in or opt-out, read by the node).
 `knn` is one spec or a list of specs (`field`, `query_vector`, `k`,
 `num_candidates`, `filter`, `boost`); `query` is any query
 `search/queries.py` parses (term-level filters, the BM25 text queries,
@@ -14,6 +16,11 @@ combine as `bool.should` of them, as in the reference; no query and no
 knn is `match_all`. Any other body key is rejected with a 400. Hybrid
 `rank: {rrf}` bodies go to `search/hybrid_plan.py`, which renders its hits
 with `render_hits`.
+
+A search is a query phase (`execute_query_phase`: the ranked rows and
+scores of the window, the total and the max score) and a fetch
+(`execute_fetch_phase`): the shard request cache stores the first, and the
+fetch re-runs for every request, as in the reference.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ DEFAULT_SIZE = 10
 MAX_RESULT_WINDOW = 10_000
 TRACK_TOTAL_HITS_DEFAULT = 10_000
 _SEARCH_BODY_KEYS = {"knn", "query", "size", "from", "_source",
-                     "track_total_hits"}
+                     "track_total_hits", "request_cache"}
 _KNN_KEYS = {"field", "query_vector", "k", "num_candidates", "filter",
              "boost"}
 
@@ -85,8 +92,23 @@ def _body_query(body: dict) -> Query:
     return BoolQuery(should=[query] + knn_queries)
 
 
-def execute_search(ctx: SearchContext, body: dict, index_name: str) -> dict:
-    """Query + fetch for one single-shard index: the `hits` section."""
+class QueryPhaseResult:
+    """The query phase of one search: the window's rows and scores, ranked
+    by (score desc, row asc) and cut to `from + size`, the total counted to
+    `track_total_hits` with its relation, and the max score. Read-only once
+    made, so a cached one serves any number of fetches."""
+
+    __slots__ = ("rows", "scores", "total", "relation", "max_score")
+
+    def __init__(self, rows, scores, total: int, relation: str, max_score):
+        self.rows = rows
+        self.scores = scores
+        self.total = total
+        self.relation = relation
+        self.max_score = max_score
+
+
+def _window(body: dict) -> Tuple[int, int]:
     frm = int(body.get("from", 0) or 0)
     size = int(body["size"]) if body.get("size") is not None else DEFAULT_SIZE
     if frm < 0:
@@ -98,6 +120,13 @@ def execute_search(ctx: SearchContext, body: dict, index_name: str) -> dict:
         raise IllegalArgumentError(
             f"Result window is too large, from + size must be less than or "
             f"equal to: [{MAX_RESULT_WINDOW}] but was [{frm + size}].")
+    return frm, size
+
+
+def execute_query_phase(ctx: SearchContext, body: dict) -> QueryPhaseResult:
+    """The body's query over the context's reader: ranked rows and scores
+    of [0, from + size), the total and the max score."""
+    frm, size = _window(body)
     result = _body_query(body).execute(ctx).with_scores()
     rows, scores = result.rows, result.scores
     total, relation = len(rows), "eq"
@@ -109,12 +138,21 @@ def execute_search(ctx: SearchContext, body: dict, index_name: str) -> dict:
     max_score = float(scores.max()) if len(scores) else None
     # score desc, ties by row asc (rows arrive ascending)
     order = native.topk(scores, min(frm + size, len(rows)))
-    rows, scores = rows[order], scores[order]
-    hits = render_hits(ctx.reader, ctx.mapper_service, index_name,
-                       rows[frm:frm + size], scores[frm:frm + size],
-                       body.get("_source"))
-    return {"total": {"value": total, "relation": relation},
-            "max_score": max_score, "hits": hits}
+    return QueryPhaseResult(rows[order], scores[order], total, relation,
+                            max_score)
+
+
+def execute_fetch_phase(reader: ShardReader, mapper_service: MapperService,
+                        index_name: str, body: dict,
+                        result: QueryPhaseResult) -> dict:
+    """The `hits` section of a query phase's result: the rows of
+    [from, from + size) rendered from `reader`."""
+    frm, size = _window(body)
+    hits = render_hits(reader, mapper_service, index_name,
+                       result.rows[frm:frm + size],
+                       result.scores[frm:frm + size], body.get("_source"))
+    return {"total": {"value": result.total, "relation": result.relation},
+            "max_score": result.max_score, "hits": hits}
 
 
 def render_hits(reader: ShardReader, mapper_service: MapperService,

@@ -15,9 +15,12 @@ from elasticsearch_tpu_torch.rest.controller import RestController
 from elasticsearch_tpu_torch.rest.http_server import HttpServer
 
 
-def build_server(device="cuda", host: str = "127.0.0.1", port: int = 9200):
-    """(node, server) wired together; the caller starts and stops it."""
-    node = Node(device=device)
+def build_server(device="cuda", host: str = "127.0.0.1", port: int = 9200,
+                 settings=None):
+    """(node, server) wired together, the node made with `settings` (flat
+    node settings such as `search.request_cache.device_paths`); the
+    caller starts and stops the server."""
+    node = Node(device=device, settings=settings)
     rc = RestController()
     register_all(rc, node)
     return node, HttpServer(rc, host=host, port=port)

@@ -1028,3 +1028,79 @@ def test_sparse_hybrid_body_on_cuda_launches_the_board(cuda):
     before = dispatch.variant_launches().get(key, 0)
     nodes[1].search("s", req)
     assert dispatch.variant_launches().get(key, 0) == before + 1
+
+
+def _cache_node(cuda, monkeypatch):
+    """A 3-shard CUDA node: `emb` (bf16 flat, padded to the binned tile so
+    unfiltered requests take the binned kernel), `tag` and `body` text."""
+    from elasticsearch_tpu_torch.node import Node
+
+    monkeypatch.setattr(knn, "preferred_pad_multiple",
+                        lambda n, metric, device: knn.BINNED_TILE)
+    rng = np.random.default_rng(41)
+    n = 3000
+    vecs = rng.standard_normal((n, 64)).astype(np.float32)
+    words = np.array(["alpha", "beta", "gamma", "delta", "eps", "zeta"])
+    node = Node(device=cuda)
+    node.create_index("c", {
+        "settings": {"number_of_shards": 3},
+        "mappings": {"properties": {
+            "emb": {"type": "dense_vector", "dims": 64,
+                    "similarity": "cosine", "index_options": {"type": "flat"}},
+            "tag": {"type": "keyword"}, "body": {"type": "text"}}}})
+    node.index("c").index_many(
+        [str(i) for i in range(n)],
+        [{"tag": ["red", "blue"][i % 2],
+          "body": " ".join(rng.choice(words, 4))} for i in range(n)],
+        vectors={"emb": vecs})
+    node.refresh("c")
+    return node, rng
+
+
+def _device_counts(node):
+    from elasticsearch_tpu_torch.ops import bm25
+    return (dict(dispatch.launches()), bm25.kernel_launches(),
+            sum(s.vector_store.knn_stats["searches"]
+                for s in node.index("c").shards))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["unfiltered", "filtered", "hybrid"])
+def test_request_cache_hit_launches_nothing_on_cuda(cuda, monkeypatch, case):
+    """A repeated body is served by the device rung of the request cache:
+    its answer is the uncached one and it launches no kernel (the launch
+    counters, the BM25 library's kernel count and the stores' searches
+    unchanged); after a refresh that changed a shard it runs again."""
+    node, rng = _cache_node(cuda, monkeypatch)
+    knn_spec = {"field": "emb", "query_vector": rng.standard_normal(64)
+                .tolist(), "k": 10, "num_candidates": 50}
+    if case == "filtered":
+        knn_spec["filter"] = {"bool": {"filter": [{"term": {"tag": "red"}}]}}
+    body = {"knn": knn_spec, "size": 10}
+    if case == "hybrid":
+        body.update(query={"match": {"body": "alpha gamma"}},
+                    rank={"rrf": {}})
+
+    def strip(resp):
+        return {k: v for k, v in resp.items() if k != "took"}
+
+    first = node.search("c", dict(body))
+    counts = _device_counts(node)
+    hits0 = node.caches.device_request.hits
+    second = node.search("c", dict(body))
+    assert node.caches.device_request.hits == hits0 + 1
+    assert _device_counts(node) == counts
+    uncached = node.search("c", dict(body, request_cache=False))
+    assert strip(second) == strip(first) == strip(uncached)
+    launched = _device_counts(node)
+    assert launched != counts   # the opted-out request ran on the card
+    node.index("c").index_many(["7"], [{"tag": "red", "body": "alpha"}],
+                               vectors={"emb": rng.standard_normal(
+                                   (1, 64)).astype(np.float32)})
+    node.refresh("c")
+    misses0 = node.caches.device_request.misses
+    third = node.search("c", dict(body))
+    assert node.caches.device_request.misses == misses0 + 1
+    assert _device_counts(node) != launched
+    assert strip(third) == strip(node.search(
+        "c", dict(body, request_cache=False)))

@@ -269,7 +269,9 @@ def test_concurrent_submit_equals_sequential_one_dispatch_a_leg(
     reference's); the 7 that coalesced ran one knn and one MaxSim
     dispatch between them."""
     ref_req, port_req, port, emb, cols = nodes
-    bodies = [_hybrid(emb, cols, i, k=8) for i in range(30, 38)]
+    # each body opts out of the request cache: the test counts dispatches
+    bodies = [dict(_hybrid(emb, cols, i, k=8), request_cache=False)
+              for i in range(30, 38)]
     sequential = [port_req("POST", "/h/_search", b) for b in bodies]
     ex = port._hybrid_executor(port.index("h"))
     store = port.index("h").store
@@ -306,8 +308,10 @@ def test_poisoned_body_fails_alone_in_a_batch(nodes, monkeypatch):
     coalesced into; the serial retry gives it its 400 and the others
     their answers."""
     _ref_req, port_req, port, emb, cols = nodes
-    bodies = [_hybrid(emb, cols, i) for i in (40, 41, 42)]
-    bad = _hybrid(emb, cols, 43)
+    # each body opts out of the request cache: they must reach the batch
+    bodies = [dict(_hybrid(emb, cols, i), request_cache=False)
+              for i in (40, 41, 42)]
+    bad = dict(_hybrid(emb, cols, 43), request_cache=False)
     bad["sub_searches"][0]["query"]["knn"]["query_vector"] = [0.5] * 3
     sequential = [port_req("POST", "/h/_search", b) for b in bodies]
     got = _concurrently(port, [

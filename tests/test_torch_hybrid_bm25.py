@@ -220,7 +220,8 @@ def test_concurrent_bodies_share_one_board_a_text_field(nodes, monkeypatch):
     _ref_req, port_req, port, emb = nodes
     names = ["query_knn", "repeated_and_oov", "and", "msm", "boost",
              "empty_text", "two_lexical", "generic_range", "page"]
-    bodies = [CASES[n](emb) for n in names]
+    # each body opts out of the request cache: the test counts boards
+    bodies = [dict(CASES[n](emb), request_cache=False) for n in names]
     want = [port_req("POST", "/hb/_search", b)[1] for b in bodies]
     boards = []
     board = bm25.bm25_board

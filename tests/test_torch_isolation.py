@@ -42,7 +42,8 @@ def test_port_imports_without_jax_or_reference():
                  "search.knn_query", "search.service", "index.mapping",
                  "index.segment", "index.engine", "vectors.store",
                  "cluster.routing", "indices.service", "native", "ops.bm25",
-                 "index.analysis", "index.analysis_lang", "ops.sparse"):
+                 "index.analysis", "index.analysis_lang", "ops.sparse",
+                 "search.caches"):
         assert f"elasticsearch_tpu_torch.{name}" in names
     code = (
         "import sys\n"

@@ -450,8 +450,9 @@ def test_32_http_clients_at_once_get_the_sequential_answers():
         req(conn, "POST", "/c/_refresh")
 
         def body(qi):
+            # opted out of the request cache: the store must batch them
             return {"knn": {"field": "v", "query_vector": queries[qi].tolist(),
-                            "k": 5}}
+                            "k": 5}, "request_cache": False}
 
         alone = [req(conn, "POST", "/c/_search", body(qi))[1]
                  for qi in range(16)]
