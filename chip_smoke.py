@@ -6,7 +6,8 @@
                           [--n-sharded 1000000] [--n-msmarco 262144]
                           [--n-sparse 262144]
                           [--binned-only | --ivf-only | --maxsim-only |
-                           --sharded-only | --hybrid-only | --sparse-only]
+                           --sharded-only | --hybrid-only | --sparse-only |
+                           --docs-only]
 
 Phases, one line each; any failure raises and the exit code is not 0:
 
@@ -62,6 +63,25 @@ Phases, one line each; any failure raises and the exit code is not 0:
                exact f32 numpy and the bf16 kernel's launch count (every
                launch on its tma variant); then a
                dot_product index (16,384 docs) through the clamped variant
+  serve_documents  the document and index API on sift after its
+               concurrent levels: over HTTP, `_bulk` deletes of 10,000 ids
+               and `doc` updates of 10,000 vectors, 500 single deletes,
+               500 `_update`s and 500 auto-id writes, a `_create` on a live
+               id and a stale `if_seq_no` (both 409), then a timed
+               `_refresh` (`refresh_s`: the store's rebuild on the card);
+               the 64 queries at recall@10 >= 0.95 against exact f32 numpy
+               over the live documents, no deleted id in a hit, 64 updated
+               documents each first for its new vector, `_count` exact,
+               `_mget` of deleted (not found) and updated (the new vector)
+               ids, the batch-1 answers held to one batch of the same
+               queries through the store (ties counted), one bf16 launch a
+               batch on `tma`; then `sift_b` (65,536 x 128, the same
+               mapping): `sift,sift_b`, `sift*` and no index at recall@10
+               >= 0.95 over the union, each hit's `_index` right,
+               `_shards.total` 2, `_msearch` of 16 lines equal to the
+               single searches; then `DELETE /sift_b` and `/sift`, which
+               must free >= 90% of the two corpora's device bytes, and a
+               search of `sift` is a 404
   serve_cohere the same for a 768-d cosine `int8_flat` index with
                `rescore: true` and `_source` disabled (int8 kernel + re-rank)
   serve_gist   a 1,000,000 x 960 dot_product `ivf` index of unit-normalized
@@ -208,7 +228,10 @@ parent-vs-change comparisons, where a parent commit's package runs this
 script too (the checks of variants it lacks are skipped).
 `--sharded-only` runs env, build and serve_sharded (no ok line);
 `--hybrid-only` runs env, build, the bm25_board checks and serve_hybrid
-(no ok line); `--sparse-only` the same with serve_sparse. Each phase's
+(no ok line); `--sparse-only` the same with serve_sparse;
+`--docs-only` runs env, the binned build, serve_sift's sequential
+requests and serve_documents (no ok line). Every phase drops its indices
+through `DELETE /{index}`. Each phase's
 wall seconds print as a `[timing]` line.
 
 The next-to-last lines are a JSON object with every kernel's numbers and the
@@ -1469,7 +1492,10 @@ def store_concurrent(name: str, port: int, svc, queries, extra: dict,
 
 
 def phase_serve(seed: int, n_sift: int, n_cohere: int,
-                device: str = "cuda") -> dict:
+                device: str = "cuda", docs_only: bool = False) -> dict:
+    """serve_sift, its concurrent levels, serve_documents on the sift
+    index, then the dot index and serve_cohere; `docs_only` runs sift's
+    sequential requests and serve_documents alone."""
     from elasticsearch_tpu_torch.ops import knn_binned as kb
     from elasticsearch_tpu_torch.server import build_server
     node, server = build_server(device=device, port=0,
@@ -1498,12 +1524,20 @@ def phase_serve(seed: int, n_sift: int, n_cohere: int,
         # concurrent clients: scores to the binned kernel's check, one
         # packing quantum of the raw score (half of it in `_score`, which
         # is (1 + cosine) / 2)
-        conc = store_concurrent(
-            "sift", server.port, node.index("sift"), queries, extra,
-            recall, lambda _: BF16_QUANTUM / 2,
-            {f"{kb.KERNEL_BF16}/{kb.VARIANT_TMA}"})
-        total[kb.KERNEL_BF16] += conc.get(kb.KERNEL_BF16, 0)
+        if not docs_only:
+            conc = store_concurrent(
+                "sift", server.port, node.index("sift"), queries, extra,
+                recall, lambda _: BF16_QUANTUM / 2,
+                {f"{kb.KERNEL_BF16}/{kb.VARIANT_TMA}"})
+            total[kb.KERNEL_BF16] += conc.get(kb.KERNEL_BF16, 0)
+        del extra
+        # its own generator, so the later indices' data stay the seed's
+        total[kb.KERNEL_BF16] += timed(
+            "serve_documents", serve_documents, client, node, vecs, queries,
+            np.random.default_rng(seed + 16))
         del vecs
+        if docs_only:
+            return total
 
         # dot_product through the clamped variant of the bf16 kernel
         dvecs = clustered(rng, 16384, 128)
@@ -1543,6 +1577,259 @@ def phase_serve(seed: int, n_sift: int, n_cohere: int,
     finally:
         server.stop()
     return total
+
+
+N_DOC_BULK = 10_000         # serve_documents: `_bulk` deletes and updates
+N_DOC_SINGLE = 500          # single deletes, updates and auto-id writes
+N_SIFT_B = 65_536           # the second index of the expression searches
+
+
+def _corpus_bytes(node, name: str) -> int:
+    """Bytes of the device tensors of every shard's `vec` corpus."""
+    total = 0
+    for shard in node.index(name).shards:
+        fc = shard.vector_store.field("vec")
+        for t in vars(fc.corpus).values():
+            if isinstance(t, torch.Tensor):
+                total += t.nbytes
+    return total
+
+
+def _doc_writes(client, rng, n: int):
+    """serve_documents' writes over HTTP on sift: `_bulk` deletes and
+    `doc` updates of new vectors, single deletes, updates and auto-id
+    writes, and the two 409s. Returns (deleted ids, {id: new vector},
+    {auto id: vector})."""
+    ids = rng.permutation(n)
+    bulk_del = ids[:N_DOC_BULK]
+    bulk_upd = ids[N_DOC_BULK:2 * N_DOC_BULK]
+    one_del = ids[2 * N_DOC_BULK:2 * N_DOC_BULK + N_DOC_SINGLE]
+    one_upd = ids[2 * N_DOC_BULK + N_DOC_SINGLE:
+                  2 * N_DOC_BULK + 2 * N_DOC_SINGLE]
+    fresh = clustered(rng, len(bulk_upd) + 2 * N_DOC_SINGLE, 128)
+    updated = {}
+    resp = client.ok("POST", "/sift/_bulk",
+                     [{"delete": {"_id": str(i)}} for i in bulk_del],
+                     ndjson=True)
+    if resp["errors"] or any(it["delete"]["result"] != "deleted"
+                             for it in resp["items"]):
+        raise AssertionError(f"bulk delete: {resp['items'][:3]}")
+    ops = []
+    for j, i in enumerate(bulk_upd):
+        ops += [{"update": {"_id": str(i)}},
+                {"doc": {"vec": fresh[j].tolist()}}]
+        updated[str(i)] = fresh[j]
+    resp = client.ok("POST", "/sift/_bulk", ops, ndjson=True)
+    if resp["errors"] or any(it["update"]["result"] != "updated"
+                             for it in resp["items"]):
+        raise AssertionError(f"bulk update: {resp['items'][:3]}")
+    for i in one_del:
+        if client.ok("DELETE", f"/sift/_doc/{i}")["result"] != "deleted":
+            raise AssertionError(f"DELETE /sift/_doc/{i}")
+    base = len(bulk_upd)
+    for j, i in enumerate(one_upd):
+        v = fresh[base + j]
+        if client.ok("POST", f"/sift/_update/{i}", {
+                "doc": {"vec": v.tolist()}})["result"] != "updated":
+            raise AssertionError(f"POST /sift/_update/{i}")
+        updated[str(i)] = v
+    created = {}
+    for v in fresh[base + N_DOC_SINGLE:]:
+        status, body = client.req("POST", "/sift/_doc", {"vec": v.tolist()})
+        if status != 201 or body["result"] != "created":
+            raise AssertionError(f"POST /sift/_doc -> {status}: {body}")
+        created[body["_id"]] = v
+    live = str(ids[-1])
+    status, body = client.req("PUT", f"/sift/_create/{live}",
+                              {"vec": fresh[0].tolist()})
+    if status != 409:
+        raise AssertionError(f"_create on a live id -> {status}: {body}")
+    seq_no = client.ok("GET", f"/sift/_doc/{live}")["_seq_no"]
+    status, body = client.req(
+        "PUT", f"/sift/_doc/{live}?if_seq_no={seq_no + 1}&if_primary_term=1",
+        {"vec": fresh[0].tolist()})
+    if status != 409:
+        raise AssertionError(f"stale if_seq_no -> {status}: {body}")
+    deleted = {str(i) for i in bulk_del} | {str(i) for i in one_del}
+    return deleted, updated, created
+
+
+def _doc_checks(client, node, vecs, queries, deleted, updated, created):
+    """The gates after the refresh: recall@10 of the 64 queries against
+    exact f32 numpy over the live documents, no deleted id in a hit, each
+    of 64 updated documents first for its new vector, `_count` exact,
+    `_mget` of deleted and updated ids, and the batch-1 answers against
+    one batch of the same queries through the index's store (ties
+    counted). Returns (recall, p50 ms, the bf16 launches of the served
+    requests, ties)."""
+    from elasticsearch_tpu_torch.ops import dispatch
+    from elasticsearch_tpu_torch.ops import knn_binned as kb
+    from elasticsearch_tpu_torch.ops import similarity as sim
+    names = [str(i) for i in range(len(vecs))] + list(created)
+    live = np.concatenate([vecs, np.stack(list(created.values()))])
+    for key, v in updated.items():
+        live[int(key)] = v
+    keep = np.array([nm not in deleted for nm in names])
+    live_names = [nm for nm, k in zip(names, keep) if k]
+    truth = exact_top(live[keep], queries, 10, "cosine")
+    dispatch.reset_launches()
+    lat, got, got_scores = [], [], []
+    for qv in queries:
+        t = time.perf_counter()
+        resp = client.ok("POST", "/sift/_search", knn_body("vec", qv))
+        lat.append((time.perf_counter() - t) * 1e3)
+        got.append([h["_id"] for h in resp["hits"]["hits"]])
+        got_scores.append([h["_score"] for h in resp["hits"]["hits"]])
+    upd_keys = list(updated)[:64]
+    for key in upd_keys:
+        hits = client.ok("POST", "/sift/_search", knn_body(
+            "vec", updated[key]))["hits"]["hits"]
+        if hits[0]["_id"] != key:
+            raise AssertionError(f"updated doc {key}: first hit "
+                                 f"{hits[0]['_id']}")
+        if deleted & {h["_id"] for h in hits}:
+            raise AssertionError(f"deleted ids in {key}'s hits")
+    launches = dispatch.launches()
+    n_req = len(queries) + len(upd_keys)
+    _expect_served_variant(kb.KERNEL_BF16, dispatch.variant_launches(),
+                           n_req)
+    if {k: c for k, c in launches.items() if c} != {kb.KERNEL_BF16: n_req}:
+        raise AssertionError(f"launches {launches} for {n_req} requests")
+    if any(deleted & set(g) for g in got):
+        raise AssertionError("a deleted id in a hit")
+    recall = float(np.mean([
+        len(set(g) & {live_names[r] for r in t.tolist()}) / 10
+        for g, t in zip(got, truth)]))
+    count = client.ok("POST", "/sift/_count")["count"]
+    if count != int(keep.sum()):
+        raise AssertionError(f"_count {count}, live {int(keep.sum())}")
+    probe = sorted(deleted)[:32] + upd_keys[:32]
+    docs = client.ok("POST", "/sift/_mget", {"ids": probe})["docs"]
+    for key, doc in zip(probe, docs):
+        if key in deleted:
+            if doc["found"]:
+                raise AssertionError(f"_mget: deleted {key} found")
+        elif not doc["found"] or not np.array_equal(
+                np.asarray(doc["_source"]["vec"], dtype=np.float32),
+                updated[key]):
+            raise AssertionError(f"_mget: updated {key} is {doc}")
+    # the same queries as one batch through the index's store
+    svc = node.index("sift")
+    batch = svc.vector_store.search_many("vec", list(queries), 10)
+    reader = svc.combined_reader()
+    ties = 0
+    for qi, (rows, raw) in enumerate(batch):
+        want = np.asarray(sim.to_es_score(raw, "cosine")).tolist()
+        ties += against_batch1(
+            f"serve_documents query {qi}", got[qi], got_scores[qi],
+            [reader.get_id(int(r)) for r in rows], want, BF16_QUANTUM / 2)
+    # the launches of the served requests, read before the batch check
+    return recall, statistics.median(lat), launches[kb.KERNEL_BF16], ties
+
+
+def _union_checks(client, node, rng, queries, live_of):
+    """sift_b (65,536 x 128, the same mapping): `sift,sift_b`, `sift*` and
+    no index give recall@10 against the exact top over the union, each
+    hit's `_index` right and `_shards.total` 2; `_msearch` of 16 lines
+    equals the 16 single searches. Returns (recall, bf16 launches)."""
+    from elasticsearch_tpu_torch.ops import dispatch
+    from elasticsearch_tpu_torch.ops import knn_binned as kb
+    bvecs = clustered(rng, N_SIFT_B, 128)
+    client.ok("PUT", "/sift_b", {"settings": {"number_of_shards": 1},
+                                 "mappings": {"properties": {"vec": {
+                                     "type": "dense_vector", "dims": 128,
+                                     "similarity": "cosine"}}}})
+    node.index("sift_b").index_many([f"b{i}" for i in range(N_SIFT_B)],
+                                    vectors={"vec": bvecs})
+    client.ok("POST", "/sift_b/_refresh")
+    names, live = live_of()
+    union_names = names + [f"b{i}" for i in range(N_SIFT_B)]
+    qs = np.concatenate([
+        queries[:32], bvecs[rng.integers(0, N_SIFT_B, 32)]
+        + 0.3 * rng.standard_normal((32, 128)).astype(np.float32)])
+    truth = exact_top(np.concatenate([live, bvecs]), qs, 10, "cosine")
+    dispatch.reset_launches()
+    recalls, singles = [], []
+    for path in ("/sift,sift_b/_search", "/sift*/_search", "/_search"):
+        for qi, qv in enumerate(qs):
+            resp = client.ok("POST", path, knn_body("vec", qv))
+            if resp["_shards"]["total"] != 2:
+                raise AssertionError(f"{path}: _shards {resp['_shards']}")
+            hits = resp["hits"]["hits"]
+            for h in hits:
+                if h["_index"] != ("sift_b" if h["_id"][0] == "b"
+                                   else "sift"):
+                    raise AssertionError(f"{path}: hit {h}")
+            recalls.append(len({h["_id"] for h in hits} & {
+                union_names[r] for r in truth[qi].tolist()}) / 10)
+            if path == "/sift,sift_b/_search" and qi % 4 == 0:
+                singles.append((qv, resp))
+    lines = []
+    for qv, _ in singles:
+        lines += [{"index": "sift,sift_b"}, knn_body("vec", qv)]
+    multi = client.ok("POST", "/_msearch", lines, ndjson=True)["responses"]
+    for (_, one), many in zip(singles, multi):
+        if many["status"] != 200 or many["hits"] != one["hits"]:
+            raise AssertionError(f"_msearch entry {many} against {one}")
+    launches = dispatch.launches().get(kb.KERNEL_BF16, 0)
+    n_req = 3 * len(qs) + len(singles)
+    if launches != 2 * n_req:
+        raise AssertionError(f"union: {launches} launches for {n_req} "
+                             f"requests over 2 indices")
+    return float(np.mean(recalls)), launches
+
+
+def serve_documents(client, node, vecs, queries, rng) -> int:
+    """The document and index API on sift at full width: writes, a timed
+    refresh (the store's rebuild on the card), the gates after it, the
+    expression searches over sift and sift_b, and both indices deleted
+    through `DELETE /{index}` with their device memory freed. Returns the
+    bf16 binned kernel's launches."""
+    t0 = time.perf_counter()
+    deleted, updated, created = _doc_writes(client, rng, len(vecs))
+    t = time.perf_counter()
+    client.ok("POST", "/sift/_refresh")
+    refresh_s = time.perf_counter() - t
+    recall, p50, launches, ties = _doc_checks(
+        client, node, vecs, queries, deleted, updated, created)
+    if recall < 0.95:
+        raise AssertionError(f"serve_documents recall@10 {recall} < 0.95")
+
+    def live_of():
+        names = [str(i) for i in range(len(vecs))] + list(created)
+        live = np.concatenate([vecs, np.stack(list(created.values()))])
+        for key, v in updated.items():
+            live[int(key)] = v
+        keep = np.array([nm not in deleted for nm in names])
+        return [nm for nm, k in zip(names, keep) if k], live[keep]
+
+    union, union_launches = _union_checks(client, node, rng, queries,
+                                          live_of)
+    if union < 0.95:
+        raise AssertionError(f"union recall@10 {union} < 0.95")
+    gc.collect()
+    torch.cuda.synchronize()
+    corpora = _corpus_bytes(node, "sift") + _corpus_bytes(node, "sift_b")
+    before = torch.cuda.memory_allocated()
+    for name in ("sift_b", "sift"):
+        client.ok("DELETE", f"/{name}")
+    gc.collect()
+    freed = before - torch.cuda.memory_allocated()
+    if freed < 0.9 * corpora:
+        raise AssertionError(f"DELETE freed {freed} bytes of the corpora's "
+                             f"{corpora}")
+    status, _ = client.req("POST", "/sift/_search", knn_body("vec",
+                                                            queries[0]))
+    if status != 404:
+        raise AssertionError(f"search of a deleted index -> {status}")
+    log("serve_documents", deleted=len(deleted), updated=len(updated),
+        created=len(created), refresh_s=f"{refresh_s:.3f}",
+        recall_at_10=recall, p50_ms=f"{p50:.3f}", ties=ties,
+        union_recall_at_10=union, freed_mb=f"{freed / 2**20:.1f}",
+        corpora_mb=f"{corpora / 2**20:.1f}",
+        launches=launches + union_launches,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    return launches + union_launches
 
 
 def clustered32(rng, n: int, d: int, n_centers: int = 256,
@@ -1675,9 +1962,10 @@ def ivf_filtered_fallback(client, node, name: str, qv: np.ndarray,
         fallback_reason=reason, filter_rows=len(keep))
 
 
-def drop_index(node, name: str) -> None:
-    node.indices.pop(name)
-    node._hybrid.pop(name, None)      # its executor holds the token tile
+def drop_index(client, name: str) -> None:
+    """`DELETE /{name}` through the REST route: the index's stores and its
+    hybrid executor (the token tile) let go of their device memory."""
+    client.ok("DELETE", f"/{name}")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1714,7 +2002,7 @@ def phase_serve_ivf(seed: int, n_gist: int, n_cohere: int,
         log("serve_gist", index="ivf", **fields)
         if recall < 0.95:
             raise AssertionError(f"serve_gist recall@10 {recall} < 0.95")
-        drop_index(node, "gist")
+        drop_index(client, "gist")
 
         # l2_norm takes the scan route: no fused launch
         n_l2 = min(65536, n_gist)
@@ -1728,7 +2016,7 @@ def phase_serve_ivf(seed: int, n_gist: int, n_cohere: int,
         log("serve_gist", index="ivf_l2", **fields)
         if recall < 0.95:
             raise AssertionError(f"serve_gist l2 recall@10 {recall} < 0.95")
-        drop_index(node, "gist_l2")
+        drop_index(client, "gist_l2")
         del vecs
 
         # Cohere-shaped (768-d) cosine: BASELINE config 4, int8 and int4.
@@ -1782,7 +2070,7 @@ def phase_serve_ivf(seed: int, n_gist: int, n_cohere: int,
                 total[kernel] += conc.get(kernel, 0)
                 ivf_filtered_fallback(client, node, name, cq[0],
                                       len(cvecs))
-            drop_index(node, name)
+            drop_index(client, name)
     finally:
         timer.close()
         server.stop()
@@ -2122,7 +2410,7 @@ def phase_serve_colbert(seed: int, n: int, device: str = "cuda") -> dict:
             if recall < floor:
                 raise AssertionError(f"{name} MaxSim leg recall@10 {recall} "
                                      f"< {floor}")
-            drop_index(node, name)
+            drop_index(client, name)
     finally:
         server.stop()
     return total
@@ -2576,7 +2864,7 @@ def phase_serve_filtered(seed: int, n: int, device: str = "cuda") -> dict:
         if dev.type == "cuda":
             log("serve_filtered", concurrent_device_peak_gb=
                 f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
-        drop_index(node, "laion")
+        drop_index(client, "laion")
     finally:
         server.stop()
     return total
@@ -2942,7 +3230,7 @@ def phase_serve_sharded(seed: int, n: int, device: str = "cuda",
         total[kernel] += conc.get(kernel, 0)
         log("serve_sharded", concurrent_batches=batches,
             launches_per_batch=SHARDS, card=card)
-        drop_index(node, name)
+        drop_index(client, name)
     finally:
         timer.close()
         server.stop()
@@ -3750,7 +4038,7 @@ def phase_serve_hybrid(seed: int, n: int, device: str = "cuda") -> dict:
         for key, c in hybrid_repeat_pass(client, node, name, bodies,
                                          responses, device).items():
             total[key] += c
-        drop_index(node, name)
+        drop_index(client, name)
     finally:
         server.stop()
     return total
@@ -4206,7 +4494,7 @@ def phase_serve_sparse(seed: int, n: int, n_walker: int = N_SPARSE_WALKER,
             total[key] = total.get(key, 0) + c
         log("serve_sparse", concurrent_batches=batches,
             sparse_calls=conc.get(bm25.KERNEL, 0))
-        drop_index(node, name)
+        drop_index(client, name)
         del emb
 
         # the plain `query: {sparse_vector}` host walker, at n_walker
@@ -4249,7 +4537,7 @@ def phase_serve_sparse(seed: int, n: int, n_walker: int = N_SPARSE_WALKER,
             walker_queries=len(q_tokens),
             walker_p50_ms=f"{statistics.median(walk_lat):.3f}",
             walker_board_leg_p50_ms=f"{statistics.median(wboard_lat):.3f}")
-        drop_index(node, walk_name)
+        drop_index(client, walk_name)
     finally:
         server.stop()
     return total
@@ -4292,6 +4580,10 @@ def main(argv=None) -> int:
                     help="build, check bm25_board and run only "
                          "serve_hybrid at --n-msmarco passages (no final "
                          "ok line)")
+    ap.add_argument("--docs-only", action="store_true",
+                    help="build the binned kernels and run only serve_sift's "
+                         "sequential requests and serve_documents at "
+                         "--n-sift docs (no final ok line)")
     ap.add_argument("--n-sparse", type=int, default=N_SPARSE)
     ap.add_argument("--sparse-only", action="store_true",
                     help="build, check bm25_board (the BM25 and the "
@@ -4316,6 +4608,10 @@ def main(argv=None) -> int:
             print(json.dumps({"kernels": list(kernels.values())}))
             print(smi)
             return 0
+    if args.docs_only:
+        phase_build(["knn_binned"])
+        phase_serve(args.seed, args.n_sift, 0, docs_only=True)
+        return 0
     phase_build()
     if args.sharded_only:
         phase_serve_sharded(args.seed, args.n_sharded, smi=smi)

@@ -61,7 +61,28 @@ class QueryShardError(SearchEngineError):
     status = 400
 
 
+class ActionRequestValidationError(SearchEngineError):
+    """Aggregated request validation failures ("Validation Failed: 1:
+    ...;")."""
+
+    status = 400
+
+    @classmethod
+    def of(cls, failures) -> "ActionRequestValidationError":
+        msg = "Validation Failed: " + " ".join(
+            f"{i + 1}: {m};" for i, m in enumerate(failures))
+        return cls(msg)
+
+
+class InvalidIndexNameError(SearchEngineError):
+    status = 400
+
+
 class ResourceNotFoundError(SearchEngineError):
+    status = 404
+
+
+class DocumentMissingError(ResourceNotFoundError):
     status = 404
 
 

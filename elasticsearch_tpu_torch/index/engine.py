@@ -20,11 +20,19 @@ a source, or `vectors=` / `token_vectors=`) have no JSON to keep and are
 rendered from their blocks. A document's routing value, when it has one,
 is kept beside its `_id`.
 
+Writes are versioned as in the reference: each takes a seq_no, a version
+(internal, or the caller's `external` / `external_gte` one) and is checked
+against the version map first (`create` on a live id, `if_seq_no` /
+`if_primary_term`, `version`). `delete` tombstones the live row and keeps a
+deleted entry in the version map, so a later write of the id is `created`
+at version 1. A realtime GET reads a sealed row from its segment directly.
+
 This slice has no translog and no flush: nothing survives the process.
 """
 
 from __future__ import annotations
 
+import bisect
 import itertools
 import threading
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -32,7 +40,8 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 
 from elasticsearch_tpu_torch.common.errors import (
-    MapperParsingError, VersionConflictError,
+    DocumentMissingError, IllegalArgumentError, MapperParsingError,
+    SearchEngineError, VersionConflictError,
 )
 from elasticsearch_tpu_torch.index.mapping import MapperService
 from elasticsearch_tpu_torch.index.segment import (
@@ -48,14 +57,18 @@ class EngineResult(NamedTuple):
     seq_no: int
     primary_term: int
     version: int
-    result: str    # "created" | "updated"
+    result: str    # "created" | "updated" | "deleted"
     row: int
 
 
 class _VersionValue(NamedTuple):
     version: int
     seq_no: int
-    row: int
+    row: int            # -1 once deleted
+    deleted: bool = False
+
+
+_EXTERNAL = ("external", "external_gt", "external_gte")
 
 
 class _Buffer:
@@ -245,27 +258,44 @@ class Engine:
         self.mapper_service = mapper_service
         self._lock = threading.Lock()
         self.segments: List[Segment] = []
+        self._seg_bases: List[int] = []           # each segment's base row
         self.deleted_rows: Dict[int, set] = {}    # seg_id -> local rows
         self.version_map: Dict[str, _VersionValue] = {}
         self._next_seq_no = 0
         self._next_row = 0
         self._next_seg_id = 0
         self._buffer: Optional[_Buffer] = None
-        self._reader: Optional[ShardReader] = None
+        # an empty point-in-time view until the first refresh, as the
+        # reference's engine opens with one: writes stay unsearchable
+        self._reader = ShardReader([])
         self._refresh_listeners: List[Callable[[ShardReader], None]] = []
 
     # ---------------------------------------------------------------- writes
     def index(self, doc_id: str, source: dict, op_type: str = "index",
-              routing: Optional[str] = None) -> EngineResult:
-        return self.index_many([doc_id], [source], op_type=op_type,
-                               routings=[routing])[0]
+              routing: Optional[str] = None,
+              if_seq_no: Optional[int] = None,
+              if_primary_term: Optional[int] = None,
+              version: Optional[int] = None,
+              version_type: str = "internal") -> EngineResult:
+        """One document, its conflicts checked as the reference checks
+        them (`_check_conflicts`); a conflict raises."""
+        res = self.index_many(
+            [doc_id], [source], op_type=op_type, routings=[routing],
+            if_seq_no=if_seq_no, if_primary_term=if_primary_term,
+            version=version, version_type=version_type)[0]
+        if isinstance(res, SearchEngineError):
+            raise res
+        return res
 
     def index_many(self, ids: List[str], sources: Optional[List[dict]] = None,
                    vectors: Optional[Dict[str, np.ndarray]] = None,
                    token_vectors: Optional[Dict[str, tuple]] = None,
                    op_type: str = "index",
-                   routings: Optional[List[Optional[str]]] = None
-                   ) -> List[EngineResult]:
+                   routings: Optional[List[Optional[str]]] = None,
+                   if_seq_no: Optional[int] = None,
+                   if_primary_term: Optional[int] = None,
+                   version: Optional[int] = None,
+                   version_type: str = "internal") -> list:
         """Index a batch. `sources[i]` is document i's `_source` (dense_vector
         values may be lists or numpy rows, rank_vectors values lists of
         token vectors); `vectors` may instead supply a field's values for
@@ -273,17 +303,28 @@ class Engine:
         rank_vectors field's as (tokens [T, dims], counts [n]): document i
         owns the next counts[i] rows, and a count of 0 leaves the document
         without the field. `routings[i]` is document i's routing value (or
-        None). The batch is validated before any document is applied."""
+        None). The batch is validated before any document is applied.
+
+        Each document's version conflicts are checked in the batch's order
+        under the engine lock (`create` on a live id, and the conditional
+        parameters, which apply to every document of the batch): a
+        document that conflicts is not applied and takes no seq_no, and
+        its place in the returned list holds its `VersionConflictError`;
+        every other place holds its `EngineResult`."""
         n = len(ids)
         sources = [None] * n if sources is None else list(sources)
         routings = [None] * n if routings is None else list(routings)
         if len(sources) != n or len(routings) != n:
             raise ValueError("ids, sources and routings differ in length")
+        if op_type == "create" and version_type != "internal":
+            raise IllegalArgumentError(
+                "create operations only support internal versioning. use "
+                "index instead")
         mappers = self.mapper_service.vector_fields()
         token_mappers = self.mapper_service.token_fields()
         token_columns = {f: self._token_column(f, token_mappers, value, n)
                          for f, value in (token_vectors or {}).items()}
-        columns = {}
+        blocks = {}
         for field, block in (vectors or {}).items():
             mapper = mappers.get(field)
             if mapper is None:
@@ -297,7 +338,96 @@ class Engine:
             if not np.isfinite(block).all():
                 raise MapperParsingError(
                     f"[{field}] vector contains non-finite values")
-            columns[field] = (None, block)
+            blocks[field] = block
+        parsed = [None if src is None
+                  else self.mapper_service.parse_document(src)
+                  for src in sources]
+        checked = (op_type == "create" or version is not None
+                   or if_seq_no is not None or if_primary_term is not None
+                   or version_type != "internal")
+        with self._lock:
+            out: list = [None] * n
+            keep = list(range(n))
+            if checked:
+                # the batch's own earlier documents count, in order
+                seen: Dict[str, _VersionValue] = {}
+                keep = []
+                for i, doc_id in enumerate(ids):
+                    existing = seen.get(doc_id, self.version_map.get(doc_id))
+                    try:
+                        self._check_conflicts(
+                            doc_id, existing, version, version_type,
+                            if_seq_no, if_primary_term, op_type)
+                    except VersionConflictError as e:
+                        out[i] = e
+                        continue
+                    keep.append(i)
+                    seen[doc_id] = _VersionValue(
+                        self._new_version(existing, version, version_type),
+                        -1, -1)
+            if not keep:
+                return out
+            whole = len(keep) == n
+            ids_k = list(ids) if whole else [ids[i] for i in keep]
+            columns = {f: (None, b if whole else b[keep])
+                       for f, b in blocks.items()}
+            tokens = token_columns if whole else {
+                f: self._token_subset(col, keep, n)
+                for f, col in token_columns.items()}
+            start = self._append(
+                ids_k, [sources[i] for i in keep] if not whole else sources,
+                [routings[i] for i in keep] if not whole else routings,
+                [parsed[i] for i in keep] if not whole else parsed,
+                columns, tokens, mappers, token_mappers)
+            for j, i in enumerate(keep):
+                doc_id = ids[i]
+                row = self._buffer.base + start + j
+                existing = self.version_map.get(doc_id)
+                live = existing is not None and not existing.deleted
+                if live:
+                    self._tombstone(existing.row)
+                new_version = self._new_version(existing, version,
+                                                version_type)
+                seq_no = self._next_seq_no
+                self._next_seq_no += 1
+                self.version_map[doc_id] = _VersionValue(new_version, seq_no,
+                                                         row)
+                out[i] = EngineResult(
+                    doc_id, seq_no, PRIMARY_TERM, new_version,
+                    "updated" if live else "created", row)
+            return out
+
+    @staticmethod
+    def _new_version(existing: Optional[_VersionValue], version,
+                     version_type: str) -> int:
+        """The version a write gives its document: the external one, else
+        one past a live document's (1 for a new or deleted id)."""
+        if version_type in _EXTERNAL:
+            return version
+        return 1 if existing is None or existing.deleted \
+            else existing.version + 1
+
+    @staticmethod
+    def _token_subset(col: tuple, keep: List[int], n: int) -> tuple:
+        """A rank_vectors column (mask, tokens, counts) cut to the batch
+        positions `keep`."""
+        mask, toks, counts = col
+        full = np.zeros(n, dtype=np.int64)
+        full[mask] = counts
+        offsets = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(full, out=offsets[1:])
+        kept = np.asarray(keep, dtype=np.int64)
+        sub = full[kept]
+        rows = (np.concatenate([np.arange(offsets[i], offsets[i + 1])
+                                for i in kept]) if len(kept)
+                else np.zeros(0, dtype=np.int64))
+        return sub > 0, toks[rows], sub[sub > 0]
+
+    def _append(self, ids, sources, routings, parsed, columns,
+                token_columns, mappers, token_mappers) -> int:
+        """Append validated documents to the buffer (caller holds the
+        lock); returns the first one's local row."""
+        n = len(ids)
         stored = []
         per_field: Dict[str, list] = {
             f: [] for f in (*mappers, *token_mappers)
@@ -306,30 +436,30 @@ class Engine:
         doc_values: Dict[str, Tuple[list, list]] = {}
         text: Dict[str, Tuple[list, list, list, list]] = {}
         features: Dict[str, Tuple[list, list, list]] = {}
-        for i, src in enumerate(sources):
+        for i, (src, doc) in enumerate(zip(sources, parsed)):
             if src is None:
                 stored.append(None)
                 continue
-            parsed = self.mapper_service.parse_document(src)
-            for field, vec in parsed.vectors.items():
+            for field, vec in doc.vectors.items():
                 if field in per_field:
                     per_field[field].append((i, vec))
-            for field, length in parsed.field_lengths.items():
+            doc_terms = dict(doc.terms)
+            for field, length in doc.field_lengths.items():
                 pos, ts, ps, lens = text.setdefault(field, ([], [], [], []))
                 pos.append(i)
-                ts.append(parsed.terms.pop(field, []))
-                ps.append(parsed.term_positions[field])
+                ts.append(doc_terms.pop(field, []))
+                ps.append(doc.term_positions[field])
                 lens.append(length)
-            for field, (keys, weights) in parsed.features.items():
+            for field, (keys, weights) in doc.features.items():
                 pos, ks, ws = features.setdefault(field, ([], [], []))
                 pos.append(i)
                 ks.append(keys)
                 ws.append(weights)
-            for field, ts in parsed.terms.items():
+            for field, ts in doc_terms.items():
                 pos, vals = terms.setdefault(field, ([], []))
                 pos.extend([i] * len(ts))
                 vals.extend(ts)
-            for field, dv in parsed.doc_values.items():
+            for field, dv in doc.doc_values.items():
                 pos, vals = doc_values.setdefault(field, ([], []))
                 pos.append(i)
                 vals.append(dv)
@@ -349,37 +479,83 @@ class Engine:
                     np.asarray([len(v) for _, v in items], dtype=np.int64))
             else:
                 columns[field] = (mask, np.stack([v for _, v in items]))
+        if self._buffer is None:
+            self._buffer = _Buffer(self._next_seg_id, self._next_row)
+            self._next_seg_id += 1
+        start = self._buffer.add(list(ids), stored, routings, columns,
+                                 token_columns, terms, doc_values)
+        self._buffer.add_text(start, text)
+        self._buffer.add_features(start, features)
+        self._next_row += n
+        return start
 
+    def delete(self, doc_id: str, if_seq_no: Optional[int] = None,
+               if_primary_term: Optional[int] = None,
+               version: Optional[int] = None,
+               version_type: str = "internal") -> EngineResult:
+        """Tombstone the document's live row and record it deleted in the
+        version map under a new seq_no; a missing or deleted id raises
+        `DocumentMissingError`."""
         with self._lock:
-            if op_type == "create":
-                for doc_id in ids:
-                    if doc_id in self.version_map:
-                        raise VersionConflictError(
-                            f"[{doc_id}]: version conflict, document already "
-                            f"exists (current version "
-                            f"[{self.version_map[doc_id].version}])")
-            if self._buffer is None:
-                self._buffer = _Buffer(self._next_seg_id, self._next_row)
-                self._next_seg_id += 1
-            start = self._buffer.add(list(ids), stored, routings, columns,
-                                     token_columns, terms, doc_values)
-            self._buffer.add_text(start, text)
-            self._buffer.add_features(start, features)
-            self._next_row += n
-            out = []
-            for i, doc_id in enumerate(ids):
-                row = self._buffer.base + start + i
-                existing = self.version_map.get(doc_id)
-                if existing is not None:
-                    self._tombstone(existing.row)
-                version = 1 if existing is None else existing.version + 1
-                seq_no = self._next_seq_no
-                self._next_seq_no += 1
-                self.version_map[doc_id] = _VersionValue(version, seq_no, row)
-                out.append(EngineResult(
-                    doc_id, seq_no, PRIMARY_TERM, version,
-                    "created" if existing is None else "updated", row))
-            return out
+            existing = self.version_map.get(doc_id)
+            if existing is None or existing.deleted:
+                raise DocumentMissingError(f"[{doc_id}]: document missing")
+            self._check_conflicts(doc_id, existing, version, version_type,
+                                  if_seq_no, if_primary_term, "delete")
+            seq_no = self._next_seq_no
+            self._next_seq_no += 1
+            new_version = (existing.version + 1 if version_type == "internal"
+                           else version) or 1
+            self._tombstone(existing.row)
+            self.version_map[doc_id] = _VersionValue(new_version, seq_no, -1,
+                                                     True)
+            return EngineResult(doc_id, seq_no, PRIMARY_TERM, new_version,
+                                "deleted", -1)
+
+    @staticmethod
+    def _check_conflicts(doc_id, existing, version, version_type, if_seq_no,
+                         if_primary_term, op_type) -> None:
+        """The reference's conflict rules: `create` on a live id, the
+        `if_seq_no` / `if_primary_term` pair, an internal `version`, and the
+        `external` / `external_gte` version types (a missing document
+        compares as -1)."""
+        live = existing is not None and not existing.deleted
+        if op_type == "create" and live:
+            raise VersionConflictError(
+                f"[{doc_id}]: version conflict, document already exists "
+                f"(current version [{existing.version}])")
+        if if_seq_no is not None or if_primary_term is not None:
+            if not live:
+                raise VersionConflictError(
+                    f"[{doc_id}]: version conflict, document does not exist")
+            if (if_seq_no is not None and existing.seq_no != if_seq_no) or \
+                    (if_primary_term is not None
+                     and PRIMARY_TERM != if_primary_term):
+                raise VersionConflictError(
+                    f"[{doc_id}]: version conflict, required seqNo "
+                    f"[{if_seq_no}], primary term [{if_primary_term}], "
+                    f"current document has seqNo [{existing.seq_no}] and "
+                    f"primary term [{PRIMARY_TERM}]")
+        if version_type in _EXTERNAL:
+            if version is None:
+                raise IllegalArgumentError(
+                    f"[{doc_id}]: external version type requires an "
+                    f"explicit version")
+            current = existing.version if live else -1
+            # external wants strictly greater; external_gte allows equal
+            if (version < current) if version_type == "external_gte" \
+                    else (version <= current):
+                raise VersionConflictError(
+                    f"[{doc_id}]: version conflict, current version "
+                    f"[{current}] is higher or equal to the one provided "
+                    f"[{version}]")
+        elif version is not None and version_type == "internal":
+            current = existing.version if live else None
+            if current != version:
+                raise VersionConflictError(
+                    f"[{doc_id}]: version conflict, current version "
+                    f"[{current}] is different than the one provided "
+                    f"[{version}]")
 
     def fail_seq_no(self) -> int:
         """Take one seq_no and apply nothing: a document that fails to
@@ -417,29 +593,44 @@ class Engine:
         mask = counts > 0
         return mask, tokens, counts[mask]
 
+    def _sealed(self, row: int) -> Optional[Tuple[Segment, int]]:
+        """The sealed segment holding a row and the row's local doc, found
+        by a binary search over the segments' bases."""
+        i = bisect.bisect_right(self._seg_bases, row) - 1
+        if i >= 0:
+            seg = self.segments[i]
+            if row < seg.base + seg.num_docs:
+                return seg, row - seg.base
+        return None
+
     def _tombstone(self, row: int) -> None:
-        for seg in self.segments:
-            if seg.base <= row < seg.base + seg.num_docs:
-                self.deleted_rows.setdefault(seg.seg_id, set()).add(row - seg.base)
-                return
+        hit = self._sealed(row)
+        if hit is not None:
+            self.deleted_rows.setdefault(hit[0].seg_id, set()).add(hit[1])
+            return
         buf = self._buffer
         self.deleted_rows.setdefault(buf.seg_id, set()).add(row - buf.base)
 
     # ----------------------------------------------------------------- reads
-    def get(self, doc_id: str) -> Optional[dict]:
-        """Realtime get: the latest version, sealed or still buffered."""
+    def get(self, doc_id: str, realtime: bool = True) -> Optional[dict]:
+        """The latest version of a live document: sealed or still buffered
+        when `realtime`, else only as the last refresh sealed it (None
+        while its latest write is unrefreshed)."""
         with self._lock:
             vv = self.version_map.get(doc_id)
-            if vv is None:
+            if vv is None or vv.deleted:
                 return None
             buf = self._buffer
             if buf is not None and vv.row >= buf.base:
+                if not realtime:
+                    return None
                 src = buf.source(vv.row - buf.base)
                 routing = buf.routings[vv.row - buf.base]
             else:
-                sealed = ShardReader([SegmentView(s) for s in self.segments])
-                src = sealed.get_source(vv.row)
-                routing = sealed.get_routing(vv.row)
+                seg, local = self._sealed(vv.row)
+                src = seg.source(local)
+                routing = (None if seg.routings is None
+                           else seg.routings[local])
             out = {"_version": vv.version, "_seq_no": vv.seq_no,
                    "_primary_term": PRIMARY_TERM, "_source": src}
             if routing is not None:
@@ -453,6 +644,7 @@ class Engine:
                 dims = {f: m.dims for f, m in
                         self.mapper_service.vector_fields().items()}
                 self.segments.append(self._buffer.seal(dims))
+                self._seg_bases.append(self._buffer.base)
                 self._buffer = None
             views = [SegmentView(seg, self.deleted_rows.get(seg.seg_id))
                      for seg in self.segments]
@@ -463,8 +655,7 @@ class Engine:
 
     def acquire_searcher(self) -> ShardReader:
         with self._lock:
-            reader = self._reader
-        return reader if reader is not None else self.refresh()
+            return self._reader
 
     def add_refresh_listener(self, listener: Callable[[ShardReader], None]) -> None:
         self._refresh_listeners.append(listener)

@@ -406,6 +406,7 @@ class MapperService:
     def __init__(self, mapping: Optional[dict] = None,
                  registry: Optional[AnalysisRegistry] = None):
         self._mappers: Dict[str, FieldMapper] = {}
+        self._meta: dict = {}
         self.source_enabled = True
         # the index's analyzers (`AnalysisRegistry.from_index_settings`)
         self.registry = registry
@@ -413,9 +414,19 @@ class MapperService:
             self.merge(mapping)
 
     def merge(self, mapping: dict) -> None:
+        """Add a mapping's fields (`PUT /{index}/_mapping` too): a body of
+        `properties`, or a bare field object less its metadata keys. A
+        field whose type changes is the reference's 400, and the fields
+        before it in the body stay merged, as there."""
         if not isinstance(mapping, dict):
             raise MapperParsingError("mapping must be an object")
-        props = mapping.get("properties", {})
+        if "properties" in mapping:
+            props = mapping["properties"]
+        else:
+            props = {k: v for k, v in mapping.items()
+                     if not k.startswith("_") and k != "dynamic"}
+        if "_meta" in mapping:
+            self._meta = mapping["_meta"]
         src = mapping.get("_source")
         if isinstance(src, dict) and src.get("enabled") is False:
             # _source disabled: never rendered in hits or GET
@@ -434,6 +445,16 @@ class MapperService:
 
     def get(self, path: str) -> Optional[FieldMapper]:
         return self._mappers.get(path)
+
+    def to_dict(self) -> dict:
+        """The mapping as `GET /_mapping` renders it: each field's type and
+        its definition as given, by field name, and `_meta`."""
+        out = {"properties": {
+            name: {"type": m.type_name, **m.params}
+            for name, m in sorted(self._mappers.items())}}
+        if self._meta:
+            out["_meta"] = self._meta
+        return out
 
     def all_mappers(self):
         return list(self._mappers.items())

@@ -9,20 +9,34 @@ combined reader whose rows are rebased by shard: shard s owns the rows
 [s * SHARD_ROW_SPACE, (s + 1) * SHARD_ROW_SPACE), so a row names its shard
 and its row in that shard's engine.
 
-Left out, as ROADMAP.md lists: aliases, close / open, settings updates,
-templates, and the shard-failure retry (`exclude_shards`).
+The module also holds the node's index-name rules (port of
+`IndicesService.validate_index_name` and `resolve`): `resolve_expression`
+turns an index expression (none, `_all`, a comma list, `*` patterns) into
+index services, deduplicated in order, under the `ignore_unavailable` and
+`allow_no_indices` options; every API that takes an expression resolves
+it there.
+
+Left out, as ROADMAP.md lists: aliases, close / open, hidden indices,
+settings updates, templates, date math in names, and the shard-failure
+retry (`exclude_shards`). An expression part in date math, an
+`index.hidden` setting and an `expand_wildcards` other than `open` are
+400s.
 """
 
 from __future__ import annotations
 
 import copy
+import re
+import time
 import uuid
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from elasticsearch_tpu_torch.cluster.routing import shard_id_for, shard_ids_for
-from elasticsearch_tpu_torch.common.errors import IllegalArgumentError
+from elasticsearch_tpu_torch.common.errors import (
+    IllegalArgumentError, IndexNotFoundError, InvalidIndexNameError,
+)
 from elasticsearch_tpu_torch.index.analysis import AnalysisRegistry
 from elasticsearch_tpu_torch.index.engine import Engine, EngineResult
 from elasticsearch_tpu_torch.index.mapping import MapperService
@@ -33,6 +47,56 @@ from elasticsearch_tpu_torch.vectors.store import VectorStoreShard
 # [s * SHARD_ROW_SPACE, (s+1) * SHARD_ROW_SPACE).
 SHARD_ROW_SPACE = 1 << 40
 MAX_SHARDS = 1024
+_INDEX_NAME_RE = re.compile(r"^[^A-Z\\/*?\"<>| ,#:][^A-Z\\/*?\"<>| ,#]*$")
+
+
+def validate_index_name(name: str) -> None:
+    """The reference's index-name rules: not empty, `.` or `..`, no
+    leading `-`, `_` or `+`, no upper case or `\\/*?"<>| ,#` (nor a
+    leading `:`), at most 255 bytes."""
+    if not name or name in (".", "..") or name.startswith(("-", "_", "+")) \
+            or not _INDEX_NAME_RE.match(name) or len(name.encode()) > 255:
+        raise InvalidIndexNameError(f"Invalid index name [{name}]",
+                                    index=name)
+
+
+def resolve_expression(indices: Dict[str, "IndexService"],
+                       expression: Optional[str],
+                       ignore_unavailable: bool = False,
+                       allow_no_indices: bool = True) -> List["IndexService"]:
+    """The indices an expression names, deduplicated in order. None or ""
+    names every index; else each comma-separated part is `_all` or a `*`
+    pattern (matching no index raises `IndexNotFoundError` for that part
+    when `allow_no_indices` is false) or a concrete name (missing, it
+    raises `IndexNotFoundError` unless `ignore_unavailable` drops it). A
+    part in date math (`<...>`) is a 400."""
+    if expression in (None, ""):
+        return list(indices.values())
+    out: Dict[str, IndexService] = {}
+    for part in expression.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if part.startswith("<") and part.endswith(">"):
+            raise IllegalArgumentError(
+                f"date math index expressions are not supported by this "
+                f"build: [{part}]")
+        if part == "_all" or "*" in part:
+            pat = re.compile(".*" if part == "_all" else
+                             ".*".join(map(re.escape, part.split("*"))))
+            matched = [n for n in indices if pat.fullmatch(n)]
+            if not matched and not allow_no_indices:
+                raise IndexNotFoundError(part)
+            for n in matched:
+                out.setdefault(n, indices[n])
+            continue
+        svc = indices.get(part)
+        if svc is None:
+            if ignore_unavailable:
+                continue
+            raise IndexNotFoundError(part)
+        out.setdefault(part, svc)
+    return list(out.values())
 
 
 def flat_settings(settings: Optional[dict]) -> Dict[str, object]:
@@ -116,11 +180,16 @@ class IndexService:
         self.name = name
         self.settings = dict(settings or {})   # flat `index.*` settings
         self.uuid = uuid.uuid4().hex[:22]
+        self.creation_date = int(time.time() * 1000)
         self.num_shards = int(self.settings.get("index.number_of_shards", 1))
         if not 1 <= self.num_shards <= MAX_SHARDS:
             raise IllegalArgumentError(
                 f"index [{name}]: number_of_shards must be in "
                 f"[1, {MAX_SHARDS}], got {self.num_shards}")
+        if str(self.settings.get("index.hidden", "false")).lower() != "false":
+            raise IllegalArgumentError(
+                "index setting [index.hidden] is not supported by this "
+                "build: hidden indices are not ported")
         knn_engine, knn_nlist, knn_nprobe = validate_knn_settings(
             self.settings)
         # the index's analyzers: the built-ins and its `index.analysis.*`
@@ -187,6 +256,13 @@ class IndexService:
     def refresh(self) -> None:
         for s in self.shards:
             s.engine.refresh()
+
+    def close(self) -> None:
+        """Let go of the index's device memory: every shard store's corpora,
+        snapshots and batchers, and the memoized combined reader."""
+        for s in self.shards:
+            s.vector_store.close()
+        self._combined = None
 
     def doc_count(self) -> int:
         return sum(s.engine.acquire_searcher().num_docs for s in self.shards)

@@ -1,13 +1,21 @@
 """One node holding indices of 1 to 1024 shards on one card (port of the
-served slices of `elasticsearch_tpu/node.py`): index create (with
-`number_of_shards` and the `index.knn.*` engine settings), document writes
-and realtime GET routed to a shard by `routing` or `_id`, `_bulk`, refresh,
-`_search` with `knn` (one spec or a list, each with an optional filter)
-and / or a `query` of the ported kinds (filters and BM25 text queries)
-over every shard, and hybrid `rank: {rrf}` searches (one `HybridExecutor`
-per index, whose BM25 and late-interaction stores read the index's
-combined reader, so BM25 scores with corpus-wide statistics), with the
-reference's response shapes.
+served slices of `elasticsearch_tpu/node.py`).
+
+Indices: create (with `number_of_shards` and the `index.knn.*` engine
+settings, the reference's name rules and defaults), delete (its stores'
+device memory and its hybrid executor let go), exists, mapping updates,
+and index expressions (`resolve`: none, `_all`, lists, `*` patterns).
+Documents, routed to a shard by `routing` or `_id`: index (auto ids, the
+conditional `if_seq_no` / `if_primary_term` / `version` writes, `refresh`
+with `wait_for`), realtime GET, delete, update (`doc` deep merge,
+`detect_noop`, `upsert`, `doc_as_upsert`), `_mget` and `_bulk` with its
+four actions. Search over an expression: each index's query phase
+(filters, BM25 text queries, `knn` specs with their filters) through its
+own store, the hits merged by score as the reference merges them;
+`_count` and `_msearch`; hybrid `rank: {rrf}` searches over one index
+(one `HybridExecutor` per index, whose BM25 and late-interaction stores
+read the index's combined reader, so BM25 scores with corpus-wide
+statistics). Responses take the reference's shapes.
 
 The node's search caches (`search/caches.py::NodeCaches`) sit in front of
 the query phase, in the reference's order: the can_match pre-filter when
@@ -16,7 +24,11 @@ shard request cache for a kNN-bearing or hybrid body (on unless the node
 setting `search.request_cache.device_paths` is false), else its host rung
 for a `size: 0` or opted-in body; the node query cache serves every
 search context's `bool` filter clauses. `_cache/clear` and the `query_cache` /
-`request_cache` index stats read them."""
+`request_cache` index stats read them.
+
+Left out, as ROADMAP.md lists: `script` updates, aliases, closed and
+hidden indices and date math in expressions, and hybrid bodies over
+several indices (each a 400)."""
 
 from __future__ import annotations
 
@@ -34,11 +46,13 @@ import numpy as np
 from elasticsearch_tpu_torch import resolve_device
 from elasticsearch_tpu_torch.cluster.routing import shard_ids_for
 from elasticsearch_tpu_torch.common.errors import (
-    IllegalArgumentError, IndexNotFoundError, ResourceAlreadyExistsError,
-    SearchEngineError,
+    ActionRequestValidationError, DocumentMissingError, IllegalArgumentError,
+    IndexNotFoundError, ParsingError, ResourceAlreadyExistsError,
+    SearchEngineError, VersionConflictError,
 )
 from elasticsearch_tpu_torch.indices.service import (  # noqa: F401
-    SHARD_ROW_SPACE, IndexService, flat_settings, validate_knn_settings,
+    SHARD_ROW_SPACE, IndexService, flat_settings, resolve_expression,
+    validate_index_name, validate_knn_settings,
 )
 from elasticsearch_tpu_torch.search.caches import (
     NodeCaches, can_match, reader_fingerprint,
@@ -46,7 +60,9 @@ from elasticsearch_tpu_torch.search.caches import (
 from elasticsearch_tpu_torch.search.hybrid_plan import HybridExecutor
 from elasticsearch_tpu_torch.search.queries import SearchContext
 from elasticsearch_tpu_torch.search.service import (
-    execute_fetch_phase, execute_query_phase,
+    check_track_total_hits, count_body, execute_fetch_phase,
+    execute_query_phase, filter_source, render_hits, source_patterns,
+    tracks_total, window,
 )
 from elasticsearch_tpu_torch.serving.batcher import CombiningBatcher
 
@@ -60,6 +76,16 @@ _STATS_METRICS = (
 _PORTED_STATS = ("query_cache", "request_cache")
 # a `_bulk` item whose document failed to parse: it takes a seq_no only
 _PARSE_FAILED = "parse_failed"
+_BULK_ACTIONS = ("index", "create", "update", "delete")
+# a bulk item's conditional parameters (the engine's conflict checks)
+_CONDITIONAL = ("if_seq_no", "if_primary_term", "version")
+# `refresh` values that refresh after a write, and those of them that mark
+# the response `forced_refresh`
+_REFRESHING = ("true", "", "wait_for", True)
+_FORCED = ("true", "", True)
+_UPDATE_FIELDS = ["doc", "script", "upsert", "doc_as_upsert",
+                  "scripted_upsert", "detect_noop", "_source", "if_seq_no",
+                  "if_primary_term", "lang"]
 
 
 class _MultiShardVectorStore:
@@ -233,14 +259,15 @@ class Node:
     # -------------------------------------------------------------- indices
     def create_index(self, name: str, body: Optional[dict]) -> dict:
         body = body or {}
-        if name != name.lower() or name.startswith(("_", "-", "+")):
-            raise IllegalArgumentError(f"invalid index name [{name}]")
-        settings = flat_settings(body.get("settings"))
+        validate_index_name(name)
+        # the reference's defaults, under the body's own settings
+        settings = {"index.number_of_shards": 1,
+                    "index.number_of_replicas": 1,
+                    **flat_settings(body.get("settings"))}
         with self._lock:
             if name in self.indices:
-                svc = self.indices[name]
                 raise ResourceAlreadyExistsError(
-                    f"index [{name}/{svc.uuid}] already exists", index=name)
+                    f"index [{name}] already exists", index=name)
             svc = IndexService(name, body.get("mappings"), self.device,
                                settings=settings)
             svc.vector_store = _MultiShardVectorStore(svc)
@@ -253,6 +280,53 @@ class Node:
         if svc is None:
             raise IndexNotFoundError(name)
         return svc
+
+    def resolve(self, expression: Optional[str],
+                ignore_unavailable: bool = False,
+                allow_no_indices: bool = True) -> List[IndexService]:
+        """The indices an expression names (`resolve_expression`)."""
+        with self._lock:
+            indices = dict(self.indices)
+        return resolve_expression(indices, expression,
+                                  ignore_unavailable=ignore_unavailable,
+                                  allow_no_indices=allow_no_indices)
+
+    def delete_index(self, expression: str, ignore_unavailable: bool = False,
+                     allow_no_indices: bool = True) -> dict:
+        """`DELETE /{index}` of every index the expression names
+        (`resolve`). A deleted index lets go of its device memory: its
+        shard stores' corpora, snapshots and batchers and its hybrid
+        executor (token tiles, lexical and sparse boards)."""
+        for svc in self.resolve(expression, ignore_unavailable,
+                                allow_no_indices):
+            with self._lock:
+                gone = self.indices.pop(svc.name, None)
+                self._hybrid.pop(svc.name, None)
+            if gone is None:
+                raise IndexNotFoundError(svc.name)
+            gone.close()
+        return {"acknowledged": True}
+
+    def index_exists(self, expression: str) -> bool:
+        """`HEAD /{index}`: every part names an index or is a `*` pattern.
+        `_all` is taken as a name here, as the reference takes it, so it
+        is a 404."""
+        return all(p in self.indices or "*" in p
+                   for p in expression.split(","))
+
+    def put_mapping(self, expression: str, body: dict) -> dict:
+        """`PUT /{index}/_mapping`: merge the body into every index the
+        expression names; matching none is a 404."""
+        if "_doc" in body and isinstance(body["_doc"], dict) \
+                and "properties" in body["_doc"]:
+            raise IllegalArgumentError(
+                "Types cannot be provided in put mapping requests")
+        services = self.resolve(expression)
+        if not services:
+            raise IndexNotFoundError(expression)
+        for svc in services:
+            svc.mapper_service.merge(body)
+        return {"acknowledged": True}
 
     def _index_or_autocreate(self, name: str) -> IndexService:
         if name not in self.indices:
@@ -270,27 +344,61 @@ class Node:
                 "_shards": dict(_SHARDS_OK), "_seq_no": res.seq_no,
                 "_primary_term": res.primary_term}
 
+    @staticmethod
+    def _check_id(doc_id: str) -> None:
+        size = len(doc_id.encode("utf-8"))
+        if size > 512:
+            raise IllegalArgumentError(
+                f"id [{doc_id}] is too long, must be no longer than 512 "
+                f"bytes but was: {size}")
+
+    @staticmethod
+    def _maybe_refresh(svc: IndexService, refresh, shard=None) -> None:
+        """`refresh=true` (or empty) and `wait_for` on a write: refresh its
+        shard only, so the other shards' unrefreshed writes stay
+        invisible, or every shard without one."""
+        if refresh in _REFRESHING:
+            if shard is not None:
+                shard.engine.refresh()
+            else:
+                svc.refresh()
+
+    def _refresh_indices(self, names) -> None:
+        for name in names:
+            self.index(name).refresh()
+
     def index_doc(self, index: str, doc_id: Optional[str], body: dict,
                   op_type: str = "index", refresh: Optional[str] = None,
-                  routing: Optional[str] = None) -> dict:
+                  routing: Optional[str] = None,
+                  if_seq_no: Optional[int] = None,
+                  if_primary_term: Optional[int] = None,
+                  version: Optional[int] = None,
+                  version_type: str = "internal") -> dict:
+        """Index one document: an auto id (no `doc_id`) writes with create
+        semantics; the conditional parameters are the engine's
+        (`Engine._check_conflicts`)."""
         svc = self._index_or_autocreate(index)
         if doc_id is None:
             doc_id, op_type = uuid.uuid4().hex[:20], "create"
-        shard = svc.route(str(doc_id), routing)
-        res = shard.engine.index(str(doc_id), body, op_type=op_type,
-                                 routing=routing)
+        doc_id = str(doc_id)
+        self._check_id(doc_id)
+        shard = svc.route(doc_id, routing)
+        res = shard.engine.index(
+            doc_id, body, op_type=op_type, routing=routing,
+            if_seq_no=if_seq_no, if_primary_term=if_primary_term,
+            version=version, version_type=version_type)
+        self._maybe_refresh(svc, refresh, shard=shard)
         out = self._write_response(svc, res)
-        if refresh in ("true", ""):
-            # a doc-level refresh refreshes only the target shard: the
-            # other shards' unrefreshed writes stay invisible
-            shard.engine.refresh()
+        if refresh in _FORCED:
+            # the write itself made its change visible (`wait_for` is not
+            # "forced")
             out["forced_refresh"] = True
         return out
 
     def get_doc(self, index: str, doc_id: str,
-                routing: Optional[str] = None) -> dict:
+                routing: Optional[str] = None, realtime: bool = True) -> dict:
         svc = self.index(index)
-        doc = svc.route(doc_id, routing).engine.get(doc_id)
+        doc = svc.route(doc_id, routing).engine.get(doc_id, realtime=realtime)
         if doc is None:
             return {"_index": svc.name, "_id": doc_id, "found": False}
         out = {"_index": svc.name, "_id": doc_id,
@@ -302,79 +410,341 @@ class Node:
             out["_routing"] = doc["_routing"]
         return out
 
-    def bulk(self, ops: List[dict], default_index: Optional[str] = None,
-             refresh: Optional[str] = None) -> dict:
-        """`index` and `create` actions, each with an optional `routing`.
-        Each document is validated on its own (a bad one fails its item
-        only, and takes a seq_no on its shard in the request's order, as
-        in the reference); the valid documents of one index are routed in one
-        `shard_ids_for` call, and each run of one action among a shard's
-        documents goes to that shard's engine in one `index_many`."""
-        start = time.perf_counter()
-        items: List[Optional[dict]] = []
-        valid: Dict[str, list] = {}
-        i = 0
-        while i < len(ops):
-            action = ops[i]
+    def delete_doc(self, index: str, doc_id: str,
+                   refresh: Optional[str] = None,
+                   routing: Optional[str] = None,
+                   if_seq_no: Optional[int] = None,
+                   if_primary_term: Optional[int] = None,
+                   version: Optional[int] = None,
+                   version_type: str = "internal") -> dict:
+        """Delete one document; a missing one raises
+        `DocumentMissingError` (the REST layer's 404 `not_found`)."""
+        svc = self.index(index)
+        shard = svc.route(doc_id, routing)
+        res = shard.engine.delete(doc_id, if_seq_no=if_seq_no,
+                                  if_primary_term=if_primary_term,
+                                  version=version, version_type=version_type)
+        self._maybe_refresh(svc, refresh, shard=shard)
+        out = self._write_response(svc, res)
+        if refresh in _FORCED:
+            out["forced_refresh"] = True
+        return out
+
+    @staticmethod
+    def _validate_update_body(body: Optional[dict]) -> None:
+        for k in body or {}:
+            if k not in _UPDATE_FIELDS:
+                close = difflib.get_close_matches(k, _UPDATE_FIELDS, n=1)
+                hint = f" did you mean [{close[0]}]?" if close else ""
+                raise ParsingError(
+                    f"[UpdateRequest] unknown field [{k}]{hint}")
+
+    def update_doc(self, index: str, doc_id: str, body: dict,
+                   refresh: Optional[str] = None,
+                   routing: Optional[str] = None,
+                   if_seq_no: Optional[int] = None,
+                   if_primary_term: Optional[int] = None,
+                   source_filter=None) -> dict:
+        """`_update`: a partial `doc` deep-merged into the live source
+        (`detect_noop` on by default), or `upsert` / `doc_as_upsert` for a
+        missing document, re-indexed under the document's seq_no and
+        primary term; `_source` (the body's or the URL's) adds the new
+        source as `get`. A `script` update is a 400 until the script
+        module is ported."""
+        self._validate_update_body(body)
+        if "script" in body:
+            raise IllegalArgumentError(
+                "[script] updates are not supported by this build: the "
+                "script module is not ported")
+        if source_filter is None and "_source" in body:
+            source_filter = body["_source"]
+        svc = self._index_or_autocreate(index)
+        shard = svc.route(doc_id, routing)
+        existing = shard.engine.get(doc_id)
+
+        def with_get(out, src):
+            if source_filter is not None and source_filter is not False:
+                doc = {"_source": copy.deepcopy(src)}
+                _apply_mget_projection(svc, doc, {}, None, source_filter)
+                out["get"] = {"_source": doc.get("_source", {}),
+                              "found": True}
+            return out
+
+        if existing is None:
+            if "upsert" in body:
+                out = self.index_doc(svc.name, doc_id, body["upsert"],
+                                     refresh=refresh, routing=routing)
+                return with_get(out, body["upsert"])
+            if body.get("doc_as_upsert") and "doc" in body:
+                out = self.index_doc(svc.name, doc_id, body["doc"],
+                                     refresh=refresh, routing=routing)
+                return with_get(out, body["doc"])
+            raise DocumentMissingError(f"[{doc_id}]: document missing")
+        if if_seq_no is not None and existing["_seq_no"] != if_seq_no or \
+                if_primary_term is not None \
+                and existing["_primary_term"] != if_primary_term:
+            raise VersionConflictError(
+                f"[{doc_id}]: version conflict, required seqNo "
+                f"[{if_seq_no}], primary term [{if_primary_term}], "
+                f"current document has seqNo [{existing['_seq_no']}] and "
+                f"primary term [{existing['_primary_term']}]")
+        if "doc" not in body:
+            raise IllegalArgumentError("update requires [doc] or [script]")
+        source = copy.deepcopy(existing["_source"])
+        _deep_merge(source, body["doc"])
+        if body.get("detect_noop", True) and source == existing["_source"]:
+            return with_get({
+                "_index": svc.name, "_id": doc_id,
+                "_version": existing["_version"], "result": "noop",
+                "_seq_no": existing["_seq_no"],
+                "_primary_term": existing["_primary_term"],
+                "_shards": {"total": 0, "successful": 0, "failed": 0}},
+                source)
+        out = self.index_doc(svc.name, doc_id, source, refresh=refresh,
+                             routing=routing,
+                             if_seq_no=existing["_seq_no"],
+                             if_primary_term=existing["_primary_term"])
+        out["result"] = "updated"
+        return with_get(out, source)
+
+    def mget(self, body: Optional[dict], default_index: Optional[str] = None,
+             stored_fields=None, realtime: bool = True,
+             refresh: bool = False, source_filter=None) -> dict:
+        """`_mget`: `docs` (each with its `_index`, `_id`, `routing`,
+        `_source`, `stored_fields`) and / or `ids` of the URL's index.
+        Missing `_index` or `_id` fail the request as one validation error;
+        a missing index or document is `found: false`."""
+        body = body or {}
+        items: List[dict] = []
+        failures: List[str] = []
+        for spec in body.get("docs") or []:
+            index = spec.get("_index", default_index)
+            if not index:
+                failures.append("index is missing")
+            if "_id" not in spec:
+                failures.append("id is missing")
+            if index and "_id" in spec:
+                items.append({**spec, "_index": index})
+        for doc_id in body.get("ids") or []:
+            if not default_index:
+                failures.append("index is missing")
+            else:
+                items.append({"_index": default_index, "_id": doc_id})
+        if not items and not failures:
+            failures.append("no documents to get")
+        if failures:
+            raise ActionRequestValidationError.of(failures)
+        docs = []
+        refreshed = set()
+        for spec in items:
+            index, doc_id = spec["_index"], str(spec["_id"])
+            routing = spec.get("routing")
+            routing = None if routing is None else str(routing)
+            try:
+                if refresh and index not in refreshed:
+                    self.index(index).refresh()
+                    refreshed.add(index)
+                doc = self.get_doc(index, doc_id, routing=routing,
+                                   realtime=realtime)
+            except IndexNotFoundError:
+                docs.append({"_index": index, "_id": doc_id, "found": False})
+                continue
+            except IllegalArgumentError as e:
+                docs.append({"_index": index, "_id": doc_id,
+                             "error": e.to_wrapped_dict()})
+                continue
+            except SearchEngineError as e:
+                docs.append({"_index": index, "_id": doc_id,
+                             "error": e.to_dict()})
+                continue
+            _apply_mget_projection(self.indices.get(index), doc, spec,
+                                   stored_fields, source_filter)
+            docs.append(doc)
+        return {"docs": docs}
+
+    @staticmethod
+    def _validate_bulk(ops: List[dict]) -> None:
+        """Every action line of a `_bulk`, before any item runs: a
+        malformed one fails the whole request."""
+        line = 0
+        for j, action in enumerate(ops):
+            if j != line:
+                continue
             if not isinstance(action, dict) or len(action) != 1:
+                # the reference names the parser state it hit
+                if isinstance(action, dict) and len(action) > 1:
+                    expected, found = "END_OBJECT", "FIELD_NAME"
+                elif isinstance(action, dict):
+                    expected, found = "FIELD_NAME", "END_OBJECT"
+                else:
+                    expected, found = "START_OBJECT", "VALUE_STRING"
                 raise IllegalArgumentError(
-                    f"Malformed action/metadata line [{i + 1}], expected "
-                    f"a simple value for field [_index] but found "
-                    f"[{action!r}]")
+                    f"Malformed action/metadata line [{j + 1}], expected "
+                    f"{expected} but found [{found}]")
             (op, meta), = action.items()
-            meta = meta or {}
-            if op not in ("index", "create"):
+            if op not in _BULK_ACTIONS or not isinstance(meta, dict):
                 raise IllegalArgumentError(
-                    f"Malformed action/metadata line [{i + 1}], expected "
-                    f"one of [create, index] but found [{op}]")
+                    f"Malformed action/metadata line [{j + 1}], found "
+                    f"[{op}]")
             for dep in ("_version", "_routing", "_parent", "fields",
                         "_version_type", "_retry_on_conflict"):
                 if dep in meta:
                     raise IllegalArgumentError(
-                        f"Action/metadata line [{i + 1}] contains an "
+                        f"Action/metadata line [{j + 1}] contains an "
                         f"unknown parameter [{dep}]")
-            source = ops[i + 1] if i + 1 < len(ops) else None
-            i += 2
+            line += 1 if op == "delete" else 2
+
+    def bulk(self, ops: List[dict], default_index: Optional[str] = None,
+             refresh: Optional[str] = None, source_filter=None) -> dict:
+        """`_bulk` with the four actions. Every action line is validated
+        first. Items run in the request's order; each run of consecutive
+        unconditional `index` / `create` items goes in one batch, whose
+        valid documents of one index are routed in one `shard_ids_for`
+        call, and each run of one action among a shard's documents goes
+        to that shard's engine in one `index_many` (a document that fails
+        to parse fails its item only, and takes a seq_no on its shard in
+        the request's order, as in the reference). An `update`, a
+        `delete` and a conditional write (`if_seq_no`, `if_primary_term`,
+        `version`) run one at a time through the single-document paths.
+        An `index` item with no `_id` writes with create semantics and
+        keeps `index` as its key."""
+        start = time.perf_counter()
+        self._validate_bulk(ops)
+        items: List[Optional[dict]] = []
+        touched: set = set()
+        group: List[tuple] = []
+        i = 0
+        while i < len(ops):
+            (action, meta), = ops[i].items()
+            i += 1
             name = meta.get("_index", default_index)
+            doc_id = meta.get("_id")
+            doc_id = None if doc_id is None else str(doc_id)
+            routing = meta.get("routing")
+            routing = None if routing is None else str(routing)
             slot = len(items)
             items.append(None)
+            body = None
+            if action != "delete":
+                body = ops[i] if i < len(ops) else None
+                i += 1
+            key = action
+            if action in ("index", "create"):
+                op_type = ("create" if action == "create"
+                           else meta.get("op_type", "index"))
+                key = "create" if op_type == "create" else action
+                if not any(meta.get(k) is not None for k in _CONDITIONAL) \
+                        and meta.get("version_type", "internal") \
+                        == "internal":
+                    group.append((slot, key, op_type, name, doc_id, body,
+                                  routing))
+                    continue
+            self._bulk_group(group, items, touched)
+            group = []
             try:
+                if doc_id == "" and action != "delete":
+                    raise IllegalArgumentError(
+                        "if _id is specified it must not be empty")
                 if name is None:
                     raise IllegalArgumentError("index is missing")
-                if not isinstance(source, dict):
+                if doc_id is None and action != "index":
+                    raise ActionRequestValidationError.of(["id is missing"])
+                conditional = {k: meta.get(k) for k in _CONDITIONAL}
+                if action == "delete":
+                    resp = self.delete_doc(
+                        name, doc_id, routing=routing,
+                        version_type=meta.get("version_type", "internal"),
+                        **conditional)
+                    status = 200
+                elif action == "update":
+                    spec = (body.pop("_source", None)
+                            if isinstance(body, dict) else None)
+                    if spec is None:
+                        spec = meta.get("_source", source_filter)
+                    resp = self.update_doc(
+                        name, doc_id, body, routing=routing,
+                        if_seq_no=conditional["if_seq_no"],
+                        if_primary_term=conditional["if_primary_term"],
+                        source_filter=spec)
+                    status = 200
+                else:
+                    self._check_bulk_source(body)
+                    resp = self.index_doc(
+                        name, doc_id, body, op_type=op_type,
+                        routing=routing,
+                        version_type=meta.get("version_type", "internal"),
+                        **conditional)
+                    status = 201 if resp["result"] == "created" else 200
+                touched.add(resp["_index"])
+                items[slot] = {key: {**resp, "status": status}}
+            except SearchEngineError as e:
+                items[slot] = {key: {"_index": name, "_id": doc_id,
+                                     "status": e.status,
+                                     "error": e.to_dict()}}
+        self._bulk_group(group, items, touched)
+        if refresh in _REFRESHING:
+            self._refresh_indices(touched)
+        if refresh in _FORCED:
+            for item in items:
+                for inner in item.values():
+                    if "error" not in inner:
+                        inner["forced_refresh"] = True
+        return {"took": int((time.perf_counter() - start) * 1000),
+                "errors": any("error" in next(iter(it.values()))
+                              for it in items),
+                "items": items}
+
+    @staticmethod
+    def _check_bulk_source(source) -> None:
+        if not isinstance(source, dict):
+            raise IllegalArgumentError(
+                "the bulk request must be terminated by a newline")
+
+    def _bulk_group(self, group: List[tuple], items: list,
+                    touched: set) -> None:
+        """One run of consecutive unconditional `index` / `create` items
+        (slot, item key, op type, index, _id, source, routing): each
+        document is validated on its own, then each shard applies its
+        documents in the request's order, one `index_many` a run of one
+        op type."""
+        valid: Dict[str, list] = {}
+        for slot, key, op, name, doc_id, source, routing in group:
+            try:
+                if doc_id == "":
                     raise IllegalArgumentError(
-                        "the bulk request must be terminated by a newline")
+                        "if _id is specified it must not be empty")
+                if name is None:
+                    raise IllegalArgumentError("index is missing")
+                self._check_bulk_source(source)
                 svc = self._index_or_autocreate(name)
-                doc_id = meta.get("_id")
-                doc_id = uuid.uuid4().hex[:20] if doc_id is None \
-                    else str(doc_id)
-                routing = meta.get("routing")
-                routing = None if routing is None else str(routing)
+                row_id, row_op = doc_id, op
+                if doc_id is None:
+                    row_id, row_op = uuid.uuid4().hex[:20], "create"
+                self._check_id(row_id)
                 try:
                     svc.mapper_service.parse_document(source)
                 except SearchEngineError:
                     # the primary gives a document its seq_no before it
                     # parses it: a failed parse still takes one
                     valid.setdefault(name, []).append(
-                        (_PARSE_FAILED, slot, doc_id, None, routing))
+                        (_PARSE_FAILED, slot, key, row_id, None, routing))
                     raise
-                if meta.get("_id") is None:
-                    op = "create"
                 valid.setdefault(name, []).append(
-                    (op, slot, doc_id, source, routing))
+                    (row_op, slot, key, row_id, source, routing))
             except SearchEngineError as e:
-                items[slot] = {op: {"_index": name, "_id": meta.get("_id"),
-                                    "status": e.status, "error": e.to_dict()}}
+                items[slot] = {key: {"_index": name, "_id": doc_id,
+                                     "status": e.status,
+                                     "error": e.to_dict()}}
         runs: List[tuple] = []
         for name, docs in valid.items():
             shards = shard_ids_for(
-                [d[2] if d[4] is None else d[4] for d in docs],
+                [d[3] if d[5] is None else d[5] for d in docs],
                 self.indices[name].num_shards)
             by_shard: Dict[int, list] = {}
             for doc, shard in zip(docs, shards.tolist()):
                 by_shard.setdefault(shard, []).append(doc)
             # a shard applies its documents in the request's order (its
-            # seq_nos follow it), one `index_many` a run of one action
+            # seq_nos follow it), one `index_many` a run of one op type
             for shard, mine in by_shard.items():
                 for op, run in itertools.groupby(mine, key=lambda d: d[0]):
                     runs.append((name, op, shard,
@@ -385,40 +755,37 @@ class Node:
                 for _ in docs:
                     svc.shards[shard].engine.fail_seq_no()
                 continue
-            status = 201
             try:
                 results = svc.shards[shard].engine.index_many(
-                    [d[1] for d in docs], [d[2] for d in docs],
-                    op_type=op, routings=[d[3] for d in docs])
+                    [d[2] for d in docs], [d[3] for d in docs],
+                    op_type=op, routings=[d[4] for d in docs])
             except SearchEngineError as e:
-                for slot, doc_id, _, _ in docs:
-                    items[slot] = {op: {"_index": name, "_id": doc_id,
-                                        "status": e.status,
-                                        "error": e.to_dict()}}
-                continue
-            for (slot, _, _, _), res in zip(docs, results):
+                results = [e] * len(docs)
+            for (slot, key, doc_id, _, _), res in zip(docs, results):
+                if isinstance(res, SearchEngineError):
+                    items[slot] = {key: {"_index": name, "_id": doc_id,
+                                         "status": res.status,
+                                         "error": res.to_dict()}}
+                    continue
                 resp = self._write_response(svc, res)
-                resp["status"] = status if res.result == "created" else 200
-                items[slot] = {op: resp}
-        if refresh in ("true", ""):
-            for name in {run[0] for run in runs}:
-                self.indices[name].refresh()
-        return {"took": int((time.perf_counter() - start) * 1000),
-                "errors": any("error" in next(iter(it.values()))
-                              for it in items),
-                "items": items}
+                resp["status"] = 201 if res.result == "created" else 200
+                items[slot] = {key: resp}
+                touched.add(name)
 
-    def refresh(self, index: str) -> dict:
-        svc = self.index(index)
-        svc.refresh()
-        n = svc.num_shards
+    def refresh(self, expression: Optional[str] = None) -> dict:
+        """`POST [/{index}]/_refresh`: every index the expression names."""
+        services = self.resolve(expression)
+        for svc in services:
+            svc.refresh()
+        n = sum(svc.num_shards for svc in services)
         return {"_shards": {"total": n, "successful": n, "failed": 0}}
 
     # --------------------------------------------------------------- search
     def _hybrid_executor(self, svc: IndexService) -> HybridExecutor:
         with self._lock:
             ex = self._hybrid.get(svc.name)
-            if ex is None:
+            # a deleted and recreated index of the same name gets its own
+            if ex is None or ex.svc is not svc:
                 ex = self._hybrid[svc.name] = HybridExecutor(
                     svc, self.device, query_cache=self.caches.query)
             return ex
@@ -478,40 +845,78 @@ class Node:
             {k: v for k, v in resp.items() if k != "took"}))
         return resp
 
-    def search(self, index: str, body: Optional[dict],
-               pre_filter_shard_size: Optional[int] = None) -> dict:
-        """`_search` on one index. With `pre_filter_shard_size` (the URL
-        parameter) a body with a query first runs can_match, and an index
-        it proves empty is skipped whole: its shards count as `skipped`
-        and no query phase runs. The query phase's result comes from the
-        shard request cache when it holds the body; the fetch runs every
-        time."""
+    def search(self, index_expr: Optional[str], body: Optional[dict],
+               pre_filter_shard_size: Optional[int] = None,
+               ignore_unavailable: bool = False,
+               allow_no_indices: bool = True) -> dict:
+        """`_search` over an index expression (`resolve`: none, `_all`, a
+        list, `*` patterns). Each index runs its query phase through its
+        own store and the shard request cache (keyed on that index); the
+        windows merge by score, ties in the order the expression resolved
+        and then each index's own order, as the reference merges them;
+        the merged window is fetched. With `pre_filter_shard_size` (the
+        URL parameter) a body with a query first runs can_match, and an
+        index it proves empty is skipped whole: its shards count as
+        `skipped` and no query phase runs. A `rank: {rrf}` body runs the
+        fused hybrid path over one index; over several it is a 400."""
         start = time.perf_counter()
-        svc = self.index(index)
         body = body or {}
+        check_track_total_hits(body)
+        services = self.resolve(index_expr, ignore_unavailable,
+                                allow_no_indices)
         rank = body.get("rank")
         if isinstance(rank, dict) and "rrf" in rank:
-            return self._search_rrf(svc, body)
-        reader = svc.combined_reader()
-        n = svc.num_shards
-        skipped = 0
-        if pre_filter_shard_size is not None \
-                and body.get("query") is not None \
-                and not can_match(reader, body):
-            skipped = n
-            hits = {"total": {"value": 0, "relation": "eq"},
-                    "max_score": None, "hits": []}
-        else:
-            hits = self._query_then_fetch(svc, reader, body)
-        return {"took": int((time.perf_counter() - start) * 1000),
-                "timed_out": False,
+            if len(services) > 1:
+                raise IllegalArgumentError(
+                    f"[rank] over more than one index is not supported by "
+                    f"this build: the expression [{index_expr}] names "
+                    f"{len(services)} indices, and fusing across indices "
+                    f"needs [knn] as a query clause, which is not ported")
+            if services:
+                return self._search_rrf(services[0], body)
+            return {"took": int((time.perf_counter() - start) * 1000),
+                    "timed_out": False,
+                    "hits": {"total": {"value": 0, "relation": "eq"},
+                             "max_score": None, "hits": []}}
+        frm, size = window(body)
+        phases = []
+        total, relation, max_score, skipped = 0, "eq", None, 0
+        for svc in services:
+            reader = svc.combined_reader()
+            if pre_filter_shard_size is not None \
+                    and body.get("query") is not None \
+                    and not can_match(reader, body):
+                skipped += svc.num_shards
+                continue
+            result = self._query_phase(svc, reader, body)
+            phases.append((svc, reader, result))
+            total += result.total
+            if result.relation == "gte":
+                relation = "gte"
+            if result.max_score is not None:
+                max_score = (result.max_score if max_score is None
+                             else max(max_score, result.max_score))
+        n = sum(svc.num_shards for svc in services)
+        resp = {"took": 0, "timed_out": False,
                 "_shards": {"total": n, "successful": n, "skipped": skipped,
                             "failed": 0},
-                "hits": hits}
+                "hits": {"total": {"value": total, "relation": relation},
+                         "max_score": max_score,
+                         "hits": self._fetch_merged(phases, body, frm,
+                                                    size)}}
+        track = body.get("track_total_hits")
+        if not tracks_total(body):
+            del resp["hits"]["total"]
+        elif isinstance(track, int) and not isinstance(track, bool) \
+                and total > track:
+            # the summed total crosses a cap each index stayed under
+            resp["hits"]["total"] = {"value": track, "relation": "gte"}
+        resp["took"] = int((time.perf_counter() - start) * 1000)
+        return resp
 
-    def _query_then_fetch(self, svc: IndexService, reader, body: dict) -> dict:
-        """The query phase through the request cache's rung for the body
-        (`_request_cache_for`), then the fetch."""
+    def _query_phase(self, svc: IndexService, reader, body: dict):
+        """One index's query phase through the request cache's rung for the
+        body (`_request_cache_for`)."""
         cache = self._request_cache_for(body)
         key = result = None
         if cache is not None:
@@ -523,24 +928,68 @@ class Node:
             result = execute_query_phase(ctx, body)
             if key is not None:
                 cache.put(key, result)
-        return execute_fetch_phase(reader, svc.mapper_service, svc.name, body,
-                                   result)
+        return result
+
+    @staticmethod
+    def _fetch_merged(phases: list, body: dict, frm: int,
+                      size: int) -> List[dict]:
+        """The hits of [from, from + size) over the indices' query phases:
+        a stable sort by score of their windows concatenated in order."""
+        if len(phases) == 1:
+            svc, reader, result = phases[0]
+            return execute_fetch_phase(reader, svc.mapper_service, svc.name,
+                                       body, result)["hits"]
+        if not phases:
+            return []
+        scores = np.concatenate([r.scores for _, _, r in phases])
+        owner = np.concatenate([np.full(len(r.rows), i, dtype=np.int64)
+                                for i, (_, _, r) in enumerate(phases)])
+        rows = np.concatenate([r.rows for _, _, r in phases])
+        order = np.argsort(-scores, kind="stable")[frm:frm + size]
+        hits = []
+        for j in order.tolist():
+            svc, reader, _ = phases[owner[j]]
+            hits.extend(render_hits(reader, svc.mapper_service, svc.name,
+                                    rows[j:j + 1], scores[j:j + 1],
+                                    body.get("_source")))
+        return hits
+
+    def count(self, index_expr: Optional[str], body: Optional[dict]) -> dict:
+        """`_count`: the body's query phase on every index the expression
+        names, at size 0 with every hit counted (`count_body`)."""
+        body = count_body(body)
+        total = 0
+        for svc in self.resolve(index_expr):
+            ctx = SearchContext(svc.combined_reader(), svc.mapper_service,
+                                svc.vector_store, svc.settings)
+            total += execute_query_phase(ctx, body).total
+        # the reference reports one shard whatever the expression names
+        return {"count": total, "_shards": {"total": 1, "successful": 1,
+                                            "skipped": 0, "failed": 0}}
+
+    def msearch(self, lines: List[dict]) -> dict:
+        """`_msearch`: (header, body) line pairs, each searched over its
+        header's `index`; an error answers its own entry."""
+        responses = []
+        for i in range(0, len(lines), 2):
+            header = lines[i] or {}
+            body = lines[i + 1] if i + 1 < len(lines) else {}
+            try:
+                resp = self.search(header.get("index"), body)
+                resp["status"] = 200
+                responses.append(resp)
+            except SearchEngineError as e:
+                responses.append({"error": e.to_wrapped_dict(),
+                                  "status": e.status})
+        return {"took": 0, "responses": responses}
 
     # ---------------------------------------------------------------- caches
-    def _resolve(self, name: Optional[str]) -> List[IndexService]:
-        """The indices a stats or cache request names: every index for
-        None or `_all`, else each of a comma-separated list."""
-        if name is None or name in ("_all", "*"):
-            return list(self.indices.values())
-        return [self.index(part.strip()) for part in name.split(",")
-                if part.strip()]
-
     def clear_cache(self, name: Optional[str] = None) -> dict:
         """`POST [/{index}]/_cache/clear`: drop the host rung of the
         request cache and the query cache, node-wide, as the reference
         does; the device rung stays (its entries are keyed on the reader's
         content, so none can be stale)."""
-        services = self._resolve(name)
+        services = self.resolve(name)
         self.caches.request.clear()
         self.caches.query.clear()
         n = sum(len(svc.shards) for svc in services)
@@ -568,7 +1017,7 @@ class Node:
                 raise IllegalArgumentError(
                     f"request [/_stats/{m}] contains unrecognized "
                     f"metric: [{m}]{hint}")
-        services = self._resolve(name)
+        services = self.resolve(name)
         sections = {m: {"memory_size_in_bytes": 0, "hit_count": 0,
                         "miss_count": 0, "evictions": 0}
                     for m in _PORTED_STATS if m in keep}
@@ -587,3 +1036,56 @@ class Node:
                             "failed": 0},
                 "_all": {"primaries": agg, "total": copy.deepcopy(agg)},
                 "indices": indices}
+
+
+def _deep_merge(dst: dict, src: dict) -> None:
+    """The `doc` of an update into a source: objects merge key by key,
+    anything else replaces."""
+    for k, v in src.items():
+        if isinstance(v, dict) and isinstance(dst.get(k), dict):
+            _deep_merge(dst[k], v)
+        else:
+            dst[k] = v
+
+
+def _get_path(obj: dict, path: str):
+    node = obj
+    for part in path.split("."):
+        if not isinstance(node, dict) or part not in node:
+            return None
+        node = node[part]
+    return node
+
+
+def _apply_mget_projection(svc: Optional[IndexService], doc: dict, spec: dict,
+                           req_stored_fields, req_source=None) -> None:
+    """`stored_fields` and `_source` filtering of a fetched document (a GET,
+    an `_mget` entry, an update's `get`): the entry's own spec, else the
+    request's."""
+    if "_source" not in spec and req_source is not None:
+        spec = {**spec, "_source": req_source}
+    sf = spec.get("stored_fields", req_stored_fields)
+    if sf:
+        sf = [sf] if isinstance(sf, str) else list(sf)
+        fields = {}
+        for fname in sf:
+            if fname.startswith("_") or svc is None:
+                continue  # metadata fields ride at the top level
+            mapper = svc.mapper_service.get(fname)
+            if mapper is None or not mapper.params.get("store"):
+                continue
+            val = _get_path(doc.get("_source") or {}, fname)
+            if val is not None:
+                fields[fname] = val if isinstance(val, list) else [val]
+        if fields:
+            doc["fields"] = fields
+        # stored_fields suppress _source unless it is asked for
+        if "_source" not in sf and spec.get("_source") in (None, False):
+            doc.pop("_source", None)
+    src_spec = spec.get("_source")
+    if src_spec is False:
+        doc.pop("_source", None)
+    elif isinstance(src_spec, (list, str, dict)) \
+            and doc.get("_source") is not None:
+        includes, excludes = source_patterns(src_spec)
+        doc["_source"] = filter_source(doc["_source"], includes, excludes)

@@ -1,24 +1,140 @@
-"""REST handlers of the kNN slice (port of a subset of
-`elasticsearch_tpu/rest/actions.py`).
+"""REST handlers of the served slices (port of a subset of
+`elasticsearch_tpu/rest/actions.py`), with the reference's statuses.
 
-Routes: GET /, PUT /{index}, PUT|POST /{index}/_doc/{id},
-POST|PUT /{index}/_bulk, POST /{index}/_refresh, GET|POST /{index}/_search,
-GET /{index}/_doc/{id}, POST [/{index}]/_cache/clear and
-GET [/{index}]/_stats/{metric} (`query_cache`, `request_cache`). The
-document routes take the `routing` query parameter, and `_bulk` a
-`routing` in each action's metadata; `_search` searches every shard
-whatever its `routing`, as the reference does, and takes `size`,
-`request_cache` (into the body, the cache's per-request opt-in or
-opt-out) and `pre_filter_shard_size` (can_match before the query phase).
+Documents: PUT|POST /{index}/_doc/{id} and PUT|POST /{index}/_create/{id}
+(`op_type`, `routing`, `refresh` with `wait_for`, `if_seq_no`,
+`if_primary_term`, `version`, `version_type`), POST /{index}/_doc (auto id,
+201), GET /{index}/_doc/{id} and GET /{index}/_source/{id} (`_source`,
+`_source_includes`, `_source_excludes`, `stored_fields`, `realtime`,
+`refresh`, `version`), DELETE /{index}/_doc/{id} (404 `not_found` when
+missing), POST /{index}/_update/{id}, [/{index}]/_bulk (index, create,
+update, delete) and [/{index}]/_mget.
+
+Search: GET|POST [/{index}]/_search over an index expression (none,
+`_all`, a list, `*` patterns; URL `from`, `size`, `track_total_hits`,
+`_source*`, `request_cache`, `pre_filter_shard_size`,
+`rest_total_hits_as_int`, `ignore_unavailable`, `allow_no_indices`),
+[/{index}]/_count and [/{index}]/_msearch. The URL `q` (and `df`,
+`default_operator`, `analyzer`, `lenient`) needs `query_string`, which is
+not ported: it is a 400 that names it, as are `scroll` and the other
+URL parameters whose body keys are not ported.
+
+Indices: PUT, DELETE, GET and HEAD /{index}, GET [/{index}]/_mapping and
+PUT|POST /{index}/_mapping, GET [/{index}]/_settings[/{name}],
+[/{index}]/_refresh, POST [/{index}]/_cache/clear and
+GET [/{index}]/_stats/{metric} (`query_cache`, `request_cache`).
+`_search`, `DELETE` and `GET /{index}`, `_mapping` and `_settings` read
+`ignore_unavailable` and `allow_no_indices` (`Node.resolve`); an
+`expand_wildcards` other than `open` is a 400 that names it.
+
+Every response takes `filter_path` (`rest/controller.py`).
 """
 
 from __future__ import annotations
 
-from elasticsearch_tpu_torch.common.errors import IllegalArgumentError
-from elasticsearch_tpu_torch.node import Node
+import fnmatch
+
+from elasticsearch_tpu_torch.common.errors import (
+    ActionRequestValidationError, DocumentMissingError, IllegalArgumentError,
+    VersionConflictError,
+)
+from elasticsearch_tpu_torch.indices.service import validate_index_name
+from elasticsearch_tpu_torch.node import Node, _apply_mget_projection
 from elasticsearch_tpu_torch.rest.controller import RestController
 
 VERSION = "8.0.0-torch"
+
+# URL parameters of `q` (a `query_string` query, not ported)
+_URI_QUERY_PARAMS = ("q", "df", "default_operator", "analyzer", "lenient")
+_SETTINGS_DEFAULTS = {
+    "index.refresh_interval": "1s",
+    "index.max_result_window": "10000",
+    "index.max_inner_result_window": "100",
+    "index.max_rescore_window": "10000",
+    "index.flush_after_merge": "512mb",
+    "index.translog.durability": "request",
+    "index.translog.flush_threshold_size": "512mb",
+    "index.write.wait_for_active_shards": "1",
+    "index.highlight.max_analyzed_offset": "1000000",
+}
+
+
+def _refuse_uri_query(req) -> None:
+    for name in _URI_QUERY_PARAMS:
+        if req.param(name) is not None:
+            raise IllegalArgumentError(
+                f"request parameter [{name}] is not supported by this "
+                f"build: it needs the [query_string] query, which is not "
+                f"ported")
+
+
+def _index_options(req) -> dict:
+    """The URL's `ignore_unavailable` and `allow_no_indices`, for
+    `Node.resolve`. `expand_wildcards` other than `open` (the default)
+    names closed or hidden indices, which are not ported: a 400 that names
+    the parameter."""
+    expand = req.param("expand_wildcards")
+    if expand is not None and any(t.strip() != "open"
+                                  for t in expand.split(",")):
+        raise IllegalArgumentError(
+            f"request parameter [expand_wildcards] value [{expand}] is not "
+            f"supported by this build: closed and hidden indices are not "
+            f"ported")
+    return {"ignore_unavailable": req.bool_param("ignore_unavailable", False),
+            "allow_no_indices": req.bool_param("allow_no_indices", True)}
+
+
+def _source_filter(req):
+    """The URL's `_source`, `_source_includes` and `_source_excludes` as one
+    source spec (None when none is given)."""
+    src = req.param("_source")
+    inc, exc = req.param("_source_includes"), req.param("_source_excludes")
+    spec = None
+    if src is not None and src.lower() in ("true", "false"):
+        spec = src.lower() == "true"
+    elif src:
+        spec = src.split(",")
+    if inc or exc:
+        spec = {"includes": inc.split(",") if inc else [],
+                "excludes": exc.split(",") if exc else []}
+    return spec
+
+
+def _total_hits_as_int(resp) -> None:
+    """`rest_total_hits_as_int`: `hits.total` as a plain number (-1 with
+    counting off)."""
+    hits = resp.get("hits") if isinstance(resp, dict) else None
+    if hits is None:
+        return
+    total = hits.get("total")
+    hits["total"] = (total.get("value") if isinstance(total, dict)
+                     else -1 if total is None else total)
+
+
+def _settings_str(v):
+    """A setting's value as `_settings` renders it."""
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, (list, tuple)):
+        return [_settings_str(x) for x in v]
+    return str(v)
+
+
+def _nest(flat: dict) -> dict:
+    nested: dict = {}
+    for k, v in flat.items():
+        parts = k.split(".")
+        cur = nested
+        for p in parts[:-1]:
+            cur = cur.setdefault(p, {})
+        cur[parts[-1]] = v
+    return nested
+
+
+def _index_settings(svc) -> dict:
+    """An index's flat settings with its uuid, name and creation date."""
+    return {"index.uuid": svc.uuid, "index.provided_name": svc.name,
+            "index.creation_date": str(svc.creation_date), **svc.settings}
 
 
 def register_all(rc: RestController, node: Node) -> None:
@@ -33,46 +149,226 @@ def register_all(rc: RestController, node: Node) -> None:
             "tagline": "You Know, for Search",
         }
 
-    def create_index(req):
-        return 200, node.create_index(req.params["index"], req.json())
+    # -------------------------------------------------------------- documents
+    def _write_params(req) -> dict:
+        return dict(refresh=req.param("refresh"),
+                    routing=req.param("routing"),
+                    if_seq_no=req.int_param("if_seq_no"),
+                    if_primary_term=req.int_param("if_primary_term"),
+                    version=req.int_param("version"),
+                    version_type=req.param("version_type", "internal"))
 
     def put_doc(req):
         resp = node.index_doc(req.params["index"], req.params["id"],
                               req.json() or {},
                               op_type=req.param("op_type", "index"),
-                              refresh=req.param("refresh"),
-                              routing=req.param("routing"))
+                              **_write_params(req))
         return (201 if resp["result"] == "created" else 200), resp
 
+    def post_doc_auto_id(req):
+        return 201, node.index_doc(req.params["index"], None,
+                                   req.json() or {},
+                                   refresh=req.param("refresh"),
+                                   routing=req.param("routing"))
+
+    def create_doc(req):
+        if req.param("version_type") in ("external", "external_gte"):
+            raise ActionRequestValidationError(
+                "Validation Failed: 1: create operations only support "
+                "internal versioning. use index instead;")
+        return 201, node.index_doc(req.params["index"], req.params["id"],
+                                   req.json() or {}, op_type="create",
+                                   refresh=req.param("refresh"),
+                                   routing=req.param("routing"))
+
+    def _get(req) -> dict:
+        if req.bool_param("refresh", False):
+            node.refresh(req.params["index"])
+        return node.get_doc(req.params["index"], req.params["id"],
+                            routing=req.param("routing"),
+                            realtime=req.bool_param("realtime", True))
+
     def get_doc(req):
-        resp = node.get_doc(req.params["index"], req.params["id"],
-                            routing=req.param("routing"))
-        return (200 if resp["found"] else 404), resp
+        resp = _get(req)
+        v = req.int_param("version")
+        if v is not None and resp.get("found") and resp["_version"] != v:
+            raise VersionConflictError(
+                f"[{req.params['id']}]: version conflict, current version "
+                f"[{resp['_version']}] is different than the one provided "
+                f"[{v}]")
+        sf = req.param("stored_fields")
+        _apply_mget_projection(node.indices.get(req.params["index"]), resp,
+                               {}, sf.split(",") if sf else None,
+                               _source_filter(req))
+        return (200 if resp.get("found") else 404), resp
+
+    def get_source(req):
+        resp = _get(req)
+        if not resp.get("found") or "_source" not in resp:
+            # a missing document, or `_source` disabled in the mapping
+            return 404, {"error": f"source [{req.params['id']}] not found"}
+        _apply_mget_projection(node.indices.get(req.params["index"]), resp,
+                               {}, None, _source_filter(req))
+        return 200, resp.get("_source")
+
+    def delete_doc(req):
+        try:
+            return 200, node.delete_doc(req.params["index"], req.params["id"],
+                                        **_write_params(req))
+        except DocumentMissingError:
+            return 404, {"_index": req.params["index"],
+                         "_id": req.params["id"], "result": "not_found"}
+
+    def update_doc(req):
+        return 200, node.update_doc(
+            req.params["index"], req.params["id"], req.json() or {},
+            refresh=req.param("refresh"), routing=req.param("routing"),
+            if_seq_no=req.int_param("if_seq_no"),
+            if_primary_term=req.int_param("if_primary_term"),
+            source_filter=_source_filter(req))
 
     def bulk(req):
         return 200, node.bulk(req.ndjson(),
                               default_index=req.params.get("index"),
-                              refresh=req.param("refresh"))
+                              refresh=req.param("refresh"),
+                              source_filter=_source_filter(req))
 
-    def refresh(req):
-        return 200, node.refresh(req.params["index"])
+    def mget(req):
+        sf = req.param("stored_fields")
+        return 200, node.mget(
+            req.json() or {}, req.params.get("index"),
+            stored_fields=sf.split(",") if sf else None,
+            realtime=req.param("realtime") not in ("false", False),
+            refresh=req.param("refresh") in ("true", "", True),
+            source_filter=_source_filter(req))
 
+    # ----------------------------------------------------------------- search
     def search(req):
         body = req.json() or {}
-        size = req.param("size")
-        if size is not None:
-            body["size"] = int(size)
-        pfs = req.param("pre_filter_shard_size")
-        if pfs is not None:
-            pfs = int(pfs)
-            if pfs < 1:
-                raise IllegalArgumentError("preFilterShardSize must be >= 1")
-        cache_flag = req.param("request_cache")
-        if cache_flag is not None:
+        _refuse_uri_query(req)
+        if req.param("scroll") is not None:
+            raise IllegalArgumentError(
+                "request parameter [scroll] is not supported by this build: "
+                "scroll contexts are not ported")
+        for p in ("size", "from"):
+            v = req.int_param(p)
+            if v is not None:
+                body[p] = v
+        tth = req.param("track_total_hits")
+        if tth is not None:
+            body["track_total_hits"] = (True if tth in ("true", "") else
+                                        False if tth == "false" else int(tth))
+        src = _source_filter(req)
+        if src is not None:
+            body["_source"] = src
+        for p in ("sort", "docvalue_fields"):
+            # a body key the port does not parse: its 400 names it
+            if req.param(p):
+                body[p] = req.param(p).split(",")
+        for p in ("seq_no_primary_term", "version"):
+            if req.bool_param(p, False):
+                body[p] = True
+        pfs = req.int_param("pre_filter_shard_size")
+        if pfs is not None and pfs < 1:
+            raise IllegalArgumentError("preFilterShardSize must be >= 1")
+        tt = body.get("track_total_hits")
+        as_int = req.bool_param("rest_total_hits_as_int", False)
+        if as_int and isinstance(tt, int) and not isinstance(tt, bool) \
+                and tt != -1:
+            raise IllegalArgumentError(
+                f"[rest_total_hits_as_int] cannot be used if the tracking "
+                f"of total hits is not accurate, got {tt}")
+        if req.param("request_cache") is not None:
             # the URL form of the body's `request_cache`
-            body["request_cache"] = cache_flag in ("", "true", "1")
-        return 200, node.search(req.params["index"], body,
-                                pre_filter_shard_size=pfs)
+            body["request_cache"] = req.bool_param("request_cache", True)
+        resp = node.search(req.params.get("index"), body,
+                           pre_filter_shard_size=pfs, **_index_options(req))
+        if as_int:
+            _total_hits_as_int(resp)
+        return 200, resp
+
+    def count(req):
+        _refuse_uri_query(req)
+        return 200, node.count(req.params.get("index"), req.json() or {})
+
+    def msearch(req):
+        lines = req.ndjson()
+        as_int = req.bool_param("rest_total_hits_as_int", False)
+        if as_int:
+            for i in range(1, len(lines), 2):
+                tth = (lines[i] or {}).get("track_total_hits")
+                if isinstance(tth, int) and not isinstance(tth, bool):
+                    raise IllegalArgumentError(
+                        "[rest_total_hits_as_int] cannot be used if the "
+                        f"tracking of total hits is not accurate, got {tth}")
+        resp = node.msearch(lines)
+        if as_int:
+            for r in resp["responses"]:
+                _total_hits_as_int(r)
+        return 200, resp
+
+    # ---------------------------------------------------------------- indices
+    def create_index(req):
+        return 200, node.create_index(req.params["index"], req.json())
+
+    def delete_index(req):
+        return 200, node.delete_index(req.params["index"],
+                                      **_index_options(req))
+
+    def get_index(req):
+        expr = req.params["index"]
+        for part in expr.split(","):
+            part = part.strip()
+            if part.startswith("_") and part != "_all":
+                # a reserved name is a request error, not a missing index
+                validate_index_name(part)
+        out = {}
+        for svc in node.resolve(expr, **_index_options(req)):
+            out[svc.name] = {
+                "aliases": {},
+                "mappings": svc.mapper_service.to_dict(),
+                "settings": {"index": {
+                    k.replace("index.", "", 1): v
+                    for k, v in _index_settings(svc).items()}},
+            }
+        return 200, out
+
+    def index_exists(req):
+        return (200 if node.index_exists(req.params["index"]) else 404), None
+
+    def get_mapping(req):
+        return 200, {svc.name: {"mappings": svc.mapper_service.to_dict()}
+                     for svc in node.resolve(req.params.get("index"),
+                                             **_index_options(req))}
+
+    def put_mapping(req):
+        return 200, node.put_mapping(req.params["index"], req.json() or {})
+
+    def get_settings(req):
+        name = req.params.get("name")
+        patterns = ([p.strip() for p in name.split(",")]
+                    if name and name not in ("_all", "*") else None)
+        flat_mode = req.bool_param("flat_settings", False)
+        out = {}
+        for svc in node.resolve(req.params.get("index"),
+                                **_index_options(req)):
+            flat = _index_settings(svc)
+            if patterns is not None:
+                flat = {k: v for k, v in flat.items()
+                        if any(fnmatch.fnmatch(k, p) for p in patterns)}
+            flat = {k: _settings_str(v) for k, v in flat.items()
+                    if v is not None}
+            entry = {"settings": flat if flat_mode else {"index": _nest(
+                {k.replace("index.", "", 1): v for k, v in flat.items()})}}
+            if req.bool_param("include_defaults", False):
+                defaults = {k: v for k, v in _SETTINGS_DEFAULTS.items()
+                            if k not in flat}
+                entry["defaults"] = defaults if flat_mode else _nest(defaults)
+            out[svc.name] = entry
+        return 200, out
+
+    def refresh(req):
+        return 200, node.refresh(req.params.get("index"))
 
     def clear_cache(req):
         return 200, node.clear_cache(req.params.get("index"))
@@ -83,16 +379,49 @@ def register_all(rc: RestController, node: Node) -> None:
         return 200, node.index_stats(req.params.get("index"), metrics)
 
     rc.register("GET", "/", root)
-    rc.register("PUT", "/{index}", create_index)
+    # documents
     rc.register("PUT", "/{index}/_doc/{id}", put_doc)
     rc.register("POST", "/{index}/_doc/{id}", put_doc)
+    rc.register("POST", "/{index}/_doc", post_doc_auto_id)
+    rc.register("PUT", "/{index}/_create/{id}", create_doc)
+    rc.register("POST", "/{index}/_create/{id}", create_doc)
+    # no HEAD route: the controller's HEAD answers through GET
     rc.register("GET", "/{index}/_doc/{id}", get_doc)
+    rc.register("GET", "/{index}/_source/{id}", get_source)
+    rc.register("DELETE", "/{index}/_doc/{id}", delete_doc)
+    rc.register("POST", "/{index}/_update/{id}", update_doc)
+    rc.register("POST", "/_bulk", bulk)
+    rc.register("PUT", "/_bulk", bulk)
     rc.register("POST", "/{index}/_bulk", bulk)
     rc.register("PUT", "/{index}/_bulk", bulk)
-    rc.register("POST", "/_bulk", bulk)
+    for path in ("/_mget", "/{index}/_mget"):
+        rc.register("GET", path, mget)
+        rc.register("POST", path, mget)
+    # search
+    for path in ("/_search", "/{index}/_search"):
+        rc.register("GET", path, search)
+        rc.register("POST", path, search)
+    for path in ("/_count", "/{index}/_count"):
+        rc.register("GET", path, count)
+        rc.register("POST", path, count)
+    rc.register("GET", "/_msearch", msearch)
+    rc.register("POST", "/_msearch", msearch)
+    rc.register("POST", "/{index}/_msearch", msearch)
+    # indices
+    rc.register("PUT", "/{index}", create_index)
+    rc.register("DELETE", "/{index}", delete_index)
+    rc.register("GET", "/{index}", get_index)
+    rc.register("HEAD", "/{index}", index_exists)
+    rc.register("GET", "/_mapping", get_mapping)
+    rc.register("GET", "/{index}/_mapping", get_mapping)
+    rc.register("PUT", "/{index}/_mapping", put_mapping)
+    rc.register("POST", "/{index}/_mapping", put_mapping)
+    for path in ("/_settings", "/{index}/_settings", "/_settings/{name}",
+                 "/{index}/_settings/{name}"):
+        rc.register("GET", path, get_settings)
+    rc.register("POST", "/_refresh", refresh)
     rc.register("POST", "/{index}/_refresh", refresh)
-    rc.register("GET", "/{index}/_search", search)
-    rc.register("POST", "/{index}/_search", search)
+    rc.register("GET", "/{index}/_refresh", refresh)
     rc.register("POST", "/_cache/clear", clear_cache)
     rc.register("POST", "/{index}/_cache/clear", clear_cache)
     rc.register("GET", "/_stats/{metric}", stats)

@@ -589,6 +589,8 @@ class HybridExecutor:
         (`search_many_async`); generic legs run the host query phase one
         by one. Returns ({(body, leg): ranked rows}, the pending kNN
         groups)."""
+        from elasticsearch_tpu_torch.search.service import (
+            check_result_window)
         leg_results: Dict[Tuple[int, int], np.ndarray] = {}
         lex_groups: Dict[str, list] = {}
         sparse_groups: Dict[str, list] = {}
@@ -602,6 +604,9 @@ class HybridExecutor:
                 if isinstance(leg, EmptyLeg):
                     leg_results[(bi, li)] = np.zeros(0, dtype=np.int64)
                 elif isinstance(leg, GenericLeg):
+                    # the reference runs a generic leg as a query phase
+                    # of size `window`, held to `index.max_result_window`
+                    check_result_window(plans[bi].window, self.svc.settings)
                     result = leg.query.execute(ctx).with_scores()
                     top = native.topk(result.scores,
                                       min(plans[bi].window, len(result.rows)))

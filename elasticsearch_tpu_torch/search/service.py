@@ -26,7 +26,7 @@ fetch re-runs for every request, as in the reference.
 from __future__ import annotations
 
 import fnmatch
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 from elasticsearch_tpu_torch import native
 from elasticsearch_tpu_torch.common.errors import (
@@ -108,7 +108,8 @@ class QueryPhaseResult:
         self.max_score = max_score
 
 
-def _window(body: dict) -> Tuple[int, int]:
+def window(body: dict) -> Tuple[int, int]:
+    """The body's (from, size), each checked >= 0."""
     frm = int(body.get("from", 0) or 0)
     size = int(body["size"]) if body.get("size") is not None else DEFAULT_SIZE
     if frm < 0:
@@ -116,23 +117,62 @@ def _window(body: dict) -> Tuple[int, int]:
     if size < 0:
         raise IllegalArgumentError(
             f"[size] parameter cannot be negative, found [{size}]")
-    if frm + size > MAX_RESULT_WINDOW:
+    return frm, size
+
+
+def check_result_window(end: int, settings: dict) -> None:
+    """from + size (or a fusion window) against the index's
+    `index.max_result_window`, with the reference's message."""
+    mrw = int(settings.get("index.max_result_window", MAX_RESULT_WINDOW))
+    if end > mrw:
         raise IllegalArgumentError(
             f"Result window is too large, from + size must be less than or "
-            f"equal to: [{MAX_RESULT_WINDOW}] but was [{frm + size}].")
-    return frm, size
+            f"equal to: [{mrw}] but was [{end}]. See the scroll api for a "
+            f"more efficient way to request large data sets. This limit can "
+            f"be set by changing the [index.max_result_window] index level "
+            f"setting.")
+
+
+def check_track_total_hits(body: dict) -> None:
+    """`track_total_hits` is a bool, a count >= 0, or -1."""
+    tth = body.get("track_total_hits")
+    if isinstance(tth, int) and not isinstance(tth, bool) and tth < -1:
+        raise IllegalArgumentError(
+            f"[track_total_hits] parameter must be positive or equals to "
+            f"-1, got {tth}")
+
+
+def tracks_total(body: dict) -> bool:
+    """False when the body turns hit counting off (`false` or -1): the
+    response then has no `hits.total`."""
+    tth = body.get("track_total_hits")
+    return not (tth is False or (isinstance(tth, int)
+                                 and not isinstance(tth, bool) and tth == -1))
+
+
+def count_body(body: Optional[dict]) -> dict:
+    """A `_count` body as its query phase runs it: size 0, no sort, every
+    hit counted."""
+    body = dict(body or {})
+    body.pop("sort", None)
+    body["size"] = 0
+    body["track_total_hits"] = True
+    return body
 
 
 def execute_query_phase(ctx: SearchContext, body: dict) -> QueryPhaseResult:
     """The body's query over the context's reader: ranked rows and scores
     of [0, from + size), the total and the max score."""
-    frm, size = _window(body)
+    check_track_total_hits(body)
+    frm, size = window(body)
+    check_result_window(frm + size, ctx.index_settings or {})
     result = _body_query(body).execute(ctx).with_scores()
     rows, scores = result.rows, result.scores
     total, relation = len(rows), "eq"
     track = body.get("track_total_hits", TRACK_TOTAL_HITS_DEFAULT)
     if track is not True:
-        limit = TRACK_TOTAL_HITS_DEFAULT if track is False else int(track)
+        limit = (TRACK_TOTAL_HITS_DEFAULT if not tracks_total(body)
+                 else int(track))
         if total > limit:
             total, relation = limit, "gte"
     max_score = float(scores.max()) if len(scores) else None
@@ -147,7 +187,7 @@ def execute_fetch_phase(reader: ShardReader, mapper_service: MapperService,
                         result: QueryPhaseResult) -> dict:
     """The `hits` section of a query phase's result: the rows of
     [from, from + size) rendered from `reader`."""
-    frm, size = _window(body)
+    frm, size = window(body)
     hits = render_hits(reader, mapper_service, index_name,
                        result.rows[frm:frm + size],
                        result.scores[frm:frm + size], body.get("_source"))
@@ -161,7 +201,7 @@ def render_hits(reader: ShardReader, mapper_service: MapperService,
     the body and the mapping allow it, filtered by the body's `_source`
     includes and excludes."""
     want_source = source_spec is not False and mapper_service.source_enabled
-    includes, excludes = _source_patterns(source_spec)
+    includes, excludes = source_patterns(source_spec)
     hits: List[dict] = []
     for row, score in zip(rows, scores):
         hit = {"_index": index_name, "_id": reader.get_id(int(row)),
@@ -176,7 +216,7 @@ def render_hits(reader: ShardReader, mapper_service: MapperService,
     return hits
 
 
-def _source_patterns(spec) -> Tuple[List[str], List[str]]:
+def source_patterns(spec) -> Tuple[List[str], List[str]]:
     """The `_source` spec's (includes, excludes): a field name or pattern,
     a list of them, or an object of `includes` / `excludes`."""
     if spec is None or isinstance(spec, bool):

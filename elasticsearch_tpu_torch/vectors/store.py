@@ -352,6 +352,20 @@ class VectorStoreShard:
     def field(self, name: str) -> Optional[FieldCorpus]:
         return self._fields.get(name)
 
+    def close(self) -> None:
+        """Drop every field's corpus, the per-reader snapshots and the
+        batchers (an index delete): the device memory goes with the last
+        reference. Requests still queued in a batcher finish against the
+        corpus it closed over."""
+        with self._lock:
+            self._fields.clear()
+            self._field_plans.clear()
+            self._snapshots = weakref.WeakKeyDictionary()
+        with self._batchers_lock:
+            for _, batcher in self._batchers.values():
+                self._retire_sched(batcher)
+            self._batchers.clear()
+
     def _field_for(self, name: str, reader) -> Optional[FieldCorpus]:
         """The corpus synced for `reader` (the latest when the reader is
         None or was never synced)."""

@@ -1104,3 +1104,102 @@ def test_request_cache_hit_launches_nothing_on_cuda(cuda, monkeypatch, case):
     assert _device_counts(node) != launched
     assert strip(third) == strip(node.search(
         "c", dict(body, request_cache=False)))
+
+
+def _doc_pair(cuda, monkeypatch):
+    """A CUDA node and a CPU node behind their REST controllers, the bf16
+    flat corpora padded to the binned tile so an unfiltered request takes
+    the binned kernel, and the request cache's device rung off."""
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.rest.actions import register_all
+    from elasticsearch_tpu_torch.rest.controller import RestController
+
+    monkeypatch.setattr(knn, "preferred_pad_multiple",
+                        lambda n, metric, device: knn.BINNED_TILE)
+    out = []
+    for device in (cuda, "cpu"):
+        # the device rung off: a body sent to `a` and then to `a,b` must
+        # reach the card for both indices
+        node = Node(device=device, settings={
+            "search.request_cache.device_paths": "false"})
+        rc = RestController()
+        register_all(rc, node)
+        out.append((node, rc))
+    return out
+
+
+def _req(rc, method, path, body=None, ndjson=False):
+    import json
+    raw = b"" if body is None else (
+        b"\n".join(json.dumps(x).encode() for x in body) + b"\n" if ndjson
+        else json.dumps(body).encode())
+    return rc.dispatch(method, path, {}, raw)
+
+
+def _same_hits(got, want, tol):
+    gh, wh = got["hits"]["hits"], want["hits"]["hits"]
+    assert len(gh) == len(wh)
+    ws = np.array([h["_score"] for h in wh])
+    np.testing.assert_allclose([h["_score"] for h in gh], ws, atol=tol)
+    gap = np.minimum(np.abs(np.diff(ws, prepend=np.inf)),
+                     np.abs(np.diff(ws, append=-np.inf)))
+    for j in np.nonzero(gap > tol)[0]:
+        assert (gh[j]["_index"], gh[j]["_id"]) == \
+            (wh[j]["_index"], wh[j]["_id"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 3])
+def test_deletes_updates_and_union_on_cuda(cuda, monkeypatch, shards):
+    """Bulk deletes and vector updates, a refresh, then kNN over one index
+    and over `a,b`: the CUDA node answers as the CPU node does (scores
+    within 1e-3, as the sharded case holds them), launches the binned kernel once a request
+    and shard, never returns a deleted id, and `DELETE /{index}` frees the
+    corpora's device memory."""
+    import gc
+    pair = _doc_pair(cuda, monkeypatch)
+    rng = np.random.default_rng(43 + shards)
+    vecs = {name: rng.standard_normal((3000, 64)).astype(np.float32)
+            for name in ("a", "b")}
+    for node, rc in pair:
+        for name, v in vecs.items():
+            assert _req(rc, "PUT", f"/{name}", {
+                "settings": {"number_of_shards": shards},
+                "mappings": {"properties": {"emb": {
+                    "type": "dense_vector", "dims": 64,
+                    "similarity": "cosine"}}}})[0] == 200
+            node.index(name).index_many([str(i) for i in range(3000)],
+                                        vectors={"emb": v})
+        ops = [{"delete": {"_id": str(i)}} for i in range(0, 3000, 7)]
+        for i in range(1, 3000, 101):
+            if i % 7 == 0:
+                continue        # deleted above
+            ops += [{"update": {"_id": str(i)}},
+                    {"doc": {"emb": vecs["a"][i - 1].tolist()}}]
+        status, resp = _req(rc, "POST", "/a/_bulk", ops, ndjson=True)
+        assert status == 200 and not resp["errors"]
+        assert _req(rc, "POST", "/_refresh")[0] == 200
+    gone = {str(i) for i in range(0, 3000, 7)}
+    (gnode, grc), (_, crc) = pair
+    for qi, q in enumerate(rng.standard_normal((8, 64)).astype(np.float32)):
+        body = {"knn": {"field": "emb", "query_vector": q.tolist(),
+                        "k": 10, "num_candidates": 50}, "size": 10}
+        for path, n_idx in (("/a/_search", 1), ("/a,b/_search", 2)):
+            dispatch.reset_launches()
+            status, got = _req(grc, "POST", path, body)
+            assert status == 200
+            assert dispatch.launches().get(kb.KERNEL_BF16, 0) == \
+                n_idx * shards
+            _, want = _req(crc, "POST", path, body)
+            _same_hits(got, want, 1e-3)
+            assert not {h["_id"] for h in got["hits"]["hits"]
+                        if h["_index"] == "a"} & gone
+    gc.collect()
+    before = torch.cuda.memory_allocated(cuda)
+    corpus = sum(s.vector_store.field("emb").corpus.matrix.nbytes
+                 for name in ("a", "b") for s in gnode.index(name).shards)
+    for name in ("a", "b"):
+        assert _req(grc, "DELETE", f"/{name}")[0] == 200
+    gc.collect()
+    assert before - torch.cuda.memory_allocated(cuda) >= 0.9 * corpus
+    assert _req(grc, "POST", "/a/_search", body)[0] == 404

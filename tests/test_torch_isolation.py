@@ -43,7 +43,8 @@ def test_port_imports_without_jax_or_reference():
                  "index.segment", "index.engine", "vectors.store",
                  "cluster.routing", "indices.service", "native", "ops.bm25",
                  "index.analysis", "index.analysis_lang", "ops.sparse",
-                 "search.caches"):
+                 "search.caches", "node", "rest.actions", "rest.controller",
+                 "common.errors"):
         assert f"elasticsearch_tpu_torch.{name}" in names
     code = (
         "import sys\n"
