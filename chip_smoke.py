@@ -7,7 +7,7 @@
                           [--n-sparse 262144]
                           [--binned-only | --ivf-only | --maxsim-only |
                            --sharded-only | --hybrid-only | --sparse-only |
-                           --docs-only]
+                           --docs-only | --body-only]
 
 Phases, one line each; any failure raises and the exit code is not 0:
 
@@ -130,7 +130,17 @@ Phases, one line each; any failure raises and the exit code is not 0:
                filter's host time uncached and cached on one reader and
                its share of the p50, the cache's hits and misses over the
                64 (each cached clause missing at most once, the cached
-               filter faster)
+               filter faster); then the search body's part
+               (`serve_body_laion`): 64 `knn` bodies each with `sort`,
+               `post_filter`, `min_score`, `collapse` with `inner_hits`,
+               as `query: {knn}` with a `rescore`, and with `version`,
+               `seq_no_primary_term`, `docvalue_fields` and `explain`,
+               each held to the unfiltered answer reworked on the host
+               from the columns and the engine, one binned launch a
+               request and no exact route; a `term` query of 90% of the
+               rows sorted by aesthetic, one request of 500 against a
+               numpy lexsort and five `search_after` pages of 100 against
+               it
   serve_hybrid  BASELINE config 3, hybrid BM25 + kNN by RRF: one shard
                of MS MARCO-shaped passages (a Zipf vocabulary of 200,000
                words, 20-92 words a passage, cut from 8,841,823 to
@@ -146,7 +156,15 @@ Phases, one line each; any failure raises and the exit code is not 0:
                device rung of the request cache on: 64 cold requests (64
                misses, a board and a binned launch each), then the same 64
                warm (64 hits, no launch, no board kernel, the cold
-               response but `took` 0), its `cache` line giving both p50s
+               response but `took` 0), its `cache` line giving both p50s;
+               then the search body's part (`serve_body_msmarco`): 16
+               `match` bodies with `highlight` (the tags taken out give
+               the passage back, every wrapped span a query term, every
+               query-term token wrapped), and 16 `rank: {rrf}` bodies over
+               `msmarco,msmarco_b` (a second index of the first 16,384
+               passages) and 16 one-index ones with `highlight`, each
+               equal to the RRF of its legs' own `_search` responses,
+               one binned launch an index
   serve_sparse  learned-sparse retrieval: MS MARCO passage expanded by a
                BERT-wordpiece learned-sparse model (SPLADE, ELSER; 30,522
                token ids, 64-256 tokens a passage, Zipf popularity), cut
@@ -230,7 +248,9 @@ script too (the checks of variants it lacks are skipped).
 `--hybrid-only` runs env, build, the bm25_board checks and serve_hybrid
 (no ok line); `--sparse-only` the same with serve_sparse;
 `--docs-only` runs env, the binned build, serve_sift's sequential
-requests and serve_documents (no ok line). Every phase drops its indices
+requests and serve_documents (no ok line); `--body-only` runs env, the
+binned build, the laion index at --n-laion with its unfiltered requests
+and the search body's part (no ok line). Every phase drops its indices
 through `DELETE /{index}`. Each phase's
 wall seconds print as a `[timing]` line.
 
@@ -247,6 +267,7 @@ import gc
 import http.client
 import json
 import math
+import re
 import resource
 import statistics
 import subprocess
@@ -2608,7 +2629,8 @@ def filter_cache_line(client, node, svc, store, name, filt, queries,
         query_cache_hits=qc_hits, query_cache_misses=qc_misses)
 
 
-def phase_serve_filtered(seed: int, n: int, device: str = "cuda") -> dict:
+def phase_serve_filtered(seed: int, n: int, device: str = "cuda",
+                         body_only: bool = False) -> dict:
     """serve_filtered: BASELINE config 5 (filtered kNN, LAION 512-d CLIP
     embeddings), cut from 5M to `n` (1M) rows for host memory and the
     run's time. A cosine `flat` (bf16) index of 512-d clustered rows (as
@@ -2633,7 +2655,9 @@ def phase_serve_filtered(seed: int, n: int, device: str = "cuda") -> dict:
     unfiltered bodies, every answer equal to its batch-1 answer (filtered
     within the exact route's tolerance, unfiltered within one packing
     quantum, as a mixed batch scores them exactly) and a largest batch
-    above 1 at C = 8. Returns the binned launches."""
+    above 1 at C = 8; then the search body's part (`serve_body_laion`).
+    `body_only` runs the unfiltered requests and that part alone. Returns
+    the binned launches."""
     from elasticsearch_tpu_torch.ops import dispatch
     from elasticsearch_tpu_torch.ops import knn as knn_ops
     from elasticsearch_tpu_torch.ops import knn_binned as kb
@@ -2686,6 +2710,14 @@ def phase_serve_filtered(seed: int, n: int, device: str = "cuda") -> dict:
         ctx = SearchContext(reader, svc.mapper_service, store, svc.settings)
         log("serve_filtered", ingest_s=f"{ingest_s:.2f}",
             host_peak_rss_gb=f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.2f}")
+
+        if body_only:
+            plain, _ = laion_unfiltered(client, queries)
+            total[kb.KERNEL_BF16] += len(queries)
+            total[kb.KERNEL_BF16] += serve_body_laion(
+                client, svc, cols, queries, plain)
+            drop_index(client, "laion")
+            return total
 
         answers, filter_rows = {}, {}
         for name, filt, passes in LAION_FILTERS:
@@ -2770,19 +2802,9 @@ def phase_serve_filtered(seed: int, n: int, device: str = "cuda") -> dict:
             filter_cache_line(client, node, svc, store, name, filt, queries,
                               lat, got, got_scores, qc_hits, qc_misses)
 
-        # unfiltered: the batch-1 answers the combinations and the
-        # concurrent levels are held to; one binned launch a request
-        dispatch.reset_launches()
-        plain, lat = [], []
-        for qv in queries:
-            t = time.perf_counter()
-            plain.append(_hits(client.ok("POST", "/laion/_search",
-                                         laion_body(qv))))
-            lat.append((time.perf_counter() - t) * 1e3)
-        launched = {k: c for k, c in dispatch.launches().items() if c}
-        if launched != {kb.KERNEL_BF16: len(queries)}:
-            raise AssertionError(f"serve_filtered unfiltered: launches "
-                                 f"{launched}")
+        # unfiltered: the batch-1 answers the combinations, the
+        # concurrent levels and the body part are held to
+        plain, lat = laion_unfiltered(client, queries)
         total[kb.KERNEL_BF16] += len(queries)
         nsfw_docs = {int(i): 1.0 for i in np.nonzero(cols["nsfw"] == 2)[0]}
         dispatch.reset_launches()
@@ -2864,10 +2886,281 @@ def phase_serve_filtered(seed: int, n: int, device: str = "cuda") -> dict:
         if dev.type == "cuda":
             log("serve_filtered", concurrent_device_peak_gb=
                 f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        total[kb.KERNEL_BF16] += serve_body_laion(client, svc, cols,
+                                                  queries, plain)
         drop_index(client, "laion")
     finally:
         server.stop()
     return total
+
+
+def laion_unfiltered(client, queries):
+    """The unfiltered `knn` requests, one binned launch each: their (ids,
+    scores) and HTTP latencies."""
+    from elasticsearch_tpu_torch.ops import dispatch
+    from elasticsearch_tpu_torch.ops import knn_binned as kb
+    dispatch.reset_launches()
+    plain, lat = [], []
+    for qv in queries:
+        t = time.perf_counter()
+        plain.append(_hits(client.ok("POST", "/laion/_search",
+                                     laion_body(qv))))
+        lat.append((time.perf_counter() - t) * 1e3)
+    launched = {k: c for k, c in dispatch.launches().items() if c}
+    if launched != {kb.KERNEL_BF16: len(queries)}:
+        raise AssertionError(f"serve_filtered unfiltered: launches "
+                             f"{launched}")
+    return plain, lat
+
+
+# --------------------------------------------------------------- serve_body
+
+BODY_PAGES = 5                  # search_after pages of BODY_PAGE hits
+BODY_PAGE = 100
+BODY_HIGHLIGHTS = 16            # msmarco `highlight` and RRF bodies
+N_MSMARCO_B = 16_384            # the second index of the RRF bodies
+
+
+class ExactRouteCounter:
+    """Counts, while open, the store's `knn_search_auto` calls that carry a
+    filter mask: the exact route, which launches no binned kernel."""
+
+    def __init__(self):
+        from elasticsearch_tpu_torch.vectors import store as store_mod
+        self.ops = store_mod.knn_ops
+        self.orig = self.ops.knn_search_auto
+        self.calls = 0
+
+        def counting(*args, **kwargs):
+            if kwargs.get("filter_mask") is not None:
+                self.calls += 1
+            return self.orig(*args, **kwargs)
+
+        self.ops.knn_search_auto = counting
+
+    def close(self):
+        self.ops.knn_search_auto = self.orig
+
+
+def body_requests(client, path: str, label: str, bodies, check,
+                  binned_each: int, exact: ExactRouteCounter,
+                  fields: dict) -> int:
+    """Send the bodies one at a time, check each response, and hold the
+    binned launches to `binned_each` a request and the exact route to
+    none; records the HTTP p50 under `label`. Returns the launches."""
+    from elasticsearch_tpu_torch.ops import dispatch
+    from elasticsearch_tpu_torch.ops import knn_binned as kb
+    dispatch.reset_launches()
+    exact.calls = 0
+    lat = []
+    for j, body in enumerate(bodies):
+        t = time.perf_counter()
+        resp = client.ok("POST", path, body)
+        lat.append((time.perf_counter() - t) * 1e3)
+        check(j, resp)
+    launched = {k: c for k, c in dispatch.launches().items() if c}
+    want = {kb.KERNEL_BF16: binned_each * len(bodies)} if binned_each \
+        else {}
+    if launched != want or exact.calls:
+        raise AssertionError(f"serve_body {label}: launches {launched}, "
+                             f"exact route {exact.calls}; expected {want}")
+    fields[f"{label}_p50_ms"] = f"{statistics.median(lat):.3f}"
+    fields[f"{label}_launches_a_request"] = binned_each
+    return binned_each * len(bodies)
+
+
+def _expect(label: str, got, want) -> None:
+    if got != want:
+        raise AssertionError(f"serve_body {label}: {got!r} against "
+                             f"{want!r}")
+
+
+def serve_body_laion(client, svc, cols: dict, queries, plain) -> int:
+    """The search body's part on the laion index (1M x 512 of
+    serve_filtered): 64 bodies each of `knn` (k 10, num_candidates 100)
+    with `sort: [{aesthetic: desc}, {width: asc}]`, with `post_filter`
+    (nsfw UNLIKELY), with `min_score` (each query's fifth score), with
+    `collapse` on nsfw and `inner_hits` of 2, as `query: {knn}` with a
+    `rescore` (aesthetic >= 6.5, weight 2) and with `version`,
+    `seq_no_primary_term`, `docvalue_fields` and `explain`: each held to
+    the unfiltered answer of its vector (`plain`) reworked on the host
+    from `laion_columns` and the engine's versions and seq_nos, one
+    binned launch a request and no exact route. Then a `term` query of
+    nsfw UNLIKELY sorted by `[{aesthetic: desc}, "_doc"]`: one request of
+    500 equal to a numpy lexsort of the column, and BODY_PAGES pages
+    through `search_after` equal to it (its HTTP p50 over 5 runs). Logs
+    one `body` line; returns the binned launches."""
+    nsfw, width = cols["nsfw"], cols["width"]
+    aes = cols["aesthetic"].astype(np.float64)
+    engine = svc.engine
+    fields: dict = {"part": "laion", "requests_a_body": len(queries)}
+    exact = ExactRouteCounter()
+    launches = 0
+
+    def spec(qi):
+        return laion_body(queries[qi])["knn"]
+
+    def ids_of(resp):
+        return [int(h["_id"]) for h in resp["hits"]["hits"]]
+
+    try:
+        def check_sort(qi, resp):
+            ids0 = plain[qi][0]
+            want = sorted(ids0, key=lambda i: (-aes[i], width[i], i))
+            _expect(f"sort {qi}", ids_of(resp), want)
+            _expect(f"sort {qi} sort values",
+                    [h["sort"] for h in resp["hits"]["hits"]],
+                    [[float(aes[i]), int(width[i])] for i in want])
+            _expect(f"sort {qi} scores",
+                    [h["_score"] for h in resp["hits"]["hits"]]
+                    + [resp["hits"]["max_score"]], [None] * (len(want) + 1))
+            _expect(f"sort {qi} total", resp["hits"]["total"],
+                    {"value": len(ids0), "relation": "eq"})
+
+        launches += body_requests(
+            client, "/laion/_search", "sort",
+            [dict(laion_body(q), sort=[{"aesthetic": "desc"},
+                                       {"width": "asc"}]) for q in queries],
+            check_sort, 1, exact, fields)
+
+        def kept(qi, keep):
+            return [(i, s) for i, s in zip(*plain[qi]) if keep(i, s)]
+
+        def check_kept(label, qi, resp, want):
+            hits = resp["hits"]
+            _expect(f"{label} {qi}", [(int(h["_id"]), h["_score"])
+                                      for h in hits["hits"]], want)
+            _expect(f"{label} {qi} total", hits["total"],
+                    {"value": len(want), "relation": "eq"})
+            _expect(f"{label} {qi} max_score", hits["max_score"],
+                    want[0][1] if want else None)
+
+        launches += body_requests(
+            client, "/laion/_search", "post_filter",
+            [dict(laion_body(q), post_filter={"term": {"nsfw": "UNLIKELY"}})
+             for q in queries],
+            lambda qi, resp: check_kept("post_filter", qi, resp, kept(
+                qi, lambda i, s: nsfw[i] == 0)), 1, exact, fields)
+        launches += body_requests(
+            client, "/laion/_search", "min_score",
+            [dict(laion_body(q), min_score=plain[qi][1][4])
+             for qi, q in enumerate(queries)],
+            lambda qi, resp: check_kept("min_score", qi, resp, kept(
+                qi, lambda i, s: s >= plain[qi][1][4])), 1, exact, fields)
+
+        group_rows = {g: np.nonzero(nsfw == g)[0] for g in range(3)}
+
+        def check_collapse(qi, resp):
+            seen, want = set(), []
+            for i, s in zip(*plain[qi]):
+                if nsfw[i] not in seen:
+                    seen.add(nsfw[i])
+                    want.append((i, s))
+            hits = resp["hits"]["hits"]
+            _expect(f"collapse {qi}",
+                    [(int(h["_id"]), h["_score"]) for h in hits], want)
+            for h in hits:
+                g = int(nsfw[int(h["_id"])])
+                _expect(f"collapse {qi} group", h["fields"],
+                        {"nsfw": [str(NSFW_TAGS[g])]})
+                # the reference's sub-search: the group's rows, scored
+                # 0 by the filter, by row
+                inner = h["inner_hits"]["nsfw"]["hits"]
+                rows = group_rows[g]
+                _expect(f"collapse {qi} inner hits",
+                        [(int(x["_id"]), x["_score"])
+                         for x in inner["hits"]],
+                        [(int(r), 0.0) for r in rows[:2]])
+                _expect(f"collapse {qi} inner total", inner["total"],
+                        {"value": min(len(rows), 10_000),
+                         "relation": "gte" if len(rows) > 10_000
+                         else "eq"})
+
+        launches += body_requests(
+            client, "/laion/_search", "collapse",
+            [dict(laion_body(q), collapse={"field": "nsfw",
+                                           "inner_hits": {"size": 2}})
+             for q in queries], check_collapse, 1, exact, fields)
+
+        def check_rescore(qi, resp):
+            ids0 = np.asarray(plain[qi][0])
+            first = np.asarray(plain[qi][1], dtype=np.float32)
+            second = np.where(aes[ids0] >= 6.5, np.float32(1.0),
+                              np.float32(0.0)).astype(np.float32)
+            new = first * np.float32(1.0) + np.float32(2.0) * second
+            order = np.lexsort((ids0, -new))
+            want = [(int(ids0[j]), float(new[j])) for j in order]
+            hits = resp["hits"]
+            _expect(f"rescore {qi}", [int(h["_id"]) for h in hits["hits"]],
+                    [i for i, _ in want])
+            if any(abs(h["_score"] - s) > 1e-6
+                   for h, (_, s) in zip(hits["hits"], want)):
+                raise AssertionError(f"serve_body rescore {qi}: "
+                                     f"{hits['hits']} against {want}")
+
+        launches += body_requests(
+            client, "/laion/_search", "rescore",
+            [{"query": {"knn": spec(qi)}, "size": 10,
+              "_source": LAION_SOURCE,
+              "rescore": {"window_size": 10, "query": {
+                  "rescore_query": {"range": {"aesthetic": {"gte": 6.5}}},
+                  "rescore_query_weight": 2}}}
+             for qi in range(len(queries))], check_rescore, 1, exact,
+            fields)
+
+        def check_fetch(qi, resp):
+            hits = resp["hits"]["hits"]
+            _expect(f"fetch {qi}", [(int(h["_id"]), h["_score"])
+                                    for h in hits], list(zip(*plain[qi])))
+            for h in hits:
+                i = int(h["_id"])
+                vv = engine.version_map[h["_id"]]
+                _expect(f"fetch {qi} doc {i}",
+                        (h["_version"], h["_seq_no"], h["_primary_term"],
+                         h["fields"], h["_explanation"]),
+                        (vv.version, vv.seq_no, 1,
+                         {"width": [int(width[i])],
+                          "aesthetic": [float(aes[i])]},
+                         {"value": h["_score"],
+                          "description": "vectorized score",
+                          "details": []}))
+
+        launches += body_requests(
+            client, "/laion/_search", "fetch",
+            [dict(laion_body(q), version=True, seq_no_primary_term=True,
+                  docvalue_fields=["width", "aesthetic"], explain=True)
+             for q in queries], check_fetch, 1, exact, fields)
+
+        # search_after over the 90% term query, against a numpy lexsort
+        rows = np.nonzero(nsfw == 0)[0]
+        want = rows[np.lexsort((rows, -aes[rows]))[:BODY_PAGES * BODY_PAGE]]
+        body = {"query": {"term": {"nsfw": "UNLIKELY"}},
+                "sort": [{"aesthetic": "desc"}, "_doc"],
+                "size": BODY_PAGES * BODY_PAGE, "_source": False}
+
+        def check_sorted(_, resp):
+            _expect("search_after whole", ids_of(resp), want.tolist())
+            _expect("search_after sort values",
+                    [h["sort"] for h in resp["hits"]["hits"]],
+                    [[float(aes[i]), int(i)] for i in want])
+
+        body_requests(client, "/laion/_search", "sorted_term",
+                      [body] * 5, check_sorted, 0, exact, fields)
+        pages, after = [], None
+        page_body = dict(body, size=BODY_PAGE)
+        for _ in range(BODY_PAGES):
+            resp = client.ok("POST", "/laion/_search",
+                             page_body if after is None
+                             else dict(page_body, search_after=after))
+            pages += ids_of(resp)
+            after = resp["hits"]["hits"][-1]["sort"]
+        _expect("search_after pages", pages, want.tolist())
+        fields.update(sorted_rows=len(rows), pages=BODY_PAGES,
+                      page_size=BODY_PAGE)
+        log("body", **fields)
+    finally:
+        exact.close()
+    return launches
 
 
 class RunningTop:
@@ -4038,10 +4331,151 @@ def phase_serve_hybrid(seed: int, n: int, device: str = "cuda") -> dict:
         for key, c in hybrid_repeat_pass(client, node, name, bodies,
                                          responses, device).items():
             total[key] += c
+        total[kb.KERNEL_BF16] += serve_body_msmarco(client, node, svc,
+                                                    q_text, q_emb, emb)
         drop_index(client, name)
     finally:
         server.stop()
     return total
+
+
+def _highlight_spans(label: str, frag: str, text: str):
+    """The (start, end) offsets in `text` of the spans a highlight
+    fragment wraps in <em> tags; taking the tags out must give back
+    `text`."""
+    spans, out, pos = [], [], 0
+    for m in re.finditer(r"<em>(.*?)</em>", frag):
+        plain = frag[pos:m.start()]
+        out.append(plain)
+        start = sum(map(len, out))
+        out.append(m.group(1))
+        spans.append((start, start + len(m.group(1))))
+        pos = m.end()
+    out.append(frag[pos:])
+    _expect(f"{label} text", "".join(out), text)
+    return spans
+
+
+def _host_rrf_hits(legs, size: int = 10, rank_constant: int = 60):
+    """The coordinator's RRF recomputed from the legs' `_search` hits:
+    keyed on (_index, _id), sum(1 / (rank_constant + rank)), ties by the
+    key, each hit as its first list rendered it. Returns (hits, total)."""
+    fused, first = {}, {}
+    for hits in legs:
+        for rank, h in enumerate(hits):
+            key = (h["_index"], h["_id"])
+            fused[key] = fused.get(key, 0.0) + 1.0 / (rank_constant
+                                                      + rank + 1)
+            first.setdefault(key, h)
+    ordered = sorted(fused.items(), key=lambda kv: (-kv[1], kv[0]))
+    return [dict(first[k], _score=v) for k, v in ordered[:size]], \
+        len(fused)
+
+
+def serve_body_msmarco(client, node, svc, q_text, q_emb, emb) -> int:
+    """The search body's part on msmarco (serve_hybrid's index):
+    BODY_HIGHLIGHTS `match` bodies with `highlight` on `body` (taking the
+    tags out gives back the passage; every wrapped span analyzes to a
+    query term; every token whose term is a query term is wrapped; no
+    launch); then a second index `msmarco_b` of the first N_MSMARCO_B
+    passages and BODY_HIGHLIGHTS `rank: {rrf}` bodies (`match` + `knn`)
+    over `msmarco,msmarco_b`, each equal to the RRF the host recomputes
+    from its legs' own `_search` responses over the same expression and
+    launching the bf16 binned kernel once an index; and the same check on
+    one-index bodies with `highlight` (the general path, one launch).
+    Logs one `body` line; returns the binned launches."""
+    name = svc.name
+    mapper = svc.mapper_service.get("body")
+    reader = svc.combined_reader()
+    fields: dict = {"part": "msmarco", "requests_a_body": BODY_HIGHLIGHTS}
+    exact = ExactRouteCounter()
+    launches = 0
+    wrapped = [0]
+    try:
+        def check_highlight(qi, resp):
+            terms = set(mapper.search_analyzer.terms(q_text[qi]))
+            hits = resp["hits"]["hits"]
+            if not hits:
+                raise AssertionError(f"serve_body highlight {qi}: no hits")
+            for h in hits:
+                text = reader.get_source(int(h["_id"]))["body"]
+                spans = _highlight_spans(f"highlight {qi}",
+                                         h["highlight"]["body"][0], text)
+                for a, b in spans:
+                    if mapper.analyzer.terms(text[a:b]) \
+                            not in [[t] for t in terms]:
+                        raise AssertionError(
+                            f"serve_body highlight {qi}: span "
+                            f"{text[a:b]!r} is no query term of {terms}")
+                want = sorted({(t.start_offset, t.end_offset)
+                               for t in mapper.analyzer.analyze(text)
+                               if t.term in terms})
+                _expect(f"highlight {qi} spans", sorted(spans), want)
+                wrapped[0] += len(spans)
+
+        launches += body_requests(
+            client, f"/{name}/_search", "highlight",
+            [{"query": {"match": {"body": t}}, "_source": False,
+              "highlight": {"fields": {"body": {}}}}
+             for t in q_text[:BODY_HIGHLIGHTS]],
+            check_highlight, 0, exact, fields)
+        fields["highlight_spans"] = wrapped[0]
+
+        # the second index: the first passages again, with their vectors
+        m = min(N_MSMARCO_B, reader.num_docs)
+        client.ok("PUT", f"/{name}_b", {
+            "settings": {"number_of_shards": 1},
+            "mappings": svc.mapper_service.to_dict()})
+        sources = []
+        for i in range(m):
+            src = reader.get_source(i)
+            src.pop("emb", None)
+            sources.append(src)
+        node.index(f"{name}_b").index_many(
+            [str(i) for i in range(m)], sources, vectors={"emb": emb[:m]})
+        client.ok("POST", f"/{name}_b/_refresh")
+        expr = f"{name},{name}_b"
+
+        def legs_of(path, body):
+            extra = {k: v for k, v in body.items()
+                     if k in ("_source", "highlight")}
+            return [client.ok("POST", path, dict(
+                {"query": q, "size": 100}, **extra))["hits"]["hits"]
+                for q in (body["query"], {"knn": body["knn"]})]
+
+        def check_rrf(path, label, bodies):
+            def check(qi, resp):
+                want, total = _host_rrf_hits(legs_of(path, bodies[qi]))
+                _expect(f"{label} {qi}", resp["hits"]["hits"], want)
+                _expect(f"{label} {qi} total", resp["hits"]["total"],
+                        {"value": total, "relation": "eq"})
+                if "_shards" in resp:
+                    raise AssertionError(f"serve_body {label}: the fused "
+                                         f"path answered")
+            return check
+
+        bodies = [hybrid_body(t, qv) for t, qv in
+                  zip(q_text[:BODY_HIGHLIGHTS], q_emb[:BODY_HIGHLIGHTS])]
+        responses = []
+        launches += body_requests(
+            client, f"/{expr}/_search", "rrf_two_indices", bodies,
+            lambda qi, resp: responses.append(resp), 2, exact, fields)
+        for qi, resp in enumerate(responses):
+            check_rrf(f"/{expr}/_search", "rrf_two_indices", bodies)(qi,
+                                                                     resp)
+        hl = [dict(b, highlight={"fields": {"body": {}}}) for b in bodies]
+        responses = []
+        launches += body_requests(
+            client, f"/{name}/_search", "rrf_highlight", hl,
+            lambda qi, resp: responses.append(resp), 1, exact, fields)
+        for qi, resp in enumerate(responses):
+            check_rrf(f"/{name}/_search", "rrf_highlight", hl)(qi, resp)
+        fields["docs_b"] = m
+        drop_index(client, f"{name}_b")
+        log("body", **fields)
+    finally:
+        exact.close()
+    return launches
 
 
 def hybrid_repeat_pass(client, node, name: str, bodies, responses,
@@ -4584,6 +5018,11 @@ def main(argv=None) -> int:
                     help="build the binned kernels and run only serve_sift's "
                          "sequential requests and serve_documents at "
                          "--n-sift docs (no final ok line)")
+    ap.add_argument("--body-only", action="store_true",
+                    help="build the binned kernels and run only the laion "
+                         "index of serve_filtered at --n-laion rows with "
+                         "its unfiltered requests and the search body's "
+                         "part (no final ok line)")
     ap.add_argument("--n-sparse", type=int, default=N_SPARSE)
     ap.add_argument("--sparse-only", action="store_true",
                     help="build, check bm25_board (the BM25 and the "
@@ -4611,6 +5050,11 @@ def main(argv=None) -> int:
     if args.docs_only:
         phase_build(["knn_binned"])
         phase_serve(args.seed, args.n_sift, 0, docs_only=True)
+        return 0
+    if args.body_only:
+        phase_build(["knn_binned"])
+        timed("serve_body", phase_serve_filtered, args.seed, args.n_laion,
+              body_only=True)
         return 0
     phase_build()
     if args.sharded_only:

@@ -18,7 +18,9 @@ without walking a dict. A document's
 `_source` is kept as it was sent; vectors given as arrays (a numpy row in
 a source, or `vectors=` / `token_vectors=`) have no JSON to keep and are
 rendered from their blocks. A document's routing value, when it has one,
-is kept beside its `_id`.
+is kept beside its `_id`, and its seq_no beside it too; its `_version` and
+`_primary_term` seal as doc values of its row, as the reference's engine
+keeps them, so a hit reads them from a sealed row.
 
 Writes are versioned as in the reference: each takes a seq_no, a version
 (internal, or the caller's `external` / `external_gte` one) and is checked
@@ -80,6 +82,9 @@ class _Buffer:
         self.ids: List[str] = []
         self.sources: List[Optional[dict]] = []
         self.routings: List[Optional[str]] = []
+        # each row's seq_no and version
+        self.seq_nos: List[int] = []
+        self.versions: List[int] = []
         # field -> [(local rows [m], vectors [m, d])]
         self.blocks: Dict[str, list] = {}
         # field -> [(local rows [m], tokens [T, d], counts [m] >= 1)]
@@ -134,14 +139,17 @@ class _Buffer:
             self.features.setdefault(field, []).append(
                 (np.asarray(pos, dtype=np.int64) + start, counts, codes, w))
 
-    def add(self, ids, sources, routings, vectors, tokens, terms,
+    def add(self, ids, sources, routings, stamps, vectors, tokens, terms,
             doc_values) -> int:
-        """Append a batch. `terms` and `doc_values` map a field to
-        (batch positions, values), one entry a term or a doc value."""
+        """Append a batch. `stamps` holds each document's (seq_no,
+        version); `terms` and `doc_values` map a field to (batch
+        positions, values), one entry a term or a doc value."""
         start = len(self.ids)
         self.ids.extend(ids)
         self.sources.extend(sources)
         self.routings.extend(routings)
+        self.seq_nos.extend(s for s, _ in stamps)
+        self.versions.extend(v for _, v in stamps)
         locals_ = np.arange(start, start + len(ids), dtype=np.int64)
         for field, (mask, block) in vectors.items():
             self.blocks.setdefault(field, []).append(
@@ -246,11 +254,16 @@ class _Buffer:
                       if f not in self.features}
         for field, parts in self.features.items():
             doc_values[field] = self._seal_features(n, field, parts)
+        doc_values["_version"] = DocValuesColumn.of_ints(
+            np.asarray(self.versions, dtype=np.int64))
+        doc_values["_primary_term"] = DocValuesColumn.of_ints(
+            np.full(n, PRIMARY_TERM, dtype=np.int64))
         routings = (self.routings if any(r is not None for r in self.routings)
                     else None)
         return Segment(self.seg_id, self.base, self.ids, self.sources, vectors,
                        self._seal_tokens(n), postings, doc_values, routings,
-                       field_lengths)
+                       field_lengths,
+                       seq_nos=np.asarray(self.seq_nos, dtype=np.int64))
 
 
 class Engine:
@@ -374,10 +387,21 @@ class Engine:
             tokens = token_columns if whole else {
                 f: self._token_subset(col, keep, n)
                 for f, col in token_columns.items()}
+            # each document's (seq_no, version) before it is appended, its
+            # row keeps both; an id repeated in the batch versions on its
+            # earlier copy
+            stamps = []
+            stamped: Dict[str, _VersionValue] = {}
+            for j, i in enumerate(keep):
+                existing = stamped.get(ids[i], self.version_map.get(ids[i]))
+                stamp = (self._next_seq_no + j,
+                         self._new_version(existing, version, version_type))
+                stamped[ids[i]] = _VersionValue(stamp[1], stamp[0], -1)
+                stamps.append(stamp)
             start = self._append(
                 ids_k, [sources[i] for i in keep] if not whole else sources,
                 [routings[i] for i in keep] if not whole else routings,
-                [parsed[i] for i in keep] if not whole else parsed,
+                stamps, [parsed[i] for i in keep] if not whole else parsed,
                 columns, tokens, mappers, token_mappers)
             for j, i in enumerate(keep):
                 doc_id = ids[i]
@@ -386,9 +410,7 @@ class Engine:
                 live = existing is not None and not existing.deleted
                 if live:
                     self._tombstone(existing.row)
-                new_version = self._new_version(existing, version,
-                                                version_type)
-                seq_no = self._next_seq_no
+                seq_no, new_version = stamps[j]
                 self._next_seq_no += 1
                 self.version_map[doc_id] = _VersionValue(new_version, seq_no,
                                                          row)
@@ -423,7 +445,7 @@ class Engine:
                 else np.zeros(0, dtype=np.int64))
         return sub > 0, toks[rows], sub[sub > 0]
 
-    def _append(self, ids, sources, routings, parsed, columns,
+    def _append(self, ids, sources, routings, stamps, parsed, columns,
                 token_columns, mappers, token_mappers) -> int:
         """Append validated documents to the buffer (caller holds the
         lock); returns the first one's local row."""
@@ -482,8 +504,8 @@ class Engine:
         if self._buffer is None:
             self._buffer = _Buffer(self._next_seg_id, self._next_row)
             self._next_seg_id += 1
-        start = self._buffer.add(list(ids), stored, routings, columns,
-                                 token_columns, terms, doc_values)
+        start = self._buffer.add(list(ids), stored, routings, stamps,
+                                 columns, token_columns, terms, doc_values)
         self._buffer.add_text(start, text)
         self._buffer.add_features(start, features)
         self._next_row += n

@@ -74,6 +74,13 @@ class DocValuesColumn:
         numeric[locals_] = np.asarray(values, dtype=np.float64)
         return cls(col, numeric, present)
 
+    @classmethod
+    def of_ints(cls, values: np.ndarray) -> "DocValuesColumn":
+        """A column of one int a doc, every doc holding one (the rows'
+        `_version` and `_primary_term`)."""
+        return cls(values.astype(object), values.astype(np.float64),
+                   np.ones(len(values), dtype=bool))
+
     def get(self, local_doc: int) -> Any:
         return self.values[local_doc]
 
@@ -264,7 +271,7 @@ class Segment:
 
     __slots__ = ("seg_id", "base", "num_docs", "ids", "sources", "vectors",
                  "tokens", "postings", "doc_values", "routings",
-                 "field_lengths", "total_terms")
+                 "field_lengths", "total_terms", "seq_nos")
 
     def __init__(self, seg_id: int, base: int, ids: List[str],
                  sources: List[Optional[dict]],
@@ -274,7 +281,8 @@ class Segment:
                  postings: Optional[Dict[str, FieldPostings]] = None,
                  doc_values: Optional[Dict[str, DocValuesColumn]] = None,
                  routings: Optional[List[Optional[str]]] = None,
-                 field_lengths: Optional[Dict[str, np.ndarray]] = None):
+                 field_lengths: Optional[Dict[str, np.ndarray]] = None,
+                 seq_nos: Optional[np.ndarray] = None):
         self.seg_id = seg_id
         self.base = base                # global row id of local doc 0
         self.num_docs = len(ids)
@@ -292,6 +300,7 @@ class Segment:
         self.field_lengths = field_lengths or {}
         self.total_terms = {f: int(fl.sum())
                             for f, fl in self.field_lengths.items()}
+        self.seq_nos = seq_nos          # int64 [num_docs], or None
 
     def get_postings(self, field: str, term: str) -> Optional[Postings]:
         f = self.postings.get(field)
@@ -355,6 +364,17 @@ class ShardReader:
     def get_routing(self, row: int) -> Optional[str]:
         seg, local = self._locate(row)
         return None if seg.routings is None else seg.routings[local]
+
+    def get_seq_no(self, row: int) -> Optional[int]:
+        seg, local = self._locate(row)
+        return None if seg.seq_nos is None else int(seg.seq_nos[local])
+
+    def locate_many(self, rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(view index, local doc) of each global row, vectorised."""
+        rows = np.asarray(rows, dtype=np.int64)
+        bases = np.asarray(self._bases, dtype=np.int64)
+        vi = np.searchsorted(bases, rows, side="right") - 1
+        return vi, rows - bases[vi]
 
     def get_doc_value(self, field: str, row: int) -> Any:
         """The doc value of `field` at a global row, as its column holds

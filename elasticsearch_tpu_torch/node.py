@@ -57,12 +57,14 @@ from elasticsearch_tpu_torch.indices.service import (  # noqa: F401
 from elasticsearch_tpu_torch.search.caches import (
     NodeCaches, can_match, reader_fingerprint,
 )
-from elasticsearch_tpu_torch.search.hybrid_plan import HybridExecutor
+from elasticsearch_tpu_torch.search.hybrid_plan import (
+    HybridExecutor, sub_queries_of,
+)
 from elasticsearch_tpu_torch.search.queries import SearchContext
 from elasticsearch_tpu_torch.search.service import (
-    check_track_total_hits, count_body, execute_fetch_phase,
-    execute_query_phase, filter_source, render_hits, source_patterns,
-    tracks_total, window,
+    check_track_total_hits, count_body, execute_query_phase, fetch_hits,
+    filter_source, get_path, group_value, inner_hits_body, inner_hits_specs,
+    source_patterns, tracks_total, window,
 )
 from elasticsearch_tpu_torch.serving.batcher import CombiningBatcher
 
@@ -852,32 +854,31 @@ class Node:
         """`_search` over an index expression (`resolve`: none, `_all`, a
         list, `*` patterns). Each index runs its query phase through its
         own store and the shard request cache (keyed on that index); the
-        windows merge by score, ties in the order the expression resolved
-        and then each index's own order, as the reference merges them;
-        the merged window is fetched. With `pre_filter_shard_size` (the
-        URL parameter) a body with a query first runs can_match, and an
-        index it proves empty is skipped whole: its shards count as
-        `skipped` and no query phase runs. A `rank: {rrf}` body runs the
-        fused hybrid path over one index; over several it is a 400."""
+        windows merge (`_merge_windows`) and the merged window is fetched.
+        With `pre_filter_shard_size` (the URL parameter) a body with a
+        query first runs can_match, and an index it proves empty is
+        skipped whole: its shards count as `skipped` and no query phase
+        runs. A `rank: {rrf}` body over one named index with no
+        `highlight` runs the fused hybrid path; any other runs the
+        general one (`_search_rrf_general`), as in the reference."""
         start = time.perf_counter()
         body = body or {}
         check_track_total_hits(body)
-        services = self.resolve(index_expr, ignore_unavailable,
-                                allow_no_indices)
         rank = body.get("rank")
         if isinstance(rank, dict) and "rrf" in rank:
-            if len(services) > 1:
-                raise IllegalArgumentError(
-                    f"[rank] over more than one index is not supported by "
-                    f"this build: the expression [{index_expr}] names "
-                    f"{len(services)} indices, and fusing across indices "
-                    f"needs [knn] as a query clause, which is not ported")
-            if services:
+            services = []
+            if index_expr:
+                try:
+                    services = self.resolve(index_expr, ignore_unavailable,
+                                            allow_no_indices)
+                except SearchEngineError:
+                    services = []   # the general path raises it
+            if len(services) == 1 and "highlight" not in body:
                 return self._search_rrf(services[0], body)
-            return {"took": int((time.perf_counter() - start) * 1000),
-                    "timed_out": False,
-                    "hits": {"total": {"value": 0, "relation": "eq"},
-                             "max_score": None, "hits": []}}
+            return self._search_rrf_general(index_expr, body,
+                                            rank["rrf"] or {})
+        services = self.resolve(index_expr, ignore_unavailable,
+                                allow_no_indices)
         frm, size = window(body)
         phases = []
         total, relation, max_score, skipped = 0, "eq", None, 0
@@ -896,14 +897,23 @@ class Node:
             if result.max_score is not None:
                 max_score = (result.max_score if max_score is None
                              else max(max_score, result.max_score))
+        merged = self._merge_windows(phases, body,
+                                     several=len(services) > 1)
+        hits = self._fetch_window(merged[frm:frm + size], body,
+                                  expand=len(services) <= 1)
+        collapse = body.get("collapse")
+        if collapse and inner_hits_specs(collapse) and len(services) > 1:
+            self._expand_collapse_inner_hits(services, body, collapse, hits)
         n = sum(svc.num_shards for svc in services)
         resp = {"took": 0, "timed_out": False,
                 "_shards": {"total": n, "successful": n, "skipped": skipped,
                             "failed": 0},
                 "hits": {"total": {"value": total, "relation": relation},
-                         "max_score": max_score,
-                         "hits": self._fetch_merged(phases, body, frm,
-                                                    size)}}
+                         "max_score": max_score, "hits": hits}}
+        brs = body.get("batched_reduce_size")
+        if brs and int(brs) < n:
+            # a partial reduce a filled buffer, and the final one
+            resp["num_reduce_phases"] = -(-n // int(brs)) + 1
         track = body.get("track_total_hits")
         if not tracks_total(body):
             del resp["hits"]["total"]
@@ -913,6 +923,51 @@ class Node:
             resp["hits"]["total"] = {"value": track, "relation": "gte"}
         resp["took"] = int((time.perf_counter() - start) * 1000)
         return resp
+
+    def _search_rrf_general(self, index_expr: Optional[str], body: dict,
+                            rrf: dict) -> dict:
+        """Reciprocal-rank fusion at the coordinator (the reference's
+        general path): each ranked list (`sub_searches`, or `query` and
+        each `knn` spec as a `{"knn": spec}` query clause) is a `_search`
+        over the expression of `rank_window_size` hits, with the body's
+        `_source`, `docvalue_fields` and `highlight`; hits fuse by
+        (`_index`, `_id`) as sum(1 / (rank_constant + rank)), ties by that
+        key, and keep their first list's rendering."""
+        rank_constant = int(rrf.get("rank_constant", 60))
+        rank_window = int(rrf.get("rank_window_size",
+                                  rrf.get("window_size", 100)))
+        size = int(body.get("size", 10))
+        frm = int(body.get("from", 0) or 0)
+        sub_queries = sub_queries_of(body)
+        if len(sub_queries) < 2:
+            raise IllegalArgumentError(
+                "[rrf] requires at least 2 ranked lists (sub_searches, or "
+                "query + knn)")
+        passthrough = {k: v for k, v in body.items()
+                       if k in ("_source", "docvalue_fields", "highlight")}
+        start = time.perf_counter()
+        fused: Dict[tuple, float] = {}
+        hit_by_key: Dict[tuple, dict] = {}
+        for q in sub_queries:
+            resp = self.search(index_expr, {"query": q, "size": rank_window,
+                                            **passthrough})
+            for rank_pos, hit in enumerate(resp["hits"]["hits"]):
+                key = (hit["_index"], hit["_id"])
+                fused[key] = fused.get(key, 0.0) + 1.0 / (
+                    rank_constant + rank_pos + 1)
+                hit_by_key.setdefault(key, hit)
+        ordered = sorted(fused.items(), key=lambda kv: (-kv[1], kv[0]))
+        hits = []
+        for key, score in ordered[frm:frm + size]:
+            hit = dict(hit_by_key[key])
+            hit["_score"] = score
+            hit.pop("sort", None)
+            hits.append(hit)
+        return {"took": int((time.perf_counter() - start) * 1000),
+                "timed_out": False,
+                "hits": {"total": {"value": len(fused), "relation": "eq"},
+                         "max_score": hits[0]["_score"] if hits else None,
+                         "hits": hits}}
 
     def _query_phase(self, svc: IndexService, reader, body: dict):
         """One index's query phase through the request cache's rung for the
@@ -931,28 +986,86 @@ class Node:
         return result
 
     @staticmethod
-    def _fetch_merged(phases: list, body: dict, frm: int,
-                      size: int) -> List[dict]:
-        """The hits of [from, from + size) over the indices' query phases:
-        a stable sort by score of their windows concatenated in order."""
-        if len(phases) == 1:
-            svc, reader, result = phases[0]
-            return execute_fetch_phase(reader, svc.mapper_service, svc.name,
-                                       body, result)["hits"]
-        if not phases:
-            return []
-        scores = np.concatenate([r.scores for _, _, r in phases])
-        owner = np.concatenate([np.full(len(r.rows), i, dtype=np.int64)
-                                for i, (_, _, r) in enumerate(phases)])
-        rows = np.concatenate([r.rows for _, _, r in phases])
-        order = np.argsort(-scores, kind="stable")[frm:frm + size]
-        hits = []
-        for j in order.tolist():
-            svc, reader, _ = phases[owner[j]]
-            hits.extend(render_hits(reader, svc.mapper_service, svc.name,
-                                    rows[j:j + 1], scores[j:j + 1],
-                                    body.get("_source")))
+    def _merge_windows(phases: list, body: dict, several: bool) -> list:
+        """The indices' windows as one ranked list of (phase, position):
+        stably by score (ties in the order the expression resolved, then
+        each index's own order), or, when the body sorts, stably by each
+        hit's sort tuple (`_sort_key_tuple`). Over several indices a
+        collapse keeps the first hit of each group across them."""
+        entries = [(pi, j) for pi, (_, _, r) in enumerate(phases)
+                   for j in range(len(r.rows))]
+        if body.get("sort"):
+            entries.sort(key=lambda e: _sort_key_tuple(
+                phases[e[0]][2].sort_values[e[1]]
+                if phases[e[0]][2].sort_values is not None else None, body))
+        elif len(phases) > 1:
+            scores = np.concatenate([r.scores for _, _, r in phases])
+            entries = [entries[i] for i in
+                       np.argsort(-scores, kind="stable").tolist()]
+        collapse = body.get("collapse")
+        if collapse and several:
+            seen, deduped = set(), []
+            for pi, j in entries:
+                _, reader, r = phases[pi]
+                g = group_value(reader, collapse["field"], r.rows[j])
+                if g not in seen:
+                    seen.add(g)
+                    deduped.append((pi, j))
+            entries = deduped
+        return [(phases[pi], j) for pi, j in entries]
+
+    def _fetch_window(self, window_entries: list, body: dict,
+                      expand: bool) -> List[dict]:
+        """The fetch phase of the merged window: each run of hits of one
+        index fetched together, from that index's reader."""
+        hits: List[dict] = []
+        for _, group in itertools.groupby(window_entries,
+                                          key=lambda e: id(e[0])):
+            group = list(group)
+            svc, reader, r = group[0][0]
+            run = [j for _, j in group]
+            idx = np.asarray(run, dtype=np.int64)
+            ctx = SearchContext(reader, svc.mapper_service, svc.vector_store,
+                                svc.settings, query_cache=self.caches.query)
+            hits.extend(fetch_hits(
+                ctx, svc.name, body, r.rows[idx], r.scores[idx],
+                None if r.sort_values is None
+                else [r.sort_values[j] for j in run],
+                expand_inner_hits=expand))
         return hits
+
+    def _expand_collapse_inner_hits(self, services: list, body: dict,
+                                    collapse: dict, hits: List[dict]) -> None:
+        """Each collapsed hit's `inner_hits` over every index (the
+        reference's expand phase, one sub-search a group and index): the
+        indices' hits merged by score, or by their `sort` tuples, cut to
+        `size`, with the summed total."""
+        field = collapse["field"]
+        for hit in hits:
+            vals = (hit.get("fields") or {}).get(field)
+            gv = vals[0] if vals else None
+            for spec in inner_hits_specs(collapse):
+                want = int(spec.get("size", 3))
+                sub_body = inner_hits_body(body, field, gv, spec, want)
+                merged, total = [], 0
+                for svc in services:
+                    reader = svc.combined_reader()
+                    ctx = SearchContext(reader, svc.mapper_service,
+                                        svc.vector_store)
+                    res = execute_query_phase(ctx, sub_body)
+                    total += res.total
+                    merged.extend(fetch_hits(ctx, svc.name, sub_body,
+                                             res.rows, res.scores,
+                                             res.sort_values))
+                if spec.get("sort") is None:
+                    merged.sort(key=lambda h: -(h.get("_score") or 0.0))
+                else:
+                    merged.sort(key=lambda h: tuple(h.get("sort") or []))
+                hit.setdefault("inner_hits", {})[spec.get("name", field)] = {
+                    "hits": {"total": {"value": total, "relation": "eq"},
+                             "max_score": (merged[0].get("_score")
+                                           if merged else None),
+                             "hits": merged[:want]}}
 
     def count(self, index_expr: Optional[str], body: Optional[dict]) -> dict:
         """`_count`: the body's query phase on every index the expression
@@ -1038,6 +1151,64 @@ class Node:
                 "indices": indices}
 
 
+def _sort_key_tuple(sort_values, body: dict) -> tuple:
+    """A hit's merge key under the body's sort, as the reference's
+    coordinator builds it: each clause's order from the body (a clause
+    given as a bare string sorts ascending here), a string inverted for a
+    descending one, and a missing value last whatever the order."""
+    sort = body.get("sort")
+    if isinstance(sort, (str, dict)):
+        sort = [sort]
+    keys: list = []
+    for spec, v in zip(sort or [], sort_values or []):
+        direction = "asc"
+        if isinstance(spec, dict):
+            ((_, o),) = spec.items()
+            direction = o if isinstance(o, str) else o.get("order", "asc")
+        if isinstance(v, str):
+            keys.append(v if direction == "asc" else _InvStr(v))
+        elif v is None:
+            keys.append(_MISSING)
+        else:
+            keys.append(float(v) if direction == "asc" else -float(v))
+    return tuple(keys)
+
+
+class _InvStr:
+    """A string in reversed order, for a descending clause's key."""
+
+    __slots__ = ("s",)
+
+    def __init__(self, s):
+        self.s = s
+
+    def __lt__(self, other):
+        if isinstance(other, _MissingLast):
+            return True
+        return self.s > other.s
+
+    def __eq__(self, other):
+        return isinstance(other, _InvStr) and self.s == other.s
+
+
+class _MissingLast:
+    """Greater than every other key: a missing value sorts last."""
+
+    __slots__ = ()
+
+    def __lt__(self, other):
+        return False
+
+    def __gt__(self, other):
+        return not isinstance(other, _MissingLast)
+
+    def __eq__(self, other):
+        return isinstance(other, _MissingLast)
+
+
+_MISSING = _MissingLast()
+
+
 def _deep_merge(dst: dict, src: dict) -> None:
     """The `doc` of an update into a source: objects merge key by key,
     anything else replaces."""
@@ -1046,15 +1217,6 @@ def _deep_merge(dst: dict, src: dict) -> None:
             _deep_merge(dst[k], v)
         else:
             dst[k] = v
-
-
-def _get_path(obj: dict, path: str):
-    node = obj
-    for part in path.split("."):
-        if not isinstance(node, dict) or part not in node:
-            return None
-        node = node[part]
-    return node
 
 
 def _apply_mget_projection(svc: Optional[IndexService], doc: dict, spec: dict,
@@ -1074,7 +1236,7 @@ def _apply_mget_projection(svc: Optional[IndexService], doc: dict, spec: dict,
             mapper = svc.mapper_service.get(fname)
             if mapper is None or not mapper.params.get("store"):
                 continue
-            val = _get_path(doc.get("_source") or {}, fname)
+            val = get_path(doc.get("_source") or {}, fname)
             if val is not None:
                 fields[fname] = val if isinstance(val, list) else [val]
         if fields:

@@ -12,7 +12,8 @@ update, delete) and [/{index}]/_mget.
 
 Search: GET|POST [/{index}]/_search over an index expression (none,
 `_all`, a list, `*` patterns; URL `from`, `size`, `track_total_hits`,
-`_source*`, `request_cache`, `pre_filter_shard_size`,
+`_source*`, `sort` (`f:desc`), `docvalue_fields`, `seq_no_primary_term`,
+`version`, `request_cache`, `pre_filter_shard_size`,
 `rest_total_hits_as_int`, `ignore_unavailable`, `allow_no_indices`),
 [/{index}]/_count and [/{index}]/_msearch. The URL `q` (and `df`,
 `default_operator`, `analyzer`, `lenient`) needs `query_string`, which is
@@ -261,10 +262,13 @@ def register_all(rc: RestController, node: Node) -> None:
         src = _source_filter(req)
         if src is not None:
             body["_source"] = src
-        for p in ("sort", "docvalue_fields"):
-            # a body key the port does not parse: its 400 names it
-            if req.param(p):
-                body[p] = req.param(p).split(",")
+        sort = req.param("sort")
+        if sort:
+            # `f:desc` is {f: desc}, a bare name its default order
+            body["sort"] = [{s.split(":")[0]: s.split(":")[1]}
+                            if ":" in s else s for s in sort.split(",")]
+        if req.param("docvalue_fields"):
+            body["docvalue_fields"] = req.param("docvalue_fields").split(",")
         for p in ("seq_no_primary_term", "version"):
             if req.bool_param(p, False):
                 body[p] = True

@@ -67,7 +67,7 @@ from elasticsearch_tpu_torch.vectors.late_interaction import (
 DEFAULT_RANK_CONSTANT = 60
 DEFAULT_WINDOW = 100
 _BODY_KEYS = {"rank", "sub_searches", "query", "knn", "size", "from",
-              "_source", "request_cache"}
+              "_source", "docvalue_fields", "request_cache"}
 
 
 class LexicalLeg:
@@ -249,22 +249,23 @@ class HybridPlan:
     plan was compiled against)."""
 
     __slots__ = ("legs", "rank_constant", "window", "size", "frm",
-                 "source_spec", "mapper_service")
+                 "fetch_body", "mapper_service")
 
-    def __init__(self, legs, rank_constant, window, size, frm, source_spec,
+    def __init__(self, legs, rank_constant, window, size, frm, fetch_body,
                  mapper_service):
         self.legs = legs
         self.rank_constant = rank_constant
         self.window = window
         self.size = size
         self.frm = frm
-        self.source_spec = source_spec
+        # the keys the fetch of the fused window reads
+        self.fetch_body = fetch_body
         self.mapper_service = mapper_service
 
     def bind(self, body: dict) -> List[Any]:
         """The executable legs of `body` against the templates."""
         bound: List[Any] = []
-        for template, q in zip(self.legs, _sub_queries_of(body)):
+        for template, q in zip(self.legs, sub_queries_of(body)):
             if isinstance(template, LexicalTemplate):
                 bound.append(template.bind(q[template.kind][template.field],
                                            self.mapper_service))
@@ -277,7 +278,7 @@ class HybridPlan:
         return bound
 
 
-def _sub_queries_of(body: dict) -> List[dict]:
+def sub_queries_of(body: dict) -> List[dict]:
     subs: List[dict] = []
     if body.get("sub_searches"):
         subs = [s.get("query", {"match_all": {}})
@@ -364,7 +365,7 @@ def compile_plan(body: dict, mapper_service) -> HybridPlan:
     if size < 0:
         raise IllegalArgumentError(
             f"[size] parameter cannot be negative, found [{size}]")
-    subs = _sub_queries_of(body)
+    subs = sub_queries_of(body)
     if len(subs) < 2:
         raise IllegalArgumentError(
             "[rrf] requires at least 2 ranked lists (sub_searches, or "
@@ -415,7 +416,9 @@ def compile_plan(body: dict, mapper_service) -> HybridPlan:
                     raise _not_ported(kind, e.message)
             legs.append(leg)
     return HybridPlan(legs, rank_constant, window, size, frm,
-                      body.get("_source"), mapper_service)
+                      {k: v for k, v in body.items()
+                       if k in ("_source", "docvalue_fields")},
+                      mapper_service)
 
 
 def fuse_rrf(leg_rows: List[np.ndarray], rank_constant: int
@@ -532,8 +535,9 @@ class HybridExecutor:
     def _finalize_batch(self, handle: dict) -> List[dict]:
         """Finalize stage (outside the run lock): land the kNN boards, fuse
         RRF and fetch the final window of each body."""
-        from elasticsearch_tpu_torch.search.service import render_hits
+        from elasticsearch_tpu_torch.search.service import fetch_hits
         reader, plans = handle["reader"], handle["plans"]
+        ctx = SearchContext(reader, self.svc.mapper_service)
         leg_results = handle["leg_results"]
         t0 = time.perf_counter_ns()
         self._land_knn_legs(handle["pending"], plans, leg_results)
@@ -548,9 +552,8 @@ class HybridExecutor:
         t2 = time.perf_counter_ns()
         out = []
         for plan, (rows, scores, top) in zip(plans, fused):
-            hits = render_hits(reader, self.svc.mapper_service,
-                               self.svc.name, rows[top], scores[top],
-                               plan.source_spec)
+            hits = fetch_hits(ctx, self.svc.name, plan.fetch_body,
+                              rows[top], scores[top])
             out.append({
                 "took": int((time.perf_counter() - handle["start"]) * 1000),
                 "timed_out": False,

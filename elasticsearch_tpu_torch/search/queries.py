@@ -830,8 +830,8 @@ class BoolQuery(Query):
 
 PORTED_KINDS = ("match_all", "match_none", "term", "terms", "match",
                 "match_phrase", "multi_match", "range", "exists", "ids",
-                "constant_score", "bool", "late_interaction", "rank_feature",
-                "sparse_vector", "weighted_tokens")
+                "constant_score", "bool", "knn", "late_interaction",
+                "rank_feature", "sparse_vector", "weighted_tokens")
 
 # every kind the reference's parser knows (its did-you-mean list)
 _KNOWN_KINDS = (
@@ -933,6 +933,18 @@ def parse_query(body: Optional[dict]) -> Query:
     if kind == "constant_score":
         return ConstantScoreQuery(parse_query(spec["filter"]),
                                   float(spec.get("boost", 1.0)))
+    if kind == "knn":
+        # the clause's own defaults, the reference's: k 10, num_candidates
+        # k (the top-level `knn` defaults k to num_candidates)
+        from elasticsearch_tpu_torch.search.knn_query import KnnQuery
+        return KnnQuery(field=spec["field"],
+                        query_vector=spec["query_vector"],
+                        k=int(spec.get("k", 10)),
+                        num_candidates=int(spec.get("num_candidates",
+                                                    spec.get("k", 10))),
+                        filter_query=(parse_query(spec["filter"])
+                                      if "filter" in spec else None),
+                        boost=float(spec.get("boost", 1.0)))
     if kind == "late_interaction":
         return LateInteractionFilterQuery(spec)
     if kind in ("rank_feature", "sparse_vector", "weighted_tokens"):

@@ -1,38 +1,50 @@
-"""Per-shard search: parse the body, run the query, assemble hits (port of
-the served slices of `elasticsearch_tpu/search/service.py`).
+"""Per-shard search: the body's checks, the query phase and the fetch phase
+(port of `elasticsearch_tpu/search/service.py`).
 
-The port accepts `{knn, query, size, from, _source, track_total_hits,
-request_cache}` (`request_cache` is the shard request cache's
-per-request opt-in or opt-out, read by the node).
+The body keys served: `knn`, `query`, `size`, `from`, `_source`,
+`track_total_hits`, `request_cache` (the shard request cache's
+per-request opt-in or opt-out, read by the node), `post_filter`,
+`min_score`, `rescore`, `sort`, `search_after`, `collapse` (with
+`inner_hits` and a second-level collapse inside them), `highlight`,
+`version`, `seq_no_primary_term`, `stored_fields`, `docvalue_fields` and
+`explain`; the node reads `rank` and `batched_reduce_size`. `fields`,
+`track_scores`, `ext`, `stats`, `max_concurrent_shard_requests` and
+`pre_filter_shard_size` are accepted and change nothing, as in the
+reference. The keys the reference serves that are not ported
+(`_NOT_PORTED`) are each a 400 that names them; any other key is the
+reference's `unknown key` parsing error.
+
 `knn` is one spec or a list of specs (`field`, `query_vector`, `k`,
 `num_candidates`, `filter`, `boost`); `query` is any query
-`search/queries.py` parses (term-level filters, the BM25 text queries,
-`bool`, the host walkers of `late_interaction`, `sparse_vector` /
-`weighted_tokens` and `rank_feature`). Hits rank by (score desc, row asc)
-through `native.topk`, as the reference ranks them; `_source` takes a
-field, a list of fields or patterns, or `{includes, excludes}`, filtered
-as the reference filters it. Several knn specs, or knn beside a query,
-combine as `bool.should` of them, as in the reference; no query and no
-knn is `match_all`. Any other body key is rejected with a 400. Hybrid
-`rank: {rrf}` bodies go to `search/hybrid_plan.py`, which renders its hits
-with `render_hits`.
+`search/queries.py` parses, `knn` among them. Several knn specs, or knn
+beside a query, combine as `bool.should` of them, as in the reference; no
+query and no knn is `match_all`.
 
-A search is a query phase (`execute_query_phase`: the ranked rows and
-scores of the window, the total and the max score) and a fetch
-(`execute_fetch_phase`): the shard request cache stores the first, and the
-fetch re-runs for every request, as in the reference.
+A search is a query phase (`execute_query_phase`: the query's rows, less
+those `post_filter` and `min_score` drop, rescored, ranked by score or by
+the sort, cut after `search_after`, collapsed, and cut to `from + size`;
+the total and the max score) and a fetch (`fetch_hits`): the shard request
+cache stores the first, and the fetch re-runs for every request, as in the
+reference. The sort's keys are built vectorised from the doc-values
+columns over every matched row; the `sort` tuples only for the window's
+rows.
 """
 
 from __future__ import annotations
 
 import fnmatch
-from typing import List, Optional, Tuple
+import re
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
 
 from elasticsearch_tpu_torch import native
 from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentError, ParsingError,
 )
-from elasticsearch_tpu_torch.index.mapping import MapperService
+from elasticsearch_tpu_torch.index.mapping import (
+    KeywordFieldMapper, TextFieldMapper,
+)
 from elasticsearch_tpu_torch.index.segment import ShardReader
 from elasticsearch_tpu_torch.search.knn_query import KnnQuery
 from elasticsearch_tpu_torch.search.queries import (
@@ -42,10 +54,52 @@ from elasticsearch_tpu_torch.search.queries import (
 DEFAULT_SIZE = 10
 MAX_RESULT_WINDOW = 10_000
 TRACK_TOTAL_HITS_DEFAULT = 10_000
-_SEARCH_BODY_KEYS = {"knn", "query", "size", "from", "_source",
-                     "track_total_hits", "request_cache"}
+# every body key the reference knows
+_SEARCH_BODY_KEYS = {
+    "query", "from", "size", "sort", "track_total_hits", "track_scores",
+    "aggs", "aggregations", "post_filter", "highlight", "_source", "fields",
+    "docvalue_fields", "stored_fields", "script_fields", "suggest",
+    "rescore", "explain", "version", "seq_no_primary_term", "min_score",
+    "search_after", "collapse", "profile", "timeout", "terminate_after",
+    "indices_boost", "knn", "rank", "pit", "runtime_mappings", "slice",
+    "ext", "stats", "point_in_time", "batched_reduce_size",
+    "pre_filter_shard_size", "scroll", "max_concurrent_shard_requests",
+    "request_cache",
+}
+# the keys of the reference that this build leaves out, and why
+_NOT_PORTED = {
+    "profile": "the search profiler needs the telemetry, which is not "
+               "ported",
+    "aggs": "aggregations are not ported",
+    "aggregations": "aggregations are not ported",
+    "suggest": "suggesters are not ported",
+    "script_fields": "the script module is not ported",
+    "slice": "sliced scrolls are not ported",
+    "scroll": "scroll contexts are not ported",
+    "pit": "point-in-time readers are not ported",
+    "point_in_time": "point-in-time readers are not ported",
+    "runtime_mappings": "runtime fields are not ported",
+    "indices_boost": "index boosts are not ported",
+    "timeout": "search timeouts need the telemetry, which is not ported",
+    "terminate_after": "early termination needs the telemetry, which is "
+                       "not ported",
+}
 _KNN_KEYS = {"field", "query_vector", "k", "num_candidates", "filter",
              "boost"}
+# the mapped types whose sort keys are numbers, and those of them that
+# sort by their exact integer
+_NUMERIC_TYPES = ("long", "integer", "short", "byte", "double", "float",
+                  "half_float", "date", "date_nanos", "boolean", "ip",
+                  "scaled_float")
+_INTEGRAL_TYPES = ("long", "integer", "short", "byte", "date",
+                   "date_nanos")
+_MISSING_LAST = float("inf")
+_TAG_DEFAULT = ("<em>", "</em>")
+
+
+def not_ported(key: str, why: str) -> IllegalArgumentError:
+    return IllegalArgumentError(
+        f"[{key}] is not supported by this build: {why}")
 
 
 def parse_knn(spec) -> KnnQuery:
@@ -73,11 +127,6 @@ def parse_knn(spec) -> KnnQuery:
 def _body_query(body: dict) -> Query:
     """The body's query: `query`, its `knn` specs, or both as should
     clauses of one bool."""
-    for key in body:
-        if key not in _SEARCH_BODY_KEYS:
-            raise ParsingError(
-                f"unknown key [{key}] for a search request body "
-                f"(SearchSourceBuilder)")
     query = (parse_query(body["query"]) if body.get("query") is not None
              else MatchAllQuery())
     knn = body.get("knn")
@@ -92,20 +141,87 @@ def _body_query(body: dict) -> Query:
     return BoolQuery(should=[query] + knn_queries)
 
 
+def check_request(body: dict, settings: dict) -> None:
+    """The reference's request checks (`_check_request_limits`) before any
+    work, then a 400 for a key this build does not serve."""
+    for key in body:
+        if key not in _SEARCH_BODY_KEYS and not key.startswith("__"):
+            # the reference keeps dunder keys for its coordinator
+            raise ParsingError(
+                f"unknown key [{key}] for a search request body "
+                f"(SearchSourceBuilder)")
+    check_track_total_hits(body)
+    if body.get("collapse") is not None:
+        if body.get("rescore") is not None:
+            raise IllegalArgumentError(
+                "cannot use `collapse` in conjunction with `rescore`")
+        inner = (body["collapse"] or {}).get("inner_hits")
+        inner_list = inner if isinstance(inner, list) else \
+            [inner] if inner else []
+        for ih in inner_list:
+            # a second-level collapse inside inner_hits is legal; it may
+            # not define inner_hits or a third collapse
+            nested = (ih or {}).get("collapse") if isinstance(ih, dict) \
+                else None
+            if isinstance(nested, dict) and (
+                    nested.get("inner_hits") is not None
+                    or nested.get("collapse") is not None):
+                raise ParsingError(
+                    "parse_exception: [collapse] inner collapse cannot "
+                    "define inner_hits or another collapse")
+    window(body)
+    max_dvf = int(settings.get("index.max_docvalue_fields_search", 100))
+    if len(body.get("docvalue_fields") or []) > max_dvf:
+        raise IllegalArgumentError(
+            f"Trying to retrieve too many docvalue_fields. Must be less "
+            f"than or equal to: [{max_dvf}] but was "
+            f"[{len(body['docvalue_fields'])}]. This limit can be set by "
+            f"changing the [index.max_docvalue_fields_search] index level "
+            f"setting.")
+    max_sf = int(settings.get("index.max_script_fields", 32))
+    if len(body.get("script_fields") or {}) > max_sf:
+        raise IllegalArgumentError(
+            f"Trying to retrieve too many script_fields. Must be less than "
+            f"or equal to: [{max_sf}] but was "
+            f"[{len(body['script_fields'])}]. This limit can be set by "
+            f"changing the [index.max_script_fields] index level setting.")
+    rescore = body.get("rescore")
+    if rescore is not None:
+        max_rw = int(settings.get("index.max_rescore_window", 10_000))
+        for spec in rescore if isinstance(rescore, list) else [rescore]:
+            size = int(spec.get("window_size", 10))
+            if size > max_rw:
+                raise IllegalArgumentError(
+                    f"Rescore window [{size}] is too large. It must be "
+                    f"less than [{max_rw}]. This prevents allocating "
+                    f"massive heaps for storing the results to be "
+                    f"rescored. This limit can be set by changing the "
+                    f"[index.max_rescore_window] index level setting.")
+    for key in body:
+        if key in _NOT_PORTED:
+            raise not_ported(key, _NOT_PORTED[key])
+
+
 class QueryPhaseResult:
-    """The query phase of one search: the window's rows and scores, ranked
-    by (score desc, row asc) and cut to `from + size`, the total counted to
-    `track_total_hits` with its relation, and the max score. Read-only once
-    made, so a cached one serves any number of fetches."""
+    """The query phase of one search: the window's rows and scores (ranked
+    by score desc and row asc, or by the sort) cut to `from + size`, each
+    row's `sort` tuple under a field sort (else None), the total counted
+    to `track_total_hits` with its relation, the max score, and the rows
+    the query matched before `post_filter` (the aggregations' scope).
+    Read-only once made, so a cached one serves any number of fetches."""
 
-    __slots__ = ("rows", "scores", "total", "relation", "max_score")
+    __slots__ = ("rows", "scores", "sort_values", "total", "relation",
+                 "max_score", "agg_rows")
 
-    def __init__(self, rows, scores, total: int, relation: str, max_score):
+    def __init__(self, rows, scores, total: int, relation: str, max_score,
+                 sort_values=None, agg_rows=None):
         self.rows = rows
         self.scores = scores
+        self.sort_values = sort_values
         self.total = total
         self.relation = relation
         self.max_score = max_score
+        self.agg_rows = agg_rows
 
 
 def window(body: dict) -> Tuple[int, int]:
@@ -161,13 +277,28 @@ def count_body(body: Optional[dict]) -> dict:
 
 
 def execute_query_phase(ctx: SearchContext, body: dict) -> QueryPhaseResult:
-    """The body's query over the context's reader: ranked rows and scores
-    of [0, from + size), the total and the max score."""
-    check_track_total_hits(body)
+    """The body's query over the context's reader: the window [0, from +
+    size) of ranked rows, their scores and sort tuples, the total and the
+    max score, in the reference's order of steps."""
+    settings = ctx.index_settings or {}
+    check_request(body, settings)
     frm, size = window(body)
-    check_result_window(frm + size, ctx.index_settings or {})
+    end = frm + size
+    check_result_window(end, settings)
+    sort_spec = normalize_sort(body.get("sort"))
     result = _body_query(body).execute(ctx).with_scores()
     rows, scores = result.rows, result.scores
+    agg_rows = rows
+    if body.get("post_filter") is not None:
+        # hits only: the aggregations keep the query's rows
+        keep = np.isin(rows, parse_query(body["post_filter"])
+                       .execute(ctx).rows)
+        rows, scores = rows[keep], scores[keep]
+    if body.get("min_score") is not None:
+        keep = scores >= float(body["min_score"])
+        rows, scores = rows[keep], scores[keep]
+    if body.get("rescore") is not None:
+        scores = apply_rescore(ctx, rows, scores, body["rescore"])
     total, relation = len(rows), "eq"
     track = body.get("track_total_hits", TRACK_TOTAL_HITS_DEFAULT)
     if track is not True:
@@ -175,46 +306,354 @@ def execute_query_phase(ctx: SearchContext, body: dict) -> QueryPhaseResult:
                  else int(track))
         if total > limit:
             total, relation = limit, "gte"
-    max_score = float(scores.max()) if len(scores) else None
-    # score desc, ties by row asc (rows arrive ascending)
-    order = native.topk(scores, min(frm + size, len(rows)))
+    search_after = body.get("search_after")
+    collapse = body.get("collapse")
+    if collapse is not None and search_after is not None:
+        raise IllegalArgumentError(
+            "cannot use `collapse` in conjunction with `search_after`")
+    if sort_spec is None and search_after is None and collapse is None:
+        max_score = float(scores.max()) if len(scores) else None
+        # score desc, ties by row asc (rows arrive ascending)
+        order = native.topk(scores, min(end, len(rows)))
+        return QueryPhaseResult(rows[order], scores[order], total, relation,
+                                max_score, agg_rows=agg_rows)
+    columns = sort_columns(ctx, rows, scores, sort_spec or [])
+    order = sort_order(rows, scores, columns, sort_spec)
+    if search_after is not None:
+        if sort_spec is None:
+            raise IllegalArgumentError("search_after requires a sort")
+        order = order[search_after_cut(columns, rows, scores, order,
+                                       search_after):]
+    if collapse is not None:
+        order = order[collapse_keep(ctx.reader, rows[order],
+                                    collapse["field"], end)]
+    # over the collapsed rows before the cut, as the reference reads it
+    max_score = (float(scores[order].max())
+                 if len(order) and sort_spec is None else None)
+    order = order[:end]
+    sort_values = (sort_tuples(ctx.reader, columns, rows, scores, order)
+                   if sort_spec is not None else None)
     return QueryPhaseResult(rows[order], scores[order], total, relation,
-                            max_score)
+                            max_score, sort_values, agg_rows)
 
 
-def execute_fetch_phase(reader: ShardReader, mapper_service: MapperService,
-                        index_name: str, body: dict,
-                        result: QueryPhaseResult) -> dict:
-    """The `hits` section of a query phase's result: the rows of
-    [from, from + size) rendered from `reader`."""
-    frm, size = window(body)
-    hits = render_hits(reader, mapper_service, index_name,
-                       result.rows[frm:frm + size],
-                       result.scores[frm:frm + size], body.get("_source"))
-    return {"total": {"value": result.total, "relation": result.relation},
-            "max_score": result.max_score, "hits": hits}
+def apply_rescore(ctx: SearchContext, rows, scores, rescore_spec):
+    """Each rescorer in turn over the top `window_size` rows by score: the
+    query score weighted by `query_weight` combined with the rescore
+    query's by `score_mode` (total, multiply, max, min, avg); a row outside
+    the window keeps its weighted query score. Returns the new scores."""
+    specs = rescore_spec if isinstance(rescore_spec, list) else [rescore_spec]
+    for spec in specs:
+        size = int(spec.get("window_size", 10))
+        rq = spec.get("query", {})
+        rescore_query = parse_query(rq.get("rescore_query"))
+        qw = float(rq.get("query_weight", 1.0))
+        rqw = float(rq.get("rescore_query_weight", 1.0))
+        mode = rq.get("score_mode", "total")
+        top = np.argsort(-scores, kind="stable")[:size]
+        rs = rescore_query.execute(ctx).with_scores()
+        idx = np.clip(np.searchsorted(rs.rows, rows[top]), 0,
+                      max(len(rs.rows) - 1, 0))
+        new_scores = scores * qw
+        if len(rs.rows):
+            hit = rs.rows[idx] == rows[top]
+            second = np.where(hit, rs.scores[idx], 0.0)
+            first = qw * scores[top]
+            if mode == "total":
+                new_scores[top] = first + rqw * second
+            elif mode == "multiply":
+                new_scores[top] = np.where(
+                    hit, scores[top] * qw * second * rqw, first)
+            elif mode == "max":
+                new_scores[top] = np.maximum(first, rqw * second)
+            elif mode == "min":
+                new_scores[top] = np.where(
+                    hit, np.minimum(first, rqw * second), first)
+            elif mode == "avg":
+                new_scores[top] = np.where(
+                    hit, (first + rqw * second) / 2, first)
+        scores = new_scores
+    return scores
 
 
-def render_hits(reader: ShardReader, mapper_service: MapperService,
-                index_name: str, rows, scores, source_spec) -> List[dict]:
-    """The fetch phase: one hit per row, in order, with its `_source` when
-    the body and the mapping allow it, filtered by the body's `_source`
-    includes and excludes."""
-    want_source = source_spec is not False and mapper_service.source_enabled
-    includes, excludes = source_patterns(source_spec)
-    hits: List[dict] = []
-    for row, score in zip(rows, scores):
-        hit = {"_index": index_name, "_id": reader.get_id(int(row)),
-               "_score": float(score)}
-        routing = reader.get_routing(int(row))
-        if routing is not None:
-            hit["_routing"] = routing
-        if want_source:
-            hit["_source"] = filter_source(reader.get_source(int(row)),
-                                           includes, excludes)
-        hits.append(hit)
-    return hits
+def normalize_sort(sort) -> Optional[List[Tuple[str, str, dict]]]:
+    """[(field, order, spec)], or None for the score sort (no sort, or
+    `_score` alone). A script sort and `numeric_type` are 400s until the
+    script module and the date types are ported."""
+    if sort is None:
+        return None
+    if isinstance(sort, (str, dict)):
+        sort = [sort]
+    out = []
+    for item in sort:
+        if isinstance(item, str):
+            if item == "_score":
+                out.append(("_score", "desc", {}))
+            elif item == "_doc":
+                out.append(("_doc", "asc", {}))
+            else:
+                out.append((item, "asc", {}))
+        elif isinstance(item, dict):
+            ((field, spec),) = item.items()
+            if field == "_script":
+                raise not_ported("_script", "script sorts need the script "
+                                            "module, which is not ported")
+            if isinstance(spec, str):
+                out.append((field, spec, {}))
+            else:
+                if "numeric_type" in spec:
+                    raise not_ported(
+                        "numeric_type", "it converts between the date "
+                                        "types, which are not ported")
+                out.append((field, spec.get(
+                    "order", "asc" if field != "_score" else "desc"), spec))
+        else:
+            raise ParsingError(f"malformed sort clause {item!r}")
+    if len(out) == 1 and out[0][0] == "_score":
+        return None
+    return out
 
+
+def _first(v):
+    """A multi-valued doc value's first value (None for an empty list)."""
+    if isinstance(v, list):
+        return v[0] if v else None
+    return v
+
+
+def object_values(reader: ShardReader, rows, field: str) -> np.ndarray:
+    """Each row's doc value of `field` (a multi-valued doc's first; None
+    when it has none), as an object array, gathered segment by segment."""
+    rows = np.asarray(rows, dtype=np.int64)
+    out = np.empty(len(rows), dtype=object)
+    vi, local = reader.locate_many(rows)
+    for v in np.unique(vi):
+        col = reader.views[v].segment.doc_values.get(field)
+        if col is None:
+            continue
+        at = np.nonzero(vi == v)[0]
+        out[at] = [_first(x) for x in col.values[local[at]]]
+    return out
+
+
+def numeric_values(reader: ShardReader, rows,
+                   field: str) -> Tuple[np.ndarray, np.ndarray]:
+    """(values f64, present) of `field` over rows, as the reference's
+    `numeric_values` gives them: a multi-valued doc's first value, a
+    boolean as 1.0 or 0.0, a value that is not a number absent. A
+    segment's numeric column is gathered directly; another one value by
+    value."""
+    rows = np.asarray(rows, dtype=np.int64)
+    vals = np.full(len(rows), np.nan, dtype=np.float64)
+    present = np.zeros(len(rows), dtype=bool)
+    vi, local = reader.locate_many(rows)
+    for v in np.unique(vi):
+        col = reader.views[v].segment.doc_values.get(field)
+        if col is None:
+            continue
+        at = np.nonzero(vi == v)[0]
+        if col.numeric is not None:
+            ok = col.present[local[at]]
+            vals[at[ok]] = col.numeric[local[at[ok]]]
+            present[at] = ok
+            continue
+        for j, x in zip(at.tolist(), col.values[local[at]]):
+            x = _first(x)
+            if isinstance(x, bool):
+                x = 1.0 if x else 0.0
+            if isinstance(x, (int, float)):
+                vals[j], present[j] = float(x), True
+    return vals, present
+
+
+class SortColumn:
+    """One sort clause over the matched rows: its `kind` (`score`, `doc`,
+    `num` or `str`), its lexsort key (f64, the order applied, missing
+    placed), and what `search_after` and the sort tuples read: for `num`
+    the values and presence, for `str` the values (None when missing)."""
+
+    __slots__ = ("field", "direction", "kind", "key", "nums", "present",
+                 "integral", "strs")
+
+    def __init__(self, field, direction, kind, key, nums=None, present=None,
+                 integral=False, strs=None):
+        self.field = field
+        self.direction = direction
+        self.kind = kind
+        self.key = key
+        self.nums = nums
+        self.present = present
+        self.integral = integral
+        self.strs = strs
+
+    def compare_values(self, rows, scores, idx):
+        """The values `search_after` compares at positions idx: f64 with
+        a missing value as +inf, or the strings (None when missing)."""
+        if self.kind == "score":
+            return scores[idx].astype(np.float64)
+        if self.kind == "doc":
+            return rows[idx].astype(np.float64)
+        if self.kind == "num":
+            return np.where(self.present[idx], self.nums[idx], _MISSING_LAST)
+        return self.strs[idx]
+
+
+def sort_columns(ctx: SearchContext, rows, scores,
+                 sort_spec) -> List[SortColumn]:
+    """The sort clauses' columns over every matched row, built from the
+    doc-values columns as the reference's `_sort_docs` builds its keys: a
+    field is numeric when a row holds a number or its type is numeric (a
+    missing value by `missing`: `_last`, `_first` or a number), else its
+    strings sort by rank."""
+    out = []
+    for field, direction, spec in sort_spec:
+        asc = direction == "asc"
+        if field == "_score":
+            vals = scores.astype(np.float64)
+            out.append(SortColumn(field, direction, "score",
+                                  vals if asc else -vals))
+            continue
+        if field == "_doc":
+            vals = rows.astype(np.float64)
+            out.append(SortColumn(field, direction, "doc",
+                                  vals if asc else -vals))
+            continue
+        mapper = ctx.mapper_service.get(field)
+        tname = getattr(mapper, "type_name", None)
+        nums, present = numeric_values(ctx.reader, rows, field)
+        if present.any() or mapper is None or tname in _NUMERIC_TYPES:
+            missing = spec.get("missing", "_last")
+            fill = _MISSING_LAST if (missing == "_last") == asc \
+                else -_MISSING_LAST
+            if isinstance(missing, (int, float)) \
+                    and not isinstance(missing, bool):
+                fill = float(missing)
+            vals = np.where(present, nums, fill)
+            out.append(SortColumn(field, direction, "num",
+                                  vals if asc else -vals, nums, present,
+                                  tname in _INTEGRAL_TYPES))
+            continue
+        strs = object_values(ctx.reader, rows, field)
+        has = np.asarray([s is not None for s in strs], dtype=bool)
+        vals = np.full(len(rows), _MISSING_LAST if asc else -_MISSING_LAST)
+        if has.any():
+            uniq, inverse = np.unique(
+                np.asarray([str(s) for s in strs[has]], dtype=object),
+                return_inverse=True)
+            vals[has] = inverse.astype(np.float64)
+        out.append(SortColumn(field, direction, "str",
+                              vals if asc else -vals, strs=strs))
+    return out
+
+
+def sort_order(rows, scores, columns: List[SortColumn],
+               sort_spec) -> np.ndarray:
+    """Positions of the rows in sort order: the columns' keys, then the
+    row; with no sort (a collapse on the score order) score desc, row
+    asc."""
+    if sort_spec is None:
+        return np.lexsort((rows, -scores))
+    keys = [c.key for c in columns] + [rows.astype(np.float64)]
+    return np.lexsort(tuple(reversed(keys)))
+
+
+def sort_tuples(reader: ShardReader, columns: List[SortColumn], rows,
+                scores, idx) -> List[tuple]:
+    """The `sort` tuples of the rows at positions idx: a score as a float,
+    a row as an int, a number as an int (the exact doc value) for the
+    integral types else as a float, a string as it is, and None when
+    missing."""
+    per_column = []
+    for c in columns:
+        if c.kind == "score":
+            per_column.append([float(s) for s in scores[idx]])
+        elif c.kind == "doc":
+            per_column.append([int(r) for r in rows[idx]])
+        elif c.kind == "str":
+            per_column.append(list(c.strs[idx]))
+        else:
+            vals = []
+            for j in idx.tolist():
+                if not c.present[j]:
+                    vals.append(None)
+                    continue
+                if c.integral:
+                    raw = _first(reader.get_doc_value(c.field,
+                                                      int(rows[j])))
+                    if isinstance(raw, (int, float)):
+                        vals.append(int(raw))
+                        continue
+                vals.append(float(c.nums[j]))
+            per_column.append(vals)
+    return [tuple(col[i] for col in per_column) for i in range(len(idx))]
+
+
+def search_after_cut(columns: List[SortColumn], rows, scores, order,
+                     after) -> int:
+    """The first position of `order` strictly after the `search_after`
+    values, compared clause by clause as the reference compares them: a
+    missing value as +inf whatever the order, a number against a number,
+    a string against a string, and any other pair (a string against a
+    number, a None) as equal."""
+    n = len(order)
+    decided = np.zeros(n, dtype=bool)
+    after_it = np.zeros(n, dtype=bool)
+    for c, a in zip(columns, after):
+        v = c.compare_values(rows, scores, order)
+        if isinstance(a, (int, float)):
+            av = float(a)
+            if c.kind == "str":
+                # a string never compares with a number; a missing one is
+                # +inf
+                missing = np.asarray([s is None for s in v], dtype=bool)
+                ne = missing & (_MISSING_LAST != av)
+                gt = missing & (_MISSING_LAST > av)
+            else:
+                ne, gt = v != av, v > av
+        elif isinstance(a, str) and c.kind == "str":
+            has = np.nonzero([s is not None for s in v])[0]
+            ne = np.zeros(n, dtype=bool)
+            gt = np.zeros(n, dtype=bool)
+            ne[has] = [s != a for s in v[has]]
+            gt[has] = [s > a for s in v[has]]
+        else:
+            continue
+        d = ~decided & ne
+        after_it[d] = gt[d] if c.direction == "asc" else ~gt[d]
+        decided |= d
+    hits = np.nonzero(after_it)[0]
+    return int(hits[0]) if len(hits) else n
+
+
+def group_value(reader: ShardReader, field: str, row: int):
+    """A row's collapse group: its first doc value of `field`, or None."""
+    return _first(reader.get_doc_value(field, int(row)))
+
+
+def collapse_keep(reader: ShardReader, rows, field: str,
+                  end: int) -> List[int]:
+    """Positions of the best-ranked row of each group, in rank order,
+    stopping once `end` groups are kept (no later row can reach the
+    window). Groups are read in chunks, so a window that fills early
+    reads few rows."""
+    seen = set()
+    keep: List[int] = []
+    chunk = 1024
+    for lo in range(0, len(rows), chunk):
+        for j, v in enumerate(object_values(reader, rows[lo:lo + chunk],
+                                            field)):
+            if v in seen:
+                continue
+            seen.add(v)
+            keep.append(lo + j)
+            if len(keep) >= end:
+                return keep
+    return keep
+
+
+# ---------------------------------------------------------------------------
+# fetch phase
+# ---------------------------------------------------------------------------
 
 def source_patterns(spec) -> Tuple[List[str], List[str]]:
     """The `_source` spec's (includes, excludes): a field name or pattern,
@@ -267,4 +706,391 @@ def filter_source(source: dict, includes, excludes) -> dict:
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = v
+    return out
+
+
+def fetch_hits(ctx: SearchContext, index_name: str, body: dict, rows, scores,
+               sort_values=None, expand_inner_hits: bool = True
+               ) -> List[dict]:
+    """The fetch phase (the reference's `execute_fetch_phase`): one hit a
+    row, in order, with `_id` and `_source` as `stored_fields` and
+    `_source` allow (filtered by its includes and excludes), its `sort`
+    tuple under a field sort (`_score` null), `_seq_no` / `_primary_term`,
+    `_version`, stored fields, `_routing`, `_ignored`, `docvalue_fields`,
+    `highlight`, the collapse group under `fields` with its `inner_hits`
+    (one sub-search a hit, unless `expand_inner_hits` is off: the node
+    expands them over several indices itself) and `_explanation`."""
+    reader, mapper_service = ctx.reader, ctx.mapper_service
+    source_spec = body.get("_source", True)
+    want_source = source_spec is not False and mapper_service.source_enabled
+    includes, excludes = source_patterns(source_spec)
+    docvalue_fields = body.get("docvalue_fields") or []
+    highlight = body.get("highlight")
+    collapse = body.get("collapse")
+    sorted_ = normalize_sort(body.get("sort")) is not None
+    want_id, stored = True, []
+    stored_spec = body.get("stored_fields")
+    if stored_spec is not None:
+        # [] keeps the metadata but not `_source`; "_none_" drops both; a
+        # list loads its `store: true` fields
+        if stored_spec == "_none_":
+            want_id = want_source = False
+        else:
+            stored = ([stored_spec] if isinstance(stored_spec, str)
+                      else list(stored_spec))
+            if "_source" not in stored:
+                want_source = False
+    hits: List[dict] = []
+    for i, row in enumerate(np.asarray(rows).tolist()):
+        hit: Dict[str, Any] = {
+            "_index": index_name,
+            "_score": None if sorted_ else float(scores[i])}
+        if want_id:
+            hit["_id"] = reader.get_id(row)
+        if sorted_ and sort_values is not None:
+            hit["sort"] = list(sort_values[i])
+        if body.get("seq_no_primary_term"):
+            hit["_seq_no"] = reader.get_seq_no(row)
+            pt = reader.get_doc_value("_primary_term", row)
+            hit["_primary_term"] = int(pt) if pt is not None else 1
+        if body.get("version"):
+            v = reader.get_doc_value("_version", row)
+            hit["_version"] = int(v) if v is not None else 1
+        if stored:
+            fields = {}
+            src = reader.get_source(row) or {}
+            for name in stored:
+                mapper = mapper_service.get(name)
+                if name.startswith("_") or mapper is None \
+                        or not mapper.params.get("store"):
+                    continue
+                val = get_path(src, name)
+                if val is not None:
+                    fields[name] = val if isinstance(val, list) else [val]
+            if fields:
+                hit["fields"] = fields
+        routing = reader.get_routing(row)
+        if routing is not None:
+            hit["_routing"] = routing
+        ignored = reader.get_doc_value("_ignored", row)
+        if ignored:
+            hit["_ignored"] = sorted(ignored) if isinstance(ignored, list) \
+                else [ignored]
+        if want_source:
+            hit["_source"] = filter_source(reader.get_source(row) or {},
+                                           includes, excludes)
+        if docvalue_fields:
+            fields = _docvalue_fields(reader, mapper_service,
+                                      docvalue_fields, row)
+            if fields:
+                hit.setdefault("fields", {}).update(fields)
+        if highlight:
+            hl = highlight_row(ctx, body, highlight, row)
+            if hl:
+                hit["highlight"] = hl
+        if collapse:
+            _decorate_collapsed_hit(ctx, index_name, body, collapse, row,
+                                    hit, expand_inner_hits)
+        if body.get("explain"):
+            hit["_explanation"] = {"value": hit["_score"] or 0.0,
+                                   "description": "vectorized score",
+                                   "details": []}
+        hits.append(hit)
+    return hits
+
+
+def _docvalue_fields(reader: ShardReader, mapper_service, specs,
+                     row: int) -> dict:
+    """A row's `docvalue_fields`, each value formatted; a field named
+    twice (with two formats) appends in the request's order."""
+    fields: Dict[str, list] = {}
+    for f in specs:
+        name = f["field"] if isinstance(f, dict) else f
+        fmt = f.get("format") if isinstance(f, dict) else None
+        if name == "_seq_no":
+            v = reader.get_seq_no(row)
+        elif name == "_primary_term":
+            v = 1
+        else:
+            v = reader.get_doc_value(name, row)
+        if v is not None:
+            fields.setdefault(name, []).extend(
+                format_doc_value(x, fmt)
+                for x in (v if isinstance(v, list) else [v]))
+    return fields
+
+
+def format_doc_value(v, fmt):
+    """A doc value as `docvalue_fields` renders it: a number under a
+    DecimalFormat pattern (`#.0`) formatted, anything else as it is (the
+    date formats wait for the date types)."""
+    if fmt and isinstance(v, (int, float)) and not isinstance(v, bool) \
+            and any(c in fmt for c in "#0"):
+        return _decimal_format(v, fmt)
+    return v
+
+
+def _decimal_format(value, pattern: str) -> str:
+    """Java's DecimalFormat, as far as the reference reads it: a literal
+    prefix and suffix around a run of # and 0, with optional fraction
+    digits ("Value is ##0.0" -> "Value is 51.0")."""
+    m = re.search(r"[#0][#0,.]*", pattern)
+    if not m:
+        return pattern
+    num = m.group(0)
+    prefix, suffix = pattern[:m.start()], pattern[m.end():]
+    if "." in num:
+        frac = num.split(".", 1)[1]
+        min_frac, max_frac = frac.count("0"), len(frac)
+    else:
+        min_frac = max_frac = 0
+    v = float(value)
+    if max_frac == 0:
+        s = str(int(round(v)))
+    else:
+        s = f"{v:.{max_frac}f}"
+        int_part, frac_part = s.split(".")
+        frac_part = frac_part.rstrip("0").ljust(min_frac, "0")
+        s = int_part + ("." + frac_part if frac_part else "")
+    return prefix + s + suffix
+
+
+def get_path(obj: dict, path: str):
+    """The value at a dotted path of a source, or None."""
+    node = obj
+    for part in path.split("."):
+        if not isinstance(node, dict) or part not in node:
+            return None
+        node = node[part]
+    return node
+
+
+def inner_hits_specs(collapse: dict) -> List[dict]:
+    inner = collapse.get("inner_hits")
+    return inner if isinstance(inner, list) else [inner] if inner else []
+
+
+def inner_hits_body(body: dict, field: str, value, spec: dict,
+                    size: int) -> dict:
+    """The sub-search of one collapse group: the body's `query` filtered
+    to the group, with the inner hits' own fetch keys."""
+    sub = {"query": {"bool": {
+        "must": [body["query"]] if body.get("query") else [],
+        "filter": [{"term": {field: value}}]}}, "size": size}
+    for key in ("sort", "version", "seq_no_primary_term",
+                "docvalue_fields", "_source"):
+        if spec.get(key) is not None:
+            sub[key] = spec[key]
+    return sub
+
+
+def _decorate_collapsed_hit(ctx: SearchContext, index_name: str, body: dict,
+                            collapse: dict, row: int, hit: dict,
+                            expand: bool) -> None:
+    """A collapsed hit's group value under `fields` and, when asked, each
+    `inner_hits` spec's window: a sub-search over the group's rows (its
+    `from`, `size`, `sort` and fetch keys; a second-level `collapse` reads
+    ten times `size` and keeps each inner group's best hit)."""
+    field = collapse["field"]
+    value = group_value(ctx.reader, field, row)
+    hit.setdefault("fields", {})[field] = [value]
+    if not expand:
+        return
+    # the sub-search runs as the reference runs it: default index
+    # settings, no query cache
+    sub_ctx = SearchContext(ctx.reader, ctx.mapper_service, ctx.vector_store)
+    for spec in inner_hits_specs(collapse):
+        name = spec.get("name", field)
+        sub_collapse = spec.get("collapse")
+        want = int(spec.get("size", 3))
+        frm = int(spec.get("from", 0))
+        sub_body = inner_hits_body(body, field, value, spec,
+                                   want * 10 if sub_collapse else want)
+        sub_body["from"] = frm
+        res = execute_query_phase(sub_ctx, sub_body)
+        sub_hits = fetch_hits(
+            sub_ctx, index_name, sub_body, res.rows[frm:], res.scores[frm:],
+            None if res.sort_values is None else res.sort_values[frm:])
+        if sub_collapse:
+            inner_field = sub_collapse["field"]
+            seen = set()
+            deduped = []
+            for h, r in zip(sub_hits, res.rows[frm:]):
+                gv = group_value(ctx.reader, inner_field, r)
+                h.setdefault("fields", {})[inner_field] = [gv]
+                if gv in seen:
+                    continue
+                seen.add(gv)
+                deduped.append(h)
+            sub_hits = deduped[:want]
+        hit.setdefault("inner_hits", {})[name] = {"hits": {
+            "total": {"value": res.total, "relation": res.relation},
+            "max_score": res.max_score, "hits": sub_hits}}
+
+
+# ---------------------------------------------------------------------------
+# highlight
+# ---------------------------------------------------------------------------
+
+def highlight_row(ctx: SearchContext, body: dict, spec: dict,
+                  row: int) -> Dict[str, List[str]]:
+    """The reference's highlighter: the query's terms (from `match`,
+    `match_phrase`, `term`, `multi_match`, `query_string` and `bool`, a
+    text field's analyzed with its search analyzer) and prefixes, or a
+    field's `highlight_query`'s, wrapped in `pre_tags` / `post_tags` in
+    the field's stored text. `require_field_match: false` lets any field's
+    terms light up any highlighted field; `*` patterns name text and
+    keyword fields. A keyword value is wrapped whole (a value over
+    `ignore_above` never is); a text value is re-analyzed and each
+    matching token wrapped at its offsets, so a value longer than
+    `index.highlight.max_analyzed_offset` is a 400 unless the field
+    indexes offsets (and the highlighter is not `plain`)."""
+    mapper_service = ctx.mapper_service
+    source = ctx.reader.get_source(row) or {}
+    settings = ctx.index_settings or {}
+    terms_of: Dict[str, set] = {}
+    prefixes_of: Dict[str, set] = {}
+
+    def field_names():
+        return [p for p, _m in mapper_service.all_mappers()]
+
+    def add_terms(into, field, text):
+        mapper = mapper_service.get(field)
+        if isinstance(mapper, TextFieldMapper):
+            terms = mapper.search_analyzer.terms(str(text))
+        else:
+            terms = [str(text)]
+        into.setdefault(field, set()).update(terms)
+
+    def collect(q, terms, prefixes):
+        if not isinstance(q, dict):
+            return
+        for kind, qspec in q.items():
+            if kind in ("match", "match_phrase", "term",
+                        "match_phrase_prefix"):
+                if not isinstance(qspec, dict) or not qspec:
+                    continue
+                ((field, v),) = list(qspec.items())[:1]
+                text = v.get("query", v.get("value")) \
+                    if isinstance(v, dict) else v
+                add_terms(terms, field, text)
+            elif kind == "prefix":
+                if not isinstance(qspec, dict) or not qspec:
+                    continue
+                ((field, v),) = list(qspec.items())[:1]
+                text = v.get("value", v.get("prefix")) \
+                    if isinstance(v, dict) else v
+                prefixes.setdefault(field, set()).add(str(text).lower())
+            elif kind == "multi_match":
+                text = qspec.get("query", "")
+                for f in qspec.get("fields", []):
+                    pat = f.split("^")[0]
+                    targets = ([pat] if "*" not in pat else
+                               [n for n in field_names()
+                                if fnmatch.fnmatch(n, pat)])
+                    for name in targets:
+                        add_terms(terms, name, text)
+            elif kind == "query_string":
+                f = qspec.get("default_field")
+                if f and "*" not in str(f):
+                    add_terms(terms, f, qspec.get("query", ""))
+            elif kind == "bool":
+                for clause in ("must", "should", "filter"):
+                    items = qspec.get(clause, [])
+                    if isinstance(items, dict):
+                        items = [items]
+                    for sub in items:
+                        collect(sub, terms, prefixes)
+
+    collect(body.get("query", {}), terms_of, prefixes_of)
+    pre = spec.get("pre_tags", [_TAG_DEFAULT[0]])[0]
+    post = spec.get("post_tags", [_TAG_DEFAULT[1]])[0]
+    require_match = spec.get("require_field_match", True)
+    if isinstance(require_match, str):
+        require_match = require_match != "false"
+    max_offset = int(settings.get("index.highlight.max_analyzed_offset",
+                                  1_000_000))
+    fields_spec = spec.get("fields", {})
+    if isinstance(fields_spec, list):
+        merged = {}
+        for entry in fields_spec:
+            merged.update(entry or {})
+        fields_spec = merged
+    expanded: Dict[str, dict] = {}
+    for pattern, fspec in fields_spec.items():
+        if "*" in pattern:
+            for name in field_names():
+                if isinstance(mapper_service.get(name),
+                              (TextFieldMapper, KeywordFieldMapper)) \
+                        and fnmatch.fnmatch(name, pattern):
+                    expanded.setdefault(name, fspec or {})
+        else:
+            expanded[pattern] = fspec or {}
+
+    out = {}
+    for field, fspec in expanded.items():
+        mapper = mapper_service.get(field)
+        if mapper is None:
+            continue
+        hq = fspec.get("highlight_query")
+        if hq:
+            own_terms: Dict[str, set] = {}
+            own_prefixes: Dict[str, set] = {}
+            collect(hq, own_terms, own_prefixes)
+            terms = own_terms.get(field, set())
+            prefixes = own_prefixes.get(field, set())
+        elif require_match:
+            terms = terms_of.get(field, set())
+            prefixes = prefixes_of.get(field, set())
+        else:
+            terms = set().union(*terms_of.values())
+            prefixes = set().union(*prefixes_of.values())
+        if not terms and not prefixes:
+            continue
+        # a multi-field highlights its parent's value
+        raw = get_path(source, field)
+        if raw is None and "." in field:
+            raw = get_path(source, field.rsplit(".", 1)[0])
+        if raw is None:
+            continue
+
+        def matches(term, terms=terms, prefixes=prefixes) -> bool:
+            return term in terms or any(str(term).lower().startswith(p)
+                                        for p in prefixes)
+
+        if isinstance(mapper, KeywordFieldMapper):
+            frags = []
+            ignore_above = mapper.params.get("ignore_above")
+            for v in raw if isinstance(raw, list) else [raw]:
+                v = str(v)
+                if ignore_above is not None and len(v) > int(ignore_above):
+                    continue        # never indexed: nothing matched it
+                if matches(v):
+                    frags.append(pre + v + post)
+            if frags:
+                out[field] = frags
+            continue
+        if not isinstance(mapper, TextFieldMapper):
+            continue
+        text = str(raw)
+        htype = fspec.get("type") or spec.get("type") or "unified"
+        tv = str(mapper.params.get("term_vector", ""))
+        has_offsets = "offsets" in tv or \
+            mapper.params.get("index_options") == "offsets"
+        if len(text) > max_offset and (htype == "plain" or not has_offsets):
+            raise IllegalArgumentError(
+                f"The length [{len(text)}] of field [{field}] in doc/index "
+                f"has exceeded [{max_offset}] - maximum allowed to be "
+                f"analyzed for highlighting. This maximum can be set by "
+                f"changing the [index.highlight.max_analyzed_offset] index "
+                f"level setting. For large texts, indexing with offsets or "
+                f"term vectors is recommended!")
+        spans = {(t.start_offset, t.end_offset)
+                 for t in mapper.analyzer.analyze(text) if matches(t.term)}
+        if not spans:
+            continue
+        frag = text
+        for s0, e0 in sorted(spans, reverse=True):
+            frag = frag[:s0] + pre + frag[s0:e0] + post + frag[e0:]
+        out[field] = [frag]
     return out

@@ -1203,3 +1203,144 @@ def test_deletes_updates_and_union_on_cuda(cuda, monkeypatch, shards):
     gc.collect()
     assert before - torch.cuda.memory_allocated(cuda) >= 0.9 * corpus
     assert _req(grc, "POST", "/a/_search", body)[0] == 404
+
+
+def _mixed_pair(cuda, monkeypatch, shards: int, names=("a", "b")):
+    """`_doc_pair` with the search-body tests' mixed indices
+    (`tests/torch_mixed.py`, imported by its module name: pytest puts
+    `tests/` on the path, and another installed package may own the name
+    `tests`) loaded in both nodes."""
+    from torch_mixed import mixed_bulks, mixed_mapping
+    pair = _doc_pair(cuda, monkeypatch)
+    for _, rc in pair:
+        for seed, name in enumerate(names):
+            assert _req(rc, "PUT", f"/{name}",
+                        mixed_mapping(shards))[0] == 200
+            for ops in mixed_bulks(name, 200, np.random.default_rng(seed)):
+                # an update of an id deleted earlier in the same `_bulk`
+                # fails its item, on both nodes alike
+                assert _req(rc, "POST", f"/{name}/_bulk", ops,
+                            ndjson=True)[0] == 200
+                assert _req(rc, "POST", f"/{name}/_refresh")[0] == 200
+    return pair
+
+
+_HOST_BODIES = [
+    {"sort": [{"n": "desc"}, {"f": "asc"}], "size": 30},
+    {"sort": [{"tag": {"order": "desc", "missing": "_first"}}, "_doc"],
+     "query": {"match": {"t": "alpha beta"}}, "size": 20,
+     "search_after": ["green", 0]},
+    {"query": {"match": {"t": "alpha"}}, "post_filter": {"term": {"b": True}},
+     "min_score": 0.3, "version": True, "seq_no_primary_term": True,
+     "docvalue_fields": ["n", {"field": "f", "format": "#.0"}],
+     "explain": True, "stored_fields": ["s", "_source"]},
+    {"query": {"match": {"t": "gamma delta"}}, "rescore": {
+        "window_size": 6, "query": {"rescore_query": {"range": {
+            "n": {"gte": 10}}}, "score_mode": "multiply",
+            "rescore_query_weight": 2.0}}},
+    {"query": {"match": {"t": "eta"}}, "collapse": {
+        "field": "tag", "inner_hits": [
+            {"name": "top", "size": 2},
+            {"name": "by_b", "size": 2, "collapse": {"field": "b"}}]}},
+    {"query": {"bool": {"must": [{"match": {"t": "theta kappa"}}],
+                        "should": [{"term": {"tag": "red"}}]}},
+     "highlight": {"fields": {"t": {}, "tag": {}},
+                   "pre_tags": ["<b>"], "post_tags": ["</b>"]}},
+]
+
+
+def _difference(a, b, where=""):
+    """The path and values of the first place two responses differ."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        for k in sorted(set(a) | set(b), key=str):
+            if k not in a or k not in b:
+                return f"{where}.{k}", a.get(k), b.get(k)
+            d = _difference(a[k], b[k], f"{where}.{k}")
+            if d is not None:
+                return d
+        return None
+    if isinstance(a, list) and isinstance(b, list) and len(a) == len(b):
+        for j, (x, y) in enumerate(zip(a, b)):
+            d = _difference(x, y, f"{where}[{j}]")
+            if d is not None:
+                return d
+        return None
+    return None if a == b else (where, a, b)
+
+
+def _separated_vectors(crc, paths, n: int, k: int = 10) -> list:
+    """`n` query vectors (seeded) whose k-th and (k+1)-th kNN scores on
+    the CPU node lie more than 1e-3 apart over every path: the bf16
+    kernel on the card may swap candidates closer than that at the cut,
+    the score-gap rule `_same_hits` applies within the list."""
+    out = []
+    for seed in range(500, 560):
+        q = np.random.default_rng(seed).standard_normal(16).round(4)
+        ok = True
+        for path in paths:
+            _, resp = _req(crc, "POST", path, {"knn": {
+                "field": "v", "query_vector": q.tolist(), "k": k + 1,
+                "num_candidates": 60}, "size": k + 1, "_source": False})
+            scores = [h["_score"] for h in resp["hits"]["hits"]]
+            ok &= len(scores) == k + 1 and scores[k - 1] - scores[k] > 1e-3
+        if ok:
+            out.append(q.tolist())
+        if len(out) == n:
+            return out
+    raise AssertionError(f"only {len(out)} separated query vectors")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 2])
+def test_search_body_on_cuda_matches_cpu(cuda, monkeypatch, shards):
+    """The search-body bodies of the CPU parity tests on a CUDA node and a
+    CPU node: host-only bodies (sort, search_after, post_filter,
+    min_score, rescore, collapse with inner_hits, the fetch keys,
+    highlight) answer byte for byte alike over one index and `a,b` with no
+    launch; kNN bodies (a `knn` clause alone and as a `rescore_query`,
+    `post_filter` with `collapse`, `sort`) and `rank: {rrf}` with
+    `highlight` over `a` and `a,b` hold their hits to the CPU node's
+    (scores within 1e-3; query vectors whose top 10 is separated from
+    the 11th by more than that) and launch the binned kernel once an
+    index and shard a leg."""
+    (_, grc), (_, crc) = _mixed_pair(cuda, monkeypatch, shards)
+    paths = (("/a/_search", 1), ("/a,b/_search", 2))
+    for path, _ in paths:
+        for bi, body in enumerate(_HOST_BODIES):
+            dispatch.reset_launches()
+            s1, got = _req(grc, "POST", path, body)
+            s2, want = _req(crc, "POST", path, body)
+            assert s1 == s2 == 200, (path, bi, got, want)
+            got.pop("took"), want.pop("took")
+            assert got == want, (path, bi, _difference(got, want))
+            assert not dispatch.launches().get(kb.KERNEL_BF16), (path, bi)
+    for qv in _separated_vectors(crc, [p for p, _ in paths], 4):
+        knn_spec = {"field": "v", "query_vector": qv, "k": 10,
+                    "num_candidates": 60}
+        bodies = [
+            {"query": {"knn": knn_spec}},
+            {"knn": knn_spec, "post_filter": {"term": {"tag": "red"}},
+             "collapse": {"field": "b"}},
+            {"query": {"match": {"t": "alpha"}}, "rescore": {
+                "window_size": 10, "query": {
+                    "rescore_query": {"knn": knn_spec}}}},
+            {"query": {"match": {"t": "beta"}}, "knn": knn_spec,
+             "rank": {"rrf": {}}, "highlight": {"fields": {"t": {}}}},
+        ]
+        for path, n_idx in paths:
+            for bi, body in enumerate(bodies):
+                dispatch.reset_launches()
+                s1, got = _req(grc, "POST", path, body)
+                assert s1 == 200, (path, bi, got)
+                assert dispatch.launches().get(kb.KERNEL_BF16, 0) == \
+                    n_idx * shards, (path, bi, dispatch.launches())
+                _, want = _req(crc, "POST", path, body)
+                _same_hits(got, want, 1e-3)
+            body = {"knn": knn_spec, "sort": [{"n": "asc"}, "_doc"]}
+            dispatch.reset_launches()
+            _, got = _req(grc, "POST", path, body)
+            assert dispatch.launches().get(kb.KERNEL_BF16, 0) == \
+                n_idx * shards
+            _, want = _req(crc, "POST", path, body)
+            assert [h["_id"] for h in got["hits"]["hits"]] == \
+                [h["_id"] for h in want["hits"]["hits"]], path

@@ -6,9 +6,8 @@ summed, totals and `track_total_hits` over the sum), missing names with
 and without `ignore_unavailable`, and the shard request cache's counters
 across indices (a delete in one index misses). Then hybrid `rank: {rrf}`
 bodies after deletes and updates, BM25 statistics over segments with
-deleted documents included, and a hybrid body over several indices: a 400
-in the port only (fusing across indices needs `knn` as a query clause,
-which is not ported)."""
+deleted documents included, and a hybrid body over several indices (the
+general RRF path, `knn` legs as query clauses)."""
 
 import numpy as np
 import pytest
@@ -168,12 +167,16 @@ def test_hybrid_after_deletes(pair, shards):
 
 
 def test_hybrid_over_several_indices_is_refused(pair):
+    """Once a 400 in the port; now the general RRF path, held to the
+    reference's answers over a list, a pattern, `_all`, no index and a
+    pattern that names none."""
     rng = _load(pair, "x1", 1, 20, 9)
     _load(pair, "x2", 3, 20, 10)
     body = _hybrid(rng, "alpha")
-    for expr in ("x1,x2", "x*", "_all"):
-        status, got = pair.port("POST", f"/{expr}/_search", body)
-        assert status == 400
-        assert "more than one index" in got["error"]["reason"]
-    status, got = pair.port("POST", "/none*/_search", body)
-    assert status == 200 and got["hits"]["hits"] == []
+    for expr in ("x1,x2", "x*", "_all", "none*"):
+        _, got = pair.same("POST", f"/{expr}/_search", body)
+        assert "_shards" not in got
+    _, got = pair.same("POST", "/_search", body)
+    assert got["hits"]["hits"]
+    _, got = pair.same("POST", "/none*/_search", body)
+    assert got["hits"]["hits"] == []

@@ -20,6 +20,9 @@ from elasticsearch_tpu.vectors import store as ref_store
 from elasticsearch_tpu_torch.node import Node
 from elasticsearch_tpu_torch.rest.actions import register_all
 from elasticsearch_tpu_torch.rest.controller import RestController
+from tests.torch_mixed import (  # noqa: F401  (the tests' one import)
+    mixed_bulks, mixed_mapping, mixed_vector,
+)
 
 _AUTO_ID = re.compile(r"^[0-9a-f]{20}$")
 _VOLATILE = {"took", "uuid", "creation_date", "index.uuid",
@@ -124,3 +127,15 @@ def _match_hits(pair, want, got, where) -> None:
 
 def hit_ids(body) -> list:
     return [h["_id"] for h in body["hits"]["hits"]]
+
+
+def load_mixed(pair, name: str, shards: int, seed: int, n: int = 200):
+    """A mixed index (`tests/torch_mixed.py`) in both layers: `n`
+    documents, then its deletes and updates, each refreshed; the
+    generator is returned for the queries."""
+    rng = np.random.default_rng(seed)
+    pair.same("PUT", f"/{name}", mixed_mapping(shards))
+    for ops in mixed_bulks(name, n, rng):
+        pair.same("POST", f"/{name}/_bulk", ops, ndjson=True)
+        pair.same("POST", f"/{name}/_refresh")
+    return rng
