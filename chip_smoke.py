@@ -4,10 +4,10 @@
                           [--n-gist 1000000] [--n-cohere-ivf 1000000]
                           [--n-colbert 131071] [--n-laion 1000000]
                           [--n-sharded 1000000] [--n-msmarco 262144]
-                          [--n-sparse 262144]
+                          [--n-sparse 262144] [--n-logs 500000]
                           [--binned-only | --ivf-only | --maxsim-only |
                            --sharded-only | --hybrid-only | --sparse-only |
-                           --docs-only | --body-only]
+                           --docs-only | --body-only | --logs-only]
 
 Phases, one line each; any failure raises and the exit code is not 0:
 
@@ -181,6 +181,32 @@ Phases, one line each; any failure raises and the exit code is not 0:
                C = 1 and 8 one a batch; then the plain `query:
                {sparse_vector}` host walker on an index of the first
                50,000 passages, byte-identical to the board's window there
+  serve_logs   a web-server log index modelled on the Rally `http_logs`
+               track (the 1998 World Cup logs, 247,249,096 lines), cut
+               to --n-logs lines (500,000): its mapping (`date` with
+               `strict_date_optional_time||epoch_second`, `ip`, a `text`
+               request with a `keyword` multi-field, an object of
+               keywords and a `geo_point`, `dynamic: strict`), lines from
+               the seed (about 8 a second over 1998-04-30 to 07-26, Zipf
+               client IPs and paths); 2,000 over `_bulk`, the rest
+               through `IndexService.index_many(sources=)`. 64 requests
+               a kind over HTTP, each answer equal to numpy over the
+               generated columns: a day's `range` (ISO bounds, exact
+               `track_total_hits`), a two-day range in date math with
+               rounding (`||-1d/d`, `||/d`), `term` on `request.raw` (a
+               popular and a rare path), a `range` on `clientip`, a day
+               sorted by `@timestamp` desc and asc (with `_doc`), each
+               with five `search_after` pages, `docvalue_fields` on
+               `@timestamp` (`strict_date_optional_time`, `epoch_millis`)
+               equal to Python's formatting, `exists` on the `geoip`
+               object; then a `dynamic: true` index of 10,000 documents
+               over `_bulk` (nested objects, date strings, ints, floats,
+               bools), whose `GET /_mapping` must equal the dynamic
+               rules' and whose `.keyword` sub-fields and dynamic date
+               `term` / `range` find what the documents hold; then two
+               time-partitioned indices searched with
+               `pre_filter_shard_size=1`, can_match skipping the one
+               whose dates miss the day. No kernel runs: host work only
 Every serve phase's node runs with `search.request_cache.device_paths`
 false (SERVE_SETTINGS): they send bodies more than once, and each must
 reach the card. Each IVF index answers one warm-up search first (the `nprobe: auto` tuner
@@ -250,7 +276,8 @@ script too (the checks of variants it lacks are skipped).
 `--docs-only` runs env, the binned build, serve_sift's sequential
 requests and serve_documents (no ok line); `--body-only` runs env, the
 binned build, the laion index at --n-laion with its unfiltered requests
-and the search body's part (no ok line). Every phase drops its indices
+and the search body's part (no ok line); `--logs-only` runs env and
+serve_logs (no build, no ok line). Every phase drops its indices
 through `DELETE /{index}`. Each phase's
 wall seconds print as a `[timing]` line.
 
@@ -4977,6 +5004,483 @@ def phase_serve_sparse(seed: int, n: int, n_walker: int = N_SPARSE_WALKER,
     return total
 
 
+# --------------------------------------------------------------- serve_logs
+
+N_LOGS = 500_000            # serve_logs lines (247,249,096 in the track)
+N_LOGS_BULK = 2_000
+N_LOGS_DYNAMIC = 10_000
+N_LOGS_SPLIT = 20_000       # docs in each of the can_match pair's indices
+LOGS_START = 893_894_400    # 1998-04-30T00:00:00Z
+LOGS_DAYS = 88              # to 1998-07-26, the last day of the logs
+LOGS_IPS = 200_000
+LOGS_PATHS = 20_000
+LOGS_STATUS = (200, 304, 404, 206, 302, 500, 403)
+LOGS_STATUS_P = (0.86, 0.08, 0.03, 0.012, 0.008, 0.006, 0.004)
+# (country, city, lat, lon); the last 5% of documents have no geoip
+LOGS_CITIES = (
+    ("France", "Paris", 48.8566, 2.3522), ("France", "Lyon", 45.764, 4.8357),
+    ("United States", "New York", 40.7128, -74.006),
+    ("United States", "Chicago", 41.8781, -87.6298),
+    ("Brazil", "Sao Paulo", -23.5505, -46.6333),
+    ("Germany", "Berlin", 52.52, 13.405), ("Japan", "Tokyo", 35.6762, 139.6503),
+    ("Spain", "Madrid", 40.4168, -3.7038),
+    ("United Kingdom", "London", 51.5074, -0.1278),
+    ("Mexico", "Mexico City", 19.4326, -99.1332),
+    ("Italy", "Rome", 41.9028, 12.4964),
+    ("Netherlands", "Amsterdam", 52.3676, 4.9041))
+# the Rally `http_logs` track's mapping (elastic/rally-tracks
+# http_logs/index.json), `geoip` as an object of keyword names and a
+# geo_point; "strict" reads as false, as the reference reads it, and
+# `message`'s `index: false` is kept but not honoured (neither package
+# reads it; the lines carry no `message`)
+LOGS_MAPPING = {"dynamic": "strict", "properties": {
+    "@timestamp": {"type": "date",
+                   "format": "strict_date_optional_time||epoch_second"},
+    "clientip": {"type": "ip"},
+    "message": {"type": "keyword", "index": False, "doc_values": False},
+    "request": {"type": "text", "fields": {"raw": {"type": "keyword",
+                                                   "ignore_above": 256}}},
+    "status": {"type": "integer"},
+    "size": {"type": "integer"},
+    "geoip": {"properties": {
+        "country_name": {"type": "keyword"},
+        "city_name": {"type": "keyword"},
+        "location": {"type": "geo_point"}}}}}
+LOGS_KINDS = ("day", "date_math", "term_raw", "ip_range", "sort_desc",
+              "sort_asc", "docvalues", "exists")
+
+
+def logs_paths() -> list:
+    """The site's 20,000 request paths, most popular first."""
+    sections = ("english", "french", "spanish", "german", "images")
+    kinds = ("index_{}.html", "news_{}.html", "team_{}.gif",
+             "match_{}.html", "photo_{}.jpg", "player_{}.html")
+    return [f"/{sections[k % 5]}/{k // 5 % 97}/"
+            + kinds[k % 6].format(k) for k in range(LOGS_PATHS)]
+
+
+def _zipf(rng, n_items: int, n: int, s: float) -> np.ndarray:
+    p = 1.0 / np.arange(1, n_items + 1, dtype=np.float64) ** s
+    return rng.choice(n_items, n, p=p / p.sum())
+
+
+def logs_columns(seed: int, n: int) -> dict:
+    """The columns of n web-server log lines modelled on the Rally
+    `http_logs` track (the 1998 World Cup site): `ts` epoch seconds over
+    1998-04-30 to 1998-07-26, ascending, about 8 lines a second that has
+    traffic; `ip` a Zipf draw (s = 1.1) over 200,000 IPv4 addresses
+    (uint32); `path` a Zipf draw (s = 1.0) over 20,000 paths; `status`
+    mostly 200, then 304, 404 and a few others; `size` log-normal bytes
+    (0 for a 304); `city` an index of LOGS_CITIES, -1 (no geoip) for one
+    line in 20."""
+    rng = np.random.default_rng([seed, 18])
+    n_sec = max(n // 8, 1)
+    secs = np.sort(rng.choice(LOGS_DAYS * 86_400, n_sec, replace=False))
+    ts = LOGS_START + np.sort(secs[rng.integers(0, n_sec, n)])
+    pool = rng.choice(1 << 32, LOGS_IPS, replace=False).astype(np.uint32)
+    status = np.asarray(LOGS_STATUS, dtype=np.int32)[
+        rng.choice(len(LOGS_STATUS), n, p=LOGS_STATUS_P)]
+    size = rng.lognormal(8.0, 1.5, n).astype(np.int64)
+    size[status == 304] = 0
+    city = rng.integers(0, len(LOGS_CITIES), n)
+    city[rng.random(n) < 0.05] = -1
+    return {"ts": ts.astype(np.int64), "ip": pool[_zipf(rng, LOGS_IPS, n,
+                                                        1.1)],
+            "path": _zipf(rng, LOGS_PATHS, n, 1.0).astype(np.int32),
+            "status": status, "size": size, "city": city}
+
+
+def ipv4(v: int) -> str:
+    v = int(v)
+    return f"{v >> 24}.{v >> 16 & 255}.{v >> 8 & 255}.{v & 255}"
+
+
+def logs_sources(cols: dict, lo: int, hi: int, paths: list) -> list:
+    """Documents lo..hi-1 as the track's JSON lines: its five fields, no
+    `message`, as in its standard documents, and `geoip` as its ingest
+    pipeline adds it."""
+    out = []
+    for i in range(lo, hi):
+        ts, ip, st, sz = (int(cols["ts"][i]), ipv4(cols["ip"][i]),
+                          int(cols["status"][i]), int(cols["size"][i]))
+        req = f"GET {paths[cols['path'][i]]} HTTP/1.0"
+        doc = {"@timestamp": ts, "clientip": ip, "request": req,
+               "status": st, "size": sz}
+        c = int(cols["city"][i])
+        if c >= 0:
+            country, city, lat, lon = LOGS_CITIES[c]
+            doc["geoip"] = {"country_name": country, "city_name": city,
+                            "location": {"lat": lat, "lon": lon}}
+        out.append(doc)
+    return out
+
+
+def _iso(sec: int) -> str:
+    return time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(int(sec)))
+
+
+def _day(k: int) -> int:
+    return LOGS_START + k * 86_400
+
+
+def _top_rows(mask: np.ndarray, k: int = 10) -> list:
+    """The first k matching rows: every hit of these bodies scores one
+    constant, so the rows rank ascending."""
+    return np.nonzero(mask)[0][:k].tolist()
+
+
+def logs_requests(cols: dict, paths: list, seed: int, n_each: int) -> list:
+    """n_each bodies of each kind, each with what numpy says it returns:
+    (kind, body, want), want holding `total` (when the body tracks it),
+    `ids` (the hits' `_id`s in order), `sort` (their sort values) and
+    `fields` (their docvalue_fields). Rows are document numbers (the
+    documents load in order into one shard)."""
+    rng = np.random.default_rng([seed, 181])
+    ts, n = cols["ts"], len(cols["ts"])
+    ms = ts * 1000
+    rows = np.arange(n)
+    days = rng.integers(1, LOGS_DAYS - 1, size=8 * n_each)
+    counts = np.bincount(cols["path"], minlength=LOGS_PATHS)
+    rare = np.nonzero((counts >= 1) & (counts <= 3))[0]
+    if not len(rare):
+        rare = np.nonzero(counts >= 1)[0][-n_each:]
+    out = []
+
+    def add(kind, body, mask=None, ids=None, **want):
+        if mask is not None:
+            want["total"] = int(mask.sum())
+            ids = _top_rows(mask, body.get("size", 10))
+        want["ids"] = [str(i) for i in ids]
+        out.append((kind, body, want))
+
+    def in_day(k):
+        return (ts >= _day(k)) & (ts < _day(k + 1))
+
+    for j in range(n_each):
+        k = int(days[j])
+        add("day", {"query": {"range": {"@timestamp": {
+            "gte": _iso(_day(k)), "lt": _iso(_day(k + 1))}}},
+            "track_total_hits": True, "_source": False}, in_day(k))
+        k = int(days[n_each + j])
+        add("date_math", {"query": {"range": {"@timestamp": {
+            "gte": _iso(_day(k))[:10] + "||-1d/d",
+            "lte": _iso(_day(k))[:10] + "||/d"}}},
+            "track_total_hits": True, "_source": False},
+            (ts >= _day(k - 1)) & (ts < _day(k + 1)))
+        path = int(rng.integers(0, 32)) if j % 2 == 0 \
+            else int(rare[j % len(rare)])
+        add("term_raw", {"query": {"term": {
+            "request.raw": f"GET {paths[path]} HTTP/1.0"}},
+            "track_total_hits": True, "_source": False},
+            cols["path"] == path)
+        lo = int(rng.integers(0, (1 << 32) - (1 << 22)))
+        hi = lo + (1 << 22)
+        add("ip_range", {"query": {"range": {"clientip": {
+            "gte": ipv4(lo), "lt": ipv4(hi)}}},
+            "track_total_hits": True, "_source": False},
+            (cols["ip"] >= lo) & (cols["ip"] < hi))
+        k = int(days[2 * n_each + j])
+        add("exists", {"query": {"bool": {"filter": [
+            {"exists": {"field": "geoip"}},
+            {"range": {"@timestamp": {"gte": _iso(_day(k)),
+                                      "lt": _iso(_day(k + 1))}}}]}},
+            "track_total_hits": True, "_source": False},
+            in_day(k) & (cols["city"] >= 0))
+        k = int(days[3 * n_each + j])
+        sel = np.nonzero(in_day(k))[0][:10]
+        add("docvalues", {"query": {"range": {"@timestamp": {
+            "gte": _iso(_day(k)), "lt": _iso(_day(k + 1))}}},
+            "_source": False, "docvalue_fields": [
+                {"field": "@timestamp",
+                 "format": "strict_date_optional_time"},
+                {"field": "@timestamp", "format": "epoch_millis"}]},
+            ids=sel.tolist(), fields=[
+                [time.strftime("%Y-%m-%dT%H:%M:%S.000Z",
+                               time.gmtime(int(ts[i]))), str(int(ms[i]))]
+                for i in sel])
+        # a day's lines by time, five pages past the first through
+        # search_after: desc on the timestamp alone (a page resumes
+        # strictly below the last value, as the reference compares), asc
+        # with `_doc` as the tie-break (every line once)
+        for kind, sort in (("sort_desc", [{"@timestamp": "desc"}]),
+                           ("sort_asc", [{"@timestamp": "asc"}, "_doc"])):
+            k = int(days[(4 if kind == "sort_desc" else 5) * n_each + j])
+            day = {"range": {"@timestamp": {"gte": _iso(_day(k)),
+                                            "lt": _iso(_day(k + 1))}}}
+            live = np.nonzero(in_day(k))[0]
+            if kind == "sort_desc":
+                live = live[np.lexsort((live, -ts[live]))]
+            after = None
+            for page in range(6):
+                if after is not None:
+                    cut = (ms[live] < after[0]) if kind == "sort_desc" \
+                        else (ms[live] > after[0]) | (
+                            (ms[live] == after[0]) & (live > after[1]))
+                    live = live[cut]
+                sel = live[:10]
+                vals = [[int(ms[i])] if kind == "sort_desc"
+                        else [int(ms[i]), int(i)] for i in sel]
+                body = {"query": day, "sort": sort, "_source": False}
+                if after is not None:
+                    body["search_after"] = after
+                add(kind, body, ids=sel.tolist(), sort=vals)
+                if not len(sel):
+                    break
+                after = vals[-1]
+    return out
+
+
+def check_logs_response(kind: str, resp: dict, want: dict) -> None:
+    hits = resp["hits"]["hits"]
+    got = [h["_id"] for h in hits]
+    if got != want["ids"]:
+        raise AssertionError(f"serve_logs {kind}: ids {got[:10]}, numpy "
+                             f"says {want['ids'][:10]}")
+    if "total" in want and resp["hits"]["total"] != {
+            "value": want["total"], "relation": "eq"}:
+        raise AssertionError(f"serve_logs {kind}: total "
+                             f"{resp['hits']['total']}, numpy says "
+                             f"{want['total']}")
+    if "sort" in want and [h["sort"] for h in hits] != want["sort"]:
+        raise AssertionError(f"serve_logs {kind}: sort values "
+                             f"{[h['sort'] for h in hits][:3]}, numpy says "
+                             f"{want['sort'][:3]}")
+    if "fields" in want and [h["fields"]["@timestamp"] for h in hits] \
+            != want["fields"]:
+        raise AssertionError(f"serve_logs {kind}: docvalue_fields "
+                             f"{[h.get('fields') for h in hits][:2]}, "
+                             f"Python says {want['fields'][:2]}")
+
+
+LOGS_NAMES = ("ana", "bo", "chen", "dara", "eli", "femi", "gus", "hana",
+              "ivo", "jun", "kai", "lea")
+LOGS_EVENTS = ("login", "logout", "view", "click", "buy")
+
+
+def dynamic_docs(seed: int, n: int) -> list:
+    """Documents for a `dynamic: true` index: nested objects, dates as
+    strings, ints, floats, bools and string arrays."""
+    rng = np.random.default_rng([seed, 182])
+    docs = []
+    for i in range(n):
+        c = LOGS_CITIES[int(rng.integers(len(LOGS_CITIES)))]
+        docs.append({
+            "user": {"name": LOGS_NAMES[int(rng.integers(len(LOGS_NAMES)))],
+                     "age": int(rng.integers(16, 90)),
+                     "score": float(np.round(rng.random() * 100, 3)),
+                     "vip": bool(rng.random() < 0.1),
+                     "address": {"city": c[1], "zip": f"{int(rng.integers(
+                         10_000, 99_999))}"}},
+            "event": {"at": _iso(_day(int(rng.integers(LOGS_DAYS)))
+                                 + int(rng.integers(86_400))),
+                      "kind": LOGS_EVENTS[int(rng.integers(5))],
+                      "tags": [f"t{int(t)}" for t in rng.integers(0, 20, 2)]},
+            "bytes": int(rng.integers(0, 1 << 20)),
+            "seen": _iso(_day(int(rng.integers(LOGS_DAYS))))[:10]})
+    return docs
+
+
+def dynamic_mapping_of(doc: dict) -> dict:
+    """The mapping the dynamic rules give a document: boolean, long,
+    float, a `yyyy-MM-dd...` string as date, any other string as text
+    with a `keyword` sub-field (ignore_above 256), an object as
+    properties."""
+    props = {}
+    for k, v in doc.items():
+        probe = v[0] if isinstance(v, list) else v
+        if isinstance(v, dict):
+            props[k] = dynamic_mapping_of(v)
+        elif isinstance(probe, bool):
+            props[k] = {"type": "boolean"}
+        elif isinstance(probe, int):
+            props[k] = {"type": "long"}
+        elif isinstance(probe, float):
+            props[k] = {"type": "float"}
+        elif re.match(r"\d{4}-\d{2}-\d{2}", probe):
+            props[k] = {"type": "date"}
+        else:
+            props[k] = {"type": "text", "fields": {"keyword": {
+                "type": "keyword", "ignore_above": 256}}}
+    return {"properties": props}
+
+
+def logs_dynamic(client, seed: int, n: int) -> None:
+    """A `dynamic: true` index of n documents over `_bulk`: `GET
+    /_mapping` equals the dynamic rules' mapping, and `term` on a
+    `.keyword` sub-field and a `range` on a dynamic date find what the
+    documents say."""
+    docs = dynamic_docs(seed, n)
+    client.ok("PUT", "/logs_dynamic", {"settings": {"number_of_shards": 1},
+                                       "mappings": {"dynamic": True}})
+    t0 = time.perf_counter()
+    for lo in range(0, n, 2000):
+        ops = []
+        for i in range(lo, min(lo + 2000, n)):
+            ops += [{"index": {"_id": str(i)}}, docs[i]]
+        if client.ok("POST", "/logs_dynamic/_bulk", ops,
+                     ndjson=True)["errors"]:
+            raise AssertionError("serve_logs: dynamic bulk errors")
+    client.ok("POST", "/logs_dynamic/_refresh")
+    bulk_s = time.perf_counter() - t0
+    got = client.ok("GET", "/logs_dynamic/_mapping")["logs_dynamic"][
+        "mappings"]
+    want = dynamic_mapping_of(docs[0])
+    if got != want:
+        raise AssertionError(f"serve_logs: dynamic mapping {got}, the "
+                             f"rules say {want}")
+    checks = 0
+    for field, of in (("user.name.keyword", lambda d: [d["user"]["name"]]),
+                      ("event.tags.keyword", lambda d: d["event"]["tags"]),
+                      ("user.address.city.keyword",
+                       lambda d: [d["user"]["address"]["city"]])):
+        for value in sorted({v for d in docs[:50] for v in of(d)})[:4]:
+            want_n = sum(value in of(d) for d in docs)
+            resp = client.ok("POST", "/logs_dynamic/_search", {
+                "query": {"term": {field: value}}, "size": 0,
+                "track_total_hits": True})
+            if resp["hits"]["total"]["value"] != want_n:
+                raise AssertionError(f"serve_logs: term {field}={value} "
+                                     f"found {resp['hits']['total']}, the "
+                                     f"documents say {want_n}")
+            checks += 1
+    k = LOGS_DAYS // 2
+    want_n = sum(_iso(_day(k)) <= d["event"]["at"] < _iso(_day(k + 7))
+                 for d in docs)
+    resp = client.ok("POST", "/logs_dynamic/_search", {
+        "query": {"range": {"event.at": {"gte": _iso(_day(k)),
+                                         "lt": _iso(_day(k + 7))}}},
+        "size": 0, "track_total_hits": True})
+    if resp["hits"]["total"]["value"] != want_n:
+        raise AssertionError(f"serve_logs: dynamic date range found "
+                             f"{resp['hits']['total']}, want {want_n}")
+    log("serve_logs", dynamic_docs=n, dynamic_bulk_s=f"{bulk_s:.2f}",
+        dynamic_fields=sum(1 for _ in _leaf_paths(got)), term_checks=checks)
+    drop_index(client, "logs_dynamic")
+
+
+def _leaf_paths(mapping: dict, prefix: str = ""):
+    for k, v in mapping.get("properties", {}).items():
+        if "properties" in v:
+            yield from _leaf_paths(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k
+
+
+def logs_can_match(client, node, cols: dict, paths: list,
+                   n_each: int) -> None:
+    """Two time-partitioned indices (the first and the last N_LOGS_SPLIT
+    lines, through `index_many` as the main index's bulk of lines): a
+    day's range over both with `pre_filter_shard_size=1` skips
+    the index whose dates miss the day (can_match reads the date bounds
+    through the mapping) and counts what numpy counts."""
+    n = len(cols["ts"])
+    m = min(N_LOGS_SPLIT, n // 2)
+    parts = {"logs_early": (0, m), "logs_late": (n - m, n)}
+    for name, (lo, hi) in parts.items():
+        client.ok("PUT", f"/{name}", {"settings": {"number_of_shards": 1},
+                                      "mappings": LOGS_MAPPING})
+        node.index(name).index_many([str(i) for i in range(lo, hi)],
+                                    logs_sources(cols, lo, hi, paths))
+        client.ok("POST", f"/{name}/_refresh")
+    ts = cols["ts"]
+    skipped, lat = 0, []
+    first_day = (int(ts[n - m]) - LOGS_START) // 86_400 + 1
+    for j in range(n_each):
+        k = min(first_day + j % 4, LOGS_DAYS - 1)
+        body = {"query": {"range": {"@timestamp": {
+            "gte": _iso(_day(k)), "lt": _iso(_day(k + 1))}}},
+            "size": 0, "track_total_hits": True}
+        t = time.perf_counter()
+        resp = client.ok("POST", "/logs_early,logs_late/_search"
+                         "?pre_filter_shard_size=1", body)
+        lat.append((time.perf_counter() - t) * 1e3)
+        in_day = (ts >= _day(k)) & (ts < _day(k + 1))
+        want = int(in_day[:m].sum() + in_day[n - m:].sum())
+        if resp["hits"]["total"]["value"] != want \
+                or resp["_shards"]["skipped"] != 1:
+            raise AssertionError(f"serve_logs can_match: {resp['_shards']} "
+                                 f"{resp['hits']['total']}, want {want} "
+                                 f"and one skipped")
+        skipped += resp["_shards"]["skipped"]
+    log("serve_logs", can_match_requests=n_each, skipped_shards=skipped,
+        can_match_p50_ms=f"{statistics.median(lat):.3f}")
+    for name in parts:
+        drop_index(client, name)
+
+
+def phase_serve_logs(seed: int, n: int, device: str = "cuda",
+                     n_each: int = 64,
+                     n_dynamic: int = N_LOGS_DYNAMIC) -> dict:
+    """serve_logs: a web-server log index modelled on the Rally
+    `http_logs` track (247,249,096 lines of the 1998 World Cup site; its
+    index.json mapping, LOGS_MAPPING), cut to `n` lines for host ingest
+    and the run's time: N_LOGS_BULK lines over `_bulk`, the rest through
+    `IndexService.index_many(sources=)`, one refresh. n_each requests of
+    each LOGS_KINDS kind over HTTP, each answer held to numpy over the
+    generated columns (`logs_requests`); then the dynamic index
+    (`logs_dynamic`) and the can_match pair (`logs_can_match`). Logged:
+    ingest seconds, the parse rate (lines a second through
+    `index_many`), the refresh, and the HTTP p50 of each kind. No kernel
+    runs here: every query is host work; returns no launches."""
+    from elasticsearch_tpu_torch.server import build_server
+    t0 = time.perf_counter()
+    paths = logs_paths()
+    cols = logs_columns(seed, n)
+    sources = logs_sources(cols, 0, n, paths)
+    log("serve_logs", data_s=f"{time.perf_counter() - t0:.2f}", docs=n,
+        days=LOGS_DAYS, first=_iso(cols["ts"][0]), last=_iso(cols["ts"][-1]))
+    node, server = build_server(device=device, port=0,
+                                settings=SERVE_SETTINGS)
+    server.start()
+    try:
+        client = Client(server.port)
+        client.ok("PUT", "/logs", {"settings": {"number_of_shards": 1},
+                                   "mappings": LOGS_MAPPING})
+        first = min(N_LOGS_BULK, n)
+        ops = []
+        for i in range(first):
+            ops += [{"index": {"_id": str(i)}}, sources[i]]
+        if client.ok("POST", "/logs/_bulk", ops, ndjson=True)["errors"]:
+            raise AssertionError("serve_logs: bulk errors")
+        svc = node.index("logs")
+        t0 = time.perf_counter()
+        if n > first:
+            svc.index_many([str(i) for i in range(first, n)],
+                           sources[first:])
+        parse_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        client.ok("POST", "/logs/_refresh")
+        refresh_s = time.perf_counter() - t1
+        del sources
+        mapping = client.ok("GET", "/logs/_mapping")["logs"]["mappings"]
+        if mapping["properties"]["request"]["fields"] != {
+                "raw": {"type": "keyword", "ignore_above": 256}} \
+                or svc.mapper_service.dynamic:
+            raise AssertionError(f"serve_logs: mapping {mapping}")
+        log("serve_logs", ingest_s=f"{parse_s + refresh_s:.2f}",
+            index_many_s=f"{parse_s:.2f}",
+            parse_rate_docs_s=f"{(n - first) / max(parse_s, 1e-9):.0f}",
+            refresh_s=f"{refresh_s:.2f}",
+            host_peak_rss_gb=f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.2f}")
+        lat = {k: [] for k in LOGS_KINDS}
+        pages = 0
+        for kind, body, want in logs_requests(cols, paths, seed, n_each):
+            t = time.perf_counter()
+            resp = client.ok("POST", "/logs/_search", body)
+            lat[kind].append((time.perf_counter() - t) * 1e3)
+            check_logs_response(kind, resp, want)
+            pages += kind.startswith("sort")
+        log("serve_logs", requests=sum(map(len, lat.values())),
+            sort_pages=pages, **{f"{k}_p50_ms": f"{statistics.median(v):.3f}"
+                                 for k, v in lat.items()})
+        drop_index(client, "logs")
+        logs_dynamic(client, seed, n_dynamic)
+        logs_can_match(client, node, cols, paths, n_each)
+    finally:
+        server.stop()
+    return {}
+
+
 def timed(label: str, phase, *args, **kwargs):
     """Run one phase and log its wall seconds."""
     t = time.perf_counter()
@@ -5028,6 +5532,10 @@ def main(argv=None) -> int:
                     help="build, check bm25_board (the BM25 and the "
                          "learned-sparse cases) and run only serve_sparse "
                          "at --n-sparse passages (no final ok line)")
+    ap.add_argument("--n-logs", type=int, default=N_LOGS)
+    ap.add_argument("--logs-only", action="store_true",
+                    help="run only serve_logs at --n-logs lines (no "
+                         "kernel build, no final ok line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5047,6 +5555,9 @@ def main(argv=None) -> int:
             print(json.dumps({"kernels": list(kernels.values())}))
             print(smi)
             return 0
+    if args.logs_only:
+        timed("serve_logs", phase_serve_logs, args.seed, args.n_logs)
+        return 0
     if args.docs_only:
         phase_build(["knn_binned"])
         phase_serve(args.seed, args.n_sift, 0, docs_only=True)
@@ -5095,6 +5606,8 @@ def main(argv=None) -> int:
                     args.n_msmarco)]
     sparse_launches = timed("serve_sparse", phase_serve_sparse, args.seed,
                             args.n_sparse)
+    phases.append(timed("serve_logs", phase_serve_logs, args.seed,
+                        args.n_logs))
     for phase in phases + [sparse_launches]:
         for name, count in phase.items():
             launches[name] = launches.get(name, 0) + count

@@ -6,8 +6,10 @@ segment, tombstones replaced rows, and hands the new reader to refresh
 listeners (the vector store syncs there). Vectors travel as numpy blocks:
 `index_many` takes a whole batch, optionally with its vectors as one
 [n, dims] array per field, which is how a million-document shard loads.
-Keyword, numeric and boolean values are parsed from each `_source`; the
-seal builds their postings and doc-values columns with numpy. Text values
+Keyword, numeric, boolean, date, ip, geo-point and range values are
+parsed from each `_source` (objects by path, new fields mapped
+dynamically into the index's shared mapping); the seal builds their
+postings and doc-values columns with numpy. Text values
 are analyzed (`TextFieldMapper.analyze_positions`); their tokens enter
 the buffer as integer codes of a per-field vocabulary with their
 positions, and the seal builds the positional postings and the field

@@ -1,5 +1,4 @@
-"""Field mappers for the served slices (port of the `dense_vector`,
-`rank_vectors`, `text`, `keyword`, numeric and `boolean` subset of
+"""Field mappers and the index's mapping (port of the served subset of
 `elasticsearch_tpu/index/mapping.py`).
 
 `text` takes `analyzer` and `search_analyzer` (the built-in, language and
@@ -16,21 +15,47 @@ interaction) takes dims, similarity and the token-block storage knobs;
 each value its index terms (the filter queries' postings) and its doc
 value (the range queries' column), coerced and rejected as the reference
 does; `ignore_malformed` drops a bad value and records the field in
-`_ignored`. `rank_feature` (a positive float, `positive_score_impact`)
-keeps its value as a doc value; `rank_features` and the legacy
-`sparse_vector` keep a feature -> weight map (an object, keys as strings,
-weights coerced with `float`), which `parse_document` hands to the engine
-as its keys and weights for the segment's feature-map column (a list of
-maps stays a plain doc value, as the reference keeps it). `_source.enabled`
-is honoured. Every other field type raises
-the reference's mapper-parsing error. Unmapped document fields stay in
-`_source` and are not indexed (there is no dynamic mapping).
+`_ignored`. `date` (epoch millis: `strict_date_optional_time||
+epoch_millis`, date math, `format` with `epoch_second` or a custom
+pattern and its `locale`) and `date_nanos` (epoch nanos) index the number
+as their term and doc value; `ip` stores an address in the 128-bit IPv6
+space (IPv4 as `::ffff:a.b.c.d`); the doc-values columns hold all three
+as float64 as the reference's do, so a date_nanos past 2^53 ns and an
+IPv6 address lose the same low bits in both. `geo_point` keeps its (lat,
+lon) as a doc value (no geo query is ported). The six range types keep
+each value as an inclusive interval {gte, lte} that `term` and `range`
+(`relation`) scan. `rank_feature` (a positive float,
+`positive_score_impact`) keeps its value as a doc value; `rank_features`
+and the legacy `sparse_vector` keep a feature -> weight map (an object,
+keys as strings, weights coerced with `float`), which `parse_document`
+hands to the engine as its keys and weights for the segment's feature-map
+column (a list of maps stays a plain doc value, as the reference keeps
+it). `_source.enabled` is honoured.
+
+`MapperService` holds the mapping as a flat map of dotted paths: a
+definition with `properties` is an object (its `type` is `object` when it
+has none), `fields` adds multi-fields that index every value of their
+parent, and `dynamic` (a boolean, or the string "true"; any other string,
+such as "strict", reads as false, as in the reference) maps a document's
+unmapped fields from their first value: boolean, long, float, a
+`yyyy-MM-dd` date string as `date`, any other string as `text` with a
+`keyword` sub-field at `ignore_above: 256`. An object in a document is
+walked by path; an array of objects is flattened into its paths. `nested`
+and every other type the reference registers raise its
+mapper-parsing error.
 """
 
 from __future__ import annotations
 
+import calendar
+import datetime as _dt
+import ipaddress
 import math
-from typing import Any, Dict, List, Optional
+import re
+import threading
+import time
+from contextlib import contextmanager
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -39,6 +64,161 @@ from elasticsearch_tpu_torch.common.errors import (
 )
 from elasticsearch_tpu_torch.index.analysis import AnalysisRegistry
 
+# --------------------------------------------------------------- dates
+
+_DATE_PATTERNS = (
+    "%Y-%m-%dT%H:%M:%S.%f%z", "%Y-%m-%dT%H:%M:%S%z", "%Y-%m-%dT%H:%M:%S.%f",
+    "%Y-%m-%dT%H:%M:%S", "%Y-%m-%d %H:%M:%S", "%Y-%m-%d", "%Y/%m/%d",
+)
+_DATE_MATH_TOKEN = re.compile(r"([+\-/])(\d*)([yMwdhHms])")
+_ROUND_SPAN_MS = {"s": 1000, "m": 60_000, "h": 3_600_000, "H": 3_600_000,
+                  "d": 86_400_000, "w": 7 * 86_400_000}
+
+
+def _apply_date_math(millis: int, expr: str, round_up: bool = False) -> int:
+    """A date-math suffix (`||+1d/d`, `now-1h`): +/- offsets and /unit
+    rounding. `round_up` rounds to the end of the unit (gt / lte bounds).
+    A malformed expression raises."""
+    tokens = _DATE_MATH_TOKEN.findall(expr)
+    if "".join(op + num + unit for op, num, unit in tokens) \
+            != expr.replace(" ", ""):
+        raise MapperParsingError(
+            f"failed to parse date math expression [{expr}]")
+    for op, num, unit in tokens:
+        if op == "/":
+            if num:
+                raise MapperParsingError(
+                    f"rounding does not take a number [{op}{num}{unit}]")
+            d = _dt.datetime.fromtimestamp(millis / 1000.0,
+                                           tz=_dt.timezone.utc)
+            if unit == "d":
+                d = d.replace(hour=0, minute=0, second=0, microsecond=0)
+            elif unit in ("h", "H"):
+                d = d.replace(minute=0, second=0, microsecond=0)
+            elif unit == "m":
+                d = d.replace(second=0, microsecond=0)
+            elif unit == "s":
+                d = d.replace(microsecond=0)
+            elif unit == "M":
+                d = d.replace(day=1, hour=0, minute=0, second=0,
+                              microsecond=0)
+            elif unit == "y":
+                d = d.replace(month=1, day=1, hour=0, minute=0, second=0,
+                              microsecond=0)
+            elif unit == "w":
+                d = (d - _dt.timedelta(days=d.weekday())).replace(
+                    hour=0, minute=0, second=0, microsecond=0)
+            millis = int(d.timestamp() * 1000)
+            if round_up:
+                if unit in _ROUND_SPAN_MS:
+                    millis += _ROUND_SPAN_MS[unit] - 1
+                else:  # a month or year: the next unit's start less 1 ms
+                    months = 12 if unit == "y" else 1
+                    millis = _shift_months(millis, months) - 1
+            continue
+        n = int(num or 1)
+        if unit in _ROUND_SPAN_MS:
+            delta = n * _ROUND_SPAN_MS[unit]
+            millis += delta if op == "+" else -delta
+        else:  # calendar months and years, the day clamped
+            months = n * (12 if unit == "y" else 1)
+            millis = _shift_months(millis, months if op == "+" else -months)
+    return millis
+
+
+def _shift_months(millis: int, months: int) -> int:
+    d = _dt.datetime.fromtimestamp(millis / 1000.0, tz=_dt.timezone.utc)
+    total = d.month - 1 + months
+    year = d.year + total // 12
+    month = total % 12 + 1
+    day = min(d.day, calendar.monthrange(year, month)[1])
+    return int(d.replace(year=year, month=month, day=day).timestamp() * 1000)
+
+
+def parse_date_millis(value: Any, round_up: bool = False) -> int:
+    """A date as epoch millis (`strict_date_optional_time||epoch_millis`
+    with date math): a number is millis; `now` reads the clock; a
+    `yyyy-MM-dd` bound with `round_up` (gt / lte) is the day's last
+    millisecond."""
+    if isinstance(value, bool):
+        raise MapperParsingError(f"cannot parse date from boolean [{value}]")
+    if isinstance(value, (int, float)):
+        return int(value)
+    s = str(value).strip()
+    if s.startswith("now"):
+        return _apply_date_math(int(time.time() * 1000), s[3:], round_up)
+    if "||" in s:
+        base, _, math_expr = s.partition("||")
+        return _apply_date_math(parse_date_millis(base), math_expr, round_up)
+    if round_up and re.fullmatch(r"\d{4}-\d{2}-\d{2}", s):
+        return parse_date_millis(s) + 86_400_000 - 1
+    if re.fullmatch(r"-?\d{5,}", s):
+        # epoch_millis takes any numeric string but a bare 4-digit year
+        return int(s)
+    norm = s.replace("Z", "+0000")
+    if re.search(r"[+-]\d{2}:\d{2}$", norm):
+        norm = norm[:-3] + norm[-2:]
+    for pat in _DATE_PATTERNS:
+        try:
+            dt = _dt.datetime.strptime(norm, pat)
+        except ValueError:
+            continue
+        if dt.tzinfo is None:
+            dt = dt.replace(tzinfo=_dt.timezone.utc)
+        return int(dt.timestamp() * 1000)
+    raise MapperParsingError(f"failed to parse date field [{value}]")
+
+
+# localized day and month names, read as English before strptime
+_LOCALE_NAMES = {
+    "de": {"Mo": "Mon", "Di": "Tue", "Mi": "Wed", "Do": "Thu", "Fr": "Fri",
+           "Sa": "Sat", "So": "Sun",
+           "Jan": "Jan", "Feb": "Feb", "Mär": "Mar", "Mrz": "Mar",
+           "Apr": "Apr", "Mai": "May", "Jun": "Jun", "Jul": "Jul",
+           "Aug": "Aug", "Sep": "Sep", "Okt": "Oct", "Nov": "Nov",
+           "Dez": "Dec"},
+}
+
+
+def parse_custom_date(value: str, fmt: str, locale: str = "") -> int:
+    """Epoch millis of a date under a joda-style pattern (`E, d MMM yyyy
+    HH:mm:ss Z`), day and month names read in the mapping's locale."""
+    s = str(value).strip()
+    names = _LOCALE_NAMES.get(str(locale or "").split("_")[0].lower())
+    if names:
+        for loc, eng in names.items():
+            s = re.sub(rf"\b{loc}\b", eng, s)
+    py = fmt
+    for joda, strp in (("yyyy", "%Y"), ("yy", "%y"), ("MMMM", "%B"),
+                       ("MMM", "%b"), ("MM", "%m"), ("dd", "%d"),
+                       ("EEEE", "%A"), ("E", "%a"), ("HH", "%H"),
+                       ("mm", "%M"), ("ss", "%S"), ("Z", "%z")):
+        py = py.replace(joda, strp)
+    py = re.sub(r"(?<!%)\bd\b", "%d", py)
+    py = re.sub(r"(?<!%)\bM\b", "%m", py)
+    d = _dt.datetime.strptime(s, py)
+    if d.tzinfo is None:
+        d = d.replace(tzinfo=_dt.timezone.utc)
+    return int(d.timestamp() * 1000)
+
+
+def parse_date_nanos(value: Any) -> int:
+    """A date as epoch nanos: a number is epoch millis; a string keeps up
+    to 9 fraction digits."""
+    if isinstance(value, bool):
+        raise MapperParsingError(f"cannot parse date from boolean [{value}]")
+    if isinstance(value, (int, float)):
+        return int(value) * 1_000_000
+    s = str(value).strip()
+    if re.fullmatch(r"-?\d{10,}", s):
+        return int(s) * 1_000_000
+    m = re.match(r"^(.*?)(?:\.(\d{1,9}))?((?:Z|[+-]\d{2}:?\d{2})?)$", s)
+    base, frac, tz = m.groups()
+    millis = parse_date_millis(base + (tz or ""))
+    return millis * 1_000_000 + int((frac or "0").ljust(9, "0")[:9])
+
+
+# ------------------------------------------------------------- mappers
 
 class FieldMapper:
     type_name = "base"
@@ -47,7 +227,6 @@ class FieldMapper:
         self.name = name
         self.params = dict(params or {})
 
-
     def index_terms(self, value: Any) -> List[str]:
         """The value's terms in the field's postings; none by default."""
         return []
@@ -55,6 +234,11 @@ class FieldMapper:
     def doc_value(self, value: Any) -> Any:
         """The value's doc-values form, or None (no column)."""
         return None
+
+    def to_def(self) -> dict:
+        """The definition `GET /_mapping` renders: the type, then the
+        parameters as given."""
+        return {"type": self.type_name, **self.params}
 
 
 class KeywordFieldMapper(FieldMapper):
@@ -180,6 +364,253 @@ class BooleanFieldMapper(FieldMapper):
 
     def doc_value(self, value):
         return self.coerce(value)
+
+
+class DateFieldMapper(FieldMapper):
+    """`date`: epoch millis. `format` with `epoch_second` scales a number
+    by 1,000; a custom pattern with day or month names (`E`, `MMM`)
+    parses in the mapping's `locale`; anything else takes
+    `strict_date_optional_time||epoch_millis`."""
+
+    type_name = "date"
+
+    def _parse(self, value):
+        fmt = str(self.params.get("format", ""))
+        if "epoch_second" in fmt:
+            try:
+                return int(float(value) * 1000)
+            except (TypeError, ValueError):
+                pass
+        if isinstance(value, str) and fmt and ("E" in fmt or "MMM" in fmt):
+            try:
+                return parse_custom_date(value, fmt,
+                                         self.params.get("locale", ""))
+            except (ValueError, MapperParsingError):
+                pass
+        return parse_date_millis(value)
+
+    def index_terms(self, value):
+        return [str(self._parse(value))]
+
+    def doc_value(self, value):
+        return self._parse(value)
+
+
+class DateNanosFieldMapper(DateFieldMapper):
+    """`date_nanos`: epoch nanos, from 1970 to 2262-04-11 (int64)."""
+
+    type_name = "date_nanos"
+
+    def index_terms(self, value):
+        return [str(parse_date_nanos(value))]
+
+    def doc_value(self, value):
+        nanos = parse_date_nanos(value)
+        if nanos < 0:
+            raise MapperParsingError(
+                f"failed to parse field [{self.name}]",
+                caused_by={"reason": f"date[{value}] is before the epoch in "
+                           "1970 and cannot be stored in nanosecond "
+                           "resolution"})
+        if nanos > 9223372036854775807:
+            raise MapperParsingError(
+                f"failed to parse field [{self.name}]",
+                caused_by={"reason": f"date[{value}] is after "
+                           "2262-04-11T23:47:16.854775807 and cannot be "
+                           "stored in nanosecond resolution"})
+        return nanos
+
+
+class IpFieldMapper(FieldMapper):
+    type_name = "ip"
+
+    @staticmethod
+    def parse_ip(value) -> int:
+        """An address as an integer of the 128-bit IPv6 space, IPv4 as
+        ::ffff:a.b.c.d, so `::1` and `0.0.0.1` stay apart. Doc values and
+        query bounds both go through this one transform."""
+        ip = ipaddress.ip_address(str(value))
+        if isinstance(ip, ipaddress.IPv4Address):
+            ip = ipaddress.IPv6Address(b"\x00" * 10 + b"\xff\xff" + ip.packed)
+        return int(ip)
+
+    def coerce(self, value) -> int:
+        try:
+            return self.parse_ip(value)
+        except ValueError:
+            raise MapperParsingError(
+                f"failed to parse IP [{value}] for field [{self.name}]")
+
+    @staticmethod
+    def format_value(stored: int) -> str:
+        """The address a stored integer names (IPv4 in dotted form)."""
+        addr = ipaddress.IPv6Address(int(stored))
+        return str(addr.ipv4_mapped or addr)
+
+    def index_terms(self, value):
+        return [str(self.coerce(value))]
+
+    def doc_value(self, value):
+        return self.coerce(value)
+
+
+def _geohash_decode(gh: str) -> Tuple[float, float]:
+    """A geohash's cell centre as (lat, lon)."""
+    bits = "0123456789bcdefghjkmnpqrstuvwxyz"
+    lat_lo, lat_hi = -90.0, 90.0
+    lon_lo, lon_hi = -180.0, 180.0
+    even = True
+    for ch in gh:
+        cd = bits.index(ch)
+        for mask in (16, 8, 4, 2, 1):
+            if even:
+                mid = (lon_lo + lon_hi) / 2
+                if cd & mask:
+                    lon_lo = mid
+                else:
+                    lon_hi = mid
+            else:
+                mid = (lat_lo + lat_hi) / 2
+                if cd & mask:
+                    lat_lo = mid
+                else:
+                    lat_hi = mid
+            even = not even
+    return ((lat_lo + lat_hi) / 2, (lon_lo + lon_hi) / 2)
+
+
+class GeoPointFieldMapper(FieldMapper):
+    """`geo_point`: a {lat, lon} object, a [lon, lat] array, a "lat,lon"
+    string or a geohash, kept as its (lat, lon) doc value."""
+
+    type_name = "geo_point"
+
+    def coerce(self, value) -> Tuple[float, float]:
+        if isinstance(value, dict):
+            try:
+                return float(value["lat"]), float(value["lon"])
+            except (KeyError, TypeError, ValueError):
+                raise MapperParsingError(
+                    f"failed to parse geo_point [{value}]")
+        if isinstance(value, (list, tuple)) and len(value) == 2:
+            return float(value[1]), float(value[0])
+        if isinstance(value, str):
+            parts = value.split(",")
+            if len(parts) == 2:
+                return float(parts[0]), float(parts[1])
+            if re.fullmatch(r"[0123456789bcdefghjkmnpqrstuvwxyz]{1,12}",
+                            value.lower()):
+                return _geohash_decode(value.lower())
+        raise MapperParsingError(f"failed to parse geo_point [{value}]")
+
+    def doc_value(self, value):
+        return self.coerce(value)
+
+
+class ObjectMapper(FieldMapper):
+    """`object`: a path whose properties are fields of their own; it
+    indexes nothing itself."""
+
+    type_name = "object"
+
+
+class RangeFieldMapperBase(FieldMapper):
+    """The range types: a value is an object of gt / gte / lt / lte
+    bounds, kept as the inclusive interval {gte, lte} (an exclusive bound
+    moves by 1 on the discrete types, by one float step on the others),
+    which `term` (membership) and `range` (`relation`) scan."""
+
+    discrete = True
+
+    def _bound(self, value) -> float:
+        return float(value)
+
+    def coerce(self, value) -> dict:
+        if not isinstance(value, dict):
+            raise MapperParsingError(
+                f"[{self.name}] range field value must be an object of "
+                "bounds")
+        lo, hi = -math.inf, math.inf
+        for k, v in value.items():
+            if k == "gte":
+                lo = self._bound(v)
+            elif k == "gt":
+                b = self._bound(v)
+                lo = b + 1 if self.discrete \
+                    else float(np.nextafter(b, math.inf))
+            elif k == "lte":
+                hi = self._bound(v)
+            elif k == "lt":
+                b = self._bound(v)
+                hi = b - 1 if self.discrete \
+                    else float(np.nextafter(b, -math.inf))
+            else:
+                raise MapperParsingError(
+                    f"[{self.name}] unknown range bound [{k}]")
+        if lo > hi:
+            raise MapperParsingError(
+                f"[{self.name}] range lower bound greater than upper bound")
+        return {"gte": lo, "lte": hi}
+
+    def doc_value(self, value):
+        return self.coerce(value)
+
+    def query_bound(self, value, round_up: bool = False) -> float:
+        """A query's bound in the stored unit; `round_up` matters for
+        date ranges only (date-math rounding)."""
+        return self._bound(value)
+
+
+class IntegerRangeFieldMapper(RangeFieldMapperBase):
+    type_name = "integer_range"
+
+    def _bound(self, value):
+        return float(int(value))
+
+
+class LongRangeFieldMapper(IntegerRangeFieldMapper):
+    type_name = "long_range"
+
+
+class FloatRangeFieldMapper(RangeFieldMapperBase):
+    type_name = "float_range"
+    discrete = False
+
+
+class DoubleRangeFieldMapper(FloatRangeFieldMapper):
+    type_name = "double_range"
+
+
+class DateRangeFieldMapper(RangeFieldMapperBase):
+    type_name = "date_range"
+
+    def _bound(self, value):
+        return float(parse_date_millis(value))
+
+    def query_bound(self, value, round_up: bool = False) -> float:
+        return float(parse_date_millis(value, round_up=round_up))
+
+
+class IpRangeFieldMapper(RangeFieldMapperBase):
+    """`ip_range`: bounds as plain address integers (IPv4 not moved into
+    the ::ffff: space, unlike `ip`, as in the reference), or a CIDR
+    string."""
+
+    type_name = "ip_range"
+
+    def _bound(self, value):
+        return float(int(ipaddress.ip_address(str(value))))
+
+    def coerce(self, value):
+        if isinstance(value, str):
+            try:
+                net = ipaddress.ip_network(value, strict=False)
+            except ValueError:
+                raise MapperParsingError(
+                    f"[{self.name}] failed to parse ip range [{value}]")
+            return {"gte": float(int(net.network_address)),
+                    "lte": float(int(net.broadcast_address))}
+        return super().coerce(value)
 
 
 class RankFeatureFieldMapper(FieldMapper):
@@ -379,37 +810,60 @@ FIELD_TYPES = {m.type_name: m for m in (
     TextFieldMapper, KeywordFieldMapper, LongFieldMapper, IntegerFieldMapper,
     ShortFieldMapper, ByteFieldMapper, DoubleFieldMapper, FloatFieldMapper,
     HalfFloatFieldMapper, ScaledFloatFieldMapper, BooleanFieldMapper,
-    DenseVectorFieldMapper, RankVectorsFieldMapper, RankFeatureFieldMapper,
-    RankFeaturesFieldMapper, SparseVectorFieldMapper)}
+    DateFieldMapper, DateNanosFieldMapper, IpFieldMapper, GeoPointFieldMapper,
+    ObjectMapper, DenseVectorFieldMapper, RankVectorsFieldMapper,
+    RankFeatureFieldMapper, RankFeaturesFieldMapper, SparseVectorFieldMapper,
+    IntegerRangeFieldMapper, LongRangeFieldMapper, FloatRangeFieldMapper,
+    DoubleRangeFieldMapper, DateRangeFieldMapper, IpRangeFieldMapper)}
+
+# mappers whose one value is a JSON object (or an array of them), not an
+# object of fields
+_OBJECT_VALUED = (GeoPointFieldMapper, RangeFieldMapperBase,
+                  RankFeaturesFieldMapper)
 
 
 def build_mapper(name: str, definition: dict,
                  registry: Optional[AnalysisRegistry] = None) -> FieldMapper:
+    """One field's mapper from its definition: `type` (`object` when it
+    has `properties` and no type), its parameters less `properties` and
+    `fields`, which the mapping holds apart."""
     if name.rpartition(".")[2] == "":
         raise IllegalArgumentError("field name cannot be an empty string")
-    t = definition.get("type")
+    t = definition.get("type", "object" if "properties" in definition
+                       else None)
     if t is None:
         raise MapperParsingError(f"no type specified for field [{name}]")
     cls = FIELD_TYPES.get(t)
     if cls is None:
         raise MapperParsingError(
             f"No handler for type [{t}] declared on field [{name}]")
-    params = {k: v for k, v in definition.items() if k != "type"}
+    params = {k: v for k, v in definition.items()
+              if k not in ("type", "properties", "fields")}
     if cls is TextFieldMapper:
         return cls(name, params, registry=registry)
     return cls(name, params)
 
 
 class MapperService:
-    """The (additive-only) mapping of one index."""
+    """The (additive-only) mapping of one index, shared by its shards:
+    dotted path -> mapper, and a field's multi-fields. A write (a merge,
+    a dynamic field) takes the service's lock, works on copies of the
+    maps and publishes them when it ends, the multi-fields first: a
+    reader on another thread never takes the lock, and a field it sees
+    comes with its sub-fields."""
 
     def __init__(self, mapping: Optional[dict] = None,
                  registry: Optional[AnalysisRegistry] = None):
         self._mappers: Dict[str, FieldMapper] = {}
+        # path -> {sub-field name -> mapper}
+        self._multi_fields: Dict[str, Dict[str, FieldMapper]] = {}
         self._meta: dict = {}
         self.source_enabled = True
+        self.dynamic = True
         # the index's analyzers (`AnalysisRegistry.from_index_settings`)
         self.registry = registry
+        self._lock = threading.Lock()
+        self._next: Optional[tuple] = None  # the copies a write works on
         if mapping:
             self.merge(mapping)
 
@@ -425,33 +879,105 @@ class MapperService:
         else:
             props = {k: v for k, v in mapping.items()
                      if not k.startswith("_") and k != "dynamic"}
-        if "_meta" in mapping:
-            self._meta = mapping["_meta"]
-        src = mapping.get("_source")
-        if isinstance(src, dict) and src.get("enabled") is False:
-            # _source disabled: never rendered in hits or GET
-            self.source_enabled = False
+        with self._writing():
+            if "dynamic" in mapping:
+                dyn = mapping["dynamic"]
+                self.dynamic = dyn if isinstance(dyn, bool) else dyn == "true"
+            if "_meta" in mapping:
+                self._meta = mapping["_meta"]
+            src = mapping.get("_source")
+            if isinstance(src, dict) and src.get("enabled") is False:
+                # _source disabled: never rendered in hits or GET
+                self.source_enabled = False
+            self._merge_props(props, prefix="")
+
+    def _merge_props(self, props: dict, prefix: str) -> None:
         for name, definition in props.items():
+            path = f"{prefix}{name}"
             if not isinstance(definition, dict):
                 raise MapperParsingError(
-                    f"invalid mapping definition for [{name}]")
-            mapper = build_mapper(name, definition, self.registry)
-            existing = self._mappers.get(name)
-            if existing is not None and existing.type_name != mapper.type_name:
-                raise IllegalArgumentError(
-                    f"mapper [{name}] cannot be changed from type "
-                    f"[{existing.type_name}] to [{mapper.type_name}]")
-            self._mappers[name] = mapper
+                    f"invalid mapping definition for [{path}]")
+            if "properties" in definition:
+                if definition.get("type") == "nested":
+                    raise MapperParsingError(
+                        f"No handler for type [nested] declared on field "
+                        f"[{path}]")
+                self._merge_props(definition["properties"], prefix=path + ".")
+                continue
+            mapper = build_mapper(path, definition, self.registry)
+            self._put(path, mapper)
+            for sub_name, sub_def in (definition.get("fields") or {}).items():
+                sub = build_mapper(f"{path}.{sub_name}", sub_def,
+                                   self.registry)
+                self._put_multi_field(path, sub_name, sub)
+
+    @contextmanager
+    def _writing(self):
+        """Hold the lock and work on copies of the maps, published when
+        the write ends, also when it fails (the fields before a failing
+        one stay merged, as in the reference)."""
+        with self._lock:
+            self._next = (dict(self._mappers), dict(self._multi_fields))
+            try:
+                yield
+            finally:
+                mappers, multi = self._next
+                self._next = None
+                self._multi_fields = multi
+                self._mappers = mappers
+
+    def _put(self, path: str, mapper: FieldMapper) -> None:
+        """Map a path inside `_writing`; a type change is the reference's
+        400."""
+        mappers = self._next[0]
+        existing = mappers.get(path)
+        if existing is not None and existing.type_name != mapper.type_name:
+            raise IllegalArgumentError(
+                f"mapper [{path}] cannot be changed from type "
+                f"[{existing.type_name}] to [{mapper.type_name}]")
+        mappers[path] = mapper
+
+    def _put_multi_field(self, path: str, sub_name: str,
+                         sub: FieldMapper) -> None:
+        multi = self._next[1]
+        multi[path] = {**multi.get(path, {}), sub_name: sub}
+        self._put(f"{path}.{sub_name}", sub)
 
     def get(self, path: str) -> Optional[FieldMapper]:
         return self._mappers.get(path)
 
+    def maps_object(self, path: str) -> bool:
+        """Whether `path` is an object of the mapping: mapped as one, or
+        the prefix of a mapped path."""
+        prefix = path + "."
+        return isinstance(self._mappers.get(path), ObjectMapper) or any(
+            p.startswith(prefix) for p in self._mappers)
+
     def to_dict(self) -> dict:
-        """The mapping as `GET /_mapping` renders it: each field's type and
-        its definition as given, by field name, and `_meta`."""
-        out = {"properties": {
-            name: {"type": m.type_name, **m.params}
-            for name, m in sorted(self._mappers.items())}}
+        """The mapping as `GET /_mapping` renders it: objects as nested
+        `properties` (an `object` mapped without properties renders
+        nothing, as in the reference), multi-fields under their parent's
+        `fields`, each field's type and its parameters as given, and
+        `_meta`."""
+        mappers, multi = self._mappers, self._multi_fields
+        root: dict = {}
+        for path in sorted(mappers):
+            mapper = mappers[path]
+            if isinstance(mapper, ObjectMapper):
+                continue
+            parts = path.split(".")
+            parent = ".".join(parts[:-1])
+            if parts[-1] in multi.get(parent, {}):
+                continue
+            node = root
+            for p in parts[:-1]:
+                node = node.setdefault("properties", {}).setdefault(p, {})
+            leaf = node.setdefault("properties", {}).setdefault(parts[-1], {})
+            leaf.update(mapper.to_def())
+            if path in multi:
+                leaf["fields"] = {sub: m.to_def()
+                                  for sub, m in multi[path].items()}
+        out = {"properties": root.get("properties", {})}
         if self._meta:
             out["_meta"] = self._meta
         return out
@@ -467,79 +993,160 @@ class MapperService:
         return {p: m for p, m in self._mappers.items()
                 if isinstance(m, RankVectorsFieldMapper)}
 
+    # ---------------------------------------------------------- parsing
     def parse_document(self, source: dict) -> "ParsedFields":
-        """The document's mapped values, validated: dense_vector values as
-        f32 rows, rank_vectors values as f32 [n_tokens, dims] matrices, and
-        text values as analyzed terms with their positions and the field's
-        length, a feature map (`rank_features`, `sparse_vector`) as its
-        keys and coerced weights, and every other mapped field's index
-        terms and doc value (a list holds several values; one value stays a
-        scalar), as the reference's `DocumentParser` makes them."""
+        """The document's mapped values, validated, as the reference's
+        `DocumentParser` makes them: objects walked by dotted path (an
+        array of objects flattened into its paths), unmapped fields mapped
+        dynamically when `dynamic` holds; dense_vector values as f32 rows,
+        rank_vectors values as f32 [n_tokens, dims] matrices, text values
+        as analyzed terms with their positions and the field's length, a
+        feature map (`rank_features`, `sparse_vector`) as its keys and
+        coerced weights, and every other mapped field's index terms and
+        doc value (a list holds several values; one value stays a scalar);
+        each multi-field indexes every value of its parent."""
         if not isinstance(source, dict):
             raise MapperParsingError("document source must be an object")
         parsed = ParsedFields()
-        for field, value in source.items():
-            mapper = self._mappers.get(field)
-            if mapper is None or value is None:
-                continue
-            if isinstance(mapper, DenseVectorFieldMapper):
-                parsed.vectors[field] = mapper.coerce(value)
-                continue
-            if isinstance(mapper, RankVectorsFieldMapper):
-                # multi-valued, as the reference's DocumentParser reads it:
-                # each element is one token row ([] indexes no token)
-                rows = [mapper.coerce(v) for v in
-                        (value if isinstance(value, list) else [value])
-                        if v is not None]
-                if rows:
-                    parsed.vectors[field] = (rows[0] if len(rows) == 1
-                                             else np.concatenate(rows))
-                continue
-            for v in (value if isinstance(value, list) else [value]):
-                if v is not None:
-                    self._index_one(field, mapper, v, parsed)
-            if isinstance(mapper, RankFeaturesFieldMapper) \
-                    and isinstance(parsed.doc_values.get(field), dict):
-                fmap = parsed.doc_values.pop(field)
-                parsed.features[field] = (list(fmap), list(fmap.values()))
+        self._parse_object(source, "", parsed)
         return parsed
 
+    def _parse_object(self, obj: dict, prefix: str,
+                      parsed: "ParsedFields") -> None:
+        for key, value in obj.items():
+            path = f"{prefix}{key}"
+            mapper = self._mappers.get(path)
+            if isinstance(value, dict):
+                if mapper is None or isinstance(mapper, ObjectMapper):
+                    self._parse_object(value, path + ".", parsed)
+                    continue
+            elif isinstance(value, list) and value \
+                    and isinstance(value[0], dict) \
+                    and not isinstance(mapper, _OBJECT_VALUED):
+                # an array of objects: each item's fields, flattened
+                for item in value:
+                    if isinstance(item, dict):
+                        self._parse_object(item, path + ".", parsed)
+                continue
+            self._parse_field(path, value, parsed)
+
+    def _parse_field(self, path: str, value: Any,
+                     parsed: "ParsedFields") -> None:
+        mapper = self._mappers.get(path)
+        if mapper is None:
+            if value is None or not self.dynamic:
+                return  # unmapped: kept in _source, not indexed
+            mapper = self._map_dynamic(path, value)
+            if mapper is None:
+                return
+        if value is None:
+            return
+        if isinstance(mapper, DenseVectorFieldMapper):
+            parsed.vectors[path] = mapper.coerce(value)
+            return
+        if isinstance(mapper, RankVectorsFieldMapper):
+            # each element is one token row ([] indexes no token)
+            rows = [mapper.coerce(v) for v in
+                    (value if isinstance(value, list) else [value])
+                    if v is not None]
+            if rows:
+                parsed.vectors[path] = (rows[0] if len(rows) == 1
+                                        else np.concatenate(rows))
+            return
+        if isinstance(mapper, GeoPointFieldMapper) \
+                and isinstance(value, (list, tuple)) and len(value) == 2 \
+                and all(isinstance(v, (int, float))
+                        and not isinstance(v, bool) for v in value):
+            values = [value]     # one [lon, lat] point
+        else:
+            values = value if isinstance(value, list) else [value]
+        subs = self._multi_fields.get(path, {})
+        for v in values:
+            if v is None:
+                continue
+            try:
+                self._index_one(path, mapper, v, parsed)
+            except MapperParsingError:
+                # ignore_malformed: drop the unparseable value, keep the
+                # doc; the field lands in the searchable `_ignored` field
+                if not mapper.params.get("ignore_malformed"):
+                    raise
+                ignored = parsed.doc_values.setdefault("_ignored", [])
+                if path not in ignored:
+                    ignored.append(path)
+                    parsed.terms.setdefault("_ignored", []).append(path)
+                continue
+            for sub_name, sub in subs.items():
+                self._index_one(f"{path}.{sub_name}", sub, v, parsed)
+        if isinstance(mapper, RankFeaturesFieldMapper) \
+                and isinstance(parsed.doc_values.get(path), dict):
+            fmap = parsed.doc_values.pop(path)
+            parsed.features[path] = (list(fmap), list(fmap.values()))
+
     @staticmethod
-    def _index_one(field: str, mapper: FieldMapper, v: Any,
+    def _index_one(path: str, mapper: FieldMapper, v: Any,
                    parsed: "ParsedFields") -> None:
         if isinstance(mapper, TextFieldMapper):
             # a later value of a multi-valued field continues the
             # positions where the one before ended
             tokens = mapper.analyze_positions(v)
-            base = parsed.field_lengths.get(field, 0)
-            parsed.terms.setdefault(field, []).extend([t[0] for t in tokens])
-            parsed.term_positions.setdefault(field, []).extend(
+            base = parsed.field_lengths.get(path, 0)
+            parsed.terms.setdefault(path, []).extend([t[0] for t in tokens])
+            parsed.term_positions.setdefault(path, []).extend(
                 [base + t[1] for t in tokens])
-            parsed.field_lengths[field] = base + len(tokens)
+            parsed.field_lengths[path] = base + len(tokens)
             return
-        try:
-            terms = mapper.index_terms(v)
-            dv = mapper.doc_value(v)
-        except MapperParsingError:
-            # ignore_malformed: drop the unparseable value, keep the doc;
-            # the field lands in the searchable `_ignored` metadata field
-            if not mapper.params.get("ignore_malformed"):
-                raise
-            ignored = parsed.doc_values.setdefault("_ignored", [])
-            if field not in ignored:
-                ignored.append(field)
-                parsed.terms.setdefault("_ignored", []).append(field)
-            return
+        # the terms land before the doc value is read, so they stay when
+        # it then fails, as in the reference (an `ignore_malformed`
+        # date_nanos keeps them)
+        terms = mapper.index_terms(v)
         if terms:
-            parsed.terms.setdefault(field, []).extend(terms)
+            parsed.terms.setdefault(path, []).extend(terms)
+        dv = mapper.doc_value(v)
         if dv is not None:
-            existing = parsed.doc_values.get(field)
+            existing = parsed.doc_values.get(path)
             if existing is None:
-                parsed.doc_values[field] = dv
+                parsed.doc_values[path] = dv
             elif isinstance(existing, list):
                 existing.append(dv)
             else:
-                parsed.doc_values[field] = [existing, dv]
+                parsed.doc_values[path] = [existing, dv]
+
+    def _map_dynamic(self, path: str, value: Any) -> Optional[FieldMapper]:
+        """Map an unmapped path from its value, under the lock: a field
+        another writer mapped first is used as it mapped it. A dynamic
+        text field gets the `keyword` sub-field."""
+        with self._writing():
+            mapper = self._mappers.get(path)
+            if mapper is not None:
+                return mapper
+            mapper = self._dynamic_mapper(path, value)
+            if mapper is None:
+                return None
+            self._put(path, mapper)
+            if isinstance(mapper, TextFieldMapper):
+                self._put_multi_field(path, "keyword", KeywordFieldMapper(
+                    f"{path}.keyword", {"ignore_above": 256}))
+            return mapper
+
+    def _dynamic_mapper(self, path: str, value: Any) -> Optional[FieldMapper]:
+        probe = value[0] if isinstance(value, list) and value else value
+        if isinstance(probe, bool):
+            return BooleanFieldMapper(path, {})
+        if isinstance(probe, int):
+            return LongFieldMapper(path, {})
+        if isinstance(probe, float):
+            return FloatFieldMapper(path, {})
+        if isinstance(probe, str):
+            if re.match(r"\d{4}-\d{2}-\d{2}", probe):
+                try:
+                    parse_date_millis(probe)
+                except MapperParsingError:
+                    pass
+                else:
+                    return DateFieldMapper(path, {})
+            return TextFieldMapper(path, {}, registry=self.registry)
+        return None
 
 
 class ParsedFields:
@@ -548,7 +1155,8 @@ class ParsedFields:
     doc value (a scalar, or a list for a multi-valued field); for text
     fields, field -> each term's position (parallel to its terms) and
     field -> token count; for a feature-map field holding one map, field ->
-    (its keys, its weights as floats), in the map's order."""
+    (its keys, its weights as floats), in the map's order. Fields are
+    dotted paths."""
 
     __slots__ = ("vectors", "terms", "doc_values", "term_positions",
                  "field_lengths", "features")

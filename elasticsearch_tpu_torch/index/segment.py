@@ -14,10 +14,12 @@ blocks when a hit or a GET reads it.
 Rows are int64 throughout: a multi-shard index's combined reader rebases
 each shard's segments by shard_id * 2^40 (`indices/service.py`).
 
-Keyword, numeric and boolean fields keep term postings (ascending local
-doc ids and term frequencies) and a doc-values column (the values, and
-for numerics a float64 view with a presence mask), which the filter
-queries (`search/queries.py`) read. Text fields keep term postings with
+Keyword, numeric, boolean, date and ip fields keep term postings
+(ascending local doc ids and term frequencies) and a doc-values column
+(the values, and for numbers, dates and addresses a float64 view with a
+presence mask), which the filter queries (`search/queries.py`) read; a
+geo point keeps its (lat, lon) and a range type its {gte, lte} interval
+as plain values. Fields are dotted paths. Text fields keep term postings with
 each occurrence's position, and each document's field length (its token
 count) with the segment's total, which BM25 (`search/queries.py`,
 `ops/bm25.py`) reads through the reader's statistics. Feature-map fields

@@ -55,7 +55,7 @@ from elasticsearch_tpu_torch.indices.service import (  # noqa: F401
     validate_index_name, validate_knn_settings,
 )
 from elasticsearch_tpu_torch.search.caches import (
-    NodeCaches, can_match, reader_fingerprint,
+    NodeCaches, can_match, has_range_clauses, reader_fingerprint,
 )
 from elasticsearch_tpu_torch.search.hybrid_plan import (
     HybridExecutor, sub_queries_of,
@@ -885,8 +885,8 @@ class Node:
         for svc in services:
             reader = svc.combined_reader()
             if pre_filter_shard_size is not None \
-                    and body.get("query") is not None \
-                    and not can_match(reader, body):
+                    and has_range_clauses(body.get("query")) \
+                    and not can_match(reader, body, svc.mapper_service):
                 skipped += svc.num_shards
                 continue
             result = self._query_phase(svc, reader, body)

@@ -14,8 +14,8 @@
   clause whose `to_dict` leaves out an option that changes its rows is
   not cached (`search/queries.py::Query.key_is_exact`).
 - **can_match**: do the query's required range clauses overlap the
-  shard's field min/max? A provably empty index is skipped before its
-  query phase.
+  shard's field min/max (a date bound read through the field's mapper)?
+  A provably empty index is skipped before its query phase.
 
 Every cache is an entry-count LRU shared by the node's indices.
 """
@@ -30,6 +30,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 
 from elasticsearch_tpu_torch.columnar.blocks import fingerprint
+from elasticsearch_tpu_torch.index.mapping import parse_date_millis
 
 
 def _approx_bytes(value: Any, _depth: int = 0) -> int:
@@ -244,15 +245,23 @@ def _iter_range_clauses(query: Optional[dict]):
             yield from _iter_range_clauses(spec.get("filter"))
 
 
-def _to_number(value) -> Optional[float]:
-    """A range bound as a number, None when it is not one. The reference
-    also reads date strings here, rounded by the field's mapper; the port
-    maps no `date` field yet (ROADMAP queue 1 item 8)."""
+def _to_number(value, mapper_service, field: str,
+               round_up: bool = False) -> Optional[float]:
+    """A range bound as a number, None when it is not one. A string bound
+    on a `date` field is read as `RangeQuery` reads it (date math, and an
+    upper bound rounded up to the end of its unit), so can_match never
+    skips a shard the query would hit."""
     if isinstance(value, bool):
         return None
     if isinstance(value, (int, float)):
         return float(value)
     if isinstance(value, str):
+        mapper = mapper_service.get(field) if mapper_service else None
+        if getattr(mapper, "type_name", None) == "date":
+            try:
+                return float(parse_date_millis(value, round_up=round_up))
+            except Exception:
+                return None
         try:
             return float(value)
         except ValueError:
@@ -260,10 +269,17 @@ def _to_number(value) -> Optional[float]:
     return None
 
 
-def can_match(reader, body: dict) -> bool:
+def has_range_clauses(query: Optional[dict]) -> bool:
+    """Whether the query has a range clause that constrains it whole (a
+    must / filter one): the bodies can_match can prove empty."""
+    return next(_iter_range_clauses(query), None) is not None
+
+
+def can_match(reader, body: dict, mapper_service=None) -> bool:
     """True unless a required range clause provably excludes every live
     doc of the reader (field max < gte, or field min > lte). Anything
-    unparseable means "might match"."""
+    unparseable means "might match"; without a mapping a date string
+    is."""
     query = body.get("query")
     for field, bounds in _iter_range_clauses(query):
         stats = field_stats(reader, field)
@@ -274,8 +290,11 @@ def can_match(reader, body: dict) -> bool:
                 return False
             continue
         fmin, fmax = stats
-        gte = _to_number(bounds.get("gte", bounds.get("gt")))
-        lte = _to_number(bounds.get("lte", bounds.get("lt")))
+        gte = _to_number(bounds.get("gte", bounds.get("gt")), mapper_service,
+                         field, round_up="gte" not in bounds
+                         and "gt" in bounds)
+        lte = _to_number(bounds.get("lte", bounds.get("lt")), mapper_service,
+                         field, round_up="lte" in bounds)
         if gte is not None:
             if "gt" in bounds and "gte" not in bounds:
                 if fmax <= gte:

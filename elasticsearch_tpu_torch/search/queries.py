@@ -8,9 +8,14 @@ Every query evaluates vectorized on the host:
 Boolean composition is set algebra on sorted row arrays with score
 summing (`native.intersect_sorted` / `native.union_sum`), with the
 reference's query/filter-context semantics (filter and must_not clauses
-never score). Term-level queries on keyword, numeric and boolean fields
-score their constant boost; they read the segments' term postings, and
-numeric ranges read the float64 doc-values column. Text queries score
+never score). Term-level queries on keyword, numeric, boolean, date and
+ip fields score their constant boost; they read the segments' term
+postings, and numeric, date and ip ranges read the float64 doc-values
+column (bounds in the field's unit: date math and rounding for dates,
+the 128-bit space for addresses). On a range type `term` is membership
+and `range` an interval relation (`intersects`, `within`, `contains`),
+each a scan of the stored intervals; `exists` on an object matches
+where any of its fields exists. Text queries score
 BM25 (k1 = 1.2, b = 0.75) as the reference does:
 
     idf   = ln(1 + (N - df + 0.5) / (df + 0.5))
@@ -57,7 +62,9 @@ from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentError, ParsingError, QueryShardError,
 )
 from elasticsearch_tpu_torch.index.mapping import (
-    BooleanFieldMapper, MapperService, TextFieldMapper, _NumericMapper,
+    BooleanFieldMapper, DateFieldMapper, DateNanosFieldMapper, IpFieldMapper,
+    MapperService, RangeFieldMapperBase, TextFieldMapper, _NumericMapper,
+    parse_date_millis, parse_date_nanos,
 )
 from elasticsearch_tpu_torch.index.segment import ShardReader
 
@@ -243,6 +250,11 @@ class TermQuery(Query):
         if self.field == "_id":
             return _constant(_id_rows(ctx, [self.value]), self.boost)
         mapper = ctx.mapper_service.get(self.field)
+        if isinstance(mapper, RangeFieldMapperBase):
+            # membership: the value lies inside the stored interval
+            v = mapper.query_bound(self.value)
+            return _scan_range_docs(ctx, self.field,
+                                    lambda lo, hi: lo <= v <= hi, self.boost)
         if isinstance(mapper, TextFieldMapper):
             # a term on a text field matches its token as given, BM25
             rows, freqs = _sorted_postings(ctx, self.field, str(self.value))
@@ -481,39 +493,112 @@ def _str_in_range(v, gte, gt, lte, lt) -> bool:
     return True
 
 
+def _scan_range_docs(ctx: SearchContext, field: str, predicate,
+                     boost: float) -> DocSet:
+    """The live docs holding a range-type value (a multi-valued doc: any
+    of them) whose stored interval [gte, lte] satisfies predicate(lo,
+    hi)."""
+    parts = []
+    for view in ctx.reader.views:
+        seg = view.segment
+        col = seg.doc_values.get(field)
+        if col is None:
+            continue
+        locs = [i for i in np.nonzero(col.present & view.live)[0]
+                if any(isinstance(x, dict)
+                       and predicate(x.get("gte", -np.inf),
+                                     x.get("lte", np.inf))
+                       for x in (col.values[i]
+                                 if isinstance(col.values[i], list)
+                                 else [col.values[i]]))]
+        if locs:
+            parts.append(np.asarray(locs, dtype=np.int64) + seg.base)
+    if not parts:
+        return DocSet.empty()
+    return _constant(np.sort(np.concatenate(parts)), boost)
+
+
 class RangeQuery(Query):
     """Numeric bounds over the float64 doc-values column (a multi-valued
-    doc compares its first value, as in the reference); string bounds
-    over the string doc values of a keyword field."""
+    doc compares its first value, as in the reference), each bound in the
+    field's unit: epoch millis for `date` (date math, `now`, a gt / lte
+    bound rounded up to the end of its unit), epoch nanos for
+    `date_nanos`, the 128-bit integer for `ip`. On a range type the query
+    interval meets each stored one under `relation` (`intersects`,
+    `within`, `contains`). String bounds compare the string doc values of
+    a keyword or unmapped field; an unparseable bound on a typed field is
+    the reference's 400."""
 
     def __init__(self, field: str, gte=None, gt=None, lte=None, lt=None,
-                 boost: float = 1.0):
+                 boost: float = 1.0, relation: str = "intersects"):
         self.field = field
         self.gte, self.gt, self.lte, self.lt = gte, gt, lte, lt
         self.boost = boost
+        self.relation = relation
+
+    def _coerce_bound(self, mapper, value, round_up: bool = False) -> float:
+        if isinstance(mapper, DateNanosFieldMapper):
+            if isinstance(value, str) and ("||" in value
+                                           or value.startswith("now")
+                                           or round_up):
+                return float(parse_date_millis(value, round_up=round_up)
+                             * 1_000_000)
+            return float(parse_date_nanos(value))
+        if isinstance(mapper, DateFieldMapper):
+            # a custom pattern with names parses through the mapper
+            fmt = str(mapper.params.get("format", ""))
+            if isinstance(value, str) and fmt \
+                    and ("E" in fmt or "MMM" in fmt):
+                try:
+                    return float(mapper._parse(value))
+                except Exception:
+                    pass
+            return float(parse_date_millis(value, round_up=round_up))
+        if isinstance(mapper, IpFieldMapper):
+            return float(mapper.coerce(value))
+        if isinstance(mapper, RangeFieldMapperBase):
+            return mapper.query_bound(value, round_up=round_up)
+        return float(value)
 
     def execute(self, ctx: SearchContext) -> DocSet:
+        mapper = ctx.mapper_service.get(self.field)
         lo, hi = -np.inf, np.inf
         lo_inc = hi_inc = True
         numeric_bounds = True
         try:
             if self.gte is not None:
-                lo = float(self.gte)
+                lo = self._coerce_bound(mapper, self.gte)
             if self.gt is not None:
-                lo, lo_inc = float(self.gt), False
+                lo, lo_inc = self._coerce_bound(mapper, self.gt,
+                                                round_up=True), False
             if self.lte is not None:
-                hi = float(self.lte)
+                hi = self._coerce_bound(mapper, self.lte, round_up=True)
             if self.lt is not None:
-                hi, hi_inc = float(self.lt), False
+                hi, hi_inc = self._coerce_bound(mapper, self.lt), False
         except (ValueError, TypeError) as e:
-            # on a numeric or boolean field an unparseable bound is the
-            # caller's error; keyword and unmapped fields compare strings
-            if isinstance(ctx.mapper_service.get(self.field),
-                          (_NumericMapper, BooleanFieldMapper)):
+            # on a typed field an unparseable bound is the caller's error;
+            # keyword and unmapped fields compare strings
+            if isinstance(mapper, (_NumericMapper, DateFieldMapper,
+                                   IpFieldMapper, RangeFieldMapperBase,
+                                   BooleanFieldMapper)):
                 raise IllegalArgumentError(
                     f"failed to parse range bound on field "
                     f"[{self.field}]: {e}")
             numeric_bounds = False
+
+        if isinstance(mapper, RangeFieldMapperBase):
+            step = mapper.discrete
+            qlo = lo if lo_inc else (lo + 1 if step
+                                     else float(np.nextafter(lo, np.inf)))
+            qhi = hi if hi_inc else (hi - 1 if step
+                                     else float(np.nextafter(hi, -np.inf)))
+            if self.relation == "within":       # stored inside the query
+                pred = lambda slo, shi: slo >= qlo and shi <= qhi
+            elif self.relation == "contains":   # stored around the query
+                pred = lambda slo, shi: slo <= qlo and shi >= qhi
+            else:                               # intersects
+                pred = lambda slo, shi: slo <= qhi and shi >= qlo
+            return _scan_range_docs(ctx, self.field, pred, self.boost)
 
         parts = []
         for view in ctx.reader.views:
@@ -547,6 +632,10 @@ class RangeQuery(Query):
             if v is not None:
                 body[k] = v
         return {"range": {self.field: body}}
+
+    def key_is_exact(self) -> bool:
+        # the form leaves out the relation
+        return self.relation == "intersects"
 
 
 class ExistsQuery(Query):
@@ -582,9 +671,10 @@ class ExistsQuery(Query):
             locs = np.nonzero(mask & view.live)[0]
             if len(locs):
                 parts.append(locs.astype(np.int64) + seg.base)
-        if not parts and ctx.mapper_service.get(field) is not None:
-            # a mapped field without a live column value: the stored
-            # sources say which docs hold it
+        if not parts and (ctx.mapper_service.get(field) is not None
+                          or ctx.mapper_service.maps_object(field)):
+            # a mapped field or object without a live column value: the
+            # stored sources say which docs hold it
             parts = [self._source_walk(ctx, field.split("."))]
         rows = np.concatenate(parts) if parts else np.zeros(0, np.int64)
         return _constant(np.sort(rows), self.boost)
@@ -912,7 +1002,8 @@ def parse_query(body: Optional[dict]) -> Query:
         field, v = _single(spec, "range")
         return RangeQuery(field, gte=v.get("gte", v.get("from")),
                           gt=v.get("gt"), lte=v.get("lte", v.get("to")),
-                          lt=v.get("lt"), boost=float(v.get("boost", 1.0)))
+                          lt=v.get("lt"), boost=float(v.get("boost", 1.0)),
+                          relation=v.get("relation", "intersects").lower())
     if kind == "exists":
         return ExistsQuery(spec["field"])
     if kind == "ids":

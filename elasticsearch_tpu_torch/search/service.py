@@ -32,6 +32,7 @@ rows.
 
 from __future__ import annotations
 
+import datetime as _dt
 import fnmatch
 import re
 from typing import Any, Dict, List, Optional, Tuple
@@ -378,8 +379,8 @@ def apply_rescore(ctx: SearchContext, rows, scores, rescore_spec):
 
 def normalize_sort(sort) -> Optional[List[Tuple[str, str, dict]]]:
     """[(field, order, spec)], or None for the score sort (no sort, or
-    `_score` alone). A script sort and `numeric_type` are 400s until the
-    script module and the date types are ported."""
+    `_score` alone). A script sort is a 400 until the script module is
+    ported."""
     if sort is None:
         return None
     if isinstance(sort, (str, dict)):
@@ -401,10 +402,6 @@ def normalize_sort(sort) -> Optional[List[Tuple[str, str, dict]]]:
             if isinstance(spec, str):
                 out.append((field, spec, {}))
             else:
-                if "numeric_type" in spec:
-                    raise not_ported(
-                        "numeric_type", "it converts between the date "
-                                        "types, which are not ported")
                 out.append((field, spec.get(
                     "order", "asc" if field != "_score" else "desc"), spec))
         else:
@@ -470,13 +467,15 @@ class SortColumn:
     """One sort clause over the matched rows: its `kind` (`score`, `doc`,
     `num` or `str`), its lexsort key (f64, the order applied, missing
     placed), and what `search_after` and the sort tuples read: for `num`
-    the values and presence, for `str` the values (None when missing)."""
+    the values and presence (and `scale`, the `numeric_type` conversion:
+    "to_millis" reads a date_nanos field as date, "to_nanos" a date field
+    as date_nanos), for `str` the values (None when missing)."""
 
     __slots__ = ("field", "direction", "kind", "key", "nums", "present",
-                 "integral", "strs")
+                 "integral", "strs", "scale")
 
     def __init__(self, field, direction, kind, key, nums=None, present=None,
-                 integral=False, strs=None):
+                 integral=False, strs=None, scale=None):
         self.field = field
         self.direction = direction
         self.kind = kind
@@ -485,6 +484,7 @@ class SortColumn:
         self.present = present
         self.integral = integral
         self.strs = strs
+        self.scale = scale
 
     def compare_values(self, rows, scores, idx):
         """The values `search_after` compares at positions idx: f64 with
@@ -494,7 +494,11 @@ class SortColumn:
         if self.kind == "doc":
             return rows[idx].astype(np.float64)
         if self.kind == "num":
-            return np.where(self.present[idx], self.nums[idx], _MISSING_LAST)
+            nums = self.nums[idx]
+            if self.scale == "to_millis":
+                # the sort value is the integral millis, floored
+                nums = np.floor(nums)
+            return np.where(self.present[idx], nums, _MISSING_LAST)
         return self.strs[idx]
 
 
@@ -504,7 +508,9 @@ def sort_columns(ctx: SearchContext, rows, scores,
     doc-values columns as the reference's `_sort_docs` builds its keys: a
     field is numeric when a row holds a number or its type is numeric (a
     missing value by `missing`: `_last`, `_first` or a number), else its
-    strings sort by rank."""
+    strings sort by rank. `numeric_type: date` reads a date_nanos field in
+    millis and `date_nanos` a date field in nanos, so indices of both
+    types sort in one unit; any other `numeric_type` changes nothing."""
     out = []
     for field, direction, spec in sort_spec:
         asc = direction == "asc"
@@ -521,6 +527,11 @@ def sort_columns(ctx: SearchContext, rows, scores,
         mapper = ctx.mapper_service.get(field)
         tname = getattr(mapper, "type_name", None)
         nums, present = numeric_values(ctx.reader, rows, field)
+        ntype, scale = spec.get("numeric_type"), None
+        if ntype == "date" and tname == "date_nanos":
+            nums, scale = nums / 1e6, "to_millis"
+        elif ntype == "date_nanos" and tname == "date":
+            nums, scale = nums * 1e6, "to_nanos"
         if present.any() or mapper is None or tname in _NUMERIC_TYPES:
             missing = spec.get("missing", "_last")
             fill = _MISSING_LAST if (missing == "_last") == asc \
@@ -531,7 +542,7 @@ def sort_columns(ctx: SearchContext, rows, scores,
             vals = np.where(present, nums, fill)
             out.append(SortColumn(field, direction, "num",
                                   vals if asc else -vals, nums, present,
-                                  tname in _INTEGRAL_TYPES))
+                                  tname in _INTEGRAL_TYPES, scale=scale))
             continue
         strs = object_values(ctx.reader, rows, field)
         has = np.asarray([s is not None for s in strs], dtype=bool)
@@ -581,7 +592,12 @@ def sort_tuples(reader: ShardReader, columns: List[SortColumn], rows,
                     raw = _first(reader.get_doc_value(c.field,
                                                       int(rows[j])))
                     if isinstance(raw, (int, float)):
-                        vals.append(int(raw))
+                        rv = int(raw)
+                        if c.scale == "to_millis":
+                            rv //= 1_000_000
+                        elif c.scale == "to_nanos":
+                            rv *= 1_000_000
+                        vals.append(rv)
                         continue
                 vals.append(float(c.nums[j]))
             per_column.append(vals)
@@ -814,20 +830,89 @@ def _docvalue_fields(reader: ShardReader, mapper_service, specs,
         else:
             v = reader.get_doc_value(name, row)
         if v is not None:
+            mapper = mapper_service.get(name)
             fields.setdefault(name, []).extend(
-                format_doc_value(x, fmt)
+                format_doc_value(x, mapper, fmt)
                 for x in (v if isinstance(v, list) else [v]))
     return fields
 
 
-def format_doc_value(v, fmt):
-    """A doc value as `docvalue_fields` renders it: a number under a
-    DecimalFormat pattern (`#.0`) formatted, anything else as it is (the
-    date formats wait for the date types)."""
+def format_doc_value(v, mapper, fmt):
+    """A doc value as `docvalue_fields` renders it: a `date` or
+    `date_nanos` value as an ISO string (millis, or nanos with trailing
+    zeros cut, for date_nanos), or under its format (`epoch_millis`,
+    `strict_date_optional_time`, a nanosecond pattern, or a joda pattern
+    such as `yyyy-MM-dd`); a number under a DecimalFormat pattern (`#.0`)
+    formatted; anything else (an `ip` too) as it is stored."""
+    tname = getattr(mapper, "type_name", None)
+    if tname in ("date", "date_nanos") and isinstance(v, (int, float)):
+        raw = int(v)     # nanos for date_nanos, else millis
+        millis = raw // 1_000_000 if tname == "date_nanos" else raw
+        if fmt == "epoch_millis":
+            if tname == "date_nanos":
+                return f"{raw // 1_000_000}.{raw % 1_000_000:06d}"
+            return str(raw)
+        if fmt and "SSSSSSSSS" in fmt:
+            if tname == "date_nanos":
+                return _nanos_to_iso(raw, 9)
+            iso = _millis_to_iso(millis)
+            return iso[:-1] + "000000Z" if iso.endswith("Z") else iso
+        if fmt == "strict_date_optional_time":
+            return _millis_to_iso(millis)
+        if fmt:
+            return _format_date_key(millis, fmt)
+        if tname == "date_nanos":
+            return _nanos_to_iso(raw, 9, strip=True)
+        return _millis_to_iso(millis)
     if fmt and isinstance(v, (int, float)) and not isinstance(v, bool) \
             and any(c in fmt for c in "#0"):
         return _decimal_format(v, fmt)
     return v
+
+
+def _nanos_to_iso(nanos: int, digits: int, strip: bool = False) -> str:
+    """Epoch nanos as `yyyy-MM-ddTHH:mm:ss.fffffffffZ` (`digits` fraction
+    digits; `strip` cuts trailing zeros down to two)."""
+    base = _dt.datetime.fromtimestamp(nanos // 1_000_000_000,
+                                      _dt.timezone.utc)
+    fs = f".{nanos % 1_000_000_000:09d}"[: digits + 1]
+    if strip:
+        fs = fs.rstrip("0").ljust(2, "0")
+    return base.strftime("%Y-%m-%dT%H:%M:%S") + fs + "Z"
+
+
+def _millis_to_iso(millis: int) -> str:
+    """Epoch millis as `yyyy-MM-ddTHH:mm:ss.SSSZ` (the raw number when
+    out of range), read through a float of seconds as the reference
+    reads it."""
+    try:
+        d = _dt.datetime.fromtimestamp(millis / 1000.0, tz=_dt.timezone.utc)
+    except (OverflowError, OSError, ValueError):
+        return str(millis)
+    return d.strftime("%Y-%m-%dT%H:%M:%S.") + f"{d.microsecond // 1000:03d}Z"
+
+
+def _format_date_key(millis: int, fmt: str) -> str:
+    """Epoch millis under a named format (`iso8601`, `strict_date_time`,
+    `date_time`, `epoch_millis`), `e` (the ISO day of the week) or a joda
+    pattern of yyyy, MM, dd, HH, mm, ss and SSS, in UTC."""
+    if fmt in ("iso8601", "strict_date_time", "date_time"):
+        return _millis_to_iso(millis)
+    if fmt == "epoch_millis":
+        return str(millis)
+    try:
+        d = _dt.datetime.fromtimestamp(millis / 1000.0, tz=_dt.timezone.utc)
+    except (OverflowError, OSError, ValueError):
+        return str(millis)
+    if fmt == "e":
+        return str(d.isoweekday())
+    strf = (fmt.replace("yyyy", "%Y").replace("MM", "%m")
+            .replace("dd", "%d").replace("HH", "%H").replace("mm", "%M")
+            .replace("ss", "%S"))
+    out = d.strftime(strf)
+    if "SSS" in out:
+        out = out.replace("SSS", f"{d.microsecond // 1000:03d}")
+    return out
 
 
 def _decimal_format(value, pattern: str) -> str:

@@ -1344,3 +1344,78 @@ def test_search_body_on_cuda_matches_cpu(cuda, monkeypatch, shards):
             _, want = _req(crc, "POST", path, body)
             assert [h["_id"] for h in got["hits"]["hits"]] == \
                 [h["_id"] for h in want["hits"]["hits"]], path
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 2])
+def test_date_and_ip_filtered_knn_on_cuda_matches_cpu(cuda, monkeypatch,
+                                                       shards):
+    """kNN bodies filtered by a `date` range (ISO bounds, date math with
+    rounding), an `ip` range, a date range with `exists` on an object and
+    a dynamic date field through a CUDA node and a CPU node: the mask the
+    new filters build takes the exact route on the card (no binned
+    launch), every hit inside its filter, and the hits equal the CPU
+    node's (scores within 1e-3 and ids where the scores are clear of
+    ties, as the other node-pair cases hold them)."""
+    pair = _doc_pair(cuda, monkeypatch)
+    rng = np.random.default_rng(61 + shards)
+    n, d = 3000, 32
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    day0 = 893_894_400                      # 1998-04-30T00:00:00Z
+    ts = day0 + np.sort(rng.integers(0, 30 * 86_400, n))
+    ips = rng.integers(0, 1 << 32, n)
+    mapping = {"properties": {
+        "v": {"type": "dense_vector", "dims": d, "similarity": "cosine"},
+        "@timestamp": {"type": "date",
+                       "format": "strict_date_optional_time||epoch_second"},
+        "clientip": {"type": "ip"},
+        "geo": {"properties": {"city": {"type": "keyword"}}}}}
+
+    def ipv4(v):
+        v = int(v)
+        return f"{v >> 24}.{v >> 16 & 255}.{v >> 8 & 255}.{v & 255}"
+
+    for node, rc in pair:
+        assert _req(rc, "PUT", "/logs", {
+            "settings": {"number_of_shards": shards},
+            "mappings": mapping})[0] == 200
+        sources = [{"@timestamp": int(ts[i]), "clientip": ipv4(ips[i]),
+                    **({"geo": {"city": "Paris"}} if i % 3 else {}),
+                    "seen": f"1998-05-{1 + i % 28:02d}"} for i in range(n)]
+        node.index("logs").index_many([str(i) for i in range(n)], sources,
+                                      vectors={"v": vecs})
+        assert _req(rc, "POST", "/logs/_refresh")[0] == 200
+    (_, grc), (_, crc) = pair
+    lo_ip = int(np.quantile(ips, 0.3))
+    cases = [
+        ({"range": {"@timestamp": {"gte": "1998-05-03T00:00:00Z",
+                                   "lt": "1998-05-10T00:00:00Z"}}},
+         (ts >= day0 + 3 * 86_400) & (ts < day0 + 10 * 86_400)),
+        ({"range": {"@timestamp": {"gt": "1998-05-03||/d",
+                                   "lte": "1998-05-04||+1d/d"}}},
+         (ts >= day0 + 4 * 86_400) & (ts < day0 + 6 * 86_400)),
+        ({"range": {"clientip": {"gte": ipv4(lo_ip),
+                                 "lt": ipv4(lo_ip + (1 << 29))}}},
+         (ips >= lo_ip) & (ips < lo_ip + (1 << 29))),
+        ({"bool": {"filter": [
+            {"exists": {"field": "geo"}},
+            {"range": {"seen": {"gte": "1998-05-10", "lte": "1998-05-20"}}},
+            {"range": {"@timestamp": {"gte": "1998-05-02T00:00:00Z"}}}]}},
+         (np.arange(n) % 3 != 0) & np.isin(np.arange(n) % 28 + 1,
+                                           np.arange(10, 21))
+         & (ts >= day0 + 86_400)),
+    ]
+    for filt, passing in cases:
+        assert passing.sum() > 10
+        for q in rng.standard_normal((4, d)).astype(np.float32):
+            body = {"knn": {"field": "v", "query_vector": q.tolist(),
+                            "k": 10, "num_candidates": 50, "filter": filt},
+                    "size": 10, "_source": False}
+            dispatch.reset_launches()
+            s1, got = _req(grc, "POST", "/logs/_search", body)
+            assert s1 == 200, got
+            assert not dispatch.launches().get(kb.KERNEL_BF16), filt
+            _, want = _req(crc, "POST", "/logs/_search", body)
+            _same_hits(got, want, 1e-3)
+            ids = [int(h["_id"]) for h in got["hits"]["hits"]]
+            assert len(ids) == 10 and passing[ids].all(), filt

@@ -298,7 +298,7 @@ def test_unported_query_kind_is_a_400(nodes):
     assert resp["error"]["type"] == "parsing_exception"
     assert "[prefix] query is not supported" in resp["error"]["reason"]
     status, resp = port_req("PUT", "/t2", {"mappings": {"properties": {
-        "x": {"type": "date"}}}})
+        "x": {"type": "nested"}}}})
     assert status == 400
     assert resp["error"]["type"] == "mapper_parsing_exception"
 
