@@ -206,7 +206,24 @@ Phases, one line each; any failure raises and the exit code is not 0:
                `term` / `range` find what the documents hold; then two
                time-partitioned indices searched with
                `pre_filter_shard_size=1`, can_match skipping the one
-               whose dates miss the day. No kernel runs: host work only
+               whose dates miss the day; then aggregations (`size: 0`)
+               over the 500,000 lines and the pair: the track's
+               `hourly_agg` (a `date_histogram` by the hour), `terms` on
+               `status` with `stats` of `size`, a daily histogram with
+               `terms` under it, a `range` of `size` with `avg`,
+               `cardinality` of `clientip` at the top and a day, and
+               `percentiles`, `filters`, `missing` and `global` (host
+               nodes), and the `terms` body over the pair (partial
+               states): every count, sum, minimum and maximum equal to
+               numpy, each cardinality within three HLL standard errors
+               of numpy's exact count, each device-rung answer equal byte
+               for byte to the host path's, every eligible node on the
+               card (`aggs.*` torch ops, no hand kernel), a repeat of
+               `hourly_agg` through the request cache running no op; the
+               `[aggs]` line (column build, HTTP p50 a body on the device
+               rung and on the host path, the cost router's choice) and an
+               `[aggs_op]` line an op (time a call beside its byte bound
+               and, for `ord_counts`, `torch.bincount`)
 Every serve phase's node runs with `search.request_cache.device_paths`
 false (SERVE_SETTINGS): they send bodies more than once, and each must
 reach the card. Each IVF index answers one warm-up search first (the `nprobe: auto` tuner
@@ -5367,12 +5384,13 @@ def _leaf_paths(mapping: dict, prefix: str = ""):
 
 
 def logs_can_match(client, node, cols: dict, paths: list,
-                   n_each: int) -> None:
+                   n_each: int) -> dict:
     """Two time-partitioned indices (the first and the last N_LOGS_SPLIT
     lines, through `index_many` as the main index's bulk of lines): a
     day's range over both with `pre_filter_shard_size=1` skips
     the index whose dates miss the day (can_match reads the date bounds
-    through the mapping) and counts what numpy counts."""
+    through the mapping) and counts what numpy counts. The indices stay
+    for the aggregations; returns each one's line range."""
     n = len(cols["ts"])
     m = min(N_LOGS_SPLIT, n // 2)
     parts = {"logs_early": (0, m), "logs_late": (n - m, n)}
@@ -5404,8 +5422,301 @@ def logs_can_match(client, node, cols: dict, paths: list,
         skipped += resp["_shards"]["skipped"]
     log("serve_logs", can_match_requests=n_each, skipped_shards=skipped,
         can_match_p50_ms=f"{statistics.median(lat):.3f}")
-    for name in parts:
-        drop_index(client, name)
+    return parts
+
+
+LOGS_AGG_REPS = 5           # device-rung requests a body (the p50's)
+LOGS_AGG_HOST_REPS = 2      # host-path requests a body
+# a p=12 HLL's standard error is 1.04 / sqrt(4096) = 1.6%: a cardinality
+# may be off numpy's exact count by three of them
+HLL_REL_BOUND = 3 * 1.04 / math.sqrt(4096)
+LOGS_RANGES = [{"to": 1000}, {"from": 1000, "to": 10_000},
+               {"from": 10_000, "to": 100_000}, {"from": 100_000}]
+
+
+def logs_agg_bodies() -> dict:
+    """label -> (path, body, device nodes, host nodes) of the aggregation
+    part: a-f over `logs`, g over the can_match pair."""
+    def day(aggs):
+        return {"date_histogram": {"field": "@timestamp",
+                                   "calendar_interval": "day"},
+                "aggs": aggs}
+    status = {"status": {"terms": {"field": "status"},
+                         "aggs": {"size": {"stats": {"field": "size"}}}}}
+    ip = {"cardinality": {"field": "clientip"}}
+    bodies = {
+        "a": {"by_hour": {"date_histogram": {"field": "@timestamp",
+                                             "calendar_interval": "hour"}}},
+        "b": status,
+        "c": {"daily": day({"status": {"terms": {"field": "status"}}})},
+        "d": {"sizes": {"range": {"field": "size", "ranges": LOGS_RANGES},
+                        "aggs": {"avg": {"avg": {"field": "size"}}}}},
+        "e": {"ips": ip, "daily": day({"ips": ip})},
+        "f": {"pct": {"percentiles": {"field": "size"}},
+              "kinds": {"filters": {"filters": {
+                  "errors": {"range": {"status": {"gte": 400}}},
+                  "empty": {"term": {"size": 0}}}}},
+              "no_geo": {"missing": {"field": "geoip.city_name"}},
+              "all": {"global": {}, "aggs": {"max": {"max": {
+                  "field": "size"}}}}},
+    }
+    out = {k: ("/logs/_search", {"size": 0, "aggs": v}, len(v), 0)
+           for k, v in bodies.items()}
+    out["f"] = out["f"][:2] + (0, 4)
+    out["g"] = ("/logs_early,logs_late/_search",
+                {"size": 0, "aggs": status}, 2, 0)
+    return out
+
+
+def _stats_of(v: np.ndarray) -> dict:
+    return {"count": int(len(v)), "min": float(v.min()),
+            "max": float(v.max()), "avg": float(int(v.sum())) / len(v),
+            "sum": float(int(v.sum()))}
+
+
+def check_logs_aggs(label: str, aggs: dict, cols: dict, sel) -> float:
+    """Body `label`'s aggregations against numpy over the lines `sel`
+    (an index array); returns the largest relative cardinality error."""
+    ts, st, sz = cols["ts"][sel], cols["status"][sel], cols["size"][sel]
+
+    def expect(what, got, want):
+        if got != want:
+            raise AssertionError(f"serve_logs aggs {label} {what}: "
+                                 f"{str(got)[:300]}, numpy says "
+                                 f"{str(want)[:300]}")
+    worst = 0.0
+    if label == "a":
+        keys, counts = np.unique(ts // 3600 * 3_600_000, return_counts=True)
+        expect("by_hour", [(b["key"], b["doc_count"])
+                           for b in aggs["by_hour"]["buckets"]],
+               list(zip(keys.tolist(), counts.tolist())))
+    elif label in ("b", "g"):
+        codes, counts = np.unique(st, return_counts=True)
+        order = sorted(zip(codes.tolist(), counts.tolist()),
+                       key=lambda kc: (-kc[1], kc[0]))
+        expect("status", [(b["key"], b["doc_count"], b["size"])
+                          for b in aggs["status"]["buckets"]],
+               [(c, k, _stats_of(sz[st == c])) for c, k in order])
+    elif label == "c":
+        days = ts // 86_400
+        got = {(b["key"], s["key"]): s["doc_count"]
+               for b in aggs["daily"]["buckets"]
+               for s in b["status"]["buckets"]}
+        pairs, counts = np.unique(np.stack([days, st]), axis=1,
+                                  return_counts=True)
+        expect("daily status", got,
+               {(int(d) * 86_400_000, int(c)): int(k)
+                for (d, c), k in zip(pairs.T.tolist(), counts.tolist())})
+    elif label == "d":
+        want = []
+        for r in LOGS_RANGES:
+            m = (sz >= r.get("from", -np.inf)) & (sz < r.get("to", np.inf))
+            want.append((int(m.sum()), float(int(sz[m].sum())) / m.sum()))
+        expect("sizes", [(b["doc_count"], b["avg"]["value"])
+                         for b in aggs["sizes"]["buckets"]], want)
+    elif label == "e":
+        ip = cols["ip"][sel]
+        exact = [(aggs["ips"]["value"], len(np.unique(ip)))]
+        days = ts // 86_400
+        for b in aggs["daily"]["buckets"]:
+            d = b["key"] // 86_400_000
+            exact.append((b["ips"]["value"], len(np.unique(ip[days == d]))))
+        for got, want in exact:
+            err = abs(got - want) / max(want, 1)
+            worst = max(worst, err)
+            if err > HLL_REL_BOUND:
+                raise AssertionError(f"serve_logs aggs e: cardinality {got}"
+                                     f", numpy's exact count {want}")
+    elif label == "f":
+        kinds = aggs["kinds"]["buckets"]
+        expect("filters", (kinds["errors"]["doc_count"],
+                           kinds["empty"]["doc_count"]),
+               (int((st >= 400).sum()), int((sz == 0).sum())))
+        expect("missing", aggs["no_geo"]["doc_count"],
+               int((cols["city"][sel] < 0).sum()))
+        expect("global", (aggs["all"]["doc_count"],
+                          aggs["all"]["max"]["value"]),
+               (len(ts), float(sz.max())))
+    return worst
+
+
+def logs_aggs(client, node, cols: dict, parts: dict) -> dict:
+    """The aggregation part of serve_logs (`logs_agg_bodies`), each body
+    with the device rung forced (`search.aggs.cost_router` false), on the
+    host path (`search.aggs.device_enabled` false) and under the default
+    router, every request with `request_cache: false` but the cache
+    repeat. Returns the `aggs.*` op calls of the part."""
+    from elasticsearch_tpu_torch.ops import dispatch
+    n = len(cols["ts"])
+    svc = node.index("logs")
+    dev = node.device
+    launches0 = dispatch.launches()
+    node.settings.update({"search.aggs.device_enabled": "true",
+                          "search.aggs.cost_router": "false"})
+    # the columns the bodies read, built and uploaded once
+    engine = node._agg_engine(svc)
+    reader = svc.combined_reader()
+    t0 = time.perf_counter()
+    snap = engine.store.snapshot(reader)
+    for field, want_ords in (("@timestamp", False), ("status", True),
+                             ("size", False), ("clientip", True)):
+        engine.store.column(reader, field, want_ords=want_ords,
+                            snap=snap).device_arrays(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sel_of = {"g": np.concatenate([np.arange(*parts["logs_early"]),
+                                   np.arange(*parts["logs_late"])])}
+    line = {"column_build_s": f"{build_s:.3f}"}
+    worst = 0.0
+    for label, (path, body, n_dev, n_host) in logs_agg_bodies().items():
+        body = dict(body, request_cache=False)
+        lat = {"dev": [], "host": []}
+        answers = {}
+        for mode, reps in (("dev", LOGS_AGG_REPS),
+                           ("host", LOGS_AGG_HOST_REPS)):
+            node.settings["search.aggs.device_enabled"] = \
+                "true" if mode == "dev" else "false"
+            for _ in range(reps):
+                before = node.aggs_stats()
+                t = time.perf_counter()
+                resp = client.ok("POST", path, body)
+                lat[mode].append((time.perf_counter() - t) * 1e3)
+                after = node.aggs_stats()
+                if mode == "dev" and (
+                        after["device_nodes"] - before["device_nodes"]
+                        != n_dev
+                        or after["host_nodes"] - before["host_nodes"]
+                        != n_host):
+                    raise AssertionError(
+                        f"serve_logs aggs {label}: device nodes "
+                        f"{after['device_nodes'] - before['device_nodes']}"
+                        f", host nodes "
+                        f"{after['host_nodes'] - before['host_nodes']}, "
+                        f"want {n_dev} and {n_host}: "
+                        f"{after['fallback_reasons']}")
+                answers[mode] = json.dumps(resp["aggregations"],
+                                           sort_keys=True)
+        if answers["dev"] != answers["host"]:
+            raise AssertionError(f"serve_logs aggs {label}: the device "
+                                 f"rung's answer differs from the host "
+                                 f"path's")
+        worst = max(worst, check_logs_aggs(
+            label, json.loads(answers["dev"]), cols,
+            sel_of.get(label, np.arange(n))))
+        line[f"{label}_dev_p50_ms"] = f"{statistics.median(lat['dev']):.3f}"
+        line[f"{label}_host_p50_ms"] = \
+            f"{statistics.median(lat['host']):.3f}"
+    # hourly_agg through the request cache: the repeat hits, runs no op
+    node.settings["search.aggs.device_enabled"] = "true"
+    path, body, _, _ = logs_agg_bodies()["a"]
+    first = client.ok("POST", path, body)
+    before, ops_before = node.aggs_stats(), dispatch.launches()
+    hits = node.caches.request.stats()["hit_count"]
+    again = client.ok("POST", path, body)
+    if again["aggregations"] != first["aggregations"] \
+            or node.caches.request.stats()["hit_count"] != hits + 1 \
+            or node.aggs_stats()["device_nodes"] != before["device_nodes"] \
+            or dispatch.launches() != ops_before:
+        raise AssertionError("serve_logs aggs: the cached hourly_agg ran "
+                             "on the card or missed")
+    # the default cost router at this size: the device nodes of two
+    # requests a body against the eligible ones
+    node.settings["search.aggs.cost_router"] = "true"
+    routes = []
+    for label, (path, body, n_dev, _) in logs_agg_bodies().items():
+        before = node.aggs_stats()["device_nodes"]
+        for _ in range(2):
+            client.ok("POST", path, dict(body, request_cache=False))
+        routes.append(f"{label}:{node.aggs_stats()['device_nodes'] - before}"
+                      f"/{2 * n_dev}")
+    node.settings.update({"search.aggs.device_enabled": "true",
+                          "search.aggs.cost_router": "false"})
+    got = dispatch.launches()
+    calls = {k: got[k] - launches0.get(k, 0) for k in got
+             if k.startswith("aggs.") and got[k] != launches0.get(k, 0)}
+    if dev.type == "cuda" and not calls:
+        raise AssertionError("serve_logs aggs: no aggs.* op on the card")
+    log("aggs", **line, router_device_nodes=",".join(routes),
+        hll_worst_rel_err=f"{worst:.4f}",
+        hll_bound=f"{HLL_REL_BOUND:.4f}",
+        op_calls=json.dumps(calls, sort_keys=True).replace(" ", ""))
+    if dev.type == "cuda":
+        logs_agg_ops(engine, reader, snap, calls)
+    return calls
+
+
+def logs_agg_ops(engine, reader, snap, calls: dict) -> None:
+    """Each `aggs.*` op at the shapes the bodies gave it over every line
+    (match_all), timed a call with CUDA events beside its byte bound
+    (every row's inputs read once over the card's memory rate) and, for
+    `ord_counts`, one `torch.bincount` of the same lanes."""
+    from elasticsearch_tpu_torch.ops import aggs as ops
+    dev = engine.device
+    store = engine.store
+    r = snap.r_pad
+    mask = torch.from_numpy(snap.filter_mask(snap.row_map)).to(dev)
+    ts = store.column(reader, "@timestamp", snap=snap)
+    st = store.column(reader, "status", want_ords=True, snap=snap)
+    sz = store.column(reader, "size", snap=snap)
+    ip = store.column(reader, "clientip", want_hll=True, snap=snap)
+    tk, tp = ts.device_arrays(dev)[:2]
+    so = st.device_arrays(dev)[2]
+    sv, sp = sz.device_arrays(dev)[:2]
+    hidx, hrho = ip.device_arrays(dev)[3:]
+    b_st = ops.bucket_count(len(st.ord_keys))
+
+    def cal(unit):
+        real, _tz = engine._calendar_bounds("@timestamp", ts, unit, None,
+                                            0.0, 1.0)
+        b = ops.bucket_count(len(real))
+        cb = np.full(b, np.inf)
+        cb[:len(real)] = real
+        return torch.from_numpy(cb).to(dev), b
+    hour, b_hour = cal("H")
+    daycb, b_day = cal("D")
+    base = math.floor(sz.vmin / 10_000)
+    b_hist = ops.bucket_count(math.floor(sz.vmax / 10_000) - base + 1)
+    hp = (10_000.0, 0.0, float(base), 1.0, None)
+    bounds = np.full((8, 2), np.inf)
+    for i, rg in enumerate(LOGS_RANGES):
+        bounds[i] = (rg.get("from", -np.inf), rg.get("to", np.inf))
+    bt = torch.from_numpy(bounds).to(dev)
+    levels = [("cal", b_day, (tk, tp, daycb, (1.0, 0.0))),
+              ("ord", b_st, (so, False))]
+    lanes = torch.where(mask & (so >= 0), so.long(), b_st)
+    cases = {
+        "ord_counts": (lambda: ops.ord_counts(so, mask, b_st), 5,
+                       lambda: torch.bincount(lanes, minlength=b_st + 1)),
+        "ord_metric": (lambda: ops.ord_metric(so, mask, None, sv, sp, b_st),
+                       14, None),
+        "hist_counts": (lambda: ops.hist_counts(sv, sp, mask, hp, b_hist),
+                        10, None),
+        "hist_metric": (lambda: ops.hist_metric(sv, sp, mask, hp, None, sv,
+                                                sp, b_hist), 19, None),
+        "range_counts": (lambda: ops.range_counts(sv, sp, mask, bt, None),
+                         10, None),
+        "range_metric": (lambda: ops.range_metric(sv, sp, mask, bt, None,
+                                                  None, sv, sp), 19, None),
+        "cal_counts": (lambda: ops.cal_counts(tk, tp, mask, hour, (1.0, 0.0),
+                                              b_hour), 10, None),
+        "cal_metric": (lambda: ops.cal_metric(tk, tp, mask, hour, (1.0, 0.0),
+                                              None, sv, sp, b_hour), 19,
+                       None),
+        "tree_counts": (lambda: ops.tree_counts(mask, levels), 14, None),
+        "tree_metric": (lambda: ops.tree_metric(mask, None, sv, sp, levels),
+                        23, None),
+        "hll_board": (lambda: ops.hll_board(mask, hidx, hrho, levels[:1]),
+                      18, None),
+    }
+    for name, (fn, row_bytes, library) in cases.items():
+        ms = time_ms(fn, iters=10, warmup=2)
+        bound, _ = bound_ms(row_bytes * r, 0, 1.0)
+        log("aggs_op", name=f"aggs.{name}", rows=r,
+            launches=calls.get(f"aggs.{name}", 0), ms=f"{ms:.4f}",
+            bound_ms=f"{bound:.4f}", bound_by="bytes",
+            library_ms=(f"{time_ms(library, iters=10, warmup=2):.4f}"
+                        if library is not None else "null"))
 
 
 def phase_serve_logs(seed: int, n: int, device: str = "cuda",
@@ -5418,10 +5729,11 @@ def phase_serve_logs(seed: int, n: int, device: str = "cuda",
     `IndexService.index_many(sources=)`, one refresh. n_each requests of
     each LOGS_KINDS kind over HTTP, each answer held to numpy over the
     generated columns (`logs_requests`); then the dynamic index
-    (`logs_dynamic`) and the can_match pair (`logs_can_match`). Logged:
-    ingest seconds, the parse rate (lines a second through
-    `index_many`), the refresh, and the HTTP p50 of each kind. No kernel
-    runs here: every query is host work; returns no launches."""
+    (`logs_dynamic`), the can_match pair (`logs_can_match`) and the
+    aggregations over both (`logs_aggs`). Logged: ingest seconds, the
+    parse rate (lines a second through `index_many`), the refresh, the
+    HTTP p50 of each kind and the `[aggs]` line. No hand kernel runs here
+    (the aggregations are torch ops); returns no launches."""
     from elasticsearch_tpu_torch.server import build_server
     t0 = time.perf_counter()
     paths = logs_paths()
@@ -5473,9 +5785,14 @@ def phase_serve_logs(seed: int, n: int, device: str = "cuda",
         log("serve_logs", requests=sum(map(len, lat.values())),
             sort_pages=pages, **{f"{k}_p50_ms": f"{statistics.median(v):.3f}"
                                  for k, v in lat.items()})
-        drop_index(client, "logs")
+        parts = logs_can_match(client, node, cols, paths, n_each)
+        t = time.perf_counter()
+        logs_aggs(client, node, cols, parts)
+        log("timing", step="serve_logs_aggs",
+            seconds=f"{time.perf_counter() - t:.1f}")
+        for name in ["logs", *parts]:
+            drop_index(client, name)
         logs_dynamic(client, seed, n_dynamic)
-        logs_can_match(client, node, cols, paths, n_each)
     finally:
         server.stop()
     return {}

@@ -11,13 +11,18 @@ in CSR form: one array a field, not an array pair a term. A
 `sparse_vector`) field, the stored f32 weights in place of the freqs: the
 input of the learned-sparse layout (`ops/sparse.py`).
 
+A `ValuesBlock` is one segment's live doc values of one field as the
+aggregation store (`ops/aggs.py`) reads them: the f64 view, the presence
+mask, optionally the raw values, and whether any doc holds a list.
+
 A `TokenVectorBlock` is one segment's live token matrices of one field,
 metric-prepped and codec-encoded through `quant/tokens.py`, with the pooled
 per-doc centroids the coarse phase indexes. Blocks are immutable and keyed
 by `fingerprint(view, variant)`, which changes whenever the segment's live
 set does, so a refresh re-encodes only new or changed segments. The owner
-of the cache is the late-interaction field (`vectors/late_interaction.py`);
-there is no process-wide block store in the port.
+of each cache is its reader (`vectors/late_interaction.py` for tokens,
+`ops/aggs.py::AggFieldStore` for values); there is no process-wide block
+store in the port.
 """
 
 from __future__ import annotations
@@ -26,7 +31,9 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from elasticsearch_tpu_torch.index.segment import FeatureMapColumn
+from elasticsearch_tpu_torch.index.segment import (
+    FeatureMapColumn, numeric_view,
+)
 from elasticsearch_tpu_torch.quant import tokens as quant_tokens
 
 # tokens prepped and encoded per pass: bounds the f32 temporaries of a
@@ -231,3 +238,45 @@ def extract_sparse_postings_block(view, field: str) -> SparsePostingsBlock:
     return SparsePostingsBlock(
         fingerprint(view), names[has], live_starts,
         slot_of[docs[keep]].astype(np.int32), weights[keep], n_live)
+
+
+class ValuesBlock:
+    """One segment's live doc values of one field: `vals` f64 [n_live]
+    (NaN where absent), `present`, `objs` (the raw values, or None when
+    not asked for) and `multi_valued` (a doc holds a list)."""
+
+    __slots__ = ("fingerprint", "vals", "present", "objs", "multi_valued")
+
+    def __init__(self, fp: tuple, vals, present, objs, multi_valued: bool):
+        self.fingerprint = fp
+        self.vals = vals
+        self.present = present
+        self.objs = objs
+        self.multi_valued = multi_valued
+
+
+def extract_values_block(view, field: str, want_objs: bool) -> ValuesBlock:
+    """`search/service.py::numeric_values` over a segment's live docs: a
+    numeric column's f64 view, else `index/segment.py::numeric_view`."""
+    seg = view.segment
+    live_idx = np.nonzero(view.live)[0]
+    n_live = len(live_idx)
+    fp = fingerprint(view, (field, want_objs))
+    col = seg.doc_values.get(field)
+    vals = np.full(n_live, np.nan, dtype=np.float64)
+    present = np.zeros(n_live, dtype=bool)
+    objs = None
+    multi = False
+    if col is not None and n_live:
+        raw = col.values[live_idx]
+        multi = any(isinstance(v, list) for v in raw.tolist())
+        if want_objs:
+            objs = raw
+        if col.numeric is not None:
+            present[:] = col.present[live_idx]
+            vals[present] = col.numeric[live_idx][present]
+        else:
+            vals, present = numeric_view(raw.tolist())
+    elif want_objs:
+        objs = np.empty(n_live, dtype=object)
+    return ValuesBlock(fp, vals, present, objs, multi)

@@ -54,6 +54,11 @@ class MapperParsingError(SearchEngineError):
     status = 400
 
 
+class TooManyBucketsError(SearchEngineError):
+    """search.max_buckets exceeded (MultiBucketConsumerService)."""
+    status = 503
+
+
 class QueryShardError(SearchEngineError):
     """A query cannot run against this shard's mappings (e.g. `exists` on
     [_source])."""

@@ -38,6 +38,22 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 
+def numeric_view(values) -> Tuple[np.ndarray, np.ndarray]:
+    """(values f64, present) of raw doc values read as numbers: a list's
+    first value, a boolean as 1.0 or 0.0, anything else not a number
+    absent (NaN)."""
+    vals = np.full(len(values), np.nan, dtype=np.float64)
+    present = np.zeros(len(values), dtype=bool)
+    for j, x in enumerate(values):
+        if isinstance(x, list):
+            x = x[0] if x else None
+        if isinstance(x, bool):
+            x = 1.0 if x else 0.0
+        if isinstance(x, (int, float)):
+            vals[j], present[j] = float(x), True
+    return vals, present
+
+
 class DocValuesColumn:
     """Per-doc values of one field within one segment: `values` (object
     array, None = missing) and, when the field's first value is a number,

@@ -26,6 +26,20 @@ for a `size: 0` or opted-in body; the node query cache serves every
 search context's `bool` filter clauses. `_cache/clear` and the `query_cache` /
 `request_cache` index stats read them.
 
+Aggregations: the body's `aggs` are checked before any index runs
+(`validate_aggs`; a left-out kind is a 400 that names it), each index
+computes them in its query phase (final JSON for one index, partial
+states over several, merged and finalized here), and a `global` or
+`min_doc_count: 0` aggregation turns the can_match skip off. An index's
+`AggEngine` (`search/agg_plan.py`) runs the device-eligible nodes on the
+card unless the node setting `search.aggs.device_enabled` is false; the
+node setting `search.aggs.cost_router` (default on) lets the node's one
+`CostRouter` send a node to the host path when its timings say the host
+is cheaper. An engine's columns resync lazily: the first aggregation
+after a refresh rebuilds them, extracting only new segments. A deleted
+index's engine goes with it. `search.max_buckets` (no limit by default,
+as in the reference) bounds every bucket list.
+
 Left out, as ROADMAP.md lists: `script` updates, aliases, closed and
 hidden indices and date math in expressions, and hybrid bodies over
 several indices (each a 400)."""
@@ -53,6 +67,13 @@ from elasticsearch_tpu_torch.common.errors import (
 from elasticsearch_tpu_torch.indices.service import (  # noqa: F401
     SHARD_ROW_SPACE, IndexService, flat_settings, resolve_expression,
     validate_index_name, validate_knn_settings,
+)
+from elasticsearch_tpu_torch.search.agg_partials import (
+    finalize_aggs, merge_partial_aggs,
+)
+from elasticsearch_tpu_torch.search.agg_plan import AggEngine, CostRouter
+from elasticsearch_tpu_torch.search.aggregations import (
+    has_global_agg, validate_aggs,
 )
 from elasticsearch_tpu_torch.search.caches import (
     NodeCaches, can_match, has_range_clauses, reader_fingerprint,
@@ -256,6 +277,9 @@ class Node:
         # index name -> its hybrid executor (plan cache + late-interaction
         # store), made at the index's first hybrid search
         self._hybrid: Dict[str, HybridExecutor] = {}
+        # index name -> (its service, its aggregation engine)
+        self._aggs: Dict[str, tuple] = {}
+        self._agg_router = CostRouter()
         self._lock = threading.Lock()
 
     # -------------------------------------------------------------- indices
@@ -304,6 +328,7 @@ class Node:
             with self._lock:
                 gone = self.indices.pop(svc.name, None)
                 self._hybrid.pop(svc.name, None)
+                self._aggs.pop(svc.name, None)
             if gone is None:
                 raise IndexNotFoundError(svc.name)
             gone.close()
@@ -792,13 +817,60 @@ class Node:
                     svc, self.device, query_cache=self.caches.query)
             return ex
 
+    def _setting_on(self, key: str) -> bool:
+        """A boolean node setting, on unless it reads "false"."""
+        v = self.settings.get(key)
+        return v is None or str(v).lower() != "false"
+
+    def _agg_engine(self, svc: IndexService) -> Optional[AggEngine]:
+        """The index's aggregation engine, made at its first aggregation;
+        None when `search.aggs.device_enabled` is false. Both settings are
+        read at each search."""
+        if not self._setting_on("search.aggs.device_enabled"):
+            return None
+        with self._lock:
+            ent = self._aggs.get(svc.name)
+            if ent is None or ent[0] is not svc:
+                ent = self._aggs[svc.name] = (
+                    svc, AggEngine(svc.mapper_service, self.device))
+        engine = ent[1]
+        engine.cost_router = (self._agg_router
+                              if self._setting_on("search.aggs.cost_router")
+                              else None)
+        return engine
+
+    def aggs_stats(self) -> dict:
+        """The aggregation engines' counters summed over the indices:
+        searches, device and host nodes (with each host node's reason),
+        the device, assembly and host nanos, and the router's decisions."""
+        out = {"searches": 0, "device_nodes": 0, "host_nodes": 0,
+               "device_nanos": 0, "assemble_nanos": 0, "host_nanos": 0,
+               "router_host_routed": 0, "router_probes": 0,
+               "fallback_reasons": {}}
+        with self._lock:
+            engines = [eng for _svc, eng in self._aggs.values()]
+        for eng in engines:
+            for key, val in eng.stats.items():
+                if key != "fallback_reasons":
+                    out[key] += val
+            for reason, ent in eng.stats["fallback_reasons"].items():
+                agg = out["fallback_reasons"].setdefault(
+                    reason, {"count": 0, "docs": 0})
+                agg["count"] += ent["count"]
+                agg["docs"] += ent["docs"]
+        out["router"] = self._agg_router.snapshot()
+        return out
+
+    def _max_buckets(self) -> Optional[int]:
+        v = self.settings.get("search.max_buckets")
+        return int(v) if v is not None else None
+
     def _device_request_cache_enabled(self) -> bool:
         """`search.request_cache.device_paths` (default on): the device
         rung of the shard request cache, for kNN query phases and hybrid
         responses. The reference's dynamic cluster setting of the same
         name waits for `_cluster/settings`."""
-        v = self.settings.get("search.request_cache.device_paths")
-        return v is None or str(v).lower() != "false"
+        return self._setting_on("search.request_cache.device_paths")
 
     def _request_cache_for(self, body: dict, hybrid: bool = False):
         """The rung of the shard request cache a body goes through, or
@@ -812,15 +884,16 @@ class Node:
             return self.caches.request
         return None
 
-    @staticmethod
-    def _request_cache_key(cache, svc: IndexService, reader,
-                           body: dict) -> tuple:
+    def _request_cache_key(self, cache, svc: IndexService, reader,
+                           body: dict, partial_aggs: bool = False) -> tuple:
         """The index's name, its uuid (a recreated index of the same name
-        reuses segment ids) and its settings, the reader's content
+        reuses segment ids) and its settings, whether the aggregations are
+        partial states or final, `search.max_buckets`, the reader's content
         fingerprint (a refresh that changed a shard misses), and the
         body."""
         settings = json.dumps(svc.settings, sort_keys=True, default=str)
-        return cache.key((svc.name, svc.uuid, settings),
+        return cache.key((svc.name, svc.uuid, settings, partial_aggs,
+                          self._max_buckets()),
                          reader_fingerprint(reader), body)
 
     def _search_rrf(self, svc: IndexService, body: dict) -> dict:
@@ -879,17 +952,35 @@ class Node:
                                             rank["rrf"] or {})
         services = self.resolve(index_expr, ignore_unavailable,
                                 allow_no_indices)
+        aggs_spec = body.get("aggs") or body.get("aggregations")
+        if aggs_spec:
+            def field_type(f):
+                for svc in services:
+                    m = svc.mapper_service.get(f)
+                    if m is not None:
+                        return m.type_name
+                return None
+            validate_aggs(aggs_spec, field_type)
+        partial = bool(aggs_spec) and len(services) > 1
         frm, size = window(body)
         phases = []
         total, relation, max_score, skipped = 0, "eq", None, 0
+        merged_aggs = None
         for svc in services:
             reader = svc.combined_reader()
             if pre_filter_shard_size is not None \
                     and has_range_clauses(body.get("query")) \
+                    and not has_global_agg(aggs_spec) \
                     and not can_match(reader, body, svc.mapper_service):
                 skipped += svc.num_shards
                 continue
-            result = self._query_phase(svc, reader, body)
+            result = self._query_phase(svc, reader, body, partial)
+            if result.aggregations is not None:
+                # shared with the cache: merges and typed_keys copy
+                merged_aggs = (result.aggregations if merged_aggs is None
+                               else merge_partial_aggs(merged_aggs,
+                                                       result.aggregations,
+                                                       aggs_spec))
             phases.append((svc, reader, result))
             total += result.total
             if result.relation == "gte":
@@ -921,6 +1012,9 @@ class Node:
                 and total > track:
             # the summed total crosses a cap each index stayed under
             resp["hits"]["total"] = {"value": track, "relation": "gte"}
+        if merged_aggs is not None:
+            resp["aggregations"] = (finalize_aggs(merged_aggs, aggs_spec)
+                                    if partial else merged_aggs)
         resp["took"] = int((time.perf_counter() - start) * 1000)
         return resp
 
@@ -969,18 +1063,26 @@ class Node:
                          "max_score": hits[0]["_score"] if hits else None,
                          "hits": hits}}
 
-    def _query_phase(self, svc: IndexService, reader, body: dict):
+    def _query_phase(self, svc: IndexService, reader, body: dict,
+                     partial_aggs: bool = False):
         """One index's query phase through the request cache's rung for the
-        body (`_request_cache_for`)."""
+        body (`_request_cache_for`), its aggregations through the index's
+        engine (`_agg_engine`), as partial states when `partial_aggs`."""
         cache = self._request_cache_for(body)
         key = result = None
         if cache is not None:
-            key = self._request_cache_key(cache, svc, reader, body)
+            key = self._request_cache_key(cache, svc, reader, body,
+                                          partial_aggs)
             result = cache.get(key)
         if result is None:
             ctx = SearchContext(reader, svc.mapper_service, svc.vector_store,
                                 svc.settings, query_cache=self.caches.query)
-            result = execute_query_phase(ctx, body)
+            ctx.max_buckets = self._max_buckets()
+            ctx.index_name = svc.name
+            engine = (self._agg_engine(svc)
+                      if body.get("aggs") or body.get("aggregations")
+                      else None)
+            result = execute_query_phase(ctx, body, engine, partial_aggs)
             if key is not None:
                 cache.put(key, result)
         return result

@@ -14,8 +14,9 @@ Search: GET|POST [/{index}]/_search over an index expression (none,
 `_all`, a list, `*` patterns; URL `from`, `size`, `track_total_hits`,
 `_source*`, `sort` (`f:desc`), `docvalue_fields`, `seq_no_primary_term`,
 `version`, `request_cache`, `pre_filter_shard_size`,
-`rest_total_hits_as_int`, `ignore_unavailable`, `allow_no_indices`),
-[/{index}]/_count and [/{index}]/_msearch. The URL `q` (and `df`,
+`rest_total_hits_as_int`, `typed_keys`, `ignore_unavailable`,
+`allow_no_indices`), [/{index}]/_count and [/{index}]/_msearch (with
+`typed_keys`). The URL `q` (and `df`,
 `default_operator`, `analyzer`, `lenient`) needs `query_string`, which is
 not ported: it is a 400 that names it, as are `scroll` and the other
 URL parameters whose body keys are not ported.
@@ -110,6 +111,67 @@ def _total_hits_as_int(resp) -> None:
     total = hits.get("total")
     hits["total"] = (total.get("value") if isinstance(total, dict)
                      else -1 if total is None else total)
+
+
+# the mapped types whose terms aggregation is `lterms` under typed_keys
+_LTERMS_TYPES = {"long", "integer", "short", "byte", "double", "float",
+                 "half_float", "scaled_float", "date", "boolean"}
+
+
+def _apply_typed_keys(node, resp: dict, body: dict) -> None:
+    """`typed_keys`: each aggregation's name prefixed with its internal
+    type (`avg#name`, `sterms#name`), so a client can parse the response
+    by type. A terms aggregation's prefix comes from the first index of
+    the node mapping its field, else from its keys."""
+
+    def type_prefix(kind, spec, result):
+        if kind == "terms":
+            field = spec.get("field") if isinstance(spec, dict) else None
+            for svc in node.indices.values():
+                mapper = svc.mapper_service.get(field) if field else None
+                if mapper is not None:
+                    return ("lterms" if mapper.type_name in _LTERMS_TYPES
+                            else "sterms")
+            buckets = result.get("buckets") or []
+            numeric = buckets and all(
+                isinstance(b.get("key"), (int, float))
+                and not isinstance(b.get("key"), bool) for b in buckets)
+            return "lterms" if numeric else "sterms"
+        if kind == "percentiles":
+            return "tdigest_percentiles"
+        return kind
+
+    def walk(aggs_out, aggs_spec):
+        """A renamed copy (the node's cached results stay as they are)."""
+        if not isinstance(aggs_out, dict) or not aggs_spec:
+            return aggs_out
+        out = dict(aggs_out)
+        for name, spec in aggs_spec.items():
+            if name not in out or not isinstance(spec, dict):
+                continue
+            kinds = [k for k in spec
+                     if k not in ("aggs", "aggregations", "meta")]
+            if len(kinds) != 1:
+                continue
+            result = out.pop(name)
+            prefix = type_prefix(kinds[0], spec[kinds[0]], result)
+            sub = spec.get("aggs") or spec.get("aggregations")
+            if sub and isinstance(result, dict):
+                result = dict(result)
+                buckets = result.get("buckets")
+                if isinstance(buckets, dict):   # named filters buckets
+                    result["buckets"] = {k: walk(b, sub)
+                                         for k, b in buckets.items()}
+                elif isinstance(buckets, list):
+                    result["buckets"] = [walk(b, sub) for b in buckets]
+                result = walk(result, sub)
+            out[f"{prefix}#{name}"] = result
+        return out
+
+    if isinstance(resp.get("aggregations"), dict):
+        resp["aggregations"] = walk(
+            resp["aggregations"],
+            body.get("aggs") or body.get("aggregations") or {})
 
 
 def _settings_str(v):
@@ -289,6 +351,8 @@ def register_all(rc: RestController, node: Node) -> None:
                            pre_filter_shard_size=pfs, **_index_options(req))
         if as_int:
             _total_hits_as_int(resp)
+        if req.bool_param("typed_keys", False):
+            _apply_typed_keys(node, resp, body)
         return 200, resp
 
     def count(req):
@@ -306,9 +370,12 @@ def register_all(rc: RestController, node: Node) -> None:
                         "[rest_total_hits_as_int] cannot be used if the "
                         f"tracking of total hits is not accurate, got {tth}")
         resp = node.msearch(lines)
-        if as_int:
-            for r in resp["responses"]:
+        typed = req.bool_param("typed_keys", False)
+        for i, r in enumerate(resp["responses"]):
+            if as_int:
                 _total_hits_as_int(r)
+            if typed and 2 * i + 1 < len(lines):
+                _apply_typed_keys(node, r, lines[2 * i + 1] or {})
         return 200, resp
 
     # ---------------------------------------------------------------- indices

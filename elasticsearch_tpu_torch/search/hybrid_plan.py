@@ -66,8 +66,10 @@ from elasticsearch_tpu_torch.vectors.late_interaction import (
 
 DEFAULT_RANK_CONSTANT = 60
 DEFAULT_WINDOW = 100
+# `aggs` is accepted and ignored, as the reference's fused path ignores it
 _BODY_KEYS = {"rank", "sub_searches", "query", "knn", "size", "from",
-              "_source", "docvalue_fields", "request_cache"}
+              "_source", "docvalue_fields", "request_cache", "aggs",
+              "aggregations"}
 
 
 class LexicalLeg:

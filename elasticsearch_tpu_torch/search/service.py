@@ -1,7 +1,11 @@
 """Per-shard search: the body's checks, the query phase and the fetch phase
 (port of `elasticsearch_tpu/search/service.py`).
 
-The body keys served: `knn`, `query`, `size`, `from`, `_source`,
+The body keys served: `knn`, `query`, `aggs` (`aggregations`; computed
+over the query's rows before `post_filter`, through the index's device
+engine when the node passes one, else `search/aggregations.py`, or as
+partial states for a search over several indices), `size`, `from`,
+`_source`,
 `track_total_hits`, `request_cache` (the shard request cache's
 per-request opt-in or opt-out, read by the node), `post_filter`,
 `min_score`, `rescore`, `sort`, `search_after`, `collapse` (with
@@ -46,7 +50,7 @@ from elasticsearch_tpu_torch.common.errors import (
 from elasticsearch_tpu_torch.index.mapping import (
     KeywordFieldMapper, TextFieldMapper,
 )
-from elasticsearch_tpu_torch.index.segment import ShardReader
+from elasticsearch_tpu_torch.index.segment import ShardReader, numeric_view
 from elasticsearch_tpu_torch.search.knn_query import KnnQuery
 from elasticsearch_tpu_torch.search.queries import (
     BoolQuery, MatchAllQuery, Query, SearchContext, parse_query,
@@ -71,8 +75,6 @@ _SEARCH_BODY_KEYS = {
 _NOT_PORTED = {
     "profile": "the search profiler needs the telemetry, which is not "
                "ported",
-    "aggs": "aggregations are not ported",
-    "aggregations": "aggregations are not ported",
     "suggest": "suggesters are not ported",
     "script_fields": "the script module is not ported",
     "slice": "sliced scrolls are not ported",
@@ -208,11 +210,13 @@ class QueryPhaseResult:
     by score desc and row asc, or by the sort) cut to `from + size`, each
     row's `sort` tuple under a field sort (else None), the total counted
     to `track_total_hits` with its relation, the max score, and the rows
-    the query matched before `post_filter` (the aggregations' scope).
-    Read-only once made, so a cached one serves any number of fetches."""
+    the query matched before `post_filter` (the aggregations' scope), and
+    the aggregations over them (final JSON or partial states; None without
+    `aggs`) with the device engine's profile. Read-only once made, so a
+    cached one serves any number of fetches."""
 
     __slots__ = ("rows", "scores", "sort_values", "total", "relation",
-                 "max_score", "agg_rows")
+                 "max_score", "agg_rows", "aggregations", "aggs_profile")
 
     def __init__(self, rows, scores, total: int, relation: str, max_score,
                  sort_values=None, agg_rows=None):
@@ -223,6 +227,8 @@ class QueryPhaseResult:
         self.relation = relation
         self.max_score = max_score
         self.agg_rows = agg_rows
+        self.aggregations = None
+        self.aggs_profile = None
 
 
 def window(body: dict) -> Tuple[int, int]:
@@ -277,10 +283,34 @@ def count_body(body: Optional[dict]) -> dict:
     return body
 
 
-def execute_query_phase(ctx: SearchContext, body: dict) -> QueryPhaseResult:
+def execute_query_phase(ctx: SearchContext, body: dict, agg_engine=None,
+                        partial_aggs: bool = False) -> QueryPhaseResult:
     """The body's query over the context's reader: the window [0, from +
     size) of ranked rows, their scores and sort tuples, the total and the
-    max score, in the reference's order of steps."""
+    max score, in the reference's order of steps; then the aggregations
+    over `agg_rows`: through `agg_engine` (`search/agg_plan.py`) when
+    given, its host nodes and a body with none eligible on the host path,
+    as partial states when `partial_aggs`."""
+    result = _query_window(ctx, body)
+    aggs_spec = body.get("aggs") or body.get("aggregations")
+    if aggs_spec:
+        from elasticsearch_tpu_torch.search import agg_partials, aggregations
+        out = None
+        if agg_engine is not None:
+            out = agg_engine.compute(ctx, result.agg_rows, aggs_spec,
+                                     partial=partial_aggs)
+        if out is not None:
+            result.aggregations, result.aggs_profile = out
+        elif partial_aggs:
+            result.aggregations = agg_partials.compute_partial_aggs(
+                ctx, result.agg_rows, aggs_spec)
+        else:
+            result.aggregations = aggregations.compute_aggs(
+                ctx, result.agg_rows, aggs_spec)
+    return result
+
+
+def _query_window(ctx: SearchContext, body: dict) -> QueryPhaseResult:
     settings = ctx.index_settings or {}
     check_request(body, settings)
     frm, size = window(body)
@@ -452,14 +482,10 @@ def numeric_values(reader: ShardReader, rows,
         if col.numeric is not None:
             ok = col.present[local[at]]
             vals[at[ok]] = col.numeric[local[at[ok]]]
-            present[at] = ok
-            continue
-        for j, x in zip(at.tolist(), col.values[local[at]]):
-            x = _first(x)
-            if isinstance(x, bool):
-                x = 1.0 if x else 0.0
-            if isinstance(x, (int, float)):
-                vals[j], present[j] = float(x), True
+        else:
+            v, ok = numeric_view(col.values[local[at]].tolist())
+            vals[at[ok]] = v[ok]
+        present[at] = ok
     return vals, present
 
 

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (binned kNN, fused IVF probes, MaxSim, the
 BM25 board)
-against their plain PyTorch versions, on a CUDA card. Every test here is marked `gpu` and skips without a card. This
+against their plain PyTorch versions, and the `aggs.*` torch ops against
+numpy, on a CUDA card. Every test here is marked `gpu` and skips without a card. This
 file imports neither `jax` nor the JAX package, so on a machine without
 JAX it runs alone:
 
@@ -1419,3 +1420,203 @@ def test_date_and_ip_filtered_knn_on_cuda_matches_cpu(cuda, monkeypatch,
             _same_hits(got, want, 1e-3)
             ids = [int(h["_id"]) for h in got["hits"]["hits"]]
             assert len(ids) == 10 and passing[ids].all(), filt
+
+
+# ------------------------------------------------------------ aggregations
+
+def _agg_cols(dev, n=1 << 18, seed=0):
+    """An integral f64 column with absent rows, a mask and int32 ordinals,
+    on the host and on `dev`."""
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(-5000, 50_000, n).astype(np.float64)
+    present = rng.random(n) > 0.1
+    vals[~present] = np.nan
+    mask = rng.random(n) > 0.3
+    ords = np.where(present, rng.integers(0, 900, n), -1).astype(np.int32)
+    host = dict(vals=vals, present=present, mask=mask, ords=ords)
+    return host, {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+
+
+def _np_boards(lanes, ok, v, n_lanes):
+    cnt = np.bincount(lanes[ok], minlength=n_lanes)
+    s = np.bincount(lanes[ok], weights=v[ok], minlength=n_lanes)
+    mn = np.full(n_lanes, np.inf)
+    mx = np.full(n_lanes, -np.inf)
+    np.minimum.at(mn, lanes[ok], v[ok])
+    np.maximum.at(mx, lanes[ok], v[ok])
+    return cnt, s, mn, mx
+
+
+def _board_eq(got, want):
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["ord", "hist", "range", "cal", "tree",
+                                "hll"])
+def test_aggs_ops_on_cuda_match_numpy(cuda, op):
+    """Each `aggs.*` torch op on CUDA tensors of 2^18 rows equals numpy
+    exactly (counts, integral sums, minima, maxima, registers), and counts
+    one launch a call."""
+    from elasticsearch_tpu_torch.ops import aggs as ops
+    h, t = _agg_cols(cuda, seed=len(op))
+    vals, present, mask, ords = h["vals"], h["present"], h["mask"], \
+        h["ords"]
+    before = dispatch.launches()
+    names = []
+    if op == "ord":
+        lanes = np.where(ords >= 0, ords, 1024)
+        _board_eq(ops.ord_counts(t["ords"], t["mask"], 1024),
+                  np.bincount(lanes[mask], minlength=1025))
+        _board_eq(ops.ord_metric(t["ords"], t["mask"], 7.0, t["vals"],
+                                 t["present"], 1024),
+                  _np_boards(lanes, mask, np.where(present, vals, 7.0),
+                             1025))
+        names = ["ord_counts", "ord_metric"]
+    elif op == "hist":
+        hp = (1000.0, 250.0, -6.0, 1.0, None)
+        ids = np.floor((np.where(present, vals, 0) - 250.0) / 1000.0) + 6
+        ok = present & (ids >= 0) & (ids < 64)
+        lanes = np.where(ok, ids, 64).astype(np.int64)
+        _board_eq(ops.hist_counts(t["vals"], t["present"], t["mask"], hp,
+                                  64),
+                  np.bincount(lanes[mask & ok], minlength=65))
+        _board_eq(ops.hist_metric(t["vals"], t["present"], t["mask"], hp,
+                                  None, t["vals"], t["present"], 64),
+                  _np_boards(lanes, mask & ok, vals, 65))
+        names = ["hist_counts", "hist_metric"]
+    elif op == "range":
+        bounds = np.asarray([[-np.inf, 0], [0, 20_000], [10_000, np.inf],
+                             [np.inf, np.inf]] + [[np.inf, np.inf]] * 4)
+        m = (vals[None] >= bounds[:, :1]) & (vals[None] < bounds[:, 1:]) \
+            & (mask & present)[None]
+        bt = torch.from_numpy(bounds).to(cuda)
+        _board_eq(ops.range_counts(t["vals"], t["present"], t["mask"], bt,
+                                   None), m.sum(axis=1))
+        got = ops.range_metric(t["vals"], t["present"], t["mask"], bt, None,
+                               None, t["vals"], t["present"])
+        _board_eq(got, (m.sum(axis=1),
+                        np.where(m, vals[None], 0).sum(axis=1),
+                        np.where(m, vals[None], np.inf).min(axis=1),
+                        np.where(m, vals[None], -np.inf).max(axis=1)))
+        names = ["range_counts", "range_metric"]
+    elif op == "cal":
+        cb = np.full(64, np.inf)
+        cb[:40] = np.sort(np.random.default_rng(3).choice(
+            np.arange(-6000, 50_000), 40, replace=False)).astype(np.float64)
+        cal = np.searchsorted(cb, np.trunc(vals - 5.0), side="right") - 1
+        ok = present & (cal >= 0) & (cal < 64)
+        lanes = np.where(ok, cal, 64)
+        cbt = torch.from_numpy(cb).to(cuda)
+        _board_eq(ops.cal_counts(t["vals"], t["present"], t["mask"], cbt,
+                                 (1.0, 5.0), 64),
+                  np.bincount(lanes[mask & ok], minlength=65))
+        _board_eq(ops.cal_metric(t["vals"], t["present"], t["mask"], cbt,
+                                 (1.0, 5.0), None, t["vals"], t["present"],
+                                 64),
+                  _np_boards(lanes, mask & ok, vals, 65))
+        names = ["cal_counts", "cal_metric"]
+    else:
+        hp = (8000.0, 0.0, -1.0, 1.0, None)
+        levels = [("ord", 1024, (t["ords"], True)),
+                  ("hist", 8, (t["vals"], t["present"], hp))]
+        o = np.where(ords >= 0, ords, 1023)
+        hid = np.floor(np.where(present, vals, 0) / 8000.0) + 1
+        hok = present & (hid >= 0) & (hid < 8)
+        sel = mask & hok
+        cid = np.where(sel, o * 8 + np.where(hok, hid, 0), 8192) \
+            .astype(np.int64)
+        if op == "tree":
+            _board_eq(ops.tree_counts(t["mask"], levels),
+                      np.bincount(cid[sel], minlength=8193))
+            _board_eq(ops.tree_metric(t["mask"], None, t["vals"],
+                                      t["present"], levels),
+                      _np_boards(cid, sel & present, vals, 8193))
+            names = ["tree_counts", "tree_metric"]
+        else:
+            levels = levels[1:]
+            cid = np.where(mask & hok, hid, 8).astype(np.int64)
+            rng = np.random.default_rng(4)
+            hidx = rng.integers(0, ops.HLL_M, len(vals)).astype(np.int32)
+            hrho = np.where(present, rng.integers(1, 30, len(vals)), 0) \
+                .astype(np.int32)
+            want = np.zeros((9, ops.HLL_M), dtype=np.int32)
+            np.maximum.at(want, (cid[mask & hok], hidx[mask & hok]),
+                          hrho[mask & hok])
+            _board_eq(ops.hll_board(t["mask"],
+                                    torch.from_numpy(hidx).to(cuda),
+                                    torch.from_numpy(hrho).to(cuda), levels),
+                      want)
+            names = ["hll_board"]
+    after = dispatch.launches()
+    for name in names:
+        key = "aggs." + name
+        assert after.get(key, 0) - before.get(key, 0) == 1, key
+
+
+@pytest.mark.gpu
+def test_aggs_on_cuda_node_match_cpu_host_path(cuda):
+    """A CUDA node with the device rung forced (router off) and a CPU node
+    on the host path answer the same aggregation bodies with equal JSON;
+    the CUDA node's eligible nodes ran on the card."""
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.rest.actions import register_all
+    from elasticsearch_tpu_torch.rest.controller import RestController
+
+    pair = []
+    for device, on in ((cuda, "true"), ("cpu", "false")):
+        node = Node(device=device, settings={
+            "search.aggs.device_enabled": on,
+            "search.aggs.cost_router": "false"})
+        rc = RestController()
+        register_all(rc, node)
+        pair.append((node, rc))
+    rng = np.random.default_rng(8)
+    n = 20_000
+    ts = 893_894_400_000 + np.sort(rng.integers(0, 40 * 86_400_000, n))
+    mapping = {"properties": {"ts": {"type": "date"},
+                              "status": {"type": "integer"},
+                              "size": {"type": "long"},
+                              "ip": {"type": "ip"},
+                              "tag": {"type": "keyword"}}}
+    for name in ("a", "b"):
+        status = rng.choice([200, 304, 404], n)
+        srcs = [{"ts": int(ts[i]),
+                 "status": int(status[i]) if i % 50 else None,
+                 "size": int(i * 37 % 100_000),
+                 "ip": f"10.0.{i % 7}.{i % 251}", "tag": f"t{i % 11}"}
+                for i in range(n)]
+        for node, rc in pair:
+            assert _req(rc, "PUT", f"/{name}", {"mappings": mapping})[0] \
+                == 200
+            node.index(name).index_many([str(i) for i in range(n)], srcs)
+            assert _req(rc, "POST", f"/{name}/_refresh")[0] == 200
+    bodies = [
+        {"h": {"date_histogram": {"field": "ts", "calendar_interval": "hour"}}},
+        {"t": {"terms": {"field": "status"},
+               "aggs": {"s": {"stats": {"field": "size"}}}}},
+        {"d": {"date_histogram": {"field": "ts", "calendar_interval": "day"},
+               "aggs": {"t": {"terms": {"field": "status", "missing": 0}},
+                        "c": {"cardinality": {"field": "ip"}}}}},
+        {"r": {"range": {"field": "size", "ranges": [
+            {"to": 1000}, {"from": 1000, "to": 50_000}, {"from": 50_000}]},
+            "aggs": {"a": {"avg": {"field": "size"}}}}},
+        {"c": {"cardinality": {"field": "ip"}},
+         "x": {"histogram": {"field": "size", "interval": 5000,
+                             "min_doc_count": 0},
+               "aggs": {"m": {"max": {"field": "status"}}}}},
+    ]
+    (gnode, grc), (_, crc) = pair
+    for aggs in bodies:
+        for path in ("/a/_search", "/a,b/_search"):
+            body = {"size": 0, "aggs": aggs, "request_cache": False}
+            d0 = gnode.aggs_stats()["device_nodes"]
+            s1, got = _req(grc, "POST", path, body)
+            s2, want = _req(crc, "POST", path, body)
+            assert s1 == s2 == 200, got
+            assert got["aggregations"] == want["aggregations"], (path, aggs)
+            assert gnode.aggs_stats()["device_nodes"] - d0 \
+                == len(aggs) * (2 if "," in path else 1)

@@ -44,7 +44,8 @@ def test_port_imports_without_jax_or_reference():
                  "cluster.routing", "indices.service", "native", "ops.bm25",
                  "index.analysis", "index.analysis_lang", "ops.sparse",
                  "search.caches", "node", "rest.actions", "rest.controller",
-                 "common.errors"):
+                 "common.errors", "search.aggregations",
+                 "search.agg_partials", "search.agg_plan", "ops.aggs"):
         assert f"elasticsearch_tpu_torch.{name}" in names
     code = (
         "import sys\n"

@@ -173,8 +173,8 @@ def test_body_errors(pair, key, body):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("profile", True), ("aggs", {"x": {"terms": {"field": "tag"}}}),
-    ("aggregations", {"x": {"max": {"field": "n"}}}),
+    ("profile", True), ("aggs", {"x": {"rare_terms": {"field": "tag"}}}),
+    ("aggregations", {"x": {"max_bucket": {"buckets_path": "y"}}}),
     ("suggest", {"s": {"text": "alpa", "term": {"field": "t"}}}),
     ("script_fields", {"x": {"script": "1"}}),
     ("slice", {"id": 0, "max": 2}), ("scroll", "1m"),
@@ -185,10 +185,13 @@ def test_body_errors(pair, key, body):
 ])
 def test_left_out_keys_name_themselves(pair, key, value):
     """Each key of the reference this build leaves out is a 400 whose
-    reason names it; a script sort too."""
+    reason names it (for `aggs`, the aggregation kind left out); a script
+    sort too."""
     load_mixed(pair, "a", 1, 7, n=30)
     status, got = pair.port("POST", "/a/_search", {key: value})
-    assert status == 400 and f"[{key}]" in got["error"]["reason"], got
+    name = next(iter(value["x"])) if key in ("aggs", "aggregations") \
+        else key
+    assert status == 400 and f"[{name}]" in got["error"]["reason"], got
     assert "not supported by this build" in got["error"]["reason"]
     status, got = pair.port("POST", "/a/_search", {"sort": [
         {"_script": {"type": "number", "script": "1"}}]})
