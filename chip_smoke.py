@@ -7,7 +7,8 @@
                           [--n-sparse 262144] [--n-logs 500000]
                           [--binned-only | --ivf-only | --maxsim-only |
                            --sharded-only | --hybrid-only | --sparse-only |
-                           --docs-only | --body-only | --logs-only]
+                           --docs-only | --segments-only | --body-only |
+                           --logs-only]
 
 Phases, one line each; any failure raises and the exit code is not 0:
 
@@ -57,8 +58,10 @@ Phases, one line each; any failure raises and the exit code is not 0:
                Q = 32 of 20-120 tokens, Q = 1, and Q = 1 of 300 tokens,
                each entry with its token's boost)
   serve_sift   the port's REST server in-process: a cosine dims=128 index,
-               2,000 docs over `_bulk`, then loaded to 1,000,000 SIFT-shaped
-               docs through `IndexService.index_many`, refresh, and 64
+               2,000 docs over `_bulk` (checked first by one search on a
+               scratch copy of them), then loaded to 1,000,000 SIFT-shaped
+               docs through `IndexService.index_many`, one refresh (one
+               corpus, on the binned kernel), and 64
                `_search {knn, k: 10}` requests over HTTP: recall@10 against
                exact f32 numpy and the bf16 kernel's launch count (every
                launch on its tma variant); then a
@@ -68,20 +71,34 @@ Phases, one line each; any failure raises and the exit code is not 0:
                and `doc` updates of 10,000 vectors, 500 single deletes,
                500 `_update`s and 500 auto-id writes, a `_create` on a live
                id and a stale `if_seq_no` (both 409), then a timed
-               `_refresh` (`refresh_s`: the store's rebuild on the card);
+               `_refresh` (`refresh_s`): the generational path, no
+               rebuild: 21,000 tombstones and one L0 seal of 11,000 rows
+               (a `[segments] index=sift` line: generations, seals,
+               rebuilds avoided, full rebuilds 0, the route's launches);
                the 64 queries at recall@10 >= 0.95 against exact f32 numpy
                over the live documents, no deleted id in a hit, 64 updated
                documents each first for its new vector, `_count` exact,
                `_mget` of deleted (not found) and updated (the new vector)
                ids, the batch-1 answers held to one batch of the same
-               queries through the store (ties counted), one bf16 launch a
-               batch on `tma`; then `sift_b` (65,536 x 128, the same
-               mapping): `sift,sift_b`, `sift*` and no index at recall@10
-               >= 0.95 over the union, each hit's `_index` right,
-               `_shards.total` 2, `_msearch` of 16 lines equal to the
-               single searches; then `DELETE /sift_b` and `/sift`, which
-               must free >= 90% of the two corpora's device bytes, and a
-               search of `sift` is a 404
+               queries through the store (ties counted), each request on
+               the route its two generations give: no binned launch and
+               two exact-route legs (the tombstoned base serves masked
+               until a merge compacts it; 2% dead is below the GC
+               fraction); then `sift_b` (65,536 x 128, the same mapping):
+               12 refreshes of 100 docs seal L0 generations and start
+               background merges, whose reasons and final tiers must be
+               the merge policy's on the same sequence (a `[segments]
+               index=sift_b` line); after `drain()` at most `max_l0` L0
+               generations and recall@10 >= 0.95; `POST
+               /sift_b/_forcemerge` rebuilds the re-based rows
+               (`segment_rewrite`) into one clean generation; then
+               `sift,sift_b`, `sift*` and no index at recall@10 >= 0.95
+               over the union, each hit's `_index` right, `_shards.total`
+               2, sift_b on the binned kernel again and sift on its exact
+               legs, `_msearch` of 16 lines equal to the single searches;
+               then `DELETE /sift_b` and `/sift`, which must free >= 90%
+               of every generation's device bytes, and a search of `sift`
+               is a 404
   serve_cohere the same for a 768-d cosine `int8_flat` index with
                `rescore: true` and `_source` disabled (int8 kernel + re-rank)
   serve_gist   a 1,000,000 x 960 dot_product `ivf` index of unit-normalized
@@ -93,6 +110,15 @@ Phases, one line each; any failure raises and the exit code is not 0:
                kernel on int8 tiles: routing recall >= 0.95 against the same
                index at nprobe = nlist, recall@10 >= 0.90) and under
                `int4_ivf` (the int4 kernel + exact rescore, recall@10 >= 0.95)
+  serve_ivf_compaction  a 131,072-row `int8_ivf` index of the same shape
+               built in one refresh; 1% of its docs deleted over `_bulk`
+               and a timed refresh: its base sets tombstones, drops its
+               router and serves masked (no fused launch) while the merge
+               thread is held; then the held merge runs (`drain()`): one
+               `tombstone_gc` compaction retrains the router
+               (`ivf_background_builds` 1), every request launches
+               `ivf_fused_dense` on `grouped` again, recall@10 over the
+               live rows >= 0.90 and routing recall >= 0.95
   serve_colbert a hybrid index {emb: 768-d cosine `flat`, colv: rank_vectors
                128-d cosine} of 131,071 ColBERTv2-shaped docs (`int8`, then
                `int4` token tiles): 300 docs over `_bulk`, the rest through
@@ -291,7 +317,8 @@ script too (the checks of variants it lacks are skipped).
 `--hybrid-only` runs env, build, the bm25_board checks and serve_hybrid
 (no ok line); `--sparse-only` the same with serve_sparse;
 `--docs-only` runs env, the binned build, serve_sift's sequential
-requests and serve_documents (no ok line); `--body-only` runs env, the
+requests and serve_documents (no ok line); `--segments-only` the same
+and serve_ivf_compaction, with the IVF build too; `--body-only` runs env, the
 binned build, the laion index at --n-laion with its unfiltered requests
 and the search body's part (no ok line); `--logs-only` runs env and
 serve_logs (no build, no ok line). Every phase drops its indices
@@ -1200,8 +1227,9 @@ class IvfBuildTimer:
 
 def serve_index(client, node, name, mapping, vectors, queries, metric,
                 kernel, k=10, first=2000, settings=None, warmup=False):
-    """Create, bulk-load `first` docs over HTTP and check one search, load
-    the rest through `IndexService.index_many`, refresh, optionally answer
+    """Create, bulk-load `first` docs over HTTP (checked by one search on
+    a scratch copy, `small_index_check`), load the rest through
+    `IndexService.index_many`, refresh once, optionally answer
     one warm-up search, then answer every query over HTTP, then once more
     straight through the index's kNN store (no HTTP, no JSON) after the
     launch counts were read. `kernel` is the one kernel each request must launch once,
@@ -1211,27 +1239,31 @@ def serve_index(client, node, name, mapping, vectors, queries, metric,
     exact top-k)."""
     from elasticsearch_tpu_torch.ops import dispatch
     from elasticsearch_tpu_torch.ops import knn_binned as kb
-    client.ok("PUT", f"/{name}", {
-        "settings": dict(settings or {}, number_of_shards=1),
-        "mappings": mapping})
+    body = {"settings": dict(settings or {}, number_of_shards=1),
+            "mappings": mapping}
+    client.ok("PUT", f"/{name}", body)
     n, field = len(vectors), "vec"
     ops = []
     for i in range(min(first, n)):
         ops += [{"index": {"_id": str(i)}}, {field: vectors[i].tolist()}]
+
+    def small_search(path):
+        small_q = vectors[7] + 0.01
+        hits = client.ok("POST", path, {"knn": {
+            "field": field, "query_vector": small_q.tolist(), "k": k,
+            "num_candidates": 100}})["hits"]["hits"]
+        want = exact_top(vectors[:first], small_q[None, :], k, metric)[0]
+        got = [int(h["_id"]) for h in hits]
+        # the query sits next to doc 7: it must rank first, and the rest
+        # must mostly agree with exact f32 (cluster mates lie close)
+        if got[0] != 7 or len(set(got) & set(want.tolist())) < k // 2:
+            raise AssertionError(f"small-index search: got {got}, "
+                                 f"want {want}")
+
+    small_index_check(client, name, body, ops, small_search)
     resp = client.ok("POST", f"/{name}/_bulk", ops, ndjson=True)
     if resp["errors"]:
         raise AssertionError(f"bulk errors: {resp['items'][:3]}")
-    client.ok("POST", f"/{name}/_refresh")
-    small_q = vectors[7] + 0.01
-    hits = client.ok("POST", f"/{name}/_search", {"knn": {
-        "field": field, "query_vector": small_q.tolist(), "k": k,
-        "num_candidates": 100}})["hits"]["hits"]
-    want = exact_top(vectors[:first], small_q[None, :], k, metric)[0]
-    got = [int(h["_id"]) for h in hits]
-    # the query sits next to doc 7: it must rank first, and the rest must
-    # mostly agree with exact f32 (cluster mates lie close together)
-    if got[0] != 7 or len(set(got) & set(want.tolist())) < k // 2:
-        raise AssertionError(f"small-index search: got {got}, want {want}")
 
     t0 = time.perf_counter()
     if n > first:
@@ -1279,6 +1311,26 @@ def serve_index(client, node, name, mapping, vectors, queries, metric,
     return (recall, statistics.median(lat), statistics.median(store_lat),
             ingest_s, launches, {"hits": got, "scores": got_scores,
                                  "stats": stats, "truth": truth})
+
+
+def small_index_check(client, name: str, body: dict, ops: list,
+                      check) -> None:
+    """A serve phase's check of its first documents on a scratch index
+    `{name}_small` made like `name` (`body`): the same `_bulk` `ops`, a
+    refresh and `check(path)` with the scratch index's `_search` path,
+    then `DELETE`. The phase's own index takes the same `_bulk` and the
+    rest of its documents before its one refresh, so each vector field
+    builds one corpus: a refresh between the two loads would leave the
+    rest as one sealed generation, served on the exact route until a
+    `_forcemerge`."""
+    small = f"{name}_small"
+    client.ok("PUT", f"/{small}", body)
+    resp = client.ok("POST", f"/{small}/_bulk", ops, ndjson=True)
+    if resp["errors"]:
+        raise AssertionError(f"bulk errors: {resp['items'][:3]}")
+    client.ok("POST", f"/{small}/_refresh")
+    check(f"/{small}/_search")
+    drop_index(client, small)
 
 
 def knn_body(field: str, qv: np.ndarray, k: int = 10) -> dict:
@@ -1647,17 +1699,53 @@ def phase_serve(seed: int, n_sift: int, n_cohere: int,
 N_DOC_BULK = 10_000         # serve_documents: `_bulk` deletes and updates
 N_DOC_SINGLE = 500          # single deletes, updates and auto-id writes
 N_SIFT_B = 65_536           # the second index of the expression searches
+SIFT_B_REFRESHES = 12       # sift_b's small refreshes (L0 seals) ...
+SIFT_B_DOCS = 100           # ... of this many docs each
 
 
 def _corpus_bytes(node, name: str) -> int:
-    """Bytes of the device tensors of every shard's `vec` corpus."""
-    total = 0
+    """Bytes of the device tensors of every generation of every shard's
+    `vec` field (each tensor once)."""
+    seen, total = set(), 0
     for shard in node.index(name).shards:
-        fc = shard.vector_store.field("vec")
-        for t in vars(fc.corpus).values():
-            if isinstance(t, torch.Tensor):
-                total += t.nbytes
+        store = shard.vector_store
+        gc = store._gens.get("vec")
+        corpora = ([g.corpus for g in gc.snapshot().generations]
+                   if gc is not None else [store.field("vec").corpus])
+        for corpus in corpora:
+            for t in vars(corpus).values():
+                if isinstance(t, torch.Tensor) and t.data_ptr() not in seen:
+                    seen.add(t.data_ptr())
+                    total += t.nbytes
     return total
+
+
+def _leg_counts(svc, stats0: dict) -> tuple:
+    """(exact-route legs, kernel-route legs) of one index's store since
+    `stats0`, and its generations holding rows."""
+    st = svc.store.knn_stats
+    snap = svc.store.field("vec").snap
+    return (st["segment_legs_exact"] - stats0["segment_legs_exact"],
+            st["segment_legs_auto"] - stats0["segment_legs_auto"],
+            sum(1 for g in snap.generations if g.n_rows), snap.simple)
+
+
+def _served_routes(svc, n_req: int, launches: dict, stats0: dict,
+                   binned: int, exact: int) -> dict:
+    """Check the kNN route of `n_req` requests on one index: `binned`
+    launches of the bf16 binned kernel and `exact` exact-route legs a
+    request, as the caller knows the index's generation set (one clean
+    generation: 1 and 0; a tombstoned base and a seal: 0 and 2), and no
+    kernel-route leg of a larger set. Returns {"binned": launches,
+    "exact_legs": legs}."""
+    from elasticsearch_tpu_torch.ops import knn_binned as kb
+    got = _leg_counts(svc, stats0)[:2] + (launches.get(kb.KERNEL_BF16, 0),)
+    if got != (n_req * exact, 0, n_req * binned):
+        raise AssertionError(f"{svc.name}: (exact legs, kernel legs, binned "
+                             f"launches) {got} for {n_req} requests; "
+                             f"expected {binned} launches and {exact} "
+                             f"exact legs a request")
+    return {"binned": got[2], "exact_legs": got[0]}
 
 
 def _doc_writes(client, rng, n: int):
@@ -1725,7 +1813,8 @@ def _doc_checks(client, node, vecs, queries, deleted, updated, created):
     of 64 updated documents first for its new vector, `_count` exact,
     `_mget` of deleted and updated ids, and the batch-1 answers against
     one batch of the same queries through the index's store (ties
-    counted). Returns (recall, p50 ms, the bf16 launches of the served
+    counted); the served route of its two generations, no binned launch
+    and two exact legs a request (`_served_routes`). Returns (recall, p50 ms, the routes of the served
     requests, ties)."""
     from elasticsearch_tpu_torch.ops import dispatch
     from elasticsearch_tpu_torch.ops import knn_binned as kb
@@ -1737,6 +1826,8 @@ def _doc_checks(client, node, vecs, queries, deleted, updated, created):
     keep = np.array([nm not in deleted for nm in names])
     live_names = [nm for nm, k in zip(names, keep) if k]
     truth = exact_top(live[keep], queries, 10, "cosine")
+    svc = node.index("sift")
+    stats0 = dict(svc.store.knn_stats)
     dispatch.reset_launches()
     lat, got, got_scores = [], [], []
     for qv in queries:
@@ -1756,9 +1847,11 @@ def _doc_checks(client, node, vecs, queries, deleted, updated, created):
             raise AssertionError(f"deleted ids in {key}'s hits")
     launches = dispatch.launches()
     n_req = len(queries) + len(upd_keys)
-    _expect_served_variant(kb.KERNEL_BF16, dispatch.variant_launches(),
-                           n_req)
-    if {k: c for k, c in launches.items() if c} != {kb.KERNEL_BF16: n_req}:
+    # the tombstoned base and the seal, each on the exact route
+    routes = _served_routes(svc, n_req, launches, stats0, binned=0, exact=2)
+    _expect_served_variant(kb.KERNEL_BF16 if routes["binned"] else None,
+                           dispatch.variant_launches(), n_req)
+    if {k for k, c in launches.items() if c} - {kb.KERNEL_BF16}:
         raise AssertionError(f"launches {launches} for {n_req} requests")
     if any(deleted & set(g) for g in got):
         raise AssertionError("a deleted id in a hit")
@@ -1779,7 +1872,6 @@ def _doc_checks(client, node, vecs, queries, deleted, updated, created):
                 updated[key]):
             raise AssertionError(f"_mget: updated {key} is {doc}")
     # the same queries as one batch through the index's store
-    svc = node.index("sift")
     batch = svc.vector_store.search_many("vec", list(queries), 10)
     reader = svc.combined_reader()
     ties = 0
@@ -1788,15 +1880,115 @@ def _doc_checks(client, node, vecs, queries, deleted, updated, created):
         ties += against_batch1(
             f"serve_documents query {qi}", got[qi], got_scores[qi],
             [reader.get_id(int(r)) for r in rows], want, BF16_QUANTUM / 2)
-    # the launches of the served requests, read before the batch check
-    return recall, statistics.median(lat), launches[kb.KERNEL_BF16], ties
+    # the routes of the served requests, read before the batch check
+    return recall, statistics.median(lat), routes, ties
+
+
+def _merge_plan(policy, base_rows: int, seals: int, rows: int) -> tuple:
+    """The merges `policy` selects when `seals` generations of `rows` rows
+    seal one at a time after a base of `base_rows`, every pending merge
+    run after each seal: (reasons by count, the final tiers)."""
+    from elasticsearch_tpu_torch.segments.generation import generation_tier
+    gens, reasons = [(generation_tier(base_rows), base_rows)], {}
+
+    class G:                      # what the policy reads of a generation
+        def __init__(self, n):
+            self.tier, self.n_rows, self.dead_rows = \
+                generation_tier(n), n, 0
+
+    for _ in range(seals):
+        gens.append((generation_tier(rows), rows))
+        while True:
+            spec = policy.select([G(n) for _, n in gens])
+            if spec is None:
+                break
+            reasons[spec.reason] = reasons.get(spec.reason, 0) + 1
+            merged = sum(n for _, n in gens[spec.start:spec.stop])
+            gens[spec.start:spec.stop] = [(generation_tier(merged), merged)]
+    return reasons, [t for t, _ in gens]
+
+
+def _sift_b_generations(client, node, rng, bvecs) -> tuple:
+    """sift_b's write-while-search part: SIFT_B_REFRESHES refreshes of
+    SIFT_B_DOCS docs each seal L0 generations and start background merges,
+    whose reasons must be the policy's choice on the same sequence;
+    after `drain()` at most `max_l0` L0 generations and recall@10 >=
+    0.95; then `POST /sift_b/_forcemerge`: the store rebuilds the re-based
+    rows (`segment_rewrite`) into one clean generation. Returns (the new
+    docs' vectors, the fields to log)."""
+    svc = node.index("sift_b")
+    store = svc.store
+    gc = store._gens["vec"]
+    extra = clustered(rng, SIFT_B_REFRESHES * SIFT_B_DOCS, 128)
+    st0 = store.segment_stats()
+    refresh_s = []
+    for r in range(SIFT_B_REFRESHES):
+        lo = r * SIFT_B_DOCS
+        svc.index_many([f"b{N_SIFT_B + lo + j}" for j in range(SIFT_B_DOCS)],
+                       vectors={"vec": extra[lo:lo + SIFT_B_DOCS]})
+        t = time.perf_counter()
+        client.ok("POST", "/sift_b/_refresh")
+        refresh_s.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    gc.drain()
+    drain_s = time.perf_counter() - t
+    st = store.segment_stats()
+    want, tiers = _merge_plan(gc.policy, N_SIFT_B, SIFT_B_REFRESHES,
+                              SIFT_B_DOCS)
+    got_tiers = [g.tier for g in gc.snapshot().generations]
+    if (st["merge_reasons"] != want or got_tiers != tiers
+            or st["l0_generations"] > store.segments_max_l0
+            or st["seals"] - st0["seals"] != SIFT_B_REFRESHES
+            or st["full_rebuilds"] != st0["full_rebuilds"]):
+        raise AssertionError(f"sift_b merges {st}, tiers {got_tiers}; "
+                             f"expected {want}, tiers {tiers}")
+    bvecs = np.concatenate([bvecs, extra])
+    qs = bvecs[rng.integers(0, len(bvecs), 32)] \
+        + 0.3 * rng.standard_normal((32, 128)).astype(np.float32)
+    truth = exact_top(bvecs, qs, 10, "cosine")
+    names = [f"b{i}" for i in range(len(bvecs))]
+
+    def recall():
+        got = [{h["_id"] for h in client.ok("POST", "/sift_b/_search",
+                                            knn_body("vec", qv))
+                ["hits"]["hits"]} for qv in qs]
+        return float(np.mean([len(g & {names[r] for r in t.tolist()}) / 10
+                              for g, t in zip(got, truth)]))
+
+    merged_recall = recall()
+    t = time.perf_counter()
+    client.ok("POST", "/sift_b/_forcemerge")
+    forcemerge_s = time.perf_counter() - t
+    st2 = store.segment_stats()
+    reasons = dict(st0["rebuild_reasons"])
+    reasons["segment_rewrite"] = reasons.get("segment_rewrite", 0) + 1
+    if (st2["rebuild_reasons"] != reasons or st2["generations"] != 1
+            or not store.field("vec").snap.simple):
+        raise AssertionError(f"sift_b after _forcemerge: {st2}")
+    forced_recall = recall()
+    if min(merged_recall, forced_recall) < 0.95:
+        raise AssertionError(f"sift_b recall@10 {merged_recall} merged, "
+                             f"{forced_recall} after _forcemerge")
+    return extra, dict(
+        sift_b_refreshes=SIFT_B_REFRESHES, docs_each=SIFT_B_DOCS,
+        refresh_p50_s=f"{statistics.median(refresh_s):.4f}",
+        merges=st["merges"] - st0["merges"],
+        merge_reasons=json.dumps(st["merge_reasons"]),
+        merge_s=f"{(st['merge_nanos'] - st0['merge_nanos']) / 1e9:.3f}",
+        drain_s=f"{drain_s:.3f}", generations=st["generations"],
+        l0_generations=st["l0_generations"],
+        recall_at_10=merged_recall, forcemerge_s=f"{forcemerge_s:.3f}",
+        forced_recall_at_10=forced_recall)
 
 
 def _union_checks(client, node, rng, queries, live_of):
-    """sift_b (65,536 x 128, the same mapping): `sift,sift_b`, `sift*` and
+    """sift_b (65,536 x 128, the same mapping), its generations and
+    `_forcemerge` (`_sift_b_generations`); then `sift,sift_b`, `sift*` and
     no index give recall@10 against the exact top over the union, each
-    hit's `_index` right and `_shards.total` 2; `_msearch` of 16 lines
-    equals the 16 single searches. Returns (recall, bf16 launches)."""
+    hit's `_index` right and `_shards.total` 2, sift on its two exact legs
+    and sift_b, merged, on one binned launch a request; `_msearch` of 16 lines
+    equals the 16 single searches. Returns (recall, bf16 launches, the
+    exact legs, the sift_b fields to log)."""
     from elasticsearch_tpu_torch.ops import dispatch
     from elasticsearch_tpu_torch.ops import knn_binned as kb
     bvecs = clustered(rng, N_SIFT_B, 128)
@@ -1807,12 +1999,16 @@ def _union_checks(client, node, rng, queries, live_of):
     node.index("sift_b").index_many([f"b{i}" for i in range(N_SIFT_B)],
                                     vectors={"vec": bvecs})
     client.ok("POST", "/sift_b/_refresh")
+    extra, b_fields = _sift_b_generations(client, node, rng, bvecs)
+    bvecs = np.concatenate([bvecs, extra])
     names, live = live_of()
-    union_names = names + [f"b{i}" for i in range(N_SIFT_B)]
+    union_names = names + [f"b{i}" for i in range(len(bvecs))]
     qs = np.concatenate([
-        queries[:32], bvecs[rng.integers(0, N_SIFT_B, 32)]
+        queries[:32], bvecs[rng.integers(0, len(bvecs), 32)]
         + 0.3 * rng.standard_normal((32, 128)).astype(np.float32)])
     truth = exact_top(np.concatenate([live, bvecs]), qs, 10, "cosine")
+    svcs = [node.index("sift"), node.index("sift_b")]
+    stats0 = [dict(svc.store.knn_stats) for svc in svcs]
     dispatch.reset_launches()
     recalls, singles = [], []
     for path in ("/sift,sift_b/_search", "/sift*/_search", "/_search"):
@@ -1838,27 +2034,53 @@ def _union_checks(client, node, rng, queries, live_of):
             raise AssertionError(f"_msearch entry {many} against {one}")
     launches = dispatch.launches().get(kb.KERNEL_BF16, 0)
     n_req = 3 * len(qs) + len(singles)
-    if launches != 2 * n_req:
+    # sift: its tombstoned base and its seal on the exact route; sift_b
+    # after `_forcemerge`: one clean generation, one binned launch
+    counts = [_leg_counts(svc, st) for svc, st in zip(svcs, stats0)]
+    if launches != n_req or counts != [(2 * n_req, 0, 2, False),
+                                       (0, 0, 1, True)]:
         raise AssertionError(f"union: {launches} launches for {n_req} "
-                             f"requests over 2 indices")
-    return float(np.mean(recalls)), launches
+                             f"requests over 2 indices, legs (exact, "
+                             f"kernel, generations, clean) {counts}")
+    return (float(np.mean(recalls)), launches, counts[0][0], b_fields)
 
 
 def serve_documents(client, node, vecs, queries, rng) -> int:
     """The document and index API on sift at full width: writes, a timed
-    refresh (the store's rebuild on the card), the gates after it, the
-    expression searches over sift and sift_b, and both indices deleted
-    through `DELETE /{index}` with their device memory freed. Returns the
-    bf16 binned kernel's launches."""
+    refresh (the generational path: tombstones and an L0 seal), the gates
+    after it, sift_b's generations and `_forcemerge`, the expression
+    searches over sift and sift_b, and both indices deleted through
+    `DELETE /{index}` with every generation's device memory freed.
+    Returns the bf16 binned kernel's launches."""
     t0 = time.perf_counter()
     deleted, updated, created = _doc_writes(client, rng, len(vecs))
+    store = node.index("sift").store
+    st0 = store.segment_stats()
     t = time.perf_counter()
     client.ok("POST", "/sift/_refresh")
     refresh_s = time.perf_counter() - t
-    recall, p50, launches, ties = _doc_checks(
+    st = store.segment_stats()
+    gone = len(deleted) + len(updated)
+    sealed = len(updated) + len(created)
+    if (st["full_rebuilds"] != st0["full_rebuilds"]
+            or st["rebuilds_avoided"] != st0["rebuilds_avoided"] + 1
+            or st["generations"] != 2 or st["tombstoned_rows"] != gone
+            or st["sealed_rows"] - st0.get("sealed_rows", 0) != sealed):
+        raise AssertionError(f"sift refresh after the writes: {st}, "
+                             f"before {st0}")
+    recall, p50, routes, ties = _doc_checks(
         client, node, vecs, queries, deleted, updated, created)
     if recall < 0.95:
         raise AssertionError(f"serve_documents recall@10 {recall} < 0.95")
+    log("segments", index="sift", refresh_s=f"{refresh_s:.3f}",
+        generations=st["generations"], l0_generations=st["l0_generations"],
+        tombstoned_rows=st["tombstoned_rows"],
+        seals=st["seals"] - st0.get("seals", 0), sealed_rows=sealed,
+        rebuilds_avoided=st["rebuilds_avoided"] - st0["rebuilds_avoided"],
+        full_rebuilds=st["full_rebuilds"] - st0["full_rebuilds"],
+        recall_at_10=recall, p50_ms=f"{p50:.3f}",
+        binned_launches=routes["binned"], exact_legs=routes["exact_legs"],
+        bytes_mb=f"{st['bytes'] / 2**20:.1f}")
 
     def live_of():
         names = [str(i) for i in range(len(vecs))] + list(created)
@@ -1868,8 +2090,9 @@ def serve_documents(client, node, vecs, queries, rng) -> int:
         keep = np.array([nm not in deleted for nm in names])
         return [nm for nm, k in zip(names, keep) if k], live[keep]
 
-    union, union_launches = _union_checks(client, node, rng, queries,
-                                          live_of)
+    union, union_launches, union_legs, b_fields = _union_checks(
+        client, node, rng, queries, live_of)
+    log("segments", index="sift_b", **b_fields)
     if union < 0.95:
         raise AssertionError(f"union recall@10 {union} < 0.95")
     gc.collect()
@@ -1887,14 +2110,15 @@ def serve_documents(client, node, vecs, queries, rng) -> int:
                                                             queries[0]))
     if status != 404:
         raise AssertionError(f"search of a deleted index -> {status}")
+    launches = routes["binned"] + union_launches
     log("serve_documents", deleted=len(deleted), updated=len(updated),
         created=len(created), refresh_s=f"{refresh_s:.3f}",
         recall_at_10=recall, p50_ms=f"{p50:.3f}", ties=ties,
         union_recall_at_10=union, freed_mb=f"{freed / 2**20:.1f}",
-        corpora_mb=f"{corpora / 2**20:.1f}",
-        launches=launches + union_launches,
+        corpora_mb=f"{corpora / 2**20:.1f}", launches=launches,
+        exact_legs=routes["exact_legs"] + union_legs,
         seconds=f"{time.perf_counter() - t0:.1f}")
-    return launches + union_launches
+    return launches
 
 
 def clustered32(rng, n: int, d: int, n_centers: int = 256,
@@ -1919,7 +2143,7 @@ def unit(x: np.ndarray) -> np.ndarray:
 def serve_ivf(client, node, timer, name, field, vectors, queries, metric,
               kernel, settings=None):
     """One IVF index through `serve_index` (500 docs over `_bulk` first, so
-    the small shard stays exhaustive and the full refresh trains once),
+    the small index stays exhaustive and the one full refresh trains once),
     then the IVF checks: every timed request took the IVF route (the fused
     route when `kernel` is set) with no fallback, and one
     `store.search_many` of the same queries launches `kernel` once and
@@ -2027,6 +2251,139 @@ def ivf_filtered_fallback(client, node, name: str, qv: np.ndarray,
         fallback_reason=reason, filter_rows=len(keep))
 
 
+N_IVF_GC = 131_072      # serve_ivf_compaction: the int8_ivf index's rows
+IVF_GC_DELETED = 100    # ... of which one in this many is deleted
+
+
+def serve_ivf_compaction(client, node, rng, n: int) -> int:
+    """An `int8_ivf` index of n Cohere-shaped rows (768-d cosine, ~64 a
+    cluster) built in one refresh (its router trained there), served
+    through the fused kernel; then 1% of its docs deleted over `_bulk` and
+    a timed refresh: the base keeps its rows, sets tombstones and drops its
+    router, and serves masked on the exact route (no `ivf_fused_dense`
+    launch) while the merge thread, held at its start, waits; then the
+    merge runs (`drain()`): one `tombstone_gc` compaction whose retrain is
+    the one `ivf_background_builds`, after which the router is back,
+    every request launches `ivf_fused_dense` on `grouped` again, recall@10
+    over the live rows is >= 0.90 and routing recall >= 0.95 (the
+    `int8_ivf` gates). Returns the `ivf_fused_dense` launches."""
+    import threading
+    from elasticsearch_tpu_torch.ops import dispatch
+    from elasticsearch_tpu_torch.ops import ivf_fused as fused
+    name = "cohere_gc"
+    vecs = clustered32(rng, n, 768, n_centers=max(n // 64, 1))
+    queries = vecs[rng.integers(0, n, 64)] + 0.3 * rng.standard_normal(
+        (64, 768), dtype=np.float32)
+    client.ok("PUT", f"/{name}", {
+        "settings": {"number_of_shards": 1},
+        "mappings": {"_source": {"enabled": False}, "properties": {"vec": {
+            "type": "dense_vector", "dims": 768, "similarity": "cosine",
+            "index_options": {"type": "int8_ivf"}}}}})
+    svc = node.index(name)
+    store = svc.store
+    t = time.perf_counter()
+    svc.index_many([str(i) for i in range(n)], vectors={"vec": vecs})
+    client.ok("POST", f"/{name}/_refresh")
+    build_s = time.perf_counter() - t
+    client.ok("POST", f"/{name}/_search", knn_body("vec", queries[0]))
+    gens = store._gens["vec"]
+
+    def serve(live: np.ndarray, kernel, label: str):
+        truth = live[exact_top(vecs[live], queries, 10, "cosine")]
+        stats0 = dict(store.knn_stats)
+        dispatch.reset_launches()
+        lat, hits = [], []
+        for qv in queries:
+            t = time.perf_counter()
+            resp = client.ok("POST", f"/{name}/_search", knn_body("vec", qv))
+            lat.append((time.perf_counter() - t) * 1e3)
+            hits.append([int(h["_id"]) for h in resp["hits"]["hits"]])
+        launched = {k: c for k, c in dispatch.launches().items() if c}
+        want = {kernel: len(queries)} if kernel else {}
+        if launched != want:
+            raise AssertionError(f"{name} {label}: launches {launched}, "
+                                 f"expected {want}")
+        _expect_served_variant(kernel, dispatch.variant_launches(),
+                               len(queries))
+        if any(set(h) - set(live.tolist()) for h in hits):
+            raise AssertionError(f"{name} {label}: a deleted doc in a hit")
+        recall = float(np.mean([len(set(h) & set(t.tolist())) / 10
+                                for h, t in zip(hits, truth)]))
+        delta = {k: store.knn_stats[k] - stats0[k] for k in (
+            "ivf_searches", "generational_searches", "segment_legs_exact")}
+        return (recall, statistics.median(lat), hits, delta,
+                launched.get(fused.KERNEL_DENSE, 0))
+
+    everyone = np.arange(n)
+    recall0, p50_0, _, _, launched0 = serve(everyone, fused.KERNEL_DENSE,
+                                            "built")
+    # hold the merge thread at its start: the masked serving is observed
+    # before the compaction installs
+    held = threading.Event()
+    execute = gens._execute
+
+    def held_execute(spec, victims):
+        held.wait(600)
+        return execute(spec, victims)
+
+    gens._execute = held_execute
+    dead = np.sort(rng.choice(n, n // IVF_GC_DELETED, replace=False))
+    resp = client.ok("POST", f"/{name}/_bulk",
+                     [{"delete": {"_id": str(i)}} for i in dead.tolist()],
+                     ndjson=True)
+    if resp["errors"]:
+        raise AssertionError(f"{name}: bulk delete {resp['items'][:3]}")
+    st0 = store.segment_stats()
+    t = time.perf_counter()
+    client.ok("POST", f"/{name}/_refresh")
+    refresh_s = time.perf_counter() - t
+    st = store.segment_stats()
+    live = np.setdiff1d(everyone, dead)
+    if (st["full_rebuilds"] != st0["full_rebuilds"]
+            or st["tombstoned_rows"] != len(dead) or st["generations"] != 1
+            or store.field("vec").router is not None):
+        raise AssertionError(f"{name} refresh after the deletes: {st}")
+    recall1, p50_1, _, delta1, _ = serve(live, None, "tombstoned")
+    if delta1 != {"ivf_searches": 0, "generational_searches": len(queries),
+                  "segment_legs_exact": len(queries)} or recall1 < 0.90:
+        raise AssertionError(f"{name} tombstoned: {delta1}, recall@10 "
+                             f"{recall1}")
+    t = time.perf_counter()
+    held.set()
+    gens.drain()
+    drain_s = time.perf_counter() - t
+    del gens._execute
+    st2 = store.segment_stats()
+    fc = store.field("vec")
+    if (st2["ivf_background_builds"] - st0["ivf_background_builds"] != 1
+            or st2["merge_reasons"] != {"tombstone_gc": 1}
+            or st2["generations"] != 1 or st2["tombstoned_rows"]
+            or fc.router is None):
+        raise AssertionError(f"{name} after the compaction: {st2}")
+    # the new router's nprobe tuner runs at its first search
+    client.ok("POST", f"/{name}/_search", knn_body("vec", queries[0]))
+    recall2, p50_2, hits2, _, launched2 = serve(live, fused.KERNEL_DENSE,
+                                                "compacted")
+    _, rows, _ = fc.router.search(queries, 10, nprobe=fc.router.index.nlist)
+    full = [set(fc.row_map[r[r >= 0]].tolist()) for r in rows]
+    routing = float(np.mean([len(set(h) & f) / 10
+                             for h, f in zip(hits2, full)]))
+    log("serve_ivf_compaction", index="int8_ivf", docs=n, deleted=len(dead),
+        build_s=f"{build_s:.2f}", recall_at_10=recall0,
+        p50_ms=f"{p50_0:.3f}", refresh_s=f"{refresh_s:.3f}",
+        tombstoned_recall_at_10=recall1, tombstoned_p50_ms=f"{p50_1:.3f}",
+        merge_s=f"{(st2['merge_nanos'] - st0['merge_nanos']) / 1e9:.3f}",
+        drain_s=f"{drain_s:.3f}",
+        ivf_background_builds=st2["ivf_background_builds"],
+        compacted_recall_at_10=recall2, compacted_p50_ms=f"{p50_2:.3f}",
+        routing_recall_at_10=routing, nlist=fc.router.index.nlist)
+    if recall2 < 0.90 or routing < 0.95:
+        raise AssertionError(f"{name} compacted: recall@10 {recall2}, "
+                             f"routing recall {routing}")
+    drop_index(client, name)
+    return launched0 + launched2
+
+
 def drop_index(client, name: str) -> None:
     """`DELETE /{name}` through the REST route: the index's stores and its
     hybrid executor (the token tile) let go of their device memory."""
@@ -2036,9 +2393,11 @@ def drop_index(client, name: str) -> None:
 
 
 def phase_serve_ivf(seed: int, n_gist: int, n_cohere: int,
-                    device: str = "cuda", report=None) -> dict:
-    """serve_gist and serve_cohere_ivf: the tpu_ivf engine over HTTP. The
-    one-shard `int8_ivf` index's p50s and recalls go into `report`."""
+                    device: str = "cuda", report=None,
+                    compaction_only: bool = False) -> dict:
+    """serve_gist, serve_cohere_ivf and serve_ivf_compaction: the tpu_ivf
+    engine over HTTP. The one-shard `int8_ivf` index's p50s and recalls go
+    into `report`. `compaction_only` runs serve_ivf_compaction alone."""
     from elasticsearch_tpu_torch.ops import ivf_fused as fused
     from elasticsearch_tpu_torch.server import build_server
     node, server = build_server(device=device, port=0,
@@ -2049,6 +2408,11 @@ def phase_serve_ivf(seed: int, n_gist: int, n_cohere: int,
     try:
         client = Client(server.port)
         rng = np.random.default_rng(seed + 2)
+        if compaction_only:
+            total[fused.KERNEL_DENSE] += serve_ivf_compaction(
+                client, node, np.random.default_rng(seed + 21),
+                min(N_IVF_GC, n_cohere))
+            return total
 
         # GIST-shaped (960-d), dot_product over unit rows: BASELINE config 2
         raw = clustered32(rng, n_gist, 960)
@@ -2136,6 +2500,10 @@ def phase_serve_ivf(seed: int, n_gist: int, n_cohere: int,
                 ivf_filtered_fallback(client, node, name, cq[0],
                                       len(cvecs))
             drop_index(client, name)
+        del cvecs
+        total[fused.KERNEL_DENSE] += timed(
+            "serve_ivf_compaction", serve_ivf_compaction, client, node,
+            np.random.default_rng(seed + 21), min(N_IVF_GC, n_cohere))
     finally:
         timer.close()
         server.stop()
@@ -2229,12 +2597,13 @@ def _hybrid_body(q_emb, q_tok, source=False):
 
 def serve_colbert_index(client, node, name, encoding, oversample, data,
                         top, first=300, levels=()):
-    """One hybrid index: create, `_bulk` `first` docs and check one search,
-    load the rest through its one shard's `Engine.index_many` (token arrays
-    go to an engine: the routed `IndexService.index_many` takes only dense
-    vectors), refresh, one warm-up search (it builds the token tile), then the timed requests over HTTP, each
-    checked against its legs and host RRF; `top` holds the oracle's top-10
-    docs of each query. Then, for each C in `levels`, the concurrent
+    """One hybrid index: create, `_bulk` `first` docs (checked by one
+    search on a scratch copy, `small_index_check`), load the rest through
+    its one shard's `Engine.index_many` (token arrays go to an engine: the
+    routed `IndexService.index_many` takes only dense vectors), refresh
+    once, one warm-up search (it builds the token tile), then the timed
+    requests over HTTP, each checked against its legs and host RRF; `top`
+    holds the oracle's top-10 docs of each query. Then, for each C in `levels`, the concurrent
     clients of `serve_concurrent` (128 bodies a level). Returns the MaxSim
     leg's recall@10, the fields to log and the launches of the timed and
     concurrent requests."""
@@ -2248,32 +2617,36 @@ def serve_colbert_index(client, node, name, encoding, oversample, data,
     on_card = node.device.type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    client.ok("PUT", f"/{name}", {
-        "settings": {"number_of_shards": 1},
-        "mappings": {"properties": {
-            "emb": {"type": "dense_vector", "dims": 768,
-                    "similarity": "cosine", "index_options": {"type": "flat"}},
-            "colv": {"type": "rank_vectors", "dims": 128,
-                     "similarity": "cosine",
-                     "index_options": {"encoding": encoding,
-                                       "oversample": oversample}}}}})
+    body = {"settings": {"number_of_shards": 1},
+            "mappings": {"properties": {
+                "emb": {"type": "dense_vector", "dims": 768,
+                        "similarity": "cosine",
+                        "index_options": {"type": "flat"}},
+                "colv": {"type": "rank_vectors", "dims": 128,
+                         "similarity": "cosine",
+                         "index_options": {"encoding": encoding,
+                                           "oversample": oversample}}}}}
+    client.ok("PUT", f"/{name}", body)
     first = min(first, n)
     ops = []
     for i in range(first):
         ops += [{"index": {"_id": str(i)}},
                 {"emb": emb[i].tolist(),
                  "colv": tokens[offsets[i]:offsets[i + 1]].tolist()}]
+
+    def small_search(path):
+        probe = 7
+        hits = client.ok("POST", path, _hybrid_body(
+            emb[probe], tokens[offsets[probe]:offsets[probe] + 16],
+            source=True))["hits"]["hits"]
+        if hits[0]["_id"] != str(probe) \
+                or len(hits[0]["_source"]["colv"]) != counts[probe]:
+            raise AssertionError(f"small-index hybrid search: {hits[:2]}")
+
+    small_index_check(client, name, body, ops, small_search)
     resp = client.ok("POST", f"/{name}/_bulk", ops, ndjson=True)
     if resp["errors"]:
         raise AssertionError(f"bulk errors: {resp['items'][:3]}")
-    client.ok("POST", f"/{name}/_refresh")
-    probe = 7
-    hits = client.ok("POST", f"/{name}/_search", _hybrid_body(
-        emb[probe], tokens[offsets[probe]:offsets[probe] + 16],
-        source=True))["hits"]["hits"]
-    if hits[0]["_id"] != str(probe) or len(hits[0]["_source"]["colv"]) \
-            != counts[probe]:
-        raise AssertionError(f"small-index hybrid search: {hits[:2]}")
 
     t0 = time.perf_counter()
     node.index(name).engine.index_many(
@@ -3353,7 +3726,6 @@ def phase_serve_sharded(seed: int, n: int, device: str = "cuda",
                 if client.ok("POST", f"/{name}/_bulk", ops,
                               ndjson=True)["errors"]:
                     raise AssertionError("serve_sharded: bulk errors")
-                client.ok("POST", f"/{name}/_refresh")
             if len(block) > cut:
                 svc.index_many([str(i) for i in ids[cut:].tolist()],
                                sources=sharded_grp(ids[cut:]),
@@ -4111,14 +4483,15 @@ def phase_serve_hybrid(seed: int, n: int, device: str = "cuda") -> dict:
     total = {bm25.KERNEL: 0, kb.KERNEL_BF16: 0}
     try:
         client = Client(server.port)
-        client.ok("PUT", f"/{name}", {
+        index_body = {
             "settings": {"number_of_shards": 1},
             "mappings": {"properties": {
                 "body": {"type": "text", "analyzer": "standard"},
                 "emb": {"type": "dense_vector", "dims": 768,
                         "similarity": "cosine",
                         "index_options": {"type": "flat"}},
-                "len": {"type": "integer"}}}})
+                "len": {"type": "integer"}}}}
+        client.ok("PUT", f"/{name}", index_body)
         svc = node.index(name)
         emb = clustered(rng, n, 768)
         tok_parts, len_parts, clock = [], [], {"data": 0.0, "ingest": 0.0}
@@ -4143,17 +4516,21 @@ def phase_serve_hybrid(seed: int, n: int, device: str = "cuda") -> dict:
                 for i in range(lo, lo + cut):
                     ops += [{"index": {"_id": str(i)}},
                             dict(sources[i - lo], emb=emb[i].tolist())]
+
+                def small_match(path):
+                    probe = src_texts[7].split()
+                    hits = client.ok("POST", path, {
+                        "query": {"match": {"body": {
+                            "query": " ".join(probe[:8]),
+                            "operator": "and"}}},
+                        "size": first, "_source": False})["hits"]["hits"]
+                    if not hits or "7" not in {h["_id"] for h in hits}:
+                        raise AssertionError(f"small-index match: {hits}")
+
+                small_index_check(client, name, index_body, ops, small_match)
                 if client.ok("POST", f"/{name}/_bulk", ops,
                              ndjson=True)["errors"]:
                     raise AssertionError("serve_hybrid: bulk errors")
-                client.ok("POST", f"/{name}/_refresh")
-                probe = src_texts[7].split()
-                hits = client.ok("POST", f"/{name}/_search", {
-                    "query": {"match": {"body": {
-                        "query": " ".join(probe[:8]), "operator": "and"}}},
-                    "size": first, "_source": False})["hits"]["hits"]
-                if not hits or "7" not in {h["_id"] for h in hits}:
-                    raise AssertionError(f"small-index match: {hits}")
             if len(texts) > cut:
                 svc.index_many([str(i) for i in range(lo + cut,
                                                       lo + len(texts))],
@@ -4671,13 +5048,14 @@ def phase_serve_sparse(seed: int, n: int, n_walker: int = N_SPARSE_WALKER,
     sparse_key = f"{bm25.KERNEL}/{sparse.VARIANT}"
     try:
         client = Client(server.port)
-        client.ok("PUT", f"/{name}", {
+        index_body = {
             "settings": {"number_of_shards": 1},
             "mappings": {"properties": {
                 "tokens": {"type": "rank_features"},
                 "emb": {"type": "dense_vector", "dims": 768,
                         "similarity": "cosine",
-                        "index_options": {"type": "flat"}}}}})
+                        "index_options": {"type": "flat"}}}}}
+        client.ok("PUT", f"/{name}", index_body)
         svc = node.index(name)
         emb = clustered(rng, n, 768)
         tok_parts, w_parts, count_parts = [], [], []
@@ -4711,17 +5089,22 @@ def phase_serve_sparse(seed: int, n: int, n_walker: int = N_SPARSE_WALKER,
                 for i in range(lo, lo + cut):
                     ops += [{"index": {"_id": str(i)}},
                             dict(sources[i - lo], emb=emb[i].tolist())]
+                probe = dict(list(maps[7 - lo].items())[:5])
+
+                def small_sparse(path):
+                    hits = client.ok("POST", path, {
+                        "query": {"sparse_vector": {
+                            "field": "tokens", "query_vector": probe}},
+                        "size": first, "_source": False})["hits"]["hits"]
+                    if "7" not in {h["_id"] for h in hits}:
+                        raise AssertionError(
+                            f"small-index sparse_vector: {hits}")
+
+                small_index_check(client, name, index_body, ops,
+                                  small_sparse)
                 if client.ok("POST", f"/{name}/_bulk", ops,
                              ndjson=True)["errors"]:
                     raise AssertionError("serve_sparse: bulk errors")
-                client.ok("POST", f"/{name}/_refresh")
-                probe = dict(list(maps[7 - lo].items())[:5])
-                hits = client.ok("POST", f"/{name}/_search", {
-                    "query": {"sparse_vector": {
-                        "field": "tokens", "query_vector": probe}},
-                    "size": first, "_source": False})["hits"]["hits"]
-                if "7" not in {h["_id"] for h in hits}:
-                    raise AssertionError(f"small-index sparse_vector: {hits}")
             if len(maps) > cut:
                 svc.index_many([str(i) for i in range(lo + cut,
                                                       lo + len(maps))],
@@ -5839,6 +6222,12 @@ def main(argv=None) -> int:
                     help="build the binned kernels and run only serve_sift's "
                          "sequential requests and serve_documents at "
                          "--n-sift docs (no final ok line)")
+    ap.add_argument("--segments-only", action="store_true",
+                    help="build the binned and IVF kernels and run only "
+                         "serve_sift's sequential requests, "
+                         "serve_documents (with sift_b's generations) at "
+                         "--n-sift docs and serve_ivf_compaction (no "
+                         "final ok line)")
     ap.add_argument("--body-only", action="store_true",
                     help="build the binned kernels and run only the laion "
                          "index of serve_filtered at --n-laion rows with "
@@ -5878,6 +6267,13 @@ def main(argv=None) -> int:
     if args.docs_only:
         phase_build(["knn_binned"])
         phase_serve(args.seed, args.n_sift, 0, docs_only=True)
+        return 0
+    if args.segments_only:
+        phase_build(["knn_binned", "ivf_fused"])
+        timed("serve_documents", phase_serve, args.seed, args.n_sift, 0,
+              docs_only=True)
+        timed("serve_ivf_compaction", phase_serve_ivf, args.seed, 0,
+              args.n_cohere_ivf, compaction_only=True)
         return 0
     if args.body_only:
         phase_build(["knn_binned"])

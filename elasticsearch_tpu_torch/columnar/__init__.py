@@ -1,1 +1,2 @@
-"""Port of the token and postings blocks of `elasticsearch_tpu/columnar`."""
+"""Port of the vector, token and postings blocks of
+`elasticsearch_tpu/columnar`, and of its block store's vector half."""

@@ -1,7 +1,14 @@
-"""Per-segment token blocks of `rank_vectors` fields, postings blocks of
-text fields and learned-sparse postings blocks of feature-map fields (port
-of the token, postings and sparse parts of
-`elasticsearch_tpu/columnar/blocks.py`).
+"""Per-segment vector blocks of `dense_vector` fields, token blocks of
+`rank_vectors` fields, postings blocks of text fields and learned-sparse
+postings blocks of feature-map fields (port of the vector, token, postings
+and sparse parts of `elasticsearch_tpu/columnar/blocks.py`).
+
+A `VectorBlock` is one segment's live rows of one dense_vector field with
+their engine rows, as positions into the segment's own array (no copy,
+also with tombstones: the rows materialize only when gathered). The
+vector store reads them
+through `columnar/store.py`, whose cache shares them with the generations
+built from them.
 
 A `PostingsBlock` is one segment's live postings of one text field in
 dense live-slot space (live docs renumbered 0..n_live-1 in ascending
@@ -21,8 +28,8 @@ per-doc centroids the coarse phase indexes. Blocks are immutable and keyed
 by `fingerprint(view, variant)`, which changes whenever the segment's live
 set does, so a refresh re-encodes only new or changed segments. The owner
 of each cache is its reader (`vectors/late_interaction.py` for tokens,
-`ops/aggs.py::AggFieldStore` for values); there is no process-wide block
-store in the port.
+`ops/aggs.py::AggFieldStore` for values, `columnar/store.py::STORE` for
+vector blocks).
 """
 
 from __future__ import annotations
@@ -46,6 +53,45 @@ def fingerprint(view, extra: Tuple = ()) -> tuple:
     live content would (within one engine a live count only shrinks)."""
     seg = view.segment
     return (seg.seg_id, seg.num_docs, int(view.live.sum())) + tuple(extra)
+
+
+class VectorBlock:
+    """One segment's live rows of one dense_vector field: rows ``locs`` of
+    the segment's own f32 ``matrix`` (``locs`` None: all of them), never
+    copied, and ``rows`` their engine rows. ``nbytes`` counts what the
+    block adds beyond the segment."""
+
+    __slots__ = ("fingerprint", "matrix", "locs", "rows", "nbytes")
+
+    def __init__(self, fp: tuple, matrix: np.ndarray,
+                 locs: Optional[np.ndarray], rows: np.ndarray):
+        self.fingerprint = fp
+        self.matrix = matrix
+        self.locs = locs
+        self.rows = rows
+        self.nbytes = rows.nbytes + (0 if locs is None else locs.nbytes)
+
+    @property
+    def n_rows(self) -> int:
+        return len(self.rows)
+
+
+def extract_vector_block(view, field: str) -> Optional[VectorBlock]:
+    """Live vector rows of one segment, in row order (None when the segment
+    has no such field): the per-segment half of `ShardReader.vector_rows`,
+    by reference."""
+    seg = view.segment
+    if field not in seg.vectors:
+        return None
+    fp = fingerprint(view)
+    mat, present = seg.vectors[field]
+    mat = np.asarray(mat, dtype=np.float32)
+    keep = present & view.live
+    if keep.all():
+        return VectorBlock(fp, mat, None,
+                           np.arange(seg.num_docs, dtype=np.int64) + seg.base)
+    locs = np.nonzero(keep)[0].astype(np.int64)
+    return VectorBlock(fp, mat, locs, locs + seg.base)
 
 
 class TokenVectorBlock:

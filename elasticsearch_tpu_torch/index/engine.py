@@ -31,6 +31,9 @@ against the version map first (`create` on a live id, `if_seq_no` /
 deleted entry in the version map, so a later write of the id is `created`
 at version 1. A realtime GET reads a sealed row from its segment directly.
 
+`merge` compacts the sealed segments into one without the deleted docs
+(`POST /_forcemerge`): rows are new, and the vector store rebuilds.
+
 This slice has no translog and no flush: nothing survives the process.
 """
 
@@ -451,6 +454,21 @@ class Engine:
                 token_columns, mappers, token_mappers) -> int:
         """Append validated documents to the buffer (caller holds the
         lock); returns the first one's local row."""
+        if self._buffer is None:
+            self._buffer = _Buffer(self._next_seg_id, self._next_row)
+            self._next_seg_id += 1
+        start = self._fill(self._buffer, ids, sources, routings, stamps,
+                           parsed, columns, token_columns, mappers,
+                           token_mappers)
+        self._next_row += len(ids)
+        return start
+
+    @staticmethod
+    def _fill(buf: _Buffer, ids, sources, routings, stamps, parsed, columns,
+              token_columns, mappers, token_mappers) -> int:
+        """Append documents to `buf`: their parsed terms, doc values, text
+        and feature maps, and their vectors (from `columns` /
+        `token_columns` where given, else from the parsed sources)."""
         n = len(ids)
         stored = []
         per_field: Dict[str, list] = {
@@ -503,14 +521,10 @@ class Engine:
                     np.asarray([len(v) for _, v in items], dtype=np.int64))
             else:
                 columns[field] = (mask, np.stack([v for _, v in items]))
-        if self._buffer is None:
-            self._buffer = _Buffer(self._next_seg_id, self._next_row)
-            self._next_seg_id += 1
-        start = self._buffer.add(list(ids), stored, routings, stamps,
-                                 columns, token_columns, terms, doc_values)
-        self._buffer.add_text(start, text)
-        self._buffer.add_features(start, features)
-        self._next_row += n
+        start = buf.add(list(ids), stored, routings, stamps, columns,
+                        token_columns, terms, doc_values)
+        buf.add_text(start, text)
+        buf.add_features(start, features)
         return start
 
     def delete(self, doc_id: str, if_seq_no: Optional[int] = None,
@@ -664,18 +678,98 @@ class Engine:
     def refresh(self) -> ShardReader:
         """Seal the indexing buffer; make recent writes searchable."""
         with self._lock:
-            if self._buffer is not None and self._buffer.ids:
-                dims = {f: m.dims for f, m in
-                        self.mapper_service.vector_fields().items()}
-                self.segments.append(self._buffer.seal(dims))
-                self._seg_bases.append(self._buffer.base)
-                self._buffer = None
+            self._seal_buffer()
             views = [SegmentView(seg, self.deleted_rows.get(seg.seg_id))
                      for seg in self.segments]
             self._reader = ShardReader(views)
             for listener in self._refresh_listeners:
                 listener(self._reader)
             return self._reader
+
+    def _seal_buffer(self) -> None:
+        """Seal the indexing buffer into a segment (caller holds the
+        lock)."""
+        if self._buffer is not None and self._buffer.ids:
+            dims = {f: m.dims for f, m in
+                    self.mapper_service.vector_fields().items()}
+            self.segments.append(self._buffer.seal(dims))
+            self._seg_bases.append(self._buffer.base)
+        self._buffer = None
+
+    def merge(self) -> ShardReader:
+        """Compact every sealed segment into one, dropping deleted docs
+        (a Lucene force merge), and refresh. Live docs keep their order,
+        seq_nos, versions, routings, sources and vectors (the segments'
+        own f32 rows, also of vectors given as arrays); their rows are
+        new, past every earlier row, so the vector store meets the new
+        reader as a segment rewrite and rebuilds."""
+        reader = self.refresh()
+        with self._lock:
+            self._seal_buffer()     # writes since that refresh
+            if len(self.segments) <= 1 \
+                    and not any(self.deleted_rows.values()):
+                return reader
+            self._merge_segments()
+        return self.refresh()
+
+    def _merge_segments(self) -> None:
+        """(caller holds the lock, the buffer is sealed)"""
+        mappers = self.mapper_service.vector_fields()
+        token_mappers = self.mapper_service.token_fields()
+        buf = _Buffer(self._next_seg_id, self._next_row)
+        self._next_seg_id += 1
+        new_rows: Dict[str, int] = {}
+        for seg in self.segments:
+            dead = self.deleted_rows.get(seg.seg_id, ())
+            keep = [local for local in range(seg.num_docs)
+                    if local not in dead
+                    and self._is_current(seg.ids[local], seg.base + local)]
+            if not keep:
+                continue
+            at = np.asarray(keep, dtype=np.int64)
+            ids = [seg.ids[i] for i in keep]
+            sources = [seg.sources[i] for i in keep]
+            versions = seg.doc_values["_version"].values
+            stamps = [(int(seg.seq_nos[i]), int(versions[i]))
+                      for i in keep]
+            routings = ([None] * len(keep) if seg.routings is None
+                        else [seg.routings[i] for i in keep])
+            # every vector and token field from the segment's own rows, so
+            # array-given ones (no JSON in the source) come through too
+            columns = {}
+            for field, (mat, present) in seg.vectors.items():
+                mask = present[at]
+                if mask.any():
+                    columns[field] = (mask, mat[at[mask]])
+            tokens = {}
+            for field, (toks, offsets, present) in seg.tokens.items():
+                mask = present[at]
+                if mask.any():
+                    docs = at[mask]
+                    counts = offsets[docs + 1] - offsets[docs]
+                    rows = np.concatenate([np.arange(offsets[d],
+                                                     offsets[d + 1])
+                                           for d in docs])
+                    tokens[field] = (mask, toks[rows], counts)
+            parsed = [None if src is None
+                      else self.mapper_service.parse_document(src)
+                      for src in sources]
+            start = self._fill(buf, ids, sources, routings, stamps, parsed,
+                               columns, tokens, mappers, token_mappers)
+            for j, doc_id in enumerate(ids):
+                new_rows[doc_id] = buf.base + start + j
+        self._next_row = buf.base + len(buf.ids)
+        self.segments, self._seg_bases = [], []
+        self._buffer = buf
+        self._seal_buffer()
+        self.deleted_rows = {}
+        for doc_id, row in new_rows.items():
+            self.version_map[doc_id] = \
+                self.version_map[doc_id]._replace(row=row)
+
+    def _is_current(self, doc_id: str, row: int) -> bool:
+        vv = self.version_map.get(doc_id)
+        return vv is not None and not vv.deleted and vv.row == row
 
     def acquire_searcher(self) -> ShardReader:
         with self._lock:

@@ -287,9 +287,11 @@ class FieldPostings:
 class Segment:
     """Immutable sealed segment."""
 
+    # `__weakref__`: the vector block cache (`columnar/store.py`) keys on
+    # the segment weakly, so its blocks go with the segment
     __slots__ = ("seg_id", "base", "num_docs", "ids", "sources", "vectors",
                  "tokens", "postings", "doc_values", "routings",
-                 "field_lengths", "total_terms", "seq_nos")
+                 "field_lengths", "total_terms", "seq_nos", "__weakref__")
 
     def __init__(self, seg_id: int, base: int, ids: List[str],
                  sources: List[Optional[dict]],

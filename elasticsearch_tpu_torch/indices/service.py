@@ -154,18 +154,56 @@ def validate_knn_settings(settings: Dict[str, object]):
     return engine, nlist, nprobe
 
 
+def validate_segments_settings(settings: Dict[str, object]) -> dict:
+    """Validate + normalize the flat `index.segments.*` settings of the
+    generational device corpus into `VectorStoreShard` keyword arguments,
+    with the reference's 400 errors."""
+    enabled = settings.get("index.segments.enabled", True)
+    if not isinstance(enabled, bool):
+        enabled = str(enabled).strip().lower() in ("true", "1", "yes", "on")
+    out = {"segments_enabled": enabled}
+    for key, attr, floor in (("index.segments.tier_size",
+                              "segments_tier_size", 2),
+                             ("index.segments.max_l0",
+                              "segments_max_l0", 1)):
+        raw = settings.get(key)
+        if raw is None:
+            continue
+        try:
+            val = int(raw)
+        except (TypeError, ValueError):
+            val = floor - 1
+        if val < floor:
+            raise IllegalArgumentError(
+                f"[{key}] must be an integer >= {floor}, got [{raw}]")
+        out[attr] = val
+    raw = settings.get("index.segments.merge_budget_ms")
+    if raw is not None:
+        try:
+            val = float(raw)
+        except (TypeError, ValueError):
+            val = -1.0
+        if val <= 0:
+            raise IllegalArgumentError(
+                f"[index.segments.merge_budget_ms] must be a number "
+                f"> 0, got [{raw}]")
+        out["segments_merge_budget_ms"] = val
+    return out
+
+
 class IndexShardHandle:
     """One shard: its engine and its device vector store, which syncs from
     every reader the engine's refresh makes."""
 
     def __init__(self, shard_id: int, mapper_service: MapperService, device,
-                 knn_engine: str = "tpu", knn_nlist=None, knn_nprobe="auto"):
+                 knn_engine: str = "tpu", knn_nlist=None, knn_nprobe="auto",
+                 segments_settings: Optional[dict] = None):
         self.shard_id = shard_id
         self.mapper_service = mapper_service
         self.engine = Engine(mapper_service)
         self.vector_store = VectorStoreShard(
             device=device, knn_engine=knn_engine, knn_nlist=knn_nlist,
-            knn_nprobe=knn_nprobe)
+            knn_nprobe=knn_nprobe, **(segments_settings or {}))
         self.engine.add_refresh_listener(self._sync_vectors)
 
     def _sync_vectors(self, reader: ShardReader) -> None:
@@ -192,6 +230,8 @@ class IndexService:
                 "build: hidden indices are not ported")
         knn_engine, knn_nlist, knn_nprobe = validate_knn_settings(
             self.settings)
+        # the generational device corpus's knobs (`segments/`)
+        segments_settings = validate_segments_settings(self.settings)
         # the index's analyzers: the built-ins and its `index.analysis.*`
         self.mapper_service = MapperService(
             mapping, registry=AnalysisRegistry.from_index_settings(
@@ -199,7 +239,8 @@ class IndexService:
         self.shards: List[IndexShardHandle] = [
             IndexShardHandle(s, self.mapper_service, device,
                              knn_engine=knn_engine, knn_nlist=knn_nlist,
-                             knn_nprobe=knn_nprobe)
+                             knn_nprobe=knn_nprobe,
+                             segments_settings=segments_settings)
             for s in range(self.num_shards)]
         self._combined = None    # (shard readers, their combined reader)
         # the index's scatter-gather kNN store over its shards (the node's
@@ -257,9 +298,17 @@ class IndexService:
         for s in self.shards:
             s.engine.refresh()
 
+    def force_merge(self) -> None:
+        """`POST /{index}/_forcemerge`: each shard's engine compacts its
+        segments into one (`Engine.merge`), and its store rebuilds the
+        re-based rows."""
+        for s in self.shards:
+            s.engine.merge()
+
     def close(self) -> None:
         """Let go of the index's device memory: every shard store's corpora,
-        snapshots and batchers, and the memoized combined reader."""
+        generations (their merge threads stopped first), snapshots and
+        batchers, and the memoized combined reader."""
         for s in self.shards:
             s.vector_store.close()
         self._combined = None

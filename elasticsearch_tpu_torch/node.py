@@ -807,6 +807,15 @@ class Node:
         n = sum(svc.num_shards for svc in services)
         return {"_shards": {"total": n, "successful": n, "failed": 0}}
 
+    def force_merge(self, expression: Optional[str] = None) -> dict:
+        """`POST [/{index}]/_forcemerge`: every shard of every index the
+        expression names compacts its segments into one."""
+        services = self.resolve(expression)
+        for svc in services:
+            svc.force_merge()
+        n = sum(svc.num_shards for svc in services)
+        return {"_shards": {"total": n, "successful": n, "failed": 0}}
+
     # --------------------------------------------------------------- search
     def _hybrid_executor(self, svc: IndexService) -> HybridExecutor:
         with self._lock:
@@ -859,6 +868,37 @@ class Node:
                 agg["count"] += ent["count"]
                 agg["docs"] += ent["docs"]
         out["router"] = self._agg_router.snapshot()
+        return out
+
+    def device_segments_stats(self) -> dict:
+        """The generational device-corpus counters summed over every
+        shard's store (`VectorStoreShard.segment_stats`): rebuilds by
+        reason and the rebuilds avoided, seals, merges (by reason) and
+        their nanos, tombstoned rows, and generations, rows and bytes by
+        tier. The `_nodes/stats indices.segments` section is not ported;
+        this is its content."""
+        out: dict = {"full_rebuilds": 0, "rebuilds_avoided": 0,
+                     "rebuild_reasons": {}, "merge_reasons": {},
+                     "tiers": {}}
+        with self._lock:
+            services = list(self.indices.values())
+        for svc in services:
+            for shard in svc.shards:
+                for key, val in shard.vector_store.segment_stats().items():
+                    if key == "tiers":
+                        for t, tv in val.items():
+                            slot = out["tiers"].setdefault(
+                                t, {k: 0 for k in tv})
+                            for k, v in tv.items():
+                                slot[k] += v
+                    elif isinstance(val, dict):
+                        slot = out[key]
+                        for k, v in val.items():
+                            slot[k] = slot.get(k, 0) + v
+                    elif isinstance(val, bool):
+                        out[key] = out.get(key, False) or val
+                    else:
+                        out[key] = out.get(key, 0) + val
         return out
 
     def _max_buckets(self) -> Optional[int]:

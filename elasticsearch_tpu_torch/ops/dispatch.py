@@ -1,5 +1,5 @@
 """Bucket policy and kernel launch counters (port of the bucket half of
-`elasticsearch_tpu/ops/dispatch.py`).
+`elasticsearch_tpu/ops/dispatch.py`, with its generation row ladder).
 
 PyTorch runs eagerly, so there is no compile cache here. The policy stays:
 query batches pad to pow-2 buckets and k rounds up a fixed ladder, so a
@@ -55,6 +55,32 @@ def bucket_k(k: int, limit: Optional[int] = None) -> int:
         kb = min(kb, int(limit))
         kb = max(kb, min(k, int(limit)))
     return kb
+
+
+# generational device segments (`segments/`): a sealed generation pads its
+# rows to this pow-2 ladder, which also fixes its `k` bucket and its merge
+# tier (`segments/generation.py::generation_tier`). The ladder tops out at
+# MAX_GEN_ROW_BUCKET (pow-2 padding of a merged base in the millions of rows
+# would waste up to half the card's bytes on it); beyond, multiples of it.
+GEN_ROW_BUCKET_MIN = 128          # one lane tile (ops/knn.LANE)
+MAX_GEN_ROW_BUCKET = 1 << 20
+
+
+def bucket_gen_rows(n: int) -> int:
+    """Row bucket a generation pads to: pow-2 from GEN_ROW_BUCKET_MIN up to
+    MAX_GEN_ROW_BUCKET, then multiples of the cap."""
+    n = max(int(n), 1)
+    if n > MAX_GEN_ROW_BUCKET:
+        return -(-n // MAX_GEN_ROW_BUCKET) * MAX_GEN_ROW_BUCKET
+    b = GEN_ROW_BUCKET_MIN
+    while b < n:
+        b *= 2
+    return b
+
+
+def in_gen_row_grid(n: int) -> bool:
+    """True when a row count sits on the sealed-generation ladder."""
+    return n >= GEN_ROW_BUCKET_MIN and n == bucket_gen_rows(n)
 
 
 def bucket_headroom(n: int, max_batch: Optional[int] = None) -> int:

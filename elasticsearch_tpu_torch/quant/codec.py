@@ -39,6 +39,16 @@ class Encoded(NamedTuple):
 # planes, served two-phase with exact rescore by default)
 PACKED_ENCODINGS = ("int4",)
 
+# the device matrix dtype of each encoding, and back
+MATRIX_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+                 "int8": torch.int8, "int4": torch.uint8}
+_ENCODING_BY_DTYPE = {v: k for k, v in MATRIX_DTYPES.items()}
+
+
+def encoding_of(matrix_dtype: torch.dtype) -> str:
+    """The encoding a device matrix of this dtype holds."""
+    return _ENCODING_BY_DTYPE.get(matrix_dtype, "f32")
+
 
 class _Codec:
     """Geometry shared by the rungs: packed columns and bytes per row."""

@@ -23,7 +23,8 @@ URL parameters whose body keys are not ported.
 
 Indices: PUT, DELETE, GET and HEAD /{index}, GET [/{index}]/_mapping and
 PUT|POST /{index}/_mapping, GET [/{index}]/_settings[/{name}],
-[/{index}]/_refresh, POST [/{index}]/_cache/clear and
+[/{index}]/_refresh, POST [/{index}]/_forcemerge (`only_expunge_deletes`
+with `max_num_segments` is a 400), POST [/{index}]/_cache/clear and
 GET [/{index}]/_stats/{metric} (`query_cache`, `request_cache`).
 `_search`, `DELETE` and `GET /{index}`, `_mapping` and `_settings` read
 `ignore_unavailable` and `allow_no_indices` (`Node.resolve`); an
@@ -441,6 +442,15 @@ def register_all(rc: RestController, node: Node) -> None:
     def refresh(req):
         return 200, node.refresh(req.params.get("index"))
 
+    def forcemerge(req):
+        if req.param("only_expunge_deletes") in ("true", "", True) \
+                and req.param("max_num_segments") is not None:
+            raise ActionRequestValidationError(
+                "Validation Failed: 1: cannot set only_expunge_deletes and "
+                "max_num_segments at the same time, those two parameters "
+                "are mutually exclusive;")
+        return 200, node.force_merge(req.params.get("index"))
+
     def clear_cache(req):
         return 200, node.clear_cache(req.params.get("index"))
 
@@ -492,6 +502,8 @@ def register_all(rc: RestController, node: Node) -> None:
         rc.register("GET", path, get_settings)
     rc.register("POST", "/_refresh", refresh)
     rc.register("POST", "/{index}/_refresh", refresh)
+    rc.register("POST", "/_forcemerge", forcemerge)
+    rc.register("POST", "/{index}/_forcemerge", forcemerge)
     rc.register("GET", "/{index}/_refresh", refresh)
     rc.register("POST", "/_cache/clear", clear_cache)
     rc.register("POST", "/{index}/_cache/clear", clear_cache)

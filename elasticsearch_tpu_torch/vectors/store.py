@@ -1,10 +1,24 @@
-"""Per-shard device vector store: segments → device corpus (port of the
-monolithic path of `elasticsearch_tpu/vectors/store.py`).
+"""Per-shard device vector store: segments → device corpus (port of
+`elasticsearch_tpu/vectors/store.py`, less the mesh, the host mirror and
+the semantic cache).
 
-Each vector field of a shard is mirrored into one device-resident `Corpus`,
-rebuilt from the engine's sealed segments whenever a refresh changed the
-field's segment set or tombstones, with a row map joining device rows back
-to the engine's global rows (and thence `_id`).
+Each vector field of a shard is mirrored on the device, with a row map
+joining device rows back to the engine's global rows (and thence `_id`).
+The field's rows are read through the segment block store
+(`columnar/store.py`), so a refresh extracts only new or changed segments.
+With generational segments on (`index.segments.enabled`, the default;
+`segments/`), the first refresh builds the field's corpus and later ones
+are absorbed by its `GenerationalCorpus`: new rows seal into a small L0
+generation, deletes set tombstones, and a background thread merges
+generations (and retrains an IVF layout) off the refresh path. Only a
+first build, a metric change and an engine segment rewrite (its merge
+re-bases rows) rebuild the corpus; a bulk load into an established field
+seals as one generation, which `_forcemerge` folds into the base. Each
+rebuild of a resident corpus is counted with its reason
+(`segment_stats`). A field whose snapshot is one clean generation serves
+as the single corpus does; otherwise a batch runs one board a generation,
+merged in flat row order, and the handle holds that snapshot until the
+batch has landed.
 
 Fields on the `tpu_ivf` engine (`index.knn.engine: tpu_ivf`, or an
 `*_ivf` index_options type) of at least `IVF_MIN_ROWS` rows also carry an
@@ -33,12 +47,14 @@ back to its exhaustive corpus for it (`fallback_reason: filtered`). A
 request names the reader its filter ran on, and is served from the
 corpus synced for that reader.
 
-Left out, as ROADMAP.md lists: generational segments, the mesh, the
-semantic cache, the host mirror and its cost router, and the binary rung.
+Left out, as ROADMAP.md lists: the mesh (and a generation's graduation to
+it), the semantic cache, the host mirror and its cost router, and the
+binary rung.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 import weakref
@@ -48,13 +64,20 @@ import numpy as np
 import torch
 
 from elasticsearch_tpu_torch import resolve_device
+from elasticsearch_tpu_torch.columnar import store as columnar
 from elasticsearch_tpu_torch.index.mapping import DenseVectorFieldMapper
 from elasticsearch_tpu_torch.index.segment import ShardReader
 from elasticsearch_tpu_torch.ops import dispatch
 from elasticsearch_tpu_torch.ops import knn as knn_ops
 from elasticsearch_tpu_torch.ops import similarity as sim
+from elasticsearch_tpu_torch.quant import codec as quant_codec
 from elasticsearch_tpu_torch.quant import rescore as quant_rescore
+from elasticsearch_tpu_torch.segments import (
+    GenerationalCorpus, TieredMergePolicy, row_index_of,
+)
 from elasticsearch_tpu_torch.serving.batcher import CombiningBatcher
+
+logger = logging.getLogger("elasticsearch_tpu_torch.vectors")
 
 # below this many rows the exhaustive scan beats IVF routing overhead;
 # tpu_ivf fields smaller than this quietly serve exhaustive
@@ -80,16 +103,22 @@ _FLOOR = -1e37
 
 
 class FieldCorpus:
-    """Device corpus for one vector field + host-side row map."""
+    """Device corpus for one vector field + host-side row map.
+
+    A generational field's view (`gens` set) holds the `GenerationSet` it
+    was made for (`snap`): `corpus`, `router` and `source` are its base
+    generation's, `row_map` its flat row map."""
 
     __slots__ = ("corpus", "row_map", "metric", "dims", "version",
                  "encoding", "rescore", "rescore_oversample",
-                 "rescore_candidates", "router", "source", "_row_index")
+                 "rescore_candidates", "router", "source", "gens", "snap",
+                 "_row_index")
 
     def __init__(self, corpus, row_map: np.ndarray, metric: str, dims: int,
                  version: tuple, encoding: str = "bf16",
                  rescore: bool = False, rescore_oversample: int = 4,
-                 rescore_candidates: int = 128, router=None, source=None):
+                 rescore_candidates: int = 128, router=None, source=None,
+                 gens=None, snap=None):
         self.corpus = corpus          # knn_ops.Corpus or None (empty field)
         self.row_map = row_map        # device row -> engine global row
         self.metric = metric
@@ -97,34 +126,35 @@ class FieldCorpus:
         self.version = version        # segment/tombstone fingerprint
         self.encoding = encoding
         # two-phase rescore of packed rungs: window = k · oversample, exact
-        # rows gathered from `source` (the f32 extraction, device row order)
+        # rows gathered from `source` (a columnar RowSource, device row
+        # order)
         self.rescore = rescore
         self.rescore_oversample = rescore_oversample
         self.rescore_candidates = rescore_candidates
         self.router = router          # ann.IVFRouter (tpu_ivf) or None
         self.source = source
+        self.gens = gens              # segments.GenerationalCorpus or None
+        self.snap = snap              # its GenerationSet for this view
         self._row_index = None
 
     def row_index(self) -> np.ndarray:
         """Engine global row -> device row (-1: not in this corpus), made
         at the first filtered request."""
         if self._row_index is None:
-            n = int(self.row_map[-1]) + 1 if len(self.row_map) else 0
-            index = np.full(n, -1, dtype=np.int32)
-            index[self.row_map] = np.arange(len(self.row_map),
-                                            dtype=np.int32)
-            self._row_index = index
+            self._row_index = row_index_of(self.row_map)
         return self._row_index
 
 
-def filter_mask(fc: FieldCorpus, filters: Sequence[Optional[np.ndarray]],
+def filter_mask(fc, filters: Sequence[Optional[np.ndarray]],
                 b_pad: int, n_pad: int) -> torch.Tensor:
-    """[b_pad, n_pad] bool host mask of a batch: row i keeps every valid
-    device row when filters[i] is None, else the device rows of the engine
-    rows in filters[i] (`np.isin(fc.row_map, filters[i])`, by a scatter
-    through `row_index` instead of a search over the whole row map). Pad
-    rows and pad queries keep nothing. For a corpus on the card it is
-    built in pinned memory, so its upload does not wait on the host."""
+    """[b_pad, n_pad] bool host mask of a batch over `fc` (a FieldCorpus,
+    or a generation: anything with `row_map`, `row_index()` and
+    `corpus`): row i keeps every valid device row when filters[i] is None,
+    else the device rows of the engine rows in filters[i]
+    (`np.isin(fc.row_map, filters[i])`, by a scatter through `row_index`
+    instead of a search over the whole row map). Pad rows and pad queries
+    keep nothing. For a corpus on the card it is built in pinned memory,
+    so its upload does not wait on the host."""
     n_valid = len(fc.row_map)
     index = fc.row_index()
     out = torch.zeros((b_pad, n_pad), dtype=torch.bool,
@@ -185,12 +215,29 @@ def _to_host_async(*tensors: torch.Tensor):
 class VectorStoreShard:
     def __init__(self, dtype: str = "bf16", device="cuda",
                  knn_engine: str = "tpu", knn_nlist=None,
-                 knn_nprobe="auto"):
+                 knn_nprobe="auto", segments_enabled: bool = True,
+                 segments_tier_size: int = 4, segments_max_l0: int = 8,
+                 segments_merge_budget_ms: float = 50.0,
+                 segments_background_merge: bool = True):
         self.dtype = dtype
         self.device = resolve_device(device)
         self.knn_engine = knn_engine        # "tpu" (exhaustive) | "tpu_ivf"
         self.knn_nlist = knn_nlist          # None = pick_nlist(n)
         self.knn_nprobe = knn_nprobe        # "auto" | int
+        # generational device segments (`index.segments.*`): refresh seals
+        # L0 generations and sets tombstones, a background tiered merger
+        # consolidates; off, every changed refresh rebuilds the field
+        self.segments_enabled = bool(segments_enabled)
+        self.segments_tier_size = segments_tier_size
+        self.segments_max_l0 = segments_max_l0
+        self.segments_merge_budget_ms = segments_merge_budget_ms
+        self.segments_background_merge = bool(segments_background_merge)
+        self._gens: Dict[str, GenerationalCorpus] = {}
+        # every rebuild of a resident corpus, by reason, and the refreshes
+        # the generational path absorbed instead
+        self.segment_counters: Dict[str, object] = {
+            "full_rebuilds": 0, "rebuilds_avoided": 0,
+            "rebuild_reasons": {}}
         self._fields: Dict[str, FieldCorpus] = {}
         self._field_plans: Dict[str, dict] = {}
         # layouts staged by `restore_ivf_layout` for the next sync's build
@@ -203,7 +250,11 @@ class VectorStoreShard:
             "ivf_trains": 0, "ivf_restores": 0, "fused_probe_searches": 0,
             "rescore_searches": 0, "rescore_window_rows": 0,
             "rescore_promoted": 0, "rescore_nanos": 0,
-            "route_nanos": 0, "score_nanos": 0, "merge_nanos": 0}
+            "route_nanos": 0, "score_nanos": 0, "merge_nanos": 0,
+            # batches over more than one generation (or a tombstoned one),
+            # and their per-generation legs by route
+            "generational_searches": 0, "segment_legs_exact": 0,
+            "segment_legs_auto": 0}
         # key -> (the FieldCorpus the batcher serves, the batcher)
         self._batchers: Dict[tuple, Tuple[FieldCorpus, CombiningBatcher]] = {}
         self._batchers_lock = threading.Lock()
@@ -272,8 +323,12 @@ class VectorStoreShard:
 
     def sync(self, reader: ShardReader,
              vector_mappers: Dict[str, DenseVectorFieldMapper]) -> None:
-        """Rebuild every vector field whose segment composition or plan
-        changed (the monolithic full build), and its IVF router."""
+        """Bring every vector field whose segment composition or plan
+        changed up to `reader`: through its generational corpus when it
+        has one and the refresh can be absorbed
+        (`GenerationalCorpus.try_incremental`), else by a full build of
+        its corpus (and its IVF router), which becomes the field's new
+        generation 0."""
         for field, mapper in vector_mappers.items():
             version = self._fingerprint(reader, field)
             plan = self._encoding_plan(mapper)
@@ -281,42 +336,224 @@ class VectorStoreShard:
             if (cached is not None and cached.version == version
                     and self._field_plans.get(field) == plan):
                 continue
+            view = columnar.STORE.vector_view(reader, field)
+            row_map = view.row_map
             metric = _METRIC_MAP[mapper.similarity]
-            full, row_map = reader.vector_rows(field)
             dtype = plan["encoding"]
-            corpus = router = None
-            if len(row_map):
-                corpus = knn_ops.build_corpus(
-                    full, metric=metric, dtype=dtype,
-                    residual=plan["rescore"] and dtype == "int8",
-                    device=self.device)
-                if (self._field_engine(mapper) == "tpu_ivf"
-                        and len(row_map) >= IVF_MIN_ROWS):
-                    router = self._ivf_router(field, mapper, cached, full,
-                                              row_map, metric, dtype)
+            # the int8 rung's device rescore level; packed rungs rescore
+            # from the host rows instead
+            residual = plan["rescore"] and dtype == "int8"
+            gc = self._gens.get(field) if self.segments_enabled else None
+            if len(row_map) == 0:
+                self._install(field, plan, FieldCorpus(
+                    None, row_map, metric, mapper.dims, version))
+                self._drop_gens(field)
+                continue
+            if gc is not None:
+                if cached is None or self._reader_prefix_ok(cached.version,
+                                                            version):
+                    outcome = gc.try_incremental(view, row_map, dtype=dtype,
+                                                 metric=metric,
+                                                 rescore=residual)
+                else:
+                    # the engine rewrote its segments (its merge): row ids
+                    # were re-based, so one id no longer names one doc
+                    gc.last_rebuild_reason = "segment_rewrite"
+                    outcome = None
+                if outcome is not None:
+                    if outcome != "noop":
+                        with self._stats_lock:
+                            self.segment_counters["rebuilds_avoided"] += 1
+                    self._install(field, plan, self._generational_view(
+                        gc, gc.snapshot(), metric, mapper.dims, version,
+                        plan))
+                    continue
+            reason = (gc.last_rebuild_reason if gc is not None
+                      else self._rebuild_reason(cached, row_map, dtype))
+            self._full_build(field, mapper, plan, view, cached, version,
+                             metric, reason)
+        with self._lock:
+            self._snapshots[reader] = dict(self._fields)
+
+    def _install(self, field: str, plan: dict, fc: FieldCorpus) -> None:
+        with self._lock:
+            self._fields[field] = fc
+            self._field_plans[field] = plan
+        self._retire_field(field)
+
+    def _drop_gens(self, field: str, wait: bool = False) -> None:
+        gc = self._gens.pop(field, None)
+        if gc is not None:
+            gc.close(timeout_s=60.0 if wait else 0.0)
+
+    def _full_build(self, field, mapper, plan, view, cached, version,
+                    metric, reason) -> None:
+        """The full build of one field (its corpus and IVF router) from
+        the block store's view, counted when it replaces a resident
+        corpus; with segments on it becomes a new generational corpus."""
+        dtype = plan["encoding"]
+        residual = plan["rescore"] and dtype == "int8"
+        full = view.matrix()
+        row_map = view.row_map
+        corpus = knn_ops.build_corpus(full, metric=metric, dtype=dtype,
+                                      residual=residual, device=self.device)
+        router = None
+        if (self._field_engine(mapper) == "tpu_ivf"
+                and len(row_map) >= IVF_MIN_ROWS):
+            router = self._ivf_router(field, mapper, cached, full, row_map,
+                                      metric, dtype)
+        del full
+        if (cached is not None and cached.corpus is not None
+                and reason is not None):
+            with self._stats_lock:
+                self.segment_counters["full_rebuilds"] += 1
+                reasons = self.segment_counters["rebuild_reasons"]
+                reasons[reason] = reasons.get(reason, 0) + 1
+            logger.info("full corpus rebuild of field [%s]: reason=%s "
+                        "rows=%d", field, reason, len(row_map))
+        source = view.as_source()
+        gc = None
+        if self.segments_enabled:
+            gc = GenerationalCorpus.from_monolithic(
+                corpus, row_map, source, metric, dtype, residual,
+                mapper.dims, router=router, device=self.device,
+                policy=TieredMergePolicy(self.segments_tier_size,
+                                         self.segments_max_l0),
+                merge_budget_ms=self.segments_merge_budget_ms,
+                background=self.segments_background_merge,
+                knn_params={"engine": self._field_engine(mapper),
+                            "min_rows": IVF_MIN_ROWS},
+                view_cb=lambda g, _f=field: self._reinstall_view(_f, g),
+                ivf_build=lambda vecs, m, d, _f=field, _mp=mapper:
+                    self._train_router(_f, _mp, vecs, m, d)[0])
+            self._drop_gens(field)
+            self._gens[field] = gc
+            fc = self._generational_view(gc, gc.snapshot(), metric,
+                                         mapper.dims, version, plan)
+        else:
             fc = FieldCorpus(corpus, row_map, metric, mapper.dims, version,
                              encoding=dtype, rescore=plan["rescore"],
                              rescore_oversample=plan["rescore_oversample"],
                              rescore_candidates=plan["rescore_candidates"],
-                             router=router,
-                             source=full if dtype == "int4" else None)
-            with self._lock:
-                self._fields[field] = fc
-                self._field_plans[field] = plan
-            self._retire_field(field)
+                             router=router, source=source)
+        self._install(field, plan, fc)
+
+    @staticmethod
+    def _reader_prefix_ok(old_version: tuple, new_version: tuple) -> bool:
+        """An incremental refresh needs the old reader's segments to be a
+        prefix of the new one's (the same ids and sizes, live counts only
+        shrinking, new segments after): an engine segment rewrite re-bases
+        rows, and the row-id classifier would seal the wrong rows."""
+        if len(old_version) > len(new_version):
+            return False
+        return all(o[0] == n[0] and o[1] == n[1] and o[2] >= n[2]
+                   for o, n in zip(old_version, new_version))
+
+    @staticmethod
+    def _rebuild_reason(cached: Optional[FieldCorpus], row_map: np.ndarray,
+                        dtype: str) -> Optional[str]:
+        """Why a full build replaces a resident corpus when the field has
+        no generational corpus (None: a first build)."""
+        if cached is None or cached.corpus is None \
+                or len(cached.row_map) == 0:
+            return None
+        if cached.corpus.matrix.dtype != quant_codec.MATRIX_DTYPES[dtype]:
+            return "dtype_change"
+        old = cached.row_map
+        if len(row_map) >= len(old) \
+                and np.array_equal(row_map[:len(old)], old):
+            return "append_headroom"
+        if np.isin(old, row_map, invert=True).any():
+            return "deletes"
+        return "segment_rewrite"
+
+    def _generational_view(self, gc, snap, metric: str, dims: int,
+                           version: tuple, plan: dict) -> FieldCorpus:
+        """The FieldCorpus of one generation set: its base generation's
+        corpus, router and source (what one clean generation serves with)
+        and the flat row map."""
+        base = snap.generations[0]
+        return FieldCorpus(
+            base.corpus, snap.row_map, metric, dims, version,
+            encoding=plan["encoding"], rescore=plan["rescore"],
+            rescore_oversample=plan["rescore_oversample"],
+            rescore_candidates=plan["rescore_candidates"],
+            router=base.router, source=base.source, gens=gc, snap=snap)
+
+    def _reinstall_view(self, field: str, gc) -> None:
+        """After a background merge installed: serve the merged set from
+        every view of the same epoch (the latest one and those of readers
+        synced to it; a merge keeps the live rows and their order), and
+        retire the field's batchers, so the old generations go once the
+        batches holding them have landed. A view of an earlier epoch keeps
+        its own set."""
+        snap = gc.snapshot()
         with self._lock:
-            self._snapshots[reader] = dict(self._fields)
+            fc = self._fields.get(field)
+            if self._gens.get(field) is not gc or fc is None \
+                    or fc.gens is not gc:
+                return
+            renewed: Dict[int, FieldCorpus] = {}
+
+            def renew(old: FieldCorpus) -> FieldCorpus:
+                if old.gens is not gc or old.snap.epoch != snap.epoch \
+                        or old.snap is snap:
+                    return old
+                if id(old) not in renewed:
+                    renewed[id(old)] = self._generational_view(
+                        gc, snap, old.metric, old.dims, old.version,
+                        self._field_plans[field])
+                return renewed[id(old)]
+
+            self._fields[field] = renew(fc)
+            for fields in list(self._snapshots.values()):
+                if field in fields:
+                    fields[field] = renew(fields[field])
+        self._retire_field(field)
+
+    def segment_stats(self) -> dict:
+        """The generational counters of this shard: its rebuilds (with
+        their reasons) and the rebuilds avoided, and the generation, tier
+        and merge counters summed over its fields."""
+        with self._stats_lock:
+            out = {"full_rebuilds": self.segment_counters["full_rebuilds"],
+                   "rebuilds_avoided":
+                       self.segment_counters["rebuilds_avoided"],
+                   "rebuild_reasons": dict(
+                       self.segment_counters["rebuild_reasons"]),
+                   "enabled": self.segments_enabled}
+        agg: Dict[str, int] = {}
+        tiers: Dict[str, dict] = {}
+        merge_reasons: Dict[str, int] = {}
+        for gc in list(self._gens.values()):
+            for key, val in gc.segment_stats().items():
+                if key == "tiers":
+                    for t, tv in val.items():
+                        slot = tiers.setdefault(t, {k: 0 for k in tv})
+                        for k2, v2 in tv.items():
+                            slot[k2] += v2
+                elif key == "merge_reasons":
+                    for r, c in val.items():
+                        merge_reasons[r] = merge_reasons.get(r, 0) + c
+                else:
+                    agg[key] = agg.get(key, 0) + val
+        out.update(agg)
+        out["tiers"] = tiers
+        out["merge_reasons"] = merge_reasons
+        return out
 
     def _ivf_router(self, field, mapper, cached, full, row_map, metric,
                     dtype):
         """The field's IVF router: the cached one extended by an
         append-only refresh, else one over a restored layout, else one
         over a freshly trained layout."""
-        from elasticsearch_tpu_torch.ann import IVFRouter, build_ivf_index
-        from elasticsearch_tpu_torch.ann.ivf_index import (
-            ivf_from_layout, layout_compatible)
         old = cached.router if cached is not None else None
         old_n = len(cached.row_map) if cached is not None else 0
+        if cached is not None and cached.snap is not None \
+                and not cached.snap.simple:
+            # the router covers the base generation only, not the flat
+            # row map of the view
+            old = None
         if (old is not None and not old.index.needs_retrain
                 and old.index.dtype == dtype
                 and old.index.metric == metric
@@ -332,31 +569,45 @@ class VectorStoreShard:
                       np.arange(old_n, len(row_map), dtype=np.int32))
             if not index.needs_retrain:
                 return old.with_index(index)
+        router, restored = self._train_router(field, mapper, full, metric,
+                                              dtype)
+        self._bump(**{"ivf_restores" if restored else "ivf_trains": 1})
+        return router
+
+    def _train_router(self, field, mapper, full, metric, dtype):
+        """(A router over a layout staged by `restore_ivf_layout` when one
+        fits these rows, else over a freshly trained one, and whether it
+        was restored): the full build's and the merge thread's."""
+        from elasticsearch_tpu_torch.ann import IVFRouter, build_ivf_index
+        from elasticsearch_tpu_torch.ann.ivf_index import (
+            ivf_from_layout, layout_compatible)
         opts = mapper.params.get("index_options") or {}
         nlist = opts.get("nlist", self.knn_nlist)
         ivf = None
         layout = self._restored_ivf.pop(field, None)
         if layout is not None and layout_compatible(
-                layout, len(row_map), mapper.dims, metric, dtype):
+                layout, len(full), mapper.dims, metric, dtype):
             ivf = ivf_from_layout(layout, full)
-            self._bump(ivf_restores=1)
+        restored = ivf is not None
         if ivf is None:
             ivf = build_ivf_index(
                 full, metric=metric,
                 nlist=int(nlist) if nlist is not None else None,
                 dtype=dtype, seed=0, device=self.device)
-            self._bump(ivf_trains=1)
         return IVFRouter(ivf, nprobe=opts.get("nprobe", self.knn_nprobe),
-                         device=self.device)
+                         device=self.device), restored
 
     def field(self, name: str) -> Optional[FieldCorpus]:
         return self._fields.get(name)
 
     def close(self) -> None:
-        """Drop every field's corpus, the per-reader snapshots and the
-        batchers (an index delete): the device memory goes with the last
+        """Drop every field's corpus and generations, the per-reader
+        snapshots and the batchers (an index delete), after the merge
+        threads have stopped: the device memory goes with the last
         reference. Requests still queued in a batcher finish against the
         corpus it closed over."""
+        for field in list(self._gens):
+            self._drop_gens(field, wait=True)
         with self._lock:
             self._fields.clear()
             self._field_plans.clear()
@@ -533,6 +784,8 @@ class VectorStoreShard:
         kind, payload, phases = handle
         if kind == "done":
             return payload, phases
+        # `fc`: the FieldCorpus, or the GenerationSet of a generational
+        # batch (the flat row map), held until the boards have landed
         fc, scores, ids, ready, k_eff, n_valid, n_real, rescore_ctx = payload
         if ready is not None:
             ready.synchronize()
@@ -554,8 +807,12 @@ class VectorStoreShard:
         fallback reason applies (completes here), else the exhaustive
         route, launched with no host wait: the queries (and a filtered
         batch's mask) go up from pinned memory and the boards come back
-        into pinned memory behind an event. Returns (kind, payload,
-        phases)."""
+        into pinned memory behind an event. A generational view whose set
+        is more than one clean generation fans out instead
+        (`_dispatch_generational`). Returns (kind, payload, phases)."""
+        if fc.snap is not None and not fc.snap.simple:
+            return self._dispatch_generational(fc.snap, fc, k, precision,
+                                               requests, num_candidates)
         n_valid = len(fc.row_map)
         n_real = len(requests)
         n_pad = fc.corpus.matrix.shape[0]
@@ -601,6 +858,38 @@ class VectorStoreShard:
         return ("pending", (fc, s, i, ready, k_eff, n_valid, n_real,
                             rescore_ctx), phases)
 
+    def _dispatch_generational(self, snap, fc: FieldCorpus, k: int,
+                               precision: str, requests: List[tuple],
+                               num_candidates: Optional[int]):
+        """One board a generation, merged in flat row order
+        (`GenerationSet.search_async`): L0 seals and tombstoned
+        generations between merges. The handle holds `snap` until its
+        boards land, so a merge installing meanwhile neither swaps the row
+        map under it nor frees the tensors it reads. Packed generations
+        rescore the coarse window through `snap.gather_rows`."""
+        n_real = len(requests)
+        batch = np.stack([np.asarray(q, dtype=np.float32)
+                          for q, _ in requests])
+        filters = [fr for _, fr in requests]
+        k_req = min(k, snap.total_pad)
+        rescore_ctx = None
+        k_eff = k_req
+        if fc.rescore and any(g.corpus.matrix.dtype == torch.uint8
+                              for g in snap.generations):
+            rescore_ctx = {"queries": batch, "k": k_req,
+                           "metric": fc.metric, "gather": snap.gather_rows}
+            k_eff = quant_rescore.coarse_window(
+                k_req, fc.rescore_oversample, limit=snap.total_pad)
+        padded = _pad_batch(batch, n_real)
+        self._bump(searches=1, generational_searches=1)
+        s, i, phases = snap.search_async(
+            _to_device(padded, self.device), padded, n_real, k_eff, filters,
+            fc.metric, precision, num_candidates=num_candidates,
+            bump=self._bump)
+        (s, i), ready = _to_host_async(s[:n_real, :k_eff], i[:n_real, :k_eff])
+        return ("pending", (snap, s, i, ready, k_eff, len(snap.row_map),
+                            n_real, rescore_ctx), phases)
+
     @staticmethod
     def _rescore_ctx(fc: FieldCorpus, queries: np.ndarray,
                      k_final: int) -> Optional[dict]:
@@ -610,9 +899,8 @@ class VectorStoreShard:
         if not fc.rescore or fc.source is None \
                 or fc.corpus.matrix.dtype != torch.uint8:
             return None
-        source = fc.source
         return {"queries": queries, "k": k_final, "metric": fc.metric,
-                "gather": lambda ids: source[ids]}
+                "gather": fc.source.gather}
 
     def _apply_rescore(self, ctx: dict, scores: np.ndarray,
                        ids: np.ndarray, n_real: int):

@@ -6,7 +6,10 @@ numeric and boolean metadata, some of it multi-valued; some documents
 have no vector, and updates tombstone rows. Each filter kind runs on each
 rung: `flat`, `int8_flat` + rescore, `ivf` and `int8_ivf` (one segment
 each; a filter sends them to their exhaustive corpus:
-`fallback_reason: filtered` in both packages) over REST, and `int4_flat` + rescore through the stores at f32 (the
+`fallback_reason: filtered` in both packages), `ivf` and `int8_ivf` again
+in two segments with three updates once the merge thread has compacted
+the tombstoned base (the generational route: each generation's leg
+masked on the exact route) over REST, and `int4_flat` + rescore through the stores at f32 (the
 reference's int4 scoring at bf16 does not run on the CPU). Hits must
 have the same ids in the same order except among scores that tie within
 1e-4, and scores within the exact route's tolerance (2e-5 of the raw
@@ -48,6 +51,8 @@ RUNGS = {
     "int4": {"type": "int4_flat", "rescore": True},
     "ivf": {"type": "ivf"},
     "int8ivf": {"type": "int8_ivf"},
+    "ivf_gen": {"type": "ivf"},
+    "int8ivf_gen": {"type": "int8_ivf"},
 }
 
 FILTERS = {
@@ -132,14 +137,16 @@ def nodes(tmp_path_factory):
                 "index.knn.nlist": 16}
     for name, options in RUNGS.items():
         create = {"settings": settings, "mappings": _mapping(options)}
-        # the IVF indices load as one segment, so that the reference
-        # serves them through its IVF router (more segments or a tombstone
-        # take its generational route, which has no router to fall back
-        # from)
+        # `ivf` and `int8ivf` load as one segment, so that both packages
+        # serve them through their IVF router and its filtered fallback;
+        # the `_gen` rungs take the generational route (a base of 600
+        # rows with its router, an L0 seal, tombstones)
         ivf = name.endswith("ivf")
+        splits = ((0, N),) if ivf else ((0, 600), (600, N)) \
+            if name.endswith("_gen") else ((0, 400), (400, N))
         for req in (ref_req, port_req):
             assert req("PUT", f"/{name}", create)[0] == 200
-            for lo, hi in ((0, N),) if ivf else ((0, 400), (400, N)):
+            for lo, hi in splits:
                 bulk = []
                 for i in range(lo, hi):
                     bulk += [{"index": {"_id": f"d{i}"}}, docs[i]]
@@ -152,6 +159,12 @@ def nodes(tmp_path_factory):
                     doc = dict(docs[i], color="red", width=999)
                     assert req("PUT", f"/{name}/_doc/d{i}", doc)[0] == 200
                 assert req("POST", f"/{name}/_refresh")[0] == 200
+        if name.endswith("_gen"):
+            # the tombstoned IVF base's compaction (a retrain on each
+            # package's merge thread) ends before any search
+            ref.indices.indices[name].shards[0].vector_store \
+                ._gens["v"].drain()
+            port.index(name).store._gens["v"].drain()
     queries = (vecs[rng.integers(0, N - 20, 3)]
                + 0.3 * rng.standard_normal((3, D))).astype(np.float32)
     yield ref_req, port_req, ref, port, queries
@@ -183,7 +196,8 @@ def _same_hits(want, got, tol=1e-5):
         assert gh[j]["_id"] == wh[j]["_id"]
 
 
-@pytest.mark.parametrize("rung", ["flat", "int8", "ivf", "int8ivf"])
+@pytest.mark.parametrize("rung", ["flat", "int8", "ivf", "int8ivf",
+                                  "ivf_gen", "int8ivf_gen"])
 @pytest.mark.parametrize("fname", sorted(FILTERS))
 def test_filtered_knn_matches_reference(nodes, rung, fname):
     ref_req, port_req, ref, port, queries = nodes
@@ -195,8 +209,13 @@ def test_filtered_knn_matches_reference(nodes, rung, fname):
         s2, got = port_req("POST", f"/{rung}/_search", body)
         assert s1 == s2 == 200, (want, got)
         _same_hits(want, got)
-        if rung.endswith("ivf"):
-            phases = port.index(rung).store.last_knn_phases
+        phases = port.index(rung).store.last_knn_phases
+        if rung.endswith("_gen"):
+            assert phases["engine"] == "tpu_generational"
+            assert phases["legs"] == ["segments.knn"] * 3
+            assert _ref_store(ref, rung).last_knn_phases["legs"] == \
+                phases["legs"]
+        elif rung.endswith("ivf"):
             assert phases["fallback_reason"] == "filtered"
             assert _ref_store(ref, rung).last_knn_phases[
                 "fallback_reason"] == "filtered"

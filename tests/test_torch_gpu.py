@@ -1303,8 +1303,16 @@ def test_search_body_on_cuda_matches_cpu(cuda, monkeypatch, shards):
     `highlight` over `a` and `a,b` hold their hits to the CPU node's
     (scores within 1e-3; query vectors whose top 10 is separated from
     the 11th by more than that) and launch the binned kernel once an
-    index and shard a leg."""
-    (_, grc), (_, crc) = _mixed_pair(cuda, monkeypatch, shards)
+    index and shard a leg. The fixture's deletes and updates leave
+    tombstoned bases and sealed generations (served on the exact route),
+    so both nodes `_forcemerge` first: each shard then serves one clean
+    generation."""
+    pair = _mixed_pair(cuda, monkeypatch, shards)
+    for node, rc in pair:
+        assert _req(rc, "POST", "/a,b/_forcemerge")[0] == 200
+        assert all(s.vector_store.field("v").snap.simple
+                   for name in ("a", "b") for s in node.index(name).shards)
+    (_, grc), (_, crc) = pair
     paths = (("/a/_search", 1), ("/a,b/_search", 2))
     for path, _ in paths:
         for bi, body in enumerate(_HOST_BODIES):
@@ -1620,3 +1628,201 @@ def test_aggs_on_cuda_node_match_cpu_host_path(cuda):
             assert got["aggregations"] == want["aggregations"], (path, aggs)
             assert gnode.aggs_stats()["device_nodes"] - d0 \
                 == len(aggs) * (2 if "," in path else 1)
+
+
+# ------------------------------------------------- generational segments
+
+def _gen_segments(rng, sizes, d):
+    from elasticsearch_tpu_torch.index import segment
+    segs, base = [], 0
+    for i, n in enumerate(sizes):
+        mat = rng.standard_normal((n, d)).astype(np.float32)
+        segs.append(segment.Segment(i, base, [f"d{base + j}" for j in
+                                              range(n)], [None] * n,
+                                    {"v": (mat, np.ones(n, dtype=bool))}))
+        base += n
+    return segs
+
+
+def _gen_reader(segs, upto, deleted=None):
+    from elasticsearch_tpu_torch.index import segment
+    return segment.ShardReader([segment.SegmentView(s, (deleted or {})
+                                                    .get(i))
+                                for i, s in enumerate(segs[:upto])])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("options", [None, {"type": "int8_flat",
+                                            "rescore": True},
+                                     {"type": "int4_flat"}])
+def test_generational_store_on_cuda_matches_cpu(cuda, options):
+    """Appends seal L0 generations, deletes set tombstones, a batch mixes
+    filtered and unfiltered requests, merges run: a CUDA store answers as
+    a CPU store does (raw scores within 1e-3); an unfiltered batch
+    launches the binned kernel (bf16, int8) for a clean full-build base,
+    and none once the base has tombstones (every leg exact, L0 seals
+    always), until a force merge leaves one clean generation."""
+    from elasticsearch_tpu_torch.index import mapping
+    from elasticsearch_tpu_torch.vectors.store import VectorStoreShard
+    d = 64
+    rng = np.random.default_rng(71)
+    segs = _gen_segments(rng, [kb.BLOCK_N * 2, 900, 300, 40], d)
+    field = {"type": "dense_vector", "dims": d}
+    if options:
+        field["index_options"] = options
+    props = mapping.MapperService({"properties": {"v": field}}
+                                  ).vector_fields()
+    stores = [VectorStoreShard(device=dev, segments_background_merge=False,
+                               segments_tier_size=2)
+              for dev in (cuda, "cpu")]
+    queries = list(rng.standard_normal((9, d)).astype(np.float32))
+    filters = [None, np.arange(0, 17000, 3, dtype=np.int64)] * 4 + [None]
+
+    def check(kernel_route: bool):
+        dispatch.reset_launches()
+        got = stores[0].search_many("v", queries, 10, filter_rows=filters)
+        launched = dispatch.launches()
+        want = stores[1].search_many("v", queries, 10, filter_rows=filters)
+        for (gr, gs), (wr, ws) in zip(got, want):
+            np.testing.assert_allclose(gs, ws, atol=1e-3)
+            assert len(set(gr) & set(wr)) >= 8
+        dispatch.reset_launches()
+        stores[0].search_many("v", queries, 10)
+        kernels = {k for k, c in dispatch.launches().items() if c}
+        packed = options and options["type"] == "int4_flat"
+        assert kernels == ({kb.KERNEL_INT8 if options else kb.KERNEL_BF16}
+                           if kernel_route and not packed else set()), \
+            kernels
+        assert not launched.get(kb.KERNEL_BF16)      # a filter: exact
+
+    for upto, deleted in ((1, {}), (2, {}), (3, {}), (4, {0: {3, 9999}})):
+        for store in stores:
+            store.sync(_gen_reader(segs, upto, deleted), props)
+        check(not deleted)
+    for store in stores:
+        store._gens["v"].run_merges()
+        assert store._gens["v"].force_merge()
+    check(True)
+
+
+@pytest.mark.gpu
+def test_generational_handle_holds_its_set_across_a_merge_on_cuda(cuda):
+    """A batch launched against a set of L0 generations lands right after
+    a merge installed and freed them (the handle holds its set), while the
+    merge thread runs under concurrent searches."""
+    import threading
+    from elasticsearch_tpu_torch.index import mapping
+    from elasticsearch_tpu_torch.vectors.store import VectorStoreShard
+    d = 128
+    rng = np.random.default_rng(72)
+    segs = _gen_segments(rng, [20000] + [100] * 9, d)
+    # l2_norm: every leg exact (the binned kernel's approximation aside)
+    props = mapping.MapperService({"properties": {"v": {
+        "type": "dense_vector", "dims": d, "similarity": "l2_norm"}}}
+    ).vector_fields()
+    gpu = VectorStoreShard(device=cuda, segments_background_merge=False)
+    cpu = VectorStoreShard(device="cpu", segments_background_merge=False)
+    for upto in range(1, 11):
+        for store in (gpu, cpu):
+            store.sync(_gen_reader(segs, upto), props)
+    queries = list(rng.standard_normal((16, d)).astype(np.float32))
+    want = cpu.search_many("v", queries, 10)
+    handle = gpu.search_many_async("v", queries, 10)
+    assert gpu._gens["v"].run_merges() >= 1
+    torch.cuda.empty_cache()
+    for (gr, gs), (wr, ws) in zip(gpu.finalize_many(handle), want):
+        np.testing.assert_allclose(gs, ws, atol=1e-3)
+    bg = VectorStoreShard(device=cuda, segments_tier_size=2,
+                          segments_merge_budget_ms=2.0)
+    errors = []
+
+    def search():
+        try:
+            for _ in range(20):
+                for (gr, gs), (wr, ws) in zip(
+                        bg.search_many("v", queries, 10), want):
+                    np.testing.assert_allclose(gs, ws, atol=1e-3)
+        except Exception as e:      # noqa: BLE001 - surfaced below
+            errors.append(e)
+
+    for upto in range(1, 11):
+        bg.sync(_gen_reader(segs, upto), props)
+    # the merge thread started at the seals; the searches run beside it
+    threads = [threading.Thread(target=search) for _ in range(2)]
+    for t in threads:
+        t.start()
+    bg._gens["v"].drain()
+    for t in threads:
+        t.join(120)
+    assert not errors, errors[0]
+    assert bg.segment_stats()["merges"] >= 1
+
+
+@pytest.mark.gpu
+def test_forcemerge_and_ivf_compaction_on_cuda(cuda, monkeypatch):
+    """`_forcemerge` after deletes on the CUDA node: the store rebuilds
+    one clean generation and launches the binned kernel again, as the CPU
+    node answers; an `int8_ivf` index loses its router at a delete (no
+    fused launch), and after the merge thread's compaction launches
+    `ivf_fused_dense` again; `DELETE` frees every generation's bytes."""
+    import gc
+    import threading
+    pair = _doc_pair(cuda, monkeypatch)
+    rng = np.random.default_rng(73)
+    held = threading.Event()
+    vecs = rng.standard_normal((9000, 64)).astype(np.float32)
+    for node, rc in pair:
+        for name, options in (("a", {"type": "flat"}),
+                              ("c", {"type": "int8_ivf", "nlist": 16,
+                                     "nprobe": 4})):
+            assert _req(rc, "PUT", f"/{name}", {
+                "settings": {"number_of_shards": 1},
+                "mappings": {"properties": {"emb": {
+                    "type": "dense_vector", "dims": 64,
+                    "index_options": options}}}})[0] == 200
+            node.index(name).index_many([str(i) for i in range(9000)],
+                                        vectors={"emb": vecs})
+            assert _req(rc, "POST", f"/{name}/_refresh")[0] == 200
+            # hold the merge thread until the masked route was seen
+            gens = node.index(name).store._gens["emb"]
+            gens._execute = (lambda spec, victims, _run=gens._execute:
+                             held.wait(60) and _run(spec, victims))
+            ops = [{"delete": {"_id": str(i)}} for i in range(0, 9000, 97)]
+            assert not _req(rc, "POST", f"/{name}/_bulk", ops,
+                            ndjson=True)[1]["errors"]
+            assert _req(rc, "POST", f"/{name}/_refresh")[0] == 200
+    (gnode, grc), (_, crc) = pair
+    body = {"knn": {"field": "emb", "query_vector": vecs[5].tolist(),
+                    "k": 10, "num_candidates": 50}, "size": 10}
+    for name, kernel in (("a", kb.KERNEL_BF16), ("c", fused.KERNEL_DENSE)):
+        dispatch.reset_launches()
+        _, got = _req(grc, "POST", f"/{name}/_search", body)
+        assert not dispatch.launches().get(kernel)
+        _, want = _req(crc, "POST", f"/{name}/_search", body)
+        _same_hits(got, want, 1e-3)
+    held.set()
+    for node, _ in pair:
+        node.index("c").store._gens["emb"].drain()
+    assert _req(grc, "POST", "/a/_forcemerge")[0] == 200
+    assert _req(crc, "POST", "/a/_forcemerge")[0] == 200
+    store = gnode.index("c").store
+    assert store.field("emb").router is not None
+    assert store.segment_stats()["ivf_background_builds"] == 1
+    _req(grc, "POST", "/c/_search", body)       # the nprobe tuner
+    for name, kernel in (("a", kb.KERNEL_BF16), ("c", fused.KERNEL_DENSE)):
+        dispatch.reset_launches()
+        _, got = _req(grc, "POST", f"/{name}/_search", body)
+        assert dispatch.launches().get(kernel) == 1, name
+        assert "0" not in {h["_id"] for h in got["hits"]["hits"]}
+    _, got = _req(grc, "POST", "/a/_search", body)
+    _, want = _req(crc, "POST", "/a/_search", body)
+    _same_hits(got, want, 1e-3)
+    gc.collect()
+    before = torch.cuda.memory_allocated(cuda)
+    corpus = sum(g.nbytes for name in ("a", "c") for g in
+                 gnode.index(name).store._gens["emb"].snapshot().generations)
+    del store
+    for name in ("a", "c"):
+        assert _req(grc, "DELETE", f"/{name}")[0] == 200
+    gc.collect()
+    assert before - torch.cuda.memory_allocated(cuda) >= 0.9 * corpus

@@ -45,7 +45,9 @@ def test_port_imports_without_jax_or_reference():
                  "index.analysis", "index.analysis_lang", "ops.sparse",
                  "search.caches", "node", "rest.actions", "rest.controller",
                  "common.errors", "search.aggregations",
-                 "search.agg_partials", "search.agg_plan", "ops.aggs"):
+                 "search.agg_partials", "search.agg_plan", "ops.aggs",
+                 "segments", "segments.policy", "segments.generation",
+                 "segments.generational", "columnar.store"):
         assert f"elasticsearch_tpu_torch.{name}" in names
     code = (
         "import sys\n"

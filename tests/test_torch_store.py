@@ -26,10 +26,10 @@ def _no_host_mirror(monkeypatch):
     monkeypatch.setattr(ref_store.native, "AVAILABLE", False)
 
 
-def _readers(blocks, deleted):
+def _readers(blocks, deleted, first_seg_id=0):
     """The same two segments as a reference and a port ShardReader."""
     ref_views, views, base = [], [], 0
-    for seg_id, vecs in enumerate(blocks):
+    for seg_id, vecs in enumerate(blocks, first_seg_id):
         n = len(vecs)
         ids = [f"d{base + i}" for i in range(n)]
         present = np.ones(n, dtype=bool)
@@ -40,7 +40,7 @@ def _readers(blocks, deleted):
             seq_nos=np.arange(base, base + n, dtype=np.int64))
         pseg = segment.Segment(seg_id, base, ids, [None] * n,
                                {"v": (vecs, present)})
-        dels = deleted.get(seg_id)
+        dels = deleted.get(seg_id - first_seg_id)
         ref_views.append(ref_segment.SegmentView(rseg, dels))
         views.append(segment.SegmentView(pseg, dels))
         base += n
@@ -97,7 +97,9 @@ def test_engine_refresh_feeds_store_and_resyncs_on_change():
     engine.index("7", {"v": (vecs[7] * -1).tolist(), "tag": "x"})
     assert engine.get("7")["_version"] == 2
     reader = engine.refresh()
-    assert store.field("v") is not fc and len(store.field("v").row_map) == 50
+    # the update tombstones row 7 and seals row 50 (an L0 generation)
+    assert store.field("v") is not fc \
+        and len(store.field("v").snap.live_row_map()) == 50
     rows, _ = store.search("v", -vecs[7], 1)
     assert reader.get_id(int(rows[0])) == "7"
     assert reader.get_source(int(rows[0]))["tag"] == "x"
@@ -208,11 +210,14 @@ def test_small_ivf_field_stays_exhaustive_and_f32_falls_back():
 
 
 def test_append_only_refresh_keeps_the_router():
+    """The full-build path's router extension (`index.segments.enabled:
+    false`; a generational field seals the delta instead, as
+    test_torch_segments.py holds)."""
     ms = mapping.MapperService({"properties": {"v": {
         "type": "dense_vector", "dims": D,
         "index_options": {"type": "int8_ivf", "nlist": 8}}}})
     engine = Engine(ms)
-    store = VectorStoreShard(device="cpu")
+    store = VectorStoreShard(device="cpu", segments_enabled=False)
     engine.add_refresh_listener(lambda r: store.sync(r, ms.vector_fields()))
     rng = np.random.default_rng(12)
     vecs = rng.standard_normal((700, D)).astype(np.float32)
@@ -387,7 +392,8 @@ def test_sync_between_submits_serves_each_request_its_snapshot():
     props = mapping.MapperService({"properties": {"v": {
         "type": "dense_vector", "dims": D}}}).vector_fields()
     _, old_reader = _readers(old, {})
-    _, new_reader = _readers(new, {})
+    # new segments (an engine rewrite of the rows): the store rebuilds
+    _, new_reader = _readers(new, {}, first_seg_id=10)
     queries = rng.standard_normal((3, D)).astype(np.float32)
     oracles = []
     for reader in (old_reader, new_reader):
@@ -503,10 +509,10 @@ def test_refresh_race_keeps_no_stale_batcher():
 
 @pytest.mark.parametrize("retire", [True, False])
 def test_plan_change_at_the_same_version_replaces_the_batcher(retire):
-    """A mapping change that rebuilds the field without a new segment set
-    (same version, so the same batcher key) serves the new encoding, also
-    when a search lands between the swap and the retirement (`retire`
-    False holds the retirement back)."""
+    """A mapping change without a new segment set (same version, so the
+    same batcher key) serves the new encoding once the merge thread has
+    re-encoded the field, also when a search lands between the swap and
+    the retirement (`retire` False holds the retirement back)."""
     rng = np.random.default_rng(61)
     blocks = [rng.standard_normal((300, D)).astype(np.float32)]
     _, reader = _readers(blocks, {})
@@ -521,6 +527,8 @@ def test_plan_change_at_the_same_version_replaces_the_batcher(retire):
                 store._retire_field = lambda field: None
         store.sync(reader, mapping.MapperService(
             {"properties": {"v": field}}).vector_fields())
+        # the new encoding is a retarget: the merge thread re-encodes
+        store._gens["v"].drain()
         assert store.field("v").corpus.matrix.dtype == dtype
         rows, _ = store.search("v", q, K)
         assert rows[0] == 7
