@@ -4,11 +4,11 @@
                           [--n-gist 1000000] [--n-cohere-ivf 1000000]
                           [--n-colbert 131071] [--n-laion 1000000]
                           [--n-sharded 1000000] [--n-msmarco 262144]
-                          [--n-sparse 262144] [--n-logs 500000]
+                          [--n-sparse 262144] [--n-logs 100000]
                           [--binned-only | --ivf-only | --maxsim-only |
                            --sharded-only | --hybrid-only | --sparse-only |
                            --docs-only | --segments-only | --body-only |
-                           --logs-only]
+                           --logs-only | --telemetry-only]
 
 Phases, one line each; any failure raises and the exit code is not 0:
 
@@ -209,7 +209,7 @@ Phases, one line each; any failure raises and the exit code is not 0:
                50,000 passages, byte-identical to the board's window there
   serve_logs   a web-server log index modelled on the Rally `http_logs`
                track (the 1998 World Cup logs, 247,249,096 lines), cut
-               to --n-logs lines (500,000): its mapping (`date` with
+               to --n-logs lines (100,000): its mapping (`date` with
                `strict_date_optional_time||epoch_second`, `ip`, a `text`
                request with a `keyword` multi-field, an object of
                keywords and a `geo_point`, `dynamic: strict`), lines from
@@ -233,7 +233,7 @@ Phases, one line each; any failure raises and the exit code is not 0:
                time-partitioned indices searched with
                `pre_filter_shard_size=1`, can_match skipping the one
                whose dates miss the day; then aggregations (`size: 0`)
-               over the 500,000 lines and the pair: the track's
+               over the lines and the pair: the track's
                `hourly_agg` (a `date_histogram` by the hour), `terms` on
                `status` with `stats` of `size`, a daily histogram with
                `terms` under it, a `range` of `size` with `avg`,
@@ -308,6 +308,25 @@ request, which must fall back to the exhaustive corpus
                serve_concurrent at C = 1 and 8, one launch a shard a
                batch. Logged beside the one-shard `int8_ivf` index of
                serve_cohere_ivf and the card's name and power limit.
+  telemetry    rides the serve phases' indices, `[telemetry]` lines: on
+               sift_b after `_forcemerge`, cohere `int8_flat` and cohere
+               `int8_ivf` a kNN body with `profile: true` against its
+               unprofiled twin (the same hits and launches, the launch
+               events naming `knn.binned` / `ivf.fused_probe` once a
+               launch, `profile.knn`, the trace with the batch's dispatch
+               and finalize spans); the msmarco hybrid body (both legs,
+               `bm25.topk` and `knn.binned` events, the queue-wait /
+               launch / device-wait split, no device-rung cache hit); a
+               serve_logs `size: 0` body (engine `device`, collect > 0);
+               after sift's C = 8 level `GET _nodes/stats/telemetry`
+               (queue wait one a request, dispatch and sync one a batch
+               of the index batcher, p50 and p99 of each); a request
+               queued behind sift's held batcher lock and cancelled
+               through `POST _tasks/{id}/_cancel` (shed, no launch, the
+               reference's 400); `timeout: 1ms` and `terminate_after: 1`
+               on sift_b (the same hits, `timed_out` false); and the
+               sequential HTTP p50 of 256 sift_b requests at sample rates
+               0, 0.01 and 1.0.
 
 `--binned-only`, `--ivf-only` and `--maxsim-only` run env, build and one
 kernel phase (no serving, no ok line): the numbers of PERF.md's
@@ -321,7 +340,9 @@ requests and serve_documents (no ok line); `--segments-only` the same
 and serve_ivf_compaction, with the IVF build too; `--body-only` runs env, the
 binned build, the laion index at --n-laion with its unfiltered requests
 and the search body's part (no ok line); `--logs-only` runs env and
-serve_logs (no build, no ok line). Every phase drops its indices
+serve_logs (no build, no ok line); `--telemetry-only` runs env, the
+binned, IVF and BM25 builds and the phases that carry the telemetry part
+(below) at the sizes given (no ok line). Every phase drops its indices
 through `DELETE /{index}`. Each phase's
 wall seconds print as a `[timing]` line.
 
@@ -343,6 +364,7 @@ import resource
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 from typing import Optional
@@ -1135,7 +1157,7 @@ class Client:
         self.port = port
         self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
 
-    def req(self, method, path, body=None, ndjson=False):
+    def req(self, method, path, body=None, ndjson=False, headers=None):
         if body is None:
             raw = b""
         elif ndjson:
@@ -1143,7 +1165,8 @@ class Client:
         else:
             raw = json.dumps(body).encode()
         self.conn.request(method, path, body=raw,
-                          headers={"content-type": "application/json"})
+                          headers={"content-type": "application/json",
+                                   **(headers or {})})
         resp = self.conn.getresponse()
         data = resp.read()
         return resp.status, (json.loads(data) if data else None)
@@ -1503,7 +1526,7 @@ def knn_against_batch1(label: str, extra: dict, tol):
 def serve_concurrent(index: str, port: int, path: str, bodies, levels,
                      n: int, check, sched, sizes, variants,
                      truth=None, recall=None, coalesce_at=None,
-                     open_loop=()) -> dict:
+                     open_loop=(), histograms_at=None) -> dict:
     """Levels of HTTP clients against one served index: for each C in
     `levels`, C closed-loop clients send `n` requests (`run_clients`);
     then for each fraction f in `open_loop`, `n` requests arrive open-loop
@@ -1515,8 +1538,11 @@ def serve_concurrent(index: str, port: int, path: str, bodies, levels,
     against `truth` must not fall below `recall`, and at C >= coalesce_at
     the largest batch must exceed 1. `sched()` reads the batcher's
     counters and `sizes` = (object, attribute, argument) names the
-    dispatch stage whose batches are measured. Logs a line a level and
-    returns the launches of all levels by kernel."""
+    dispatch stage whose batches are measured. At the closed level of
+    `histograms_at` clients the telemetry histograms are reset before the
+    level and held to the batcher's counters after it
+    (`telemetry_histograms`). Logs a line a level and returns the launches
+    of all levels by kernel."""
     from elasticsearch_tpu_torch.ops import dispatch
     total, closed_qps = {}, 0.0
     runs = [(clients, 0.0) for clients in levels] + [
@@ -1524,6 +1550,10 @@ def serve_concurrent(index: str, port: int, path: str, bodies, levels,
     for clients, frac in runs:
         rate = frac * closed_qps
         batch_sizes = BatchSizes(*sizes)
+        histograms = not rate and clients == histograms_at
+        if histograms:
+            from elasticsearch_tpu_torch import telemetry
+            telemetry.REGISTRY.reset()
         before = sched()
         dispatch.reset_launches()
         try:
@@ -1584,6 +1614,8 @@ def serve_concurrent(index: str, port: int, path: str, bodies, levels,
                 raise AssertionError(f"{label}: recall@10 {got} < the "
                                      f"sequential {recall}")
         log("serve_concurrent", **fields)
+        if histograms:
+            telemetry_histograms(port, f"{index} C={clients}", n, delta)
         if coalesce_at is not None and not rate and clients >= coalesce_at \
                 and max(batch_sizes.sizes) <= 1:
             raise AssertionError(f"{label}: no batch above 1 request: the "
@@ -1594,7 +1626,8 @@ def serve_concurrent(index: str, port: int, path: str, bodies, levels,
 
 
 def store_concurrent(name: str, port: int, svc, queries, extra: dict,
-                     recall: float, tol, variants) -> dict:
+                     recall: float, tol, variants,
+                     histograms_at=None) -> dict:
     """serve_concurrent over a one-shard kNN index `svc` at C = 1, 8 and
     32, then open loop at 0.5 and 0.9 of the C = 32 level's QPS: the
     index's batcher counters, the batches its shard store dispatches."""
@@ -1605,7 +1638,7 @@ def store_concurrent(name: str, port: int, svc, queries, extra: dict,
         svc.vector_store.scheduler_stats, (svc.store, "_dispatch_many", 3),
         variants,
         truth=extra["truth"], recall=recall, coalesce_at=32,
-        open_loop=(0.5, 0.9))
+        open_loop=(0.5, 0.9), histograms_at=histograms_at)
 
 
 def phase_serve(seed: int, n_sift: int, n_cohere: int,
@@ -1645,8 +1678,9 @@ def phase_serve(seed: int, n_sift: int, n_cohere: int,
             conc = store_concurrent(
                 "sift", server.port, node.index("sift"), queries, extra,
                 recall, lambda _: BF16_QUANTUM / 2,
-                {f"{kb.KERNEL_BF16}/{kb.VARIANT_TMA}"})
+                {f"{kb.KERNEL_BF16}/{kb.VARIANT_TMA}"}, histograms_at=8)
             total[kb.KERNEL_BF16] += conc.get(kb.KERNEL_BF16, 0)
+            telemetry_cancel(client, node, "sift", queries[0])
         del extra
         # its own generator, so the later indices' data stay the seed's
         total[kb.KERNEL_BF16] += timed(
@@ -1687,6 +1721,10 @@ def phase_serve(seed: int, n_sift: int, n_cohere: int,
         total[kb.KERNEL_INT8] += launches.get(kb.KERNEL_INT8, 0)
         if recall < 0.95:
             raise AssertionError(f"serve_cohere recall@10 {recall} < 0.95")
+        for key, c in telemetry_profile(
+                client, "cohere", knn_body("vec", cq[0]), "knn.binned",
+                kb.KERNEL_INT8).items():
+            total[key] += c
         log("serve_cohere", docs=n_cohere, dims=768, requests=len(cq),
             ingest_s=f"{ingest:.2f}", p50_ms=f"{p50:.3f}",
             store_p50_ms=f"{store_p50:.3f}",
@@ -2095,6 +2133,7 @@ def serve_documents(client, node, vecs, queries, rng) -> int:
     log("segments", index="sift_b", **b_fields)
     if union < 0.95:
         raise AssertionError(f"union recall@10 {union} < 0.95")
+    union_launches += telemetry_sift_b(client, node, rng)
     gc.collect()
     torch.cuda.synchronize()
     corpora = _corpus_bytes(node, "sift") + _corpus_bytes(node, "sift_b")
@@ -2497,6 +2536,10 @@ def phase_serve_ivf(seed: int, n_gist: int, n_cohere: int,
                     recall, lambda sc: 1e-5 * max(1.0, max(map(abs, sc))),
                     {f"{kernel}/{fused.VARIANT_GROUPED}"})
                 total[kernel] += conc.get(kernel, 0)
+                for key, c in telemetry_profile(
+                        client, name, knn_body("vec", cq[1]),
+                        "ivf.fused_probe", kernel, ivf=True).items():
+                    total[key] += c
                 ivf_filtered_fallback(client, node, name, cq[0],
                                       len(cvecs))
             drop_index(client, name)
@@ -4754,6 +4797,9 @@ def phase_serve_hybrid(seed: int, n: int, device: str = "cuda") -> dict:
             total[key] += c
         total[kb.KERNEL_BF16] += serve_body_msmarco(client, node, svc,
                                                     q_text, q_emb, emb)
+        for key, c in telemetry_hybrid(client, node, name,
+                                       bodies[0]).items():
+            total[key] = total.get(key, 0) + c
         drop_index(client, name)
     finally:
         server.stop()
@@ -5406,7 +5452,7 @@ def phase_serve_sparse(seed: int, n: int, n_walker: int = N_SPARSE_WALKER,
 
 # --------------------------------------------------------------- serve_logs
 
-N_LOGS = 500_000            # serve_logs lines (247,249,096 in the track)
+N_LOGS = 100_000            # serve_logs lines (247,249,096 in the track)
 N_LOGS_BULK = 2_000
 N_LOGS_DYNAMIC = 10_000
 N_LOGS_SPLIT = 20_000       # docs in each of the can_match pair's indices
@@ -6173,12 +6219,298 @@ def phase_serve_logs(seed: int, n: int, device: str = "cuda",
         logs_aggs(client, node, cols, parts)
         log("timing", step="serve_logs_aggs",
             seconds=f"{time.perf_counter() - t:.1f}")
+        telemetry_logs(client, node)
         for name in ["logs", *parts]:
             drop_index(client, name)
         logs_dynamic(client, seed, n_dynamic)
     finally:
         server.stop()
     return {}
+
+
+# ------------------------------------------------------------------ telemetry
+#
+# The telemetry part rides the serve phases' indices: profiled requests
+# against their unprofiled twins on sift_b (after `_forcemerge`), cohere
+# `int8_flat`, cohere `int8_ivf`, the msmarco hybrid index and serve_logs;
+# the histograms of sift's C = 8 level against its batcher's counters; a
+# queued request cancelled through `_tasks`; the sampling overhead and
+# `timeout` / `terminate_after` on sift_b. Every line is `[telemetry]`.
+
+TELEMETRY_RATES = (0.0, 0.01, 1.0)     # sample rates of the overhead part
+TELEMETRY_REQUESTS = 256               # sift_b's sequential requests a rate
+
+
+def _trace_span_names(client, trace_id: str) -> set:
+    """The span names of trace `trace_id` in the node's trace ring."""
+    ring = client.ok("GET", "/_nodes/traces?size=20")
+    for section in ring["nodes"].values():
+        for tr in section["traces"]:
+            if tr["trace_id"] == trace_id:
+                return {sp["name"] for sp in tr["spans"]}
+    raise AssertionError(f"trace {trace_id} is not in the trace ring")
+
+
+def _hit_ids(resp) -> list:
+    return [h["_id"] for h in resp["hits"]["hits"]]
+
+
+def telemetry_profile(client, index: str, body: dict, program: str,
+                      kernel: str, ivf: bool = False) -> dict:
+    """One kNN body unprofiled, then with `profile: true`: the same hits,
+    the same launches, `profile.shards[*].dispatch` naming `program` /
+    `kernel` once a launch, `profile.knn` (an IVF index's engine and its
+    route / score / merge nanos; an exhaustive one's block-store
+    composition, as the reference reports it), and the profile's trace in
+    the ring with the batch's dispatch and finalize spans. Returns the
+    launches of both requests."""
+    from elasticsearch_tpu_torch.ops import dispatch
+    path = f"/{index}/_search"
+    dispatch.reset_launches()
+    plain = client.ok("POST", path, body)
+    plain_launches = dispatch.launches()
+    dispatch.reset_launches()
+    t = time.perf_counter()
+    prof = client.ok("POST", path, dict(body, profile=True))
+    prof_ms = (time.perf_counter() - t) * 1e3
+    launches = dispatch.launches()
+    label = f"telemetry {index}"
+    if launches != plain_launches or kernel not in launches:
+        raise AssertionError(f"{label}: profiled launches {launches}, "
+                             f"unprofiled {plain_launches}")
+    if _hit_ids(prof) != _hit_ids(plain):
+        raise AssertionError(f"{label}: profiled hits differ")
+    shards = prof["profile"]["shards"]
+    events = [e for sh in shards for e in sh.get("dispatch", [])]
+    if len(events) != sum(launches.values())             or {e["kernel"] for e in events} != {program}             or {e["launch"].split("/")[0] for e in events} != {kernel}:
+        raise AssertionError(f"{label}: events {events} for {launches}")
+    knn = shards[0].get("knn") or {}
+    if ivf:
+        if knn.get("engine") != "tpu_ivf" or not all(
+                knn["breakdown"].get(k, 0) > 0
+                for k in ("route_nanos", "score_nanos", "merge_nanos")):
+            raise AssertionError(f"{label}: profile.knn {knn}")
+    elif "columnar" not in knn:
+        raise AssertionError(f"{label}: profile.knn {knn}")
+    names = _trace_span_names(client, prof["profile"]["trace"]["trace_id"])
+    if not {"batch.dispatch", "batch.finalize", "queue.wait"} <= names:
+        raise AssertionError(f"{label}: trace spans {sorted(names)}")
+    query_ns = shards[0]["searches"][0]["query"][0]["time_in_nanos"]
+    log("telemetry", index=index, profile="knn", hits_equal=True,
+        launches=json.dumps(launches), events=len(events),
+        event_kernels=json.dumps(sorted({e["launch"] for e in events})),
+        engine=knn.get("engine"),
+        knn_breakdown=json.dumps(knn.get("breakdown", {})),
+        query_ms=f"{query_ns / 1e6:.3f}", profiled_http_ms=f"{prof_ms:.3f}",
+        trace_spans=json.dumps(sorted(names)))
+    return {k: launches.get(k, 0) + plain_launches.get(k, 0)
+            for k in launches}
+
+
+def telemetry_histograms(port: int, label: str, n: int, delta: dict) -> None:
+    """`GET _nodes/stats/telemetry` after a concurrent level whose
+    histograms were reset before it: `serving.queue_wait` counts one a
+    request, `serving.device_dispatch` and `serving.device_sync` one a
+    batch of the level's batcher (`delta`: its counters' change), and
+    `search.took` one a request. Logs each one's p50 and p99."""
+    client = Client(port)
+    stats = client.ok("GET", "/_nodes/stats/telemetry")
+    (section,) = stats["nodes"].values()
+    hist = section["telemetry"]["histograms"]
+    want = {"serving.queue_wait": delta["requests"],
+            "serving.device_dispatch": delta["batches"],
+            "serving.device_sync": delta["batches"], "search.took": n}
+    got = {name: hist.get(name, {}).get("count") for name in want}
+    if got != want or delta["requests"] != n:
+        raise AssertionError(f"telemetry {label}: histogram counts {got}, "
+                             f"expected {want}")
+    fields = {}
+    for name in want:
+        short = name.split(".")[-1]
+        fields[f"{short}_p50_ms"] = f"{hist[name]['p50_nanos'] / 1e6:.4f}"
+        fields[f"{short}_p99_ms"] = f"{hist[name]['p99_nanos'] / 1e6:.4f}"
+    log("telemetry", level=label, histograms=json.dumps(got), **fields,
+        inflight_gauge=section["telemetry"]["gauges"].get(
+            "serving.inflight_dispatches"))
+    client.conn.close()
+
+
+def telemetry_cancel(client, node, index: str, qv: np.ndarray) -> None:
+    """A request queued behind the index batcher's run lock (held here),
+    under its REST task, cancelled through `POST _tasks/{id}/_cancel`:
+    once the lock is released the batcher sheds it before any launch
+    (`cancelled_sheds` + 1, no launch) and the client gets the reference's
+    400 `task_cancelled_exception`."""
+    from elasticsearch_tpu_torch.ops import dispatch
+    batcher = node.index(index).vector_store._batcher
+    sheds0 = batcher.sched["cancelled_sheds"]
+    out = {}
+
+    def run():
+        c = Client(client.port)
+        out["resp"] = c.req("POST", f"/{index}/_search", knn_body("vec", qv),
+                            headers={"X-Opaque-ID": "chip-smoke-cancel"})
+        c.conn.close()
+
+    batcher._run_lock.acquire()
+    t = threading.Thread(target=run)
+    try:
+        t.start()
+        deadline = time.monotonic() + 60
+        while batcher.pending() != 1:
+            if time.monotonic() > deadline:
+                raise AssertionError("telemetry cancel: the request never "
+                                     "queued")
+            time.sleep(0.001)
+        listed = client.ok("GET", "/_tasks?actions=*search")
+        (task,) = [x for sec in listed["nodes"].values()
+                   for x in sec["tasks"].values()
+                   if x["headers"] == {"X-Opaque-Id": "chip-smoke-cancel"}]
+        dispatch.reset_launches()
+        resp = client.ok("POST", f"/_tasks/{task['node']}:{task['id']}"
+                                 f"/_cancel")
+        if not all(x["cancelled"] for sec in resp["nodes"].values()
+                   for x in sec["tasks"].values()):
+            raise AssertionError(f"telemetry cancel: {resp}")
+    finally:
+        batcher._run_lock.release()
+    t.join(60)
+    status, err = out["resp"]
+    launches = {k: c for k, c in dispatch.launches().items() if c}
+    sheds = batcher.sched["cancelled_sheds"] - sheds0
+    if status != 400 or err["error"]["type"] != "task_cancelled_exception" \
+            or err["error"]["reason"] != ("task cancelled while queued (shed "
+                                          "at EDF admission)") \
+            or sheds != 1 or launches:
+        raise AssertionError(f"telemetry cancel: {status} {err}, sheds "
+                             f"{sheds}, launches {launches}")
+    log("telemetry", index=index, cancel="queued", status=status,
+        error=err["error"]["type"], cancelled_sheds=sheds,
+        launches=json.dumps(launches))
+
+
+def telemetry_sift_b(client, node, rng) -> int:
+    """sift_b after `_forcemerge`: the profiled-body checks
+    (`telemetry_profile`), `timeout: 1ms` and `terminate_after: 1` (200,
+    `timed_out` false, the same hits), and the sequential HTTP p50 of
+    TELEMETRY_REQUESTS requests at each TELEMETRY_RATES sample rate, in
+    one run: two blocks of half the requests a rate, in the order of the
+    rates and then reversed, so a drift over the part weighs on every
+    rate alike. Returns the bf16 binned kernel's launches."""
+    from elasticsearch_tpu_torch import telemetry
+    from elasticsearch_tpu_torch.ops import dispatch
+    from elasticsearch_tpu_torch.ops import knn_binned as kb
+    qs = rng.standard_normal((TELEMETRY_REQUESTS, 128)).astype(np.float32)
+    launches = sum(telemetry_profile(client, "sift_b",
+                                     knn_body("vec", qs[0]), "knn.binned",
+                                     kb.KERNEL_BF16).values())
+    dispatch.reset_launches()
+    plain = client.ok("POST", "/sift_b/_search", knn_body("vec", qs[1]))
+    for extra in ({"timeout": "1ms"}, {"terminate_after": 1}):
+        got = client.ok("POST", "/sift_b/_search",
+                        dict(knn_body("vec", qs[1]), **extra))
+        if got["timed_out"] is not False or _hit_ids(got) != _hit_ids(plain):
+            raise AssertionError(f"telemetry sift_b {extra}: {got}")
+    launches += dispatch.launches().get(kb.KERNEL_BF16, 0)
+    rate0 = telemetry.TRACER.sample_rate
+    bodies = [knn_body("vec", q) for q in qs]
+    half = len(bodies) // 2
+    lat = {r: [] for r in TELEMETRY_RATES}
+    hits = {r: [] for r in TELEMETRY_RATES}
+    traced = dict.fromkeys(TELEMETRY_RATES, 0)
+    dispatch.reset_launches()
+    try:
+        for block, rates in enumerate((TELEMETRY_RATES,
+                                       TELEMETRY_RATES[::-1])):
+            for rate in rates:
+                telemetry.TRACER.configure(sample_rate=rate)
+                started0 = telemetry.TRACER.snapshot()["started"]
+                for body in bodies[block * half:(block + 1) * half]:
+                    t = time.perf_counter()
+                    resp = client.ok("POST", "/sift_b/_search", body)
+                    lat[rate].append((time.perf_counter() - t) * 1e3)
+                    hits[rate].append(_hit_ids(resp))
+                traced[rate] += (telemetry.TRACER.snapshot()["started"]
+                                 - started0)
+    finally:
+        telemetry.TRACER.configure(sample_rate=rate0)
+    for rate in TELEMETRY_RATES:
+        # head sampling keeps every round(1 / rate)-th request
+        every = round(1 / rate) if rate else 0
+        lo = len(bodies) // every - 2 if every else 0
+        hi = -(-len(bodies) // every) + 2 if every else 0
+        if not lo <= traced[rate] <= hi:
+            raise AssertionError(f"telemetry overhead: {traced[rate]} "
+                                 f"traces at sample rate {rate}")
+    if any(hits[r] != hits[0.0] for r in TELEMETRY_RATES):
+        raise AssertionError("telemetry overhead: hits differ by rate")
+    p50 = {r: statistics.median(v) for r, v in lat.items()}
+    overhead = dispatch.launches().get(kb.KERNEL_BF16, 0)
+    if overhead != len(TELEMETRY_RATES) * len(bodies):
+        raise AssertionError(f"telemetry overhead: {overhead} launches")
+    log("telemetry", index="sift_b", overhead_requests=len(bodies),
+        **{f"p50_ms_rate_{r}": f"{p50[r]:.4f}" for r in TELEMETRY_RATES},
+        traced=json.dumps({str(r): traced[r] for r in TELEMETRY_RATES}),
+        timeout_and_terminate_after="same_hits")
+    return launches + overhead
+
+
+def telemetry_hybrid(client, node, name: str, body: dict) -> dict:
+    """The msmarco hybrid body with `profile: true` against its unprofiled
+    twin: the same hits and launches, `profile.hybrid` with both legs, the
+    launch events naming `bm25.topk` and `knn.binned`, the queue-wait /
+    launch / device-wait split of its score time, and no hit on the
+    device rung of the request cache. Returns the launches."""
+    from elasticsearch_tpu_torch.ops import dispatch
+    path = f"/{name}/_search"
+    hits0 = node.caches.device_request.hits
+    dispatch.reset_launches()
+    plain = client.ok("POST", path, body)
+    plain_launches = dispatch.launches()
+    dispatch.reset_launches()
+    prof = client.ok("POST", path, dict(body, profile=True))
+    launches = dispatch.launches()
+    hy = prof["profile"]["hybrid"]
+    events = hy.get("dispatch", [])
+    bd = hy["breakdown"]
+    if launches != plain_launches or _hit_ids(prof) != _hit_ids(plain) \
+            or {e["kernel"] for e in events} != {"bm25.topk", "knn.binned"} \
+            or len(events) != sum(launches.values()) \
+            or [leg["type"] for leg in hy["legs"]] != ["lexical_device",
+                                                       "knn_device"] \
+            or not all(k in bd for k in ("queue_wait_nanos",
+                                         "device_dispatch_nanos",
+                                         "device_sync_nanos")) \
+            or node.caches.device_request.hits != hits0:
+        raise AssertionError(f"telemetry {name}: {hy} launches {launches} "
+                             f"against {plain_launches}")
+    log("telemetry", index=name, profile="hybrid", hits_equal=True,
+        launches=json.dumps(launches), events=len(events),
+        **{k.replace("_nanos", "_ms"): f"{v / 1e6:.4f}"
+           for k, v in bd.items()},
+        batch_size=hy["batch_size"])
+    return {k: launches.get(k, 0) + plain_launches.get(k, 0)
+            for k in launches}
+
+
+def telemetry_logs(client, node) -> None:
+    """One `size: 0` aggregation body with `profile: true` on the logs
+    index, the device rung forced: each aggregation entry reads engine
+    `device` with a positive `collect`."""
+    node.settings.update({"search.aggs.device_enabled": "true",
+                          "search.aggs.cost_router": "false"})
+    body = {"size": 0, "profile": True, "request_cache": False,
+            "aggs": {"status": {"terms": {"field": "status"}},
+                     "bytes": {"avg": {"field": "size"}}}}
+    resp = client.ok("POST", "/logs/_search", body)
+    entries = resp["profile"]["shards"][0]["aggregations"]
+    if [(e["description"], e.get("engine")) for e in entries] != [
+            ("status", "device"), ("bytes", "device")] \
+            or not all(e["breakdown"]["collect"] > 0 for e in entries):
+        raise AssertionError(f"telemetry logs: {entries}")
+    log("telemetry", index="logs", profile="aggs",
+        **{f"{e['description']}_collect_ms":
+           f"{e['breakdown']['collect'] / 1e6:.4f}" for e in entries})
 
 
 def timed(label: str, phase, *args, **kwargs):
@@ -6242,6 +6574,13 @@ def main(argv=None) -> int:
     ap.add_argument("--logs-only", action="store_true",
                     help="run only serve_logs at --n-logs lines (no "
                          "kernel build, no final ok line)")
+    ap.add_argument("--telemetry-only", action="store_true",
+                    help="build the binned, IVF and BM25 kernels and run "
+                         "only the phases that carry the telemetry part "
+                         "(serve_sift with serve_documents and "
+                         "serve_cohere, serve_ivf, serve_hybrid, "
+                         "serve_logs) at the sizes given (no final ok "
+                         "line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6262,6 +6601,16 @@ def main(argv=None) -> int:
             print(smi)
             return 0
     if args.logs_only:
+        timed("serve_logs", phase_serve_logs, args.seed, args.n_logs)
+        return 0
+    if args.telemetry_only:
+        phase_build(["knn_binned", "ivf_fused", "bm25"])
+        timed("serve_sift_cohere", phase_serve, args.seed, args.n_sift,
+              args.n_cohere)
+        timed("serve_ivf", phase_serve_ivf, args.seed, args.n_gist,
+              args.n_cohere_ivf)
+        timed("serve_hybrid", phase_serve_hybrid, args.seed,
+              args.n_msmarco)
         timed("serve_logs", phase_serve_logs, args.seed, args.n_logs)
         return 0
     if args.docs_only:

@@ -40,6 +40,17 @@ after a refresh rebuilds them, extracting only new segments. A deleted
 index's engine goes with it. `search.max_buckets` (no limit by default,
 as in the reference) bounds every bucket list.
 
+Telemetry (`telemetry/`): the node wires `telemetry.*` settings into the
+process-wide tracer, keeps the live tasks of its requests
+(`node_admin.TaskManager`: `tasks_list_api`, `task_get_api`,
+`task_cancel_api`), its completed traces (`traces_api`) and the metrics
+registry's section (`telemetry_stats_api`), and records every search's
+end-to-end time in the `search.took` histogram. A `profile` body runs each
+index's query phase with the thread's launch event trace on and answers
+`profile.shards` (`search/profile.py`), or `profile.hybrid` on the fused
+hybrid path; it never reads or fills either rung of the request cache (a
+profile describes a real execution) and notes the rung it bypassed.
+
 Left out, as ROADMAP.md lists: `script` updates, aliases, closed and
 hidden indices and date math in expressions, and hybrid bodies over
 several indices (each a 400)."""
@@ -58,6 +69,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from elasticsearch_tpu_torch import resolve_device
+from elasticsearch_tpu_torch import telemetry
 from elasticsearch_tpu_torch.cluster.routing import shard_ids_for
 from elasticsearch_tpu_torch.common.errors import (
     ActionRequestValidationError, DocumentMissingError, IllegalArgumentError,
@@ -68,6 +80,8 @@ from elasticsearch_tpu_torch.indices.service import (  # noqa: F401
     SHARD_ROW_SPACE, IndexService, flat_settings, resolve_expression,
     validate_index_name, validate_knn_settings,
 )
+from elasticsearch_tpu_torch.node_admin import TaskManager
+from elasticsearch_tpu_torch.ops import dispatch
 from elasticsearch_tpu_torch.search.agg_partials import (
     finalize_aggs, merge_partial_aggs,
 )
@@ -81,6 +95,7 @@ from elasticsearch_tpu_torch.search.caches import (
 from elasticsearch_tpu_torch.search.hybrid_plan import (
     HybridExecutor, sub_queries_of,
 )
+from elasticsearch_tpu_torch.search.profile import shard_profile
 from elasticsearch_tpu_torch.search.queries import SearchContext
 from elasticsearch_tpu_torch.search.service import (
     check_track_total_hits, count_body, execute_query_phase, fetch_hits,
@@ -88,6 +103,8 @@ from elasticsearch_tpu_torch.search.service import (
     source_patterns, tracks_total, window,
 )
 from elasticsearch_tpu_torch.serving.batcher import CombiningBatcher
+from elasticsearch_tpu_torch.telemetry import metrics as _telemetrics
+from elasticsearch_tpu_torch.telemetry import trace as _teletrace
 
 _SHARDS_OK = {"total": 1, "successful": 1, "failed": 0}
 # the index stats metrics of the reference (`RestIndicesStatsAction`);
@@ -167,12 +184,15 @@ class _MultiShardVectorStore:
                    else shard_readers[shard.shard_id])
 
     def search(self, field: str, query_vector, k: int, filter_rows=None,
-               precision: str = "bf16", num_candidates=None, reader=None):
+               precision: str = "bf16", num_candidates=None, reader=None,
+               deadline_at: Optional[float] = None):
         """Top-k over every shard: (rows, raw scores) in the combined
-        space."""
+        space. `deadline_at` (time.monotonic seconds) sheds the request in
+        the batcher's queue when no runner claims it in time."""
         result, self._tls.phases = self._batcher.submit((
             (field, k, precision, num_candidates),
-            np.asarray(query_vector, dtype=np.float32), filter_rows, reader))
+            np.asarray(query_vector, dtype=np.float32), filter_rows, reader),
+            deadline_at=deadline_at)
         return result
 
     def _dispatch_batch(self, requests: list):
@@ -231,7 +251,10 @@ class _MultiShardVectorStore:
         return len(queries), k, handles
 
     def finalize_many(self, handle) -> list:
-        return self._land(handle)[0]
+        """Land a `search_many_async` handle; its phases become the calling
+        thread's `last_knn_phases`."""
+        results, self._tls.phases = self._land(handle)
+        return results
 
     def _land(self, handle):
         """Land every shard's part of a batch and merge each query's hits;
@@ -262,16 +285,33 @@ class _MultiShardVectorStore:
         thread."""
         return getattr(self._tls, "phases", {})
 
+    @property
+    def columnar_refresh(self) -> dict:
+        """Each field's last refresh composition, from the first shard
+        that synced it (`profile.knn.columnar`)."""
+        out: dict = {}
+        for shard in self.svc.shards:
+            for f, info in shard.vector_store.columnar_refresh.items():
+                out.setdefault(f, info)
+        return out
+
 
 class Node:
     def __init__(self, device="cuda", node_name: str = "node-0",
-                 settings: Optional[dict] = None):
+                 settings: Optional[dict] = None,
+                 cluster_name: str = "tpu-search"):
         self.device = resolve_device(device)
         self.node_name = node_name
+        self.cluster_name = cluster_name
         self.node_id = uuid.uuid4().hex[:22]
         # node settings (flat keys); read at each use, as the reference
         # reads its node settings
         self.settings: Dict[str, object] = dict(settings or {})
+        # the live tasks of this node's instrumented requests
+        self.tasks = TaskManager(self.node_id)
+        # tracer sampling and ring size are process-wide: only an explicit
+        # setting reconfigures them
+        telemetry.configure_from_settings(self.settings)
         self.caches = NodeCaches()
         self.indices: Dict[str, IndexService] = {}
         # index name -> its hybrid executor (plan cache + late-interaction
@@ -942,13 +982,21 @@ class Node:
         the final window), behind the device rung of the request cache: a
         body the rung holds is answered with a copy of its stored
         response, `took` 0, with no batch slot and no launch; a miss
-        stores a copy of its response without `took`. The reference
-        serves a `profile` body uncached; the port answers `profile` with
-        a 400, so that bypass has no caller yet."""
+        stores a copy of its response without `took`. A `profile` body is
+        never served from the rung nor stored (the profile must describe a
+        real execution): its `profile.hybrid.cache` says so."""
         ex = self._hybrid_executor(svc)
         cache = self._request_cache_for(body, hybrid=True)
         if cache is None:
             return ex.submit(body)
+        if body.get("profile"):
+            resp = ex.submit(body)
+            prof = resp.get("profile")
+            if prof is not None and "hybrid" in prof:
+                prof["hybrid"]["cache"] = {
+                    "rung": "device_request", "served": False,
+                    "policy": "profile_bypass"}
+            return resp
         key = self._request_cache_key(cache, svc, svc.combined_reader(), body)
         cached = cache.get(key)
         if cached is not None:
@@ -973,7 +1021,10 @@ class Node:
         skipped whole: its shards count as `skipped` and no query phase
         runs. A `rank: {rrf}` body over one named index with no
         `highlight` runs the fused hybrid path; any other runs the
-        general one (`_search_rrf_general`), as in the reference."""
+        general one (`_search_rrf_general`), as in the reference. A
+        `profile` body answers `profile.shards`, one entry an index
+        (`search/profile.py::shard_profile`), from that index's query phase
+        with the thread's launch event trace on."""
         start = time.perf_counter()
         body = body or {}
         check_track_total_hits(body)
@@ -987,7 +1038,10 @@ class Node:
                 except SearchEngineError:
                     services = []   # the general path raises it
             if len(services) == 1 and "highlight" not in body:
-                return self._search_rrf(services[0], body)
+                resp = self._search_rrf(services[0], body)
+                _telemetrics.record("search.took", int(
+                    (time.perf_counter() - start) * 1e9))
+                return resp
             return self._search_rrf_general(index_expr, body,
                                             rank["rrf"] or {})
         services = self.resolve(index_expr, ignore_unavailable,
@@ -1003,35 +1057,63 @@ class Node:
             validate_aggs(aggs_spec, field_type)
         partial = bool(aggs_spec) and len(services) > 1
         frm, size = window(body)
-        phases = []
+        profiled = bool(body.get("profile"))
+        phases, profiles = [], []
         total, relation, max_score, skipped = 0, "eq", None, 0
         merged_aggs = None
-        for svc in services:
-            reader = svc.combined_reader()
-            if pre_filter_shard_size is not None \
-                    and has_range_clauses(body.get("query")) \
-                    and not has_global_agg(aggs_spec) \
-                    and not can_match(reader, body, svc.mapper_service):
-                skipped += svc.num_shards
-                continue
-            result = self._query_phase(svc, reader, body, partial)
+        try:
+            for svc in services:
+                reader = svc.combined_reader()
+                if pre_filter_shard_size is not None \
+                        and has_range_clauses(body.get("query")) \
+                        and not has_global_agg(aggs_spec) \
+                        and not can_match(reader, body, svc.mapper_service):
+                    skipped += svc.num_shards
+                    continue
+                q_start = time.perf_counter_ns()
+                if profiled:
+                    dispatch.record_events(True)
+                result, cache_note = self._query_phase(svc, reader, body,
+                                                       partial)
+                q_nanos = time.perf_counter_ns() - q_start
+                _teletrace.record_span(f"query[{svc.name}]", q_nanos,
+                                       index=svc.name)
+                if profiled:
+                    profiles.append((svc, result, q_nanos,
+                                     dispatch.drain_events(), cache_note))
+                    dispatch.record_events(False)
+                phases.append((svc, reader, result))
+        finally:
+            if profiled:
+                # a failed query phase must not leave the thread's launch
+                # event trace recording into later requests
+                dispatch.record_events(False)
+        for svc, reader, result in phases:
             if result.aggregations is not None:
                 # shared with the cache: merges and typed_keys copy
                 merged_aggs = (result.aggregations if merged_aggs is None
                                else merge_partial_aggs(merged_aggs,
                                                        result.aggregations,
                                                        aggs_spec))
-            phases.append((svc, reader, result))
             total += result.total
             if result.relation == "gte":
                 relation = "gte"
             if result.max_score is not None:
                 max_score = (result.max_score if max_score is None
                              else max(max_score, result.max_score))
+        m_start = time.perf_counter_ns()
         merged = self._merge_windows(phases, body,
                                      several=len(services) > 1)
+        _teletrace.record_span("merge", time.perf_counter_ns() - m_start,
+                               hits=len(merged))
+        fetch_nanos: Dict[str, int] = {}
         hits = self._fetch_window(merged[frm:frm + size], body,
-                                  expand=len(services) <= 1)
+                                  expand=len(services) <= 1,
+                                  nanos=fetch_nanos)
+        for svc, _, _ in phases:
+            _teletrace.record_span(f"fetch[{svc.name}]",
+                                   fetch_nanos.get(svc.name, 0),
+                                   index=svc.name)
         collapse = body.get("collapse")
         if collapse and inner_hits_specs(collapse) and len(services) > 1:
             self._expand_collapse_inner_hits(services, body, collapse, hits)
@@ -1055,7 +1137,18 @@ class Node:
         if merged_aggs is not None:
             resp["aggregations"] = (finalize_aggs(merged_aggs, aggs_spec)
                                     if partial else merged_aggs)
-        resp["took"] = int((time.perf_counter() - start) * 1000)
+        if profiled:
+            resp["profile"] = {"shards": [
+                shard_profile(svc.name, body, q_nanos,
+                              fetch_nanos.get(svc.name, 0), result.total,
+                              knn_phases=result.knn_phases,
+                              dispatch_events=events,
+                              aggs_profile=result.aggs_profile,
+                              cache=cache_note)
+                for svc, result, q_nanos, events, cache_note in profiles]}
+        took = time.perf_counter() - start
+        _telemetrics.record("search.took", int(took * 1e9))
+        resp["took"] = int(took * 1000)
         return resp
 
     def _search_rrf_general(self, index_expr: Optional[str], body: dict,
@@ -1107,13 +1200,20 @@ class Node:
                      partial_aggs: bool = False):
         """One index's query phase through the request cache's rung for the
         body (`_request_cache_for`), its aggregations through the index's
-        engine (`_agg_engine`), as partial states when `partial_aggs`."""
+        engine (`_agg_engine`), as partial states when `partial_aggs`.
+        A `profile` body bypasses the rung. Returns (result, the profile's
+        cache note: the rung and whether it served the result, or None
+        when no rung applies)."""
         cache = self._request_cache_for(body)
         key = result = None
-        if cache is not None:
+        if cache is not None and not body.get("profile"):
             key = self._request_cache_key(cache, svc, reader, body,
                                           partial_aggs)
             result = cache.get(key)
+        note = None if cache is None else {
+            "rung": ("shard_request" if cache is self.caches.request
+                     else "device_request"),
+            "hit": result is not None}
         if result is None:
             ctx = SearchContext(reader, svc.mapper_service, svc.vector_store,
                                 svc.settings, query_cache=self.caches.query)
@@ -1125,7 +1225,7 @@ class Node:
             result = execute_query_phase(ctx, body, engine, partial_aggs)
             if key is not None:
                 cache.put(key, result)
-        return result
+        return result, note
 
     @staticmethod
     def _merge_windows(phases: list, body: dict, several: bool) -> list:
@@ -1157,12 +1257,15 @@ class Node:
         return [(phases[pi], j) for pi, j in entries]
 
     def _fetch_window(self, window_entries: list, body: dict,
-                      expand: bool) -> List[dict]:
+                      expand: bool,
+                      nanos: Optional[Dict[str, int]] = None) -> List[dict]:
         """The fetch phase of the merged window: each run of hits of one
-        index fetched together, from that index's reader."""
+        index fetched together, from that index's reader; each index's
+        fetch time adds into `nanos`."""
         hits: List[dict] = []
         for _, group in itertools.groupby(window_entries,
                                           key=lambda e: id(e[0])):
+            t0 = time.perf_counter_ns()
             group = list(group)
             svc, reader, r = group[0][0]
             run = [j for _, j in group]
@@ -1174,6 +1277,9 @@ class Node:
                 None if r.sort_values is None
                 else [r.sort_values[j] for j in run],
                 expand_inner_hits=expand))
+            if nanos is not None:
+                nanos[svc.name] = (nanos.get(svc.name, 0)
+                                   + time.perf_counter_ns() - t0)
         return hits
 
     def _expand_collapse_inner_hits(self, services: list, body: dict,
@@ -1291,6 +1397,71 @@ class Node:
                             "failed": 0},
                 "_all": {"primaries": agg, "total": copy.deepcopy(agg)},
                 "indices": indices}
+
+    # ------------------------------------------------------------ telemetry
+    def _nodes_envelope(self, nodes: dict) -> dict:
+        return {"_nodes": {"total": len(nodes), "successful": len(nodes),
+                           "failed": 0},
+                "cluster_name": self.cluster_name, "nodes": nodes}
+
+    @staticmethod
+    def telemetry_stats_section() -> dict:
+        """`_nodes/stats/telemetry`: the process-wide metrics registry
+        (end-to-end search latency, queue wait, device dispatch and sync,
+        p50/p90/p99/p999 each; the in-flight gauge) and the tracer's
+        sampling and ring counters."""
+        return {**telemetry.REGISTRY.snapshot(),
+                "tracing": telemetry.TRACER.snapshot()}
+
+    def telemetry_stats_api(self) -> dict:
+        """`GET _nodes/stats/telemetry`: this node's name and roles with
+        the telemetry section, in the reference's envelope."""
+        return self._nodes_envelope({self.node_id: {
+            "name": self.node_name, "roles": ["data", "ingest", "master"],
+            "telemetry": self.telemetry_stats_section()}})
+
+    def local_traces_section(self, limit: int = 50) -> dict:
+        """This node's completed traces, most recent first (the tracer is
+        process-wide; each trace names the node it completed on)."""
+        return {"name": self.node_name,
+                "traces": telemetry.TRACER.traces(node_id=self.node_id,
+                                                  limit=limit)}
+
+    def local_tasks_section(self, actions: Optional[str] = None) -> dict:
+        return {"name": self.node_name,
+                "roles": ["data", "ingest", "master"],
+                "tasks": {t.task_id: t.to_dict(self.node_id)
+                          for t in self.tasks.list_tasks(actions)}}
+
+    def traces_api(self, limit: int = 50) -> dict:
+        return self._nodes_envelope(
+            {self.node_id: self.local_traces_section(limit)})
+
+    def tasks_list_api(self, actions: Optional[str] = None) -> dict:
+        return {"nodes": {self.node_id: self.local_tasks_section(actions)}}
+
+    def task_get_api(self, task_id: str) -> dict:
+        t = self.tasks.get(task_id)
+        return {"completed": False, "task": t.to_dict(self.node_id)}
+
+    def task_cancel_api(self, task_id: str) -> dict:
+        t = self.tasks.cancel(task_id)
+        return {"nodes": {self.node_id: {
+            "tasks": {t.task_id: t.to_dict(self.node_id)}}}}
+
+    def tasks_cancel_all_api(self, actions: Optional[str] = None) -> dict:
+        """`POST _tasks/_cancel`: cancel every cancellable task whose action
+        matches; each is listed whether it was cancellable or not."""
+        matched = self.tasks.list_tasks(actions)
+        if not matched:
+            return {"nodes": {}, "node_failures": []}
+        for t in matched:
+            if t.cancellable:
+                t.cancelled = True
+        return {"nodes": {self.node_id: {
+            "name": self.node_name,
+            "tasks": {t.task_id: t.to_dict(self.node_id)
+                      for t in matched}}}}
 
 
 def _sort_key_tuple(sort_values, body: dict) -> tuple:

@@ -81,7 +81,8 @@ def _pow2(n: int) -> int:
 
 def _count(name: str, t: torch.Tensor) -> None:
     if t.is_cuda:
-        dispatch.count_launch("aggs." + name)
+        dispatch.count_launch("aggs." + name,
+                              bucket="x".join(map(str, t.shape)))
 
 
 # ------------------------------------------------------------------- ops
@@ -369,6 +370,9 @@ class AggFieldStore:
         self._snap: Optional[StoreSnapshot] = None
         self.stats = {"rebuilds": 0, "columns": 0, "bytes": 0,
                       "blocks_cached": 0, "blocks_extracted": 0}
+        # each field's last column (re)build: its blocks cached and
+        # extracted and the composition (`profile.shards[].columnar`)
+        self.columnar_refresh: Dict[str, dict] = {}
 
     @staticmethod
     def _version(reader) -> tuple:
@@ -411,6 +415,7 @@ class AggFieldStore:
             return col
 
     def _block(self, view, field: str, want_objs: bool):
+        """(the segment's values block, whether it was cached)."""
         from elasticsearch_tpu_torch.columnar.blocks import fingerprint
         key = fingerprint(view, (field, want_objs))
         blk = self._blocks.get(key)
@@ -418,9 +423,9 @@ class AggFieldStore:
             blk = self._blocks[key] = extract_values_block(view, field,
                                                            want_objs)
             self.stats["blocks_extracted"] += 1
-        else:
-            self.stats["blocks_cached"] += 1
-        return blk
+            return blk, False
+        self.stats["blocks_cached"] += 1
+        return blk, True
 
     def _build(self, reader, snap: StoreSnapshot, field: str,
                want_ords: bool, want_hll: bool) -> AggColumn:
@@ -435,8 +440,10 @@ class AggFieldStore:
         off = 0
         multi = False
         keep = set()
+        n_cached = 0
         for view in reader.views:
-            blk = self._block(view, field, want_objs)
+            blk, cached = self._block(view, field, want_objs)
+            n_cached += cached
             keep.add(blk.fingerprint)
             n = len(blk.vals)
             vals[off:off + n] = blk.vals
@@ -449,6 +456,12 @@ class AggFieldStore:
         for key in [k for k in self._blocks
                     if k[3] == field and k not in keep]:
             del self._blocks[key]
+        n_blocks = len(reader.views)
+        self.columnar_refresh[field] = {
+            "blocks": n_blocks, "cached": n_cached,
+            "extracted": n_blocks - n_cached,
+            "mode": ("cached" if n_cached == n_blocks
+                     else "delta" if n_cached else "full")}
         col.vals, col.present, col.multi_valued = vals, present, multi
         pv = vals[present]
         if len(pv):

@@ -426,7 +426,7 @@ def bm25_board(pos_starts: torch.Tensor, runs: torch.Tensor,
     if code != 0:
         raise RuntimeError(f"{KERNEL} launch failed: "
                            f"{lib.cuda_error_string(code).decode()}")
-    dispatch.count_launch(KERNEL, variant)
+    dispatch.count_launch(KERNEL, variant, f"q{nq}.slots{n_slots}.k{k}")
     return vals, slots
 
 

@@ -9,12 +9,19 @@ later PR that captures CUDA graphs per bucket finds a closed shape grid.
 where it launches its kernel and nowhere else, so a run shows which route
 it took (`bm25_board` counts one a batch: its two launches). A kernel with more than one variant also counts each launch under
 `"<kernel>/<variant>"` in `VARIANT_LAUNCHES`.
+
+The same place feeds the thread-local event trace of a profiled search
+(`record_events` ... `drain_events`, the reference's `profile.dispatch`):
+an event names the reference's program (`kernel`, e.g. `knn.binned`), the
+launch's shape (`bucket`) and the port's own launch (`launch`, e.g.
+`knn_binned_bf16/tma`). The reference's `cache` and `compile_ms` describe
+XLA's executable cache; eager PyTorch has none, so they are left out.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 # k rounds UP this ladder (then clamps to the corpus/slot count)
 K_BUCKETS = (1, 4, 10, 16, 32, 64, 100, 128, 256, 512, 1024)
@@ -109,13 +116,74 @@ LAUNCHES: Dict[str, int] = {}
 VARIANT_LAUNCHES: Dict[str, int] = {}
 _LAUNCH_LOCK = threading.Lock()
 
+# the reference's program of each hand kernel (a launch's `kernel` in the
+# event trace); a `<kernel>/<variant>` entry wins over the kernel's own,
+# and a name not listed (the `aggs.*` ops) is its own program
+PROGRAMS = {
+    "knn_binned_bf16": "knn.binned",
+    "knn_binned_int8": "knn.binned",
+    "ivf_fused_dense": "ivf.fused_probe",
+    "ivf_fused_int4": "ivf.fused_probe",
+    "maxsim_dense": "maxsim.rescore",
+    "maxsim_int4": "maxsim.rescore",
+    "bm25_board": "bm25.topk",
+    "bm25_board/sparse": "sparse.topk",
+}
+_EVENTS = threading.local()
 
-def count_launch(name: str, variant: Optional[str] = None) -> None:
+
+def count_launch(name: str, variant: Optional[str] = None,
+                 bucket: Optional[str] = None) -> None:
+    """Count one launch of kernel `name` (on `variant`), and append its
+    event to this thread's trace when it records one. `bucket` names the
+    launch's shape."""
+    key = name if variant is None else f"{name}/{variant}"
     with _LAUNCH_LOCK:
         LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
         if variant is not None:
-            key = f"{name}/{variant}"
             VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
+    events = getattr(_EVENTS, "events", None)
+    if events is not None:
+        events.append({"kernel": PROGRAMS.get(key, PROGRAMS.get(name, name)),
+                       "bucket": bucket, "launch": key})
+
+
+def record_events(on: bool) -> None:
+    """Start (a fresh list) or stop this thread's launch event trace (the
+    `profile.dispatch` feed)."""
+    _EVENTS.events = [] if on else None
+
+
+def drain_events() -> List[dict]:
+    """This thread's events so far (the trace keeps recording, empty)."""
+    events = getattr(_EVENTS, "events", None)
+    if events is None:
+        return []
+    _EVENTS.events = []
+    return events
+
+
+def events_enabled() -> bool:
+    """Is THIS thread recording a launch event trace?"""
+    return getattr(_EVENTS, "events", None) is not None
+
+
+def event_count() -> int:
+    events = getattr(_EVENTS, "events", None)
+    return 0 if events is None else len(events)
+
+
+def annotate_events(since: int, **fields) -> None:
+    """Tag the events appended after index `since` on THIS thread's trace.
+    The combining batcher labels a coalesced batch's launches
+    (`coalesced_batch: N`): the runner thread launches on behalf of N
+    requests, and without the tag a profiled leader's trace would claim
+    the followers' launches as its own."""
+    events = getattr(_EVENTS, "events", None)
+    if events is None:
+        return
+    for e in events[since:]:
+        e.update(fields)
 
 
 def launches() -> Dict[str, int]:

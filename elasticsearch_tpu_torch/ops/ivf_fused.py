@@ -270,9 +270,9 @@ def _check(code: int, name: str) -> None:
                            f"{_lib().cuda_error_string(code).decode()}")
 
 
-def _launch(name: str, fn, *args, variant=None) -> None:
+def _launch(name: str, fn, *args, variant=None, bucket=None) -> None:
     _check(fn(*args), name)
-    dispatch.count_launch(name, variant)
+    dispatch.count_launch(name, variant, bucket)
 
 
 def _plan_scratch(n: int, bound: int, device) -> torch.Tensor:
@@ -334,16 +334,17 @@ def probe_board(queries: torch.Tensor, ivf: IVFPartitions,
     stream = torch.cuda.current_stream(ivf.parts.device).cuda_stream
     board = (probe_ids.data_ptr(), ivf.parts.data_ptr(),
              ivf.part_scales.data_ptr(), out.data_ptr())
+    bucket = f"q{nq}.probes{nprobe}.cap{cap}.d{d}"
     if simt:
         vec_ok = int(row_bytes(d, ivf.parts.dtype) % 16 == 0)
         if int4:
             _launch(KERNEL_INT4, lib.ivf_fused_int4, planes[0].data_ptr(),
                     planes[1].data_ptr(), *board, nq, nprobe, nlist, cap, w,
-                    vec_ok, stream, variant=VARIANT_SIMT)
+                    vec_ok, stream, variant=VARIANT_SIMT, bucket=bucket)
         else:
             _launch(KERNEL_DENSE, lib.ivf_fused_dense, q.data_ptr(), *board,
                     nq, nprobe, nlist, cap, d, code, vec_ok, stream,
-                    variant=VARIANT_SIMT)
+                    variant=VARIANT_SIMT, bucket=bucket)
         return out
     if q.data_ptr() % 16:            # the kernel reads query rows as float4
         q = q.clone()
@@ -356,10 +357,10 @@ def probe_board(queries: torch.Tensor, ivf: IVFPartitions,
             nq, nprobe, nlist, cap, d)
     if int4:
         _launch(KERNEL_INT4, lib.ivf_fused_int4_grouped, *args, *cut,
-                variant=VARIANT_GROUPED)
+                variant=VARIANT_GROUPED, bucket=bucket)
     else:
         _launch(KERNEL_DENSE, lib.ivf_fused_dense_grouped, *args, code,
-                *cut, variant=VARIANT_GROUPED)
+                *cut, variant=VARIANT_GROUPED, bucket=bucket)
     return out
 
 

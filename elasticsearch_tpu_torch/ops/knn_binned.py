@@ -256,7 +256,8 @@ def binned_packed_bf16(q: torch.Tensor, matrix: torch.Tensor,
         nq, matrix.shape[0], d, int(clamp), *args,
         torch.cuda.current_stream(q.device).cuda_stream)
     _check(lib, code, KERNEL_BF16)
-    dispatch.count_launch(KERNEL_BF16, plan.variant)
+    dispatch.count_launch(KERNEL_BF16, plan.variant,
+                          f"q{nq}.n{matrix.shape[0]}.d{d}")
     return out
 
 
@@ -282,7 +283,8 @@ def binned_packed_int8(q8: torch.Tensor, matrix: torch.Tensor,
         row_scale_valid.data_ptr(), out.data_ptr(), nq, matrix.shape[0], d,
         *args, torch.cuda.current_stream(q8.device).cuda_stream)
     _check(lib, code, KERNEL_INT8)
-    dispatch.count_launch(KERNEL_INT8, plan.variant)
+    dispatch.count_launch(KERNEL_INT8, plan.variant,
+                          f"q{nq}.n{matrix.shape[0]}.d{d}")
     return out
 
 

@@ -256,5 +256,5 @@ def maxsim_rescore(ids: torch.Tensor, q_tokens: torch.Tensor,
     if code != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.cuda_error_string(code).decode()}")
-    dispatch.count_launch(name, plan.variant)
+    dispatch.count_launch(name, plan.variant, f"q{nq}.w{nw}.tq{tq}")
     return out

@@ -30,13 +30,28 @@ GET [/{index}]/_stats/{metric} (`query_cache`, `request_cache`).
 `ignore_unavailable` and `allow_no_indices` (`Node.resolve`); an
 `expand_wildcards` other than `open` is a 400 that names it.
 
+Telemetry: every search, count, msearch and write handler runs under
+`telemetry.rest_request` (a live task, and a trace when sampled, forced by
+`?trace=true` or, for a search, by a `profile` body), with the request's
+`X-Opaque-ID` header on both; a profiled search's response gains
+`profile.trace`. GET /_tasks (`actions`, `group_by`: nodes, parents,
+none), GET /_tasks/{task_id}, POST /_tasks/{task_id}/_cancel and
+POST /_tasks/_cancel (`actions`); GET /_nodes/traces (`size`) and
+GET /_nodes/stats/telemetry. The reference's URL metric list of
+`_nodes/stats` does not name `telemetry` (it reaches the section only in
+the whole `GET _nodes/stats`); the port serves this one metric, and each
+other one is a 400 that names it.
+
 Every response takes `filter_path` (`rest/controller.py`).
 """
 
 from __future__ import annotations
 
+import difflib
 import fnmatch
+import time
 
+from elasticsearch_tpu_torch import telemetry
 from elasticsearch_tpu_torch.common.errors import (
     ActionRequestValidationError, DocumentMissingError, IllegalArgumentError,
     VersionConflictError,
@@ -44,8 +59,15 @@ from elasticsearch_tpu_torch.common.errors import (
 from elasticsearch_tpu_torch.indices.service import validate_index_name
 from elasticsearch_tpu_torch.node import Node, _apply_mget_projection
 from elasticsearch_tpu_torch.rest.controller import RestController
+from elasticsearch_tpu_torch.search.profile import trace_profile
 
 VERSION = "8.0.0-torch"
+# the reference's `_nodes/stats/{metric}` names, and the one served here
+_NODE_STATS_METRICS = (
+    "indices", "os", "process", "jvm", "thread_pool", "fs", "transport",
+    "http", "breaker", "breakers", "script", "discovery", "ingest",
+    "adaptive_selection", "indexing_pressure", "_all")
+_PORTED_NODE_STATS = "telemetry"
 
 # URL parameters of `q` (a `query_string` query, not ported)
 _URI_QUERY_PARAMS = ("q", "df", "default_operator", "analyzer", "lenient")
@@ -60,6 +82,17 @@ _SETTINGS_DEFAULTS = {
     "index.write.wait_for_active_shards": "1",
     "index.highlight.max_analyzed_offset": "1000000",
 }
+
+
+def _rest_telemetry(req, node, action: str, force_trace: bool = False,
+                    description: str = "", parse_nanos: int = 0):
+    """One request's telemetry: a live task (`GET _tasks`, the batcher's
+    cancellation token), a trace when sampled or forced (`?trace=true`),
+    and the `X-Opaque-ID` header on both."""
+    return telemetry.rest_request(
+        node, action, opaque_id=req.headers.get("x-opaque-id"),
+        force_trace=force_trace or req.bool_param("trace"),
+        description=description, parse_nanos=parse_nanos)
 
 
 def _refuse_uri_query(req) -> None:
@@ -222,28 +255,35 @@ def register_all(rc: RestController, node: Node) -> None:
                     version=req.int_param("version"),
                     version_type=req.param("version_type", "internal"))
 
+    def _write_task(req, action: str):
+        return _rest_telemetry(req, node, action,
+                               description=f"[{req.params['index']}]")
+
     def put_doc(req):
-        resp = node.index_doc(req.params["index"], req.params["id"],
-                              req.json() or {},
-                              op_type=req.param("op_type", "index"),
-                              **_write_params(req))
-        return (201 if resp["result"] == "created" else 200), resp
+        with _write_task(req, "indices:data/write/index"):
+            resp = node.index_doc(req.params["index"], req.params["id"],
+                                  req.json() or {},
+                                  op_type=req.param("op_type", "index"),
+                                  **_write_params(req))
+            return (201 if resp["result"] == "created" else 200), resp
 
     def post_doc_auto_id(req):
-        return 201, node.index_doc(req.params["index"], None,
-                                   req.json() or {},
-                                   refresh=req.param("refresh"),
-                                   routing=req.param("routing"))
+        with _write_task(req, "indices:data/write/index"):
+            return 201, node.index_doc(req.params["index"], None,
+                                       req.json() or {},
+                                       refresh=req.param("refresh"),
+                                       routing=req.param("routing"))
 
     def create_doc(req):
         if req.param("version_type") in ("external", "external_gte"):
             raise ActionRequestValidationError(
                 "Validation Failed: 1: create operations only support "
                 "internal versioning. use index instead;")
-        return 201, node.index_doc(req.params["index"], req.params["id"],
-                                   req.json() or {}, op_type="create",
-                                   refresh=req.param("refresh"),
-                                   routing=req.param("routing"))
+        with _write_task(req, "indices:data/write/index"):
+            return 201, node.index_doc(req.params["index"], req.params["id"],
+                                       req.json() or {}, op_type="create",
+                                       refresh=req.param("refresh"),
+                                       routing=req.param("routing"))
 
     def _get(req) -> dict:
         if req.bool_param("refresh", False):
@@ -276,26 +316,38 @@ def register_all(rc: RestController, node: Node) -> None:
         return 200, resp.get("_source")
 
     def delete_doc(req):
-        try:
-            return 200, node.delete_doc(req.params["index"], req.params["id"],
-                                        **_write_params(req))
-        except DocumentMissingError:
-            return 404, {"_index": req.params["index"],
-                         "_id": req.params["id"], "result": "not_found"}
+        with _write_task(req, "indices:data/write/delete"):
+            try:
+                return 200, node.delete_doc(req.params["index"],
+                                            req.params["id"],
+                                            **_write_params(req))
+            except DocumentMissingError:
+                return 404, {"_index": req.params["index"],
+                             "_id": req.params["id"], "result": "not_found"}
 
     def update_doc(req):
-        return 200, node.update_doc(
-            req.params["index"], req.params["id"], req.json() or {},
-            refresh=req.param("refresh"), routing=req.param("routing"),
-            if_seq_no=req.int_param("if_seq_no"),
-            if_primary_term=req.int_param("if_primary_term"),
-            source_filter=_source_filter(req))
+        with _write_task(req, "indices:data/write/update"):
+            return 200, node.update_doc(
+                req.params["index"], req.params["id"], req.json() or {},
+                refresh=req.param("refresh"), routing=req.param("routing"),
+                if_seq_no=req.int_param("if_seq_no"),
+                if_primary_term=req.int_param("if_primary_term"),
+                source_filter=_source_filter(req))
 
     def bulk(req):
-        return 200, node.bulk(req.ndjson(),
-                              default_index=req.params.get("index"),
-                              refresh=req.param("refresh"),
-                              source_filter=_source_filter(req))
+        t_parse = time.perf_counter_ns()
+        ops = req.ndjson()
+        parse_nanos = time.perf_counter_ns() - t_parse
+        with _rest_telemetry(req, node, "indices:data/write/bulk",
+                             description=f"requests[{len(ops)}]",
+                             parse_nanos=parse_nanos):
+            t0 = time.perf_counter_ns()
+            resp = node.bulk(ops, default_index=req.params.get("index"),
+                             refresh=req.param("refresh"),
+                             source_filter=_source_filter(req))
+            telemetry.record_span("bulk.execute",
+                                  time.perf_counter_ns() - t0, ops=len(ops))
+            return 200, resp
 
     def mget(req):
         sf = req.param("stored_fields")
@@ -308,7 +360,21 @@ def register_all(rc: RestController, node: Node) -> None:
 
     # ----------------------------------------------------------------- search
     def search(req):
+        t_parse = time.perf_counter_ns()
         body = req.json() or {}
+        parse_nanos = time.perf_counter_ns() - t_parse
+        with _rest_telemetry(
+                req, node, "indices:data/read/search",
+                force_trace=bool(body.get("profile")),
+                description=f"indices[{req.params.get('index') or '_all'}]",
+                parse_nanos=parse_nanos) as tr:
+            status, resp = _search(req, body)
+            if tr is not None and isinstance(resp, dict) \
+                    and body.get("profile"):
+                resp.setdefault("profile", {})["trace"] = trace_profile(tr)
+            return status, resp
+
+    def _search(req, body):
         _refuse_uri_query(req)
         if req.param("scroll") is not None:
             raise IllegalArgumentError(
@@ -358,10 +424,18 @@ def register_all(rc: RestController, node: Node) -> None:
 
     def count(req):
         _refuse_uri_query(req)
-        return 200, node.count(req.params.get("index"), req.json() or {})
+        with _rest_telemetry(
+                req, node, "indices:data/read/count",
+                description=f"indices[{req.params.get('index') or '_all'}]"):
+            return 200, node.count(req.params.get("index"), req.json() or {})
 
     def msearch(req):
         lines = req.ndjson()
+        with _rest_telemetry(req, node, "indices:data/read/msearch",
+                             description=f"requests[{len(lines) // 2}]"):
+            return _msearch(req, lines)
+
+    def _msearch(req, lines):
         as_int = req.bool_param("rest_total_hits_as_int", False)
         if as_int:
             for i in range(1, len(lines), 2):
@@ -459,6 +533,64 @@ def register_all(rc: RestController, node: Node) -> None:
                    if m.strip()]
         return 200, node.index_stats(req.params.get("index"), metrics)
 
+    # -------------------------------------------------------------- telemetry
+    def list_tasks(req):
+        actions = req.param("actions")
+        group_by = req.param("group_by") or "nodes"
+        out = node.tasks_list_api(actions)
+        # the list request itself runs as a task and carries the caller's
+        # X-Opaque-Id, as in the reference
+        self_action = "cluster:monitor/tasks/lists"
+        if actions is None or any(
+                fnmatch.fnmatchcase(self_action, p.strip())
+                for p in str(actions).split(",") if p.strip()):
+            opaque = req.headers.get("x-opaque-id")
+            out["nodes"].setdefault(node.node_id, {}).setdefault(
+                "tasks", {})[f"{node.node_id}:0"] = {
+                "node": node.node_id, "id": 0, "type": "transport",
+                "action": self_action,
+                "start_time_in_millis": int(time.time() * 1000),
+                "running_time_in_nanos": 1, "cancellable": False,
+                "headers": {"X-Opaque-Id": opaque} if opaque else {}}
+        if group_by == "none":
+            return 200, {"tasks": [t for sec in out["nodes"].values()
+                                   for t in sec.get("tasks", {}).values()]}
+        if group_by == "parents":
+            return 200, {"tasks": {tid: t for sec in out["nodes"].values()
+                                   for tid, t in sec.get("tasks",
+                                                         {}).items()}}
+        return 200, out
+
+    def get_task(req):
+        return 200, node.task_get_api(req.params["task_id"])
+
+    def cancel_task(req):
+        return 200, node.task_cancel_api(req.params["task_id"])
+
+    def cancel_tasks(req):
+        return 200, node.tasks_cancel_all_api(req.param("actions"))
+
+    def node_traces(req):
+        return 200, node.traces_api(limit=req.int_param("size", 50))
+
+    def node_stats(req):
+        metrics = [m.strip() for m in req.params["metrics"].split(",")
+                   if m.strip()]
+        for m in metrics:
+            if m == _PORTED_NODE_STATS:
+                continue
+            if m in _NODE_STATS_METRICS:
+                raise IllegalArgumentError(
+                    f"[_nodes/stats/{m}] is not supported by this build: "
+                    f"only [{_PORTED_NODE_STATS}] is ported")
+            hint = difflib.get_close_matches(
+                m, _NODE_STATS_METRICS + (_PORTED_NODE_STATS,), n=1)
+            suffix = f" -> did you mean [{hint[0]}]?" if hint else ""
+            raise IllegalArgumentError(
+                f"request [/_nodes/stats/{','.join(metrics)}] contains "
+                f"unrecognized metric: [{m}]{suffix}")
+        return 200, node.telemetry_stats_api()
+
     rc.register("GET", "/", root)
     # documents
     rc.register("PUT", "/{index}/_doc/{id}", put_doc)
@@ -509,3 +641,10 @@ def register_all(rc: RestController, node: Node) -> None:
     rc.register("POST", "/{index}/_cache/clear", clear_cache)
     rc.register("GET", "/_stats/{metric}", stats)
     rc.register("GET", "/{index}/_stats/{metric}", stats)
+    # telemetry
+    rc.register("GET", "/_tasks", list_tasks)
+    rc.register("GET", "/_tasks/{task_id}", get_task)
+    rc.register("POST", "/_tasks/{task_id}/_cancel", cancel_task)
+    rc.register("POST", "/_tasks/_cancel", cancel_tasks)
+    rc.register("GET", "/_nodes/traces", node_traces)
+    rc.register("GET", "/_nodes/stats/{metrics}", node_stats)

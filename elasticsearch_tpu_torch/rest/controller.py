@@ -29,12 +29,14 @@ logger = logging.getLogger("elasticsearch_tpu_torch.rest")
 
 class RestRequest:
     def __init__(self, method: str, path: str, params: Dict[str, str],
-                 query: Dict[str, str], body: bytes):
+                 query: Dict[str, str], body: bytes,
+                 headers: Optional[Dict[str, str]] = None):
         self.method = method
         self.path = path
         self.params = params          # path template params
         self.query = query            # query-string args
         self.raw_body = body
+        self.headers = headers or {}  # lower-cased header names
 
     def json(self) -> Any:
         if not self.raw_body:
@@ -130,7 +132,10 @@ class RestController:
         return walk(self._root, 0, {})
 
     def dispatch(self, method: str, path: str, query: Dict[str, str],
-                 body: bytes) -> Tuple[int, Any]:
+                 body: bytes, headers: Optional[Dict[str, str]] = None
+                 ) -> Tuple[int, Any]:
+        """Route one request; `headers` by lower-cased name (the REST
+        layer reads `x-opaque-id`)."""
         method = method.upper()
         try:
             node, params = self._resolve(path)
@@ -140,7 +145,7 @@ class RestController:
             handler = node.handlers.get(method)
             if handler is None and method == "HEAD" and "GET" in node.handlers:
                 status, _ = node.handlers["GET"](
-                    RestRequest(method, path, params, query, body))
+                    RestRequest(method, path, params, query, body, headers))
                 return status, None
             if handler is None:
                 return 405, _error_body(
@@ -148,7 +153,7 @@ class RestController:
                     f"Incorrect HTTP method for uri [{path}], allowed: "
                     f"[{', '.join(sorted(node.handlers))}]", 405)
             status, resp = handler(
-                RestRequest(method, path, params, query, body))
+                RestRequest(method, path, params, query, body, headers))
         except SearchEngineError as e:
             status, resp = e.status, {"error": e.to_wrapped_dict(),
                                       "status": e.status}

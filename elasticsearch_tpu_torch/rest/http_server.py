@@ -32,8 +32,9 @@ def _make_handler(controller: RestController):
                 self.send_error(413)
                 return
             body = self.rfile.read(length) if length else b""
+            headers = {k.lower(): v for k, v in self.headers.items()}
             status, payload = controller.dispatch(self.command, parsed.path,
-                                                  query, body)
+                                                  query, body, headers)
             data = b"" if payload is None else json.dumps(payload).encode()
             self.send_response(status)
             self.send_header("content-type", "application/json")

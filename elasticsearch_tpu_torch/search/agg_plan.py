@@ -517,8 +517,13 @@ class AggEngine:
             self.stats["device_nanos"] += nanos["device"]
             self.stats["assemble_nanos"] += nanos["assemble"]
             self.stats["host_nanos"] += nanos["host"]
-        return out, {"nodes": prof_nodes, "device_nanos": nanos["device"],
-                     "assemble_nanos": nanos["assemble"]}
+        profile = {"nodes": prof_nodes, "device_nanos": nanos["device"],
+                   "assemble_nanos": nanos["assemble"]}
+        if self.store.columnar_refresh:
+            # each column's last build, for `profile.shards[].columnar`
+            profile["columnar"] = {f: dict(v) for f, v in
+                                   self.store.columnar_refresh.items()}
+        return out, profile
 
     # ------------------------------------------------------------- binding
     def _mask(self, rows, box) -> torch.Tensor:

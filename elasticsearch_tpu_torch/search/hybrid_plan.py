@@ -53,9 +53,11 @@ from elasticsearch_tpu_torch.index.mapping import (
     DenseVectorFieldMapper, RankFeaturesFieldMapper, RankVectorsFieldMapper,
     TextFieldMapper,
 )
+from elasticsearch_tpu_torch.ops import dispatch
 from elasticsearch_tpu_torch.ops import similarity as sim
 from elasticsearch_tpu_torch.ops.bm25 import LexicalShard
 from elasticsearch_tpu_torch.ops.sparse import SparseShard
+from elasticsearch_tpu_torch.search.profile import hybrid_profile
 from elasticsearch_tpu_torch.search.queries import (
     SearchContext, parse_query, resolve_msm,
 )
@@ -69,7 +71,7 @@ DEFAULT_WINDOW = 100
 # `aggs` is accepted and ignored, as the reference's fused path ignores it
 _BODY_KEYS = {"rank", "sub_searches", "query", "knn", "size", "from",
               "_source", "docvalue_fields", "request_cache", "aggs",
-              "aggregations"}
+              "aggregations", "profile", "timeout", "terminate_after"}
 
 
 class LexicalLeg:
@@ -464,6 +466,15 @@ class HybridExecutor:
     the kNN boards' wait, RRF and fetch run in `_finalize_batch` outside
     it, overlapping the next batch's dispatch. A poisoned batch is retried
     one body at a time through both stages back to back.
+
+    A `profile` body gets `profile.hybrid` (`search/profile.py`): the
+    batch's plan / score / fuse / hydrate times, its queue wait and the
+    score time's split into the launch stage and the device wait, the
+    scheduler's counters, each leg's engine, and the hand kernels the
+    batch launched (the runner thread's launch event trace, on while a
+    body of the batch profiles). The port compiles every body's plan, so
+    `plan_cache` reads `miss`. A traced batch leader's trace gets the
+    `hybrid.*` stage spans.
     """
 
     def __init__(self, svc, device, max_batch: int = 64,
@@ -522,7 +533,18 @@ class HybridExecutor:
                  for body in bodies]
         bound = [plan.bind(body) for plan, body in zip(plans, bodies)]
         t1 = time.perf_counter_ns()
-        leg_results, pending = self._score_legs_async(reader, plans, bound)
+        # the launch event trace costs a dict a launch: on only when a body
+        # of the batch profiles
+        trace = any(body.get("profile") for body in bodies)
+        if trace:
+            dispatch.record_events(True)
+        try:
+            leg_results, leg_info, pending = self._score_legs_async(
+                reader, plans, bound)
+        except BaseException:
+            if trace:
+                dispatch.record_events(False)
+            raise
         dispatch_nanos = time.perf_counter_ns() - t1
         self._bump(searches=len(bodies), batches=1, plan_nanos=t1 - t0,
                    dispatch_nanos=dispatch_nanos,
@@ -531,8 +553,10 @@ class HybridExecutor:
             self.stats["max_batch_seen"] = max(self.stats["max_batch_seen"],
                                                len(bodies))
         return {"start": start, "reader": reader, "plans": plans,
-                "leg_results": leg_results, "pending": pending,
-                "dispatch_nanos": dispatch_nanos}
+                "bodies": bodies, "leg_results": leg_results,
+                "leg_info": leg_info, "pending": pending,
+                "plan_nanos": t1 - t0, "dispatch_nanos": dispatch_nanos,
+                "trace": trace, "meta": meta}
 
     def _finalize_batch(self, handle: dict) -> List[dict]:
         """Finalize stage (outside the run lock): land the kNN boards, fuse
@@ -540,9 +564,16 @@ class HybridExecutor:
         from elasticsearch_tpu_torch.search.service import fetch_hits
         reader, plans = handle["reader"], handle["plans"]
         ctx = SearchContext(reader, self.svc.mapper_service)
-        leg_results = handle["leg_results"]
+        leg_results, leg_info = handle["leg_results"], handle["leg_info"]
+        events = []
         t0 = time.perf_counter_ns()
-        self._land_knn_legs(handle["pending"], plans, leg_results)
+        try:
+            self._land_knn_legs(handle["pending"], plans, leg_results,
+                                leg_info)
+        finally:
+            if handle["trace"]:
+                events = dispatch.drain_events()
+                dispatch.record_events(False)
         t1 = time.perf_counter_ns()
         fused = []
         for bi, plan in enumerate(plans):
@@ -552,11 +583,14 @@ class HybridExecutor:
             top = np.lexsort((rows, -scores))[plan.frm:plan.frm + plan.size]
             fused.append((rows, scores, top))
         t2 = time.perf_counter_ns()
+        dispatch_nanos, sync_nanos = handle["dispatch_nanos"], t1 - t0
+        meta, bodies = handle["meta"], handle["bodies"]
         out = []
-        for plan, (rows, scores, top) in zip(plans, fused):
+        for bi, (plan, body, (rows, scores, top)) in enumerate(
+                zip(plans, bodies, fused)):
             hits = fetch_hits(ctx, self.svc.name, plan.fetch_body,
                               rows[top], scores[top])
-            out.append({
+            resp = {
                 "took": int((time.perf_counter() - handle["start"]) * 1000),
                 "timed_out": False,
                 "_shards": {"total": self.svc.num_shards,
@@ -565,21 +599,63 @@ class HybridExecutor:
                 "hits": {"total": {"value": int(len(rows)),
                                    "relation": "eq"},
                          "max_score": hits[0]["_score"] if hits else None,
-                         "hits": hits}})
+                         "hits": hits}}
+            if body.get("profile"):
+                resp["profile"] = hybrid_profile(
+                    self.svc.name, handle["plan_nanos"],
+                    dispatch_nanos + sync_nanos, t2 - t1, 0, False,
+                    len(bodies), [leg_info[(bi, li)]
+                                  for li in range(len(plan.legs))],
+                    dispatch_events=events,
+                    queue_wait_nanos=meta.get("queue_wait_max_nanos", 0),
+                    device_dispatch_nanos=dispatch_nanos,
+                    device_sync_nanos=sync_nanos,
+                    scheduler=self.scheduler_snapshot())
+            out.append(resp)
+        hydrate_nanos = time.perf_counter_ns() - t2
+        for resp in out:
+            if "profile" in resp:
+                resp["profile"]["hybrid"]["breakdown"]["hydrate_nanos"] = \
+                    hydrate_nanos
         # score = launch + device wait, the figure of the unbatched path
-        self._bump(sync_nanos=t1 - t0,
-                   score_nanos=handle["dispatch_nanos"] + t1 - t0,
-                   fuse_nanos=t2 - t1,
-                   hydrate_nanos=time.perf_counter_ns() - t2)
+        self._bump(sync_nanos=sync_nanos,
+                   score_nanos=dispatch_nanos + sync_nanos,
+                   fuse_nanos=t2 - t1, hydrate_nanos=hydrate_nanos)
+        tr = meta.get("trace")
+        if tr is not None:
+            # the batch leader's finer stage spans (the batcher recorded
+            # batch.dispatch / batch.finalize and linked the followers);
+            # every duration was measured above, so no wait is added
+            parent = meta.get("trace_parent")
+            tr.record_span("hybrid.plan", handle["plan_nanos"],
+                           parent_id=parent)
+            tr.record_span("hybrid.device_dispatch", dispatch_nanos,
+                           parent_id=parent, coalesced=len(bodies))
+            tr.record_span("hybrid.device_sync", sync_nanos,
+                           parent_id=parent)
+            tr.record_span("hybrid.fuse", t2 - t1, parent_id=parent)
+            tr.record_span("hybrid.hydrate", hydrate_nanos,
+                           parent_id=parent)
         return out
+
+    def scheduler_snapshot(self) -> dict:
+        """The batcher's scheduler counters (top-ups, deadline and
+        cancellation sheds, dispatch/finalize overlap hits), for the
+        profile."""
+        sched = self.batcher.sched
+        return {"topups": sched["topups"],
+                "deadline_sheds": sched["deadline_sheds"],
+                "overlap_hits": sched["overlap_hits"],
+                "pipelined_batches": sched["pipelined_batches"]}
 
     # -------------------------------------------------------------- legs
     def score_legs(self, reader, plans: List[HybridPlan],
                    bound: List[List[Any]]) -> List[List[np.ndarray]]:
         """Each body's legs, ranked and cut to its plan's window, run as
         one batch: the fusion's inputs, for checks that recompute RRF."""
-        leg_results, pending = self._score_legs_async(reader, plans, bound)
-        self._land_knn_legs(pending, plans, leg_results)
+        leg_results, leg_info, pending = self._score_legs_async(
+            reader, plans, bound)
+        self._land_knn_legs(pending, plans, leg_results, leg_info)
         return [[leg_results[(bi, li)] for li in range(len(legs))]
                 for bi, legs in enumerate(bound)]
 
@@ -592,11 +668,12 @@ class HybridExecutor:
         coarse phase's ids, so no board is left in flight); kNN legs per
         (field, k, num_candidates), launched un-landed
         (`search_many_async`); generic legs run the host query phase one
-        by one. Returns ({(body, leg): ranked rows}, the pending kNN
-        groups)."""
+        by one. Returns ({(body, leg): ranked rows}, {(body, leg): the
+        leg's profile entry}, the pending kNN groups)."""
         from elasticsearch_tpu_torch.search.service import (
             check_result_window)
         leg_results: Dict[Tuple[int, int], np.ndarray] = {}
+        leg_info: Dict[Tuple[int, int], dict] = {}
         lex_groups: Dict[str, list] = {}
         sparse_groups: Dict[str, list] = {}
         maxsim_groups: Dict[tuple, list] = {}
@@ -608,6 +685,7 @@ class HybridExecutor:
             for li, leg in enumerate(legs):
                 if isinstance(leg, EmptyLeg):
                     leg_results[(bi, li)] = np.zeros(0, dtype=np.int64)
+                    leg_info[(bi, li)] = {"type": "empty"}
                 elif isinstance(leg, GenericLeg):
                     # the reference runs a generic leg as a query phase
                     # of size `window`, held to `index.max_result_window`
@@ -616,6 +694,7 @@ class HybridExecutor:
                     top = native.topk(result.scores,
                                       min(plans[bi].window, len(result.rows)))
                     leg_results[(bi, li)] = result.rows[top]
+                    leg_info[(bi, li)] = {"type": "query_phase"}
                 elif isinstance(leg, LexicalLeg):
                     lex_groups.setdefault(leg.field, []).append(
                         (bi, li, leg))
@@ -635,23 +714,40 @@ class HybridExecutor:
                 reader, field,
                 [(leg.terms, leg.boost) for _bi, _li, leg in entries],
                 window, required=[leg.required for _bi, _li, leg in entries])
-            for (bi, li, _leg), (rows, _scores) in zip(entries, results):
+            lf = self.lexical.field(reader, field)
+            for (bi, li, leg), (rows, _scores) in zip(entries, results):
                 leg_results[(bi, li)] = rows[:plans[bi].window]
+                leg_info[(bi, li)] = {
+                    "type": "lexical_device", "field": field,
+                    "terms": len(leg.terms), "corpus_slots": lf.n_slots,
+                    "impact_tiles": int(lf.tile_slots.shape[0])}
         for field, entries in sparse_groups.items():
             window = max(plans[bi].window for bi, _li, _leg in entries)
             results = self.sparse.search_batch(
                 reader, field,
                 [(leg.tokens, leg.boost) for _bi, _li, leg in entries],
                 window)
-            for (bi, li, _leg), (rows, _scores) in zip(entries, results):
+            sf = self.sparse.field(reader, field)
+            for (bi, li, leg), (rows, _scores) in zip(entries, results):
                 leg_results[(bi, li)] = rows[:plans[bi].window]
+                leg_info[(bi, li)] = {
+                    "type": "sparse_device", "field": field,
+                    "tokens": len(leg.tokens), "corpus_slots": sf.n_slots,
+                    "impact_tiles": int(sf.tile_slots.shape[0])}
         for (field, k), entries in maxsim_groups.items():
             mapper = self.svc.mapper_service.get(field)
             results = self.late.search_batch(
                 reader, mapper, [(leg.query_tokens, leg.boost)
                                  for _bi, _li, leg in entries], k)
+            lf = self.late.field(reader, mapper)
+            n_docs = lf.snap.n_docs
             for (bi, li, _leg), (rows, _scores) in zip(entries, results):
                 leg_results[(bi, li)] = rows[:plans[bi].window]
+                leg_info[(bi, li)] = {
+                    "type": "maxsim_device", "field": field, "k": k,
+                    "encoding": lf.encoding,
+                    "coarse_window": lf.coarse_window(k) if n_docs else 0,
+                    "docs": n_docs}
         pending = []
         for (field, k, num_candidates), entries in knn_groups.items():
             # each leg's filter runs on the host, on the batch's reader;
@@ -664,16 +760,21 @@ class HybridExecutor:
                 num_candidates=num_candidates, filter_rows=filters,
                 reader=reader)
             pending.append((entries, handle))
-        return leg_results, pending
+        return leg_results, leg_info, pending
 
     def _land_knn_legs(self, pending, plans: List[HybridPlan],
-                       leg_results: Dict[Tuple[int, int], np.ndarray]
-                       ) -> None:
+                       leg_results: Dict[Tuple[int, int], np.ndarray],
+                       leg_info: Dict[Tuple[int, int], dict]) -> None:
         """Land each kNN group's boards, then each leg as `KnnQuery` scores
         it, cut to the plan's window by (score desc, row asc)."""
+        store = self.svc.vector_store
         for entries, handle in pending:
-            batch_out = self.svc.vector_store.finalize_many(handle)
+            batch_out = store.finalize_many(handle)
+            engine = store.last_knn_phases.get("engine")
             for (bi, li, leg), (rows, raw) in zip(entries, batch_out):
+                leg_info[(bi, li)] = {
+                    "type": "knn_device", "field": leg.field, "k": leg.k,
+                    **({"engine": engine} if engine else {})}
                 scores = (np.asarray(sim.to_es_score(raw, leg.metric))
                           * leg.boost)
                 order = np.argsort(rows, kind="stable")

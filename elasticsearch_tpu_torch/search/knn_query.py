@@ -5,7 +5,9 @@ The query dispatches to the shard's device vector store and converts raw
 similarities to the `_search` knn `_score` convention. An optional filter
 query runs first on the host; its rows go to the store, which masks
 everything else out of the exact route. There is no host fallback:
-without a store attached it raises.
+without a store attached it raises. The context's `deadline_at` rides
+into the store's batcher, and the store's phases of the search become the
+context's `knn_phases`.
 """
 
 from __future__ import annotations
@@ -54,11 +56,24 @@ class KnnQuery(Query):
         if store is None:
             raise IllegalArgumentError(
                 f"[knn] no vector store attached for field [{self.field}]")
-        # the store serves the snapshot of the reader the filter ran on
+        # the store serves the snapshot of the reader the filter ran on;
+        # `deadline_at` sheds the request in the batcher's queue
         rows, raw = store.search(self.field, self.query_vector, self.k,
                                  filter_rows=filter_rows,
                                  num_candidates=self.num_candidates,
-                                 reader=ctx.reader)
+                                 reader=ctx.reader,
+                                 deadline_at=getattr(ctx, "deadline_at",
+                                                     None))
+        # the engine's phases of this search (IVF route / score / merge,
+        # fallback reason, rescore window) and the field's last refresh
+        # composition, for `profile.knn`
+        phases = getattr(store, "last_knn_phases", None)
+        col = getattr(store, "columnar_refresh", None)
+        if col and self.field in col:
+            phases = dict(phases or {})
+            phases.setdefault("columnar", col[self.field])
+        if phases:
+            ctx.knn_phases = phases
         scores = np.asarray(sim.to_es_score(raw, metric)) * self.boost
         order = np.argsort(rows, kind="stable")
         return DocSet(rows[order].astype(np.int64),

@@ -101,7 +101,10 @@ def _constant(rows: np.ndarray, boost: float) -> DocSet:
 class SearchContext:
     """Per-shard execution context: the point-in-time reader, the mapping,
     the device vector store (kNN), the flat index settings and the node
-    query cache (None caches nothing)."""
+    query cache (None caches nothing). `deadline_at` is an absolute
+    deadline (time.monotonic seconds) the kNN legs pass into the batcher,
+    and `knn_phases` the kNN engine's phases of this search (for the
+    profile)."""
 
     def __init__(self, reader: ShardReader, mapper_service: MapperService,
                  vector_store=None, index_settings: Optional[dict] = None,
@@ -111,6 +114,8 @@ class SearchContext:
         self.vector_store = vector_store
         self.index_settings = index_settings or {}
         self.query_cache = query_cache
+        self.deadline_at: Optional[float] = None
+        self.knn_phases: Optional[dict] = None
         self._all_rows: Optional[np.ndarray] = None
 
     def all_rows(self) -> np.ndarray:

@@ -11,12 +11,14 @@ per-request opt-in or opt-out, read by the node), `post_filter`,
 `min_score`, `rescore`, `sort`, `search_after`, `collapse` (with
 `inner_hits` and a second-level collapse inside them), `highlight`,
 `version`, `seq_no_primary_term`, `stored_fields`, `docvalue_fields` and
-`explain`; the node reads `rank` and `batched_reduce_size`. `fields`,
-`track_scores`, `ext`, `stats`, `max_concurrent_shard_requests` and
-`pre_filter_shard_size` are accepted and change nothing, as in the
-reference. The keys the reference serves that are not ported
-(`_NOT_PORTED`) are each a 400 that names them; any other key is the
-reference's `unknown key` parsing error.
+`explain`; the node reads `rank`, `batched_reduce_size` and `profile`
+(`search/profile.py`). `fields`, `track_scores`, `ext`, `stats`,
+`max_concurrent_shard_requests`, `pre_filter_shard_size`, `timeout` and
+`terminate_after` are accepted and change nothing, as in the reference (a
+response is never cut short: `timed_out` is false). The keys the
+reference serves that are not ported (`_NOT_PORTED`) are each a 400 that
+names them; any other key is the reference's `unknown key` parsing
+error.
 
 `knn` is one spec or a list of specs (`field`, `query_vector`, `k`,
 `num_candidates`, `filter`, `boost`); `query` is any query
@@ -73,8 +75,6 @@ _SEARCH_BODY_KEYS = {
 }
 # the keys of the reference that this build leaves out, and why
 _NOT_PORTED = {
-    "profile": "the search profiler needs the telemetry, which is not "
-               "ported",
     "suggest": "suggesters are not ported",
     "script_fields": "the script module is not ported",
     "slice": "sliced scrolls are not ported",
@@ -83,9 +83,6 @@ _NOT_PORTED = {
     "point_in_time": "point-in-time readers are not ported",
     "runtime_mappings": "runtime fields are not ported",
     "indices_boost": "index boosts are not ported",
-    "timeout": "search timeouts need the telemetry, which is not ported",
-    "terminate_after": "early termination needs the telemetry, which is "
-                       "not ported",
 }
 _KNN_KEYS = {"field", "query_vector", "k", "num_candidates", "filter",
              "boost"}
@@ -212,11 +209,13 @@ class QueryPhaseResult:
     to `track_total_hits` with its relation, the max score, and the rows
     the query matched before `post_filter` (the aggregations' scope), and
     the aggregations over them (final JSON or partial states; None without
-    `aggs`) with the device engine's profile. Read-only once made, so a
+    `aggs`) with the device engine's profile, and the kNN engine's phases
+    (None without a kNN leg that reported any). Read-only once made, so a
     cached one serves any number of fetches."""
 
     __slots__ = ("rows", "scores", "sort_values", "total", "relation",
-                 "max_score", "agg_rows", "aggregations", "aggs_profile")
+                 "max_score", "agg_rows", "aggregations", "aggs_profile",
+                 "knn_phases")
 
     def __init__(self, rows, scores, total: int, relation: str, max_score,
                  sort_values=None, agg_rows=None):
@@ -229,6 +228,7 @@ class QueryPhaseResult:
         self.agg_rows = agg_rows
         self.aggregations = None
         self.aggs_profile = None
+        self.knn_phases = None
 
 
 def window(body: dict) -> Tuple[int, int]:
@@ -292,6 +292,7 @@ def execute_query_phase(ctx: SearchContext, body: dict, agg_engine=None,
     given, its host nodes and a body with none eligible on the host path,
     as partial states when `partial_aggs`."""
     result = _query_window(ctx, body)
+    result.knn_phases = ctx.knn_phases
     aggs_spec = body.get("aggs") or body.get("aggregations")
     if aggs_spec:
         from elasticsearch_tpu_torch.search import agg_partials, aggregations

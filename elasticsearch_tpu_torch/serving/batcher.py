@@ -21,15 +21,28 @@
     launch overlaps this batch's host work. `async_depth` bounds the
     batches in flight un-finalized.
 
+  Each queue entry carries its request's telemetry context, captured
+  from the submitting thread at enqueue (`telemetry.capture()`: trace,
+  parent span, task), since its batch may run on another request's
+  thread. A request whose task was cancelled while it sat queued is shed
+  when a runner claims a batch, before any launch (`cancelled_sheds`),
+  and `submit(deadline_at=)` tightens the admission deadline with a
+  per-request absolute one. The batch's first traced member (its leader)
+  carries the `batch.dispatch` and `batch.finalize` spans, and its other
+  traced members link to them; a profiled runner's launch events of a
+  coalesced batch carry `coalesced_batch: N`. The `serving.queue_wait`,
+  `serving.device_dispatch` and `serving.device_sync` histograms time a
+  request's wait, a batch's launch stage and its finalize stage (the
+  wait on the batch's event and the host work after it); no clock read
+  waits on the device.
+
 * `BoundedBatcher` — the same plus admission control: a queue-depth limit
   that answers 429 (`EsRejectedExecutionError`) and a per-request deadline.
 
 Left out of this port: the reference's host-vs-device `CostModel` and its
-overhead probe (the port has no host kNN kernel), the telemetry spans and
-thread sections, the compile warmup thread (PyTorch runs eagerly), the
-synchronous single-`execute` executor (every caller here has a
-dispatch/finalize pair), and the per-request absolute deadline and
-cancellation shed (nothing here times out or cancels a queued request).
+overhead probe (the port has no host kNN kernel), the compile warmup
+thread (PyTorch runs eagerly) and the synchronous single-`execute`
+executor (every caller here has a dispatch/finalize pair).
 """
 
 from __future__ import annotations
@@ -39,14 +52,20 @@ import time
 from concurrent.futures import Future
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
-from elasticsearch_tpu_torch.common.errors import EsRejectedExecutionError
+from elasticsearch_tpu_torch.common.errors import (
+    EsRejectedExecutionError, TaskCancelledError,
+)
 from elasticsearch_tpu_torch.ops import dispatch
+from elasticsearch_tpu_torch.telemetry import metrics as _metrics
+from elasticsearch_tpu_torch.telemetry import thread_section as _section
+from elasticsearch_tpu_torch.telemetry import trace as _tt
 
 
 class _QueueEntry:
     """One queued request: payload, future, and its schedule metadata."""
 
-    __slots__ = ("request", "fut", "enqueued", "deadline", "seq", "claimed")
+    __slots__ = ("request", "fut", "enqueued", "deadline", "seq", "claimed",
+                 "trace", "span_parent", "token")
 
     def __init__(self, request, fut: Future, enqueued: float,
                  deadline: Optional[float], seq: int):
@@ -56,6 +75,10 @@ class _QueueEntry:
         self.deadline = deadline   # monotonic instant; None = never expires
         self.seq = seq             # arrival order (EDF tie-break)
         self.claimed = False       # a runner owns it (set under _q_lock)
+        # the submitting thread's telemetry context: its trace (None =
+        # unsampled), parent span id and task (the cancellation token: a
+        # truthy `.cancelled` sheds the entry when a batch is claimed)
+        self.trace, self.span_parent, self.token = _tt.capture()
 
     def sort_key(self) -> Tuple[float, int]:
         return (self.deadline if self.deadline is not None else float("inf"),
@@ -64,7 +87,8 @@ class _QueueEntry:
 
 def _fresh_sched_stats() -> dict:
     return {"batches": 0, "pipelined_batches": 0, "requests": 0,
-            "topups": 0, "deadline_sheds": 0, "overlap_hits": 0,
+            "topups": 0, "deadline_sheds": 0, "cancelled_sheds": 0,
+            "overlap_hits": 0,
             "queue_wait_nanos": 0, "dispatch_nanos": 0,
             "finalize_nanos": 0}
 
@@ -89,8 +113,8 @@ class CombiningBatcher:
     request at a time through the pair back to back, under the run lock.
 
     `sched` counts the scheduler's work: batches, top-ups, schedule-time
-    deadline sheds, dispatch/finalize overlap hits, and cumulative
-    queue-wait / dispatch / finalize time.
+    deadline and cancellation sheds, dispatch/finalize overlap hits, and
+    cumulative queue-wait / dispatch / finalize time.
     """
 
     def __init__(self, dispatch_fn: Callable[[Sequence], Any],
@@ -143,14 +167,20 @@ class CombiningBatcher:
         queue depth: subclasses refuse (raise) instead of queueing
         without bound."""
 
-    def _enqueue(self, request, fut: Future) -> _QueueEntry:
+    def _enqueue(self, request, fut: Future,
+                 deadline_at: Optional[float] = None) -> _QueueEntry:
         """Queue one request (admission may refuse — `_admit`). Returns the
-        queue entry."""
+        queue entry. `deadline_at` is a per-request absolute deadline
+        (time.monotonic seconds); it tightens, never loosens, the batcher's
+        own admission deadline."""
         now = time.monotonic()
         with self._q_cond:
             self._admit(len(self._queue), now)
-            entry = _QueueEntry(request, fut, now, self._deadline_for(now),
-                                self._seq)
+            deadline = self._deadline_for(now)
+            if deadline_at is not None:
+                deadline = deadline_at if deadline is None \
+                    else min(deadline, deadline_at)
+            entry = _QueueEntry(request, fut, now, deadline, self._seq)
             self._seq += 1
             self._queue.append(entry)
             self._q_cond.notify_all()
@@ -167,10 +197,24 @@ class CombiningBatcher:
                 f"rejected execution: request spent "
                 f"{waited:.0f}ms queued, over the admission deadline"))
 
+    def _shed_cancelled(self, entry: _QueueEntry, now: float) -> None:
+        """Cancellation shed: the request's task was cancelled
+        (`POST _tasks/{id}/_cancel`) while it sat queued, so it leaves the
+        queue as an expired deadline does, before any device time is spent
+        on an answer nobody will read."""
+        self.sched["cancelled_sheds"] += 1
+        if entry.trace is not None:
+            entry.trace.record_span(
+                "queue.wait", int((now - entry.enqueued) * 1e9),
+                parent_id=entry.span_parent, status="cancelled")
+        if not entry.fut.done():
+            entry.fut.set_exception(TaskCancelledError(
+                "task cancelled while queued (shed at EDF admission)"))
+
     def _claim_locked(self, want: int, now: float) -> List[_QueueEntry]:
         """Take up to `want` entries off the queue, earliest deadline
-        first, shedding any whose deadline has passed. Caller holds
-        `_q_lock`."""
+        first, shedding any whose deadline has passed or whose task was
+        cancelled. Caller holds `_q_lock`."""
         if not self._queue:
             return []
         # a deadline-less queue is already in seq order: skip the sort
@@ -179,13 +223,22 @@ class CombiningBatcher:
         claimed: List[_QueueEntry] = []
         keep: List[_QueueEntry] = []
         for entry in self._queue:
+            if entry.token is not None \
+                    and getattr(entry.token, "cancelled", False):
+                self._shed_cancelled(entry, now)
+                continue
             if entry.deadline is not None and now > entry.deadline:
                 self._shed(entry, now)
                 continue
             if len(claimed) < want:
                 entry.claimed = True
-                self.sched["queue_wait_nanos"] += int(
-                    (now - entry.enqueued) * 1e9)
+                wait_ns = int((now - entry.enqueued) * 1e9)
+                self.sched["queue_wait_nanos"] += wait_ns
+                # host writes only: safe under _q_lock
+                _metrics.record("serving.queue_wait", wait_ns)
+                if entry.trace is not None:
+                    entry.trace.record_span("queue.wait", wait_ns,
+                                            parent_id=entry.span_parent)
                 claimed.append(entry)
             else:
                 keep.append(entry)
@@ -258,9 +311,53 @@ class CombiningBatcher:
             except Exception as one_exc:
                 entry.fut.set_exception(one_exc)
 
+    @staticmethod
+    def _trace_leader(batch: List[_QueueEntry]) -> Optional[_QueueEntry]:
+        """The batch's trace LEADER: its first member with a sampled
+        trace, which carries the batch-level spans; other traced members
+        (followers) link to them instead of claiming device time the whole
+        batch shared."""
+        for entry in batch:
+            if entry.trace is not None:
+                return entry
+        return None
+
+    def _trace_batch(self, batch: List[_QueueEntry], name: str,
+                     dur_ns: int, status: str = "ok") -> None:
+        """Record one batch-stage span on the leader's trace and link every
+        traced follower to it. Retroactive: the duration was measured
+        already."""
+        leader = self._trace_leader(batch)
+        if leader is None:
+            return
+        span_id = leader.trace.record_span(
+            name, dur_ns, parent_id=leader.span_parent, status=status,
+            coalesced=len(batch))
+        for entry in batch:
+            if entry.trace is not None and entry is not leader:
+                entry.trace.add_link(leader.trace.trace_id, span_id,
+                                     "coalesced_follower")
+
+    @staticmethod
+    def _trace_since(batch: List[_QueueEntry]) -> Optional[int]:
+        """Where this batch's launch events start in the runner thread's
+        event trace, when the thread records one and the batch coalesced
+        requests (else None): the runner launches for every request in the
+        batch, and a profiled follower sees an empty list."""
+        return (dispatch.event_count()
+                if len(batch) > 1 and dispatch.events_enabled() else None)
+
+    @staticmethod
+    def _annotate(trace_since: Optional[int], n: int) -> None:
+        # on every exit: a poisoned batch's serial retries run on this
+        # runner thread too, and their launches are the batch's work
+        if trace_since is not None:
+            dispatch.annotate_events(trace_since, coalesced_batch=n)
+
     def _begin_pipelined(self, batch: List[_QueueEntry]):
         """Dispatch stage (under the run lock): launch the batch's device
         work without waiting for it. Returns the finalize context."""
+        trace_since = self._trace_since(batch)
         self._depth_sem.acquire()   # bounds in-flight un-finalized batches
         with self._q_lock:
             if self._inflight > 0:
@@ -277,14 +374,20 @@ class CombiningBatcher:
         except Exception as exc:
             err = exc
         except BaseException as exc:
+            err = exc
             for entry in batch:
                 if not entry.fut.done():
                     entry.fut.set_exception(exc)
             self._end_pipelined()
+            self._annotate(trace_since, len(batch))
             raise
         finally:
-            self.sched["dispatch_nanos"] += time.perf_counter_ns() - t0
-        return batch, handle, err
+            dt = time.perf_counter_ns() - t0
+            self.sched["dispatch_nanos"] += dt
+            _metrics.record("serving.device_dispatch", dt)
+            self._trace_batch(batch, "batch.dispatch", dt,
+                              status="ok" if err is None else "error")
+        return batch, handle, err, trace_since
 
     def _end_pipelined(self) -> None:
         with self._q_lock:
@@ -292,7 +395,8 @@ class CombiningBatcher:
         self._depth_sem.release()
 
     def _finish_pipelined(self, batch: List[_QueueEntry], handle,
-                          err: Optional[Exception]) -> None:
+                          err: Optional[Exception],
+                          trace_since: Optional[int]) -> None:
         """Finalize stage (OUTSIDE the run lock): device wait + host
         post-processing, concurrent with the next batch's dispatch."""
         released = False
@@ -300,8 +404,15 @@ class CombiningBatcher:
         results = None
 
         def land_stage() -> None:
+            # the stage's histogram and leader span land BEFORE any future
+            # resolves: a submitter woken by set_result may finish its
+            # request and ship its trace at once
+            dt = time.perf_counter_ns() - t0
             with self._q_lock:   # concurrent finalizes both land here
-                self.sched["finalize_nanos"] += time.perf_counter_ns() - t0
+                self.sched["finalize_nanos"] += dt
+            _metrics.record("serving.device_sync", dt)
+            self._trace_batch(batch, "batch.finalize", dt,
+                              status="ok" if err is None else "error")
 
         try:
             if err is None:
@@ -311,6 +422,7 @@ class CombiningBatcher:
                 except Exception as exc:
                     err = exc
                 except BaseException as exc:
+                    err = exc
                     land_stage()
                     for entry in batch:
                         if not entry.fut.done():
@@ -333,13 +445,15 @@ class CombiningBatcher:
         finally:
             if not released:
                 self._end_pipelined()
+            self._annotate(trace_since, len(batch))
 
     def batch_meta(self) -> dict:
         """Schedule metadata of the batch THIS thread is executing (set
-        just before the executor runs): coalesced size and the longest
-        queue wait among its members. Consumed on read, so a poisoned
-        batch's serial retries on this thread do not count the dead
-        batch's metadata again. Empty off a runner thread."""
+        just before the executor runs): coalesced size, the longest queue
+        wait among its members, and the trace leader's trace and parent
+        span (for an executor's finer spans). Consumed on read, so a
+        poisoned batch's serial retries on this thread do not count the
+        dead batch's metadata again. Empty off a runner thread."""
         meta = getattr(self._tls, "meta", None)
         self._tls.meta = None
         return dict(meta or {})
@@ -348,6 +462,7 @@ class CombiningBatcher:
         """One scheduler turn: drain + top up + serve a batch (if any).
         With `entry`, returns immediately once that entry is claimed or
         done instead of competing to run someone else's batch."""
+        pending = None
         with self._run_lock:
             if entry is not None and (entry.fut.done() or entry.claimed):
                 return
@@ -359,17 +474,28 @@ class CombiningBatcher:
             self.sched["batches"] += 1
             self.sched["requests"] += len(batch)
             now = time.monotonic()
+            leader = self._trace_leader(batch)
             self._tls.meta = {
                 "coalesced": len(batch),
                 "queue_wait_max_nanos": int(max(
-                    (now - e.enqueued) for e in batch) * 1e9)}
+                    (now - e.enqueued) for e in batch) * 1e9),
+                "trace": leader.trace if leader is not None else None,
+                "trace_parent": (leader.span_parent
+                                 if leader is not None else None)}
             self.sched["pipelined_batches"] += 1
-            pending = self._begin_pipelined(batch)
-        self._finish_pipelined(*pending)
+            # name the sections on the borrowed runner thread, so a stack
+            # sampler attributes its time to the batcher
+            with _section("batcher-drain"):
+                pending = self._begin_pipelined(batch)
+        if pending is not None:
+            with _section("batcher-finalize"):
+                self._finish_pipelined(*pending)
 
-    def submit(self, request):
+    def submit(self, request, deadline_at: Optional[float] = None):
+        """Serve one request; `deadline_at` (time.monotonic seconds) sheds
+        it if no runner claims it by then."""
         fut: Future = Future()
-        entry = self._enqueue(request, fut)
+        entry = self._enqueue(request, fut, deadline_at=deadline_at)
         while not fut.done():
             if entry.claimed:
                 # a runner owns this request; its finalize (possibly on
@@ -404,7 +530,8 @@ class BoundedBatcher(CombiningBatcher):
         self.max_queue_depth = max_queue_depth
         self.deadline_ms = deadline_ms
         self.stats = {"accepted": 0, "rejected_depth": 0,
-                      "shed_deadline": 0, "max_depth_seen": 0}
+                      "shed_deadline": 0, "shed_cancelled": 0,
+                      "max_depth_seen": 0}
 
     def _deadline_for(self, now: float) -> Optional[float]:
         if self.deadline_ms is None:
@@ -420,6 +547,10 @@ class BoundedBatcher(CombiningBatcher):
                 f"rejected execution: request spent "
                 f"{waited:.0f}ms queued, over the "
                 f"{self.deadline_ms:.0f}ms admission deadline"))
+
+    def _shed_cancelled(self, entry: _QueueEntry, now: float) -> None:
+        self.stats["shed_cancelled"] += 1
+        super()._shed_cancelled(entry, now)
 
     def _admit(self, depth: int, now: float) -> None:
         if depth >= self.max_queue_depth:

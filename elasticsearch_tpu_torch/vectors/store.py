@@ -39,6 +39,12 @@ batcher's run lock and its device→host wait in the finalize stage outside
 it. A refresh retires a rebuilt field's batchers; requests already queued
 in one are served against the corpus it closed over.
 
+Each dispatched batch holds an in-flight slot until its finalize (or the
+garbage collection of a handle dropped unfinalized) releases it: the
+`serving.inflight_dispatches` gauge of `_nodes/stats/telemetry`. A
+`search` may carry `deadline_at`, an absolute deadline its batcher sheds
+the request at when no runner has claimed it by then.
+
 A request may carry `filter_rows`, the sorted engine rows its filter
 query let through. Filtered and unfiltered requests share batches; a
 batch holding any filter takes the exact route with a [B, N] row mask
@@ -76,6 +82,7 @@ from elasticsearch_tpu_torch.segments import (
     GenerationalCorpus, TieredMergePolicy, row_index_of,
 )
 from elasticsearch_tpu_torch.serving.batcher import CombiningBatcher
+from elasticsearch_tpu_torch.telemetry import metrics as _telemetry_metrics
 
 logger = logging.getLogger("elasticsearch_tpu_torch.vectors")
 
@@ -212,6 +219,27 @@ def _to_host_async(*tensors: torch.Tensor):
     return tuple(host), ready
 
 
+class _InflightSlot:
+    """One dispatched, not yet finalized batch's place in the store's
+    in-flight count. A pending handle carries its slot so the count cannot
+    leak: `finalize_many` releases it, and a handle dropped unfinalized (a
+    caller that launched several legs and raised before landing them all)
+    releases at garbage collection. `release` is idempotent."""
+
+    __slots__ = ("_store",)
+
+    def __init__(self, store):
+        self._store = store
+
+    def release(self) -> None:
+        store, self._store = self._store, None
+        if store is not None:
+            store._end_dispatch()
+
+    def __del__(self):
+        self.release()
+
+
 class VectorStoreShard:
     def __init__(self, dtype: str = "bf16", device="cuda",
                  knn_engine: str = "tpu", knn_nlist=None,
@@ -262,6 +290,9 @@ class VectorStoreShard:
         self._sched_retired: Dict[str, int] = {}
         # per-thread phases of the last search (`last_knn_phases`)
         self._tls = threading.local()
+        # each field's last refresh composition in the block store
+        # (cached / delta / full), for `profile.knn.columnar`
+        self.columnar_refresh: Dict[str, dict] = {}
         # reader -> the fields synced for it: a filtered request is served
         # from the corpus of the reader its filter ran on
         self._snapshots = weakref.WeakKeyDictionary()
@@ -338,6 +369,7 @@ class VectorStoreShard:
                 continue
             view = columnar.STORE.vector_view(reader, field)
             row_map = view.row_map
+            self.columnar_refresh[field] = view.refresh
             metric = _METRIC_MAP[mapper.similarity]
             dtype = plan["encoding"]
             # the int8 rung's device rescore level; packed rungs rescore
@@ -635,6 +667,19 @@ class VectorStoreShard:
         concurrent requests never read each other's."""
         return getattr(self._tls, "phases", {})
 
+    # ------------------------------------------------------- in flight
+    @staticmethod
+    def _begin_dispatch() -> None:
+        """Count one batch in flight on the `serving.inflight_dispatches`
+        gauge (looked up at each call, so a registry `reset()` leaves no
+        stale handle). The reference's count of the other batches in
+        flight feeds its mesh router, which is not ported."""
+        _telemetry_metrics.gauge("serving.inflight_dispatches").inc()
+
+    @staticmethod
+    def _end_dispatch() -> None:
+        _telemetry_metrics.gauge("serving.inflight_dispatches").dec()
+
     # ------------------------------------------------------- batchers
     def _retire_field(self, field: str) -> None:
         """Drop the batchers of a rebuilt field's earlier builds, folding
@@ -721,19 +766,23 @@ class VectorStoreShard:
                filter_rows: Optional[np.ndarray] = None,
                precision: str = "bf16",
                num_candidates: Optional[int] = None,
-               reader=None) -> Tuple[np.ndarray, np.ndarray]:
+               reader=None, deadline_at: Optional[float] = None
+               ) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k search. Returns (global_rows [m], raw_scores [m]), m <= k
         (padding and filtered-out slots removed). `filter_rows`: the sorted
         engine rows allowed to match, from a filter query run on `reader`.
         Concurrent callers coalesce through a per-(field, version, k,
-        precision, num_candidates) combining batcher into one dispatch."""
+        precision, num_candidates) combining batcher into one dispatch;
+        `deadline_at` (time.monotonic seconds) sheds the request there
+        when no runner claims it in time (`EsRejectedExecutionError`)."""
         fc = self._field_for(field, reader)
         if fc is None or fc.corpus is None:
             self._tls.phases = {}
             return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.float32)
         batcher = self._batcher(field, fc, k, precision, num_candidates)
         result, phases = batcher.submit(
-            (np.asarray(query_vector, dtype=np.float32), filter_rows))
+            (np.asarray(query_vector, dtype=np.float32), filter_rows),
+            deadline_at=deadline_at)
         self._tls.phases = phases
         return result
 
@@ -781,9 +830,16 @@ class VectorStoreShard:
         return results
 
     def _finalize(self, handle) -> Tuple[list, dict]:
-        kind, payload, phases = handle
+        kind, payload, phases = handle[:3]
         if kind == "done":
             return payload, phases
+        try:
+            return self._land_pending(payload, phases)
+        finally:
+            if len(handle) > 3:     # `_dispatch_many`'s in-flight slot
+                handle[3].release()
+
+    def _land_pending(self, payload, phases: dict) -> Tuple[list, dict]:
         # `fc`: the FieldCorpus, or the GenerationSet of a generational
         # batch (the flat row map), held until the boards have landed
         fc, scores, ids, ready, k_eff, n_valid, n_real, rescore_ctx = payload
@@ -802,6 +858,24 @@ class VectorStoreShard:
     def _dispatch_many(self, fc: FieldCorpus, k: int, precision: str,
                        requests: List[tuple],
                        num_candidates: Optional[int]):
+        """`_dispatch_routed` inside an in-flight slot: a pending handle
+        carries its slot as a fourth element, which `_finalize` releases."""
+        self._begin_dispatch()
+        slot = _InflightSlot(self)
+        try:
+            handle = self._dispatch_routed(fc, k, precision, requests,
+                                           num_candidates)
+        except BaseException:
+            slot.release()
+            raise
+        if handle[0] == "done":
+            slot.release()
+            return handle
+        return handle + (slot,)
+
+    def _dispatch_routed(self, fc: FieldCorpus, k: int, precision: str,
+                         requests: List[tuple],
+                         num_candidates: Optional[int]):
         """Dispatch stage of one batch of (query vector, filter rows)
         requests: through the IVF router when the field has one and no
         fallback reason applies (completes here), else the exhaustive

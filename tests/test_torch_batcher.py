@@ -7,8 +7,9 @@ the same `sched` / `stats` counters. The time counters (`*_nanos`) differ
 by nature; they are checked for sign only.
 
 The port keeps one executor shape, the (dispatch_fn, finalize_fn) pair, so
-the reference runs in its pipelined mode here. Its cancellation-shed
-counters, which the port leaves out, must stay 0."""
+the reference runs in its pipelined mode here. No scenario here cancels a
+task, so both modules' cancellation-shed counters must stay 0
+(`tests/test_torch_telemetry.py` holds the shed itself)."""
 
 import threading
 import time
@@ -21,7 +22,7 @@ from elasticsearch_tpu_torch.serving import batcher as port_batcher
 
 MODULES = {"reference": ref_batcher, "port": port_batcher}
 WAIT = 10.0
-# the reference's counters of the cancellation shed the port leaves out
+# the cancellation shed's counters, 0 in these scenarios
 LEFT_OUT = ("cancelled_sheds", "shed_cancelled")
 
 

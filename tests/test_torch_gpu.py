@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels (binned kNN, fused IVF probes, MaxSim, the
 BM25 board)
 against their plain PyTorch versions, and the `aggs.*` torch ops against
-numpy, on a CUDA card. Every test here is marked `gpu` and skips without a card. This
+numpy, on a CUDA card; also the served paths on the card (a profiled
+request's launches against its unprofiled twin's, the device waits of
+sampled-out and traced requests). Every test here is marked `gpu` and skips without a card. This
 file imports neither `jax` nor the JAX package, so on a machine without
 JAX it runs alone:
 
@@ -424,7 +426,7 @@ def test_store_pipelined_route_on_cuda(cuda, options):
         {"properties": {"v": field}}).vector_fields())
     queries = list(rng.standard_normal((8, d)).astype(np.float32))
     handle = store.search_many_async("v", queries, 10)
-    kind, payload, _phases = handle
+    kind, payload, _phases = handle[:3]
     assert kind == "pending"
     assert payload[1].is_pinned() and payload[2].is_pinned()
     assert isinstance(payload[3], torch.cuda.Event)
@@ -1826,3 +1828,117 @@ def test_forcemerge_and_ivf_compaction_on_cuda(cuda, monkeypatch):
         assert _req(grc, "DELETE", f"/{name}")[0] == 200
     gc.collect()
     assert before - torch.cuda.memory_allocated(cuda) >= 0.9 * corpus
+
+
+def _telemetry_node(cuda, monkeypatch, options):
+    """A one-shard CUDA node behind its REST layer (the request cache
+    off): `emb` (64 dims, `options`) padded to the binned tile, and `body`
+    text, 4,096 docs."""
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.rest.actions import register_all
+    from elasticsearch_tpu_torch.rest.controller import RestController
+
+    monkeypatch.setattr(knn, "preferred_pad_multiple",
+                        lambda n, metric, device: knn.BINNED_TILE)
+    rng = np.random.default_rng(43)
+    n = 4096
+    centers = rng.standard_normal((32, 64)).astype(np.float32)
+    vecs = (centers[rng.integers(0, 32, n)]
+            + 0.3 * rng.standard_normal((n, 64))).astype(np.float32)
+    words = np.array(["alpha", "beta", "gamma", "delta", "eps", "zeta"])
+    node = Node(device=cuda,
+                settings={"search.request_cache.device_paths": "false"})
+    emb = {"type": "dense_vector", "dims": 64, "similarity": "cosine"}
+    if options:
+        emb["index_options"] = options
+    node.create_index("t", {
+        "settings": {"number_of_shards": 1, "index.knn.nlist": 32,
+                     "index.knn.nprobe": 8},
+        "mappings": {"properties": {"emb": emb, "body": {"type": "text"}}}})
+    node.index("t").index_many(
+        [str(i) for i in range(n)],
+        [{"body": " ".join(rng.choice(words, 4))} for i in range(n)],
+        vectors={"emb": vecs})
+    node.refresh("t")
+    rc = RestController()
+    register_all(rc, node)
+    return node, rc, rng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,program", [
+    ("flat", "knn.binned"), ("int8_flat", "knn.binned"),
+    ("int8_ivf", "ivf.fused_probe"), ("hybrid", "bm25.topk")])
+def test_profiled_request_launches_the_same_kernels_on_cuda(
+        cuda, monkeypatch, case, program):
+    """A profiled request launches the hand kernels an unprofiled one
+    launches (the same `LAUNCHES` delta), answers the same hits, and its
+    profile's launch events name them: one event a launch."""
+    options = None if case in ("flat", "hybrid") else {"type": case}
+    node, rc, rng = _telemetry_node(cuda, monkeypatch, options)
+    for _ in range(3):
+        body = {"knn": {"field": "emb", "query_vector":
+                        rng.standard_normal(64).tolist(), "k": 10,
+                        "num_candidates": 50}, "size": 10}
+        if case == "hybrid":
+            body.update(query={"match": {"body": "alpha gamma"}},
+                        rank={"rrf": {}})
+        dispatch.reset_launches()
+        s1, plain = _req(rc, "POST", "/t/_search", body)
+        plain_launches = dispatch.launches()
+        dispatch.reset_launches()
+        s2, prof = _req(rc, "POST", "/t/_search", dict(body, profile=True))
+        assert s1 == s2 == 200
+        assert dispatch.launches() == plain_launches and plain_launches
+        assert [h["_id"] for h in prof["hits"]["hits"]] == \
+            [h["_id"] for h in plain["hits"]["hits"]]
+        events = (prof["profile"]["hybrid"]["dispatch"] if case == "hybrid"
+                  else prof["profile"]["shards"][0]["dispatch"])
+        assert len(events) == sum(plain_launches.values())
+        assert program in {e["kernel"] for e in events}
+        assert {e["launch"].split("/")[0] for e in events} == \
+            set(plain_launches)
+        assert prof["profile"]["trace"]["top_spans"]
+
+
+@pytest.mark.gpu
+def test_sampled_out_request_adds_no_device_sync_on_cuda(cuda, monkeypatch):
+    """Sequential kNN requests through the REST layer wait on the card
+    exactly once a batch, on the batch's event, and never through
+    `torch.cuda.synchronize`: at sample rate 0 (every request sampled
+    out) and at 1.0 (every request traced) alike."""
+    from elasticsearch_tpu_torch import telemetry
+
+    node, rc, rng = _telemetry_node(cuda, monkeypatch, None)
+    calls = {"device": 0, "event": 0}
+    real_sync, real_event = torch.cuda.synchronize, torch.cuda.Event.synchronize
+
+    def device_sync(*a, **kw):
+        calls["device"] += 1
+        return real_sync(*a, **kw)
+
+    def event_sync(self):
+        calls["event"] += 1
+        return real_event(self)
+
+    bodies = [{"knn": {"field": "emb", "query_vector":
+                       rng.standard_normal(64).tolist(), "k": 10,
+                       "num_candidates": 50}} for _ in range(16)]
+    for body in bodies[:2]:                      # warm the kernel library
+        assert _req(rc, "POST", "/t/_search", body)[0] == 200
+    before = telemetry.TRACER.sample_rate
+    monkeypatch.setattr(torch.cuda, "synchronize", device_sync)
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", event_sync)
+    try:
+        for rate in (0.0, 1.0):
+            telemetry.TRACER.configure(sample_rate=rate)
+            sched0 = dict(node.index("t").vector_store.scheduler_stats())
+            calls.update(device=0, event=0)
+            for body in bodies:
+                assert _req(rc, "POST", "/t/_search", body)[0] == 200
+            sched = node.index("t").vector_store.scheduler_stats()
+            batches = sched["batches"] - sched0["batches"]
+            assert batches == len(bodies)
+            assert calls == {"device": 0, "event": batches}, (rate, calls)
+    finally:
+        telemetry.TRACER.configure(sample_rate=before)

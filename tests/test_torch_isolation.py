@@ -47,7 +47,9 @@ def test_port_imports_without_jax_or_reference():
                  "common.errors", "search.aggregations",
                  "search.agg_partials", "search.agg_plan", "ops.aggs",
                  "segments", "segments.policy", "segments.generation",
-                 "segments.generational", "columnar.store"):
+                 "segments.generational", "columnar.store", "telemetry",
+                 "telemetry.metrics", "telemetry.trace", "node_admin",
+                 "search.profile"):
         assert f"elasticsearch_tpu_torch.{name}" in names
     code = (
         "import sys\n"

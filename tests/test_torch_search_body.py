@@ -5,12 +5,13 @@ every sort form (`_score`, `_doc`, numeric, boolean and keyword fields,
 `order`, `missing`, the string forms), `search_after` across pages,
 `post_filter`, `min_score`, the five rescore modes and a list of
 rescorers, `collapse` with `inner_hits` and a second-level collapse, the
-URL `sort`, each error of the body's checks, and a 400 that names each key
-left out."""
+URL `sort`, each error of the body's checks, a 400 that names each key
+left out, and `profile`, `timeout` and `terminate_after` answered as the
+reference answers them."""
 
 import pytest
 
-from tests.torch_rest_pair import Pair, load_mixed, mixed_vector
+from tests.torch_rest_pair import Pair, load_mixed, mixed_vector, same_profile
 
 
 @pytest.fixture
@@ -173,15 +174,14 @@ def test_body_errors(pair, key, body):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("profile", True), ("aggs", {"x": {"rare_terms": {"field": "tag"}}}),
+    ("aggs", {"x": {"rare_terms": {"field": "tag"}}}),
     ("aggregations", {"x": {"max_bucket": {"buckets_path": "y"}}}),
     ("suggest", {"s": {"text": "alpa", "term": {"field": "t"}}}),
     ("script_fields", {"x": {"script": "1"}}),
     ("slice", {"id": 0, "max": 2}), ("scroll", "1m"),
     ("pit", {"id": "x"}), ("point_in_time", {"id": "x"}),
     ("runtime_mappings", {"r": {"type": "long"}}),
-    ("indices_boost", [{"a": 2.0}]), ("timeout", "1s"),
-    ("terminate_after", 5),
+    ("indices_boost", [{"a": 2.0}]),
 ])
 def test_left_out_keys_name_themselves(pair, key, value):
     """Each key of the reference this build leaves out is a 400 whose
@@ -196,6 +196,23 @@ def test_left_out_keys_name_themselves(pair, key, value):
     status, got = pair.port("POST", "/a/_search", {"sort": [
         {"_script": {"type": "number", "script": "1"}}]})
     assert status == 400 and "[_script]" in got["error"]["reason"]
+
+
+@pytest.mark.parametrize("key,value", [
+    ("profile", True), ("timeout", "1s"), ("terminate_after", 5)])
+def test_telemetry_keys_answer_as_the_reference(pair, key, value):
+    """The keys the telemetry slice serves: the same hits as the
+    reference, a `profile` of the same structure (`same_profile`), and
+    `timed_out` false whatever `timeout` and `terminate_after` say."""
+    load_mixed(pair, "a", 1, 7, n=30)
+    for body in ({key: value},
+                 {key: value, "query": {"match": {"t": "alpha beta"}},
+                  "sort": [{"n": "desc"}], "size": 12}):
+        if key == "profile":
+            same_profile(pair, "/a/_search", body)
+        else:
+            _, got = pair.same("POST", "/a/_search", body)
+            assert got["timed_out"] is False
 
 
 @pytest.mark.parametrize("shards", [1, 2])

@@ -6,7 +6,8 @@ reference's: the status, then the body less `took`, the index `uuid` and
 `creation_date`, with the port's auto ids read as the reference's (each
 pair of 20-hex-digit ids met at one place in two bodies is recorded) and
 hits compared as `tests/test_torch_rest.py` compares them (ids where the
-reference's score gap exceeds 1e-4, scores within 1e-4)."""
+reference's score gap exceeds 1e-4, scores within 1e-4). `same_profile`
+holds a profiled search the same way, and its profile by structure."""
 
 import json
 import re
@@ -139,3 +140,44 @@ def load_mixed(pair, name: str, shards: int, seed: int, n: int = 200):
         pair.same("POST", f"/{name}/_bulk", ops, ndjson=True)
         pair.same("POST", f"/{name}/_refresh")
     return rng
+
+
+def profile_skeleton(x):
+    """A profile's structure: keys, strings and None kept, numbers and
+    bools by kind, launch event lists and the trace left out."""
+    if isinstance(x, dict):
+        return {k: profile_skeleton(v) for k, v in x.items()
+                if k not in ("dispatch", "trace")}
+    if isinstance(x, list):
+        return [profile_skeleton(v) for v in x]
+    if isinstance(x, bool):
+        return "bool"
+    if isinstance(x, (int, float)):
+        return "number"
+    return x
+
+
+def same_profile(pair, path: str, body: dict, query=None, hits_only=False,
+                 skeleton=profile_skeleton):
+    """One profiled request to both layers: the response less `profile`
+    as `Pair.same` holds it (only its `hits` with `hits_only`), then the
+    profile's structure; each query time is positive and `profile.trace`
+    names a trace with spans. Returns (reference profile, port
+    profile)."""
+    s1, want = pair.ref("POST", path, body, query=query)
+    s2, got = pair.port("POST", path, body, query=query)
+    assert s1 == s2 == 200, (want, got)
+    wp, gp = want.pop("profile"), got.pop("profile")
+    if hits_only:
+        pair.match(want["hits"], got["hits"], path)
+    else:
+        pair.match(want, got, path)
+    assert skeleton(gp) == skeleton(wp), (wp, gp)
+    for prof in (wp, gp):
+        assert set(prof["trace"]) == {"trace_id", "top_spans"}
+        assert prof["trace"]["top_spans"]
+    for shard in gp.get("shards", []):
+        assert shard["searches"][0]["query"][0]["time_in_nanos"] > 0
+    if "hybrid" in gp:
+        assert gp["hybrid"]["breakdown"]["score_nanos"] > 0
+    return wp, gp
