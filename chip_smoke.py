@@ -8,7 +8,7 @@
                           [--binned-only | --ivf-only | --maxsim-only |
                            --sharded-only | --hybrid-only | --sparse-only |
                            --docs-only | --segments-only | --body-only |
-                           --logs-only | --telemetry-only]
+                           --logs-only | --telemetry-only | --dsl-only]
 
 Phases, one line each; any failure raises and the exit code is not 0:
 
@@ -327,6 +327,27 @@ request, which must fall back to the exhaustive corpus
                on sift_b (the same hits, `timed_out` false); and the
                sequential HTTP p50 of 256 sift_b requests at sample rates
                0, 0.01 and 1.0.
+  dsl          rides the serve phases' indices, `[dsl]` lines of HTTP
+               p50s over DSL_REQUESTS requests a body: on msmarco
+               (`dsl_msmarco`) `prefix`, `wildcard`, `regexp`, `fuzzy`,
+               `match` with `fuzziness`, `match_phrase_prefix`,
+               `query_string` (AND, a phrase, a field wildcard), the URL
+               `q` with `df`, `dis_max`, `boosting` and `function_score`,
+               each total equal to numpy's over the generated tokens and
+               its page in the reference's order, and a term `suggest`
+               of a misspelt frequent word; on laion (`dsl_laion`)
+               `script_score` with `cosineSimilarity` over the
+               aesthetic_gte_6_5 filter against an f64 numpy cosine
+               (recall@10 1.0, scores within 1e-5) beside the same filter
+               as a `knn` filter (its p50 and exact-route calls), a
+               stored script by id, a Painless statement over a `knn`
+               clause, `script_fields` and a `_search/template`; on sift
+               (`dsl_sift`) `_update` scripts (tags, `+=`, rewritten
+               vectors, `ctx.op = 'delete'`), then no deleted id in a kNN
+               answer and recall@10 >= 0.95 over the live rows; on
+               serve_logs (`dsl_logs`) `prefix` on `request.raw` and
+               `query_string` over `status` and `request`, against the
+               columns.
 
 `--binned-only`, `--ivf-only` and `--maxsim-only` run env, build and one
 kernel phase (no serving, no ok line): the numbers of PERF.md's
@@ -342,7 +363,10 @@ binned build, the laion index at --n-laion with its unfiltered requests
 and the search body's part (no ok line); `--logs-only` runs env and
 serve_logs (no build, no ok line); `--telemetry-only` runs env, the
 binned, IVF and BM25 builds and the phases that carry the telemetry part
-(below) at the sizes given (no ok line). Every phase drops its indices
+(below) at the sizes given (no ok line); `--dsl-only` runs env, the
+binned and BM25 builds and the phases that carry the dsl part: serve_hybrid,
+the laion index with its unfiltered requests, and serve_sift's sequential
+requests with serve_documents (no ok line). Every phase drops its indices
 through `DELETE /{index}`. Each phase's
 wall seconds print as a `[timing]` line.
 
@@ -2134,6 +2158,10 @@ def serve_documents(client, node, vecs, queries, rng) -> int:
     if union < 0.95:
         raise AssertionError(f"union recall@10 {union} < 0.95")
     union_launches += telemetry_sift_b(client, node, rng)
+    t = time.perf_counter()
+    union_launches += dsl_sift(client, node, rng, queries, deleted, updated,
+                               live_of)
+    log("timing", step="dsl_sift", seconds=f"{time.perf_counter() - t:.1f}")
     gc.collect()
     torch.cuda.synchronize()
     corpora = _corpus_bytes(node, "sift") + _corpus_bytes(node, "sift_b")
@@ -3090,7 +3118,8 @@ def filter_cache_line(client, node, svc, store, name, filt, queries,
 
 
 def phase_serve_filtered(seed: int, n: int, device: str = "cuda",
-                         body_only: bool = False) -> dict:
+                         body_only: bool = False,
+                         dsl_only: bool = False) -> dict:
     """serve_filtered: BASELINE config 5 (filtered kNN, LAION 512-d CLIP
     embeddings), cut from 5M to `n` (1M) rows for host memory and the
     run's time. A cosine `flat` (bf16) index of 512-d clustered rows (as
@@ -3115,9 +3144,11 @@ def phase_serve_filtered(seed: int, n: int, device: str = "cuda",
     unfiltered bodies, every answer equal to its batch-1 answer (filtered
     within the exact route's tolerance, unfiltered within one packing
     quantum, as a mixed batch scores them exactly) and a largest batch
-    above 1 at C = 8; then the search body's part (`serve_body_laion`).
-    `body_only` runs the unfiltered requests and that part alone. Returns
-    the binned launches."""
+    above 1 at C = 8; then the search body's part (`serve_body_laion`)
+    and the scripts of the `[dsl]` part (`dsl_laion`). `body_only` runs
+    the unfiltered requests and the body part alone, `dsl_only` the
+    unfiltered requests and the `[dsl]` part alone. Returns the binned
+    launches."""
     from elasticsearch_tpu_torch.ops import dispatch
     from elasticsearch_tpu_torch.ops import knn as knn_ops
     from elasticsearch_tpu_torch.ops import knn_binned as kb
@@ -3171,11 +3202,13 @@ def phase_serve_filtered(seed: int, n: int, device: str = "cuda",
         log("serve_filtered", ingest_s=f"{ingest_s:.2f}",
             host_peak_rss_gb=f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.2f}")
 
-        if body_only:
+        if body_only or dsl_only:
             plain, _ = laion_unfiltered(client, queries)
             total[kb.KERNEL_BF16] += len(queries)
-            total[kb.KERNEL_BF16] += serve_body_laion(
-                client, svc, cols, queries, plain)
+            total[kb.KERNEL_BF16] += (
+                serve_body_laion(client, svc, cols, queries, plain)
+                if body_only else
+                dsl_laion(client, svc, vecs, cols, queries, plain))
             drop_index(client, "laion")
             return total
 
@@ -3348,6 +3381,11 @@ def phase_serve_filtered(seed: int, n: int, device: str = "cuda",
                 f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
         total[kb.KERNEL_BF16] += serve_body_laion(client, svc, cols,
                                                   queries, plain)
+        t = time.perf_counter()
+        total[kb.KERNEL_BF16] += dsl_laion(client, svc, vecs, cols, queries,
+                                           plain)
+        log("timing", step="dsl_laion",
+            seconds=f"{time.perf_counter() - t:.1f}")
         drop_index(client, "laion")
     finally:
         server.stop()
@@ -3621,6 +3659,301 @@ def serve_body_laion(client, svc, cols: dict, queries, plain) -> int:
     finally:
         exact.close()
     return launches
+
+
+def dsl_logs(client, cols: dict, paths: list) -> None:
+    """The query DSL on serve_logs' index: `prefix` on `request.raw` and
+    `query_string` `status:404 AND request:french`, each total (tracked)
+    equal to numpy's over the generated columns (a path's section is its
+    number mod 5; french is 1) and its page in row order. Logs one `[dsl]
+    part=logs` line."""
+    fields: dict = {"part": "logs", "docs": len(cols["path"]),
+                    "requests_a_body": DSL_REQUESTS}
+    prefix = "GET /french/1"
+    starts = np.asarray([f"GET {p}".startswith(prefix) for p in paths])
+    wants = {
+        "prefix_raw": ({"prefix": {"request.raw": prefix}},
+                       np.nonzero(starts[cols["path"]])[0]),
+        "qs_status": ({"query_string": {
+            "query": "status:404 AND request:french"}},
+            np.nonzero((cols["status"] == 404)
+                       & (cols["path"] % 5 == 1))[0]),
+    }
+    for label, (query, rows) in wants.items():
+        resp = dsl_timed(client, "/logs/_search", label, {
+            "query": query, "size": 10, "track_total_hits": True,
+            "_source": False}, fields)
+        hits = resp["hits"]
+        if hits["total"] != {"value": len(rows), "relation": "eq"} \
+                or [int(h["_id"]) for h in hits["hits"]] \
+                != rows[:10].tolist():
+            raise AssertionError(f"[dsl] logs {label}: {hits['total']} "
+                                 f"{[h['_id'] for h in hits['hits']]}, "
+                                 f"numpy {len(rows)} {rows[:10]}")
+        fields[f"{label}_total"] = len(rows)
+    log("dsl", **fields)
+
+
+LAION_COSINE = "cosineSimilarity(params.query_vector, 'vec') + 1.0"
+LAION_STATEMENT = ("double c = cosineSimilarity(params.query_vector, 'vec');"
+                   " if (doc['aesthetic'].value >= 6.5) { c += 1; }"
+                   " for (int i = 0; i < 2; i++) { c += 0.5; } return c;")
+LAION_TEMPLATE = ('{"knn": {"field": "vec", "query_vector": '
+                  '{{#toJson}}qv{{/toJson}}, "k": 10, "num_candidates": '
+                  '100}, "size": 10, "_source": false}')
+
+
+def _f64_cosine(vecs: np.ndarray, rows: np.ndarray,
+                qv: np.ndarray) -> np.ndarray:
+    m = vecs[rows].astype(np.float64)
+    q = qv.astype(np.float64)
+    return (m @ q) / (np.linalg.norm(m, axis=1) * np.linalg.norm(q))
+
+
+def dsl_laion(client, svc, vecs, cols, queries, plain) -> int:
+    """Scripts on laion (serve_filtered's 1M x 512 index): `script_score`
+    with `cosineSimilarity(params.query_vector, 'vec') + 1.0` over the
+    aesthetic_gte_6_5 filter, ES 7.x's brute-force kNN, each top 10
+    against an f64 numpy cosine over the filter's rows (recall@10 1.0,
+    ties within 1e-5 counted, scores within 1e-5), timed beside the same
+    filter as a `knn` filter (the exact route: its calls counted); the
+    same script stored (`_scripts/{id}`) and used by id; a Painless
+    statement (`if`, `for`) scoring a `knn` clause's hits, against its
+    numpy value; `script_fields` on `knn` bodies; and a `_search/template`
+    rendering a `knn` body. Every kNN-bearing body held to the unfiltered
+    answer of its vector (`plain`) and launching the bf16 binned kernel
+    once; the filtered scripts none. Logs one `[dsl] part=laion` line;
+    returns the binned launches."""
+    from elasticsearch_tpu_torch.ops import dispatch
+    from elasticsearch_tpu_torch.ops import knn_binned as kb
+    aes = cols["aesthetic"]
+    rows = np.nonzero(aes >= 6.5)[0]
+    filt = {"range": {"aesthetic": {"gte": 6.5}}}
+    qs = queries[:DSL_REQUESTS]
+    fields: dict = {"part": "laion", "filter_rows": len(rows),
+                    "requests_a_body": len(qs)}
+    exact = ExactRouteCounter()
+    launches = 0
+
+    def run(label, bodies, check, binned_each):
+        return body_requests(client, "/laion/_search", label, bodies, check,
+                             binned_each, exact, fields)
+
+    def check_brute(label, shift):
+        def check(j, resp):
+            f64 = _f64_cosine(vecs, rows, qs[j]) + shift
+            order = np.lexsort((rows, -f64))
+            tenth = f64[order[9]]
+            want = set(rows[order[:10]].tolist())
+            hits = resp["hits"]["hits"]
+            for h in hits:
+                i = int(h["_id"])
+                at = np.searchsorted(rows, i)
+                if at >= len(rows) or rows[at] != i:
+                    raise AssertionError(f"[dsl] {label} {j}: {i} outside "
+                                         f"the filter")
+                if abs(h["_score"] - f64[at]) > 1e-5:
+                    raise AssertionError(f"[dsl] {label} {j}: {i} scored "
+                                         f"{h['_score']}, f64 {f64[at]}")
+                if i not in want and f64[at] < tenth - 1e-5:
+                    raise AssertionError(f"[dsl] {label} {j}: {i} not in "
+                                         f"the f64 top 10")
+            if len(hits) != 10 or resp["hits"]["total"]["value"] \
+                    != min(len(rows), 10_000):
+                raise AssertionError(f"[dsl] {label} {j}: {resp['hits']}")
+            _page_in_order(f"{label} {j}", hits)
+        return check
+
+    try:
+        launches += run("script_score", [
+            {"query": {"script_score": {"query": {"bool": {
+                "filter": [filt]}}, "script": {
+                "source": LAION_COSINE,
+                "params": {"query_vector": q.tolist()}}}},
+             "size": 10, "_source": False} for q in qs],
+            check_brute("script_score", 1.0), 0)
+        # the same filter as a `knn` filter: the exact route, no launch
+        dispatch.reset_launches()
+        exact.calls = 0
+        lat = []
+        for j, q in enumerate(qs):
+            t = time.perf_counter()
+            ids, _ = _hits(client.ok("POST", "/laion/_search",
+                                     laion_body(q, filt)))
+            lat.append((time.perf_counter() - t) * 1e3)
+            if len(ids) != 10 or not np.isin(ids, rows).all():
+                raise AssertionError(f"[dsl] knn+filter {j}: {ids}")
+        if exact.calls != len(qs) or any(dispatch.launches().values()):
+            raise AssertionError(f"[dsl] knn+filter: {exact.calls} exact "
+                                 f"route calls, {dispatch.launches()}")
+        fields["knn_filter_p50_ms"] = f"{statistics.median(lat):.3f}"
+        fields["knn_filter_exact_route_calls"] = exact.calls
+        client.ok("PUT", "/_scripts/laion_cos", {"script": {
+            "lang": "painless", "source":
+                "cosineSimilarity(params.query_vector, 'vec') "
+                "+ params.shift"}})
+        launches += run("stored_script", [
+            {"query": {"script_score": {"query": {"bool": {
+                "filter": [filt]}}, "script": {"id": "laion_cos", "params": {
+                    "query_vector": q.tolist(), "shift": 2.0}}}},
+             "size": 10, "_source": False} for q in qs],
+            check_brute("stored_script", 2.0), 0)
+        client.ok("DELETE", "/_scripts/laion_cos")
+
+        def check_statement(j, resp):
+            ids0 = np.asarray(plain[j][0])
+            f64 = _f64_cosine(vecs, ids0, qs[j]) \
+                + (aes[ids0] >= 6.5) + 1.0
+            order = np.lexsort((ids0, -f64))
+            hits = resp["hits"]["hits"]
+            got = [int(h["_id"]) for h in hits]
+            if sorted(got) != sorted(ids0.tolist()) or any(
+                    abs(h["_score"] - f64[list(ids0).index(int(h["_id"]))])
+                    > 1e-5 for h in hits):
+                raise AssertionError(f"[dsl] statement {j}: {hits} against "
+                                     f"{ids0[order]} {f64[order]}")
+            _page_in_order(f"statement {j}", hits)
+
+        launches += run("statement", [
+            {"query": {"script_score": {
+                "query": {"knn": laion_body(q)["knn"]},
+                "script": {"source": LAION_STATEMENT,
+                           "params": {"query_vector": q.tolist()}}}},
+             "size": 10, "_source": False} for q in qs],
+            check_statement, 1)
+
+        def check_fields(j, resp):
+            hits = resp["hits"]["hits"]
+            if _hits(resp) != (plain[j][0], plain[j][1]):
+                raise AssertionError(f"[dsl] script_fields {j}: hits")
+            for h in hits:
+                i = int(h["_id"])
+                cos = float(_f64_cosine(vecs, np.asarray([i]), qs[j])[0])
+                want = float(np.float32(np.float64(aes[i]) * 2))
+                if abs(h["fields"]["cos"][0] - cos) > 1e-5 \
+                        or h["fields"]["aes2"] != [want]:
+                    raise AssertionError(f"[dsl] script_fields {j}: "
+                                         f"{h['fields']}, {cos} {want}")
+
+        launches += run("script_fields", [
+            dict(laion_body(q), script_fields={
+                "cos": {"script": {"source": "cosineSimilarity(params.q, "
+                                             "'vec')",
+                                   "params": {"q": q.tolist()}}},
+                "aes2": {"script": "doc['aesthetic'].value * 2"}})
+            for q in qs], check_fields, 1)
+
+        dispatch.reset_launches()
+        lat = []
+        for j, q in enumerate(qs):
+            t = time.perf_counter()
+            resp = client.ok("POST", "/laion/_search/template", {
+                "source": LAION_TEMPLATE, "params": {"qv": q.tolist()}})
+            lat.append((time.perf_counter() - t) * 1e3)
+            if _hits(resp) != (plain[j][0], plain[j][1]):
+                raise AssertionError(f"[dsl] template {j}: {_hits(resp)}")
+        if dispatch.launches().get(kb.KERNEL_BF16, 0) != len(qs):
+            raise AssertionError(f"[dsl] template: {dispatch.launches()}")
+        launches += len(qs)
+        fields["template_p50_ms"] = f"{statistics.median(lat):.3f}"
+    finally:
+        exact.close()
+    log("dsl", **fields)
+    return launches
+
+
+def dsl_sift(client, node, rng, queries, deleted: set, updated: dict,
+             live_of) -> int:
+    """`_update` scripts on sift (serve_documents' index, after its
+    generations' gates): 64 `ctx._source.tag = params.t`, then a `+=` on
+    each; 8 scripts that rewrite the vector; 16 `ctx.op = 'delete'`; a
+    refresh. Then `_count` of the tags, each rewritten vector's id first
+    for its new vector, no deleted id in the 64 queries' kNN answers, and
+    recall@10 >= 0.95 against exact f32 numpy over the live rows; every
+    request served by the bf16 binned kernel or the exact legs of the
+    tombstoned generations. Logs one `[dsl] part=sift` line; returns the
+    binned launches."""
+    from elasticsearch_tpu_torch.ops import dispatch
+    from elasticsearch_tpu_torch.ops import knn_binned as kb
+    names, _ = live_of()
+    plain_names = [nm for nm in names if nm.isdigit() and nm not in updated]
+    pick = rng.choice(len(plain_names), 88, replace=False)
+    tagged = [plain_names[i] for i in pick[:64]]
+    rewritten = [plain_names[i] for i in pick[64:72]]
+    victims = [plain_names[i] for i in pick[72:]]
+    fresh = clustered(rng, len(rewritten), 128)
+    fields: dict = {"part": "sift"}
+    lat = []
+
+    def update(doc_id, script, result):
+        t = time.perf_counter()
+        resp = client.ok("POST", f"/sift/_update/{doc_id}",
+                         {"script": script})
+        lat.append((time.perf_counter() - t) * 1e3)
+        if resp["result"] != result:
+            raise AssertionError(f"[dsl] sift update {doc_id}: {resp}")
+
+    for j, doc_id in enumerate(tagged):
+        update(doc_id, {"source": "ctx._source.tag = params.t",
+                        "params": {"t": f"t{j}"}}, "updated")
+    for doc_id in tagged:
+        update(doc_id, {"source": "ctx._source.tag += params.s",
+                        "params": {"s": "-x"}}, "updated")
+    for doc_id, v in zip(rewritten, fresh):
+        update(doc_id, {"source": "ctx._source.vec = params.v",
+                        "params": {"v": v.tolist()}}, "updated")
+        updated[doc_id] = v
+    for doc_id in victims:
+        update(doc_id, {"source": "ctx.op = 'delete'"}, "deleted")
+        deleted.add(doc_id)
+    fields["update_scripts"] = len(lat)
+    fields["update_p50_ms"] = f"{statistics.median(lat):.3f}"
+    client.ok("POST", "/sift/_refresh")
+    count = client.ok("POST", "/sift/_count", {"query": {
+        "prefix": {"tag.keyword": "t"}}})["count"]
+    doc = client.ok("GET", f"/sift/_doc/{tagged[5]}")["_source"]
+    if count != len(tagged) or doc.get("tag") != "t5-x":
+        raise AssertionError(f"[dsl] sift tags: count {count}, {doc}")
+    svc = node.index("sift")
+    stats0 = dict(svc.store.knn_stats)
+    dispatch.reset_launches()
+    for doc_id in rewritten:
+        hits = client.ok("POST", "/sift/_search", knn_body(
+            "vec", updated[doc_id]))["hits"]["hits"]
+        if hits[0]["_id"] != doc_id:
+            raise AssertionError(f"[dsl] sift rewritten {doc_id}: first "
+                                 f"hit {hits[0]['_id']}")
+    names, live = live_of()
+    truth = exact_top(live, queries, 10, "cosine")
+    recalls, knn_lat = [], []
+    for qi, qv in enumerate(queries):
+        t = time.perf_counter()
+        hits = client.ok("POST", "/sift/_search",
+                         knn_body("vec", qv))["hits"]["hits"]
+        knn_lat.append((time.perf_counter() - t) * 1e3)
+        ids = {h["_id"] for h in hits}
+        if ids & deleted:
+            raise AssertionError(f"[dsl] sift query {qi}: deleted ids "
+                                 f"{ids & deleted}")
+        recalls.append(len(ids & {names[r] for r in truth[qi].tolist()})
+                       / 10)
+    recall = float(np.mean(recalls))
+    if recall < 0.95:
+        raise AssertionError(f"[dsl] sift recall@10 {recall} < 0.95")
+    n_req = len(rewritten) + len(queries)
+    binned = dispatch.launches().get(kb.KERNEL_BF16, 0)
+    exact_legs, kernel_legs, gens, _ = _leg_counts(svc, stats0)
+    if binned + exact_legs + kernel_legs < n_req:
+        raise AssertionError(f"[dsl] sift: {binned} binned launches, "
+                             f"{exact_legs} exact and {kernel_legs} kernel "
+                             f"legs for {n_req} requests")
+    fields.update(knn_requests=n_req, recall_at_10=recall,
+                  knn_p50_ms=f"{statistics.median(knn_lat):.3f}",
+                  binned_launches=binned, exact_legs=exact_legs,
+                  kernel_legs=kernel_legs, generations=gens,
+                  deleted_by_script=len(victims))
+    log("dsl", **fields)
+    return binned
 
 
 class RunningTop:
@@ -4764,6 +5097,10 @@ def phase_serve_hybrid(seed: int, n: int, device: str = "cuda") -> dict:
                 f"{torch.cuda.max_memory_allocated() / 1e9:.2f}"
         fields["host_peak_rss_gb"] = (f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.2f}")
         log("serve_hybrid", **fields)
+        t = time.perf_counter()
+        dsl_msmarco(client, name, tokens, doc_of, n)
+        log("timing", step="dsl_msmarco",
+            seconds=f"{time.perf_counter() - t:.1f}")
         del tokens, doc_of
 
         # concurrent clients: batch-1 answers exactly, one board a batch
@@ -4804,6 +5141,166 @@ def phase_serve_hybrid(seed: int, n: int, device: str = "cuda") -> dict:
     finally:
         server.stop()
     return total
+
+
+DSL_REQUESTS = 16       # HTTP requests a [dsl] body, for its p50
+
+
+def edits1(term: str, alphabet: str) -> set:
+    """The strings within one edit (insertion, deletion, substitution or
+    adjacent transposition) of `term` over `alphabet`: the oracle of the
+    fuzzy bodies (AUTO: one edit at 3 to 5 characters), independent of the
+    port's enumeration of the terms."""
+    splits = [(term[:i], term[i:]) for i in range(len(term) + 1)]
+    out = {term}
+    out |= {a + b[1:] for a, b in splits if b}
+    out |= {a + b[1] + b[0] + b[2:] for a, b in splits if len(b) > 1}
+    out |= {a + c + b[1:] for a, b in splits if b for c in alphabet}
+    out |= {a + c + b for a, b in splits for c in alphabet}
+    return out
+
+
+def _page_in_order(label: str, hits) -> None:
+    """The reference's order of a page: score descending, ties by row
+    (here the `_id`'s number)."""
+    keys = [(-h["_score"], int(h["_id"])) for h in hits]
+    if keys != sorted(keys):
+        raise AssertionError(f"[dsl] {label}: page out of order {keys}")
+
+
+def dsl_timed(client, path: str, label: str, body, fields: dict,
+              query: str = "") -> dict:
+    """DSL_REQUESTS requests of one body: its HTTP p50 into `fields`; every
+    answer equal to the first. Returns the first."""
+    lat, first = [], None
+    for _ in range(DSL_REQUESTS):
+        t = time.perf_counter()
+        if body is None:
+            status, resp = client.req("GET", path + query)
+            if status != 200:
+                raise AssertionError(f"[dsl] {label}: {status} {resp}")
+        else:
+            resp = client.ok("POST", path, body)
+        lat.append((time.perf_counter() - t) * 1e3)
+        resp.pop("took", None)
+        if first is None:
+            first = resp
+        elif resp != first:
+            raise AssertionError(f"[dsl] {label}: answers differ")
+    fields[f"{label}_p50_ms"] = f"{statistics.median(lat):.3f}"
+    return first
+
+
+def dsl_msmarco(client, name: str, tokens, doc_of, n: int) -> None:
+    """The query DSL on msmarco (serve_hybrid's index, `body` text of
+    Zipf words `w<rank>`): `prefix`, `wildcard`, `regexp`, `fuzzy` (AUTO),
+    `match` with `fuzziness`, `match_phrase_prefix`, `query_string` (AND,
+    a phrase, a field wildcard), the URL `q` with `df`, `dis_max`,
+    `boosting` and `function_score`: each body's total (tracked) equal to
+    numpy's count over the generated token arrays of the docs holding a
+    term the pattern or edit distance admits (a phrase: the term pair
+    adjacent in one doc; the phrase prefix's first 50 sorted expansions),
+    its first page in the reference's order; then a term `suggest` of a
+    misspelt frequent word, whose first option is the word. Logs one
+    `[dsl] part=msmarco` line of HTTP p50s (DSL_REQUESTS each)."""
+    tok = tokens.cpu().numpy().astype(np.int64)
+    doc = doc_of.cpu().numpy().astype(np.int64)
+    present = np.unique(tok)
+    vocab = [f"w{r}" for r in present.tolist()]
+    fields: dict = {"part": "msmarco", "docs": n, "terms": len(vocab),
+                    "requests_a_body": DSL_REQUESTS}
+
+    def ranks(pred) -> np.ndarray:
+        return np.asarray([int(w[1:]) for w in vocab if pred(w)],
+                          dtype=np.int64)
+
+    def docs_with(*rank_sets) -> np.ndarray:
+        sel = np.zeros(MSMARCO_VOCAB, dtype=bool)
+        for rs in rank_sets:
+            sel[rs] = True
+        return np.unique(doc[sel[tok]])
+
+    def adjacent(first_rank: int, second: np.ndarray) -> np.ndarray:
+        sel = np.zeros(MSMARCO_VOCAB, dtype=bool)
+        sel[second] = True
+        hit = (tok[:-1] == first_rank) & sel[tok[1:]] & (doc[:-1] == doc[1:])
+        return np.unique(doc[:-1][hit])
+
+    known = set(vocab)
+
+    def fuzzy(term: str) -> np.ndarray:
+        # the words are `w` and digits; AUTO allows these terms one edit
+        assert 3 <= len(term) <= 5
+        return np.asarray(sorted(int(w[1:]) for w in
+                                 edits1(term, "w0123456789") & known),
+                          dtype=np.int64)
+
+    def expect(label: str, resp: dict, want_docs: np.ndarray) -> None:
+        hits = resp["hits"]
+        if hits["total"] != {"value": len(want_docs), "relation": "eq"}:
+            raise AssertionError(f"[dsl] {label}: total {hits['total']}, "
+                                 f"numpy {len(want_docs)}")
+        got = [int(h["_id"]) for h in hits["hits"]]
+        if len(got) != min(10, len(want_docs)) \
+                or not np.isin(got, want_docs).all():
+            raise AssertionError(f"[dsl] {label}: hits {got} outside "
+                                 f"numpy's docs")
+        _page_in_order(label, hits["hits"])
+        fields[f"{label}_total"] = len(want_docs)
+
+    a, b, c = "w150", "w77", "w7"
+    ra, rb = np.asarray([150]), np.asarray([77])
+    phrase_exp = sorted(w for w in vocab if w.startswith(c))[:50]
+    fz1, fz2, fz3 = "w1x34", "w2x7", "w5y5"
+    bodies = [
+        ("prefix", {"prefix": {"body": "w123"}},
+         docs_with(ranks(lambda w: w.startswith("w123")))),
+        ("wildcard", {"wildcard": {"body": "w4?7*"}},
+         docs_with(ranks(lambda w: re.fullmatch(r"w4.7.*", w)))),
+        ("regexp", {"regexp": {"body": "w9[0-9]{2}"}},
+         docs_with(ranks(lambda w: re.fullmatch(r"w9[0-9]{2}", w)))),
+        ("fuzzy", {"fuzzy": {"body": fz1}}, docs_with(fuzzy(fz1))),
+        ("match_fuzziness", {"match": {"body": {
+            "query": f"{fz2} {fz3}", "fuzziness": "AUTO"}}},
+         docs_with(fuzzy(fz2), fuzzy(fz3))),
+        ("phrase_prefix", {"match_phrase_prefix": {"body": f"{a} {c}"}},
+         adjacent(150, np.asarray([int(w[1:]) for w in phrase_exp]))),
+        ("qs_and", {"query_string": {"query": f"{a} AND {b}"}},
+         np.intersect1d(docs_with(ra), docs_with(rb))),
+        ("qs_phrase", {"query_string": {"query": f'"{a} {c}"'}},
+         adjacent(150, np.asarray([7]))),
+        ("qs_wildcard", {"query_string": {"query": "body:w456*"}},
+         docs_with(ranks(lambda w: w.startswith("w456")))),
+        ("dis_max", {"dis_max": {"queries": [
+            {"match": {"body": a}}, {"match": {"body": b}}],
+            "tie_breaker": 0.3}}, docs_with(ra, rb)),
+        ("boosting", {"boosting": {"positive": {"match": {"body": a}},
+                                   "negative": {"match": {"body": c}},
+                                   "negative_boost": 0.5}},
+         docs_with(ra)),
+        ("function_score", {"function_score": {
+            "query": {"match": {"body": b}},
+            "field_value_factor": {"field": "len", "modifier": "log1p"},
+            "boost_mode": "multiply"}}, docs_with(rb)),
+    ]
+    for label, query, want_docs in bodies:
+        resp = dsl_timed(client, f"/{name}/_search", label, {
+            "query": query, "size": 10, "track_total_hits": True,
+            "_source": False}, fields)
+        expect(label, resp, want_docs)
+    resp = dsl_timed(client, f"/{name}/_search", "uri_q", None, fields,
+                     query=f"?q={a}%20{b}&df=body&track_total_hits=true"
+                           f"&_source=false")
+    expect("uri_q", resp, docs_with(ra, rb))
+    resp = dsl_timed(client, f"/{name}/_search", "suggest", {
+        "size": 0, "request_cache": False,
+        "suggest": {"s": {"text": "w0x", "term": {
+            "field": "body"}}}}, fields)
+    options = resp["suggest"]["s"][0]["options"]
+    if not options or options[0]["text"] != "w0":
+        raise AssertionError(f"[dsl] suggest of w0x: {options[:3]}")
+    fields["suggest_first"] = options[0]["text"]
+    log("dsl", **fields)
 
 
 def _highlight_spans(label: str, frag: str, text: str):
@@ -6220,6 +6717,7 @@ def phase_serve_logs(seed: int, n: int, device: str = "cuda",
         log("timing", step="serve_logs_aggs",
             seconds=f"{time.perf_counter() - t:.1f}")
         telemetry_logs(client, node)
+        dsl_logs(client, cols, paths)
         for name in ["logs", *parts]:
             drop_index(client, name)
         logs_dynamic(client, seed, n_dynamic)
@@ -6565,6 +7063,13 @@ def main(argv=None) -> int:
                          "index of serve_filtered at --n-laion rows with "
                          "its unfiltered requests and the search body's "
                          "part (no final ok line)")
+    ap.add_argument("--dsl-only", action="store_true",
+                    help="build the binned and BM25 kernels and run only "
+                         "the phases that carry the [dsl] part "
+                         "(serve_hybrid at --n-msmarco, the laion index "
+                         "at --n-laion with its unfiltered requests, "
+                         "serve_sift's sequential requests and "
+                         "serve_documents at --n-sift; no final ok line)")
     ap.add_argument("--n-sparse", type=int, default=N_SPARSE)
     ap.add_argument("--sparse-only", action="store_true",
                     help="build, check bm25_board (the BM25 and the "
@@ -6623,6 +7128,15 @@ def main(argv=None) -> int:
               docs_only=True)
         timed("serve_ivf_compaction", phase_serve_ivf, args.seed, 0,
               args.n_cohere_ivf, compaction_only=True)
+        return 0
+    if args.dsl_only:
+        phase_build(["knn_binned", "bm25"])
+        timed("serve_hybrid", phase_serve_hybrid, args.seed,
+              args.n_msmarco)
+        timed("dsl_laion", phase_serve_filtered, args.seed, args.n_laion,
+              dsl_only=True)
+        timed("serve_documents", phase_serve, args.seed, args.n_sift, 0,
+              docs_only=True)
         return 0
     if args.body_only:
         phase_build(["knn_binned"])

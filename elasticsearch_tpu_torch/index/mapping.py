@@ -806,6 +806,44 @@ class RankVectorsFieldMapper(FieldMapper):
         return arr
 
 
+class CompletionFieldMapper(FieldMapper):
+    """`completion`: a string, a list of strings or an object of `input`
+    (one or several), `weight` and `contexts`. The inputs index as exact
+    terms; the doc value keeps {input, weight, contexts}, which the
+    completion suggester (`search/extras.py`) reads. A field with
+    contexts defined needs them in the value unless each reads a
+    document path."""
+
+    type_name = "completion"
+
+    def _inputs(self, value) -> Tuple[List[str], int, dict]:
+        if isinstance(value, str):
+            return [value], 1, {}
+        if isinstance(value, list):
+            return [str(v) for v in value], 1, {}
+        if isinstance(value, dict):
+            inp = value.get("input", [])
+            inputs = [inp] if isinstance(inp, str) else [str(v) for v in inp]
+            return (inputs, int(value.get("weight", 1)),
+                    value.get("contexts") or {})
+        raise MapperParsingError(
+            f"[{self.name}] completion value must be string, array or "
+            f"object")
+
+    def index_terms(self, value):
+        return self._inputs(value)[0]
+
+    def doc_value(self, value):
+        inputs, weight, contexts = self._inputs(value)
+        defs = self.params.get("contexts") or []
+        needs = [d for d in defs if not d.get("path")]
+        if needs and not contexts:
+            raise MapperParsingError(
+                f"Contexts are mandatory in context enabled completion "
+                f"field [{self.name}]")
+        return {"input": inputs, "weight": weight, "contexts": contexts}
+
+
 FIELD_TYPES = {m.type_name: m for m in (
     TextFieldMapper, KeywordFieldMapper, LongFieldMapper, IntegerFieldMapper,
     ShortFieldMapper, ByteFieldMapper, DoubleFieldMapper, FloatFieldMapper,
@@ -814,12 +852,13 @@ FIELD_TYPES = {m.type_name: m for m in (
     ObjectMapper, DenseVectorFieldMapper, RankVectorsFieldMapper,
     RankFeatureFieldMapper, RankFeaturesFieldMapper, SparseVectorFieldMapper,
     IntegerRangeFieldMapper, LongRangeFieldMapper, FloatRangeFieldMapper,
-    DoubleRangeFieldMapper, DateRangeFieldMapper, IpRangeFieldMapper)}
+    DoubleRangeFieldMapper, DateRangeFieldMapper, IpRangeFieldMapper,
+    CompletionFieldMapper)}
 
 # mappers whose one value is a JSON object (or an array of them), not an
 # object of fields
 _OBJECT_VALUED = (GeoPointFieldMapper, RangeFieldMapperBase,
-                  RankFeaturesFieldMapper)
+                  RankFeaturesFieldMapper, CompletionFieldMapper)
 
 
 def build_mapper(name: str, definition: dict,
@@ -984,6 +1023,9 @@ class MapperService:
 
     def all_mappers(self):
         return list(self._mappers.items())
+
+    def field_names(self) -> List[str]:
+        return sorted(self._mappers)
 
     def vector_fields(self) -> Dict[str, DenseVectorFieldMapper]:
         return {p: m for p, m in self._mappers.items()

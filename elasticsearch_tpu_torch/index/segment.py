@@ -61,13 +61,15 @@ class DocValuesColumn:
     value) with its `present` mask; else `numeric` is None and `present`
     marks the docs holding a value."""
 
-    __slots__ = ("values", "numeric", "present")
+    __slots__ = ("values", "numeric", "present", "multi")
 
     def __init__(self, values: np.ndarray, numeric: Optional[np.ndarray],
-                 present: np.ndarray):
+                 present: np.ndarray, multi: Optional[np.ndarray] = None):
         self.values = values
         self.numeric = numeric
         self.present = present
+        # numeric columns: the docs holding a list of values
+        self.multi = multi
 
     @classmethod
     def build(cls, n: int, locals_: np.ndarray,
@@ -84,20 +86,23 @@ class DocValuesColumn:
                 and not isinstance(first, bool)):
             return cls(col, None, present)
         multi = [j for j, v in enumerate(values) if isinstance(v, list)]
+        multi_mask = np.zeros(n, dtype=bool)
         if multi:
             values = list(values)
             for j in multi:
                 values[j] = values[j][0]
+            multi_mask[np.asarray(locals_)[multi]] = True
         numeric = np.zeros(n, dtype=np.float64)
         numeric[locals_] = np.asarray(values, dtype=np.float64)
-        return cls(col, numeric, present)
+        return cls(col, numeric, present, multi_mask)
 
     @classmethod
     def of_ints(cls, values: np.ndarray) -> "DocValuesColumn":
         """A column of one int a doc, every doc holding one (the rows'
         `_version` and `_primary_term`)."""
         return cls(values.astype(object), values.astype(np.float64),
-                   np.ones(len(values), dtype=bool))
+                   np.ones(len(values), dtype=bool),
+                   np.zeros(len(values), dtype=bool))
 
     def get(self, local_doc: int) -> Any:
         return self.values[local_doc]
@@ -211,7 +216,8 @@ class FieldPostings:
     a Postings object a term, keeps a million of them cheap to build and
     hold."""
 
-    __slots__ = ("terms", "starts", "doc_ids", "freqs", "pos", "pos_starts")
+    __slots__ = ("terms", "starts", "doc_ids", "freqs", "pos", "pos_starts",
+                 "term_shape")
 
     def __init__(self, terms: np.ndarray, starts: np.ndarray,
                  doc_ids: np.ndarray, freqs: np.ndarray,
@@ -225,6 +231,10 @@ class FieldPostings:
         # pos_starts[j + 1]], in the order the analyzer gave them
         self.pos = pos
         self.pos_starts = pos_starts
+        # (lengths, char bucket counts) of the terms, made by the fuzzy
+        # term enumeration (`search/queries.py::_term_shape`) at its first
+        # use
+        self.term_shape = None
 
     @classmethod
     def build(cls, locals_: np.ndarray, terms: List[str]) -> "FieldPostings":

@@ -8,7 +8,7 @@ and index expressions (`resolve`: none, `_all`, lists, `*` patterns).
 Documents, routed to a shard by `routing` or `_id`: index (auto ids, the
 conditional `if_seq_no` / `if_primary_term` / `version` writes, `refresh`
 with `wait_for`), realtime GET, delete, update (`doc` deep merge,
-`detect_noop`, `upsert`, `doc_as_upsert`), `_mget` and `_bulk` with its
+`detect_noop`, `upsert`, `doc_as_upsert`, `script`), `_mget` and `_bulk` with its
 four actions. Search over an expression: each index's query phase
 (filters, BM25 text queries, `knn` specs with their filters) through its
 own store, the hits merged by score as the reference merges them;
@@ -51,8 +51,18 @@ index's query phase with the thread's launch event trace on and answers
 hybrid path; it never reads or fills either rung of the request cache (a
 profile describes a real execution) and notes the rung it bypassed.
 
-Left out, as ROADMAP.md lists: `script` updates, aliases, closed and
-hidden indices and date math in expressions, and hybrid bodies over
+Scripts (`script/`): `update_doc` runs a `script` (inline or a stored
+id) through the Painless interpreter on the document's source, whose
+`ctx.op` may make the update a noop (`none`) or a delete (`delete`); a
+search's `suggest` section runs on each index (`search/extras.py`) and
+the indices' options merge by score; `search_template` renders a
+template (`script/mustache.py`) and searches with it. The node's
+`scripts` is the port's stored-script registry (`script/service.py`),
+and `search.allow_expensive_queries` (a node setting, on unless "false")
+reaches every search context.
+
+Left out, as ROADMAP.md lists: aliases, closed and hidden indices and
+date math in expressions (queue 1 item 15), and hybrid bodies over
 several indices (each a 400)."""
 
 from __future__ import annotations
@@ -86,9 +96,13 @@ from elasticsearch_tpu_torch.search.agg_partials import (
     finalize_aggs, merge_partial_aggs,
 )
 from elasticsearch_tpu_torch.search.agg_plan import AggEngine, CostRouter
+from elasticsearch_tpu_torch.search.extras import (
+    execute_suggest, merge_suggest,
+)
 from elasticsearch_tpu_torch.search.aggregations import (
     has_global_agg, validate_aggs,
 )
+from elasticsearch_tpu_torch.script.service import GLOBAL_SCRIPTS
 from elasticsearch_tpu_torch.search.caches import (
     NodeCaches, can_match, has_range_clauses, reader_fingerprint,
 )
@@ -313,6 +327,8 @@ class Node:
         # setting reconfigures them
         telemetry.configure_from_settings(self.settings)
         self.caches = NodeCaches()
+        # the port's stored scripts (`_scripts/{id}`), shared by its nodes
+        self.scripts = GLOBAL_SCRIPTS
         self.indices: Dict[str, IndexService] = {}
         # index name -> its hybrid executor (plan cache + late-interaction
         # store), made at the index's first hybrid search
@@ -513,16 +529,14 @@ class Node:
                    if_primary_term: Optional[int] = None,
                    source_filter=None) -> dict:
         """`_update`: a partial `doc` deep-merged into the live source
-        (`detect_noop` on by default), or `upsert` / `doc_as_upsert` for a
-        missing document, re-indexed under the document's seq_no and
-        primary term; `_source` (the body's or the URL's) adds the new
-        source as `get`. A `script` update is a 400 until the script
-        module is ported."""
+        (`detect_noop` on by default), or a `script` run on it
+        (`_apply_update_script`: `ctx.op = 'none'` answers a noop,
+        `'delete'` deletes the document), or `upsert` / `doc_as_upsert`
+        for a missing document (the `upsert` indexed as given, also with
+        `scripted_upsert`, as in the reference), re-indexed under the
+        document's seq_no and primary term; `_source` (the body's or the
+        URL's) adds the new source as `get`."""
         self._validate_update_body(body)
-        if "script" in body:
-            raise IllegalArgumentError(
-                "[script] updates are not supported by this build: the "
-                "script module is not ported")
         if source_filter is None and "_source" in body:
             source_filter = body["_source"]
         svc = self._index_or_autocreate(index)
@@ -555,18 +569,40 @@ class Node:
                 f"[{if_seq_no}], primary term [{if_primary_term}], "
                 f"current document has seqNo [{existing['_seq_no']}] and "
                 f"primary term [{existing['_primary_term']}]")
-        if "doc" not in body:
-            raise IllegalArgumentError("update requires [doc] or [script]")
         source = copy.deepcopy(existing["_source"])
-        _deep_merge(source, body["doc"])
-        if body.get("detect_noop", True) and source == existing["_source"]:
-            return with_get({
-                "_index": svc.name, "_id": doc_id,
-                "_version": existing["_version"], "result": "noop",
-                "_seq_no": existing["_seq_no"],
-                "_primary_term": existing["_primary_term"],
-                "_shards": {"total": 0, "successful": 0, "failed": 0}},
-                source)
+        if "doc" in body:
+            _deep_merge(source, body["doc"])
+            if body.get("detect_noop", True) \
+                    and source == existing["_source"]:
+                return with_get({
+                    "_index": svc.name, "_id": doc_id,
+                    "_version": existing["_version"], "result": "noop",
+                    "_seq_no": existing["_seq_no"],
+                    "_primary_term": existing["_primary_term"],
+                    "_shards": {"total": 0, "successful": 0, "failed": 0}},
+                    source)
+        elif "script" in body:
+            verdict: dict = {}
+            source = _apply_update_script(source, body["script"],
+                                          ctx_extra=verdict)
+            op = verdict.get("op", "index")
+            if op == "none":
+                # the script vetoed the update; the reference answers
+                # with the index as addressed
+                return {"_index": index, "_id": doc_id,
+                        "_version": existing["_version"],
+                        "result": "noop",
+                        "_seq_no": existing["_seq_no"],
+                        "_primary_term": existing["_primary_term"],
+                        "_shards": {"total": 0, "successful": 0,
+                                    "failed": 0}}
+            if op == "delete":
+                out = self.delete_doc(index, doc_id, refresh=refresh,
+                                      routing=routing)
+                out["result"] = "deleted"
+                return out
+        else:
+            raise IllegalArgumentError("update requires [doc] or [script]")
         out = self.index_doc(svc.name, doc_id, source, refresh=refresh,
                              routing=routing,
                              if_seq_no=existing["_seq_no"],
@@ -864,6 +900,7 @@ class Node:
             if ex is None or ex.svc is not svc:
                 ex = self._hybrid[svc.name] = HybridExecutor(
                     svc, self.device, query_cache=self.caches.query)
+                ex.allow_expensive = self._allow_expensive
             return ex
 
     def _setting_on(self, key: str) -> bool:
@@ -941,6 +978,12 @@ class Node:
                         out[key] = out.get(key, 0) + val
         return out
 
+    def _allow_expensive(self) -> bool:
+        """`search.allow_expensive_queries`: on unless it reads "false".
+        The reference reads its dynamic cluster setting of the name; the
+        port, which has no `_cluster/settings` yet, its node setting."""
+        return self._setting_on("search.allow_expensive_queries")
+
     def _max_buckets(self) -> Optional[int]:
         v = self.settings.get("search.max_buckets")
         return int(v) if v is not None else None
@@ -970,10 +1013,11 @@ class Node:
         reuses segment ids) and its settings, whether the aggregations are
         partial states or final, `search.max_buckets`, the reader's content
         fingerprint (a refresh that changed a shard misses), and the
-        body."""
+        body; `search.allow_expensive_queries` too, so a body it refuses
+        is never served from a cached answer."""
         settings = json.dumps(svc.settings, sort_keys=True, default=str)
         return cache.key((svc.name, svc.uuid, settings, partial_aggs,
-                          self._max_buckets()),
+                          self._max_buckets(), self._allow_expensive()),
                          reader_fingerprint(reader), body)
 
     def _search_rrf(self, svc: IndexService, body: dict) -> dict:
@@ -1137,6 +1181,14 @@ class Node:
         if merged_aggs is not None:
             resp["aggregations"] = (finalize_aggs(merged_aggs, aggs_spec)
                                     if partial else merged_aggs)
+        suggest_spec = body.get("suggest")
+        if suggest_spec:
+            merged_suggest: Dict[str, list] = {}
+            for svc, reader, _ in phases:
+                ctx = SearchContext(reader, svc.mapper_service)
+                merge_suggest(merged_suggest, execute_suggest(
+                    ctx, suggest_spec, index_name=svc.name))
+            resp["suggest"] = merged_suggest
         if profiled:
             resp["profile"] = {"shards": [
                 shard_profile(svc.name, body, q_nanos,
@@ -1218,6 +1270,7 @@ class Node:
             ctx = SearchContext(reader, svc.mapper_service, svc.vector_store,
                                 svc.settings, query_cache=self.caches.query)
             ctx.max_buckets = self._max_buckets()
+            ctx.allow_expensive = self._allow_expensive()
             ctx.index_name = svc.name
             engine = (self._agg_engine(svc)
                       if body.get("aggs") or body.get("aggregations")
@@ -1343,6 +1396,35 @@ class Node:
                 responses.append({"error": e.to_wrapped_dict(),
                                   "status": e.status})
         return {"took": 0, "responses": responses}
+
+    # ------------------------------------------------------ search templates
+    def search_template(self, index_expr: Optional[str], body: dict) -> dict:
+        """`_search/template`: the template rendered with its params, then
+        searched (the body's `explain` carried over)."""
+        rendered = self.scripts.render_template(body)
+        if body.get("explain"):
+            rendered["explain"] = True
+        return self.search(index_expr, rendered)
+
+    def msearch_template(self, lines: List[dict],
+                         default_index: Optional[str] = None) -> dict:
+        """`_msearch/template`: (header, template) line pairs, each
+        rendered and searched over its header's `index`; an error answers
+        its own entry."""
+        if len(lines) % 2 != 0:
+            raise ParsingError(
+                "_msearch/template expects header/body line pairs")
+        responses = []
+        for i in range(0, len(lines), 2):
+            header, tmpl = lines[i], lines[i + 1]
+            index = header.get("index") or default_index
+            try:
+                rendered = self.scripts.render_template(tmpl)
+                responses.append({**self.search(index, rendered),
+                                  "status": 200})
+            except SearchEngineError as e:
+                responses.append({"error": e.to_dict(), "status": e.status})
+        return {"responses": responses}
 
     # ---------------------------------------------------------------- caches
     def clear_cache(self, name: Optional[str] = None) -> dict:
@@ -1520,6 +1602,36 @@ class _MissingLast:
 
 
 _MISSING = _MissingLast()
+
+
+def _apply_update_script(source: dict, script_spec, ctx_extra=None) -> dict:
+    """An update script through the sandboxed Painless interpreter
+    (`script/painless.py`): it may change `ctx._source` (loops,
+    conditionals, list and map methods, functions); returns the changed
+    source, and its verdict (`ctx.op`: index, none or delete) lands in
+    `ctx_extra["op"]`. A stored script is resolved by id; a compile
+    error, a sandbox violation or a runtime error is the reference's
+    400."""
+    from elasticsearch_tpu_torch.script.painless import (
+        FrozenParams, compile_painless, execute,
+    )
+    from elasticsearch_tpu_torch.script.service import resolve_stored
+    if isinstance(script_spec, str):
+        script_spec = {"source": script_spec}
+    script_spec = resolve_stored(script_spec, "usable as an update script")
+    src = script_spec.get("source", "")
+    params = script_spec.get("params", {})
+    ctx_obj = {"_source": source, "op": "index"}
+    if ctx_extra:
+        ctx_obj.update(ctx_extra)
+    try:
+        program = compile_painless(src)
+    except Exception as e:
+        raise IllegalArgumentError(f"compile error in update script: {e}")
+    execute(program, {"ctx": ctx_obj, "params": FrozenParams(params)})
+    if ctx_extra is not None:
+        ctx_extra["op"] = ctx_obj.get("op", "index")
+    return source
 
 
 def _deep_merge(dst: dict, src: dict) -> None:

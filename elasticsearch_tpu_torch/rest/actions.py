@@ -16,10 +16,11 @@ Search: GET|POST [/{index}]/_search over an index expression (none,
 `version`, `request_cache`, `pre_filter_shard_size`,
 `rest_total_hits_as_int`, `typed_keys`, `ignore_unavailable`,
 `allow_no_indices`), [/{index}]/_count and [/{index}]/_msearch (with
-`typed_keys`). The URL `q` (and `df`,
-`default_operator`, `analyzer`, `lenient`) needs `query_string`, which is
-not ported: it is a 400 that names it, as are `scroll` and the other
-URL parameters whose body keys are not ported.
+`typed_keys`). The URL `q` of `_search` and `_count` is a
+`query_string` query (`apply_uri_query`: `df`, `default_operator`,
+`lenient`, `analyzer`, `analyze_wildcard`), and a 400 beside a body
+query; `scroll` is a 400 that names it. Stored scripts and search
+templates: `rest/actions_script.py`.
 
 Indices: PUT, DELETE, GET and HEAD /{index}, GET [/{index}]/_mapping and
 PUT|POST /{index}/_mapping, GET [/{index}]/_settings[/{name}],
@@ -69,8 +70,6 @@ _NODE_STATS_METRICS = (
     "adaptive_selection", "indexing_pressure", "_all")
 _PORTED_NODE_STATS = "telemetry"
 
-# URL parameters of `q` (a `query_string` query, not ported)
-_URI_QUERY_PARAMS = ("q", "df", "default_operator", "analyzer", "lenient")
 _SETTINGS_DEFAULTS = {
     "index.refresh_interval": "1s",
     "index.max_result_window": "10000",
@@ -95,13 +94,29 @@ def _rest_telemetry(req, node, action: str, force_trace: bool = False,
         description=description, parse_nanos=parse_nanos)
 
 
-def _refuse_uri_query(req) -> None:
-    for name in _URI_QUERY_PARAMS:
-        if req.param(name) is not None:
-            raise IllegalArgumentError(
-                f"request parameter [{name}] is not supported by this "
-                f"build: it needs the [query_string] query, which is not "
-                f"ported")
+def apply_uri_query(req, body: dict) -> dict:
+    """The URL `q` as the body's `query_string` query (with `df`,
+    `default_operator`, `lenient`, `analyzer` and `analyze_wildcard`); a
+    400 when the body has a query too."""
+    q = req.param("q")
+    if not q:
+        return body
+    if "query" in body:
+        raise IllegalArgumentError(
+            "cannot specify both [q] parameter and a request body query")
+    qs = {"query": q}
+    if req.param("df"):
+        qs["default_field"] = req.param("df")
+    if req.param("default_operator"):
+        qs["default_operator"] = req.param("default_operator")
+    if req.param("lenient") is not None:
+        qs["lenient"] = req.bool_param("lenient", False)
+    if req.param("analyzer"):
+        qs["analyzer"] = req.param("analyzer")
+    if req.param("analyze_wildcard") is not None:
+        qs["analyze_wildcard"] = req.bool_param("analyze_wildcard", False)
+    body["query"] = {"query_string": qs}
+    return body
 
 
 def _index_options(req) -> dict:
@@ -235,6 +250,9 @@ def _index_settings(svc) -> dict:
 
 
 def register_all(rc: RestController, node: Node) -> None:
+    from elasticsearch_tpu_torch.rest.actions_script import register_script
+    register_script(rc, node)
+
     def root(req):
         import torch
         return 200, {
@@ -375,11 +393,12 @@ def register_all(rc: RestController, node: Node) -> None:
             return status, resp
 
     def _search(req, body):
-        _refuse_uri_query(req)
+        body = apply_uri_query(req, body)
         if req.param("scroll") is not None:
             raise IllegalArgumentError(
                 "request parameter [scroll] is not supported by this build: "
-                "scroll contexts are not ported")
+                "scroll contexts are not ported (ROADMAP.md queue 1 item "
+                "3's remainder)")
         for p in ("size", "from"):
             v = req.int_param(p)
             if v is not None:
@@ -423,11 +442,11 @@ def register_all(rc: RestController, node: Node) -> None:
         return 200, resp
 
     def count(req):
-        _refuse_uri_query(req)
+        body = apply_uri_query(req, req.json() or {})
         with _rest_telemetry(
                 req, node, "indices:data/read/count",
                 description=f"indices[{req.params.get('index') or '_all'}]"):
-            return 200, node.count(req.params.get("index"), req.json() or {})
+            return 200, node.count(req.params.get("index"), body)
 
     def msearch(req):
         lines = req.ndjson()

@@ -60,21 +60,27 @@ PIPELINE_AGGS = {"avg_bucket", "max_bucket", "min_bucket", "sum_bucket",
                  "serial_diff", "moving_fn"}
 # the kinds the reference serves that this build leaves out, and why
 LEFT_OUT = {
-    **{k: "pipeline aggregations are not ported" for k in PIPELINE_AGGS},
-    **{k: "this bucket aggregation is not ported"
+    **{k: "pipeline aggregations are not ported (ROADMAP.md queue 1 "
+          "item 7)" for k in PIPELINE_AGGS},
+    **{k: "this bucket aggregation is not ported (ROADMAP.md queue 1 "
+          "item 7)"
        for k in ("composite", "significant_terms", "significant_text",
                  "rare_terms", "sampler", "auto_date_histogram",
                  "adjacency_matrix")},
-    **{k: "the geo aggregations are not ported"
+    **{k: "the geo aggregations are not ported (ROADMAP.md queue 1 "
+          "item 7)"
        for k in ("geohash_grid", "geotile_grid", "geo_bounds",
                  "geo_centroid")},
-    **{k: "nested documents are not ported"
+    **{k: "nested documents are not ported (ROADMAP.md queue 1 items "
+          "4 and 7)"
        for k in ("nested", "reverse_nested")},
-    **{k: "this metric aggregation is not ported"
+    **{k: "this metric aggregation is not ported (ROADMAP.md queue 1 "
+          "item 7)"
        for k in ("top_hits", "top_metrics", "weighted_avg",
                  "median_absolute_deviation", "boxplot", "percentile_ranks",
                  "string_stats", "matrix_stats")},
-    "scripted_metric": "the script module is not ported",
+    "scripted_metric": "scripted metrics are not ported (ROADMAP.md "
+                       "queue 1 item 7)",
 }
 _NUMERIC_ONLY_METRICS = {"sum", "avg", "min", "max", "stats",
                          "extended_stats", "percentiles"}
@@ -364,12 +370,13 @@ def check_ported(aggs_spec: dict) -> None:
             if kind in LEFT_OUT:
                 raise not_ported(kind, LEFT_OUT[kind])
             if isinstance(body, dict) and body.get("script") is not None:
-                raise not_ported("script", "scripts in aggregations need "
-                                           "the script module, which is "
-                                           "not ported")
+                raise not_ported("script", "scripts in aggregations are "
+                                           "not ported (ROADMAP.md queue 1 "
+                                           "item 7)")
             if kind == "percentiles" and isinstance(body, dict) \
                     and body.get("hdr") is not None:
-                raise not_ported("hdr", "HDR percentiles are not ported")
+                raise not_ported("hdr", "HDR percentiles are not ported "
+                                        "(ROADMAP.md queue 1 item 7)")
         check_ported(sub_aggs_of(spec))
 
 

@@ -484,6 +484,8 @@ class HybridExecutor:
         # the node query cache (`search/caches.py::QueryCache`) for the
         # `bool` filter clauses of the generic legs and the kNN filters
         self.query_cache = query_cache
+        # the node's `search.allow_expensive_queries`, read a batch
+        self.allow_expensive = lambda: True
         # kNN legs search every shard's store (`svc.vector_store`); the
         # lexical and late-interaction stores sync from the combined
         # reader (rows rebased by shard), so BM25 reads corpus-wide
@@ -681,6 +683,7 @@ class HybridExecutor:
         ctx = SearchContext(reader, self.svc.mapper_service,
                             self.svc.vector_store, self.svc.settings,
                             query_cache=self.query_cache)
+        ctx.allow_expensive = self.allow_expensive()
         for bi, legs in enumerate(bound):
             for li, leg in enumerate(legs):
                 if isinstance(leg, EmptyLeg):

@@ -26,24 +26,41 @@ through `native.bm25_score`, over the reader's corpus statistics (a
 multi-shard index's combined reader gives corpus-wide ones).
 
 Ported kinds: `match_all`, `match_none`, `term` and `terms` (BM25 on a
-text field), `match` (`operator`, `minimum_should_match`, `boost`),
-`match_phrase` (`slop`), `multi_match` (`best_fields`, `most_fields`,
-`cross_fields`, `phrase`, `phrase_prefix`, scored as the reference scores
-them: the best or the sum of per-field `match` scores), `range`,
-`exists`, `ids`, `constant_score`, `bool`, and the host walkers of
+text field), `match` (`operator`, `minimum_should_match`, `boost`,
+`fuzziness`), `match_phrase` (`slop`), `match_phrase_prefix`,
+`match_bool_prefix`, `multi_match` (`best_fields`, `most_fields`,
+`cross_fields`, `phrase`, `phrase_prefix`, `bool_prefix`, scored as the
+reference scores them: the best or the sum of per-field scores), `range`,
+`exists`, `ids`, `prefix`, `wildcard`, `regexp`, `fuzzy`, `span_multi`,
+`query_string` / `simple_query_string` (`field:value`, quoted phrases,
+AND / OR / NOT, `+` / `-`, ranges, wildcards and `/regexp/`),
+`constant_score`, `bool`, `dis_max`, `boosting`, `function_score`
+(`weight`, `field_value_factor`, every `score_mode` and `boost_mode`),
+`script_score` (`search/script_score.py`), and the host walkers of
 `search/queries_ext.py`: `late_interaction`, `sparse_vector` /
 `weighted_tokens` (the learned-sparse dot product) and `rank_feature`.
-`fuzziness`, the `bool_prefix` type and any
-other kind are a 400.
+The kinds of the reference's `queries_ext.py` not listed are a 400.
+
+The multi-term kinds enumerate a field's terms, the sorted array each
+segment keeps (`FieldPostings.terms`): a prefix is a `searchsorted`
+range, a wildcard a pass over the range of its literal prefix, a regexp
+a pass over every term, and an edit distance (OSA: a transposition is one
+edit) runs only on the terms that a length and a character-count bound
+leave (`_fuzzy_terms`). The answer is the reference's: the sorted union
+of the matching terms over the segments. `search.allow_expensive_queries:
+false` (the context's `allow_expensive`) refuses them, and `range` on a
+text or keyword field, with the reference's messages.
 
 A `bool`'s `filter` clauses run through the node query cache
 (`search/caches.py::QueryCache`), keyed on the reader's `gen` and the
 clause's canonical form, `json.dumps(q.to_dict(), sort_keys=True,
 default=str)`: every query class gives the reference's `to_dict`, so
 equivalent sources share one entry, as they do there. The reference's
-form leaves out `match`'s `minimum_should_match` and `multi_match`'s
-`operator`; a clause that sets them (`key_is_exact` false) is evaluated
-every time rather than served another clause's rows.
+form leaves out `match`'s `minimum_should_match` and `fuzziness`,
+`multi_match`'s `operator`, `match_bool_prefix`'s options,
+`query_string`'s fields and operator and `function_score`'s modes; a
+clause that sets them (`key_is_exact` false) is evaluated every time
+rather than served another clause's rows.
 """
 
 from __future__ import annotations
@@ -53,6 +70,7 @@ import fnmatch
 import itertools
 import json
 import math
+import re
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
@@ -61,14 +79,18 @@ from elasticsearch_tpu_torch import native
 from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentError, ParsingError, QueryShardError,
 )
+from elasticsearch_tpu_torch.index.analysis import DEFAULT_REGISTRY
 from elasticsearch_tpu_torch.index.mapping import (
     BooleanFieldMapper, DateFieldMapper, DateNanosFieldMapper, IpFieldMapper,
-    MapperService, RangeFieldMapperBase, TextFieldMapper, _NumericMapper,
-    parse_date_millis, parse_date_nanos,
+    KeywordFieldMapper, MapperService, RangeFieldMapperBase, TextFieldMapper,
+    _NumericMapper, parse_date_millis, parse_date_nanos,
 )
 from elasticsearch_tpu_torch.index.segment import ShardReader
 
 DEFAULT_MAX_TERMS_COUNT = 65536
+DEFAULT_MAX_REGEX_LENGTH = 1000
+# the expansions `match_phrase_prefix` takes of its last term
+PHRASE_PREFIX_EXPANSIONS = 50
 BM25_K1 = 1.2
 BM25_B = 0.75
 
@@ -101,7 +123,8 @@ def _constant(rows: np.ndarray, boost: float) -> DocSet:
 class SearchContext:
     """Per-shard execution context: the point-in-time reader, the mapping,
     the device vector store (kNN), the flat index settings and the node
-    query cache (None caches nothing). `deadline_at` is an absolute
+    query cache (None caches nothing); `allow_expensive` is the node's
+    `search.allow_expensive_queries`. `deadline_at` is an absolute
     deadline (time.monotonic seconds) the kNN legs pass into the batcher,
     and `knn_phases` the kNN engine's phases of this search (for the
     profile)."""
@@ -116,6 +139,8 @@ class SearchContext:
         self.query_cache = query_cache
         self.deadline_at: Optional[float] = None
         self.knn_phases: Optional[dict] = None
+        # `search.allow_expensive_queries`, set by the node
+        self.allow_expensive = True
         self._all_rows: Optional[np.ndarray] = None
 
     def all_rows(self) -> np.ndarray:
@@ -209,6 +234,46 @@ def _sorted_postings(ctx: SearchContext, field: str, term: str):
     return rows[order], freqs[order]
 
 
+def _ranges(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """The concatenated index ranges [lo[i], hi[i])."""
+    n = hi - lo
+    total = int(n.sum())
+    if total == 0:
+        return np.zeros(0, dtype=np.int64)
+    starts = np.repeat(lo - np.concatenate(([0], np.cumsum(n)[:-1])), n)
+    return starts + np.arange(total, dtype=np.int64)
+
+
+def _rows_of_terms(ctx: SearchContext, field: str,
+                   terms: List[str]) -> np.ndarray:
+    """The live rows holding any of `terms` in `field`, ascending: each
+    segment's postings ranges of the terms it holds, gathered at once."""
+    want = np.asarray(terms, dtype=str)
+    parts = []
+    for view in ctx.reader.views:
+        fp = view.segment.postings.get(field)
+        if fp is None or not len(fp.terms):
+            continue
+        j = _held(fp.terms, want)
+        if not len(j):
+            continue
+        docs = fp.doc_ids[_ranges(fp.starts[j], fp.starts[j + 1])]
+        if not view.all_live:
+            docs = docs[view.live[docs]]
+        parts.append(docs.astype(np.int64) + view.segment.base)
+    if not parts:
+        return np.zeros(0, dtype=np.int64)
+    return np.unique(np.concatenate(parts))
+
+
+def _held(sorted_terms: np.ndarray, want: np.ndarray) -> np.ndarray:
+    """The positions in `sorted_terms` of the wanted terms it holds."""
+    j = np.searchsorted(sorted_terms, want)
+    ok = j < len(sorted_terms)
+    j, w = j[ok], want[ok]
+    return np.unique(j[sorted_terms[j] == w])
+
+
 def _field_lengths_for(ctx: SearchContext, field: str,
                        rows: np.ndarray) -> np.ndarray:
     out = np.zeros(len(rows), dtype=np.float32)
@@ -278,15 +343,21 @@ class TermQuery(Query):
 
 
 class TermsQuery(Query):
-    def __init__(self, field: str, values: List[Any], boost: float = 1.0):
+    """`terms`: the constant boost on the docs holding any of the values.
+    `index.max_terms_count` bounds a caller's list only, not the terms a
+    multi-term query expands to."""
+
+    def __init__(self, field: str, values: List[Any], boost: float = 1.0,
+                 user_supplied: bool = True):
         self.field = field
         self.values = values
         self.boost = boost
+        self.user_supplied = user_supplied
 
     def execute(self, ctx: SearchContext) -> DocSet:
         max_terms = int(ctx.index_settings.get("index.max_terms_count",
                                                DEFAULT_MAX_TERMS_COUNT))
-        if len(self.values) > max_terms:
+        if self.user_supplied and len(self.values) > max_terms:
             raise IllegalArgumentError(
                 f"The number of terms [{len(self.values)}] used in the "
                 f"Terms Query request has exceeded the allowed maximum "
@@ -295,15 +366,12 @@ class TermsQuery(Query):
         if self.field == "_id":
             return _constant(_id_rows(ctx, self.values), self.boost)
         mapper = ctx.mapper_service.get(self.field)
-        parts = []
-        for v in self.values:
-            term = str(v) if isinstance(mapper, TextFieldMapper) \
-                else _index_term_for(mapper, v)
-            if term is not None:
-                parts.append(_term_postings(ctx, self.field, term)[0])
-        if not parts:
+        terms = [t for t in (str(v) if isinstance(mapper, TextFieldMapper)
+                             else _index_term_for(mapper, v)
+                             for v in self.values) if t is not None]
+        if not terms:
             return DocSet.empty()
-        return _constant(np.unique(np.concatenate(parts)), self.boost)
+        return _constant(_rows_of_terms(ctx, self.field, terms), self.boost)
 
     def to_dict(self):
         return {"terms": {self.field: self.values}}
@@ -314,15 +382,19 @@ class MatchQuery(Query):
     BM25 clause a term (a repeated term counts twice), combined as
     `bool.should` with `operator: and` requiring every clause, else
     `minimum_should_match` (default 1). On a non-text field the value is
-    its one index term."""
+    its one index term. With `fuzziness` each term is replaced by the
+    field's terms within its edit distance (`_fuzzy_expand`), each one
+    clause."""
 
     def __init__(self, field: str, text: Any, operator: str = "or",
-                 minimum_should_match=None, boost: float = 1.0):
+                 minimum_should_match=None, boost: float = 1.0,
+                 fuzziness=None):
         self.field = field
         self.text = text
         self.operator = str(operator).lower()
         self.minimum_should_match = minimum_should_match
         self.boost = boost
+        self.fuzziness = fuzziness
 
     def _analyzed_terms(self, ctx: SearchContext) -> List[str]:
         mapper = ctx.mapper_service.get(self.field)
@@ -336,6 +408,12 @@ class MatchQuery(Query):
         terms = self._analyzed_terms(ctx)
         if not terms:
             return DocSet.empty()
+        if self.fuzziness is not None:
+            expanded = []
+            for t in terms:
+                expanded.extend(_fuzzy_expand(ctx, self.field, t,
+                                              self.fuzziness))
+            terms = expanded or terms
         clause_sets = []
         for t in terms:
             rows, freqs = _sorted_postings(ctx, self.field, t)
@@ -353,8 +431,10 @@ class MatchQuery(Query):
                                        "operator": self.operator}}}
 
     def key_is_exact(self) -> bool:
-        # the form leaves out minimum_should_match, which `and` overrides
-        return self.minimum_should_match is None or self.operator == "and"
+        # the form leaves out fuzziness, and minimum_should_match, which
+        # `and` overrides
+        return self.fuzziness is None and (
+            self.minimum_should_match is None or self.operator == "and")
 
 
 class MatchPhraseQuery(Query):
@@ -434,18 +514,25 @@ def _phrase_from(pos_sets, i, prev, slop) -> bool:
 
 class MultiMatchQuery(Query):
     """`multi_match`: one `match` a field (`field^boost` and wildcard
-    field patterns over the text and keyword fields), the best field's
+    field patterns over the text and keyword fields), or for `bool_prefix`
+    one `match_bool_prefix` a field (with the operator,
+    `minimum_should_match`, `analyzer` and `fuzziness`); the best field's
     score for `best_fields`, else their sum, as the reference scores
-    every other type."""
+    every other type. As in the reference, `fuzziness` acts on
+    `bool_prefix` only."""
 
     def __init__(self, query: str, fields: List[str],
                  mm_type: str = "best_fields", operator: str = "or",
-                 boost: float = 1.0):
+                 boost: float = 1.0, analyzer: Optional[str] = None,
+                 minimum_should_match=None, fuzziness=None):
         self.query = query
         self.fields = fields
         self.mm_type = mm_type
         self.operator = operator
         self.boost = boost
+        self.analyzer = analyzer
+        self.minimum_should_match = minimum_should_match
+        self.fuzziness = fuzziness
 
     def execute(self, ctx: SearchContext) -> DocSet:
         def split_boost(f):
@@ -468,8 +555,18 @@ class MultiMatchQuery(Query):
         sets = []
         for f in resolved:
             name, fboost = split_boost(f)
-            sets.append(MatchQuery(name, self.query, operator=self.operator,
-                                   boost=self.boost * fboost).execute(ctx))
+            if self.mm_type == "bool_prefix":
+                sets.append(MatchBoolPrefixQuery(
+                    name, self.query, boost=self.boost * fboost,
+                    operator=self.operator,
+                    minimum_should_match=self.minimum_should_match,
+                    analyzer=self.analyzer,
+                    fuzziness=self.fuzziness).execute(ctx))
+            else:
+                sets.append(MatchQuery(name, self.query,
+                                       operator=self.operator,
+                                       boost=self.boost * fboost
+                                       ).execute(ctx))
         if not sets:
             return DocSet.empty()
         if self.mm_type == "best_fields":
@@ -481,7 +578,11 @@ class MultiMatchQuery(Query):
                                 "type": self.mm_type}}
 
     def key_is_exact(self) -> bool:
-        # the form leaves out the operator
+        # the form leaves out the operator, and bool_prefix's options
+        if self.mm_type == "bool_prefix":
+            return str(self.operator).lower() == "or" and (
+                self.minimum_should_match is None and self.analyzer is None
+                and self.fuzziness is None)
         return str(self.operator).lower() != "and"
 
 
@@ -567,6 +668,12 @@ class RangeQuery(Query):
 
     def execute(self, ctx: SearchContext) -> DocSet:
         mapper = ctx.mapper_service.get(self.field)
+        if isinstance(mapper, (TextFieldMapper, KeywordFieldMapper)) \
+                and getattr(ctx, "allow_expensive", True) is False:
+            raise IllegalArgumentError(
+                "[range] queries on [text] or [keyword] fields cannot be "
+                "executed when 'search.allow_expensive_queries' is set to "
+                "false.")
         lo, hi = -np.inf, np.inf
         lo_inc = hi_inc = True
         numeric_bounds = True
@@ -747,6 +854,485 @@ class LateInteractionFilterQuery(Query):
         return self.inner.to_dict()
 
 
+# ------------------------------------------------------ multi-term queries
+
+def _term_arrays(ctx: SearchContext, field: str):
+    """Each segment's sorted term array of `field` (the postings)."""
+    for view in ctx.reader.views:
+        fp = view.segment.postings.get(field)
+        if fp is not None and len(fp.terms):
+            yield fp
+
+
+def _pattern_terms(ctx: SearchContext, field: str, select) -> List[str]:
+    """The sorted union over the segments of the terms of `field` that
+    `select` keeps: select(FieldPostings) gives the kept terms of one
+    segment as an array."""
+    parts = [select(fp) for fp in _term_arrays(ctx, field)]
+    parts = [p for p in parts if len(p)]
+    if not parts:
+        return []
+    return np.unique(np.concatenate(parts)).tolist()
+
+
+def _prefix_range(terms: np.ndarray, prefix: str) -> Tuple[int, int]:
+    """The [lo, hi) positions of the sorted terms that start with
+    `prefix`: those from `prefix` up to the prefix with its last code
+    point raised by one."""
+    if not prefix:
+        return 0, len(terms)
+    lo = int(np.searchsorted(terms, prefix))
+    last = ord(prefix[-1])
+    if last >= 0x10FFFF:
+        hi = lo + int(np.char.startswith(terms[lo:], prefix).sum())
+    else:
+        hi = int(np.searchsorted(terms, prefix[:-1] + chr(last + 1)))
+    return lo, hi
+
+
+def _prefix_select(prefix: str):
+    def select(fp):
+        lo, hi = _prefix_range(fp.terms, prefix)
+        return fp.terms[lo:hi]
+    return select
+
+
+def _regex_select(pattern, literal_prefix: str = ""):
+    """Terms a compiled pattern matches, tried only within the range of
+    the pattern's literal prefix."""
+    def select(fp):
+        lo, hi = _prefix_range(fp.terms, literal_prefix)
+        window = fp.terms[lo:hi]
+        keep = [i for i, t in enumerate(window.tolist())
+                if pattern.match(t) is not None]
+        return window[keep]
+    return select
+
+
+def _check_expensive(ctx: SearchContext, qtype: str, extra: str = "") -> None:
+    """The `search.allow_expensive_queries` gate."""
+    if getattr(ctx, "allow_expensive", True) is False:
+        raise IllegalArgumentError(
+            f"[{qtype}] queries cannot be executed when "
+            f"'search.allow_expensive_queries' is set to false.{extra}")
+
+
+def _expansion_set(ctx: SearchContext, field: str, terms: List[str],
+                   boost: float) -> DocSet:
+    """A multi-term query's rows: `terms` as a `terms` query of the
+    caller's boost (no `index.max_terms_count` bound)."""
+    if not terms:
+        return DocSet.empty()
+    return TermsQuery(field, terms, boost, user_supplied=False).execute(ctx)
+
+
+class PrefixQuery(Query):
+    def __init__(self, field: str, value: str, boost: float = 1.0):
+        self.field = field
+        self.value = str(value)
+        self.boost = boost
+
+    def execute(self, ctx: SearchContext) -> DocSet:
+        _check_expensive(ctx, "prefix",
+                         " For optimised prefix queries on text fields "
+                         "please enable [index_prefixes].")
+        terms = _pattern_terms(ctx, self.field, _prefix_select(self.value))
+        return _expansion_set(ctx, self.field, terms, self.boost)
+
+    def to_dict(self):
+        return {"prefix": {self.field: {"value": self.value}}}
+
+
+def _wildcard_regex(value: str):
+    return re.compile(
+        "^" + "".join(".*" if c == "*" else "." if c == "?"
+                      else re.escape(c) for c in value) + "$")
+
+
+class WildcardQuery(Query):
+    def __init__(self, field: str, value: str, boost: float = 1.0):
+        self.field = field
+        self.value = str(value)
+        self.boost = boost
+
+    def execute(self, ctx: SearchContext) -> DocSet:
+        _check_expensive(ctx, "wildcard")
+        literal = re.split(r"[*?]", self.value, maxsplit=1)[0]
+        terms = _pattern_terms(ctx, self.field, _regex_select(
+            _wildcard_regex(self.value), literal))
+        return _expansion_set(ctx, self.field, terms, self.boost)
+
+    def to_dict(self):
+        return {"wildcard": {self.field: {"value": self.value}}}
+
+
+class RegexpQuery(Query):
+    def __init__(self, field: str, value: str, boost: float = 1.0):
+        self.field = field
+        self.value = str(value)
+        self.boost = boost
+
+    def execute(self, ctx: SearchContext) -> DocSet:
+        _check_expensive(ctx, "regexp")
+        max_len = int(ctx.index_settings.get("index.max_regex_length",
+                                             DEFAULT_MAX_REGEX_LENGTH))
+        if len(self.value) > max_len:
+            raise IllegalArgumentError(
+                f"The length of regex [{len(self.value)}] used in the "
+                f"Regexp Query request has exceeded the allowed maximum "
+                f"of [{max_len}]. This maximum can be set by changing the "
+                f"[index.max_regex_length] index level setting.")
+        try:
+            pattern = re.compile("^" + self.value + "$")
+        except re.error as e:
+            raise IllegalArgumentError(
+                f"invalid regexp [{self.value}]: {e}")
+        terms = _pattern_terms(ctx, self.field, _regex_select(pattern))
+        return _expansion_set(ctx, self.field, terms, self.boost)
+
+    def to_dict(self):
+        return {"regexp": {self.field: {"value": self.value}}}
+
+
+def _edit_distance_le(a: str, b: str, k: int) -> bool:
+    """Whether the restricted Damerau-Levenshtein (OSA) distance of a and
+    b is at most k: an adjacent transposition counts as one edit."""
+    if abs(len(a) - len(b)) > k:
+        return False
+    prev2: Optional[List[int]] = None
+    prev = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        cur = [i] + [0] * len(b)
+        best = cur[0]
+        for j, cb in enumerate(b, 1):
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1,
+                         prev[j - 1] + (ca != cb))
+            if (prev2 is not None and i > 1 and j > 1
+                    and ca == b[j - 2] and a[i - 2] == cb):
+                cur[j] = min(cur[j], prev2[j - 2] + 1)
+            best = min(best, cur[j])
+        if best > k:
+            return False
+        prev2, prev = prev, cur
+    return prev[-1] <= k
+
+
+# code points fold into this many buckets for the bag-distance bound
+_SHAPE_BUCKETS = 61
+_SHAPE_CHUNK = 1 << 15
+
+
+def _char_counts(codes: np.ndarray) -> np.ndarray:
+    """[n, _SHAPE_BUCKETS] int16 counts of the code points (0 = padding)
+    of each row of `codes`, folded into buckets."""
+    n = len(codes)
+    nz = codes != 0
+    r, c = np.nonzero(nz)
+    flat = r * _SHAPE_BUCKETS + (codes[r, c] % _SHAPE_BUCKETS)
+    return np.bincount(flat, minlength=n * _SHAPE_BUCKETS).reshape(
+        n, _SHAPE_BUCKETS).astype(np.int16)
+
+
+def _term_shape(fp) -> Tuple[np.ndarray, np.ndarray]:
+    """(lengths, bucketed code point counts) of a segment's terms, made at
+    the first fuzzy enumeration of the field and kept with its
+    postings."""
+    if fp.term_shape is None:
+        terms = np.ascontiguousarray(fp.terms)
+        width = terms.dtype.itemsize // 4
+        codes = terms.view(np.uint32).reshape(len(terms), width)
+        lengths = (codes != 0).sum(axis=1)
+        counts = np.concatenate([
+            _char_counts(codes[lo:lo + _SHAPE_CHUNK])
+            for lo in range(0, len(terms), _SHAPE_CHUNK)])
+        fp.term_shape = (lengths, counts)
+    return fp.term_shape
+
+
+def _fuzzy_select(term: str, k: int, exclude_self: bool = False):
+    """A segment's terms within OSA distance k of `term`. The distance is
+    run only on the terms within k of its length whose bag distance (the
+    larger of the code points each side holds beyond the other, a lower
+    bound of the edit distance, here over folded buckets) is at most k."""
+    q = np.asarray([term], dtype=str)
+    q_counts = _char_counts(q.view(np.uint32).reshape(1, -1))[0]
+
+    def select(fp):
+        lengths, counts = _term_shape(fp)
+        dl = np.abs(lengths - len(term))
+        cand = np.nonzero(dl <= k)[0]
+        if len(cand):
+            # the code points each side holds beyond the other, p and m:
+            # p + m is the L1 distance of the counts, p - m the length
+            # difference, so max(p, m) = (L1 + |dl|) / 2
+            l1 = np.abs(counts[cand] - q_counts).sum(axis=1,
+                                                     dtype=np.int32)
+            cand = cand[(l1 + dl[cand]) <= 2 * k]
+        keep = [i for i, t in zip(cand.tolist(), fp.terms[cand].tolist())
+                if (not exclude_self or t != term)
+                and _edit_distance_le(term, t, k)]
+        return fp.terms[keep]
+    return select
+
+
+def _fuzzy_terms(ctx: SearchContext, field: str, term: str, k: int,
+                 exclude_self: bool = False) -> List[str]:
+    return _pattern_terms(ctx, field, _fuzzy_select(term, k, exclude_self))
+
+
+def _fuzzy_expand(ctx: SearchContext, field: str, term: str,
+                  fuzziness) -> List[str]:
+    """The field's terms within `fuzziness` edits of `term`: AUTO is 0, 1
+    or 2 edits for a term of at most 2, at most 5, or more characters."""
+    if fuzziness in ("AUTO", "auto", None):
+        k = 0 if len(term) <= 2 else 1 if len(term) <= 5 else 2
+    else:
+        k = int(fuzziness)
+    if k == 0:
+        return [term]
+    return _fuzzy_terms(ctx, field, term, k)
+
+
+class FuzzyQuery(Query):
+    def __init__(self, field: str, value: str, fuzziness="AUTO",
+                 boost: float = 1.0):
+        self.field = field
+        self.value = str(value)
+        self.fuzziness = fuzziness
+        self.boost = boost
+
+    def execute(self, ctx: SearchContext) -> DocSet:
+        _check_expensive(ctx, "fuzzy")
+        terms = _fuzzy_expand(ctx, self.field, self.value, self.fuzziness)
+        if not terms:
+            return DocSet.empty()
+        sets = [TermQuery(self.field, t, self.boost).execute(ctx)
+                for t in terms]
+        return _combine_should(sets, 1)
+
+    def to_dict(self):
+        return {"fuzzy": {self.field: {"value": self.value,
+                                       "fuzziness": self.fuzziness}}}
+
+
+class MatchPhrasePrefixQuery(Query):
+    """`match_phrase_prefix`: the phrase with its last term replaced by
+    each of the first `PHRASE_PREFIX_EXPANSIONS` terms it prefixes, summed
+    as `should`; on a non-text field a `prefix` query."""
+
+    def __init__(self, field: str, text: str, boost: float = 1.0):
+        self.field = field
+        self.text = str(text)
+        self.boost = boost
+
+    def execute(self, ctx: SearchContext) -> DocSet:
+        mapper = ctx.mapper_service.get(self.field)
+        if not isinstance(mapper, TextFieldMapper):
+            return PrefixQuery(self.field, self.text, self.boost).execute(ctx)
+        terms = mapper.search_analyzer.terms(self.text)
+        if not terms:
+            return DocSet.empty()
+        *head, last = terms
+        expansions = _pattern_terms(ctx, self.field, _prefix_select(
+            last))[:PHRASE_PREFIX_EXPANSIONS]
+        if not expansions:
+            return DocSet.empty()
+        sets = []
+        for exp in expansions:
+            phrase = " ".join(head + [exp]) if head else exp
+            sets.append(MatchPhraseQuery(self.field, phrase,
+                                         boost=self.boost).execute(ctx))
+        return _combine_should(sets, 1)
+
+    def to_dict(self):
+        return {"match_phrase_prefix": {self.field: {"query": self.text}}}
+
+
+class MatchBoolPrefixQuery(Query):
+    """`match_bool_prefix`: the analyzed text (by `analyzer`, else the
+    field's search analyzer) as `should` clauses, a term clause each but
+    the last, which is a `prefix`; `fuzziness` makes the complete terms
+    `fuzzy` clauses."""
+
+    def __init__(self, field: str, text: str, boost: float = 1.0,
+                 operator: str = "or", minimum_should_match=None,
+                 analyzer: Optional[str] = None, fuzziness=None):
+        self.field = field
+        self.text = str(text)
+        self.boost = boost
+        self.operator = str(operator).lower()
+        self.minimum_should_match = minimum_should_match
+        self.analyzer = analyzer
+        self.fuzziness = fuzziness
+
+    def execute(self, ctx: SearchContext) -> DocSet:
+        mapper = ctx.mapper_service.get(self.field)
+        if self.analyzer is not None:
+            registry = ctx.mapper_service.registry or DEFAULT_REGISTRY
+            terms = registry.get(self.analyzer).terms(self.text)
+        elif isinstance(mapper, TextFieldMapper):
+            terms = mapper.search_analyzer.terms(self.text)
+        else:
+            terms = [self.text]
+        if not terms:
+            return DocSet.empty()
+        *head, last = terms
+        if self.fuzziness is not None:
+            sets = [FuzzyQuery(self.field, t, self.fuzziness,
+                               self.boost).execute(ctx) for t in head]
+        else:
+            sets = [TermQuery(self.field, t, self.boost).execute(ctx)
+                    for t in head]
+        sets.append(PrefixQuery(self.field, last, self.boost).execute(ctx))
+        if self.minimum_should_match is not None:
+            required = resolve_msm(self.minimum_should_match, len(sets))
+        else:
+            required = len(sets) if self.operator == "and" else 1
+        return _combine_should(sets, required)
+
+    def to_dict(self):
+        return {"match_bool_prefix": {self.field: {"query": self.text}}}
+
+    def key_is_exact(self) -> bool:
+        # the form keeps only the text
+        return (self.operator == "or" and self.minimum_should_match is None
+                and self.analyzer is None and self.fuzziness is None)
+
+
+class QueryStringQuery(Query):
+    """`query_string` (and `simple_query_string`): `field:value`, quoted
+    phrases, AND / OR / NOT and `+` / `-`, `[a TO b]` / `{a TO b}` ranges
+    (`*` an open bound), `*` / `?` wildcards (lower-cased) and `/regexp/`,
+    over `default_field` / `fields` or every text field (a `dis_max` of the
+    fields). An explicit AND binds both neighbours, an OR frees both,
+    else the default operator decides, as in Lucene's classic parser."""
+
+    def __init__(self, query: str, default_fields=None,
+                 default_operator: str = "or", boost: float = 1.0):
+        self.query = str(query)
+        if isinstance(default_fields, str):
+            default_fields = [default_fields]
+        self.default_fields_param = list(default_fields or [])
+        op = str(default_operator).strip().lower()
+        if op not in ("and", "or"):
+            raise ParsingError(f"invalid default_operator "
+                               f"[{default_operator}], expected AND or OR")
+        self.default_operator = op
+        self.boost = boost
+
+    _TOKEN_RE = re.compile(
+        r'([+-]?)(?:(\w[\w.]*):)?'
+        r'("(?:[^"]*)"|[\[{][^\]}]*[\]}]|\S+)')
+
+    _RANGE_RE = re.compile(
+        r'^([\[{])\s*(\S+)\s+TO\s+(\S+)\s*([\]}])$')
+
+    def _default_fields(self, ctx: SearchContext) -> List[str]:
+        fields = [f for f in self.default_fields_param if f != "*"]
+        if fields:
+            return [f.split("^")[0] for f in fields]
+        return [p for p in ctx.mapper_service.field_names()
+                if isinstance(ctx.mapper_service.get(p), TextFieldMapper)]
+
+    def execute(self, ctx: SearchContext) -> DocSet:
+        if self.query.strip() == "*":
+            return MatchAllQuery(self.boost).execute(ctx)
+        q = self.query.strip()
+        if len(q) > 2 and q.startswith("/") and q.endswith("/"):
+            # a whole-query /re/ is a regexp on each default field
+            fields = self._default_fields(ctx) or ["_all"]
+            subs = [RegexpQuery(f, q[1:-1]) for f in fields]
+            sub = subs[0] if len(subs) == 1 else DisMaxQuery(subs)
+            return sub.execute(ctx)
+
+        # pass 1: the clauses and the connectors between them
+        clauses: List[dict] = []
+        connectors: List[Optional[str]] = []
+        negate_next = False
+        for m in self._TOKEN_RE.finditer(self.query):
+            sign, field, text = m.group(1), m.group(2), m.group(3)
+            if text in ("AND", "OR"):
+                if connectors:
+                    connectors[-1] = text
+                continue
+            if text == "NOT":
+                negate_next = True
+                continue
+            phrase = text.startswith('"') and text.endswith('"')
+            clauses.append({"sign": sign, "field": field,
+                            "text": text[1:-1] if phrase else text,
+                            "phrase": phrase, "negated": negate_next})
+            negate_next = False
+            connectors.append(None)
+        if not clauses:
+            return DocSet.empty()
+
+        # pass 2: required or optional
+        n = len(clauses)
+        required = [self.default_operator == "and"] * n
+        for i in range(n - 1):
+            if connectors[i] == "AND":
+                required[i] = required[i + 1] = True
+            elif connectors[i] == "OR":
+                required[i] = required[i + 1] = False
+
+        must: List[Query] = []
+        should: List[Query] = []
+        must_not: List[Query] = []
+        for i, c in enumerate(clauses):
+            # the clauses score at boost 1; the bool applies self.boost
+            if c["field"]:
+                range_m = self._RANGE_RE.match(c["text"])
+                if range_m and not c["phrase"]:
+                    open_b, lo, hi, close_b = range_m.groups()
+                    kw = {}
+                    if lo != "*":
+                        kw["gte" if open_b == "[" else "gt"] = lo
+                    if hi != "*":
+                        kw["lte" if close_b == "]" else "lt"] = hi
+                    sub: Query = RangeQuery(c["field"], **kw)
+                elif (len(c["text"]) > 2 and c["text"].startswith("/")
+                      and c["text"].endswith("/") and not c["phrase"]):
+                    sub = RegexpQuery(c["field"], c["text"][1:-1])
+                elif not c["phrase"] and ("*" in c["text"]
+                                          or "?" in c["text"]):
+                    sub = WildcardQuery(c["field"], c["text"].lower())
+                else:
+                    sub = (MatchPhraseQuery(c["field"], c["text"])
+                           if c["phrase"]
+                           else MatchQuery(c["field"], c["text"]))
+            else:
+                fields = self._default_fields(ctx)
+                if not c["phrase"] and ("*" in c["text"]
+                                        or "?" in c["text"]):
+                    subs: List[Query] = [
+                        WildcardQuery(f, c["text"].lower()) for f in fields]
+                else:
+                    subs = [MatchPhraseQuery(f, c["text"]) if c["phrase"]
+                            else MatchQuery(f, c["text"]) for f in fields]
+                if not subs:
+                    continue
+                sub = subs[0] if len(subs) == 1 else DisMaxQuery(subs)
+            if c["sign"] == "-" or c["negated"]:
+                must_not.append(sub)
+            elif c["sign"] == "+" or required[i]:
+                must.append(sub)
+            else:
+                should.append(sub)
+        if not (must or should or must_not):
+            return DocSet.empty()
+        return BoolQuery(must=must, should=should, must_not=must_not,
+                         boost=self.boost).execute(ctx)
+
+    def to_dict(self):
+        return {"query_string": {"query": self.query}}
+
+    def key_is_exact(self) -> bool:
+        # the form keeps only the query text
+        return not self.default_fields_param \
+            and self.default_operator == "or"
+
+
 # --------------------------------------------------------- bool composition
 
 def resolve_msm(msm, n_clauses: int) -> int:
@@ -921,12 +1507,203 @@ class BoolQuery(Query):
             self.must, self.filter, self.should, self.must_not))
 
 
+# --------------------------------------------------------- scoring wrappers
+
+class BoostingQuery(Query):
+    """`boosting`: the positive query's hits, their scores times
+    `negative_boost` where the negative query also matches."""
+
+    def __init__(self, positive: Query, negative: Query,
+                 negative_boost: float):
+        self.positive = positive
+        self.negative = negative
+        self.negative_boost = negative_boost
+
+    def execute(self, ctx: SearchContext) -> DocSet:
+        pos = self.positive.execute(ctx).with_scores()
+        neg = self.negative.execute(ctx)
+        scores = pos.scores.copy()
+        scores[in_sorted(pos.rows, neg.rows)] *= self.negative_boost
+        return DocSet(pos.rows, scores)
+
+    def to_dict(self):
+        return {"boosting": {"positive": self.positive.to_dict(),
+                             "negative": self.negative.to_dict(),
+                             "negative_boost": self.negative_boost}}
+
+    def key_is_exact(self) -> bool:
+        return self.positive.key_is_exact() and self.negative.key_is_exact()
+
+
+class DisMaxQuery(Query):
+    """`dis_max`: the union of the queries' hits, each scored as its best
+    query's score plus `tie_breaker` times the others'."""
+
+    def __init__(self, queries: List[Query], tie_breaker: float = 0.0,
+                 boost: float = 1.0):
+        self.queries = queries
+        self.tie_breaker = tie_breaker
+        self.boost = boost
+
+    def execute(self, ctx: SearchContext) -> DocSet:
+        sets = [q.execute(ctx).with_scores() for q in self.queries]
+        if not sets:
+            return DocSet.empty()
+        rows = np.unique(np.concatenate([s.rows for s in sets]))
+        best = np.zeros(len(rows), dtype=np.float32)
+        total = np.zeros(len(rows), dtype=np.float32)
+        for s in sets:
+            idx = np.searchsorted(rows, s.rows)
+            np.maximum.at(best, idx, s.scores)
+            np.add.at(total, idx, s.scores)
+        scores = best + self.tie_breaker * (total - best)
+        return DocSet(rows, scores * self.boost)
+
+    def to_dict(self):
+        return {"dis_max": {"queries": [q.to_dict() for q in self.queries],
+                            "tie_breaker": self.tie_breaker}}
+
+    def key_is_exact(self) -> bool:
+        return all(q.key_is_exact() for q in self.queries)
+
+
+def scalar_numbers(reader: ShardReader, rows: np.ndarray,
+                   field: str) -> Tuple[np.ndarray, np.ndarray]:
+    """(values f64, present) of `field` over rows, where present means the
+    doc holds one number: a list, a boolean or a string counts as
+    missing, as `field_value_factor` reads the reference's doc values.
+    A numeric column is gathered directly; another one value by value."""
+    rows = np.asarray(rows, dtype=np.int64)
+    vals = np.zeros(len(rows), dtype=np.float64)
+    present = np.zeros(len(rows), dtype=bool)
+    if not len(rows):
+        return vals, present
+    vi, local = reader.locate_many(rows)
+    for v in np.unique(vi):
+        col = reader.views[v].segment.doc_values.get(field)
+        if col is None:
+            continue
+        at = np.nonzero(vi == v)[0]
+        loc = local[at]
+        if col.numeric is not None:
+            ok = col.present[loc] & ~col.multi[loc]
+            vals[at[ok]] = col.numeric[loc[ok]]
+        else:
+            ok = np.fromiter(
+                (x is not None and not isinstance(x, (list, str, bool))
+                 and isinstance(x, (int, float))
+                 for x in col.values[loc]), dtype=bool, count=len(loc))
+            vals[at[ok]] = [float(x) for x in col.values[loc[ok]]]
+        present[at] = ok
+    return vals, present
+
+
+_SCORE_MODES = ("multiply", "sum", "max", "min", "avg")
+
+
+class FunctionScoreQuery(Query):
+    """`function_score`: the query's hits rescored by its functions
+    (`weight`, `field_value_factor` with `factor`, `missing` and
+    `modifier`: none, log1p, sqrt, square), combined by `score_mode` and
+    joined to the query's score by `boost_mode` (multiply, sum, max, min,
+    avg, replace). A function's values run in f64 and are cast to f32, as
+    in the reference; `field_value_factor` reads the doc values vectorised
+    (`scalar_numbers`)."""
+
+    def __init__(self, query: Query, functions: List[dict],
+                 boost_mode: str = "multiply", score_mode: str = "multiply"):
+        self.query = query
+        self.functions = functions
+        self.boost_mode = boost_mode
+        self.score_mode = score_mode
+
+    def execute(self, ctx: SearchContext) -> DocSet:
+        base = self.query.execute(ctx).with_scores()
+        if len(base.rows) == 0 or not self.functions:
+            return base
+        func_scores = []
+        for fn in self.functions:
+            weight = float(fn.get("weight", 1.0))
+            if "field_value_factor" in fn:
+                spec = fn["field_value_factor"]
+                factor = float(spec.get("factor", 1.0))
+                missing = float(spec.get("missing", 1.0))
+                modifier = spec.get("modifier", "none")
+                got, present = scalar_numbers(ctx.reader, base.rows,
+                                              spec["field"])
+                vals = np.where(present, got, missing) * factor
+                if modifier == "log1p":
+                    vals = np.log1p(np.maximum(vals, 0))
+                elif modifier == "sqrt":
+                    vals = np.sqrt(np.maximum(vals, 0))
+                elif modifier == "square":
+                    vals = vals ** 2
+                func_scores.append(weight * vals.astype(np.float32))
+            else:
+                func_scores.append(np.full(len(base.rows), weight,
+                                           dtype=np.float32))
+        combined = func_scores[0]
+        for fs in func_scores[1:]:
+            if self.score_mode == "sum":
+                combined = combined + fs
+            elif self.score_mode == "max":
+                combined = np.maximum(combined, fs)
+            elif self.score_mode == "min":
+                combined = np.minimum(combined, fs)
+            elif self.score_mode == "avg":
+                combined = (combined + fs) / 2
+            else:
+                combined = combined * fs
+        if self.boost_mode == "replace":
+            new = combined
+        elif self.boost_mode == "sum":
+            new = base.scores + combined
+        elif self.boost_mode == "max":
+            new = np.maximum(base.scores, combined)
+        elif self.boost_mode == "min":
+            new = np.minimum(base.scores, combined)
+        elif self.boost_mode == "avg":
+            new = (base.scores + combined) / 2
+        else:
+            new = base.scores * combined
+        return DocSet(base.rows, new.astype(np.float32))
+
+    def to_dict(self):
+        return {"function_score": {"query": self.query.to_dict(),
+                                   "functions": self.functions}}
+
+    def key_is_exact(self) -> bool:
+        # the form leaves out both modes
+        return (self.boost_mode == "multiply"
+                and self.score_mode == "multiply"
+                and self.query.key_is_exact())
+
+
 # ------------------------------------------------------------------ parser
 
 PORTED_KINDS = ("match_all", "match_none", "term", "terms", "match",
-                "match_phrase", "multi_match", "range", "exists", "ids",
-                "constant_score", "bool", "knn", "late_interaction",
-                "rank_feature", "sparse_vector", "weighted_tokens")
+                "match_phrase", "match_phrase_prefix", "match_bool_prefix",
+                "multi_match", "range", "exists", "ids", "prefix",
+                "wildcard", "regexp", "fuzzy", "span_multi", "query_string",
+                "simple_query_string", "constant_score", "bool", "dis_max",
+                "boosting", "function_score", "script_score", "knn",
+                "late_interaction", "rank_feature", "sparse_vector",
+                "weighted_tokens")
+
+# the kinds of the reference this build leaves out, by the ROADMAP.md
+# queue 1 item that brings them
+_LEFT_OUT_KINDS = {
+    **{k: "item 3's remainder (search/queries_ext.py)"
+       for k in ("more_like_this", "terms_set", "span_term", "span_near",
+                 "span_or", "span_not", "span_first", "intervals",
+                 "pinned", "distance_feature", "wrapper")},
+    "nested": "item 4 (nested)",
+    **{k: "item 4 (the geo queries)"
+       for k in ("geo_distance", "geo_bounding_box", "geo_shape", "shape",
+                 "geo_polygon")},
+    **{k: "item 4 (the other mapping types)"
+       for k in ("percolate", "has_child", "has_parent", "parent_id")},
+}
 
 # every kind the reference's parser knows (its did-you-mean list)
 _KNOWN_KINDS = (
@@ -978,12 +1755,9 @@ def parse_query(body: Optional[dict]) -> Query:
         field, v = _single(spec, "match")
         if not isinstance(v, dict):
             return MatchQuery(field, v)
-        if v.get("fuzziness") is not None:
-            raise ParsingError("[match] query option [fuzziness] is not "
-                               "supported by this build")
         return MatchQuery(field, v.get("query"), v.get("operator", "or"),
                           v.get("minimum_should_match"),
-                          float(v.get("boost", 1.0)))
+                          float(v.get("boost", 1.0)), v.get("fuzziness"))
     if kind == "match_phrase":
         field, v = _single(spec, "match_phrase")
         if isinstance(v, dict):
@@ -991,18 +1765,36 @@ def parse_query(body: Optional[dict]) -> Query:
                                     int(v.get("slop", 0)),
                                     float(v.get("boost", 1.0)))
         return MatchPhraseQuery(field, v)
+    if kind == "match_phrase_prefix":
+        field, v = _single(spec, "match_phrase_prefix")
+        text = v.get("query") if isinstance(v, dict) else v
+        return MatchPhrasePrefixQuery(field, text)
+    if kind == "match_bool_prefix":
+        field, v = _single(spec, "match_bool_prefix")
+        if isinstance(v, dict):
+            return MatchBoolPrefixQuery(
+                field, v.get("query"), float(v.get("boost", 1.0)),
+                v.get("operator", "or"),
+                minimum_should_match=v.get("minimum_should_match"),
+                analyzer=v.get("analyzer"), fuzziness=v.get("fuzziness"))
+        return MatchBoolPrefixQuery(field, v)
+    if kind in ("query_string", "simple_query_string"):
+        fields = spec.get("fields") or (
+            [spec["default_field"]] if spec.get("default_field") else [])
+        return QueryStringQuery(spec.get("query", ""), fields,
+                                spec.get("default_operator", "or"),
+                                float(spec.get("boost", 1.0)))
     if kind == "multi_match":
         mmt = spec.get("type", "best_fields")
         if spec.get("slop") is not None and mmt in ("bool_prefix",
                                                     "cross_fields"):
             raise ParsingError(f"[slop] not allowed for type [{mmt}]")
-        if mmt == "bool_prefix" or spec.get("fuzziness") is not None:
-            what = ("type [bool_prefix]" if mmt == "bool_prefix"
-                    else "option [fuzziness]")
-            raise ParsingError(f"[multi_match] query {what} is not "
-                               f"supported by this build")
         return MultiMatchQuery(spec.get("query"), spec.get("fields", []),
-                               mmt, spec.get("operator", "or"))
+                               mmt, spec.get("operator", "or"),
+                               analyzer=spec.get("analyzer"),
+                               minimum_should_match=spec.get(
+                                   "minimum_should_match"),
+                               fuzziness=spec.get("fuzziness"))
     if kind == "range":
         field, v = _single(spec, "range")
         return RangeQuery(field, gte=v.get("gte", v.get("from")),
@@ -1013,6 +1805,28 @@ def parse_query(body: Optional[dict]) -> Query:
         return ExistsQuery(spec["field"])
     if kind == "ids":
         return IdsQuery(spec.get("values", []))
+    if kind == "prefix":
+        field, v = _single(spec, "prefix")
+        return PrefixQuery(field, v.get("value") if isinstance(v, dict)
+                           else v)
+    if kind == "span_multi":
+        # a multi-term query in span position; alone it matches as the
+        # query it wraps
+        return parse_query(spec.get("match") or {"match_all": {}})
+    if kind == "wildcard":
+        field, v = _single(spec, "wildcard")
+        return WildcardQuery(field, (v.get("value") or v.get("wildcard"))
+                             if isinstance(v, dict) else v)
+    if kind == "regexp":
+        field, v = _single(spec, "regexp")
+        return RegexpQuery(field, v.get("value") if isinstance(v, dict)
+                           else v)
+    if kind == "fuzzy":
+        field, v = _single(spec, "fuzzy")
+        if isinstance(v, dict):
+            return FuzzyQuery(field, v.get("value"),
+                              v.get("fuzziness", "AUTO"))
+        return FuzzyQuery(field, v)
     if kind == "bool":
         def clause(name):
             c = spec.get(name, [])
@@ -1029,6 +1843,28 @@ def parse_query(body: Optional[dict]) -> Query:
     if kind == "constant_score":
         return ConstantScoreQuery(parse_query(spec["filter"]),
                                   float(spec.get("boost", 1.0)))
+    if kind == "boosting":
+        return BoostingQuery(parse_query(spec["positive"]),
+                             parse_query(spec["negative"]),
+                             float(spec.get("negative_boost", 0.5)))
+    if kind == "dis_max":
+        return DisMaxQuery([parse_query(q) for q in spec.get("queries", [])],
+                           float(spec.get("tie_breaker", 0.0)))
+    if kind == "function_score":
+        inner = parse_query(spec.get("query", {"match_all": {}}))
+        functions = spec.get("functions")
+        if functions is None:
+            functions = [{k: v for k, v in spec.items()
+                          if k in ("field_value_factor", "weight")}]
+        return FunctionScoreQuery(inner, functions,
+                                  spec.get("boost_mode", "multiply"),
+                                  spec.get("score_mode", "multiply"))
+    if kind == "script_score":
+        from elasticsearch_tpu_torch.search.script_score import (
+            ScriptScoreQuery)
+        return ScriptScoreQuery(
+            parse_query(spec.get("query", {"match_all": {}})),
+            spec.get("script", {}))
     if kind == "knn":
         # the clause's own defaults, the reference's: k 10, num_candidates
         # k (the top-level `knn` defaults k to num_candidates)
@@ -1058,10 +1894,11 @@ def parse_query(body: Optional[dict]) -> Query:
         field, v = _single(spec, kind)
         return queries_ext.WeightedTokensQuery(
             field, dict(v.get("tokens") or {}), float(v.get("boost", 1.0)))
-    if kind in _KNOWN_KINDS:
+    if kind in _LEFT_OUT_KINDS or kind in _KNOWN_KINDS:
+        where = _LEFT_OUT_KINDS.get(kind, "item 15")
         raise ParsingError(
-            f"[{kind}] query is not supported by this build: only "
-            f"[{', '.join(PORTED_KINDS)}] queries are ported")
+            f"[{kind}] query is not supported by this build: it comes "
+            f"with ROADMAP.md queue 1 {where}")
     hint = difflib.get_close_matches(str(kind), _KNOWN_KINDS, n=1)
     suffix = f" did you mean [{hint[0]}]?" if hint else ""
     raise ParsingError(f"unknown query [{kind}]{suffix}")

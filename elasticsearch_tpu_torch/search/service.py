@@ -10,9 +10,10 @@ partial states for a search over several indices), `size`, `from`,
 per-request opt-in or opt-out, read by the node), `post_filter`,
 `min_score`, `rescore`, `sort`, `search_after`, `collapse` (with
 `inner_hits` and a second-level collapse inside them), `highlight`,
-`version`, `seq_no_primary_term`, `stored_fields`, `docvalue_fields` and
-`explain`; the node reads `rank`, `batched_reduce_size` and `profile`
-(`search/profile.py`). `fields`, `track_scores`, `ext`, `stats`,
+`version`, `seq_no_primary_term`, `stored_fields`, `docvalue_fields`,
+`script_fields` (`search/script_score.py`) and `explain`; the node reads
+`rank`, `batched_reduce_size`, `profile` (`search/profile.py`) and
+`suggest` (`search/extras.py`). `fields`, `track_scores`, `ext`, `stats`,
 `max_concurrent_shard_requests`, `pre_filter_shard_size`, `timeout` and
 `terminate_after` are accepted and change nothing, as in the reference (a
 response is never cut short: `timed_out` is false). The keys the
@@ -75,14 +76,18 @@ _SEARCH_BODY_KEYS = {
 }
 # the keys of the reference that this build leaves out, and why
 _NOT_PORTED = {
-    "suggest": "suggesters are not ported",
-    "script_fields": "the script module is not ported",
-    "slice": "sliced scrolls are not ported",
-    "scroll": "scroll contexts are not ported",
-    "pit": "point-in-time readers are not ported",
-    "point_in_time": "point-in-time readers are not ported",
-    "runtime_mappings": "runtime fields are not ported",
-    "indices_boost": "index boosts are not ported",
+    "slice": "sliced scrolls are not ported (ROADMAP.md queue 1 item 3's "
+             "remainder)",
+    "scroll": "scroll contexts are not ported (ROADMAP.md queue 1 item "
+              "3's remainder)",
+    "pit": "point-in-time readers are not ported (ROADMAP.md queue 1 item "
+           "3's remainder)",
+    "point_in_time": "point-in-time readers are not ported (ROADMAP.md "
+                     "queue 1 item 3's remainder)",
+    "runtime_mappings": "runtime fields are not ported (ROADMAP.md queue "
+                        "1 item 3's remainder)",
+    "indices_boost": "index boosts are not ported (ROADMAP.md queue 1 "
+                     "item 3's remainder)",
 }
 _KNN_KEYS = {"field", "query_vector", "k", "num_candidates", "filter",
              "boost"}
@@ -410,8 +415,8 @@ def apply_rescore(ctx: SearchContext, rows, scores, rescore_spec):
 
 def normalize_sort(sort) -> Optional[List[Tuple[str, str, dict]]]:
     """[(field, order, spec)], or None for the score sort (no sort, or
-    `_score` alone). A script sort is a 400 until the script module is
-    ported."""
+    `_score` alone). A `_script` sort sorts by a field of that name, which
+    no document holds, as in the reference."""
     if sort is None:
         return None
     if isinstance(sort, (str, dict)):
@@ -427,9 +432,6 @@ def normalize_sort(sort) -> Optional[List[Tuple[str, str, dict]]]:
                 out.append((item, "asc", {}))
         elif isinstance(item, dict):
             ((field, spec),) = item.items()
-            if field == "_script":
-                raise not_ported("_script", "script sorts need the script "
-                                            "module, which is not ported")
             if isinstance(spec, str):
                 out.append((field, spec, {}))
             else:
@@ -768,6 +770,7 @@ def fetch_hits(ctx: SearchContext, index_name: str, body: dict, rows, scores,
     want_source = source_spec is not False and mapper_service.source_enabled
     includes, excludes = source_patterns(source_spec)
     docvalue_fields = body.get("docvalue_fields") or []
+    script_values = _script_fields(ctx, body.get("script_fields"), rows)
     highlight = body.get("highlight")
     collapse = body.get("collapse")
     sorted_ = normalize_sort(body.get("sort")) is not None
@@ -827,6 +830,10 @@ def fetch_hits(ctx: SearchContext, index_name: str, body: dict, rows, scores,
                                       docvalue_fields, row)
             if fields:
                 hit.setdefault("fields", {}).update(fields)
+        if script_values:
+            sf = hit.setdefault("fields", {})
+            for name, vals in script_values.items():
+                sf[name] = [float(vals[i])]
         if highlight:
             hl = highlight_row(ctx, body, highlight, row)
             if hl:
@@ -840,6 +847,20 @@ def fetch_hits(ctx: SearchContext, index_name: str, body: dict, rows, scores,
                                    "details": []}
         hits.append(hit)
     return hits
+
+
+def _script_fields(ctx: SearchContext, specs, rows) -> Dict[str, Any]:
+    """Each `script_fields` entry's values over the window's rows, one
+    batched evaluation a script (`_score` 0, as in the reference); none
+    without rows."""
+    if not specs or not len(rows):
+        return {}
+    from elasticsearch_tpu_torch.search.script_score import Script
+    rows = np.asarray(rows, dtype=np.int64)
+    zeros = np.zeros(len(rows), dtype=np.float32)
+    return {name: Script(spec.get("script", spec)).evaluate(ctx, rows,
+                                                            zeros)
+            for name, spec in specs.items()}
 
 
 def _docvalue_fields(reader: ShardReader, mapper_service, specs,

@@ -1357,6 +1357,88 @@ def test_search_body_on_cuda_matches_cpu(cuda, monkeypatch, shards):
                 [h["_id"] for h in want["hits"]["hits"]], path
 
 
+_DSL_BODIES = [
+    {"query": {"prefix": {"t": "al"}}, "size": 20},
+    {"query": {"fuzzy": {"t": "alpah"}}, "size": 20},
+    {"query": {"match": {"t": {"query": "gamam zeat", "fuzziness": 2}}}},
+    {"query": {"match_phrase_prefix": {"t": "alpha be"}}},
+    {"query": {"query_string": {"query": "alpha AND beta OR t:ka*"}}},
+    {"query": {"dis_max": {"queries": [{"match": {"t": "eta"}},
+                                       {"wildcard": {"tag": "?ed"}}],
+                           "tie_breaker": 0.2}}},
+    {"query": {"boosting": {"positive": {"match": {"t": "iota"}},
+                            "negative": {"regexp": {"tag": "gr.*"}},
+                            "negative_boost": 0.3}}},
+    {"query": {"function_score": {
+        "query": {"match": {"t": "theta"}},
+        "field_value_factor": {"field": "f", "modifier": "log1p"},
+        "boost_mode": "sum"}}},
+    {"query": {"script_score": {"query": {"exists": {"field": "v"}},
+                                "script": {
+        "source": "cosineSimilarity(params.q, 'v') + doc['n'].value",
+        "params": {"q": [0.25] * 16}}}}, "size": 15},
+    {"query": {"script_score": {"query": {"match": {"t": "alpha"}},
+                                "script": "def s = _score; for (int i = 0;"
+                                          " i < 3; i++) { s += i; } s"}},
+     "script_fields": {"twice": {"script": "doc['n'].value * 2"}}},
+    {"suggest": {"s": {"text": "alpah bta", "term": {"field": "t"}}},
+     "size": 0},
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 2])
+def test_query_dsl_and_scripts_on_cuda_match_cpu(cuda, monkeypatch, shards):
+    """The query DSL, scripts and suggesters of the CPU parity tests on a
+    CUDA node and a CPU node: the host bodies (multi-term kinds,
+    `query_string`, `dis_max`, `boosting`, `function_score`,
+    `script_score` with a vector function and a statement,
+    `script_fields`, a term suggest) byte for byte alike with no launch;
+    `script_score` over a `knn` clause launches the binned kernel once a
+    shard and holds its hits to the CPU node's; then `_update` scripts
+    that delete and rewrite documents: no deleted id in a kNN answer on
+    either node."""
+    pair = _mixed_pair(cuda, monkeypatch, shards, names=("a",))
+    for node, rc in pair:
+        assert _req(rc, "POST", "/a/_forcemerge")[0] == 200
+    (_, grc), (_, crc) = pair
+    for bi, body in enumerate(_DSL_BODIES):
+        dispatch.reset_launches()
+        s1, got = _req(grc, "POST", "/a/_search", body)
+        s2, want = _req(crc, "POST", "/a/_search", body)
+        assert s1 == s2 == 200, (bi, got, want)
+        got.pop("took"), want.pop("took")
+        assert got == want, (bi, _difference(got, want))
+        assert not dispatch.launches().get(kb.KERNEL_BF16), bi
+    for qv in _separated_vectors(crc, ["/a/_search"], 2):
+        body = {"query": {"script_score": {
+            "query": {"knn": {"field": "v", "query_vector": qv, "k": 10,
+                              "num_candidates": 60}},
+            "script": "_score * 2 + doc['f'].value"}}}
+        dispatch.reset_launches()
+        s1, got = _req(grc, "POST", "/a/_search", body)
+        assert s1 == 200, got
+        assert dispatch.launches().get(kb.KERNEL_BF16, 0) == shards
+        _same_hits(got, _req(crc, "POST", "/a/_search", body)[1], 2e-3)
+    victims = [f"a{i}" for i in range(2, 200, 9)][:8]
+    for _, rc in pair:
+        for vid in victims:
+            s, r = _req(rc, "POST", f"/a/_update/{vid}", {"script": {
+                "source": "ctx.op = 'delete'"}})
+            assert s in (200, 404), r
+        s, r = _req(rc, "POST", "/a/_update/a5", {"script": {
+            "source": "ctx._source.v = params.v",
+            "params": {"v": [1.0] + [0.0] * 15}}})
+        assert s == 200, r
+        assert _req(rc, "POST", "/a/_refresh")[0] == 200
+    for rc in (grc, crc):
+        _, resp = _req(rc, "POST", "/a/_search", {"knn": {
+            "field": "v", "query_vector": [1.0] + [0.0] * 15, "k": 10,
+            "num_candidates": 100}, "size": 10})
+        ids = [h["_id"] for h in resp["hits"]["hits"]]
+        assert ids[0] == "a5" and not set(ids) & set(victims), ids
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shards", [1, 2])
 def test_date_and_ip_filtered_knn_on_cuda_matches_cpu(cuda, monkeypatch,

@@ -49,7 +49,9 @@ def test_port_imports_without_jax_or_reference():
                  "segments", "segments.policy", "segments.generation",
                  "segments.generational", "columnar.store", "telemetry",
                  "telemetry.metrics", "telemetry.trace", "node_admin",
-                 "search.profile"):
+                 "search.profile", "script", "script.painless",
+                 "script.service", "script.mustache", "search.script_score",
+                 "search.extras", "rest.actions_script"):
         assert f"elasticsearch_tpu_torch.{name}" in names
     code = (
         "import sys\n"

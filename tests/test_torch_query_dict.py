@@ -2,8 +2,10 @@
 port's `json.dumps(q.to_dict(), sort_keys=True, default=str)` equals the
 reference's string byte for byte (numbers given as strings, `terms` lists,
 `range` with `gt` / `lt` / `format`, `bool` with `minimum_should_match`,
-`match` with `operator`, `sparse_vector` / `weighted_tokens`, the
-`rank_feature` functions, `late_interaction`, `knn` specs), and
+`match` with `operator` and `fuzziness`, `sparse_vector` /
+`weighted_tokens`, the `rank_feature` functions, `late_interaction`, `knn`
+specs, the multi-term kinds, `query_string`, `dis_max`, `boosting`,
+`function_score`, `script_score`), each new kind's `key_is_exact`, and
 equivalent sources share one string, as they share one node query cache
 entry. Then the same `bool` filters through both packages' REST layers at
 1 and 3 shards: the same hits and the same query cache hit and miss
@@ -105,6 +107,74 @@ QUERIES = {
                                           [1.0, 0.0, 0.5, -1.0]]}},
     "late_interaction_flat": {"late_interaction": {
         "field": "colv", "query_tokens": [0.5, 0.25, -0.5, 0.75]}},
+    "prefix": {"prefix": {"title": "al"}},
+    "prefix_value": {"prefix": {"tag": {"value": "ev"}}},
+    "wildcard": {"wildcard": {"title": {"value": "*ta"}}},
+    "wildcard_key": {"wildcard": {"tag": {"wildcard": "?dd"}}},
+    "regexp": {"regexp": {"title": "[ab].*"}},
+    "fuzzy": {"fuzzy": {"title": "alpah"}},
+    "fuzzy_two": {"fuzzy": {"title": {"value": "gamam", "fuzziness": 2}}},
+    "span_multi": {"span_multi": {"match": {"prefix": {"tag": "o"}}}},
+    "match_fuzziness": {"match": {"title": {"query": "alpah",
+                                            "fuzziness": "AUTO"}}},
+    "match_fuzziness_and": {"match": {"title": {
+        "query": "alpah betta", "fuzziness": 1, "operator": "and"}}},
+    "multi_match_bool_prefix": {"multi_match": {
+        "query": "alpha be", "fields": ["title"], "type": "bool_prefix"}},
+    "multi_match_bool_prefix_opts": {"multi_match": {
+        "query": "alpah be", "fields": ["title", "body"],
+        "type": "bool_prefix", "fuzziness": 1,
+        "minimum_should_match": 2}},
+    "match_phrase_prefix": {"match_phrase_prefix": {"title": "alpha g"}},
+    "match_bool_prefix": {"match_bool_prefix": {"title": "beta al"}},
+    "match_bool_prefix_and": {"match_bool_prefix": {"title": {
+        "query": "gamma de", "operator": "and"}}},
+    "query_string": {"query_string": {"query": "alpha OR title:gam*"}},
+    "query_string_fields": {"query_string": {
+        "query": "gamma delta", "fields": ["body"]}},
+    "query_string_and": {"query_string": {
+        "query": "beta delta", "default_operator": "AND"}},
+    "simple_query_string": {"simple_query_string": {"query": "delta"}},
+    "dis_max": {"dis_max": {"queries": [{"term": {"tag": "odd"}},
+                                        {"match": {"title": "beta"}}],
+                            "tie_breaker": 0.5}},
+    "dis_max_lossy": {"dis_max": {"queries": [
+        {"match": {"title": {"query": "delta beta gamma",
+                             "minimum_should_match": 2}}}]}},
+    "boosting": {"boosting": {"positive": {"match": {"title": "alpha"}},
+                              "negative": {"term": {"tag": "odd"}},
+                              "negative_boost": 0.3}},
+    "function_score": {"function_score": {
+        "query": {"match": {"title": "gamma"}},
+        "field_value_factor": {"field": "n", "modifier": "log1p"}}},
+    "function_score_modes": {"function_score": {
+        "query": {"range": {"n": {"gte": 3}}},
+        "functions": [{"weight": 2}, {"field_value_factor": {
+            "field": "pop"}}],
+        "score_mode": "sum", "boost_mode": "replace"}},
+    "script_score": {"script_score": {
+        "query": {"term": {"tag": "even"}},
+        "script": {"source": "doc['n'].value + params.a",
+                   "params": {"a": 2}}}},
+}
+
+# whether each new kind's `to_dict` holds every option that changes its
+# rows or scores: the reference's form keeps only the query text of
+# `query_string` and `match_bool_prefix`, and leaves out `match`'s
+# `fuzziness` and `function_score`'s modes. (Each lossy case above has a
+# text of its own: a clause that shares its form with another is served
+# the other's rows by the reference's query cache.)
+KEY_IS_EXACT = {
+    "prefix": True, "wildcard": True, "regexp": True, "fuzzy_two": True,
+    "span_multi": True, "match_fuzziness": False,
+    "match_fuzziness_and": False, "multi_match_bool_prefix": True,
+    "multi_match_bool_prefix_opts": False, "match_phrase_prefix": True,
+    "match_bool_prefix": True, "match_bool_prefix_and": False,
+    "query_string": True, "query_string_fields": False,
+    "query_string_and": False, "simple_query_string": True,
+    "dis_max": True, "dis_max_lossy": False, "boosting": True,
+    "function_score": True, "function_score_modes": False,
+    "script_score": True,
 }
 
 KNN_SPECS = {
@@ -156,6 +226,11 @@ def test_equivalent_sources_share_one_string(a, b):
     a, b = (QUERIES[x] if isinstance(x, str) else x for x in (a, b))
     assert _canonical(parse_query(a)) == _canonical(parse_query(b))
     assert _canonical(ref_parse(a)) == _canonical(ref_parse(b))
+
+
+@pytest.mark.parametrize("case", sorted(KEY_IS_EXACT))
+def test_key_is_exact(case):
+    assert parse_query(QUERIES[case]).key_is_exact() is KEY_IS_EXACT[case]
 
 
 def test_every_query_class_has_to_dict():

@@ -206,10 +206,15 @@ def test_pagination_and_sources_match_reference(nodes, frm, size):
     {"match_phrase_prefix": {"body": "quick br"}},
 ])
 def test_unported_text_options_are_a_400(nodes, query):
-    _ref_req, port_req = nodes
-    status, resp = port_req("POST", "/t/_search", {"query": query})
-    assert status == 400
-    assert "not supported by this build" in resp["error"]["reason"]
+    """The options once left out (`fuzziness`, `bool_prefix`, `prefix`,
+    `match_phrase_prefix`) are served now: the reference's hits."""
+    ref_req, port_req = nodes
+    body = {"query": query, "size": 20}
+    (s1, want), (s2, got) = (ref_req("POST", "/t/_search", body),
+                             port_req("POST", "/t/_search", body))
+    assert s1 == s2 == 200
+    assert got["hits"]["total"]["value"] > 0
+    _same(want, got)
 
 
 def test_custom_analyzer_settings_match_reference(tmp_path):
