@@ -8,7 +8,8 @@
                           [--binned-only | --ivf-only | --maxsim-only |
                            --sharded-only | --hybrid-only | --sparse-only |
                            --docs-only | --segments-only | --body-only |
-                           --logs-only | --telemetry-only | --dsl-only]
+                           --logs-only | --telemetry-only | --dsl-only |
+                           --search-api-only]
 
 Phases, one line each; any failure raises and the exit code is not 0:
 
@@ -348,6 +349,23 @@ request, which must fall back to the exhaustive corpus
                serve_logs (`dsl_logs`) `prefix` on `request.raw` and
                `query_string` over `status` and `request`, against the
                columns.
+  search_api   rides the serve phases' indices, `[search_api]` lines: on
+               laion (`search_api_laion`) a scroll of 1,000 a page over
+               the aesthetic_gte_6_5 filter (every row once, 67 pages,
+               then an empty one), the same sliced 4 ways (disjoint, the
+               same union), a match_all scroll start (its ms and RSS
+               growth); on sift and sift_b (`search_api_sift`) a `knn`
+               with `indices_boost` (the merge of each index's own top 10
+               with sift_b's doubled, recall@10 against numpy), a
+               `pinned` around a `knn` clause, and a scroll over a copy of
+               sift_b that a write, a delete and a refresh between its
+               pages leave as it was; on msmarco (`search_api_msmarco`)
+               `span_near`, `span_first`, `intervals`, `terms_set`,
+               `wrapper` and `more_like_this`, each total equal to
+               numpy's over the generated tokens; on serve_logs
+               (`search_api_logs`) `geo_distance`, `geo_bounding_box`,
+               `geo_polygon`, `geo_shape`, `distance_feature` on a date
+               and a point, and a `terms` lookup, against the columns.
 
 `--binned-only`, `--ivf-only` and `--maxsim-only` run env, build and one
 kernel phase (no serving, no ok line): the numbers of PERF.md's
@@ -366,7 +384,10 @@ binned, IVF and BM25 builds and the phases that carry the telemetry part
 (below) at the sizes given (no ok line); `--dsl-only` runs env, the
 binned and BM25 builds and the phases that carry the dsl part: serve_hybrid,
 the laion index with its unfiltered requests, and serve_sift's sequential
-requests with serve_documents (no ok line). Every phase drops its indices
+requests with serve_documents (no ok line); `--search-api-only` runs
+env, the binned and BM25 builds, serve_hybrid, the laion index with the
+`[search_api]` part alone, serve_sift's sequential requests with
+serve_documents, and serve_logs (no ok line). Every phase drops its indices
 through `DELETE /{index}`. Each phase's
 wall seconds print as a `[timing]` line.
 
@@ -379,10 +400,13 @@ without one.
 from __future__ import annotations
 
 import argparse
+import base64
+import calendar
 import gc
 import http.client
 import json
 import math
+import os
 import re
 import resource
 import statistics
@@ -2049,8 +2073,9 @@ def _union_checks(client, node, rng, queries, live_of):
     no index give recall@10 against the exact top over the union, each
     hit's `_index` right and `_shards.total` 2, sift on its two exact legs
     and sift_b, merged, on one binned launch a request; `_msearch` of 16 lines
-    equals the 16 single searches. Returns (recall, bf16 launches, the
-    exact legs, the sift_b fields to log)."""
+    equals the 16 single searches; then the `[search_api]` part on both
+    (`search_api_sift`). Returns (recall, bf16 launches, the exact legs,
+    the sift_b fields to log)."""
     from elasticsearch_tpu_torch.ops import dispatch
     from elasticsearch_tpu_torch.ops import knn_binned as kb
     bvecs = clustered(rng, N_SIFT_B, 128)
@@ -2104,6 +2129,10 @@ def _union_checks(client, node, rng, queries, live_of):
         raise AssertionError(f"union: {launches} launches for {n_req} "
                              f"requests over 2 indices, legs (exact, "
                              f"kernel, generations, clean) {counts}")
+    t = time.perf_counter()
+    launches += search_api_sift(client, node, names, live, bvecs, qs[::4])
+    log("timing", step="search_api_sift",
+        seconds=f"{time.perf_counter() - t:.1f}")
     return (float(np.mean(recalls)), launches, counts[0][0], b_fields)
 
 
@@ -3119,7 +3148,8 @@ def filter_cache_line(client, node, svc, store, name, filt, queries,
 
 def phase_serve_filtered(seed: int, n: int, device: str = "cuda",
                          body_only: bool = False,
-                         dsl_only: bool = False) -> dict:
+                         dsl_only: bool = False,
+                         search_api_only: bool = False) -> dict:
     """serve_filtered: BASELINE config 5 (filtered kNN, LAION 512-d CLIP
     embeddings), cut from 5M to `n` (1M) rows for host memory and the
     run's time. A cosine `flat` (bf16) index of 512-d clustered rows (as
@@ -3145,10 +3175,11 @@ def phase_serve_filtered(seed: int, n: int, device: str = "cuda",
     within the exact route's tolerance, unfiltered within one packing
     quantum, as a mixed batch scores them exactly) and a largest batch
     above 1 at C = 8; then the search body's part (`serve_body_laion`)
-    and the scripts of the `[dsl]` part (`dsl_laion`). `body_only` runs
+    and the scripts of the `[dsl]` part (`dsl_laion`), then the scrolls
+    of the `[search_api]` part (`search_api_laion`). `body_only` runs
     the unfiltered requests and the body part alone, `dsl_only` the
-    unfiltered requests and the `[dsl]` part alone. Returns the binned
-    launches."""
+    unfiltered requests and the `[dsl]` part alone, `search_api_only` the
+    `[search_api]` part alone. Returns the binned launches."""
     from elasticsearch_tpu_torch.ops import dispatch
     from elasticsearch_tpu_torch.ops import knn as knn_ops
     from elasticsearch_tpu_torch.ops import knn_binned as kb
@@ -3202,6 +3233,10 @@ def phase_serve_filtered(seed: int, n: int, device: str = "cuda",
         log("serve_filtered", ingest_s=f"{ingest_s:.2f}",
             host_peak_rss_gb=f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.2f}")
 
+        if search_api_only:
+            search_api_laion(client, node, cols)
+            drop_index(client, "laion")
+            return total
         if body_only or dsl_only:
             plain, _ = laion_unfiltered(client, queries)
             total[kb.KERNEL_BF16] += len(queries)
@@ -3385,6 +3420,10 @@ def phase_serve_filtered(seed: int, n: int, device: str = "cuda",
         total[kb.KERNEL_BF16] += dsl_laion(client, svc, vecs, cols, queries,
                                            plain)
         log("timing", step="dsl_laion",
+            seconds=f"{time.perf_counter() - t:.1f}")
+        t = time.perf_counter()
+        search_api_laion(client, node, cols)
+        log("timing", step="search_api_laion",
             seconds=f"{time.perf_counter() - t:.1f}")
         drop_index(client, "laion")
     finally:
@@ -5101,6 +5140,10 @@ def phase_serve_hybrid(seed: int, n: int, device: str = "cuda") -> dict:
         dsl_msmarco(client, name, tokens, doc_of, n)
         log("timing", step="dsl_msmarco",
             seconds=f"{time.perf_counter() - t:.1f}")
+        t = time.perf_counter()
+        search_api_msmarco(client, name, tokens, doc_of, n)
+        log("timing", step="search_api_msmarco",
+            seconds=f"{time.perf_counter() - t:.1f}")
         del tokens, doc_of
 
         # concurrent clients: batch-1 answers exactly, one board a batch
@@ -5301,6 +5344,454 @@ def dsl_msmarco(client, name: str, tokens, doc_of, n: int) -> None:
         raise AssertionError(f"[dsl] suggest of w0x: {options[:3]}")
     fields["suggest_first"] = options[0]["text"]
     log("dsl", **fields)
+
+
+# ----------------------------------------------------------------- search_api
+
+SEARCH_API_FP = "filter_path=_scroll_id,hits.total,hits.hits._id"
+
+
+def _rss_bytes() -> int:
+    """This process's resident set now."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def scroll_ids(client, path: str, body: dict, label: str):
+    """A whole scroll of `body` over `path`, pages of its `size`, only
+    ids and the total read (`filter_path`): (ids in order, the total, the
+    non-empty pages, the start's ms, each later page's ms). The last page
+    must be empty; the context is cleared."""
+    t = time.perf_counter()
+    resp = client.ok("POST", f"{path}?scroll=1m&{SEARCH_API_FP}", body)
+    start_ms = (time.perf_counter() - t) * 1e3
+    total = resp["hits"]["total"]["value"]
+    ids, pages, lat, sid = [], 0, [], resp["_scroll_id"]
+    while True:
+        page = [int(h["_id"]) for h in resp["hits"].get("hits", [])]
+        if not page:
+            break
+        ids += page
+        pages += 1
+        t = time.perf_counter()
+        resp = client.ok("POST", f"/_search/scroll?{SEARCH_API_FP}",
+                         {"scroll_id": sid, "scroll": "1m"})
+        lat.append((time.perf_counter() - t) * 1e3)
+    freed = client.ok("DELETE", "/_search/scroll", {"scroll_id": sid})
+    if freed["num_freed"] != 1:
+        raise AssertionError(f"[search_api] {label}: clear {freed}")
+    return np.asarray(ids, dtype=np.int64), total, pages, start_ms, lat
+
+
+def _expect_once(label: str, ids: np.ndarray, want: np.ndarray) -> None:
+    if len(np.unique(ids)) != len(ids) \
+            or not np.array_equal(np.sort(ids), want):
+        raise AssertionError(f"[search_api] {label}: {len(ids)} ids "
+                             f"({len(np.unique(ids))} distinct) against "
+                             f"numpy's {len(want)}")
+
+
+def search_api_laion(client, node, cols) -> None:
+    """Scroll on laion (serve_filtered's 1M x 512 index): a scroll of
+    1,000 a page over the aesthetic_gte_6_5 filter (66,466 rows) returns
+    every filtered row once, in 67 non-empty pages and then an empty one;
+    a scroll sliced 4 ways (more slices than the index's one shard: each
+    `_id`'s murmur3 hash) gives disjoint slices whose union is the same
+    set; a `match_all` scroll start over every row. Logs one
+    `[search_api] part=laion` line: the start's ms and the later pages'
+    p50 (host clock), the slice hashing's ms over the index's ids, and the
+    match_all start's ms, the process's RSS growth and the bytes of the
+    context's arrays."""
+    from elasticsearch_tpu_torch.search import service as search_service
+    rows = np.nonzero(cols["aesthetic"] >= 6.5)[0]
+    body = {"query": {"bool": {"filter": [
+        {"range": {"aesthetic": {"gte": 6.5}}}]}}, "size": 1000}
+    fields: dict = {"part": "laion", "filter_rows": len(rows)}
+    ids, total, pages, start_ms, lat = scroll_ids(
+        client, "/laion/_search", body, "scroll")
+    _expect_once("scroll", ids, rows)
+    if total != len(rows) or pages != -(-len(rows) // 1000):
+        raise AssertionError(f"[search_api] scroll: total {total}, "
+                             f"{pages} pages")
+    fields.update(scroll_pages=pages, scroll_start_ms=f"{start_ms:.3f}",
+                  scroll_page_p50_ms=f"{statistics.median(lat):.3f}")
+    reader = node.index("laion").combined_reader()
+    t = time.perf_counter()
+    for view in reader.views:
+        search_service.term_hashes(view.segment.ids)
+    fields["slice_hash_ms"] = f"{(time.perf_counter() - t) * 1e3:.3f}"
+    seen, starts = [], []
+    for sid in range(4):
+        part, _, _, s_ms, _ = scroll_ids(
+            client, "/laion/_search", dict(body, slice={"id": sid,
+                                                        "max": 4}),
+            f"slice {sid}")
+        seen.append(part)
+        starts.append(s_ms)
+    _expect_once("slices", np.concatenate(seen), rows)
+    fields["slice_sizes"] = "/".join(str(len(p)) for p in seen)
+    fields["slice_start_ms"] = "/".join(f"{s:.3f}" for s in starts)
+    rss0 = _rss_bytes()
+    t = time.perf_counter()
+    resp = client.ok("POST", f"/laion/_search?scroll=1m&{SEARCH_API_FP}",
+                     {"size": 1000})
+    fields["match_all_start_ms"] = f"{(time.perf_counter() - t) * 1e3:.3f}"
+    fields["match_all_rss_mb"] = f"{(_rss_bytes() - rss0) / 2**20:.1f}"
+    fields["match_all_context_mb"] = f"{node.scrolls.nbytes() / 2**20:.1f}"
+    if resp["hits"]["total"]["value"] != len(cols["aesthetic"]) \
+            or len(resp["hits"]["hits"]) != 1000:
+        raise AssertionError(f"[search_api] match_all: {resp['hits']}")
+    client.ok("DELETE", "/_search/scroll/_all")
+    log("search_api", **fields)
+
+
+def search_api_sift(client, node, names, live, bvecs, qs) -> int:
+    """`indices_boost`, `pinned` and a pinned scroll on sift (1M x 128,
+    after serve_documents' writes: its exact legs) and sift_b (65,536+ x
+    128, one clean generation after `_forcemerge`): a `knn` over
+    `sift,sift_b` with `indices_boost: [{"sift_b": 2.0}]` is the stable
+    merge by score of each index's own top 10, sift_b's scores doubled,
+    and holds recall@10 >= 0.95 against numpy's merge of the two exact
+    top 10s (each score within 2e-3 of numpy's); a `pinned` of three ids
+    around a `knn` clause on sift returns them first, in order, then the
+    `knn` body's own hits and scores; a scroll over a copy of sift_b does
+    not see a write, a delete and a refresh made between its pages.
+    Logs one `[search_api] part=sift` line; returns the bf16 binned
+    launches (one a request that reaches sift_b's clean generation)."""
+    from elasticsearch_tpu_torch.ops import dispatch
+    from elasticsearch_tpu_torch.ops import knn_binned as kb
+    fields: dict = {"part": "sift", "requests_a_body": len(qs)}
+    bnames = [f"b{i}" for i in range(len(bvecs))]
+
+    def unit(m):
+        return m / np.linalg.norm(m, axis=1, keepdims=True)
+
+    ul, ub = unit(live), unit(bvecs)
+    dispatch.reset_launches()
+    lat, recalls = [], []
+    for qi, qv in enumerate(qs):
+        body = dict(knn_body("vec", qv), indices_boost=[{"sift_b": 2.0}])
+        t = time.perf_counter()
+        resp = client.ok("POST", "/sift,sift_b/_search", body)
+        lat.append((time.perf_counter() - t) * 1e3)
+        a = client.ok("POST", "/sift/_search",
+                      knn_body("vec", qv))["hits"]["hits"]
+        b = client.ok("POST", "/sift_b/_search",
+                      knn_body("vec", qv))["hits"]["hits"]
+        merged = sorted([(h["_score"], 0, j, h["_id"])
+                         for j, h in enumerate(a)]
+                        + [(2 * h["_score"], 1, j, h["_id"])
+                           for j, h in enumerate(b)],
+                        key=lambda e: (-e[0], e[1], e[2]))[:10]
+        hits = resp["hits"]["hits"]
+        if [h["_id"] for h in hits] != [e[3] for e in merged] or any(
+                abs(h["_score"] - e[0]) > 1e-9 for h, e in zip(hits, merged)):
+            raise AssertionError(f"[search_api] boost {qi}: {hits} against "
+                                 f"{merged}")
+        q = qv / np.linalg.norm(qv)
+        sa = (1 + ul @ q) / 2
+        sb = 2 * (1 + ub @ q) / 2
+        ta, tb = np.argsort(-sa)[:10], np.argsort(-sb)[:10]
+        cand = sorted([(sa[i], names[i]) for i in ta]
+                      + [(sb[i], bnames[i]) for i in tb], reverse=True)[:10]
+        truth = {nm: s for s, nm in cand}
+        for h in hits:
+            ref = truth.get(h["_id"])
+            if ref is not None and abs(h["_score"] - ref) > 2e-3:
+                raise AssertionError(f"[search_api] boost {qi}: {h} "
+                                     f"against numpy {ref}")
+        recalls.append(len(set(truth) & {h["_id"] for h in hits}) / 10)
+    recall = float(np.mean(recalls))
+    launched = dispatch.launches().get(kb.KERNEL_BF16, 0)
+    if recall < 0.95 or launched != 2 * len(qs):
+        raise AssertionError(f"[search_api] boost: recall@10 {recall}, "
+                             f"{launched} launches")
+    fields.update(boost_p50_ms=f"{statistics.median(lat):.3f}",
+                  boost_recall_at_10=recall)
+    launches = launched
+    pins = [names[7], names[len(names) // 2], names[3]]
+    lat = []
+    for qi, qv in enumerate(qs):
+        organic = {"field": "vec", "query_vector": qv.tolist(), "k": 10,
+                   "num_candidates": 100}
+        t = time.perf_counter()
+        resp = client.ok("POST", "/sift/_search", {"query": {"pinned": {
+            "ids": pins, "organic": {"knn": organic}}}, "size": 13,
+            "_source": False})
+        lat.append((time.perf_counter() - t) * 1e3)
+        plain = client.ok("POST", "/sift/_search", dict(
+            knn_body("vec", qv), _source=False))["hits"]["hits"]
+        hits = resp["hits"]["hits"]
+        rest = [(h["_id"], h["_score"]) for h in plain
+                if h["_id"] not in pins]
+        if [h["_id"] for h in hits[:3]] != pins \
+                or [h["_id"] for h in hits[3:]] != [r[0] for r in rest] \
+                or any(abs(h["_score"] - r[1]) > 1e-6
+                       for h, r in zip(hits[3:], rest)) \
+                or not hits[0]["_score"] > hits[1]["_score"] \
+                > hits[2]["_score"] > hits[3]["_score"]:
+            raise AssertionError(f"[search_api] pinned {qi}: {hits} "
+                                 f"against {plain}")
+    fields["pinned_p50_ms"] = f"{statistics.median(lat):.3f}"
+    # a copy of sift_b: the later phases read sift_b as it is
+    client.ok("PUT", "/sift_b_scroll", {
+        "settings": {"number_of_shards": 1}, "mappings": {"properties": {
+            "vec": {"type": "dense_vector", "dims": 128,
+                    "similarity": "cosine"}}}})
+    node.index("sift_b_scroll").index_many(
+        [str(i) for i in range(len(bvecs))], vectors={"vec": bvecs})
+    client.ok("POST", "/sift_b_scroll/_refresh")
+    path = "/sift_b_scroll/_search"
+    t = time.perf_counter()
+    resp = client.ok("POST", f"{path}?scroll=1m&{SEARCH_API_FP}",
+                     {"size": 1000})
+    start_ms = (time.perf_counter() - t) * 1e3
+    sid = resp["_scroll_id"]
+    ids = [int(h["_id"]) for h in resp["hits"]["hits"]]
+    ops = []
+    for i in range(100):
+        ops += [{"index": {"_id": str(len(bvecs) + i)}},
+                {"vec": bvecs[i].tolist()},
+                {"delete": {"_id": str(len(bvecs) - 1 - i)}}]
+    if client.ok("POST", "/sift_b_scroll/_bulk", ops, ndjson=True)["errors"]:
+        raise AssertionError("[search_api] scroll copy: bulk errors")
+    client.ok("POST", "/sift_b_scroll/_refresh")
+    lat = []
+    while True:
+        t = time.perf_counter()
+        resp = client.ok("POST", f"/_search/scroll?{SEARCH_API_FP}",
+                         {"scroll_id": sid})
+        lat.append((time.perf_counter() - t) * 1e3)
+        page = [int(h["_id"]) for h in resp["hits"].get("hits", [])]
+        if not page:
+            break
+        ids += page
+    _expect_once("scroll across a write", np.asarray(ids),
+                 np.arange(len(bvecs)))
+    if client.ok("POST", "/sift_b_scroll/_count")["count"] != len(bvecs):
+        raise AssertionError("[search_api] scroll copy: count after writes")
+    client.ok("DELETE", "/_search/scroll", {"scroll_id": sid})
+    drop_index(client, "sift_b_scroll")
+    fields.update(pinned_scroll_docs=len(bvecs),
+                  pinned_scroll_start_ms=f"{start_ms:.3f}",
+                  pinned_scroll_page_p50_ms=f"{statistics.median(lat):.3f}")
+    log("search_api", **fields)
+    return launches
+
+
+def search_api_msmarco(client, name: str, tokens, doc_of, n: int) -> None:
+    """The position kinds, `terms_set`, `wrapper` and `more_like_this` on
+    msmarco (serve_hybrid's 262,144 passages of Zipf words `w<rank>`):
+    `span_near` (two frequent words, slop 2, in order), `span_first` (end
+    3), `intervals` (`match`, `ordered`, `max_gaps` 1), `terms_set` (at
+    least `params.num_terms - 2` of four words), `wrapper` (a base64
+    `match`): each total equal to the count over the generated token
+    arrays (a token's position is its index in its passage; torch on the
+    arrays' device), its first page in the reference's order;
+    `more_like_this` of one passage's `_id` equal to the `bool.should` of
+    the words selected there by the reference's tf * idf rule (tf >= 2,
+    df >= 5, the top 25, 30% of them to match), less the liked passage.
+    Logs one `[search_api] part=msmarco` line of HTTP p50s (DSL_REQUESTS
+    each) and the oracle's seconds."""
+    tok, doc = tokens.long(), doc_of.long()
+    fields: dict = {"part": "msmarco", "docs": n,
+                    "requests_a_body": DSL_REQUESTS}
+
+    def host(t) -> np.ndarray:
+        return t.cpu().numpy()
+
+    def after(ra: int, rb: int, offsets) -> np.ndarray:
+        """Passages holding rb at one of `offsets` positions after ra."""
+        out = [doc[:0]]
+        for d in offsets:
+            hit = (tok[:-d] == ra) & (tok[d:] == rb) & (doc[:-d] == doc[d:])
+            out.append(doc[:-d][hit])
+        return host(torch.unique(torch.cat(out)))
+
+    def docs_with(r: int) -> np.ndarray:
+        return host(torch.unique(doc[tok == r]))
+
+    t_oracle = time.perf_counter()
+    # the arrays on the card: each token's passage, its position there
+    bounds = torch.searchsorted(doc, torch.arange(n + 1, device=doc.device))
+    pos = torch.arange(len(tok), device=tok.device) - bounds[doc]
+    four = [10, 11, 12, 13]
+    counts = np.bincount(np.concatenate([docs_with(r) for r in four]),
+                         minlength=n)
+    wrapped = {"match": {"body": "w20 w21"}}
+    bodies = [
+        ("span_near", {"span_near": {"clauses": [
+            {"span_term": {"body": "w3"}}, {"span_term": {"body": "w5"}}],
+            "slop": 2, "in_order": True}}, after(3, 5, (1, 2, 3))),
+        ("span_first", {"span_first": {"match": {"span_term": {
+            "body": "w4"}}, "end": 3}},
+         host(torch.unique(doc[(tok == 4) & (pos <= 2)]))),
+        ("intervals", {"intervals": {"body": {"match": {
+            "query": "w6 w9", "ordered": True, "max_gaps": 1}}}},
+         after(6, 9, (1, 2))),
+        ("terms_set", {"terms_set": {"body": {
+            "terms": [f"w{r}" for r in four],
+            "minimum_should_match_script": {
+                "source": "params.num_terms - 2"}}}},
+         np.nonzero(counts >= 2)[0]),
+        ("wrapper", {"wrapper": {"query": base64.b64encode(
+            json.dumps(wrapped).encode()).decode()}},
+         np.union1d(docs_with(20), docs_with(21))),
+    ]
+    # more_like_this: the first passage with three words of tf >= 2
+    pairs = torch.unique(doc * MSMARCO_VOCAB + tok)
+    df = host(torch.bincount(pairs % MSMARCO_VOCAB,
+                             minlength=MSMARCO_VOCAB))
+    head = host(tok[:bounds[min(n, 4096)]])
+    cut = host(bounds[:min(n, 4096) + 1])
+    liked = -1
+    for d in range(len(cut) - 1):
+        words, tf = np.unique(head[cut[d]:cut[d + 1]], return_counts=True)
+        if ((tf >= 2) & (df[words] >= 5)).sum() >= 3:
+            liked = d
+            break
+    scored = sorted(((float(f) * math.log(1 + (n - df[w] + 0.5)
+                                          / (df[w] + 0.5)), "body", f"w{w}")
+                     for w, f in zip(words.tolist(), tf.tolist())
+                     if f >= 2 and df[w] >= 5), reverse=True)[:25]
+    chosen = [int(t[2][1:]) for t in scored]
+    hits_of = np.bincount(np.concatenate([docs_with(r) for r in chosen]),
+                          minlength=n)
+    need = max((len(chosen) * 30) // 100, 1)
+    mlt = np.nonzero(hits_of >= need)[0]
+    bodies.append(("more_like_this", {"more_like_this": {
+        "fields": ["body"], "like": [{"_id": str(liked)}]}},
+        mlt[mlt != liked]))
+    fields["mlt_terms"] = len(chosen)
+    fields["oracle_s"] = f"{time.perf_counter() - t_oracle:.1f}"
+    for label, query, want_docs in bodies:
+        resp = dsl_timed(client, f"/{name}/_search", label, {
+            "query": query, "size": 10, "track_total_hits": True,
+            "_source": False}, fields)
+        hits = resp["hits"]
+        got = [int(h["_id"]) for h in hits["hits"]]
+        if hits["total"] != {"value": len(want_docs), "relation": "eq"} \
+                or len(got) != min(10, len(want_docs)) \
+                or not np.isin(got, want_docs).all():
+            raise AssertionError(f"[search_api] {label}: total "
+                                 f"{hits['total']}, hits {got}; numpy "
+                                 f"{len(want_docs)}")
+        _page_in_order(label, hits["hits"])
+        fields[f"{label}_total"] = len(want_docs)
+    log("search_api", **fields)
+
+
+def search_api_logs(client, cols: dict) -> None:
+    """The geo queries, `distance_feature` and a `terms` lookup on
+    serve_logs (100,000 lines; `geoip.location` a `geo_point`, the 5% of
+    lines without `geoip` holding none): `geo_distance` (200 km around
+    Paris), `geo_bounding_box`, `geo_polygon` and `geo_shape` (an
+    envelope) each with numpy's total and first page (every hit scores 1,
+    so rows ascend); `distance_feature` on `@timestamp` (pivot 7 days)
+    and on `geoip.location` (pivot 300 km): the top 10 numpy's (ties by
+    row) and scores within 1e-5; a `terms` lookup through one stored
+    document equal to the `terms` query written out. Logs one
+    `[search_api] part=logs` line of HTTP p50s (DSL_REQUESTS each)."""
+    city = cols["city"]
+    has = city >= 0
+    table = np.asarray([(c[2], c[3]) for c in LOGS_CITIES])
+    lat = np.where(has, table[np.maximum(city, 0), 0], np.nan)
+    lon = np.where(has, table[np.maximum(city, 0), 1], np.nan)
+
+    def haversine(lat0, lon0):
+        p1, p2 = np.radians(lat), np.radians(lat0)
+        a = (np.sin((p2 - p1) / 2) ** 2 + np.cos(p1) * np.cos(p2)
+             * np.sin(np.radians(lon0 - lon) / 2) ** 2)
+        return 2 * 6371008.8 * np.arcsin(np.sqrt(np.clip(a, 0, 1)))
+
+    def inside(points) -> np.ndarray:
+        out = np.zeros(len(lat), dtype=bool)
+        for (y1, x1), (y2, x2) in zip(points, points[1:] + points[:1]):
+            with np.errstate(invalid="ignore"):
+                cross = (y1 > lat) != (y2 > lat)
+                xint = (x2 - x1) * (lat - y1) / (y2 - y1 + 1e-300) + x1
+                out ^= cross & (lon < xint)
+        return out & has
+
+    fields: dict = {"part": "logs", "lines": len(city),
+                    "requests_a_body": DSL_REQUESTS}
+    paris = LOGS_CITIES[0]
+    poly = [(55.0, -5.0), (55.0, 15.0), (38.0, 5.0)]
+    with np.errstate(invalid="ignore"):
+        masks = [
+            ("geo_distance", {"geo_distance": {
+                "distance": "200km", "geoip.location": {
+                    "lat": paris[2], "lon": paris[3]}}},
+             has & (haversine(paris[2], paris[3]) <= 200_000)),
+            ("geo_bounding_box", {"geo_bounding_box": {"geoip.location": {
+                "top_left": {"lat": 53.0, "lon": -1.0},
+                "bottom_right": {"lat": 45.0, "lon": 14.0}}}},
+             has & (lat <= 53) & (lat >= 45) & (lon >= -1) & (lon <= 14)),
+            ("geo_polygon", {"geo_polygon": {"geoip.location": {
+                "points": [{"lat": a, "lon": b} for a, b in poly]}}},
+             inside(poly)),
+            ("geo_shape", {"geo_shape": {"geoip.location": {"shape": {
+                "type": "envelope",
+                "coordinates": [[-10.0, 55.0], [20.0, 40.0]]}}}},
+             has & (lon >= -10) & (lon <= 20) & (lat >= 40) & (lat <= 55)),
+        ]
+    for label, query, mask in masks:
+        resp = dsl_timed(client, "/logs/_search", label, {
+            "query": query, "size": 10, "track_total_hits": True,
+            "_source": False}, fields)
+        got = [int(h["_id"]) for h in resp["hits"]["hits"]]
+        if resp["hits"]["total"]["value"] != int(mask.sum()) \
+                or got != _top_rows(mask):
+            raise AssertionError(f"[search_api] {label}: "
+                                 f"{resp['hits']['total']} {got}; numpy "
+                                 f"{int(mask.sum())} {_top_rows(mask)}")
+        fields[f"{label}_total"] = int(mask.sum())
+    origin = "1998-06-10T12:00:00Z"
+    origin_ms = calendar.timegm((1998, 6, 10, 12, 0, 0)) * 1000
+    pivot_ms = 7 * 86_400 * 1000.0
+    ts_score = (pivot_ms / (pivot_ms + np.abs(cols["ts"] * 1000.0
+                                              - origin_ms))
+                ).astype(np.float32)
+    pivot_m = 300_000.0
+    with np.errstate(invalid="ignore"):
+        geo_score = (pivot_m / (pivot_m + haversine(47.0, 3.0))
+                     ).astype(np.float32)
+    for label, query, score, keep in (
+            ("distance_feature_date", {"distance_feature": {
+                "field": "@timestamp", "origin": origin, "pivot": "7d"}},
+             ts_score, np.ones(len(city), dtype=bool)),
+            ("distance_feature_geo", {"distance_feature": {
+                "field": "geoip.location", "origin": {"lat": 47.0,
+                                                      "lon": 3.0},
+                "pivot": "300km"}}, geo_score, has)):
+        resp = dsl_timed(client, "/logs/_search", label, {
+            "query": query, "size": 10, "_source": False}, fields)
+        rows = np.nonzero(keep)[0]
+        order = rows[np.lexsort((rows, -score[rows]))][:10]
+        hits = resp["hits"]["hits"]
+        if [int(h["_id"]) for h in hits] != order.tolist() or any(
+                abs(h["_score"] - float(score[r])) > 1e-5
+                for h, r in zip(hits, order)):
+            raise AssertionError(f"[search_api] {label}: {hits} against "
+                                 f"{order} {score[order]}")
+    client.ok("PUT", "/logs_lookup/_doc/1?refresh=true",
+              {"cities": ["Tokyo", "Rome"]})
+    written = {"terms": {"geoip.city_name": ["Tokyo", "Rome"]}}
+    lookup = {"terms": {"geoip.city_name": {
+        "index": "logs_lookup", "id": "1", "path": "cities"}}}
+    want = client.ok("POST", "/logs/_search", {
+        "query": written, "track_total_hits": True})
+    got = dsl_timed(client, "/logs/_search", "terms_lookup", {
+        "query": lookup, "track_total_hits": True}, fields)
+    tokyo_rome = int(np.isin(city, [6, 10]).sum())
+    want.pop("took", None)
+    if got != want or got["hits"]["total"]["value"] != tokyo_rome:
+        raise AssertionError(f"[search_api] terms lookup: "
+                             f"{got['hits']['total']} against "
+                             f"{want['hits']['total']}, numpy {tokyo_rome}")
+    fields["terms_lookup_total"] = tokyo_rome
+    drop_index(client, "logs_lookup")
+    log("search_api", **fields)
 
 
 def _highlight_spans(label: str, frag: str, text: str):
@@ -6718,6 +7209,10 @@ def phase_serve_logs(seed: int, n: int, device: str = "cuda",
             seconds=f"{time.perf_counter() - t:.1f}")
         telemetry_logs(client, node)
         dsl_logs(client, cols, paths)
+        t = time.perf_counter()
+        search_api_logs(client, cols)
+        log("timing", step="search_api_logs",
+            seconds=f"{time.perf_counter() - t:.1f}")
         for name in ["logs", *parts]:
             drop_index(client, name)
         logs_dynamic(client, seed, n_dynamic)
@@ -7070,6 +7565,14 @@ def main(argv=None) -> int:
                          "at --n-laion with its unfiltered requests, "
                          "serve_sift's sequential requests and "
                          "serve_documents at --n-sift; no final ok line)")
+    ap.add_argument("--search-api-only", action="store_true",
+                    help="build the binned and BM25 kernels and run only "
+                         "the phases that carry the [search_api] part "
+                         "(serve_hybrid at --n-msmarco, the laion index "
+                         "at --n-laion and the part alone, serve_sift's "
+                         "sequential requests and serve_documents at "
+                         "--n-sift, serve_logs at --n-logs; no final ok "
+                         "line)")
     ap.add_argument("--n-sparse", type=int, default=N_SPARSE)
     ap.add_argument("--sparse-only", action="store_true",
                     help="build, check bm25_board (the BM25 and the "
@@ -7137,6 +7640,16 @@ def main(argv=None) -> int:
               dsl_only=True)
         timed("serve_documents", phase_serve, args.seed, args.n_sift, 0,
               docs_only=True)
+        return 0
+    if args.search_api_only:
+        phase_build(["knn_binned", "bm25"])
+        timed("serve_hybrid", phase_serve_hybrid, args.seed,
+              args.n_msmarco)
+        timed("search_api_laion", phase_serve_filtered, args.seed,
+              args.n_laion, search_api_only=True)
+        timed("serve_documents", phase_serve, args.seed, args.n_sift, 0,
+              docs_only=True)
+        timed("serve_logs", phase_serve_logs, args.seed, args.n_logs)
         return 0
     if args.body_only:
         phase_build(["knn_binned"])

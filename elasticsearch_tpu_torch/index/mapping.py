@@ -22,7 +22,8 @@ as their term and doc value; `ip` stores an address in the 128-bit IPv6
 space (IPv4 as `::ffff:a.b.c.d`); the doc-values columns hold all three
 as float64 as the reference's do, so a date_nanos past 2^53 ns and an
 IPv6 address lose the same low bits in both. `geo_point` keeps its (lat,
-lon) as a doc value (no geo query is ported). The six range types keep
+lon) as a doc value, `geo_shape` its parsed shape and bounding envelope
+(GeoJSON or WKT), which the geo queries read. The six range types keep
 each value as an inclusive interval {gte, lte} that `term` and `range`
 (`relation`) scan. `rank_feature` (a positive float,
 `positive_score_impact`) keeps its value as a doc value; `rank_features`
@@ -507,6 +508,99 @@ class GeoPointFieldMapper(FieldMapper):
         return self.coerce(value)
 
 
+class GeoShapeFieldMapper(FieldMapper):
+    """`geo_shape`: a GeoJSON geometry (a `geometrycollection` of them) or
+    a WKT string (`parse_wkt`), kept as {shape, envelope}: the shape as
+    parsed and its bounding envelope (`shape_envelope`), which the
+    `geo_shape` query relates, as the reference does."""
+
+    type_name = "geo_shape"
+
+    def coerce(self, value) -> dict:
+        shape = self._parse_shape(value)
+        return {"shape": shape, "envelope": shape_envelope(shape)}
+
+    def _parse_shape(self, value) -> dict:
+        if isinstance(value, dict) and "type" in value:
+            t = str(value["type"]).lower()
+            if t == "geometrycollection":
+                return {"type": "geometrycollection",
+                        "geometries": [self._parse_shape(g) for g in
+                                       value.get("geometries", [])]}
+            if "coordinates" not in value:
+                raise MapperParsingError(
+                    f"[{self.name}] geo_shape requires [coordinates]")
+            return {"type": t, "coordinates": value["coordinates"]}
+        if isinstance(value, str):
+            return parse_wkt(value, self.name)
+        raise MapperParsingError(
+            f"[{self.name}] failed to parse geo_shape value [{value}]")
+
+    def doc_value(self, value):
+        return self.coerce(value)
+
+
+def shape_envelope(shape: dict) -> Tuple[float, float, float, float]:
+    """(min_lon, min_lat, max_lon, max_lat) of a parsed shape."""
+    if shape["type"] == "geometrycollection":
+        envs = [shape_envelope(g) for g in shape["geometries"]]
+        return (min(e[0] for e in envs), min(e[1] for e in envs),
+                max(e[2] for e in envs), max(e[3] for e in envs))
+    coords = shape["coordinates"]
+    if shape["type"] == "envelope":
+        # [[min_lon, max_lat], [max_lon, min_lat]], the envelope's order
+        (min_lon, max_lat), (max_lon, min_lat) = coords
+        return (float(min_lon), float(min_lat), float(max_lon),
+                float(max_lat))
+    pts = list(_iter_positions(coords))
+    if not pts:
+        raise MapperParsingError("geo_shape has no coordinates")
+    lons = [p[0] for p in pts]
+    lats = [p[1] for p in pts]
+    return (min(lons), min(lats), max(lons), max(lats))
+
+
+def _iter_positions(coords):
+    """Every (lon, lat) position of nested coordinate arrays."""
+    if isinstance(coords, (list, tuple)):
+        if len(coords) >= 2 and all(
+                isinstance(c, (int, float)) for c in coords[:2]):
+            yield float(coords[0]), float(coords[1])
+        else:
+            for c in coords:
+                yield from _iter_positions(c)
+
+
+def parse_wkt(s: str, field: str = "") -> dict:
+    """WKT `POINT`, `ENVELOPE` (min_lon, max_lon, max_lat, min_lat),
+    `LINESTRING` and `POLYGON` as a parsed shape."""
+    m = re.match(r"\s*(\w+)\s*\((.*)\)\s*$", s, re.DOTALL)
+    if not m:
+        raise MapperParsingError(f"[{field}] failed to parse WKT [{s}]")
+    kind = m.group(1).upper()
+    body = m.group(2)
+
+    def pts(text):
+        out = []
+        for pair in text.split(","):
+            xy = pair.split()
+            out.append([float(xy[0]), float(xy[1])])
+        return out
+
+    if kind == "POINT":
+        return {"type": "point", "coordinates": pts(body)[0]}
+    if kind == "ENVELOPE":
+        v = [float(x) for x in body.split(",")]
+        return {"type": "envelope",
+                "coordinates": [[v[0], v[2]], [v[1], v[3]]]}
+    if kind == "LINESTRING":
+        return {"type": "linestring", "coordinates": pts(body)}
+    if kind == "POLYGON":
+        rings = re.findall(r"\(([^()]*)\)", body)
+        return {"type": "polygon", "coordinates": [pts(r) for r in rings]}
+    raise MapperParsingError(f"[{field}] unsupported WKT type [{kind}]")
+
+
 class ObjectMapper(FieldMapper):
     """`object`: a path whose properties are fields of their own; it
     indexes nothing itself."""
@@ -849,16 +943,18 @@ FIELD_TYPES = {m.type_name: m for m in (
     ShortFieldMapper, ByteFieldMapper, DoubleFieldMapper, FloatFieldMapper,
     HalfFloatFieldMapper, ScaledFloatFieldMapper, BooleanFieldMapper,
     DateFieldMapper, DateNanosFieldMapper, IpFieldMapper, GeoPointFieldMapper,
-    ObjectMapper, DenseVectorFieldMapper, RankVectorsFieldMapper,
-    RankFeatureFieldMapper, RankFeaturesFieldMapper, SparseVectorFieldMapper,
+    GeoShapeFieldMapper, ObjectMapper, DenseVectorFieldMapper,
+    RankVectorsFieldMapper, RankFeatureFieldMapper, RankFeaturesFieldMapper,
+    SparseVectorFieldMapper,
     IntegerRangeFieldMapper, LongRangeFieldMapper, FloatRangeFieldMapper,
     DoubleRangeFieldMapper, DateRangeFieldMapper, IpRangeFieldMapper,
     CompletionFieldMapper)}
 
 # mappers whose one value is a JSON object (or an array of them), not an
 # object of fields
-_OBJECT_VALUED = (GeoPointFieldMapper, RangeFieldMapperBase,
-                  RankFeaturesFieldMapper, CompletionFieldMapper)
+_OBJECT_VALUED = (GeoPointFieldMapper, GeoShapeFieldMapper,
+                  RangeFieldMapperBase, RankFeaturesFieldMapper,
+                  CompletionFieldMapper)
 
 
 def build_mapper(name: str, definition: dict,

@@ -61,7 +61,7 @@ class DocValuesColumn:
     value) with its `present` mask; else `numeric` is None and `present`
     marks the docs holding a value."""
 
-    __slots__ = ("values", "numeric", "present", "multi")
+    __slots__ = ("values", "numeric", "present", "multi", "derived")
 
     def __init__(self, values: np.ndarray, numeric: Optional[np.ndarray],
                  present: np.ndarray, multi: Optional[np.ndarray] = None):
@@ -70,6 +70,9 @@ class DocValuesColumn:
         self.present = present
         # numeric columns: the docs holding a list of values
         self.multi = multi
+        # views made from the values at their first use and kept with the
+        # sealed column: the geo queries' (lat, lon) and envelope arrays
+        self.derived: Dict[str, Any] = {}
 
     @classmethod
     def build(cls, n: int, locals_: np.ndarray,
@@ -301,7 +304,8 @@ class Segment:
     # the segment weakly, so its blocks go with the segment
     __slots__ = ("seg_id", "base", "num_docs", "ids", "sources", "vectors",
                  "tokens", "postings", "doc_values", "routings",
-                 "field_lengths", "total_terms", "seq_nos", "__weakref__")
+                 "field_lengths", "total_terms", "seq_nos", "derived",
+                 "__weakref__")
 
     def __init__(self, seg_id: int, base: int, ids: List[str],
                  sources: List[Optional[dict]],
@@ -331,6 +335,9 @@ class Segment:
         self.total_terms = {f: int(fl.sum())
                             for f, fl in self.field_lengths.items()}
         self.seq_nos = seq_nos          # int64 [num_docs], or None
+        # views of the ids made at their first use and kept with the
+        # segment (a combined reader's copy shares them): the slice hashes
+        self.derived: Dict[str, Any] = {}
 
     def get_postings(self, field: str, term: str) -> Optional[Postings]:
         f = self.postings.get(field)

@@ -61,9 +61,20 @@ template (`script/mustache.py`) and searches with it. The node's
 and `search.allow_expensive_queries` (a node setting, on unless "false")
 reaches every search context.
 
-Left out, as ROADMAP.md lists: aliases, closed and hidden indices and
-date math in expressions (queue 1 item 15), and hybrid bodies over
-several indices (each a 400)."""
+Scroll, slices, boosts and lookups: `search_scroll_start` runs each
+index's query phase over every matching row on a reader its context
+pins (`node_admin.ScrollService`) and pages the merged order from there;
+`indices_boost` multiplies each index's scores before the merge (its
+hits' `_score`, the merge key and `max_score`); a `terms` lookup in a
+body's `query` or `aggs` is inlined from the stored document before any
+index runs (`_rewrite_terms_lookup`: `search`, both hybrid paths,
+`count`, `_msearch` and the scroll start); `open_point_in_time` keeps
+readers under an id (`node_admin.PointInTimeService`), which no search
+reads, as in the reference.
+
+Left out, as ROADMAP.md lists: aliases and closed indices (queue 1 item
+15), hidden indices and date math in expressions (item 16), and hybrid
+bodies over several indices (each a 400)."""
 
 from __future__ import annotations
 
@@ -90,7 +101,10 @@ from elasticsearch_tpu_torch.indices.service import (  # noqa: F401
     SHARD_ROW_SPACE, IndexService, flat_settings, resolve_expression,
     validate_index_name, validate_knn_settings,
 )
-from elasticsearch_tpu_torch.node_admin import TaskManager
+from elasticsearch_tpu_torch.common.settings import parse_time_value
+from elasticsearch_tpu_torch.node_admin import (
+    PointInTimeService, ScrollService, TaskManager,
+)
 from elasticsearch_tpu_torch.ops import dispatch
 from elasticsearch_tpu_torch.search.agg_partials import (
     finalize_aggs, merge_partial_aggs,
@@ -112,9 +126,9 @@ from elasticsearch_tpu_torch.search.hybrid_plan import (
 from elasticsearch_tpu_torch.search.profile import shard_profile
 from elasticsearch_tpu_torch.search.queries import SearchContext
 from elasticsearch_tpu_torch.search.service import (
-    check_track_total_hits, count_body, execute_query_phase, fetch_hits,
-    filter_source, get_path, group_value, inner_hits_body, inner_hits_specs,
-    source_patterns, tracks_total, window,
+    MAX_RESULT_WINDOW, check_track_total_hits, count_body,
+    execute_query_phase, fetch_hits, filter_source, get_path, group_value,
+    inner_hits_body, inner_hits_specs, source_patterns, tracks_total, window,
 )
 from elasticsearch_tpu_torch.serving.batcher import CombiningBatcher
 from elasticsearch_tpu_torch.telemetry import metrics as _telemetrics
@@ -336,6 +350,8 @@ class Node:
         # index name -> (its service, its aggregation engine)
         self._aggs: Dict[str, tuple] = {}
         self._agg_router = CostRouter()
+        self.scrolls = ScrollService()
+        self.pits = PointInTimeService()
         self._lock = threading.Lock()
 
     # -------------------------------------------------------------- indices
@@ -1070,7 +1086,7 @@ class Node:
         (`search/profile.py::shard_profile`), from that index's query phase
         with the thread's launch event trace on."""
         start = time.perf_counter()
-        body = body or {}
+        body = self._rewrite_terms_lookup(body or {})
         check_track_total_hits(body)
         rank = body.get("rank")
         if isinstance(rank, dict) and "rrf" in rank:
@@ -1090,6 +1106,8 @@ class Node:
                                             rank["rrf"] or {})
         services = self.resolve(index_expr, ignore_unavailable,
                                 allow_no_indices)
+        boosts = self._index_boosts(body.get("indices_boost"),
+                                    ignore_unavailable)
         aggs_spec = body.get("aggs") or body.get("aggregations")
         if aggs_spec:
             def field_type(f):
@@ -1143,17 +1161,19 @@ class Node:
             if result.relation == "gte":
                 relation = "gte"
             if result.max_score is not None:
-                max_score = (result.max_score if max_score is None
-                             else max(max_score, result.max_score))
+                boosted = result.max_score * boosts.get(svc.name, 1.0)
+                max_score = (boosted if max_score is None
+                             else max(max_score, boosted))
         m_start = time.perf_counter_ns()
         merged = self._merge_windows(phases, body,
-                                     several=len(services) > 1)
+                                     several=len(services) > 1,
+                                     boosts=boosts)
         _teletrace.record_span("merge", time.perf_counter_ns() - m_start,
                                hits=len(merged))
         fetch_nanos: Dict[str, int] = {}
         hits = self._fetch_window(merged[frm:frm + size], body,
                                   expand=len(services) <= 1,
-                                  nanos=fetch_nanos)
+                                  nanos=fetch_nanos, boosts=boosts)
         for svc, _, _ in phases:
             _teletrace.record_span(f"fetch[{svc.name}]",
                                    fetch_nanos.get(svc.name, 0),
@@ -1281,12 +1301,14 @@ class Node:
         return result, note
 
     @staticmethod
-    def _merge_windows(phases: list, body: dict, several: bool) -> list:
+    def _merge_windows(phases: list, body: dict, several: bool,
+                       boosts: Optional[Dict[str, float]] = None) -> list:
         """The indices' windows as one ranked list of (phase, position):
-        stably by score (ties in the order the expression resolved, then
-        each index's own order), or, when the body sorts, stably by each
-        hit's sort tuple (`_sort_key_tuple`). Over several indices a
-        collapse keeps the first hit of each group across them."""
+        stably by score, each index's times its `indices_boost` (ties in
+        the order the expression resolved, then each index's own order),
+        or, when the body sorts, stably by each hit's sort tuple
+        (`_sort_key_tuple`). Over several indices a collapse keeps the
+        first hit of each group across them."""
         entries = [(pi, j) for pi, (_, _, r) in enumerate(phases)
                    for j in range(len(r.rows))]
         if body.get("sort"):
@@ -1294,7 +1316,10 @@ class Node:
                 phases[e[0]][2].sort_values[e[1]]
                 if phases[e[0]][2].sort_values is not None else None, body))
         elif len(phases) > 1:
-            scores = np.concatenate([r.scores for _, _, r in phases])
+            scores = np.concatenate([
+                r.scores.astype(np.float64) * (boosts or {}).get(svc.name,
+                                                                 1.0)
+                for svc, _, r in phases])
             entries = [entries[i] for i in
                        np.argsort(-scores, kind="stable").tolist()]
         collapse = body.get("collapse")
@@ -1311,10 +1336,13 @@ class Node:
 
     def _fetch_window(self, window_entries: list, body: dict,
                       expand: bool,
-                      nanos: Optional[Dict[str, int]] = None) -> List[dict]:
+                      nanos: Optional[Dict[str, int]] = None,
+                      boosts: Optional[Dict[str, float]] = None
+                      ) -> List[dict]:
         """The fetch phase of the merged window: each run of hits of one
-        index fetched together, from that index's reader; each index's
-        fetch time adds into `nanos`."""
+        index fetched together, from that index's reader, each `_score`
+        times the index's `indices_boost`; each index's fetch time adds
+        into `nanos`."""
         hits: List[dict] = []
         for _, group in itertools.groupby(window_entries,
                                           key=lambda e: id(e[0])):
@@ -1325,11 +1353,17 @@ class Node:
             idx = np.asarray(run, dtype=np.int64)
             ctx = SearchContext(reader, svc.mapper_service, svc.vector_store,
                                 svc.settings, query_cache=self.caches.query)
-            hits.extend(fetch_hits(
+            fetched = fetch_hits(
                 ctx, svc.name, body, r.rows[idx], r.scores[idx],
                 None if r.sort_values is None
                 else [r.sort_values[j] for j in run],
-                expand_inner_hits=expand))
+                expand_inner_hits=expand)
+            factor = (boosts or {}).get(svc.name, 1.0)
+            if factor != 1.0:
+                for h in fetched:
+                    if h.get("_score") is not None:
+                        h["_score"] = float(h["_score"]) * factor
+            hits.extend(fetched)
             if nanos is not None:
                 nanos[svc.name] = (nanos.get(svc.name, 0)
                                    + time.perf_counter_ns() - t0)
@@ -1368,10 +1402,194 @@ class Node:
                                            if merged else None),
                              "hits": merged[:want]}}
 
+    def _index_boosts(self, spec, ignore_unavailable: bool
+                      ) -> Dict[str, float]:
+        """`indices_boost` (a list of {index: boost} objects, or one
+        object) as index name -> factor, the first entry naming an index
+        winning; a name or pattern that names no index is the
+        reference's 404 unless `ignore_unavailable`."""
+        boosts: Dict[str, float] = {}
+        if not spec:
+            return boosts
+        entries = spec.items() if isinstance(spec, dict) else \
+            [e for d in spec for e in d.items()]
+        for expr, boost in entries:
+            matched = (self.resolve(expr)
+                       if "*" in expr or expr in self.indices else [])
+            if not matched:
+                if ignore_unavailable:
+                    continue
+                raise IndexNotFoundError(expr)
+            for svc in matched:
+                boosts.setdefault(svc.name, float(boost))
+        return boosts
+
+    def _rewrite_terms_lookup(self, body: dict) -> dict:
+        """A `terms` lookup (`{"terms": {field: {index, id, path,
+        routing}}}`) in the body's `query` or `aggs` with the looked-up
+        document's values inlined, as the reference's coordinator does: a
+        missing document or path gives no values, an unknown index its
+        404. The key scan never stringifies the body (a dense query
+        vector would cost more than the rewrite)."""
+        def has_terms(node):
+            if isinstance(node, dict):
+                return "terms" in node or any(has_terms(v)
+                                              for v in node.values())
+            if isinstance(node, list) and node \
+                    and isinstance(node[0], (dict, list)):
+                return any(has_terms(i) for i in node)
+            return False
+
+        scope = {k: body.get(k) for k in ("query", "aggs", "aggregations")
+                 if body.get(k) is not None}
+        if not scope or not has_terms(scope):
+            return body
+        body = dict(body)
+        for k in scope:
+            body[k] = copy.deepcopy(body[k])
+
+        def walk(node):
+            if isinstance(node, dict):
+                t = node.get("terms")
+                if isinstance(t, dict):
+                    for f, v in list(t.items()):
+                        if f in ("boost", "_name") or not isinstance(v, dict) \
+                                or "index" not in v:
+                            continue
+                        doc = self.get_doc(v["index"], str(v.get("id")),
+                                           routing=v.get("routing"))
+                        vals = get_path(doc.get("_source") or {},
+                                        str(v.get("path", "")))
+                        t[f] = (vals if isinstance(vals, list)
+                                else [vals] if vals is not None else [])
+                for val in node.values():
+                    walk(val)
+            elif isinstance(node, list):
+                for item in node:
+                    walk(item)
+        for k in scope:
+            walk(body[k])
+        return body
+
+    # ---------------------------------------------------------------- scroll
+    def search_scroll_start(self, index_expr: Optional[str],
+                            body: Optional[dict],
+                            keep_alive: str = "1m") -> dict:
+        """`_search?scroll=`: each index's query phase over every matching
+        row (its window unbounded, every hit counted) on a reader the
+        context pins; the hits merged as `_merge_windows` merges them, by
+        score or by sort tuple, into one order kept as arrays; the first
+        page, and the scroll id."""
+        body = self._rewrite_terms_lookup(dict(body or {}))
+        if body.get("collapse") is not None:
+            raise IllegalArgumentError(
+                "cannot use `collapse` in a scroll context")
+        size = int(body["size"]) if body.get("size") is not None else 10
+        services = self.resolve(index_expr)
+        for svc in services:
+            mrw = int(svc.settings.get("index.max_result_window",
+                                       MAX_RESULT_WINDOW))
+            if size > mrw:
+                raise IllegalArgumentError(
+                    f"Batch size is too large, size must be less than or "
+                    f"equal to: [{mrw}] but was [{size}]. Scroll batch "
+                    f"sizes cost as much memory as result windows so they "
+                    f"are controlled by the [index.max_result_window] "
+                    f"index level setting.")
+        parts, total = [], 0
+        for svc in services:
+            reader = svc.combined_reader()
+            big = dict(body)
+            big["size"] = max(reader.num_docs, 1)
+            big["__unbounded_window__"] = True
+            big["track_total_hits"] = True
+            big.pop("from", None)
+            ctx = SearchContext(reader, svc.mapper_service, svc.vector_store,
+                                svc.settings, query_cache=self.caches.query)
+            result = execute_query_phase(ctx, big)
+            total += result.total
+            parts.append((svc, reader, result.rows, result.scores,
+                          result.sort_values))
+        part = np.concatenate([np.full(len(p[2]), i, dtype=np.int32)
+                               for i, p in enumerate(parts)]
+                              or [np.zeros(0, dtype=np.int32)])
+        pos = np.concatenate([np.arange(len(p[2]), dtype=np.int64)
+                              for p in parts]
+                             or [np.zeros(0, dtype=np.int64)])
+        if body.get("sort"):
+            order = sorted(range(len(part)), key=lambda i: _sort_key_tuple(
+                parts[part[i]][4][pos[i]]
+                if parts[part[i]][4] is not None else None, body))
+            order = np.asarray(order, dtype=np.int64)
+        else:
+            scores = np.concatenate([p[3] for p in parts]
+                                    or [np.zeros(0, dtype=np.float32)])
+            order = np.argsort(-scores.astype(np.float64), kind="stable")
+        scroll_id = self.scrolls.create(
+            parts, part[order], pos[order], body,
+            parse_time_value(keep_alive, "scroll"), total)
+        resp = self._scroll_page(self.scrolls.get(scroll_id), size)
+        resp["_scroll_id"] = scroll_id
+        return resp
+
+    def search_scroll_next(self, scroll_id: str,
+                           keep_alive: Optional[str] = None) -> dict:
+        sc = self.scrolls.get(scroll_id)
+        if keep_alive:
+            sc.keep_alive = parse_time_value(keep_alive, "scroll")
+        size = int(sc.body["size"]) if sc.body.get("size") is not None \
+            else 10
+        resp = self._scroll_page(sc, size)
+        resp["_scroll_id"] = scroll_id
+        return resp
+
+    @staticmethod
+    def _scroll_page(sc, size: int) -> dict:
+        """The next `size` hits of a scroll, read from its pinned readers:
+        `_index`, `_id`, `_score` (null under a sort), `_source` and the
+        sort tuple."""
+        part, pos = sc.take(size)
+        sorted_ = bool(sc.body.get("sort"))
+        hits = []
+        for pi, j in zip(part.tolist(), pos.tolist()):
+            svc, reader, rows, scores, sort_values = sc.parts[pi]
+            row = int(rows[j])
+            hit = {"_index": svc.name, "_id": reader.get_id(row),
+                   "_score": None if sorted_ else float(scores[j]),
+                   "_source": reader.get_source(row)}
+            if sort_values is not None:
+                hit["sort"] = list(sort_values[j])
+            hits.append(hit)
+        return {"took": 0, "timed_out": False,
+                "_shards": {"total": 1, "successful": 1, "skipped": 0,
+                            "failed": 0},
+                "hits": {"total": {"value": sc.total, "relation": "eq"},
+                         "max_score": None, "hits": hits}}
+
+    def clear_scroll(self, scroll_id: str) -> dict:
+        return {"succeeded": True,
+                "num_freed": 1 if self.scrolls.delete(scroll_id) else 0}
+
+    def clear_all_scrolls(self) -> dict:
+        return {"succeeded": True, "num_freed": self.scrolls.delete_all()}
+
+    def open_point_in_time(self, index_expr: str,
+                           keep_alive: str = "5m") -> dict:
+        """`POST /{index}/_pit`: the indices' current readers kept under a
+        new id."""
+        keep = parse_time_value(keep_alive, "keep_alive")
+        readers = [(svc, svc.combined_reader())
+                   for svc in self.resolve(index_expr)]
+        return {"id": self.pits.open(index_expr, readers, keep)}
+
+    def close_point_in_time(self, pit_id) -> dict:
+        found = self.pits.close(pit_id)
+        return {"succeeded": found, "num_freed": 1 if found else 0}
+
     def count(self, index_expr: Optional[str], body: Optional[dict]) -> dict:
         """`_count`: the body's query phase on every index the expression
         names, at size 0 with every hit counted (`count_body`)."""
-        body = count_body(body)
+        body = count_body(self._rewrite_terms_lookup(body or {}))
         total = 0
         for svc in self.resolve(index_expr):
             ctx = SearchContext(svc.combined_reader(), svc.mapper_service,

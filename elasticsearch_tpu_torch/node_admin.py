@@ -1,13 +1,23 @@
-"""Live tasks of a node: `Task` and `TaskManager` (port of the task half
-of `elasticsearch_tpu/node_admin.py`).
+"""A node's live tasks, scroll contexts and point-in-time readers (port of
+the task and scroll half of `elasticsearch_tpu/node_admin.py` and of the
+`_pit` routes of `elasticsearch_tpu/rest/actions_admin.py`).
 
 Every instrumented REST request registers a task (`telemetry.rest_request`);
 `GET _tasks` lists them, `GET _tasks/{id}` reads one, and
 `POST _tasks/{id}/_cancel` or `POST _tasks/_cancel` cancels them. The
 errors for an unknown task, a task of another node and a task that is not
-cancellable are the reference's, word for word. The reference's other node
-services of that module (scroll, async search, templates, reindex, field
-caps) are not ported.
+cancellable are the reference's, word for word.
+
+A scroll context (`ScrollService`) holds a search's whole ranked result:
+for each index its pinned reader and the rows, scores and sort tuples of
+its query phase, and the merged order of them all as two int arrays; a
+page fetches its hits from the pinned readers, so writes, deletes,
+refreshes and merges after the start do not show. A context lives
+`keep_alive` seconds past its last use. `PointInTimeService` keeps the
+readers of `POST /{index}/_pit` until `DELETE /_pit` or their keep-alive
+ends (each open and close reaps the expired). The reference's other node
+services of that module (async search, templates, reindex, field caps)
+are not ported.
 """
 
 from __future__ import annotations
@@ -15,7 +25,10 @@ from __future__ import annotations
 import fnmatch
 import threading
 import time
+import uuid
 from typing import Dict, List, Optional
+
+import numpy as np
 
 from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentError, ResourceNotFoundError,
@@ -125,3 +138,117 @@ class TaskManager:
             raise IllegalArgumentError(f"task [{task_id}] is not cancellable")
         t.cancelled = True
         return t
+
+
+class ScrollContext:
+    """One scroll: `parts` holds (service, pinned reader, rows, scores,
+    sort tuples or None) an index, `part` and `pos` the merged order (the
+    part and the position within it of each hit), `cursor` the hits
+    served."""
+
+    __slots__ = ("scroll_id", "parts", "part", "pos", "cursor", "body",
+                 "expiry", "keep_alive", "total", "_lock")
+
+    def __init__(self, scroll_id: str, parts: list, part: np.ndarray,
+                 pos: np.ndarray, body: dict, keep_alive_s: float,
+                 total: int):
+        self.scroll_id = scroll_id
+        self.parts = parts
+        self.part = part
+        self.pos = pos
+        self.cursor = 0
+        self.body = body
+        self.keep_alive = keep_alive_s
+        self.expiry = time.time() + keep_alive_s
+        self.total = total
+        self._lock = threading.Lock()
+
+    def take(self, size: int):
+        """The next `size` entries of the merged order, (parts, positions),
+        each served once though two requests page at the same time."""
+        with self._lock:
+            lo = self.cursor
+            self.cursor = min(lo + size, len(self.part))
+        return self.part[lo:lo + size], self.pos[lo:lo + size]
+
+
+class ScrollService:
+    """The node's scroll contexts by id; an expired one is dropped at the
+    next lookup."""
+
+    def __init__(self):
+        self._contexts: Dict[str, ScrollContext] = {}
+        self._lock = threading.Lock()
+
+    def create(self, parts: list, part: np.ndarray, pos: np.ndarray,
+               body: dict, keep_alive_s: float, total: int) -> str:
+        scroll_id = uuid.uuid4().hex
+        with self._lock:
+            self._contexts[scroll_id] = ScrollContext(
+                scroll_id, parts, part, pos, body, keep_alive_s, total)
+        return scroll_id
+
+    def get(self, scroll_id: str) -> ScrollContext:
+        self.evict_expired()
+        with self._lock:
+            sc = self._contexts.get(scroll_id)
+        if sc is None:
+            raise ResourceNotFoundError(
+                f"No search context found for id [{scroll_id}]",
+                scroll_id=scroll_id)
+        sc.expiry = time.time() + sc.keep_alive
+        return sc
+
+    def delete(self, scroll_id: str) -> bool:
+        with self._lock:
+            return self._contexts.pop(scroll_id, None) is not None
+
+    def delete_all(self) -> int:
+        with self._lock:
+            n = len(self._contexts)
+            self._contexts.clear()
+        return n
+
+    def evict_expired(self) -> None:
+        now = time.time()
+        with self._lock:
+            for sid in [s for s, c in self._contexts.items()
+                        if c.expiry < now]:
+                del self._contexts[sid]
+
+    def nbytes(self) -> int:
+        """The bytes of the contexts' arrays: each index's rows and scores
+        and the merged order."""
+        with self._lock:
+            contexts = list(self._contexts.values())
+        return sum(sc.part.nbytes + sc.pos.nbytes
+                   + sum(p[2].nbytes + p[3].nbytes for p in sc.parts)
+                   for sc in contexts)
+
+
+class PointInTimeService:
+    """Point-in-time readers by id: (service, reader) for each index
+    opened, kept until closed or `keep_alive` seconds after opening."""
+
+    def __init__(self):
+        self._pits: Dict[str, dict] = {}
+        self._lock = threading.Lock()
+
+    def _reap(self) -> None:
+        now = time.time()
+        for pid in [p for p, e in self._pits.items() if e["expires"] <= now]:
+            del self._pits[pid]
+
+    def open(self, index: str, readers: list, keep_alive_s: float) -> str:
+        pit_id = uuid.uuid4().hex
+        with self._lock:
+            self._reap()
+            self._pits[pit_id] = {"index": index, "readers": readers,
+                                  "keep_alive": keep_alive_s,
+                                  "expires": time.time() + keep_alive_s}
+        return pit_id
+
+    def close(self, pit_id) -> bool:
+        with self._lock:
+            self._reap()
+            return self._pits.pop(pit_id, None) is not None

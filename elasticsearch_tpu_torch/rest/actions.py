@@ -19,8 +19,14 @@ Search: GET|POST [/{index}]/_search over an index expression (none,
 `typed_keys`). The URL `q` of `_search` and `_count` is a
 `query_string` query (`apply_uri_query`: `df`, `default_operator`,
 `lenient`, `analyzer`, `analyze_wildcard`), and a 400 beside a body
-query; `scroll` is a 400 that names it. Stored scripts and search
-templates: `rest/actions_script.py`.
+query. `scroll` starts a scroll (a 400 with `size` 0, `request_cache`,
+`track_total_hits: false`, a `collapse` or a keep-alive past the node
+setting `search.max_keep_alive`); GET|POST /_search/scroll[/{scroll_id}]
+pages it (`scroll_id` and `scroll` in the body or the URL,
+`rest_total_hits_as_int`) and DELETE /_search/scroll[/{scroll_id}] frees
+it (`_all`; a 404 when nothing is freed). POST /{index}/_pit
+(`keep_alive`) and DELETE /_pit open and close a point in time. Stored
+scripts and search templates: `rest/actions_script.py`.
 
 Indices: PUT, DELETE, GET and HEAD /{index}, GET [/{index}]/_mapping and
 PUT|POST /{index}/_mapping, GET [/{index}]/_settings[/{name}],
@@ -57,6 +63,7 @@ from elasticsearch_tpu_torch.common.errors import (
     ActionRequestValidationError, DocumentMissingError, IllegalArgumentError,
     VersionConflictError,
 )
+from elasticsearch_tpu_torch.common.settings import parse_time_value
 from elasticsearch_tpu_torch.indices.service import validate_index_name
 from elasticsearch_tpu_torch.node import Node, _apply_mget_projection
 from elasticsearch_tpu_torch.rest.controller import RestController
@@ -149,6 +156,20 @@ def _source_filter(req):
         spec = {"includes": inc.split(",") if inc else [],
                 "excludes": exc.split(",") if exc else []}
     return spec
+
+
+def check_scroll_keep_alive(node, value) -> None:
+    """A scroll keep-alive against the node setting
+    `search.max_keep_alive` (none by default)."""
+    mka = node.settings.get("search.max_keep_alive")
+    if not value or mka is None:
+        return
+    if parse_time_value(str(value), "scroll") > \
+            parse_time_value(str(mka), "max_keep_alive"):
+        raise IllegalArgumentError(
+            f"Keep alive for scroll ({value}) is too large. It must be "
+            f"less than ({mka}). This limit can be set by changing the "
+            f"[search.max_keep_alive] cluster level setting.")
 
 
 def _total_hits_as_int(resp) -> None:
@@ -394,11 +415,6 @@ def register_all(rc: RestController, node: Node) -> None:
 
     def _search(req, body):
         body = apply_uri_query(req, body)
-        if req.param("scroll") is not None:
-            raise IllegalArgumentError(
-                "request parameter [scroll] is not supported by this build: "
-                "scroll contexts are not ported (ROADMAP.md queue 1 item "
-                "3's remainder)")
         for p in ("size", "from"):
             v = req.int_param(p)
             if v is not None:
@@ -430,11 +446,29 @@ def register_all(rc: RestController, node: Node) -> None:
             raise IllegalArgumentError(
                 f"[rest_total_hits_as_int] cannot be used if the tracking "
                 f"of total hits is not accurate, got {tt}")
-        if req.param("request_cache") is not None:
-            # the URL form of the body's `request_cache`
-            body["request_cache"] = req.bool_param("request_cache", True)
-        resp = node.search(req.params.get("index"), body,
-                           pre_filter_shard_size=pfs, **_index_options(req))
+        scroll = req.param("scroll")
+        if scroll:
+            if body.get("size") == 0:
+                raise IllegalArgumentError(
+                    "[size] cannot be [0] in a scroll context")
+            if req.param("request_cache") is not None:
+                raise IllegalArgumentError(
+                    "[request_cache] cannot be used in a scroll context")
+            if body.get("track_total_hits") is False:
+                raise IllegalArgumentError(
+                    "disabling [track_total_hits] is not allowed in a "
+                    "scroll context")
+            check_scroll_keep_alive(node, scroll)
+            resp = node.search_scroll_start(req.params.get("index"), body,
+                                            keep_alive=scroll)
+        else:
+            if req.param("request_cache") is not None:
+                # the URL form of the body's `request_cache`
+                body["request_cache"] = req.bool_param("request_cache",
+                                                       True)
+            resp = node.search(req.params.get("index"), body,
+                               pre_filter_shard_size=pfs,
+                               **_index_options(req))
         if as_int:
             _total_hits_as_int(resp)
         if req.bool_param("typed_keys", False):
@@ -630,6 +664,55 @@ def register_all(rc: RestController, node: Node) -> None:
         rc.register("GET", path, mget)
         rc.register("POST", path, mget)
     # search
+    # ----------------------------------------------- scroll, point in time
+    def scroll_next(req):
+        body = req.json() or {}
+        # the body's id wins over the path's and the URL's
+        scroll_id = body.get("scroll_id") or req.param("scroll_id")
+        if not scroll_id:
+            raise IllegalArgumentError("scroll_id is required")
+        keep = body.get("scroll") or req.param("scroll")
+        check_scroll_keep_alive(node, keep)
+        resp = node.search_scroll_next(scroll_id, keep)
+        if req.bool_param("rest_total_hits_as_int", False):
+            total = resp.get("hits", {}).get("total")
+            if isinstance(total, dict):
+                resp["hits"]["total"] = total.get("value")
+        return 200, resp
+
+    def scroll_delete(req):
+        body = req.json() or {}
+        ids = body.get("scroll_id", [])
+        if isinstance(ids, str):
+            ids = [ids]
+        if not ids and req.params.get("scroll_id"):
+            ids = req.params["scroll_id"].split(",")
+        if body.get("scroll_id") == "_all" or req.path.endswith("/_all") \
+                or "_all" in ids:
+            freed = node.clear_all_scrolls()["num_freed"]
+        else:
+            freed = sum(node.clear_scroll(sid)["num_freed"] for sid in ids)
+        if not freed and ids and "_all" not in ids:
+            # nothing freed: the ids were unknown or expired
+            return 404, {"succeeded": True, "num_freed": 0}
+        return 200, {"succeeded": True, "num_freed": freed}
+
+    for method in ("GET", "POST"):
+        rc.register(method, "/_search/scroll", scroll_next)
+        rc.register(method, "/_search/scroll/{scroll_id}", scroll_next)
+    rc.register("DELETE", "/_search/scroll", scroll_delete)
+    rc.register("DELETE", "/_search/scroll/{scroll_id}", scroll_delete)
+
+    def open_pit(req):
+        return 200, node.open_point_in_time(req.params["index"],
+                                            req.param("keep_alive", "5m"))
+
+    def close_pit(req):
+        return 200, node.close_point_in_time((req.json() or {}).get("id"))
+
+    rc.register("POST", "/{index}/_pit", open_pit)
+    rc.register("DELETE", "/_pit", close_pit)
+
     for path in ("/_search", "/{index}/_search"):
         rc.register("GET", path, search)
         rc.register("POST", path, search)

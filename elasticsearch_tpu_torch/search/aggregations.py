@@ -36,6 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from elasticsearch_tpu_torch.cluster.routing import murmur3_x86_32_many
 from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentError, ParsingError, TooManyBucketsError,
 )
@@ -71,8 +72,8 @@ LEFT_OUT = {
           "item 7)"
        for k in ("geohash_grid", "geotile_grid", "geo_bounds",
                  "geo_centroid")},
-    **{k: "nested documents are not ported (ROADMAP.md queue 1 items "
-          "4 and 7)"
+    **{k: "nested documents are not ported (ROADMAP.md queue 1 item "
+          "4, documents within documents)"
        for k in ("nested", "reverse_nested")},
     **{k: "this metric aggregation is not ported (ROADMAP.md queue 1 "
           "item 7)"
@@ -163,37 +164,7 @@ def _mix64(k: int) -> int:
 def _murmur3_x86_32(data: bytes, seed: int) -> int:
     """Lucene StringHelper.murmurhash3_x86_32 (signed int32), the terms
     include partition's hash of a string (seed 31)."""
-    c1, c2 = 0xCC9E2D51, 0x1B873593
-    h1 = seed & 0xFFFFFFFF
-    rounded = len(data) & ~3
-    for i in range(0, rounded, 4):
-        k1 = (data[i] | (data[i + 1] << 8) | (data[i + 2] << 16)
-              | (data[i + 3] << 24))
-        k1 = (k1 * c1) & 0xFFFFFFFF
-        k1 = ((k1 << 15) | (k1 >> 17)) & 0xFFFFFFFF
-        k1 = (k1 * c2) & 0xFFFFFFFF
-        h1 ^= k1
-        h1 = ((h1 << 13) | (h1 >> 19)) & 0xFFFFFFFF
-        h1 = (h1 * 5 + 0xE6546B64) & 0xFFFFFFFF
-    k1 = 0
-    tail = len(data) & 3
-    if tail == 3:
-        k1 ^= data[rounded + 2] << 16
-    if tail >= 2:
-        k1 ^= data[rounded + 1] << 8
-    if tail >= 1:
-        k1 ^= data[rounded]
-        k1 = (k1 * c1) & 0xFFFFFFFF
-        k1 = ((k1 << 15) | (k1 >> 17)) & 0xFFFFFFFF
-        k1 = (k1 * c2) & 0xFFFFFFFF
-        h1 ^= k1
-    h1 ^= len(data)
-    h1 ^= h1 >> 16
-    h1 = (h1 * 0x85EBCA6B) & 0xFFFFFFFF
-    h1 ^= h1 >> 13
-    h1 = (h1 * 0xC2B2AE35) & 0xFFFFFFFF
-    h1 ^= h1 >> 16
-    return h1 - (1 << 32) if h1 >= (1 << 31) else h1
+    return int(murmur3_x86_32_many([data], seed)[0])
 
 
 # --------------------------------------------------------------- metrics

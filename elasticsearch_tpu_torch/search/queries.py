@@ -38,8 +38,12 @@ AND / OR / NOT, `+` / `-`, ranges, wildcards and `/regexp/`),
 (`weight`, `field_value_factor`, every `score_mode` and `boost_mode`),
 `script_score` (`search/script_score.py`), and the host walkers of
 `search/queries_ext.py`: `late_interaction`, `sparse_vector` /
-`weighted_tokens` (the learned-sparse dot product) and `rank_feature`.
-The kinds of the reference's `queries_ext.py` not listed are a 400.
+`weighted_tokens` (the learned-sparse dot product), `rank_feature`,
+`more_like_this`, `terms_set`, the span kinds, `intervals`, `pinned`,
+`wrapper`, the geo queries and `distance_feature`. `nested`, the
+parent-join kinds and `percolate` are a 400 that names the ROADMAP.md
+item that brings them; `shape`, no kind of the reference, is its
+`unknown query` error.
 
 The multi-term kinds enumerate a field's terms, the sorted array each
 segment keeps (`FieldPostings.terms`): a prefix is a `searchsorted`
@@ -191,18 +195,28 @@ class MatchNoneQuery(Query):
         return {"match_none": {}}
 
 
-def _id_rows(ctx: SearchContext, ids) -> np.ndarray:
-    """Live rows of the given `_id`s, ascending. The id → row map is
-    built once per reader."""
-    reader = ctx.reader
+def id_row_map(reader: ShardReader) -> dict:
+    """`_id` -> live row of a reader, built once a reader (its segments'
+    id lists zipped with their rows)."""
     cache = getattr(reader, "_id_row_cache", None)
     if cache is None:
         cache = {}
         for v in reader.views:
             seg = v.segment
-            for local in np.nonzero(v.live)[0]:
-                cache[seg.ids[local]] = seg.base + int(local)
+            if v.all_live:
+                cache.update(zip(seg.ids, range(seg.base,
+                                                seg.base + seg.num_docs)))
+            else:
+                locs = np.nonzero(v.live)[0]
+                cache.update(zip([seg.ids[i] for i in locs.tolist()],
+                                 (locs + seg.base).tolist()))
         reader._id_row_cache = cache
+    return cache
+
+
+def _id_rows(ctx: SearchContext, ids) -> np.ndarray:
+    """Live rows of the given `_id`s, ascending."""
+    cache = id_row_map(ctx.reader)
     rows = sorted(r for r in (cache.get(str(i)) for i in ids)
                   if r is not None)
     return np.asarray(rows, dtype=np.int64)
@@ -1688,21 +1702,20 @@ PORTED_KINDS = ("match_all", "match_none", "term", "terms", "match",
                 "simple_query_string", "constant_score", "bool", "dis_max",
                 "boosting", "function_score", "script_score", "knn",
                 "late_interaction", "rank_feature", "sparse_vector",
-                "weighted_tokens")
+                "weighted_tokens", "more_like_this", "terms_set",
+                "span_term", "span_near", "span_or", "span_not",
+                "span_first", "intervals", "pinned", "wrapper",
+                "geo_distance", "geo_bounding_box", "geo_polygon",
+                "geo_shape", "distance_feature")
+
+# the extended kinds `search/queries_ext.py::parse_extended` parses
+_EXTENDED_KINDS = PORTED_KINDS[PORTED_KINDS.index("more_like_this"):]
 
 # the kinds of the reference this build leaves out, by the ROADMAP.md
 # queue 1 item that brings them
 _LEFT_OUT_KINDS = {
-    **{k: "item 3's remainder (search/queries_ext.py)"
-       for k in ("more_like_this", "terms_set", "span_term", "span_near",
-                 "span_or", "span_not", "span_first", "intervals",
-                 "pinned", "distance_feature", "wrapper")},
-    "nested": "item 4 (nested)",
-    **{k: "item 4 (the geo queries)"
-       for k in ("geo_distance", "geo_bounding_box", "geo_shape", "shape",
-                 "geo_polygon")},
-    **{k: "item 4 (the other mapping types)"
-       for k in ("percolate", "has_child", "has_parent", "parent_id")},
+    k: "item 4 (documents within documents)"
+    for k in ("nested", "has_child", "has_parent", "parent_id", "percolate")
 }
 
 # every kind the reference's parser knows (its did-you-mean list)
@@ -1894,8 +1907,11 @@ def parse_query(body: Optional[dict]) -> Query:
         field, v = _single(spec, kind)
         return queries_ext.WeightedTokensQuery(
             field, dict(v.get("tokens") or {}), float(v.get("boost", 1.0)))
-    if kind in _LEFT_OUT_KINDS or kind in _KNOWN_KINDS:
-        where = _LEFT_OUT_KINDS.get(kind, "item 15")
+    if kind in _EXTENDED_KINDS:
+        from elasticsearch_tpu_torch.search.queries_ext import parse_extended
+        return parse_extended(kind, spec)
+    if kind in _LEFT_OUT_KINDS:
+        where = _LEFT_OUT_KINDS[kind]
         raise ParsingError(
             f"[{kind}] query is not supported by this build: it comes "
             f"with ROADMAP.md queue 1 {where}")

@@ -13,13 +13,19 @@ per-request opt-in or opt-out, read by the node), `post_filter`,
 `version`, `seq_no_primary_term`, `stored_fields`, `docvalue_fields`,
 `script_fields` (`search/script_score.py`) and `explain`; the node reads
 `rank`, `batched_reduce_size`, `profile` (`search/profile.py`) and
-`suggest` (`search/extras.py`). `fields`, `track_scores`, `ext`, `stats`,
-`max_concurrent_shard_requests`, `pre_filter_shard_size`, `timeout` and
-`terminate_after` are accepted and change nothing, as in the reference (a
-response is never cut short: `timed_out` is false). The keys the
-reference serves that are not ported (`_NOT_PORTED`) are each a 400 that
-names them; any other key is the reference's `unknown key` parsing
-error.
+`suggest` (`search/extras.py`), `indices_boost` (per index score
+factors) and `scroll` as the URL's (`Node.search_scroll_start`). `slice`
+(`{id, max}`) keeps the rows of one slice after the query: when `max` is
+at most the index's shard count a slice owns whole shards (by each
+`_id`'s routing hash), else a row belongs to slice murmur3(the `_id`'s
+encoded term, 7919) floorMod `max`, the hashes made once a segment.
+`fields`, `track_scores`, `ext`, `stats`, `max_concurrent_shard_requests`,
+`pre_filter_shard_size`, `timeout`, `terminate_after`, `pit`,
+`point_in_time`, `runtime_mappings` and a body `scroll` are accepted and
+change nothing, as in the reference (a response is never cut short:
+`timed_out` is false; a `pit` searches the live reader, and a runtime
+field reads as unmapped). Any other key is the reference's `unknown key`
+parsing error.
 
 `knn` is one spec or a list of specs (`field`, `query_vector`, `k`,
 `num_candidates`, `filter`, `boost`); `query` is any query
@@ -39,6 +45,7 @@ rows.
 
 from __future__ import annotations
 
+import base64
 import datetime as _dt
 import fnmatch
 import re
@@ -47,6 +54,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from elasticsearch_tpu_torch import native
+from elasticsearch_tpu_torch.cluster.routing import (
+    murmur3_x86_32_many, murmur3_x86_32_rows, shard_ids_for,
+)
 from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentError, ParsingError,
 )
@@ -73,21 +83,6 @@ _SEARCH_BODY_KEYS = {
     "ext", "stats", "point_in_time", "batched_reduce_size",
     "pre_filter_shard_size", "scroll", "max_concurrent_shard_requests",
     "request_cache",
-}
-# the keys of the reference that this build leaves out, and why
-_NOT_PORTED = {
-    "slice": "sliced scrolls are not ported (ROADMAP.md queue 1 item 3's "
-             "remainder)",
-    "scroll": "scroll contexts are not ported (ROADMAP.md queue 1 item "
-              "3's remainder)",
-    "pit": "point-in-time readers are not ported (ROADMAP.md queue 1 item "
-           "3's remainder)",
-    "point_in_time": "point-in-time readers are not ported (ROADMAP.md "
-                     "queue 1 item 3's remainder)",
-    "runtime_mappings": "runtime fields are not ported (ROADMAP.md queue "
-                        "1 item 3's remainder)",
-    "indices_boost": "index boosts are not ported (ROADMAP.md queue 1 "
-                     "item 3's remainder)",
 }
 _KNN_KEYS = {"field", "query_vector", "k", "num_candidates", "filter",
              "boost"}
@@ -148,7 +143,7 @@ def _body_query(body: dict) -> Query:
 
 def check_request(body: dict, settings: dict) -> None:
     """The reference's request checks (`_check_request_limits`) before any
-    work, then a 400 for a key this build does not serve."""
+    work."""
     for key in body:
         if key not in _SEARCH_BODY_KEYS and not key.startswith("__"):
             # the reference keeps dunder keys for its coordinator
@@ -202,9 +197,6 @@ def check_request(body: dict, settings: dict) -> None:
                     f"massive heaps for storing the results to be "
                     f"rescored. This limit can be set by changing the "
                     f"[index.max_rescore_window] index level setting.")
-    for key in body:
-        if key in _NOT_PORTED:
-            raise not_ported(key, _NOT_PORTED[key])
 
 
 class QueryPhaseResult:
@@ -321,10 +313,15 @@ def _query_window(ctx: SearchContext, body: dict) -> QueryPhaseResult:
     check_request(body, settings)
     frm, size = window(body)
     end = frm + size
-    check_result_window(end, settings)
+    if not body.get("__unbounded_window__"):
+        # a scroll's snapshot takes every row
+        check_result_window(end, settings)
     sort_spec = normalize_sort(body.get("sort"))
     result = _body_query(body).execute(ctx).with_scores()
     rows, scores = result.rows, result.scores
+    if body.get("slice") is not None:
+        keep = slice_keep(ctx.reader, rows, body["slice"], settings)
+        rows, scores = rows[keep], scores[keep]
     agg_rows = rows
     if body.get("post_filter") is not None:
         # hits only: the aggregations keep the query's rows
@@ -372,6 +369,106 @@ def _query_window(ctx: SearchContext, body: dict) -> QueryPhaseResult:
                    if sort_spec is not None else None)
     return QueryPhaseResult(rows[order], scores[order], total, relation,
                             max_score, sort_values, agg_rows)
+
+
+def encode_uid(doc_id: str) -> bytes:
+    """The `_id` term's bytes: a decimal id without a leading zero packs
+    two digits a byte behind 0xFE, a URL-safe base64 id (length not 1
+    mod 4) is its decoded bytes (0xFD first when they start at 0xFD or
+    above), any other id 0xFF and its UTF-8 bytes."""
+    if doc_id and doc_id.isascii() and doc_id.isdigit() \
+            and (len(doc_id) == 1 or doc_id[0] != "0"):
+        digits = [ord(c) - 48 for c in doc_id] + [0x0F]
+        return bytes([0xFE] + [(digits[i] << 4) | digits[i + 1]
+                               for i in range(0, len(doc_id), 2)])
+    if doc_id and len(doc_id) % 4 != 1 \
+            and re.fullmatch(r"[A-Za-z0-9_-]+", doc_id):
+        try:
+            raw = base64.urlsafe_b64decode(doc_id + "=" * (-len(doc_id) % 4))
+            return bytes([0xFD]) + raw if raw and raw[0] >= 0xFD else raw
+        except ValueError:
+            pass
+    return bytes([0xFF]) + doc_id.encode("utf-8")
+
+
+_SLICE_SEED = 7919
+
+
+def _segment_hashes(seg, kind: str, n_shards: int = 0) -> np.ndarray:
+    """A sealed segment's per-doc slice hashes, made once and kept with
+    it: the routing shard of each `_id` (`shards`), or murmur3 of its
+    encoded term with the slice seed (`terms`)."""
+    cache = seg.derived
+    key = ("slice", kind, n_shards)
+    if key not in cache:
+        if kind == "shards":
+            cache[key] = shard_ids_for(seg.ids, n_shards)
+        else:
+            cache[key] = term_hashes(seg.ids)
+    return cache[key]
+
+
+def term_hashes(ids) -> np.ndarray:
+    """murmur3(encode_uid(id), 7919) of every `_id` (int64 [len(ids)]):
+    decimal ids packed and hashed with numpy, a length at a time, the
+    others one by one."""
+    out = np.zeros(len(ids), dtype=np.int64)
+    if not len(ids):
+        return out
+    arr = np.asarray(ids, dtype=str)
+    codes = arr.view(np.uint32).reshape(len(arr), -1)
+    lengths = np.char.str_len(arr)
+    beyond = np.arange(codes.shape[1]) >= lengths[:, None]
+    decimal = ((((codes >= 48) & (codes <= 57)) | beyond).all(axis=1)
+               & (lengths > 0) & ((lengths == 1) | (codes[:, 0] != 48)))
+    for length in np.unique(lengths[decimal]).tolist():
+        where = np.nonzero(decimal & (lengths == length))[0]
+        nib = (codes[where, :length] - 48).astype(np.uint8)
+        if length % 2:
+            nib = np.concatenate([nib, np.full((len(where), 1), 0x0F,
+                                               dtype=np.uint8)], axis=1)
+        packed = (nib[:, 0::2] << 4) | nib[:, 1::2]
+        data = np.concatenate([np.full((len(where), 1), 0xFE,
+                                       dtype=np.uint8), packed], axis=1)
+        out[where] = murmur3_x86_32_rows(data, _SLICE_SEED)
+    other = np.nonzero(~decimal)[0]
+    if len(other):
+        out[other] = murmur3_x86_32_many(
+            [encode_uid(str(ids[i])) for i in other.tolist()], _SLICE_SEED)
+    return out
+
+
+def slice_keep(reader: ShardReader, rows: np.ndarray, spec,
+               settings: dict) -> np.ndarray:
+    """The mask of `rows` in the slice `{id, max}`, with the reference's
+    checks and messages."""
+    try:
+        sid = int(spec["id"])
+        smax = int(spec["max"])
+    except (TypeError, ValueError, AttributeError, KeyError):
+        raise IllegalArgumentError(
+            f"malformed slice [{spec!r}]: expected {{id, max}}")
+    if smax <= 1:
+        raise IllegalArgumentError("max must be greater than 1")
+    max_slices = int(settings.get("index.max_slices_per_scroll", 1024))
+    if smax > max_slices:
+        raise IllegalArgumentError(
+            f"The number of slices [{smax}] is too large. It must be "
+            f"less than [{max_slices}]. This limit can be set by changing "
+            f"the [index.max_slices_per_scroll] index level setting.")
+    if sid < 0 or sid >= smax:
+        raise IllegalArgumentError(
+            f"id must be greater than or equal to 0 and less than max "
+            f"({smax})")
+    num_shards = int(settings.get("index.number_of_shards", 1))
+    kind = "shards" if smax <= num_shards else "terms"
+    vi, local = reader.locate_many(rows)
+    hashes = np.zeros(len(rows), dtype=np.int64)
+    for v in np.unique(vi).tolist():
+        at = vi == v
+        hashes[at] = _segment_hashes(reader.views[v].segment, kind,
+                                     num_shards)[local[at]]
+    return hashes % smax == sid
 
 
 def apply_rescore(ctx: SearchContext, rows, scores, rescore_spec):

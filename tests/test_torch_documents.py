@@ -8,7 +8,8 @@ per-item errors, `_mget`, the version and seq_no conflicts,
 as the reference answers it. Then the
 five REST faults the port answered 200 to (the URL parameters it did not
 read, `track_total_hits`, `index.max_result_window`, the `_bulk` item key
-of an `index` with no `_id`, the "already exists" reason), the engine's
+of an `index` with no `_id`, the "already exists" reason) and the `terms`
+lookup it answered 400 to, the engine's
 realtime GET of a sealed row, and an update of a document ingested as a
 vector block."""
 
@@ -290,6 +291,71 @@ def test_fault_already_exists_reason(pair):
     for name in ("I1", "_x", "-x", "a,b", "a*b", "..", "x" * 256):
         _, got = pair.same("PUT", f"/{name}", _mapping(1))
         assert got["error"]["type"] == "invalid_index_name_exception"
+
+
+@pytest.mark.parametrize("shards", [1, 3])
+def test_fault_terms_lookup(pair, shards):
+    """A `terms` lookup (the values at `path` of one stored document) was
+    the port's 400 ("requires an array of values"); the reference inlines
+    the document's values on the coordinator. In `query`, beside a
+    `knn`, in a `filter` aggregation, on `_count` and `_msearch`, with
+    `routing`; a missing document or path matches nothing, an unknown
+    index is the reference's 404."""
+    rng = np.random.default_rng(20 + shards)
+    pair.same("PUT", "/a", {"settings": {"number_of_shards": shards},
+                            "mappings": {"properties": {
+                                "user": {"type": "keyword"},
+                                "followers": {"type": "keyword"},
+                                "n": {"type": "long"},
+                                "v": {"type": "dense_vector", "dims": D,
+                                      "similarity": "cosine"}}}})
+    pair.same("PUT", "/b", {"settings": {"number_of_shards": shards}})
+    users = [f"u{i}" for i in range(40)]
+    ops = []
+    for i, u in enumerate(users):
+        ops += [{"index": {"_id": u}},
+                {"user": u, "n": i, "v": _vec(rng),
+                 "followers": list(rng.choice(users, 3, replace=False))}]
+    pair.same("POST", "/a/_bulk", ops, ndjson=True)
+    pair.same("PUT", "/b/_doc/b1", {"followers": users[::3],
+                                    "deep": {"list": ["u1", "u2"]},
+                                    "one": "u7"})
+    pair.same("PUT", "/b/_doc/b2", {"followers": users[5:9]},
+              query={"routing": "r1"})
+    pair.same("POST", "/a,b/_refresh")
+    lookup = {"index": "b", "id": "b1", "path": "followers"}
+    want, got = pair.same("POST", "/a/_search", {
+        "query": {"terms": {"user": lookup}}, "size": 50})
+    assert len(hit_ids(got)) == len(users[::3])
+    for terms in ({"user": dict(lookup, path="deep.list")},
+                  {"user": dict(lookup, path="one"), "boost": 2.0},
+                  {"user": dict(lookup, path="missing")},
+                  {"user": dict(lookup, id="nope")},
+                  {"user": {"index": "b", "id": "b2", "path": "followers",
+                            "routing": "r1"}},
+                  {"followers": lookup}):
+        pair.same("POST", "/a/_search", {"query": {"terms": terms},
+                                         "size": 50})
+    pair.same("POST", "/a/_search", {"query": {"bool": {"filter": [
+        {"terms": {"user": lookup}}], "must_not": [
+        {"terms": {"followers": dict(lookup, path="deep.list")}}]}},
+        "size": 50})
+    pair.same("POST", "/a/_search", {
+        "knn": {"field": "v", "query_vector": _vec(rng), "k": 5,
+                "num_candidates": 20},
+        "query": {"terms": {"user": lookup}}, "size": 8})
+    pair.same("POST", "/a/_search", {"size": 0, "aggs": {"f": {
+        "filter": {"terms": {"user": lookup}},
+        "aggs": {"s": {"sum": {"field": "n"}}}}}})
+    pair.same("POST", "/a/_count", {"query": {"terms": {"user": lookup}}})
+    pair.same("POST", "/_msearch", [
+        {"index": "a"}, {"query": {"terms": {"user": lookup}}},
+        {"index": "a"}, {"query": {"terms": {"user": dict(
+            lookup, index="nope")}}}], ndjson=True)
+    pair.same("POST", "/a/_search", {"query": {"terms": {"user": dict(
+        lookup, index="nope")}}})
+    pair.same("POST", "/a/_count", {"query": {"terms": {"user": dict(
+        lookup, index="nope")}}})
 
 
 def test_engine_get_reads_the_sealed_row(pair, monkeypatch):

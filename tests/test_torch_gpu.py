@@ -2024,3 +2024,60 @@ def test_sampled_out_request_adds_no_device_sync_on_cuda(cuda, monkeypatch):
             assert calls == {"device": 0, "event": batches}, (rate, calls)
     finally:
         telemetry.TRACER.configure(sample_rate=before)
+
+
+def _scroll_hits(rc, path, body) -> list:
+    """Every hit of a scroll over `path`, page by page."""
+    import json
+    status, resp = rc.dispatch("POST", path, {"scroll": "1m"},
+                               json.dumps(body).encode())
+    assert status == 200, resp
+    hits, sid = list(resp["hits"]["hits"]), resp["_scroll_id"]
+    while resp["hits"]["hits"]:
+        status, resp = _req(rc, "POST", "/_search/scroll", {"scroll_id": sid})
+        assert status == 200, resp
+        hits += resp["hits"]["hits"]
+    return hits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 2])
+def test_search_api_on_cuda_matches_cpu(cuda, monkeypatch, shards):
+    """`indices_boost` over a `knn` body on two indices, `pinned` around a
+    `knn` clause, and a scroll over a `knn` body on a CUDA node and a CPU
+    node: each launches the binned kernel once a shard an index on the
+    card (the scroll only at its start), and its hits equal the CPU
+    node's (scores within 2e-3, ids where the scores are clear of each
+    other; the pinned ids first, in their order)."""
+    pair = _mixed_pair(cuda, monkeypatch, shards)
+    for _, rc in pair:
+        # one clean generation an index: an unfiltered leg is one launch
+        assert _req(rc, "POST", "/a,b/_forcemerge")[0] == 200
+    (_, grc), (_, crc) = pair
+    for qv in _separated_vectors(crc, ["/a/_search", "/b/_search"], 2):
+        knn = {"field": "v", "query_vector": qv, "k": 10,
+               "num_candidates": 60}
+        for path, body, indices in (
+                ("/a,b/_search", {"knn": knn, "size": 10, "_source": False,
+                                  "indices_boost": [{"b": 2.0}]}, 2),
+                ("/a/_search", {"query": {"pinned": {
+                    "ids": ["a3", "a150", "a8"],
+                    "organic": {"knn": knn}}}, "size": 12}, 1)):
+            dispatch.reset_launches()
+            s1, got = _req(grc, "POST", path, body)
+            assert s1 == 200, got
+            assert dispatch.launches().get(kb.KERNEL_BF16, 0) \
+                == shards * indices
+            s2, want = _req(crc, "POST", path, body)
+            assert s2 == 200, want
+            _same_hits(got, want, 2e-3)
+            if "query" in body:
+                assert [h["_id"] for h in got["hits"]["hits"][:3]] \
+                    == ["a3", "a150", "a8"]
+        body = {"knn": dict(knn, k=20), "size": 7}
+        dispatch.reset_launches()
+        got = _scroll_hits(grc, "/a/_search", body)
+        assert dispatch.launches().get(kb.KERNEL_BF16, 0) == shards
+        want = _scroll_hits(crc, "/a/_search", body)
+        assert len(got) == len(want) == 20
+        _same_hits({"hits": {"hits": got}}, {"hits": {"hits": want}}, 2e-3)

@@ -169,20 +169,24 @@ def test_hybrid_bm25_matches_reference_node(nodes, case):
 
 def test_unparsed_sub_search_is_a_400(nodes):
     """A sub-search of a kind the query phase does not parse is a 400
-    that names it; `prefix`, once such a kind, is a generic leg that
-    answers as the reference."""
+    that names it; `prefix` and `more_like_this`, once such kinds, are
+    generic legs that answer as the reference."""
     ref_req, port_req, _port, emb = nodes
-    body = _subs(emb, 1, {"more_like_this": {"fields": ["body"],
-                                             "like": "w1"}})
+    body = _subs(emb, 1, {"nested": {"path": "body",
+                                     "query": {"match_all": {}}}})
     status, resp = port_req("POST", "/hb/_search", body)
     assert status == 400
-    assert "sub-search [more_like_this] is not supported" \
+    assert "sub-search [nested] is not supported" \
         in resp["error"]["reason"]
-    body = _subs(emb, 1, {"prefix": {"body": "w1"}})
-    s1, want = ref_req("POST", "/hb/_search", body)
-    s2, got = port_req("POST", "/hb/_search", body)
-    assert s1 == s2 == 200, (want, got)
-    _same(want, got)
+    for leg in ({"prefix": {"body": "w1"}},
+                {"more_like_this": {"fields": ["body"], "like": "w1 w2 w1",
+                                    "min_term_freq": 1,
+                                    "min_doc_freq": 1}}):
+        body = _subs(emb, 1, leg)
+        s1, want = ref_req("POST", "/hb/_search", body)
+        s2, got = port_req("POST", "/hb/_search", body)
+        assert s1 == s2 == 200, (want, got)
+        _same(want, got)
 
 
 def _concurrently(port, calls, monkeypatch):

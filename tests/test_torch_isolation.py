@@ -44,7 +44,7 @@ def test_port_imports_without_jax_or_reference():
                  "cluster.routing", "indices.service", "native", "ops.bm25",
                  "index.analysis", "index.analysis_lang", "ops.sparse",
                  "search.caches", "node", "rest.actions", "rest.controller",
-                 "common.errors", "search.aggregations",
+                 "common.errors", "common.settings", "search.aggregations",
                  "search.agg_partials", "search.agg_plan", "ops.aggs",
                  "segments", "segments.policy", "segments.generation",
                  "segments.generational", "columnar.store", "telemetry",

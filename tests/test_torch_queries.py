@@ -292,22 +292,24 @@ def test_errors_match_reference(nodes, case):
 
 def test_unported_query_kind_is_a_400(nodes):
     """A kind still left out is a 400 that names it and the ROADMAP.md
-    item that brings it; `prefix`, once left out, answers as the
-    reference."""
+    item that brings it; `prefix` and `more_like_this`, once left out,
+    answer as the reference."""
     ref_req, port_req = nodes
     status, resp = port_req("POST", "/q/_search", {"query": {
-        "more_like_this": {"fields": ["kw"], "like": "re"}}})
+        "nested": {"path": "kw", "query": {"match_all": {}}}}})
     assert status == 400
     assert resp["error"]["type"] == "parsing_exception"
-    assert "[more_like_this] query is not supported" \
-        in resp["error"]["reason"]
-    assert "ROADMAP.md queue 1 item 3" in resp["error"]["reason"]
-    body = {"query": {"prefix": {"kw": "re"}}, "size": 50}
-    (s1, want), (s2, got) = (ref_req("POST", "/q/_search", body),
-                             port_req("POST", "/q/_search", body))
-    assert s1 == s2 == 200
-    assert [h["_id"] for h in got["hits"]["hits"]] \
-        == [h["_id"] for h in want["hits"]["hits"]]
+    assert "[nested] query is not supported" in resp["error"]["reason"]
+    assert "ROADMAP.md queue 1 item 4" in resp["error"]["reason"]
+    for body in ({"query": {"prefix": {"kw": "re"}}, "size": 50},
+                 {"query": {"more_like_this": {
+                     "fields": ["kw"], "like": "re", "min_term_freq": 1,
+                     "min_doc_freq": 1}}, "size": 50}):
+        (s1, want), (s2, got) = (ref_req("POST", "/q/_search", body),
+                                 port_req("POST", "/q/_search", body))
+        assert s1 == s2 == 200
+        assert [h["_id"] for h in got["hits"]["hits"]] \
+            == [h["_id"] for h in want["hits"]["hits"]]
     status, resp = port_req("PUT", "/t2", {"mappings": {"properties": {
         "x": {"type": "nested"}}}})
     assert status == 400

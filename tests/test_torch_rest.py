@@ -134,10 +134,10 @@ def test_errors_follow_reference_shape(clients):
     status, got = port.req("POST", "/e/_search", {"foo": 1})
     assert status == 400 and got["error"]["type"] == "parsing_exception"
     status, got = port.req("PUT", "/t", {"mappings": {"properties": {
-        "x": {"type": "geo_shape"}}}})
+        "x": {"type": "percolator"}}}})
     assert status == 400
     assert got["error"]["reason"] == \
-        "No handler for type [geo_shape] declared on field [x]"
+        "No handler for type [percolator] declared on field [x]"
 
 
 def test_source_disabled_and_http_round_trip():
