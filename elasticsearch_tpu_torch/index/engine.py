@@ -296,11 +296,21 @@ class Engine:
               version: Optional[int] = None,
               version_type: str = "internal") -> EngineResult:
         """One document, its conflicts checked as the reference checks
-        them (`_check_conflicts`); a conflict raises."""
-        res = self.index_many(
-            [doc_id], [source], op_type=op_type, routings=[routing],
-            if_seq_no=if_seq_no, if_primary_term=if_primary_term,
-            version=version, version_type=version_type)[0]
+        them (`_check_conflicts`); a conflict raises. A document that
+        fails to parse takes its seq_no (the reference's engine assigns it
+        before it parses) unless it conflicts, which raises first."""
+        try:
+            res = self.index_many(
+                [doc_id], [source], op_type=op_type, routings=[routing],
+                if_seq_no=if_seq_no, if_primary_term=if_primary_term,
+                version=version, version_type=version_type)[0]
+        except SearchEngineError:
+            with self._lock:
+                self._check_conflicts(
+                    doc_id, self.version_map.get(doc_id), version,
+                    version_type, if_seq_no, if_primary_term, op_type)
+            self.fail_seq_no()
+            raise
         if isinstance(res, SearchEngineError):
             raise res
         return res

@@ -41,13 +41,21 @@ such as "strict", reads as false, as in the reference) maps a document's
 unmapped fields from their first value: boolean, long, float, a
 `yyyy-MM-dd` date string as `date`, any other string as `text` with a
 `keyword` sub-field at `ignore_above: 256`. An object in a document is
-walked by path; an array of objects is flattened into its paths. `nested`
-and every other type the reference registers raise its
-mapper-parsing error.
+walked by path; an array of objects is flattened into its paths, a
+`nested` one too (its objects stay in `_source`, where the `nested` query,
+inner hits and aggregation read them), and
+`index.mapping.nested_objects.limit` bounds the nested objects of a
+document. `join` ({name, parent}), `percolator` (a query, parsed at write
+time), `binary`, `search_as_you_type` (with its shingle and prefix
+sub-fields), `token_count`, `wildcard`, `constant_keyword`, `murmur3`,
+`histogram`, `flattened`, `annotated_text` and `alias` are mapped as the
+reference maps them: the port maps every type it registers.
 """
 
 from __future__ import annotations
 
+import base64
+import binascii
 import calendar
 import datetime as _dt
 import ipaddress
@@ -55,15 +63,17 @@ import math
 import re
 import threading
 import time
+import urllib.parse
 from contextlib import contextmanager
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from elasticsearch_tpu_torch.cluster.routing import murmur3_x86_32_many
 from elasticsearch_tpu_torch.common.errors import (
     IllegalArgumentError, MapperParsingError,
 )
-from elasticsearch_tpu_torch.index.analysis import AnalysisRegistry
+from elasticsearch_tpu_torch.index.analysis import AnalysisRegistry, Token
 
 # --------------------------------------------------------------- dates
 
@@ -938,23 +948,353 @@ class CompletionFieldMapper(FieldMapper):
         return {"input": inputs, "weight": weight, "contexts": contexts}
 
 
+class NestedMapper(FieldMapper):
+    """`nested`: an object (or an array of objects) whose objects are
+    documents of their own to the `nested` query, inner hits and the
+    `nested` aggregation. Its fields are mapped by path as an object's
+    are, and a document keeps its objects flattened into those paths, as
+    the reference keeps them."""
+
+    type_name = "nested"
+
+
+class JoinFieldMapper(FieldMapper):
+    """`join`: `relations` maps a parent name to its children. A value is
+    a relation name or {name, parent}; the name indexes as a term and the
+    value stays as the doc value the parent-join queries read."""
+
+    type_name = "join"
+
+    def __init__(self, name, params=None):
+        super().__init__(name, params)
+        self.relations: Dict[str, List[str]] = {}
+        for parent, children in (self.params.get("relations") or {}).items():
+            self.relations[parent] = (children if isinstance(children, list)
+                                      else [children])
+
+    def coerce(self, value):
+        if isinstance(value, str):
+            return {"name": value}
+        if isinstance(value, dict) and "name" in value:
+            return value
+        raise MapperParsingError(f"[{self.name}] join value must be a "
+                                 f"relation name or {{name, parent}}")
+
+    def index_terms(self, value):
+        return [self.coerce(value)["name"]]
+
+    def doc_value(self, value):
+        return self.coerce(value)
+
+
+class PercolatorFieldMapper(FieldMapper):
+    """`percolator`: a stored query, parsed when the document is written
+    (a query that does not parse fails the document) and kept as its doc
+    value for the `percolate` query."""
+
+    type_name = "percolator"
+
+    def coerce(self, value):
+        if not isinstance(value, dict):
+            raise MapperParsingError(
+                f"[{self.name}] percolator field must hold a query object")
+        from elasticsearch_tpu_torch.search.queries import parse_query
+        parse_query(value)
+        return value
+
+    def doc_value(self, value):
+        return self.coerce(value)
+
+
+class BinaryFieldMapper(FieldMapper):
+    """`binary`: a base64 string, checked, kept as a doc value (unless
+    `doc_values: false`) and never searchable."""
+
+    type_name = "binary"
+
+    def coerce(self, value) -> str:
+        s = str(value)
+        try:
+            base64.b64decode(s, validate=True)
+        except (binascii.Error, ValueError):
+            raise MapperParsingError(
+                f"[{self.name}] failed to parse base64 binary value")
+        return s
+
+    def doc_value(self, value):
+        return self.coerce(value) if self.params.get("doc_values", True) \
+            else None
+
+
+class _ShingleAnalyzer:
+    """Word shingles of size n over a base analyzer's terms (the index
+    and search side of the `search_as_you_type` shingle sub-fields)."""
+
+    def __init__(self, base, n: int):
+        self.base = base
+        self.n = n
+
+    def terms(self, text: str) -> List[str]:
+        base = self.base.terms(text)
+        return [" ".join(base[i:i + self.n])
+                for i in range(len(base) - self.n + 1)]
+
+    def analyze(self, text: str):
+        return [Token(t, i, 0, 0) for i, t in enumerate(self.terms(text))]
+
+
+class _ShingleTextMapper(TextFieldMapper):
+    """A `search_as_you_type` sub-field of word shingles of size n."""
+
+    type_name = "text"
+
+    def __init__(self, name, params=None, shingle_size=2):
+        super().__init__(name, params)
+        self.shingle_size = shingle_size
+        self.analyzer = _ShingleAnalyzer(self.analyzer, shingle_size)
+        self.search_analyzer = _ShingleAnalyzer(self.search_analyzer,
+                                                shingle_size)
+
+
+class _PrefixTextMapper(TextFieldMapper):
+    """The `search_as_you_type` `._index_prefix` sub-field: the edge
+    n-grams (1 to 19 characters) of the 1-, 2- and 3-word shingles."""
+
+    type_name = "text"
+
+    def analyze(self, value):
+        base = super().analyze(value)
+        out = []
+        for n in (1, 2, 3):
+            for i in range(max(0, len(base) - n + 1)):
+                shingle = " ".join(base[i:i + n])
+                out.extend(shingle[:j]
+                           for j in range(1, min(len(shingle), 19) + 1))
+        return sorted(set(out))
+
+    def analyze_positions(self, value):
+        return [Token(t, i, 0, 0) for i, t in enumerate(self.analyze(value))]
+
+
+class SearchAsYouTypeFieldMapper(TextFieldMapper):
+    """`search_as_you_type`: a text field; the mapping adds its `._2gram`
+    and `._3gram` shingle sub-fields and its `._index_prefix` edge n-gram
+    sub-field, which `multi_match` `bool_prefix` reads."""
+
+    type_name = "search_as_you_type"
+
+
+class TokenCountFieldMapper(FieldMapper):
+    """`token_count`: the number of tokens the field's `analyzer` makes
+    of a value, indexed as a number; an integer value is the count."""
+
+    type_name = "token_count"
+
+    def __init__(self, name, params=None,
+                 registry: Optional[AnalysisRegistry] = None):
+        super().__init__(name, params)
+        if registry is None:
+            from elasticsearch_tpu_torch.index import analysis
+            registry = analysis.DEFAULT_REGISTRY
+        self.analyzer = registry.get(self.params.get("analyzer", "standard"))
+
+    def count(self, value) -> int:
+        if isinstance(value, int) and not isinstance(value, bool):
+            return value
+        return len(self.analyzer.terms(str(value)))
+
+    def index_terms(self, value):
+        return [repr(self.count(value))]
+
+    def doc_value(self, value):
+        return self.count(value)
+
+
+class WildcardFieldMapper(KeywordFieldMapper):
+    """`wildcard`: indexed as `keyword`."""
+
+    type_name = "wildcard"
+
+
+class ConstantKeywordFieldMapper(FieldMapper):
+    """`constant_keyword`: one value for every document of the index. The
+    first value written sets the mapping's `value` (under the mapping's
+    lock, `MapperService._fix_constant`) unless the mapping gave it; a
+    value that differs is a mapper-parsing error. A query-side value never
+    sets it."""
+
+    type_name = "constant_keyword"
+
+    def coerce(self, value) -> str:
+        s = str(value)
+        const = self.params.get("value")
+        if const is not None and s != const:
+            raise MapperParsingError(
+                f"[{self.name}] constant_keyword field is already set to "
+                f"[{const}], cannot index [{s}]")
+        return s
+
+    def index_terms(self, value):
+        return [self.coerce(value)]
+
+    def doc_value(self, value):
+        return self.coerce(value)
+
+
+class Murmur3FieldMapper(FieldMapper):
+    """`murmur3`: the value's murmur3 hash (seed 0 over its UTF-8 bytes)
+    as a signed 32-bit doc value."""
+
+    type_name = "murmur3"
+
+    def doc_value(self, value):
+        return int(murmur3_x86_32_many([str(value).encode("utf-8")])[0])
+
+
+class HistogramFieldMapper(FieldMapper):
+    """`histogram`: a pre-aggregated {values, counts} doc value: as many
+    counts as values, counts >= 0, values increasing."""
+
+    type_name = "histogram"
+
+    def coerce(self, value) -> dict:
+        if not isinstance(value, dict) or "values" not in value \
+                or "counts" not in value:
+            raise MapperParsingError(
+                f"[{self.name}] histogram must be {{values, counts}}")
+        values = [float(v) for v in value["values"]]
+        counts = [int(c) for c in value["counts"]]
+        if len(values) != len(counts):
+            raise MapperParsingError(
+                f"[{self.name}] expected same length for values and counts")
+        if any(c < 0 for c in counts):
+            raise MapperParsingError(f"[{self.name}] counts must be >= 0")
+        if values != sorted(values):
+            raise MapperParsingError(
+                f"[{self.name}] values must be in increasing order")
+        return {"values": values, "counts": counts}
+
+    def doc_value(self, value):
+        return self.coerce(value)
+
+
+class FlattenedFieldMapper(FieldMapper):
+    """`flattened`: a whole object indexed as keywords. The field's own
+    terms are every leaf value, and `field.key.path` holds that key's
+    values (`MapperService._index_one` indexes both); objects deeper than
+    `depth_limit` (20) are a mapper-parsing error."""
+
+    type_name = "flattened"
+
+    def __init__(self, name, params=None):
+        super().__init__(name, params)
+        self.depth_limit = int(self.params.get("depth_limit", 20))
+
+    def coerce(self, value) -> dict:
+        if not isinstance(value, dict):
+            raise MapperParsingError(
+                f"[{self.name}] flattened field value must be an object")
+        return value
+
+    def index_terms(self, value):
+        # a query value: a leaf's term
+        if isinstance(value, dict):
+            return []
+        return [_flat_str(value)]
+
+    def leaves(self, value, prefix: str = "", depth: int = 0):
+        """(key path, leaf string) of every leaf of an object."""
+        if depth > self.depth_limit:
+            raise MapperParsingError(
+                f"[{self.name}] object depth exceeds depth_limit "
+                f"[{self.depth_limit}]")
+        for k, v in value.items():
+            path = f"{prefix}{k}"
+            if isinstance(v, dict):
+                yield from self.leaves(v, path + ".", depth + 1)
+            elif isinstance(v, list):
+                for item in v:
+                    if isinstance(item, dict):
+                        yield from self.leaves(item, path + ".", depth + 1)
+                    elif item is not None:
+                        yield path, _flat_str(item)
+            elif v is not None:
+                yield path, _flat_str(v)
+
+    def doc_value(self, value):
+        return self.coerce(value)
+
+
+def _flat_str(v) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    return str(v)
+
+
+class AnnotatedTextFieldMapper(TextFieldMapper):
+    """`annotated_text`: text where `[text](annotation)` indexes the text
+    and each `&`-separated, URL-decoded annotation as well."""
+
+    type_name = "annotated_text"
+
+    _ANNOTATION = re.compile(r"\[([^\]]+)\]\(([^)]+)\)")
+
+    def _expand(self, value: str) -> str:
+        annotations = []
+
+        def sub(m):
+            annotations.extend(urllib.parse.unquote(part)
+                               for part in m.group(2).split("&"))
+            return m.group(1)
+
+        text = self._ANNOTATION.sub(sub, str(value))
+        return text + ("\n" + "\n".join(annotations) if annotations else "")
+
+    def analyze(self, value):
+        return super().analyze(self._expand(str(value)))
+
+    def analyze_positions(self, value):
+        return super().analyze_positions(self._expand(str(value)))
+
+
+class AliasFieldMapper(FieldMapper):
+    """`alias`: another name of the field at `path`, for queries,
+    aggregations, sorts and collapse (`MapperService.get` and
+    `resolve_field` follow it one hop); a write to it is a 400."""
+
+    type_name = "alias"
+
+    def __init__(self, name, params=None):
+        super().__init__(name, params)
+        if not self.params.get("path"):
+            raise MapperParsingError(f"[{name}] alias requires [path]")
+        self.path = self.params["path"]
+
+
 FIELD_TYPES = {m.type_name: m for m in (
     TextFieldMapper, KeywordFieldMapper, LongFieldMapper, IntegerFieldMapper,
     ShortFieldMapper, ByteFieldMapper, DoubleFieldMapper, FloatFieldMapper,
     HalfFloatFieldMapper, ScaledFloatFieldMapper, BooleanFieldMapper,
     DateFieldMapper, DateNanosFieldMapper, IpFieldMapper, GeoPointFieldMapper,
-    GeoShapeFieldMapper, ObjectMapper, DenseVectorFieldMapper,
+    GeoShapeFieldMapper, ObjectMapper, NestedMapper, DenseVectorFieldMapper,
     RankVectorsFieldMapper, RankFeatureFieldMapper, RankFeaturesFieldMapper,
-    SparseVectorFieldMapper,
+    SparseVectorFieldMapper, JoinFieldMapper, PercolatorFieldMapper,
+    BinaryFieldMapper,
     IntegerRangeFieldMapper, LongRangeFieldMapper, FloatRangeFieldMapper,
     DoubleRangeFieldMapper, DateRangeFieldMapper, IpRangeFieldMapper,
-    CompletionFieldMapper)}
+    CompletionFieldMapper, SearchAsYouTypeFieldMapper, TokenCountFieldMapper,
+    WildcardFieldMapper, ConstantKeywordFieldMapper, Murmur3FieldMapper,
+    HistogramFieldMapper, FlattenedFieldMapper, AnnotatedTextFieldMapper,
+    AliasFieldMapper)}
 
-# mappers whose one value is a JSON object (or an array of them), not an
-# object of fields
+# mappers whose value may be an array of JSON objects, each one value,
+# not an object of fields (a `join` or `percolator` value is one object,
+# and an array of objects under them is walked as objects, as in the
+# reference)
 _OBJECT_VALUED = (GeoPointFieldMapper, GeoShapeFieldMapper,
                   RangeFieldMapperBase, RankFeaturesFieldMapper,
-                  CompletionFieldMapper)
+                  CompletionFieldMapper, FlattenedFieldMapper,
+                  HistogramFieldMapper)
 
 
 def build_mapper(name: str, definition: dict,
@@ -974,7 +1314,7 @@ def build_mapper(name: str, definition: dict,
             f"No handler for type [{t}] declared on field [{name}]")
     params = {k: v for k, v in definition.items()
               if k not in ("type", "properties", "fields")}
-    if cls is TextFieldMapper:
+    if issubclass(cls, (TextFieldMapper, TokenCountFieldMapper)):
         return cls(name, params, registry=registry)
     return cls(name, params)
 
@@ -995,6 +1335,8 @@ class MapperService:
         self._meta: dict = {}
         self.source_enabled = True
         self.dynamic = True
+        # `index.mapping.nested_objects.limit` (no limit when None)
+        self.nested_objects_limit: Optional[int] = None
         # the index's analyzers (`AnalysisRegistry.from_index_settings`)
         self.registry = registry
         self._lock = threading.Lock()
@@ -1033,11 +1375,9 @@ class MapperService:
                 raise MapperParsingError(
                     f"invalid mapping definition for [{path}]")
             if "properties" in definition:
-                if definition.get("type") == "nested":
-                    raise MapperParsingError(
-                        f"No handler for type [nested] declared on field "
-                        f"[{path}]")
                 self._merge_props(definition["properties"], prefix=path + ".")
+                if definition.get("type") == "nested":
+                    self._put(path, NestedMapper(path, {}))
                 continue
             mapper = build_mapper(path, definition, self.registry)
             self._put(path, mapper)
@@ -1045,6 +1385,18 @@ class MapperService:
                 sub = build_mapper(f"{path}.{sub_name}", sub_def,
                                    self.registry)
                 self._put_multi_field(path, sub_name, sub)
+            if isinstance(mapper, SearchAsYouTypeFieldMapper):
+                # the shingle and prefix sub-fields, analyzed as the field
+                analyzer_params = {k: v for k, v in mapper.params.items()
+                                   if k in ("analyzer", "search_analyzer")}
+                for sub_name, sub in (
+                        ("_2gram", _ShingleTextMapper(
+                            f"{path}._2gram", analyzer_params, 2)),
+                        ("_3gram", _ShingleTextMapper(
+                            f"{path}._3gram", analyzer_params, 3)),
+                        ("_index_prefix", _PrefixTextMapper(
+                            f"{path}._index_prefix", analyzer_params))):
+                    self._put_multi_field(path, sub_name, sub)
 
     @contextmanager
     def _writing(self):
@@ -1079,13 +1431,29 @@ class MapperService:
         self._put(f"{path}.{sub_name}", sub)
 
     def get(self, path: str) -> Optional[FieldMapper]:
+        """The mapper of a path; an `alias` gives its target's (None for
+        an alias of an alias)."""
+        mapper = self._mappers.get(path)
+        if isinstance(mapper, AliasFieldMapper):
+            target = self._mappers.get(mapper.path)
+            return None if isinstance(target, AliasFieldMapper) else target
+        return mapper
+
+    def get_raw(self, path: str) -> Optional[FieldMapper]:
+        """The mapper of a path as mapped, an `alias` itself."""
         return self._mappers.get(path)
+
+    def resolve_field(self, path: str) -> str:
+        """The field an `alias` names (one hop), else the path."""
+        mapper = self._mappers.get(path)
+        return mapper.path if isinstance(mapper, AliasFieldMapper) else path
 
     def maps_object(self, path: str) -> bool:
         """Whether `path` is an object of the mapping: mapped as one, or
         the prefix of a mapped path."""
         prefix = path + "."
-        return isinstance(self._mappers.get(path), ObjectMapper) or any(
+        return isinstance(self._mappers.get(path),
+                          (ObjectMapper, NestedMapper)) or any(
             p.startswith(prefix) for p in self._mappers)
 
     def to_dict(self) -> dict:
@@ -1145,17 +1513,44 @@ class MapperService:
         each multi-field indexes every value of its parent."""
         if not isinstance(source, dict):
             raise MapperParsingError("document source must be an object")
+        limit = self.nested_objects_limit
+        if limit is not None and self._count_nested_docs(source, "") > limit:
+            raise IllegalArgumentError(
+                f"The number of nested documents has exceeded the allowed "
+                f"limit of [{limit}]. This limit can be set by changing "
+                f"the [index.mapping.nested_objects.limit] index level "
+                f"setting.")
         parsed = ParsedFields()
         self._parse_object(source, "", parsed)
         return parsed
+
+    def _count_nested_docs(self, obj: dict, prefix: str) -> int:
+        """The nested documents an object holds: each object under a
+        `nested` path, at every depth."""
+        total = 0
+        for k, v in obj.items():
+            path = prefix + k
+            is_nested = isinstance(self.get(path), NestedMapper)
+            if isinstance(v, list):
+                items = [i for i in v if isinstance(i, dict)]
+                if is_nested:
+                    total += len(items)
+                for item in items:
+                    total += self._count_nested_docs(item, path + ".")
+            elif isinstance(v, dict):
+                if is_nested:
+                    total += 1
+                total += self._count_nested_docs(v, path + ".")
+        return total
 
     def _parse_object(self, obj: dict, prefix: str,
                       parsed: "ParsedFields") -> None:
         for key, value in obj.items():
             path = f"{prefix}{key}"
-            mapper = self._mappers.get(path)
+            mapper = self.get(path)
             if isinstance(value, dict):
-                if mapper is None or isinstance(mapper, ObjectMapper):
+                if mapper is None \
+                        or isinstance(mapper, (ObjectMapper, NestedMapper)):
                     self._parse_object(value, path + ".", parsed)
                     continue
             elif isinstance(value, list) and value \
@@ -1171,6 +1566,9 @@ class MapperService:
     def _parse_field(self, path: str, value: Any,
                      parsed: "ParsedFields") -> None:
         mapper = self._mappers.get(path)
+        if isinstance(mapper, AliasFieldMapper):
+            raise MapperParsingError(
+                f"Cannot write to a field alias [{path}].")
         if mapper is None:
             if value is None or not self.dynamic:
                 return  # unmapped: kept in _source, not indexed
@@ -1221,9 +1619,20 @@ class MapperService:
             fmap = parsed.doc_values.pop(path)
             parsed.features[path] = (list(fmap), list(fmap.values()))
 
-    @staticmethod
-    def _index_one(path: str, mapper: FieldMapper, v: Any,
+    def _index_one(self, path: str, mapper: FieldMapper, v: Any,
                    parsed: "ParsedFields") -> None:
+        if isinstance(mapper, AliasFieldMapper):
+            raise MapperParsingError(
+                f"Cannot write to a field alias [{path}].")
+        if isinstance(mapper, FlattenedFieldMapper):
+            # the root field holds every leaf, `path.key` that key's
+            obj = mapper.coerce(v)
+            root_terms = parsed.terms.setdefault(path, [])
+            for key_path, leaf in mapper.leaves(obj):
+                root_terms.append(leaf)
+                parsed.terms.setdefault(f"{path}.{key_path}", []).append(leaf)
+            parsed.doc_values[path] = obj
+            return
         if isinstance(mapper, TextFieldMapper):
             # a later value of a multi-valued field continues the
             # positions where the one before ended
@@ -1240,6 +1649,8 @@ class MapperService:
         terms = mapper.index_terms(v)
         if terms:
             parsed.terms.setdefault(path, []).extend(terms)
+        if isinstance(mapper, ConstantKeywordFieldMapper):
+            self._fix_constant(mapper, v)
         dv = mapper.doc_value(v)
         if dv is not None:
             existing = parsed.doc_values.get(path)
@@ -1249,6 +1660,15 @@ class MapperService:
                 existing.append(dv)
             else:
                 parsed.doc_values[path] = [existing, dv]
+
+    def _fix_constant(self, mapper: "ConstantKeywordFieldMapper",
+                      value: Any) -> None:
+        """The first value a `constant_keyword` field is written with sets
+        its mapping's `value`, under the lock the index's shards share."""
+        if mapper.params.get("value") is None:
+            with self._lock:
+                if mapper.params.get("value") is None:
+                    mapper.params["value"] = str(value)
 
     def _map_dynamic(self, path: str, value: Any) -> Optional[FieldMapper]:
         """Map an unmapped path from its value, under the lock: a field

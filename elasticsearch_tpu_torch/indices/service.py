@@ -236,6 +236,11 @@ class IndexService:
         self.mapper_service = MapperService(
             mapping, registry=AnalysisRegistry.from_index_settings(
                 self.settings))
+        nested_limit = self.settings.get(
+            "index.mapping.nested_objects.limit",
+            self.settings.get("mapping.nested_objects.limit"))
+        if nested_limit is not None:
+            self.mapper_service.nested_objects_limit = int(nested_limit)
         self.shards: List[IndexShardHandle] = [
             IndexShardHandle(s, self.mapper_service, device,
                              knn_engine=knn_engine, knn_nlist=knn_nlist,
@@ -270,14 +275,16 @@ class IndexService:
         return self.shards[shard_id_for(key, self.num_shards)]
 
     def index_many(self, ids: List[str], sources=None,
-                   vectors=None) -> List[EngineResult]:
+                   vectors=None, routings=None) -> List[EngineResult]:
         """`Engine.index_many` over the shards: each document goes to the
-        shard its `_id` hashes to, as `_bulk` sends it, with its rows of
-        `vectors` ([n, dims] arrays). Results come back in the batch's
-        order."""
+        shard its routing value (else its `_id`) hashes to, as `_bulk`
+        sends it, with its rows of `vectors` ([n, dims] arrays). Results
+        come back in the batch's order."""
         ids = list(ids)
         sources = None if sources is None else list(sources)
-        target = shard_ids_for(ids, self.num_shards)
+        target = shard_ids_for(ids if routings is None else [
+            i if r is None else r for i, r in zip(ids, routings)],
+            self.num_shards)
         out: List[Optional[EngineResult]] = [None] * len(ids)
         for s in np.unique(target).tolist():
             pos = np.nonzero(target == s)[0]
@@ -289,7 +296,9 @@ class IndexService:
                 else [sources[i] for i in at],
                 vectors=None if vectors is None else {
                     f: block if whole else block[pos]
-                    for f, block in vectors.items()})
+                    for f, block in vectors.items()},
+                routings=None if routings is None
+                else [routings[i] for i in at])
             for i, r in zip(at, res):
                 out[i] = r
         return out

@@ -31,7 +31,7 @@ from elasticsearch_tpu_torch.search.aggregations import (
 from elasticsearch_tpu_torch.search.queries import SearchContext
 
 # single-bucket aggs: one {doc_count, subs...} object, no bucket list
-SINGLE_BUCKET = {"filter", "global", "missing"}
+SINGLE_BUCKET = {"filter", "global", "missing", "nested", "reverse_nested"}
 
 # HyperLogLog (cardinality): p = 12 (4096 registers, ~1.6% standard
 # error), sparse below 512 occupied registers

@@ -446,6 +446,10 @@ class AggEngine:
     # -------------------------------------------------------------- compute
     def compute(self, ctx, rows: np.ndarray, aggs_spec: dict,
                 partial: bool = False) -> Optional[Tuple[dict, dict]]:
+        if getattr(ctx, "nested_path", None):
+            # under a nested scope a bucket counts value occurrences,
+            # which the device boards do not
+            return None
         plan = compile_plan(aggs_spec, self.mapper_service)
         if plan.device_count == 0:
             for node in plan.nodes.values():

@@ -15,16 +15,20 @@ values; the shard partials of `search/agg_partials.py` carry an HLL) and
 (`size`, `order`, `missing`, `min_doc_count`, `include` / `exclude`,
 `value_type`), `histogram`, `date_histogram` (calendar and fixed
 intervals, `offset`, `time_zone`, `format`, `extended_bounds`), `range`,
-`date_range`, `ip_range`, `filter`, `filters`, `missing` and `global`.
+`date_range`, `ip_range`, `filter`, `filters`, `missing`, `global`,
+`nested` (its `doc_count` the nested objects of its rows; inside it a
+`terms` bucket on a field under the path counts each value occurrence,
+while its sub-aggregations run over the unique parent rows) and
+`reverse_nested` (back to the parents, or to an outer nested `path`).
 `search.max_buckets` (`ctx.max_buckets`) bounds each bucket list.
 
 Left out, each a 400 that names it (`validate_aggs`, `LEFT_OUT`): the
 pipeline aggregations, `composite`, `significant_terms`,
 `significant_text`, `rare_terms`, `sampler`, `auto_date_histogram`,
-`adjacency_matrix`, the geo aggregations, `nested` / `reverse_nested`,
-`top_hits`, `top_metrics`, `weighted_avg`, `median_absolute_deviation`,
-`boxplot`, `percentile_ranks`, `string_stats`, `matrix_stats`,
-`scripted_metric`, HDR percentiles and `script` on any aggregation.
+`adjacency_matrix`, the geo aggregations, `top_hits`, `top_metrics`,
+`weighted_avg`, `median_absolute_deviation`, `boxplot`,
+`percentile_ranks`, `string_stats`, `matrix_stats`, `scripted_metric`,
+HDR percentiles and `script` on any aggregation.
 """
 
 from __future__ import annotations
@@ -51,7 +55,8 @@ from elasticsearch_tpu_torch.search.service import (
 MAX_BUCKETS = 65536  # search.max_buckets default; bounds histogram spans
 
 BUCKET_AGGS = {"terms", "histogram", "date_histogram", "range", "date_range",
-               "ip_range", "filter", "filters", "missing", "global"}
+               "ip_range", "filter", "filters", "missing", "global",
+               "nested", "reverse_nested"}
 METRIC_AGGS = {"avg", "sum", "min", "max", "stats", "extended_stats",
                "value_count", "cardinality", "percentiles"}
 PIPELINE_AGGS = {"avg_bucket", "max_bucket", "min_bucket", "sum_bucket",
@@ -72,9 +77,6 @@ LEFT_OUT = {
           "item 7)"
        for k in ("geohash_grid", "geotile_grid", "geo_bounds",
                  "geo_centroid")},
-    **{k: "nested documents are not ported (ROADMAP.md queue 1 item "
-          "4, documents within documents)"
-       for k in ("nested", "reverse_nested")},
     **{k: "this metric aggregation is not ported (ROADMAP.md queue 1 "
           "item 7)"
        for k in ("top_hits", "top_metrics", "weighted_avg",
@@ -93,6 +95,7 @@ _STRUCTURAL = ("aggs", "aggregations", "meta")
 def raw_values(ctx: SearchContext, rows: np.ndarray, field: str) -> np.ndarray:
     """Each row's doc value of `field` as its column holds it (a list for a
     multi-valued doc; None when the doc has none), as an object array."""
+    field = ctx.mapper_service.resolve_field(field)
     rows = np.asarray(rows, dtype=np.int64)
     out = np.empty(len(rows), dtype=object)
     if not len(rows):
@@ -112,7 +115,8 @@ def numeric_values(ctx: SearchContext, rows: np.ndarray, field: str,
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """(values f64, present) of one field over rows; with `missing` every
     absent value takes it and every row is present."""
-    vals, present = _numeric_columns(ctx.reader, rows, field)
+    vals, present = _numeric_columns(
+        ctx.reader, rows, ctx.mapper_service.resolve_field(field))
     if missing is not None:
         vals[~present] = missing
         present = np.ones(len(vals), dtype=bool)
@@ -583,8 +587,18 @@ def _terms(ctx, rows, spec, sub_aggs, recurse) -> dict:
                         all_values(ctx, ctx.all_rows(), field)}
         for t in universe:
             groups.setdefault(t, [])
+    # under a nested scope, a field of the path counts each value
+    # occurrence (one a nested document), while the sub-aggregations run
+    # over the unique parent rows
+    scope = getattr(ctx, "nested_path", None)
+    occ = None
+    if scope and isinstance(field, str) and field.startswith(scope + "."):
+        occ = {k: len(i_list) for k, i_list in groups.items()}
     items = [(k, np.asarray(sorted(set(i_list)), dtype=np.int64))
              for k, i_list in groups.items()]
+
+    def cnt(kv) -> int:
+        return occ[kv[0]] if occ is not None else len(kv[1])
     order_spec = spec.get("order")
     if order_spec and isinstance(order_spec, dict):
         ((okey, odir),) = order_spec.items()
@@ -592,7 +606,7 @@ def _terms(ctx, rows, spec, sub_aggs, recurse) -> dict:
         if okey == "_key":
             items.sort(key=lambda kv: _sort_key(kv[0]), reverse=reverse)
         elif okey == "_count":
-            items.sort(key=lambda kv: (len(kv[1]),), reverse=reverse)
+            items.sort(key=lambda kv: (cnt(kv),), reverse=reverse)
         else:
             def metric_val(kv):
                 node = recurse(ctx, rows[kv[1]], sub_aggs)
@@ -602,11 +616,14 @@ def _terms(ctx, rows, spec, sub_aggs, recurse) -> dict:
                     else (node or {}).get("value", 0)
             items.sort(key=metric_val, reverse=reverse)
     else:
-        items.sort(key=lambda kv: (-len(kv[1]), _sort_key(kv[0])))
-    total_other = sum(len(i) for _k, i in items[size:])
+        items.sort(key=lambda kv: (-cnt(kv), _sort_key(kv[0])))
+    total_other = sum(cnt(kv) for kv in items[size:])
     _check_max_buckets(ctx, min(len(items), size))
     buckets = _bucketize(ctx, sub_aggs,
                          [(k, rows[i]) for k, i in items[:size]], recurse)
+    if occ is not None:
+        for b, kv in zip(buckets, items[:size]):
+            b["doc_count"] = int(occ[kv[0]])
     format_terms_keys(buckets, tname)
     return {"doc_count_error_upper_bound": 0,
             "sum_other_doc_count": int(total_other), "buckets": buckets}
@@ -764,7 +781,76 @@ def _compute_bucket(ctx: SearchContext, rows: np.ndarray, kind: str,
                               fmt=spec.get("format"), tz=tz)
     if kind in ("range", "date_range", "ip_range"):
         return _ranges(ctx, rows, kind, spec, sub_aggs, recurse)
+    if kind == "nested":
+        # the rows stay the parents' (nested objects are stored in their
+        # parent); doc_count counts the nested objects
+        path = spec.get("path")
+        b = {"doc_count": count_nested_docs(ctx, rows, path)}
+        if sub_aggs:
+            prev = getattr(ctx, "nested_path", None)
+            ctx.nested_path = path
+            try:
+                b.update(recurse(ctx, rows, sub_aggs))
+            finally:
+                ctx.nested_path = prev
+        return b
+    if kind == "reverse_nested":
+        cur = getattr(ctx, "nested_path", None)
+        if cur is None:
+            raise ParsingError(
+                "Reverse nested aggregation must be used inside a [nested] "
+                "aggregation")
+        target = spec.get("path")
+        if target is not None and not cur.startswith(target + "."):
+            raise ParsingError(
+                f"Invalid path [{target}] for reverse_nested aggregation: "
+                f"not an ancestor of the current nested scope [{cur}]")
+        b = {"doc_count": int(len(rows))} if target is None else \
+            {"doc_count": count_nested_docs(ctx, rows, target)}
+        if sub_aggs:
+            ctx.nested_path = target
+            try:
+                b.update(recurse(ctx, rows, sub_aggs))
+            finally:
+                ctx.nested_path = cur
+        return b
     raise ParsingError(f"unknown bucket aggregation [{kind}]")
+
+
+def _nested_counts(seg, path: str) -> np.ndarray:
+    """The values (not None) at `path` in each document of a segment,
+    list-aware at every level, read from the sources once and kept with
+    the segment."""
+    key = ("nested_count", path)
+    got = seg.derived.get(key)
+    if got is None:
+        from elasticsearch_tpu_torch.search.queries_ext import _values_at
+        whole = path in seg.vectors or path in seg.tokens
+        got = np.zeros(seg.num_docs, dtype=np.int64)
+        for local in range(seg.num_docs):
+            src = seg.source(local) if whole else (seg.sources[local] or {})
+            got[local] = sum(1 for it in _values_at(src, path)
+                             if it is not None)
+        seg.derived[key] = got
+    return got
+
+
+def count_nested_docs(ctx: SearchContext, rows: np.ndarray,
+                      path: Optional[str]) -> int:
+    """The nested documents at `path` over rows: the values at the path
+    in each row's source (`comments.replies` counts the replies of every
+    comment); the rows themselves when there is no path."""
+    if not path:
+        return int(len(rows))
+    rows = np.asarray(rows, dtype=np.int64)
+    if not len(rows):
+        return 0
+    total = 0
+    vi, local = ctx.reader.locate_many(rows)
+    for v in np.unique(vi).tolist():
+        counts = _nested_counts(ctx.reader.views[v].segment, path)
+        total += int(counts[local[vi == v]].sum())
+    return total
 
 
 def calendar_keys(vals, present, offset_ms, unit, tz) -> np.ndarray:

@@ -40,10 +40,10 @@ AND / OR / NOT, `+` / `-`, ranges, wildcards and `/regexp/`),
 `search/queries_ext.py`: `late_interaction`, `sparse_vector` /
 `weighted_tokens` (the learned-sparse dot product), `rank_feature`,
 `more_like_this`, `terms_set`, the span kinds, `intervals`, `pinned`,
-`wrapper`, the geo queries and `distance_feature`. `nested`, the
-parent-join kinds and `percolate` are a 400 that names the ROADMAP.md
-item that brings them; `shape`, no kind of the reference, is its
-`unknown query` error.
+`wrapper`, the geo queries, `distance_feature`, `nested`, the
+parent-join kinds (`has_child`, `has_parent`, `parent_id`) and
+`percolate`; `shape`, no kind of the reference, is its `unknown query`
+error.
 
 The multi-term kinds enumerate a field's terms, the sorted array each
 segment keeps (`FieldPostings.terms`): a prefix is a `searchsorted`
@@ -225,6 +225,7 @@ def _id_rows(ctx: SearchContext, ids) -> np.ndarray:
 def _term_postings(ctx: SearchContext, field: str, term: str
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """(live rows, freqs) of `term` in `field`, ascending."""
+    field = ctx.mapper_service.resolve_field(field)
     rows_parts, freq_parts = [], []
     for view in ctx.reader.views:
         p = view.segment.get_postings(field, term)
@@ -262,6 +263,7 @@ def _rows_of_terms(ctx: SearchContext, field: str,
                    terms: List[str]) -> np.ndarray:
     """The live rows holding any of `terms` in `field`, ascending: each
     segment's postings ranges of the terms it holds, gathered at once."""
+    field = ctx.mapper_service.resolve_field(field)
     want = np.asarray(terms, dtype=str)
     parts = []
     for view in ctx.reader.views:
@@ -304,6 +306,7 @@ def _field_lengths_for(ctx: SearchContext, field: str,
 def bm25_scores(ctx: SearchContext, field: str, rows: np.ndarray,
                 freqs: np.ndarray, boost: float = 1.0) -> np.ndarray:
     """BM25 of one term's postings (`rows` its live rows, ascending)."""
+    field = ctx.mapper_service.resolve_field(field)
     n = max(ctx.reader.docs_with_field_count(field), 1)
     df = len(rows)
     idf = math.log(1.0 + (n - df + 0.5) / (df + 0.5))
@@ -425,8 +428,9 @@ class MatchQuery(Query):
         if self.fuzziness is not None:
             expanded = []
             for t in terms:
-                expanded.extend(_fuzzy_expand(ctx, self.field, t,
-                                              self.fuzziness))
+                expanded.extend(_fuzzy_expand(
+                    ctx, ctx.mapper_service.resolve_field(self.field), t,
+                    self.fuzziness))
             terms = expanded or terms
         clause_sets = []
         for t in terms:
@@ -618,6 +622,7 @@ def _scan_range_docs(ctx: SearchContext, field: str, predicate,
     """The live docs holding a range-type value (a multi-valued doc: any
     of them) whose stored interval [gte, lte] satisfies predicate(lo,
     hi)."""
+    field = ctx.mapper_service.resolve_field(field)
     parts = []
     for view in ctx.reader.views:
         seg = view.segment
@@ -726,10 +731,11 @@ class RangeQuery(Query):
                 pred = lambda slo, shi: slo <= qhi and shi >= qlo
             return _scan_range_docs(ctx, self.field, pred, self.boost)
 
+        field = ctx.mapper_service.resolve_field(self.field)
         parts = []
         for view in ctx.reader.views:
             seg = view.segment
-            col = seg.doc_values.get(self.field)
+            col = seg.doc_values.get(field)
             if col is None:
                 continue
             if col.numeric is None or not numeric_bounds:
@@ -773,7 +779,7 @@ class ExistsQuery(Query):
         self.boost = boost
 
     def execute(self, ctx: SearchContext) -> DocSet:
-        field = self.field
+        field = ctx.mapper_service.resolve_field(self.field)
         if field == "_source":
             raise QueryShardError("Cannot run exists query on [_source]")
         if field in self._META_ALWAYS:
@@ -950,7 +956,8 @@ class PrefixQuery(Query):
         _check_expensive(ctx, "prefix",
                          " For optimised prefix queries on text fields "
                          "please enable [index_prefixes].")
-        terms = _pattern_terms(ctx, self.field, _prefix_select(self.value))
+        field = ctx.mapper_service.resolve_field(self.field)
+        terms = _pattern_terms(ctx, field, _prefix_select(self.value))
         return _expansion_set(ctx, self.field, terms, self.boost)
 
     def to_dict(self):
@@ -972,7 +979,8 @@ class WildcardQuery(Query):
     def execute(self, ctx: SearchContext) -> DocSet:
         _check_expensive(ctx, "wildcard")
         literal = re.split(r"[*?]", self.value, maxsplit=1)[0]
-        terms = _pattern_terms(ctx, self.field, _regex_select(
+        field = ctx.mapper_service.resolve_field(self.field)
+        terms = _pattern_terms(ctx, field, _regex_select(
             _wildcard_regex(self.value), literal))
         return _expansion_set(ctx, self.field, terms, self.boost)
 
@@ -1001,7 +1009,8 @@ class RegexpQuery(Query):
         except re.error as e:
             raise IllegalArgumentError(
                 f"invalid regexp [{self.value}]: {e}")
-        terms = _pattern_terms(ctx, self.field, _regex_select(pattern))
+        field = ctx.mapper_service.resolve_field(self.field)
+        terms = _pattern_terms(ctx, field, _regex_select(pattern))
         return _expansion_set(ctx, self.field, terms, self.boost)
 
     def to_dict(self):
@@ -1117,7 +1126,8 @@ class FuzzyQuery(Query):
 
     def execute(self, ctx: SearchContext) -> DocSet:
         _check_expensive(ctx, "fuzzy")
-        terms = _fuzzy_expand(ctx, self.field, self.value, self.fuzziness)
+        field = ctx.mapper_service.resolve_field(self.field)
+        terms = _fuzzy_expand(ctx, field, self.value, self.fuzziness)
         if not terms:
             return DocSet.empty()
         sets = [TermQuery(self.field, t, self.boost).execute(ctx)
@@ -1147,7 +1157,8 @@ class MatchPhrasePrefixQuery(Query):
         if not terms:
             return DocSet.empty()
         *head, last = terms
-        expansions = _pattern_terms(ctx, self.field, _prefix_select(
+        field = ctx.mapper_service.resolve_field(self.field)
+        expansions = _pattern_terms(ctx, field, _prefix_select(
             last))[:PHRASE_PREFIX_EXPANSIONS]
         if not expansions:
             return DocSet.empty()
@@ -1706,17 +1717,15 @@ PORTED_KINDS = ("match_all", "match_none", "term", "terms", "match",
                 "span_term", "span_near", "span_or", "span_not",
                 "span_first", "intervals", "pinned", "wrapper",
                 "geo_distance", "geo_bounding_box", "geo_polygon",
-                "geo_shape", "distance_feature")
+                "geo_shape", "distance_feature", "nested", "has_child",
+                "has_parent", "parent_id", "percolate")
 
 # the extended kinds `search/queries_ext.py::parse_extended` parses
 _EXTENDED_KINDS = PORTED_KINDS[PORTED_KINDS.index("more_like_this"):]
 
-# the kinds of the reference this build leaves out, by the ROADMAP.md
-# queue 1 item that brings them
-_LEFT_OUT_KINDS = {
-    k: "item 4 (documents within documents)"
-    for k in ("nested", "has_child", "has_parent", "parent_id", "percolate")
-}
+# the kinds of the reference this build leaves out: none, the port parses
+# every kind the reference parses
+_LEFT_OUT_KINDS: dict = {}
 
 # every kind the reference's parser knows (its did-you-mean list)
 _KNOWN_KINDS = (
@@ -1910,11 +1919,6 @@ def parse_query(body: Optional[dict]) -> Query:
     if kind in _EXTENDED_KINDS:
         from elasticsearch_tpu_torch.search.queries_ext import parse_extended
         return parse_extended(kind, spec)
-    if kind in _LEFT_OUT_KINDS:
-        where = _LEFT_OUT_KINDS[kind]
-        raise ParsingError(
-            f"[{kind}] query is not supported by this build: it comes "
-            f"with ROADMAP.md queue 1 {where}")
     hint = difflib.get_close_matches(str(kind), _KNOWN_KINDS, n=1)
     suffix = f" did you mean [{hint[0]}]?" if hint else ""
     raise ParsingError(f"unknown query [{kind}]{suffix}")

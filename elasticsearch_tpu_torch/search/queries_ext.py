@@ -1,6 +1,5 @@
 """The host walkers of the reference's extended query kinds (port of
-`elasticsearch_tpu/search/queries_ext.py` less `nested`, parent-join and
-`percolate`).
+`elasticsearch_tpu/search/queries_ext.py`).
 
 `late_interaction`:
 score = sum over query tokens of the max over a doc's tokens of their dot
@@ -60,9 +59,9 @@ from elasticsearch_tpu_torch.index.mapping import (
 )
 from elasticsearch_tpu_torch.index.segment import FeatureMapColumn
 from elasticsearch_tpu_torch.search.queries import (
-    BoolQuery, DocSet, Query, SearchContext, TermQuery, _fuzzy_terms,
-    _pattern_terms, _prefix_select, _ranges, _regex_select, _wildcard_regex,
-    id_row_map, parse_query,
+    BoolQuery, DocSet, Query, SearchContext, TermQuery, _check_expensive,
+    _fuzzy_terms, _pattern_terms, _prefix_select, _ranges, _regex_select,
+    _wildcard_regex, id_row_map, parse_query,
 )
 
 _KEYS = {"field", "query_tokens", "k", "boost"}
@@ -1214,4 +1213,708 @@ def parse_extended(kind: str, spec: Any) -> Optional[Query]:
         return PinnedQuery([str(i) for i in spec.get("ids", [])],
                            parse_query(spec.get("organic",
                                                 {"match_all": {}})))
+    if kind == "nested":
+        return NestedQuery(spec["path"], spec.get("query", {"match_all": {}}),
+                           spec.get("score_mode", "avg"))
+    if kind == "has_child":
+        return HasChildQuery(spec["type"],
+                             parse_query(spec.get("query",
+                                                  {"match_all": {}})),
+                             spec.get("score_mode", "none"))
+    if kind == "has_parent":
+        return HasParentQuery(spec["parent_type"],
+                              parse_query(spec.get("query",
+                                                   {"match_all": {}})),
+                              bool(spec.get("score", False)))
+    if kind == "parent_id":
+        return ParentIdQuery(spec["type"], str(spec["id"]))
+    if kind == "percolate":
+        docs = spec.get("documents")
+        if docs is None:
+            docs = [spec["document"]] if "document" in spec else []
+        return PercolateQuery(spec["field"], docs)
     return None
+
+
+# ------------------------------------------------ the source matcher
+
+def _values_at(obj: Any, path: str) -> List[Any]:
+    """Every value at a dotted path inside a plain source object (a list
+    on the way is walked item by item)."""
+    current = [obj]
+    for p in path.split("."):
+        nxt: List[Any] = []
+        for c in current:
+            if isinstance(c, dict) and p in c:
+                v = c[p]
+                if isinstance(v, list):
+                    nxt.extend(v)
+                else:
+                    nxt.append(v)
+        current = nxt
+    return current
+
+
+def _number_or_date(val: Any) -> float:
+    """A value as `range` reads it in the source matcher: a number, a
+    numeric string, else a date string's epoch millis (raises when it is
+    none of these)."""
+    if not isinstance(val, str):
+        return float(val)
+    if val.replace(".", "").replace("-", "").isdigit():
+        return float(val)
+    return parse_date_millis(val)
+
+
+def _range_bound(bound: Any) -> float:
+    if isinstance(bound, str) and not bound.replace(
+            ".", "").replace("-", "").isdigit():
+        return parse_date_millis(bound)
+    return float(bound)
+
+
+def source_matches(query: dict, source: dict, mapper_service=None) -> bool:
+    """A query DSL object evaluated against one plain source object (the
+    percolator's one-document index, and each object of a `nested`
+    query). Kinds: `match_all`, `match_none`, `bool` (`minimum_should_match`
+    an integer), `term`, `terms`, `match` (`operator`), `range` (numbers,
+    numeric strings and dates), `exists`, `prefix`, `wildcard`, and `ids`,
+    which never matches; any other kind raises. A field's mapper, looked
+    up by the name as given, decides how strings compare (`_term_eq`,
+    `_analyze`)."""
+    if not isinstance(query, dict) or len(query) != 1:
+        raise ParsingError("query must have exactly one key")
+    kind, spec = next(iter(query.items()))
+    if kind == "match_all":
+        return True
+    if kind == "match_none":
+        return False
+    if kind == "bool":
+        for q in _as_list(spec.get("must")) + _as_list(spec.get("filter")):
+            if not source_matches(q, source, mapper_service):
+                return False
+        for q in _as_list(spec.get("must_not")):
+            if source_matches(q, source, mapper_service):
+                return False
+        should = _as_list(spec.get("should"))
+        if should:
+            msm = spec.get("minimum_should_match")
+            need = int(msm) if msm is not None else (
+                1 if not (spec.get("must") or spec.get("filter")) else 0)
+            got = sum(1 for q in should
+                      if source_matches(q, source, mapper_service))
+            return got >= need
+        return True
+    if kind == "term":
+        field, v = _single(spec)
+        target = v.get("value") if isinstance(v, dict) else v
+        return any(_term_eq(val, target, field, mapper_service)
+                   for val in _values_at(source, field))
+    if kind == "terms":
+        field, targets = _single(spec)
+        return any(_term_eq(val, t, field, mapper_service)
+                   for val in _values_at(source, field) for t in targets)
+    if kind == "match":
+        field, v = _single(spec)
+        text = v.get("query") if isinstance(v, dict) else v
+        operator = v.get("operator", "or") if isinstance(v, dict) else "or"
+        tokens = _analyze(field, text, mapper_service)
+        doc_tokens: set = set()
+        for val in _values_at(source, field):
+            if isinstance(val, str):
+                doc_tokens.update(_analyze(field, val, mapper_service))
+            else:
+                doc_tokens.add(str(val).lower())
+        hits = [t in doc_tokens for t in tokens]
+        return all(hits) if operator == "and" else any(hits)
+    if kind == "range":
+        field, v = _single(spec)
+        for val in _values_at(source, field):
+            try:
+                x = _number_or_date(val)
+            except Exception:
+                continue
+            ok = True
+            if v.get("gte") is not None and not x >= _range_bound(v["gte"]):
+                ok = False
+            if v.get("gt") is not None and not x > _range_bound(v["gt"]):
+                ok = False
+            if v.get("lte") is not None and not x <= _range_bound(v["lte"]):
+                ok = False
+            if v.get("lt") is not None and not x < _range_bound(v["lt"]):
+                ok = False
+            if ok:
+                return True
+        return False
+    if kind == "exists":
+        return len(_values_at(source, spec["field"])) > 0
+    if kind == "prefix":
+        field, v = _single(spec)
+        p = (v.get("value") if isinstance(v, dict) else v) or ""
+        return any(isinstance(val, str) and val.lower().startswith(p.lower())
+                   for val in _values_at(source, field))
+    if kind == "wildcard":
+        field, v = _single(spec)
+        pat = (v.get("value") or v.get("wildcard")) if isinstance(v, dict) \
+            else v
+        return any(isinstance(val, str)
+                   and fnmatch.fnmatchcase(val.lower(), pat.lower())
+                   for val in _values_at(source, field))
+    if kind == "ids":
+        return False   # a bare source object has no _id
+    raise ParsingError(
+        f"[{kind}] query is not supported in this context (percolate/nested)")
+
+
+def _as_list(v):
+    if v is None:
+        return []
+    return v if isinstance(v, list) else [v]
+
+
+def _single(spec):
+    if not isinstance(spec, dict) or len(spec) != 1:
+        raise ParsingError("expected a single-field query object")
+    return next(iter(spec.items()))
+
+
+def _analyze(field: str, text: str, mapper_service) -> List[str]:
+    mapper = mapper_service.get(field) if mapper_service else None
+    if mapper is not None and hasattr(mapper, "analyze"):
+        return mapper.analyze(text)
+    return str(text).lower().split()
+
+
+def _term_eq(doc_val, target, field, mapper_service) -> bool:
+    if isinstance(doc_val, str) and isinstance(target, str):
+        mapper = mapper_service.get(field) if mapper_service else None
+        if mapper is not None and getattr(mapper, "type_name", "") == "text":
+            return target in _analyze(field, doc_val, mapper_service)
+        return doc_val == target
+    if isinstance(doc_val, bool) or isinstance(target, bool):
+        return doc_val == target
+    try:
+        return float(doc_val) == float(target)
+    except (TypeError, ValueError):
+        return doc_val == target
+
+
+# ----------------------------------------- the source matcher, vectorized
+
+class _Objects:
+    """The objects a `nested` path holds in one segment, flattened: object
+    j belongs to local doc `locals_[j]`. Each inner field's values are
+    kept the first time a query reads them (`values_of`): value i belongs
+    to object `owner[i]`, with its string (for `term`) and its kind;
+    the number or date `range` reads of each (NaN where it reads none)
+    the first time a `range` asks (`numbers_of`)."""
+
+    __slots__ = ("locals_", "objs", "_fields", "_numbers")
+
+    def __init__(self, locals_: np.ndarray, objs: List[dict]):
+        self.locals_ = locals_
+        self.objs = objs
+        self._fields: Dict[str, tuple] = {}
+        self._numbers: Dict[str, np.ndarray] = {}
+
+    def values_of(self, field: str) -> tuple:
+        """(owner, values, strings, kinds: 1 a string, 2 a number)."""
+        got = self._fields.get(field)
+        if got is None:
+            owner, vals = [], []
+            for j, obj in enumerate(self.objs):
+                vs = _values_at(obj, field)
+                owner.extend([j] * len(vs))
+                vals.extend(vs)
+            strs = np.empty(len(vals), dtype=object)
+            kinds = np.zeros(len(vals), dtype=np.int8)
+            for i, val in enumerate(vals):
+                if isinstance(val, str):
+                    strs[i], kinds[i] = val, 1
+                elif isinstance(val, (int, float)) \
+                        and not isinstance(val, bool):
+                    kinds[i] = 2
+            got = (np.asarray(owner, dtype=np.int64), vals, strs, kinds)
+            self._fields[field] = got
+        return got
+
+    def numbers_of(self, field: str) -> np.ndarray:
+        got = self._numbers.get(field)
+        if got is None:
+            vals = self.values_of(field)[1]
+            got = np.full(len(vals), np.nan)
+            for i, val in enumerate(vals):
+                try:
+                    got[i] = _number_or_date(val)
+                except Exception:
+                    pass
+            self._numbers[field] = got
+        return got
+
+
+def _leaf_field(spec) -> Optional[Tuple[str, Any]]:
+    if not isinstance(spec, dict) or len(spec) != 1:
+        return None
+    return next(iter(spec.items()))
+
+
+def _vectorizable(query, mapper_service) -> bool:
+    """Whether `_objects_mask` gives exactly what `source_matches` gives
+    object by object: a well-formed tree of `match_all`, `match_none`,
+    `bool` (an integer `minimum_should_match`), `term` / `terms` whose
+    targets are strings or numbers on a field not mapped as text,
+    `range` with bounds that convert, `exists` and `ids`. Anything else
+    runs the evaluator itself."""
+    if not isinstance(query, dict) or len(query) != 1:
+        return False
+    kind, spec = next(iter(query.items()))
+    if kind in ("match_all", "match_none", "ids"):
+        return True
+    if kind == "bool":
+        if not isinstance(spec, dict):
+            return False
+        msm = spec.get("minimum_should_match")
+        if msm is not None and not (isinstance(msm, int)
+                                    and not isinstance(msm, bool)):
+            return False
+        return all(_vectorizable(q, mapper_service)
+                   for key in ("must", "filter", "must_not", "should")
+                   for q in _as_list(spec.get(key)))
+    if kind == "exists":
+        return isinstance(spec, dict) and isinstance(spec.get("field"), str)
+    leaf = _leaf_field(spec)
+    if leaf is None or not isinstance(leaf[0], str):
+        return False
+    field, v = leaf
+    if kind in ("term", "terms"):
+        if kind == "term":
+            targets = [v.get("value") if isinstance(v, dict) else v]
+        elif isinstance(v, (list, tuple)):
+            targets = list(v)
+        else:
+            return False
+        mapper = mapper_service.get(field) if mapper_service else None
+        if getattr(mapper, "type_name", "") == "text":
+            return False
+        return all(isinstance(t, str) or (isinstance(t, (int, float))
+                                          and not isinstance(t, bool))
+                   for t in targets)
+    if kind == "range":
+        if not isinstance(v, dict):
+            return False
+        try:
+            for b in ("gte", "gt", "lte", "lt"):
+                if v.get(b) is not None:
+                    _range_bound(v[b])
+        except Exception:
+            return False
+        return True
+    return False
+
+
+def _objects_mask(query: dict, objs: _Objects) -> np.ndarray:
+    """`source_matches` of a `_vectorizable` query over every object, as
+    a bool array. `term` on a string target matches a string value equal
+    to it, and a numeric value when both read as the same number; on a
+    numeric target, a number or a numeric string equal to it."""
+    n = len(objs.objs)
+    kind, spec = next(iter(query.items()))
+    if kind == "match_all":
+        return np.ones(n, dtype=bool)
+    if kind in ("match_none", "ids"):
+        return np.zeros(n, dtype=bool)
+    if kind == "bool":
+        out = np.ones(n, dtype=bool)
+        for q in _as_list(spec.get("must")) + _as_list(spec.get("filter")):
+            out &= _objects_mask(q, objs)
+        for q in _as_list(spec.get("must_not")):
+            out &= ~_objects_mask(q, objs)
+        should = _as_list(spec.get("should"))
+        if should:
+            msm = spec.get("minimum_should_match")
+            need = int(msm) if msm is not None else (
+                1 if not (spec.get("must") or spec.get("filter")) else 0)
+            got = np.zeros(n, dtype=np.int64)
+            for q in should:
+                got += _objects_mask(q, objs)
+            out &= got >= need
+        return out
+    if kind == "exists":
+        owner = objs.values_of(spec["field"])[0]
+        out = np.zeros(n, dtype=bool)
+        out[owner] = True
+        return out
+    field, v = next(iter(spec.items()))
+    owner, vals, strs, kinds = objs.values_of(field)
+    if kind == "range":
+        nums = objs.numbers_of(field)
+        hit = ~np.isnan(nums)
+        with np.errstate(invalid="ignore"):
+            if v.get("gte") is not None:
+                hit &= nums >= _range_bound(v["gte"])
+            if v.get("gt") is not None:
+                hit &= nums > _range_bound(v["gt"])
+            if v.get("lte") is not None:
+                hit &= nums <= _range_bound(v["lte"])
+            if v.get("lt") is not None:
+                hit &= nums < _range_bound(v["lt"])
+    else:
+        targets = [v.get("value") if isinstance(v, dict) else v] \
+            if kind == "term" else list(v)
+        hit = np.zeros(len(vals), dtype=bool)
+        for t in targets:
+            hit |= _term_hits(t, vals, strs, kinds)
+    out = np.zeros(n, dtype=bool)
+    out[owner[hit]] = True
+    return out
+
+
+def _term_hits(target, vals, strs, kinds) -> np.ndarray:
+    """`_term_eq(value, target)` of every value, for a string or numeric
+    target on a field not mapped as text."""
+    if isinstance(target, str):
+        hit = (kinds == 1) & (strs == target)
+        try:
+            t = float(target)
+        except ValueError:
+            return hit
+        # a number value compares as a number with the string
+        other = np.nonzero(kinds != 1)[0]
+        for i in other.tolist():
+            if not isinstance(vals[i], bool) \
+                    and _term_eq(vals[i], target, "", None):
+                hit[i] = True
+        return hit
+    hit = np.zeros(len(vals), dtype=bool)
+    t = float(target)
+    num = kinds == 2
+    with np.errstate(invalid="ignore"):
+        hit[num] = np.asarray([float(vals[i]) for i in np.nonzero(num)[0]],
+                              dtype=np.float64) == t
+    for i in np.nonzero(~num)[0].tolist():
+        if _term_eq(vals[i], target, "", None):
+            hit[i] = True
+    return hit
+
+
+# ------------------------------------------------------------- nested
+
+def _nested_objects(seg, path: str) -> _Objects:
+    """A segment's objects at a `nested` path, read from each document's
+    source once and kept with the segment (a key named as the path, else
+    the dicts at the dotted path), deleted documents included."""
+    key = ("nested", path)
+    got = seg.derived.get(key)
+    if got is None:
+        locals_, objs = [], []
+        for local in range(seg.num_docs):
+            src = seg.sources[local] or {}
+            items = src.get(path)
+            if items is None and "." in path:
+                items = [v for v in _values_at(src, path)
+                         if isinstance(v, dict)]
+            if not isinstance(items, list):
+                items = [items] if isinstance(items, dict) else []
+            for obj in items:
+                if isinstance(obj, dict):
+                    locals_.append(local)
+                    objs.append(obj)
+        got = _Objects(np.asarray(locals_, dtype=np.int64), objs)
+        seg.derived[key] = got
+    return got
+
+
+class NestedQuery(Query):
+    """`nested`: the documents where one object at `path` matches the whole
+    inner query, its fields named less the `path.` prefix, by the source
+    matcher. Each match scores 1.0, whatever `score_mode` says. A query
+    the vectorized matcher covers runs over the segment's objects at once;
+    any other runs the matcher object by object."""
+
+    def __init__(self, path: str, query_dict: dict, score_mode: str = "avg"):
+        self.path = path
+        self.query_dict = query_dict
+        self.score_mode = score_mode
+
+    def execute(self, ctx: SearchContext) -> DocSet:
+        _check_expensive(ctx, "joining")
+        inner = _strip_path_prefix(self.query_dict, self.path)
+        fast = _vectorizable(inner, ctx.mapper_service)
+        parts = []
+        for view in ctx.reader.views:
+            seg = view.segment
+            objs = _nested_objects(seg, self.path)
+            if not len(objs.objs):
+                continue
+            live = view.live[objs.locals_]
+            if fast:
+                hit = _objects_mask(inner, objs) & live
+            else:
+                hit = np.zeros(len(objs.objs), dtype=bool)
+                done = np.zeros(seg.num_docs, dtype=bool)
+                for j in np.nonzero(live)[0].tolist():
+                    local = objs.locals_[j]
+                    if not done[local] and source_matches(
+                            inner, objs.objs[j], ctx.mapper_service):
+                        hit[j] = done[local] = True
+            locs = np.unique(objs.locals_[hit])
+            parts.append(locs + seg.base)
+        rows = np.concatenate(parts) if parts else np.zeros(0, np.int64)
+        return DocSet(rows, np.ones(len(rows), dtype=np.float32))
+
+    def to_dict(self):
+        return {"nested": {"path": self.path, "query": self.query_dict}}
+
+
+def _strip_path_prefix(query: dict, path: str) -> dict:
+    """The query with every `path.field` key renamed `field`."""
+    out: Any = json.loads(json.dumps(query))
+    prefix = path + "."
+
+    def walk(node):
+        if isinstance(node, dict):
+            for k in list(node):
+                v = node.pop(k)
+                node[k[len(prefix):] if k.startswith(prefix) else k] = \
+                    walk(v)
+            return node
+        if isinstance(node, list):
+            return [walk(x) for x in node]
+        return node
+    return walk(out)
+
+
+# -------------------------------------------------------- parent-join
+
+def _join_mapper(ctx: SearchContext):
+    for name, mapper in ctx.mapper_service.all_mappers():
+        if getattr(mapper, "type_name", "") == "join":
+            return name, mapper
+    raise IllegalArgumentError("no [join] field defined in the mapping")
+
+
+def _join_codes(seg, field: str) -> Tuple[np.ndarray, np.ndarray,
+                                           np.ndarray]:
+    """(relation name, parent id, parent id as a string) of each local doc
+    of a segment, from its `join` doc value (a list's first value), kept
+    with the segment: object arrays, None where the doc holds no {name} /
+    no parent, and a str array, "" where the parent is not a string (no
+    `_id` is empty)."""
+    key = ("join", field)
+    got = seg.derived.get(key)
+    if got is None:
+        names = np.full(seg.num_docs, None, dtype=object)
+        parents = np.full(seg.num_docs, None, dtype=object)
+        col = seg.doc_values.get(field)
+        if col is not None:
+            for local in np.nonzero(col.present)[0].tolist():
+                jv = col.values[local]
+                if isinstance(jv, list):
+                    jv = jv[0] if jv else None
+                if isinstance(jv, dict):
+                    names[local] = jv.get("name")
+                    parents[local] = jv.get("parent")
+        strs = np.asarray([p if isinstance(p, str) else "" for p in parents],
+                          dtype=str)
+        got = (names, parents, strs)
+        seg.derived[key] = got
+    return got
+
+
+def _is_value(arr: np.ndarray, value) -> np.ndarray:
+    """`x == value` of each element of an object array."""
+    if isinstance(value, str):
+        return np.asarray(arr == value, dtype=bool)
+    return np.fromiter((x == value for x in arr), dtype=bool,
+                       count=len(arr))
+
+
+def _row_codes(ctx: SearchContext, field: str, rows: np.ndarray):
+    """(relation name, parent id) of global rows."""
+    names = np.empty(len(rows), dtype=object)
+    parents = np.empty(len(rows), dtype=object)
+    if len(rows):
+        vi, local = ctx.reader.locate_many(rows)
+        for v in np.unique(vi).tolist():
+            at = np.nonzero(vi == v)[0]
+            n, p, _s = _join_codes(ctx.reader.views[v].segment, field)
+            names[at], parents[at] = n[local[at]], p[local[at]]
+    return names, parents
+
+
+def _ones_sorted(rows) -> DocSet:
+    rows = np.asarray(sorted(rows), dtype=np.int64)
+    return DocSet(rows, np.ones(len(rows), dtype=np.float32))
+
+
+class HasChildQuery(Query):
+    """`has_child`: the parents, found by id in the same reader, of the
+    inner query's hits whose relation is `type`. Each scores 1.0."""
+
+    def __init__(self, child_type: str, query: Query,
+                 score_mode: str = "none"):
+        self.child_type = child_type
+        self.query = query
+        self.score_mode = score_mode
+
+    def execute(self, ctx: SearchContext) -> DocSet:
+        _check_expensive(ctx, "joining")
+        join_field, _ = _join_mapper(ctx)
+        child_rows = self.query.execute(ctx).rows
+        names, parents = _row_codes(ctx, join_field, child_rows)
+        id_rows = id_row_map(ctx.reader)
+        wanted = _is_value(names, self.child_type)
+        return _ones_sorted({id_rows[p] for p in parents[wanted]
+                             if p is not None and p in id_rows})
+
+    def to_dict(self):
+        return {"has_child": {"type": self.child_type,
+                              "query": self.query.to_dict()}}
+
+    def key_is_exact(self) -> bool:
+        return self.query.key_is_exact()
+
+
+class HasParentQuery(Query):
+    """`has_parent`: the documents whose parent id is the id of one of the
+    inner query's hits with the relation `parent_type`. Each scores
+    1.0."""
+
+    def __init__(self, parent_type: str, query: Query, score: bool = False):
+        self.parent_type = parent_type
+        self.query = query
+        self.score = score
+
+    def execute(self, ctx: SearchContext) -> DocSet:
+        _check_expensive(ctx, "joining")
+        join_field, _ = _join_mapper(ctx)
+        parent_rows = self.query.execute(ctx).rows
+        names, _p = _row_codes(ctx, join_field, parent_rows)
+        parent_ids = np.asarray(sorted({
+            ctx.reader.get_id(int(r)) for r in
+            parent_rows[_is_value(names, self.parent_type)]}), dtype=str)
+        parts = []
+        for view in ctx.reader.views:
+            seg = view.segment
+            strs = _join_codes(seg, join_field)[2]
+            hit = np.isin(strs, parent_ids) & view.live
+            parts.append(np.nonzero(hit)[0].astype(np.int64) + seg.base)
+        return _ones_sorted(np.concatenate(parts) if parts else [])
+
+    def to_dict(self):
+        return {"has_parent": {"parent_type": self.parent_type,
+                               "query": self.query.to_dict()}}
+
+    def key_is_exact(self) -> bool:
+        return self.query.key_is_exact()
+
+
+class ParentIdQuery(Query):
+    """`parent_id`: the documents of relation `type` whose parent is
+    `id`."""
+
+    def __init__(self, child_type: str, parent_id: str):
+        self.child_type = child_type
+        self.parent_id = parent_id
+
+    def execute(self, ctx: SearchContext) -> DocSet:
+        join_field, _ = _join_mapper(ctx)
+        parts = []
+        for view in ctx.reader.views:
+            seg = view.segment
+            names, parents, _s = _join_codes(seg, join_field)
+            hit = _is_value(names, self.child_type) \
+                & _is_value(parents, self.parent_id) & view.live
+            parts.append(np.nonzero(hit)[0].astype(np.int64) + seg.base)
+        return _ones_sorted(np.concatenate(parts) if parts else [])
+
+    def to_dict(self):
+        return {"parent_id": {"type": self.child_type, "id": self.parent_id}}
+
+
+# ----------------------------------------------------------- percolate
+
+class _MemoMapper:
+    """A mapper whose `analyze` keeps its answers (analysis is a pure
+    function of the text), for one request's source matching."""
+
+    def __init__(self, mapper):
+        self._mapper = mapper
+        self._memo: Dict[Any, List[str]] = {}
+        self.type_name = getattr(mapper, "type_name", "")
+
+    def analyze(self, text):
+        try:
+            got = self._memo.get(text)
+        except TypeError:       # not hashable: analyzed as it comes
+            return self._mapper.analyze(text)
+        if got is None:
+            got = self._memo[text] = self._mapper.analyze(text)
+        return got
+
+
+class _MemoMappers:
+    """The mapping as the source matcher reads it (`get`), each mapper
+    that analyzes wrapped in `_MemoMapper`: a document's texts are
+    analyzed once for all the stored queries that read them."""
+
+    def __init__(self, mapper_service):
+        self._ms = mapper_service
+        self._mappers: Dict[str, Any] = {}
+
+    def get(self, field: str):
+        if field not in self._mappers:
+            mapper = self._ms.get(field)
+            self._mappers[field] = _MemoMapper(mapper) if hasattr(
+                mapper, "analyze") else mapper
+        return self._mappers[field]
+
+
+def _stored_queries(seg, field: str) -> List[Tuple[int, dict]]:
+    """A segment's stored queries of a `percolator` field, (local, query),
+    read from its column once and kept with the segment."""
+    key = ("percolator", field)
+    got = seg.derived.get(key)
+    if got is None:
+        got = []
+        col = seg.doc_values.get(field)
+        if col is not None:
+            for local in np.nonzero(col.present)[0].tolist():
+                stored = col.values[local]
+                if isinstance(stored, list):
+                    stored = stored[0] if stored else None
+                if isinstance(stored, dict):
+                    got.append((local, stored))
+        seg.derived[key] = got
+    return got
+
+
+class PercolateQuery(Query):
+    """`percolate`: the stored queries of a `percolator` field that match
+    one of the given documents (`document` or `documents`), each by the
+    source matcher; a stored query of a kind the matcher does not know is
+    skipped. Each match scores 1.0."""
+
+    def __init__(self, field: str, documents: List[dict]):
+        self.field = field
+        self.documents = documents
+
+    def execute(self, ctx: SearchContext) -> DocSet:
+        mappers = _MemoMappers(ctx.mapper_service)
+        rows_out = []
+        for view in ctx.reader.views:
+            seg = view.segment
+            for local, stored in _stored_queries(seg, self.field):
+                if not view.live[local]:
+                    continue
+                try:
+                    if any(source_matches(stored, doc, mappers)
+                           for doc in self.documents):
+                        rows_out.append(seg.base + local)
+                except ParsingError:
+                    continue
+        return _ones_sorted(rows_out)
+
+    def to_dict(self):
+        return {"percolate": {"field": self.field,
+                              "documents": self.documents}}

@@ -652,7 +652,8 @@ def sort_columns(ctx: SearchContext, rows, scores,
             continue
         mapper = ctx.mapper_service.get(field)
         tname = getattr(mapper, "type_name", None)
-        nums, present = numeric_values(ctx.reader, rows, field)
+        read = ctx.mapper_service.resolve_field(field)   # an alias's target
+        nums, present = numeric_values(ctx.reader, rows, read)
         ntype, scale = spec.get("numeric_type"), None
         if ntype == "date" and tname == "date_nanos":
             nums, scale = nums / 1e6, "to_millis"
@@ -670,6 +671,8 @@ def sort_columns(ctx: SearchContext, rows, scores,
                                   vals if asc else -vals, nums, present,
                                   tname in _INTEGRAL_TYPES, scale=scale))
             continue
+        # strings read the field as named: an alias sorts as missing, as
+        # in the reference
         strs = object_values(ctx.reader, rows, field)
         has = np.asarray([s is not None for s in strs], dtype=bool)
         vals = np.full(len(rows), _MISSING_LAST if asc else -_MISSING_LAST)
@@ -861,7 +864,8 @@ def fetch_hits(ctx: SearchContext, index_name: str, body: dict, rows, scores,
     `_version`, stored fields, `_routing`, `_ignored`, `docvalue_fields`,
     `highlight`, the collapse group under `fields` with its `inner_hits`
     (one sub-search a hit, unless `expand_inner_hits` is off: the node
-    expands them over several indices itself) and `_explanation`."""
+    expands them over several indices itself), each `nested` query's
+    `inner_hits` and `_explanation`."""
     reader, mapper_service = ctx.reader, ctx.mapper_service
     source_spec = body.get("_source", True)
     want_source = source_spec is not False and mapper_service.source_enabled
@@ -883,6 +887,7 @@ def fetch_hits(ctx: SearchContext, index_name: str, body: dict, rows, scores,
                       else list(stored_spec))
             if "_source" not in stored:
                 want_source = False
+    nested_specs = nested_inner_hits_specs(body.get("query"))
     hits: List[dict] = []
     for i, row in enumerate(np.asarray(rows).tolist()):
         hit: Dict[str, Any] = {
@@ -938,6 +943,9 @@ def fetch_hits(ctx: SearchContext, index_name: str, body: dict, rows, scores,
         if collapse:
             _decorate_collapsed_hit(ctx, index_name, body, collapse, row,
                                     hit, expand_inner_hits)
+        for path, spec, query in nested_specs:
+            _decorate_nested_inner_hits(reader, row, hit, path, spec, query,
+                                        index_name)
         if body.get("explain"):
             hit["_explanation"] = {"value": hit["_score"] or 0.0,
                                    "description": "vectorized score",
@@ -1122,7 +1130,10 @@ def _decorate_collapsed_hit(ctx: SearchContext, index_name: str, body: dict,
     `from`, `size`, `sort` and fetch keys; a second-level `collapse` reads
     ten times `size` and keeps each inner group's best hit)."""
     field = collapse["field"]
-    value = group_value(ctx.reader, field, row)
+    # an alias reads its target here (the query phase groups by the field
+    # as named, as the reference does)
+    value = group_value(ctx.reader,
+                        ctx.mapper_service.resolve_field(field), row)
     hit.setdefault("fields", {})[field] = [value]
     if not expand:
         return
@@ -1324,3 +1335,105 @@ def highlight_row(ctx: SearchContext, body: dict, spec: dict,
             frag = frag[:s0] + pre + frag[s0:e0] + post + frag[e0:]
         out[field] = [frag]
     return out
+
+
+# ---------------------------------------------------------------------------
+# nested inner hits
+# ---------------------------------------------------------------------------
+
+def nested_inner_hits_specs(q) -> List[Tuple[str, dict, Any]]:
+    """(path, inner_hits spec, inner query) of each `nested` query of a
+    query tree that asks for inner hits."""
+    out = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            nested = node.get("nested")
+            if isinstance(nested, dict) and "inner_hits" in nested:
+                out.append((nested.get("path"), nested["inner_hits"] or {},
+                            nested.get("query")))
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, list):
+            for item in node:
+                walk(item)
+
+    walk(q)
+    return out
+
+
+def nested_item_matches(item: dict, path: str, q) -> bool:
+    """Whether an inner hit lists one nested object: a looser matcher than
+    the `nested` query's, as the reference's. `match` is a substring test
+    of the lowercased strings, `term` string equality, a `bool` its `must`
+    and `filter` clauses, and any other kind (`range` among them) matches
+    every object."""
+    if not isinstance(q, dict) or not q:
+        return True
+    for kind, qspec in q.items():
+        if kind == "match_all":
+            return True
+        if kind in ("match", "term") and isinstance(qspec, dict) and qspec:
+            ((f, v),) = list(qspec.items())[:1]
+            want = v.get("query", v.get("value")) if isinstance(v, dict) \
+                else v
+            rel = f[len(path) + 1:] if f.startswith(path + ".") else f
+            cur = item
+            for part in rel.split("."):
+                cur = cur.get(part) if isinstance(cur, dict) else None
+            if cur is None:
+                return False
+            if kind == "term":
+                return str(cur) == str(want)
+            return str(want).lower() in str(cur).lower()
+        if kind == "bool" and isinstance(qspec, dict):
+            for clause in ("must", "filter"):
+                items = qspec.get(clause, [])
+                if isinstance(items, dict):
+                    items = [items]
+                if not all(nested_item_matches(item, path, sub)
+                           for sub in items):
+                    return False
+            return True
+    return True
+
+
+def _decorate_nested_inner_hits(reader: ShardReader, row: int, hit: dict,
+                                path, spec: dict, query,
+                                index_name: str) -> None:
+    """A hit's nested inner hits: the objects at `path` that
+    `nested_item_matches` keeps, the first `size` (3) of them, each with
+    its `_nested` {field, offset}, score 1.0, `_source`, and `_version` /
+    the `_seq_no` and `_primary_term` `docvalue_fields` when asked; under
+    `name` (the path by default)."""
+    items = reader.get_source(row) or {}
+    for part in str(path or "").split("."):
+        items = items.get(part) if isinstance(items, dict) else None
+    if isinstance(items, dict):
+        items = [items]
+    if not isinstance(items, list):
+        return
+    name = spec.get("name", path)
+    size = int(spec.get("size", 3))
+    matching = [(off, item) for off, item in enumerate(items)
+                if isinstance(item, dict)
+                and nested_item_matches(item, str(path), query)]
+    inner_hits = []
+    for off, item in matching[:size]:
+        ih = {"_index": index_name, "_id": hit.get("_id"),
+              "_nested": {"field": path, "offset": off},
+              "_score": 1.0, "_source": item}
+        if spec.get("version"):
+            ih["_version"] = hit.get("_version", 1)
+        for df in spec.get("docvalue_fields") or []:
+            fname = df["field"] if isinstance(df, dict) else df
+            if fname == "_seq_no":
+                sq = reader.get_seq_no(row)
+                ih.setdefault("fields", {})[fname] = [
+                    int(sq) if sq is not None else 0]
+            elif fname == "_primary_term":
+                ih.setdefault("fields", {})[fname] = [1]
+        inner_hits.append(ih)
+    hit.setdefault("inner_hits", {})[name] = {
+        "hits": {"total": {"value": len(matching), "relation": "eq"},
+                 "max_score": 1.0, "hits": inner_hits}}

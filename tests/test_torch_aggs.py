@@ -331,9 +331,18 @@ def test_typed_keys_and_msearch(world):
         assert "[rare_terms]" in got["responses"][2]["error"]["reason"]
 
 
-@pytest.mark.parametrize("kind", sorted(LEFT_OUT))
+@pytest.mark.parametrize("kind", sorted(LEFT_OUT) + ["nested",
+                                                     "reverse_nested"])
 def test_left_out_kind_is_a_400_naming_it(world, kind):
+    """Each kind left out is a 400 that names it; `nested` and
+    `reverse_nested`, once left out, answer as the reference, alone and
+    under a bucket."""
     body = _a(x={kind: {"field": "n"}})
+    if kind not in LEFT_OUT:
+        world.same("POST", "/ag/_search", body)
+        world.same("POST", "/ag/_search", _a(
+            t={"terms": {"field": "tag"}, "aggs": {"x": {kind: {}}}}))
+        return
     status, got = world.port("POST", "/ag/_search", body)
     assert status == 400, got
     assert f"[{kind}] is not supported by this build" \

@@ -2081,3 +2081,71 @@ def test_search_api_on_cuda_matches_cpu(cuda, monkeypatch, shards):
         want = _scroll_hits(crc, "/a/_search", body)
         assert len(got) == len(want) == 20
         _same_hits({"hits": {"hits": got}}, {"hits": {"hits": want}}, 2e-3)
+
+
+def _join_pair(cuda, monkeypatch, shards: int):
+    """`_doc_pair` with a `join` index in both nodes: 40 questions and 240
+    answers (16-d vectors, `nested` entities), each answer routed by its
+    question's id, one generation a shard."""
+    pair = _doc_pair(cuda, monkeypatch)
+    rng = np.random.default_rng(71)
+    ops = []
+    for p in range(40):
+        ops += [{"index": {"_id": f"q{p}"}},
+                {"rel": "question", "tag": f"t{p % 4}"}]
+    for c in range(240):
+        ops += [{"index": {"_id": f"a{c}", "routing": f"q{c % 40}"}},
+                {"rel": {"name": "answer", "parent": f"q{c % 40}"},
+                 "v": rng.standard_normal(16).round(4).tolist(),
+                 "entities": [{"name": f"e{int(x)}"}
+                              for x in rng.integers(0, 6, 2)]}]
+    for _, rc in pair:
+        assert _req(rc, "PUT", "/j", {
+            "settings": {"number_of_shards": shards},
+            "mappings": {"properties": {
+                "rel": {"type": "join",
+                        "relations": {"question": "answer"}},
+                "tag": {"type": "keyword"},
+                "v": {"type": "dense_vector", "dims": 16,
+                      "similarity": "cosine"},
+                "entities": {"type": "nested", "properties": {
+                    "name": {"type": "keyword"}}}}}})[0] == 200
+        assert _req(rc, "POST", "/j/_bulk", ops, ndjson=True)[0] == 200
+        assert _req(rc, "POST", "/j/_forcemerge")[0] == 200
+    return pair
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 2])
+def test_nested_and_join_on_cuda_match_cpu(cuda, monkeypatch, shards):
+    """A `knn` filtered by `has_parent` and by `nested` (the exact route
+    with a mask: no binned launch) and `has_child` around a `knn` clause
+    (the binned kernel, once a shard) on a CUDA node answer as a CPU node
+    does."""
+    (_, grc), (_, crc) = _join_pair(cuda, monkeypatch, shards)
+    for qv in _separated_vectors(crc, ["/j/_search"], 2):
+        knn = {"field": "v", "query_vector": qv, "k": 10,
+               "num_candidates": 60}
+        for filt in ({"has_parent": {"parent_type": "question", "query": {
+                        "term": {"tag": "t1"}}}},
+                     {"nested": {"path": "entities", "query": {
+                         "term": {"entities.name": "e2"}}}}):
+            body = {"knn": dict(knn, filter=filt), "_source": False}
+            dispatch.reset_launches()
+            s1, got = _req(grc, "POST", "/j/_search", body)
+            assert s1 == 200, got
+            assert dispatch.launches().get(kb.KERNEL_BF16, 0) == 0
+            s2, want = _req(crc, "POST", "/j/_search", body)
+            assert s2 == 200, want
+            _same_hits(got, want, 2e-3)
+        body = {"query": {"has_child": {"type": "answer", "query": {
+            "knn": knn}}}, "size": 40, "_source": False}
+        dispatch.reset_launches()
+        s1, got = _req(grc, "POST", "/j/_search", body)
+        assert s1 == 200, got
+        assert dispatch.launches().get(kb.KERNEL_BF16, 0) == shards
+        s2, want = _req(crc, "POST", "/j/_search", body)
+        assert s2 == 200, want
+        assert {h["_id"] for h in got["hits"]["hits"]} \
+            == {h["_id"] for h in want["hits"]["hits"]}
+        assert got["hits"]["total"] == want["hits"]["total"]

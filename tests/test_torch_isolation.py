@@ -70,6 +70,43 @@ def test_port_imports_without_jax_or_reference():
     assert out.stdout.strip() == "ok"
 
 
+def test_documents_within_documents_stand_alone():
+    """The mappers, queries, inner hits and aggregations of documents
+    within documents live in the port's own modules (its source matcher,
+    its murmur3) and import with `jax` and the JAX package blocked."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'elasticsearch_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "from elasticsearch_tpu_torch.index import mapping\n"
+        "from elasticsearch_tpu_torch.search import queries_ext, service\n"
+        "from elasticsearch_tpu_torch.search import aggregations\n"
+        "for t in ('nested', 'join', 'percolator', 'binary', "
+        "'search_as_you_type', 'token_count', 'wildcard', "
+        "'constant_keyword', 'murmur3', 'histogram', 'flattened', "
+        "'annotated_text', 'alias'):\n"
+        "    assert mapping.FIELD_TYPES[t].__module__ == mapping.__name__\n"
+        "for c in ('NestedQuery', 'HasChildQuery', 'HasParentQuery', "
+        "'ParentIdQuery', 'PercolateQuery', 'source_matches'):\n"
+        "    assert getattr(queries_ext, c).__module__ == "
+        "queries_ext.__name__\n"
+        "assert service.nested_inner_hits_specs.__module__ == "
+        "service.__name__\n"
+        "assert queries_ext.source_matches({'term': {'a': 1}}, {'a': 1})\n"
+        "assert {'nested', 'reverse_nested'} <= aggregations.BUCKET_AGGS\n"
+        "m = mapping.Murmur3FieldMapper('m').doc_value('hello')\n"
+        "assert m == 613153351, m\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'elasticsearch_tpu') and sys.modules[m] is not "
+        "None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_entry_points_raise_without_gpu(monkeypatch):
     from elasticsearch_tpu_torch.node import Node
     from elasticsearch_tpu_torch.ops import knn

@@ -339,8 +339,8 @@ def test_can_match_on_date_bounds(pair, monkeypatch):
 def test_put_mapping_objects_multi_fields_and_dynamic(pair):
     """`PUT _mapping` with objects, dotted paths, multi-fields and
     `dynamic` (false, "strict", "true"), a type change (400, the fields
-    before it merged), then writes, updates whose `doc` adds object
-    fields, and `GET _mapping` after each step."""
+    before it merged), a `nested` object, then writes, updates whose `doc`
+    adds object fields, and `GET _mapping` after each step."""
     pair.same("PUT", "/m", {"mappings": {"properties": {
         "a": {"type": "keyword"}}}})
     steps = [
@@ -365,8 +365,9 @@ def test_put_mapping_objects_multi_fields_and_dynamic(pair):
     for body in steps[3:6]:
         pair.same("PUT", "/m/_mapping", body)
         pair.same("GET", "/m/_mapping")
-    s, got = pair.port("PUT", "/m/_mapping", steps[6])
-    assert s == 400 and "nested" in got["error"]["reason"]
+    # a `nested` object, once refused, maps as the reference maps it
+    pair.same("PUT", "/m/_mapping", steps[6])
+    pair.same("GET", "/m/_mapping")
     pair.same("POST", "/m/_update/1", {"doc": {
         "o": {"v": "2015-01-01", "y": {"z": "10.0.0.1"}},
         "t": "Hello World Again", "more": [1.5, 2]}},

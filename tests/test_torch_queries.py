@@ -291,17 +291,13 @@ def test_errors_match_reference(nodes, case):
 
 
 def test_unported_query_kind_is_a_400(nodes):
-    """A kind still left out is a 400 that names it and the ROADMAP.md
-    item that brings it; `prefix` and `more_like_this`, once left out,
-    answer as the reference."""
+    """No kind is left out any more: `nested` (and its mapping),
+    `prefix` and `more_like_this`, each once left out, answer as the
+    reference."""
     ref_req, port_req = nodes
-    status, resp = port_req("POST", "/q/_search", {"query": {
-        "nested": {"path": "kw", "query": {"match_all": {}}}}})
-    assert status == 400
-    assert resp["error"]["type"] == "parsing_exception"
-    assert "[nested] query is not supported" in resp["error"]["reason"]
-    assert "ROADMAP.md queue 1 item 4" in resp["error"]["reason"]
-    for body in ({"query": {"prefix": {"kw": "re"}}, "size": 50},
+    for body in ({"query": {"nested": {"path": "kw", "query": {
+                     "match_all": {}}}}, "size": 50},
+                 {"query": {"prefix": {"kw": "re"}}, "size": 50},
                  {"query": {"more_like_this": {
                      "fields": ["kw"], "like": "re", "min_term_freq": 1,
                      "min_doc_freq": 1}}, "size": 50}):
@@ -310,10 +306,8 @@ def test_unported_query_kind_is_a_400(nodes):
         assert s1 == s2 == 200
         assert [h["_id"] for h in got["hits"]["hits"]] \
             == [h["_id"] for h in want["hits"]["hits"]]
-    status, resp = port_req("PUT", "/t2", {"mappings": {"properties": {
-        "x": {"type": "nested"}}}})
-    assert status == 400
-    assert resp["error"]["type"] == "mapper_parsing_exception"
+    body = {"mappings": {"properties": {"x": {"type": "nested"}}}}
+    assert port_req("PUT", "/t2", body) == ref_req("PUT", "/t2", body)
 
 
 def test_doc_values_column_equals_reference_constructor():

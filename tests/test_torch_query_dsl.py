@@ -297,16 +297,10 @@ def test_refusals_match_reference_status(world, query):
     """`index.max_regex_length` (12 on the text index) and an invalid
     regexp are the reference's 400s with its message; an unknown
     `default_operator` its parsing error; a `fuzziness` of another form
-    the reference's 500; a kind the reference serves and the port still
-    leaves out a 400 that names the ROADMAP.md item that brings it, and
-    the kinds once left out (`more_like_this`, `geo_distance`) the
-    reference's answer."""
+    the reference's 500; and the kinds once left out (`nested`,
+    `more_like_this`, `geo_distance`) the reference's answer."""
     s2, got = world.port("POST", "/w/_search", {"query": query})
-    if next(iter(query)) == "nested":
-        assert s2 == 400
-        assert "ROADMAP.md queue 1 item" in got["error"]["reason"]
-        return
-    if next(iter(query)) in ("more_like_this", "geo_distance"):
+    if next(iter(query)) in ("more_like_this", "geo_distance", "nested"):
         world.same("POST", "/w/_search", {"query": query})
         return
     s1, want = world.ref("POST", "/w/_search", {"query": query})

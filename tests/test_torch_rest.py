@@ -133,11 +133,9 @@ def test_errors_follow_reference_shape(clients):
     # a body key outside the slice is the reference's unknown-key 400
     status, got = port.req("POST", "/e/_search", {"foo": 1})
     assert status == 400 and got["error"]["type"] == "parsing_exception"
-    status, got = port.req("PUT", "/t", {"mappings": {"properties": {
-        "x": {"type": "percolator"}}}})
-    assert status == 400
-    assert got["error"]["reason"] == \
-        "No handler for type [percolator] declared on field [x]"
+    # a type once refused (percolator) maps as the reference maps it
+    body = {"mappings": {"properties": {"x": {"type": "percolator"}}}}
+    assert ref.req("PUT", "/t", body) == port.req("PUT", "/t", body)
 
 
 def test_source_disabled_and_http_round_trip():
