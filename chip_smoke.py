@@ -251,7 +251,18 @@ Phases, one line each; any failure raises and the exit code is not 0:
                `[aggs]` line (column build, HTTP p50 a body on the device
                rung and on the host path, the cost router's choice) and an
                `[aggs_op]` line an op (time a call beside its byte bound
-               and, for `ord_counts`, `torch.bincount`)
+               and, for `ord_counts`, `torch.bincount`); then the
+               `[aggs_kinds]` line (HTTP p50 over 16 requests a body and
+               the part's seconds): sibling pipelines and a `bucket_sort`
+               over a daily histogram on the device rung (one device node
+               a request, `aggs.*` launches, the profile's engine), parent
+               pipelines under it (one host node), `composite` paged with
+               `after_key`, `rare_terms`, `significant_terms`, the geo
+               grids with bounds and centroids, `top_hits` and
+               `top_metrics`, the other metrics, a `terms` script and a
+               `scripted_metric`, `auto_date_histogram`,
+               `adjacency_matrix` and `sampler`, and over the pair its
+               composite, siblings and t-digests, each held to numpy
 Every serve phase's node runs with `search.request_cache.device_paths`
 false (SERVE_SETTINGS): they send bodies more than once, and each must
 reach the card. Each IVF index answers one warm-up search first (the `nprobe: auto` tuner
@@ -373,8 +384,9 @@ request, which must fall back to the exhaustive corpus
                each: `nested` `term` on `answers.user` and `range` on
                `answers.date`, both with inner hits of size 3 and 100, a
                `nested` aggregation of a yearly `date_histogram` with a
-               `reverse_nested` inside, every total, inner hit and bucket
-               numpy's; `chunks`, 4,096 parents with 32,768 chunk
+               `reverse_nested` inside, and a `nested` / `top_hits` of
+               the newest answers, every total, inner hit, bucket and
+               listed object numpy's; `chunks`, 4,096 parents with 32,768 chunk
                children (384-d cosine vectors, `nested` entities) routed
                by their parent's id over two shards: `knn` filtered by
                `has_parent` and by `nested` (the exact route: recall@10
@@ -7082,6 +7094,575 @@ def logs_aggs(client, node, cols: dict, parts: dict) -> dict:
     return calls
 
 
+# ------------------------------------------------------------- aggs_kinds
+#
+# The aggregation kinds of the rest of the layer over serve_logs' `logs`
+# index and its can_match pair: pipelines over the device rung's daily
+# histogram, composite paging, rare and significant terms, the geo grids,
+# top_hits / top_metrics, the other metrics, scripts and the remaining
+# bucket kinds, each answer held to numpy over `logs_columns`.
+
+AGGS_KINDS_REPS = 16        # requests a body (the p50's)
+# floats derived by sums in another order (means, centroids, moments)
+KINDS_REL = 1e-9
+# t-digest answers over the pair (two indices' merged digests, compression
+# 200 over 40,000 sizes): a percentile rank within half a percent, a
+# quartile within 2% of numpy's exact one
+TD_RANK_ABS = 0.5
+TD_QUANTILE_REL = 0.02
+_BASE32 = "0123456789bcdefghjkmnpqrstuvwxyz"
+
+
+def _close(a, b, rel=KINDS_REL) -> bool:
+    if a is None or b is None:
+        return a is b
+    return abs(a - b) <= rel * max(abs(a), abs(b), 1e-300)
+
+
+def _geohash(lat: float, lon: float, precision: int) -> str:
+    """A geohash by interleaved bisection, longitude first."""
+    lo = [-90.0, -180.0]
+    hi = [90.0, 180.0]
+    v = [lat, lon]
+    out, bits, n = [], 0, 0
+    for i in range(precision * 5):
+        d = 1 - i % 2       # even bits bisect the longitude
+        mid = (lo[d] + hi[d]) / 2
+        bit = int(v[d] >= mid)
+        if bit:
+            lo[d] = mid
+        else:
+            hi[d] = mid
+        bits = bits * 2 + bit
+        n += 1
+        if n == 5:
+            out.append(_BASE32[bits])
+            bits, n = 0, 0
+    return "".join(out)
+
+
+def _geotile(lat: float, lon: float, z: int) -> str:
+    """The web-map tile z/x/y of a point."""
+    n = 1 << z
+    lat = min(max(lat, -85.05112878), 85.05112878)
+    r = math.radians(lat)
+    x = int((lon + 180.0) / 360.0 * n)
+    y = int((1.0 - math.log(math.tan(r) + 1 / math.cos(r)) / math.pi)
+            / 2.0 * n)
+    return f"{z}/{min(max(x, 0), n - 1)}/{min(max(y, 0), n - 1)}"
+
+
+def _kinds_expect(label: str, what: str, ok: bool, got, want) -> None:
+    if not ok:
+        raise AssertionError(f"aggs_kinds {label} {what}: "
+                             f"{str(got)[:300]}, numpy says "
+                             f"{str(want)[:300]}")
+
+
+def _daily(ts, sz):
+    """[(day key ms, count, avg size)] of the days holding lines (a
+    calendar histogram fills no gap)."""
+    days = ts // 86_400
+    keys, counts = np.unique(days, return_counts=True)
+    sums = np.bincount(np.searchsorted(keys, days), weights=sz)
+    return [(int(k) * 86_400_000, int(c), float(int(s)) / int(c))
+            for k, c, s in zip(keys.tolist(), counts.tolist(),
+                               sums.tolist())]
+
+
+def _check_siblings(label, aggs, daily) -> None:
+    avgs = [a for _, _, a in daily if a is not None]
+    want_avg = sum(avgs) / len(avgs)
+    mx = max(avgs)
+    _kinds_expect(label, "avg_bucket", _close(aggs["avg_daily"]["value"],
+                                              want_avg),
+                  aggs["avg_daily"], want_avg)
+    keys = [str(k) for k, _, a in daily if a == mx]
+    _kinds_expect(label, "max_bucket",
+                  _close(aggs["max_daily"]["value"], mx)
+                  and aggs["max_daily"]["keys"] == keys,
+                  aggs["max_daily"], (mx, keys))
+    arr = np.asarray(avgs)
+    for p in (1.0, 5.0, 25.0, 50.0, 75.0, 95.0, 99.0):
+        got = aggs["pct_daily"]["values"][str(p)]
+        want = float(np.percentile(arr, p))
+        _kinds_expect(label, f"percentiles_bucket {p}", _close(got, want),
+                      got, want)
+
+
+def composite_pages(send, path, sources, size, pages=None) -> list:
+    """The buckets of a composite's pages, following `after_key` to the
+    end (or `pages` pages); `send(path, body)` answers a search."""
+    out, after, k = [], None, 0
+    while pages is None or k < pages:
+        spec = {"sources": sources, "size": size}
+        if after is not None:
+            spec["after"] = after
+        comp = send(path, {"size": 0, "request_cache": False,
+                           "aggs": {"c": {"composite": spec}}}
+                    )["aggregations"]["c"]
+        if not comp["buckets"]:
+            break
+        out += comp["buckets"]
+        after = comp["after_key"]
+        k += 1
+    return out
+
+
+def _hdr_value(v_sorted: np.ndarray, p: float, digits: int) -> float:
+    """HDR's highest equivalent value of the value at the rank."""
+    n = len(v_sorted)
+    rank = min(max(int(np.floor(p / 100.0 * n + 0.5)), 1), n)
+    x = float(v_sorted[rank - 1])
+    if x <= 0:
+        return x
+    sub = 2 ** int(np.ceil(np.log2(10.0 ** max(digits, 1))))
+    vmin = float(v_sorted[v_sorted > 0][0])
+    unit = 2.0 ** np.floor(np.log2(vmin)) / sub
+    erange = max(2.0 ** np.floor(np.log2(x)) / sub, unit)
+    return float(np.floor(x / erange) * erange + erange - unit)
+
+
+def aggs_kinds_bodies(cols: dict) -> dict:
+    """label -> (path, body) of the [aggs_kinds] part."""
+    day = {"date_histogram": {"field": "@timestamp",
+                              "calendar_interval": "day"}}
+    siblings = {
+        "daily": {**day, "aggs": {"avg_size": {"avg": {"field": "size"}}}},
+        "avg_daily": {"avg_bucket": {"buckets_path": "daily>avg_size"}},
+        "max_daily": {"max_bucket": {"buckets_path": "daily>avg_size"}},
+        "pct_daily": {"percentiles_bucket": {
+            "buckets_path": "daily>avg_size"}}}
+    geo = {"b": {"geo_bounds": {"field": "geoip.location"}},
+           "c": {"geo_centroid": {"field": "geoip.location"}}}
+    out = {
+        "pipelines": {**siblings, "top_days": {"bucket_sort": {
+            "buckets_path": {"a": "daily>avg_size"},
+            "sort": [{"avg_size": "desc"}], "size": 10}}},
+        "parents": {"daily": {**day, "aggs": {
+            "avg_size": {"avg": {"field": "size"}},
+            "deriv": {"derivative": {"buckets_path": "avg_size"}},
+            "cum": {"cumulative_sum": {"buckets_path": "_count"}},
+            "mov": {"moving_fn": {
+                "buckets_path": "avg_size", "window": 7,
+                "script": "MovingFunctions.unweightedAvg(values)"}}}}},
+        "composite_day_status": {"c": {"composite": {"size": 100, "sources": [
+            {"day": day}, {"status": {"terms": {"field": "status"}}}]}}},
+        "composite_ip": {"c": {"composite": {"size": 100, "sources": [
+            {"ip": {"terms": {"field": "clientip"}}}]}}},
+        "rare_significant": {
+            "rare": {"rare_terms": {"field": "clientip"}}},
+        "significant": {"sig": {"significant_terms": {"field": "status"}}},
+        "geo_grids": {
+            "tiles": {"geotile_grid": {"field": "geoip.location",
+                                       "precision": 6}, "aggs": geo},
+            "hashes": {"geohash_grid": {"field": "geoip.location",
+                                        "precision": 4}, "aggs": geo}},
+        "top_hits_metrics": {"st": {"terms": {"field": "status"}, "aggs": {
+            "big": {"top_hits": {"size": 3, "sort": [{"size": "desc"}]}},
+            "last": {"top_metrics": {"metrics": {"field": "size"},
+                                     "sort": {"@timestamp": "desc"}}}}}},
+        "metrics": {
+            "w": {"weighted_avg": {"value": {"field": "size"},
+                                   "weight": {"field": "status"}}},
+            "pr": {"percentile_ranks": {"field": "size",
+                                        "values": [1000, 10000, 100000]}},
+            "mad": {"median_absolute_deviation": {"field": "size"}},
+            "box": {"boxplot": {"field": "size"}},
+            "hdr": {"percentiles": {"field": "size", "hdr": {
+                "number_of_significant_value_digits": 3}}},
+            "ss": {"string_stats": {"field": "request.raw"}},
+            "mx": {"matrix_stats": {"fields": ["size", "status"]}}},
+        "scripts": {
+            "s": {"terms": {"script": {"source": "doc['status'].value"}}},
+            "bytes": {"scripted_metric": {
+                "init_script": "state.b = 0",
+                "map_script": "state.b += doc['size'].value",
+                "combine_script": "return state.b",
+                "reduce_script": "double s = 0; for (x in states) "
+                                 "{ s += x } return s"}}},
+        "other_buckets": {
+            "auto": {"auto_date_histogram": {"field": "@timestamp",
+                                             "buckets": 10}},
+            "adj": {"adjacency_matrix": {"filters": {
+                "err": {"range": {"status": {"gte": 400}}},
+                "big": {"range": {"size": {"gte": 100_000}}},
+                "paris": {"term": {"geoip.city_name": "Paris"}}}}},
+            "samp": {"sampler": {"shard_size": 200}, "aggs": {
+                "st": {"terms": {"field": "status"}}}}},
+        "pair_composite": {"c": {"composite": {"size": 100, "sources": [
+            {"day": day}, {"status": {"terms": {"field": "status"}}}]}}},
+        "pair_siblings": siblings,
+        "pair_digests": {
+            "pr": {"percentile_ranks": {"field": "size",
+                                        "values": [1000, 10000, 100000]}},
+            "box": {"boxplot": {"field": "size"}},
+            "b": {"geo_bounds": {"field": "geoip.location"}}},
+    }
+    queries = {"significant": {"range": {"status": {"gte": 400}}},
+               "scripts": {"term": {"status": 404}}}
+    bodies = {}
+    for label, aggs in out.items():
+        path = "/logs_early,logs_late/_search" if label.startswith("pair") \
+            else "/logs/_search"
+        body = {"size": 0, "request_cache": False, "aggs": aggs}
+        if label in queries:
+            body["query"] = queries[label]
+        bodies[label] = (path, body)
+    return bodies
+
+
+def check_aggs_kinds(label: str, aggs: dict, cols: dict, sel: np.ndarray,
+                     paths: list) -> None:
+    """Body `label`'s answer against numpy over the lines `sel`."""
+    ts, st, sz = cols["ts"][sel], cols["status"][sel], cols["size"][sel]
+    ip, city = cols["ip"][sel], cols["city"][sel]
+    ms = ts * 1000
+    if label in ("pipelines", "pair_siblings"):
+        daily = _daily(ts, sz)
+        _check_siblings(label, aggs, daily)
+        buckets = aggs["daily"]["buckets"]
+        top = daily if label == "pair_siblings" else sorted(
+            daily, key=lambda d: d[2], reverse=True)[:10]
+        got = [(b["key"], b["doc_count"], b["avg_size"]["value"])
+               for b in buckets]
+        _kinds_expect(label, "daily", len(got) == len(top) and all(
+            g[:2] == w[:2] and _close(g[2], w[2]) for g, w in zip(got, top)),
+            got, top)
+    elif label == "parents":
+        daily = _daily(ts, sz)
+        cum, prev = 0.0, None
+        for i, (b, (k, c, a)) in enumerate(zip(aggs["daily"]["buckets"],
+                                               daily)):
+            cum += c
+            win = [d[2] for d in daily[max(0, i - 7):i] if d[2] is not None]
+            want = {"key": k, "doc_count": c, "avg": a, "cum": cum,
+                    "deriv": (a - prev if prev is not None and a is not None
+                              else None),
+                    "mov": sum(win) / len(win) if win else None}
+            got = {"key": b["key"], "doc_count": b["doc_count"],
+                   "avg": b["avg_size"]["value"], "cum": b["cum"]["value"],
+                   "deriv": b.get("deriv", {}).get("value"),
+                   "mov": b["mov"]["value"]}
+            _kinds_expect(label, f"day {k}", got["key"] == k
+                          and got["doc_count"] == c and all(
+                              _close(got[f], want[f])
+                              for f in ("avg", "cum", "deriv", "mov")),
+                          got, want)
+            prev = a
+        _kinds_expect(label, "days", len(aggs["daily"]["buckets"])
+                      == len(daily), len(aggs["daily"]["buckets"]),
+                      len(daily))
+    elif label in ("composite_day_status", "pair_composite"):
+        pairs, counts = np.unique(np.stack([ts // 86_400, st]), axis=1,
+                                  return_counts=True)
+        want = [{"key": {"day": int(d) * 86_400_000, "status": int(s)},
+                 "doc_count": int(c)}
+                for (d, s), c in zip(pairs.T.tolist(), counts.tolist())]
+        _kinds_expect(label, "pages", aggs["pages"] == want,
+                      aggs["pages"][:5], want[:5])
+    elif label == "composite_ip":
+        texts, counts = np.unique(np.asarray([ipv4(v) for v in ip]),
+                                  return_counts=True)
+        want = [{"key": {"ip": t}, "doc_count": int(c)}
+                for t, c in zip(texts.tolist(), counts.tolist())][:300]
+        _kinds_expect(label, "three pages", aggs["pages"] == want,
+                      aggs["pages"][:5], want[:5])
+    elif label == "rare_significant":
+        vals, counts = np.unique(ip, return_counts=True)
+        rare = vals[counts == 1]
+        want = [ipv4(v) for v in rare[:10]]
+        got = aggs["rare"]
+        _kinds_expect(label, "rare_terms",
+                      [b["key"] for b in got["buckets"]] == want
+                      and all(b["doc_count"] == 1 for b in got["buckets"])
+                      and got["sum_other_doc_count"]
+                      == max(len(rare) - 10, 0),
+                      got, want)
+    elif label == "significant":
+        # sel is the foreground (status >= 400); the background every line
+        bg_codes, bg_counts = np.unique(cols["status"], return_counts=True)
+        bg = dict(zip(bg_codes.tolist(), bg_counts.tolist()))
+        fg_codes, fg_counts = np.unique(st, return_counts=True)
+        fg_total, bg_total = len(st), len(cols["status"])
+        want = []
+        for code, fg in zip(fg_codes.tolist(), fg_counts.tolist()):
+            fq, bq = fg / fg_total, bg[code] / bg_total
+            if fg >= 3 and fq > bq:
+                want.append((code, fg, bg[code], (fq - bq) * (fq / bq)))
+        want.sort(key=lambda w: (-w[3], w[0]))
+        got = [(b["key"], b["doc_count"], b["bg_count"], b["score"])
+               for b in aggs["sig"]["buckets"]]
+        _kinds_expect(label, "significant_terms",
+                      aggs["sig"]["doc_count"] == fg_total
+                      and aggs["sig"]["bg_count"] == bg_total
+                      and len(got) == len(want) and all(
+                          g[:3] == w[:3] and _close(g[3], w[3])
+                          for g, w in zip(got, want)), got, want)
+    elif label == "geo_grids":
+        has = city >= 0
+        lat = np.asarray([LOGS_CITIES[c][2] for c in city[has]])
+        lon = np.asarray([LOGS_CITIES[c][3] for c in city[has]])
+        for name, enc, prec in (("tiles", _geotile, 6),
+                                ("hashes", _geohash, 4)):
+            keys = np.asarray([enc(la, lo, prec)
+                               for la, lo in zip(lat.tolist(), lon.tolist())])
+            cells, counts = np.unique(keys, return_counts=True)
+            order = sorted(zip(cells.tolist(), counts.tolist()),
+                           key=lambda kc: (-kc[1], kc[0]))
+            got = aggs[name]["buckets"]
+            _kinds_expect(label, name, [(b["key"], b["doc_count"])
+                                        for b in got] == order, got, order)
+            for b in got:
+                m = keys == b["key"]
+                box = b["b"]["bounds"]
+                ok = (box["top_left"] == {"lat": float(lat[m].max()),
+                                          "lon": float(lon[m].min())}
+                      and box["bottom_right"] == {
+                          "lat": float(lat[m].min()),
+                          "lon": float(lon[m].max())}
+                      and b["c"]["count"] == int(m.sum())
+                      and _close(b["c"]["location"]["lat"],
+                                 float(lat[m].mean()))
+                      and _close(b["c"]["location"]["lon"],
+                                 float(lon[m].mean())))
+                _kinds_expect(label, f"{name} {b['key']}", ok, b, m.sum())
+    elif label == "top_hits_metrics":
+        rows = sel
+        for b in aggs["st"]["buckets"]:
+            mine = rows[st == b["key"]]
+            order = mine[np.lexsort((mine, -cols["size"][mine]))][:3]
+            want = [(str(r), [int(cols["size"][r])]) for r in order]
+            got = [(h["_id"], h["sort"]) for h in b["big"]["hits"]["hits"]]
+            _kinds_expect(label, f"top_hits {b['key']}", got == want
+                          and b["big"]["hits"]["total"]["value"]
+                          == len(mine), got, want)
+            last = mine[cols["ts"][mine] == cols["ts"][mine].max()].max()
+            want = [{"sort": [float(cols["ts"][last] * 1000)],
+                     "metrics": {"size": float(cols["size"][last])}}]
+            _kinds_expect(label, f"top_metrics {b['key']}",
+                          b["last"]["top"] == want, b["last"], want)
+    elif label == "metrics":
+        v = np.sort(sz.astype(np.float64))
+        n = len(v)
+        w = float((sz * st).sum()) / float(st.sum())
+        _kinds_expect(label, "weighted_avg", _close(aggs["w"]["value"], w),
+                      aggs["w"], w)
+        for t in (1000, 10000, 100000):
+            want = 100.0 * np.searchsorted(v, t, side="right") / n
+            got = aggs["pr"]["values"][f"{float(t)}"]
+            _kinds_expect(label, f"percentile_rank {t}", _close(got, want),
+                          got, want)
+        med = np.median(v)
+        mad = float(np.median(np.abs(v - med)))
+        _kinds_expect(label, "mad", _close(aggs["mad"]["value"], mad),
+                      aggs["mad"], mad)
+        q1, q2, q3 = (float(np.percentile(v, p)) for p in (25, 50, 75))
+        iqr = q3 - q1
+        inside = v[(v >= q1 - 1.5 * iqr) & (v <= q3 + 1.5 * iqr)]
+        box = {"min": float(v[0]), "max": float(v[-1]), "q1": q1,
+               "q2": q2, "q3": q3, "lower": float(inside.min()),
+               "upper": float(inside.max())}
+        _kinds_expect(label, "boxplot", aggs["box"].keys() == box.keys()
+                      and all(_close(aggs["box"][k], box[k]) for k in box),
+                      aggs["box"], box)
+        for p in (1, 5, 25, 50, 75, 95, 99):
+            want = _hdr_value(v, float(p), 3)
+            got = aggs["hdr"]["values"][f"{float(p)}"]
+            _kinds_expect(label, f"hdr {p}", _close(got, want), got, want)
+        reqs = [f"GET {paths[p]} HTTP/1.0" for p in cols["path"][sel]]
+        lens = np.asarray([len(r) for r in reqs])
+        chars = np.frombuffer("".join(reqs).encode("ascii"), dtype=np.uint8)
+        freq = np.bincount(chars)
+        prob = freq[freq > 0] / len(chars)
+        ent = float(-(prob * np.log2(prob)).sum())
+        ss = aggs["ss"]
+        _kinds_expect(label, "string_stats", ss["count"] == len(reqs)
+                      and ss["min_length"] == int(lens.min())
+                      and ss["max_length"] == int(lens.max())
+                      and _close(ss["avg_length"], float(lens.mean()))
+                      and abs(ss["entropy"] - ent) < 1e-9, ss, ent)
+        x = np.stack([sz.astype(np.float64), st.astype(np.float64)])
+        cov = np.cov(x)
+        sd = np.sqrt(np.diag(cov))
+        for i, f in enumerate(aggs["mx"]["fields"]):
+            c = x[i] - x[i].mean()
+            want = {"mean": x[i].mean(), "variance": cov[i, i],
+                    "skewness": float(((c / sd[i]) ** 3).mean()),
+                    "kurtosis": float(((c / sd[i]) ** 4).mean()),
+                    "cov": cov[i, 1 - i],
+                    "corr": cov[i, 1 - i] / (sd[0] * sd[1])}
+            other = "status" if f["name"] == "size" else "size"
+            got = {"mean": f["mean"], "variance": f["variance"],
+                   "skewness": f["skewness"], "kurtosis": f["kurtosis"],
+                   "cov": f["covariance"][other],
+                   "corr": f["correlation"][other]}
+            _kinds_expect(label, f"matrix_stats {f['name']}",
+                          f["count"] == n and all(
+                              _close(got[k], want[k]) for k in want),
+                          got, want)
+    elif label == "scripts":
+        want = float(int(sz.sum()))
+        _kinds_expect(label, "terms script (the reference keys no bucket "
+                             "on a script)", aggs["s"]["buckets"] == [],
+                      aggs["s"], [])
+        _kinds_expect(label, "scripted_metric",
+                      _close(aggs["bytes"]["value"], want),
+                      aggs["bytes"], want)
+    elif label == "other_buckets":
+        span = float(ms.max() - ms.min())
+        interval = max(max(span, 1.0) / 10, 1.0)
+        for unit in (1, 1000, 60_000, 3_600_000, 86_400_000, 2_592_000_000,
+                     31_536_000_000):
+            if interval <= unit:
+                interval = unit
+                break
+        keys, counts = np.unique(np.floor(ms / interval) * interval,
+                                 return_counts=True)
+        got = [(b["key"], b["doc_count"]) for b in aggs["auto"]["buckets"]
+               if b["doc_count"]]
+        want = [(int(k), int(c)) for k, c in zip(keys.tolist(),
+                                                 counts.tolist())]
+        _kinds_expect(label, "auto_date_histogram", got == want
+                      and aggs["auto"]["interval"] == f"{int(interval)}ms",
+                      aggs["auto"], want)
+        masks = {"err": st >= 400, "big": sz >= 100_000,
+                 "paris": city == 0}
+        want = []
+        names = sorted(masks)
+        for i, a in enumerate(names):
+            if masks[a].sum():
+                want.append((a, int(masks[a].sum())))
+            for b in names[i + 1:]:
+                both = int((masks[a] & masks[b]).sum())
+                if both:
+                    want.append((f"{a}&{b}", both))
+        got = [(b["key"], b["doc_count"]) for b in aggs["adj"]["buckets"]]
+        _kinds_expect(label, "adjacency_matrix", got == want, got, want)
+        first = st[:200]    # the sampler's rows: the first lines
+        codes, counts = np.unique(first, return_counts=True)
+        want = sorted(zip(codes.tolist(), counts.tolist()),
+                      key=lambda kc: (-kc[1], kc[0]))
+        got = [(b["key"], b["doc_count"])
+               for b in aggs["samp"]["st"]["buckets"]]
+        _kinds_expect(label, "sampler", aggs["samp"]["doc_count"]
+                      == len(first) and got == want, got, want)
+    elif label == "pair_digests":
+        v = np.sort(sz.astype(np.float64))
+        for t in (1000, 10000, 100000):
+            want = 100.0 * np.searchsorted(v, t, side="right") / len(v)
+            got = aggs["pr"]["values"][f"{float(t)}"]
+            _kinds_expect(label, f"percentile_rank {t}",
+                          abs(got - want) <= TD_RANK_ABS, got, want)
+        for q, p in (("q1", 25), ("q2", 50), ("q3", 75)):
+            want = float(np.percentile(v, p))
+            got = aggs["box"][q]
+            _kinds_expect(label, f"boxplot {q}",
+                          abs(got - want) <= TD_QUANTILE_REL * abs(want),
+                          got, want)
+        _kinds_expect(label, "boxplot min/max", (aggs["box"]["min"],
+                                                 aggs["box"]["max"])
+                      == (v[0], v[-1]), aggs["box"], (v[0], v[-1]))
+        has = city[city >= 0]
+        lat = [LOGS_CITIES[c][2] for c in np.unique(has)]
+        lon = [LOGS_CITIES[c][3] for c in np.unique(has)]
+        want = {"top_left": {"lat": max(lat), "lon": min(lon)},
+                "bottom_right": {"lat": min(lat), "lon": max(lon)}}
+        _kinds_expect(label, "geo_bounds", aggs["b"]["bounds"] == want,
+                      aggs["b"], want)
+
+
+def aggs_kinds_sel(label: str, cols: dict, parts: dict) -> np.ndarray:
+    """The lines a body's answer covers: the pair's, the foreground of
+    the significant / script bodies, or every line."""
+    n = len(cols["ts"])
+    if label.startswith("pair"):
+        return np.concatenate([np.arange(*parts["logs_early"]),
+                               np.arange(*parts["logs_late"])])
+    if label == "significant":
+        return np.nonzero(cols["status"] >= 400)[0]
+    if label == "scripts":
+        return np.nonzero(cols["status"] == 404)[0]
+    return np.arange(n)
+
+
+def with_pages(label: str, path: str, body: dict, aggs: dict,
+               send) -> dict:
+    """A composite body's answer as its pages (to the end; three for
+    `clientip`), the first of them the answer given."""
+    if "composite" not in label:
+        return aggs
+    comp = aggs["c"]
+    pages = composite_pages(send, path,
+                            body["aggs"]["c"]["composite"]["sources"], 100,
+                            pages=3 if label == "composite_ip" else None)
+    if pages[:len(comp["buckets"])] != comp["buckets"]:
+        raise AssertionError(f"aggs_kinds {label}: the first page differs "
+                             f"from the timed one")
+    return {"pages": pages}
+
+
+def logs_aggs_kinds(client, node, cols: dict, parts: dict,
+                    paths: list) -> None:
+    """The [aggs_kinds] part of serve_logs: each body of
+    `aggs_kinds_bodies` AGGS_KINDS_REPS times over HTTP with the device
+    rung on (router off) and `request_cache: false`, its answer held to
+    numpy (`check_aggs_kinds`); a composite's first page is the timed
+    body, then its pages to the end (three for `clientip`). The
+    pipelines body must run its daily histogram on the device rung (one
+    device node a request, `aggs.*` launches counted, the profile's
+    engine) with the pipelines over its output; the parents body is one
+    host node (`unsupported_sub_agg`). Logs each body's HTTP p50 and the
+    part's seconds."""
+    from elasticsearch_tpu_torch.ops import dispatch
+    t_part = time.perf_counter()
+    node.settings.update({"search.aggs.device_enabled": "true",
+                          "search.aggs.cost_router": "false"})
+    line = {}
+    for label, (path, body) in aggs_kinds_bodies(cols).items():
+        lat = []
+        for _ in range(AGGS_KINDS_REPS):
+            before, ops0 = node.aggs_stats(), dispatch.launches()
+            t = time.perf_counter()
+            resp = client.ok("POST", path, body)
+            lat.append((time.perf_counter() - t) * 1e3)
+            after, ops1 = node.aggs_stats(), dispatch.launches()
+            dev = after["device_nodes"] - before["device_nodes"]
+            host = after["host_nodes"] - before["host_nodes"]
+            if label == "pipelines":
+                agg_ops = sum(c - ops0.get(k, 0) for k, c in ops1.items()
+                              if k.startswith("aggs."))
+                if dev != 1 or host != 0 or (
+                        agg_ops == 0 and node.device.type == "cuda"):
+                    raise AssertionError(
+                        f"aggs_kinds pipelines: device nodes {dev}, host "
+                        f"nodes {host}, aggs.* launches {agg_ops}")
+            elif label == "parents":
+                reasons = (after["fallback_reasons"].get(
+                    "unsupported_sub_agg", {}).get("count", 0)
+                    - before["fallback_reasons"].get(
+                        "unsupported_sub_agg", {}).get("count", 0))
+                if dev != 0 or host != 1 or reasons != 1:
+                    raise AssertionError(
+                        f"aggs_kinds parents: device nodes {dev}, host "
+                        f"nodes {host}, unsupported_sub_agg {reasons}")
+        aggs = with_pages(label, path, body, resp["aggregations"],
+                          lambda p, b: client.ok("POST", p, b))
+        check_aggs_kinds(label, aggs, cols, aggs_kinds_sel(label, cols,
+                                                           parts), paths)
+        line[f"{label}_p50_ms"] = f"{statistics.median(lat):.3f}"
+    # the pipelines read the device rung's daily histogram: its profile
+    path, body = aggs_kinds_bodies(cols)["pipelines"]
+    prof = client.ok("POST", path, dict(body, profile=True))["profile"]
+    engines = {e["description"]: e.get("engine")
+               for e in prof["shards"][0]["aggregations"]}
+    if engines != {"daily": "device", "avg_daily": None, "max_daily": None,
+                   "pct_daily": None, "top_days": None}:
+        raise AssertionError(f"aggs_kinds pipelines profile: {engines}")
+    log("aggs_kinds", reps=AGGS_KINDS_REPS, **line,
+        part_s=f"{time.perf_counter() - t_part:.1f}")
+
+
 def logs_agg_ops(engine, reader, snap, calls: dict) -> None:
     """Each `aggs.*` op at the shapes the bodies gave it over every line
     (match_all), timed a call with CUDA events beside its byte bound
@@ -7225,6 +7806,10 @@ def phase_serve_logs(seed: int, n: int, device: str = "cuda",
         t = time.perf_counter()
         logs_aggs(client, node, cols, parts)
         log("timing", step="serve_logs_aggs",
+            seconds=f"{time.perf_counter() - t:.1f}")
+        t = time.perf_counter()
+        logs_aggs_kinds(client, node, cols, parts, paths)
+        log("timing", step="serve_logs_aggs_kinds",
             seconds=f"{time.perf_counter() - t:.1f}")
         telemetry_logs(client, node)
         dsl_logs(client, cols, paths)
@@ -7598,7 +8183,8 @@ def nested_qa(client, node, seed: int, n: int) -> None:
     """The `qa` index: `nested` `term` on `answers.user` and `range` on
     `answers.date`, both with inner hits of size 3 and 100, and a `nested`
     aggregation holding a yearly `date_histogram` on `answers.date` with a
-    `reverse_nested` inside; every total, inner hit count and bucket
+    `reverse_nested` inside, and one holding the `top_hits` of the newest
+    three answers; every total, inner hit count, bucket and listed answer
     numpy's over the generated answers."""
     t0 = time.perf_counter()
     cols = qa_columns(seed, n)
@@ -7708,6 +8294,30 @@ def nested_qa(client, node, seed: int, n: int) -> None:
     p50, resp = nested_timed(client, "/qa/_search", bodies, check_agg)
     lines["agg_p50_ms"] = f"{p50:.3f}"
     lines["agg_doc_count0"] = resp["aggregations"]["answers"]["doc_count"]
+
+    def check_top_hits(i, resp):
+        # the newest three answers of the tag's questions: date desc, ties
+        # in question and answer order
+        rows = np.nonzero(cols["tag"] == tags[i])[0]
+        ans = np.concatenate([np.arange(start[q], start[q + 1])
+                              for q in rows]) if len(rows) else rows
+        order = ans[np.lexsort((ans, -a_date[ans]))][:3]
+        want = [(str(owner[j]), int(j - start[owner[j]]),
+                 {"user": f"user{a_user[j]}", "date": int(a_date[j])},
+                 [int(a_date[j])]) for j in order]
+        hits = resp["aggregations"]["answers"]["newest"]["hits"]
+        got = [(h["_id"], h["_nested"]["offset"], h["_source"], h["sort"])
+               for h in hits["hits"]]
+        if got != want or hits["total"]["value"] != len(ans):
+            raise AssertionError(f"nested qa top_hits {got} != {want}")
+
+    bodies = [{"size": 0, "query": {"term": {"tag": f"t{t}"}}, "aggs": {
+        "answers": {"nested": {"path": "answers"}, "aggs": {
+            "newest": {"top_hits": {"size": 3,
+                                    "sort": [{"answers.date": "desc"}]}}}}}}
+              for t in tags]
+    p50, resp = nested_timed(client, "/qa/_search", bodies, check_top_hits)
+    lines["top_hits_p50_ms"] = f"{p50:.3f}"
     log("nested", part="qa", **lines)
     drop_index(client, "qa")
 

@@ -59,6 +59,22 @@ class TooManyBucketsError(SearchEngineError):
     status = 503
 
 
+class ArrayIndexOutOfBoundsError(SearchEngineError):
+    """A failure inside an aggregator that fails its shard: HDR
+    percentiles recording a negative value."""
+    status = 500
+
+
+class SearchPhaseExecutionError(SearchEngineError):
+    """Every shard of a search failed ("all shards failed")."""
+    status = 503
+
+    def __init__(self, phase: str, message: str, shard_failures=()):
+        super().__init__(message, phase=phase)
+        self.phase = phase
+        self.shard_failures = list(shard_failures)
+
+
 class QueryShardError(SearchEngineError):
     """A query cannot run against this shard's mappings (e.g. `exists` on
     [_source])."""

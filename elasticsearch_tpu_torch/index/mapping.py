@@ -455,7 +455,10 @@ class IpFieldMapper(FieldMapper):
     @staticmethod
     def format_value(stored: int) -> str:
         """The address a stored integer names (IPv4 in dotted form)."""
-        addr = ipaddress.IPv6Address(int(stored))
+        v = int(stored)
+        if 0xFFFF_0000_0000 <= v <= 0xFFFF_FFFF_FFFF:
+            return f"{v >> 24 & 255}.{v >> 16 & 255}.{v >> 8 & 255}.{v & 255}"
+        addr = ipaddress.IPv6Address(v)
         return str(addr.ipv4_mapped or addr)
 
     def index_terms(self, value):

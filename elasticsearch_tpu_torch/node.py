@@ -27,10 +27,16 @@ search context's `bool` filter clauses. `_cache/clear` and the `query_cache` /
 `request_cache` index stats read them.
 
 Aggregations: the body's `aggs` are checked before any index runs
-(`validate_aggs`; a left-out kind is a 400 that names it), each index
-computes them in its query phase (final JSON for one index, partial
-states over several, merged and finalized here), and a `global` or
-`min_doc_count: 0` aggregation turns the can_match skip off. An index's
+(`validate_aggs`), each index computes them in its query phase (final
+JSON for one index, partial states over several, merged and finalized
+here, where the top-level pipelines then run), and a `global` or
+`min_doc_count: 0` aggregation turns the can_match skip off. An
+aggregator that fails a one-shard index (`ArrayIndexOutOfBoundsError`:
+HDR percentiles over a negative value) fails that shard: it is listed
+under `_shards.failures`, or, when every shard failed, the search is a
+503 "all shards failed"; on an index of several shards the reference's
+retry without the failing shards is not ported, a 400 that names its
+ROADMAP.md item. An index's
 `AggEngine` (`search/agg_plan.py`) runs the device-eligible nodes on the
 card unless the node setting `search.aggs.device_enabled` is false; the
 node setting `search.aggs.cost_router` (default on) lets the node's one
@@ -93,9 +99,10 @@ from elasticsearch_tpu_torch import resolve_device
 from elasticsearch_tpu_torch import telemetry
 from elasticsearch_tpu_torch.cluster.routing import shard_ids_for
 from elasticsearch_tpu_torch.common.errors import (
-    ActionRequestValidationError, DocumentMissingError, IllegalArgumentError,
-    IndexNotFoundError, ParsingError, ResourceAlreadyExistsError,
-    SearchEngineError, VersionConflictError,
+    ActionRequestValidationError, ArrayIndexOutOfBoundsError,
+    DocumentMissingError, IllegalArgumentError, IndexNotFoundError,
+    ParsingError, ResourceAlreadyExistsError, SearchEngineError,
+    SearchPhaseExecutionError, VersionConflictError,
 )
 from elasticsearch_tpu_torch.indices.service import (  # noqa: F401
     SHARD_ROW_SPACE, IndexService, flat_settings, resolve_expression,
@@ -114,7 +121,7 @@ from elasticsearch_tpu_torch.search.extras import (
     execute_suggest, merge_suggest,
 )
 from elasticsearch_tpu_torch.search.aggregations import (
-    has_global_agg, validate_aggs,
+    has_global_agg, hdr_multi_shard_error, validate_aggs,
 )
 from elasticsearch_tpu_torch.script.service import GLOBAL_SCRIPTS
 from elasticsearch_tpu_torch.search.caches import (
@@ -1122,6 +1129,7 @@ class Node:
         profiled = bool(body.get("profile"))
         phases, profiles = [], []
         total, relation, max_score, skipped = 0, "eq", None, 0
+        failures: List[dict] = []
         merged_aggs = None
         try:
             for svc in services:
@@ -1135,8 +1143,17 @@ class Node:
                 q_start = time.perf_counter_ns()
                 if profiled:
                     dispatch.record_events(True)
-                result, cache_note = self._query_phase(svc, reader, body,
-                                                       partial)
+                try:
+                    result, cache_note = self._query_phase(svc, reader,
+                                                           body, partial)
+                except ArrayIndexOutOfBoundsError as e:
+                    # an aggregator failed the index's one shard
+                    if svc.num_shards > 1:
+                        raise hdr_multi_shard_error()
+                    failures.append({"shard": 0, "index": svc.name,
+                                     "node": self.node_id,
+                                     "reason": e.to_dict()})
+                    continue
                 q_nanos = time.perf_counter_ns() - q_start
                 _teletrace.record_span(f"query[{svc.name}]", q_nanos,
                                        index=svc.name)
@@ -1150,6 +1167,10 @@ class Node:
                 # a failed query phase must not leave the thread's launch
                 # event trace recording into later requests
                 dispatch.record_events(False)
+        n = sum(svc.num_shards for svc in services)
+        if failures and len(failures) >= n - skipped:
+            raise SearchPhaseExecutionError("query", "all shards failed",
+                                            failures)
         for svc, reader, result in phases:
             if result.aggregations is not None:
                 # shared with the cache: merges and typed_keys copy
@@ -1181,10 +1202,10 @@ class Node:
         collapse = body.get("collapse")
         if collapse and inner_hits_specs(collapse) and len(services) > 1:
             self._expand_collapse_inner_hits(services, body, collapse, hits)
-        n = sum(svc.num_shards for svc in services)
         resp = {"took": 0, "timed_out": False,
-                "_shards": {"total": n, "successful": n, "skipped": skipped,
-                            "failed": 0},
+                "_shards": {"total": n, "successful": n - len(failures),
+                            "skipped": skipped, "failed": len(failures),
+                            **({"failures": failures} if failures else {})},
                 "hits": {"total": {"value": total, "relation": relation},
                          "max_score": max_score, "hits": hits}}
         brs = body.get("batched_reduce_size")

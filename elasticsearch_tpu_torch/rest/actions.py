@@ -208,7 +208,22 @@ def _apply_typed_keys(node, resp: dict, body: dict) -> None:
                 and not isinstance(b.get("key"), bool) for b in buckets)
             return "lterms" if numeric else "sterms"
         if kind == "percentiles":
-            return "tdigest_percentiles"
+            return "hdr_percentiles" if isinstance(spec, dict) \
+                and spec.get("hdr") is not None else "tdigest_percentiles"
+        if kind == "significant_terms":
+            field = spec.get("field") if isinstance(spec, dict) else None
+            for svc in node.indices.values():
+                mapper = svc.mapper_service.get(field) if field else None
+                if mapper is not None:
+                    return ("siglterms" if mapper.type_name in _LTERMS_TYPES
+                            else "sigsterms")
+            return "sigsterms"
+        if kind == "significant_text":
+            return "sigsterms"
+        if kind == "percentile_ranks":
+            return "tdigest_percentile_ranks"
+        if kind in ("max_bucket", "min_bucket"):
+            return "bucket_metric_value"
         return kind
 
     def walk(aggs_out, aggs_spec):
@@ -277,7 +292,8 @@ def register_all(rc: RestController, node: Node) -> None:
     def root(req):
         import torch
         return 200, {
-            "name": node.node_name, "cluster_uuid": node.node_id,
+            "name": node.node_name, "cluster_name": node.cluster_name,
+            "cluster_uuid": node.node_id,
             "version": {"number": VERSION, "build_flavor": "torch",
                         "lucene_version": "none",
                         "torch": torch.__version__,

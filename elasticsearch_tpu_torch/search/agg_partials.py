@@ -1,14 +1,18 @@
 """Mergeable partial aggregation states for searches over several indices
-(port of the ported kinds of `elasticsearch_tpu/search/agg_partials.py`).
+(port of `elasticsearch_tpu/search/agg_partials.py`).
 
 Each index's query phase ships partial states instead of final JSON
 (sum / count pairs, an HLL sketch for `cardinality`, a t-digest for
-`percentiles`, bucket lists with their sub-agg states), the coordinator
-merges them associatively and finalizes once:
+`percentiles`, `percentile_ranks`, `median_absolute_deviation` and
+`boxplot`, power sums for `matrix_stats`, character counts for
+`string_stats`, the combined states of `scripted_metric`, bucket lists
+with their sub-agg states and, for `significant_*`, background counts),
+the coordinator merges them associatively and finalizes once, running
+the pipelines over the final outputs:
 
   compute_partial_aggs(ctx, rows, spec)  - one index, partial states
   merge_partial_aggs(a, b, spec)         - the associative merge
-  finalize_aggs(partial, spec)           - the final JSON
+  finalize_aggs(partial, spec)           - the final JSON and pipelines
 
 States are plain JSON-safe dicts tagged with "$p". The device rung
 (`search/agg_plan.py`) emits the same states.
@@ -18,20 +22,22 @@ from __future__ import annotations
 
 import hashlib
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from elasticsearch_tpu_torch.common.errors import ParsingError
+from elasticsearch_tpu_torch.search import agg_pipelines as P
 from elasticsearch_tpu_torch.search import aggregations as A
 from elasticsearch_tpu_torch.search.aggregations import (
-    BUCKET_AGGS, METRIC_AGGS, _hashable, _sort_key, all_values,
-    numeric_values,
+    BUCKET_AGGS, METRIC_AGGS, PIPELINE_AGGS, _hashable, _sort_key,
+    all_values,
 )
 from elasticsearch_tpu_torch.search.queries import SearchContext
 
 # single-bucket aggs: one {doc_count, subs...} object, no bucket list
-SINGLE_BUCKET = {"filter", "global", "missing", "nested", "reverse_nested"}
+SINGLE_BUCKET = {"filter", "global", "missing", "sampler", "nested",
+                 "reverse_nested"}
 
 # HyperLogLog (cardinality): p = 12 (4096 registers, ~1.6% standard
 # error), sparse below 512 occupied registers
@@ -109,25 +115,36 @@ def _td_compress(cents: List[List[float]]) -> List[List[float]]:
     if not cents:
         return []
     cents = sorted(cents)
-    total = sum(w for _, w in cents)
+    return _td_fold([float(m) for m, _ in cents], [float(w) for _, w in cents],
+                    sum(w for _, w in cents))
+
+
+def _td_fold(means: List[float], weights: List[float],
+             total: float) -> List[List[float]]:
+    """Sorted centroids merged left to right while the merged weight stays
+    under 4·W·q(1−q)/δ at the open centroid's midpoint q."""
     out: List[List[float]] = []
     cum = 0.0
-    for mean, w in cents:
-        if out:
-            q = (cum + out[-1][1] / 2) / total
+    m0 = w0 = None
+    for mean, w in zip(means, weights):
+        if w0 is not None:
+            q = (cum + w0 / 2) / total
             limit = max(1.0, 4.0 * total * q * (1 - q) / _TD_COMPRESSION)
-            if out[-1][1] + w <= limit:
-                m0, w0 = out[-1]
-                out[-1] = [(m0 * w0 + mean * w) / (w0 + w), w0 + w]
+            if w0 + w <= limit:
+                m0, w0 = (m0 * w0 + mean * w) / (w0 + w), w0 + w
                 continue
-            cum += out[-1][1]
-        out.append([float(mean), float(w)])
+            out.append([m0, w0])
+            cum += w0
+        m0, w0 = mean, w
+    out.append([m0, w0])
     return out
 
 
 def _td_from_values(vals: np.ndarray) -> dict:
+    n = len(vals)
     return {"$p": "tdigest",
-            "c": _td_compress([[float(v), 1.0] for v in vals]),
+            "c": _td_fold(np.sort(vals).astype(np.float64).tolist(),
+                          [1.0] * n, float(n)) if n else [],
             "min": float(vals.min()) if len(vals) else None,
             "max": float(vals.max()) if len(vals) else None,
             "n": int(len(vals))}
@@ -167,37 +184,75 @@ def _td_quantile(state: dict, q: float) -> Optional[float]:
     return float(state["max"])
 
 
+def _td_cdf(state: dict, x: float) -> float:
+    """The share of the digest's mass below x, interpolated between
+    centroid midpoints."""
+    cents = state["c"]
+    if not cents:
+        return 0.0
+    total = sum(w for _, w in cents)
+    if state["min"] is not None and x < state["min"]:
+        return 0.0
+    if state["max"] is not None and x >= state["max"]:
+        return 1.0
+    cum = 0.0
+    prev_mean, prev_mid = state["min"], 0.0
+    for mean, w in cents:
+        mid = cum + w / 2.0
+        if x < mean:
+            if mean == prev_mean:
+                return prev_mid / total
+            t = (x - prev_mean) / (mean - prev_mean)
+            return (prev_mid + t * (mid - prev_mid)) / total
+        prev_mean, prev_mid = mean, mid
+        cum += w
+    return 1.0
+
+
 # ---------------------------------------------------------------- partials
 
 def compute_partial_aggs(ctx: SearchContext, rows: np.ndarray,
                          aggs_spec: dict) -> dict:
-    """One index's partial agg tree."""
+    """One index's partial agg tree; the pipelines wait for finalize."""
     out: Dict[str, Any] = {}
     for name, spec in (aggs_spec or {}).items():
         kind = A.agg_kind(name, spec)
-        if kind in A.LEFT_OUT:
-            raise A.not_ported(kind, A.LEFT_OUT[kind])
+        if kind in PIPELINE_AGGS:
+            continue
         if kind in METRIC_AGGS:
             out[name] = metric_partial(ctx, rows, kind, spec[kind])
         elif kind in BUCKET_AGGS:
             out[name] = A._compute_bucket(
                 ctx, rows, kind, partial_spec(kind, spec[kind]),
-                A.sub_aggs_of(spec), recurse=compute_partial_aggs)
+                A.split_pipelines(A.sub_aggs_of(spec))[0],
+                recurse=compute_partial_aggs)
         else:
             raise ParsingError(f"unknown aggregation type [{kind}]")
     return out
 
 
 def partial_spec(kind: str, spec: dict) -> dict:
-    """An index's spec: ordering moves to the coordinator and the terms
-    candidates are bounded by `shard_size` (default size * 1.5 + 10); a
+    """An index's spec: ordering, pruning and thresholds move to the
+    coordinator, and the candidates are bounded by `shard_size` (terms,
+    significant and grid buckets: default size * 1.5 + 10; rare_terms:
+    default 1,000, its `max_doc_count` applied after the merge); a
     histogram neither prunes nor zero-fills (min_doc_count -1), the
     coordinator does both after the merge."""
+    size = int(spec.get("size", 10))
     if kind == "terms":
         s = {k: v for k, v in spec.items() if k != "order"}
-        size = int(spec.get("size", 10))
         s["size"] = int(spec.get("shard_size") or (size * 3 // 2 + 10))
         return s
+    if kind in ("significant_terms", "significant_text"):
+        return {**spec, "min_doc_count": 1,
+                "size": int(spec.get("shard_size") or (size * 3 // 2 + 10))}
+    if kind == "rare_terms":
+        return {**spec, "max_doc_count": 1 << 60,
+                "size": int(spec.get("shard_size", 1000))}
+    if kind in ("geohash_grid", "geotile_grid"):
+        size = int(spec.get("size", 10000))
+        return {**spec,
+                "size": int(spec.get("shard_size") or (size * 3 // 2 + 10))}
     if kind in ("histogram", "date_histogram"):
         return {**spec, "min_doc_count": -1}
     return spec
@@ -206,15 +261,48 @@ def partial_spec(kind: str, spec: dict) -> dict:
 def metric_partial(ctx: SearchContext, rows: np.ndarray, kind: str,
                    spec: dict) -> dict:
     field = spec.get("field")
+    if kind == "scripted_metric":
+        # the combined state; reduce_script runs once at the coordinator
+        return {"$p": "scripted_metric",
+                "states": [A.scripted_metric_map_combine(ctx, rows, spec)]}
     if kind == "value_count":
         n = len(rows) if field is None else len(all_values(ctx, rows, field))
         return {"$p": "value_count", "n": int(n)}
     if kind == "cardinality":
         return _hll_from_values(
             _hashable(v) for _, v in all_values(ctx, rows, field))
-    vals, present = numeric_values(ctx, rows, field, spec.get("missing"))
+    if kind == "top_hits":
+        final = A.top_hits(ctx, rows, spec)
+        return {"$p": "top_hits", "size": int(spec.get("size", 3)),
+                "total": final["hits"]["total"]["value"],
+                "hits": final["hits"]["hits"]}
+    if kind == "top_metrics":
+        return {"$p": "top_metrics",
+                "top": A.compute_top_metrics(ctx, rows, spec)["top"]}
+    if kind == "string_stats":
+        return {"$p": "string_stats",
+                **A.string_stats_state(ctx, rows, field)}
+    if kind == "matrix_stats":
+        return _matrix_partial(ctx, rows, spec)
+    if kind in ("geo_bounds", "geo_centroid"):
+        _, lats, lons = A.geo_point_values(ctx, rows, field)
+        lats, lons = lats.tolist(), lons.tolist()
+        if kind == "geo_centroid":
+            return {"$p": "geo_centroid", "n": len(lats),
+                    "lat_sum": sum(lats), "lon_sum": sum(lons)}
+        if not lats:
+            return {"$p": "geo_bounds", "n": 0}
+        return {"$p": "geo_bounds", "n": len(lats),
+                "minlat": min(lats), "maxlat": max(lats),
+                "minlon": min(lons), "maxlon": max(lons)}
+    if kind == "weighted_avg":
+        vv, wv = A.weighted_avg_parts(ctx, rows, spec)
+        return {"$p": "weighted_avg", "vw": float((vv * wv).sum()),
+                "w": float(wv.sum())}
+    vals, present = A.metric_numeric(ctx, rows, spec)
     v = vals[present]
-    if kind == "percentiles":
+    if kind in ("percentiles", "percentile_ranks",
+                "median_absolute_deviation", "boxplot"):
         return _td_from_values(v)
     if kind == "avg":
         return {"$p": "avg", "sum": float(v.sum()), "n": int(len(v))}
@@ -236,13 +324,28 @@ def metric_partial(ctx: SearchContext, rows: np.ndarray, kind: str,
     raise ParsingError(f"unknown metric aggregation [{kind}]")
 
 
+def _matrix_partial(ctx, rows, spec) -> dict:
+    """Power sums 1..4 of each field and the pairwise product sums over
+    the rows holding every field: they merge by addition."""
+    fields = spec.get("fields", [])
+    cols, mask = A.matrix_columns(ctx, rows, fields)
+    s = {f: [float((cols[f] ** k).sum()) for k in (1, 2, 3, 4)]
+         for f in fields}
+    sxy = {}
+    for i, f in enumerate(fields):
+        for g in fields[i + 1:]:
+            sxy[f + "|" + g] = float((cols[f] * cols[g]).sum())
+    return {"$p": "matrix_stats", "n": int(mask.sum()), "fields": list(fields),
+            "s": s, "sxy": sxy}
+
+
 # ------------------------------------------------------------------ merge
 
 def merge_partial_aggs(a: dict, b: dict, aggs_spec: dict) -> dict:
     out = dict(a)
     for name, spec in (aggs_spec or {}).items():
         kinds = [k for k in spec if k not in ("aggs", "aggregations", "meta")]
-        if len(kinds) != 1 or name not in b:
+        if len(kinds) != 1 or kinds[0] in PIPELINE_AGGS or name not in b:
             continue
         kind = kinds[0]
         if name not in out:
@@ -250,8 +353,9 @@ def merge_partial_aggs(a: dict, b: dict, aggs_spec: dict) -> dict:
         elif kind in METRIC_AGGS:
             out[name] = _merge_metric(out[name], b[name])
         else:
-            out[name] = _merge_bucket_agg(kind, out[name], b[name],
-                                          A.sub_aggs_of(spec))
+            out[name] = _merge_bucket_agg(
+                kind, out[name], b[name],
+                A.split_pipelines(A.sub_aggs_of(spec))[0])
     return out
 
 
@@ -270,6 +374,8 @@ def _merge_metric(a: dict, b: dict) -> dict:
         return _td_merge(a, b)
     if tag == "value_count":
         return {"$p": tag, "n": a["n"] + b["n"]}
+    if tag == "scripted_metric":
+        return {"$p": tag, "states": a["states"] + b["states"]}
     if tag == "avg":
         return {"$p": tag, "sum": a["sum"] + b["sum"], "n": a["n"] + b["n"]}
     if tag == "sum":
@@ -278,23 +384,106 @@ def _merge_metric(a: dict, b: dict) -> dict:
         return {"$p": tag, "v": _opt(min if tag == "min" else max,
                                      a["v"], b["v"])}
     if tag in ("stats", "extended_stats"):
-        out = {"$p": tag, "n": a["n"] + b["n"], "sum": a["sum"] + b["sum"],
-               "min": _opt(min, a["min"], b["min"]),
-               "max": _opt(max, a["max"], b["max"])}
+        out = {"$p": tag, "n": a["n"] + b["n"], "sum": a["sum"] + b["sum"]}
         if tag == "extended_stats":
             out["ss"] = a["ss"] + b["ss"]
+        out["min"] = _opt(min, a["min"], b["min"])
+        out["max"] = _opt(max, a["max"], b["max"])
         return out
+    if tag == "weighted_avg":
+        return {"$p": tag, "vw": a["vw"] + b["vw"], "w": a["w"] + b["w"]}
+    if tag == "geo_bounds":
+        if not a["n"]:
+            return b
+        if not b["n"]:
+            return a
+        return {"$p": tag, "n": a["n"] + b["n"],
+                "minlat": min(a["minlat"], b["minlat"]),
+                "maxlat": max(a["maxlat"], b["maxlat"]),
+                "minlon": min(a["minlon"], b["minlon"]),
+                "maxlon": max(a["maxlon"], b["maxlon"])}
+    if tag == "geo_centroid":
+        return {"$p": tag, "n": a["n"] + b["n"],
+                "lat_sum": a["lat_sum"] + b["lat_sum"],
+                "lon_sum": a["lon_sum"] + b["lon_sum"]}
+    if tag == "top_hits":
+        return {"$p": tag, "size": a["size"], "total": a["total"] + b["total"],
+                "hits": (a["hits"] + b["hits"])[:a["size"]]}
+    if tag == "top_metrics":
+        return {"$p": tag, "top": a["top"] + b["top"]}
+    if tag == "string_stats":
+        freq = dict(a["freq"])
+        for ch, c in b["freq"].items():
+            freq[ch] = freq.get(ch, 0) + c
+        return {"$p": tag, "n": a["n"] + b["n"],
+                "len_sum": a["len_sum"] + b["len_sum"],
+                "min_len": _opt(min, a["min_len"], b["min_len"]),
+                "max_len": _opt(max, a["max_len"], b["max_len"]),
+                "freq": freq}
+    if tag == "matrix_stats":
+        return {"$p": tag, "n": a["n"] + b["n"], "fields": a["fields"],
+                "s": {f: [x + y for x, y in zip(a["s"][f], b["s"][f])]
+                      for f in a["fields"]},
+                "sxy": {k: a["sxy"][k] + b["sxy"][k] for k in a["sxy"]}}
     raise ParsingError(f"unmergeable partial state [{tag}]")
+
+
+def _bucket_key(bucket: dict):
+    key = bucket.get("key")
+    if isinstance(key, dict):   # a composite key
+        return tuple(sorted(key.items()))
+    return _hashable(key)
 
 
 def _merge_buckets(a_bucket: dict, b_bucket: dict, sub_spec: dict) -> dict:
     m = dict(a_bucket)
     m["doc_count"] = a_bucket.get("doc_count", 0) \
         + b_bucket.get("doc_count", 0)
+    if "bg_count" in a_bucket or "bg_count" in b_bucket:
+        # significant buckets: the background counts add up, the score is
+        # recomputed at finalize
+        m["bg_count"] = a_bucket.get("bg_count", 0) \
+            + b_bucket.get("bg_count", 0)
     a_subs = {n: a_bucket[n] for n in (sub_spec or {}) if n in a_bucket}
     b_subs = {n: b_bucket[n] for n in (sub_spec or {}) if n in b_bucket}
     m.update(merge_partial_aggs(a_subs, b_subs, sub_spec))
     return m
+
+
+def _merge_keyed(a_buckets: list, b_buckets: list, sub_spec: dict) -> list:
+    index: Dict[Any, int] = {}
+    merged: List[dict] = []
+    for bucket in a_buckets:
+        index[_bucket_key(bucket)] = len(merged)
+        merged.append(bucket)
+    for bucket in b_buckets:
+        k = _bucket_key(bucket)
+        if k in index:
+            merged[index[k]] = _merge_buckets(merged[index[k]], bucket,
+                                              sub_spec)
+        else:
+            index[k] = len(merged)
+            merged.append(bucket)
+    return merged
+
+
+def _rebucket(buckets: list, interval: int, sub_spec: dict) -> list:
+    """Date buckets floored onto a coarser interval, the sub-agg partials
+    of the buckets that collapse merged (auto_date_histogram)."""
+    out: Dict[float, dict] = {}
+    for bucket in buckets:
+        key = float(np.floor(float(bucket["key"]) / interval) * interval)
+        if key in out:
+            out[key] = _merge_buckets(out[key], {**bucket, "key": key},
+                                      sub_spec)
+        else:
+            out[key] = {**bucket, "key": int(key),
+                        "key_as_string": A._millis_to_iso(int(key))}
+    return [out[k] for k in sorted(out)]
+
+
+def _interval_ms(node: dict) -> int:
+    return int(str(node.get("interval", "1ms")).rstrip("ms") or 1)
 
 
 def _merge_bucket_agg(kind: str, a, b, sub_spec: dict):
@@ -314,47 +503,58 @@ def _merge_bucket_agg(kind: str, a, b, sub_spec: dict):
                                if i < len(bl) else ab)
         merged_list.extend(bl[len(merged_list):])
         return {**a, "buckets": merged_list}
-    # keyed bucket lists: terms, histograms, ranges
-    index: Dict[Any, int] = {}
-    merged: List[dict] = []
-    for bucket in a.get("buckets", []):
-        index[_hashable(bucket.get("key"))] = len(merged)
-        merged.append(bucket)
-    for bucket in b.get("buckets", []):
-        k = _hashable(bucket.get("key"))
-        if k in index:
-            merged[index[k]] = _merge_buckets(merged[index[k]], bucket,
-                                              sub_spec)
-        else:
-            index[k] = len(merged)
-            merged.append(bucket)
-    out = {**a, "buckets": merged}
+    if kind == "auto_date_histogram":
+        interval = max(_interval_ms(a), _interval_ms(b))
+        return {"buckets": _merge_keyed(
+            _rebucket(a.get("buckets", []), interval, sub_spec),
+            _rebucket(b.get("buckets", []), interval, sub_spec), sub_spec),
+            "interval": f"{interval}ms"}
+    # keyed bucket lists: terms, histograms, ranges, grids, composite,
+    # adjacency
+    out = {**a, "buckets": _merge_keyed(a.get("buckets", []),
+                                        b.get("buckets", []), sub_spec)}
+    out.pop("after_key", None)  # recomputed at finalize (composite)
     if "sum_other_doc_count" in out:
         out["sum_other_doc_count"] = (a.get("sum_other_doc_count", 0)
                                       + b.get("sum_other_doc_count", 0))
+    for k in ("doc_count", "bg_count"):   # significant_* totals
+        if k in a or k in b:
+            out[k] = a.get(k, 0) + b.get(k, 0)
     return out
 
 
 # --------------------------------------------------------------- finalize
 
 def finalize_aggs(partial: dict, aggs_spec: dict) -> dict:
+    """The final JSON of merged partial states; each bucket
+    aggregation's pipeline sub-aggregations run over its final bucket
+    list, the top level's pipelines over the final outputs."""
     out: Dict[str, Any] = {}
+    pipelines: List[Tuple[str, str, dict]] = []
     for name, spec in (aggs_spec or {}).items():
         kind = [k for k in spec if k not in ("aggs", "aggregations",
                                              "meta")][0]
+        if kind in PIPELINE_AGGS:
+            pipelines.append((name, kind, spec[kind]))
+            continue
         if name not in partial:
             continue
         if kind in METRIC_AGGS:
             out[name] = _finalize_metric(kind, spec[kind], partial[name])
-        else:
-            out[name] = _finalize_bucket_agg(kind, spec[kind], partial[name],
-                                             A.sub_aggs_of(spec))
+            continue
+        normal, pipes = A.split_pipelines(A.sub_aggs_of(spec))
+        out[name] = _finalize_bucket_agg(kind, spec[kind], partial[name],
+                                         normal)
+        P.run_parent_pipelines(out[name], pipes)
+    P.run_sibling_pipelines(out, pipelines)
     return out
 
 
 def _finalize_metric(kind: str, spec: dict, state: dict):
     if kind == "value_count":
         return {"value": state["n"]}
+    if kind == "scripted_metric":
+        return {"value": A.scripted_metric_reduce(spec, state["states"])}
     if kind == "cardinality":
         return {"value": _hll_estimate(state)}
     if kind == "avg":
@@ -363,8 +563,8 @@ def _finalize_metric(kind: str, spec: dict, state: dict):
         return {"value": state["sum"]}
     if kind in ("min", "max"):
         return {"value": state["v"]}
-    n = state.get("n", 0)
     if kind in ("stats", "extended_stats"):
+        n = state["n"]
         base = {"count": n, "min": state["min"], "max": state["max"],
                 "avg": state["sum"] / n if n else None, "sum": state["sum"]}
         if kind == "stats":
@@ -389,11 +589,120 @@ def _finalize_metric(kind: str, spec: dict, state: dict):
                                      "lower": mean - sigma * std},
         })
         return base
+    if kind == "weighted_avg":
+        return {"value": state["vw"] / state["w"] if state["w"] else None}
     if kind == "percentiles":
         pcts = spec.get("percents", [1, 5, 25, 50, 75, 95, 99])
         return {"values": {f"{float(p)}": _td_quantile(state, p / 100.0)
                            for p in pcts}}
+    if kind == "percentile_ranks":
+        empty = not state["c"]
+        return {"values": {
+            f"{float(t)}": None if empty else 100.0 * _td_cdf(state,
+                                                              float(t))
+            for t in spec.get("values", [])}}
+    if kind == "median_absolute_deviation":
+        return {"value": _td_mad(state)}
+    if kind == "boxplot":
+        return _finalize_boxplot(state)
+    if kind == "geo_bounds":
+        if not state["n"]:
+            return {"bounds": None}
+        return {"bounds": {
+            "top_left": {"lat": state["maxlat"], "lon": state["minlon"]},
+            "bottom_right": {"lat": state["minlat"], "lon": state["maxlon"]}}}
+    if kind == "geo_centroid":
+        if not state["n"]:
+            return {"count": 0}
+        return {"location": {"lat": state["lat_sum"] / state["n"],
+                             "lon": state["lon_sum"] / state["n"]},
+                "count": state["n"]}
+    if kind == "top_hits":
+        return {"hits": {"total": {"value": state["total"], "relation": "eq"},
+                         "hits": state["hits"][:state["size"]]}}
+    if kind == "top_metrics":
+        order = A.top_metrics_sort(spec)[1]
+        top = sorted(state["top"], key=lambda t: t["sort"][0],
+                     reverse=(order == "desc"))
+        return {"top": top[:int(spec.get("size", 1))]}
+    if kind == "string_stats":
+        return A.finalize_string_stats(spec, state)
+    if kind == "matrix_stats":
+        return _finalize_matrix(state)
     raise ParsingError(f"unknown metric aggregation [{kind}]")
+
+
+def _td_mad(state: dict):
+    """The median absolute deviation of a digest: the half-width around
+    its median holding half the mass, by bisection."""
+    if not state["c"]:
+        return None
+    med = _td_quantile(state, 0.5)
+    lo, hi = 0.0, max(state["max"] - state["min"], 0.0)
+    if hi == 0.0:
+        return 0.0
+    for _ in range(50):
+        mid = (lo + hi) / 2
+        if _td_cdf(state, med + mid) - _td_cdf(state, med - mid) >= 0.5:
+            hi = mid
+        else:
+            lo = mid
+    return hi
+
+
+def _finalize_boxplot(state: dict):
+    if not state["c"]:
+        return {"min": None, "max": None, "q1": None, "q2": None,
+                "q3": None, "lower": None, "upper": None}
+    q1, q2, q3 = (_td_quantile(state, q) for q in (0.25, 0.5, 0.75))
+    iqr = q3 - q1
+    inside = [m for m, _ in state["c"]
+              if q1 - 1.5 * iqr <= m <= q3 + 1.5 * iqr]
+    return {"min": state["min"], "max": state["max"],
+            "q1": q1, "q2": q2, "q3": q3,
+            "lower": min(inside) if inside else q1,
+            "upper": max(inside) if inside else q3}
+
+
+def _finalize_matrix(state: dict):
+    n = state["n"]
+    fields = state["fields"]
+    if n == 0:
+        return {"doc_count": 0, "fields": []}
+    mean = {f: state["s"][f][0] / n for f in fields}
+    var = {f: max((state["s"][f][1] - n * mean[f] ** 2) / (n - 1), 0.0)
+           if n > 1 else 0.0 for f in fields}
+    sd = {f: math.sqrt(var[f]) for f in fields}
+
+    def comoment(f, g):
+        if f == g:
+            return state["s"][f][1] - n * mean[f] ** 2
+        k = f + "|" + g if f + "|" + g in state["sxy"] else g + "|" + f
+        return state["sxy"][k] - n * mean[f] * mean[g]
+
+    out_fields = []
+    for f in fields:
+        s1, s2, s3, s4 = state["s"][f]
+        skew = kurt = 0.0
+        if sd[f]:
+            m = mean[f]
+            # central power sums from the raw ones
+            c3 = s3 - 3 * m * s2 + 2 * n * m ** 3
+            c4 = s4 - 4 * m * s3 + 6 * m * m * s2 - 3 * n * m ** 4
+            psd = math.sqrt(max(s2 / n - m * m, 0.0))
+            skew = (c3 / n) / psd ** 3 if psd else 0.0
+            kurt = (c4 / n) / psd ** 4 if psd else 0.0
+        cov, corr = {}, {}
+        for g in fields:
+            c = comoment(f, g) / (n - 1) if n > 1 else 0.0
+            cov[g] = c
+            corr[g] = (c / (sd[f] * sd[g])) if sd[f] and sd[g] else (
+                1.0 if f == g else 0.0)
+        out_fields.append({"name": f, "count": n, "mean": mean[f],
+                           "variance": var[f], "skewness": skew,
+                           "kurtosis": kurt, "covariance": cov,
+                           "correlation": corr})
+    return {"doc_count": n, "fields": out_fields}
 
 
 def _finalize_one_bucket(bucket: dict, sub_spec: dict) -> dict:
@@ -435,8 +744,37 @@ def _finalize_bucket_agg(kind: str, spec: dict, node, sub_spec: dict):
                                 for n, b in node["buckets"].items()}}
         return {"buckets": [_finalize_one_bucket(b, sub_spec)
                             for b in node.get("buckets", [])]}
+    if kind == "auto_date_histogram":
+        # coarsen the raw buckets (their sub-agg states still merge) until
+        # at most the target count remain, then finalize once
+        target = int(spec.get("buckets", 10))
+        interval = _interval_ms(node)
+        raw = node.get("buckets", [])
+        while len(raw) > target:
+            interval = next((u for u in A.AUTO_UNITS if u > interval),
+                            interval * 2)
+            raw = _rebucket(raw, interval, sub_spec)
+        buckets = [_finalize_one_bucket(b, sub_spec) for b in raw]
+        buckets.sort(key=lambda b: float(b["key"]))
+        return {"buckets": buckets, "interval": f"{interval}ms"}
     buckets = [_finalize_one_bucket(b, sub_spec)
                for b in node.get("buckets", [])]
+    if kind in ("significant_terms", "significant_text"):
+        size = int(spec.get("size", 10))
+        min_count = int(spec.get("min_doc_count", 3))
+        fg_total = int(node.get("doc_count", 0))
+        bg_total = int(node.get("bg_count", 0)) or fg_total
+        rescored = []
+        for b in buckets:
+            fg, bg = b.get("doc_count", 0), b.get("bg_count", 0)
+            if fg < min_count or bg == 0:
+                continue
+            score = A.jlh(fg, fg_total, bg, bg_total)
+            if score is not None:
+                rescored.append({**b, "score": score})
+        rescored.sort(key=lambda b: (-b["score"], _sort_key(b["key"])))
+        return {"doc_count": fg_total, "bg_count": bg_total,
+                "buckets": rescored[:size]}
     if kind == "terms":
         size = int(spec.get("size", 10))
         order_spec = spec.get("order")
@@ -463,6 +801,12 @@ def _finalize_bucket_agg(kind: str, spec: dict, node, sub_spec: dict):
         other = sum(b["doc_count"] for b in buckets[size:])
         return {"doc_count_error_upper_bound": 0,
                 "sum_other_doc_count": int(other), "buckets": buckets[:size]}
+    if kind == "rare_terms":
+        max_count = int(spec.get("max_doc_count", 1))
+        buckets = [b for b in buckets if b["doc_count"] <= max_count]
+        buckets.sort(key=lambda b: (b["doc_count"], _sort_key(b["key"])))
+        return {"doc_count_error_upper_bound": 0, "sum_other_doc_count": 0,
+                "buckets": buckets}
     if kind in ("histogram", "date_histogram"):
         min_count = int(spec.get("min_doc_count", 0))
         buckets.sort(key=lambda b: float(b["key"]))
@@ -474,6 +818,21 @@ def _finalize_bucket_agg(kind: str, spec: dict, node, sub_spec: dict):
             interval_ms, calendar = A._date_interval(spec)
             if not calendar:
                 buckets = _fill_gaps(buckets, interval_ms, date=True)
+        return {"buckets": buckets}
+    if kind in ("geohash_grid", "geotile_grid"):
+        buckets.sort(key=lambda b: (-b["doc_count"], b["key"]))
+        return {"buckets": buckets[:int(spec.get("size", 10000))]}
+    if kind == "composite":
+        names = [next(iter(src)) for src in spec.get("sources", [])]
+        buckets.sort(key=lambda b: tuple(_sort_key(b["key"].get(n))
+                                         for n in names))
+        buckets = buckets[:int(spec.get("size", 10))]
+        out: Dict[str, Any] = {"buckets": buckets}
+        if buckets:
+            out["after_key"] = buckets[-1]["key"]
+        return out
+    if kind == "adjacency_matrix":
+        buckets.sort(key=lambda b: b["key"])
         return {"buckets": buckets}
     # range / date_range / ip_range: the first index's order
     return {**{k: v for k, v in node.items() if k != "buckets"},

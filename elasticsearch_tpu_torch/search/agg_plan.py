@@ -25,6 +25,15 @@ only over an integral column (`AggColumn.integral_exact`), where the
 unordered f64 atomics of the card sum exactly; any other column takes
 the host path (`non_integral_sum`).
 
+A pipeline node (`host_reason="pipeline"`) is set aside: in final mode
+the top-level pipelines run over the combined outputs of the pass, the
+device nodes' assembled boards among them (`search/agg_pipelines.py`),
+in partial mode at the coordinator's finalize. A bucket with a pipeline
+sub-aggregation, and every kind the boards do not hold (`composite`,
+the geo, significant and rare kinds, `top_hits`, the other metrics), is
+a host node (`unsupported_sub_agg`, `unsupported_agg`), as in the
+reference's plan.
+
 No fallback hides the card: a node leaves the device only for a reason
 the plan or the bind names (`_Fallback`, counted in
 `stats["fallback_reasons"]`) or when the `CostRouter` (node setting
@@ -52,6 +61,7 @@ from elasticsearch_tpu_torch.common.errors import IllegalArgumentError
 from elasticsearch_tpu_torch.index.mapping import RangeFieldMapperBase
 from elasticsearch_tpu_torch.ops import aggs as ops
 from elasticsearch_tpu_torch.search import agg_partials as AP
+from elasticsearch_tpu_torch.search import agg_pipelines as P
 from elasticsearch_tpu_torch.search import aggregations as A
 
 SUPPORTED_METRICS = ("avg", "sum", "min", "max", "stats", "value_count")
@@ -273,6 +283,10 @@ def compile_plan(aggs_spec: dict, mapper_service) -> AggPlan:
         kind = kinds[0]
         body = spec[kind]
         sub_spec = A.sub_aggs_of(spec)
+        if kind in A.PIPELINE_AGGS:
+            nodes[name] = _Node(name, "host", kind=kind,
+                                host_reason="pipeline")
+            continue
         if kind in SUPPORTED_METRICS and not sub_spec:
             reason = _classify_metric(kind, body, mapper_service)
             nodes[name] = (_Node(name, "metric", kind=kind,
@@ -453,17 +467,25 @@ class AggEngine:
         plan = compile_plan(aggs_spec, self.mapper_service)
         if plan.device_count == 0:
             for node in plan.nodes.values():
-                self._reason(node.host_reason, docs=len(rows))
-                self._count("host_nodes")
+                if node.host_reason != "pipeline":
+                    self._reason(node.host_reason, docs=len(rows))
+                    self._count("host_nodes")
             return None
         self._count("searches")
         # one row-space snapshot for the whole pass
         box: Dict[str, Any] = {"snap": self.store.snapshot(ctx.reader)}
         out: Dict[str, Any] = {}
+        pipelines: List[Tuple[str, str, dict]] = []
         prof_nodes: List[dict] = []
         nanos = {"device": 0, "assemble": 0, "host": 0}
         for name, spec in aggs_spec.items():
-            A.agg_kind(name, spec)
+            kind = A.agg_kind(name, spec)
+            if kind in A.PIPELINE_AGGS:
+                # over the combined outputs below (partial mode: at the
+                # coordinator's finalize)
+                if not partial:
+                    pipelines.append((name, kind, spec[kind]))
+                continue
             node = plan.nodes[name]
             res = None
             engine, fam = "host", None
@@ -517,6 +539,7 @@ class AggEngine:
             prof_nodes.append({"name": name, "engine": engine,
                                **({"fallback_reason": reason}
                                   if engine == "host" and reason else {})})
+        P.run_sibling_pipelines(out, pipelines)
         with self._lock:
             self.stats["device_nanos"] += nanos["device"]
             self.stats["assemble_nanos"] += nanos["assemble"]

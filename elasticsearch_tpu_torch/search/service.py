@@ -84,8 +84,6 @@ _SEARCH_BODY_KEYS = {
     "pre_filter_shard_size", "scroll", "max_concurrent_shard_requests",
     "request_cache",
 }
-_KNN_KEYS = {"field", "query_vector", "k", "num_candidates", "filter",
-             "boost"}
 # the mapped types whose sort keys are numbers, and those of them that
 # sort by their exact integer
 _NUMERIC_TYPES = ("long", "integer", "short", "byte", "double", "float",
@@ -103,13 +101,12 @@ def not_ported(key: str, why: str) -> IllegalArgumentError:
 
 
 def parse_knn(spec) -> KnnQuery:
-    """One `knn` spec of a body → a KnnQuery (its filter parsed)."""
+    """One `knn` spec of a body → a KnnQuery (its filter parsed). Keys
+    other than its own (`similarity`, say) are ignored, as the reference
+    ignores them."""
     if not isinstance(spec, dict):
         raise ParsingError("[knn] must be an object with [field] and "
                            "[query_vector]")
-    for key in spec:
-        if key not in _KNN_KEYS:
-            raise ParsingError(f"[knn] unknown field [{key}]")
     if "field" not in spec or "query_vector" not in spec:
         raise ParsingError("[knn] requires [field] and [query_vector]")
     k = int(spec.get("k", spec.get("num_candidates", 10)))
@@ -323,6 +320,8 @@ def _query_window(ctx: SearchContext, body: dict) -> QueryPhaseResult:
         keep = slice_keep(ctx.reader, rows, body["slice"], settings)
         rows, scores = rows[keep], scores[keep]
     agg_rows = rows
+    # a scripted_metric's map_script may read each row's `_score`
+    ctx.agg_score_rows, ctx.agg_scores = rows, scores
     if body.get("post_filter") is not None:
         # hits only: the aggregations keep the query's rows
         keep = np.isin(rows, parse_query(body["post_filter"])

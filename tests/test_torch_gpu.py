@@ -1650,10 +1650,10 @@ def test_aggs_ops_on_cuda_match_numpy(cuda, op):
 
 
 @pytest.mark.gpu
-def test_aggs_on_cuda_node_match_cpu_host_path(cuda):
-    """A CUDA node with the device rung forced (router off) and a CPU node
-    on the host path answer the same aggregation bodies with equal JSON;
-    the CUDA node's eligible nodes ran on the card."""
+def _aggs_node_pair(cuda) -> list:
+    """[(CUDA node with the device rung forced, its controller), (CPU node
+    on the host path, its controller)], each holding indices `a` and `b`
+    of 20,000 log-like documents."""
     from elasticsearch_tpu_torch.node import Node
     from elasticsearch_tpu_torch.rest.actions import register_all
     from elasticsearch_tpu_torch.rest.controller import RestController
@@ -1686,6 +1686,14 @@ def test_aggs_on_cuda_node_match_cpu_host_path(cuda):
                 == 200
             node.index(name).index_many([str(i) for i in range(n)], srcs)
             assert _req(rc, "POST", f"/{name}/_refresh")[0] == 200
+    return pair
+
+
+def test_aggs_on_cuda_node_match_cpu_host_path(cuda):
+    """A CUDA node with the device rung forced (router off) and a CPU node
+    on the host path answer the same aggregation bodies with equal JSON;
+    the CUDA node's eligible nodes ran on the card."""
+    pair = _aggs_node_pair(cuda)
     bodies = [
         {"h": {"date_histogram": {"field": "ts", "calendar_interval": "hour"}}},
         {"t": {"terms": {"field": "status"},
@@ -1712,6 +1720,41 @@ def test_aggs_on_cuda_node_match_cpu_host_path(cuda):
             assert got["aggregations"] == want["aggregations"], (path, aggs)
             assert gnode.aggs_stats()["device_nodes"] - d0 \
                 == len(aggs) * (2 if "," in path else 1)
+
+
+def test_aggs_pipelines_and_kinds_on_cuda_node(cuda):
+    """Top-level pipelines over a daily histogram the card serves (one
+    device node an index), parent pipelines under it (a host node) and
+    the host kinds beside it answer as the CPU node's host path."""
+    (gnode, grc), (_, crc) = _aggs_node_pair(cuda)
+    daily = {"date_histogram": {"field": "ts", "calendar_interval": "day"},
+             "aggs": {"a": {"avg": {"field": "size"}}}}
+    bodies = [
+        ({"d": daily, "ab": {"avg_bucket": {"buckets_path": "d>a"}},
+          "mb": {"max_bucket": {"buckets_path": "d>_count"}},
+          "pb": {"percentiles_bucket": {"buckets_path": "d>a"}},
+          "top": {"bucket_sort": {"buckets_path": {"a": "d>a"},
+                                  "sort": [{"a": "desc"}], "size": 5}}}, 1),
+        ({"d": {**daily, "aggs": {**daily["aggs"], "cs": {
+            "cumulative_sum": {"buckets_path": "a"}}}}}, 0),
+        ({"c": {"composite": {"sources": [
+            {"t": {"terms": {"field": "tag"}}},
+            {"s": {"terms": {"field": "status"}}}]}},
+          "r": {"rare_terms": {"field": "ip"}},
+          "p": {"percentile_ranks": {"field": "size",
+                                     "values": [1000, 50_000]}},
+          "s": {"terms": {"field": "status"}}}, 1),
+    ]
+    for aggs, n_dev in bodies:
+        for path in ("/a/_search", "/a,b/_search"):
+            body = {"size": 0, "aggs": aggs, "request_cache": False}
+            d0 = gnode.aggs_stats()["device_nodes"]
+            s1, got = _req(grc, "POST", path, body)
+            s2, want = _req(crc, "POST", path, body)
+            assert s1 == s2 == 200, got
+            assert got["aggregations"] == want["aggregations"], (path, aggs)
+            assert gnode.aggs_stats()["device_nodes"] - d0 \
+                == n_dev * (2 if "," in path else 1)
 
 
 # ------------------------------------------------- generational segments

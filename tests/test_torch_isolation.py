@@ -51,7 +51,8 @@ def test_port_imports_without_jax_or_reference():
                  "telemetry.metrics", "telemetry.trace", "node_admin",
                  "search.profile", "script", "script.painless",
                  "script.service", "script.mustache", "search.script_score",
-                 "search.extras", "rest.actions_script"):
+                 "search.extras", "rest.actions_script",
+                 "search.agg_pipelines"):
         assert f"elasticsearch_tpu_torch.{name}" in names
     code = (
         "import sys\n"

@@ -382,3 +382,42 @@ def test_put_mapping_objects_multi_fields_and_dynamic(pair):
         _, got = pair.same("POST", "/m/_search", {"query": q})
     pair.same("POST", "/m/_search", {"query": {"exists": {"field": "o"}}})
     assert hit_ids(got) == ["1"]
+
+
+@pytest.mark.parametrize("label", sorted(chip.aggs_kinds_bodies({})))
+def test_aggs_kinds_bodies(logs, label):
+    """Each body of the card's [aggs_kinds] part answers alike in both
+    layers (its composite pages too), and at one shard as its numpy check
+    says; the pair's bodies over two indices of the first and the last
+    150 lines."""
+    pair, shards, cols, _requests = logs
+    parts = {"logs_early": (0, 150), "logs_late": (N_LINES - 150, N_LINES)}
+    if label.startswith("pair"):
+        paths = chip.logs_paths()
+        for name, (lo, hi) in parts.items():
+            pair.same("PUT", f"/{name}", {"settings": {
+                "number_of_shards": shards}, "mappings": chip.LOGS_MAPPING})
+            ops = []
+            for i, doc in enumerate(chip.logs_sources(cols, lo, hi, paths)):
+                ops += [{"index": {"_id": str(lo + i)}}, doc]
+            pair.same("POST", f"/{name}/_bulk", ops, ndjson=True)
+            pair.same("POST", f"/{name}/_refresh")
+    try:
+        path, body = chip.aggs_kinds_bodies(cols)[label]
+        want, got = pair.same("POST", path, body)
+        assert want["aggregations"] == got["aggregations"]
+        pages = {}
+        for side, send in (("ref", pair.ref), ("port", pair.port)):
+            pages[side] = chip.with_pages(
+                label, path, body, got["aggregations"] if side == "port"
+                else want["aggregations"],
+                lambda p, b, send=send: send("POST", p, b)[1])
+        assert pages["ref"] == pages["port"]
+        if shards == 1:
+            chip.check_aggs_kinds(label, pages["port"], cols,
+                                  chip.aggs_kinds_sel(label, cols, parts),
+                                  chip.logs_paths())
+    finally:
+        if label.startswith("pair"):
+            for name in parts:
+                pair.same("DELETE", f"/{name}")

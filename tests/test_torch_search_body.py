@@ -182,22 +182,17 @@ def test_body_errors(pair, key, body):
     ("indices_boost", [{"a": 2.0}]),
 ])
 def test_left_out_keys_name_themselves(pair, key, value):
-    """Each key of the reference this build leaves out is a 400 whose
-    reason names it (for `aggs`, the aggregation kind left out) and the
-    ROADMAP.md item that brings it; the keys once left out (`slice`,
-    `scroll`, `pit`, `point_in_time`, `runtime_mappings`,
-    `indices_boost`) answer as the reference; a script sort is answered
-    as the reference answers it (a field no document holds)."""
+    """The keys once left out (`slice`, `scroll`, `pit`, `point_in_time`,
+    `runtime_mappings`, `indices_boost`, and the aggregation kinds
+    `rare_terms` and `max_bucket`) answer as the reference, at one shard
+    and at two; a `max_bucket` whose path names no aggregation is the
+    reference's 400."""
     load_mixed(pair, "a", 1, 7, n=30)
-    if key not in ("aggs", "aggregations"):
-        pair.same("POST", "/a/_search", {key: value})
-        return
-    status, got = pair.port("POST", "/a/_search", {key: value})
-    name = next(iter(value["x"])) if key in ("aggs", "aggregations") \
-        else key
-    assert status == 400 and f"[{name}]" in got["error"]["reason"], got
-    assert "not supported by this build" in got["error"]["reason"]
-    assert "ROADMAP.md queue 1 item" in got["error"]["reason"]
+    load_mixed(pair, "a2", 2, 8, n=30)
+    for index in ("a", "a2"):
+        want, got = pair.same("POST", f"/{index}/_search", {key: value})
+        if key == "aggregations":
+            assert got["status"] == 400, got
     pair.same("POST", "/a/_search", {"sort": [
         {"_script": {"type": "number", "script": "1"}}]})
 
