@@ -10,7 +10,8 @@
                            --sharded-only | --hybrid-only | --sparse-only |
                            --docs-only | --segments-only | --body-only |
                            --logs-only | --telemetry-only | --dsl-only |
-                           --search-api-only | --nested-only]
+                           --search-api-only | --nested-only |
+                           --node-apis-only]
 
 Phases, one line each; any failure raises and the exit code is not 0:
 
@@ -396,6 +397,31 @@ request, which must fall back to the exhaustive corpus
                `parent_id`; the percolator, 10,000 stored queries shaped
                after Rally's `percolator` track and 16 documents, each
                hit set the check's own evaluation.
+  node_apis    `[node_apis]` lines (the card's name and power limit on
+               each): on sift after serve_documents' checks,
+               `_delete_by_query` of 10,000 ids (`deleted` and `_count`
+               exact) and `_update_by_query` of 10,000 others (a script
+               sets `tag`; a `match` counts them), each one refresh on
+               the generational path (no full rebuild; `refresh_s`,
+               rebuilds avoided), then 64 `knn` queries at recall@10 >=
+               0.95 over the live rows with no deleted id (exact legs);
+               `_reindex` of 100,000 documents into a
+               2-shard `int8_flat` index (`created`, docs a second, 2
+               `knn_binned_int8` launches a request, recall@10 >= 0.95
+               over the ids it holds); a one-index alias (sift's hits and
+               documents) and a two-index one (union recall@10 >= 0.95, a
+               document operation a 400); the int8 index closed (`knn` a
+               400 `index_closed_exception`, no launch, `_cat/indices`
+               `close`) and opened (the same hits, device memory before
+               and after); on sift_b (binned) `_async_search` of a `knn`
+               body polled to its end (sync hits, one bf16 launch) and
+               `_explain` of the top hit with a `knn` clause (within
+               BF16_QUANTUM / 2 of `_score`).
+               On serve_logs: `PUT _settings` of `max_result_window`
+               taking effect, and the HTTP p50 over 16 requests of
+               `_field_caps`, `_validate/query`, `_termvectors`,
+               `_analyze`, `_search_shards`, `_cluster/health`,
+               `_cat/indices`, `_cat/shards` and `GET /_nodes`.
 
 `--binned-only`, `--ivf-only` and `--maxsim-only` run env, build and one
 kernel phase (no serving, no ok line): the numbers of PERF.md's
@@ -418,7 +444,10 @@ requests with serve_documents (no ok line); `--search-api-only` runs
 env, the binned and BM25 builds, serve_hybrid, the laion index with the
 `[search_api]` part alone, serve_sift's sequential requests with
 serve_documents, and serve_logs (no ok line); `--nested-only` runs env,
-the binned build and serve_nested (no ok line). Every phase drops its indices
+the binned build and serve_nested (no ok line); `--node-apis-only` runs
+env, the binned build, serve_sift's sequential requests with
+serve_documents (the part on sift) and the logs index with the part's
+host APIs (no ok line). Every phase drops its indices
 through `DELETE /{index}`. Each phase's
 wall seconds print as a `[timing]` line.
 
@@ -658,13 +687,16 @@ def phase_binned_kernels(seed: int, dev) -> dict:
         qn, qs = q8[:nq].contiguous(), qscale[:nq].contiguous()
         nbytes = qn.numel() + c8.numel() + nq * 4 + n_pad * 4 \
             + nq * (n_pad // 64) * 4
-        # torch._int_mm takes more than 16 rows: no library call at Q=1
+        # torch._int_mm takes more than 16 rows: at Q=1 the library call
+        # multiplies the query padded with zero rows to 32
+        ql = qn if nq > 16 else torch.cat(
+            [qn, torch.zeros(32 - nq, d, dtype=torch.int8, device=dev)])
         cases[key] = _binned_case(
             kb.KERNEL_INT8, f"Q={nq} N=1048576 D=768",
             lambda: kb.binned_packed_int8(qn, c8, qs, rsv),
             lambda: kb.binned_packed_reference(qn, c8, rsv, tpat, qscale=qs),
             True, nbytes, 2 * nq * n_pad * d, INT8_OPS_PER_S,
-            library=(lambda: torch._int_mm(qn, c8.T)) if nq > 16 else None,
+            library=lambda: torch._int_mm(ql, c8.T),
             time_plain=nq == 256)
     del q8, c8
     torch.cuda.empty_cache()
@@ -1762,9 +1794,10 @@ def phase_serve(seed: int, n_sift: int, n_cohere: int,
             telemetry_cancel(client, node, "sift", queries[0])
         del extra
         # its own generator, so the later indices' data stay the seed's
-        total[kb.KERNEL_BF16] += timed(
-            "serve_documents", serve_documents, client, node, vecs, queries,
-            np.random.default_rng(seed + 16))
+        for key, c in timed(
+                "serve_documents", serve_documents, client, node, vecs,
+                queries, np.random.default_rng(seed + 16)).items():
+            total[key] += c
         del vecs
         if docs_only:
             return total
@@ -2167,13 +2200,15 @@ def _union_checks(client, node, rng, queries, live_of):
     return (float(np.mean(recalls)), launches, counts[0][0], b_fields)
 
 
-def serve_documents(client, node, vecs, queries, rng) -> int:
+def serve_documents(client, node, vecs, queries, rng) -> dict:
     """The document and index API on sift at full width: writes, a timed
     refresh (the generational path: tombstones and an L0 seal), the gates
     after it, sift_b's generations and `_forcemerge`, the expression
-    searches over sift and sift_b, and both indices deleted through
-    `DELETE /{index}` with every generation's device memory freed.
-    Returns the bf16 binned kernel's launches."""
+    searches over sift and sift_b, the `[node_apis]` part on sift
+    (`node_apis_sift`), and the indices deleted through `DELETE /{index}`
+    with every generation's device memory freed. Returns the binned
+    kernels' launches by kernel."""
+    from elasticsearch_tpu_torch.ops import knn_binned as kb
     t0 = time.perf_counter()
     deleted, updated, created = _doc_writes(client, rng, len(vecs))
     store = node.index("sift").store
@@ -2222,6 +2257,12 @@ def serve_documents(client, node, vecs, queries, rng) -> int:
     union_launches += dsl_sift(client, node, rng, queries, deleted, updated,
                                live_of)
     log("timing", step="dsl_sift", seconds=f"{time.perf_counter() - t:.1f}")
+    t = time.perf_counter()
+    node_launches = node_apis_sift(client, node, queries, rng, live_of)
+    log("timing", step="node_apis_sift",
+        seconds=f"{time.perf_counter() - t:.1f}")
+    union_launches += node_launches.pop(kb.KERNEL_BF16, 0)
+    client.ok("DELETE", "/sift_r")
     gc.collect()
     torch.cuda.synchronize()
     corpora = _corpus_bytes(node, "sift") + _corpus_bytes(node, "sift_b")
@@ -2245,7 +2286,356 @@ def serve_documents(client, node, vecs, queries, rng) -> int:
         corpora_mb=f"{corpora / 2**20:.1f}", launches=launches,
         exact_legs=routes["exact_legs"] + union_legs,
         seconds=f"{time.perf_counter() - t0:.1f}")
-    return launches
+    return {kb.KERNEL_BF16: launches, **node_launches}
+
+
+N_NODE_DBQ = 10_000         # [node_apis]: sift documents deleted by query
+N_NODE_UBQ = 10_000         # ... and updated by query
+N_NODE_REINDEX = 100_000    # ... reindexed into sift_r (2 shards, int8)
+NODE_API_REQUESTS = 16      # the requests behind each host API's p50
+
+
+def _ids_recall(got, truth) -> float:
+    """recall@10 of hit ids against the exact top-10 ids, each id counted
+    as often as it appears (a union of indices holds some ids twice)."""
+    from collections import Counter
+    return float(np.mean([sum((Counter(g) & Counter(t)).values()) / 10
+                          for g, t in zip(got, truth)]))
+
+
+def _knn_ids(client, path: str, queries, expect=None) -> tuple:
+    """The hit ids (and `_index`, `_id` pairs) of one `knn` request a
+    query, with the launches they made (counts reset just before)."""
+    from elasticsearch_tpu_torch.ops import dispatch
+    dispatch.reset_launches()
+    ids, pairs = [], []
+    for qv in queries:
+        hits = client.ok("POST", path, knn_body("vec", qv))["hits"]["hits"]
+        if len(hits) != 10 or not all(np.isfinite(h["_score"])
+                                      for h in hits):
+            raise AssertionError(f"{path}: bad hits {hits}")
+        ids.append([h["_id"] for h in hits])
+        pairs.append([(h["_index"], h["_id"], h["_score"]) for h in hits])
+    launches = {k: c for k, c in dispatch.launches().items() if c}
+    if expect is not None and launches != expect:
+        raise AssertionError(f"{path}: launches {launches}, expected "
+                             f"{expect}")
+    return ids, pairs, launches
+
+
+def node_apis_sift(client, node, queries, rng, live_of) -> dict:
+    """The `[node_apis]` part on sift (1M x 128 cosine `flat`, after
+    serve_documents' writes): `_delete_by_query` of N_NODE_DBQ ids and
+    `_update_by_query` of N_NODE_UBQ others (a script sets `tag`), each
+    ending in one refresh on the generational path (no full rebuild),
+    then recall@10 >= 0.95 of 64 `knn` queries against exact f32 numpy
+    over the live rows (the tombstoned generations take the
+    `segments.knn` exact legs); `_reindex` of N_NODE_REINDEX documents
+    into sift_r (2 shards, `int8_flat` + rescore: `knn_binned_int8`, 2
+    launches a request, recall >= 0.95 over the ids it holds); aliases
+    (one index: the same hits and documents as sift; sift and sift_r:
+    union recall >= 0.95, a document operation the reference's 400);
+    sift_r closed (a `knn` is a 400 that launches nothing, `_cat/indices`
+    says `close`) and opened (the same hits, the same device memory);
+    then on sift_b (one clean generation after serve_documents'
+    `_forcemerge`, so on the binned kernel) `_async_search` of a `knn`
+    body polled to its end (the synchronous hits, one `knn_binned_bf16`
+    launch) and `_explain` of the top hit with a `knn` clause (its
+    exact-route value within BF16_QUANTUM / 2 of the hit's `_score`).
+    Returns the binned launches by kernel."""
+    from elasticsearch_tpu_torch.ops import dispatch
+    from elasticsearch_tpu_torch.ops import knn_binned as kb
+    card = repr(nvidia_smi_line())
+    t_part = time.perf_counter()
+    store = node.index("sift").store
+    out = {kb.KERNEL_BF16: 0, kb.KERNEL_INT8: 0}
+    names, live = live_of()
+    pick = rng.permutation(len(names))[:N_NODE_DBQ + N_NODE_UBQ]
+    dbq_ids = [names[i] for i in pick[:N_NODE_DBQ]]
+    ubq_ids = [names[i] for i in pick[N_NODE_DBQ:]]
+    gone = set(dbq_ids)
+    keep = np.ones(len(names), dtype=bool)
+    keep[pick[:N_NODE_DBQ]] = False
+    names = [nm for nm, k in zip(names, keep) if k]
+    live = live[keep]
+    at = {nm: i for i, nm in enumerate(names)}
+    # the live rows after the delete; the update keeps every vector
+    truth = [[names[r] for r in t.tolist()]
+             for t in exact_top(live, queries, 10, "cosine")]
+
+    def by_query(label, path, body, key, n):
+        """One by-query request, its refresh timed (the index's `refresh`
+        wrapped for the request), then the `knn` checks."""
+        svc = node.index("sift")
+        count0 = client.ok("POST", "/sift/_count")["count"]
+        st0 = store.segment_stats()
+        box, inner = {}, svc.refresh
+
+        def refresh():
+            t = time.perf_counter()
+            inner()
+            box["refresh_s"] = time.perf_counter() - t
+        svc.refresh = refresh
+        t = time.perf_counter()
+        try:
+            resp = client.ok("POST", path, body)
+        finally:
+            del svc.refresh
+        seconds = time.perf_counter() - t
+        st = store.segment_stats()
+        if resp[key] != n or resp["failures"]:
+            raise AssertionError(f"{label}: {key} {resp[key]} of {n}, "
+                                 f"failures {resp['failures'][:3]}")
+        if st["full_rebuilds"] != st0["full_rebuilds"]:
+            raise AssertionError(f"{label}: a full rebuild, {st0} -> {st}")
+        ids, pairs, launches = _knn_ids(client, "/sift/_search", queries)
+        if set(launches) - {kb.KERNEL_BF16}:
+            raise AssertionError(f"{label}: launches {launches}")
+        if any(gone & set(g) for g in ids):
+            raise AssertionError(f"{label}: a deleted id in a hit")
+        recall = _ids_recall(ids, truth)
+        if recall < 0.95:
+            raise AssertionError(f"{label} recall@10 {recall} < 0.95")
+        count = client.ok("POST", "/sift/_count")["count"]
+        log("node_apis", step=label, docs=n, seconds=f"{seconds:.3f}",
+            docs_s=f"{n / seconds:.0f}",
+            refresh_s=f"{box.get('refresh_s', float('nan')):.3f}",
+            count_before=count0, count_after=count,
+            rebuilds_avoided=st["rebuilds_avoided"]
+            - st0["rebuilds_avoided"],
+            full_rebuilds=st["full_rebuilds"] - st0["full_rebuilds"],
+            generations=st["generations"],
+            tombstoned_rows=st["tombstoned_rows"], recall_at_10=recall,
+            launches=json.dumps(launches), card=card)
+        out[kb.KERNEL_BF16] += launches.get(kb.KERNEL_BF16, 0)
+        return count0, count, pairs
+
+    c0, c1, _ = by_query("delete_by_query", "/sift/_delete_by_query",
+                         {"query": {"ids": {"values": dbq_ids}}}, "deleted",
+                         N_NODE_DBQ)
+    if c0 - c1 != N_NODE_DBQ:
+        raise AssertionError(f"_count {c0} -> {c1} after deleting "
+                             f"{N_NODE_DBQ}")
+    _, _, sift_pairs = by_query(
+        "update_by_query", "/sift/_update_by_query",
+        {"query": {"ids": {"values": ubq_ids}},
+         "script": {"source": "ctx._source.tag = 'node_apis'"}},
+        "updated", N_NODE_UBQ)
+    tagged = client.ok("POST", "/sift/_count", {"query": {"match": {
+        "tag": "node_apis"}}})["count"]
+    if tagged != N_NODE_UBQ:
+        raise AssertionError(f"match on tag counts {tagged}")
+
+    # _reindex into a 2-shard int8 index
+    client.ok("PUT", "/sift_r", {
+        "settings": {"number_of_shards": 2},
+        "mappings": {"properties": {"vec": {
+            "type": "dense_vector", "dims": 128, "similarity": "cosine",
+            "index_options": {"type": "int8_flat", "rescore": True}}}}})
+    t = time.perf_counter()
+    resp = client.ok("POST", "/_reindex", {
+        "source": {"index": "sift"}, "dest": {"index": "sift_r"},
+        "max_docs": N_NODE_REINDEX})
+    reindex_s = time.perf_counter() - t
+    if resp["created"] != N_NODE_REINDEX or resp["failures"]:
+        raise AssertionError(f"_reindex: created {resp['created']}, "
+                             f"failures {resp['failures'][:3]}")
+    held = [shard.engine.acquire_searcher()
+            for shard in node.index("sift_r").shards]
+    r_names = [r.get_id(int(row)) for r in held
+               for row in r.live_global_rows()]
+    r_live = live[[at[nm] for nm in r_names]]
+    r_truth = [[r_names[i] for i in t.tolist()]
+               for t in exact_top(r_live, queries, 10, "cosine")]
+    r_ids, r_pairs, launches = _knn_ids(
+        client, "/sift_r/_search", queries,
+        {kb.KERNEL_INT8: 2 * len(queries)})
+    out[kb.KERNEL_INT8] += launches[kb.KERNEL_INT8]
+    r_recall = _ids_recall(r_ids, r_truth)
+    if r_recall < 0.95:
+        raise AssertionError(f"sift_r recall@10 {r_recall} < 0.95")
+    log("node_apis", step="reindex", docs=N_NODE_REINDEX, shards=2,
+        index_options="int8_flat+rescore", seconds=f"{reindex_s:.3f}",
+        docs_s=f"{N_NODE_REINDEX / reindex_s:.0f}", recall_at_10=r_recall,
+        launches=json.dumps(launches), card=card)
+
+    # aliases
+    client.ok("POST", "/_aliases", {"actions": [
+        {"add": {"index": "sift", "alias": "sift_one"}},
+        {"add": {"indices": ["sift", "sift_r"], "alias": "sift_both"}}]})
+    _, one_pairs, launches = _knn_ids(client, "/sift_one/_search", queries)
+    out[kb.KERNEL_BF16] += launches.get(kb.KERNEL_BF16, 0)
+    if one_pairs != sift_pairs:
+        raise AssertionError("sift_one's hits differ from sift's")
+    for doc_id in names[:16]:
+        a = client.ok("GET", f"/sift_one/_doc/{doc_id}")
+        b = client.ok("GET", f"/sift/_doc/{doc_id}")
+        if a != b:
+            raise AssertionError(f"sift_one/_doc/{doc_id}: {a} != {b}")
+    both_ids, _, launches = _knn_ids(client, "/sift_both/_search", queries)
+    if launches.get(kb.KERNEL_INT8) != 2 * len(queries):
+        raise AssertionError(f"sift_both: launches {launches}")
+    for k in out:
+        out[k] += launches.get(k, 0)
+    union_names = names + r_names
+    union_truth = [[union_names[i] for i in t.tolist()] for t in exact_top(
+        np.concatenate([live, r_live]), queries, 10, "cosine")]
+    union = _ids_recall(both_ids, union_truth)
+    if union < 0.95:
+        raise AssertionError(f"sift_both union recall@10 {union} < 0.95")
+    status, err = client.req("GET", f"/sift_both/_doc/{names[0]}")
+    if status != 400 or "more than one indices" not in \
+            err["error"]["reason"]:
+        raise AssertionError(f"a doc op on sift_both -> {status} {err}")
+    log("node_apis", step="aliases", one_same_hits=True,
+        union_recall_at_10=union, multi_index_doc_status=status, card=card)
+
+    # close and open sift_r
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    client.ok("POST", "/sift_r/_close")
+    dispatch.reset_launches()
+    status, err = client.req("POST", "/sift_r/_search",
+                             knn_body("vec", queries[0]))
+    closed_launches = sum(dispatch.launches().values())
+    if status != 400 or err["error"]["type"] != "index_closed_exception" \
+            or closed_launches:
+        raise AssertionError(f"knn on closed sift_r -> {status} {err}, "
+                             f"{closed_launches} launches")
+    cat = client.ok("GET", "/_cat/indices/sift_r?h=status,index&format=json")
+    if cat != [{"status": "close", "index": "sift_r"}]:
+        raise AssertionError(f"_cat/indices on closed sift_r: {cat}")
+    client.ok("POST", "/sift_r/_open")
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+    _, o_pairs, launches = _knn_ids(client, "/sift_r/_search", queries,
+                                    {kb.KERNEL_INT8: 2 * len(queries)})
+    out[kb.KERNEL_INT8] += launches[kb.KERNEL_INT8]
+    if o_pairs != r_pairs:
+        raise AssertionError("sift_r's hits after _open differ")
+    log("node_apis", step="close_open", closed_status=status,
+        closed_launches=closed_launches, reopened_same_hits=True,
+        memory_allocated_before_close=mem_before,
+        memory_allocated_after_open=mem_after, card=card)
+
+    # on sift_b's binned route: _async_search polled to its end, and
+    # _explain of the top hit with a knn clause (the exact route's value)
+    _, b_pairs, launches = _knn_ids(client, "/sift_b/_search", queries[:2],
+                                    {kb.KERNEL_BF16: 2})
+    out[kb.KERNEL_BF16] += 2
+    dispatch.reset_launches()
+    sub = client.ok("POST", "/sift_b/_async_search"
+                    "?wait_for_completion_timeout=0s",
+                    knn_body("vec", queries[1]))
+    polls = 0
+    while True:
+        got = client.ok("GET", f"/_async_search/{sub['id']}")
+        if not got["is_running"]:
+            break
+        polls += 1
+        time.sleep(0.002)
+    launches = {k: c for k, c in dispatch.launches().items() if c}
+    if "error" in got or launches != {kb.KERNEL_BF16: 1}:
+        raise AssertionError(f"_async_search: {got.get('error')}, "
+                             f"launches {launches}")
+    out[kb.KERNEL_BF16] += 1
+    if [(h["_index"], h["_id"], h["_score"]) for h in
+            got["response"]["hits"]["hits"]] != b_pairs[1]:
+        raise AssertionError("_async_search hits differ from _search's")
+    client.ok("DELETE", f"/_async_search/{sub['id']}")
+    _, top_id, top_score = b_pairs[0][0]
+    ex = client.ok("POST", f"/sift_b/_explain/{top_id}", {"query": {"knn": {
+        "field": "vec", "query_vector": queries[0].tolist(), "k": 10,
+        "num_candidates": 100}}})
+    diff = abs(ex["explanation"]["value"] - top_score)
+    if not ex["matched"] or diff > BF16_QUANTUM / 2:
+        raise AssertionError(f"_explain {top_id}: {ex['matched']}, "
+                             f"|value - _score| {diff}")
+    log("node_apis", step="async_explain", index="sift_b",
+        async_polls=polls, async_same_hits=True,
+        async_launches=json.dumps(launches), explain_matched=True,
+        explain_abs_diff=f"{diff:.3g}",
+        part_s=f"{time.perf_counter() - t_part:.1f}", card=card)
+    client.ok("POST", "/_aliases", {"actions": [
+        {"remove": {"index": "sift", "alias": "sift_*"}},
+        {"remove": {"index": "sift_r", "alias": "sift_*"}}]})
+    return out
+
+
+def _node_api_p50(client, label, method, path, body=None, check=None):
+    """The HTTP p50 (host clock) of NODE_API_REQUESTS requests, each
+    answer held to `check`."""
+    lat = []
+    for _ in range(NODE_API_REQUESTS):
+        t = time.perf_counter()
+        status, payload = client.req(method, path, body)
+        lat.append((time.perf_counter() - t) * 1e3)
+        if status != 200 or (check is not None and not check(payload)):
+            raise AssertionError(f"{label}: {status} {str(payload)[:300]}")
+    return statistics.median(lat)
+
+
+def node_apis_logs(client, node) -> None:
+    """The `[node_apis]` host APIs on serve_logs: `PUT _settings` on
+    `index.max_result_window` refuses the next deep page and `null`
+    serves it again; then the HTTP p50 of `_field_caps`,
+    `_validate/query`, `_termvectors` (`request`), `_analyze`,
+    `_search_shards`, `_cluster/health`, `_cat/indices`, `_cat/shards`
+    and `GET /_nodes`, each answer checked."""
+    card = repr(nvidia_smi_line())
+    t0 = time.perf_counter()
+    page = {"from": 95, "size": 10, "sort": [{"@timestamp": "asc"}]}
+    client.ok("POST", "/logs/_search", page)
+    client.ok("PUT", "/logs/_settings", {"index": {
+        "max_result_window": 100}})
+    status, err = client.req("POST", "/logs/_search", page)
+    if status != 400 or "max_result_window" not in err["error"]["reason"]:
+        raise AssertionError(f"max_result_window 100: {status} {err}")
+    client.ok("PUT", "/logs/_settings", {"index": {
+        "max_result_window": None}})
+    client.ok("POST", "/logs/_search", page)
+    n = node.index("logs").doc_count()
+    fields = {}
+    fields["field_caps"] = _node_api_p50(
+        client, "_field_caps", "GET", "/logs/_field_caps?fields=*",
+        check=lambda r: r["fields"]["request"]["text"]["searchable"]
+        and r["fields"]["status"]["integer"]["aggregatable"])
+    fields["validate"] = _node_api_p50(
+        client, "_validate", "POST", "/logs/_validate/query?explain=true",
+        {"query": {"bool": {"must": [{"match": {"request": "english"}}],
+                            "filter": [{"range": {"status": {
+                                "gte": 400}}}]}}},
+        check=lambda r: r["valid"] and r["explanations"][0]["valid"])
+    fields["termvectors"] = _node_api_p50(
+        client, "_termvectors", "GET",
+        "/logs/_termvectors/17?fields=request&term_statistics=true",
+        check=lambda r: r["found"] and r["term_vectors"]["request"]["terms"])
+    fields["analyze"] = _node_api_p50(
+        client, "_analyze", "POST", "/logs/_analyze",
+        {"field": "request", "text": "GET /english/12/news_37.html HTTP/1.0",
+         "analyzer": "standard"},
+        check=lambda r: len(r["tokens"]) > 3)
+    fields["search_shards"] = _node_api_p50(
+        client, "_search_shards", "GET", "/logs/_search_shards",
+        check=lambda r: len(r["shards"]) == 1)
+    fields["cluster_health"] = _node_api_p50(
+        client, "_cluster/health", "GET", "/_cluster/health",
+        check=lambda r: r["status"] == "yellow")
+    fields["cat_indices"] = _node_api_p50(
+        client, "_cat/indices", "GET",
+        "/_cat/indices?format=json&h=index,docs.count",
+        check=lambda r: {"index": "logs", "docs.count": str(n)} in r)
+    fields["cat_shards"] = _node_api_p50(
+        client, "_cat/shards", "GET", "/_cat/shards/logs?format=json",
+        check=lambda r: r[0]["state"] == "STARTED"
+        and r[0]["docs"] == str(n))
+    fields["nodes"] = _node_api_p50(
+        client, "_nodes", "GET", "/_nodes",
+        check=lambda r: node.node_id in r["nodes"])
+    log("node_apis", part="logs", lines=n, requests_each=NODE_API_REQUESTS,
+        **{f"{k}_p50_ms": f"{v:.3f}" for k, v in fields.items()},
+        seconds=f"{time.perf_counter() - t0:.1f}", card=card)
 
 
 def clustered32(rng, n: int, d: int, n_centers: int = 256,
@@ -7738,7 +8128,8 @@ def logs_agg_ops(engine, reader, snap, calls: dict) -> None:
 
 def phase_serve_logs(seed: int, n: int, device: str = "cuda",
                      n_each: int = 64,
-                     n_dynamic: int = N_LOGS_DYNAMIC) -> dict:
+                     n_dynamic: int = N_LOGS_DYNAMIC,
+                     node_apis_only: bool = False) -> dict:
     """serve_logs: a web-server log index modelled on the Rally
     `http_logs` track (247,249,096 lines of the 1998 World Cup site; its
     index.json mapping, LOGS_MAPPING), cut to `n` lines for host ingest
@@ -7749,8 +8140,10 @@ def phase_serve_logs(seed: int, n: int, device: str = "cuda",
     (`logs_dynamic`), the can_match pair (`logs_can_match`) and the
     aggregations over both (`logs_aggs`). Logged: ingest seconds, the
     parse rate (lines a second through `index_many`), the refresh, the
-    HTTP p50 of each kind and the `[aggs]` line. No hand kernel runs here
-    (the aggregations are torch ops); returns no launches."""
+    host APIs of the `[node_apis]` part (`node_apis_logs`; with
+    `node_apis_only` the phase ends there), the HTTP p50 of each kind and
+    the `[aggs]` line. No hand kernel runs here (the aggregations are
+    torch ops); returns no launches."""
     from elasticsearch_tpu_torch.server import build_server
     t0 = time.perf_counter()
     paths = logs_paths()
@@ -7791,6 +8184,10 @@ def phase_serve_logs(seed: int, n: int, device: str = "cuda",
             parse_rate_docs_s=f"{(n - first) / max(parse_s, 1e-9):.0f}",
             refresh_s=f"{refresh_s:.2f}",
             host_peak_rss_gb=f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.2f}")
+        node_apis_logs(client, node)
+        if node_apis_only:
+            drop_index(client, "logs")
+            return {}
         lat = {k: [] for k in LOGS_KINDS}
         pages = 0
         for kind, body, want in logs_requests(cols, paths, seed, n_each):
@@ -8667,6 +9064,13 @@ def main(argv=None) -> int:
                          "serve_nested (the qa index at --n-qa questions, "
                          "the chunks index, the percolator; no final ok "
                          "line)")
+    ap.add_argument("--node-apis-only", action="store_true",
+                    help="build the binned kernels and run only the "
+                         "phases that carry the [node_apis] part "
+                         "(serve_sift's sequential requests and "
+                         "serve_documents at --n-sift, then the logs "
+                         "index at --n-logs with the part's host APIs; "
+                         "no final ok line)")
     ap.add_argument("--telemetry-only", action="store_true",
                     help="build the binned, IVF and BM25 kernels and run "
                          "only the phases that carry the telemetry part "
@@ -8699,6 +9103,13 @@ def main(argv=None) -> int:
     if args.nested_only:
         phase_build(["knn_binned"])
         timed("serve_nested", phase_serve_nested, args.seed, args.n_qa)
+        return 0
+    if args.node_apis_only:
+        phase_build(["knn_binned"])
+        timed("serve_documents", phase_serve, args.seed, args.n_sift, 0,
+              docs_only=True)
+        timed("node_apis_logs", phase_serve_logs, args.seed, args.n_logs,
+              node_apis_only=True)
         return 0
     if args.telemetry_only:
         phase_build(["knn_binned", "ivf_fused", "bm25"])

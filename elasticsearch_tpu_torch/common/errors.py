@@ -132,6 +132,12 @@ class TaskCancelledError(SearchEngineError):
     status = 400
 
 
+class IndexClosedError(SearchEngineError):
+    """A data operation on a closed index."""
+
+    status = 400
+
+
 class EsRejectedExecutionError(SearchEngineError):
     """Queue full, or a request shed at its deadline: the caller gets
     backpressure (HTTP 429)."""

@@ -9,23 +9,32 @@ combined reader whose rows are rebased by shard: shard s owns the rows
 [s * SHARD_ROW_SPACE, (s + 1) * SHARD_ROW_SPACE), so a row names its shard
 and its row in that shard's engine.
 
-The module also holds the node's index-name rules (port of
-`IndicesService.validate_index_name` and `resolve`): `resolve_expression`
-turns an index expression (none, `_all`, a comma list, `*` patterns) into
-index services, deduplicated in order, under the `ignore_unavailable` and
-`allow_no_indices` options; every API that takes an expression resolves
-it there.
+An index carries its aliases (alias name -> its options: `filter`,
+`index_routing`, `search_routing`, `is_write_index`, `is_hidden`), its
+closed flag and its dynamic settings (`settings_update`). Closing keeps
+the index's host and device state as it is, so a reopened index serves
+what it served before without a rebuild; only the node's routes refuse
+data operations on it meanwhile.
 
-Left out, as ROADMAP.md lists: aliases, close / open, hidden indices,
-settings updates, templates, date math in names, and the shard-failure
-retry (`exclude_shards`). An expression part in date math, an
-`index.hidden` setting and an `expand_wildcards` other than `open` are
-400s.
+The module also holds the node's index-name rules (port of
+`IndicesService.validate_index_name`, `get`, `resolve` and
+`update_aliases`): `resolve_expression` turns an index expression (none,
+`_all`, a comma list, `*` patterns, aliases) into index services,
+deduplicated in order, under the `ignore_unavailable`,
+`allow_no_indices` and open / closed expansion options; `get_index`
+resolves one name or single-index alias for a document operation; every
+API that takes an expression resolves it there.
+
+Left out, as ROADMAP.md lists: hidden indices, templates, date math in
+names, and the shard-failure retry (`exclude_shards`). An expression part
+in date math, an `index.hidden` setting and an `expand_wildcards` that
+names hidden indices are 400s.
 """
 
 from __future__ import annotations
 
 import copy
+import fnmatch
 import re
 import time
 import uuid
@@ -35,7 +44,8 @@ import numpy as np
 
 from elasticsearch_tpu_torch.cluster.routing import shard_id_for, shard_ids_for
 from elasticsearch_tpu_torch.common.errors import (
-    IllegalArgumentError, IndexNotFoundError, InvalidIndexNameError,
+    IllegalArgumentError, IndexClosedError, IndexNotFoundError,
+    InvalidIndexNameError,
 )
 from elasticsearch_tpu_torch.index.analysis import AnalysisRegistry
 from elasticsearch_tpu_torch.index.engine import Engine, EngineResult
@@ -63,15 +73,29 @@ def validate_index_name(name: str) -> None:
 def resolve_expression(indices: Dict[str, "IndexService"],
                        expression: Optional[str],
                        ignore_unavailable: bool = False,
-                       allow_no_indices: bool = True) -> List["IndexService"]:
+                       allow_no_indices: bool = True,
+                       expand_open: bool = True,
+                       expand_closed: bool = False,
+                       forbid_closed: bool = False) -> List["IndexService"]:
     """The indices an expression names, deduplicated in order. None or ""
     names every index; else each comma-separated part is `_all` or a `*`
-    pattern (matching no index raises `IndexNotFoundError` for that part
-    when `allow_no_indices` is false) or a concrete name (missing, it
-    raises `IndexNotFoundError` unless `ignore_unavailable` drops it). A
-    part in date math (`<...>`) is a 400."""
+    pattern over index and alias names (matching no index raises
+    `IndexNotFoundError` for that part when `allow_no_indices` is false),
+    a concrete index name, or an alias, which names all its indices
+    (missing, it raises `IndexNotFoundError` unless `ignore_unavailable`
+    drops it). Patterns take the open indices, and the closed ones with
+    `expand_closed`; `expand_open=False` leaves the open ones out. With
+    `forbid_closed` (data operations) a closed index in the result is an
+    `IndexClosedError`, or is dropped under `ignore_unavailable`. A part
+    in date math (`<...>`) is a 400."""
+
+    def wanted(svc) -> bool:
+        return expand_closed if svc.closed else expand_open
+
     if expression in (None, ""):
-        return list(indices.values())
+        out = {n: s for n, s in indices.items() if wanted(s)}
+        return _check_closed(list(out.values()), forbid_closed,
+                             ignore_unavailable)
     out: Dict[str, IndexService] = {}
     for part in expression.split(","):
         part = part.strip()
@@ -80,23 +104,171 @@ def resolve_expression(indices: Dict[str, "IndexService"],
         if part.startswith("<") and part.endswith(">"):
             raise IllegalArgumentError(
                 f"date math index expressions are not supported by this "
-                f"build: [{part}]")
+                f"build: [{part}] (ROADMAP.md queue 1 item 16)")
         if part == "_all" or "*" in part:
             pat = re.compile(".*" if part == "_all" else
                              ".*".join(map(re.escape, part.split("*"))))
-            matched = [n for n in indices if pat.fullmatch(n)]
+            matched = [n for n, s in indices.items()
+                       if pat.fullmatch(n) and wanted(s)]
+            matched += [n for n, s in indices.items()
+                        if (expand_closed or not s.closed)
+                        and any(pat.fullmatch(a) for a in s.aliases)]
             if not matched and not allow_no_indices:
                 raise IndexNotFoundError(part)
             for n in matched:
                 out.setdefault(n, indices[n])
             continue
         svc = indices.get(part)
-        if svc is None:
+        if svc is not None:
+            out.setdefault(part, svc)
+            continue
+        holders = [n for n, s in indices.items() if part in s.aliases]
+        if not holders:
             if ignore_unavailable:
                 continue
             raise IndexNotFoundError(part)
-        out.setdefault(part, svc)
+        for n in holders:
+            out.setdefault(n, indices[n])
+    return _check_closed(list(out.values()), forbid_closed,
+                         ignore_unavailable)
+
+
+def resolve_info(indices: Dict[str, "IndexService"],
+                 expression: Optional[str],
+                 ignore_unavailable: bool = False,
+                 allow_no_indices: bool = True, expand_open: bool = True,
+                 expand_closed: bool = False) -> List["IndexService"]:
+    """The indices an index-info API (`GET /{index}`, `_mapping`) names,
+    as the reference's REST layer resolves them: patterns over index
+    names only, open and closed ones as `expand_open` / `expand_closed`
+    say; a concrete part through `get_index` (a single-index alias; one
+    of several indices is a 400), a closed index served. A part that
+    names nothing raises as in `resolve_expression`."""
+    out: Dict[str, IndexService] = {}
+    for part in (expression or "_all").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if part.startswith("<") and part.endswith(">"):
+            resolve_expression(indices, part)   # date math: the 400
+        if "*" in part or part == "_all":
+            pat = "*" if part == "_all" else part
+            matched = [n for n, s in indices.items()
+                       if fnmatch.fnmatchcase(n, pat)
+                       and (expand_closed if s.closed else expand_open)]
+            if not matched and not allow_no_indices:
+                raise IndexNotFoundError(part)
+            for n in matched:
+                out.setdefault(n, indices[n])
+            continue
+        try:
+            svc = get_index(indices, part)
+        except IndexNotFoundError:
+            if ignore_unavailable:
+                continue
+            raise
+        out.setdefault(svc.name, svc)
     return list(out.values())
+
+
+def _check_closed(services: List["IndexService"], forbid: bool,
+                  drop: bool) -> List["IndexService"]:
+    if not forbid:
+        return services
+    if drop:
+        return [s for s in services if not s.closed]
+    for svc in services:
+        check_open(svc)
+    return services
+
+
+def check_open(svc: "IndexService") -> "IndexService":
+    """The index, or the reference's `index_closed_exception`."""
+    if svc.closed:
+        raise IndexClosedError(f"closed index [{svc.name}]")
+    return svc
+
+
+def get_index(indices: Dict[str, "IndexService"],
+              name: str) -> "IndexService":
+    """A concrete index, or the one index of an alias, for a document
+    operation; an alias of several indices is the reference's 400."""
+    svc = indices.get(name)
+    if svc is not None:
+        return svc
+    holders = [s for s in indices.values() if name in s.aliases]
+    if len(holders) > 1:
+        names = ", ".join(sorted(s.name for s in holders))
+        raise IllegalArgumentError(
+            f"Alias [{name}] has more than one indices associated with it "
+            f"[[{names}]], can't execute a single index op")
+    if holders:
+        return holders[0]
+    raise IndexNotFoundError(name)
+
+
+def index_or_alias_exists(indices: Dict[str, "IndexService"],
+                          name: str) -> bool:
+    return name in indices or any(name in s.aliases
+                                  for s in indices.values())
+
+
+def update_aliases(indices: Dict[str, "IndexService"], actions: List[dict],
+                   delete_index) -> None:
+    """`POST /_aliases` actions in order: `add` (with its options; a plain
+    `routing` becomes both `index_routing` and `search_routing`, routing
+    values as strings), `remove` (alias names may be patterns) and
+    `remove_index` (`delete_index(name)`). `index` / `indices` and
+    `alias` / `aliases` are interchangeable, and an index part with `*`
+    names every open index it matches."""
+
+    def targets(spec, key, plural):
+        vals = spec.get(plural)
+        if vals is None:
+            one = spec.get(key)
+            if one is None:
+                raise IllegalArgumentError(f"[{key}] is required")
+            vals = [one]
+        elif isinstance(vals, str):
+            vals = [vals]
+        return [str(v) for v in vals]
+
+    def services(spec):
+        for name in targets(spec, "index", "indices"):
+            yield from (resolve_expression(indices, name) if "*" in name
+                        else [get_index(indices, name)])
+
+    for action in actions:
+        if "add" in action:
+            spec = action["add"]
+            opts = {k: v for k, v in spec.items()
+                    if k not in ("index", "indices", "alias", "aliases")}
+            if "routing" in opts:
+                routing = opts.pop("routing")
+                opts.setdefault("index_routing", str(routing))
+                opts.setdefault("search_routing", str(routing))
+            for rk in ("index_routing", "search_routing"):
+                if rk in opts:
+                    opts[rk] = str(opts[rk])
+            for svc in services(spec):
+                for alias in targets(spec, "alias", "aliases"):
+                    svc.aliases[alias] = dict(opts)
+        elif "remove" in action:
+            spec = action["remove"]
+            for svc in services(spec):
+                for alias in targets(spec, "alias", "aliases"):
+                    if "*" in alias:
+                        for a in [a for a in svc.aliases
+                                  if fnmatch.fnmatch(a, alias)]:
+                            svc.aliases.pop(a, None)
+                    else:
+                        svc.aliases.pop(alias, None)
+        elif "remove_index" in action:
+            for name in targets(action["remove_index"], "index", "indices"):
+                delete_index(name)
+        else:
+            raise IllegalArgumentError(
+                "alias action must be add, remove, or remove_index")
 
 
 def flat_settings(settings: Optional[dict]) -> Dict[str, object]:
@@ -227,7 +399,8 @@ class IndexService:
         if str(self.settings.get("index.hidden", "false")).lower() != "false":
             raise IllegalArgumentError(
                 "index setting [index.hidden] is not supported by this "
-                "build: hidden indices are not ported")
+                "build: hidden indices are not ported (ROADMAP.md queue 1 "
+                "item 16)")
         knn_engine, knn_nlist, knn_nprobe = validate_knn_settings(
             self.settings)
         # the generational device corpus's knobs (`segments/`)
@@ -251,6 +424,35 @@ class IndexService:
         # the index's scatter-gather kNN store over its shards (the node's
         # `_MultiShardVectorStore`, set when the node creates the index)
         self.vector_store = None
+        self.aliases: Dict[str, dict] = {}
+        self.closed = False
+
+    @property
+    def num_replicas(self) -> int:
+        """`index.number_of_replicas`, read live (a settings update
+        changes it)."""
+        return int(self.settings.get("index.number_of_replicas", 1))
+
+    def settings_update(self, updates: Dict[str, object]) -> None:
+        """Dynamic settings (flat `index.*` keys) merged into the index's;
+        `null` resets a key to its default. `index.number_of_shards` and
+        `index.uuid` are static, and the removed translog retention
+        settings are refused, as in the reference. The dict is updated in
+        place: every reader of `settings` sees the new values."""
+        for key in updates:
+            if key.replace("index.", "", 1).startswith(
+                    "translog.retention."):
+                raise IllegalArgumentError(
+                    f"Translog retention setting [{key}] is no longer "
+                    f"supported; history is retained by soft deletes")
+            if key in ("index.number_of_shards", "index.uuid"):
+                raise IllegalArgumentError(
+                    f"setting [{key}] is not dynamically updateable")
+        for k, v in updates.items():
+            if v is None:
+                self.settings.pop(k, None)
+            else:
+                self.settings[k] = v
 
     def _single(self) -> IndexShardHandle:
         if self.num_shards != 1:

@@ -78,14 +78,31 @@ index runs (`_rewrite_terms_lookup`: `search`, both hybrid paths,
 readers under an id (`node_admin.PointInTimeService`), which no search
 reads, as in the reference.
 
-Left out, as ROADMAP.md lists: aliases and closed indices (queue 1 item
-15), hidden indices and date math in expressions (item 16), and hybrid
-bodies over several indices (each a 400)."""
+Aliases, closed indices and dynamic settings: every route that takes an
+index expression resolves aliases (a pattern matches alias names too) and
+skips closed indices under patterns (`resolve`; a concretely named closed
+index is the reference's `index_closed_exception` on a data operation;
+the index-info routes resolve as the reference's REST layer does,
+`resolve_info`); a document operation takes a single-index alias
+(`index`). `close_index` refreshes the index and flips the flag,
+`open_index` flips it back; the device state stays, so a reopened index
+serves the same hits without a rebuild. Dynamic index settings
+(`IndexService.settings_update`) are read live by the searches.
+
+Node features (`node_admin.py`): `_analyze` (`analyze`), single-node
+`cluster_health` (replicas that can never assign make it yellow),
+`termvectors_api`, `nodes_info_api`, async search, the reindex family,
+field caps, query validation and explain.
+
+Left out, as ROADMAP.md lists: hidden indices and date math in
+expressions (queue 1 item 16), and hybrid bodies over several indices
+(each a 400)."""
 
 from __future__ import annotations
 
 import copy
 import difflib
+import fnmatch
 import itertools
 import json
 import threading
@@ -105,12 +122,13 @@ from elasticsearch_tpu_torch.common.errors import (
     SearchPhaseExecutionError, VersionConflictError,
 )
 from elasticsearch_tpu_torch.indices.service import (  # noqa: F401
-    SHARD_ROW_SPACE, IndexService, flat_settings, resolve_expression,
-    validate_index_name, validate_knn_settings,
+    SHARD_ROW_SPACE, IndexService, check_open, flat_settings, get_index,
+    index_or_alias_exists, resolve_expression, resolve_info,
+    update_aliases, validate_index_name, validate_knn_settings,
 )
 from elasticsearch_tpu_torch.common.settings import parse_time_value
 from elasticsearch_tpu_torch.node_admin import (
-    PointInTimeService, ScrollService, TaskManager,
+    AsyncSearchService, PointInTimeService, ScrollService, TaskManager,
 )
 from elasticsearch_tpu_torch.ops import dispatch
 from elasticsearch_tpu_torch.search.agg_partials import (
@@ -141,6 +159,7 @@ from elasticsearch_tpu_torch.serving.batcher import CombiningBatcher
 from elasticsearch_tpu_torch.telemetry import metrics as _telemetrics
 from elasticsearch_tpu_torch.telemetry import trace as _teletrace
 
+VERSION = "8.0.0-torch"
 _SHARDS_OK = {"total": 1, "successful": 1, "failed": 0}
 # the index stats metrics of the reference (`RestIndicesStatsAction`);
 # the port serves the two cache sections
@@ -359,6 +378,7 @@ class Node:
         self._agg_router = CostRouter()
         self.scrolls = ScrollService()
         self.pits = PointInTimeService()
+        self.async_search = AsyncSearchService()
         self._lock = threading.Lock()
 
     # -------------------------------------------------------------- indices
@@ -376,40 +396,361 @@ class Node:
             svc = IndexService(name, body.get("mappings"), self.device,
                                settings=settings)
             svc.vector_store = _MultiShardVectorStore(svc)
+            svc.aliases = {a: dict(spec or {})
+                           for a, spec in (body.get("aliases") or {}).items()}
             self.indices[name] = svc
         return {"acknowledged": True, "shards_acknowledged": True,
                 "index": name}
 
     def index(self, name: str) -> IndexService:
-        svc = self.indices.get(name)
-        if svc is None:
-            raise IndexNotFoundError(name)
-        return svc
+        """The index a document operation addresses: a name or a
+        single-index alias (`get_index`)."""
+        with self._lock:
+            indices = dict(self.indices)
+        return get_index(indices, name)
 
     def resolve(self, expression: Optional[str],
                 ignore_unavailable: bool = False,
-                allow_no_indices: bool = True) -> List[IndexService]:
-        """The indices an expression names (`resolve_expression`)."""
+                allow_no_indices: bool = True, expand_open: bool = True,
+                expand_closed: bool = False,
+                forbid_closed: bool = True) -> List[IndexService]:
+        """The indices an expression names (`resolve_expression`): by
+        default for a data operation, which refuses a closed index it
+        names (`forbid_closed`)."""
         with self._lock:
             indices = dict(self.indices)
         return resolve_expression(indices, expression,
                                   ignore_unavailable=ignore_unavailable,
-                                  allow_no_indices=allow_no_indices)
+                                  allow_no_indices=allow_no_indices,
+                                  expand_open=expand_open,
+                                  expand_closed=expand_closed,
+                                  forbid_closed=forbid_closed)
+
+    def resolve_info(self, expression: Optional[str],
+                     ignore_unavailable: bool = False,
+                     allow_no_indices: bool = True,
+                     expand_open: bool = True,
+                     expand_closed: bool = False) -> List[IndexService]:
+        """The indices an index-info API names (`resolve_info`)."""
+        with self._lock:
+            indices = dict(self.indices)
+        return resolve_info(indices, expression, ignore_unavailable,
+                            allow_no_indices, expand_open, expand_closed)
+
+    # ------------------------------------------ aliases, open / close state
+    def update_aliases(self, actions: List[dict]) -> dict:
+        """`POST /_aliases`: the actions in order (`update_aliases`); a
+        `remove_index` deletes its index as `DELETE /{index}` does."""
+        with self._lock:
+            indices = dict(self.indices)
+        update_aliases(indices, actions, self.delete_index)
+        return {"acknowledged": True}
+
+    def close_index(self, name: str) -> None:
+        """`POST /{index}/_close`: the index refreshed (the reference's
+        close flushes, which refreshes; the port has no translog to
+        commit), then data operations on it are refused until it is
+        opened; its shards, stores and device corpora stay as they
+        are."""
+        svc = self.index(name)
+        svc.refresh()
+        svc.closed = True
+
+    def open_index(self, name: str) -> None:
+        self.index(name).closed = False
+
+    # --------------------------------------------------------- node features
+    def analyze(self, body: dict, index: Optional[str] = None) -> dict:
+        """`_analyze`: the tokens of `text` (a string or a list, a position
+        gap of one between texts) under a named analyzer (the builtins,
+        or the index's own with an index in the path), or a custom chain
+        of `tokenizer`, `filter` and `char_filter`; `explain` answers the
+        detail form. More tokens than `index.analyze.max_token_count`
+        (10,000 by default) is the reference's 400."""
+        from elasticsearch_tpu_torch.index import analysis
+        text = body.get("text", "")
+        texts = text if isinstance(text, list) else [text]
+        registry = analysis.DEFAULT_REGISTRY
+        max_tokens = 10_000
+        if index and self.index_exists(index):
+            svc = self.index(index)
+            registry = svc.mapper_service.registry
+            max_tokens = int(svc.settings.get(
+                "index.analyze.max_token_count", 10_000))
+        custom = "tokenizer" in body or "filter" in body \
+            or "char_filter" in body
+        filters, filter_names = [], []
+        if custom:
+            tok_spec = body.get("tokenizer", "keyword")
+            if isinstance(tok_spec, dict):
+                tokenizer = analysis._build_tokenizer(tok_spec)
+                tok_name = tok_spec.get("type", "custom")
+            else:
+                tokenizer = analysis._builtin_tokenizer(str(tok_spec))
+                tok_name = str(tok_spec)
+            specs = [body["filter"]] if isinstance(body.get("filter"), dict) \
+                else analysis._as_list(body.get("filter", []))
+            for f in specs:
+                if isinstance(f, dict):
+                    filters.append(analysis._build_filter(f))
+                    filter_names.append(f.get("type", "custom"))
+                else:
+                    filters.append(analysis._builtin_filter(str(f)))
+                    filter_names.append(str(f))
+            analyzer = analysis.Analyzer("__custom__", tokenizer, filters)
+            analyzer_name = None
+        else:
+            analyzer_name = body.get("analyzer", "standard")
+            analyzer = registry.get(analyzer_name)
+
+        def render(toks, base):
+            return [{"token": t.term, "start_offset": t.start_offset,
+                     "end_offset": t.end_offset, "type": "<ALPHANUM>",
+                     "position": base + t.position} for t in toks]
+
+        tokens, tokenizer_tokens, pos = [], [], 0
+        for t in texts:
+            text_tokens = analyzer.analyze(str(t))
+            if len(tokens) + len(text_tokens) > max_tokens:
+                raise IllegalArgumentError(
+                    f"The number of tokens produced by calling _analyze "
+                    f"has exceeded the allowed maximum of [{max_tokens}]. "
+                    f"This limit can be set by changing the "
+                    f"[index.analyze.max_token_count] index level setting.")
+            tokens.extend(render(text_tokens, pos))
+            if custom:
+                tokenizer_tokens.extend(render(analyzer.tokenizer(str(t)),
+                                               pos))
+            pos += len(text_tokens) + 1
+        if body.get("explain"):
+            if custom:
+                detail = {"custom_analyzer": True,
+                          "tokenizer": {"name": tok_name,
+                                        "tokens": tokenizer_tokens}}
+                if filter_names:
+                    detail["tokenfilters"] = [{"name": n, "tokens": tokens}
+                                              for n in filter_names]
+                return {"detail": detail}
+            return {"detail": {"custom_analyzer": False,
+                               "analyzer": {"name": analyzer_name,
+                                            "tokens": tokens}}}
+        return {"tokens": tokens}
+
+    def cluster_health(self, index: Optional[str] = None,
+                       level: str = "cluster",
+                       expand_wildcards: str = "all") -> dict:
+        """Single-node health: replicas can never assign, so an index with
+        replicas makes the cluster yellow; closed indices count too, and
+        patterns take both open and closed ones unless
+        `expand_wildcards` says otherwise. Parts match index names only,
+        as the reference's do: a concrete index that does not exist (an
+        alias too) makes it red and timed out (the REST layer's 408)."""
+        tokens = {t for t in str(expand_wildcards).split(",") if t}
+        want_open = bool(tokens & {"open", "all"})
+        want_closed = bool(tokens & {"closed", "all"})
+        with self._lock:
+            indices = dict(self.indices)
+        missing_concrete = False
+        if index:
+            services = []
+            for part in index.split(","):
+                part = part.strip()
+                matched = False
+                for name, svc in indices.items():
+                    if not (fnmatch.fnmatch(name, part) if "*" in part
+                            else name == part):
+                        continue
+                    if "*" in part and not (want_closed if svc.closed
+                                            else want_open):
+                        continue
+                    services.append(svc)
+                    matched = True
+                if not matched and "*" not in part:
+                    missing_concrete = True
+        else:
+            services = [s for s in indices.values()
+                        if (want_closed if s.closed else want_open)]
+        services = list({s.name: s for s in services}.values())
+        shards = sum(s.num_shards for s in services)
+        unassigned = sum(s.num_shards * s.num_replicas for s in services)
+        total = shards + unassigned
+        out = {
+            "cluster_name": self.cluster_name,
+            "status": "yellow" if unassigned else "green",
+            "timed_out": False, "number_of_nodes": 1,
+            "number_of_data_nodes": 1, "active_primary_shards": shards,
+            "active_shards": shards, "relocating_shards": 0,
+            "initializing_shards": 0, "unassigned_shards": unassigned,
+            "delayed_unassigned_shards": 0, "number_of_pending_tasks": 0,
+            "number_of_in_flight_fetch": 0,
+            "task_max_waiting_in_queue_millis": 0,
+            "active_shards_percent_as_number":
+                (shards / total * 100.0) if total else 100.0,
+        }
+        if missing_concrete:
+            out["status"] = "red"
+            out["timed_out"] = True
+        if level in ("indices", "shards"):
+            indices_out = {}
+            for svc in services:
+                un = svc.num_shards * svc.num_replicas
+                entry = {"status": "yellow" if un else "green",
+                         "number_of_shards": svc.num_shards,
+                         "number_of_replicas": svc.num_replicas,
+                         "active_primary_shards": svc.num_shards,
+                         "active_shards": svc.num_shards,
+                         "relocating_shards": 0, "initializing_shards": 0,
+                         "unassigned_shards": un}
+                if level == "shards":
+                    entry["shards"] = {
+                        str(s.shard_id): {
+                            "status": "yellow" if svc.num_replicas
+                            else "green",
+                            "primary_active": True, "active_shards": 1,
+                            "relocating_shards": 0,
+                            "initializing_shards": 0,
+                            "unassigned_shards": svc.num_replicas}
+                        for s in svc.shards}
+                indices_out[svc.name] = entry
+            out["indices"] = indices_out
+        return out
+
+    def termvectors_api(self, index: str, doc_id, spec: dict) -> dict:
+        """`_termvectors`: each text field's terms of a stored document (or
+        of an artificial `doc`) with their frequencies, positions and
+        offsets, `term_statistics` adding each term's doc_freq and ttf;
+        the field statistics describe the index's reader.
+        `realtime=false` reads only refreshed documents."""
+        spec = spec or {}
+        svc = self.index(index)
+        reader = svc.combined_reader()
+        realtime = spec.get("realtime", True)
+        if isinstance(realtime, str):
+            realtime = realtime not in ("false", "0")
+        if doc_id is not None:
+            if not realtime and not any(
+                    reader.get_id(int(r)) == str(doc_id)
+                    for r in reader.live_global_rows()):
+                return {"_index": index, "_id": doc_id, "_version": 1,
+                        "found": False, "took": 0}
+            got = self.get_doc(index, str(doc_id))
+            if not got.get("found"):
+                return {"_index": index, "_id": doc_id, "found": False,
+                        "took": 0}
+            source = got["_source"]
+        else:
+            source = spec.get("doc") or {}
+        fields = spec.get("fields")
+        want_stats = spec.get("term_statistics") in (True, "true", "")
+        out_fields = {}
+        for fname, value in (source or {}).items():
+            if fields and fname not in fields:
+                continue
+            mapper = svc.mapper_service.get(fname)
+            if mapper is None or getattr(mapper, "type_name", "") != "text" \
+                    or not hasattr(mapper, "analyze"):
+                continue
+            text_lower = str(value).lower()
+            terms: Dict[str, dict] = {}
+            cursor = 0
+            for pos, t in enumerate(mapper.analyze(str(value))):
+                start = text_lower.find(str(t).lower(), cursor)
+                entry = terms.setdefault(t, {"term_freq": 0, "tokens": []})
+                entry["term_freq"] += 1
+                tok = {"position": pos}
+                if start >= 0:
+                    cursor = start + len(str(t))
+                    tok["start_offset"] = start
+                    tok["end_offset"] = cursor
+                entry["tokens"].append(tok)
+            if want_stats:
+                for t, entry in terms.items():
+                    entry["doc_freq"] = reader.doc_freq(fname, t)
+                    entry["ttf"] = sum(
+                        int(p.freqs.sum()) for p in (
+                            v.segment.get_postings(fname, t)
+                            for v in reader.views) if p is not None)
+            # the live postings of every term: Σ doc_freq over the terms
+            sum_doc_freq = 0
+            for view in reader.views:
+                fp = view.segment.postings.get(fname)
+                if fp is not None:
+                    sum_doc_freq += int(view.live[fp.doc_ids].sum())
+            out_fields[fname] = {
+                "field_statistics": {
+                    "sum_doc_freq": sum_doc_freq,
+                    "doc_count": reader.docs_with_field_count(fname),
+                    "sum_ttf": reader.total_term_count(fname)},
+                "terms": terms}
+        return {"_index": index, "_id": doc_id, "_version": 1, "found": True,
+                "took": 0, "term_vectors": out_fields}
+
+    def local_node_info(self) -> dict:
+        """This node's `GET /_nodes` section: name, version, roles, its
+        settings nested, the process flags and its plugins (none)."""
+        nested: dict = {"client": {"type": "node"},
+                        "node": {"name": self.node_name},
+                        "cluster": {"name": self.cluster_name}}
+        for key, value in self.settings.items():
+            cur = nested
+            parts = str(key).split(".")
+            for part in parts[:-1]:
+                nxt = cur.setdefault(part, {})
+                if not isinstance(nxt, dict):
+                    break
+                cur = nxt
+            else:
+                cur[parts[-1]] = value
+        return {"name": self.node_name, "version": VERSION,
+                "roles": ["master", "data", "ingest"], "settings": nested,
+                "process": {"mlockall": False, "seccomp": False},
+                "plugins": []}
+
+    def nodes_info_api(self) -> dict:
+        return self._nodes_envelope({self.node_id: self.local_node_info()})
 
     def delete_index(self, expression: str, ignore_unavailable: bool = False,
                      allow_no_indices: bool = True) -> dict:
-        """`DELETE /{index}` of every index the expression names
-        (`resolve`). A deleted index lets go of its device memory: its
-        shard stores' corpora, snapshots and batchers and its hybrid
-        executor (token tiles, lexical and sparse boards)."""
-        for svc in self.resolve(expression, ignore_unavailable,
-                                allow_no_indices):
+        """`DELETE /{index}` of every index the expression names: patterns
+        match index names, closed indices too; a concrete name must be an
+        index (an alias is the reference's 400, a missing name a 404,
+        both skipped under `ignore_unavailable`). A deleted index lets go
+        of its device memory: its shard stores' corpora, snapshots and
+        batchers and its hybrid executor (token tiles, lexical and sparse
+        boards)."""
+        with self._lock:
+            indices = dict(self.indices)
+        names: List[str] = []
+        for part in expression.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            if part.startswith("<") and part.endswith(">"):
+                resolve_expression(indices, part)   # date math: the 400
+            if "*" in part or part == "_all":
+                pat = "*" if part == "_all" else part
+                matched = [n for n in indices if fnmatch.fnmatchcase(n, pat)]
+                if not matched and not allow_no_indices:
+                    raise IndexNotFoundError(part)
+                names.extend(matched)
+                continue
+            if part not in indices:
+                if ignore_unavailable:
+                    continue
+                if any(part in s.aliases for s in indices.values()):
+                    raise IllegalArgumentError(
+                        f"The provided expression [{part}] matches an "
+                        f"alias, specify the corresponding concrete "
+                        f"indices instead.")
+                raise IndexNotFoundError(part)
+            names.append(part)
+        for name in dict.fromkeys(names):
             with self._lock:
-                gone = self.indices.pop(svc.name, None)
-                self._hybrid.pop(svc.name, None)
-                self._aggs.pop(svc.name, None)
+                gone = self.indices.pop(name, None)
+                self._hybrid.pop(name, None)
+                self._aggs.pop(name, None)
             if gone is None:
-                raise IndexNotFoundError(svc.name)
+                raise IndexNotFoundError(name)
             gone.close()
         return {"acknowledged": True}
 
@@ -417,7 +758,9 @@ class Node:
         """`HEAD /{index}`: every part names an index or is a `*` pattern.
         `_all` is taken as a name here, as the reference takes it, so it
         is a 404."""
-        return all(p in self.indices or "*" in p
+        with self._lock:
+            indices = dict(self.indices)
+        return all(index_or_alias_exists(indices, p) or "*" in p
                    for p in expression.split(","))
 
     def put_mapping(self, expression: str, body: dict) -> dict:
@@ -427,7 +770,7 @@ class Node:
                 and "properties" in body["_doc"]:
             raise IllegalArgumentError(
                 "Types cannot be provided in put mapping requests")
-        services = self.resolve(expression)
+        services = self.resolve(expression, forbid_closed=False)
         if not services:
             raise IndexNotFoundError(expression)
         for svc in services:
@@ -435,12 +778,16 @@ class Node:
         return {"acknowledged": True}
 
     def _index_or_autocreate(self, name: str) -> IndexService:
-        if name not in self.indices:
+        """The open index a write addresses (a name or a single-index
+        alias), created when neither exists."""
+        with self._lock:
+            exists = index_or_alias_exists(self.indices, name)
+        if not exists:
             try:
                 self.create_index(name, None)
             except ResourceAlreadyExistsError:
                 pass  # raced: another writer created it
-        return self.indices[name]
+        return check_open(self.index(name))
 
     # ------------------------------------------------------------ documents
     @staticmethod
@@ -503,7 +850,7 @@ class Node:
 
     def get_doc(self, index: str, doc_id: str,
                 routing: Optional[str] = None, realtime: bool = True) -> dict:
-        svc = self.index(index)
+        svc = check_open(self.index(index))
         doc = svc.route(doc_id, routing).engine.get(doc_id, realtime=realtime)
         if doc is None:
             return {"_index": svc.name, "_id": doc_id, "found": False}
@@ -525,7 +872,7 @@ class Node:
                    version_type: str = "internal") -> dict:
         """Delete one document; a missing one raises
         `DocumentMissingError` (the REST layer's 404 `not_found`)."""
-        svc = self.index(index)
+        svc = check_open(self.index(index))
         shard = svc.route(doc_id, routing)
         res = shard.engine.delete(doc_id, if_seq_no=if_seq_no,
                                   if_primary_term=if_primary_term,
@@ -668,7 +1015,7 @@ class Node:
             routing = None if routing is None else str(routing)
             try:
                 if refresh and index not in refreshed:
-                    self.index(index).refresh()
+                    check_open(self.index(index)).refresh()
                     refreshed.add(index)
                 doc = self.get_doc(index, doc_id, routing=routing,
                                    realtime=realtime)
@@ -683,8 +1030,8 @@ class Node:
                 docs.append({"_index": index, "_id": doc_id,
                              "error": e.to_dict()})
                 continue
-            _apply_mget_projection(self.indices.get(index), doc, spec,
-                                   stored_fields, source_filter)
+            _apply_mget_projection(self.indices.get(doc["_index"]), doc,
+                                   spec, stored_fields, source_filter)
             docs.append(doc)
         return {"docs": docs}
 
@@ -843,6 +1190,7 @@ class Node:
                     raise IllegalArgumentError("index is missing")
                 self._check_bulk_source(source)
                 svc = self._index_or_autocreate(name)
+                name = svc.name
                 row_id, row_op = doc_id, op
                 if doc_id is None:
                     row_id, row_op = uuid.uuid4().hex[:20], "create"
@@ -1078,7 +1426,8 @@ class Node:
     def search(self, index_expr: Optional[str], body: Optional[dict],
                pre_filter_shard_size: Optional[int] = None,
                ignore_unavailable: bool = False,
-               allow_no_indices: bool = True) -> dict:
+               allow_no_indices: bool = True,
+               expand_closed: bool = False) -> dict:
         """`_search` over an index expression (`resolve`: none, `_all`, a
         list, `*` patterns). Each index runs its query phase through its
         own store and the shard request cache (keyed on that index); the
@@ -1091,7 +1440,10 @@ class Node:
         general one (`_search_rrf_general`), as in the reference. A
         `profile` body answers `profile.shards`, one entry an index
         (`search/profile.py::shard_profile`), from that index's query phase
-        with the thread's launch event trace on."""
+        with the thread's launch event trace on. `expand_closed`
+        (`expand_wildcards` naming closed indices) lets patterns match
+        closed indices, which the search then refuses, as the reference
+        does."""
         start = time.perf_counter()
         body = self._rewrite_terms_lookup(body or {})
         check_track_total_hits(body)
@@ -1112,7 +1464,8 @@ class Node:
             return self._search_rrf_general(index_expr, body,
                                             rank["rrf"] or {})
         services = self.resolve(index_expr, ignore_unavailable,
-                                allow_no_indices)
+                                allow_no_indices,
+                                expand_closed=expand_closed)
         boosts = self._index_boosts(body.get("indices_boost"),
                                     ignore_unavailable)
         aggs_spec = body.get("aggs") or body.get("aggregations")
@@ -1600,7 +1953,7 @@ class Node:
         new id."""
         keep = parse_time_value(keep_alive, "keep_alive")
         readers = [(svc, svc.combined_reader())
-                   for svc in self.resolve(index_expr)]
+                   for svc in self.resolve(index_expr, forbid_closed=False)]
         return {"id": self.pits.open(index_expr, readers, keep)}
 
     def close_point_in_time(self, pit_id) -> dict:
@@ -1699,7 +2052,8 @@ class Node:
                 raise IllegalArgumentError(
                     f"request [/_stats/{m}] contains unrecognized "
                     f"metric: [{m}]{hint}")
-        services = self.resolve(name)
+        services = [s for s in self.resolve(name, forbid_closed=False)
+                    if not s.closed]
         sections = {m: {"memory_size_in_bytes": 0, "hit_count": 0,
                         "miss_count": 0, "evictions": 0}
                     for m in _PORTED_STATS if m in keep}

@@ -5,7 +5,9 @@ The query dispatches to the shard's device vector store and converts raw
 similarities to the `_search` knn `_score` convention. An optional filter
 query runs first on the host; its rows go to the store, which masks
 everything else out of the exact route. There is no host fallback:
-without a store attached it raises. The context's `deadline_at` rides
+without a store attached it raises. A context with `knn_exact` set (the
+`_explain` API's) sends an unfiltered clause to the store's exact route,
+every live row its filter. The context's `deadline_at` rides
 into the store's batcher, and the store's phases of the search become the
 context's `knn_phases`.
 """
@@ -52,6 +54,9 @@ class KnnQuery(Query):
         filter_rows = None
         if self.filter_query is not None:
             filter_rows = self.filter_query.execute(ctx).rows
+        elif ctx.knn_exact:
+            # every live row as the filter: the store's exact route
+            filter_rows = ctx.all_rows()
         store = ctx.vector_store
         if store is None:
             raise IllegalArgumentError(

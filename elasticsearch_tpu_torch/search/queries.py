@@ -145,6 +145,8 @@ class SearchContext:
         self.knn_phases: Optional[dict] = None
         # `search.allow_expensive_queries`, set by the node
         self.allow_expensive = True
+        # a `knn` clause scores on the store's exact route (`_explain`)
+        self.knn_exact = False
         self._all_rows: Optional[np.ndarray] = None
 
     def all_rows(self) -> np.ndarray:

@@ -310,9 +310,6 @@ def _query_window(ctx: SearchContext, body: dict) -> QueryPhaseResult:
     check_request(body, settings)
     frm, size = window(body)
     end = frm + size
-    if not body.get("__unbounded_window__"):
-        # a scroll's snapshot takes every row
-        check_result_window(end, settings)
     sort_spec = normalize_sort(body.get("sort"))
     result = _body_query(body).execute(ctx).with_scores()
     rows, scores = result.rows, result.scores
@@ -346,6 +343,7 @@ def _query_window(ctx: SearchContext, body: dict) -> QueryPhaseResult:
             "cannot use `collapse` in conjunction with `search_after`")
     if sort_spec is None and search_after is None and collapse is None:
         max_score = float(scores.max()) if len(scores) else None
+        _check_window(body, end, settings)
         # score desc, ties by row asc (rows arrive ascending)
         order = native.topk(scores, min(end, len(rows)))
         return QueryPhaseResult(rows[order], scores[order], total, relation,
@@ -363,11 +361,20 @@ def _query_window(ctx: SearchContext, body: dict) -> QueryPhaseResult:
     # over the collapsed rows before the cut, as the reference reads it
     max_score = (float(scores[order].max())
                  if len(order) and sort_spec is None else None)
+    _check_window(body, end, settings)
     order = order[:end]
     sort_values = (sort_tuples(ctx.reader, columns, rows, scores, order)
                    if sort_spec is not None else None)
     return QueryPhaseResult(rows[order], scores[order], total, relation,
                             max_score, sort_values, agg_rows)
+
+
+def _check_window(body: dict, end: int, settings: dict) -> None:
+    """`index.max_result_window` once the query, sort and collapse ran, as
+    the reference checks it (so their errors come first); a scroll's
+    snapshot takes every row."""
+    if not body.get("__unbounded_window__"):
+        check_result_window(end, settings)
 
 
 def encode_uid(doc_id: str) -> bytes:

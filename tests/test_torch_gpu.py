@@ -1208,6 +1208,69 @@ def test_deletes_updates_and_union_on_cuda(cuda, monkeypatch, shards):
     assert _req(grc, "POST", "/a/_search", body)[0] == 404
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 3])
+def test_by_query_writes_on_cuda(cuda, monkeypatch, shards):
+    """`_delete_by_query` and `_update_by_query` on a CUDA index answer as
+    on a CPU node (counts, then kNN hits within 1e-3 and `_count`), the
+    refresh they end with takes the generational path (no full rebuild),
+    and a later kNN returns no deleted id: on the exact legs of the
+    tombstoned generations, then, after `_forcemerge`, on the binned
+    kernel once a shard."""
+    pair = _doc_pair(cuda, monkeypatch)
+    rng = np.random.default_rng(61 + shards)
+    vecs = rng.standard_normal((3000, 64)).astype(np.float32)
+    for node, rc in pair:
+        assert _req(rc, "PUT", "/a", {
+            "settings": {"number_of_shards": shards},
+            "mappings": {"properties": {
+                "emb": {"type": "dense_vector", "dims": 64,
+                        "similarity": "cosine"},
+                "tag": {"type": "keyword"}}}})[0] == 200
+        node.index("a").index_many([str(i) for i in range(3000)],
+                                   vectors={"emb": vecs})
+        assert _req(rc, "POST", "/a/_refresh")[0] == 200
+    (gnode, grc), (_, crc) = pair
+    gone = [str(i) for i in range(0, 3000, 3)]
+    bodies = [("/a/_delete_by_query", {"query": {"ids": {"values": gone}}}),
+              ("/a/_update_by_query", {
+                  "query": {"ids": {"values": [str(i) for i in
+                                               range(1, 3000, 7)]}},
+                  "script": {"source": "ctx._source.tag = 'seen'"}})]
+    for path, body in bodies:
+        before = [s.vector_store.segment_stats()["full_rebuilds"]
+                  for s in gnode.index("a").shards]
+        status, got = _req(grc, "POST", path, body)
+        assert status == 200
+        _, want = _req(crc, "POST", path, body)
+        assert {k: v for k, v in got.items() if k != "took"} == \
+            {k: v for k, v in want.items() if k != "took"}
+        after = [s.vector_store.segment_stats()["full_rebuilds"]
+                 for s in gnode.index("a").shards]
+        assert after == before, (path, before, after)
+    queries = rng.standard_normal((8, 64)).astype(np.float32)
+    for merged in (False, True):
+        if merged:
+            for _, rc in pair:
+                assert _req(rc, "POST", "/a/_forcemerge")[0] == 200
+        for q in queries:
+            body = {"knn": {"field": "emb", "query_vector": q.tolist(),
+                            "k": 10, "num_candidates": 50}, "size": 10}
+            dispatch.reset_launches()
+            status, got = _req(grc, "POST", "/a/_search", body)
+            assert status == 200
+            # tombstoned generations take the exact legs; merged, the
+            # binned kernel once a shard
+            assert dispatch.launches().get(kb.KERNEL_BF16, 0) == \
+                (shards if merged else 0)
+            _, want = _req(crc, "POST", "/a/_search", body)
+            _same_hits(got, want, 1e-3)
+            assert not {h["_id"] for h in got["hits"]["hits"]} & set(gone)
+    for body in (None, {"query": {"term": {"tag": "seen"}}}):
+        assert _req(grc, "POST", "/a/_count", body)[1]["count"] == \
+            _req(crc, "POST", "/a/_count", body)[1]["count"]
+
+
 def _mixed_pair(cuda, monkeypatch, shards: int, names=("a", "b")):
     """`_doc_pair` with the search-body tests' mixed indices
     (`tests/torch_mixed.py`, imported by its module name: pytest puts

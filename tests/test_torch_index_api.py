@@ -8,7 +8,8 @@ names, lists and patterns, `_mapping` GET (every field type the port maps,
 expression part. Then, on the port alone: a deleted
 index lets go of its stores' corpora and its hybrid executor, and a
 recreated index of the same name misses the request cache, and
-`expand_wildcards` beyond `open` and `index.hidden` are 400s."""
+`expand_wildcards` naming hidden indices and `index.hidden` are 400s
+(`closed` and `none` through both layers)."""
 
 import gc
 import weakref
@@ -106,19 +107,30 @@ def test_allow_no_indices_per_part(pair):
 @pytest.mark.parametrize("expand", ["all", "hidden", "closed", "open,hidden",
                                     "none"])
 def test_expand_wildcards_beyond_open_refused(pair, expand):
-    """Closed and hidden indices are not ported: `expand_wildcards` other
-    than `open` is a 400 that names the parameter, on every API that
-    resolves an expression, and so is an `index.hidden` setting."""
+    """`expand_wildcards` values that name hidden indices (`all`,
+    `hidden`) are a 400 that names the parameter and its ROADMAP.md item
+    on every API that resolves an expression, and so is an `index.hidden`
+    setting; `closed` and `none` answer as the reference does, with a
+    closed index beside the open one."""
     _create(pair, "logs-a")
     q = {"expand_wildcards": expand}
-    for method, path in (("POST", "/logs-*/_search"), ("GET", "/logs-*"),
-                         ("GET", "/_mapping"), ("GET", "/_settings"),
-                         ("DELETE", "/logs-*")):
-        status, resp = pair.port(method, path, query=q)
-        assert status == 400, (path, resp)
-        assert "[expand_wildcards]" in resp["error"]["reason"]
+    requests = (("POST", "/logs-*/_search"), ("GET", "/logs-*"),
+                ("GET", "/_mapping"), ("GET", "/_settings"),
+                ("DELETE", "/logs-*"))
+    if expand in ("closed", "none"):
+        _create(pair, "logs-b")
+        pair.same("POST", "/logs-b/_close")
+        for method, path in requests:
+            pair.same(method, path, query=q)
+    else:
+        for method, path in requests:
+            status, resp = pair.port(method, path, query=q)
+            assert status == 400, (path, resp)
+            assert "[expand_wildcards]" in resp["error"]["reason"]
+            assert "item 16" in resp["error"]["reason"]
+    _create(pair, "logs-c")
     pair.same("POST", "/logs-*/_search", query={"expand_wildcards": "open"})
-    pair.same("HEAD", "/logs-a")
+    pair.same("HEAD", "/logs-c")
     status, resp = pair.port("PUT", "/hid", {"settings": {
         "index": {"hidden": True}}})
     assert status == 400 and "[index.hidden]" in resp["error"]["reason"]

@@ -52,7 +52,7 @@ def test_port_imports_without_jax_or_reference():
                  "search.profile", "script", "script.painless",
                  "script.service", "script.mustache", "search.script_score",
                  "search.extras", "rest.actions_script",
-                 "search.agg_pipelines"):
+                 "search.agg_pipelines", "rest.cat", "rest.actions_extra"):
         assert f"elasticsearch_tpu_torch.{name}" in names
     code = (
         "import sys\n"
